@@ -1,0 +1,116 @@
+"""Whole block-Jacobi PCG on a dense system in one launch: kernel K2
+(``csrc/pcg_dense.cu``).
+
+Counterpart of ``graphite_tpu/ops/pallas/pcg_dense.py`` (``dense_pcg``).
+Solves S x = b with the dense block-Jacobi preconditioner M; the matvecs
+are row-vector products ``p @ S`` and ``y @ M`` as in the TPU kernel.
+Returns ``(x, iterations)``, ``iterations`` being the number of CG steps
+taken (a 0-d int tensor on the device).
+
+CPU tensors take the plain version (``dense_pcg_plain``: ``run_pcg`` with
+the kernel's order of arithmetic); CUDA tensors launch K2 (float32,
+n <= 1024) or raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..pcg_loop import run_pcg
+from . import build
+from .launches import LaunchStats
+
+STATS = LaunchStats("pcg_dense.dense_pcg")
+
+MAX_N = 1024
+
+_SIGNATURES = {
+    # S, M, b, x, iters, n, max_iter, tol, rejection_ratio, stream
+    "gt_pcg_dense_f32": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                         ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                         ctypes.c_void_p],
+}
+
+
+def load_kernel() -> build.KernelLibrary:
+    """Build K2 (at first use) and load it."""
+    return build.load_library("pcg_dense", _SIGNATURES)
+
+
+def _threads(n: int) -> int:
+    """K2's block size for an n-vector."""
+    return (n + 31) // 32 * 32
+
+
+def _tree_sum(v: torch.Tensor) -> torch.Tensor:
+    """Sum of an n-vector in K2's block_sum order: a shuffle-down tree in
+    each warp of 32 threads, then the same tree over the warp partials."""
+    w = v.new_zeros(_threads(v.shape[0]))
+    w[: v.shape[0]] = v
+    w = w.reshape(-1, 32)
+    for o in (16, 8, 4, 2, 1):
+        w = w[:, :o] + w[:, o:2 * o]
+    lanes = v.new_zeros(32)
+    lanes[: w.shape[0]] = w[:, 0]
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes[:o] + lanes[o:2 * o]
+    return lanes[0]
+
+
+def _row_vec_mat(vec: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
+    """vec @ A summed over rows in order, one rounding per product and per
+    add, as K2's threads do."""
+    acc = torch.zeros_like(vec)
+    for j in range(A.shape[0]):
+        acc = acc + vec[j] * A[j]
+    return acc
+
+
+def dense_pcg_plain(S, M, b, *, max_iter: int, tol: float,
+                    rejection_ratio: float):
+    """Plain PyTorch version of K2 (the CPU path and the kernel's oracle):
+    ``run_pcg`` with v = p @ S and z = y @ M, every product, sum and dot
+    taken in K2's order, so the two agree bitwise on the same inputs."""
+    x, k = run_pcg(b, lambda p: _row_vec_mat(p, S),
+                   lambda y: _row_vec_mat(y, M), max_iter, tol,
+                   rejection_ratio, dot=lambda u, v: _tree_sum(u * v))
+    return x, torch.tensor(k, device=b.device)
+
+
+def dense_pcg(S: torch.Tensor, M: torch.Tensor, b: torch.Tensor, *,
+              max_iter: int, tol: float, rejection_ratio: float):
+    """Solve S x = b (S, M: (n, n); b: (n,)); returns (x, iterations)."""
+    if b.device.type == "cpu":
+        return dense_pcg_plain(S, M, b, max_iter=max_iter, tol=tol,
+                               rejection_ratio=rejection_ratio)
+    if b.device.type != "cuda":
+        raise NotImplementedError(f"no kernel for device {b.device}")
+    n = b.shape[0]
+    for name, t in (("S", S), ("M", M), ("b", b)):
+        if t.dtype != torch.float32:
+            raise NotImplementedError(
+                f"{STATS.name}: the CUDA kernel takes float32, {name} is "
+                f"{t.dtype}")
+        if t.device != b.device:
+            raise ValueError(f"{STATS.name}: {name} is on {t.device}")
+    if S.shape != (n, n) or M.shape != (n, n):
+        raise ValueError(f"{STATS.name}: S and M must be ({n}, {n})")
+    if not 0 < n <= MAX_N:
+        raise ValueError(f"{STATS.name}: n = {n} outside (0, {MAX_N}]")
+    S, M, b = S.contiguous(), M.contiguous(), b.contiguous()
+    x = torch.empty(n, dtype=torch.float32, device=b.device)
+    iters = torch.empty(1, dtype=torch.int32, device=b.device)
+    lib = load_kernel()
+    with torch.cuda.device(b.device):
+        stream = torch.cuda.current_stream(b.device).cuda_stream
+        ev = STATS.start()
+        err = lib.lib.gt_pcg_dense_f32(
+            S.data_ptr(), M.data_ptr(), b.data_ptr(), x.data_ptr(),
+            iters.data_ptr(), n, int(max_iter), float(tol),
+            float(rejection_ratio), stream)
+        lib.check(err, STATS.name)
+        STATS.done(ev)
+    return x, iters[0]

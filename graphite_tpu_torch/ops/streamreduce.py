@@ -1,0 +1,47 @@
+"""The one reduction primitive of the hot stages (counterpart of
+``graphite_tpu/ops/streamreduce.py``).
+
+``reduce_rows(values, plan)`` sums ``(K, D)`` contribution rows into
+``(num_segments, D)`` destination rows. The plan is built once per site on
+the host (``segment_plan``: the sort permutation, when the destinations
+are not already sorted, and the CSR segment offsets) and cached on the
+problem. Every site, sorted or not, goes through the sorted-segment-sum
+kernel on CUDA: no float atomics, and results are the same from run to
+run.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .cuda import segsum_stream
+from .cuda.segsum import SegmentPlan, plan_segments
+
+
+def segment_plan(problem, tag, seg: np.ndarray,
+                 num_segments: int) -> SegmentPlan:
+    """Cached plan of the reduction site ``tag`` (destinations ``seg``)."""
+    plans = problem._cache.setdefault("segment_plans", {})
+    if tag not in plans:
+        plans[tag] = plan_segments(seg, num_segments, problem.device)
+    return plans[tag]
+
+
+def reduce_rows(values: torch.Tensor, plan: SegmentPlan) -> torch.Tensor:
+    """(K, D) rows -> (num_segments, D) sums in ``values.dtype``."""
+    return segsum_stream.streaming_segment_sum(values, plan)
+
+
+def take_rows(problem, tag, arr: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
+    """``arr[idx]`` with identity (or prefix-identity) gathers elided:
+    Hessian value groups carry one trailing trash row, so ``arange(n)``
+    into an (n+1)-row group is a slice, not a gather."""
+    idx = np.asarray(idx)
+    ident = problem._cache.setdefault("identity_idx", {})
+    if tag not in ident:
+        ident[tag] = bool(arr.shape[0] >= idx.shape[0] and np.array_equal(
+            idx, np.arange(idx.size, dtype=idx.dtype)))
+    if ident[tag]:
+        return arr[:idx.shape[0]]
+    return arr.index_select(0, problem.index(tag, idx))

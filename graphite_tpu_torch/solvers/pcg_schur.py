@@ -1,0 +1,95 @@
+"""PCG on the explicit Schur system (counterpart of
+``graphite_tpu/solvers/pcg_schur.py``).
+
+Per solve: damp H, build the Schur values, b_S and the preconditioner, run
+PCG on S dx_p = b_S, then back-substitute the landmarks. The pose system
+is densified (dim_p <= ``dense_matvec_limit``); when dim_p <=
+``fused_pcg_limit``, the values are float32 and the preconditioner is
+block-Jacobi-Schur, the whole PCG runs as one ``dense_pcg`` call (kernel K2
+on CUDA), as in the JAX package. The block-sparse S matvec for larger pose
+systems is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..hessian import (
+    HessianValues,
+    apply_damping,
+    build_hessian_structure,
+    compute_hessian_values,
+)
+from ..linearize import Linearization
+from ..ops.cuda.pcg_dense import dense_pcg
+from ..ops.pcg_loop import run_pcg
+from ..preconditioners.block_jacobi_schur import (
+    BlockJacobiSchurPreconditioner,
+    dense_preconditioner_matrix,
+)
+from ..schur import SchurOps, build_schur_structure, schur_values
+from .dense_cholesky_schur import schur_to_dense
+
+
+@dataclasses.dataclass
+class SchurSolverState:
+    hvals: HessianValues  # undamped Hessian block values
+
+
+@dataclasses.dataclass(frozen=True)
+class PCGSchurSolver:
+    max_iter: int = 10
+    tol: float = 1.0
+    rejection_ratio: float = 5.0
+    preconditioner: object = dataclasses.field(
+        default_factory=BlockJacobiSchurPreconditioner)
+    dense_matvec_limit: int = 8192
+    fused_pcg_limit: int = 1024
+
+    def prepare(self, problem, lin: Linearization, params=None):
+        hs = build_hessian_structure(problem)
+        build_schur_structure(problem)
+        return SchurSolverState(
+            hvals=compute_hessian_values(problem, hs, lin))
+
+    def solve(self, problem, lin: Linearization, state: SchurSolverState,
+              damping, use_identity: bool, params=None):
+        """Returns (delta_x (dim_x,), ok)."""
+        # The Schur complement cancels catastrophically at reduced matmul
+        # precision: keep every float32 product in IEEE float32 (no TF32).
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        gdt = problem.precision.graph_dtype
+        hs = build_hessian_structure(problem)
+        ss = build_schur_structure(problem)
+        if ss.dim_p > self.dense_matvec_limit:
+            raise NotImplementedError(
+                f"dim_p = {ss.dim_p} > dense_matvec_limit: the block-sparse "
+                "Schur matvec is not ported yet")
+
+        hv = apply_damping(problem, hs, state.hvals, lin.diag, damping,
+                           use_identity)
+        sv = schur_values(problem, ss, hv)
+        ops = SchurOps(problem, ss, hv, sv)
+        b_s = ops.b_schur(lin.b)
+        pstate = self.preconditioner.prepare(problem, ss, sv)
+        S = schur_to_dense(problem, ss, sv)
+
+        if (ss.dim_p <= self.fused_pcg_limit and S.dtype == torch.float32
+                and isinstance(self.preconditioner,
+                               BlockJacobiSchurPreconditioner)):
+            M = dense_preconditioner_matrix(problem, ss, pstate, S.dtype)
+            dx_p, _ = dense_pcg(S, M, b_s.to(S.dtype), max_iter=self.max_iter,
+                                tol=self.tol,
+                                rejection_ratio=self.rejection_ratio)
+        else:
+            dx_p, _ = run_pcg(
+                b_s, lambda p: (S @ p.to(S.dtype)).to(gdt),
+                lambda y: self.preconditioner.apply(problem, ss, pstate, y),
+                self.max_iter, self.tol, self.rejection_ratio)
+        dx_p = dx_p.to(gdt)
+        dx_l_rows = ops.landmark_update(lin.b, dx_p)
+        ok = torch.ones((), dtype=torch.bool, device=problem.device)
+        return ops.compose_delta(dx_p, dx_l_rows), ok

@@ -1,0 +1,77 @@
+"""The port's main path end to end vs the JAX package: Levenberg-Marquardt
+with PCGSchurSolver(10, 1.0, 5.0) on the same synthetic BAL problem for 5
+iterations.
+
+- float64: the same accept pattern, chi2 per iteration to 1e-9 and the
+  final parameters to 1e-9 (only the reductions' summation order
+  differs).
+- float32: the same accept pattern and the final chi2 to 1e-3. Here the
+  port takes its fused dense-PCG branch (plain version on the CPU) and
+  the JAX package its while-loop PCG, as it does on the CPU.
+"""
+
+import numpy as np
+import torch
+
+import graphite_tpu as gt
+import graphite_tpu_torch as gtt
+from graphite_tpu.io import synthetic as jax_synth
+from graphite_tpu.io.bal import build_graph as jax_build_graph
+from graphite_tpu.optimizers import LevenbergMarquardtOptions as JaxOptions
+from graphite_tpu.optimizers import levenberg_marquardt as jax_lm
+from graphite_tpu.solvers import PCGSchurSolver as JaxPCGSchur
+from graphite_tpu_torch.interop import params_to_numpy
+from graphite_tpu_torch.io import bal as torch_bal_io
+from graphite_tpu_torch.io import synthetic as torch_synth
+from graphite_tpu_torch.ops.cuda import pcg_dense
+from graphite_tpu_torch.optimizers import LevenbergMarquardtOptions
+from graphite_tpu_torch.optimizers import levenberg_marquardt
+from graphite_tpu_torch.solvers import PCGSchurSolver
+
+torch.set_num_threads(1)
+
+SIZE = (12, 120, 700)
+ITERS = 5
+
+
+def _runs(jax_prec, torch_prec):
+    ds_j = jax_synth.make_bal(SIZE, seed=0, noise=0.5)
+    gj, *_ = jax_build_graph(ds_j, precision=jax_prec)
+    ref = jax_lm(gj.freeze(), JaxPCGSchur(10, 1.0, 5.0),
+                 options=JaxOptions(iterations=ITERS))
+    ds_t = torch_synth.make_bal(SIZE, seed=0, noise=0.5)
+    gp, *_ = torch_bal_io.build_graph(ds_t, precision=torch_prec)
+    out = levenberg_marquardt(gp.freeze(), PCGSchurSolver(10, 1.0, 5.0),
+                              options=LevenbergMarquardtOptions(
+                                  iterations=ITERS))
+    return ref, out
+
+
+def test_lm_slice_matches_jax_f64():
+    ref, out = _runs(gt.FP64_FP64, gtt.FP64_FP64)
+    assert len(out.history) == len(ref.history) == ITERS
+    assert ([h["accepted"] for h in out.history]
+            == [h["accepted"] for h in ref.history])
+    np.testing.assert_allclose([h["chi2"] for h in out.history],
+                               [h["chi2"] for h in ref.history], rtol=1e-9)
+    np.testing.assert_allclose(out.initial_chi2, ref.initial_chi2, rtol=1e-9)
+    assert out.chi2 < out.initial_chi2
+    final = params_to_numpy(out.params)
+    assert final.keys() == ref.params.keys()
+    for name, p in final.items():
+        ref_p = np.asarray(ref.params[name])
+        np.testing.assert_allclose(p, ref_p, rtol=1e-9,
+                                   atol=1e-9 * np.abs(ref_p).max())
+
+
+def test_lm_slice_matches_jax_f32():
+    before = pcg_dense.STATS.launches
+    ref, out = _runs(gt.FP32_FP32, gtt.FP32_FP32)
+    assert ([h["accepted"] for h in out.history]
+            == [h["accepted"] for h in ref.history])
+    np.testing.assert_allclose(out.chi2, ref.chi2, rtol=1e-3)
+    assert out.chi2 < out.initial_chi2
+    for name, p in out.params.items():
+        assert p.dtype == torch.float32 and torch.all(torch.isfinite(p))
+    # CPU tensors never launch a kernel
+    assert pcg_dense.STATS.launches == before

@@ -1,0 +1,97 @@
+"""Whole-PCG dense solve (kernel K2) of the PyTorch port.
+
+- CPU: the port's plain ``dense_pcg`` vs the JAX package's Pallas
+  ``dense_pcg`` in interpret mode, float32, to 1e-4 (the TPU kernel's
+  matmuls sum in another order), on the JAX package's three cases plus
+  its rejection case; the iteration count vs the port's ``run_pcg``.
+
+The kernel itself is tested on the card by ``test_torch_gpu.py``.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import graphite_tpu.ops.pallas.pcg_dense as jax_pcg_dense
+from graphite_tpu_torch.ops.cuda import pcg_dense
+from graphite_tpu_torch.ops.pcg_loop import run_pcg
+
+torch.set_num_threads(1)
+
+TOL = 1e-4
+
+
+@pytest.fixture
+def interpret_mode(monkeypatch):
+    monkeypatch.setattr(
+        jax_pcg_dense.pl, "pallas_call",
+        functools.partial(jax.experimental.pallas.pallas_call,
+                          interpret=True))
+    jax_pcg_dense.dense_pcg.clear_cache()
+    yield
+    jax_pcg_dense.dense_pcg.clear_cache()
+
+
+def _random_spd(rng, n, d):
+    """SPD S + its exact block-Jacobi inverse M (block size d)."""
+    A = rng.standard_normal((n, n)).astype(np.float32)
+    S = A @ A.T + n * np.eye(n, dtype=np.float32)
+    M = np.zeros_like(S)
+    for i in range(0, n, d):
+        M[i:i + d, i:i + d] = np.linalg.inv(S[i:i + d, i:i + d])
+    return S, M
+
+
+def _indefinite(rng, n):
+    A = rng.standard_normal((n, n)).astype(np.float32)
+    return ((A + A.T) / 2 - 1.5 * np.eye(n, dtype=np.float32),
+            np.eye(n, dtype=np.float32))
+
+
+CASES = {
+    "bal_like": (90, 9, 10, 1.0),        # converges in a few iterations
+    "tiny_tol": (126, 9, 50, 1e-12),     # runs until a step is rejected
+    "first_check": (64, 4, 10, 1e30),    # converges on the first check
+    "rejection": (64, None, 25, 1e-12),  # indefinite: rejected step
+}
+
+
+def _system(case):
+    n, d, max_iter, tol = CASES[case]
+    rng = np.random.default_rng(n if d else 7)
+    S, M = _random_spd(rng, n, d) if d else _indefinite(rng, n)
+    b = rng.standard_normal(n).astype(np.float32)
+    return S, M, b, max_iter, tol
+
+
+def _rel(a, b):
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_matches_pallas_dense_pcg(interpret_mode, case):
+    S, M, b, max_iter, tol = _system(case)
+    ref = np.asarray(jax_pcg_dense.dense_pcg(
+        jnp.asarray(S), jnp.asarray(M), jnp.asarray(b), max_iter=max_iter,
+        tol=tol, rejection_ratio=5.0))
+    x, k = pcg_dense.dense_pcg(
+        torch.as_tensor(S), torch.as_tensor(M), torch.as_tensor(b),
+        max_iter=max_iter, tol=tol, rejection_ratio=5.0)
+    assert _rel(x.numpy(), ref) <= TOL
+    _, k_ref = run_pcg(torch.as_tensor(b), lambda p: p @ torch.as_tensor(S),
+                       lambda y: y @ torch.as_tensor(M), max_iter, tol, 5.0)
+    assert int(k) == k_ref
+    if case == "first_check":
+        assert k_ref == 1
+
+
+def test_zero_rhs_takes_no_step():
+    S, M, _, _, _ = _system("bal_like")
+    x, k = pcg_dense.dense_pcg(torch.as_tensor(S), torch.as_tensor(M),
+                               torch.zeros(S.shape[0]), max_iter=10,
+                               tol=1.0, rejection_ratio=5.0)
+    assert int(k) == 0 and torch.all(x == 0)
