@@ -3,33 +3,55 @@
 
     python3 chip_smoke.py
 
-Phases, each printing its numbers on a line of its own:
+Phases, each printing its numbers and its wall seconds on lines of their
+own:
 
-1. build the CUDA kernels (K1 ``csrc/segsum.cu``, K2 ``csrc/pcg_dense.cu``)
-   from the checkout;
+1. build the CUDA kernels from the checkout, one nvcc per source, all
+   started together: K1 ``csrc/segsum.cu``, K2 ``csrc/pcg_dense.cu``, K3
+   ``csrc/segprod.cu``, K4 / K5 ``csrc/segmv.cu``;
 2. K1 vs its plain PyTorch version on the card, at the BAL Ladybug-49
    reduction shapes (seeded random inputs): relative error <= 1e-5, and
    two runs bitwise identical;
 3. K2 vs its plain version (``run_pcg``) on the first Schur system of the
    Ladybug-49 LM run (n = 441) and on a random SPD system (n = 1024):
    x within 1e-4 relative, the same number of CG steps;
-4. the main path: Ladybug-49 synthetic (seed 0), FP32_FP32,
-   Levenberg-Marquardt with PCGSchurSolver(10, 1.0, 5.0) for 10
-   iterations on the card and on the CPU (plain versions). The accept
-   patterns must be equal, each iteration's chi2 within 1e-3, the final
-   chi2 below the initial one, and every kernel launched by the run
-   (dense_pcg once per solve).
+4. the Ladybug-49 path: synthetic (seed 0), FP32_FP32, Levenberg-Marquardt
+   with PCGSchurSolver(10, 1.0, 5.0) for 10 iterations on the card and on
+   the CPU (plain versions). The accept patterns must be equal, each
+   iteration's chi2 within 1e-3, the final chi2 below the initial one, and
+   K1 and K2 launched by the run (dense_pcg once per solve);
+5. the BAL Venice-1778 problem (993,923 points, 5,001,946 observations,
+   dim_p 16,002) frozen on the card, with its host set-up seconds;
+6. K1, K3, K4 and K5 vs their plain versions on the card at Venice-1778's
+   own shapes (indices and segment plans of the frozen problem, values of
+   its first linearization, or seeded where the site has none or its
+   values are intermediate): relative error <= 1e-5, two runs bitwise
+   identical; also prints whether each equals its plain version on the
+   CPU bitwise;
+7. the Venice-1778 path: 10 LM iterations of PCGSchurSolver(10, 1.0, 5.0)
+   on the card (the block-sparse branch): final chi2 below the initial
+   one, finite parameters, K1, K3, K4 and K5 launched, the S matvec kernel
+   once per CG matvec; ms per iteration, kernel times, peak memory;
+8. Venice-1778 on the CPU for 2 LM iterations: the accept pattern equal to
+   the card's and chi2 within 1e-3 per iteration;
+9. Ladybug-49 with the Venice branches forced (``dense_matvec_limit=0``,
+   the Schur gates lowered), 10 iterations on the card and on the CPU:
+   accept patterns equal, chi2 within 1e-3, K3, K4 and K5 launched.
 
 Prints the kernels' JSON summary and the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Any failure raises
 (non-zero exit); without a card it exits 1 at once and prints no result.
 """
 
+import concurrent.futures
 import json
 import statistics
 import subprocess
 import sys
 import time
+
+VENICE = "venice-big"  # make_bal size name of BAL Venice-1778
+DEVICE = "cuda"
 
 
 def check(cond, msg):
@@ -58,10 +80,18 @@ def rel_err(out, ref):
 
 
 def phase_build():
-    from graphite_tpu_torch.ops.cuda import pcg_dense, segsum
+    from graphite_tpu_torch.ops.cuda import (
+        pcg_dense,
+        segmv,
+        segsum,
+        segsum_stream,
+    )
 
+    loaders = (segsum.load_kernel, pcg_dense.load_kernel,
+               segsum_stream.load_product_kernel, segmv.load_kernel)
     t0 = time.perf_counter()
-    libs = [segsum.load_kernel(), pcg_dense.load_kernel()]
+    with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
+        libs = list(pool.map(lambda load: load(), loaders))
     total = time.perf_counter() - t0
     print(f"[build] seconds={total:.3f} " + " ".join(
         f"{lib.name}={lib.build_seconds:.3f}s" for lib in libs))
@@ -227,55 +257,104 @@ def phase_k2(device, solver, mu):
     return result
 
 
-def run_lm(device, solver, iterations):
+def run_lm(problem, solver, iterations, params=None):
     from graphite_tpu_torch.optimizers import (
         LevenbergMarquardtOptions,
         levenberg_marquardt,
     )
 
-    problem = ladybug_problem(device)
-    return problem, levenberg_marquardt(
-        problem, solver,
+    return levenberg_marquardt(
+        problem, solver, params,
         options=LevenbergMarquardtOptions(iterations=iterations))
 
 
-def phase_slice(solver, iterations, all_stats):
+def all_stats():
+    """The launch counts of every kernel entry point."""
+    from graphite_tpu_torch.ops.cuda import (
+        pcg_dense,
+        segmv,
+        segsum,
+        segsum_stream,
+    )
+
+    return [segsum.STATS, segsum_stream.STATS, pcg_dense.STATS,
+            segsum_stream.PRODUCT_STATS, segsum_stream.PRODUCT_RTBL_STATS,
+            segsum_stream.MATVEC_TBL_STATS, segmv.STREAM_STATS,
+            segmv.WTBL_STATS, segmv.SYM_STATS]
+
+
+def count_launches(run, record_events=True):
+    """``run()`` with every launch count set to 0 just before it and read
+    just after: (its result, launches and total kernel ms by entry)."""
     import torch
 
-    for stats in all_stats:
-        stats.reset()
-        stats.record_events = True
-    problem, gpu = run_lm("cuda", solver, iterations)
-    torch.cuda.synchronize()
-    launches = {s.name: s.launches for s in all_stats}
-    kernel_ms = {s.name: s.total_ms() for s in all_stats}
-    for stats in all_stats:
-        stats.record_events = False
+    stats = all_stats()
+    for s in stats:
+        s.reset()
+        s.record_events = record_events
+    try:
+        out = run()
+        torch.cuda.synchronize()
+        launches = {s.name: s.launches for s in stats}
+        kernel_ms = {s.name: s.total_ms() for s in stats}
+    finally:
+        for s in stats:
+            s.record_events = False
+            s.events.clear()
+    return out, launches, kernel_ms
 
-    t0 = time.perf_counter()
-    _, cpu = run_lm("cpu", solver, iterations)
-    cpu_s = time.perf_counter() - t0
 
-    acc_gpu = [h["accepted"] for h in gpu.history]
+def compare_runs(tag, gpu, cpu):
+    """CUDA vs CPU LM trajectories over the CPU run's iterations: equal
+    accept patterns, chi2 within 1e-3 per iteration."""
+    n = len(cpu.history)
+    acc_gpu = [h["accepted"] for h in gpu.history[:n]]
     acc_cpu = [h["accepted"] for h in cpu.history]
-    chi_gpu = [h["chi2"] for h in gpu.history]
+    chi_gpu = [h["chi2"] for h in gpu.history[:n]]
     chi_cpu = [h["chi2"] for h in cpu.history]
-    print(f"[slice] cuda initial_chi2={gpu.initial_chi2!r} chi2={chi_gpu}")
-    print(f"[slice] cuda accepted={acc_gpu}")
-    print(f"[slice] cpu initial_chi2={cpu.initial_chi2!r} chi2={chi_cpu}")
-    print(f"[slice] cpu accepted={acc_cpu} (cpu run {cpu_s:.1f} s)")
+    print(f"[{tag}] cuda initial_chi2={gpu.initial_chi2!r} chi2={chi_gpu}")
+    print(f"[{tag}] cuda accepted={acc_gpu}")
+    print(f"[{tag}] cpu initial_chi2={cpu.initial_chi2!r} chi2={chi_cpu}")
+    print(f"[{tag}] cpu accepted={acc_cpu}")
     rel = [abs(a - b) / abs(b) for a, b in zip(chi_gpu, chi_cpu)]
-    print(f"[slice] max per-iteration chi2 rel diff={max(rel):.3e} "
-          f"bitwise_equal_trajectory={chi_gpu == chi_cpu}")
-    check(len(gpu.history) == len(cpu.history), "iteration counts differ")
-    check(acc_gpu == acc_cpu, "accept patterns differ")
-    check(max(rel) <= 1e-3, f"chi2 differs by {max(rel)} > 1e-3")
+    print(f"[{tag}] max per-iteration chi2 rel diff={max(rel):.3e} "
+          f"bitwise_equal_trajectory="
+          f"{chi_gpu == chi_cpu and gpu.initial_chi2 == cpu.initial_chi2}")
+    check(len(gpu.history) >= n, f"{tag}: iteration counts differ")
+    check(acc_gpu == acc_cpu, f"{tag}: accept patterns differ")
+    check(max(rel) <= 1e-3, f"{tag}: chi2 differs by {max(rel)} > 1e-3")
     check(abs(gpu.initial_chi2 - cpu.initial_chi2)
-          <= 1e-3 * abs(cpu.initial_chi2), "initial chi2 differs")
-    check(gpu.chi2 < gpu.initial_chi2, "final chi2 not below initial")
-    for name, p in gpu.params.items():
+          <= 1e-3 * abs(cpu.initial_chi2), f"{tag}: initial chi2 differs")
+
+
+def check_solution(tag, problem, result):
+    import torch
+
+    check(result.chi2 < result.initial_chi2,
+          f"{tag}: final chi2 not below initial")
+    for name, p in result.params.items():
         check(p.shape == problem.params0[name].shape
-              and bool(torch.isfinite(p).all()), f"bad parameters {name}")
+              and bool(torch.isfinite(p).all()),
+              f"{tag}: bad parameters {name}")
+
+
+def print_launches(tag, launches, kernel_ms):
+    for name in launches:
+        if launches[name]:
+            print(f"[{tag}] kernel {name}: launches={launches[name]} "
+                  f"total_ms={kernel_ms[name]:.4f}")
+
+
+def phase_slice(solver, iterations):
+    problem = ladybug_problem(DEVICE)
+    gpu, launches, kernel_ms = count_launches(
+        lambda: run_lm(problem, solver, iterations))
+    t1 = time.perf_counter()
+    cpu = run_lm(ladybug_problem("cpu"), solver, iterations)
+    print(f"[slice] cpu run {time.perf_counter() - t1:.1f} s")
+    compare_runs("slice", gpu, cpu)
+    check(len(gpu.history) == len(cpu.history), "iteration counts differ")
+    check_solution("slice", problem, gpu)
 
     dev_ms = [h["device_ms"] for h in gpu.history[1:]]
     host_ms = [1e3 * h["time"] for h in gpu.history[1:]]
@@ -283,13 +362,435 @@ def phase_slice(solver, iterations, all_stats):
           f"device={statistics.median(dev_ms):.3f} "
           f"host={statistics.median(host_ms):.3f} "
           f"all_device={[round(m, 3) for m in dev_ms]}")
-    for name in launches:
-        print(f"[slice] kernel {name}: launches={launches[name]} "
-              f"total_ms={kernel_ms[name]:.4f}")
+    print_launches("slice", launches, kernel_ms)
+    for name in ("segsum.sorted_segment_sum",
+                 "segsum_stream.streaming_segment_sum",
+                 "pcg_dense.dense_pcg"):
         check(launches[name] > 0, f"{name} never launched on the main path")
     check(launches["pcg_dense.dense_pcg"] == len(gpu.history),
           "dense_pcg must launch once per solve")
     return launches
+
+
+def phase_venice_setup():
+    """BAL Venice-1778 frozen on the card, its structures and one pass of
+    the solve's stages (which builds every host plan)."""
+    import torch
+
+    from graphite_tpu_torch import FP32_FP32
+    from graphite_tpu_torch.hessian import (
+        apply_damping,
+        build_hessian_structure,
+        compute_hessian_values,
+    )
+    from graphite_tpu_torch.io import bal, synthetic
+    from graphite_tpu_torch.linearize import linearize
+    from graphite_tpu_torch.schur import (
+        SchurOps,
+        build_schur_structure,
+        schur_values,
+    )
+
+    secs = {}
+    t = time.perf_counter()
+
+    def lap(name):
+        nonlocal t
+        now = time.perf_counter()
+        secs[name] = round(now - t, 3)
+        t = now
+
+    ds = synthetic.make_bal(VENICE, seed=0)
+    lap("make_bal")
+    g, *_ = bal.build_graph(ds, precision=FP32_FP32)
+    lap("build_graph")
+    problem = g.freeze(device=torch.device(DEVICE))
+    lap("freeze")
+    hs = build_hessian_structure(problem)
+    lap("hessian_structure")
+    ss = build_schur_structure(problem)
+    lap("schur_structure")
+    lin = linearize(problem, problem.params0)
+    hv = apply_damping(problem, hs, compute_hessian_values(problem, hs, lin),
+                       lin.diag, 1e-4, False)
+    sv = schur_values(problem, ss, hv)
+    ops = SchurOps(problem, ss, hv, sv)
+    ops.b_schur(lin.b)
+    ops.prepare_matvec()
+    ops.s_matvec(torch.zeros(ss.dim_p, device=problem.device))
+    ops.landmark_update(lin.b, torch.zeros(ss.dim_p, device=problem.device))
+    torch.cuda.synchronize()
+    lap("first_pass_with_plans")
+
+    sizes = (ds.cameras.shape[0], ds.points.shape[0],
+             ds.observations.shape[0])
+    print(f"[venice] cameras, points, observations={sizes} "
+          f"dim_h={problem.dim_h} dim_p={ss.dim_p} "
+          f"s_blocks={ss.s_sizes} "
+          f"products={[(g['dims'], g['dst'].shape[0]) for g in ss.products]} "
+          f"hpl_blocks={ {k: v.shape[0] for k, v in ss.hpl_pose.items()} }")
+    print(f"[venice] host set-up seconds {secs} "
+          f"total={sum(secs.values()):.1f}")
+    check(sizes == synthetic.BAL_SIZES[VENICE], f"Venice sizes {sizes}")
+    check(ss.dim_p == 9 * sizes[0], f"dim_p {ss.dim_p}")
+    return ds, problem, lin, hv, sv, ops
+
+
+def measure(tag, label, kernel, plain, cpu_plain, reps, plain_reps):
+    """A kernel vs its plain version on the card (and on the CPU) at one
+    shape; returns its numbers."""
+    import torch
+
+    def tup(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    out, again, ref = tup(kernel()), tup(kernel()), tup(plain())
+    torch.cuda.synchronize()
+    err = max(rel_err(o, r) for o, r in zip(out, ref))
+    abs_err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
+    repeat = all(torch.equal(o, a) for o, a in zip(out, again))
+    del again, ref
+    cpu_ref = tup(cpu_plain())
+    vs_cpu = all(torch.equal(o.cpu(), c) for o, c in zip(out, cpu_ref))
+    del out, cpu_ref
+    ms = device_ms(kernel, reps)
+    plain_ms = device_ms(plain, plain_reps)
+    print(f"[{tag}] {label}: rel_err={err:.3e} max_abs_err={abs_err:.3e} "
+          f"bitwise_repeat={repeat} bitwise_vs_cpu_plain={vs_cpu} "
+          f"ms={ms:.4f} plain_ms={plain_ms:.4f}")
+    check(repeat, f"{tag} not bitwise repeatable at {label}")
+    check(err <= 1e-5, f"{tag} rel err {err} > 1e-5 at {label}")
+    return dict(err=abs_err, ms=ms, plain_ms=plain_ms, shape=label)
+
+
+def plan_on_cpu(plan):
+    """A copy of a ``SegmentPlan`` with its tensors on the CPU."""
+    import dataclasses
+
+    import torch
+
+    return dataclasses.replace(plan, **{
+        f.name: getattr(plan, f.name).cpu()
+        for f in dataclasses.fields(plan)
+        if torch.is_tensor(getattr(plan, f.name))})
+
+
+def venice_k1_sites(problem):
+    """(label, plan, width) of every K1 reduction on the Venice path: the
+    factor-row reductions of ``linearize`` and the Hessian value groups,
+    from the problem's cached segment plans."""
+    from graphite_tpu_torch.hessian import build_hessian_structure
+
+    hs = build_hessian_structure(problem)
+    sites = []
+    for tag, plan in problem._cache["segment_plans"].items():
+        if tag[0] == "rows":
+            _, fname, s = tag
+            vt = problem.factor_meta[fname].ftype.vertex_types[s]
+            label, d = f"linearize rows of {vt.name}", vt.dim
+        elif tag[0] in ("hess_d", "hess_t"):
+            cm = hs.contribs[tag[1]]
+            key = cm.direct_group if tag[0] == "hess_d" else cm.trans_group
+            label, d = f"hessian group {key}", key[0] * key[1]
+        else:  # K3's segment plan (``prod_dst``)
+            continue
+        label += ", permuted" if plan.perm is not None else ""
+        sites.append((f"{plan.rows}x{d}->{plan.num_segments} {label}",
+                      plan, d))
+    return sites
+
+
+def phase_venice_kernels(problem, lin, hv, sv, ops):
+    """K1, K3, K4 and K5 vs their plain versions at Venice-1778's
+    shapes."""
+    import numpy as np
+    import torch
+
+    from graphite_tpu_torch import schur
+    from graphite_tpu_torch.ops.cuda import segmv, segsum_stream
+    from graphite_tpu_torch.ops.cuda.segsum import (
+        plan_segments,
+        segment_sum_plain,
+    )
+    from graphite_tpu_torch.ops.streamreduce import (
+        matvec_plan,
+        segment_plan,
+        take_rows,
+    )
+
+    ss = ops.ss
+    rng = np.random.default_rng(2)
+    results = {}
+
+    def add(name, r):
+        results.setdefault(name, []).append(r)
+
+    def cpu(*ts):
+        return [None if t is None else t.cpu() for t in ts]
+
+    # K1: every row reduction of linearize and the Hessian values
+    for label, plan, d in venice_k1_sites(problem):
+        vals = torch.as_tensor(
+            rng.standard_normal((plan.rows, d)).astype(np.float32),
+            device=problem.device)
+        cvals, cplan = vals.cpu(), plan_on_cpu(plan)
+        add("segsum_stream.streaming_segment_sum", measure(
+            "k1", label,
+            lambda: segsum_stream.streaming_segment_sum(vals, plan),
+            lambda: segment_sum_plain(vals, plan),
+            lambda: segment_sum_plain(cvals, cplan), 10, 3))
+        del vals, cvals, cplan
+
+    # K3: the Schur triple products, W and Hpl read by index
+    (pg,) = ss.products
+    dpa, dl, dpb = pg["dims"]
+    ns = ss.s_sizes[pg["dst_key"]]
+    W = schur.hpl_w_values(problem, ss, hv, sv.hll_inv)[pg["left_key"]]
+    R = hv[pg["right_key"]]
+    plan = segment_plan(problem, ("prod_dst", 0), pg["dst"], ns)
+    li = problem.index32(("prod_l", 0), pg["left"])
+    ri = problem.index32(("prod_r", 0), pg["right"])
+    cW, cR, cli, cri = cpu(W, R, li, ri)
+    cplan = plan_segments(pg["dst"], ns, "cpu")
+    label = f"{plan.rows}x({dpa},{dl},{dpb})->{ns} schur_values"
+    add("segsum_stream.streaming_segment_product_sum_rtbl", measure(
+        "k3", label,
+        lambda: segsum_stream.streaming_segment_product_sum_rtbl(
+            W, R, plan, dpa, dl, dpb, li, ri),
+        lambda: segsum_stream.segment_product_sum_plain(
+            W, R, plan, dpa, dl, dpb, li, ri),
+        lambda: segsum_stream.segment_product_sum_plain(
+            cW, cR, cplan, dpa, dl, dpb, cli, cri), 5, 2))
+    del W, R, cW, cR, cli, cri
+
+    # K4: b_schur, its kernel-6 form, the back-substitution
+    key = ss.hpl_keys[0]
+    dp, dl = key
+    ((pt, lt, sub, prow, lrow),) = ops.hpl_partitions(key)
+    A = take_rows(problem, ("bschur", key, pt, lt, "sub"), ops.hpl(key), sub)
+    n_pt, n_lt = problem.seg_rows[pt], problem.seg_rows[lt]
+    w = ops._hll_solve_rows({lt: problem.rows_view(lin.b, lt)})[lt]
+    plan_b = matvec_plan(problem, ("bschur", key, pt, lt), prow, n_pt)
+    lid = problem.index32(("bschur", key, pt, lt, "lid"), lrow)
+    cplan_b = segmv.plan_matvec(prow, n_pt, "cpu")
+    cA, cw, clid = cpu(A, w, lid)
+    label = (f"{A.shape[0]}x({dp},{dl})->{n_pt}, w[{n_lt}] by index, "
+             f"group {plan_b.group} b_schur")
+    add("segmv.block_matvec_wtbl", measure(
+        "k4", label,
+        lambda: segmv.block_matvec_wtbl(A, w, plan_b, lid, dp, dl),
+        lambda: segmv.segmv_plain(A, w, lid, plan_b, dp, dl),
+        lambda: segmv.segmv_plain(cA, cw, clid, cplan_b, dp, dl), 10, 3))
+    wg = w.index_select(0, lid)
+    cwg = wg.cpu()
+    add("segmv.block_matvec_stream", measure(
+        "k4", label.replace("by index", "gathered") + " (kernel-6 form)",
+        lambda: segmv.block_matvec_stream(A, wg, plan_b, dp, dl),
+        lambda: segmv.segmv_plain(A, wg, None, plan_b, dp, dl),
+        lambda: segmv.segmv_plain(cA, cwg, None, cplan_b, dp, dl), 10, 3))
+    x = torch.as_tensor(rng.standard_normal((n_pt, dp)).astype(np.float32),
+                        device=problem.device)
+    plan_l = matvec_plan(problem, ("lu", key, pt, lt), lrow, n_lt)
+    pidx = problem.index32(("lu", key, pt, lt, "pidx"), prow)
+    cplan_l = segmv.plan_matvec(lrow, n_lt, "cpu")
+    cx, cpidx = cpu(x, pidx)
+    add("segsum_stream.streaming_matvec_tbl", measure(
+        "k4", f"{A.shape[0]}x({dp},{dl})^T->{n_lt}, x[{n_pt}] by index, "
+        f"group {plan_l.group} back-substitution",
+        lambda: segsum_stream.streaming_matvec_tbl(A, x, pidx, plan_l, dp,
+                                                   dl, transpose=True),
+        lambda: segmv.segmv_plain(A, x, pidx, plan_l, dp, dl, True),
+        lambda: segmv.segmv_plain(cA, cx, cpidx, cplan_l, dp, dl, True),
+        10, 3))
+    del A, cA, w, cw, wg, cwg
+
+    # K5: the PCG's S matvec
+    skey = (dp, dp)
+    ((rt, ct, sub, rrow, crow, off),) = ops.s_sites(skey)
+    splan, cid, rxi = ops.sym_site(skey, rt, ct)
+    S = take_rows(problem, ("smv", skey, rt, ct, "ysub"), sv.s_vals[skey],
+                  sub)
+    xv = torch.as_tensor(rng.standard_normal(ss.dim_p).astype(np.float32),
+                         device=problem.device)
+    xc, xr = problem.rows_view(xv, ct), problem.rows_view(xv, rt)
+    cplan_s = segmv.plan_matvec_sym(rrow, crow, problem.seg_rows[rt],
+                                    problem.seg_rows[ct], "cpu")
+    cS, cxc, cxr, ccid, crxi = cpu(S, xc, xr, cid, rxi)
+    add("segmv.matvec_sym_stream", measure(
+        "k5", f"{S.shape[0]}x({dp},{dp})->{problem.seg_rows[rt]}, "
+        f"{off.size} off-diagonal, groups {splan.rows.group}/"
+        f"{splan.cols.group} s_matvec",
+        lambda: segmv.matvec_sym_stream(S, xc, xr, cid, rxi, splan, dp, dp),
+        lambda: segmv.matvec_sym_plain(S, xc, xr, cid, rxi, splan, dp, dp),
+        lambda: segmv.matvec_sym_plain(cS, cxc, cxr, ccid, crxi, cplan_s,
+                                       dp, dp), 20, 5))
+    del S, cS
+    torch.cuda.empty_cache()
+    return {name: dict(err=max(r["err"] for r in rs),
+                       ms=sum(r["ms"] for r in rs),
+                       plain_ms=sum(r["plain_ms"] for r in rs),
+                       shapes=[r["shape"] for r in rs],
+                       ms_by_shape=[r["ms"] for r in rs],
+                       plain_ms_by_shape=[r["plain_ms"] for r in rs])
+            for name, rs in results.items()}
+
+
+def merge_measured(*parts):
+    """One entry point's numbers from several phases, summed by shape."""
+    out = {}
+    for part in parts:
+        for name, m in part.items():
+            if name not in out:
+                out[name] = dict(m)
+                continue
+            o = out[name]
+            o["err"] = max(o["err"], m["err"])
+            for k in ("ms", "plain_ms"):
+                o[k] += m[k]
+            for k in ("shapes", "ms_by_shape", "plain_ms_by_shape"):
+                o[k] = o[k] + m[k]
+    return out
+
+
+def phase_venice_slice(problem, solver, iterations):
+    import torch
+
+    from graphite_tpu_torch.schur import SchurOps
+
+    matvecs = [0]
+    s_matvec = SchurOps.s_matvec
+
+    def counted(self, x):
+        matvecs[0] += 1
+        return s_matvec(self, x)
+
+    torch.cuda.reset_peak_memory_stats()
+    SchurOps.s_matvec = counted
+    try:
+        gpu, launches, kernel_ms = count_launches(
+            lambda: run_lm(problem, solver, iterations))
+    finally:
+        SchurOps.s_matvec = s_matvec
+    peak = torch.cuda.max_memory_allocated()
+    check_solution("venice", problem, gpu)
+    hist = gpu.history
+    print(f"[venice] cuda initial_chi2={gpu.initial_chi2!r} "
+          f"chi2={[h['chi2'] for h in hist]}")
+    print(f"[venice] cuda accepted={[h['accepted'] for h in hist]}")
+    dev_ms = [h["device_ms"] for h in hist]
+    acc = [h["device_ms"] for h in hist[1:] if h["accepted"]]
+    rej = [h["device_ms"] for h in hist[1:] if not h["accepted"]]
+    print(f"[venice] ms per LM iteration (median of iterations 1..): "
+          f"device={statistics.median(dev_ms[1:]):.3f} "
+          f"accepted={statistics.median(acc) if acc else None} "
+          f"rejected={statistics.median(rej) if rej else None} "
+          f"all_device={[round(m, 3) for m in dev_ms]}")
+    print(f"[venice] peak device memory max_memory_allocated="
+          f"{peak / 2**30:.3f} GiB; CG matvecs={matvecs[0]}")
+    print_launches("venice", launches, kernel_ms)
+    k3 = (launches["segsum_stream.streaming_segment_product_sum_rtbl"]
+          + launches["segsum_stream.streaming_segment_product_sum"])
+    check(k3 > 0, "K3 never launched on the Venice path")
+    for name in ("segsum_stream.streaming_segment_sum",
+                 "segmv.block_matvec_wtbl",
+                 "segsum_stream.streaming_matvec_tbl",
+                 "segmv.matvec_sym_stream"):
+        check(launches[name] > 0, f"{name} never launched on the Venice path")
+    check(launches["segmv.matvec_sym_stream"] == matvecs[0],
+          "matvec_sym_stream must launch once per CG matvec")
+    return gpu, launches
+
+
+def phase_venice_cpu(ds, params0, gpu, solver, iterations):
+    """The CPU run starts from the card run's parameters (``params0``,
+    NumPy, handed over by ``interop``)."""
+    from graphite_tpu_torch import FP32_FP32
+    from graphite_tpu_torch.interop import params_from_numpy
+    from graphite_tpu_torch.io import bal
+
+    g, *_ = bal.build_graph(ds, precision=FP32_FP32)
+    cpu = run_lm(g.freeze(device="cpu"), solver, iterations,
+                 params_from_numpy(params0))
+    compare_runs("venice-cpu", gpu, cpu)
+
+
+def phase_forced(iterations):
+    """Ladybug-49 with every Venice branch forced, CUDA vs CPU."""
+    from graphite_tpu_torch import schur
+    from graphite_tpu_torch.solvers import PCGSchurSolver
+
+    solver = PCGSchurSolver(10, 1.0, 5.0, dense_matvec_limit=0)
+    gates = schur.CHUNK_THRESHOLD, schur._smv_chunk_rows
+    schur.CHUNK_THRESHOLD, schur._smv_chunk_rows = 0, (lambda rb: 0)
+    try:
+        problem = ladybug_problem(DEVICE)
+        gpu, launches, _ = count_launches(
+            lambda: run_lm(problem, solver, iterations), record_events=False)
+        cpu = run_lm(ladybug_problem("cpu"), solver, iterations)
+    finally:
+        schur.CHUNK_THRESHOLD, schur._smv_chunk_rows = gates
+    compare_runs("forced", gpu, cpu)
+    check(len(gpu.history) == len(cpu.history), "iteration counts differ")
+    check_solution("forced", problem, gpu)
+    print(f"[forced] launches { {k: v for k, v in launches.items() if v} }")
+    for name in ("segsum_stream.streaming_segment_product_sum_rtbl",
+                 "segmv.block_matvec_wtbl",
+                 "segsum_stream.streaming_matvec_tbl",
+                 "segmv.matvec_sym_stream"):
+        check(launches[name] > 0, f"{name} never launched (forced)")
+
+
+# (kernel, source, {entry point: TPU kernel body it replaces})
+KERNELS = [
+    ("K1", "graphite_tpu_torch/csrc/segsum.cu", {
+        "segsum.sorted_segment_sum": "graphite_tpu/ops/pallas/segsum.py:70",
+        "segsum_stream.streaming_segment_sum":
+            "graphite_tpu/ops/pallas/segsum_stream.py:147"}),
+    ("K2", "graphite_tpu_torch/csrc/pcg_dense.cu", {
+        "pcg_dense.dense_pcg": "graphite_tpu/ops/pallas/pcg_dense.py:35"}),
+    ("K3", "graphite_tpu_torch/csrc/segprod.cu", {
+        "segsum_stream.streaming_segment_product_sum":
+            "graphite_tpu/ops/pallas/segsum_stream.py:327",
+        "segsum_stream.streaming_segment_product_sum_rtbl":
+            "graphite_tpu/ops/pallas/segsum_stream.py:489"}),
+    ("K4", "graphite_tpu_torch/csrc/segmv.cu", {
+        "segsum_stream.streaming_matvec_tbl":
+            "graphite_tpu/ops/pallas/segsum_stream.py:639",
+        "segmv.block_matvec_wtbl": "graphite_tpu/ops/pallas/segmv.py:425",
+        "segmv.block_matvec_stream": "graphite_tpu/ops/pallas/segmv.py:176"}),
+    ("K5", "graphite_tpu_torch/csrc/segmv.cu", {
+        "segmv.matvec_sym_stream": "graphite_tpu/ops/pallas/segmv.py:303"}),
+]
+
+
+def kernels_json(measured, launches_by_path):
+    out = []
+    for kernel, source, entries in KERNELS:
+        ms = [measured[e] for e in entries if e in measured]
+        by_path = {path: sum(launches[e] for e in entries)
+                   for path, launches in launches_by_path.items()}
+        out.append(dict(
+            name=kernel + ": " + ", ".join(entries), route="cuda",
+            source=source, replaces=", ".join(entries.values()),
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            max_abs_err=max(m["err"] for m in ms),
+            ms=sum(m["ms"] for m in ms),
+            plain_ms=sum(m["plain_ms"] for m in ms),
+            entry_points=[dict(
+                name=e, replaces=r,
+                launches={p: launches[e]
+                          for p, launches in launches_by_path.items()},
+                **{k: measured[e][k] for k in (
+                    "shapes", "ms_by_shape", "plain_ms_by_shape")})
+                for e, r in entries.items() if e in measured]))
+    return out
+
+
+def timed(name, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[{name}] phase seconds={time.perf_counter() - t0:.1f}")
+    return out
 
 
 def main():
@@ -299,40 +800,38 @@ def main():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
 
-    from graphite_tpu_torch.ops.cuda import pcg_dense, segsum, segsum_stream
+    from graphite_tpu_torch.interop import params_to_numpy
     from graphite_tpu_torch.solvers import PCGSchurSolver
 
+    t_start = time.perf_counter()
     print(f"[env] python={sys.version.split()[0]} torch={torch.__version__} "
           f"cuda={torch.version.cuda} device={torch.cuda.get_device_name(0)}")
     solver = PCGSchurSolver(max_iter=10, tol=1.0, rejection_ratio=5.0)
-    phase_build()
-    k1 = phase_k1("cuda")
-    k2 = phase_k2("cuda", solver, mu=1e-4)
-    all_stats = [segsum.STATS, segsum_stream.STATS, pcg_dense.STATS]
-    launches = phase_slice(solver, 10, all_stats)
+    timed("build", phase_build)
+    k1 = timed("k1", phase_k1, DEVICE)
+    k2 = timed("k2", phase_k2, DEVICE, solver, 1e-4)
+    ladybug_launches = timed("slice", phase_slice, solver, 10)
 
-    measured = {**k1, "pcg_dense.dense_pcg": k2}
-    sources = {
-        "segsum.sorted_segment_sum": (
-            "graphite_tpu_torch/csrc/segsum.cu",
-            "graphite_tpu/ops/pallas/segsum.py:70"),
-        "segsum_stream.streaming_segment_sum": (
-            "graphite_tpu_torch/csrc/segsum.cu",
-            "graphite_tpu/ops/pallas/segsum_stream.py:147"),
-        "pcg_dense.dense_pcg": (
-            "graphite_tpu_torch/csrc/pcg_dense.cu",
-            "graphite_tpu/ops/pallas/pcg_dense.py:35"),
-    }
-    kernels = [dict(name=name, route="cuda", source=source,
-                    replaces=replaces, launches=launches[name],
-                    max_abs_err=measured[name]["err"],
-                    ms=measured[name]["ms"],
-                    plain_ms=measured[name]["plain_ms"],
-                    shapes=measured[name]["shapes"],
-                    ms_by_shape=measured[name]["ms_by_shape"],
-                    plain_ms_by_shape=measured[name]["plain_ms_by_shape"])
-               for name, (source, replaces) in sources.items()]
-    print(json.dumps({"kernels": kernels}))
+    ds, problem, lin, hv, sv, ops = timed("venice-setup", phase_venice_setup)
+    venice_measured = timed("venice-kernels", phase_venice_kernels, problem,
+                            lin, hv, sv, ops)
+    del lin, hv, sv, ops
+    torch.cuda.empty_cache()
+    params0 = params_to_numpy(problem.params0)
+    gpu, venice_launches = timed("venice", phase_venice_slice, problem,
+                                 solver, 10)
+    del problem
+    torch.cuda.empty_cache()
+    timed("venice-cpu", phase_venice_cpu, ds, params0, gpu, solver, 2)
+    del ds
+    timed("forced", phase_forced, 10)
+
+    measured = merge_measured(k1, {"pcg_dense.dense_pcg": k2},
+                              venice_measured)
+    print(json.dumps({"kernels": kernels_json(
+        measured, {"ladybug-49": ladybug_launches,
+                   "venice-1778": venice_launches})}))
+    print(f"[done] total seconds={time.perf_counter() - t_start:.1f}")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -18,6 +18,8 @@ the Schur complement:
     problem = g.freeze(device=torch.device("cuda"))
     result = levenberg_marquardt(problem, PCGSchurSolver(10, 1.0, 5.0))
 
+The same call runs BAL Venice-1778 (``make_bal("venice-big")``), whose pose
+system is above ``dense_matvec_limit`` and takes the block-sparse S matvec.
 Its Pallas TPU kernels become hand-written CUDA kernels
 (``graphite_tpu_torch/csrc``), built with nvcc at first use.
 """

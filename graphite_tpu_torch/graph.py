@@ -164,6 +164,19 @@ class Problem:
                 np.asarray(np_array, dtype=np.int64), device=self.device)
         return store[key]
 
+    def index32(self, key, np_array: np.ndarray) -> torch.Tensor:
+        """Cached int32 device tensor of a static host index array: the
+        kernels' C interface takes int32 (``index_select`` and
+        ``index_add_`` take it too)."""
+        store = self._cache.setdefault("index32", {})
+        if key not in store:
+            a = np.asarray(np_array, dtype=np.int64)
+            if a.size and (a.min() < -(1 << 31) or a.max() >= (1 << 31)):
+                raise ValueError(f"index {key} does not fit int32")
+            store[key] = torch.as_tensor(a.astype(np.int32),
+                                         device=self.device)
+        return store[key]
+
     # ---- row views ---------------------------------------------------------
     def rows_view(self, x: torch.Tensor, vname: str) -> torch.Tensor:
         """Flat (dim_x,) -> (n_rows, dim) view of one type's segment."""

@@ -102,10 +102,13 @@ def _apply_precision(fa: FactorArrays, J_flat: torch.Tensor, E: int, d: int,
 def _factor_row_reduce(problem, contrib, fname, s, vt_name):
     """(F, d) contributions of factor slot ``s`` -> (n_rows, d) rows of
     vertex type ``vt_name`` (inactive vertices hit the dropped trash row)."""
-    ids = problem.host.factor_ids[fname][:, s]
-    plan = segment_plan(problem, ("rows", fname, s),
-                        problem.host.vertex_active_row[vt_name][ids],
-                        problem.seg_rows[vt_name] + 1)
+    tag = ("rows", fname, s)
+    plan = problem._cache.get("segment_plans", {}).get(tag)
+    if plan is None:  # the destinations are gathered on the host once
+        ids = problem.host.factor_ids[fname][:, s]
+        plan = segment_plan(problem, tag,
+                            problem.host.vertex_active_row[vt_name][ids],
+                            problem.seg_rows[vt_name] + 1)
     return reduce_rows(contrib, plan)[:-1]
 
 

@@ -40,26 +40,6 @@ def load_kernel() -> build.KernelLibrary:
     return build.load_library("pcg_dense", _SIGNATURES)
 
 
-def _threads(n: int) -> int:
-    """K2's block size for an n-vector."""
-    return (n + 31) // 32 * 32
-
-
-def _tree_sum(v: torch.Tensor) -> torch.Tensor:
-    """Sum of an n-vector in K2's block_sum order: a shuffle-down tree in
-    each warp of 32 threads, then the same tree over the warp partials."""
-    w = v.new_zeros(_threads(v.shape[0]))
-    w[: v.shape[0]] = v
-    w = w.reshape(-1, 32)
-    for o in (16, 8, 4, 2, 1):
-        w = w[:, :o] + w[:, o:2 * o]
-    lanes = v.new_zeros(32)
-    lanes[: w.shape[0]] = w[:, 0]
-    for o in (16, 8, 4, 2, 1):
-        lanes = lanes[:o] + lanes[o:2 * o]
-    return lanes[0]
-
-
 def _row_vec_mat(vec: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
     """vec @ A summed over rows in order, one rounding per product and per
     add, as K2's threads do."""
@@ -73,10 +53,11 @@ def dense_pcg_plain(S, M, b, *, max_iter: int, tol: float,
                     rejection_ratio: float):
     """Plain PyTorch version of K2 (the CPU path and the kernel's oracle):
     ``run_pcg`` with v = p @ S and z = y @ M, every product, sum and dot
-    taken in K2's order, so the two agree bitwise on the same inputs."""
+    taken in K2's order (``run_pcg``'s dots are summed in K2's
+    ``block_sum`` order), so the two agree bitwise on the same inputs."""
     x, k = run_pcg(b, lambda p: _row_vec_mat(p, S),
                    lambda y: _row_vec_mat(y, M), max_iter, tol,
-                   rejection_ratio, dot=lambda u, v: _tree_sum(u * v))
+                   rejection_ratio)
     return x, torch.tensor(k, device=b.device)
 
 

@@ -58,9 +58,9 @@ class SegmentPlan:
     perm_i32: Optional[torch.Tensor]
 
 
-def plan_segments(seg: np.ndarray, num_segments: int,
-                  device) -> SegmentPlan:
-    """Plan the reduction of rows with destinations ``seg`` (any order)."""
+def host_plan(seg: np.ndarray, num_segments: int):
+    """The host arrays of a plan: (destinations sorted, stable sort
+    permutation or None when already sorted, CSR offsets), all int64."""
     seg = np.asarray(seg, dtype=np.int64).reshape(-1)
     if seg.size and (seg.min() < 0 or seg.max() >= num_segments):
         raise ValueError("segment id out of range [0, num_segments)")
@@ -75,13 +75,26 @@ def plan_segments(seg: np.ndarray, num_segments: int,
     offsets = np.zeros(num_segments + 1, dtype=np.int64)
     np.cumsum(np.bincount(seg_sorted, minlength=num_segments),
               out=offsets[1:])
+    return seg_sorted, perm, offsets
+
+
+def plan_segments(seg: np.ndarray, num_segments: int,
+                  device) -> SegmentPlan:
+    """Plan the reduction of rows with destinations ``seg`` (any order)."""
+    return device_plan(*host_plan(seg, num_segments), device)
+
+
+def device_plan(seg_sorted: np.ndarray, perm: Optional[np.ndarray],
+                offsets: np.ndarray, device) -> SegmentPlan:
+    """The ``SegmentPlan`` of ``host_plan``'s arrays on ``device``."""
+    num_segments = offsets.shape[0] - 1
 
     def dev(a, dtype):
         return None if a is None else torch.as_tensor(
             a.astype(dtype), device=device)
 
     return SegmentPlan(
-        rows=int(seg.size), num_segments=int(num_segments),
+        rows=int(seg_sorted.size), num_segments=int(num_segments),
         seg=dev(seg_sorted, np.int64), offsets=dev(offsets, np.int64),
         perm=dev(perm, np.int64), offsets_i32=dev(offsets, np.int32),
         perm_i32=dev(perm, np.int32))

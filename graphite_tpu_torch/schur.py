@@ -1,5 +1,5 @@
 """Schur complement S = Hpp - Hpl Hll^{-1} Hpl^T (counterpart of
-``graphite_tpu/schur.py``, unchunked single-device path).
+``graphite_tpu/schur.py``, single-device path).
 
 Structure (host, once per topology): pose blocks are the Hessian block
 columns before ``elimination_block``, landmark blocks the trailing
@@ -9,10 +9,22 @@ one triple product ``dst -= W_left R_right^T`` with ``W = Hpl Hll^{-1}``;
 the products are grouped by (dp_a, dl, dp_b) and sorted by destination.
 
 Values (``schur_values``): Hll^{-1} per landmark dim, the Hpp copy
-(unique destinations, an indexed assignment), W, and the triple products
-reduced into S by the sorted-segment-sum kernel (``ops/cuda/segsum``).
-``SchurOps`` adds ``b_schur``, ``landmark_update`` and ``compose_delta``.
-The block-sparse S matvec is not ported: the solver densifies S.
+(unique destinations, an indexed assignment), W, and the triple products.
+At most ``_chunk_threshold`` products per group are formed row by row and
+reduced by the sorted-segment-sum kernel (K1, ``ops/cuda/segsum``); above
+it the fused triple-product kernel (K3) reads W and Hpl by index and
+writes only S.
+
+``SchurOps`` adds ``b_schur``, ``landmark_update``, ``compose_delta`` and
+the block-sparse S matvec (``prepare_matvec`` / ``s_matvec``). Sites with
+more blocks than ``_smv_chunk_rows`` take the block-matvec kernels (K4
+for b_schur and the back-substitution, K5 for S x); smaller ones form
+their rows and reduce them with K1. The gates are the JAX package's, so
+the port takes its branch at every size; they are module globals that
+tests lower to force the large-problem branches at toy size. The JAX
+package's other gates (``TABLE_ROWS_LIMIT``, ``slot_geom``, the window
+plans, ``STREAM_PART_ROWS``) bound TPU VMEM and HBM transients that the
+GPU kernels do not have, and are not ported.
 """
 
 from __future__ import annotations
@@ -32,8 +44,43 @@ from .ops.blockfmt import (
     flat_block_mv,
     flat_block_mv_t,
 )
+from .ops.cuda.segmv import (
+    block_matvec_wtbl,
+    matvec_sym_stream,
+    plan_matvec_sym,
+)
 from .ops.cuda.segsum import sorted_segment_sum
-from .ops.streamreduce import reduce_rows, segment_plan, take_rows
+from .ops.cuda.segsum_stream import (
+    streaming_matvec_tbl,
+    streaming_segment_product_sum_rtbl,
+)
+from .ops.streamreduce import (
+    map_chunk_rows,
+    matvec_plan,
+    reduce_rows,
+    segment_plan,
+    take_rows,
+)
+
+# Triple-product groups with more pairs than this take K3. The JAX package
+# lowers the bound to 2^19 above dim_h = 1M (a TPU HBM limit); the port
+# keeps both numbers so that it takes the same branch at every size.
+CHUNK_THRESHOLD = 1 << 22
+
+
+def _chunk_threshold(problem) -> int:
+    """Product-group size above which ``schur_values`` takes K3 (reads
+    the module global, so tests can force the branch)."""
+    if problem.dim_h > 1_000_000:
+        return min(CHUNK_THRESHOLD, 1 << 19)
+    return CHUNK_THRESHOLD
+
+
+def _smv_chunk_rows(row_bytes: int) -> int:
+    """Block count above which a b_schur, back-substitution or S matvec
+    site takes K4 / K5 (``map_chunk_rows``; its own symbol so tests can
+    force the branch)."""
+    return map_chunk_rows(row_bytes)
 
 
 @dataclasses.dataclass
@@ -261,6 +308,25 @@ def _hpl_w_counts(problem, ss: SchurStructure, key) -> torch.Tensor:
     return cache[key]
 
 
+def hpl_w_values(problem, ss: SchurStructure, hvals: HessianValues,
+                 hll_inv: Dict[int, torch.Tensor]
+                 ) -> Dict[Tuple[int, int], torch.Tensor]:
+    """W = Hpl Hll^{-1} once per Hpl block, per Hpl group. Hll^{-1} is
+    symmetric, so each triple product L M R^T is W_left R_right^T."""
+    inv_dt = problem.precision.inv_dtype
+    hpl_w = {}
+    for key in ss.hpl_keys:
+        dp, dl = key
+        hpl = take_rows(problem, ("hpl_h", key), hvals[key],
+                        ss.hpl_h_idx[key])
+        inv_exp = torch.repeat_interleave(
+            hll_inv[dl], _hpl_w_counts(problem, ss, key), dim=0,
+            output_size=hpl.shape[0])
+        hpl_w[key] = flat_block_mm_nn(hpl.to(inv_dt), inv_exp, dp, dl, dl,
+                                      acc_dtype=inv_dt)
+    return hpl_w
+
+
 def schur_values(problem, ss: SchurStructure,
                  hvals: HessianValues) -> SchurValues:
     """S = Hpp - Hpl Hll^{-1} Hpl^T from damped H values."""
@@ -281,31 +347,30 @@ def schur_values(problem, ss: SchurStructure,
         s_vals[hkey].index_copy_(0, problem.index(("hpp_s", hi), s_idx),
                                  src.to(inv_dt))
 
-    # W = Hpl Hll^{-1} once per Hpl block; Hll^{-1} is symmetric, so each
-    # triple product L M R^T is W_left R_right^T
-    hpl_w = {}
-    for key in ss.hpl_keys:
-        dp, dl = key
-        hpl = take_rows(problem, ("hpl_h", key), hvals[key],
-                        ss.hpl_h_idx[key])
-        inv_exp = torch.repeat_interleave(
-            hll_inv[dl], _hpl_w_counts(problem, ss, key), dim=0,
-            output_size=hpl.shape[0])
-        hpl_w[key] = flat_block_mm_nn(hpl.to(inv_dt), inv_exp, dp, dl, dl,
-                                      acc_dtype=inv_dt)
-
+    hpl_w = hpl_w_values(problem, ss, hvals, hll_inv)
     for gi, pg in enumerate(ss.products):
         dpa, dl, dpb = pg["dims"]
         key = pg["dst_key"]
-        left = hpl_w[pg["left_key"]].index_select(
-            0, problem.index(("prod_l", gi), pg["left"]))
-        right = hvals[pg["right_key"]].index_select(
-            0, problem.index(("prod_r", gi), pg["right"]))
-        prod = flat_block_mm_nt(left, right.to(inv_dt), dpa, dl, dpb,
-                                acc_dtype=inv_dt)
         plan = segment_plan(problem, ("prod_dst", gi), pg["dst"],
                             ss.s_sizes[key])
-        s_vals[key] = s_vals[key] - sorted_segment_sum(prod, plan)
+        W = hpl_w[pg["left_key"]]
+        R = hvals[pg["right_key"]].to(inv_dt)
+        if pg["dst"].shape[0] > _chunk_threshold(problem):
+            # K3 reads the W and Hpl rows by index: no gathered stream and
+            # no (K, dpa*dpb) product buffer
+            acc = streaming_segment_product_sum_rtbl(
+                W, R, plan, dpa, dl, dpb,
+                problem.index32(("prod_l", gi), pg["left"]),
+                problem.index32(("prod_r", gi), pg["right"]))
+        else:
+            left = W.index_select(0, problem.index(("prod_l", gi),
+                                                   pg["left"]))
+            right = R.index_select(0, problem.index(("prod_r", gi),
+                                                    pg["right"]))
+            acc = sorted_segment_sum(
+                flat_block_mm_nt(left, right, dpa, dl, dpb,
+                                 acc_dtype=inv_dt), plan)
+        s_vals[key] = s_vals[key] - acc
     return SchurValues(hll_inv=hll_inv, s_vals=s_vals)
 
 
@@ -331,34 +396,66 @@ class SchurOps:
         self.hvals = hvals
         self.sv = sv
         self._gdt = problem.precision.graph_dtype
+        # S values of the K5 sites, filled by prepare_matvec
+        self._smv_prep = None
 
     def hpl(self, key) -> torch.Tensor:
         return take_rows(self.problem, ("hpl_h", key), self.hvals[key],
                          self.ss.hpl_h_idx[key])
 
-    def _partition(self, tag, block_ids):
-        cache = self.problem._cache.setdefault("schur_partitions", {})
-        if tag not in cache:
-            cache[tag] = _partition_blocks_by_type(self.ss, block_ids)
-        return cache[tag]
+    def _cached(self, name, key, build):
+        """Host structure of this problem, built once by ``build()``."""
+        cache = self.problem._cache.setdefault(name, {})
+        if key not in cache:
+            cache[key] = build()
+        return cache[key]
 
     def _lm_partition(self):
         p = self.problem
-        return self._partition("lm_diag",
-                               np.arange(p.elimination_block, p.n_blocks))
+        return self._cached(
+            "lm_partition", None,
+            lambda: _partition_blocks_by_type(
+                self.ss, np.arange(p.elimination_block, p.n_blocks)))
 
-    def _hpl_partitions(self, key):
+    def hpl_partitions(self, key):
         """[(pose type, lm type, sel, pose rows, lm rows)] of Hpl group
         ``key``; ``sel`` indexes the group's Hpl blocks."""
-        ss = self.ss
-        lm_abs = ss.hpl_lm[key] + self.problem.elimination_block
-        out = []
-        for pt, psel, prow in self._partition(f"hpl_pose_{key}",
-                                              ss.hpl_pose[key]):
-            for lt, lsel, lrow in self._partition(f"hpl_lm_{key}_{pt}",
-                                                  lm_abs[psel]):
-                out.append((pt, lt, psel[lsel], prow[lsel], lrow))
-        return out
+
+        def build():
+            ss = self.ss
+            lm_abs = ss.hpl_lm[key] + self.problem.elimination_block
+            out = []
+            for pt, psel, prow in _partition_blocks_by_type(
+                    ss, ss.hpl_pose[key]):
+                for lt, lsel, lrow in _partition_blocks_by_type(
+                        ss, lm_abs[psel]):
+                    out.append((pt, lt, psel[lsel], prow[lsel], lrow))
+            return out
+
+        return self._cached("hpl_partitions", key, build)
+
+    def s_sites(self, key):
+        """[(row type, col type, sel, rows, cols, off-diagonal positions)]
+        of S group ``key``: ``sel`` indexes the group's stored blocks,
+        ``rows`` / ``cols`` are their rows in the types' segments (``cols``
+        ascending: CSC order)."""
+
+        def build():
+            rows_b, cols_b = self.ss.s_rows[key], self.ss.s_cols[key]
+            out = []
+            for rt, rsel, rrow in _partition_blocks_by_type(self.ss, rows_b):
+                for ct, csel, crow in _partition_blocks_by_type(
+                        self.ss, cols_b[rsel]):
+                    sub = rsel[csel]
+                    off = np.nonzero(rows_b[sub] != cols_b[sub])[0]
+                    out.append((rt, ct, sub, rrow[csel], crow, off))
+            return out
+
+        return self._cached("s_sites", key, build)
+
+    def _nondecreasing(self, tag, a: np.ndarray) -> bool:
+        return self._cached("nondecreasing", tag, lambda: bool(
+            a.size == 0 or np.all(np.diff(a) >= 0)))
 
     def _hll_solve_rows(self, t_rows: Dict[str, torch.Tensor]
                         ) -> Dict[str, torch.Tensor]:
@@ -366,7 +463,9 @@ class SchurOps:
         out = {}
         for t, sel, rows in self._lm_partition():
             d = self.problem.vertex_meta[t].vtype.dim
-            gidx = self.ss.lm_group_index[sel[np.argsort(rows, kind="stable")]]
+            gidx = self._cached(
+                "hllsolve_gidx", t, lambda sel=sel, rows=rows:
+                self.ss.lm_group_index[sel[np.argsort(rows, kind="stable")]])
             inv_flat = take_rows(self.problem, ("hllsolve_gidx", t),
                                  self.sv.hll_inv[d], gidx)
             out[t] = flat_block_mv(inv_flat, t_rows[t], d, d,
@@ -383,19 +482,117 @@ class SchurOps:
         for key in self.ss.hpl_keys:
             dp, dl = key
             Hpl = self.hpl(key)
-            for pt, lt, sub, prow, lrow in self._hpl_partitions(key):
+            for pt, lt, sub, prow, lrow in self.hpl_partitions(key):
                 ck = ("bschur", key, pt, lt)
                 Hsub = take_rows(problem, ck + ("sub",), Hpl, sub)
-                wg = w[lt].index_select(0, problem.index(ck + ("lrow",), lrow))
-                y = flat_block_mv(Hsub, wg, dp, dl, acc_dtype=wg.dtype).to(gdt)
-                # the pose destinations are unsorted: the plan sorts them
-                plan = segment_plan(problem, ck, prow, problem.seg_rows[pt])
-                acc = reduce_rows(y, plan)
+                if (sub.shape[0] > _smv_chunk_rows((dp * dl + dp + dl) * 4)
+                        and self._nondecreasing(ck, lrow)):
+                    # K4: y[prow_i] += Hpl_i w[lrow_i], w read by index
+                    plan = matvec_plan(problem, ck, prow,
+                                       problem.seg_rows[pt])
+                    acc = block_matvec_wtbl(
+                        Hsub, w[lt], plan,
+                        problem.index32(ck + ("lid",), lrow), dp, dl
+                    ).to(gdt)
+                else:
+                    wg = w[lt].index_select(
+                        0, problem.index(ck + ("lrow",), lrow))
+                    y = flat_block_mv(Hsub, wg, dp, dl,
+                                      acc_dtype=wg.dtype).to(gdt)
+                    # the pose destinations are unsorted: the plan sorts
+                    acc = reduce_rows(y, segment_plan(problem, ck, prow,
+                                                      problem.seg_rows[pt]))
                 prev = out_rows.get(pt)
                 out_rows[pt] = acc if prev is None else prev + acc
         flat = problem.flat_from_rows({t: -v for t, v in out_rows.items()},
                                       dtype=gdt)
         return flat[: self.ss.dim_p] + b[: self.ss.dim_p].to(gdt)
+
+    def sym_site(self, key, rt, ct):
+        """(plan, cid, rxi) of the K5 site (key, rt, ct), built on the
+        host once per problem: the row-sorted plan of both halves, the
+        column rows as the forward x index, and the row rows as the
+        transposed x index with diagonal blocks pointed at a zero row."""
+        problem = self.problem
+
+        def build():
+            site = next(s for s in self.s_sites(key) if s[:2] == (rt, ct))
+            _, _, sub, rrow, crow, off = site
+            n_r, n_c = problem.seg_rows[rt], problem.seg_rows[ct]
+            rxi = np.full(sub.shape[0], n_r, dtype=np.int64)
+            rxi[off] = rrow[off]
+            ck = ("smv", key, rt, ct)
+            return (plan_matvec_sym(rrow, crow, n_r, n_c, problem.device),
+                    problem.index32(ck + ("cid",), crow),
+                    problem.index32(ck + ("rxi",), rxi))
+
+        return self._cached("smv_sym_sites", (key, rt, ct), build)
+
+    def prepare_matvec(self):
+        """Per solve, before the PCG loop: the S values of every site
+        that takes K5 (more blocks than ``_smv_chunk_rows``), gathered
+        only when the site is not a whole S group. Their index plans are
+        built on the host once per problem (``sym_site``)."""
+        prep = {}
+        for key in self.ss.s_keys:
+            dr, dc = key
+            S = self.sv.s_vals[key]
+            for rt, ct, sub, _, _, _ in self.s_sites(key):
+                if sub.shape[0] > _smv_chunk_rows((dr * dc + dr + dc + 3) * 4):
+                    ck = ("smv", key, rt, ct)
+                    self.sym_site(key, rt, ct)
+                    prep[ck] = take_rows(self.problem, ck + ("ysub",), S,
+                                         sub)
+        self._smv_prep = prep
+
+    def s_matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """y = S x on (dim_p,) vectors, from the stored upper triangle:
+        y_r += S_b x_c for every block, y_c += S_b^T x_r off the
+        diagonal."""
+        if self._smv_prep is None:
+            self.prepare_matvec()
+        problem = self.problem
+        gdt = self._gdt
+        y_rows: Dict[str, torch.Tensor] = {}
+
+        def add_rows(t, acc):
+            prev = y_rows.get(t)
+            y_rows[t] = acc if prev is None else prev + acc
+
+        for key in self.ss.s_keys:
+            dr, dc = key
+            S = self.sv.s_vals[key]
+            for rt, ct, sub, rrow, crow, off in self.s_sites(key):
+                ck = ("smv", key, rt, ct)
+                x_ct = problem.rows_view(x, ct)
+                x_rt = problem.rows_view(x, rt)
+                S_sub = self._smv_prep.get(ck)
+                if S_sub is not None:
+                    # K5: both halves in one launch, summed here
+                    plan, cid, rxi = self.sym_site(key, rt, ct)
+                    yr, yc = matvec_sym_stream(
+                        S_sub, x_ct.to(S_sub.dtype), x_rt.to(S_sub.dtype),
+                        cid, rxi, plan, dr, dc)
+                    add_rows(rt, yr.to(gdt))
+                    add_rows(ct, yc.to(gdt))
+                    continue
+                # stepwise: the forward rows reduced into the (unsorted)
+                # block rows, then the transposed rows of the off-diagonal
+                # blocks into their (sorted) columns
+                S_flat = take_rows(problem, ck + ("sub",), S, sub)
+                xc = x_ct.index_select(0, problem.index(ck + ("crow",), crow))
+                y = flat_block_mv(S_flat, xc, dr, dc, acc_dtype=gdt)
+                add_rows(rt, reduce_rows(y, segment_plan(
+                    problem, ck, rrow, problem.seg_rows[rt])))
+                if off.size:
+                    ckt = ck + ("t",)
+                    St = take_rows(problem, ckt + ("sub",), S, sub[off])
+                    xr = x_rt.index_select(
+                        0, problem.index(ckt + ("rrow",), rrow[off]))
+                    y2 = flat_block_mv_t(St, xr, dr, dc, acc_dtype=gdt)
+                    add_rows(ct, reduce_rows(y2, segment_plan(
+                        problem, ckt, crow[off], problem.seg_rows[ct])))
+        return problem.flat_from_rows(y_rows, dtype=gdt)[: self.ss.dim_p]
 
     def landmark_update(self, b: torch.Tensor,
                         dx_p: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -407,15 +604,27 @@ class SchurOps:
         for key in self.ss.hpl_keys:
             dp, dl = key
             Hpl = self.hpl(key)
-            for pt, lt, sub, prow, lrow in self._hpl_partitions(key):
+            for pt, lt, sub, prow, lrow in self.hpl_partitions(key):
                 ck = ("lu", key, pt, lt)
                 Hsub = take_rows(problem, ck + ("sub",), Hpl, sub)
-                x = problem.rows_view(dx_p, pt).index_select(
-                    0, problem.index(ck + ("prow",), prow))
-                y = flat_block_mv_t(Hsub, x, dp, dl, acc_dtype=gdt)
+                x_pt = problem.rows_view(dx_p, pt)
                 # Hpl is landmark-major: lrow is destination-sorted
-                plan = segment_plan(problem, ck, lrow, problem.seg_rows[lt])
-                t_rows[lt] = t_rows[lt] - reduce_rows(y, plan)
+                if (sub.shape[0] > _smv_chunk_rows((dp * dl + dp + dl) * 4)
+                        and self._nondecreasing(ck, lrow)):
+                    # K4: t[lrow_i] -= Hpl_i^T dx_p[prow_i], x read by index
+                    plan = matvec_plan(problem, ck, lrow,
+                                       problem.seg_rows[lt])
+                    acc = streaming_matvec_tbl(
+                        Hsub, x_pt.to(Hsub.dtype),
+                        problem.index32(ck + ("pidx",), prow), plan, dp, dl,
+                        transpose=True).to(gdt)
+                else:
+                    x = x_pt.index_select(0, problem.index(ck + ("prow",),
+                                                           prow))
+                    y = flat_block_mv_t(Hsub, x, dp, dl, acc_dtype=gdt)
+                    acc = reduce_rows(y, segment_plan(problem, ck, lrow,
+                                                      problem.seg_rows[lt]))
+                t_rows[lt] = t_rows[lt] - acc
         return self._hll_solve_rows(t_rows)
 
     def compose_delta(self, dx_p: torch.Tensor,

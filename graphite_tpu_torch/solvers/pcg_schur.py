@@ -2,12 +2,13 @@
 ``graphite_tpu/solvers/pcg_schur.py``).
 
 Per solve: damp H, build the Schur values, b_S and the preconditioner, run
-PCG on S dx_p = b_S, then back-substitute the landmarks. The pose system
-is densified (dim_p <= ``dense_matvec_limit``); when dim_p <=
+PCG on S dx_p = b_S, then back-substitute the landmarks. Up to
+``dense_matvec_limit`` pose columns S is densified; when dim_p <=
 ``fused_pcg_limit``, the values are float32 and the preconditioner is
 block-Jacobi-Schur, the whole PCG runs as one ``dense_pcg`` call (kernel K2
-on CUDA), as in the JAX package. The block-sparse S matvec for larger pose
-systems is not ported yet.
+on CUDA), as in the JAX package. Above ``dense_matvec_limit`` the PCG runs
+on the host loop with the block-sparse S matvec (``SchurOps.s_matvec``:
+kernel K5 on CUDA at BAL Venice scale).
 """
 
 from __future__ import annotations
@@ -64,31 +65,34 @@ class PCGSchurSolver:
         gdt = problem.precision.graph_dtype
         hs = build_hessian_structure(problem)
         ss = build_schur_structure(problem)
-        if ss.dim_p > self.dense_matvec_limit:
-            raise NotImplementedError(
-                f"dim_p = {ss.dim_p} > dense_matvec_limit: the block-sparse "
-                "Schur matvec is not ported yet")
-
         hv = apply_damping(problem, hs, state.hvals, lin.diag, damping,
                            use_identity)
         sv = schur_values(problem, ss, hv)
         ops = SchurOps(problem, ss, hv, sv)
         b_s = ops.b_schur(lin.b)
         pstate = self.preconditioner.prepare(problem, ss, sv)
-        S = schur_to_dense(problem, ss, sv)
 
-        if (ss.dim_p <= self.fused_pcg_limit and S.dtype == torch.float32
-                and isinstance(self.preconditioner,
-                               BlockJacobiSchurPreconditioner)):
-            M = dense_preconditioner_matrix(problem, ss, pstate, S.dtype)
-            dx_p, _ = dense_pcg(S, M, b_s.to(S.dtype), max_iter=self.max_iter,
-                                tol=self.tol,
-                                rejection_ratio=self.rejection_ratio)
+        def precond(y):
+            return self.preconditioner.apply(problem, ss, pstate, y)
+
+        if ss.dim_p > self.dense_matvec_limit:
+            ops.prepare_matvec()
+            dx_p, _ = run_pcg(b_s, ops.s_matvec, precond, self.max_iter,
+                              self.tol, self.rejection_ratio)
         else:
-            dx_p, _ = run_pcg(
-                b_s, lambda p: (S @ p.to(S.dtype)).to(gdt),
-                lambda y: self.preconditioner.apply(problem, ss, pstate, y),
-                self.max_iter, self.tol, self.rejection_ratio)
+            S = schur_to_dense(problem, ss, sv)
+            if (ss.dim_p <= self.fused_pcg_limit
+                    and S.dtype == torch.float32
+                    and isinstance(self.preconditioner,
+                                   BlockJacobiSchurPreconditioner)):
+                M = dense_preconditioner_matrix(problem, ss, pstate, S.dtype)
+                dx_p, _ = dense_pcg(S, M, b_s.to(S.dtype),
+                                    max_iter=self.max_iter, tol=self.tol,
+                                    rejection_ratio=self.rejection_ratio)
+            else:
+                dx_p, _ = run_pcg(
+                    b_s, lambda p: (S @ p.to(S.dtype)).to(gdt), precond,
+                    self.max_iter, self.tol, self.rejection_ratio)
         dx_p = dx_p.to(gdt)
         dx_l_rows = ops.landmark_update(lin.b, dx_p)
         ok = torch.ones((), dtype=torch.bool, device=problem.device)

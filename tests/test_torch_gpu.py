@@ -12,6 +12,14 @@ on a machine with only PyTorch (``--noconftest`` skips the JAX set-up in
   product, sum and dot in the kernel's order; no step for a zero b.
 - The LM slice on CUDA and on the CPU: bitwise the same trajectory, with
   every kernel launched.
+- K3, K4 (all three entry points) and K5 vs their plain versions at small
+  random shapes, with masked (fill) rows, diagonal blocks and unsorted
+  destinations: within 1e-5 relative on the card, bitwise repeatable, and
+  bitwise equal to the plain version on the CPU (which sums in the
+  kernels' order).
+- The LM slice at Ladybug-49 with the large-problem branches forced
+  (``dense_matvec_limit=0``, the Schur gates lowered): CUDA and CPU give
+  bitwise the same trajectory, and K3, K4 and K5 launch.
 """
 
 import numpy as np
@@ -19,8 +27,9 @@ import pytest
 import torch
 
 import graphite_tpu_torch as gtt
+from graphite_tpu_torch import schur
 from graphite_tpu_torch.io import bal, synthetic
-from graphite_tpu_torch.ops.cuda import pcg_dense, segsum, segsum_stream
+from graphite_tpu_torch.ops.cuda import pcg_dense, segmv, segsum, segsum_stream
 from graphite_tpu_torch.optimizers import (
     LevenbergMarquardtOptions,
     levenberg_marquardt,
@@ -117,3 +126,134 @@ def test_lm_slice_cuda_equals_cpu(cuda_device):
             == [(h["chi2"], h["accepted"]) for h in cpu.history])
     for name, p in gpu.params.items():
         assert torch.equal(p.cpu(), cpu.params[name])
+
+
+def _on(device, *arrays):
+    return [torch.as_tensor(a, device=device) for a in arrays]
+
+
+def _check_kernel(out, again, ref, ref_cpu):
+    torch.cuda.synchronize()
+    for o, a, r, c in zip(out, again, ref, ref_cpu):
+        assert torch.equal(o, a)
+        assert torch.equal(o.cpu(), c)
+        assert float((o - r).abs().max() / r.abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("m,k,n", [(9, 3, 9), (4, 3, 2), (9, 9, 9)])
+def test_k3_matches_plain(cuda_device, m, k, n):
+    rng = np.random.default_rng(m * 100 + k * 10 + n)
+    rows, ns, n_l, n_r = 20_000, 1_800, 5_000, 4_000
+    seg = np.sort(rng.integers(0, ns, rows))
+    ltab = rng.standard_normal((n_l, m * k)).astype(np.float32)
+    rtab = rng.standard_normal((n_r, n * k)).astype(np.float32)
+    li = rng.integers(0, n_l, rows).astype(np.int32)
+    ri = rng.integers(0, n_r, rows).astype(np.int32)
+    runs = []
+    for device in (cuda_device, "cpu"):
+        plan = segsum.plan_segments(seg, ns, device)
+        L, R, lt, rt = _on(device, ltab, rtab, li, ri)
+        runs.append((L, R, lt, rt, plan))
+    L, R, lt, rt, plan = runs[0]
+
+    def tbl():
+        return segsum_stream.streaming_segment_product_sum_rtbl(
+            L, R, plan, m, k, n, lt, rt)
+
+    out = tbl()
+    ref_cpu = segsum_stream.segment_product_sum_plain(*runs[1][:2],
+                                                      runs[1][4], m, k, n,
+                                                      *runs[1][2:4])
+    ref = segsum_stream.segment_product_sum_plain(L, R, plan, m, k, n, lt,
+                                                  rt)
+    _check_kernel([out], [tbl()], [ref], [ref_cpu])
+    stream = segsum_stream.streaming_segment_product_sum(
+        L.index_select(0, lt), R.index_select(0, rt), plan, m, k, n)
+    torch.cuda.synchronize()
+    assert torch.equal(stream, out)
+    with pytest.raises(NotImplementedError):
+        segsum_stream.streaming_segment_product_sum_rtbl(
+            L.double(), R.double(), plan, m, k, n, lt, rt)
+
+
+@pytest.mark.parametrize("ns,transpose", [(40, False), (40, True),
+                                          (15_000, False), (15_000, True)])
+def test_k4_matches_plain(cuda_device, ns, transpose):
+    """Few destinations (a group of threads per segment) and many (one
+    thread per segment), unsorted destinations, ~5% masked rows."""
+    m, k = 9, 3
+    rng = np.random.default_rng(ns + transpose)
+    rows, n_x = 50_000, 3_000
+    dst = rng.integers(0, ns, rows)
+    left = rng.standard_normal((rows, m * k)).astype(np.float32)
+    xd = m if transpose else k
+    x = rng.standard_normal((n_x, xd)).astype(np.float32)
+    xi = rng.integers(0, n_x, rows)
+    xi[rng.random(rows) < 0.05] = n_x
+    xi = xi.astype(np.int32)
+    gpu = _on(cuda_device, left, x, xi)
+    cpu = _on("cpu", left, x, xi)
+    plan = segmv.plan_matvec(dst, ns, cuda_device)
+    plan_cpu = segmv.plan_matvec(dst, ns, "cpu")
+    assert (plan.group > 1) == (ns == 40)
+
+    def tbl(A, X, I, p):
+        return segsum_stream.streaming_matvec_tbl(A, X, I, p, m, k,
+                                                  transpose)
+
+    out = tbl(*gpu, plan)
+    ref = segmv.segmv_plain(*gpu, plan, m, k, transpose)
+    _check_kernel([out], [tbl(*gpu, plan)], [ref], [tbl(*cpu, plan_cpu)])
+    gathered = torch.cat([gpu[1], gpu[1].new_zeros(1, xd)]).index_select(
+        0, gpu[2])
+    stream = segmv.block_matvec_stream(gpu[0], gathered, plan, m, k,
+                                       transpose)
+    torch.cuda.synchronize()
+    assert torch.equal(stream, out)
+    if not transpose:
+        wtbl = segmv.block_matvec_wtbl(gpu[0], gpu[1], plan, gpu[2], m, k)
+        torch.cuda.synchronize()
+        assert torch.equal(wtbl, out)
+
+
+def test_k5_matches_plain(cuda_device):
+    m = k = 9
+    rng = np.random.default_rng(5)
+    rows, n_r, n_c = 60_000, 70, 70
+    rid = rng.integers(0, n_r, rows)
+    cid = np.sort(rng.integers(0, n_c, rows))  # CSC: columns sorted
+    diag = rng.random(rows) < 0.05
+    rxi = np.where(diag, n_r, rid).astype(np.int32)
+    left = rng.standard_normal((rows, m * k)).astype(np.float32)
+    xc = rng.standard_normal((n_c, k)).astype(np.float32)
+    xr = rng.standard_normal((n_r, m)).astype(np.float32)
+    arrays = (left, xc, xr, cid.astype(np.int32), rxi)
+    gpu, cpu = _on(cuda_device, *arrays), _on("cpu", *arrays)
+    plan = segmv.plan_matvec_sym(rid, cid, n_r, n_c, cuda_device)
+    plan_cpu = segmv.plan_matvec_sym(rid, cid, n_r, n_c, "cpu")
+    out = segmv.matvec_sym_stream(*gpu, plan, m, k)
+    _check_kernel(out, segmv.matvec_sym_stream(*gpu, plan, m, k),
+                  segmv.matvec_sym_plain(*gpu, plan, m, k),
+                  segmv.matvec_sym_stream(*cpu, plan_cpu, m, k))
+
+
+def test_forced_branches_lm_cuda_equals_cpu(cuda_device, monkeypatch):
+    monkeypatch.setattr(schur, "CHUNK_THRESHOLD", 0)
+    monkeypatch.setattr(schur, "_smv_chunk_rows", lambda rb: 0)
+    stats = (segsum_stream.PRODUCT_RTBL_STATS, segmv.WTBL_STATS,
+             segsum_stream.MATVEC_TBL_STATS, segmv.SYM_STATS)
+    runs = []
+    for device in ("cpu", cuda_device):
+        g, *_ = bal.build_graph(synthetic.make_bal("ladybug", seed=0),
+                                precision=gtt.FP32_FP32)
+        for s in stats:
+            s.reset()
+        runs.append(levenberg_marquardt(
+            g.freeze(device=device),
+            PCGSchurSolver(10, 1.0, 5.0, dense_matvec_limit=0),
+            options=LevenbergMarquardtOptions(iterations=10)))
+    cpu, gpu = runs
+    assert all(s.launches > 0 for s in stats)
+    assert ([(h["chi2"], h["accepted"]) for h in gpu.history]
+            == [(h["chi2"], h["accepted"]) for h in cpu.history])
+    assert gpu.chi2 < gpu.initial_chi2

@@ -8,7 +8,15 @@ iterations.
 - float32: the same accept pattern and the final chi2 to 1e-3. Here the
   port takes its fused dense-PCG branch (plain version on the CPU) and
   the JAX package its while-loop PCG, as it does on the CPU.
+- float64 with ``dense_matvec_limit=0`` in both packages: the PCG runs on
+  the block-sparse S matvec. Once with the port's default gates (the
+  stepwise matvec) and once with its gates lowered so that the K3 triple
+  products, K4 b_schur / back-substitution and K5 S matvec plain versions
+  carry the whole solve: the same accept pattern and chi2 per iteration
+  to 1e-9.
 """
+
+import pytest
 
 import numpy as np
 import torch
@@ -20,6 +28,7 @@ from graphite_tpu.io.bal import build_graph as jax_build_graph
 from graphite_tpu.optimizers import LevenbergMarquardtOptions as JaxOptions
 from graphite_tpu.optimizers import levenberg_marquardt as jax_lm
 from graphite_tpu.solvers import PCGSchurSolver as JaxPCGSchur
+from graphite_tpu_torch import schur as torch_schur
 from graphite_tpu_torch.interop import params_to_numpy
 from graphite_tpu_torch.io import bal as torch_bal_io
 from graphite_tpu_torch.io import synthetic as torch_synth
@@ -34,14 +43,15 @@ SIZE = (12, 120, 700)
 ITERS = 5
 
 
-def _runs(jax_prec, torch_prec):
+def _runs(jax_prec, torch_prec, **solver_kw):
     ds_j = jax_synth.make_bal(SIZE, seed=0, noise=0.5)
     gj, *_ = jax_build_graph(ds_j, precision=jax_prec)
-    ref = jax_lm(gj.freeze(), JaxPCGSchur(10, 1.0, 5.0),
+    ref = jax_lm(gj.freeze(), JaxPCGSchur(10, 1.0, 5.0, **solver_kw),
                  options=JaxOptions(iterations=ITERS))
     ds_t = torch_synth.make_bal(SIZE, seed=0, noise=0.5)
     gp, *_ = torch_bal_io.build_graph(ds_t, precision=torch_prec)
-    out = levenberg_marquardt(gp.freeze(), PCGSchurSolver(10, 1.0, 5.0),
+    out = levenberg_marquardt(gp.freeze(),
+                              PCGSchurSolver(10, 1.0, 5.0, **solver_kw),
                               options=LevenbergMarquardtOptions(
                                   iterations=ITERS))
     return ref, out
@@ -75,3 +85,17 @@ def test_lm_slice_matches_jax_f32():
         assert p.dtype == torch.float32 and torch.all(torch.isfinite(p))
     # CPU tensors never launch a kernel
     assert pcg_dense.STATS.launches == before
+
+
+@pytest.mark.parametrize("forced", [False, True])
+def test_lm_slice_block_sparse_matvec_matches_jax_f64(monkeypatch, forced):
+    if forced:
+        monkeypatch.setattr(torch_schur, "CHUNK_THRESHOLD", 0)
+        monkeypatch.setattr(torch_schur, "_smv_chunk_rows", lambda rb: 0)
+    ref, out = _runs(gt.FP64_FP64, gtt.FP64_FP64, dense_matvec_limit=0)
+    assert len(out.history) == len(ref.history) == ITERS
+    assert ([h["accepted"] for h in out.history]
+            == [h["accepted"] for h in ref.history])
+    np.testing.assert_allclose([h["chi2"] for h in out.history],
+                               [h["chi2"] for h in ref.history], rtol=1e-9)
+    assert out.chi2 < out.initial_chi2

@@ -18,7 +18,7 @@ import torch
 
 import graphite_tpu.ops.pallas.pcg_dense as jax_pcg_dense
 from graphite_tpu_torch.ops.cuda import pcg_dense
-from graphite_tpu_torch.ops.pcg_loop import run_pcg
+from graphite_tpu_torch.ops.pcg_loop import run_pcg, tree_dot
 
 torch.set_num_threads(1)
 
@@ -95,3 +95,27 @@ def test_zero_rhs_takes_no_step():
                                torch.zeros(S.shape[0]), max_iter=10,
                                tol=1.0, rejection_ratio=5.0)
     assert int(k) == 0 and torch.all(x == 0)
+
+
+def _halve32(w):
+    """One level of the warp order in NumPy: zero-pad to rows of 32, then
+    add pairs (i, i + 16), (i, i + 8), ... within each row."""
+    w = np.concatenate([w, np.zeros(-len(w) % 32, w.dtype)]).reshape(-1, 32)
+    for o in (16, 8, 4, 2, 1):
+        w = w[:, :o] + w[:, o:2 * o]
+    return w[:, 0]
+
+
+@pytest.mark.parametrize("n", [7, 441, 1024, 16_002])
+def test_tree_dot_fixed_order(n):
+    """run_pcg's dot: float32 products summed 32 at a time, level by level
+    (two levels up to 1,024 entries, K2's order; three at Venice's
+    16,002)."""
+    rng = np.random.default_rng(n)
+    u, v = (rng.standard_normal(n).astype(np.float32) for _ in range(2))
+    w = u * v
+    for _ in range(2 if n <= 1024 else 3):
+        w = _halve32(w)
+    assert w.shape == (1,)
+    got = tree_dot(torch.as_tensor(u), torch.as_tensor(v))
+    assert got.dtype == torch.float32 and float(got) == float(w[0])
