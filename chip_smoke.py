@@ -8,7 +8,7 @@ own:
 
 1. build the CUDA kernels from the checkout, one nvcc per source, all
    started together: K1 ``csrc/segsum.cu``, K2 ``csrc/pcg_dense.cu``, K3
-   ``csrc/segprod.cu``, K4 / K5 ``csrc/segmv.cu``;
+   ``csrc/segprod.cu``, K4 / K5 ``csrc/segmv.cu``, K6 ``csrc/pcg_mf.cu``;
 2. K1 vs its plain PyTorch version on the card, at the BAL Ladybug-49
    reduction shapes (seeded random inputs): relative error <= 1e-5, and
    two runs bitwise identical;
@@ -20,6 +20,25 @@ own:
    the CPU (plain versions). The accept patterns must be equal, each
    iteration's chi2 within 1e-3, the final chi2 below the initial one, and
    K1 and K2 launched by the run (dense_pcg once per solve);
+4a. K6 vs its plain version on the card, on the inputs of the first LM
+   solve of sphere2500 (``make_sphere_se3(2500, seed=0)``, SE3,
+   block-Jacobi and identity) and of the 2500-pose SE2 circle: x within
+   1e-5 relative, the same number of CG steps, two runs bitwise
+   identical; also prints whether it equals the CPU plain version
+   bitwise;
+4b. the sphere2500 path: FP32_FP32, Levenberg-Marquardt (damping 1e-4)
+   with PCGSolver(50, 1e-10, 1e6, block-Jacobi) for 30 iterations on the
+   card and on the CPU: accept patterns equal, chi2 within 1e-3 per
+   iteration, final chi2 below the initial one, finite unit quaternions,
+   K6 launched once per solve and no ``run_pcg`` host loop; ms per
+   iteration, K6's time and launches, peak memory;
+4c. K1 vs its plain version at every reduction site of that run (the
+   factor rows of linearize, which JtPv shares, and the block-Jacobi
+   blocks, per slot; seeded values): relative error <= 1e-5, two runs
+   bitwise identical, bitwise vs the CPU plain version printed;
+4d. sphere2500 with the K6 gate closed (``pcg_mf.J_BYTES_LIMIT = 0``),
+   10 iterations on the card and on the CPU: ``run_pcg`` on
+   ``hessian_matvec``, K1 launched, the same checks;
 5. the BAL Venice-1778 problem (993,923 points, 5,001,946 observations,
    dim_p 16,002) frozen on the card, with its host set-up seconds;
 6. K1, K3, K4 and K5 vs their plain versions on the card at Venice-1778's
@@ -39,7 +58,13 @@ own:
    accept patterns equal, chi2 within 1e-3, K3, K4 and K5 launched.
 
 Prints the kernels' JSON summary and the card's name and power limit, and
-as its last line ``{"ok": true, "device": {...}}``. Any failure raises
+as its last line ``{"ok": true, "device": {...}}``. Each kernel's entry
+holds its launches on every main path, its time, its plain version's
+time, the library call's time where one PyTorch call computes the same
+function (``index_add_`` for K1, a cuSPARSE SpMV through ``torch.mv`` on
+a CSR copy of the blocks for K4 and K5) and its bound: the larger of its
+bytes over the HBM rate and its float32 operations over the float32 peak
+(each summed over the same shapes as the times). Any failure raises
 (non-zero exit); without a card it exits 1 at once and prints no result.
 """
 
@@ -49,6 +74,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 VENICE = "venice-big"  # make_bal size name of BAL Venice-1778
 DEVICE = "cuda"
@@ -79,16 +105,79 @@ def rel_err(out, ref):
     return float((out - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
 
 
+# The card's published peaks (NVIDIA H100 SXM data sheet, 700 W): HBM3
+# bandwidth and the float32 rate outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def bound(moved_bytes, ops):
+    """The least time the card could take for a call: (ms if only its
+    bytes moved, ms if only its float32 operations ran). Each input is
+    counted read once and each output written once."""
+    return dict(bytes_ms=1e3 * moved_bytes / HBM_BYTES_PER_S,
+                ops_ms=1e3 * ops / FP32_OPS_PER_S)
+
+
+def bound_fields(b):
+    """``bound_ms`` and ``bound_by`` of a ``bound`` (or a sum of them)."""
+    by = "bytes" if b["bytes_ms"] >= b["ops_ms"] else "operations"
+    return dict(bound_ms=max(b["bytes_ms"], b["ops_ms"]), bound_by=by)
+
+
+def csr_from_blocks(blocks, brow, bcol, n_brows, n_bcols):
+    """A float32 CSR matrix of (n_brows*m, n_bcols*k) scalars holding the
+    (m, k) blocks ``blocks`` at block rows / columns ``brow`` / ``bcol``
+    (int64 tensors on the blocks' device). Built once per site, outside
+    any timing: the library yardstick of K4 and K5 is one ``torch.mv`` on
+    it (cuSPARSE SpMV)."""
+    import torch
+
+    nb, m, k = blocks.shape
+    dev = blocks.device
+    order = torch.argsort(brow * n_bcols + bcol)
+    brow, bcol, blocks = brow[order], bcol[order], blocks[order]
+    count = torch.bincount(brow, minlength=n_brows)
+    start = torch.cumsum(count, 0) - count
+    q = torch.arange(nb, device=dev) - start[brow]  # place in block row
+    i = torch.arange(m, device=dev).view(1, m, 1)
+    j = torch.arange(k, device=dev).view(1, 1, k)
+    base = (m * k * start[brow] + q * k).view(nb, 1, 1)
+    pos = (base + i * (count[brow] * k).view(nb, 1, 1) + j).reshape(-1)
+    values = torch.empty(nb * m * k, dtype=torch.float32, device=dev)
+    values[pos] = blocks.reshape(-1).float()
+    cols = torch.empty(nb * m * k, dtype=torch.int32, device=dev)
+    cols[pos] = (bcol.view(nb, 1, 1) * k + j).expand(nb, m, k).reshape(
+        -1).int()
+    del pos
+    row_start = (m * k * start).view(-1, 1) + (
+        torch.arange(m, device=dev).view(1, m) * (count * k).view(-1, 1))
+    crow = torch.cat([row_start.reshape(-1),
+                      torch.tensor([nb * m * k], device=dev)]).int()
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(crow, cols, values,
+                                       (n_brows * m, n_bcols * k),
+                                       check_invariants=False)
+
+
 def phase_build():
     from graphite_tpu_torch.ops.cuda import (
         pcg_dense,
+        pcg_mf,
         segmv,
         segsum,
         segsum_stream,
     )
 
     loaders = (segsum.load_kernel, pcg_dense.load_kernel,
-               segsum_stream.load_product_kernel, segmv.load_kernel)
+               segsum_stream.load_product_kernel, segmv.load_kernel,
+               pcg_mf.load_kernel)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
         libs = list(pool.map(lambda load: load(), loaders))
@@ -121,12 +210,7 @@ def phase_k1(device):
     from graphite_tpu_torch.ops.cuda import segsum, segsum_stream
 
     rng = np.random.default_rng(0)
-    # per entry point: ms / plain_ms summed over its shapes (one call each),
-    # and the per-shape times beside the shapes
-    stats = {name: dict(ms=0.0, plain_ms=0.0, err=0.0, shapes=[],
-                        ms_by_shape=[], plain_ms_by_shape=[])
-             for name in ("segsum.sorted_segment_sum",
-                          "segsum_stream.streaming_segment_sum")}
+    stats = {}  # entry point -> one record per shape
     for k, ns, d, is_sorted, site in K1_SHAPES:
         seg = rng.integers(0, ns, k)
         if is_sorted:
@@ -149,21 +233,47 @@ def phase_k1(device):
         abs_err = float((out - ref).abs().max())
         ms = device_ms(lambda: wrapper(vals, plan))
         plain_ms = device_ms(lambda: segsum.segment_sum_plain(vals, plan))
+        lib = device_ms(
+            k1_library(vals, torch.as_tensor(seg, device=device), ns), 10)
         print(f"[k1] {k}x{d}->{ns} {site}: rel_err={err:.3e} "
               f"max_abs_err={abs_err:.3e} bitwise_repeat="
               f"{torch.equal(out, again)} bitwise_vs_cpu_plain="
               f"{torch.equal(out.cpu(), ref_cpu)} ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f}")
+              f"plain_ms={plain_ms:.4f} index_add_ms={lib:.4f}")
         check(torch.equal(out, again), f"K1 not bitwise repeatable at {site}")
         check(err <= 1e-5, f"K1 rel err {err} > 1e-5 at {site}")
-        s = stats[name]
-        s["ms"] += ms
-        s["plain_ms"] += plain_ms
-        s["err"] = max(s["err"], abs_err)
-        s["shapes"].append(f"{k}x{d}->{ns}")
-        s["ms_by_shape"].append(ms)
-        s["plain_ms_by_shape"].append(plain_ms)
+        stats.setdefault(name, []).append(dict(
+            err=abs_err, ms=ms, plain_ms=plain_ms, shape=f"{k}x{d}->{ns}",
+            library_ms=lib, **k1_bound(vals, plan)))
     return stats
+
+
+def k1_bound(vals, plan):
+    """K1 reads the values, the segment offsets and (unsorted) the sort
+    permutation once, writes the sums once, and adds each value once."""
+    return bound(nbytes(vals, plan.offsets_i32, plan.perm_i32)
+                 + 4 * plan.num_segments * vals.shape[1], vals.numel())
+
+
+def input_order_ids(plan):
+    """The destination of each value row, in the values' own order."""
+    import torch
+
+    if plan.perm is None:
+        return plan.seg
+    ids = torch.empty_like(plan.seg)
+    ids[plan.perm] = plan.seg
+    return ids
+
+
+def k1_library(vals, seg, num_segments):
+    """The library call computing K1's sums: ``index_add_`` (float
+    atomics) of the rows by their destinations ``seg`` (input order)."""
+    import torch
+
+    return lambda: torch.zeros(
+        (num_segments, vals.shape[1]), device=vals.device).index_add_(
+            0, seg, vals)
 
 
 def ladybug_problem(device):
@@ -250,11 +360,17 @@ def phase_k2(device, solver, mu):
               f"matmul_run_pcg_ms={matmul_ms:.4f}")
         check(err <= 1e-4, f"K2 rel err {err} > 1e-4 ({label})")
         check(k == k_ref, f"K2 took {k} steps, plain {k_ref} ({label})")
-        if result is None:
-            result = dict(ms=ms, plain_ms=plain_ms, err=abs_err,
-                          shapes=[f"n={bx.shape[0]}"], ms_by_shape=[ms],
-                          plain_ms_by_shape=[plain_ms])
-    return result
+        if result is None:  # the main path's system
+            n = bx.shape[0]
+            # per CG step two (n, n) matvecs, three dots, a norm's
+            # division and three vector updates; the start costs one
+            # matvec and two dots
+            ops = (k + 1) * (2 * n * n + 2 * 2 * n + n) + k * (
+                2 * n * n + 2 * n + 6 * n)
+            result = dict(err=abs_err, ms=ms, plain_ms=plain_ms,
+                          shape=f"n={n}, {k} CG steps", library_ms=None,
+                          **bound(nbytes(Sx, Mx, bx, x), ops))
+    return {"pcg_dense.dense_pcg": [result]}
 
 
 def run_lm(problem, solver, iterations, params=None):
@@ -272,6 +388,7 @@ def all_stats():
     """The launch counts of every kernel entry point."""
     from graphite_tpu_torch.ops.cuda import (
         pcg_dense,
+        pcg_mf,
         segmv,
         segsum,
         segsum_stream,
@@ -280,7 +397,7 @@ def all_stats():
     return [segsum.STATS, segsum_stream.STATS, pcg_dense.STATS,
             segsum_stream.PRODUCT_STATS, segsum_stream.PRODUCT_RTBL_STATS,
             segsum_stream.MATVEC_TBL_STATS, segmv.STREAM_STATS,
-            segmv.WTBL_STATS, segmv.SYM_STATS]
+            segmv.WTBL_STATS, segmv.SYM_STATS, pcg_mf.STATS]
 
 
 def count_launches(run, record_events=True):
@@ -372,6 +489,206 @@ def phase_slice(solver, iterations):
     return launches
 
 
+POSES = 2500  # sphere2500's pose count
+
+
+def pose_problem(device, kind="se3"):
+    """The SE3 sphere2500 graph (``make_sphere_se3(2500, seed=0)``) or the
+    2500-pose SE2 circle, FP32_FP32, the first pose fixed."""
+    import torch
+
+    from graphite_tpu_torch import FP32_FP32
+    from graphite_tpu_torch.io import g2o, synthetic
+
+    ds = (synthetic.make_sphere_se3(POSES, seed=0) if kind == "se3"
+          else synthetic.make_pose_graph_2d(POSES, seed=0))
+    g, *_ = g2o.build_graph(ds, precision=FP32_FP32)
+    return g.freeze(device=torch.device(device))
+
+
+def pose_solver(precond="bj"):
+    """The pose path's solver: PCGSolver(50, 1e-10, 1e6) with block-Jacobi
+    (or identity) preconditioning."""
+    from graphite_tpu_torch.preconditioners import (
+        BlockJacobiPreconditioner,
+        IdentityPreconditioner,
+    )
+    from graphite_tpu_torch.solvers import PCGSolver
+
+    return PCGSolver(50, 1e-10, 1e6, BlockJacobiPreconditioner()
+                     if precond == "bj" else IdentityPreconditioner())
+
+
+def first_k6_inputs(problem, solver, mu):
+    """The arguments the first LM solve (damping ``mu``) hands K6's
+    wrapper, taken from the solver's own call."""
+    from graphite_tpu_torch.linearize import linearize
+    from graphite_tpu_torch.solvers import pcg as pcg_solver
+
+    seen = []
+    real = pcg_solver.solve_pcg_mf
+
+    def capture(*args, **kwargs):
+        seen.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    pcg_solver.solve_pcg_mf = capture
+    try:
+        lin = linearize(problem, problem.params0)
+        solver.solve(problem, lin, solver.prepare(problem, lin), mu, False)
+    finally:
+        pcg_solver.solve_pcg_mf = real
+    check(len(seen) == 1, "the pose solve did not take the K6 branch")
+    return seen[0]
+
+
+def k6_bound(site, jf, b, damp, minv, steps):
+    """K6 reads J', the slot rows, the row CSR, b, damp and the inverse
+    blocks once and writes x once. Per CG step: J' p and J'^T v (a
+    multiply-add per J' entry and incidence), damp * p, three dots, the
+    norm's division, the block preconditioner and three vector updates;
+    the start preconditions once and takes two dots."""
+    N = site.n * site.d
+    moved = nbytes(jf, site.rows, site.desc, site.csr_off, site.inc_j,
+                   site.inc_v, site.inc_e, b, damp, minv) + 4 * N
+    jp = sum(2 * blk.F * blk.arity * blk.E * site.d for blk in site.blocks)
+    jtv = 2 * site.d * int(site.inc_e.sum()) + 3 * N
+    pre = N + (2 * site.d * N if minv is not None else 0)
+    step = jp + jtv + 3 * 2 * N + pre + 6 * N
+    return bound(moved, steps * step + pre + 2 * 2 * N)
+
+
+def phase_k6():
+    """K6 vs its plain version on the first LM solve of sphere2500 (SE3,
+    block-Jacobi and identity) and of the 2500-pose SE2 circle."""
+    import torch
+
+    from graphite_tpu_torch.ops.cuda import pcg_mf
+
+    records = []
+    for kind, precond in (("se3", "bj"), ("se3", "identity"), ("se2", "bj")):
+        problem = pose_problem(DEVICE, kind)
+        (site, jf, b, damp, minv), kw = first_k6_inputs(
+            problem, pose_solver(precond), 1e-4)
+        args = (site, jf, b, damp, minv)
+        x, k = pcg_mf.solve_pcg_mf(*args, **kw)
+        again, k2 = pcg_mf.solve_pcg_mf(*args, **kw)
+        ref, k_ref = pcg_mf.solve_pcg_mf_plain(*args, **kw)
+        x_cpu, k_cpu = pcg_mf.solve_pcg_mf_plain(
+            on_cpu(site), jf.cpu(), b.cpu(), damp.cpu(),
+            None if minv is None else minv.cpu(), **kw)
+        torch.cuda.synchronize()
+        k, k2, k_ref, k_cpu = int(k), int(k2), int(k_ref), int(k_cpu)
+        err = rel_err(x, ref)
+        abs_err = float((x - ref).abs().max())
+        ms = device_ms(lambda: pcg_mf.solve_pcg_mf(*args, **kw))
+        plain_ms = device_ms(lambda: pcg_mf.solve_pcg_mf_plain(*args, **kw),
+                             reps=3)
+        work = k6_bound(site, jf, b, damp, minv, k)
+        label = (f"{kind} n={site.n} d={site.d} "
+                 f"F={[blk.F for blk in site.blocks]} {precond}, {k} CG "
+                 f"steps")
+        print(f"[k6] {label}: rel_err={err:.3e} max_abs_err={abs_err:.3e} "
+              f"iterations={k} plain_iterations={k_ref} cpu_iterations="
+              f"{k_cpu} bitwise_repeat={torch.equal(x, again)} "
+              f"bitwise_vs_cpu_plain={torch.equal(x.cpu(), x_cpu)} "
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound={bound_fields(work)}")
+        check(torch.equal(x, again) and k == k2,
+              f"K6 not bitwise repeatable ({label})")
+        check(k == k_ref > 0, f"K6 took {k} steps, plain {k_ref} ({label})")
+        check(err <= 1e-5, f"K6 rel err {err} > 1e-5 ({label})")
+        records.append(dict(err=abs_err, ms=ms, plain_ms=plain_ms,
+                            shape=label, library_ms=None, **work))
+    return {"pcg_mf.solve_pcg_mf": records}
+
+
+def check_quaternions(tag, result):
+    import torch
+
+    q = result.params["se3_pose"][:, 3:]
+    norm_err = float((q.double().norm(dim=1) - 1.0).abs().max())
+    print(f"[{tag}] max | |q| - 1 | = {norm_err:.3e}")
+    check(bool(torch.isfinite(q).all()) and norm_err <= 1e-5,
+          f"{tag}: quaternions not finite and unit")
+
+
+def phase_pose(iterations):
+    """sphere2500 through LM + PCGSolver on the card and on the CPU."""
+    import torch
+
+    from graphite_tpu_torch.solvers import pcg as pcg_solver
+
+    solver = pose_solver()
+    problem = pose_problem(DEVICE)
+    loops = [0]
+    real = pcg_solver.run_pcg
+
+    def counted(*args, **kwargs):
+        loops[0] += 1
+        return real(*args, **kwargs)
+
+    torch.cuda.reset_peak_memory_stats()
+    pcg_solver.run_pcg = counted
+    try:
+        gpu, launches, kernel_ms = count_launches(
+            lambda: run_lm(problem, solver, iterations))
+    finally:
+        pcg_solver.run_pcg = real
+    peak = torch.cuda.max_memory_allocated()
+    t1 = time.perf_counter()
+    cpu = run_lm(pose_problem("cpu"), solver, iterations)
+    print(f"[sphere2500] cpu run {time.perf_counter() - t1:.1f} s")
+    compare_runs("sphere2500", gpu, cpu)
+    check(len(gpu.history) == len(cpu.history), "iteration counts differ")
+    check_solution("sphere2500", problem, gpu)
+    check_quaternions("sphere2500", gpu)
+    dev_ms = [h["device_ms"] for h in gpu.history[1:]]
+    host_ms = [1e3 * h["time"] for h in gpu.history[1:]]
+    print(f"[sphere2500] dim_h={problem.dim_h} ms per LM iteration (median "
+          f"of iterations 1..): device={statistics.median(dev_ms):.3f} "
+          f"host={statistics.median(host_ms):.3f} "
+          f"all_device={[round(m, 3) for m in dev_ms]}")
+    print(f"[sphere2500] peak device memory max_memory_allocated="
+          f"{peak / 2**30:.4f} GiB; run_pcg host loops={loops[0]}")
+    print_launches("sphere2500", launches, kernel_ms)
+    check(launches["pcg_mf.solve_pcg_mf"] == len(gpu.history),
+          "K6 must launch once per solve")
+    check(loops[0] == 0, "run_pcg ran on the K6 branch")
+    check(launches["segsum_stream.streaming_segment_sum"] > 0,
+          "K1 never launched on the pose path")
+    return launches, problem
+
+
+def phase_pose_generic(iterations):
+    """sphere2500 with the K6 gate closed (``J_BYTES_LIMIT = 0``): run_pcg
+    on hessian_matvec, JtPv reducing through K1; CUDA vs CPU."""
+    from graphite_tpu_torch.ops.cuda import pcg_mf
+
+    solver = pose_solver()
+    gate = pcg_mf.J_BYTES_LIMIT
+    pcg_mf.J_BYTES_LIMIT = 0
+    try:
+        problem = pose_problem(DEVICE)
+        gpu, launches, _ = count_launches(
+            lambda: run_lm(problem, solver, iterations), record_events=False)
+        cpu = run_lm(pose_problem("cpu"), solver, iterations)
+    finally:
+        pcg_mf.J_BYTES_LIMIT = gate
+    compare_runs("sphere2500-generic", gpu, cpu)
+    check(len(gpu.history) == len(cpu.history), "iteration counts differ")
+    check_solution("sphere2500-generic", problem, gpu)
+    dev_ms = [h["device_ms"] for h in gpu.history[1:]]
+    print(f"[sphere2500-generic] ms per LM iteration (median of iterations "
+          f"1..): device={statistics.median(dev_ms):.3f}")
+    print(f"[sphere2500-generic] launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    check(launches["pcg_mf.solve_pcg_mf"] == 0, "K6 launched, gate closed")
+    check(launches["segsum_stream.streaming_segment_sum"] > 0,
+          "K1 never launched on the generic pose branch")
+    return launches
+
+
 def phase_venice_setup():
     """BAL Venice-1778 frozen on the card, its structures and one pass of
     the solve's stages (which builds every host plan)."""
@@ -436,9 +753,11 @@ def phase_venice_setup():
     return ds, problem, lin, hv, sv, ops
 
 
-def measure(tag, label, kernel, plain, cpu_plain, reps, plain_reps):
+def measure(tag, label, kernel, plain, cpu_plain, reps, plain_reps, work,
+            library=None):
     """A kernel vs its plain version on the card (and on the CPU) at one
-    shape; returns its numbers."""
+    shape, ``work`` its ``bound``, ``library`` (or None) the one PyTorch
+    call computing the same function; returns its numbers."""
     import torch
 
     def tup(x):
@@ -455,49 +774,84 @@ def measure(tag, label, kernel, plain, cpu_plain, reps, plain_reps):
     del out, cpu_ref
     ms = device_ms(kernel, reps)
     plain_ms = device_ms(plain, plain_reps)
+    lib_ms = None if library is None else device_ms(library, reps)
     print(f"[{tag}] {label}: rel_err={err:.3e} max_abs_err={abs_err:.3e} "
           f"bitwise_repeat={repeat} bitwise_vs_cpu_plain={vs_cpu} "
-          f"ms={ms:.4f} plain_ms={plain_ms:.4f}")
+          f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms} "
+          f"bound_ms={bound_fields(work)}")
     check(repeat, f"{tag} not bitwise repeatable at {label}")
     check(err <= 1e-5, f"{tag} rel err {err} > 1e-5 at {label}")
-    return dict(err=abs_err, ms=ms, plain_ms=plain_ms, shape=label)
+    return dict(err=abs_err, ms=ms, plain_ms=plain_ms, shape=label,
+                library_ms=lib_ms, **work)
 
 
-def plan_on_cpu(plan):
-    """A copy of a ``SegmentPlan`` with its tensors on the CPU."""
+def on_cpu(obj):
+    """A copy of a plan or site dataclass with its tensors on the CPU."""
     import dataclasses
 
     import torch
 
-    return dataclasses.replace(plan, **{
-        f.name: getattr(plan, f.name).cpu()
-        for f in dataclasses.fields(plan)
-        if torch.is_tensor(getattr(plan, f.name))})
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).cpu()
+        for f in dataclasses.fields(obj)
+        if torch.is_tensor(getattr(obj, f.name))})
 
 
-def venice_k1_sites(problem):
-    """(label, plan, width) of every K1 reduction on the Venice path: the
-    factor-row reductions of ``linearize`` and the Hessian value groups,
-    from the problem's cached segment plans."""
+def k1_sites(problem, path):
+    """(label, plan, width) of every K1 reduction a path ran on
+    ``problem``, from its cached segment plans: the factor rows of
+    ``linearize`` (and of ``JtPv``, which shares their plans), the Hessian
+    value groups and the block-Jacobi blocks."""
     from graphite_tpu_torch.hessian import build_hessian_structure
 
-    hs = build_hessian_structure(problem)
     sites = []
     for tag, plan in problem._cache["segment_plans"].items():
-        if tag[0] == "rows":
+        if tag[0] in ("rows", "bj_blocks"):
             _, fname, s = tag
             vt = problem.factor_meta[fname].ftype.vertex_types[s]
-            label, d = f"linearize rows of {vt.name}", vt.dim
+            label, d = ((f"linearize rows of {vt.name}", vt.dim)
+                        if tag[0] == "rows" else
+                        (f"block-Jacobi blocks of {vt.name}", vt.dim ** 2))
+            if problem.factor_meta[fname].ftype.arity > 1:
+                label += f" slot {s}"
         elif tag[0] in ("hess_d", "hess_t"):
-            cm = hs.contribs[tag[1]]
+            cm = build_hessian_structure(problem).contribs[tag[1]]
             key = cm.direct_group if tag[0] == "hess_d" else cm.trans_group
             label, d = f"hessian group {key}", key[0] * key[1]
         else:  # K3's segment plan (``prod_dst``)
             continue
         label += ", permuted" if plan.perm is not None else ""
-        sites.append((f"{plan.rows}x{d}->{plan.num_segments} {label}",
+        sites.append((f"{path} {plan.rows}x{d}->{plan.num_segments} {label}",
                       plan, d))
     return sites
+
+
+def phase_k1_sites(problem, path, seed):
+    """K1 vs its plain version at every reduction site of ``path`` on
+    ``problem`` (seeded values)."""
+    import numpy as np
+    import torch
+
+    from graphite_tpu_torch.ops.cuda import segsum_stream
+    from graphite_tpu_torch.ops.cuda.segsum import segment_sum_plain
+
+    rng = np.random.default_rng(seed)
+    records = []
+    for label, plan, d in k1_sites(problem, path):
+        vals = torch.as_tensor(
+            rng.standard_normal((plan.rows, d)).astype(np.float32),
+            device=problem.device)
+        cvals, cplan = vals.cpu(), on_cpu(plan)
+        records.append(measure(
+            "k1", label,
+            lambda: segsum_stream.streaming_segment_sum(vals, plan),
+            lambda: segment_sum_plain(vals, plan),
+            lambda: segment_sum_plain(cvals, cplan), 10, 3,
+            k1_bound(vals, plan),
+            k1_library(vals, input_order_ids(plan), plan.num_segments)))
+        del vals, cvals, cplan
+    check(records, f"no K1 site on the {path} path")
+    return {"segsum_stream.streaming_segment_sum": records}
 
 
 def phase_venice_kernels(problem, lin, hv, sv, ops):
@@ -508,10 +862,7 @@ def phase_venice_kernels(problem, lin, hv, sv, ops):
 
     from graphite_tpu_torch import schur
     from graphite_tpu_torch.ops.cuda import segmv, segsum_stream
-    from graphite_tpu_torch.ops.cuda.segsum import (
-        plan_segments,
-        segment_sum_plain,
-    )
+    from graphite_tpu_torch.ops.cuda.segsum import plan_segments
     from graphite_tpu_torch.ops.streamreduce import (
         matvec_plan,
         segment_plan,
@@ -520,7 +871,8 @@ def phase_venice_kernels(problem, lin, hv, sv, ops):
 
     ss = ops.ss
     rng = np.random.default_rng(2)
-    results = {}
+    # K1: every row reduction of linearize and the Hessian values
+    results = phase_k1_sites(problem, "Venice", 3)
 
     def add(name, r):
         results.setdefault(name, []).append(r)
@@ -528,18 +880,12 @@ def phase_venice_kernels(problem, lin, hv, sv, ops):
     def cpu(*ts):
         return [None if t is None else t.cpu() for t in ts]
 
-    # K1: every row reduction of linearize and the Hessian values
-    for label, plan, d in venice_k1_sites(problem):
-        vals = torch.as_tensor(
-            rng.standard_normal((plan.rows, d)).astype(np.float32),
-            device=problem.device)
-        cvals, cplan = vals.cpu(), plan_on_cpu(plan)
-        add("segsum_stream.streaming_segment_sum", measure(
-            "k1", label,
-            lambda: segsum_stream.streaming_segment_sum(vals, plan),
-            lambda: segment_sum_plain(vals, plan),
-            lambda: segment_sum_plain(cvals, cplan), 10, 3))
-        del vals, cvals, cplan
+    def dev(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.int64),
+                               device=problem.device)
+
+    def spmv(csr, x):
+        return lambda: torch.mv(csr, x.reshape(-1))
 
     # K3: the Schur triple products, W and Hpl read by index
     (pg,) = ss.products
@@ -553,6 +899,10 @@ def phase_venice_kernels(problem, lin, hv, sv, ops):
     cW, cR, cli, cri = cpu(W, R, li, ri)
     cplan = plan_segments(pg["dst"], ns, "cpu")
     label = f"{plan.rows}x({dpa},{dl},{dpb})->{ns} schur_values"
+    # K3 reads W, Hpl and both index streams once, writes S once; each
+    # product is dpa*dl*dpb multiply-adds
+    work = bound(nbytes(W, R, li, ri, plan.offsets_i32, plan.perm_i32)
+                 + 4 * ns * dpa * dpb, 2 * plan.rows * dpa * dl * dpb)
     add("segsum_stream.streaming_segment_product_sum_rtbl", measure(
         "k3", label,
         lambda: segsum_stream.streaming_segment_product_sum_rtbl(
@@ -560,7 +910,7 @@ def phase_venice_kernels(problem, lin, hv, sv, ops):
         lambda: segsum_stream.segment_product_sum_plain(
             W, R, plan, dpa, dl, dpb, li, ri),
         lambda: segsum_stream.segment_product_sum_plain(
-            cW, cR, cplan, dpa, dl, dpb, cli, cri), 5, 2))
+            cW, cR, cplan, dpa, dl, dpb, cli, cri), 5, 2, work))
     del W, R, cW, cR, cli, cri
 
     # K4: b_schur, its kernel-6 form, the back-substitution
@@ -576,24 +926,42 @@ def phase_venice_kernels(problem, lin, hv, sv, ops):
     cA, cw, clid = cpu(A, w, lid)
     label = (f"{A.shape[0]}x({dp},{dl})->{n_pt}, w[{n_lt}] by index, "
              f"group {plan_b.group} b_schur")
+    rows_k4 = A.shape[0]
+    blocks = A.view(rows_k4, dp, dl)
+
+    def k4_work(x, xi, mplan, out_rows, out_dim):
+        """K4 reads the blocks, x, its index and the plan once, writes the
+        sums once; each block is dp*dl multiply-adds."""
+        return bound(nbytes(A, x, xi, mplan.seg.offsets_i32,
+                            mplan.seg.perm_i32) + 4 * out_rows * out_dim,
+                     2 * rows_k4 * dp * dl)
+
+    csr = csr_from_blocks(blocks, dev(prow), dev(lrow), n_pt, n_lt)
     add("segmv.block_matvec_wtbl", measure(
         "k4", label,
         lambda: segmv.block_matvec_wtbl(A, w, plan_b, lid, dp, dl),
         lambda: segmv.segmv_plain(A, w, lid, plan_b, dp, dl),
-        lambda: segmv.segmv_plain(cA, cw, clid, cplan_b, dp, dl), 10, 3))
+        lambda: segmv.segmv_plain(cA, cw, clid, cplan_b, dp, dl), 10, 3,
+        k4_work(w, lid, plan_b, n_pt, dp), spmv(csr, w)))
     wg = w.index_select(0, lid)
     cwg = wg.cpu()
+    csr = csr_from_blocks(blocks, dev(prow),
+                          torch.arange(rows_k4, device=problem.device),
+                          n_pt, rows_k4)
     add("segmv.block_matvec_stream", measure(
         "k4", label.replace("by index", "gathered") + " (kernel-6 form)",
         lambda: segmv.block_matvec_stream(A, wg, plan_b, dp, dl),
         lambda: segmv.segmv_plain(A, wg, None, plan_b, dp, dl),
-        lambda: segmv.segmv_plain(cA, cwg, None, cplan_b, dp, dl), 10, 3))
+        lambda: segmv.segmv_plain(cA, cwg, None, cplan_b, dp, dl), 10, 3,
+        k4_work(wg, None, plan_b, n_pt, dp), spmv(csr, wg)))
     x = torch.as_tensor(rng.standard_normal((n_pt, dp)).astype(np.float32),
                         device=problem.device)
     plan_l = matvec_plan(problem, ("lu", key, pt, lt), lrow, n_lt)
     pidx = problem.index32(("lu", key, pt, lt, "pidx"), prow)
     cplan_l = segmv.plan_matvec(lrow, n_lt, "cpu")
     cx, cpidx = cpu(x, pidx)
+    csr = csr_from_blocks(blocks.transpose(1, 2), dev(lrow), dev(prow),
+                          n_lt, n_pt)
     add("segsum_stream.streaming_matvec_tbl", measure(
         "k4", f"{A.shape[0]}x({dp},{dl})^T->{n_lt}, x[{n_pt}] by index, "
         f"group {plan_l.group} back-substitution",
@@ -601,8 +969,8 @@ def phase_venice_kernels(problem, lin, hv, sv, ops):
                                                    dl, transpose=True),
         lambda: segmv.segmv_plain(A, x, pidx, plan_l, dp, dl, True),
         lambda: segmv.segmv_plain(cA, cx, cpidx, cplan_l, dp, dl, True),
-        10, 3))
-    del A, cA, w, cw, wg, cwg
+        10, 3, k4_work(x, pidx, plan_l, n_lt, dl), spmv(csr, x)))
+    del A, cA, w, cw, wg, cwg, blocks, csr
 
     # K5: the PCG's S matvec
     skey = (dp, dp)
@@ -616,39 +984,43 @@ def phase_venice_kernels(problem, lin, hv, sv, ops):
     cplan_s = segmv.plan_matvec_sym(rrow, crow, problem.seg_rows[rt],
                                     problem.seg_rows[ct], "cpu")
     cS, cxc, cxr, ccid, crxi = cpu(S, xc, xr, cid, rxi)
+    n_r, n_c = problem.seg_rows[rt], problem.seg_rows[ct]
+    # K5 reads S, both x tables, both indices and both plans once, writes
+    # both halves once; every block once forward, the off-diagonal ones
+    # once transposed
+    work = bound(
+        nbytes(S, xc, xr, cid, rxi, splan.rows.seg.offsets_i32,
+               splan.rows.seg.perm_i32, splan.cols.seg.offsets_i32,
+               splan.cols.seg.perm_i32) + 4 * dp * (n_r + n_c),
+        2 * dp * dp * (S.shape[0] + off.size))
+    # library: one SpMV of the whole symmetric S (both halves summed,
+    # which is what s_matvec makes of K5's two outputs)
+    check(rt == ct, "K5's site is not on the diagonal of S")
+    S3, offt = S.view(-1, dp, dp), dev(off)
+    csr = csr_from_blocks(
+        torch.cat([S3, S3.index_select(0, offt).transpose(1, 2)]),
+        dev(np.concatenate([rrow, crow[off]])),
+        dev(np.concatenate([crow, rrow[off]])), n_r, n_c)
+    del S3, offt
     add("segmv.matvec_sym_stream", measure(
-        "k5", f"{S.shape[0]}x({dp},{dp})->{problem.seg_rows[rt]}, "
+        "k5", f"{S.shape[0]}x({dp},{dp})->{n_r}, "
         f"{off.size} off-diagonal, groups {splan.rows.group}/"
         f"{splan.cols.group} s_matvec",
         lambda: segmv.matvec_sym_stream(S, xc, xr, cid, rxi, splan, dp, dp),
         lambda: segmv.matvec_sym_plain(S, xc, xr, cid, rxi, splan, dp, dp),
         lambda: segmv.matvec_sym_plain(cS, cxc, cxr, ccid, crxi, cplan_s,
-                                       dp, dp), 20, 5))
-    del S, cS
+                                       dp, dp), 20, 5, work, spmv(csr, xc)))
+    del S, cS, csr
     torch.cuda.empty_cache()
-    return {name: dict(err=max(r["err"] for r in rs),
-                       ms=sum(r["ms"] for r in rs),
-                       plain_ms=sum(r["plain_ms"] for r in rs),
-                       shapes=[r["shape"] for r in rs],
-                       ms_by_shape=[r["ms"] for r in rs],
-                       plain_ms_by_shape=[r["plain_ms"] for r in rs])
-            for name, rs in results.items()}
+    return results
 
 
 def merge_measured(*parts):
-    """One entry point's numbers from several phases, summed by shape."""
+    """Every phase's records of each entry point, in phase order."""
     out = {}
     for part in parts:
-        for name, m in part.items():
-            if name not in out:
-                out[name] = dict(m)
-                continue
-            o = out[name]
-            o["err"] = max(o["err"], m["err"])
-            for k in ("ms", "plain_ms"):
-                o[k] += m[k]
-            for k in ("shapes", "ms_by_shape", "plain_ms_by_shape"):
-                o[k] = o[k] + m[k]
+        for name, records in part.items():
+            out.setdefault(name, []).extend(records)
     return out
 
 
@@ -760,28 +1132,48 @@ KERNELS = [
         "segmv.block_matvec_stream": "graphite_tpu/ops/pallas/segmv.py:176"}),
     ("K5", "graphite_tpu_torch/csrc/segmv.cu", {
         "segmv.matvec_sym_stream": "graphite_tpu/ops/pallas/segmv.py:303"}),
+    ("K6", "graphite_tpu_torch/csrc/pcg_mf.cu", {
+        "pcg_mf.solve_pcg_mf": "graphite_tpu/ops/pallas/pcg_mf.py:121"}),
 ]
 
 
+def summed(records, key):
+    """The sum of ``key`` over records, or None if any record lacks it."""
+    vals = [r[key] for r in records]
+    return None if any(v is None for v in vals) else sum(vals)
+
+
 def kernels_json(measured, launches_by_path):
+    """One entry per kernel: its times summed over the measured shapes of
+    all its entry points (one call each), the bound and the library call
+    over the same shapes, and its launches on every main path."""
     out = []
     for kernel, source, entries in KERNELS:
-        ms = [measured[e] for e in entries if e in measured]
+        recs = [r for e in entries for r in measured.get(e, [])]
         by_path = {path: sum(launches[e] for e in entries)
                    for path, launches in launches_by_path.items()}
+        work = dict(bytes_ms=sum(r["bytes_ms"] for r in recs),
+                    ops_ms=sum(r["ops_ms"] for r in recs))
         out.append(dict(
             name=kernel + ": " + ", ".join(entries), route="cuda",
             source=source, replaces=", ".join(entries.values()),
             launches=sum(by_path.values()), launches_by_path=by_path,
-            max_abs_err=max(m["err"] for m in ms),
-            ms=sum(m["ms"] for m in ms),
-            plain_ms=sum(m["plain_ms"] for m in ms),
+            max_abs_err=max(r["err"] for r in recs),
+            ms=sum(r["ms"] for r in recs),
+            plain_ms=sum(r["plain_ms"] for r in recs),
+            bound_ms=sum(bound_fields(r)["bound_ms"] for r in recs),
+            bound_by=bound_fields(work)["bound_by"],
+            library_ms=summed(recs, "library_ms"),
             entry_points=[dict(
                 name=e, replaces=r,
                 launches={p: launches[e]
                           for p, launches in launches_by_path.items()},
-                **{k: measured[e][k] for k in (
-                    "shapes", "ms_by_shape", "plain_ms_by_shape")})
+                shapes=[m["shape"] for m in measured[e]],
+                ms_by_shape=[m["ms"] for m in measured[e]],
+                plain_ms_by_shape=[m["plain_ms"] for m in measured[e]],
+                bound_ms_by_shape=[bound_fields(m)["bound_ms"]
+                                   for m in measured[e]],
+                library_ms_by_shape=[m["library_ms"] for m in measured[e]])
                 for e, r in entries.items() if e in measured]))
     return out
 
@@ -811,6 +1203,11 @@ def main():
     k1 = timed("k1", phase_k1, DEVICE)
     k2 = timed("k2", phase_k2, DEVICE, solver, 1e-4)
     ladybug_launches = timed("slice", phase_slice, solver, 10)
+    k6 = timed("k6", phase_k6)
+    pose_launches, pose = timed("sphere2500", phase_pose, 30)
+    pose_k1 = timed("sphere2500-k1", phase_k1_sites, pose, "sphere2500", 4)
+    del pose
+    generic_launches = timed("sphere2500-generic", phase_pose_generic, 10)
 
     ds, problem, lin, hv, sv, ops = timed("venice-setup", phase_venice_setup)
     venice_measured = timed("venice-kernels", phase_venice_kernels, problem,
@@ -826,10 +1223,11 @@ def main():
     del ds
     timed("forced", phase_forced, 10)
 
-    measured = merge_measured(k1, {"pcg_dense.dense_pcg": k2},
-                              venice_measured)
+    measured = merge_measured(k1, k2, k6, pose_k1, venice_measured)
     print(json.dumps({"kernels": kernels_json(
         measured, {"ladybug-49": ladybug_launches,
+                   "sphere2500": pose_launches,
+                   "sphere2500-generic": generic_launches,
                    "venice-1778": venice_launches})}))
     print(f"[done] total seconds={time.perf_counter() - t_start:.1f}")
 

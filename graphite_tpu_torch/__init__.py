@@ -20,13 +20,36 @@ the Schur complement:
 
 The same call runs BAL Venice-1778 (``make_bal("venice-big")``), whose pose
 system is above ``dense_matvec_limit`` and takes the block-sparse S matvec.
-Its Pallas TPU kernels become hand-written CUDA kernels
+
+SE3 / SE2 pose graphs (g2o files or the synthetic generators) run with
+Levenberg-Marquardt and matrix-free block-Jacobi PCG; the factors are
+differentiated automatically through the pose retraction:
+
+    from graphite_tpu_torch.io import g2o
+    from graphite_tpu_torch.preconditioners import BlockJacobiPreconditioner
+    from graphite_tpu_torch.solvers import PCGSolver
+
+    g, *_ = g2o.build_graph(synthetic.make_sphere_se3(2500, seed=0),
+                            precision=FP32_FP32)
+    result = levenberg_marquardt(
+        g.freeze(), PCGSolver(50, 1e-10, 1e6, BlockJacobiPreconditioner()))
+
+``freeze()`` builds on the CUDA card unless asked for ``device="cpu"``.
+The Pallas TPU kernels become hand-written CUDA kernels
 (``graphite_tpu_torch/csrc``), built with nvcc at first use.
 """
 
 from .factors import Differentiation, FactorSet, FactorType, factor_type
 from .graph import Graph, GraphData, Problem
-from .linearize import Linearization, apply_update, compute_chi2, linearize
+from .linearize import (
+    JtPv,
+    Jv,
+    Linearization,
+    apply_update,
+    compute_chi2,
+    hessian_matvec,
+    linearize,
+)
 from .loss import CauchyLoss, DefaultLoss, HuberLoss, Loss
 from .precision import FP32_FP32, FP64_FP64, Precision
 from .vertices import VertexSet, VertexType, vertex_type
@@ -40,4 +63,5 @@ __all__ = [
     "FactorType", "FactorSet", "factor_type", "Differentiation",
     "Graph", "Problem", "GraphData",
     "Linearization", "linearize", "compute_chi2", "apply_update",
+    "Jv", "JtPv", "hessian_matvec",
 ]

@@ -9,10 +9,9 @@ Jacobian, a robust loss and observation/data layouts:
   Written with ``[..., i]`` indexing, the same function also evaluates one
   factor, which is what ``torch.func`` transforms need.
 - ``jacobian_fn(same arguments) -> tuple of (F, E, dim_i)`` Jacobians with
-  respect to each slot's tangent.
-
-``Differentiation.AUTO`` (no ``jacobian_fn``) is not supported by this
-package's ``linearize`` yet.
+  respect to each slot's tangent. Without one (``Differentiation.AUTO``),
+  ``linearize`` differentiates the residual through each slot's
+  ``retract`` at delta = 0 with ``torch.func.jvp``.
 """
 
 from __future__ import annotations

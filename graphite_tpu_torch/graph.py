@@ -248,9 +248,16 @@ class Graph:
                precision: Optional[Precision] = None,
                device=None) -> Problem:
         """Discover structure and build the ``Problem`` on ``device``
-        (default: the CPU)."""
+        (default: the CUDA card; raises when there is none, so a CPU run
+        asks for ``device="cpu"``)."""
         precision = precision or self.precision
-        device = torch.device("cpu" if device is None else device)
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "Graph.freeze: no CUDA device; pass device='cpu' to "
+                    "build the problem on the CPU")
+            device = "cuda"
+        device = torch.device(device)
         gdt = precision.graph_dtype
         sdt = precision.solver_dtype
 

@@ -1,3 +1,3 @@
-from . import bal, synthetic
+from . import bal, g2o, synthetic
 
-__all__ = ["bal", "synthetic"]
+__all__ = ["bal", "g2o", "synthetic"]

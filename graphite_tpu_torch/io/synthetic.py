@@ -1,7 +1,12 @@
-"""Synthetic BAL-style problems (NumPy copy of the BAL part of
-``graphite_tpu/io/synthetic.py``; the same seed gives identical arrays).
+"""Synthetic problems: BAL-style bundle adjustment and pose graphs (NumPy
+copy of ``graphite_tpu/io/synthetic.py``; the same seed gives identical
+arrays).
 
-Cameras sit on a ring looking inward at a point cloud; observations come
+Pose graphs: ``make_pose_graph_2d`` (an SE2 circle with odometry and loop
+closures) and ``make_sphere_se3`` (a sphere2500-style SE3 spiral); the
+initial estimates integrate the noisy odometry.
+
+BAL (``make_bal``): cameras sit on a ring looking inward at a point cloud; observations come
 from the BAL projection plus noise, and the initial parameters are the
 ground truth perturbed. Sizes mirror published BAL problems
 (Ladybug-49: 49 cameras / 7776 points / 31843 observations).
@@ -12,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 
 from .bal import BALDataset
+from .g2o import PoseGraphDataset
 
 # name -> (cameras, points, observations), mirroring BAL problem sizes
 BAL_SIZES = {
@@ -23,6 +29,172 @@ BAL_SIZES = {
     "venice": (52, 64053, 347173),
     "venice-big": (1778, 993923, 5001946),
 }
+
+
+# ---------------------------------------------------------------------------
+# pose graphs
+# ---------------------------------------------------------------------------
+
+def _q_mul(q1, q2):
+    x1, y1, z1, w1 = q1
+    x2, y2, z2, w2 = q2
+    return np.array([
+        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+        w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+    ])
+
+
+def _q_conj(q):
+    return np.array([-q[0], -q[1], -q[2], q[3]])
+
+
+def _q_rot(q, v):
+    u, w = q[:3], q[3]
+    uv = np.cross(u, v)
+    return v + 2.0 * (w * uv + np.cross(u, uv))
+
+
+def _q_exp(phi):
+    theta = np.linalg.norm(phi)
+    if theta < 1e-12:
+        return np.array([0.5 * phi[0], 0.5 * phi[1], 0.5 * phi[2], 1.0])
+    axis = phi / theta
+    return np.concatenate([axis * np.sin(theta / 2), [np.cos(theta / 2)]])
+
+
+def _se3_compose(a, b):
+    return np.concatenate(
+        [a[:3] + _q_rot(a[3:7], b[:3]), _q_mul(a[3:7], b[3:7])]
+    )
+
+
+def _se3_inverse(a):
+    qi = _q_conj(a[3:7])
+    return np.concatenate([-_q_rot(qi, a[:3]), qi])
+
+
+def make_pose_graph_2d(n_poses: int = 100, seed: int = 0,
+                       odo_noise=(0.05, 0.05, 0.01),
+                       loop_every: int = 10):
+    """2D circle trajectory with odometry + loop-closure edges (g2o-style).
+
+    Initial estimate integrates the noisy odometry (classic drift), so LM
+    has real loop-closing work to do.
+    """
+    rng = np.random.default_rng(seed)
+    R = 10.0
+    angles = np.linspace(0, 2 * np.pi, n_poses, endpoint=False)
+    true = np.stack(
+        [R * np.cos(angles), R * np.sin(angles), angles + np.pi / 2], axis=1
+    )
+
+    def rel(a, b):
+        c, s = np.cos(a[2]), np.sin(a[2])
+        d = b[:2] - a[:2]
+        dth = (b[2] - a[2] + np.pi) % (2 * np.pi) - np.pi
+        return np.array([c * d[0] + s * d[1], -s * d[0] + c * d[1], dth])
+
+    edges, meas = [], []
+    for i in range(n_poses - 1):
+        m = rel(true[i], true[i + 1]) + rng.normal(0, odo_noise, 3)
+        edges.append((i, i + 1))
+        meas.append(m)
+    # loop closures (incl. the big loop n-1 -> 0)
+    for i in range(0, n_poses, loop_every):
+        j = (i + n_poses // 2) % n_poses
+        if abs(i - j) > 1:
+            edges.append((i, j))
+            meas.append(rel(true[i], true[j]) + rng.normal(0, odo_noise, 3))
+    edges.append((n_poses - 1, 0))
+    meas.append(rel(true[n_poses - 1], true[0]) + rng.normal(0, odo_noise, 3))
+
+    # initial guess: integrate odometry
+    est = np.zeros_like(true)
+    est[0] = true[0]
+    for i in range(n_poses - 1):
+        m = meas[i]
+        c, s = np.cos(est[i, 2]), np.sin(est[i, 2])
+        est[i + 1, 0] = est[i, 0] + c * m[0] - s * m[1]
+        est[i + 1, 1] = est[i, 1] + s * m[0] + c * m[1]
+        est[i + 1, 2] = est[i, 2] + m[2]
+
+    info = np.diag(1.0 / np.asarray(odo_noise) ** 2)
+    return PoseGraphDataset(
+        kind="se2",
+        vertex_ids=np.arange(n_poses),
+        poses=est,
+        edges=np.asarray(edges, dtype=np.int64),
+        measurements=np.asarray(meas),
+        information=np.tile(info, (len(edges), 1, 1)),
+    )
+
+
+def make_sphere_se3(n_poses: int = 2500, seed: int = 0,
+                    odo_noise_t: float = 0.02, odo_noise_r: float = 0.005,
+                    loop_every: int = 10):
+    """Sphere2500-style SE3 pose graph: a spiral trajectory on a sphere with
+    odometry and vertical loop closures; initial estimate integrates noisy
+    odometry."""
+    rng = np.random.default_rng(seed)
+    R = 10.0
+    # spiral: theta winds around, z sweeps top to bottom
+    turns = max(2, n_poses // 50)
+    t = np.linspace(0, 1, n_poses)
+    az = 2 * np.pi * turns * t
+    el = np.pi * (t - 0.5)
+    centers = np.stack(
+        [R * np.cos(el) * np.cos(az), R * np.cos(el) * np.sin(az),
+         R * np.sin(el)], axis=1
+    )
+    true = np.zeros((n_poses, 7))
+    for i in range(n_poses):
+        # orientation: tangent-ish random stable quaternion from the path
+        yaw = az[i]
+        pitch = el[i] * 0.5
+        qz = _q_exp(np.array([0.0, 0.0, yaw]))
+        qy = _q_exp(np.array([0.0, pitch, 0.0]))
+        q = _q_mul(qz, qy)
+        true[i, :3] = centers[i]
+        true[i, 3:] = q / np.linalg.norm(q)
+
+    def rel(a, b):
+        return _se3_compose(_se3_inverse(a), b)
+
+    def noisy(m):
+        n = np.concatenate(
+            [rng.normal(0, odo_noise_t, 3), rng.normal(0, odo_noise_r, 3)]
+        )
+        return _se3_compose(m, np.concatenate([n[:3], _q_exp(n[3:6])]))
+
+    edges, meas = [], []
+    for i in range(n_poses - 1):
+        edges.append((i, i + 1))
+        meas.append(noisy(rel(true[i], true[i + 1])))
+    per_turn = max(1, n_poses // turns)
+    for i in range(0, n_poses - per_turn, loop_every):
+        j = i + per_turn  # same azimuth, next sweep
+        edges.append((i, j))
+        meas.append(noisy(rel(true[i], true[j])))
+
+    est = np.zeros_like(true)
+    est[0] = true[0]
+    for i in range(n_poses - 1):
+        est[i + 1] = _se3_compose(est[i], meas[i])
+        est[i + 1, 3:] /= np.linalg.norm(est[i + 1, 3:])
+
+    info = np.diag(
+        [1.0 / odo_noise_t**2] * 3 + [1.0 / odo_noise_r**2] * 3
+    )
+    return PoseGraphDataset(
+        kind="se3",
+        vertex_ids=np.arange(n_poses),
+        poses=est,
+        edges=np.asarray(edges, dtype=np.int64),
+        measurements=np.asarray(meas),
+        information=np.tile(info, (len(edges), 1, 1)),
+    )
 
 
 def _rodrigues_np(rvec, X):

@@ -1,10 +1,14 @@
-"""Linearization: residuals, Jacobians, chi2, Jacobi scaling, b
-(counterpart of ``graphite_tpu/linearize.py``).
+"""Linearization: residuals, Jacobians, chi2, Jacobi scaling, b, and the
+matrix-free products (counterpart of ``graphite_tpu/linearize.py``).
 
-- residuals and analytic Jacobians per factor type, masked per slot;
+- residuals and Jacobians per factor type, masked per slot: analytic
+  (``jacobian_fn``) or, without one, forward-mode derivatives through
+  each slot's retraction (``Differentiation.AUTO``);
 - chi2 with robust loss and its derivative dL;
 - Jacobi column scaling ``s = 1 / (eps + sqrt(diag(J^T dL P J)))``;
-- ``b = -sum_f J^T dL P r``, reduced per vertex row by ``reduce_rows``.
+- ``b = -sum_f J^T dL P r``, reduced per vertex row by ``reduce_rows``;
+- ``Jv``, ``JtPv`` and ``hessian_matvec`` (H x = J^T dL P J x) on the
+  stored Jacobians, the matrix-free PCG's products.
 """
 
 from __future__ import annotations
@@ -65,16 +69,53 @@ def compute_residuals_block(problem: Problem, params,
     return r.reshape(-1, ftype.residual_dim)
 
 
+def _auto_residual_and_jacobians(ftype, gathered, tail):
+    """(F, E) residuals and per-slot (F, E, d_s) Jacobians of a factor
+    block without ``jacobian_fn``: the residual of each slot's
+    ``retract(x, delta)``, differentiated at delta = 0 by forward mode.
+
+    The factors are independent, so column k of every factor's Jacobian
+    is the jvp along basis direction k. All K = sum(d_s) columns come from
+    one ``torch.func.jvp`` over the block with a leading basis axis of
+    size K (direction k in batch entry k)."""
+    dims = [vt.dim for vt in ftype.vertex_types]
+    K = sum(dims)
+    p0 = gathered[0]
+    F = p0.shape[0]
+    xs = tuple(p.expand(K, *p.shape) for p in gathered)
+    rest = tuple(t.expand(K, *t.shape) for t in tail)
+    eye = torch.eye(K, dtype=p0.dtype, device=p0.device)
+    zeros, tangents, off = [], [], 0
+    for d in dims:
+        zeros.append(p0.new_zeros((K, F, d)))
+        tangents.append(eye[:, None, off:off + d].expand(K, F, d))
+        off += d
+
+    def g(*deltas):
+        moved = tuple(vt.retract(x, dl) for vt, x, dl
+                      in zip(ftype.vertex_types, xs, deltas))
+        return ftype.residual_fn(*moved, *rest).reshape(
+            K, F, ftype.residual_dim)
+
+    r, jt = torch.func.jvp(g, tuple(zeros), tuple(tangents))
+    J, off = [], 0
+    for d in dims:  # jt[k, f, e] = d r_e / d delta_k
+        J.append(jt[off:off + d].permute(1, 2, 0))
+        off += d
+    return r[0], tuple(J)
+
+
 def _residuals_and_flat_jacobians(problem: Problem, params, name: str):
     """(F, E) residuals + per-slot masked flat (F, E*d) Jacobians."""
     fa = problem.data.factors[name]
     ftype = problem.factor_meta[name].ftype
-    if ftype.differentiation is not Differentiation.MANUAL:
-        raise NotImplementedError(
-            f"factor '{name}': linearize needs an analytic jacobian_fn")
-    args = (*_gather_params(problem, params, name), *_tail(fa))
-    r = ftype.residual_fn(*args).reshape(-1, ftype.residual_dim)
-    J = ftype.jacobian_fn(*args)
+    gathered = _gather_params(problem, params, name)
+    if ftype.differentiation is Differentiation.MANUAL:
+        args = (*gathered, *_tail(fa))
+        r = ftype.residual_fn(*args).reshape(-1, ftype.residual_dim)
+        J = ftype.jacobian_fn(*args)
+    else:
+        r, J = _auto_residual_and_jacobians(ftype, gathered, _tail(fa))
     E = ftype.residual_dim
     jflat = tuple(
         (Ji.reshape(-1, E, vt.dim)
@@ -211,6 +252,55 @@ def compute_chi2(problem: Problem, params) -> torch.Tensor:
         c, _ = compute_chi2_block(problem, name, r)
         total = total + c.sum(dtype=torch.float64)
     return total.to(problem.precision.graph_dtype)
+
+
+def Jv(problem: Problem, lin: Linearization,
+       x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """v = J x per factor block ((F, E) each); ``x`` is a (dim_x,) vector
+    (its pad is never read: masked Jacobian columns are zero)."""
+    acc = problem.precision.acc_dtype
+    gdt = problem.precision.graph_dtype
+    x_rows = {name: problem.rows_view_padded(x, name)
+              for name in problem.vertex_meta}
+    out = {}
+    for name, fm in problem.factor_meta.items():
+        fa = problem.data.factors[name]
+        E = fm.ftype.residual_dim
+        out[name] = sum_in_order(
+            flat_block_mv(lin.jacobians[name][s],
+                          x_rows[vt.name].index_select(0, fa.rows[s]), E,
+                          vt.dim, acc_dtype=acc)
+            for s, vt in enumerate(fm.ftype.vertex_types)).to(gdt)
+    return out
+
+
+def JtPv(problem: Problem, lin: Linearization,
+         v: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """J^T dL P v summed over every factor block into a (dim_x,) vector;
+    each slot's rows are reduced by ``reduce_rows`` on the slot's cached
+    plan (kernel K1 on CUDA, no float atomics)."""
+    acc = problem.precision.acc_dtype
+    gdt = problem.precision.graph_dtype
+    out_rows: Dict[str, torch.Tensor] = {}
+    for name, fm in problem.factor_meta.items():
+        fa = problem.data.factors[name]
+        E = fm.ftype.residual_dim
+        w = (_weighted_residual(fa, v[name], acc)
+             * lin.chi2_deriv[name][:, None]).to(acc)
+        for s, vt in enumerate(fm.ftype.vertex_types):
+            contrib = flat_block_mv_t(lin.jacobians[name][s], w, E, vt.dim,
+                                      acc_dtype=acc)
+            rows = _factor_row_reduce(problem, contrib.to(gdt), name, s,
+                                      vt.name)
+            prev = out_rows.get(vt.name)
+            out_rows[vt.name] = rows if prev is None else prev + rows
+    return problem.flat_from_rows(out_rows)
+
+
+def hessian_matvec(problem: Problem, lin: Linearization,
+                   x: torch.Tensor) -> torch.Tensor:
+    """The implicit H x = J^T dL P (J x)."""
+    return JtPv(problem, lin, Jv(problem, lin, x))
 
 
 def apply_update(problem: Problem, params, lin: Linearization,

@@ -1,3 +1,3 @@
-from . import bal
+from . import bal, lie, pose_graph
 
-__all__ = ["bal"]
+__all__ = ["bal", "lie", "pose_graph"]

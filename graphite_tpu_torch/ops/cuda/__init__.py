@@ -8,7 +8,9 @@
   sorted segments (``csrc/segprod.cu``), and K4's
   ``streaming_matvec_tbl``;
 - ``segmv``: kernel K4, the gathered block matvec reduced over segments,
-  and K5, the symmetric block-sparse S matvec (``csrc/segmv.cu``).
+  and K5, the symmetric block-sparse S matvec (``csrc/segmv.cu``);
+- ``pcg_mf``: kernel K6, a whole matrix-free PCG solve of a pose graph
+  in one launch (``csrc/pcg_mf.cu``).
 
 Each wrapper has a plain PyTorch version beside it with the same
 signature, used for CPU tensors and as the kernel's oracle, and a

@@ -1,3 +1,4 @@
+from .pcg import PCGSolver
 from .pcg_schur import PCGSchurSolver
 
-__all__ = ["PCGSchurSolver"]
+__all__ = ["PCGSolver", "PCGSchurSolver"]

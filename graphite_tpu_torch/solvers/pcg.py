@@ -1,0 +1,91 @@
+"""Matrix-free preconditioned conjugate gradients (counterpart of
+``graphite_tpu/solvers/pcg.py``).
+
+- the implicit Hessian product ``H p = J^T dL P (J p)`` plus damping
+  ``mu * clamp(diag, 1e-6, 1e32) * p``, or ``mu * p`` for identity damping;
+- ``run_pcg``'s semantics (normalized residual before each preconditioner
+  application, divergence rejection with restore, running-minimum rz);
+- the whole solve in one ``solve_pcg_mf`` call (kernel K6 on CUDA, its
+  plain version on the CPU) under the JAX package's gate: a block-Jacobi
+  or identity preconditioner, a float32 graph, and a feasible
+  ``plan_pcg_mf`` site (one vertex type, the folded J within
+  ``J_BYTES_LIMIT``); otherwise ``run_pcg`` on ``hessian_matvec``, whose
+  row reductions take kernel K1 on CUDA.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..linearize import DIAG_MAX, DIAG_MIN, Linearization, hessian_matvec
+from ..ops.cuda.pcg_mf import fold_jacobians, plan_pcg_mf, solve_pcg_mf
+from ..ops.pcg_loop import run_pcg
+from ..preconditioners.block_jacobi import (
+    BlockJacobiPreconditioner,
+    BlockJacobiState,
+    row_inverse_blocks,
+)
+from ..preconditioners.identity import IdentityPreconditioner
+
+
+@dataclasses.dataclass
+class PCGState:
+    precond_state: object
+
+
+@dataclasses.dataclass(frozen=True)
+class PCGSolver:
+    max_iter: int = 10
+    tol: float = 1.0
+    rejection_ratio: float = 5.0
+    preconditioner: object = dataclasses.field(
+        default_factory=IdentityPreconditioner)
+
+    def prepare(self, problem, lin: Linearization, params=None) -> PCGState:
+        return PCGState(
+            precond_state=self.preconditioner.prepare(problem, lin, params))
+
+    def solve(self, problem, lin: Linearization, state: PCGState, damping,
+              use_identity: bool, params=None):
+        """Returns (delta_x (dim_x,), ok)."""
+        gdt = problem.precision.graph_dtype
+        damping = torch.as_tensor(damping, dtype=gdt, device=problem.device)
+        pstate = self.preconditioner.set_damping(
+            problem, lin, state.precond_state, damping, use_identity)
+        diag = lin.diag.clamp(DIAG_MIN, DIAG_MAX)
+        if use_identity:
+            damp_vec = torch.ones_like(diag) * damping
+        else:
+            damp_vec = diag * damping
+        ok = torch.ones((), dtype=torch.bool, device=problem.device)
+
+        site = None
+        if gdt == torch.float32 and isinstance(
+                self.preconditioner,
+                (BlockJacobiPreconditioner, IdentityPreconditioner)):
+            site = plan_pcg_mf(problem, lin)
+        if site is not None:
+            name = site.vt_name
+            minv = (row_inverse_blocks(problem, pstate, name)
+                    if isinstance(pstate, BlockJacobiState) else None)
+            x_rows, _ = solve_pcg_mf(
+                site, fold_jacobians(problem, lin, site),
+                problem.rows_view(lin.b, name).reshape(-1),
+                problem.rows_view(damp_vec, name).reshape(-1), minv,
+                max_iter=self.max_iter, tol=self.tol,
+                rejection_ratio=self.rejection_ratio)
+            return problem.flat_from_rows({name: x_rows}), ok
+
+        def matvec(p):
+            return hessian_matvec(problem, lin, p) + damp_vec * p
+
+        def precond(y):
+            return self.preconditioner.apply(problem, lin, pstate, y)
+
+        x, _ = run_pcg(lin.b, matvec, precond, self.max_iter, self.tol,
+                       self.rejection_ratio)
+        x = x.clone()
+        x[problem.dim_h:] = 0.0
+        return x, ok

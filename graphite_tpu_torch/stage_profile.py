@@ -9,7 +9,9 @@ and runs Levenberg-Marquardt with PCGSchurSolver(10, 1.0, 5.0) twice:
 1. ``--iterations`` iterations under a stage timer. Each call of a stage
    (``linearize``, Hessian values, damping, ``schur_values``, ``b_schur``,
    the preconditioner, ``run_pcg`` / ``dense_pcg`` with the S matvecs and
-   preconditioner applies inside it, ``landmark_update``, ``compute_chi2``)
+   preconditioner applies inside it, ``landmark_update``, ``compute_chi2``;
+   on the pose path the block-Jacobi blocks and inverses, the folding of
+   J and ``solve_pcg_mf``, or ``run_pcg`` with ``hessian_matvec``)
    is wrapped so that the device is synchronised before and after it; its
    wall ms are summed per stage. The synchronisation serialises host and
    device, so a stage's time is what it costs alone, not its share of an
@@ -44,8 +46,9 @@ def _stage_targets():
     from .preconditioners.block_jacobi_schur import (
         BlockJacobiSchurPreconditioner,
     )
+    from .preconditioners.block_jacobi import BlockJacobiPreconditioner
     from .schur import SchurOps
-    from .solvers import pcg_schur
+    from .solvers import pcg, pcg_schur
 
     return [
         (lm, "linearize", "linearize"),
@@ -64,6 +67,15 @@ def _stage_targets():
         (SchurOps, "compose_delta", "compose_delta"),
         (BlockJacobiSchurPreconditioner, "prepare", "preconditioner_prepare"),
         (BlockJacobiSchurPreconditioner, "apply",
+         "preconditioner_apply (in run_pcg)"),
+        (pcg, "fold_jacobians", "fold_jacobians"),
+        (pcg, "solve_pcg_mf", "solve_pcg_mf"),
+        (pcg, "run_pcg", "run_pcg"),
+        (pcg, "hessian_matvec", "hessian_matvec (in run_pcg)"),
+        (BlockJacobiPreconditioner, "prepare", "preconditioner_prepare"),
+        (BlockJacobiPreconditioner, "set_damping",
+         "preconditioner_set_damping"),
+        (BlockJacobiPreconditioner, "apply",
          "preconditioner_apply (in run_pcg)"),
     ]
 
@@ -133,17 +145,31 @@ def device_trace(run):
     return busy, wall_ms, by_name
 
 
-def profile_lm(size, iterations: int, trace: int, device: str = "cuda"):
-    """Both runs (see the module docstring); returns their numbers."""
-    from . import FP32_FP32
-    from .io import bal, synthetic
-    from .optimizers import LevenbergMarquardtOptions, levenberg_marquardt
-    from .solvers import PCGSchurSolver
+POSE_SIZES = {"sphere2500": 2500}  # size name -> SE3 poses
 
-    dev = torch.device(device)
-    solver = PCGSchurSolver(10, 1.0, 5.0)
+
+def _graph_and_solver(size):
+    from . import FP32_FP32
+    from .io import bal, g2o, synthetic
+    from .preconditioners import BlockJacobiPreconditioner
+    from .solvers import PCGSchurSolver, PCGSolver
+
+    if size in POSE_SIZES:
+        g, *_ = g2o.build_graph(
+            synthetic.make_sphere_se3(POSE_SIZES[size], seed=0),
+            precision=FP32_FP32)
+        return g, PCGSolver(50, 1e-10, 1e6, BlockJacobiPreconditioner())
     g, *_ = bal.build_graph(synthetic.make_bal(size, seed=0),
                             precision=FP32_FP32)
+    return g, PCGSchurSolver(10, 1.0, 5.0)
+
+
+def profile_lm(size, iterations: int, trace: int, device: str = "cuda"):
+    """Both runs (see the module docstring); returns their numbers."""
+    from .optimizers import LevenbergMarquardtOptions, levenberg_marquardt
+
+    dev = torch.device(device)
+    g, solver = _graph_and_solver(size)
     problem = g.freeze(device=dev)
 
     def run(n, params=None):

@@ -20,6 +20,13 @@ on a machine with only PyTorch (``--noconftest`` skips the JAX set-up in
 - The LM slice at Ladybug-49 with the large-problem branches forced
   (``dense_matvec_limit=0``, the Schur gates lowered): CUDA and CPU give
   bitwise the same trajectory, and K3, K4 and K5 launch.
+- K6 vs its plain version on the first solve of sphere2500 (SE3,
+  block-Jacobi and identity) and of the 2500-pose SE2 circle: bitwise
+  repeatable, the same number of CG steps, within 1e-5 relative.
+- The pose-graph LM (SE3, PCGSolver(50, 1e-10, 1e6, block-Jacobi)) on
+  CUDA and on the CPU: the same accept pattern, chi2 within 1e-3, K6
+  launched once per solve.
+- ``Graph.freeze()`` without a device builds on the card.
 """
 
 import numpy as np
@@ -28,13 +35,27 @@ import torch
 
 import graphite_tpu_torch as gtt
 from graphite_tpu_torch import schur
-from graphite_tpu_torch.io import bal, synthetic
-from graphite_tpu_torch.ops.cuda import pcg_dense, segmv, segsum, segsum_stream
+from graphite_tpu_torch.io import bal, g2o, synthetic
+from graphite_tpu_torch.linearize import linearize
+from graphite_tpu_torch.ops.cuda import (
+    pcg_dense,
+    pcg_mf,
+    segmv,
+    segsum,
+    segsum_stream,
+)
 from graphite_tpu_torch.optimizers import (
     LevenbergMarquardtOptions,
     levenberg_marquardt,
 )
-from graphite_tpu_torch.solvers import PCGSchurSolver
+from graphite_tpu_torch.preconditioners import (
+    BlockJacobiPreconditioner,
+    IdentityPreconditioner,
+)
+from graphite_tpu_torch.preconditioners.block_jacobi import (
+    row_inverse_blocks,
+)
+from graphite_tpu_torch.solvers import PCGSchurSolver, PCGSolver
 
 torch.set_num_threads(1)
 
@@ -257,3 +278,82 @@ def test_forced_branches_lm_cuda_equals_cpu(cuda_device, monkeypatch):
     assert ([(h["chi2"], h["accepted"]) for h in gpu.history]
             == [(h["chi2"], h["accepted"]) for h in cpu.history])
     assert gpu.chi2 < gpu.initial_chi2
+
+
+def _pose_dataset(kind, n):
+    if kind == "se3":
+        return synthetic.make_sphere_se3(n, seed=0)
+    return synthetic.make_pose_graph_2d(n, seed=0)
+
+
+def _first_pose_solve(device, kind, precond, mu=1e-4):
+    """The inputs of K6 on the first LM solve of a pose graph."""
+    g, *_ = g2o.build_graph(_pose_dataset(kind, 2500),
+                            precision=gtt.FP32_FP32)
+    problem = g.freeze(device=device)
+    lin = linearize(problem, problem.params0)
+    site = pcg_mf.plan_pcg_mf(problem, lin)
+    damping = torch.tensor(mu, device=problem.device)
+    minv = None
+    if precond == "bj":
+        pre = BlockJacobiPreconditioner()
+        state = pre.set_damping(problem, lin, pre.prepare(problem, lin),
+                                damping, False)
+        minv = row_inverse_blocks(problem, state, site.vt_name)
+    damp = lin.diag.clamp(1e-6, 1e32) * damping
+    rows = site.vt_name
+    return (site, pcg_mf.fold_jacobians(problem, lin, site),
+            problem.rows_view(lin.b, rows).reshape(-1),
+            problem.rows_view(damp, rows).reshape(-1), minv)
+
+
+@pytest.mark.parametrize("kind,precond", [("se3", "bj"), ("se3", "identity"),
+                                          ("se2", "bj")])
+def test_k6_matches_plain(cuda_device, kind, precond):
+    site, jf, b, damp, minv = _first_pose_solve(cuda_device, kind, precond)
+    kw = dict(max_iter=50, tol=1e-10, rejection_ratio=1e6)
+    x, k = pcg_mf.solve_pcg_mf(site, jf, b, damp, minv, **kw)
+    again, k2 = pcg_mf.solve_pcg_mf(site, jf, b, damp, minv, **kw)
+    ref, k_ref = pcg_mf.solve_pcg_mf_plain(site, jf, b, damp, minv, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(x, again) and int(k) == int(k2)
+    assert int(k) == int(k_ref) > 0
+    assert float((x - ref).abs().max() / ref.abs().max()) <= 1e-5
+    with pytest.raises(NotImplementedError):
+        pcg_mf.solve_pcg_mf(site, jf.double(), b.double(), damp.double(),
+                            None, **kw)
+
+
+def test_pose_lm_cuda_vs_cpu(cuda_device):
+    runs = []
+    for device in ("cpu", cuda_device):
+        g, *_ = g2o.build_graph(synthetic.make_sphere_se3(300, seed=0),
+                                precision=gtt.FP32_FP32)
+        pcg_mf.STATS.reset()
+        runs.append(levenberg_marquardt(
+            g.freeze(device=device),
+            PCGSolver(50, 1e-10, 1e6, BlockJacobiPreconditioner()),
+            options=LevenbergMarquardtOptions(iterations=10)))
+    cpu, gpu = runs
+    assert pcg_mf.STATS.launches == len(gpu.history) == 10
+    assert ([h["accepted"] for h in gpu.history]
+            == [h["accepted"] for h in cpu.history])
+    np.testing.assert_allclose([h["chi2"] for h in gpu.history],
+                               [h["chi2"] for h in cpu.history], rtol=1e-3)
+    assert gpu.chi2 < gpu.initial_chi2
+
+
+def test_identity_preconditioner_takes_k6(cuda_device):
+    g, *_ = g2o.build_graph(synthetic.make_pose_graph_2d(200, seed=1),
+                            precision=gtt.FP32_FP32)
+    pcg_mf.STATS.reset()
+    out = levenberg_marquardt(
+        g.freeze(device=cuda_device),
+        PCGSolver(20, 1e-10, 1e6, IdentityPreconditioner()),
+        options=LevenbergMarquardtOptions(iterations=3))
+    assert pcg_mf.STATS.launches == 3 and out.chi2 < out.initial_chi2
+
+
+def test_freeze_default_is_cuda(cuda_device):
+    g, *_ = g2o.build_graph(synthetic.make_pose_graph_2d(20, seed=0))
+    assert g.freeze().device.type == "cuda"

@@ -62,7 +62,7 @@ def _frozen(fixed_cameras=(), fixed_points=()):
         ptsj.set_fixed(ds.num_cameras + p)
         ptsp.set_fixed(ds.num_cameras + p)
     np.testing.assert_array_equal(fsj.input_order, fsp.input_order)
-    return gj.freeze(), gp.freeze()
+    return gj.freeze(), gp.freeze(device="cpu")
 
 
 @pytest.mark.parametrize("fixed", [((), ()), ((0, 5), (3, 77))])
@@ -115,3 +115,16 @@ def test_rows_view_round_trip():
     padded = pp.rows_view_padded(x, "bal_point")
     assert padded.shape == (pp.seg_rows["bal_point"] + 1, 3)
     assert torch.all(padded[-1] == 0)
+
+
+def test_freeze_defaults_to_cuda():
+    """Without a device, ``freeze`` builds on the CUDA card, and raises
+    where there is none (no CPU fallback)."""
+    g, *_ = torch_bal_io.build_graph(torch_synth.make_bal("toy", seed=0),
+                                     precision=gtt.FP32_FP32)
+    if torch.cuda.is_available():
+        assert g.freeze().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            g.freeze()
+    assert g.freeze(device="cpu").device.type == "cpu"

@@ -42,7 +42,7 @@ def _problems(huber=None, fixed_camera=None):
     if fixed_camera is not None:
         camsj.set_fixed(fixed_camera)
         camsp.set_fixed(fixed_camera)
-    pj, pp = gj.freeze(), gp.freeze()
+    pj, pp = gj.freeze(), gp.freeze(device="cpu")
     params = {k: np.asarray(v) for k, v in pj.params0.items()}
     return pj, pp, params
 

@@ -50,7 +50,7 @@ def _runs(jax_prec, torch_prec, **solver_kw):
                  options=JaxOptions(iterations=ITERS))
     ds_t = torch_synth.make_bal(SIZE, seed=0, noise=0.5)
     gp, *_ = torch_bal_io.build_graph(ds_t, precision=torch_prec)
-    out = levenberg_marquardt(gp.freeze(),
+    out = levenberg_marquardt(gp.freeze(device="cpu"),
                               PCGSchurSolver(10, 1.0, 5.0, **solver_kw),
                               options=LevenbergMarquardtOptions(
                                   iterations=ITERS))

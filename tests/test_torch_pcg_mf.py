@@ -1,0 +1,232 @@
+"""K6's plain version (``ops/cuda/pcg_mf.solve_pcg_mf_plain``) and its
+plan, on the CPU.
+
+- float32, the same inputs (the JAX package's linearization, damping and
+  inverse blocks, handed over as NumPy arrays) through the JAX package's
+  Pallas ``solve_pcg_mf``, run in interpret mode as ``tests/test_pcg_mf.py``
+  runs it, and through the plain version: x within rtol 2e-4, atol 2e-5
+  (that test's own tolerance), block-Jacobi and identity, SE3 and SE2.
+- float64: the plain version against the port's generic branch
+  (``run_pcg`` on ``hessian_matvec``) to 1e-10, and ``PCGSolver`` takes
+  the plain version exactly when the gate admits the problem.
+- ``plan_pcg_mf``'s gate agrees with the JAX package's: feasible on pose
+  graphs, None on BAL (two vertex types), None with ``J_BYTES_LIMIT`` or
+  ``TABLE_ROWS_LIMIT`` lowered; the fixed pose's slots point at the trash
+  row and scatter nowhere.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import graphite_tpu as gt
+import graphite_tpu.ops.pallas.pcg_mf as jax_mf
+import graphite_tpu_torch as gtt
+from graphite_tpu.io import bal as jbal
+from graphite_tpu.io import g2o as jg2o
+from graphite_tpu.io import synthetic as jsyn
+from graphite_tpu.linearize import linearize as jax_linearize
+from graphite_tpu.preconditioners import (
+    BlockJacobiPreconditioner as JaxBlockJacobi,
+)
+from graphite_tpu_torch.io import bal as tbal
+from graphite_tpu_torch.io import g2o as tg2o
+from graphite_tpu_torch.io import synthetic as tsyn
+from graphite_tpu_torch.linearize import Linearization, linearize
+from graphite_tpu_torch.ops.cuda import pcg_mf
+from graphite_tpu_torch.preconditioners import (
+    BlockJacobiPreconditioner,
+    IdentityPreconditioner,
+)
+from graphite_tpu_torch.preconditioners.block_jacobi import (
+    row_inverse_blocks,
+)
+from graphite_tpu_torch.solvers import PCGSolver
+
+torch.set_num_threads(1)
+
+DATASETS = {
+    "se3": lambda m: m.make_sphere_se3(60, seed=3),
+    "se2": lambda m: m.make_pose_graph_2d(60, seed=3),
+}
+
+
+@pytest.fixture
+def _interpret(monkeypatch):
+    monkeypatch.setattr(jax_mf.pl, "pallas_call", functools.partial(
+        jax.experimental.pallas.pallas_call, interpret=True))
+    monkeypatch.delenv("GRAPHITE_TPU_NO_PCG_MF", raising=False)
+
+
+def _problem(kind, precision, device="cpu"):
+    g, *_ = tg2o.build_graph(DATASETS[kind](tsyn), precision=precision)
+    return g.freeze(device=device)
+
+
+def _t(a):
+    return torch.tensor(np.asarray(a))
+
+
+@pytest.mark.parametrize("kind", sorted(DATASETS))
+@pytest.mark.parametrize("precond", ["bj", "identity"])
+def test_plain_matches_jax_kernel_f32(_interpret, kind, precond):
+    gj, *_ = jg2o.build_graph(DATASETS[kind](jsyn), precision=gt.FP32_FP32)
+    pj = gj.freeze()
+    lj = jax_linearize(pj, pj.params0)
+    site_j = jax_mf.plan_pcg_mf(pj, lj)
+    assert site_j is not None
+    name = site_j["vt_name"]
+    mu = jnp.float32(1e-3)
+    damp = jnp.clip(lj.diag, 1e-6, 1e32) * mu
+    inv_rows = None
+    if precond == "bj":
+        pre = JaxBlockJacobi()
+        state = pre.set_damping(pj, lj, pre.prepare(pj, lj), mu, False)
+        inv_rows = state.inv_blocks[name][pj.row_vertex[name]]
+    kw = dict(max_iter=8, tol=1e-12, rejection_ratio=1e8)
+    ref = np.asarray(jax_mf.solve_pcg_mf(pj, lj, site_j, damp, inv_rows,
+                                         kw["max_iter"], kw["tol"],
+                                         kw["rejection_ratio"]))
+
+    pp = _problem(kind, gtt.FP32_FP32)
+    lin = Linearization(
+        residuals={k: _t(v) for k, v in lj.residuals.items()},
+        jacobians={k: tuple(_t(a) for a in v)
+                   for k, v in lj.jacobians.items()},
+        chi2_vec={k: _t(v) for k, v in lj.chi2_vec.items()},
+        chi2_deriv={k: _t(v) for k, v in lj.chi2_deriv.items()},
+        scales=_t(lj.scales), diag=_t(lj.diag), b=_t(lj.b), chi2=_t(lj.chi2))
+    site = pcg_mf.plan_pcg_mf(pp, lin)
+    assert (site.vt_name, site.d, site.n) == (name, site_j["d"],
+                                               site_j["n"])
+    x, k = pcg_mf.solve_pcg_mf_plain(
+        site, pcg_mf.fold_jacobians(pp, lin, site),
+        pp.rows_view(lin.b, name).reshape(-1),
+        pp.rows_view(_t(damp), name).reshape(-1),
+        None if inv_rows is None else _t(inv_rows), **kw)
+    assert int(k) == kw["max_iter"]
+    np.testing.assert_allclose(x.numpy(), ref[:pp.dim_h], rtol=2e-4,
+                               atol=2e-5)
+    # CPU tensors take the plain version, bitwise
+    x2, _ = pcg_mf.solve_pcg_mf(
+        site, pcg_mf.fold_jacobians(pp, lin, site),
+        pp.rows_view(lin.b, name).reshape(-1),
+        pp.rows_view(_t(damp), name).reshape(-1),
+        None if inv_rows is None else _t(inv_rows), **kw)
+    assert torch.equal(x, x2)
+
+
+@pytest.mark.parametrize("kind", sorted(DATASETS))
+@pytest.mark.parametrize("precond", ["bj", "identity"])
+def test_plain_matches_generic_branch_f64(kind, precond):
+    pp = _problem(kind, gtt.FP64_FP64)
+    lin = linearize(pp, pp.params0)
+    pre = (BlockJacobiPreconditioner() if precond == "bj"
+           else IdentityPreconditioner())
+    solver = PCGSolver(30, 1e-14, 1e8, pre)
+    mu = torch.tensor(1e-3, dtype=torch.float64)
+    x_gen, _ = solver.solve(pp, lin, solver.prepare(pp, lin), mu, False)
+    site = pcg_mf.plan_pcg_mf(pp, lin)
+    state = pre.set_damping(pp, lin, pre.prepare(pp, lin), mu, False)
+    minv = (row_inverse_blocks(pp, state, site.vt_name) if precond == "bj"
+            else None)
+    damp = lin.diag.clamp(1e-6, 1e32) * mu
+    x, k = pcg_mf.solve_pcg_mf_plain(
+        site, pcg_mf.fold_jacobians(pp, lin, site),
+        pp.rows_view(lin.b, site.vt_name).reshape(-1),
+        pp.rows_view(damp, site.vt_name).reshape(-1), minv, max_iter=30,
+        tol=1e-14, rejection_ratio=1e8)
+    assert int(k) > 0
+    ref = x_gen[:pp.dim_h]
+    assert float((x - ref).abs().max() / ref.abs().max()) <= 1e-10
+    assert bool((x_gen[pp.dim_h:] == 0).all())
+
+
+@pytest.mark.parametrize("precond", ["bj", "identity"])
+def test_solver_takes_the_mf_branch_in_f32(monkeypatch, precond):
+    """A float32 pose graph solves through ``solve_pcg_mf``; with the gate
+    closed it takes ``run_pcg`` and lands within float32 rounding."""
+    pre = (BlockJacobiPreconditioner() if precond == "bj"
+           else IdentityPreconditioner())
+    solver = PCGSolver(20, 1e-12, 1e6, pre)
+    calls = []
+    real = pcg_mf.solve_pcg_mf
+    from graphite_tpu_torch.solvers import pcg as pcg_module
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(pcg_module, "solve_pcg_mf", counted)
+    out = []
+    for limit in (pcg_mf.J_BYTES_LIMIT, 0):
+        monkeypatch.setattr(pcg_mf, "J_BYTES_LIMIT", limit)
+        pp = _problem("se3", gtt.FP32_FP32)
+        lin = linearize(pp, pp.params0)
+        x, _ = solver.solve(pp, lin, solver.prepare(pp, lin), 1e-3, False)
+        out.append(x)
+    assert len(calls) == 1
+    assert float((out[0] - out[1]).abs().max()
+                 / out[1].abs().max()) <= 1e-3
+
+
+def _gate_pair(monkeypatch, attr, value):
+    monkeypatch.setattr(jax_mf, attr, value)
+    monkeypatch.setattr(pcg_mf, attr, value)
+    gj, *_ = jg2o.build_graph(DATASETS["se3"](jsyn), precision=gt.FP32_FP32)
+    pj = gj.freeze()
+    pp = _problem("se3", gtt.FP32_FP32)
+    return (jax_mf.plan_pcg_mf(pj, jax_linearize(pj, pj.params0)),
+            pcg_mf.plan_pcg_mf(pp, linearize(pp, pp.params0)))
+
+
+@pytest.mark.parametrize("attr,value,feasible", [
+    ("J_BYTES_LIMIT", 6 << 20, True), ("J_BYTES_LIMIT", 0, False),
+    ("J_BYTES_LIMIT", 256 << 10, True), ("J_BYTES_LIMIT", (256 << 10) - 1,
+                                         False),
+    ("TABLE_ROWS_LIMIT", 4096, True), ("TABLE_ROWS_LIMIT", 256, False),
+])
+def test_plan_gate_matches_jax(monkeypatch, attr, value, feasible):
+    site_j, site = _gate_pair(monkeypatch, attr, value)
+    assert (site_j is not None) == (site is not None) == feasible
+
+
+def test_plan_infeasible_on_bal():
+    ds = jsyn.make_bal("mini", seed=0)
+    gj, *_ = jbal.build_graph(ds, precision=gt.FP32_FP32)
+    pj = gj.freeze()
+    assert jax_mf.plan_pcg_mf(pj, jax_linearize(pj, pj.params0)) is None
+    gp, *_ = tbal.build_graph(tsyn.make_bal("mini", seed=0),
+                              precision=gtt.FP32_FP32)
+    pp = gp.freeze(device="cpu")
+    assert pcg_mf.plan_pcg_mf(pp, linearize(pp, pp.params0)) is None
+
+
+def test_site_structure():
+    """The fixed first pose: its slots read the zero trash row n and
+    scatter nowhere; every other incidence appears once in the CSR."""
+    pp = _problem("se3", gtt.FP32_FP32)
+    site = pcg_mf.plan_pcg_mf(pp, linearize(pp, pp.params0))
+    assert pcg_mf.plan_pcg_mf(pp, None) is site  # cached
+    (blk,) = site.blocks
+    rows = site.rows.numpy().reshape(blk.arity, blk.F)
+    fixed = pp.host.factor_ids["se3_between"] == 0
+    assert np.array_equal(rows == site.n, fixed.T)
+    off = site.csr_off.numpy()
+    assert off[0] == 0 and off[-1] == blk.arity * blk.F - fixed.sum()
+    assert np.all(np.diff(off) == np.bincount(rows[rows < site.n],
+                                              minlength=site.n))
+    # each CSR entry names a (factor, slot) incidence of its own row, in
+    # (slot, factor) order within the row
+    E, W = blk.E, blk.arity * blk.E * site.d
+    f = site.inc_v.numpy() // E
+    s = (site.inc_j.numpy() - f * W) // (E * site.d)
+    row_of = np.repeat(np.arange(site.n), np.diff(off))
+    assert np.array_equal(rows[s, f], row_of)
+    key = row_of * (blk.arity * blk.F) + s * blk.F + f
+    assert np.all(np.diff(key) > 0)
+    assert np.all(site.inc_e.numpy() == E)

@@ -222,7 +222,7 @@ def _jax_side(pj, dx_p):
 @pytest.mark.parametrize("fixture", sorted(FIXTURES))
 def test_schur_matches_jax(fixture):
     gj, gp = FIXTURES[fixture]()
-    pj, pp = gj.freeze(), gp.freeze()
+    pj, pp = gj.freeze(), gp.freeze(device="cpu")
     params = {k: np.asarray(v) for k, v in pj.params0.items()}
     ssp = torch_schur.build_schur_structure(pp)
     dx_p = np.random.default_rng(5).normal(size=ssp.dim_p)

@@ -109,7 +109,7 @@ def _compare(out, ref, tol):
 @pytest.mark.parametrize("fixture", sorted(FIXTURES))
 def test_forced_branches_match_jax_f64(force_port, fixture):
     gj, gp = FIXTURES[fixture]()
-    pj, pp = gj.freeze(), gp.freeze()
+    pj, pp = gj.freeze(), gp.freeze(device="cpu")
     params = {k: np.asarray(v) for k, v in pj.params0.items()}
     hsj = jax_hessian.build_hessian_structure(pj)
     ssj = jax_schur.build_schur_structure(pj)
@@ -165,7 +165,7 @@ def force_jax_stream(monkeypatch):
 
 def test_forced_branches_match_jax_stream_f32(force_port, force_jax_stream):
     gj, gp = _mini("FP32_FP32")
-    pj, pp = gj.freeze(), gp.freeze()
+    pj, pp = gj.freeze(), gp.freeze(device="cpu")
     lj = jax_linearize(pj, pj.params0)
     hsj = jax_hessian.build_hessian_structure(pj)
     ssj = jax_schur.build_schur_structure(pj)

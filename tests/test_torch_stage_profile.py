@@ -27,3 +27,15 @@ def test_stage_profile_times_every_stage_and_restores():
 def test_union_of_device_intervals():
     assert stage_profile._union_us([(0, 2), (1, 3), (5, 6)]) == 4
     assert stage_profile._union_us([(0, 10), (2, 3)]) == 10
+
+
+def test_stage_profile_pose_path():
+    """``--size sphere2500``: the pose path's stages (the folding of J and
+    the matrix-free PCG) are timed."""
+    out = stage_profile.profile_lm("sphere2500", 2, 0, "cpu")
+    assert out["iterations"] == 2
+    for stage in ("linearize", "preconditioner_prepare",
+                  "preconditioner_set_damping", "fold_jacobians",
+                  "solve_pcg_mf", "compute_chi2"):
+        assert out["stages"][stage]["calls"] >= 1, stage
+    assert "run_pcg" not in out["stages"]
