@@ -10,8 +10,11 @@ own:
    started together: K1 ``csrc/segsum.cu``, K2 ``csrc/pcg_dense.cu``, K3
    ``csrc/segprod.cu``, K4 / K5 ``csrc/segmv.cu``, K6 ``csrc/pcg_mf.cu``;
 2. K1 vs its plain PyTorch version on the card, at the BAL Ladybug-49
-   reduction shapes (seeded random inputs): relative error <= 1e-5, and
-   two runs bitwise identical;
+   reduction shapes (seeded random inputs; each label names the plan's
+   lanes per segment, ``group``): relative error <= 1e-5, two runs
+   bitwise identical, and bitwise equal to the plain version on the CPU;
+   K1's and ``index_add_``'s times also replayed from a CUDA graph, which
+   leaves out the host's launch work (``device_only``);
 3. K2 vs its plain version (``run_pcg``) on the first Schur system of the
    Ladybug-49 LM run (n = 441) and on a random SPD system (n = 1024):
    x within 1e-4 relative, the same number of CG steps;
@@ -35,18 +38,18 @@ own:
 4c. K1 vs its plain version at every reduction site of that run (the
    factor rows of linearize, which JtPv shares, and the block-Jacobi
    blocks, per slot; seeded values): relative error <= 1e-5, two runs
-   bitwise identical, bitwise vs the CPU plain version printed;
+   bitwise identical, bitwise equal to the CPU plain version;
 4d. sphere2500 with the K6 gate closed (``pcg_mf.J_BYTES_LIMIT = 0``),
    10 iterations on the card and on the CPU: ``run_pcg`` on
    ``hessian_matvec``, K1 launched, the same checks;
 5. the BAL Venice-1778 problem (993,923 points, 5,001,946 observations,
    dim_p 16,002) frozen on the card, with its host set-up seconds;
-6. K1, K3, K4 and K5 vs their plain versions on the card at Venice-1778's
-   own shapes (indices and segment plans of the frozen problem, values of
-   its first linearization, or seeded where the site has none or its
-   values are intermediate): relative error <= 1e-5, two runs bitwise
-   identical; also prints whether each equals its plain version on the
-   CPU bitwise;
+6. K1, K3 (by index, and from gathered streams), K4 and K5 vs their
+   plain versions on the card at Venice-1778's own shapes (indices and
+   segment plans of the frozen problem, values of its first
+   linearization, or seeded where the site has none or its values are
+   intermediate): relative error <= 1e-5, two runs bitwise identical,
+   and bitwise equal to the plain version on the CPU;
 7. the Venice-1778 path: 10 LM iterations of PCGSchurSolver(10, 1.0, 5.0)
    on the card (the block-sparse branch): final chi2 below the initial
    one, finite parameters, K1, K3, K4 and K5 launched, the S matvec kernel
@@ -58,7 +61,9 @@ own:
    accept patterns equal, chi2 within 1e-3, K3, K4 and K5 launched.
 
 Prints the kernels' JSON summary and the card's name and power limit, and
-as its last line ``{"ok": true, "device": {...}}``. Each kernel's entry
+as its last line ``{"ok": true, "device": {...}}``. K1's and K5's lines
+also print their times before their redesign (``was_ms``, PERF.md's
+kernel table). Each kernel's entry
 holds its launches on every main path, its time, its plain version's
 time, the library call's time where one PyTorch call computes the same
 function (``index_add_`` for K1, a cuSPARSE SpMV through ``torch.mv`` on
@@ -202,11 +207,33 @@ K1_SHAPES = [
     (30_621, 49, 9, False, "b_schur pose rows, permuted"),
 ]
 
+# K1's and K5's times before their redesign (the "was" times of PERF.md's
+# kernel table; NVIDIA H100 80GB HBM3, 700 W), by (rows, width, permuted)
+# or by name, printed beside this run's
+WAS_MS = {
+    (86_545, 81, False): "0.0370",
+    (31_843, 3, False): "0.0258-0.0409", (31_843, 9, False): "0.0258-0.0409",
+    (31_843, 27, False): "0.0258-0.0409", (30_621, 3, False): "0.0258-0.0409",
+    (31_843, 81, True): "0.0458-0.0520", (31_843, 9, True): "0.0458-0.0520",
+    (30_621, 9, True): "0.0458-0.0520",
+    (2_744, 6, True): "0.0238 / 0.0272 (slot 0 / 1)",
+    (2_744, 36, True): "0.0361 / 0.0233 (slot 0 / 1)",
+    (5_001_946, 3, False): "0.0527", (5_001_946, 27, False): "1.0773",
+    (5_001_946, 9, False): "0.1424", (5_001_946, 9, True): "0.4465",
+    (5_001_946, 81, True): "0.8255",
+    "s_matvec": "0.9215",
+}
+
+
+def was_ms(plan, width):
+    return WAS_MS.get((plan.rows, width, plan.perm is not None))
+
 
 def phase_k1(device):
     import numpy as np
     import torch
 
+    from graphite_tpu_torch.kernel_sweep import graph_ms
     from graphite_tpu_torch.ops.cuda import segsum, segsum_stream
 
     rng = np.random.default_rng(0)
@@ -215,7 +242,7 @@ def phase_k1(device):
         seg = rng.integers(0, ns, k)
         if is_sorted:
             seg = np.sort(seg)
-        plan = segsum.plan_segments(seg, ns, device)
+        plan = segsum.plan_segments(seg, ns, device, width=d)
         vals = torch.as_tensor(rng.standard_normal((k, d)).astype(np.float32),
                                device=device)
         wrapper = (segsum.sorted_segment_sum if "(segsum)" in site
@@ -227,23 +254,32 @@ def phase_k1(device):
         ref = segsum.segment_sum_plain(vals, plan)
         # the plain version on the CPU sums in the kernel's order
         ref_cpu = segsum.segment_sum_plain(
-            vals.cpu(), segsum.plan_segments(seg, ns, "cpu"))
+            vals.cpu(), segsum.plan_segments(seg, ns, "cpu", width=d))
         torch.cuda.synchronize()
         err = rel_err(out, ref)
         abs_err = float((out - ref).abs().max())
         ms = device_ms(lambda: wrapper(vals, plan))
         plain_ms = device_ms(lambda: segsum.segment_sum_plain(vals, plan))
-        lib = device_ms(
-            k1_library(vals, torch.as_tensor(seg, device=device), ns), 10)
-        print(f"[k1] {k}x{d}->{ns} {site}: rel_err={err:.3e} "
+        library = k1_library(vals, torch.as_tensor(seg, device=device), ns)
+        lib = device_ms(library, 10)
+        # at these sizes the times above are mostly the host's launch
+        # work; replayed from a CUDA graph, only the device's is left
+        graph = graph_ms(lambda: wrapper(vals, plan))
+        lib_graph = graph_ms(library)
+        shape = f"{k}x{d}->{ns} group {plan.group}"
+        print(f"[k1] {shape} {site}: rel_err={err:.3e} "
               f"max_abs_err={abs_err:.3e} bitwise_repeat="
               f"{torch.equal(out, again)} bitwise_vs_cpu_plain="
               f"{torch.equal(out.cpu(), ref_cpu)} ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} index_add_ms={lib:.4f}")
+              f"was_ms={was_ms(plan, d)} plain_ms={plain_ms:.4f} "
+              f"index_add_ms={lib:.4f} device_only: ms={graph:.4f} "
+              f"index_add_ms={lib_graph:.4f}")
         check(torch.equal(out, again), f"K1 not bitwise repeatable at {site}")
+        check(torch.equal(out.cpu(), ref_cpu),
+              f"K1 differs from the CPU plain version at {site}")
         check(err <= 1e-5, f"K1 rel err {err} > 1e-5 at {site}")
         stats.setdefault(name, []).append(dict(
-            err=abs_err, ms=ms, plain_ms=plain_ms, shape=f"{k}x{d}->{ns}",
+            err=abs_err, ms=ms, plain_ms=plain_ms, shape=shape,
             library_ms=lib, **k1_bound(vals, plan)))
     return stats
 
@@ -754,10 +790,11 @@ def phase_venice_setup():
 
 
 def measure(tag, label, kernel, plain, cpu_plain, reps, plain_reps, work,
-            library=None):
+            library=None, was=None):
     """A kernel vs its plain version on the card (and on the CPU) at one
     shape, ``work`` its ``bound``, ``library`` (or None) the one PyTorch
-    call computing the same function; returns its numbers."""
+    call computing the same function, ``was`` (or None) its time before
+    its redesign; returns its numbers."""
     import torch
 
     def tup(x):
@@ -777,9 +814,12 @@ def measure(tag, label, kernel, plain, cpu_plain, reps, plain_reps, work,
     lib_ms = None if library is None else device_ms(library, reps)
     print(f"[{tag}] {label}: rel_err={err:.3e} max_abs_err={abs_err:.3e} "
           f"bitwise_repeat={repeat} bitwise_vs_cpu_plain={vs_cpu} "
-          f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms} "
+          f"ms={ms:.4f} "
+          + ("" if was is None else f"was_ms={was} ")
+          + f"plain_ms={plain_ms:.4f} library_ms={lib_ms} "
           f"bound_ms={bound_fields(work)}")
     check(repeat, f"{tag} not bitwise repeatable at {label}")
+    check(vs_cpu, f"{tag} differs from the CPU plain version at {label}")
     check(err <= 1e-5, f"{tag} rel err {err} > 1e-5 at {label}")
     return dict(err=abs_err, ms=ms, plain_ms=plain_ms, shape=label,
                 library_ms=lib_ms, **work)
@@ -821,8 +861,8 @@ def k1_sites(problem, path):
         else:  # K3's segment plan (``prod_dst``)
             continue
         label += ", permuted" if plan.perm is not None else ""
-        sites.append((f"{path} {plan.rows}x{d}->{plan.num_segments} {label}",
-                      plan, d))
+        sites.append((f"{path} {plan.rows}x{d}->{plan.num_segments} group "
+                      f"{plan.group} {label}", plan, d))
     return sites
 
 
@@ -848,7 +888,8 @@ def phase_k1_sites(problem, path, seed):
             lambda: segment_sum_plain(vals, plan),
             lambda: segment_sum_plain(cvals, cplan), 10, 3,
             k1_bound(vals, plan),
-            k1_library(vals, input_order_ids(plan), plan.num_segments)))
+            k1_library(vals, input_order_ids(plan), plan.num_segments),
+            was_ms(plan, d)))
         del vals, cvals, cplan
     check(records, f"no K1 site on the {path} path")
     return {"segsum_stream.streaming_segment_sum": records}
@@ -893,11 +934,11 @@ def phase_venice_kernels(problem, lin, hv, sv, ops):
     ns = ss.s_sizes[pg["dst_key"]]
     W = schur.hpl_w_values(problem, ss, hv, sv.hll_inv)[pg["left_key"]]
     R = hv[pg["right_key"]]
-    plan = segment_plan(problem, ("prod_dst", 0), pg["dst"], ns)
+    plan = segment_plan(problem, ("prod_dst", 0), pg["dst"], ns, dpa * dpb)
     li = problem.index32(("prod_l", 0), pg["left"])
     ri = problem.index32(("prod_r", 0), pg["right"])
     cW, cR, cli, cri = cpu(W, R, li, ri)
-    cplan = plan_segments(pg["dst"], ns, "cpu")
+    cplan = plan_segments(pg["dst"], ns, "cpu", width=dpa * dpb)
     label = f"{plan.rows}x({dpa},{dl},{dpb})->{ns} schur_values"
     # K3 reads W, Hpl and both index streams once, writes S once; each
     # product is dpa*dl*dpb multiply-adds
@@ -911,7 +952,24 @@ def phase_venice_kernels(problem, lin, hv, sv, ops):
             W, R, plan, dpa, dl, dpb, li, ri),
         lambda: segsum_stream.segment_product_sum_plain(
             cW, cR, cplan, dpa, dl, dpb, cli, cri), 5, 2, work))
-    del W, R, cW, cR, cli, cri
+    del cW, cR
+    # the same products from gathered streams (no path calls this entry):
+    # K3 reads both streams once, writes S once
+    Wg, Rg = W.index_select(0, li.long()), R.index_select(0, ri.long())
+    del W, R
+    cWg, cRg = cpu(Wg, Rg)
+    work = bound(nbytes(Wg, Rg, plan.offsets_i32) + 4 * ns * dpa * dpb,
+                 2 * plan.rows * dpa * dl * dpb)
+    add("segsum_stream.streaming_segment_product_sum", measure(
+        "k3", label + ", gathered streams",
+        lambda: segsum_stream.streaming_segment_product_sum(
+            Wg, Rg, plan, dpa, dl, dpb),
+        lambda: segsum_stream.segment_product_sum_plain(
+            Wg, Rg, plan, dpa, dl, dpb),
+        lambda: segsum_stream.segment_product_sum_plain(
+            cWg, cRg, cplan, dpa, dl, dpb), 5, 2, work))
+    del Wg, Rg, cWg, cRg, cli, cri
+    torch.cuda.empty_cache()
 
     # K4: b_schur, its kernel-6 form, the back-substitution
     key = ss.hpl_keys[0]
@@ -922,7 +980,7 @@ def phase_venice_kernels(problem, lin, hv, sv, ops):
     w = ops._hll_solve_rows({lt: problem.rows_view(lin.b, lt)})[lt]
     plan_b = matvec_plan(problem, ("bschur", key, pt, lt), prow, n_pt)
     lid = problem.index32(("bschur", key, pt, lt, "lid"), lrow)
-    cplan_b = segmv.plan_matvec(prow, n_pt, "cpu")
+    cplan_b = plan_segments(prow, n_pt, "cpu")
     cA, cw, clid = cpu(A, w, lid)
     label = (f"{A.shape[0]}x({dp},{dl})->{n_pt}, w[{n_lt}] by index, "
              f"group {plan_b.group} b_schur")
@@ -932,8 +990,8 @@ def phase_venice_kernels(problem, lin, hv, sv, ops):
     def k4_work(x, xi, mplan, out_rows, out_dim):
         """K4 reads the blocks, x, its index and the plan once, writes the
         sums once; each block is dp*dl multiply-adds."""
-        return bound(nbytes(A, x, xi, mplan.seg.offsets_i32,
-                            mplan.seg.perm_i32) + 4 * out_rows * out_dim,
+        return bound(nbytes(A, x, xi, mplan.offsets_i32,
+                            mplan.perm_i32) + 4 * out_rows * out_dim,
                      2 * rows_k4 * dp * dl)
 
     csr = csr_from_blocks(blocks, dev(prow), dev(lrow), n_pt, n_lt)
@@ -958,7 +1016,7 @@ def phase_venice_kernels(problem, lin, hv, sv, ops):
                         device=problem.device)
     plan_l = matvec_plan(problem, ("lu", key, pt, lt), lrow, n_lt)
     pidx = problem.index32(("lu", key, pt, lt, "pidx"), prow)
-    cplan_l = segmv.plan_matvec(lrow, n_lt, "cpu")
+    cplan_l = plan_segments(lrow, n_lt, "cpu")
     cx, cpidx = cpu(x, pidx)
     csr = csr_from_blocks(blocks.transpose(1, 2), dev(lrow), dev(prow),
                           n_lt, n_pt)
@@ -982,16 +1040,16 @@ def phase_venice_kernels(problem, lin, hv, sv, ops):
                          device=problem.device)
     xc, xr = problem.rows_view(xv, ct), problem.rows_view(xv, rt)
     cplan_s = segmv.plan_matvec_sym(rrow, crow, problem.seg_rows[rt],
-                                    problem.seg_rows[ct], "cpu")
+                                    problem.seg_rows[ct], "cpu", dp)
     cS, cxc, cxr, ccid, crxi = cpu(S, xc, xr, cid, rxi)
     n_r, n_c = problem.seg_rows[rt], problem.seg_rows[ct]
     # K5 reads S, both x tables, both indices and both plans once, writes
     # both halves once; every block once forward, the off-diagonal ones
     # once transposed
     work = bound(
-        nbytes(S, xc, xr, cid, rxi, splan.rows.seg.offsets_i32,
-               splan.rows.seg.perm_i32, splan.cols.seg.offsets_i32,
-               splan.cols.seg.perm_i32) + 4 * dp * (n_r + n_c),
+        nbytes(S, xc, xr, cid, rxi, splan.rows.offsets_i32,
+               splan.rows.perm_i32, splan.cols.offsets_i32,
+               splan.cols.perm_i32) + 4 * dp * (n_r + n_c),
         2 * dp * dp * (S.shape[0] + off.size))
     # library: one SpMV of the whole symmetric S (both halves summed,
     # which is what s_matvec makes of K5's two outputs)
@@ -1002,14 +1060,17 @@ def phase_venice_kernels(problem, lin, hv, sv, ops):
         dev(np.concatenate([rrow, crow[off]])),
         dev(np.concatenate([crow, rrow[off]])), n_r, n_c)
     del S3, offt
+    check(splan.cols.perm is None, "K5's column plan is not in stored order")
     add("segmv.matvec_sym_stream", measure(
         "k5", f"{S.shape[0]}x({dp},{dp})->{n_r}, "
-        f"{off.size} off-diagonal, groups {splan.rows.group}/"
-        f"{splan.cols.group} s_matvec",
+        f"{off.size} off-diagonal, one read of S, groups "
+        f"{splan.rows.group} (rows, K1) / {splan.cols.group} (columns) "
+        f"s_matvec",
         lambda: segmv.matvec_sym_stream(S, xc, xr, cid, rxi, splan, dp, dp),
         lambda: segmv.matvec_sym_plain(S, xc, xr, cid, rxi, splan, dp, dp),
         lambda: segmv.matvec_sym_plain(cS, cxc, cxr, ccid, crxi, cplan_s,
-                                       dp, dp), 20, 5, work, spmv(csr, xc)))
+                                       dp, dp), 20, 5, work, spmv(csr, xc),
+        WAS_MS["s_matvec"]))
     del S, cS, csr
     torch.cuda.empty_cache()
     return results

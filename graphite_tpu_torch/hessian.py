@@ -198,7 +198,8 @@ def compute_hessian_values(problem, hs: HessianStructure,
                 * lin.chi2_deriv[cm.fname].to(acc)[:, None]).to(inv_dt)
         if cm.direct_idx is not None:
             plan = segment_plan(problem, ("hess_d", ci), cm.direct_idx,
-                                hs.group_sizes[cm.direct_group] + 1)
+                                hs.group_sizes[cm.direct_group] + 1,
+                                flat.shape[1])
             values[cm.direct_group] = values[cm.direct_group] + reduce_rows(
                 flat, plan)
         if cm.trans_idx is not None:
@@ -206,7 +207,8 @@ def compute_hessian_values(problem, hs: HessianStructure,
             flat_t = flat.reshape(-1, ds, dt_).transpose(1, 2).reshape(
                 -1, ds * dt_)
             plan = segment_plan(problem, ("hess_t", ci), cm.trans_idx,
-                                hs.group_sizes[cm.trans_group] + 1)
+                                hs.group_sizes[cm.trans_group] + 1,
+                                flat_t.shape[1])
             values[cm.trans_group] = values[cm.trans_group] + reduce_rows(
                 flat_t, plan)
     return values

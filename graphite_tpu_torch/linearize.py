@@ -149,7 +149,7 @@ def _factor_row_reduce(problem, contrib, fname, s, vt_name):
         ids = problem.host.factor_ids[fname][:, s]
         plan = segment_plan(problem, tag,
                             problem.host.vertex_active_row[vt_name][ids],
-                            problem.seg_rows[vt_name] + 1)
+                            problem.seg_rows[vt_name] + 1, contrib.shape[1])
     return reduce_rows(contrib, plan)[:-1]
 
 

@@ -1,4 +1,5 @@
-"""Launch counts (and optional CUDA-event timings) of a kernel wrapper.
+"""Launch counts (and optional CUDA-event timings) of a kernel wrapper,
+and the stream a wrapper launches on.
 
 Each wrapper owns one ``LaunchStats`` and adds one to it where it
 launches its kernel, and nowhere else, so a run can show that its main
@@ -9,10 +10,31 @@ bracketed by two CUDA events on the launch stream; ``total_ms`` reads them
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import List, Tuple
 
 import torch
+
+
+def on_device(device: torch.device):
+    """``torch.cuda.device(device)``, or no context at all when ``device``
+    is already the current one (the common case, and the context costs
+    host time on every launch)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def stream_ptr(device: torch.device) -> int:
+    """The current CUDA stream of ``device``, as the pointer a kernel's C
+    entry takes: ``torch.cuda.current_stream(device).cuda_stream`` without
+    building a ``Stream`` object on every launch (host time: the Ladybug
+    path launches ~600 kernels per LM iteration;
+    ``python -m graphite_tpu_torch.kernel_sweep`` times both)."""
+    index = device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)
 
 
 @dataclasses.dataclass

@@ -20,7 +20,7 @@ import torch
 
 from ..pcg_loop import run_pcg
 from . import build
-from .launches import LaunchStats
+from .launches import LaunchStats, on_device, stream_ptr
 
 STATS = LaunchStats("pcg_dense.dense_pcg")
 
@@ -85,8 +85,8 @@ def dense_pcg(S: torch.Tensor, M: torch.Tensor, b: torch.Tensor, *,
     x = torch.empty(n, dtype=torch.float32, device=b.device)
     iters = torch.empty(1, dtype=torch.int32, device=b.device)
     lib = load_kernel()
-    with torch.cuda.device(b.device):
-        stream = torch.cuda.current_stream(b.device).cuda_stream
+    with on_device(b.device):
+        stream = stream_ptr(b.device)
         ev = STATS.start()
         err = lib.lib.gt_pcg_dense_f32(
             S.data_ptr(), M.data_ptr(), b.data_ptr(), x.data_ptr(),

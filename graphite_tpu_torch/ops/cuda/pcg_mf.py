@@ -39,7 +39,7 @@ from ..blockfmt import flat_block_mm_tn
 from ..pcg_loop import run_pcg
 from ...precision import sqrt_rn
 from . import build
-from .launches import LaunchStats
+from .launches import LaunchStats, on_device, stream_ptr
 
 STATS = LaunchStats("pcg_mf.solve_pcg_mf")
 
@@ -317,8 +317,8 @@ def solve_pcg_mf(site: PcgMfSite, jf: torch.Tensor, b: torch.Tensor,
     x = torch.empty(n * d, dtype=torch.float32, device=b.device)
     iters = torch.empty(1, dtype=torch.int32, device=b.device)
     lib = load_kernel()
-    with torch.cuda.device(b.device):
-        stream = torch.cuda.current_stream(b.device).cuda_stream
+    with on_device(b.device):
+        stream = stream_ptr(b.device)
         ev = STATS.start()
         err = lib.lib.gt_pcg_mf_f32(
             jf.data_ptr(), site.rows.data_ptr(), site.desc.data_ptr(),

@@ -32,7 +32,7 @@ import torch
 
 from ..blockfmt import flat_block_mm_nt
 from . import build, segmv
-from .launches import LaunchStats
+from .launches import LaunchStats, on_device, stream_ptr
 from .segsum import SegmentPlan, launch_segsum
 from .segsum import segment_sum_plain as streaming_segment_sum_plain
 
@@ -138,8 +138,8 @@ def _product_sum(left, right, plan: SegmentPlan, m, k, n, left_idx,
     out = torch.empty((plan.num_segments, m * n), dtype=torch.float32,
                       device=left.device)
     lib = load_product_kernel()
-    with torch.cuda.device(left.device):
-        stream = torch.cuda.current_stream(left.device).cuda_stream
+    with on_device(left.device):
+        stream = stream_ptr(left.device)
         ev = stats.start()
         err = lib.lib.gt_segprod_f32(
             left.data_ptr(),
@@ -179,7 +179,7 @@ def streaming_segment_product_sum_rtbl(left: torch.Tensor,
 
 
 def streaming_matvec_tbl(left: torch.Tensor, x: torch.Tensor,
-                         idx: torch.Tensor, plan: segmv.MatvecPlan, m: int,
+                         idx: torch.Tensor, plan: SegmentPlan, m: int,
                          k: int, transpose: bool = False) -> torch.Tensor:
     """y[seg_i] += A_i x[idx_i] (or A_i^T x[idx_i] with ``transpose``):
     ``left`` (K, m*k) blocks, ``x`` the row table, ``idx`` int32 (an index

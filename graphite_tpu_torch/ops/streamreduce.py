@@ -7,8 +7,8 @@ the host (``segment_plan``: the sort permutation, when the destinations
 are not already sorted, and the CSR segment offsets) and cached on the
 problem. Every site, sorted or not, goes through the sorted-segment-sum
 kernel on CUDA: no float atomics, and results are the same from run to
-run. ``matvec_plan`` is the cached plan of a block-matvec site (K4 / K5,
-``ops/cuda/segmv``).
+run. ``matvec_plan`` is the cached plan of a block-matvec site (K4,
+``ops/cuda/segmv``), built the same way.
 
 ``MAP_BYTES`` / ``map_chunk_rows`` are the JAX package's row budget. There
 it bounds scan chunks; here it only gates the block-matvec sites
@@ -22,7 +22,6 @@ import numpy as np
 import torch
 
 from .cuda import segsum_stream
-from .cuda.segmv import MatvecPlan, plan_matvec
 from .cuda.segsum import SegmentPlan, plan_segments
 
 MAP_BYTES = 64 << 20
@@ -33,22 +32,25 @@ def map_chunk_rows(row_bytes: int, align: int = 2048) -> int:
     return (rows // align) * align
 
 
-def segment_plan(problem, tag, seg: np.ndarray,
-                 num_segments: int) -> SegmentPlan:
-    """Cached plan of the reduction site ``tag`` (destinations ``seg``)."""
+def segment_plan(problem, tag, seg: np.ndarray, num_segments: int,
+                 width: int, group=None) -> SegmentPlan:
+    """Cached plan of the reduction site ``tag``: rows of ``width``
+    columns into destinations ``seg`` (``group`` forces the lanes per
+    segment)."""
     plans = problem._cache.setdefault("segment_plans", {})
     if tag not in plans:
-        plans[tag] = plan_segments(seg, num_segments, problem.device)
+        plans[tag] = plan_segments(seg, num_segments, problem.device, group,
+                                   width)
     return plans[tag]
 
 
 def matvec_plan(problem, tag, seg: np.ndarray,
-                num_segments: int) -> MatvecPlan:
+                num_segments: int) -> SegmentPlan:
     """Cached plan of the block-matvec site ``tag`` (destinations
     ``seg``)."""
     plans = problem._cache.setdefault("matvec_plans", {})
     if tag not in plans:
-        plans[tag] = plan_matvec(seg, num_segments, problem.device)
+        plans[tag] = plan_segments(seg, num_segments, problem.device)
     return plans[tag]
 
 

@@ -55,7 +55,8 @@ def compute_block_diagonal(problem, lin: Linearization
                                    acc_dtype=acc) * dL[:, None]
             plan = segment_plan(problem, ("bj_blocks", fname, s),
                                 problem.host.factor_ids[fname][:, s],
-                                problem.vertex_meta[vt.name].count)
+                                problem.vertex_meta[vt.name].count,
+                                vt.dim * vt.dim)
             blocks[vt.name] = blocks[vt.name] + reduce_rows(blk.to(inv_dt),
                                                             plan)
     return blocks

@@ -352,7 +352,7 @@ def schur_values(problem, ss: SchurStructure,
         dpa, dl, dpb = pg["dims"]
         key = pg["dst_key"]
         plan = segment_plan(problem, ("prod_dst", gi), pg["dst"],
-                            ss.s_sizes[key])
+                            ss.s_sizes[key], dpa * dpb)
         W = hpl_w[pg["left_key"]]
         R = hvals[pg["right_key"]].to(inv_dt)
         if pg["dst"].shape[0] > _chunk_threshold(problem):
@@ -500,8 +500,8 @@ class SchurOps:
                     y = flat_block_mv(Hsub, wg, dp, dl,
                                       acc_dtype=wg.dtype).to(gdt)
                     # the pose destinations are unsorted: the plan sorts
-                    acc = reduce_rows(y, segment_plan(problem, ck, prow,
-                                                      problem.seg_rows[pt]))
+                    acc = reduce_rows(y, segment_plan(
+                        problem, ck, prow, problem.seg_rows[pt], dp))
                 prev = out_rows.get(pt)
                 out_rows[pt] = acc if prev is None else prev + acc
         flat = problem.flat_from_rows({t: -v for t, v in out_rows.items()},
@@ -522,7 +522,8 @@ class SchurOps:
             rxi = np.full(sub.shape[0], n_r, dtype=np.int64)
             rxi[off] = rrow[off]
             ck = ("smv", key, rt, ct)
-            return (plan_matvec_sym(rrow, crow, n_r, n_c, problem.device),
+            return (plan_matvec_sym(rrow, crow, n_r, n_c, problem.device,
+                                    key[0]),
                     problem.index32(ck + ("cid",), crow),
                     problem.index32(ck + ("rxi",), rxi))
 
@@ -583,7 +584,7 @@ class SchurOps:
                 xc = x_ct.index_select(0, problem.index(ck + ("crow",), crow))
                 y = flat_block_mv(S_flat, xc, dr, dc, acc_dtype=gdt)
                 add_rows(rt, reduce_rows(y, segment_plan(
-                    problem, ck, rrow, problem.seg_rows[rt])))
+                    problem, ck, rrow, problem.seg_rows[rt], dr)))
                 if off.size:
                     ckt = ck + ("t",)
                     St = take_rows(problem, ckt + ("sub",), S, sub[off])
@@ -591,7 +592,7 @@ class SchurOps:
                         0, problem.index(ckt + ("rrow",), rrow[off]))
                     y2 = flat_block_mv_t(St, xr, dr, dc, acc_dtype=gdt)
                     add_rows(ct, reduce_rows(y2, segment_plan(
-                        problem, ckt, crow[off], problem.seg_rows[ct])))
+                        problem, ckt, crow[off], problem.seg_rows[ct], dc)))
         return problem.flat_from_rows(y_rows, dtype=gdt)[: self.ss.dim_p]
 
     def landmark_update(self, b: torch.Tensor,
@@ -622,8 +623,8 @@ class SchurOps:
                     x = x_pt.index_select(0, problem.index(ck + ("prow",),
                                                            prow))
                     y = flat_block_mv_t(Hsub, x, dp, dl, acc_dtype=gdt)
-                    acc = reduce_rows(y, segment_plan(problem, ck, lrow,
-                                                      problem.seg_rows[lt]))
+                    acc = reduce_rows(y, segment_plan(
+                        problem, ck, lrow, problem.seg_rows[lt], dl))
                 t_rows[lt] = t_rows[lt] - acc
         return self._hll_solve_rows(t_rows)
 

@@ -5,18 +5,21 @@ on a machine with only PyTorch (``--noconftest`` skips the JAX set-up in
 
     python -m pytest tests/test_torch_gpu.py -m gpu -q --noconftest
 
-- K1 vs its plain version at the Ladybug-49 shapes: within 1e-5 relative
-  on the card, bitwise repeatable, and bitwise equal to the plain version
-  on the CPU (both sum each segment in row order).
+- K1 vs its plain version at the Ladybug-49 shapes and at two Venice-like
+  permuted sites (1,779 segments of ~2,800 rows, widths 9 and 81): within
+  1e-5 relative on the card, bitwise repeatable, and bitwise equal to the
+  plain version on the CPU (both sum each segment in the plan's lane
+  order: row order at group 1, lanes and a halving tree above).
 - K2 bitwise equal to its plain version on the CPU, which takes every
   product, sum and dot in the kernel's order; no step for a zero b.
 - The LM slice on CUDA and on the CPU: bitwise the same trajectory, with
   every kernel launched.
 - K3, K4 (all three entry points) and K5 vs their plain versions at small
   random shapes, with masked (fill) rows, diagonal blocks and unsorted
-  destinations: within 1e-5 relative on the card, bitwise repeatable, and
-  bitwise equal to the plain version on the CPU (which sums in the
-  kernels' order).
+  destinations (K5 also at 1, 2 and 128 lanes per column, 6x6 blocks and a
+  permuted column plan, one launch counted per call): within 1e-5
+  relative on the card, bitwise repeatable, and bitwise equal to the
+  plain version on the CPU (which sums in the kernels' order).
 - The LM slice at Ladybug-49 with the large-problem branches forced
   (``dense_matvec_limit=0``, the Schur gates lowered): CUDA and CPU give
   bitwise the same trajectory, and K3, K4 and K5 launch.
@@ -72,10 +75,12 @@ def cuda_device():
 LADYBUG_SHAPES = [(86_545, 1_225, 81, True), (31_843, 7_777, 3, True),
                   (31_843, 7_777, 9, True), (31_843, 30_622, 27, True),
                   (30_621, 7_776, 3, True), (31_843, 50, 81, False),
-                  (30_621, 49, 9, False)]
+                  (31_843, 50, 9, False), (30_621, 49, 9, False)]
+VENICE_PERMUTED = [(5_001_946, 1_779, 9, False), (5_001_946, 1_779, 81, False)]
 
 
-@pytest.mark.parametrize("k,ns,d,sorted_dst", LADYBUG_SHAPES)
+@pytest.mark.parametrize("k,ns,d,sorted_dst",
+                         LADYBUG_SHAPES + VENICE_PERMUTED)
 def test_k1_matches_plain(cuda_device, k, ns, d, sorted_dst):
     rng = np.random.default_rng(k + d)
     seg = rng.integers(0, ns, k)
@@ -83,12 +88,15 @@ def test_k1_matches_plain(cuda_device, k, ns, d, sorted_dst):
         seg = np.sort(seg)
     vals_np = rng.standard_normal((k, d)).astype(np.float32)
     vals = torch.as_tensor(vals_np, device=cuda_device)
-    plan = segsum.plan_segments(seg, ns, cuda_device)
+    plan = segsum.plan_segments(seg, ns, cuda_device, width=d)
+    assert plan.group == segsum.group_size(k, len(np.unique(seg)), d)
+    assert (plan.group > 1) == (k / ns > 8)
     out = segsum_stream.streaming_segment_sum(vals, plan)
     again = segsum.sorted_segment_sum(vals, plan)
     ref = segsum.segment_sum_plain(vals, plan)
     ref_cpu = segsum.segment_sum_plain(torch.as_tensor(vals_np),
-                                       segsum.plan_segments(seg, ns, "cpu"))
+                                       segsum.plan_segments(seg, ns, "cpu",
+                                                            width=d))
     torch.cuda.synchronize()
     assert torch.equal(out, again)
     assert torch.equal(out.cpu(), ref_cpu)
@@ -214,8 +222,8 @@ def test_k4_matches_plain(cuda_device, ns, transpose):
     xi = xi.astype(np.int32)
     gpu = _on(cuda_device, left, x, xi)
     cpu = _on("cpu", left, x, xi)
-    plan = segmv.plan_matvec(dst, ns, cuda_device)
-    plan_cpu = segmv.plan_matvec(dst, ns, "cpu")
+    plan = segsum.plan_segments(dst, ns, cuda_device)
+    plan_cpu = segsum.plan_segments(dst, ns, "cpu")
     assert (plan.group > 1) == (ns == 40)
 
     def tbl(A, X, I, p):
@@ -237,12 +245,22 @@ def test_k4_matches_plain(cuda_device, ns, transpose):
         assert torch.equal(wtbl, out)
 
 
-def test_k5_matches_plain(cuda_device):
-    m = k = 9
-    rng = np.random.default_rng(5)
-    rows, n_r, n_c = 60_000, 70, 70
+@pytest.mark.parametrize("n,m,group,sorted_cols", [
+    (70, 9, None, True),    # long columns: 128 lanes, 9x9 blocks
+    (6_000, 9, None, True),  # ~10 blocks per column: 2 lanes
+    (500, 9, 1, True),      # one lane: 32 columns per CTA
+    (70, 6, None, True),    # a block shape the kernel takes at run time
+    (70, 9, None, False),   # a column plan with a permutation
+])
+def test_k5_matches_plain(cuda_device, n, m, group, sorted_cols):
+    """Diagonal blocks (5%) read a zero x_r row; both outputs checked."""
+    k = m
+    rng = np.random.default_rng(n + m)
+    rows, n_r, n_c = 60_000, n, n
     rid = rng.integers(0, n_r, rows)
-    cid = np.sort(rng.integers(0, n_c, rows))  # CSC: columns sorted
+    cid = rng.integers(0, n_c, rows)
+    if sorted_cols:
+        cid = np.sort(cid)  # CSC: columns sorted
     diag = rng.random(rows) < 0.05
     rxi = np.where(diag, n_r, rid).astype(np.int32)
     left = rng.standard_normal((rows, m * k)).astype(np.float32)
@@ -250,9 +268,19 @@ def test_k5_matches_plain(cuda_device):
     xr = rng.standard_normal((n_r, m)).astype(np.float32)
     arrays = (left, xc, xr, cid.astype(np.int32), rxi)
     gpu, cpu = _on(cuda_device, *arrays), _on("cpu", *arrays)
-    plan = segmv.plan_matvec_sym(rid, cid, n_r, n_c, cuda_device)
-    plan_cpu = segmv.plan_matvec_sym(rid, cid, n_r, n_c, "cpu")
+    plan = segmv.plan_matvec_sym(rid, cid, n_r, n_c, cuda_device, m, group)
+    plan_cpu = segmv.plan_matvec_sym(rid, cid, n_r, n_c, "cpu", m, group)
+    assert (plan.cols.perm is None) == sorted_cols
+    if n == 70 and group is None:
+        # K1's row pass: at most 64 lanes at width 9 (128 at width 6); the
+        # column pass takes K4's rule
+        assert (plan.rows.group, plan.cols.group) == (64 if m == 9 else 128,
+                                                      128)
+    stats = (segmv.SYM_STATS, segsum.STATS, segsum_stream.STATS)
+    before = [s.launches for s in stats]
     out = segmv.matvec_sym_stream(*gpu, plan, m, k)
+    # K1, its second pass, is not counted as a K1 launch
+    assert [s.launches for s in stats] == [before[0] + 1] + before[1:]
     _check_kernel(out, segmv.matvec_sym_stream(*gpu, plan, m, k),
                   segmv.matvec_sym_plain(*gpu, plan, m, k),
                   segmv.matvec_sym_stream(*cpu, plan_cpu, m, k))

@@ -12,6 +12,10 @@ PyTorch port.
   segment's group sums rows l, l+G, ... in order, then a halving tree
   (checked bitwise against a loop written out); float64 results equal
   ``np.add.at`` for every group size.
+- K5's two passes on the CUDA card, composed on the CPU: the row products
+  P_b = S_b x_c[cid_b] of every stored block, then K1's plain version over
+  the row plan, equal ``matvec_sym_plain`` bitwise, and both halves equal
+  the kernel order written out.
 
 The kernels themselves are tested on the card by ``test_torch_gpu.py``.
 """
@@ -26,7 +30,8 @@ import torch
 
 import graphite_tpu.ops.pallas.segmv as jax_segmv
 import graphite_tpu.ops.pallas.segsum_stream as jax_segsum_stream
-from graphite_tpu_torch.ops.cuda import segmv, segsum_stream
+from graphite_tpu_torch.ops.cuda import segmv, segsum, segsum_stream
+from graphite_tpu_torch.ops.cuda.segsum import plan_segments
 
 torch.set_num_threads(1)
 
@@ -92,7 +97,7 @@ def test_plain_matches_pallas_matvec_tbl(interpret_mode, m, k, transpose):
         jnp.asarray(jax_segmv.pack_chunk_ids(idx, k_pad, chunk, fill=n_x)),
         plan_j, m, k, transpose=transpose))
     out = segsum_stream.streaming_matvec_tbl(
-        _t(left), _t(x_rows), _i32(idx), segmv.plan_matvec(seg, ns, "cpu"),
+        _t(left), _t(x_rows), _i32(idx), plan_segments(seg, ns, "cpu"),
         m, k, transpose=transpose).numpy()
     assert out.shape == ref.shape
     assert _rel_err(out, ref) <= REL
@@ -122,8 +127,8 @@ def test_plain_matches_pallas_block_matvec_stream(interpret_mode,
         jnp.asarray(jax_segmv.pack_chunk_ids(dst, k_pad, chunk,
                                              fill=n_rows)),
         m, k, n_rows, transpose=transpose))
-    plan = segmv.plan_matvec(dst, n_rows, "cpu")
-    assert plan.group > 1 and plan.seg.perm is not None
+    plan = plan_segments(dst, n_rows, "cpu")
+    assert plan.group > 1 and plan.perm is not None
     out = segmv.block_matvec_stream(_t(left), _t(right), plan, m, k,
                                     transpose=transpose).numpy()
     assert _rel_err(out, ref) <= REL
@@ -152,7 +157,7 @@ def test_plain_matches_pallas_block_matvec_wtbl(interpret_mode):
         jnp.asarray(jax_segmv.pack_chunk_ids(lid_eff, k_pad, chunk,
                                              fill=n_w)),
         m, k, n_out))
-    plan = segmv.plan_matvec(dst, n_out, "cpu")
+    plan = plan_segments(dst, n_out, "cpu")
     assert plan.group == 16
     out = segmv.block_matvec_wtbl(_t(left), _t(w_rows), plan,
                                   _i32(lid_eff), m, k).numpy()
@@ -181,7 +186,7 @@ def test_plain_matches_pallas_matvec_sym(interpret_mode, m, k):
         jnp.asarray(jax_segmv.pack_chunk_ids(rid, k_pad, chunk, fill=n_r)),
         jnp.asarray(jax_segmv.pack_chunk_ids(rxi, k_pad, chunk, fill=n_r)),
         plan_j, m, k, n_r, n_c)
-    plan = segmv.plan_matvec_sym(rid, cid, n_r, n_c, "cpu")
+    plan = segmv.plan_matvec_sym(rid, cid, n_r, n_c, "cpu", m)
     yr, yc = segmv.matvec_sym_stream(_t(left), _t(xc_rows), _t(xr_rows),
                                      _i32(cid), _i32(rxi), plan, m, k)
     assert _rel_err(yr.numpy(), np.asarray(yr_ref)) <= REL
@@ -230,7 +235,7 @@ def test_plain_sums_in_kernel_order(group, transpose):
     left = rng.standard_normal((rows, m * k)).astype(np.float32)
     x = rng.standard_normal((n_x, m if transpose else k)).astype(np.float32)
     xi = rng.integers(0, n_x + 1, rows)  # n_x: the zero fill row
-    plan = segmv.plan_matvec(dst, ns, "cpu", group=group)
+    plan = plan_segments(dst, ns, "cpu", group=group)
     out = segmv.segmv_plain(_t(left), _t(x), _i32(xi), plan, m, k,
                             transpose).numpy()
     assert np.array_equal(
@@ -250,18 +255,18 @@ def test_plain_sums_in_kernel_order(group, transpose):
 
 
 def test_group_size_and_cpu_entry_points():
-    assert [segmv.group_size(r, 10) for r in (30, 90, 700, 28_000)] == [
+    assert [segsum.group_size(r, 10) for r in (30, 90, 700, 28_000)] == [
         1, 2, 16, 256]
-    assert segmv.group_size(0, 0) == 1
+    assert segsum.group_size(0, 0) == 1
     with pytest.raises(ValueError):
-        segmv.plan_matvec(np.zeros(3, np.int64), 1, "cpu", group=3)
+        plan_segments(np.zeros(3, np.int64), 1, "cpu", group=3)
     rng = np.random.default_rng(1)
     rows, ns, m, k = 200, 7, 9, 3
     dst = rng.integers(0, ns, rows)
     left = _t(rng.standard_normal((rows, m * k)).astype(np.float32))
     w = _t(rng.standard_normal((50, k)).astype(np.float32))
     lid = _i32(rng.integers(0, 50, rows))
-    plan = segmv.plan_matvec(dst, ns, "cpu")
+    plan = plan_segments(dst, ns, "cpu")
     stats = (segmv.STREAM_STATS, segmv.WTBL_STATS, segmv.SYM_STATS,
              segsum_stream.MATVEC_TBL_STATS)
     before = [s.launches for s in stats]
@@ -270,3 +275,39 @@ def test_group_size_and_cpu_entry_points():
     c = segsum_stream.streaming_matvec_tbl(left, w, lid, plan, m, k)
     assert torch.equal(a, b) and torch.equal(a, c)
     assert [s.launches for s in stats] == before
+
+
+@pytest.mark.parametrize("group", [1, 8, 128])
+@pytest.mark.parametrize("m,k", [(9, 9), (6, 9)])
+def test_k5_two_passes_equal_plain(m, k, group):
+    rng = np.random.default_rng(m + k + group)
+    rows, n_r, n_c = 2_000, 12, 10
+    rid = rng.integers(0, n_r, rows)  # unsorted
+    cid = np.sort(rng.integers(0, n_c, rows))  # CSC: columns sorted
+    diag = (rng.random(rows) < 0.1) if m == k else np.zeros(rows, bool)
+    rxi = np.where(diag, n_r, rid)
+    left = rng.standard_normal((rows, m * k)).astype(np.float32)
+    xc = rng.standard_normal((n_c, k)).astype(np.float32)
+    xr = rng.standard_normal((n_r, m)).astype(np.float32)
+    plan = segmv.plan_matvec_sym(rid, cid, n_r, n_c, "cpu", m, group)
+    assert plan.rows.group == plan.cols.group == group
+    assert plan.cols.perm is None
+    lengths = np.bincount(cid, minlength=n_c)
+    assert np.all(np.diff(lengths[plan.col_order.numpy()]) <= 0)
+    yr, yc = segmv.matvec_sym_plain(_t(left), _t(xc), _t(xr), _i32(cid),
+                                    _i32(rxi), plan, m, k)
+
+    # pass 1's row products, in the kernel's order: p = a[:, 0] x_0, then
+    # p + a[:, j] x_j
+    a = left.reshape(rows, m, k)
+    xg = xc[cid]
+    P = a[:, :, 0] * xg[:, None, 0]
+    for j in range(1, k):
+        P = P + a[:, :, j] * xg[:, None, j]
+    # pass 2: K1's plain version over the row plan
+    yr2 = segsum.segment_sum_plain(torch.as_tensor(P), plan.rows)
+    assert torch.equal(yr2, yr)
+    assert np.array_equal(yr.numpy(), _kernel_order(
+        left, xc, cid, rid, n_r, m, k, False, group))
+    assert np.array_equal(yc.numpy(), _kernel_order(
+        left, xr, rxi, cid, n_c, m, k, True, group))
