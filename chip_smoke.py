@@ -49,7 +49,10 @@ own:
    segment plans of the frozen problem, values of its first
    linearization, or seeded where the site has none or its values are
    intermediate): relative error <= 1e-5, two runs bitwise identical,
-   and bitwise equal to the plain version on the CPU;
+   and bitwise equal to the plain version on the CPU. K3's label counts
+   its segments by lanes; K3 also times its best library route, two
+   calls (``torch.bmm`` on the gathered streams, then ``index_add_``),
+   as a yardstick: no single PyTorch call computes its function;
 7. the Venice-1778 path: 10 LM iterations of PCGSchurSolver(10, 1.0, 5.0)
    on the card (the block-sparse branch): final chi2 below the initial
    one, finite parameters, K1, K3, K4 and K5 launched, the S matvec kernel
@@ -58,12 +61,13 @@ own:
    the card's and chi2 within 1e-3 per iteration;
 9. Ladybug-49 with the Venice branches forced (``dense_matvec_limit=0``,
    the Schur gates lowered), 10 iterations on the card and on the CPU:
-   accept patterns equal, chi2 within 1e-3, K3, K4 and K5 launched.
+   accept patterns equal, chi2 within 1e-3, K3, K4 and K5 launched, with
+   each kernel's launches and total ms.
 
 Prints the kernels' JSON summary and the card's name and power limit, and
-as its last line ``{"ok": true, "device": {...}}``. K1's and K5's lines
-also print their times before their redesign (``was_ms``, PERF.md's
-kernel table). Each kernel's entry
+as its last line ``{"ok": true, "device": {...}}``. K1's, K3's, K4's and
+K5's lines also print their times before their redesign (``was_ms``,
+PERF.md's kernel table). Each kernel's entry
 holds its launches on every main path, its time, its plain version's
 time, the library call's time where one PyTorch call computes the same
 function (``index_add_`` for K1, a cuSPARSE SpMV through ``torch.mv`` on
@@ -207,9 +211,9 @@ K1_SHAPES = [
     (30_621, 49, 9, False, "b_schur pose rows, permuted"),
 ]
 
-# K1's and K5's times before their redesign (the "was" times of PERF.md's
-# kernel table; NVIDIA H100 80GB HBM3, 700 W), by (rows, width, permuted)
-# or by name, printed beside this run's
+# K1's, K3's, K4's and K5's times before their redesign (the "was" times
+# of PERF.md's kernel table; NVIDIA H100 80GB HBM3, 700 W), by (rows,
+# width, permuted) or by name, printed beside this run's
 WAS_MS = {
     (86_545, 81, False): "0.0370",
     (31_843, 3, False): "0.0258-0.0409", (31_843, 9, False): "0.0258-0.0409",
@@ -222,6 +226,9 @@ WAS_MS = {
     (5_001_946, 9, False): "0.1424", (5_001_946, 9, True): "0.4465",
     (5_001_946, 81, True): "0.8255",
     "s_matvec": "0.9215",
+    "schur_values": "32.8372", "schur_values, gathered streams": "32.4457",
+    "b_schur": "0.6013", "b_schur (kernel-6 form)": "0.5902",
+    "back-substitution": "0.5524",
 }
 
 
@@ -858,7 +865,7 @@ def k1_sites(problem, path):
             cm = build_hessian_structure(problem).contribs[tag[1]]
             key = cm.direct_group if tag[0] == "hess_d" else cm.trans_group
             label, d = f"hessian group {key}", key[0] * key[1]
-        else:  # K3's segment plan (``prod_dst``)
+        else:  # the Schur sites below their gates: not on these paths
             continue
         label += ", permuted" if plan.perm is not None else ""
         sites.append((f"{path} {plan.rows}x{d}->{plan.num_segments} group "
@@ -895,6 +902,13 @@ def phase_k1_sites(problem, path, seed):
     return {"segsum_stream.streaming_segment_sum": records}
 
 
+def product_lanes_label(plan):
+    """How many segments of a K3 plan take each number of lanes, as
+    {lanes: segments}."""
+    return "{" + ", ".join(f"{g}: {segs.shape[0]}"
+                           for g, _, segs in plan.buckets) + "}"
+
+
 def phase_venice_kernels(problem, lin, hv, sv, ops):
     """K1, K3, K4 and K5 vs their plain versions at Venice-1778's
     shapes."""
@@ -906,7 +920,7 @@ def phase_venice_kernels(problem, lin, hv, sv, ops):
     from graphite_tpu_torch.ops.cuda.segsum import plan_segments
     from graphite_tpu_torch.ops.streamreduce import (
         matvec_plan,
-        segment_plan,
+        product_plan,
         take_rows,
     )
 
@@ -934,15 +948,16 @@ def phase_venice_kernels(problem, lin, hv, sv, ops):
     ns = ss.s_sizes[pg["dst_key"]]
     W = schur.hpl_w_values(problem, ss, hv, sv.hll_inv)[pg["left_key"]]
     R = hv[pg["right_key"]]
-    plan = segment_plan(problem, ("prod_dst", 0), pg["dst"], ns, dpa * dpb)
+    plan = product_plan(problem, ("prod_k3", 0), pg["dst"], ns)
     li = problem.index32(("prod_l", 0), pg["left"])
     ri = problem.index32(("prod_r", 0), pg["right"])
     cW, cR, cli, cri = cpu(W, R, li, ri)
-    cplan = plan_segments(pg["dst"], ns, "cpu", width=dpa * dpb)
-    label = f"{plan.rows}x({dpa},{dl},{dpb})->{ns} schur_values"
+    cplan = segsum_stream.plan_products(pg["dst"], ns, "cpu")
+    label = (f"{plan.rows}x({dpa},{dl},{dpb})->{ns}, segments by lanes "
+             f"{product_lanes_label(plan)} schur_values")
     # K3 reads W, Hpl and both index streams once, writes S once; each
     # product is dpa*dl*dpb multiply-adds
-    work = bound(nbytes(W, R, li, ri, plan.offsets_i32, plan.perm_i32)
+    work = bound(nbytes(W, R, li, ri, plan.segments.offsets_i32)
                  + 4 * ns * dpa * dpb, 2 * plan.rows * dpa * dl * dpb)
     add("segsum_stream.streaming_segment_product_sum_rtbl", measure(
         "k3", label,
@@ -951,15 +966,16 @@ def phase_venice_kernels(problem, lin, hv, sv, ops):
         lambda: segsum_stream.segment_product_sum_plain(
             W, R, plan, dpa, dl, dpb, li, ri),
         lambda: segsum_stream.segment_product_sum_plain(
-            cW, cR, cplan, dpa, dl, dpb, cli, cri), 5, 2, work))
+            cW, cR, cplan, dpa, dl, dpb, cli, cri), 5, 2, work,
+        was=WAS_MS["schur_values"]))
     del cW, cR
     # the same products from gathered streams (no path calls this entry):
     # K3 reads both streams once, writes S once
     Wg, Rg = W.index_select(0, li.long()), R.index_select(0, ri.long())
     del W, R
     cWg, cRg = cpu(Wg, Rg)
-    work = bound(nbytes(Wg, Rg, plan.offsets_i32) + 4 * ns * dpa * dpb,
-                 2 * plan.rows * dpa * dl * dpb)
+    work = bound(nbytes(Wg, Rg, plan.segments.offsets_i32)
+                 + 4 * ns * dpa * dpb, 2 * plan.rows * dpa * dl * dpb)
     add("segsum_stream.streaming_segment_product_sum", measure(
         "k3", label + ", gathered streams",
         lambda: segsum_stream.streaming_segment_product_sum(
@@ -967,8 +983,20 @@ def phase_venice_kernels(problem, lin, hv, sv, ops):
         lambda: segsum_stream.segment_product_sum_plain(
             Wg, Rg, plan, dpa, dl, dpb),
         lambda: segsum_stream.segment_product_sum_plain(
-            cWg, cRg, cplan, dpa, dl, dpb), 5, 2, work))
-    del Wg, Rg, cWg, cRg, cli, cri
+            cWg, cRg, cplan, dpa, dl, dpb), 5, 2, work,
+        was=WAS_MS["schur_values, gathered streams"]))
+    del cWg, cRg, cli, cri
+    # no single PyTorch call computes K3's function; its best library
+    # route is two calls on the gathered streams: the per-row products
+    # (torch.bmm, a (rows, dpa*dpb) buffer), then index_add_ into S
+    seg = plan.segments.seg
+    two_calls = device_ms(lambda: torch.zeros(
+        (ns, dpa * dpb), device=problem.device).index_add_(0, seg, torch.bmm(
+            Wg.view(-1, dpa, dl), Rg.view(-1, dpb, dl).transpose(1, 2)).view(
+                -1, dpa * dpb)), 3)
+    print(f"[k3] {label}: library yardstick, two calls (torch.bmm on the "
+          f"gathered streams, then index_add_): ms={two_calls:.4f}")
+    del Wg, Rg
     torch.cuda.empty_cache()
 
     # K4: b_schur, its kernel-6 form, the back-substitution
@@ -983,7 +1011,8 @@ def phase_venice_kernels(problem, lin, hv, sv, ops):
     cplan_b = plan_segments(prow, n_pt, "cpu")
     cA, cw, clid = cpu(A, w, lid)
     label = (f"{A.shape[0]}x({dp},{dl})->{n_pt}, w[{n_lt}] by index, "
-             f"group {plan_b.group} b_schur")
+             f"group {plan_b.group}, tiles of "
+             f"{segmv.k4_tile_blocks(dp, dl)} b_schur")
     rows_k4 = A.shape[0]
     blocks = A.view(rows_k4, dp, dl)
 
@@ -1000,7 +1029,7 @@ def phase_venice_kernels(problem, lin, hv, sv, ops):
         lambda: segmv.block_matvec_wtbl(A, w, plan_b, lid, dp, dl),
         lambda: segmv.segmv_plain(A, w, lid, plan_b, dp, dl),
         lambda: segmv.segmv_plain(cA, cw, clid, cplan_b, dp, dl), 10, 3,
-        k4_work(w, lid, plan_b, n_pt, dp), spmv(csr, w)))
+        k4_work(w, lid, plan_b, n_pt, dp), spmv(csr, w), WAS_MS["b_schur"]))
     wg = w.index_select(0, lid)
     cwg = wg.cpu()
     csr = csr_from_blocks(blocks, dev(prow),
@@ -1011,7 +1040,8 @@ def phase_venice_kernels(problem, lin, hv, sv, ops):
         lambda: segmv.block_matvec_stream(A, wg, plan_b, dp, dl),
         lambda: segmv.segmv_plain(A, wg, None, plan_b, dp, dl),
         lambda: segmv.segmv_plain(cA, cwg, None, cplan_b, dp, dl), 10, 3,
-        k4_work(wg, None, plan_b, n_pt, dp), spmv(csr, wg)))
+        k4_work(wg, None, plan_b, n_pt, dp), spmv(csr, wg),
+        WAS_MS["b_schur (kernel-6 form)"]))
     x = torch.as_tensor(rng.standard_normal((n_pt, dp)).astype(np.float32),
                         device=problem.device)
     plan_l = matvec_plan(problem, ("lu", key, pt, lt), lrow, n_lt)
@@ -1027,7 +1057,8 @@ def phase_venice_kernels(problem, lin, hv, sv, ops):
                                                    dl, transpose=True),
         lambda: segmv.segmv_plain(A, x, pidx, plan_l, dp, dl, True),
         lambda: segmv.segmv_plain(cA, cx, cpidx, cplan_l, dp, dl, True),
-        10, 3, k4_work(x, pidx, plan_l, n_lt, dl), spmv(csr, x)))
+        10, 3, k4_work(x, pidx, plan_l, n_lt, dl), spmv(csr, x),
+        WAS_MS["back-substitution"]))
     del A, cA, w, cw, wg, cwg, blocks, csr
 
     # K5: the PCG's S matvec
@@ -1157,15 +1188,15 @@ def phase_forced(iterations):
     schur.CHUNK_THRESHOLD, schur._smv_chunk_rows = 0, (lambda rb: 0)
     try:
         problem = ladybug_problem(DEVICE)
-        gpu, launches, _ = count_launches(
-            lambda: run_lm(problem, solver, iterations), record_events=False)
+        gpu, launches, kernel_ms = count_launches(
+            lambda: run_lm(problem, solver, iterations))
         cpu = run_lm(ladybug_problem("cpu"), solver, iterations)
     finally:
         schur.CHUNK_THRESHOLD, schur._smv_chunk_rows = gates
     compare_runs("forced", gpu, cpu)
     check(len(gpu.history) == len(cpu.history), "iteration counts differ")
     check_solution("forced", problem, gpu)
-    print(f"[forced] launches { {k: v for k, v in launches.items() if v} }")
+    print_launches("forced", launches, kernel_ms)
     for name in ("segsum_stream.streaming_segment_product_sum_rtbl",
                  "segmv.block_matvec_wtbl",
                  "segsum_stream.streaming_matvec_tbl",

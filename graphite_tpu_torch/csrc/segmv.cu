@@ -27,8 +27,8 @@
 //
 // The order: a segment is reduced by a group of G lanes (a power of two up
 // to 256, chosen on the host from the mean segment length: one thread for
-// the ~5 rows of a landmark, 128-256 threads for the ~900-2,800 rows of a
-// pose row). Lane l of a group sums the segment's rows l, l+G, l+2G, ... in
+// the ~5 rows of a landmark, 256 threads for the ~2,800 rows of a pose
+// row). Lane l of a group sums the segment's rows l, l+G, l+2G, ... in
 // order; the G partial sums are then combined by a halving tree (lane l adds
 // lane l+h, h = G/2, ..., 1) through shared memory down to one warp and by
 // warp shuffles below. It is K1's order (segsum.cu). The order is fixed, so
@@ -38,8 +38,31 @@
 // per add, as the plain versions' elementwise products.
 //
 // Bound: device-memory bytes. K4 reads each row's m*k block once (and its x
-// row, mostly from L1/L2: the pose x tables are a few hundred KB): b_schur
-// and the back-substitution read 540 MB of Hpl values each at Venice-1778.
+// row, mostly from L1/L2: the pose x table is 64 KB, the landmark w table 12
+// MB): b_schur and the back-substitution read 540 MB of Hpl values each at
+// Venice-1778.
+//
+// K4's design: a CTA of 256 threads owns 256 / G consecutive segments, so a
+// contiguous range [P0, P1) of sorted positions, and walks it in tiles of T
+// blocks (128 at 9x3; segmv.py, k4_tile_blocks) on a grid aligned to 4
+// blocks. Each tile is staged into shared memory by coalesced cp.async
+// copies, one tile ahead: without a permutation the tile is one contiguous
+// span of A, copied 16 bytes a thread (4 blocks of 9x3 are 432 bytes, a
+// multiple of 16, hence the alignment; the blocks of the aligned-down start
+// that belong to the previous CTA are copied and not used); through the
+// permutation, 4 bytes a thread, consecutive threads on consecutive words
+// of a block. The indices are staged too: each tile's slice of the
+// permutation two tiles ahead, and each block's x row index (xi through
+// the permutation) with its block, so no copy and no product waits on a
+// chain of dependent loads (perm, then xi, then x): that chain, paid once a
+// tile, had left a first staged version no faster at b_schur than the
+// thread-per-block kernel before it. Then thread t computes block t's product from shared memory
+// with its x row (read by index, from L2) into a product row in shared
+// memory, and each lane adds the products of its own positions in the
+// tile, in order. Thread-per-block products keep every thread busy when
+// segments are short (one lane each) and every load of A coalesced when
+// the rows come through the permutation. The products and their order are
+// those of the plain version, so the redesign changed no bit.
 //
 // K5 reads S once for both halves (the TPU kernel did too): 512 MB at
 // Venice-1778. Pass 1 (sym_cols_kernel) walks the stored, column-sorted
@@ -57,10 +80,14 @@
 
 #include <cuda_runtime.h>
 
+#include "staging.cuh"
+
 namespace {
 
 constexpr int kMaxDim = 16;  // largest m and k the kernels take
 constexpr int kBlock = 256;  // threads per block; a group never spans blocks
+constexpr int kPStride = kMaxDim + 1;  // floats per K4 product row
+constexpr int kK4Stages = 2;  // K4 tiles in shared memory: one ahead
 
 struct Half {
   const float* A;       // (rows, m*k)
@@ -79,17 +106,18 @@ struct Half {
 // block): lane l adds lane l + off, off = G/2, ..., 1; through shared
 // memory (one row of `smem` per thread) while the partner is in another
 // warp, by warp shuffles below. Every thread of the block calls it.
-__device__ void lane_tree(float (&acc)[kMaxDim], int lane, int G,
+template <int N>
+__device__ void lane_tree(float (&acc)[N], int lane, int G,
                           float (*smem)[kMaxDim + 1]) {
   for (int off = G >> 1; off >= 32; off >>= 1) {
     if (lane >= off && lane < 2 * off) {
 #pragma unroll
-      for (int i = 0; i < kMaxDim; ++i) smem[threadIdx.x][i] = acc[i];
+      for (int i = 0; i < N; ++i) smem[threadIdx.x][i] = acc[i];
     }
     __syncthreads();
     if (lane < off) {
 #pragma unroll
-      for (int i = 0; i < kMaxDim; ++i) {
+      for (int i = 0; i < N; ++i) {
         acc[i] = acc[i] + smem[threadIdx.x + off][i];
       }
     }
@@ -99,97 +127,224 @@ __device__ void lane_tree(float (&acc)[kMaxDim], int lane, int G,
   const int wl = lane & (width - 1);
   for (int off = width >> 1; off >= 1; off >>= 1) {
 #pragma unroll
-    for (int i = 0; i < kMaxDim; ++i) {
+    for (int i = 0; i < N; ++i) {
       const float other = __shfl_down_sync(0xffffffffu, acc[i], off, width);
       if (wl < off) acc[i] = acc[i] + other;
     }
   }
-
 }
 
-// One group of G = 2^group_log2 threads reduces segment gtid >> group_log2.
-// Every thread of the block calls this (the tree synchronises the block).
-__device__ void segmv_group(const Half& h, int m, int k, long long gtid,
-                            float (*smem)[kMaxDim + 1]) {
-  const int G = 1 << h.group_log2;
-  const long long seg = gtid >> h.group_log2;
-  const int lane = static_cast<int>(gtid & (G - 1));
-  const bool live = seg < h.num_segments;
-  const int d = h.transpose ? k : m;   // outputs per segment
+// K4. CTA c owns segments [c * spc, c * spc + spc), spc = kBlock / G, and
+// so the sorted positions [P0, P1). Tile i covers [A0 + i*T, A0 + (i+1)*T)
+// clipped to [P0, P1), A0 = P0 rounded down to a multiple of 4
+// (tests/test_torch_segmv.py walks the same tiles). Tile i's copies are
+// one cp.async group, issued kK4Stages - 1 tiles ahead: its blocks, the x
+// row index of each block (xi through the permutation), and the
+// permutation of tile i + kK4Stages (so a copy never waits on a load of
+// the permutation). Dynamic shared memory (sized in gt_segmv_f32):
+// kK4Stages tiles of T blocks, each rounded up to a multiple of 4 floats;
+// T product rows of kPStride floats; kK4Stages + 1 tiles of the
+// permutation and kK4Stages of x row indices. The lane tree reuses it. M,
+// K fix the block shape at compile time (0: m, k at run time, up to
+// kMaxDim).
+__host__ __device__ inline int k4_tile_floats(int T, int aw) {
+  return (T * aw + 3) & ~3;
+}
+
+template <int M, int K>
+__global__ void __launch_bounds__(kBlock)
+    segmv_kernel(Half h, int m_, int k_, int T) {
+  extern __shared__ float smem[];
+  constexpr int MI = M ? M : kMaxDim;  // unrolled loop bounds
+  constexpr int KI = K ? K : kMaxDim;
+  constexpr int DI = MI > KI ? MI : KI;
+  constexpr int S = kK4Stages;
+  const int m = M ? M : m_;
+  const int k = K ? K : k_;
+  const int aw = m * k;
+  const int d = h.transpose ? k : m;   // outputs per block
   const int xd = h.transpose ? m : k;  // x row width
-  const long long aw = static_cast<long long>(m) * k;
+  const int tile_floats = k4_tile_floats(T, aw);
+  float* const prod = smem + S * tile_floats;
+  int* const pring = reinterpret_cast<int*>(prod + T * kPStride);
+  int* const xring = pring + (S + 1) * T;
 
-  float acc[kMaxDim];
+  const int G = 1 << h.group_log2;
+  const int seg0 = blockIdx.x * (kBlock >> h.group_log2);
+  const int seg_end = min(seg0 + (kBlock >> h.group_log2), h.num_segments);
+  const int P0 = h.offsets[seg0];
+  const int P1 = h.offsets[seg_end];
+  const int A0 = P0 & ~3;
+  const int tiles = P1 > P0 ? (P1 - A0 + T - 1) / T : 0;
+  const int t = threadIdx.x;
+  const int lane = t & (G - 1);
+  const int s = seg0 + (t >> h.group_log2);
+  const bool live = s < h.num_segments;
+  const int r0 = live ? h.offsets[s] : 0;
+  const int r1 = live ? h.offsets[s + 1] : 0;
+  const bool vec =
+      h.perm == nullptr && (reinterpret_cast<size_t>(h.A) & 15) == 0;
+
+  auto tile_lo = [&](int i) { return max(A0 + i * T, P0); };
+  auto tile_hi = [&](int i) { return min(A0 + (i + 1) * T, P1); };
+  auto blocks = [&](int i) { return smem + (i % S) * tile_floats; };
+  // the permutation of tile i: pring[(i % (S+1)) * T + (r - tile start)]
+  auto stage_perm = [&](int i) {
+    if (h.perm == nullptr || i >= tiles) return;
+    const int t0 = A0 + i * T;
+    const int r = t0 + t;
+    if (t < T && r >= tile_lo(i) && r < tile_hi(i)) {
+      cp_async4(reinterpret_cast<float*>(pring + (i % (S + 1)) * T + t),
+                reinterpret_cast<const float*>(h.perm + r));
+    }
+  };
+  // tile i's blocks (the block at sorted position r lands at blocks(i) +
+  // (r - tile start) * aw) and x row indices (at xring, the same offset)
+  auto stage = [&](int i) {
+    const int t0 = A0 + i * T;
+    const int lo = tile_lo(i);
+    const int hi = tile_hi(i);
+    const int* pm = pring + (i % (S + 1)) * T - t0;  // pm[r], r in [lo, hi)
+    float* buf = blocks(i);
+    if (vec) {  // one span from t0, a multiple of 4 blocks: 16-byte aligned
+      const float* src = h.A + static_cast<long long>(t0) * aw;
+      const int n = (hi - t0) * aw;
+      for (int e = 4 * t; e + 4 <= n; e += 4 * kBlock) {
+        cp_async16(buf + e, src + e);
+      }
+      for (int e = (n & ~3) + t; e < n; e += kBlock) {
+        cp_async4(buf + e, src + e);
+      }
+    } else {
+      float* dst = buf + (lo - t0) * aw;
+      const int n = (hi - lo) * aw;
+      for (int e = t; e < n; e += kBlock) {
+        const int j = e / aw;
+        const long long blk = h.perm != nullptr ? pm[lo + j] : lo + j;
+        cp_async4(dst + e, h.A + blk * aw + (e - j * aw));
+      }
+    }
+    const int r = t0 + t;
+    if (t < T && r >= lo && r < hi) {
+      const int row = h.perm != nullptr ? pm[r] : r;
+      int* xr = xring + (i % S) * T + t;
+      if (h.xi != nullptr) {
+        cp_async4(reinterpret_cast<float*>(xr),
+                  reinterpret_cast<const float*>(h.xi + row));
+      } else {
+        *xr = row;
+      }
+    }
+  };
+
+  float acc[DI];
 #pragma unroll
-  for (int i = 0; i < kMaxDim; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < DI; ++i) acc[i] = 0.0f;
 
-  if (live) {
-    const int s = static_cast<int>(seg);
-    const int r1 = h.offsets[s + 1];
-    for (int r = h.offsets[s] + lane; r < r1; r += G) {
-      const int row = h.perm != nullptr ? __ldg(h.perm + r) : r;
-      const int xrow = h.xi != nullptr ? __ldg(h.xi + row) : row;
+  // the permutation of the first S tiles, then the first S - 1 groups
+#pragma unroll
+  for (int i = 0; i < S; ++i) stage_perm(i);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < S - 1; ++i) {
+    // stage_perm(i + S) overwrites the permutation stage(i - 1) read
+    if (i > 0) __syncthreads();
+    if (i < tiles) stage(i);
+    stage_perm(i + S);
+    cp_async_commit();
+  }
+  for (int it = 0; it < tiles; ++it) {
+    cp_async_wait<S - 2>();  // this thread's copies of tile it
+    __syncthreads();  // every thread's; every thread is done with tile it-1
+    if (it + S - 1 < tiles) stage(it + S - 1);
+    stage_perm(it + 2 * S - 1);
+    cp_async_commit();
+    const float* cur = blocks(it);
+    const int t0 = A0 + it * T;
+    const int hi = tile_hi(it);
+
+    // the product of block t of the tile, by thread t
+    const int r = t0 + t;
+    if (t < T && r >= P0 && r < hi) {
+      const int xrow = xring[(it % S) * T + t];
       const bool valid = xrow >= 0 && xrow < h.n_x;
       const float* xp = h.x + static_cast<long long>(xrow) * xd;
-      float xv[kMaxDim];
+      float xv[DI];
 #pragma unroll
-      for (int j = 0; j < kMaxDim; ++j) {
+      for (int j = 0; j < DI; ++j) {
         xv[j] = (valid && j < xd) ? __ldg(xp + j) : 0.0f;
       }
-      const float* a = h.A + static_cast<long long>(row) * aw;
+      const float* a = cur + t * aw;
+      float* pr = prod + t * kPStride;
       if (!h.transpose) {
-        // acc[i] += sum_j A[i, j] x[j]
+        // p[i] = sum_j A[i, j] x[j]
 #pragma unroll
-        for (int i = 0; i < kMaxDim; ++i) {
+        for (int i = 0; i < MI; ++i) {
           if (i < m) {
-            float p = __ldg(a + i * k) * xv[0];
+            float p = a[i * k] * xv[0];
 #pragma unroll
-            for (int j = 1; j < kMaxDim; ++j) {
-              if (j < k) p = p + __ldg(a + i * k + j) * xv[j];
+            for (int j = 1; j < KI; ++j) {
+              if (j < k) p = p + a[i * k + j] * xv[j];
             }
-            acc[i] = acc[i] + p;
+            pr[i] = p;
           }
         }
       } else {
-        // acc[j] += sum_i A[i, j] x[i]
+        // p[j] = sum_i A[i, j] x[i]
 #pragma unroll
-        for (int j = 0; j < kMaxDim; ++j) {
+        for (int j = 0; j < KI; ++j) {
           if (j < k) {
-            float p = __ldg(a + j) * xv[0];
+            float p = a[j] * xv[0];
 #pragma unroll
-            for (int i = 1; i < kMaxDim; ++i) {
-              if (i < m) p = p + __ldg(a + i * k + j) * xv[i];
+            for (int i = 1; i < MI; ++i) {
+              if (i < m) p = p + a[i * k + j] * xv[i];
             }
-            acc[j] = acc[j] + p;
+            pr[j] = p;
           }
         }
       }
     }
-  }
+    __syncthreads();
 
-  lane_tree(acc, lane, G, smem);
+    // lane l adds the products of its positions r0 + l + n*G in the tile
+    if (live) {
+      const int lo = max(r0, t0);
+      const int top = min(r1, hi);
+      int p = r0 + lane;
+      if (p < lo) p += ((lo - p + G - 1) >> h.group_log2) << h.group_log2;
+      for (; p < top; p += G) {
+        const float* pr = prod + (p - t0) * kPStride;
+#pragma unroll
+        for (int i = 0; i < DI; ++i) {
+          if (i < d) acc[i] = acc[i] + pr[i];
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the tiles are free: the tree reuses their memory
+  lane_tree(acc, lane, G, reinterpret_cast<float (*)[kMaxDim + 1]>(smem));
 
   if (live && lane == 0) {
-    float* o = h.out + seg * d;
+    float* o = h.out + static_cast<long long>(s) * d;
 #pragma unroll
-    for (int i = 0; i < kMaxDim; ++i) {
+    for (int i = 0; i < DI; ++i) {
       if (i < d) o[i] = acc[i];
     }
   }
 }
 
-long long blocks_for(const Half& h) {
-  const long long threads =
-      static_cast<long long>(h.num_segments) << h.group_log2;
-  return (threads + kBlock - 1) / kBlock;
-}
-
-__global__ void __launch_bounds__(kBlock)
-    segmv_kernel(Half h, int m, int k) {
-  __shared__ float smem[kBlock][kMaxDim + 1];
-  const long long gtid = static_cast<long long>(blockIdx.x) * kBlock +
-                         threadIdx.x;
-  segmv_group(h, m, k, gtid, smem);
+template <int M, int K>
+cudaError_t launch_segmv(const Half& h, int m, int k, int T, unsigned blocks,
+                         size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      segmv_kernel<M, K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  segmv_kernel<M, K><<<blocks, kBlock, smem, stream>>>(h, m, k, T);
+  return cudaGetLastError();
 }
 
 // K5's pass 1 over the stored blocks in column-sorted order.
@@ -209,22 +364,6 @@ struct SymCols {
   int ns;
   int group_log2;
 };
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Start copying the blocks at sorted positions [b0, b1) into `buf`: the G
 // lanes copy consecutive words (lane l takes words l, l+G, ...).
@@ -373,24 +512,37 @@ bool bad_shape(int m, int k, int group_log2) {
 // or (n_x, m) with `transpose`; perm: (rows,) int32 or null; offsets:
 // (num_segments+1,) int32; out: (num_segments, m), or (num_segments, k)
 // with `transpose`, float32. m, k <= 16; 2^group_log2 <= 256 threads per
-// segment. Launches on `stream` and returns the cudaGetLastError() code.
+// segment; tile_blocks (T) a multiple of 4 in [4, 256]. Launches on
+// `stream` and returns the cudaGetLastError() code.
 extern "C" int gt_segmv_f32(const void* A, const void* xi, const void* x,
                             int n_x, const void* perm, const void* offsets,
                             void* out, int num_segments, int m, int k,
-                            int transpose, int group_log2, void* stream) {
-  if (bad_shape(m, k, group_log2)) {
+                            int transpose, int group_log2, int tile_blocks,
+                            void* stream) {
+  if (bad_shape(m, k, group_log2) || num_segments < 0 || tile_blocks < 4 ||
+      tile_blocks > kBlock || (tile_blocks & 3) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (num_segments == 0) return 0;
   const Half h{static_cast<const float*>(A), static_cast<const int*>(xi),
                static_cast<const float*>(x), n_x,
                static_cast<const int*>(perm),
                static_cast<const int*>(offsets), static_cast<float*>(out),
                num_segments, transpose, group_log2};
-  const long long blocks = blocks_for(h);
-  if (blocks == 0) return 0;
-  segmv_kernel<<<static_cast<unsigned>(blocks), kBlock, 0,
-                 static_cast<cudaStream_t>(stream)>>>(h, m, k);
-  return static_cast<int>(cudaGetLastError());
+  const int spc = kBlock >> group_log2;
+  const unsigned blocks =
+      static_cast<unsigned>((num_segments + spc - 1) / spc);
+  const size_t staged =
+      static_cast<size_t>(kK4Stages) * k4_tile_floats(tile_blocks, m * k) +
+      static_cast<size_t>(tile_blocks) * (kPStride + 2 * kK4Stages + 1);
+  const size_t tree = static_cast<size_t>(kBlock) * (kMaxDim + 1);
+  const size_t smem = (staged > tree ? staged : tree) * sizeof(float);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      (m == 9 && k == 3)
+          ? launch_segmv<9, 3>(h, m, k, tile_blocks, blocks, smem, st)
+          : launch_segmv<0, 0>(h, m, k, tile_blocks, blocks, smem, st);
+  return static_cast<int>(err);
 }
 
 // K5's pass 1. S: (rows, m*k) float32 stored blocks. x_c (n_xc, k) and cid

@@ -1,4 +1,5 @@
-"""K1's and K5's device time by lanes per segment, and a launch's host time.
+"""Device times of K1, K3, K4 and K5 at the main paths' shapes, and a
+launch's host time.
 
     python -m graphite_tpu_torch.kernel_sweep
 
@@ -16,7 +17,17 @@ On a CUDA card (it exits 1 without one), from seeded random inputs:
 3. K5's device time on a random S of Venice-1778's size (1,580,797 9x9
    blocks over 1,778 block columns, sorted, random block rows) at each
    forced group, whole and by pass (pass 1 with and without the
-   longest-first column order; pass 2, K1 over the row products).
+   longest-first column order; pass 2, K1 over the row products);
+4. K3's device time at Venice-1778's triple-product shape (17,048,613
+   rows of (9, 3, 9) into 1,580,797 S blocks: 1,778 diagonal ones of
+   ~2,813 rows, the others Poisson(7.63); W and Hpl tables of 4,995,188
+   rows read by random index), whole, its long segments alone and its
+   short ones alone;
+5. K4's device time at Venice-1778's two sites, by blocks per tile (32,
+   64, 128, 256): the back-substitution (4,995,188 (9, 3)^T blocks into
+   993,923 sorted landmark rows, x read by pose index) and b_S (the same
+   blocks into 1,778 pose rows through the sort permutation, w read by
+   sorted landmark index).
 
 Device times are CUDA-event means over 20 calls captured in one CUDA
 graph and replayed, so no host time is in them. Prints one line per
@@ -175,6 +186,76 @@ def k5_groups(rng, dev):
               f"pass2={pass2:.4f}", flush=True)
 
 
+VENICE_CAMERAS, VENICE_POINTS, VENICE_OBS = 1_778, 993_923, 5_001_946
+VENICE_HPL = 4_995_188  # Hpl blocks (observations of distinct pairs)
+
+
+def k3_venice(rng, dev):
+    n_off = 1_580_797 - VENICE_CAMERAS
+    diag = rng.poisson(VENICE_OBS / VENICE_CAMERAS, VENICE_CAMERAS)
+    lengths = np.concatenate([diag, rng.poisson(7.63, n_off)])
+    lengths = lengths[rng.permutation(lengths.size)]
+    long_seg = lengths > 64
+    W, R = (torch.as_tensor(
+        rng.standard_normal((VENICE_HPL, 27)).astype(np.float32), device=dev)
+        for _ in range(2))
+    for label, keep in (("whole", np.ones_like(long_seg)),
+                        ("long segments", long_seg),
+                        ("short segments", ~long_seg)):
+        seg_len = lengths[keep]
+        dst = np.repeat(np.arange(seg_len.size), seg_len)
+        plan = segsum_stream.plan_products(dst, seg_len.size, dev)
+        li, ri = (torch.as_tensor(
+            rng.integers(0, VENICE_HPL, dst.size).astype(np.int32),
+            device=dev) for _ in range(2))
+        ms = graph_ms(lambda: segsum_stream.streaming_segment_product_sum_rtbl(
+            W, R, plan, 9, 3, 9, li, ri), reps=5)
+        lanes = {g: segs.shape[0] for g, _, segs in plan.buckets}
+        print(f"[k3] {dst.size}x(9,3,9)->{seg_len.size} {label}, segments "
+              f"by lanes {lanes}: ms={ms:.4f}", flush=True)
+        del plan, li, ri
+
+
+def k4_venice(rng, dev):
+    A = torch.as_tensor(
+        rng.standard_normal((VENICE_HPL, 27)).astype(np.float32), device=dev)
+    lrow = np.sort(rng.integers(0, VENICE_POINTS, VENICE_HPL))
+    prow = rng.integers(0, VENICE_CAMERAS, VENICE_HPL)
+    x = torch.as_tensor(
+        rng.standard_normal((VENICE_CAMERAS, 9)).astype(np.float32),
+        device=dev)
+    w = torch.as_tensor(
+        rng.standard_normal((VENICE_POINTS, 3)).astype(np.float32),
+        device=dev)
+    pidx = torch.as_tensor(prow.astype(np.int32), device=dev)
+    lid = torch.as_tensor(lrow.astype(np.int32), device=dev)
+    plan_l = segsum.plan_segments(lrow, VENICE_POINTS, dev)
+    plan_b = segsum.plan_segments(prow, VENICE_CAMERAS, dev)
+    lib = segmv.load_kernel()
+    out_l = torch.empty((VENICE_POINTS, 3), device=dev)
+    out_b = torch.empty((VENICE_CAMERAS, 9), device=dev)
+
+    def k4(xt, xi, plan, out, transpose, tile):
+        lib.check(lib.lib.gt_segmv_f32(
+            A.data_ptr(), xi.data_ptr(), xt.data_ptr(), xt.shape[0],
+            None if plan.perm_i32 is None else plan.perm_i32.data_ptr(),
+            plan.offsets_i32.data_ptr(), out.data_ptr(), plan.num_segments,
+            9, 3, transpose, plan.group.bit_length() - 1, tile,
+            launches.stream_ptr(dev)), "K4")
+
+    chosen = segmv.k4_tile_blocks(9, 3)
+    for site, args in (
+            (f"{VENICE_HPL}x(9,3)^T->{VENICE_POINTS} back-substitution "
+             f"group {plan_l.group}", (x, pidx, plan_l, out_l, 1)),
+            (f"{VENICE_HPL}x(9,3)->{VENICE_CAMERAS} b_schur group "
+             f"{plan_b.group}, permuted", (w, lid, plan_b, out_b, 0))):
+        line = f"[k4] {site}, tile rule {chosen}:"
+        for tile in (32, 64, 128, 256):
+            ms = graph_ms(lambda: k4(*args, tile))
+            line += f" t{tile}={ms:.4f}"
+        print(line, flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("kernel_sweep: no CUDA device available", file=sys.stderr)
@@ -189,6 +270,10 @@ def main():
     host_costs(rng, dev)
     k1_groups(rng, dev)
     k5_groups(rng, dev)
+    torch.cuda.empty_cache()
+    k3_venice(rng, dev)
+    torch.cuda.empty_cache()
+    k4_venice(rng, dev)
     return 0
 
 

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled with nvcc into a shared library with a
 plain C interface, at first use, under ``build/graphite_tpu_torch/`` next
 to the package, and loaded with ``ctypes``. The library's file name holds
-a hash of its source and flags, so an edited source is rebuilt and a
-stale library is never loaded. Nothing is built when a module is
+a hash of its source, the shared headers (``csrc/*.cuh``) and the flags,
+so an edited source or header is rebuilt and a stale library is never
+loaded. Nothing is built when a module is
 imported: the wrappers call ``load_library`` right before their first
 launch.
 """
@@ -73,8 +74,12 @@ def load_library(name: str,
     if name in _LOADED:
         return _LOADED[name]
     src = CSRC_DIR / f"{name}.cu"
+    # the source, every header it may include and the flags
+    headers = b"".join(h.read_bytes()
+                       for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        src.read_bytes() + headers
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     seconds, log = 0.0, ""
     if not out.exists():

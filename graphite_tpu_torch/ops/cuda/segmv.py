@@ -45,12 +45,22 @@ WTBL_STATS = LaunchStats("segmv.block_matvec_wtbl")
 SYM_STATS = LaunchStats("segmv.matvec_sym_stream")
 
 MAX_DIM = 16  # largest block side the kernels take
+K4_THREADS = 256  # threads of a K4 CTA; a segment's group never spans two
+K4_PRODUCT_STRIDE = MAX_DIM + 1  # floats per product row in shared memory
+K4_STAGES = 2  # tiles in a K4 CTA's shared memory (csrc/segmv.cu, kK4Stages)
+# most blocks per K4 tile (``python -m graphite_tpu_torch.kernel_sweep``
+# times K4 at Venice-1778's sites by tile size)
+K4_MAX_TILE = 128
+# most shared memory of a K4 CTA: its tiles, their products and indices
+# (38.0 KB at 9x3 blocks in tiles of 128)
+K4_TILE_BYTES = 56 * 1024
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # A, xi, x, n_x, perm, offsets, out, num_segments, m, k, transpose,
-    # group_log2, stream
-    "gt_segmv_f32": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # group_log2, tile_blocks, stream
+    "gt_segmv_f32": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                     _P],
     # S, m, k, xc, n_xc, cid, xr, n_xr, rxi, perm, offsets, order, yc, ns,
     # group_log2, P, stream
     "gt_segmv_sym_f32": [_P, _I, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P,
@@ -84,6 +94,16 @@ def segmv_plain(left: torch.Tensor, x: torch.Tensor,
     mv = flat_block_mv_t if transpose else flat_block_mv
     return segsum.segment_sum_plain(mv(left, xg, m, k, acc_dtype=left.dtype),
                                     plan)
+
+
+def k4_tile_blocks(m: int, k: int) -> int:
+    """Blocks per K4 tile: ``K4_MAX_TILE``, fewer when ``K4_STAGES`` tiles
+    of (m, k) blocks, their product rows and index rows would not fit
+    ``K4_TILE_BYTES``; a multiple of 4, so that an unpermuted tile starts
+    16-byte aligned."""
+    per_block = 4 * (K4_STAGES * m * k + K4_PRODUCT_STRIDE
+                     + 2 * K4_STAGES + 1)
+    return max(4, min(K4_MAX_TILE, K4_TILE_BYTES // per_block) & ~3)
 
 
 def _check(name: str, left: torch.Tensor, x: torch.Tensor,
@@ -137,7 +157,7 @@ def launch_segmv(left: torch.Tensor, x: torch.Tensor,
             left.data_ptr(), _ptr(xi), x.data_ptr(), x.shape[0],
             _ptr(plan.perm_i32), plan.offsets_i32.data_ptr(), out.data_ptr(),
             plan.num_segments, m, k, int(transpose),
-            plan.group.bit_length() - 1, stream)
+            plan.group.bit_length() - 1, k4_tile_blocks(m, k), stream)
         lib.check(err, stats.name)
         stats.done(ev)
     return out

@@ -2,10 +2,12 @@
 
 Counterpart of ``graphite_tpu/ops/pallas/segsum.py`` (``sorted_segment_sum``:
 the Schur product scatter, whose TPU output stays in VMEM). This module
-also holds what every segment reduction of the port shares (K1, and K4 / K5
-in ``segmv``): the host plan (``plan_segments``) with its group rule
-(``group_size``), the summation order (``lane_sum``), the plain PyTorch
-version (``segment_sum_plain``) and the launcher (``launch_segsum``).
+also holds what every segment reduction of the port shares (K1, K4 / K5
+in ``segmv`` and K3 in ``segsum_stream``): the host plan
+(``plan_segments``) with its group rule (``group_size``), the summation
+order (``lane_sum``: ``lane_slots``, then ``halve_lanes``), the plain
+PyTorch version (``segment_sum_plain``) and the launcher
+(``launch_segsum``).
 ``segsum_stream.streaming_segment_sum`` is K1's other entry.
 
 The order: a segment's sorted rows are summed by ``plan.group`` lanes (a
@@ -154,12 +156,25 @@ def device_plan(seg_sorted: np.ndarray, perm: Optional[np.ndarray],
         perm_i32=dev(perm, np.int32), group=int(group))
 
 
+def positions_in_segments(plan: SegmentPlan) -> torch.Tensor:
+    """Each sorted row's position in its segment."""
+    return (torch.arange(plan.rows, device=plan.seg.device)
+            - plan.offsets.index_select(0, plan.seg))
+
+
 def lane_slots(plan: SegmentPlan) -> torch.Tensor:
     """The lane ``segment * group + lane`` of each sorted row (lane = the
     row's position in its segment modulo ``group``)."""
-    pos = (torch.arange(plan.rows, device=plan.seg.device)
-           - plan.offsets.index_select(0, plan.seg))
-    return plan.seg * plan.group + pos % plan.group
+    return plan.seg * plan.group + positions_in_segments(plan) % plan.group
+
+
+def halve_lanes(lanes: torch.Tensor) -> torch.Tensor:
+    """(n, g, D) lane sums -> (n, D) by the halving tree: lane l += lane
+    l+h, h = g/2, ..., 1."""
+    while lanes.shape[1] > 1:
+        h = lanes.shape[1] // 2
+        lanes = lanes[:, :h] + lanes[:, h:]
+    return lanes[:, 0]
 
 
 def lane_sum(rows: torch.Tensor, plan: SegmentPlan) -> torch.Tensor:
@@ -168,11 +183,7 @@ def lane_sum(rows: torch.Tensor, plan: SegmentPlan) -> torch.Tensor:
     g = plan.group
     lanes = rows.new_zeros((plan.num_segments * g, rows.shape[1]))
     lanes.index_add_(0, plan.seg if g == 1 else lane_slots(plan), rows)
-    lanes = lanes.view(plan.num_segments, g, rows.shape[1])
-    while lanes.shape[1] > 1:
-        h = lanes.shape[1] // 2
-        lanes = lanes[:, :h] + lanes[:, h:]
-    return lanes[:, 0]
+    return halve_lanes(lanes.view(plan.num_segments, g, rows.shape[1]))
 
 
 def segment_sum_plain(values: torch.Tensor, plan: SegmentPlan) -> torch.Tensor:

@@ -13,7 +13,8 @@ sites it served:
 - ``streaming_segment_product_sum`` and
   ``streaming_segment_product_sum_rtbl`` (K3, ``csrc/segprod.cu``): per-row
   L R^T products reduced over sorted segments, from gathered streams or
-  straight from the tables by index (``schur_values`` above its gate);
+  straight from the tables by index (``schur_values`` above its gate),
+  with a host plan of their own (``plan_products``: lanes per segment);
 - ``streaming_matvec_tbl`` (K4, ``csrc/segmv.cu``, shared with
   ``segmv``): a destination-sorted block matvec with the x rows read by
   index (the landmark back-substitution above its gate).
@@ -26,18 +27,21 @@ the kernel (float32 only) or raise.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import dataclasses
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..blockfmt import flat_block_mm_nt
-from . import build, segmv
+from . import build, segmv, segsum
 from .launches import LaunchStats, on_device, stream_ptr
 from .segsum import SegmentPlan, launch_segsum
 from .segsum import segment_sum_plain as streaming_segment_sum_plain
 
 __all__ = [
     "STATS", "PRODUCT_STATS", "PRODUCT_RTBL_STATS", "MATVEC_TBL_STATS",
+    "ProductPlan", "plan_products", "product_lanes",
     "streaming_segment_sum", "streaming_segment_sum_plain",
     "streaming_segment_product_sum", "streaming_segment_product_sum_rtbl",
     "segment_product_sum_plain", "streaming_matvec_tbl",
@@ -53,10 +57,15 @@ MATVEC_TBL_STATS = LaunchStats("segsum_stream.streaming_matvec_tbl")
 # product transient (324 MB for 9x9 blocks in float32)
 PLAIN_CHUNK_ROWS = 1 << 20
 
+# K3's CTA (``csrc/segprod.cu``): rows staged per round, and the most
+# lanes of a segment a thread keeps in registers
+PRODUCT_SLOTS = 64
+PRODUCT_REGISTER_LANES = 4
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # L, li, R, ri, offsets, out, num_segments, m, k, n, stream
-    "gt_segprod_f32": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                      + [ctypes.c_void_p],
+    # L, li, R, ri, offsets, order, ctas, n_cta, out, m, k, n, stream
+    "gt_segprod_f32": [_P] * 7 + [_I, _P] + [_I] * 3 + [_P],
 }
 
 
@@ -76,8 +85,98 @@ def streaming_segment_sum(values: torch.Tensor,
     return launch_segsum(values, plan, STATS)
 
 
+def product_lanes(lengths: np.ndarray) -> np.ndarray:
+    """K3's lanes per segment: K1's group rule applied to each segment's
+    own length (``segsum.group_size(len, 1)``): 1 lane up to 8 rows, then
+    a power of two leaving ~8 rows per lane, at most ``segsum.MAX_GROUP``.
+    (A thread keeps up to ``PRODUCT_REGISTER_LANES`` of them in registers
+    and a segment takes as many threads as it needs, so no lower cap.)"""
+    uniq, inv = np.unique(np.asarray(lengths, dtype=np.int64),
+                          return_inverse=True)
+    rule = np.array([segsum.group_size(int(u), 1) for u in uniq],
+                    dtype=np.int64)
+    return rule[inv.reshape(-1)]
+
+
+@dataclasses.dataclass(frozen=True)
+class ProductPlan:
+    """Host-built plan of one K3 site: the destination-sorted reduction
+    ``segments`` (a ``SegmentPlan``; K3 does not read its ``group``), each
+    segment's ``lanes`` (``product_lanes``) and ``first_lane``, its first
+    slot in the plain version's lane table, numbered bucket by bucket:
+    ``buckets`` holds (lanes g, first slot, segment ids) per lane count,
+    so a bucket is one (n, g) block of the table. The kernel's work list:
+    ``order`` (int32) the segments by (lanes, length), longest first, and
+    ``ctas`` (int32, (n_cta, 3)) per CTA its first index into ``order``,
+    its number of segments and log2 of their lanes."""
+
+    segments: SegmentPlan
+    lanes: torch.Tensor
+    first_lane: torch.Tensor
+    total_lanes: int
+    buckets: Tuple[Tuple[int, int, torch.Tensor], ...]
+    order: torch.Tensor
+    ctas: torch.Tensor
+
+    @property
+    def rows(self) -> int:
+        return self.segments.rows
+
+    @property
+    def num_segments(self) -> int:
+        return self.segments.num_segments
+
+
+def product_ctas(lanes: np.ndarray, order: np.ndarray) -> np.ndarray:
+    """K3's CTAs over ``order`` (segments sorted by lanes, descending): a
+    CTA takes ``PRODUCT_SLOTS`` slots of one lane count g, Q = g / L
+    slots a segment (L = min(g, PRODUCT_REGISTER_LANES) lanes a thread),
+    so 64 segments of up to 4 lanes, 32 of 8, ..., 1 of 256. Rows (first
+    index into ``order``, segments, log2 g)."""
+    ctas = []
+    g_sorted = lanes[order]
+    start = 0
+    while start < order.size:
+        g = int(g_sorted[start])
+        end = start + int(np.count_nonzero(g_sorted[start:] == g))
+        per_cta = PRODUCT_SLOTS * min(g, PRODUCT_REGISTER_LANES) // g
+        for c0 in range(start, end, per_cta):
+            ctas.append((c0, min(per_cta, end - c0), g.bit_length() - 1))
+        start = end
+    return np.asarray(ctas, dtype=np.int32).reshape(-1, 3)
+
+
+def plan_products(dst: np.ndarray, num_segments: int,
+                  device) -> ProductPlan:
+    """Plan the K3 site of rows with sorted destinations ``dst``."""
+    seg_sorted, perm, offsets = segsum.host_plan(dst, num_segments)
+    if perm is not None:
+        raise ValueError("the triple product needs destination-sorted rows")
+    lengths = np.diff(offsets)
+    lanes = product_lanes(lengths)
+    first_lane = np.zeros(num_segments, dtype=np.int64)
+    buckets, lane0 = [], 0
+    for g in np.unique(lanes)[::-1]:
+        segs = np.nonzero(lanes == g)[0]
+        first_lane[segs] = lane0 + np.arange(segs.size) * g
+        buckets.append((int(g), lane0, torch.as_tensor(segs, device=device)))
+        lane0 += int(segs.size * g)
+    order = np.lexsort((np.arange(num_segments), -lengths, -lanes))
+
+    def dev(a, dtype):
+        return torch.as_tensor(a.astype(dtype), device=device)
+
+    return ProductPlan(
+        segments=segsum.device_plan(seg_sorted, None, offsets, device,
+                                    group=1),
+        lanes=dev(lanes, np.int64), first_lane=dev(first_lane, np.int64),
+        total_lanes=lane0, buckets=tuple(buckets),
+        order=dev(order, np.int32),
+        ctas=dev(product_ctas(lanes, order), np.int32))
+
+
 def segment_product_sum_plain(left: torch.Tensor, right: torch.Tensor,
-                              plan: SegmentPlan, m: int, k: int, n: int,
+                              plan: ProductPlan, m: int, k: int, n: int,
                               left_idx: Optional[torch.Tensor] = None,
                               right_idx: Optional[torch.Tensor] = None
                               ) -> torch.Tensor:
@@ -85,25 +184,36 @@ def segment_product_sum_plain(left: torch.Tensor, right: torch.Tensor,
     out[s] = sum of L_r R_r^T over the rows r of segment s, with L_r =
     left[left_idx[r]] (left[r] when ``left_idx`` is None) and R_r likewise.
 
-    The rows are taken in destination-contiguous chunks of
-    ``PLAIN_CHUNK_ROWS``: per-row products (``flat_block_mm_nt``), then
-    ``index_add_``, which adds rows in order on the CPU, as the kernel
-    does."""
-    if plan.perm is not None:
-        raise ValueError("the triple product needs destination-sorted rows")
-    out = left.new_zeros((plan.num_segments, m * n))
-    for c0 in range(0, plan.rows, PLAIN_CHUNK_ROWS):
-        c1 = min(c0 + PLAIN_CHUNK_ROWS, plan.rows)
+    Added in the kernel's order: per-row products (``flat_block_mm_nt``)
+    go to their lanes (``index_add_``, which adds rows in order on the
+    CPU), row r of segment s to lane (r - offsets[s]) mod lanes[s]; the
+    rows are taken in chunks of ``PLAIN_CHUNK_ROWS`` into one lane table,
+    so the chunks do not change the order. Then each bucket of g-lane
+    segments is halved (``segsum.halve_lanes``). A one-lane segment is its
+    rows in order."""
+    sp = plan.segments
+    slots = (plan.first_lane.index_select(0, sp.seg)
+             + segsum.positions_in_segments(sp)
+             % plan.lanes.index_select(0, sp.seg))
+    lanes = left.new_zeros((plan.total_lanes, m * n))
+    for c0 in range(0, sp.rows, PLAIN_CHUNK_ROWS):
+        c1 = min(c0 + PLAIN_CHUNK_ROWS, sp.rows)
         lrows = (left[c0:c1] if left_idx is None
                  else left.index_select(0, left_idx[c0:c1]))
         rrows = (right[c0:c1] if right_idx is None
                  else right.index_select(0, right_idx[c0:c1]))
-        prod = flat_block_mm_nt(lrows, rrows, m, k, n, acc_dtype=out.dtype)
-        out.index_add_(0, plan.seg[c0:c1], prod)
+        prod = flat_block_mm_nt(lrows, rrows, m, k, n, acc_dtype=lanes.dtype)
+        lanes.index_add_(0, slots[c0:c1], prod)
+    del slots
+    out = left.new_zeros((sp.num_segments, m * n))
+    for g, lane0, segs in plan.buckets:
+        block = lanes[lane0:lane0 + segs.shape[0] * g]
+        out.index_copy_(0, segs, segsum.halve_lanes(
+            block.view(segs.shape[0], g, m * n)))
     return out
 
 
-def _product_sum(left, right, plan: SegmentPlan, m, k, n, left_idx,
+def _product_sum(left, right, plan: ProductPlan, m, k, n, left_idx,
                  right_idx, stats: LaunchStats) -> torch.Tensor:
     if left.device.type == "cpu":
         return segment_product_sum_plain(left, right, plan, m, k, n,
@@ -130,9 +240,7 @@ def _product_sum(left, right, plan: SegmentPlan, m, k, n, left_idx,
                              f"({plan.rows},) int32 on {left.device}")
     if max(m, k, n) > segmv.MAX_DIM:
         raise ValueError(f"{name}: block side above {segmv.MAX_DIM}")
-    if plan.perm is not None:
-        raise ValueError(f"{name}: needs destination-sorted rows")
-    if plan.offsets_i32.device != left.device:
+    if plan.ctas.device != left.device:
         raise ValueError(f"{name}: plan and values on different devices")
     left, right = left.contiguous(), right.contiguous()
     out = torch.empty((plan.num_segments, m * n), dtype=torch.float32,
@@ -146,7 +254,8 @@ def _product_sum(left, right, plan: SegmentPlan, m, k, n, left_idx,
             None if left_idx is None else left_idx.data_ptr(),
             right.data_ptr(),
             None if right_idx is None else right_idx.data_ptr(),
-            plan.offsets_i32.data_ptr(), out.data_ptr(), plan.num_segments,
+            plan.segments.offsets_i32.data_ptr(), plan.order.data_ptr(),
+            plan.ctas.data_ptr(), plan.ctas.shape[0], out.data_ptr(),
             m, k, n, stream)
         lib.check(err, name)
         stats.done(ev)
@@ -154,7 +263,7 @@ def _product_sum(left, right, plan: SegmentPlan, m, k, n, left_idx,
 
 
 def streaming_segment_product_sum(left: torch.Tensor, right: torch.Tensor,
-                                  plan: SegmentPlan, m: int, k: int,
+                                  plan: ProductPlan, m: int, k: int,
                                   n: int) -> torch.Tensor:
     """Fused per-row A B^T + sorted segment sum over gathered streams:
     ``left`` (K, m*k) and ``right`` (K, n*k) hold one row per pair, in
@@ -165,7 +274,7 @@ def streaming_segment_product_sum(left: torch.Tensor, right: torch.Tensor,
 
 def streaming_segment_product_sum_rtbl(left: torch.Tensor,
                                        right: torch.Tensor,
-                                       plan: SegmentPlan, m: int, k: int,
+                                       plan: ProductPlan, m: int, k: int,
                                        n: int,
                                        left_idx: Optional[torch.Tensor],
                                        right_idx: torch.Tensor

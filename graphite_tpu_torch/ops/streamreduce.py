@@ -8,7 +8,8 @@ are not already sorted, and the CSR segment offsets) and cached on the
 problem. Every site, sorted or not, goes through the sorted-segment-sum
 kernel on CUDA: no float atomics, and results are the same from run to
 run. ``matvec_plan`` is the cached plan of a block-matvec site (K4,
-``ops/cuda/segmv``), built the same way.
+``ops/cuda/segmv``), built the same way, and ``product_plan`` that of a
+triple-product site (K3, ``ops/cuda/segsum_stream``).
 
 ``MAP_BYTES`` / ``map_chunk_rows`` are the JAX package's row budget. There
 it bounds scan chunks; here it only gates the block-matvec sites
@@ -51,6 +52,17 @@ def matvec_plan(problem, tag, seg: np.ndarray,
     plans = problem._cache.setdefault("matvec_plans", {})
     if tag not in plans:
         plans[tag] = plan_segments(seg, num_segments, problem.device)
+    return plans[tag]
+
+
+def product_plan(problem, tag, dst: np.ndarray,
+                 num_segments: int) -> segsum_stream.ProductPlan:
+    """Cached plan of the triple-product site ``tag`` (sorted
+    destinations ``dst``)."""
+    plans = problem._cache.setdefault("product_plans", {})
+    if tag not in plans:
+        plans[tag] = segsum_stream.plan_products(dst, num_segments,
+                                                 problem.device)
     return plans[tag]
 
 

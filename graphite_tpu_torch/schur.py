@@ -13,7 +13,7 @@ Values (``schur_values``): Hll^{-1} per landmark dim, the Hpp copy
 At most ``_chunk_threshold`` products per group are formed row by row and
 reduced by the sorted-segment-sum kernel (K1, ``ops/cuda/segsum``); above
 it the fused triple-product kernel (K3) reads W and Hpl by index and
-writes only S.
+writes only S, with a plan of its own (lanes per S block).
 
 ``SchurOps`` adds ``b_schur``, ``landmark_update``, ``compose_delta`` and
 the block-sparse S matvec (``prepare_matvec`` / ``s_matvec``). Sites with
@@ -57,6 +57,7 @@ from .ops.cuda.segsum_stream import (
 from .ops.streamreduce import (
     map_chunk_rows,
     matvec_plan,
+    product_plan,
     reduce_rows,
     segment_plan,
     take_rows,
@@ -351,15 +352,15 @@ def schur_values(problem, ss: SchurStructure,
     for gi, pg in enumerate(ss.products):
         dpa, dl, dpb = pg["dims"]
         key = pg["dst_key"]
-        plan = segment_plan(problem, ("prod_dst", gi), pg["dst"],
-                            ss.s_sizes[key], dpa * dpb)
         W = hpl_w[pg["left_key"]]
         R = hvals[pg["right_key"]].to(inv_dt)
         if pg["dst"].shape[0] > _chunk_threshold(problem):
             # K3 reads the W and Hpl rows by index: no gathered stream and
-            # no (K, dpa*dpb) product buffer
+            # no (K, dpa*dpb) product buffer; its plan gives each S block
+            # its own lanes
             acc = streaming_segment_product_sum_rtbl(
-                W, R, plan, dpa, dl, dpb,
+                W, R, product_plan(problem, ("prod_k3", gi), pg["dst"],
+                                   ss.s_sizes[key]), dpa, dl, dpb,
                 problem.index32(("prod_l", gi), pg["left"]),
                 problem.index32(("prod_r", gi), pg["right"]))
         else:
@@ -369,7 +370,9 @@ def schur_values(problem, ss: SchurStructure,
                                                     pg["right"]))
             acc = sorted_segment_sum(
                 flat_block_mm_nt(left, right, dpa, dl, dpb,
-                                 acc_dtype=inv_dt), plan)
+                                 acc_dtype=inv_dt),
+                segment_plan(problem, ("prod_dst", gi), pg["dst"],
+                             ss.s_sizes[key], dpa * dpb))
         s_vals[key] = s_vals[key] - acc
     return SchurValues(hll_inv=hll_inv, s_vals=s_vals)
 

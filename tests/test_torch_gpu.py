@@ -16,10 +16,13 @@ on a machine with only PyTorch (``--noconftest`` skips the JAX set-up in
   every kernel launched.
 - K3, K4 (all three entry points) and K5 vs their plain versions at small
   random shapes, with masked (fill) rows, diagonal blocks and unsorted
-  destinations (K5 also at 1, 2 and 128 lanes per column, 6x6 blocks and a
-  permuted column plan, one launch counted per call): within 1e-5
-  relative on the card, bitwise repeatable, and bitwise equal to the
-  plain version on the CPU (which sums in the kernels' order).
+  destinations (K3 also on a Venice-like site mixing one-, two- and
+  256-lane segments; K4 also in the back-substitution's and b_schur's
+  forms and with tiles off the 4-block grid; K5 also at 1, 2 and 128
+  lanes per column, 6x6 blocks and a permuted column plan, one launch
+  counted per call): within 1e-5 relative on the card, bitwise
+  repeatable, and bitwise equal to the plain version on the CPU (which
+  sums in the kernels' order).
 - The LM slice at Ladybug-49 with the large-problem branches forced
   (``dense_matvec_limit=0``, the Schur gates lowered): CUDA and CPU give
   bitwise the same trajectory, and K3, K4 and K5 launch.
@@ -169,21 +172,40 @@ def _check_kernel(out, again, ref, ref_cpu):
         assert float((o - r).abs().max() / r.abs().max()) <= 1e-5
 
 
-@pytest.mark.parametrize("m,k,n", [(9, 3, 9), (4, 3, 2), (9, 9, 9)])
-def test_k3_matches_plain(cuda_device, m, k, n):
+def _k3_site(rng, site):
+    """Sorted destinations: random (1,800 segments of ~11 rows), or
+    Venice-like: 2,000 segments of ~8 rows (one or two lanes) and 20 of
+    ~2,800 (256 lanes), in mixed order."""
+    if site == "random":
+        return np.sort(rng.integers(0, 1_800, 20_000)), 1_800
+    lengths = np.concatenate([rng.poisson(8, 2_000),
+                              rng.integers(2_750, 2_850, 20)])
+    lengths = lengths[rng.permutation(lengths.size)]
+    return np.repeat(np.arange(lengths.size), lengths), lengths.size
+
+
+@pytest.mark.parametrize("m,k,n,site", [
+    pytest.param(9, 3, 9, "random", id="9-3-9"),
+    pytest.param(4, 3, 2, "random", id="4-3-2"),
+    pytest.param(9, 9, 9, "random", id="9-9-9"),
+    pytest.param(9, 3, 9, "venice", id="9-3-9-venice"),
+])
+def test_k3_matches_plain(cuda_device, m, k, n, site):
     rng = np.random.default_rng(m * 100 + k * 10 + n)
-    rows, ns, n_l, n_r = 20_000, 1_800, 5_000, 4_000
-    seg = np.sort(rng.integers(0, ns, rows))
+    seg, ns = _k3_site(rng, site)
+    rows, n_l, n_r = seg.size, 5_000, 4_000
     ltab = rng.standard_normal((n_l, m * k)).astype(np.float32)
     rtab = rng.standard_normal((n_r, n * k)).astype(np.float32)
     li = rng.integers(0, n_l, rows).astype(np.int32)
     ri = rng.integers(0, n_r, rows).astype(np.int32)
     runs = []
     for device in (cuda_device, "cpu"):
-        plan = segsum.plan_segments(seg, ns, device)
+        plan = segsum_stream.plan_products(seg, ns, device)
         L, R, lt, rt = _on(device, ltab, rtab, li, ri)
         runs.append((L, R, lt, rt, plan))
     L, R, lt, rt, plan = runs[0]
+    if site == "venice":
+        assert {1, 2, 256} <= set(plan.lanes.tolist())
 
     def tbl():
         return segsum_stream.streaming_segment_product_sum_rtbl(
@@ -205,15 +227,28 @@ def test_k3_matches_plain(cuda_device, m, k, n):
             L.double(), R.double(), plan, m, k, n, lt, rt)
 
 
-@pytest.mark.parametrize("ns,transpose", [(40, False), (40, True),
-                                          (15_000, False), (15_000, True)])
-def test_k4_matches_plain(cuda_device, ns, transpose):
+@pytest.mark.parametrize("rows,ns,sorted_dst,transpose", [
+    pytest.param(50_000, 40, False, False, id="40-False"),
+    pytest.param(50_000, 40, False, True, id="40-True"),
+    pytest.param(50_000, 15_000, False, False, id="15000-False"),
+    pytest.param(50_000, 15_000, False, True, id="15000-True"),
+    # the back-substitution's form: ~5 rows a segment, sorted, one lane
+    pytest.param(500_000, 100_000, True, True, id="back-substitution"),
+    # b_schur's: 1,778 segments of ~2,800 rows through a permutation
+    pytest.param(4_978_400, 1_778, False, False, id="b_schur"),
+    # long unpermuted segments: tiles that start off the 4-block grid
+    pytest.param(50_003, 40, True, False, id="unaligned-tiles"),
+])
+def test_k4_matches_plain(cuda_device, rows, ns, sorted_dst, transpose):
     """Few destinations (a group of threads per segment) and many (one
-    thread per segment), unsorted destinations, ~5% masked rows."""
+    thread per segment), sorted and unsorted destinations, ~5% masked
+    rows."""
     m, k = 9, 3
     rng = np.random.default_rng(ns + transpose)
-    rows, n_x = 50_000, 3_000
+    n_x = 3_000
     dst = rng.integers(0, ns, rows)
+    if sorted_dst:
+        dst = np.sort(dst)
     left = rng.standard_normal((rows, m * k)).astype(np.float32)
     xd = m if transpose else k
     x = rng.standard_normal((n_x, xd)).astype(np.float32)
@@ -224,7 +259,11 @@ def test_k4_matches_plain(cuda_device, ns, transpose):
     cpu = _on("cpu", left, x, xi)
     plan = segsum.plan_segments(dst, ns, cuda_device)
     plan_cpu = segsum.plan_segments(dst, ns, "cpu")
-    assert (plan.group > 1) == (ns == 40)
+    assert (plan.group > 1) == (rows / ns > 8)
+    assert (plan.perm is None) == sorted_dst
+    if sorted_dst and plan.group > 1:
+        spc = segmv.K4_THREADS // plan.group
+        assert np.any(plan_cpu.offsets.numpy()[:-1:spc] % 4 != 0)
 
     def tbl(A, X, I, p):
         return segsum_stream.streaming_matvec_tbl(A, X, I, p, m, k,

@@ -11,6 +11,9 @@ package's ``test_schur_stream_paths.py`` forces its own.
 - float32, port forced vs the JAX package's streaming Pallas path
   (interpret mode, forced the same way) on the same damped Hessian values:
   to 1e-5 relative.
+- Below the gate Ladybug-49's product scatter stays a K1 site: its plan
+  (``("prod_dst", 0)``, 86,545 rows into 1,225 S blocks) keeps 16 lanes a
+  segment, and no K3 plan is built.
 """
 
 import functools
@@ -93,6 +96,11 @@ def _port_side(pp, params, dx_p, x, hv=None, b=None):
     assert {t[0] for t in cache["matvec_plans"]} == {"bschur", "lu"}
     assert len([t for t in cache["index32"] if t[0] == "prod_l"]) == len(
         ssp.products)
+    # K3 plans its sites under its own tag; no K1 product-scatter plan
+    assert sorted(cache["product_plans"]) == [
+        ("prod_k3", gi) for gi in range(len(ssp.products))]
+    assert not any(t[0] == "prod_dst"
+                   for t in cache.get("segment_plans", {}))
     return ssp, sv, out
 
 
@@ -191,3 +199,19 @@ def test_forced_branches_match_jax_stream_f32(force_port, force_jax_stream):
     _, _, out = _port_side(pp, None, dx_p, x, hv=hv_t,
                            b=torch.as_tensor(np.array(lj.b)))
     _compare(out, ref, 1e-5)
+
+
+def test_ladybug_product_scatter_keeps_its_k1_plan():
+    ds = synthetic.make_bal("ladybug", seed=0)
+    gp, *_ = torch_bal_io.build_graph(ds, precision=gtt.FP32_FP32)
+    pp = gp.freeze(device="cpu")
+    ssp = torch_schur.build_schur_structure(pp)
+    hsp = torch_hessian.build_hessian_structure(pp)
+    lp = torch_linearize(pp, pp.params0)
+    hv = torch_hessian.apply_damping(
+        pp, hsp, torch_hessian.compute_hessian_values(pp, hsp, lp), lp.diag,
+        MU, False)
+    torch_schur.schur_values(pp, ssp, hv)
+    plan = pp._cache["segment_plans"][("prod_dst", 0)]
+    assert (plan.rows, plan.num_segments, plan.group) == (86_545, 1_225, 16)
+    assert "product_plans" not in pp._cache

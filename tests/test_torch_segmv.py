@@ -12,6 +12,9 @@ PyTorch port.
   segment's group sums rows l, l+G, ... in order, then a halving tree
   (checked bitwise against a loop written out); float64 results equal
   ``np.add.at`` for every group size.
+- K4's walk (the ranges its CTAs own, tile by tile, as ``csrc/segmv.cu``
+  takes them) covers every sorted position exactly once, with and
+  without a permutation, and its tiles start on a 4-block grid.
 - K5's two passes on the CUDA card, composed on the CPU: the row products
   P_b = S_b x_c[cid_b] of every stored block, then K1's plain version over
   the row plan, equal ``matvec_sym_plain`` bitwise, and both halves equal
@@ -311,3 +314,53 @@ def test_k5_two_passes_equal_plain(m, k, group):
         left, xc, cid, rid, n_r, m, k, False, group))
     assert np.array_equal(yc.numpy(), _kernel_order(
         left, xr, rxi, cid, n_c, m, k, True, group))
+
+
+def _k4_tiles(offsets, group, tile_blocks):
+    """K4's walk of a plan, as the kernel takes it: one (cta, lo, hi) per
+    tile, [lo, hi) the sorted positions whose products the tile computes.
+    CTA c owns segments [c*spc, c*spc + spc) (spc = K4_THREADS / group),
+    so positions [P0, P1); its tiles lie on a grid of ``tile_blocks``
+    from P0 rounded down to a multiple of 4, clipped to [P0, P1)."""
+    ns = offsets.shape[0] - 1
+    spc = segmv.K4_THREADS // group
+    out = []
+    for c in range(-(-ns // spc)):
+        p0, p1 = offsets[c * spc], offsets[min(c * spc + spc, ns)]
+        a0 = p0 & ~3
+        for t0 in range(a0, p1 if p1 > p0 else a0, tile_blocks):
+            out.append((c, max(t0, p0), min(t0 + tile_blocks, p1)))
+    return out
+
+
+@pytest.mark.parametrize("group", [1, 4, 64, 256])
+@pytest.mark.parametrize("permuted", [False, True])
+def test_k4_tiles_cover_every_position_once(group, permuted):
+    rng = np.random.default_rng(group + permuted)
+    ns = 3_000 // group + 7
+    dst = rng.integers(0, ns, 5 * ns * group // 4 + 3)
+    dst[dst == 5] = 6  # an empty segment
+    if not permuted:
+        dst = np.sort(dst)
+    plan = plan_segments(dst, ns, "cpu", group=group)
+    assert (plan.perm is not None) == permuted
+    offsets = plan.offsets.numpy()
+    for m, k in ((9, 3), (9, 9), (16, 16)):
+        tile = segmv.k4_tile_blocks(m, k)
+        assert tile % 4 == 0 and 4 <= tile <= segmv.K4_THREADS
+        tiles = _k4_tiles(offsets, group, tile)
+        hits = np.zeros(plan.rows, np.int64)
+        spc = segmv.K4_THREADS // group
+        for c, lo, hi in tiles:
+            assert lo < hi <= lo + tile
+            # a CTA's positions are those of its segments
+            assert offsets[c * spc] <= lo and hi <= offsets[
+                min(c * spc + spc, ns)]
+            # tiles lie on a grid of `tile` from a multiple of 4
+            assert (hi - offsets[c * spc] + (offsets[c * spc] & 3)) % tile \
+                == 0 or hi == offsets[min(c * spc + spc, ns)]
+            hits[lo:hi] += 1
+        assert np.all(hits == 1)
+    # some CTA starts off the 4-block grid, so its first tile reaches back
+    starts = offsets[::segmv.K4_THREADS // group][:-1]
+    assert np.any(starts % 4 != 0)
