@@ -1,5 +1,5 @@
-// K6: a whole matrix-free preconditioned CG solve in one launch, on Hopper
-// (sm_90a).
+// K6: a whole matrix-free preconditioned CG solve in one launch, on one
+// thread-block cluster of a Hopper card (sm_90a).
 //
 // Replaces graphite_tpu/ops/pallas/pcg_mf.py (_kernel, solve_pcg_mf), which
 // held the folded Jacobian and the CG vectors in VMEM as slot-packed
@@ -16,222 +16,587 @@
 //   - the loop stops on |rz_new| < tol, and never starts a step while
 //     rz == 0.
 //
-// Design: one block of 1024 threads, no grid-wide sync. J', the slot rows,
-// the row CSR of the (factor, slot) incidences and the inverse blocks are
-// read from global memory, where they stay in L2 (the plan admits at most
-// 6 MiB of J'). The vectors x, r, p, z, the candidates r_new, z_new, H p
-// and the per-factor J' p live in a global scratch buffer; p carries one
-// zero trash row (index n), where the slots of fixed vertices point. A CG
-// step is a sequence of phases separated by __syncthreads():
-//   1. v_f = sum_s J'_{f,s} p[row_s]: one thread per (factor, residual
-//      row), slots then columns in order;
-//   2. Hp[row] = damp * p + sum over the row's incidences, in CSR order,
-//      of J'_{f,s}^T v_f: one thread per (row, column), no atomics;
-//   3. dots in pcg_loop.tree_sum's order: groups of 32 entries by a
-//      shuffle-down halving tree, then the group sums the same way, level
-//      after level (partials in shared memory);
+// Design: one cluster of C <= 16 CTAs of 512 threads (C from the
+// wrapper), one CTA per SM. The N = n*d vector entries are cut into
+// 1024-entry chunks; CTA c owns ceil(chunks / C) consecutive chunks, so
+// the rows holding them and their incidences (the row CSR of (factor,
+// slot) pairs). Its eight vectors (x, r and r_new, z and z_new, p of this
+// step and the next, H p) live in its shared memory where they fit (one
+// decision for the whole cluster; else in a global scratch buffer), and
+// so does what does not change over the solve, each piece where it still
+// fits (else it is read from global memory): the CSR slice, each
+// incidence's block, J' row and slot rows, the rows' inverse blocks and
+// each incidence's factor row of J'. A CG step:
+//   1. v = J'_f p for the factor of every own incidence (a factor whose
+//      two slots are both own rows is computed twice, the same bits), one
+//      thread per incidence: p gathered at the slot rows from the CTAs
+//      that own them (distributed shared memory), then each residual row,
+//      slots then columns in order. p is not stored for the gathers: p_0
+//      is z_0, and after that each gather forms z + beta p from the
+//      owner's z and last p, the bits of the owner's own update;
+//   2. Hp[i] = damp * p + sum over the row's incidences, in CSR order, of
+//      J'_{f,s}^T v: one thread per entry, no atomics;
+//   3. the dots p.Hp, r_new.r_new and r_new.z_new in pcg_loop.tree_sum's
+//      order: a CTA sums each of its chunks by groups of 32 entries (a
+//      shuffle-down halving tree) and the chunk's 32 group sums the same
+//      way (tree_sum's first two levels) and stores the chunk sum into
+//      every CTA's shared memory; then every warp of every CTA finishes
+//      the tree over the chunk sums in the same order. p.Hp and
+//      r_new.r_new travel as st.async stores counted on the receiver's
+//      mbarrier (cluster.cuh: no fence), r_new.r_new with the entries of
+//      r_new in the rows a CTA shares with its neighbours (a halo); r_new
+//      .z_new as plain stores and a release/acquire cluster barrier, which
+//      also publishes z_new and p for the next step's gathers. Every
+//      thread of the cluster holds the same sums, so rz, rz_min and done,
+//      the loop and its branches are uniform across the cluster (a CTA
+//      leaving the loop early would leave the others waiting);
 //   4. the vector updates, one thread per entry;
-//   5. z = M_row (r / ||r||), the products taken in column order.
-// All arithmetic is IEEE fp32 and the file is built with -fmad=false, so
-// the plain version (ops/cuda/pcg_mf.py, solve_pcg_mf_plain), which takes
-// every product, sum and dot in this order, gives the same bits.
+//   5. z = M_row (r / ||r||), the products taken in column order (each
+//      r / ||r|| divided once).
+// One cluster barrier and two fence-free exchanges per step. No sum
+// depends on C: every sum has one order, and the work is split only
+// between whole outputs and whole dot chunks. All arithmetic is IEEE fp32
+// and the file is built with -fmad=false, so the plain version
+// (ops/cuda/pcg_mf.py, solve_pcg_mf_plain), which takes every product,
+// sum and dot in this order, gives the same bits.
 //
-// Bound: each step re-reads J' (~0.8 MB at sphere2500) from L2 twice with
-// one SM, and waits on ~20 block-wide barriers; the card's other SMs are
-// idle. The operations of a 50-step solve take ~1 us at the card's fp32
-// rate. A multi-SM (cluster or persistent) design is the speed work.
+// Bound: a 50-step solve does ~60 MFLOP and moves ~1.4 MB at sphere2500
+// (~1 us at the card's rates); a serial CG cannot reach that. Its floor is
+// the chain of dependent steps: per CG step one cluster barrier, two
+// exchanges, the gathers of p, and the in-order sums. The barriers and
+// exchanges alone take ~0.06 ms a solve on an H100 (kernel_sweep.py); the
+// rest is each thread's index work and dependent loads (J' staged in
+// shared memory saves a fifth against J' read from L2).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "cluster.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kDesc = 6;  // jbase, vbase, rbase, F, E, arity
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kChunk = 1024;  // entries per dot chunk: tree_sum's levels 1-2
+constexpr int kMaxChunks = 1024;  // finish_tree folds 32 x 32 chunk sums
+constexpr int kDesc = 6;          // jbase, vbase, rbase, F, E, arity
+constexpr int kVecs = 8;          // x, r (2), z (2), p (2), Hp
 
-// Dynamic shared memory: the dot partials of the first two tree_sum levels
-// (ceil(N/32) + ceil(N/1024) floats), then the block descriptors.
-__host__ __device__ inline long long partial_floats(long long N) {
-  const long long g1 = (N + 31) / 32;
-  return g1 + (g1 + 31) / 32;
-}
+struct Args {
+  const float* jf;
+  const int* rows;
+  const int* desc;
+  int nb;
+  const int* csr_off;
+  const int* inc_j;
+  const int* inc_e;
+  const float* b;
+  const float* damp;
+  const float* minv;
+  float* work;
+  float* x_out;
+  int* iters_out;
+  int n, d, max_iter;
+  float tol, ratio;
+  int stage_j;     // 0: J' is always read from global memory
+  int smem_bytes;  // the launch's dynamic shared memory
+};
+
+// This CTA's share; the same in all its threads.
+struct Share {
+  int C, rank;
+  int N, nch, per, ch0, nown;  // chunks [ch0, ch0 + nown) of nch, per CTA
+  int e0, e1;                  // their entries [e0, e1)
+};
+
+// The CG vectors. Buffer b of this CTA's entries is own(b)[i - e0], in
+// shared memory where all eight fit (the same decision in every CTA), else
+// in the global buffer glob (b * N + i).
+struct Vecs {
+  float* base;  // own(b) = base + b * stride
+  int stride;
+  float* glob;  // null when the vectors are in shared memory
+  __device__ float* own(int b) const {
+    return base + static_cast<long long>(b) * stride;
+  }
+  // Entry idx of buffer b, whichever CTA owns it (visible after the last
+  // release/acquire cluster barrier); owner[chunk] is the chunk's CTA.
+  __device__ float at(const cg::cluster_group& cl, const Share& sh,
+                      const unsigned char* owner, int b, int idx) const {
+    if (glob != nullptr) {
+      return __ldcg(glob + static_cast<long long>(b) * sh.N + idx);
+    }
+    const int o = owner[idx >> 10];
+    return *(cl.map_shared_rank(own(b), o) + (idx - o * sh.per * kChunk));
+  }
+};
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
   return v;
 }
 
-// One level of tree_sum: values val(0..m) -> ceil(m/32) group sums in
-// `out` (at least one). Every thread of the block must call it.
+// tree_sum's levels 3, 4 over the m chunk sums (m <= 1024); with one
+// chunk its sum is the total (tree_sum takes at least two levels). Every
+// warp computes it, so every thread gets the value with no barrier.
+__device__ float finish_tree(const float* part, int m) {
+  if (m == 1) return part[0];
+  const int lane = threadIdx.x & 31;
+  const int k = (m + 31) >> 5;
+  float held = 0.0f;  // lane g: the sum of chunk sums 32g .. 32g + 31
+  for (int g = 0; g < k; ++g) {
+    const int i = (g << 5) + lane;
+    const float v =
+        __shfl_sync(0xffffffffu, warp_sum(i < m ? part[i] : 0.0f), 0);
+    if (lane == g) held = v;
+  }
+  const float total = k == 1 ? held : warp_sum(held);
+  return __shfl_sync(0xffffffffu, total, 0);
+}
+
+// The sum over i < N of val(i) in pcg_loop.tree_sum's order, the same
+// value in every thread of the cluster. `part` is this dot's nch slots (at
+// the same offset in every CTA's shared memory), `grp` 32 floats per own
+// chunk. Entry i of an own chunk is taken by the thread that owns it in
+// the strided loops (i = e0 + threadIdx.x + 1024 m), so val may read what
+// that thread just wrote. With `bar`, the chunk sums travel as st.async
+// stores counted on each CTA's mbarrier, which expects `bytes` (its chunk
+// sums and any halo stored in the same phase; no fence); without, as plain
+// stores followed by a release/acquire cluster barrier, which also
+// publishes every earlier write of the cluster.
 template <class Val>
-__device__ int tree_level(Val val, int m, float* out) {
+__device__ float cluster_sum(const cg::cluster_group& cl, const Share& sh,
+                             Val val, float* part, float* grp,
+                             unsigned long long* bar, unsigned bytes,
+                             unsigned& parity) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int groups = m > 0 ? (m + 31) >> 5 : 1;
-  for (int g = warp; g < groups; g += nwarps) {
-    const int i = (g << 5) + lane;
-    const float v = warp_sum(i < m ? val(i) : 0.0f);
-    if (lane == 0) out[g] = v;
+  for (int q = warp; q < (sh.nown << 5); q += kWarps) {
+    const int i = sh.e0 + (q << 5) + lane;  // chunk q / 32, group q % 32
+    const float v = warp_sum(i < sh.N ? val(i) : 0.0f);
+    if (lane == 0) grp[q] = v;
   }
   __syncthreads();
-  return groups;
-}
-
-// sum over i < m of a[i] * b[i] in pcg_loop.tree_dot's order; the same
-// value in every thread.
-__device__ float tree_dot(const float* a, const float* b, int m, float* buf0,
-                          float* buf1) {
-  int k = tree_level([=](int i) { return a[i] * b[i]; }, m, buf0);
-  float* src = buf0;
-  float* dst = buf1;
-  for (int levels = 1; levels < 2 || k > 1; ++levels) {
-    const float* s = src;
-    k = tree_level([=](int i) { return s[i]; }, k, dst);
-    float* t = src;
-    src = dst;
-    dst = t;
-  }
-  const float out = src[0];
-  __syncthreads();
-  return out;
-}
-
-// z = M_row (r / ||r||) (the identity when minv is null), ||r|| == 0
-// taken as 1.
-__device__ void precondition(const float* r, float* z,
-                             const float* __restrict__ minv, int n, int d,
-                             float* buf0, float* buf1) {
-  const int N = n * d;
-  const float rnorm = __fsqrt_rn(tree_dot(r, r, N, buf0, buf1));
-  const float s = rnorm == 0.0f ? 1.0f : rnorm;
-  for (int i = threadIdx.x; i < N; i += blockDim.x) {
-    if (minv == nullptr) {
-      z[i] = __fdiv_rn(r[i], s);
-      continue;
+  for (int c = warp; c < sh.nown; c += kWarps) {
+    const float v =
+        __shfl_sync(0xffffffffu, warp_sum(grp[(c << 5) + lane]), 0);
+    if (lane < sh.C) {
+      if (bar != nullptr) {
+        st_async(part + sh.ch0 + c, v, bar, lane);
+      } else {
+        *cl.map_shared_rank(part + sh.ch0 + c, lane) = v;
+      }
     }
-    const int row = i / d;
-    const int c = i - row * d;
-    const float* m = minv + static_cast<long long>(row) * d * d + c * d;
-    const float* rr = r + static_cast<long long>(row) * d;
-    float acc = 0.0f;
-    for (int j = 0; j < d; ++j) acc += m[j] * __fdiv_rn(rr[j], s);
-    z[i] = acc;
   }
-  __syncthreads();
+  if (bar != nullptr) {
+    if (threadIdx.x == 0) mbar_expect(bar, bytes);
+    mbar_wait(bar, parity);
+    parity ^= 1;
+  } else {
+    cl.sync();
+  }
+  return finish_tree(part, sh.nch);
 }
 
-__global__ void __launch_bounds__(kThreads) pcg_mf_kernel(
-    const float* __restrict__ jf, const int* __restrict__ rows,
-    const int* __restrict__ desc_g, int nb, const int* __restrict__ csr_off,
-    const int* __restrict__ inc_j, const int* __restrict__ inc_v,
-    const int* __restrict__ inc_e, const float* __restrict__ b,
-    const float* __restrict__ damp, const float* __restrict__ minv,
-    float* __restrict__ work, float* __restrict__ x_out,
-    int* __restrict__ iters_out, int n, int d, int max_iter, float tol,
-    float ratio) {
-  extern __shared__ float red[];
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int N = n * d;
-  const int NP = N + d;  // one trash row
-  float* buf0 = red;
-  float* buf1 = red + ((N + 31) >> 5);
-  int* desc = reinterpret_cast<int*>(red + partial_floats(N));
-  for (int i = tid; i < nb * kDesc; i += nt) desc[i] = desc_g[i];
-
-  float* x = work;
-  float* r = x + NP;
-  float* p = r + NP;
-  float* z = p + NP;
-  float* rn = z + NP;
-  float* zn = rn + NP;
-  float* hp = zn + NP;
-  float* v = hp + NP;
-  for (int i = tid; i < N; i += nt) {
-    x[i] = 0.0f;
-    r[i] = b[i];
+// A bump allocator over the CTA's dynamic shared memory: a piece is
+// placed only if it fits (16-byte aligned pieces).
+struct Bump {
+  unsigned char* base;
+  size_t used, cap;
+  template <class T>
+  __device__ T* take(long long count) {
+    const size_t bytes = (static_cast<size_t>(count) * sizeof(T) + 15) & ~15;
+    if (used + bytes > cap) return nullptr;
+    T* p = reinterpret_cast<T*>(base + used);
+    used += bytes;
+    return p;
   }
-  for (int i = tid; i < d; i += nt) p[N + i] = 0.0f;
+};
+
+// The block and factor of the incidence whose J' slot block starts at
+// jslot (the blocks' J' ranges are consecutive).
+__device__ __forceinline__ int2 factor_of(const int* desc, int nb, int d,
+                                          int jslot) {
+  int bi = 0;
+  while (bi + 1 < nb && jslot >= desc[(bi + 1) * kDesc]) ++bi;
+  const int* ds = desc + bi * kDesc;
+  const int W = ds[5] * ds[4] * d;
+  return make_int2(bi, (jslot - ds[0]) / W);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) pcg_mf_kernel(const Args a) {
+  cg::cluster_group cl = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int n = a.n, d = a.d, nb = a.nb;
+  Share sh;
+  sh.C = static_cast<int>(gridDim.x);  // the grid is one cluster
+  sh.rank = static_cast<int>(cl.block_rank());
+  sh.N = n * d;
+  sh.nch = (sh.N + kChunk - 1) / kChunk;
+  sh.per = (sh.nch + sh.C - 1) / sh.C;
+  sh.ch0 = min(sh.rank * sh.per, sh.nch);
+  sh.nown = min(sh.per, sh.nch - sh.ch0);
+  sh.e0 = min(sh.ch0 * kChunk, sh.N);
+  sh.e1 = min(sh.e0 + sh.nown * kChunk, sh.N);
+  const int N = sh.N;
+  const int e0 = sh.e0, e1 = sh.e1;
+  const int own_cap = sh.per * kChunk;
+
+  // Shared memory, the same layout in every CTA up to the vectors: the
+  // mbarriers of the two fence-free exchanges, the three dots' chunk slots
+  // (stored by every CTA), the halo of the rows this CTA shares with its
+  // neighbours (stored by them), the own chunks' group sums, the
+  // descriptors, the vectors if they fit; then the staged pieces.
+  unsigned long long* bar_ph = reinterpret_cast<unsigned long long*>(smem);
+  unsigned long long* bar_rr = bar_ph + 1;
+  float* part_ph = reinterpret_cast<float*>(smem + 16);
+  float* part_rr = part_ph + sh.nch;
+  float* part_rz = part_rr + sh.nch;
+  float* halo_lo = part_rz + sh.nch;  // entries [row0 d, e0) of r_new
+  float* halo_hi = halo_lo + d;       // entries [e1, row1 d)
+  float* grp = halo_hi + d;
+  int* desc = reinterpret_cast<int*>(grp + 32 * sh.per);
+  unsigned char* owner = reinterpret_cast<unsigned char*>(desc + nb * kDesc);
+  Bump bump{smem,
+            (16 + static_cast<size_t>(3 * sh.nch + 2 * d + 32 * sh.per +
+                                      nb * kDesc) * 4 + sh.nch + 15) &
+                ~static_cast<size_t>(15),
+            static_cast<size_t>(a.smem_bytes)};
+  Vecs vec;
+  float* vs = bump.take<float>(static_cast<long long>(kVecs) * own_cap);
+  vec.base = vs != nullptr ? vs : a.work + e0;
+  vec.stride = vs != nullptr ? own_cap : N;
+  vec.glob = vs != nullptr ? nullptr : a.work;
+  float* X = vec.own(0);
+  float* HP = vec.own(7);
+  for (int i = tid; i < nb * kDesc; i += kThreads) desc[i] = a.desc[i];
+  for (int c = tid; c < sh.nch; c += kThreads) owner[c] = c / sh.per;
+  if (tid == 0) {
+    mbar_init(bar_ph);
+    mbar_init(bar_rr);
+    fence_mbar_init();
+  }
+  int emax = 1, amax = 1, wmax = 1;
+  for (int bi = 0; bi < nb; ++bi) {
+    const int* ds = a.desc + bi * kDesc;
+    emax = max(emax, ds[4]);
+    amax = max(amax, ds[5]);
+    wmax = max(wmax, ds[5] * ds[4] * d);
+  }
   __syncthreads();
 
-  precondition(r, z, minv, n, d, buf0, buf1);
-  for (int i = tid; i < N; i += nt) p[i] = z[i];
-  __syncthreads();
-  float rz = tree_dot(r, z, N, buf0, buf1);
+  // the own rows (those holding an own entry) and their incidences
+  const int row0 = e0 / d;
+  const int row1 = (e1 + d - 1) / d;
+  const int nr = row1 - row0;
+  const int t0 = a.csr_off[row0];
+  const int ninc = a.csr_off[row1] - t0;
+  const int n_lo = e0 - row0 * d;  // halo entries this CTA receives
+  const int n_hi = row1 * d - e1;
+  // the pieces, each staged where it fits: the CSR slice and the
+  // incidences' J' slot offsets and residual dims; per incidence its
+  // block and factor row and slot rows; the gathered p and the products
+  // J' p per incidence (global scratch otherwise); the inverse blocks;
+  // J' per incidence (its factor's whole row)
+  int* s_csr = bump.take<int>(nr + 1 + 2LL * ninc);
+  int* s_fac = bump.take<int>((2LL + amax) * ninc);
+  float* pg = bump.take<float>(1LL * ninc * amax * d);
+  float* vt = bump.take<float>(1LL * ninc * emax);
+  float* s_minv =
+      a.minv == nullptr ? nullptr
+                        : bump.take<float>(static_cast<long long>(nr) * d * d);
+  float* s_j = a.stage_j ? bump.take<float>(1LL * ninc * wmax) : nullptr;
+  float* scratch = a.work + static_cast<long long>(kVecs) * N;
+  if (pg == nullptr) pg = scratch + 1LL * t0 * amax * d;
+  if (vt == nullptr) {
+    vt = scratch + static_cast<long long>(a.csr_off[n]) * amax * d +
+         1LL * t0 * emax;
+  }
+
+  if (s_csr != nullptr) {
+    for (int i = tid; i <= nr; i += kThreads) s_csr[i] = a.csr_off[row0 + i];
+    for (int t = tid; t < ninc; t += kThreads) {
+      s_csr[nr + 1 + t] = a.inc_j[t0 + t];
+      s_csr[nr + 1 + ninc + t] = a.inc_e[t0 + t];
+    }
+  }
+  // co[row - row0]: the row's first incidence; ij / ie[t - t0]
+  const int* co = s_csr != nullptr ? s_csr : a.csr_off + row0;
+  const int* ij = s_csr != nullptr ? s_csr + nr + 1 : a.inc_j + t0;
+  const int* ie = s_csr != nullptr ? s_csr + nr + 1 + ninc : a.inc_e + t0;
+  if (s_fac != nullptr) {  // block, factor row in J', slot rows
+    for (int t = tid; t < ninc; t += kThreads) {
+      const int2 bf = factor_of(desc, nb, d, a.inc_j[t0 + t]);
+      const int* ds = desc + bf.x * kDesc;
+      s_fac[t] = bf.x;
+      s_fac[ninc + t] = ds[0] + bf.y * ds[5] * ds[4] * d;
+      for (int s = 0; s < ds[5]; ++s) {
+        s_fac[2 * ninc + t * amax + s] = a.rows[ds[2] + s * ds[3] + bf.y];
+      }
+    }
+  }
+  if (s_minv != nullptr) {
+    const float* src = a.minv + static_cast<long long>(row0) * d * d;
+    for (long long q = tid; q < static_cast<long long>(nr) * d * d;
+         q += kThreads) {
+      s_minv[q] = src[q];
+    }
+  }
+  if (s_j != nullptr) {
+    for (long long q = tid; q < 1LL * ninc * wmax; q += kThreads) {
+      const int t = static_cast<int>(q / wmax);
+      const int k = static_cast<int>(q - 1LL * t * wmax);
+      const int2 bf = factor_of(desc, nb, d, a.inc_j[t0 + t]);
+      const int* ds = desc + bf.x * kDesc;
+      const int W = ds[5] * ds[4] * d;
+      if (k < W) s_j[q] = a.jf[ds[0] + static_cast<long long>(bf.y) * W + k];
+    }
+  }
+  const float* mv =
+      a.minv == nullptr
+          ? nullptr
+          : (s_minv != nullptr ? s_minv
+                               : a.minv + static_cast<long long>(row0) * d * d);
+  // incidence t's block, J' factor row and slot-s row (t local)
+  auto inc_factor = [&](int t, int& bi, int& frow) {
+    if (s_fac != nullptr) {
+      bi = s_fac[t];
+      frow = s_fac[ninc + t];
+      return;
+    }
+    const int2 bf = factor_of(desc, nb, d, ij[t]);
+    bi = bf.x;
+    frow = desc[bi * kDesc] + bf.y * desc[bi * kDesc + 5] *
+                                  desc[bi * kDesc + 4] * d;
+  };
+  auto slot_row = [&](int t, int bi, int frow, int s) {
+    if (s_fac != nullptr) return s_fac[2 * ninc + t * amax + s];
+    const int* ds = desc + bi * kDesc;
+    const int f = (frow - ds[0]) / (ds[5] * ds[4] * d);
+    return a.rows[ds[2] + s * ds[3] + f];
+  };
+
+  for (int i = e0 + tid; i < e1; i += kThreads) {
+    X[i - e0] = 0.0f;
+    vec.own(1)[i - e0] = a.b[i];
+  }
+  cl.sync();  // the mbarriers initialized in every CTA
+
+  // z = M_row (r / s) on the own entries (the identity when mv is null):
+  // y = r / s once per own entry (into y, then a CTA barrier), r's entries
+  // outside [e0, e1) from the halo (or from b, at the start)
+  auto precondition = [&](const float* r, float* y, float* z, float s,
+                          bool start) {
+    if (mv == nullptr) {
+      for (int i = e0 + tid; i < e1; i += kThreads) {
+        z[i - e0] = __fdiv_rn(r[i - e0], s);
+      }
+      return;
+    }
+    for (int i = e0 + tid; i < e1; i += kThreads) {
+      y[i - e0] = __fdiv_rn(r[i - e0], s);
+    }
+    __syncthreads();
+    for (int i = e0 + tid; i < e1; i += kThreads) {
+      const int row = i / d;
+      const int c = i - row * d;
+      const float* m =
+          mv + static_cast<long long>(row - row0) * d * d + c * d;
+      float acc = 0.0f;
+      for (int j = 0; j < d; ++j) {
+        const int q = row * d + j;
+        const float yq =
+            q >= e0 && q < e1
+                ? y[q - e0]
+                : __fdiv_rn(start    ? a.b[q]
+                            : q < e0 ? halo_lo[q - row0 * d]
+                                     : halo_hi[q - e1],
+                            s);
+        acc += m[j] * yq;
+      }
+      z[i - e0] = acc;
+    }
+  };
+
+  unsigned par_ph = 0, par_rr = 0, par_rz = 0;
+  const unsigned chunk_bytes = 4u * sh.nch;
+  const unsigned halo_bytes = chunk_bytes + 4u * (n_lo + n_hi);
+  int ri = 1, zi = 3;  // r: own[ri], r_new: own[3 - ri]; z: 3 / 4
+  {
+    const float* b = a.b;
+    const float s0 = __fsqrt_rn(cluster_sum(
+        cl, sh, [=](int i) { return b[i] * b[i]; }, part_rr, grp, bar_rr,
+        chunk_bytes, par_rr));
+    precondition(vec.own(ri), HP, vec.own(zi), s0 == 0.0f ? 1.0f : s0,
+                 true);
+  }
+  float* P0 = vec.own(5);
+  for (int i = e0 + tid; i < e1; i += kThreads) {
+    P0[i - e0] = vec.own(zi)[i - e0];
+  }
+  float rz;
+  {
+    const float* r = vec.own(ri);
+    const float* z = vec.own(zi);
+    // a release barrier: p reaches the first step's gathers
+    rz = cluster_sum(
+        cl, sh, [=](int i) { return r[i - e0] * z[i - e0]; }, part_rz, grp,
+        nullptr, 0, par_rz);
+  }
   float rz_min = INFINITY;
+  float beta_prev = 0.0f;
   int k = 0;
   bool done = false;
-  // rz, rz_min and done are equal in every thread (block-wide sums), so
-  // the loop and its branches are uniform across the block.
-  while (k < max_iter && !done && rz != 0.0f) {
-    // 1. v = J' p per factor block
-    for (int bi = 0; bi < nb; ++bi) {
-      const int* ds = desc + bi * kDesc;
-      const int jbase = ds[0], vbase = ds[1], rbase = ds[2];
-      const int F = ds[3], E = ds[4], arity = ds[5];
-      const int W = arity * E * d;
-      for (int q = tid; q < F * E; q += nt) {
-        const int f = q / E;
-        const int e = q - f * E;
+  while (k < a.max_iter && !done && rz != 0.0f) {
+    // p of this step: p_0 = z_0; then z + beta p of the last step, formed
+    // here from the owners' z and p (the same bits as the owner's update)
+    const int pi = 5 + (k & 1);
+    float* p = vec.own(pi);
+    // 1. per own incidence (one thread each): gather p at its factor's
+    // slot rows, then v = J'_f p, slots then columns in order
+    for (int t = tid; t < ninc; t += kThreads) {
+      int bi, frow;
+      inc_factor(t, bi, frow);
+      const int E = ie[t];
+      const int arity = desc[bi * kDesc + 5];
+      float* pr = pg + static_cast<long long>(t) * amax * d;
+      for (int s = 0; s < arity; ++s) {
+        const int row = slot_row(t, bi, frow, s);
+        for (int j = 0; j < d; ++j) {
+          float val = 0.0f;  // the zero row of a fixed vertex
+          if (row < n) {
+            const int idx = row * d + j;
+            val = k == 0 ? vec.at(cl, sh, owner, 5, idx)
+                         : vec.at(cl, sh, owner, zi, idx) +
+                               beta_prev * vec.at(cl, sh, owner, 11 - pi, idx);
+          }
+          pr[s * d + j] = val;
+        }
+      }
+      const float* jr = s_j != nullptr
+                            ? s_j + static_cast<long long>(t) * wmax
+                            : a.jf + frow;
+      for (int e = 0; e < E; ++e) {
         float acc = 0.0f;
         for (int s = 0; s < arity; ++s) {
-          const float* jr =
-              jf + jbase + static_cast<long long>(f) * W + (s * E + e) * d;
-          const float* pr =
-              p + static_cast<long long>(rows[rbase + s * F + f]) * d;
-          for (int j = 0; j < d; ++j) acc += jr[j] * pr[j];
+          for (int j = 0; j < d; ++j) {
+            acc += jr[(s * E + e) * d + j] * pr[s * d + j];
+          }
         }
-        v[vbase + q] = acc;
+        vt[static_cast<long long>(t) * emax + e] = acc;
       }
     }
     __syncthreads();
-    // 2. Hp = damp * p + J'^T v, each row's incidences in CSR order
-    for (int i = tid; i < N; i += nt) {
+    // 2. Hp = damp * p + J'^T v on the own entries, incidences in CSR order
+    for (int i = e0 + tid; i < e1; i += kThreads) {
       const int row = i / d;
       const int c = i - row * d;
       float acc = 0.0f;
-      for (int t = csr_off[row]; t < csr_off[row + 1]; ++t) {
-        const float* jc = jf + inc_j[t] + c;
-        const float* vf = v + inc_v[t];
-        const int E = inc_e[t];
+      const int ta = co[row - row0] - t0, tb = co[row - row0 + 1] - t0;
+      for (int t = ta; t < tb; ++t) {
+        const int E = ie[t];
+        const float* jc;
+        if (s_j != nullptr) {
+          int bi, frow;
+          inc_factor(t, bi, frow);
+          jc = s_j + static_cast<long long>(t) * wmax + (ij[t] - frow) + c;
+        } else {
+          jc = a.jf + ij[t] + c;
+        }
+        const float* vf = vt + static_cast<long long>(t) * emax;
         float g = 0.0f;
         for (int e = 0; e < E; ++e) g += jc[e * d] * vf[e];
         acc += g;
       }
-      hp[i] = damp[i] * p[i] + acc;
+      HP[i - e0] = a.damp[i] * p[i - e0] + acc;
     }
-    __syncthreads();
-    const float alpha = __fdiv_rn(rz, tree_dot(p, hp, N, buf0, buf1));
-    for (int i = tid; i < N; i += nt) rn[i] = r[i] - alpha * hp[i];
-    __syncthreads();
-    precondition(rn, zn, minv, n, d, buf0, buf1);
-    const float rz_new = tree_dot(rn, zn, N, buf0, buf1);
+    const float alpha = __fdiv_rn(
+        rz, cluster_sum(
+                cl, sh,
+                [=](int i) { return p[i - e0] * HP[i - e0]; }, part_ph, grp,
+                bar_ph, chunk_bytes, par_ph));
+    float* r = vec.own(ri);
+    float* rn = vec.own(3 - ri);
+    const int lo_end = min(e1, (e0 / d + 1) * d);  // the first row's part
+    const int hi_start = max(e0, (e1 / d) * d);    // the last row's part
+    for (int i = e0 + tid; i < e1; i += kThreads) {
+      const float v = r[i - e0] - alpha * HP[i - e0];
+      rn[i - e0] = v;
+      // a row shared with a neighbour: store this CTA's part in its halo
+      if (e0 % d != 0 && i < lo_end) {
+        st_async(halo_hi + (i - e0), v, bar_rr, sh.rank - 1);
+      }
+      if (e1 % d != 0 && e1 < N && i >= hi_start) {
+        st_async(halo_lo + (i - hi_start), v, bar_rr, sh.rank + 1);
+      }
+    }
+    const float rnorm = __fsqrt_rn(cluster_sum(
+        cl, sh, [=](int i) { return rn[i - e0] * rn[i - e0]; }, part_rr,
+        grp, bar_rr, halo_bytes, par_rr));
+    float* zn = vec.own(7 - zi);
+    precondition(rn, HP, zn, rnorm == 0.0f ? 1.0f : rnorm, false);
+    // a release barrier: z_new (and p) reach the next step's gathers
+    const float rz_new = cluster_sum(
+        cl, sh, [=](int i) { return rn[i - e0] * zn[i - e0]; }, part_rz,
+        grp, nullptr, 0, par_rz);
 
-    const bool reject = fabsf(rz_new) > ratio * rz_min || isnan(rz_new);
-    const float a = fabsf(rz_new);
-    rz_min = (isnan(a) || isnan(rz_min)) ? NAN : fminf(rz_min, a);
+    const bool reject = fabsf(rz_new) > a.ratio * rz_min || isnan(rz_new);
+    const float aa = fabsf(rz_new);
+    rz_min = (isnan(aa) || isnan(rz_min)) ? NAN : fminf(rz_min, aa);
     const float beta = __fdiv_rn(rz_new, rz);
-    const bool converged = fabsf(rz_new) < tol;
+    const bool converged = fabsf(rz_new) < a.tol;
     ++k;
     if (!reject) {
-      for (int i = tid; i < N; i += nt) {
-        x[i] = x[i] + alpha * p[i];
-        p[i] = zn[i] + beta * p[i];
+      float* pn = vec.own(11 - pi);
+      for (int i = e0 + tid; i < e1; i += kThreads) {
+        X[i - e0] = X[i - e0] + alpha * p[i - e0];
+        pn[i - e0] = zn[i - e0] + beta * p[i - e0];
       }
-      float* t = r;
-      r = rn;
-      rn = t;
-      t = z;
-      z = zn;
-      zn = t;
+      ri = 3 - ri;
+      zi = 7 - zi;
       rz = rz_new;
+      beta_prev = beta;
     }
-    __syncthreads();
     done = reject || converged;
   }
-  for (int i = tid; i < N; i += nt) x_out[i] = x[i];
-  if (tid == 0) *iters_out = k;
+  for (int i = e0 + tid; i < e1; i += kThreads) a.x_out[i] = X[i - e0];
+  if (sh.rank == 0 && tid == 0) *a.iters_out = k;
+  cl.sync();  // no CTA leaves while another may still read its vectors
+}
+
+__global__ void __launch_bounds__(1024, 1) cluster_barriers_kernel(int reps) {
+  cg::cluster_group cl = cg::this_cluster();
+  for (int i = 0; i < reps; ++i) cl.sync();
+}
+
+// `reps` fence-free exchanges as K6's and K2's dots take them: each CTA
+// stores one float into every CTA's shared memory (st.async) and waits
+// for the C floats stored into its own.
+__global__ void __launch_bounds__(1024, 1) cluster_exchanges_kernel(int reps) {
+  cg::cluster_group cl = cg::this_cluster();
+  __shared__ unsigned long long bar;
+  __shared__ float slot[kMaxCluster];
+  const int C = static_cast<int>(gridDim.x);
+  if (threadIdx.x == 0) {
+    mbar_init(&bar);
+    fence_mbar_init();
+  }
+  cl.sync();
+  unsigned parity = 0;
+  for (int i = 0; i < reps; ++i) {
+    if (threadIdx.x < C) {
+      st_async(slot + cl.block_rank(), static_cast<float>(i), &bar,
+               threadIdx.x);
+    }
+    if (threadIdx.x == 0) mbar_expect(&bar, 4u * C);
+    mbar_wait(&bar, parity);
+    parity ^= 1;
+  }
+  cl.sync();
 }
 
 }  // namespace
@@ -239,40 +604,87 @@ __global__ void __launch_bounds__(kThreads) pcg_mf_kernel(
 // jf: folded J' of every factor block, block b at desc[b][0], row-major
 // (F, arity*E*d); rows: per block and slot the (F,) vertex rows (n for a
 // fixed vertex), block b's slot s at desc[b][2] + s*F; desc: (nb, 6) int32
-// (jbase, vbase, rbase, F, E, arity); csr_off (n+1), inc_j / inc_v / inc_e
-// (incidences): the J' offset of (f, s), the v offset of f and E, sorted
-// by row then by (block, slot, factor); b, damp, x: (n*d,); minv: (n, d*d)
-// row-major or null; work: 7*(n+1)*d + sum F*E floats; iters: (1,) int32.
-// Launches on `stream` and returns the cudaGetLastError() code (an error
-// when the partials and descriptors exceed the card's shared memory).
+// (jbase, vbase, rbase, F, E, arity); csr_off (n+1), inc_j / inc_e
+// (incidences): the J' offset of (f, s) and E, sorted by row then by
+// (block, slot, factor); b, damp, x: (n*d,); minv: (n, d*d) row-major or
+// null; work: 8*n*d + n_inc*(amax*d + emax) floats (amax, emax: the largest
+// arity and E of a block); iters: (1,) int32; cluster: the CTAs (1-16);
+// stage_j: 0 reads J' from global memory only. Launches on `stream` and
+// returns the CUDA error code (cudaErrorLaunchOutOfResources when one
+// cluster of that size does not fit on the card, or the chunk sums,
+// descriptors and halo exceed a CTA's shared memory).
 extern "C" int gt_pcg_mf_f32(const void* jf, const void* rows,
                              const void* desc, int nb, const void* csr_off,
-                             const void* inc_j, const void* inc_v,
-                             const void* inc_e, const void* b,
-                             const void* damp, const void* minv, void* work,
-                             void* x, void* iters, int n, int d, int max_iter,
-                             float tol, float rejection_ratio, void* stream) {
+                             const void* inc_j, const void* inc_e,
+                             const void* b, const void* damp,
+                             const void* minv, void* work, void* x,
+                             void* iters, int n, int d, int max_iter,
+                             float tol, float rejection_ratio, int cluster,
+                             int stage_j, void* stream) {
   const long long N = static_cast<long long>(n) * d;
-  if (nb < 1 || n < 1 || d < 1 || N > (1 << 28)) {
+  if (nb < 1 || n < 1 || d < 1 || cluster < 1 || cluster > kMaxCluster ||
+      N > static_cast<long long>(kMaxChunks) * kChunk) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t shmem = static_cast<size_t>(partial_floats(N)) * sizeof(float) +
-                       static_cast<size_t>(nb) * kDesc * sizeof(int);
-  if (shmem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        pcg_mf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(shmem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+  const int smem = max_dynamic_smem();
+  const long long nch = (N + kChunk - 1) / kChunk;
+  const long long per = (nch + cluster - 1) / cluster;
+  if (16 + (3 * nch + 2LL * d + 32 * per + static_cast<long long>(nb) * kDesc) *
+                   4 >
+      smem) {
+    return static_cast<int>(cudaErrorLaunchOutOfResources);
   }
-  pcg_mf_kernel<<<1, kThreads, shmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(jf), static_cast<const int*>(rows),
-      static_cast<const int*>(desc), nb, static_cast<const int*>(csr_off),
-      static_cast<const int*>(inc_j), static_cast<const int*>(inc_v),
-      static_cast<const int*>(inc_e), static_cast<const float*>(b),
-      static_cast<const float*>(damp), static_cast<const float*>(minv),
-      static_cast<float*>(work), static_cast<float*>(x),
-      static_cast<int*>(iters), n, d, max_iter, tol, rejection_ratio);
-  return static_cast<int>(cudaGetLastError());
+  Args a;
+  a.jf = static_cast<const float*>(jf);
+  a.rows = static_cast<const int*>(rows);
+  a.desc = static_cast<const int*>(desc);
+  a.nb = nb;
+  a.csr_off = static_cast<const int*>(csr_off);
+  a.inc_j = static_cast<const int*>(inc_j);
+  a.inc_e = static_cast<const int*>(inc_e);
+  a.b = static_cast<const float*>(b);
+  a.damp = static_cast<const float*>(damp);
+  a.minv = static_cast<const float*>(minv);
+  a.work = static_cast<float*>(work);
+  a.x_out = static_cast<float*>(x);
+  a.iters_out = static_cast<int*>(iters);
+  a.n = n;
+  a.d = d;
+  a.max_iter = max_iter;
+  a.tol = tol;
+  a.ratio = rejection_ratio;
+  a.stage_j = stage_j;
+  a.smem_bytes = smem;
+  return static_cast<int>(launch_cluster(pcg_mf_kernel, cluster, kThreads,
+                                         smem,
+                                         static_cast<cudaStream_t>(stream),
+                                         a));
+}
+
+// `reps` back-to-back cluster barriers (release / acquire, as K6's r.z
+// exchange takes them) in one cluster of `cluster` CTAs of `threads` (at
+// most 1024) threads, for timing one barrier.
+extern "C" int gt_pcg_mf_cluster_barriers(int cluster, int threads, int reps,
+                                          void* stream) {
+  if (threads < 32 || threads > 1024) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(launch_cluster(cluster_barriers_kernel, cluster,
+                                         threads, 0,
+                                         static_cast<cudaStream_t>(stream),
+                                         reps));
+}
+
+// The same for `reps` fence-free exchanges.
+extern "C" int gt_pcg_mf_cluster_exchanges(int cluster, int threads, int reps,
+                                           void* stream) {
+  if (threads < 32 || threads > 1024) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(launch_cluster(cluster_exchanges_kernel, cluster,
+                                         threads, 0,
+                                         static_cast<cudaStream_t>(stream),
+                                         reps));
 }
 
 extern "C" const char* gt_pcg_mf_error_string(int err) {

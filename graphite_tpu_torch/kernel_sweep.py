@@ -1,5 +1,5 @@
-"""Device times of K1, K3, K4 and K5 at the main paths' shapes, and a
-launch's host time.
+"""Device times of the port's kernels at the main paths' shapes, a
+launch's host time, and the cost of a cluster's synchronisation.
 
     python -m graphite_tpu_torch.kernel_sweep
 
@@ -27,7 +27,20 @@ On a CUDA card (it exits 1 without one), from seeded random inputs:
    64, 128, 256): the back-substitution (4,995,188 (9, 3)^T blocks into
    993,923 sorted landmark rows, x read by pose index) and b_S (the same
    blocks into 1,778 pose rows through the sort permutation, w read by
-   sorted landmark index).
+   sorted landmark index);
+6. the cost of one synchronisation of a thread-block cluster of 1, 2, 4,
+   8 and 16 CTAs, at K6's and K2's block sizes: a release/acquire cluster
+   barrier and a fence-free exchange (each CTA stores one float into every
+   CTA's shared memory with st.async and waits on its mbarrier), from
+   1,010 against 10 back to back in one launch;
+7. K6 (the whole matrix-free PCG) on the first LM solve of sphere2500
+   (SE3 block-Jacobi, SE3 identity) and of the 2500-pose SE2 circle, and
+   K2 (the whole dense PCG) on Ladybug-49's first Schur system (n = 441,
+   PCGSchurSolver(10, 1.0, 5.0)) and a random SPD system (n = 1,024, 10
+   steps, its slices streamed), each at every cluster size; K6
+   also with J' staged in shared memory and read from global memory only;
+   and each kernel's sync floor: its barriers and exchanges per solve
+   times their cost at the cluster size its wrapper picks.
 
 Device times are CUDA-event means over 20 calls captured in one CUDA
 graph and replayed, so no host time is in them. Prints one line per
@@ -44,7 +57,14 @@ import time
 import numpy as np
 import torch
 
-from .ops.cuda import launches, segmv, segsum, segsum_stream
+from .ops.cuda import (
+    launches,
+    pcg_dense,
+    pcg_mf,
+    segmv,
+    segsum,
+    segsum_stream,
+)
 
 GROUPS = (1, 8, 16, 32, 64, 128, 256)
 # (rows, segments, width, destinations sorted, site)
@@ -256,6 +276,172 @@ def k4_venice(rng, dev):
         print(line, flush=True)
 
 
+CLUSTERS = (1, 2, 4, 8, 16)
+
+
+def sync_costs(dev):
+    """us per release/acquire cluster barrier and per fence-free exchange,
+    by (kind, threads) and cluster size."""
+    lib = pcg_mf.load_kernel()
+    costs = {}
+    for threads in (pcg_mf.THREADS, pcg_dense.THREADS):
+        for kind, fn in (("barrier", lib.lib.gt_pcg_mf_cluster_barriers),
+                         ("exchange", lib.lib.gt_pcg_mf_cluster_exchanges)):
+            row = {}
+            for c in CLUSTERS:
+                def run(reps):
+                    lib.check(fn(c, threads, reps, launches.stream_ptr(dev)),
+                              kind)
+
+                few = graph_ms(lambda: run(10), reps=5)
+                many = graph_ms(lambda: run(1010), reps=5)
+                row[c] = 1e3 * (many - few) / 1000
+            costs[kind, threads] = row
+            print(f"[sync] {kind} threads={threads} us: " + " ".join(
+                f"c{c}={us:.4f}" for c, us in row.items()), flush=True)
+    return costs
+
+
+def sync_floor_ms(costs, threads, cluster, barriers, exchanges):
+    return 1e-3 * (barriers * costs["barrier", threads][cluster]
+                   + exchanges * costs["exchange", threads][cluster])
+
+
+def k6_inputs(dev, kind, precond, mu=1e-4):
+    """K6's arguments on the first LM solve (damping mu) of sphere2500
+    (SE3) or the 2500-pose SE2 circle, as ``PCGSolver`` builds them."""
+    from . import FP32_FP32
+    from .io import g2o, synthetic
+    from .linearize import linearize
+    from .preconditioners import BlockJacobiPreconditioner
+    from .preconditioners.block_jacobi import row_inverse_blocks
+
+    ds = (synthetic.make_sphere_se3(2500, seed=0) if kind == "se3"
+          else synthetic.make_pose_graph_2d(2500, seed=0))
+    g, *_ = g2o.build_graph(ds, precision=FP32_FP32)
+    problem = g.freeze(device=dev)
+    lin = linearize(problem, problem.params0)
+    site = pcg_mf.plan_pcg_mf(problem, lin)
+    damping = torch.tensor(mu, device=dev)
+    minv = None
+    if precond == "bj":
+        pre = BlockJacobiPreconditioner()
+        state = pre.set_damping(problem, lin, pre.prepare(problem, lin),
+                                damping, False)
+        minv = row_inverse_blocks(problem, state, site.vt_name)
+    damp = lin.diag.clamp(1e-6, 1e32) * damping
+    rows = site.vt_name
+    return (site, pcg_mf.fold_jacobians(problem, lin, site),
+            problem.rows_view(lin.b, rows).reshape(-1).contiguous(),
+            problem.rows_view(damp, rows).reshape(-1).contiguous(), minv)
+
+
+def k6_clusters(dev, costs):
+    lib = pcg_mf.load_kernel()
+    kw = dict(max_iter=50, tol=1e-10, rejection_ratio=1e6)
+    for kind, precond in (("se3", "bj"), ("se3", "identity"), ("se2", "bj")):
+        args = k6_inputs(dev, kind, precond)
+        site, jf, b, damp, minv = args
+        _, steps = pcg_mf.solve_pcg_mf(*args, **kw)
+        steps = int(steps)
+        rule = pcg_mf.cluster_size(site.n * site.d)
+        line = (f"[k6] {kind} {precond} n={site.n} d={site.d}, {steps} CG "
+                f"steps, cluster rule {rule}:")
+        for c in CLUSTERS:
+            ms = graph_ms(lambda: pcg_mf.solve_pcg_mf(*args, **kw,
+                                                      cluster=c))
+            line += f" c{c}={ms:.4f}"
+        work = torch.empty(pcg_mf.work_floats(site), device=dev)
+        x = torch.empty_like(b)
+        iters = torch.empty(1, dtype=torch.int32, device=dev)
+
+        def direct(stage_j):
+            lib.check(lib.lib.gt_pcg_mf_f32(
+                jf.data_ptr(), site.rows.data_ptr(), site.desc.data_ptr(),
+                len(site.blocks), site.csr_off.data_ptr(),
+                site.inc_j.data_ptr(), site.inc_e.data_ptr(), b.data_ptr(),
+                damp.data_ptr(), None if minv is None else minv.data_ptr(),
+                work.data_ptr(), x.data_ptr(), iters.data_ptr(), site.n,
+                site.d, kw["max_iter"], kw["tol"], kw["rejection_ratio"],
+                rule, stage_j, launches.stream_ptr(dev)), "K6")
+
+        # per solve: the set-up and r.z barriers, one r.z barrier a step and
+        # the last; the first r.r exchange, then p.Hp and r.r each step
+        barriers, exchanges = steps + 3, 2 * steps + 1
+        floor = sync_floor_ms(costs, pcg_mf.THREADS, rule, barriers,
+                              exchanges)
+        line += (f" j_staged={graph_ms(lambda: direct(1)):.4f}"
+                 f" j_global={graph_ms(lambda: direct(0)):.4f}"
+                 f" sync_floor_ms={floor:.4f} ({barriers} barriers, "
+                 f"{exchanges} exchanges)")
+        print(line, flush=True)
+        del args, site, jf, b, damp, minv, work
+
+
+def ladybug_schur_system(dev, mu=1e-4):
+    """S, M and b_S of Ladybug-49's first LM solve (PCGSchurSolver(10,
+    1.0, 5.0), damping mu), as the solver hands them to K2."""
+    from . import FP32_FP32
+    from .hessian import apply_damping, build_hessian_structure
+    from .io import bal, synthetic
+    from .linearize import linearize
+    from .preconditioners.block_jacobi_schur import (
+        dense_preconditioner_matrix,
+    )
+    from .schur import SchurOps, build_schur_structure, schur_values
+    from .solvers import PCGSchurSolver
+    from .solvers.dense_cholesky_schur import schur_to_dense
+
+    g, *_ = bal.build_graph(synthetic.make_bal("ladybug", seed=0),
+                            precision=FP32_FP32)
+    problem = g.freeze(device=dev)
+    solver = PCGSchurSolver(10, 1.0, 5.0)
+    lin = linearize(problem, problem.params0)
+    state = solver.prepare(problem, lin)
+    hs = build_hessian_structure(problem)
+    ss = build_schur_structure(problem)
+    hv = apply_damping(problem, hs, state.hvals, lin.diag, mu, False)
+    sv = schur_values(problem, ss, hv)
+    b_s = SchurOps(problem, ss, hv, sv).b_schur(lin.b)
+    pstate = solver.preconditioner.prepare(problem, ss, sv)
+    S = schur_to_dense(problem, ss, sv)
+    M = dense_preconditioner_matrix(problem, ss, pstate, S.dtype)
+    return S, M, b_s.to(S.dtype)
+
+
+def k2_clusters(rng, dev, costs):
+    n = 1024
+    A = rng.standard_normal((n, n))
+    S2 = A @ A.T + n * np.eye(n)
+    M2 = np.zeros_like(S2)
+    for i in range(0, n, 9):
+        M2[i:i + 9, i:i + 9] = np.linalg.inv(S2[i:i + 9, i:i + 9])
+    spd = [torch.as_tensor(a.astype(np.float32), device=dev)
+           for a in (S2, M2, rng.standard_normal(n))]
+    for label, args, kw in (
+            ("Ladybug-49 first Schur system", ladybug_schur_system(dev),
+             dict(max_iter=10, tol=1.0, rejection_ratio=5.0)),
+            ("random SPD", spd,
+             dict(max_iter=10, tol=1e-12, rejection_ratio=5.0))):
+        n = args[2].shape[0]
+        _, steps = pcg_dense.dense_pcg(*args, **kw)
+        steps = int(steps)
+        rule = pcg_dense.cluster_size(n)
+        line = f"[k2] n={n} {label}, {steps} CG steps, cluster rule {rule}:"
+        for c in CLUSTERS:
+            ms = graph_ms(lambda: pcg_dense.dense_pcg(*args, **kw,
+                                                      cluster=c))
+            line += f" c{c}={ms:.4f}"
+        # per solve: the set-up and last barriers; two exchanges to start,
+        # three a step
+        barriers, exchanges = 2, 3 * steps + 2
+        floor = sync_floor_ms(costs, pcg_dense.THREADS, rule, barriers,
+                              exchanges)
+        line += (f" sync_floor_ms={floor:.4f} ({barriers} barriers, "
+                 f"{exchanges} exchanges)")
+        print(line, flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("kernel_sweep: no CUDA device available", file=sys.stderr)
@@ -274,6 +460,10 @@ def main():
     k3_venice(rng, dev)
     torch.cuda.empty_cache()
     k4_venice(rng, dev)
+    torch.cuda.empty_cache()
+    costs = sync_costs(dev)
+    k6_clusters(dev, costs)
+    k2_clusters(rng, dev, costs)
     return 0
 
 

@@ -10,11 +10,18 @@ taken (a 0-d int tensor on the device).
 CPU tensors take the plain version (``dense_pcg_plain``: ``run_pcg`` with
 the kernel's order of arithmetic); CUDA tensors launch K2 (float32,
 n <= 1024) or raise.
+
+K2 runs the whole solve on one thread-block cluster of ``cluster_size(n)``
+CTAs (at most 16; ``dense_pcg(..., cluster=)`` forces another size, for
+tests and ``kernel_sweep``). A CTA owns whole 32-entry groups, so whole
+columns of S and M and whole dot groups: every sum keeps one order, and
+the bits do not depend on the cluster size (``csrc/pcg_dense.cu``).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -25,19 +32,30 @@ from .launches import LaunchStats, on_device, stream_ptr
 STATS = LaunchStats("pcg_dense.dense_pcg")
 
 MAX_N = 1024
+MAX_CLUSTER = 16
+GROUP = 32  # entries of a dot group; a CTA owns whole groups
+THREADS = 1024  # a CTA's threads (csrc/pcg_dense.cu kThreads)
 
 _SIGNATURES = {
-    # S, M, b, x, iters, n, max_iter, tol, rejection_ratio, stream
+    # S, M, b, x, iters, n, max_iter, tol, rejection_ratio, cluster, stream
     "gt_pcg_dense_f32": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                          ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                         ctypes.c_void_p],
+                         ctypes.c_int, ctypes.c_void_p],
 }
 
 
 def load_kernel() -> build.KernelLibrary:
     """Build K2 (at first use) and load it."""
     return build.load_library("pcg_dense", _SIGNATURES)
+
+
+def cluster_size(n: int) -> int:
+    """K2's CTAs for n entries: one 32-entry group each where there are
+    at most 16 groups (a power of two, so n = 441's 14 groups take 16,
+    two of them idle), else 16."""
+    groups = -(-n // GROUP)
+    return min(MAX_CLUSTER, 1 << max(groups - 1, 0).bit_length())
 
 
 def _row_vec_mat(vec: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
@@ -62,8 +80,11 @@ def dense_pcg_plain(S, M, b, *, max_iter: int, tol: float,
 
 
 def dense_pcg(S: torch.Tensor, M: torch.Tensor, b: torch.Tensor, *,
-              max_iter: int, tol: float, rejection_ratio: float):
-    """Solve S x = b (S, M: (n, n); b: (n,)); returns (x, iterations)."""
+              max_iter: int, tol: float, rejection_ratio: float,
+              cluster: Optional[int] = None):
+    """Solve S x = b (S, M: (n, n); b: (n,)); returns (x, iterations).
+    ``cluster``: K2's CTAs (1-16), ``cluster_size(n)`` by default; it
+    changes no bits."""
     if b.device.type == "cpu":
         return dense_pcg_plain(S, M, b, max_iter=max_iter, tol=tol,
                                rejection_ratio=rejection_ratio)
@@ -81,6 +102,10 @@ def dense_pcg(S: torch.Tensor, M: torch.Tensor, b: torch.Tensor, *,
         raise ValueError(f"{STATS.name}: S and M must be ({n}, {n})")
     if not 0 < n <= MAX_N:
         raise ValueError(f"{STATS.name}: n = {n} outside (0, {MAX_N}]")
+    cluster = cluster_size(n) if cluster is None else cluster
+    if not 0 < cluster <= MAX_CLUSTER:
+        raise ValueError(f"{STATS.name}: cluster = {cluster} outside "
+                         f"(0, {MAX_CLUSTER}]")
     S, M, b = S.contiguous(), M.contiguous(), b.contiguous()
     x = torch.empty(n, dtype=torch.float32, device=b.device)
     iters = torch.empty(1, dtype=torch.int32, device=b.device)
@@ -91,7 +116,7 @@ def dense_pcg(S: torch.Tensor, M: torch.Tensor, b: torch.Tensor, *,
         err = lib.lib.gt_pcg_dense_f32(
             S.data_ptr(), M.data_ptr(), b.data_ptr(), x.data_ptr(),
             iters.data_ptr(), n, int(max_iter), float(tol),
-            float(rejection_ratio), stream)
+            float(rejection_ratio), cluster, stream)
         lib.check(err, STATS.name)
         STATS.done(ev)
     return x, iters[0]

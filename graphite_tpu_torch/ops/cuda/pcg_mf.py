@@ -20,7 +20,12 @@ block-Jacobi inverse blocks (or the identity) as preconditioner.
   that take every product and sum in K6's order (the row scatter as a
   padded CSR walk, no atomics); the CPU path and the kernel's oracle.
 - ``solve_pcg_mf``: the plain version for CPU tensors; on a CUDA tensor
-  it launches K6 (float32) or raises.
+  it launches K6 (float32) or raises. K6 runs the whole solve on one
+  thread-block cluster of ``cluster_size(n * d)`` CTAs (at most 16;
+  ``cluster=`` forces another size, for tests and ``kernel_sweep``). A
+  CTA owns whole 1,024-entry chunks of the vectors and computes J' p for
+  its rows' incidences, so every sum keeps one order and the bits do not
+  depend on the cluster size (``csrc/pcg_mf.cu``).
 
 Both return ``(x, iterations)``: x (n * d,) over the type's rows and the
 number of CG steps taken (a 0-d int tensor on the device).
@@ -46,8 +51,9 @@ STATS = LaunchStats("pcg_mf.solve_pcg_mf")
 # The JAX package's gate: the folded J must fit its TPU kernel's VMEM
 # budget, the row table its in-kernel gather limit
 # (graphite_tpu/ops/pallas/pcg_mf.py, segmv.py). Neither is a limit of K6,
-# which reads J' and the vectors from global memory; its own limit is the
-# shared memory of its dot partials and block descriptors, which the
+# which reads J' and the vectors from global memory (staging into shared
+# memory what fits); its own limits are N = n * d <= 1024 chunks of 1024
+# and the shared memory of its chunk sums and block descriptors, which the
 # launch checks. The gate is kept so that the port takes the JAX package's
 # branch at every size, and tests lower it (ROADMAP Next: replace it with
 # K6's own feasibility).
@@ -56,18 +62,34 @@ TABLE_ROWS_LIMIT = 4096
 TB = 512  # row-table padding
 CF = 2048  # factor chunk of the padded J
 
+CHUNK = 1024  # vector entries of a dot chunk; a CTA owns whole chunks
+MAX_CLUSTER = 16
+THREADS = 512  # a CTA's threads (csrc/pcg_mf.cu kThreads)
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # jf, rows, desc, nb, csr_off, inc_j, inc_v, inc_e, b, damp, minv,
-    # work, x, iters, n, d, max_iter, tol, rejection_ratio, stream
+    # jf, rows, desc, nb, csr_off, inc_j, inc_e, b, damp, minv, work, x,
+    # iters, n, d, max_iter, tol, rejection_ratio, cluster, stage_j,
+    # stream
     "gt_pcg_mf_f32": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                      _P, _I, _I, _I, _F, _F, _P],
+                      _I, _I, _I, _F, _F, _I, _I, _P],
+    # cluster, threads, reps, stream: microbenchmarks (kernel_sweep)
+    "gt_pcg_mf_cluster_barriers": [_I, _I, _I, _P],
+    "gt_pcg_mf_cluster_exchanges": [_I, _I, _I, _P],
 }
 
 
 def load_kernel() -> build.KernelLibrary:
     """Build K6 (at first use) and load it."""
     return build.load_library("pcg_mf", _SIGNATURES)
+
+
+def cluster_size(N: int) -> int:
+    """K6's CTAs for N vector entries: one 1,024-entry chunk each where
+    there are at most 16 chunks (a power of two, so sphere2500's 15 chunks
+    take 16, one of them idle), else 16."""
+    chunks = -(-N // CHUNK)
+    return min(MAX_CLUSTER, 1 << max(chunks - 1, 0).bit_length())
 
 
 def _round_up(x: int, m: int) -> int:
@@ -100,7 +122,6 @@ class PcgMfSite:
     n: int
     blocks: Tuple[MfBlock, ...]
     n_j: int  # floats of the folded J' over all blocks
-    n_v: int  # floats of v = J' p over all blocks
     rows: torch.Tensor  # (sum arity * F,) int32 slot rows, trash row n
     desc: torch.Tensor  # (nb, 6) int32 block descriptors
     csr_off: torch.Tensor  # (n + 1,) int32
@@ -183,7 +204,6 @@ def _build_site(problem, vt_name: str, d: int, n: int) -> PcgMfSite:
 
     return PcgMfSite(
         vt_name=vt_name, d=d, n=n, blocks=tuple(blocks), n_j=jbase,
-        n_v=vbase,
         rows=i32(np.concatenate(rows)),
         desc=i32(np.asarray(desc).reshape(-1, 6)),
         csr_off=i32(csr_off),
@@ -283,12 +303,24 @@ def solve_pcg_mf_plain(site: PcgMfSite, jf, b, damp, minv, *, max_iter: int,
     return x, torch.tensor(k, device=b.device)
 
 
+def work_floats(site: PcgMfSite) -> int:
+    """K6's global scratch: eight vectors of n * d (used where they do not
+    fit in shared memory), and per incidence its gathered p (largest arity
+    x d) and its J' p (largest E)."""
+    amax = max(blk.arity for blk in site.blocks)
+    emax = max(blk.E for blk in site.blocks)
+    return (8 * site.n * site.d
+            + int(site.inc_j.numel()) * (amax * site.d + emax))
+
+
 def solve_pcg_mf(site: PcgMfSite, jf: torch.Tensor, b: torch.Tensor,
                  damp: torch.Tensor, minv: Optional[torch.Tensor], *,
-                 max_iter: int, tol: float, rejection_ratio: float):
+                 max_iter: int, tol: float, rejection_ratio: float,
+                 cluster: Optional[int] = None):
     """Solve on the site's rows: ``jf`` from ``fold_jacobians``; ``b`` and
     ``damp`` (n * d,); ``minv`` (n, d * d) row-major inverse blocks or None
-    (identity). Returns (x, iterations)."""
+    (identity). Returns (x, iterations). ``cluster``: K6's CTAs (1-16),
+    ``cluster_size(n * d)`` by default; it changes no bits."""
     if b.device.type == "cpu":
         return solve_pcg_mf_plain(site, jf, b, damp, minv, max_iter=max_iter,
                                   tol=tol, rejection_ratio=rejection_ratio)
@@ -310,9 +342,13 @@ def solve_pcg_mf(site: PcgMfSite, jf: torch.Tensor, b: torch.Tensor,
                              f"{t.device}")
     if site.rows.device != b.device:
         raise ValueError(f"{STATS.name}: site and b on different devices")
+    cluster = cluster_size(n * d) if cluster is None else cluster
+    if not 0 < cluster <= MAX_CLUSTER:
+        raise ValueError(f"{STATS.name}: cluster = {cluster} outside "
+                         f"(0, {MAX_CLUSTER}]")
     jf, b, damp = jf.contiguous(), b.contiguous(), damp.contiguous()
     minv = None if minv is None else minv.contiguous()
-    work = torch.empty(7 * (n + 1) * d + site.n_v, dtype=torch.float32,
+    work = torch.empty(work_floats(site), dtype=torch.float32,
                        device=b.device)
     x = torch.empty(n * d, dtype=torch.float32, device=b.device)
     iters = torch.empty(1, dtype=torch.int32, device=b.device)
@@ -323,10 +359,10 @@ def solve_pcg_mf(site: PcgMfSite, jf: torch.Tensor, b: torch.Tensor,
         err = lib.lib.gt_pcg_mf_f32(
             jf.data_ptr(), site.rows.data_ptr(), site.desc.data_ptr(),
             len(site.blocks), site.csr_off.data_ptr(), site.inc_j.data_ptr(),
-            site.inc_v.data_ptr(), site.inc_e.data_ptr(), b.data_ptr(),
-            damp.data_ptr(), None if minv is None else minv.data_ptr(),
-            work.data_ptr(), x.data_ptr(), iters.data_ptr(), n, d,
-            int(max_iter), float(tol), float(rejection_ratio), stream)
+            site.inc_e.data_ptr(), b.data_ptr(), damp.data_ptr(),
+            None if minv is None else minv.data_ptr(), work.data_ptr(),
+            x.data_ptr(), iters.data_ptr(), n, d, int(max_iter), float(tol),
+            float(rejection_ratio), cluster, 1, stream)
         lib.check(err, STATS.name)
         STATS.done(ev)
     return x, iters[0]

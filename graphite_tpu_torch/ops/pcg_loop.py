@@ -45,6 +45,42 @@ def tree_dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return tree_sum(u * v)
 
 
+def _halve32(v: torch.Tensor) -> torch.Tensor:
+    """One ``tree_sum`` level: the zero-padded groups of 32 by a halving
+    tree."""
+    w = v.new_zeros(-(-v.shape[0] // 32) * 32)
+    w[: v.shape[0]] = v
+    w = w.reshape(-1, 32)
+    for o in (16, 8, 4, 2, 1):
+        w = w[:, :o] + w[:, o:2 * o]
+    return w[:, 0]
+
+
+def tree_sum_chunked(v: torch.Tensor, ctas: int,
+                     chunk: int = 1024) -> torch.Tensor:
+    """``tree_sum`` as a cluster of ``ctas`` CTAs takes it: each CTA sums
+    its consecutive share of whole ``chunk``-entry chunks (1,024 in K6:
+    ``tree_sum``'s first two levels; 32 in K2: the first) on its own, then
+    every CTA finishes the tree over all the chunk sums. It is bitwise
+    ``tree_sum`` for every ``ctas``, which is what lets K2 and K6 split a
+    dot over a cluster; nothing on the main path calls it."""
+    levels = {32: 1, 1024: 2}[chunk]
+    n_chunks = max(-(-v.shape[0] // chunk), 1)
+    per = -(-n_chunks // ctas)
+    sums = []
+    for cta in range(ctas):
+        for c in range(cta * per, min((cta + 1) * per, n_chunks)):
+            w = v[c * chunk:(c + 1) * chunk]
+            for _ in range(levels):
+                w = _halve32(w)
+            sums.append(w)
+    v = torch.cat(sums)
+    while levels < 2 or v.shape[0] > 1:
+        v = _halve32(v)
+        levels += 1
+    return v[0]
+
+
 def run_pcg(b: torch.Tensor, matvec: Callable, precond: Callable,
             max_iter: int, tol: float, rejection_ratio: float
             ) -> Tuple[torch.Tensor, int]:

@@ -10,8 +10,9 @@ on a machine with only PyTorch (``--noconftest`` skips the JAX set-up in
   1e-5 relative on the card, bitwise repeatable, and bitwise equal to the
   plain version on the CPU (both sum each segment in the plan's lane
   order: row order at group 1, lanes and a halving tree above).
-- K2 bitwise equal to its plain version on the CPU, which takes every
-  product, sum and dot in the kernel's order; no step for a zero b.
+- K2 bitwise equal to its plain version on the card and on the CPU, which
+  take every product, sum and dot in the kernel's order, and bitwise
+  repeatable; no step for a zero b.
 - The LM slice on CUDA and on the CPU: bitwise the same trajectory, with
   every kernel launched.
 - K3, K4 (all three entry points) and K5 vs their plain versions at small
@@ -27,13 +28,20 @@ on a machine with only PyTorch (``--noconftest`` skips the JAX set-up in
   (``dense_matvec_limit=0``, the Schur gates lowered): CUDA and CPU give
   bitwise the same trajectory, and K3, K4 and K5 launch.
 - K6 vs its plain version on the first solve of sphere2500 (SE3,
-  block-Jacobi and identity) and of the 2500-pose SE2 circle: bitwise
-  repeatable, the same number of CG steps, within 1e-5 relative.
+  block-Jacobi and identity) and of the 2500-pose SE2 circle, of both with
+  a prior on the first pose (two factor blocks), and of a 4000-pose sphere
+  (23,994 entries: more than 16 chunks of 1,024; also on one CTA): bitwise
+  equal to the plain version on the card and on the CPU, bitwise
+  repeatable, the same number of CG steps.
+- K6 and K2 on a cluster of 1, 2, 4, 8 and 16 CTAs (each size the card
+  can launch): the same bits as the plain version at every size.
 - The pose-graph LM (SE3, PCGSolver(50, 1e-10, 1e6, block-Jacobi)) on
   CUDA and on the CPU: the same accept pattern, chi2 within 1e-3, K6
   launched once per solve.
 - ``Graph.freeze()`` without a device builds on the card.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -121,11 +129,15 @@ def test_k2_matches_plain_bitwise(cuda_device, n, d, max_iter, tol):
         M[i:i + d, i:i + d] = np.linalg.inv(S[i:i + d, i:i + d])
     args = [a.astype(np.float32) for a in (S, M, rng.standard_normal(n))]
     kw = dict(max_iter=max_iter, tol=tol, rejection_ratio=5.0)
-    x, k = pcg_dense.dense_pcg(
-        *[torch.as_tensor(a, device=cuda_device) for a in args], **kw)
+    gpu = [torch.as_tensor(a, device=cuda_device) for a in args]
+    x, k = pcg_dense.dense_pcg(*gpu, **kw)
+    again, k2 = pcg_dense.dense_pcg(*gpu, **kw)
+    x_dev, k_dev = pcg_dense.dense_pcg_plain(*gpu, **kw)
     x_ref, k_ref = pcg_dense.dense_pcg_plain(
         *[torch.as_tensor(a) for a in args], **kw)
-    assert int(k) == int(k_ref)
+    torch.cuda.synchronize()
+    assert int(k) == int(k2) == int(k_dev) == int(k_ref)
+    assert torch.equal(x, again) and torch.equal(x, x_dev)
     assert torch.equal(x.cpu(), x_ref)
 
 
@@ -353,13 +365,19 @@ def _pose_dataset(kind, n):
     return synthetic.make_pose_graph_2d(n, seed=0)
 
 
-def _first_pose_solve(device, kind, precond, mu=1e-4):
-    """The inputs of K6 on the first LM solve of a pose graph."""
-    g, *_ = g2o.build_graph(_pose_dataset(kind, 2500),
-                            precision=gtt.FP32_FP32)
+def _first_pose_solve(device, kind, precond, mu=1e-4, poses=2500,
+                      prior=False):
+    """The inputs of K6 on the first LM solve of a pose graph (with a prior
+    on the first pose, left free: two factor blocks)."""
+    d = 6 if kind == "se3" else 3
+    g, *_ = g2o.build_graph(
+        _pose_dataset(kind, poses), precision=gtt.FP32_FP32,
+        fix_first=not prior,
+        prior_information=np.eye(d) * 1e6 if prior else None)
     problem = g.freeze(device=device)
     lin = linearize(problem, problem.params0)
     site = pcg_mf.plan_pcg_mf(problem, lin)
+    assert site is not None
     damping = torch.tensor(mu, device=problem.device)
     minv = None
     if precond == "bj":
@@ -374,21 +392,93 @@ def _first_pose_solve(device, kind, precond, mu=1e-4):
             problem.rows_view(damp, rows).reshape(-1), minv)
 
 
-@pytest.mark.parametrize("kind,precond", [("se3", "bj"), ("se3", "identity"),
-                                          ("se2", "bj")])
-def test_k6_matches_plain(cuda_device, kind, precond):
-    site, jf, b, damp, minv = _first_pose_solve(cuda_device, kind, precond)
-    kw = dict(max_iter=50, tol=1e-10, rejection_ratio=1e6)
-    x, k = pcg_mf.solve_pcg_mf(site, jf, b, damp, minv, **kw)
-    again, k2 = pcg_mf.solve_pcg_mf(site, jf, b, damp, minv, **kw)
-    ref, k_ref = pcg_mf.solve_pcg_mf_plain(site, jf, b, damp, minv, **kw)
+K6_KW = dict(max_iter=50, tol=1e-10, rejection_ratio=1e6)
+
+
+def _on_cpu_site(site):
+    return dataclasses.replace(
+        site, **{f.name: getattr(site, f.name).cpu()
+                 for f in dataclasses.fields(site)
+                 if isinstance(getattr(site, f.name), torch.Tensor)})
+
+
+def _k6_plain_both(args):
+    """K6's plain version on the card and on the CPU: (x, steps) each."""
+    site, jf, b, damp, minv = args
+    dev = pcg_mf.solve_pcg_mf_plain(*args, **K6_KW)
+    cpu = pcg_mf.solve_pcg_mf_plain(
+        _on_cpu_site(site), jf.cpu(), b.cpu(), damp.cpu(),
+        None if minv is None else minv.cpu(), **K6_KW)
+    return dev, cpu
+
+
+@pytest.mark.parametrize("kind,precond,poses,prior,cluster", [
+    ("se3", "bj", 2500, False, None), ("se3", "identity", 2500, False, None),
+    ("se2", "bj", 2500, False, None),
+    ("se3", "bj", 4000, False, None),  # 3,999 free rows: 24 chunks on 16
+    # one CTA: its incidences' structure no longer fits in shared memory
+    ("se3", "bj", 4000, False, 1),
+    ("se3", "bj", 2500, True, None),  # two factor blocks: prior, between
+    ("se2", "identity", 2500, True, 4),
+])
+def test_k6_matches_plain(cuda_device, kind, precond, poses, prior,
+                          cluster):
+    args = _first_pose_solve(cuda_device, kind, precond, poses=poses,
+                             prior=prior)
+    site, jf, b, damp, minv = args
+    assert len(site.blocks) == (2 if prior else 1)
+    if poses == 4000:
+        assert site.n * site.d > 16 * pcg_mf.CHUNK
+    x, k = pcg_mf.solve_pcg_mf(*args, **K6_KW, cluster=cluster)
+    again, k2 = pcg_mf.solve_pcg_mf(*args, **K6_KW, cluster=cluster)
+    (ref, k_ref), (ref_cpu, k_cpu) = _k6_plain_both(args)
     torch.cuda.synchronize()
-    assert torch.equal(x, again) and int(k) == int(k2)
-    assert int(k) == int(k_ref) > 0
-    assert float((x - ref).abs().max() / ref.abs().max()) <= 1e-5
+    assert int(k) == int(k2) == int(k_ref) == int(k_cpu) > 0
+    assert torch.equal(x, again) and torch.equal(x, ref)
+    assert torch.equal(x.cpu(), ref_cpu)
     with pytest.raises(NotImplementedError):
         pcg_mf.solve_pcg_mf(site, jf.double(), b.double(), damp.double(),
-                            None, **kw)
+                            None, **K6_KW)
+
+
+def _cluster_or_skip(run, cluster):
+    try:
+        return run()
+    except RuntimeError as err:
+        if "too many resources" in str(err):
+            pytest.skip(f"no cluster of {cluster} CTAs fits on this card")
+        raise
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_k6_same_bits_at_every_cluster_size(cuda_device, cluster):
+    args = _first_pose_solve(cuda_device, "se3", "bj")
+    x, k = _cluster_or_skip(lambda: pcg_mf.solve_pcg_mf(
+        *args, **K6_KW, cluster=cluster), cluster)
+    ref, k_ref = pcg_mf.solve_pcg_mf_plain(*args, **K6_KW)
+    torch.cuda.synchronize()
+    assert int(k) == int(k_ref) > 0 and torch.equal(x, ref)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("n", [441, 1024])
+def test_k2_same_bits_at_every_cluster_size(cuda_device, n, cluster):
+    """n = 441 keeps S's and M's slices resident at 2 or more CTAs; 1,024
+    streams them at every size."""
+    rng = np.random.default_rng(n)
+    A = rng.standard_normal((n, n))
+    S = A @ A.T + n * np.eye(n)
+    M = np.zeros_like(S)
+    for i in range(0, n, 9):
+        M[i:i + 9, i:i + 9] = np.linalg.inv(S[i:i + 9, i:i + 9])
+    args = [torch.as_tensor(a.astype(np.float32), device=cuda_device)
+            for a in (S, M, rng.standard_normal(n))]
+    kw = dict(max_iter=10, tol=1e-12, rejection_ratio=5.0)
+    x, k = _cluster_or_skip(lambda: pcg_dense.dense_pcg(
+        *args, **kw, cluster=cluster), cluster)
+    ref, k_ref = pcg_dense.dense_pcg_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert int(k) == int(k_ref) > 0 and torch.equal(x, ref)
 
 
 def test_pose_lm_cuda_vs_cpu(cuda_device):

@@ -4,6 +4,10 @@
   ``dense_pcg`` in interpret mode, float32, to 1e-4 (the TPU kernel's
   matmuls sum in another order), on the JAX package's three cases plus
   its rejection case; the iteration count vs the port's ``run_pcg``.
+- The order K2 splits its dots by over a cluster: whole 32-entry groups
+  summed per CTA, then the shared tree (``tree_sum_chunked(..., 32)``),
+  is bitwise ``tree_sum`` at every cluster size, on inputs with -0.0 and
+  with cancellation; and ``cluster_size``.
 
 The kernel itself is tested on the card by ``test_torch_gpu.py``.
 """
@@ -18,7 +22,13 @@ import torch
 
 import graphite_tpu.ops.pallas.pcg_dense as jax_pcg_dense
 from graphite_tpu_torch.ops.cuda import pcg_dense
-from graphite_tpu_torch.ops.pcg_loop import run_pcg, tree_dot
+from graphite_tpu_torch.ops.pcg_loop import (
+    run_pcg,
+    tree_dot,
+    tree_sum,
+    tree_sum_chunked,
+)
+from test_torch_pcg_mf import signed_zeros_and_cancellation
 
 torch.set_num_threads(1)
 
@@ -119,3 +129,20 @@ def test_tree_dot_fixed_order(n):
     assert w.shape == (1,)
     got = tree_dot(torch.as_tensor(u), torch.as_tensor(v))
     assert got.dtype == torch.float32 and float(got) == float(w[0])
+
+
+@pytest.mark.parametrize("ctas", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("N", [441, 1024, 7_497, 14_994, 23_994])
+def test_group_split_sum_is_tree_sum(N, ctas):
+    v = signed_zeros_and_cancellation(N, seed=1)
+    for w in (v, -v.abs(), torch.full((N,), -0.0)):
+        got, ref = tree_sum_chunked(w, ctas, chunk=32), tree_sum(w)
+        assert got.view(torch.int32) == ref.view(torch.int32)
+
+
+def test_cluster_size():
+    """One 32-entry group per CTA up to 16 CTAs, a power of two: Ladybug's
+    n = 441 (14 groups) takes 16, n = 90 takes 4."""
+    assert [pcg_dense.cluster_size(n) for n in (1, 32, 33, 90, 441, 512,
+                                                513, 1024)] == [
+        1, 1, 2, 4, 16, 16, 16, 16]

@@ -13,6 +13,10 @@ plan, on the CPU.
   graphs, None on BAL (two vertex types), None with ``J_BYTES_LIMIT`` or
   ``TABLE_ROWS_LIMIT`` lowered; the fixed pose's slots point at the trash
   row and scatter nowhere.
+- The order K6 splits its dots by over a cluster: whole 1,024-entry
+  chunks summed per CTA, then the shared tree (``tree_sum_chunked``), is
+  bitwise ``tree_sum`` at sphere2500-like sizes and every cluster size,
+  on inputs with -0.0 and with cancellation; and ``cluster_size``.
 """
 
 import functools
@@ -38,6 +42,7 @@ from graphite_tpu_torch.io import g2o as tg2o
 from graphite_tpu_torch.io import synthetic as tsyn
 from graphite_tpu_torch.linearize import Linearization, linearize
 from graphite_tpu_torch.ops.cuda import pcg_mf
+from graphite_tpu_torch.ops.pcg_loop import tree_sum, tree_sum_chunked
 from graphite_tpu_torch.preconditioners import (
     BlockJacobiPreconditioner,
     IdentityPreconditioner,
@@ -230,3 +235,31 @@ def test_site_structure():
     key = row_of * (blk.arity * blk.F) + s * blk.F + f
     assert np.all(np.diff(key) > 0)
     assert np.all(site.inc_e.numpy() == E)
+
+
+def signed_zeros_and_cancellation(N, seed=0):
+    """float32 entries of both signs and wide range, every 7th a -0.0, and
+    the second half cancelling the first (so partial sums hit +-0)."""
+    rng = np.random.default_rng(seed + N)
+    v = (rng.standard_normal(N) * 10.0 ** rng.integers(-3, 4, N)).astype(
+        np.float32)
+    v[N // 2:N // 2 + N // 4] = -v[:N // 4]
+    v[::7] = -0.0
+    return torch.as_tensor(v)
+
+
+@pytest.mark.parametrize("ctas", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("N", [441, 1024, 7_497, 14_994, 23_994])
+def test_chunked_sum_is_tree_sum(N, ctas):
+    v = signed_zeros_and_cancellation(N)
+    for w in (v, -v.abs(), torch.full((N,), -0.0)):
+        got, ref = tree_sum_chunked(w, ctas), tree_sum(w)
+        assert got.view(torch.int32) == ref.view(torch.int32)
+
+
+def test_cluster_size():
+    """One 1,024-entry chunk per CTA up to 16 CTAs, a power of two:
+    sphere2500's 14,994 entries take 16, SE2's 7,497 take 8."""
+    assert [pcg_mf.cluster_size(N) for N in (1, 1024, 1025, 7_497, 14_994,
+                                             23_994, 524_160)] == [
+        1, 1, 2, 8, 16, 16, 16]
