@@ -66,7 +66,47 @@ own:
    accept patterns equal, chi2 within 1e-3, K3, K4 and K5 launched, with
    each kernel's launches and total ms.
 
-Prints the kernels' JSON summary and the card's name and power limit, and
+The direct solvers (cuSOLVER / LAPACK Cholesky through
+``torch.linalg.cholesky_ex``, batched per tree level on the multifrontal
+branch; SciPy ``splu`` on the host branches). Each path checks its first
+solve (damping 1e-4): ok, the float64 relative residual ||A x - b|| / ||b||
+<= 1e-4 against the damped matrix A (S or H), two card runs bitwise
+equal, and (up to n = 16,002) how far the card's and the CPU's float64
+solutions of that system are apart; then its LM run on the card, and the
+CPU's step from each of that run's states (its parameters and damping):
+the same accept decision and chi2 within 1e-3 at every step
+(``compare_lockstep``: independent float32 runs of a direct solver part
+chaotically), the final chi2 below the initial one, finite parameters.
+Each prints ms per LM iteration, the factorization's ms per call and its
+bound (n^3/3 float64 operations over the float64 tensor-core peak; the
+fronts' own work for the multifrontal branch), the failed solves (the
+float32 S can be indefinite at small damping: ``ok=False``, a rejected
+step) and peak memory:
+
+10. ``direct-ladybug``: Ladybug-49 (Schur) with DenseCholeskySchurSolver,
+    SparseDirectSchurSolver() (dense S, n = 441) and
+    SparseDirectSchurSolver(on_device_dim_p=0) (host ``splu``), 10
+    iterations each;
+11. ``direct-full-h``: Ladybug-49 without elimination (dim_h 23,769) with
+    DenseCholeskySolver and SparseDirectSolver() (its dense branch on the
+    card; its host branch on the CPU), 3 iterations each;
+12. ``direct-sphere2500``: SparseDirectSolver() (dense H, dim_h 14,994)
+    and SparseDirectSolver(multifrontal=True), 10 iterations each (the
+    CPU's steps with the same branch forced); unit quaternions; the
+    multifrontal plan's host seconds; K1 launched at
+    every extend-add and right-hand-side site of the multifrontal
+    factorization (the tree's depth, fronts and widest front printed),
+    and K1 vs its plain version at the largest of each;
+13. ``direct-venice`` (run after phase 7, on its problem):
+    SparseDirectSchurSolver() (dense S at dim_p 16,002 on the card), 10
+    iterations; phase 8 takes the CPU's steps from its first 2 states;
+14. ``cli``: ``graphite_tpu_torch.examples.bal.main`` for its six solvers
+    at ``--synthetic ladybug --iterations 3`` and
+    ``examples.pose_graph.main`` for its three at ``--poses 500
+    --iterations 5``, in-process on the card: chi2 lowered.
+
+Prints the direct factorizations' JSON summary (``direct_factorizations``),
+the kernels' JSON summary and the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. K1's to K6's lines
 also print their times before their redesign (``was_ms``, PERF.md's
 kernel table). Each kernel's entry
@@ -120,6 +160,9 @@ def rel_err(out, ref):
 # bandwidth and the float32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# the float64 rate of the tensor cores (the same data sheet), which
+# cuSOLVER's float64 Cholesky and cuBLAS's float64 products can use
+FP64_OPS_PER_S = 67e12
 
 
 def nbytes(*tensors):
@@ -1191,17 +1234,23 @@ def phase_venice_slice(problem, solver, iterations):
     return gpu, launches
 
 
-def phase_venice_cpu(ds, params0, gpu, solver, iterations):
+def phase_venice_cpu(ds, params0, gpu, solver, iterations, direct_gpu):
     """The CPU run starts from the card run's parameters (``params0``,
-    NumPy, handed over by ``interop``)."""
+    NumPy, handed over by ``interop``): PCG-Schur; then the sparse direct
+    Schur solver's (dense S) first steps from the card direct run's
+    states (``compare_lockstep``)."""
     from graphite_tpu_torch import FP32_FP32
     from graphite_tpu_torch.interop import params_from_numpy
     from graphite_tpu_torch.io import bal
+    from graphite_tpu_torch.solvers import SparseDirectSchurSolver
 
     g, *_ = bal.build_graph(ds, precision=FP32_FP32)
-    cpu = run_lm(g.freeze(device="cpu"), solver, iterations,
-                 params_from_numpy(params0))
+    problem = g.freeze(device="cpu")
+    cpu = run_lm(problem, solver, iterations, params_from_numpy(params0))
     compare_runs("venice-cpu", gpu, cpu)
+    direct_run, states = direct_gpu
+    compare_lockstep("direct-venice-cpu", direct_run, states[:iterations],
+                     problem, SparseDirectSchurSolver())
 
 
 def phase_forced(iterations):
@@ -1228,6 +1277,450 @@ def phase_forced(iterations):
                  "segsum_stream.streaming_matvec_tbl",
                  "segmv.matvec_sym_stream"):
         check(launches[name] > 0, f"{name} never launched (forced)")
+
+
+class Recorded:
+    """A solver that keeps, for each solve, its ``ok`` and the state the
+    LM loop solved from (parameters and damping, device copies): read
+    after the run, so the run has no extra sync."""
+
+    def __init__(self, solver):
+        self.solver = solver
+        self.oks = []
+        self.states = []
+
+    def prepare(self, *args, **kwargs):
+        return self.solver.prepare(*args, **kwargs)
+
+    def solve(self, problem, lin, state, damping, use_identity, params=None):
+        self.states.append(({k: v.clone() for k, v in params.items()},
+                            damping.clone()))
+        delta, ok = self.solver.solve(problem, lin, state, damping,
+                                      use_identity, params=params)
+        self.oks.append(ok)
+        return delta, ok
+
+    def failed(self):
+        return sum(not bool(ok) for ok in self.oks)
+
+
+def compare_lockstep(tag, gpu, states, cpu_problem, solver):
+    """The CPU's LM step from each state of the card run (its parameters,
+    damping and chi2; ``lm_step``) against the card's step: the same
+    accept decision, chi2 within 1e-3 of the card's.
+
+    A direct solver's float32 trajectory is chaotic: S (or H) is
+    ill-conditioned and carries float32 cancellation error, so one step
+    component whose float32 rounding differs between the two devices
+    (cuSOLVER's and LAPACK's float64 solutions are not bitwise equal:
+    ``first_direct_solve`` prints by how much) parts two independent runs
+    by ~1e-3 in chi2 within a few iterations (PERF.md §6). Compared from
+    the same state, each step stands on its own."""
+    import torch
+
+    from graphite_tpu_torch.linearize import linearize
+    from graphite_tpu_torch.optimizers.lm import lm_step
+
+    t1 = time.perf_counter()
+    counted = Recorded(solver)
+    gdt = cpu_problem.precision.graph_dtype
+    steps = []
+    for (params, mu), h in zip(states, gpu.history):
+        params = {k: v.cpu() for k, v in params.items()}
+        chi2 = torch.tensor(h["chi2_before"], dtype=gdt)
+        lin = linearize(cpu_problem, params)
+        accept, _, new_chi2, _ = lm_step(
+            cpu_problem, counted, lin, counted.prepare(cpu_problem, lin,
+                                                       params),
+            params, mu.cpu(), chi2, False)
+        steps.append((accept, float(new_chi2 if accept else chi2)))
+    n = len(steps)
+    acc_gpu = [h["accepted"] for h in gpu.history[:n]]
+    chi_gpu = [h["chi2"] for h in gpu.history[:n]]
+    acc_cpu = [a for a, _ in steps]
+    chi_cpu = [c for _, c in steps]
+    rel = [abs(a - b) / abs(b) for a, b in zip(chi_gpu, chi_cpu)]
+    print(f"[{tag}] cpu steps from the card's states: "
+          f"{time.perf_counter() - t1:.1f} s, failed_solves="
+          f"{counted.failed()}")
+    print(f"[{tag}] cuda chi2={chi_gpu} accepted={acc_gpu}")
+    print(f"[{tag}] cpu  chi2={chi_cpu} accepted={acc_cpu}")
+    print(f"[{tag}] max per-step chi2 rel diff={max(rel):.3e} "
+          f"bitwise_equal_steps={chi_gpu == chi_cpu}")
+    check(acc_gpu == acc_cpu, f"{tag}: accept decisions differ")
+    check(max(rel) <= 1e-3, f"{tag}: chi2 differs by {max(rel)} > 1e-3")
+
+
+def direct_system(problem, solver, lin, state, mu):
+    """The damped matrix that ``solver`` factors on the first solve
+    (damping ``mu``) and its right-hand side: (A, b), in the solver's
+    dtype."""
+    from graphite_tpu_torch.hessian import (
+        apply_damping,
+        build_hessian_structure,
+        dense_hessian_matrix,
+    )
+    from graphite_tpu_torch.solvers import dense_cholesky as dc
+    from graphite_tpu_torch.solvers import dense_cholesky_schur as dcs
+
+    if isinstance(state, dcs.SchurSolverState):
+        ops, b_s = dcs.schur_system(problem, lin, state, mu, False)
+        return dcs.schur_to_dense(problem, ops.ss, ops.sv), b_s
+    b = lin.b[: problem.dim_h]
+    if isinstance(solver, dc.DenseCholeskySolver):
+        return dc.damp_hessian(state.H, mu, False), b
+    hs = build_hessian_structure(problem)
+    hv = apply_damping(problem, hs, state.hvals, lin.diag, mu, False)
+    return dense_hessian_matrix(problem, hs, hv), b
+
+
+def nd_work(plan):
+    """The float64 operations of one multifrontal factorization, front by
+    front at its real size (s own and b boundary columns): s^3/3
+    (Cholesky), s^2 b (triangular solve) and s b^2 (Schur update)."""
+    ops = 0
+    for lv in plan.levels:
+        s = (lv["own_g"] < plan.dim_h).sum(axis=1)
+        b = (lv["bd_g"] < plan.dim_h).sum(axis=1)
+        ops += int((s ** 3 / 3 + s * s * b + s * b * b).sum())
+    return ops
+
+
+# largest system that first_direct_solve also solves on the CPU
+CPU_SOLVE_MAX = 16_002
+
+
+def first_direct_solve(tag, problem, solver, mu=1e-4):
+    """The first LM solve of ``solver`` on the card: two runs bitwise
+    equal, ok, the float64 relative residual ||A x - b|| / ||b|| <= 1e-4
+    (A the damped matrix), and the factorization's ms per call beside its
+    bound (n^3/3 float64 operations over the float64 tensor-core peak;
+    the fronts' for the multifrontal branch). Up to ``CPU_SOLVE_MAX`` it
+    also solves the same system on the CPU and prints how far the two
+    float64 solutions are apart. Returns its numbers."""
+    import torch
+
+    from graphite_tpu_torch.linearize import linearize
+    from graphite_tpu_torch.ops import nd_multifrontal as nd
+    from graphite_tpu_torch.solvers.dense_cholesky import cholesky_solve
+
+    lin = linearize(problem, problem.params0)
+    state = solver.prepare(problem, lin)
+    delta, ok = solver.solve(problem, lin, state, mu, False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again, ok2 = solver.solve(problem, lin, state, mu, False)
+    torch.cuda.synchronize()
+    solve_ms = 1e3 * (time.perf_counter() - t0)
+    A, b = direct_system(problem, solver, lin, state, mu)
+    n = b.shape[0]
+    A64 = A.double()
+    x = delta[:n].double()
+    b64 = b.double()
+    resid = float((A64 @ x - b64).norm() / b64.norm())
+    del A64
+    repeat = torch.equal(delta, again) and bool(ok) == bool(ok2)
+    plan = problem._cache.get("nd_plan")
+    if n > getattr(solver, "on_device_dim_p", n):
+        # the host branch: S copied to the host and solved by splu
+        ms = solve_ms
+        ops = None  # a sparse LU on the host: no device bound
+        what = (f"host splu n={n} (the whole solve, S's CSC values copied "
+                f"to the host; host clock)")
+    elif plan is not None and getattr(solver, "multifrontal", None):
+        from graphite_tpu_torch.hessian import (
+            apply_damping,
+            build_hessian_structure,
+        )
+
+        hv = apply_damping(problem, build_hessian_structure(problem),
+                           state.hvals, lin.diag, mu, False)
+        ms = device_ms(lambda: nd.nd_factor(problem, plan, hv), 5)
+        ops = nd_work(plan)
+        what = (f"multifrontal: {len(plan.levels)} levels (one batched "
+                f"cholesky_ex, solve_triangular and bmm each), "
+                f"{plan.n_nodes} fronts, widest front "
+                f"{max(lv['W'] for lv in plan.levels)}")
+    else:
+        A64 = A.double()
+        ms = device_ms(lambda: torch.linalg.cholesky_ex(A64), 5)
+        ops = n ** 3 / 3
+        what = f"float64 cholesky_ex n={n}"
+        if n <= CPU_SOLVE_MAX:
+            # the same system solved by LAPACK on the CPU
+            x_gpu, _ = cholesky_solve(A, b)
+            x_cpu, _ = cholesky_solve(A.cpu(), b.cpu())
+            x_gpu = x_gpu.cpu()
+            diff = float((x_gpu - x_cpu).abs().max() / x_cpu.abs().max())
+            flips = int((x_gpu.float() != x_cpu.float()).sum())
+            what += (f", cuda vs cpu float64 solution rel diff={diff:.3e}, "
+                     f"float32 components differing={flips} of {n}")
+            del x_gpu, x_cpu
+        if n <= 2048:
+            # what a float32 factor would give: the condition number, and
+            # the card's and the CPU's float32 solutions
+            ev = torch.linalg.eigvalsh(A64)
+            x32 = [torch.cholesky_solve(b.float().cpu().unsqueeze(1),
+                                        torch.linalg.cholesky(a.float()).cpu()
+                                        ).squeeze(1)
+                   for a in (A, A.cpu())]
+            what += (f", condition number={float(ev.max() / ev.min()):.3e}, "
+                     f"float32 factors: cuda vs cpu solution rel diff="
+                     f"{float((x32[0] - x32[1]).abs().max() / x32[1].abs().max()):.3e}")
+        del A64
+    bound_ms = None if ops is None else 1e3 * ops / FP64_OPS_PER_S
+    print(f"[{tag}] first solve: ok={bool(ok)} rel_residual={resid:.3e} "
+          f"bitwise_repeat={repeat} factorization {what}: ms={ms:.4f} "
+          f"bound_ms={bound_ms}")
+    check(bool(ok), f"{tag}: the first solve failed")
+    check(resid <= 1e-4, f"{tag}: residual {resid} > 1e-4")
+    check(repeat, f"{tag}: two card solves differ")
+    del A, b, delta, again
+    torch.cuda.empty_cache()
+    return dict(n=n, ms=ms, bound_ms=bound_ms, what=what)
+
+
+def direct_path(tag, solver, make_problem, iterations, cpu=None,
+                cpu_solver=None, quaternions=False):
+    """One direct solver's first solve (``first_direct_solve``) and LM run
+    on the card (launches counted, failed solves, ms per iteration, peak
+    memory) on the problem ``make_problem`` (or makes), and, given
+    ``cpu`` (a function making the CPU problem), the CPU's step from each
+    of the card run's states with ``cpu_solver`` (default the same
+    solver; ``compare_lockstep``). Returns (card result, launches, the
+    first solve's numbers, the recorded states)."""
+    import torch
+
+    problem = make_problem() if callable(make_problem) else make_problem
+    first = first_direct_solve(tag, problem, solver)
+    torch.cuda.reset_peak_memory_stats()
+    counted = Recorded(solver)
+    gpu, launches, kernel_ms = count_launches(
+        lambda: run_lm(problem, counted, iterations), record_events=False)
+    peak = torch.cuda.max_memory_allocated()
+    dev_ms = [h["device_ms"] for h in gpu.history]
+    print(f"[{tag}] dim_h={problem.dim_h} ms per LM iteration (median of "
+          f"iterations 1..): device="
+          f"{statistics.median(dev_ms[1:] or dev_ms):.3f} all_device="
+          f"{[round(m, 3) for m in dev_ms]} failed_solves="
+          f"{counted.failed()} peak device memory max_memory_allocated="
+          f"{peak / 2**30:.4f} GiB")
+    print(f"[{tag}] launches { {k: v for k, v in launches.items() if v} }")
+    check_solution(tag, problem, gpu)
+    if quaternions:
+        check_quaternions(tag, gpu)
+    check(len(counted.states) == len(gpu.history),
+          f"{tag}: a solve was not recorded")
+    if cpu is not None:
+        compare_lockstep(tag, gpu, counted.states, cpu(),
+                         cpu_solver or solver)
+    del problem
+    torch.cuda.empty_cache()
+    first.update(ms_per_iteration=statistics.median(dev_ms[1:] or dev_ms),
+                 failed=counted.failed(), peak_gib=peak / 2**30)
+    return gpu, launches, first, counted.states
+
+
+def add_launches(total, launches):
+    for name, n in launches.items():
+        total[name] = total.get(name, 0) + n
+    return total
+
+
+def phase_direct_ladybug(iterations):
+    """Ladybug-49 (Schur) with the dense Cholesky on S, the sparse direct
+    Schur solver on the card (dense S, n = 441) and on its host branch
+    (``splu``), each on the card and on the CPU."""
+    from graphite_tpu_torch.solvers import (
+        DenseCholeskySchurSolver,
+        SparseDirectSchurSolver,
+    )
+
+    total, firsts = {}, {}
+    for label, solver in (
+            ("dense-schur", DenseCholeskySchurSolver()),
+            ("sparse-schur", SparseDirectSchurSolver()),
+            ("sparse-schur-host", SparseDirectSchurSolver(on_device_dim_p=0))):
+        tag = f"direct-ladybug {label}"
+        _, launches, first, _ = direct_path(
+            tag, solver, lambda: ladybug_problem(DEVICE), iterations,
+            cpu=lambda: ladybug_problem("cpu"))
+        check(launches["segsum_stream.streaming_segment_sum"] > 0,
+              f"{tag}: K1 never launched")
+        add_launches(total, launches)
+        firsts[label] = first
+    return total, firsts
+
+
+def ladybug_full_problem(device):
+    """Ladybug-49 without point elimination: the full H (dim_h 23,769)."""
+    import torch
+
+    from graphite_tpu_torch import FP32_FP32
+    from graphite_tpu_torch.io import bal, synthetic
+
+    g, *_ = bal.build_graph(synthetic.make_bal("ladybug", seed=0),
+                            precision=FP32_FP32, eliminate_points=False)
+    return g.freeze(device=torch.device(device))
+
+
+def phase_direct_full_h(iterations):
+    """Ladybug-49's full H with the dense Cholesky and the sparse direct
+    solver (its dense branch on the card at this size; on the CPU its
+    default, the host ``splu``)."""
+    from graphite_tpu_torch.solvers import (
+        DenseCholeskySolver,
+        SparseDirectSolver,
+    )
+
+    total, firsts = {}, {}
+    for label, solver in (("dense", DenseCholeskySolver()),
+                          ("sparse", SparseDirectSolver())):
+        tag = f"direct-full-h {label}"
+        _, launches, first, _ = direct_path(
+            tag, solver, lambda: ladybug_full_problem(DEVICE), iterations,
+            cpu=lambda: ladybug_full_problem("cpu"))
+        check(launches["segsum_stream.streaming_segment_sum"] > 0,
+              f"{tag}: K1 never launched")
+        add_launches(total, launches)
+        firsts[label] = first
+    return total, firsts
+
+
+def phase_direct_sphere(iterations):
+    """sphere2500 with the sparse direct solver: its dense branch
+    (dim_h 14,994) and the multifrontal one, on the card and on the CPU
+    with the same branch forced. K1 must run at every extend-add and
+    right-hand-side site of the multifrontal factorization."""
+    import torch
+
+    from graphite_tpu_torch.hessian import build_hessian_structure
+    from graphite_tpu_torch.ops import nd_multifrontal as nd
+    from graphite_tpu_torch.ops.cuda import segsum_stream
+    from graphite_tpu_torch.solvers import SparseDirectSolver
+
+    total, firsts = {}, {}
+    _, launches, firsts["dense"], _ = direct_path(
+        "direct-sphere2500 dense", SparseDirectSolver(),
+        lambda: pose_problem(DEVICE), iterations,
+        cpu=lambda: pose_problem("cpu"),
+        cpu_solver=SparseDirectSolver(on_device=True), quaternions=True)
+    add_launches(total, launches)
+
+    sums = dict(calls=0, k1=0)
+    real = nd.add_sums
+
+    def counted(target, values, site):
+        before = segsum_stream.STATS.launches
+        out = real(target, values, site)
+        if target.device.type == "cuda":  # not the CPU's steps
+            sums["calls"] += 1
+            sums["k1"] += segsum_stream.STATS.launches - before
+        return out
+
+    nd.add_sums = counted
+    solver = SparseDirectSolver(multifrontal=True)
+    problem = pose_problem(DEVICE)
+    t0 = time.perf_counter()
+    problem._cache["nd_plan"] = nd.build_nd_plan(
+        problem, build_hessian_structure(problem))
+    plan_s = time.perf_counter() - t0
+    try:
+        _, launches, firsts["multifrontal"], _ = direct_path(
+            "direct-sphere2500 multifrontal", solver, problem, iterations,
+            cpu=lambda: pose_problem("cpu"), quaternions=True)
+    finally:
+        nd.add_sums = real
+    plan = problem._cache["nd_plan"]
+    print(f"[direct-sphere2500 multifrontal] tree depth="
+          f"{len(plan.levels)} fronts={plan.n_nodes} widest front="
+          f"{max(lv['W'] for lv in plan.levels)} host plan seconds="
+          f"{plan_s:.3f}; add_sums calls on the card="
+          f"{sums['calls']} K1 launches at the ND sites={sums['k1']}")
+    check(sums["k1"] > 0 and sums["k1"] == sums["calls"],
+          "K1 did not launch at every ND extend-add / right-hand-side site")
+    add_launches(total, launches)
+    records = phase_nd_k1_sites(plan)
+    del problem
+    torch.cuda.empty_cache()
+    return total, firsts, records
+
+
+def phase_nd_k1_sites(plan):
+    """K1 vs its plain version at the largest extend-add and the largest
+    right-hand-side site of the multifrontal plan (seeded values)."""
+    import numpy as np
+    import torch
+
+    from graphite_tpu_torch.ops.cuda import segsum_stream
+    from graphite_tpu_torch.ops.cuda.segsum import segment_sum_plain
+
+    sites = [(kind, li, getattr(st, kind)) for li, st in enumerate(plan.sites)
+             for kind in ("ea", "rhs") if getattr(st, kind) is not None]
+    rng = np.random.default_rng(5)
+    records = []
+    for kind in ("ea", "rhs"):
+        _, li, site = max((s for s in sites if s[0] == kind),
+                          key=lambda s: s[2].plan.rows)
+        sp = site.plan
+        vals = torch.as_tensor(rng.standard_normal((sp.rows, 1)).astype(
+            np.float32), device=DEVICE)
+        cvals, cplan = vals.cpu(), on_cpu(sp)
+        label = (f"sphere2500 multifrontal {sp.rows}x1->{sp.num_segments} "
+                 f"group {sp.group} "
+                 + ("extend-add" if kind == "ea" else "right-hand side")
+                 + f", level {li}" + (", permuted" if sp.perm is not None
+                                      else ""))
+        records.append(measure(
+            "k1", label,
+            lambda: segsum_stream.streaming_segment_sum(vals, sp),
+            lambda: segment_sum_plain(vals, sp),
+            lambda: segment_sum_plain(cvals, cplan), 10, 3,
+            k1_bound(vals, sp),
+            k1_library(vals, input_order_ids(sp), sp.num_segments)))
+    return {"segsum_stream.streaming_segment_sum": records}
+
+
+def phase_direct_venice(problem, iterations):
+    """Venice-1778 with the sparse direct Schur solver: dense S at dim_p
+    16,002, factored on the card."""
+    from graphite_tpu_torch.solvers import SparseDirectSchurSolver
+
+    gpu, launches, first, states = direct_path(
+        "direct-venice", SparseDirectSchurSolver(), problem, iterations)
+    for name in ("segsum_stream.streaming_segment_sum",
+                 "segsum_stream.streaming_segment_product_sum_rtbl",
+                 "segmv.block_matvec_wtbl",
+                 "segsum_stream.streaming_matvec_tbl"):
+        check(launches[name] > 0, f"{name} never launched (direct-venice)")
+    return (gpu, states), launches, first
+
+
+def phase_cli():
+    """Both CLIs in-process on the card: the six BAL solvers at Ladybug-49
+    (3 iterations) and the three pose-graph solvers at 500 poses (5)."""
+    from graphite_tpu_torch.examples import bal as bal_cli
+    from graphite_tpu_torch.examples import pose_graph as pose_cli
+
+    def run():
+        out = {}
+        for solver in bal_cli.SOLVERS:
+            out[f"bal {solver}"] = bal_cli.main(
+                ["--synthetic", "ladybug", "--iterations", "3", "--solver",
+                 solver])
+        for solver in pose_cli.SOLVERS:
+            out[f"pose_graph {solver}"] = pose_cli.main(
+                ["--poses", "500", "--iterations", "5", "--solver", solver])
+        return out
+
+    results, launches, _ = count_launches(run, record_events=False)
+    for name, res in results.items():
+        print(f"[cli] {name}: chi2 {res.initial_chi2!r} -> {res.chi2!r} "
+              f"accepted={[h['accepted'] for h in res.history]}")
+        check(res.chi2 < res.initial_chi2, f"cli {name}: chi2 not lowered")
+    check(launches["segsum_stream.streaming_segment_sum"] > 0,
+          "K1 never launched by the CLIs")
+    return launches
 
 
 # (kernel, source, {entry point: TPU kernel body it replaces})
@@ -1335,18 +1828,38 @@ def main():
     params0 = params_to_numpy(problem.params0)
     gpu, venice_launches = timed("venice", phase_venice_slice, problem,
                                  solver, 10)
+    direct_gpu, direct_venice_launches, venice_first = timed(
+        "direct-venice", phase_direct_venice, problem, 10)
     del problem
     torch.cuda.empty_cache()
-    timed("venice-cpu", phase_venice_cpu, ds, params0, gpu, solver, 2)
+    timed("venice-cpu", phase_venice_cpu, ds, params0, gpu, solver, 2,
+          direct_gpu)
     del ds
     timed("forced", phase_forced, 10)
+    direct_ladybug_launches, ladybug_firsts = timed(
+        "direct-ladybug", phase_direct_ladybug, 10)
+    full_h_launches, full_h_firsts = timed("direct-full-h",
+                                           phase_direct_full_h, 3)
+    sphere_direct_launches, sphere_firsts, nd_k1 = timed(
+        "direct-sphere2500", phase_direct_sphere, 10)
+    cli_launches = timed("cli", phase_cli)
 
-    measured = merge_measured(k1, k2, k6, pose_k1, venice_measured)
+    firsts = {**{f"ladybug {k}": v for k, v in ladybug_firsts.items()},
+              **{f"ladybug full H {k}": v for k, v in full_h_firsts.items()},
+              **{f"sphere2500 {k}": v for k, v in sphere_firsts.items()},
+              "venice sparse-schur": venice_first}
+    print(json.dumps({"direct_factorizations": firsts}))
+    measured = merge_measured(k1, k2, k6, pose_k1, venice_measured, nd_k1)
     print(json.dumps({"kernels": kernels_json(
         measured, {"ladybug-49": ladybug_launches,
                    "sphere2500": pose_launches,
                    "sphere2500-generic": generic_launches,
-                   "venice-1778": venice_launches})}))
+                   "venice-1778": venice_launches,
+                   "direct-ladybug": direct_ladybug_launches,
+                   "direct-full-h": full_h_launches,
+                   "direct-sphere2500": sphere_direct_launches,
+                   "direct-venice": direct_venice_launches,
+                   "cli": cli_launches})}))
     print(f"[done] total seconds={time.perf_counter() - t_start:.1f}")
 
     smi = subprocess.run(

@@ -11,6 +11,12 @@ where each factor's ``J_s^T dL P J_t`` lands.
 them into the groups with ``reduce_rows``; ``apply_damping`` returns a
 copy with damped diagonal-block diagonals: ``d + mu`` or
 ``d + mu * clamp(d, 1e-6, 1e32)`` from the undamped scaled diagonal.
+
+The direct solvers read the full symmetric matrix: ``csc_values`` (its
+scalar CSC values, structure from ``ensure_csc_structure``) and
+``dense_hessian_matrix`` (dense on the device). Each position has exactly
+one source entry, so both are indexed copies, with no sums and no atomics;
+``hessian_to_dense`` is the tests' NumPy oracle.
 """
 
 from __future__ import annotations
@@ -54,6 +60,16 @@ class HessianStructure:
     contribs: List[ContribMap]
     diag_group: np.ndarray  # (n_block_cols,) group index (-1 if absent)
     diag_idx: np.ndarray
+    # scalar CSC export of the full symmetric matrix, built on first use
+    # by ensure_csc_structure (only the sparse direct solvers need it);
+    # per group, the CSC position of each block entry and of its
+    # transposed copy (nnz for the trash block and for diagonal blocks'
+    # transposes)
+    csc_indptr: Optional[np.ndarray] = None  # (dim_h + 1,)
+    csc_indices: Optional[np.ndarray] = None  # (nnz,)
+    nnz: int = 0
+    csc_dst: Optional[Dict[Tuple[int, int], np.ndarray]] = None
+    csc_dst_t: Optional[Dict[Tuple[int, int], np.ndarray]] = None
 
 
 # group key -> (n_g + 1, dr*dc) values; the last row is the trash block
@@ -256,3 +272,169 @@ def apply_damping(problem, hs: HessianStructure, values: HessianValues,
         sub.index_copy_(1, diag_pos, dnew)
         out[key] = out[key].index_copy(0, rows, sub)
     return out
+
+
+def ensure_csc_structure(problem, hs: HessianStructure) -> HessianStructure:
+    """Build the scalar CSC export of the full symmetric H on first use:
+    per group all direct entries, then the transposed entries of its
+    off-diagonal blocks, sorted by (column, row)."""
+    if hs.csc_indptr is not None:
+        return hs
+    dim_h = problem.dim_h
+    offsets = problem.block_offsets
+    rows_segments: List[np.ndarray] = []
+    cols_segments: List[np.ndarray] = []
+    seg_layout = []  # (key, transposed, block index in group)
+    for gi, key in enumerate(hs.group_keys):
+        dr, dc = key
+        members = np.nonzero(hs.group_of_block == gi)[0]  # CSC order
+        r_ids = hs.block_rows[members]
+        c_ids = hs.block_cols[members]
+        rr = offsets[r_ids][:, None, None] + np.arange(dr)[None, :, None]
+        cc = offsets[c_ids][:, None, None] + np.arange(dc)[None, None, :]
+        shape = (len(members), dr, dc)
+        rows_segments.append(np.broadcast_to(rr, shape).ravel())
+        cols_segments.append(np.broadcast_to(cc, shape).ravel())
+        seg_layout.append((key, False, hs.index_in_group[members]))
+        off = members[r_ids != c_ids]
+        if off.size:
+            r_o, c_o = hs.block_rows[off], hs.block_cols[off]
+            # transposed copy: entry (i, j) of the block lands at
+            # (col offset + j, row offset + i)
+            rr_t = offsets[c_o][:, None, None] + np.arange(dc)[None, None, :]
+            cc_t = offsets[r_o][:, None, None] + np.arange(dr)[None, :, None]
+            shape = (off.size, dr, dc)
+            rows_segments.append(np.broadcast_to(rr_t, shape).ravel())
+            cols_segments.append(np.broadcast_to(cc_t, shape).ravel())
+            seg_layout.append((key, True, hs.index_in_group[off]))
+
+    if rows_segments:
+        rows_cat = np.concatenate(rows_segments)
+        cols_cat = np.concatenate(cols_segments)
+    else:
+        rows_cat = cols_cat = np.zeros(0, dtype=np.int64)
+    order = np.lexsort((rows_cat, cols_cat))  # by column, then row
+    nnz = rows_cat.shape[0]
+    csc_indptr = np.zeros(dim_h + 1, dtype=np.int64)
+    np.cumsum(np.bincount(cols_cat, minlength=dim_h), out=csc_indptr[1:])
+    pos_of = np.empty(nnz, dtype=np.int64)
+    pos_of[order] = np.arange(nnz)
+
+    csc_dst = {key: np.full((hs.group_sizes[key] + 1, key[0], key[1]), nnz,
+                            dtype=np.int64) for key in hs.group_keys}
+    csc_dst_t = {key: np.full((hs.group_sizes[key] + 1, key[0], key[1]), nnz,
+                              dtype=np.int64) for key in hs.group_keys}
+    cursor = 0
+    for key, transposed, in_group in seg_layout:
+        n_entries = in_group.size * key[0] * key[1]
+        target = csc_dst_t if transposed else csc_dst
+        target[key][in_group] = pos_of[cursor:cursor + n_entries].reshape(
+            -1, key[0], key[1])
+        cursor += n_entries
+
+    hs.csc_indptr = csc_indptr
+    hs.csc_indices = rows_cat[order]
+    hs.nnz = nnz
+    hs.csc_dst = csc_dst
+    hs.csc_dst_t = csc_dst_t
+    return hs
+
+
+def csc_values(problem, hs: HessianStructure,
+               values: HessianValues) -> torch.Tensor:
+    """The full symmetric H's (nnz,) CSC values in ``inv_dtype``. Every
+    position has one source entry, so this is an indexed copy, with no
+    sums."""
+    ensure_csc_structure(problem, hs)
+    acc = problem.precision.inv_dtype
+    out = torch.zeros(hs.nnz, dtype=acc, device=problem.device)
+    for key, (n, dst, src_t, dst_t) in _csc_positions(problem, hs).items():
+        flat = values[key].reshape(-1).to(acc)
+        out.index_copy_(0, dst, flat[:n])
+        if src_t.numel():
+            out.index_copy_(0, dst_t, flat.index_select(0, src_t))
+    return out
+
+
+def _csc_positions(problem, hs: HessianStructure):
+    """Per group: the count of its real entries, their CSC positions, and
+    the entries of the off-diagonal blocks with the positions of their
+    transposed copies (host-built once, cached on the problem)."""
+    cache = problem._cache
+    if "csc_positions" not in cache:
+        out = {}
+        for key in hs.group_keys:
+            n = hs.group_sizes[key] * key[0] * key[1]
+            dst_t = hs.csc_dst_t[key].reshape(-1)
+            src_t = np.nonzero(dst_t < hs.nnz)[0]
+            out[key] = (n,
+                        problem.index(("csc_dst", key),
+                                      hs.csc_dst[key].reshape(-1)[:n]),
+                        problem.index(("csc_src_t", key), src_t),
+                        problem.index(("csc_dst_t", key), dst_t[src_t]))
+        cache["csc_positions"] = out
+    return cache["csc_positions"]
+
+
+def _dense_h_positions(problem, hs: HessianStructure):
+    """Per group: the flat dense positions of its real blocks' entries, its
+    off-diagonal blocks and the positions of their transposes (host-built
+    once, cached on the problem)."""
+    cache = problem._cache
+    if "dense_h_idx" not in cache:
+        n = problem.dim_h
+        offsets = problem.block_offsets
+        out = {}
+        for gi, key in enumerate(hs.group_keys):
+            dr, dc = key
+            sel = np.nonzero(hs.group_of_block == gi)[0]
+            sel = sel[np.argsort(hs.index_in_group[sel], kind="stable")]
+            r0 = offsets[hs.block_rows[sel]]
+            c0 = offsets[hs.block_cols[sel]]
+            idx = ((r0[:, None, None] + np.arange(dr)[None, :, None]) * n
+                   + c0[:, None, None] + np.arange(dc)[None, None, :])
+            o = np.nonzero(hs.block_rows[sel] != hs.block_cols[sel])[0]
+            idx_t = ((c0[o][:, None, None]
+                      + np.arange(dc)[None, None, :]) * n
+                     + r0[o][:, None, None] + np.arange(dr)[None, :, None])
+            out[key] = (problem.index(("dense_h", key), idx.reshape(-1)),
+                        problem.index(("dense_h_o", key), o),
+                        problem.index(("dense_h_t", key), idx_t.reshape(-1)))
+        cache["dense_h_idx"] = out
+    return cache["dense_h_idx"]
+
+
+def dense_hessian_matrix(problem, hs: HessianStructure,
+                         values: HessianValues) -> torch.Tensor:
+    """Dense (dim_h, dim_h) H in ``inv_dtype`` from the upper-triangular
+    block values, mirrored. Every entry has one source, so this is an
+    indexed copy, with no sums."""
+    n = problem.dim_h
+    acc = problem.precision.inv_dtype
+    h = torch.zeros(n * n, dtype=acc, device=problem.device)
+    for key, (idx, o, idx_t) in _dense_h_positions(problem, hs).items():
+        # value groups carry a trailing trash row: only the real blocks
+        v = values[key][: hs.group_sizes[key]].to(acc)
+        h.index_copy_(0, idx, v.reshape(-1))
+        if o.numel():
+            h.index_copy_(0, idx_t, v.index_select(0, o).reshape(-1))
+    return h.reshape(n, n)
+
+
+def hessian_to_dense(problem, hs: HessianStructure,
+                     values: HessianValues) -> np.ndarray:
+    """Dense float64 NumPy H, block by block (the tests' oracle)."""
+    n = problem.dim_h
+    H = np.zeros((n, n))
+    offsets = problem.block_offsets
+    host = {key: v.detach().cpu().numpy().astype(np.float64)
+            for key, v in values.items()}
+    for i in range(hs.n_blocks):
+        r, c = int(hs.block_rows[i]), int(hs.block_cols[i])
+        key = hs.group_keys[hs.group_of_block[i]]
+        blk = host[key][hs.index_in_group[i]].reshape(key)
+        r0, c0 = int(offsets[r]), int(offsets[c])
+        H[r0:r0 + key[0], c0:c0 + key[1]] += blk
+        if r != c:
+            H[c0:c0 + key[1], r0:r0 + key[0]] += blk.T
+    return H

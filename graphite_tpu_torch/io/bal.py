@@ -70,13 +70,14 @@ def load(path: str) -> BALDataset:
     return BALDataset(cameras, points, cam_idx, point_idx, observations)
 
 
-def build_graph(ds: BALDataset, precision=None, loss=None,
+def build_graph(ds: BALDataset, precision=None,
+                eliminate_points: bool = True, loss=None,
                 loss_param: Optional[float] = None):
     """Build a Graph for a BAL dataset; returns (graph, cameras, points,
     factors).
 
-    Camera ids are [0, C) and point ids [C, C+P); the points are marked
-    for Schur elimination. Observations are added in
+    Camera ids are [0, C) and point ids [C, C+P); ``eliminate_points``
+    marks the points for Schur elimination. Observations are added in
     (point, camera) order, so the per-point reduction destinations (point
     Hessian blocks, Hpl blocks, Schur attach lists) come out sorted; the
     factors then do NOT follow dataset row order: factor ``i`` is dataset
@@ -87,7 +88,8 @@ def build_graph(ds: BALDataset, precision=None, loss=None,
     pts = g.add_vertex_set(bal_model.POINT)
     cams.add_batch(np.arange(ds.num_cameras), ds.cameras)
     pts.add_batch(ds.num_cameras + np.arange(ds.num_points), ds.points)
-    pts.set_eliminate(True)
+    if eliminate_points:
+        pts.set_eliminate(True)
 
     ftype = bal_model.REPROJECTION
     if loss is not None:

@@ -52,6 +52,28 @@ class LMResult:
     history: list
 
 
+def lm_step(problem, solver, lin, sstate, params, mu, chi2,
+            use_identity: bool):
+    """One damped solve from ``params`` (linearized as ``lin``, damping
+    ``mu``, cost ``chi2``) and its gain test: (accept, new parameters,
+    new chi2, rho). A failed solve gives new chi2 = max float, hence a
+    rejected step."""
+    gdt = problem.precision.graph_dtype
+    delta_x, ok = solver.solve(problem, lin, sstate, mu, use_identity,
+                               params=params)
+    new_params = apply_update(problem, params, lin, delta_x)
+    big = torch.tensor(torch.finfo(gdt).max, dtype=gdt, device=problem.device)
+    new_chi2 = torch.where(ok, compute_chi2(problem, new_params), big)
+    dx = delta_x[: problem.dim_h]
+    bb = lin.b[: problem.dim_h]
+    # summed in float64 (like chi2, see linearize.compute_chi2)
+    gain = (dx * (mu * dx + bb)).sum(dtype=torch.float64).to(gdt)
+    denom = torch.where(ok, gain + 1e-3, torch.ones_like(mu))
+    rho = (chi2 - new_chi2) / denom
+    accept = bool(ok & torch.isfinite(new_chi2) & (rho > 0))
+    return accept, new_params, new_chi2, rho
+
+
 def levenberg_marquardt(problem, solver, params=None,
                         options: Optional[LevenbergMarquardtOptions] = None
                         ) -> LMResult:
@@ -60,7 +82,6 @@ def levenberg_marquardt(problem, solver, params=None,
     gdt = problem.precision.graph_dtype
     dev = problem.device
     on_cuda = dev.type == "cuda"
-    big = torch.tensor(torch.finfo(gdt).max, dtype=gdt, device=dev)
 
     lin = linearize(problem, params)
     sstate = solver.prepare(problem, lin, params)
@@ -80,17 +101,9 @@ def levenberg_marquardt(problem, solver, params=None,
             ev1 = torch.cuda.Event(enable_timing=True)
             ev0.record()
         prev_chi2 = chi2
-        delta_x, ok = solver.solve(problem, lin, sstate, mu,
-                                   options.use_identity, params=params)
-        new_params = apply_update(problem, params, lin, delta_x)
-        new_chi2 = torch.where(ok, compute_chi2(problem, new_params), big)
-        dx = delta_x[: problem.dim_h]
-        bb = lin.b[: problem.dim_h]
-        # summed in float64 (like chi2, see linearize.compute_chi2)
-        gain = (dx * (mu * dx + bb)).sum(dtype=torch.float64).to(gdt)
-        denom = torch.where(ok, gain + 1e-3, torch.ones_like(mu))
-        rho = (chi2 - new_chi2) / denom
-        accept = bool(ok & torch.isfinite(new_chi2) & (rho > 0))
+        accept, new_params, new_chi2, rho = lm_step(
+            problem, solver, lin, sstate, params, mu, chi2,
+            options.use_identity)
 
         if accept:
             t = 2.0 * rho - 1.0

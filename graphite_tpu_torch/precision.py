@@ -64,6 +64,26 @@ class Precision:
             return self.graph_dtype
         return self.solver_dtype
 
+    @staticmethod
+    def from_names(graph: str, solver: str) -> "Precision":
+        """The policy named by two dtype names (``fp64 fp64`` or ``fp32
+        fp32``, or their ``float64`` / ``float32`` spellings)."""
+        names = {"fp64": torch.float64, "float64": torch.float64,
+                 "fp32": torch.float32, "float32": torch.float32,
+                 "bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
+                 "fp16": torch.float16, "float16": torch.float16}
+        for name in (graph, solver):
+            if name.lower() not in names:
+                raise ValueError(f"unknown precision '{name}'; expected one "
+                                 f"of {sorted(names)}")
+        pair = (names[graph.lower()], names[solver.lower()])
+        for policy in (FP64_FP64, FP32_FP32):
+            if pair == (policy.graph_dtype, policy.solver_dtype):
+                return policy
+        raise NotImplementedError(
+            f"precision ({graph}, {solver}) is not ported: the port has "
+            "FP64_FP64 and FP32_FP32 (ROADMAP A14)")
+
     @property
     def acc_dtype(self) -> torch.dtype:
         """Accumulation dtype of block contractions (>= float32)."""

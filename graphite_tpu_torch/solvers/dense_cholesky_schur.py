@@ -1,11 +1,31 @@
-"""Dense Schur matrix from block storage (counterpart of
-``schur_to_dense`` in ``graphite_tpu/solvers/dense_cholesky_schur.py``;
-the dense Cholesky solver itself is not ported)."""
+"""Dense Cholesky on the Schur (pose) system, then the landmark
+back-substitution (counterpart of
+``graphite_tpu/solvers/dense_cholesky_schur.py``).
+
+``schur_to_dense`` densifies S from its block values; the solver factors
+it in float64 with ``torch.linalg.cholesky_ex`` at every size
+(``dense_cholesky.cholesky_solve``). (The JAX package
+switches to its recursive ``blocked_cholesky`` at dim_p >= 1024, because
+XLA's Cholesky did not compile at n = 16,384 on the TPU; cuSOLVER has no
+such limit.)
+"""
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
+
+from ..hessian import (
+    HessianValues,
+    apply_damping,
+    build_hessian_structure,
+    compute_hessian_values,
+)
+from ..linearize import Linearization
+from ..schur import SchurOps, build_schur_structure, schur_values
+from .dense_cholesky import cholesky_solve
 
 
 def _dense_positions(problem, ss):
@@ -46,3 +66,52 @@ def schur_to_dense(problem, ss, sv) -> torch.Tensor:
         if off.numel():
             S.index_copy_(0, pos_t, v.index_select(0, off).reshape(-1))
     return S.reshape(n, n)
+
+
+@dataclasses.dataclass
+class SchurSolverState:
+    hvals: HessianValues  # undamped Hessian block values
+
+
+def schur_system(problem, lin: Linearization, state: SchurSolverState,
+                 damping, use_identity: bool):
+    """The damped Schur system of one solve: (SchurOps, b_S). The Schur
+    complement cancels catastrophically at reduced matmul precision, so
+    every float32 product from here on stays IEEE float32 (no TF32)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    hs = build_hessian_structure(problem)
+    ss = build_schur_structure(problem)
+    hv = apply_damping(problem, hs, state.hvals, lin.diag, damping,
+                       use_identity)
+    ops = SchurOps(problem, ss, hv, schur_values(problem, ss, hv))
+    return ops, ops.b_schur(lin.b)
+
+
+def schur_delta(ops: SchurOps, lin: Linearization, dx_p: torch.Tensor,
+                ok: torch.Tensor) -> torch.Tensor:
+    """The full delta of a pose solution: landmarks back-substituted; all
+    zero when the solve failed."""
+    dx_p = dx_p.to(ops.problem.precision.graph_dtype)
+    delta = ops.compose_delta(dx_p, ops.landmark_update(lin.b, dx_p))
+    return torch.where(ok, delta, torch.zeros_like(delta))
+
+
+def prepare_schur(problem, lin: Linearization) -> SchurSolverState:
+    hs = build_hessian_structure(problem)
+    build_schur_structure(problem)
+    return SchurSolverState(hvals=compute_hessian_values(problem, hs, lin))
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseCholeskySchurSolver:
+    def prepare(self, problem, lin: Linearization, params=None):
+        return prepare_schur(problem, lin)
+
+    def solve(self, problem, lin: Linearization, state: SchurSolverState,
+              damping, use_identity: bool, params=None):
+        """Returns (delta_x (dim_x,), ok)."""
+        ops, b_s = schur_system(problem, lin, state, damping, use_identity)
+        dx_p, ok = cholesky_solve(schur_to_dense(problem, ops.ss, ops.sv),
+                                  b_s)
+        return schur_delta(ops, lin, dx_p, ok), ok

@@ -18,7 +18,6 @@ import dataclasses
 import torch
 
 from ..hessian import (
-    HessianValues,
     apply_damping,
     build_hessian_structure,
     compute_hessian_values,
@@ -31,12 +30,7 @@ from ..preconditioners.block_jacobi_schur import (
     dense_preconditioner_matrix,
 )
 from ..schur import SchurOps, build_schur_structure, schur_values
-from .dense_cholesky_schur import schur_to_dense
-
-
-@dataclasses.dataclass
-class SchurSolverState:
-    hvals: HessianValues  # undamped Hessian block values
+from .dense_cholesky_schur import SchurSolverState, schur_to_dense
 
 
 @dataclasses.dataclass(frozen=True)

@@ -514,3 +514,118 @@ def test_identity_preconditioner_takes_k6(cuda_device):
 def test_freeze_default_is_cuda(cuda_device):
     g, *_ = g2o.build_graph(synthetic.make_pose_graph_2d(20, seed=0))
     assert g.freeze().device.type == "cuda"
+
+
+def _direct_problem(kind, device, precision=gtt.FP32_FP32):
+    if kind == "sphere":
+        g, *_ = g2o.build_graph(synthetic.make_sphere_se3(300, seed=0),
+                                precision=precision)
+    else:
+        g, *_ = bal.build_graph(
+            synthetic.make_bal((12, 120, 700), seed=0, noise=0.5),
+            precision=precision, eliminate_points=kind == "schur")
+    return g.freeze(device=device)
+
+
+def _damped_system(problem, solver, mu):
+    """The damped matrix and right-hand side the solver factors."""
+    from graphite_tpu_torch.hessian import (
+        apply_damping,
+        build_hessian_structure,
+        compute_hessian_values,
+        dense_hessian_matrix,
+    )
+    from graphite_tpu_torch.solvers import dense_cholesky_schur as dcs
+
+    lin = linearize(problem, problem.params0)
+    state = solver.prepare(problem, lin)
+    if isinstance(state, dcs.SchurSolverState):
+        ops, b_s = dcs.schur_system(problem, lin, state, mu, False)
+        return dcs.schur_to_dense(problem, ops.ss, ops.sv), b_s
+    hs = build_hessian_structure(problem)
+    hv = apply_damping(problem, hs, compute_hessian_values(problem, hs, lin),
+                       lin.diag, mu, False)
+    return dense_hessian_matrix(problem, hs, hv), lin.b[: problem.dim_h]
+
+
+def _direct_solvers():
+    from graphite_tpu_torch.solvers import (
+        DenseCholeskySchurSolver,
+        DenseCholeskySolver,
+        SparseDirectSchurSolver,
+        SparseDirectSolver,
+    )
+
+    return {
+        "dense": (DenseCholeskySolver(), "full"),
+        "dense_schur": (DenseCholeskySchurSolver(), "schur"),
+        "sparse_on_device": (SparseDirectSolver(), "full"),
+        "sparse_nd_bal": (SparseDirectSolver(multifrontal=True), "full"),
+        "sparse_nd_sphere": (SparseDirectSolver(multifrontal=True), "sphere"),
+        "sparse_schur": (SparseDirectSchurSolver(), "schur"),
+    }
+
+
+DIRECT = ["dense", "dense_schur", "sparse_on_device", "sparse_nd_bal",
+          "sparse_nd_sphere", "sparse_schur"]
+
+
+@pytest.mark.parametrize("name", DIRECT)
+def test_direct_first_solve_on_card(cuda_device, name):
+    """The card's float32 solve against the float64 system on the CPU
+    (relative residual <= 1e-4), two card runs bitwise equal."""
+    solver, kind = _direct_solvers()[name]
+    problem = _direct_problem(kind, cuda_device)
+    lin = linearize(problem, problem.params0)
+    state = solver.prepare(problem, lin)
+    delta, ok = solver.solve(problem, lin, state, 1e-4, False)
+    again, _ = solver.solve(problem, lin, state, 1e-4, False)
+    assert bool(ok) and torch.equal(delta, again)
+    A, b = _damped_system(_direct_problem(kind, "cpu", gtt.FP64_FP64),
+                          solver, 1e-4)
+    x = delta[: b.shape[0]].cpu().double()
+    assert float((A @ x - b).norm() / b.norm()) <= 1e-4
+
+
+@pytest.mark.parametrize("name", DIRECT)
+def test_direct_indefinite_system_fails_on_card(cuda_device, name):
+    solver, kind = _direct_solvers()[name]
+    problem = _direct_problem(kind, cuda_device)
+    lin = linearize(problem, problem.params0)
+    delta, ok = solver.solve(problem, lin, solver.prepare(problem, lin),
+                             -10.0, True)
+    assert ok.device.type == "cuda"
+    assert not bool(ok) and not bool(delta.any())
+
+
+def test_k1_at_nd_sites_matches_plain(cuda_device):
+    """K1 at every extend-add and right-hand-side site of the
+    multifrontal plan of a 300-pose sphere, and the sums it feeds."""
+    from graphite_tpu_torch.hessian import build_hessian_structure
+    from graphite_tpu_torch.ops import nd_multifrontal as nd
+
+    problem = _direct_problem("sphere", cuda_device)
+    plan = nd.build_nd_plan(problem, build_hessian_structure(problem))
+    rng = np.random.default_rng(7)
+    checked = 0
+    for st in nd.nd_sites(problem, plan):
+        for site in (st.ea, st.rhs):
+            if site is None:
+                continue
+            sp = site.plan
+            vals_np = rng.standard_normal((sp.rows, 1)).astype(np.float32)
+            (vals,) = _on(cuda_device, vals_np)
+            before = segsum_stream.STATS.launches
+            out = segsum_stream.streaming_segment_sum(vals, sp)
+            assert segsum_stream.STATS.launches == before + 1
+            again = segsum_stream.streaming_segment_sum(vals, sp)
+            ref = segsum.segment_sum_plain(vals, sp)
+            cplan = dataclasses.replace(sp, **{
+                f.name: getattr(sp, f.name).cpu()
+                for f in dataclasses.fields(sp)
+                if torch.is_tensor(getattr(sp, f.name))})
+            ref_cpu = segsum.segment_sum_plain(torch.as_tensor(vals_np),
+                                               cplan)
+            _check_kernel([out], [again], [ref], [ref_cpu])
+            checked += 1
+    assert checked >= 2
