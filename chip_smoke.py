@@ -105,6 +105,43 @@ step) and peak memory:
     ``examples.pose_graph.main`` for its three at ``--poses 500
     --iterations 5``, in-process on the card: chi2 lowered.
 
+Levenberg-Marquardt with ``jit_loop=True``: the iteration captured once
+as a CUDA graph and replayed with no host read between replays (they run
+under ``torch.cuda.set_sync_debug_mode("error")``). Each path runs it
+twice (the first call captures) and checks both runs bitwise equal to the
+card's host loop from the same start (accept pattern, chi2, mu and rho
+per iteration, final parameters); it prints the capture seconds, ms per
+iteration of the graph (CUDA events per replay) beside the host loop's,
+the kernels' launches per replay and the graph pool's memory:
+
+15. ``jit-ladybug``: Ladybug-49, PCGSchurSolver(10, 1.0, 5.0) (K1, and K2
+    once per replay) and DenseCholeskySchurSolver, 10 iterations;
+16. ``jit-venice`` (after phase 7, on its problem, against its run): 10
+    iterations, K1, K3, K4 and K5 in the graph (K5 once per CG step: the
+    device-controlled PCG takes all 10); ms per accepted and per rejected
+    iteration beside the host loop's, peak memory;
+17. ``jit-sphere2500`` (after phase 4c, against phase 4b's run): 30
+    iterations, K6 once per replay;
+18. ``remask``: Ladybug-49 frozen with ``remaskable=True`` on the card, 10
+    iterations under jit_loop; then every observation of points 0-77
+    disabled (``set_factor_active(..., 0x80)``) and camera 1 fixed
+    (``set_vertex_fixed``): the same cached graph (no re-capture, the mask
+    tensors' ``data_ptr``s unchanged), bitwise a fresh remaskable freeze
+    with the same edits, the 78 points and camera 1 bitwise at their start;
+    the edits undone: bitwise the first run; ``levenberg_marquardt2`` (30
+    iterations) stops at the CPU's iteration with its accept pattern;
+19. ``cli-jit``: ``examples.circle`` (float32: the free points within 1e-4
+    of radius 4, as the JAX package's float32 run; points 2 and 4 at
+    their start), ``examples.bal --synthetic ladybug --jit-loop --lm2``
+    and ``examples.pose_graph --jit-loop``: chi2 lowered.
+
+A captured path's launches in the kernels JSON line are its capture's
+count times its replays (``remask`` sums its three graphs: the remasked
+problem's, the fresh freeze's and LM2's; ``cli-jit`` counts each CLI's
+capture once, since its loops are not reachable from the phase). Replays
+after a stop are not skipped; the phases print their count and device
+ms.
+
 Prints the direct factorizations' JSON summary (``direct_factorizations``),
 the kernels' JSON summary and the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. K1's to K6's lines
@@ -734,19 +771,19 @@ def phase_pose(iterations):
     solver = pose_solver()
     problem = pose_problem(DEVICE)
     loops = [0]
-    real = pcg_solver.run_pcg
+    real = pcg_solver.pcg
 
     def counted(*args, **kwargs):
         loops[0] += 1
         return real(*args, **kwargs)
 
     torch.cuda.reset_peak_memory_stats()
-    pcg_solver.run_pcg = counted
+    pcg_solver.pcg = counted
     try:
         gpu, launches, kernel_ms = count_launches(
             lambda: run_lm(problem, solver, iterations))
     finally:
-        pcg_solver.run_pcg = real
+        pcg_solver.pcg = real
     peak = torch.cuda.max_memory_allocated()
     t1 = time.perf_counter()
     cpu = run_lm(pose_problem("cpu"), solver, iterations)
@@ -769,7 +806,7 @@ def phase_pose(iterations):
     check(loops[0] == 0, "run_pcg ran on the K6 branch")
     check(launches["segsum_stream.streaming_segment_sum"] > 0,
           "K1 never launched on the pose path")
-    return launches, problem
+    return launches, problem, gpu
 
 
 def phase_pose_generic(iterations):
@@ -1723,6 +1760,304 @@ def phase_cli():
     return launches
 
 
+
+# ---- jit_loop: the LM iteration captured as a CUDA graph ----------------
+
+def same_bits(tag, a, b):
+    """Bitwise the same LM run: accept pattern, chi2 and mu per iteration,
+    final chi2 and parameters."""
+    import torch
+
+    for key in ("accepted", "chi2", "mu", "rho"):
+        check([h[key] for h in a.history] == [h[key] for h in b.history],
+              f"{tag}: {key} per iteration differs")
+    check((a.chi2, a.initial_chi2, a.iterations, a.accepted_steps)
+          == (b.chi2, b.initial_chi2, b.iterations, b.accepted_steps),
+          f"{tag}: final state differs")
+    for name, p in b.params.items():
+        check(torch.equal(a.params[name], p), f"{tag}: params {name} differ")
+
+
+def graph_launches(loop):
+    """A captured path's launches by entry point: the capture's count
+    (one replay) times the loop's replays."""
+    return {s.name: loop.capture_launches.get(s.name, 0) * loop.replays
+            for s in all_stats()}
+
+
+def after_stop(loop, result):
+    """The replays of the last run after its stop, and their device ms
+    (each computes a whole iteration and changes nothing)."""
+    wasted = loop.replay_ms[result.iterations:]
+    return f"replays after the stop={len(wasted)} ({sum(wasted):.4f} ms)"
+
+
+def run_graph(tag, problem, solver, iterations, host, lm=None):
+    """``jit_loop`` on the card, twice (the first call captures, the
+    second only replays), each bitwise equal to ``host`` (the card's host
+    loop from the same start). Prints the capture seconds, ms per
+    iteration of the graph (per replay, CUDA events) and of the host loop,
+    launches per replay and the graph pool's memory. Returns (the second
+    run, the cached loop, launches of both runs)."""
+    import torch
+
+    from graphite_tpu_torch.optimizers import (
+        LevenbergMarquardtOptions,
+        levenberg_marquardt,
+    )
+    from graphite_tpu_torch.optimizers.lm import cached_device_loop
+
+    lm = lm or levenberg_marquardt
+    opts = LevenbergMarquardtOptions(iterations=iterations, jit_loop=True)
+    t0 = time.perf_counter()
+    first = lm(problem, solver, options=opts)
+    t_first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = lm(problem, solver, options=opts)
+    t_second = time.perf_counter() - t0
+    loop = cached_device_loop(problem, solver, opts)
+    check(loop is not None and loop.capture is not None,
+          f"{tag}: no captured graph")
+    same_bits(f"{tag} (capturing call)", first, host)
+    same_bits(tag, out, host)
+    host_ms = [h["device_ms"] for h in host.history[1:]]
+    host_wall = [1e3 * h["time"] for h in host.history[1:]]
+    per_replay = {k: v for k, v in loop.capture_launches.items()}
+    print(f"[{tag}] bitwise_equal_to_host_loop=True iterations={iterations} "
+          f"accepted={[h['accepted'] for h in out.history]}")
+    print(f"[{tag}] capture seconds={loop.capture_seconds:.3f} (first call "
+          f"{t_first:.3f} s incl. warm-up, init and replays; second call "
+          f"{t_second:.3f} s) graph pieces={len(loop.capture.pieces)} "
+          f"host syncs per replay={loop.capture.host_calls}")
+    print(f"[{tag}] ms per LM iteration: graph device="
+          f"{statistics.mean(loop.replay_ms[:out.iterations]):.4f} "
+          f"{after_stop(loop, out)} (per replay "
+          f"{[round(m, 4) for m in loop.replay_ms]}) host loop median "
+          f"device={statistics.median(host_ms):.4f} "
+          f"host wall={statistics.median(host_wall):.4f}")
+    print(f"[{tag}] launches per replay={per_replay} graph pool "
+          f"memory={loop.pool_bytes / 2**20:.1f} MiB "
+          f"max_memory_allocated={torch.cuda.max_memory_allocated() / 2**30:.3f}"
+          f" GiB")
+    return out, loop, graph_launches(loop)
+
+
+def phase_jit_ladybug(iterations):
+    """Ladybug-49 under jit_loop: PCG-Schur (K1, K2) and dense Schur."""
+    from graphite_tpu_torch.solvers import (
+        DenseCholeskySchurSolver,
+        PCGSchurSolver,
+    )
+
+    problem = ladybug_problem(DEVICE)
+    total = {}
+    for name, solver in (("pcg-schur", PCGSchurSolver(10, 1.0, 5.0)),
+                         ("dense-schur", DenseCholeskySchurSolver())):
+        host = run_lm(problem, solver, iterations)
+        _, loop, launches = run_graph(f"jit-ladybug {name}", problem, solver,
+                                      iterations, host)
+        check(loop.capture.host_calls == 0, "a host sync in the graph")
+        for key in ("segsum.sorted_segment_sum",
+                    "segsum_stream.streaming_segment_sum"):
+            check(loop.capture_launches.get(key, 0) > 0,
+                  f"{key} not in the graph")
+        if name == "pcg-schur":
+            check(loop.capture_launches.get("pcg_dense.dense_pcg") == 1,
+                  "K2 must launch once per replay")
+        add_launches(total, launches)
+    return total
+
+
+def phase_jit_venice(problem, solver, iterations, host):
+    """Venice-1778 under jit_loop vs phase 7's host loop."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    out, loop, launches = run_graph("jit-venice", problem, solver,
+                                    iterations, host)
+    acc = [m for m, h in zip(loop.replay_ms, out.history) if h["accepted"]]
+    rej = [m for m, h in zip(loop.replay_ms, out.history)
+           if not h["accepted"]]
+    h_acc = [h["device_ms"] for h in host.history[1:] if h["accepted"]]
+    h_rej = [h["device_ms"] for h in host.history[1:] if not h["accepted"]]
+
+    def med(v):
+        return round(statistics.median(v), 4) if v else None
+
+    print(f"[jit-venice] ms per accepted / rejected iteration: graph "
+          f"{med(acc)} / {med(rej)}; host loop {med(h_acc)} / {med(h_rej)}")
+    for key in ("segsum_stream.streaming_segment_sum",
+                "segsum_stream.streaming_segment_product_sum_rtbl",
+                "segsum_stream.streaming_matvec_tbl",
+                "segmv.block_matvec_wtbl", "segmv.matvec_sym_stream"):
+        check(loop.capture_launches.get(key, 0) > 0,
+              f"{key} not in the Venice graph")
+    check(loop.capture_launches["segmv.matvec_sym_stream"]
+          == solver.max_iter, "K5 must launch once per fixed CG step")
+    # free the graph and its state: phase 13 needs the memory
+    for key in [k for k, v in problem._cache.items() if v is loop]:
+        del problem._cache[key]
+    return launches
+
+
+def phase_jit_pose(problem, iterations, host):
+    """sphere2500 under jit_loop vs phase 4b's host loop (K6)."""
+    _, loop, launches = run_graph("jit-sphere2500", problem, pose_solver(),
+                                  iterations, host)
+    check(loop.capture_launches.get("pcg_mf.solve_pcg_mf") == 1,
+          "K6 must launch once per replay")
+    return launches
+
+
+def phase_remask(iterations):
+    """Ladybug-49 frozen remaskable on the card, under jit_loop: an edit
+    (every observation of points 0-77 disabled, camera 1 fixed) reuses the
+    captured graph and matches a fresh freeze bitwise; undoing it
+    reproduces the first run; LM2 stops where the CPU's does."""
+    import numpy as np
+    import torch
+
+    from graphite_tpu_torch import FP32_FP32
+    from graphite_tpu_torch.io import bal, synthetic
+    from graphite_tpu_torch.optimizers import (
+        LevenbergMarquardtOptions,
+        levenberg_marquardt,
+        levenberg_marquardt2,
+    )
+    from graphite_tpu_torch.optimizers.lm import device_loops
+    from graphite_tpu_torch.solvers import PCGSchurSolver
+
+    ds = synthetic.make_bal("ladybug", seed=0)
+    n_pts = 78  # 1% of the 7,776 points
+
+    def frozen(device, edited):
+        g, _, _, fs = bal.build_graph(ds, precision=FP32_FP32)
+        p = g.freeze(device=torch.device(device), remaskable=True)
+        if edited:
+            edit(p, fs)
+        return p, fs
+
+    def handles(fs):
+        rows = np.asarray(fs.input_order)
+        return np.nonzero(ds.point_idx[rows] < n_pts)[0]
+
+    def edit(p, fs, on=True):
+        fname = next(iter(p.factor_meta))
+        for h in handles(fs):
+            p.set_factor_active(fname, int(h), 0x80 if on else 0)
+        p.set_vertex_fixed("bal_camera", 1, on)
+
+    solver = PCGSchurSolver(10, 1.0, 5.0)
+    opts = LevenbergMarquardtOptions(iterations=iterations, jit_loop=True)
+    problem, fs = frozen(DEVICE, False)
+    masks = [(t, t.data_ptr()) for t in
+             [va.active for va in problem.data.vertices.values()]
+             + [a for fa in problem.data.factors.values()
+                for a in (fa.factor_mask, fa.slot_mask)]]
+    t0 = time.perf_counter()
+    full = levenberg_marquardt(problem, solver, options=opts)
+    loops = device_loops(problem)
+    check(len(loops) == 1, "one cached loop")
+    capture = loops[0].capture
+    t_edit = time.perf_counter()
+    edit(problem, fs)
+    t_edit = time.perf_counter() - t_edit
+    edited = levenberg_marquardt(problem, solver, options=opts)
+    check(device_loops(problem) == loops and loops[0].capture is capture,
+          "the remask re-captured")
+    check(all(t.data_ptr() == ptr for t, ptr in masks),
+          "a mask tensor moved")
+    fresh, _ = frozen(DEVICE, True)
+    same_bits("remask vs fresh freeze", edited,
+              levenberg_marquardt(fresh, solver, options=opts))
+    # launches of every graph the phase replays: this one, the remasked
+    # problem's and its LM2 graph
+    launches = {}
+    for loop in device_loops(fresh):
+        add_launches(launches, graph_launches(loop))
+    del fresh
+    first_pts = problem.params0["bal_point"][:n_pts]
+    check(torch.equal(edited.params["bal_point"][:n_pts], first_pts),
+          "a disabled point moved")
+    check(torch.equal(edited.params["bal_camera"][1],
+                      problem.params0["bal_camera"][1]),
+          "the fixed camera moved")
+    edit(problem, fs, on=False)
+    same_bits("remask undone vs first run",
+              levenberg_marquardt(problem, solver, options=opts), full)
+    print(f"[remask] {len(handles(fs))} observations of points 0-{n_pts - 1}"
+          f" disabled and camera 1 fixed in {t_edit:.3f} s; one cached "
+          f"graph, mask data_ptrs unchanged; bitwise equal to a fresh "
+          f"remaskable freeze; undone: bitwise the first run; chi2 "
+          f"{full.chi2!r} (all) / {edited.chi2!r} (edited); ms per "
+          f"replay {statistics.mean(loops[0].replay_ms):.4f}")
+
+    lm2_iters = 30
+    lm2_opts = LevenbergMarquardtOptions(iterations=lm2_iters, jit_loop=True)
+    gpu = levenberg_marquardt2(problem, solver, options=lm2_opts)
+    cpu_problem, _ = frozen("cpu", False)
+    # the CPU's host loop (bitwise its uncaptured device loop, which would
+    # run all 30 iterations) stops at the stop
+    cpu = levenberg_marquardt2(cpu_problem, solver,
+                               options=LevenbergMarquardtOptions(
+                                   iterations=lm2_iters))
+    lm2_loop = device_loops(problem)[-1]
+    check(lm2_loop is not loops[0], "LM2 reused the LM graph")
+    print(f"[remask] LM2 stop iteration card={gpu.iterations} "
+          f"cpu={cpu.iterations} (of {lm2_iters}) accepted card="
+          f"{[h['accepted'] for h in gpu.history]}; ms per replay "
+          f"{statistics.mean(lm2_loop.replay_ms[:gpu.iterations]):.4f}, "
+          f"{after_stop(lm2_loop, gpu)}")
+    check(gpu.iterations == cpu.iterations,
+          "LM2 stops at another iteration on the card")
+    check([h["accepted"] for h in gpu.history]
+          == [h["accepted"] for h in cpu.history], "LM2 accept patterns")
+    print(f"[remask] phase host seconds {time.perf_counter() - t0:.1f}")
+    for loop in device_loops(problem):
+        add_launches(launches, graph_launches(loop))
+    return launches
+
+
+def phase_jit_cli():
+    """The circle example and the CLIs' --jit-loop / --lm2 on the card."""
+    import numpy as np
+    import torch
+
+    from graphite_tpu_torch.examples import bal as bal_cli
+    from graphite_tpu_torch.examples import circle
+    from graphite_tpu_torch.examples import pose_graph as pose_cli
+
+    def run():
+        return (circle.main([]),
+                bal_cli.main(["--synthetic", "ladybug", "--iterations",
+                              "10", "--jit-loop", "--lm2"]),
+                pose_cli.main(["--poses", "500", "--iterations", "5",
+                               "--jit-loop"]))
+
+    (res_c, res_b, res_p), launches, _ = count_launches(
+        run, record_events=False)
+    pts = res_c.params["point2"].detach().cpu().numpy()
+    radii = np.hypot(pts[:, 0], pts[:, 1])
+    rng = np.random.default_rng(0)
+    angles = rng.uniform(0.0, 2 * np.pi, 5)
+    start = np.stack([4.0 * np.cos(angles) + rng.normal(0, 0.3, 5),
+                      4.0 * np.sin(angles) + rng.normal(0, 0.3, 5)], axis=1)
+    print(f"[cli-jit] circle radii={radii.tolist()}")
+    # float32, as the JAX package's own float32 run: 4.000000 for points 0
+    # and 1, 4.000021 for point 3
+    check(all(abs(radii[i] - 4.0) < 1e-4 for i in (0, 1, 3)),
+          "circle: a free point is off the radius")
+    for i in (2, 4):
+        check(torch.equal(res_c.params["point2"][i].cpu(),
+                          torch.tensor(start[i], dtype=torch.float32)),
+              f"circle: point {i} moved")
+    for name, res in (("bal --jit-loop --lm2", res_b),
+                      ("pose_graph --jit-loop", res_p)):
+        print(f"[cli-jit] {name}: chi2 {res.initial_chi2!r} -> {res.chi2!r}"
+              f" iterations={res.iterations}")
+        check(res.chi2 < res.initial_chi2, f"{name}: chi2 not lowered")
+    return launches
+
 # (kernel, source, {entry point: TPU kernel body it replaces})
 KERNELS = [
     ("K1", "graphite_tpu_torch/csrc/segsum.cu", {
@@ -1815,8 +2150,10 @@ def main():
     k2 = timed("k2", phase_k2, DEVICE, solver, 1e-4)
     ladybug_launches = timed("slice", phase_slice, solver, 10)
     k6 = timed("k6", phase_k6)
-    pose_launches, pose = timed("sphere2500", phase_pose, 30)
+    pose_launches, pose, pose_host = timed("sphere2500", phase_pose, 30)
     pose_k1 = timed("sphere2500-k1", phase_k1_sites, pose, "sphere2500", 4)
+    pose_graph_launches = timed("jit-sphere2500", phase_jit_pose, pose, 30,
+                                pose_host)
     del pose
     generic_launches = timed("sphere2500-generic", phase_pose_generic, 10)
 
@@ -1828,6 +2165,9 @@ def main():
     params0 = params_to_numpy(problem.params0)
     gpu, venice_launches = timed("venice", phase_venice_slice, problem,
                                  solver, 10)
+    venice_graph_launches = timed("jit-venice", phase_jit_venice, problem,
+                                  solver, 10, gpu)
+    torch.cuda.empty_cache()
     direct_gpu, direct_venice_launches, venice_first = timed(
         "direct-venice", phase_direct_venice, problem, 10)
     del problem
@@ -1843,6 +2183,9 @@ def main():
     sphere_direct_launches, sphere_firsts, nd_k1 = timed(
         "direct-sphere2500", phase_direct_sphere, 10)
     cli_launches = timed("cli", phase_cli)
+    ladybug_graph_launches = timed("jit-ladybug", phase_jit_ladybug, 10)
+    remask_launches = timed("remask", phase_remask, 10)
+    cli_jit_launches = timed("cli-jit", phase_jit_cli)
 
     firsts = {**{f"ladybug {k}": v for k, v in ladybug_firsts.items()},
               **{f"ladybug full H {k}": v for k, v in full_h_firsts.items()},
@@ -1859,7 +2202,12 @@ def main():
                    "direct-full-h": full_h_launches,
                    "direct-sphere2500": sphere_direct_launches,
                    "direct-venice": direct_venice_launches,
-                   "cli": cli_launches})}))
+                   "cli": cli_launches,
+                   "ladybug-49-graph": ladybug_graph_launches,
+                   "venice-1778-graph": venice_graph_launches,
+                   "sphere2500-graph": pose_graph_launches,
+                   "remask-graph": remask_launches,
+                   "cli-jit": cli_jit_launches})}))
     print(f"[done] total seconds={time.perf_counter() - t_start:.1f}")
 
     smi = subprocess.run(

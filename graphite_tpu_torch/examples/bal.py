@@ -6,6 +6,8 @@ configurable damping; prints the final chi2, MSE and half-MSE.
     python -m graphite_tpu_torch.examples.bal --synthetic ladybug \\
         --solver sparse-schur --iterations 50
     python -m graphite_tpu_torch.examples.bal --synthetic mini --device cpu
+    python -m graphite_tpu_torch.examples.bal --synthetic ladybug \\
+        --jit-loop --lm2 --verbose
 
 Runs on the CUDA card unless ``--device cpu``. The full-system solvers
 (``pcg``, ``dense``, ``sparse``) keep the points in the system; the
@@ -21,6 +23,7 @@ from graphite_tpu_torch.io import synthetic
 from graphite_tpu_torch.optimizers import (
     LevenbergMarquardtOptions,
     levenberg_marquardt,
+    levenberg_marquardt2,
 )
 from graphite_tpu_torch.preconditioners import (
     BlockJacobiPreconditioner,
@@ -78,6 +81,13 @@ def parse_args(argv=None):
     ap.add_argument("--huber", type=float, default=None,
                     help="Huber loss delta")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--lm2", action="store_true",
+                    help="LM with the early stop (levenberg_marquardt2)")
+    ap.add_argument("--jit-loop", action="store_true",
+                    help="the device-controlled LM loop (a CUDA graph on "
+                    "the card)")
+    ap.add_argument("--verbose", action="store_true",
+                    help="print the per-iteration table")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: the CUDA card)")
     return ap.parse_args(argv)
@@ -116,9 +126,11 @@ def main(argv=None):
 
     options = LevenbergMarquardtOptions(
         iterations=args.iterations, initial_damping=args.lmbda,
-        use_identity=args.identity_damping)
+        use_identity=args.identity_damping, verbose=args.verbose,
+        jit_loop=args.jit_loop)
+    optimize = levenberg_marquardt2 if args.lm2 else levenberg_marquardt
     t0 = time.perf_counter()
-    result = levenberg_marquardt(problem, make_solver(args), options=options)
+    result = optimize(problem, make_solver(args), options=options)
     dt = time.perf_counter() - t0
     n_obs = ds.num_observations
     print(f"Optimization took {dt:.4f} seconds "

@@ -6,6 +6,7 @@ a direct solver, the gauge fixed by fixing the first pose.
     python -m graphite_tpu_torch.examples.pose_graph sphere2500.g2o \\
         --solver sparse
     python -m graphite_tpu_torch.examples.pose_graph --poses 100 --device cpu
+    python -m graphite_tpu_torch.examples.pose_graph --poses 2500 --jit-loop
 
 Runs on the CUDA card unless ``--device cpu``.
 """
@@ -18,6 +19,7 @@ from graphite_tpu_torch.io import g2o, synthetic
 from graphite_tpu_torch.optimizers import (
     LevenbergMarquardtOptions,
     levenberg_marquardt,
+    levenberg_marquardt2,
 )
 from graphite_tpu_torch.preconditioners import BlockJacobiPreconditioner
 from graphite_tpu_torch.solvers import (
@@ -42,6 +44,13 @@ def parse_args(argv=None):
     ap.add_argument("--lambda", dest="lmbda", type=float, default=1e-4)
     ap.add_argument("--pcg_max_iterations", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--lm2", action="store_true",
+                    help="LM with the early stop (levenberg_marquardt2)")
+    ap.add_argument("--jit-loop", action="store_true",
+                    help="the device-controlled LM loop (a CUDA graph on "
+                    "the card)")
+    ap.add_argument("--verbose", action="store_true",
+                    help="print the per-iteration table")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: the CUDA card)")
     return ap.parse_args(argv)
@@ -73,9 +82,12 @@ def main(argv=None):
         solver = DenseCholeskySolver()
 
     options = LevenbergMarquardtOptions(iterations=args.iterations,
-                                        initial_damping=args.lmbda)
+                                        initial_damping=args.lmbda,
+                                        verbose=args.verbose,
+                                        jit_loop=args.jit_loop)
+    optimize = levenberg_marquardt2 if args.lm2 else levenberg_marquardt
     t0 = time.perf_counter()
-    result = levenberg_marquardt(problem, solver, options=options)
+    result = optimize(problem, solver, options=options)
     dt = time.perf_counter() - t0
     print(f"Optimization took {dt:.3f}s "
           f"({result.iterations / max(dt, 1e-9):.2f} iters/sec)")

@@ -14,6 +14,11 @@ plus tensors on an explicit device.
   trash pad past ``dim_h`` (flat view) or a trash row ``n_rows`` (row
   view), and their Jacobian blocks are masked to zero: masking, not
   compaction, so shapes never depend on activity.
+- ``freeze(remaskable=True)`` gives every vertex a column and discovers
+  structure from every factor, so that levels, factor activity and fixed
+  flags can change after the freeze (``Problem.remask`` and its
+  friends). Only the mask tensors change, in place: a captured CUDA
+  graph that reads them stays valid, and no plan is rebuilt.
 """
 
 from __future__ import annotations
@@ -32,6 +37,32 @@ from .vertices import VertexSet, VertexType
 
 def is_factor_active(level_byte: np.ndarray, opt_level: int) -> np.ndarray:
     return ((level_byte & MAX_LEVEL) <= opt_level) & ((level_byte & 0x80) == 0)
+
+
+def activity_masks(factor_ids: Dict[str, np.ndarray],
+                   factor_levels: Dict[str, np.ndarray], opt_level: int,
+                   vertex_fixed: Dict[str, np.ndarray],
+                   factor_types: Dict[str, FactorType]):
+    """(factor_mask, vertex_active, slot_mask) by set name: a factor is
+    active by its level byte at ``opt_level``; a vertex when it is not
+    fixed and an active factor references it; a slot when both are."""
+    factor_mask = {name: is_factor_active(levels, opt_level)
+                   for name, levels in factor_levels.items()}
+    referenced = {name: np.zeros(f.shape[0], dtype=bool)
+                  for name, f in vertex_fixed.items()}
+    for name, local in factor_ids.items():
+        for slot, vt in enumerate(factor_types[name].vertex_types):
+            referenced[vt.name][local[factor_mask[name], slot]] = True
+    vertex_active = {name: referenced[name] & ~vertex_fixed[name]
+                     for name in referenced}
+    slot_mask = {}
+    for name, local in factor_ids.items():
+        smask = np.zeros(local.shape, dtype=bool)
+        for slot, vt in enumerate(factor_types[name].vertex_types):
+            smask[:, slot] = (factor_mask[name]
+                              & vertex_active[vt.name][local[:, slot]])
+        slot_mask[name] = smask
+    return factor_mask, vertex_active, slot_mask
 
 
 @dataclasses.dataclass
@@ -73,6 +104,7 @@ class VertexMeta:
 class FactorMeta:
     ftype: FactorType
     count: int
+    store_jacobians: bool = True
 
 
 class BlockVertexMap:
@@ -110,8 +142,12 @@ class HostStructure:
     vertex_fixed: Dict[str, np.ndarray]
     factor_ids: Dict[str, np.ndarray]  # (F, N) local indices
     factor_mask: Dict[str, np.ndarray]
+    # the slots structure discovery sees: the live masks, or every slot
+    # of every factor in a remaskable problem
     slot_mask: Dict[str, np.ndarray]
     global_ids: Dict[str, np.ndarray]
+    factor_levels: Dict[str, np.ndarray]  # active bytes (padding: 0x80)
+    factor_handles: Dict[str, np.ndarray]
 
 
 class Problem:
@@ -132,7 +168,8 @@ class Problem:
     def __init__(self, meta_v, meta_f, data, params0, *, device, dim_h, pad,
                  block_offsets, block_vertex, block_dims, elimination_block,
                  elimination_col, precision, host, seg_start,
-                 seg_rows, segment_order, row_vertex):
+                 seg_rows, segment_order, row_vertex, opt_level=0,
+                 remaskable=False, scale_jacobians=True):
         self.vertex_meta: Dict[str, VertexMeta] = meta_v
         self.factor_meta: Dict[str, FactorMeta] = meta_f
         self.data: GraphData = data
@@ -151,6 +188,10 @@ class Problem:
         self.seg_rows: Dict[str, int] = seg_rows
         self.segment_order: List[str] = segment_order
         self.row_vertex: Dict[str, np.ndarray] = row_vertex
+        self.opt_level: int = opt_level
+        self.remaskable: bool = remaskable
+        # Jacobi column scaling on (Graph.scale_system)
+        self.scale_jacobians: bool = scale_jacobians
         # host-built structure, plans and device index tensors, keyed by
         # the site that uses them (built on first use, then reused)
         self._cache: dict = {}
@@ -214,6 +255,87 @@ class Problem:
     def n_blocks(self) -> int:
         return len(self.block_vertex)
 
+    # ---- runtime remasking (remaskable freezes) ----------------------------
+    def remask(self, opt_level: Optional[int] = None) -> None:
+        """Recompute the activity masks (at ``opt_level`` when given) from
+        the recorded levels and fixed flags, without refreezing. Each
+        mask is written in place (``copy_``) into the tensor it replaces,
+        so a captured LM loop reads the new masks; shapes, structure and
+        plans stay as they are."""
+        if not self.remaskable:
+            raise ValueError(
+                "runtime remasking requires Graph.freeze(remaskable=True)")
+        if opt_level is not None:
+            self.opt_level = int(opt_level)
+        host = self.host
+        factor_mask, vertex_active, slot_mask = activity_masks(
+            host.factor_ids, host.factor_levels, self.opt_level,
+            host.vertex_fixed,
+            {name: fm.ftype for name, fm in self.factor_meta.items()})
+
+        def put(dst: torch.Tensor, src: np.ndarray) -> None:
+            dst.copy_(torch.as_tensor(src, dtype=dst.dtype))
+
+        for name, va in self.data.vertices.items():
+            put(va.active, vertex_active[name])
+        for name, fa in self.data.factors.items():
+            put(fa.factor_mask, factor_mask[name])
+            put(fa.slot_mask, slot_mask[name])
+        host.factor_mask = factor_mask
+        host.vertex_active = vertex_active
+
+    def set_opt_level(self, level: int) -> None:
+        """Switch the optimization level after the freeze."""
+        self.remask(opt_level=level)
+
+    def set_factor_active(self, fname: str, handle: int,
+                          level_byte: int) -> None:
+        """Set a factor's active byte after the freeze (bits 0-6 the
+        level, the MSB disables it)."""
+        maps = self._cache.setdefault("handle_maps", {})
+        if fname not in maps:
+            maps[fname] = {int(h): i for i, h in
+                           enumerate(self.host.factor_handles[fname])}
+        self.host.factor_levels[fname][maps[fname][int(handle)]] = int(
+            level_byte)
+        self.remask()
+
+    def set_vertex_fixed(self, vname: str, global_id: int,
+                         fixed: bool = True) -> None:
+        """Fix or free a vertex after the freeze."""
+        local = self.host_local_index(vname, global_id)
+        self.host.vertex_fixed[vname][local] = bool(fixed)
+        self.remask()
+
+    def get_hessian_dimension(self) -> int:
+        return self.dim_h
+
+    def get_variable_dimension(self, block_index: int) -> int:
+        return int(self.block_offsets[block_index + 1]
+                   - self.block_offsets[block_index])
+
+    def get_num_block_columns(self) -> int:
+        return self.n_blocks
+
+    def get_elimination_block_column(self) -> int:
+        return self.elimination_block
+
+    def get_vertex(self, params, vtype_name: str, global_id: int):
+        """One vertex's parameters in ``params``, by its global id."""
+        return params[vtype_name][self.host_local_index(vtype_name,
+                                                        global_id)]
+
+    def host_local_index(self, vtype_name: str, global_id: int) -> int:
+        maps = self._cache.setdefault("id_maps", {})
+        if vtype_name not in maps:
+            arr = self.host.global_ids[vtype_name]
+            maps[vtype_name] = dict(zip(arr.tolist(), range(arr.shape[0])))
+        return maps[vtype_name][global_id]
+
+    def residual_sizes(self) -> Dict[str, int]:
+        return {name: fm.count * fm.ftype.residual_dim
+                for name, fm in self.factor_meta.items()}
+
 
 class Graph:
     """Mutable graph-construction container; ``freeze`` returns a
@@ -223,6 +345,7 @@ class Graph:
         self.precision = precision
         self.vertex_sets: Dict[str, VertexSet] = {}
         self.factor_sets: Dict[str, FactorSet] = {}
+        self._scale_jacobians = True
 
     def add_vertex_set(self, vtype: VertexType) -> VertexSet:
         if vtype.name in self.vertex_sets:
@@ -244,12 +367,28 @@ class Graph:
         self.factor_sets[ftype.name] = fs
         return fs
 
+    def scale_system(self, enable: bool) -> None:
+        """Turn Jacobi column scaling on or off (on by default)."""
+        self._scale_jacobians = bool(enable)
+
+    @property
+    def scale_jacobians(self) -> bool:
+        return self._scale_jacobians
+
     def freeze(self, opt_level: int = 0,
                precision: Optional[Precision] = None,
-               device=None) -> Problem:
+               device=None, pad_factors_to: int = 1,
+               remaskable: bool = False) -> Problem:
         """Discover structure and build the ``Problem`` on ``device``
         (default: the CUDA card; raises when there is none, so a CPU run
-        asks for ``device="cpu"``)."""
+        asks for ``device="cpu"``).
+
+        ``pad_factors_to``: pad every factor set to a multiple of it with
+        disabled copies of its first factor (active byte 0x80).
+        ``remaskable``: give every vertex a column and discover structure
+        from every factor, so that ``Problem.remask`` and its friends can
+        change levels, factor activity and fixed flags later (see the
+        module docstring)."""
         precision = precision or self.precision
         if device is None:
             if not torch.cuda.is_available():
@@ -273,28 +412,37 @@ class Graph:
             else:
                 factor_sets[name] = fs
 
-        # 1. active factors + local id resolution
+        # 1. active factors + local id resolution; padding factors copy
+        # the first factor, disabled
         factor_ids_local: Dict[str, np.ndarray] = {}
-        factor_mask: Dict[str, np.ndarray] = {}
+        factor_levels: Dict[str, np.ndarray] = {}
+        npad = {}
         for name, fs in factor_sets.items():
             gids = fs.ids_array()
+            levels = fs.level_array()
+            npad[name] = (-gids.shape[0]) % pad_factors_to
+            if npad[name]:
+                gids = np.concatenate(
+                    [gids, np.repeat(gids[:1], npad[name], axis=0)])
+                levels = np.concatenate(
+                    [levels, np.full(npad[name], 0x80, dtype=levels.dtype)])
             local = np.zeros_like(gids)
             for slot, vt in enumerate(fs.ftype.vertex_types):
                 local[:, slot] = _resolve_ids(
                     self.vertex_sets[vt.name], gids[:, slot], name, slot)
             factor_ids_local[name] = local
-            factor_mask[name] = is_factor_active(fs.level_array(), opt_level)
+            factor_levels[name] = levels
 
-        # 2. vertex activity: not fixed and referenced by an active factor
-        referenced = {name: np.zeros(vs.count, dtype=bool)
-                      for name, vs in self.vertex_sets.items()}
-        for name, fs in factor_sets.items():
-            mask = factor_mask[name]
-            local = factor_ids_local[name]
-            for slot, vt in enumerate(fs.ftype.vertex_types):
-                referenced[vt.name][local[mask, slot]] = True
-        vertex_active = {name: referenced[name] & ~vs.fixed_array()
-                         for name, vs in self.vertex_sets.items()}
+        # 2. factor, vertex and slot activity
+        vertex_fixed = {name: vs.fixed_array()
+                        for name, vs in self.vertex_sets.items()}
+        factor_mask, vertex_active, slot_mask = activity_masks(
+            factor_ids_local, factor_levels, opt_level, vertex_fixed,
+            {name: fs.ftype for name, fs in factor_sets.items()})
+        # the vertices that get a column: every one in a remaskable problem
+        col_active = ({name: np.ones(vs.count, dtype=bool)
+                       for name, vs in self.vertex_sets.items()}
+                      if remaskable else vertex_active)
 
         # 3. sort vertices by (eliminated, type, global id); assign columns
         # to the active ones by an exclusive scan of their dims
@@ -307,7 +455,7 @@ class Graph:
             torder_cat.append(np.full(n, ti, dtype=np.int64))
             gid_cat.append(np.asarray(vs.global_ids, dtype=np.int64))
             local_cat.append(np.arange(n, dtype=np.int64))
-            active_cat.append(vertex_active[name])
+            active_cat.append(col_active[name])
             dim_cat.append(np.full(n, vs.vtype.dim, dtype=np.int64))
         elim_cat = np.concatenate(elim_cat)
         torder_cat = np.concatenate(torder_cat)
@@ -390,41 +538,53 @@ class Graph:
         for name, fs in factor_sets.items():
             local = factor_ids_local[name]
             fmask = factor_mask[name]
+            smask = slot_mask[name]
             n, nslots = local.shape
             rows_arr = np.zeros((n, nslots), dtype=np.int64)
-            smask = np.zeros((n, nslots), dtype=bool)
             for slot, vt in enumerate(fs.ftype.vertex_types):
                 rows_arr[:, slot] = vertex_active_row[vt.name][local[:, slot]]
-                smask[:, slot] = fmask & vertex_active[vt.name][local[:, slot]]
-            slot_mask_h[name] = smask
-            obs = fs.obs_array()
-            data = fs.data_array()
+            slot_mask_h[name] = np.ones_like(smask) if remaskable else smask
+
+            def padded(a, fill=0.0):
+                if a is None or not npad[name]:
+                    return a
+                return np.concatenate(
+                    [a, np.full((npad[name],) + a.shape[1:], fill)])
+
+            obs = padded(fs.obs_array())
+            data = padded(fs.data_array())
             fdata[name] = FactorArrays(
                 ids=tuple(dev(local[:, s], torch.int64) for s in range(nslots)),
                 rows=tuple(dev(rows_arr[:, s], torch.int64)
                            for s in range(nslots)),
                 obs=None if obs is None else dev(obs, gdt),
                 data=None if data is None else dev(data, gdt),
-                precision=(dev(fs.precision_array().reshape(n, -1), sdt)
-                           if fs.has_precision() else None),
-                loss_params=dev(fs.loss_params_array(), gdt),
+                precision=(dev(padded(fs.precision_array()).reshape(n, -1),
+                               sdt) if fs.has_precision() else None),
+                # padding factors take the loss default (finite
+                # derivatives)
+                loss_params=dev(padded(fs.loss_params_array(),
+                                       fs.ftype.loss.default_param()), gdt),
                 factor_mask=dev(fmask, torch.bool),
                 slot_mask=dev(smask, torch.bool),
             )
-            meta_f[name] = FactorMeta(ftype=fs.ftype, count=n)
+            meta_f[name] = FactorMeta(ftype=fs.ftype, count=n,
+                                      store_jacobians=fs.store_jacobians)
 
         host = HostStructure(
             vertex_col_offset=vertex_col_offset,
             vertex_block_id=vertex_block_id,
             vertex_active=vertex_active,
             vertex_active_row=vertex_active_row,
-            vertex_fixed={name: vs.fixed_array()
-                          for name, vs in self.vertex_sets.items()},
+            vertex_fixed=vertex_fixed,
             factor_ids=factor_ids_local,
             factor_mask=factor_mask,
             slot_mask=slot_mask_h,
             global_ids={name: np.asarray(vs.global_ids, dtype=np.int64)
                         for name, vs in self.vertex_sets.items()},
+            factor_levels=factor_levels,
+            factor_handles={name: fs.handle_array()
+                            for name, fs in factor_sets.items()},
         )
         return Problem(
             meta_v, meta_f, GraphData(vertices=vdata, factors=fdata), params0,
@@ -435,7 +595,8 @@ class Graph:
             elimination_col=elimination_col,
             precision=precision, host=host, seg_start=seg_start,
             seg_rows=seg_rows, segment_order=segment_order,
-            row_vertex=row_vertex,
+            row_vertex=row_vertex, opt_level=opt_level,
+            remaskable=remaskable, scale_jacobians=self._scale_jacobians,
         )
 
 

@@ -204,6 +204,9 @@ def compute_hessian_values(problem, hs: HessianStructure,
         fm = problem.factor_meta[cm.fname]
         fa = problem.data.factors[cm.fname]
         J = lin.jacobians[cm.fname]
+        if J is None:
+            raise ValueError("explicit Hessian requires stored Jacobians "
+                             f"('{cm.fname}' is dynamic)")
         E = fm.ftype.residual_dim
         ds = fm.ftype.vertex_types[cm.s].dim
         dt_ = fm.ftype.vertex_types[cm.t].dim

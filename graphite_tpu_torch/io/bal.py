@@ -1,7 +1,7 @@
 """BAL dataset text format: parser and graph builder.
 
 NumPy copy of ``graphite_tpu/io/bal.py`` (its optional native parser is
-not carried over). The format (https://grail.cs.washington.edu/projects/bal/):
+not carried over): ``load``, ``save`` and ``build_graph``. The format (https://grail.cs.washington.edu/projects/bal/):
 
     num_cameras num_points num_observations
     cam_idx point_idx x y            (x num_observations)
@@ -68,6 +68,18 @@ def load(path: str) -> BALDataset:
     cameras = rest[: n_cam * 9].reshape(n_cam, 9)
     points = rest[n_cam * 9: n_cam * 9 + n_pt * 3].reshape(n_pt, 3)
     return BALDataset(cameras, points, cam_idx, point_idx, observations)
+
+
+def save(path: str, ds: BALDataset) -> None:
+    """Write ``ds`` in the BAL text format (values to 17 digits, so that
+    ``load`` reads them back exactly)."""
+    with open(path, "w") as f:
+        f.write(f"{ds.num_cameras} {ds.num_points} {ds.num_observations}\n")
+        for c, p, (x, y) in zip(ds.cam_idx, ds.point_idx, ds.observations):
+            f.write(f"{c} {p} {x:.16e} {y:.16e}\n")
+        for v in np.concatenate([ds.cameras.reshape(-1),
+                                 ds.points.reshape(-1)]):
+            f.write(f"{v:.16e}\n")
 
 
 def build_graph(ds: BALDataset, precision=None,

@@ -8,13 +8,19 @@ matrix-free products (counterpart of ``graphite_tpu/linearize.py``).
 - Jacobi column scaling ``s = 1 / (eps + sqrt(diag(J^T dL P J)))``;
 - ``b = -sum_f J^T dL P r``, reduced per vertex row by ``reduce_rows``;
 - ``Jv``, ``JtPv`` and ``hessian_matvec`` (H x = J^T dL P J x) on the
-  stored Jacobians, the matrix-free PCG's products.
+  stored Jacobians, the matrix-free PCG's products. A factor set frozen
+  with ``store_jacobians=False`` (dynamic mode) stores none: its entry in
+  ``Linearization.jacobians`` is None and the products recompute its
+  scaled J from ``params`` on every call, with the same operations as
+  ``linearize`` (so the same bits as a stored J).
+
+``Graph.scale_system(False)`` turns the column scaling off (scales 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,7 +46,8 @@ class Linearization:
     """Everything one linearization pass produces."""
 
     residuals: Dict[str, torch.Tensor]  # (F, E) graph dtype
-    jacobians: Dict[str, Tuple[torch.Tensor, ...]]  # per slot (F, E*d_i)
+    # per slot (F, E*d_i); None for a set in dynamic mode
+    jacobians: Dict[str, Optional[Tuple[torch.Tensor, ...]]]
     chi2_vec: Dict[str, torch.Tensor]  # (F,) robust per-factor chi2
     chi2_deriv: Dict[str, torch.Tensor]  # (F,) loss derivative dL
     scales: torch.Tensor  # (dim_x,) Jacobi column scales
@@ -165,7 +172,6 @@ def compute_chi2_block(problem: Problem, name: str, r: torch.Tensor):
 
 def linearize(problem: Problem, params) -> Linearization:
     gdt = problem.precision.graph_dtype
-    sdt = problem.precision.solver_dtype
     acc = problem.precision.acc_dtype
 
     residuals, jac_flat, chi2_vec, chi2_deriv = {}, {}, {}, {}
@@ -195,24 +201,19 @@ def linearize(problem: Problem, params) -> Linearization:
             diag_rows[vt.name] = rows if prev is None else prev + rows
     diag_raw = problem.flat_from_rows(diag_rows)
 
-    eps = float(np.finfo(np.float64).eps)
-    scales = (1.0 / (eps + sqrt_rn(diag_raw))).to(gdt)
-    scales = torch.where(diag_raw > 0, scales, torch.ones_like(scales))
+    if problem.scale_jacobians:
+        eps = float(np.finfo(np.float64).eps)
+        scales = (1.0 / (eps + sqrt_rn(diag_raw))).to(gdt)
+        scales = torch.where(diag_raw > 0, scales, torch.ones_like(scales))
+    else:
+        scales = torch.ones(problem.dim_x, dtype=gdt, device=problem.device)
 
-    # scale and store the Jacobians; column c of residual row e sits at
-    # flat index e*d + c, so the per-column scales tile E times
-    jacobians: Dict[str, Tuple[torch.Tensor, ...]] = {}
+    # the scaled Jacobians, stored for every set not in dynamic mode
+    jacobians: Dict[str, Optional[Tuple[torch.Tensor, ...]]] = {}
     for name, fm in problem.factor_meta.items():
-        fa = problem.data.factors[name]
-        E = fm.ftype.residual_dim
-        scaled = []
-        for s, vt in enumerate(fm.ftype.vertex_types):
-            Ji = jac_flat[name][s]
-            si = problem.rows_view_padded(scales, vt.name).index_select(
-                0, fa.rows[s])
-            scaled.append(clamp_to_storage(Ji * si.repeat(1, E).to(Ji.dtype),
-                                           sdt))
-        jacobians[name] = tuple(scaled)
+        jac_flat[name] = _scaled_jacobians(problem, name, jac_flat[name],
+                                           scales)
+        jacobians[name] = jac_flat[name] if fm.store_jacobians else None
 
     diag = diag_raw * scales * scales
 
@@ -224,7 +225,7 @@ def linearize(problem: Problem, params) -> Linearization:
         w = (_weighted_residual(fa, residuals[name], acc)
              * chi2_deriv[name][:, None]).to(acc)
         for s, vt in enumerate(fm.ftype.vertex_types):
-            contrib = -flat_block_mv_t(jacobians[name][s], w, E, vt.dim,
+            contrib = -flat_block_mv_t(jac_flat[name][s], w, E, vt.dim,
                                        acc_dtype=acc)
             rows = _factor_row_reduce(problem, contrib.to(gdt), name, s,
                                       vt.name)
@@ -236,6 +237,39 @@ def linearize(problem: Problem, params) -> Linearization:
     return Linearization(residuals=residuals, jacobians=jacobians,
                          chi2_vec=chi2_vec, chi2_deriv=chi2_deriv,
                          scales=scales, diag=diag, b=b, chi2=chi2)
+
+
+def _scaled_jacobians(problem: Problem, name: str, jflat, scales):
+    """A set's masked flat Jacobians times their columns' scales, in the
+    storage dtype. Column c of residual row e sits at flat index e*d + c,
+    so the per-column scales tile E times."""
+    fa = problem.data.factors[name]
+    fm = problem.factor_meta[name]
+    E = fm.ftype.residual_dim
+    sdt = problem.precision.solver_dtype
+    out = []
+    for s, vt in enumerate(fm.ftype.vertex_types):
+        Ji = jflat[s]
+        if problem.scale_jacobians:
+            si = problem.rows_view_padded(scales, vt.name).index_select(
+                0, fa.rows[s])
+            Ji = Ji * si.repeat(1, E).to(Ji.dtype)
+        out.append(clamp_to_storage(Ji, sdt))
+    return tuple(out)
+
+
+def block_jacobians(problem: Problem, lin: Linearization, name: str,
+                    params=None) -> Tuple[torch.Tensor, ...]:
+    """A set's scaled Jacobians: stored, or (dynamic mode) recomputed
+    from ``params``; raises when a dynamic set gets no ``params``."""
+    J = lin.jacobians[name]
+    if J is not None:
+        return J
+    if params is None:
+        raise ValueError(f"factor block '{name}' uses dynamic Jacobians; "
+                         "pass params to the matvec")
+    _, jflat = _residuals_and_flat_jacobians(problem, params, name)
+    return _scaled_jacobians(problem, name, jflat, lin.scales)
 
 
 def compute_chi2(problem: Problem, params) -> torch.Tensor:
@@ -254,10 +288,11 @@ def compute_chi2(problem: Problem, params) -> torch.Tensor:
     return total.to(problem.precision.graph_dtype)
 
 
-def Jv(problem: Problem, lin: Linearization,
-       x: torch.Tensor) -> Dict[str, torch.Tensor]:
+def Jv(problem: Problem, lin: Linearization, x: torch.Tensor,
+       params=None) -> Dict[str, torch.Tensor]:
     """v = J x per factor block ((F, E) each); ``x`` is a (dim_x,) vector
-    (its pad is never read: masked Jacobian columns are zero)."""
+    (its pad is never read: masked Jacobian columns are zero). ``params``:
+    the linearization point, needed by sets in dynamic mode."""
     acc = problem.precision.acc_dtype
     gdt = problem.precision.graph_dtype
     x_rows = {name: problem.rows_view_padded(x, name)
@@ -266,8 +301,9 @@ def Jv(problem: Problem, lin: Linearization,
     for name, fm in problem.factor_meta.items():
         fa = problem.data.factors[name]
         E = fm.ftype.residual_dim
+        J = block_jacobians(problem, lin, name, params)
         out[name] = sum_in_order(
-            flat_block_mv(lin.jacobians[name][s],
+            flat_block_mv(J[s],
                           x_rows[vt.name].index_select(0, fa.rows[s]), E,
                           vt.dim, acc_dtype=acc)
             for s, vt in enumerate(fm.ftype.vertex_types)).to(gdt)
@@ -275,7 +311,7 @@ def Jv(problem: Problem, lin: Linearization,
 
 
 def JtPv(problem: Problem, lin: Linearization,
-         v: Dict[str, torch.Tensor]) -> torch.Tensor:
+         v: Dict[str, torch.Tensor], params=None) -> torch.Tensor:
     """J^T dL P v summed over every factor block into a (dim_x,) vector;
     each slot's rows are reduced by ``reduce_rows`` on the slot's cached
     plan (kernel K1 on CUDA, no float atomics)."""
@@ -287,8 +323,9 @@ def JtPv(problem: Problem, lin: Linearization,
         E = fm.ftype.residual_dim
         w = (_weighted_residual(fa, v[name], acc)
              * lin.chi2_deriv[name][:, None]).to(acc)
+        J = block_jacobians(problem, lin, name, params)
         for s, vt in enumerate(fm.ftype.vertex_types):
-            contrib = flat_block_mv_t(lin.jacobians[name][s], w, E, vt.dim,
+            contrib = flat_block_mv_t(J[s], w, E, vt.dim,
                                       acc_dtype=acc)
             rows = _factor_row_reduce(problem, contrib.to(gdt), name, s,
                                       vt.name)
@@ -298,9 +335,9 @@ def JtPv(problem: Problem, lin: Linearization,
 
 
 def hessian_matvec(problem: Problem, lin: Linearization,
-                   x: torch.Tensor) -> torch.Tensor:
+                   x: torch.Tensor, params=None) -> torch.Tensor:
     """The implicit H x = J^T dL P (J x)."""
-    return JtPv(problem, lin, Jv(problem, lin, x))
+    return JtPv(problem, lin, Jv(problem, lin, x, params), params)
 
 
 def apply_update(problem: Problem, params, lin: Linearization,

@@ -6,13 +6,20 @@ launches its kernel, and nowhere else, so a run can show that its main
 path went through the kernel. With ``record_events`` set, each launch is
 bracketed by two CUDA events on the launch stream; ``total_ms`` reads them
 (after a synchronize).
+
+Inside a captured CUDA graph (the device-controlled LM iteration) a
+wrapper runs once, at capture time: its count is the launches of one
+replay, and a captured path's launches are that count times the replays
+(``snapshot`` takes every wrapper's count, for the difference across a
+capture). Events cannot be recorded there: ``start`` raises when
+``record_events`` is set during a capture.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -37,6 +44,14 @@ def stream_ptr(device: torch.device) -> int:
         torch.cuda.current_device() if index is None else index)
 
 
+REGISTRY: List["LaunchStats"] = []
+
+
+def snapshot() -> Dict[str, int]:
+    """Every wrapper's launch count, by name."""
+    return {s.name: s.launches for s in REGISTRY}
+
+
 @dataclasses.dataclass
 class LaunchStats:
     name: str
@@ -44,6 +59,9 @@ class LaunchStats:
     record_events: bool = False
     events: List[Tuple[torch.cuda.Event, torch.cuda.Event]] = dataclasses.field(
         default_factory=list)
+
+    def __post_init__(self):
+        REGISTRY.append(self)
 
     def reset(self) -> None:
         self.launches = 0
@@ -53,6 +71,10 @@ class LaunchStats:
         """Called right before a launch; returns the start event or None."""
         if not self.record_events:
             return None
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"{self.name}: record_events is set during a CUDA graph "
+                "capture; a captured launch cannot be timed by events")
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         return ev

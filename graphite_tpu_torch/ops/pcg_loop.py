@@ -1,5 +1,8 @@
 """Preconditioned CG iteration (counterpart of
-``graphite_tpu/ops/pcg_loop.py``), as a host loop.
+``graphite_tpu/ops/pcg_loop.py``): ``run_pcg``, a host loop, and
+``run_pcg_fixed``, the same steps with no host read. The solvers call
+``pcg``, which takes ``run_pcg_fixed`` inside the device-controlled LM
+iteration (``ops/device_loop``) and ``run_pcg`` elsewhere.
 
 Semantics: the residual is normalized before each preconditioner
 application; a step with |rz_new| > rejection_ratio * rz_min (or a NaN
@@ -20,6 +23,7 @@ from typing import Callable, Tuple
 import torch
 
 from ..precision import sqrt_rn
+from . import device_loop
 
 
 def tree_sum(v: torch.Tensor) -> torch.Tensor:
@@ -117,3 +121,60 @@ def run_pcg(b: torch.Tensor, matvec: Callable, precond: Callable,
         if bool(rz.abs() < tol):
             break
     return x, k
+
+
+def run_pcg_fixed(b: torch.Tensor, matvec: Callable, precond: Callable,
+                  max_iter: int, tol: float, rejection_ratio: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``run_pcg`` with no host read: ``max_iter`` steps, each taken or
+    held by a device flag ``done``, set by ``run_pcg``'s own tests (rz ==
+    0, a rejected or NaN step, |rz| < tol). A taken step does
+    ``run_pcg``'s float operations in its order and a held value is
+    selected with ``torch.where``, so x and the step count (a 0-d int64
+    tensor) are bitwise ``run_pcg``'s; what a held step computes is
+    thrown away, NaN or not."""
+    dot = tree_dot
+
+    def precondition(r):
+        rnorm = sqrt_rn(dot(r, r))
+        return precond(r / torch.where(rnorm == 0, torch.ones_like(rnorm),
+                                       rnorm))
+
+    x = torch.zeros_like(b)
+    r = b
+    z = precondition(r)
+    p = z
+    rz = dot(r, z)
+    rz_min = torch.full((), float("inf"), dtype=b.dtype, device=b.device)
+    k = torch.zeros((), dtype=torch.int64, device=b.device)
+    done = rz == 0
+    for _ in range(max_iter):
+        live = ~done
+        v = matvec(p)
+        alpha = rz / dot(p, v)
+        x_new = x + alpha * p
+        r_new = r - alpha * v
+        z_new = precondition(r_new)
+        rz_new = dot(r_new, z_new)
+        reject = ((rz_new.abs() > rejection_ratio * rz_min)
+                  | torch.isnan(rz_new))
+        rz_min = torch.where(live, torch.minimum(rz_min, rz_new.abs()),
+                             rz_min)
+        k = k + live.to(k.dtype)
+        take = live & ~reject
+        p = torch.where(take, z_new + (rz_new / rz) * p, p)
+        x = torch.where(take, x_new, x)
+        r = torch.where(take, r_new, r)
+        z = torch.where(take, z_new, z)
+        rz = torch.where(take, rz_new, rz)
+        done = done | reject | (take & ((rz.abs() < tol) | (rz == 0)))
+    return x, k
+
+
+def pcg(b: torch.Tensor, matvec: Callable, precond: Callable,
+        max_iter: int, tol: float, rejection_ratio: float
+        ) -> Tuple[torch.Tensor, object]:
+    """``run_pcg_fixed`` inside the device-controlled LM iteration,
+    ``run_pcg`` elsewhere: (x, the CG steps taken)."""
+    solve = run_pcg_fixed if device_loop.active() else run_pcg
+    return solve(b, matvec, precond, max_iter, tol, rejection_ratio)

@@ -1,3 +1,9 @@
-from .lm import LevenbergMarquardtOptions, LMResult, levenberg_marquardt
+from .lm import (
+    LevenbergMarquardtOptions,
+    LMResult,
+    levenberg_marquardt,
+    levenberg_marquardt2,
+)
 
-__all__ = ["LevenbergMarquardtOptions", "LMResult", "levenberg_marquardt"]
+__all__ = ["LevenbergMarquardtOptions", "LMResult", "levenberg_marquardt",
+           "levenberg_marquardt2"]

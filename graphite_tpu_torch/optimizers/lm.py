@@ -1,16 +1,37 @@
-"""Levenberg-Marquardt as a host loop (counterpart of
-``graphite_tpu/optimizers/lm.py``, non-jit mode).
+"""Levenberg-Marquardt (counterpart of ``graphite_tpu/optimizers/lm.py``).
 
 - gain ratio ``rho = (chi2 - chi2_new) / (sum dx*(mu*dx + b) + 1e-3)``;
 - accept: ``mu *= clamp(1 - (2 rho - 1)^3, 1/3, 2/3)``, ``nu = 2``,
   relinearize and refresh the solver state;
 - reject: restore the parameters, ``mu *= nu``, ``nu *= 2``;
 - a failed solve makes chi2_new = max float, hence a rejected step;
-- stop on a non-finite mu or rho == 0.
+- stop on a non-finite mu, rho == 0, the stop flag, or (LM2,
+  ``levenberg_marquardt2``) ``early_stop_bad_steps`` accepted steps in a
+  row whose relative decrease is below ``early_stop_relative``.
 
-Each iteration reads its scalars back to the host once (the accept branch
-is taken on the host). On CUDA each history entry also holds the
-iteration's device time from CUDA events.
+Two modes:
+
+- ``jit_loop=False``: a host loop. Each iteration reads its scalars back
+  once (the accept branch is taken on the host); on CUDA each history
+  entry also holds the iteration's device time from CUDA events.
+- ``jit_loop=True``: the device-controlled iteration (``_DeviceLoop``),
+  the counterpart of the JAX package's ``lax.while_loop``. The LM state
+  lives in static tensors and one iteration updates it with no host read:
+  the accepted branch (relinearize, refresh the solver) is computed on
+  every iteration and selected with ``torch.where``, and every update is
+  gated by the ``run`` flag, so an iteration after a stop changes nothing.
+  On a CUDA problem the iteration is captured once as a CUDA graph
+  (``ops/device_loop.Capture``, after one eager warm-up that builds every
+  host plan), cached on the problem per (solver, the options that shape
+  the step: ``use_identity`` and the early stop), and replayed
+  ``iterations`` times with no read in between; after each replay the
+  iteration's row [chi2, mu, rho, accepted] is copied into a trace of the
+  run's length, and the history comes from that trace in one readback at
+  the end. The replays after a stop are not skipped (a graph has no
+  branch): each computes a full iteration and changes nothing. On a CPU
+  problem the same iteration runs uncaptured: the plain version of the
+  captured one. Remasking (``Problem.remask``) writes the masks in place,
+  so the cached graph stays valid.
 """
 
 from __future__ import annotations
@@ -18,6 +39,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
+import warnings
 from typing import Any, Optional
 
 import torch
@@ -29,13 +51,22 @@ from ..linearize import (
     linearize,
     restore_parameters,
 )
+from ..ops import device_loop
+from ..ops.cuda import launches as launch_stats
 
 
 @dataclasses.dataclass
 class LevenbergMarquardtOptions:
     iterations: int = 10
     initial_damping: float = 1e-4
+    verbose: bool = False
     use_identity: bool = False
+    jit_loop: bool = False
+    # levenberg_marquardt2's early stop; None disables it
+    early_stop_bad_steps: Optional[int] = None
+    early_stop_relative: float = 1e-3
+    # write a torch.profiler Chrome trace of the run into this directory
+    profile_dir: Optional[str] = None
 
 
 @dataclasses.dataclass
@@ -48,48 +79,114 @@ class LMResult:
     accepted_steps: int
     run_ok: bool
     # per iteration: dict(iteration, chi2_before, chi2, mu, rho, accepted,
-    # time (host seconds), device_ms (CUDA events; None on the CPU))
+    # time (host seconds), device_ms (CUDA events; None on the CPU)); under
+    # jit_loop time is the run's wall (its replays after a stop included)
+    # over the iterations that ran, as in the JAX package, and device_ms
+    # the mean replay of those iterations
     history: list
 
 
-def lm_step(problem, solver, lin, sstate, params, mu, chi2,
-            use_identity: bool):
+def try_step(problem, solver, lin, sstate, params, mu, chi2,
+             use_identity: bool):
     """One damped solve from ``params`` (linearized as ``lin``, damping
-    ``mu``, cost ``chi2``) and its gain test: (accept, new parameters,
-    new chi2, rho). A failed solve gives new chi2 = max float, hence a
-    rejected step."""
+    ``mu``, cost ``chi2``) and its gain test, all on the device: (accept,
+    new parameters, new chi2, rho). A failed solve gives new chi2 = max
+    float, hence a rejected step."""
     gdt = problem.precision.graph_dtype
     delta_x, ok = solver.solve(problem, lin, sstate, mu, use_identity,
                                params=params)
     new_params = apply_update(problem, params, lin, delta_x)
-    big = torch.tensor(torch.finfo(gdt).max, dtype=gdt, device=problem.device)
-    new_chi2 = torch.where(ok, compute_chi2(problem, new_params), big)
+    new_chi2 = torch.where(ok, compute_chi2(problem, new_params),
+                           torch.finfo(gdt).max)
     dx = delta_x[: problem.dim_h]
     bb = lin.b[: problem.dim_h]
     # summed in float64 (like chi2, see linearize.compute_chi2)
     gain = (dx * (mu * dx + bb)).sum(dtype=torch.float64).to(gdt)
     denom = torch.where(ok, gain + 1e-3, torch.ones_like(mu))
     rho = (chi2 - new_chi2) / denom
-    accept = bool(ok & torch.isfinite(new_chi2) & (rho > 0))
+    accept = ok & torch.isfinite(new_chi2) & (rho > 0)
     return accept, new_params, new_chi2, rho
 
 
+def lm_step(problem, solver, lin, sstate, params, mu, chi2,
+            use_identity: bool):
+    """``try_step`` with the accept decision read back: (accept (bool),
+    new parameters, new chi2, rho)."""
+    accept, new_params, new_chi2, rho = try_step(
+        problem, solver, lin, sstate, params, mu, chi2, use_identity)
+    return bool(accept), new_params, new_chi2, rho
+
+
+def _damping_factor(rho):
+    t = 2.0 * rho - 1.0
+    return (1.0 - t * t * t).clamp(1.0 / 3.0, 2.0 / 3.0)
+
+
+def _still_running(options, run, mu, rho, num_bad):
+    """The ``run`` flag after an iteration (the JAX package's rule)."""
+    run = run & torch.isfinite(mu) & (rho != 0)
+    if options.early_stop_bad_steps is not None:
+        run = run & (num_bad < options.early_stop_bad_steps)
+    return run
+
+
+def _low_progress(options, chi2, new_chi2):
+    """LM2: the step's decrease is below ``early_stop_relative`` of
+    chi2."""
+    return (chi2 - new_chi2) < chi2 * options.early_stop_relative
+
+
+def _profiled(problem, solver, params, options, stop_flag):
+    """The run under ``torch.profiler``, its Chrome trace written into
+    ``options.profile_dir``."""
+    import os
+
+    from ..stage_profile import profiler_activities
+
+    inner = dataclasses.replace(options, profile_dir=None)
+    os.makedirs(options.profile_dir, exist_ok=True)
+    with torch.profiler.profile(
+            activities=profiler_activities(problem.device)) as prof:
+        result = levenberg_marquardt(problem, solver, params, inner,
+                                     stop_flag)
+        if problem.device.type == "cuda":
+            torch.cuda.synchronize(problem.device)
+    prof.export_chrome_trace(os.path.join(
+        options.profile_dir, f"lm_trace_{os.getpid()}_{time.time_ns()}.json"))
+    return result
+
+
 def levenberg_marquardt(problem, solver, params=None,
-                        options: Optional[LevenbergMarquardtOptions] = None
-                        ) -> LMResult:
+                        options: Optional[LevenbergMarquardtOptions] = None,
+                        stop_flag=None) -> LMResult:
     options = options or LevenbergMarquardtOptions()
     params = params if params is not None else problem.params0
+    if options.profile_dir:
+        return _profiled(problem, solver, params, options, stop_flag)
+    if options.jit_loop:
+        return _device_loop(problem, solver, options).run(params, options)
+
     gdt = problem.precision.graph_dtype
     dev = problem.device
     on_cuda = dev.type == "cuda"
 
+    t0 = time.perf_counter()
     lin = linearize(problem, params)
     sstate = solver.prepare(problem, lin, params)
     backup = backup_parameters(problem, params)
-    mu = torch.tensor(options.initial_damping, dtype=gdt, device=dev)
-    nu = torch.tensor(2.0, dtype=gdt, device=dev)
+    mu = torch.full((), options.initial_damping, dtype=gdt, device=dev)
+    nu = torch.full((), 2.0, dtype=gdt, device=dev)
     chi2 = lin.chi2
+    run = torch.ones((), dtype=torch.bool, device=dev)
+    num_bad = torch.zeros((), dtype=torch.int64, device=dev)
     initial_chi2 = float(chi2)
+    total = time.perf_counter() - t0
+
+    if options.verbose:
+        hdr = (f"{'Iteration':>12} {'Initial Chi2':>18} {'Current Chi2':>18} "
+               f"{'Lambda':>14} {'Time':>12} {'Total Time':>12}")
+        print(hdr)
+        print("-" * len(hdr))
 
     history = []
     accepted_steps = 0
@@ -104,41 +201,348 @@ def levenberg_marquardt(problem, solver, params=None,
         accept, new_params, new_chi2, rho = lm_step(
             problem, solver, lin, sstate, params, mu, chi2,
             options.use_identity)
+        low = _low_progress(options, prev_chi2, new_chi2)
 
         if accept:
-            t = 2.0 * rho - 1.0
-            alpha = (1.0 - t * t * t).clamp(1.0 / 3.0, 2.0 / 3.0)
             params = new_params
             backup = backup_parameters(problem, params)
             lin = linearize(problem, params)
             sstate = solver.prepare(problem, lin, params)
-            mu = mu * alpha.to(gdt)
-            nu = torch.tensor(2.0, dtype=gdt, device=dev)
+            mu = mu * _damping_factor(rho).to(gdt)
+            nu = torch.full((), 2.0, dtype=gdt, device=dev)
             chi2 = new_chi2
+            num_bad = torch.where(low, num_bad + 1, 0)
             accepted_steps += 1
         else:
             params = restore_parameters(problem, new_params, backup)
             mu = mu * nu
             nu = nu * 2.0
-        c, c_prev, m, r = torch.stack([chi2, prev_chi2, mu, rho]).tolist()
+        run = _still_running(options, run, mu, rho, num_bad)
+        c, c_prev, m, r, go = torch.stack(
+            [chi2, prev_chi2, mu, rho, run.to(gdt)]).tolist()
         device_ms = None
         if on_cuda:
             ev1.record()
             ev1.synchronize()
             device_ms = ev0.elapsed_time(ev1)
         dt = time.perf_counter() - t0
+        total += dt
         history.append(dict(iteration=i, chi2_before=c_prev, chi2=c, mu=m,
                             rho=r, accepted=accept, time=dt,
                             device_ms=device_ms))
-        if not math.isfinite(m):
-            print("Damping factor is infinite, terminating optimization")
-            run_ok = False
+        if options.verbose:
+            print(f"{i:>12d} {c_prev:>18.10g} {c:>18.10g} "
+                  f"{m:>14.6g} {dt:>12.4g} {total:>12.4g}")
+        if not go:
+            if not math.isfinite(m):
+                print("Damping factor is infinite, terminating optimization")
+                run_ok = False
+            elif r == 0:
+                print("Rho is zero, terminating optimization")
             break
-        if r == 0:
-            print("Rho is zero, terminating optimization")
+        if stop_flag is not None and stop_flag():
+            print("Stopping optimization due to stop flag")
             break
 
     return LMResult(params=params, chi2=float(chi2),
                     initial_chi2=initial_chi2, mu=float(mu),
                     iterations=len(history), accepted_steps=accepted_steps,
                     run_ok=run_ok, history=history)
+
+
+def levenberg_marquardt2(problem, solver, params=None,
+                         options: Optional[LevenbergMarquardtOptions] = None,
+                         stop_flag=None) -> LMResult:
+    """LM with the early stop: 3 accepted steps in a row whose relative
+    decrease is below ``early_stop_relative``."""
+    options = options or LevenbergMarquardtOptions()
+    options = dataclasses.replace(options, early_stop_bad_steps=3)
+    return levenberg_marquardt(problem, solver, params, options, stop_flag)
+
+
+# ---- the device-controlled iteration (jit_loop) --------------------------
+
+def _leaves(tree) -> list:
+    """The tensors of a state tree (dataclasses, dicts, tuples, lists), in
+    a fixed order; other leaves (None, ints) are skipped."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [t for f in dataclasses.fields(tree)
+                for t in _leaves(getattr(tree, f.name))]
+    if isinstance(tree, dict):
+        return [t for k in tree for t in _leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in _leaves(v)]
+    return []
+
+
+def _cloned(tree):
+    """A copy of a state tree with every tensor cloned (the static buffers
+    of the device loop own their memory)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: _cloned(getattr(tree, f.name))
+            for f in dataclasses.fields(tree) if f.init})
+    if isinstance(tree, dict):
+        return {k: _cloned(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_cloned(v) for v in tree)
+    return tree
+
+
+def _select_into(dst, cond, src) -> None:
+    """dst := where(cond, src, dst), tensor by tensor, in place."""
+    a, b = _leaves(dst), _leaves(src)
+    if len(a) != len(b):
+        raise RuntimeError("device loop: the state changed its structure")
+    for d, s in zip(a, b):
+        if d.shape != s.shape or d.dtype != s.dtype:
+            raise RuntimeError(
+                f"device loop: a state tensor changed from {d.dtype}"
+                f"{tuple(d.shape)} to {s.dtype}{tuple(s.shape)}")
+        torch.where(cond, s, d, out=d)
+
+
+def _copy_into(dst, src) -> None:
+    """dst := src, tensor by tensor, in place."""
+    for d, s in zip(_leaves(dst), _leaves(src), strict=True):
+        d.copy_(s)
+
+
+class _DeviceLoop:
+    """The LM state in static tensors and the iteration that updates it
+    (see the module docstring). Built once per (problem, solver, the
+    options that shape the step); ``run(params, options)`` starts from
+    ``params`` with the call's damping and runs its ``iterations``."""
+
+    def __init__(self, problem, solver, options: LevenbergMarquardtOptions):
+        # only the fields of _loop_key are read from these options
+        self.problem, self.solver, self.step_options = problem, solver, options
+        gdt = problem.precision.graph_dtype
+        dev = problem.device
+        params = {n: p.clone() for n, p in problem.params0.items()}
+        lin = linearize(problem, params)
+        sstate = solver.prepare(problem, lin, params)
+        self.params = params
+        self.backup = _cloned(backup_parameters(problem, params))
+        self.lin = _cloned(lin)
+        self.sstate = _cloned(sstate)
+
+        def scalar(v, dtype=gdt):
+            return torch.full((), v, dtype=dtype, device=dev)
+
+        self.mu, self.nu, self.chi2 = scalar(0.0), scalar(2.0), scalar(0.0)
+        self.rho = scalar(1.0)
+        self.accepted = scalar(False, torch.bool)
+        self.run_flag = scalar(True, torch.bool)
+        self.num_accepted = scalar(0, torch.int64)
+        self.num_bad = scalar(0, torch.int64)
+        self.k = scalar(0, torch.int64)
+        self.initial_chi2 = scalar(0.0)
+        # the iteration's [chi2, mu, rho, accepted], copied into the run's
+        # trace after each iteration
+        self.row = torch.zeros(4, dtype=gdt, device=dev)
+        self.capture = None
+        self.capture_seconds = 0.0
+        self.capture_launches = {}
+        self.pool_bytes = 0
+        self.replays = 0  # replays of the capture over the loop's life
+        self.replay_ms = []  # the last run's device ms of each replay
+        if dev.type == "cuda":
+            self._capture()
+
+    def _candidate(self):
+        """Everything one iteration computes from the state, nothing
+        written: the step, its gain test and the accepted branch."""
+        problem, solver = self.problem, self.solver
+        accept, new_params, new_chi2, rho = try_step(
+            problem, solver, self.lin, self.sstate, self.params, self.mu,
+            self.chi2, self.step_options.use_identity)
+        lin2 = linearize(problem, new_params)
+        return dict(
+            accept=accept, new_params=new_params, new_chi2=new_chi2,
+            rho=rho, lin=lin2, sstate=solver.prepare(problem, lin2,
+                                                     new_params),
+            backup=backup_parameters(problem, new_params),
+            restored=restore_parameters(problem, new_params, self.backup))
+
+    def _step(self) -> None:
+        """One iteration, in place, with no host read."""
+        gdt = self.problem.precision.graph_dtype
+        c = self._candidate()
+        run, accept = self.run_flag, c["accept"]
+        take = run & accept
+        mu = torch.where(accept,
+                         self.mu * _damping_factor(c["rho"]).to(gdt),
+                         self.mu * self.nu)
+        nu = torch.where(accept, 2.0, self.nu * 2.0)
+        chi2 = torch.where(accept, c["new_chi2"], self.chi2)
+        low = _low_progress(self.step_options, self.chi2, c["new_chi2"])
+        num_bad = torch.where(accept, torch.where(low, self.num_bad + 1, 0),
+                              self.num_bad)
+        still = _still_running(self.step_options, run, mu, c["rho"], num_bad)
+
+        _select_into(self.params, run, {
+            n: torch.where(accept, c["new_params"][n], c["restored"][n])
+            for n in self.params})
+        _select_into(self.backup, take, c["backup"])
+        _select_into(self.lin, take, c["lin"])
+        _select_into(self.sstate, take, c["sstate"])
+        _select_into([self.mu, self.nu, self.chi2, self.rho, self.accepted,
+                      self.num_bad],
+                     run, [mu, nu, chi2, c["rho"], accept, num_bad])
+        self.num_accepted.add_(take.to(torch.int64))
+        # a row written after the stop lies past k: the history skips it
+        self.row.copy_(torch.stack([chi2, mu, c["rho"], accept.to(gdt)]))
+        self.k.add_(run.to(torch.int64))
+        self.run_flag.copy_(still)
+
+    def _capture(self) -> None:
+        """Warm up (one eager candidate on a side stream: every host plan
+        gets built), then capture one iteration."""
+        dev = self.problem.device
+        # the Schur complement needs IEEE float32 products (pcg_schur.py)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side), device_loop.enabled():
+            self._candidate()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        reserved = torch.cuda.memory_reserved(dev)
+        before = launch_stats.snapshot()
+        cap = device_loop.Capture(dev)
+        cap.record(self._step)
+        after = launch_stats.snapshot()
+        self.capture_launches = {n: after[n] - before.get(n, 0)
+                                 for n in after if after[n] - before.get(n, 0)}
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.capture = cap
+        self.capture_seconds = time.perf_counter() - t0
+
+    def _start(self, params, initial_damping: float) -> None:
+        """Reset the state to the start of a run from ``params``."""
+        problem = self.problem
+        _copy_into(self.params, {n: params[n] for n in self.params})
+        lin = linearize(problem, self.params)
+        _copy_into(self.lin, lin)
+        _copy_into(self.sstate, self.solver.prepare(problem, lin,
+                                                    self.params))
+        _copy_into(self.backup, backup_parameters(problem, self.params))
+        self.mu.fill_(initial_damping)
+        self.nu.fill_(2.0)
+        self.chi2.copy_(lin.chi2)
+        self.initial_chi2.copy_(lin.chi2)
+        self.rho.fill_(1.0)
+        self.accepted.fill_(False)
+        self.run_flag.fill_(True)
+        for t in (self.num_accepted, self.num_bad, self.k, self.row):
+            t.zero_()
+
+    def run(self, params, options: LevenbergMarquardtOptions) -> LMResult:
+        """A run of ``options.iterations`` iterations from ``params`` with
+        ``options.initial_damping``, printed when ``options.verbose``."""
+        dev = self.problem.device
+        gdt = self.problem.precision.graph_dtype
+        on_cuda = dev.type == "cuda"
+        t0 = time.perf_counter()
+        self._start(params, options.initial_damping)
+        trace = torch.zeros((options.iterations, 4), dtype=gdt, device=dev)
+        device_ms = None
+        if on_cuda:
+            events = [torch.cuda.Event(enable_timing=True)
+                      for _ in range(options.iterations + 1)]
+            sync_mode = torch.cuda.get_sync_debug_mode()
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # "a prototype feature"
+                if not self.capture.host_calls:
+                    # no host read between replays: any sync raises
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    events[0].record()
+                    for i, ev in enumerate(events[1:]):
+                        self.capture.replay()
+                        trace[i].copy_(self.row)
+                        ev.record()
+                finally:
+                    torch.cuda.set_sync_debug_mode(sync_mode)
+            self.replays += options.iterations
+        else:
+            with device_loop.enabled():
+                for i in range(options.iterations):
+                    self._step()
+                    trace[i].copy_(self.row)
+        # one batched readback
+        scalars = torch.stack([
+            self.chi2, self.initial_chi2, self.mu, self.k.to(gdt),
+            self.num_accepted.to(gdt), self.run_flag.to(gdt)]).tolist()
+        trace = trace.tolist()
+        wall = time.perf_counter() - t0
+        chi2, initial_chi2, mu, k, num_accepted, run = scalars
+        k = int(k)
+        if on_cuda:
+            self.replay_ms = [a.elapsed_time(b)
+                              for a, b in zip(events, events[1:])]
+            device_ms = sum(self.replay_ms[:k]) / max(k, 1)
+        history = []
+        prev = initial_chi2
+        for i in range(k):
+            c_i, mu_i, rho_i, acc_i = trace[i]
+            history.append(dict(iteration=i, chi2_before=prev, chi2=c_i,
+                                mu=mu_i, rho=rho_i, accepted=bool(acc_i),
+                                time=wall / max(k, 1), device_ms=device_ms))
+            prev = c_i
+        if options.verbose and history:
+            hdr = (f"{'Iteration':>12} {'Initial Chi2':>18} "
+                   f"{'Current Chi2':>18} {'Lambda':>14} {'Rho':>12}")
+            print(hdr)
+            print("-" * len(hdr))
+            for h in history:
+                print(f"{h['iteration']:>12d} {h['chi2_before']:>18.10g} "
+                      f"{h['chi2']:>18.10g} {h['mu']:>14.6g} "
+                      f"{h['rho']:>12.6g}")
+        return LMResult(
+            params={n: p.clone() for n, p in self.params.items()},
+            chi2=chi2, initial_chi2=initial_chi2, mu=mu, iterations=k,
+            accepted_steps=int(num_accepted), run_ok=bool(run),
+            history=history)
+
+
+def _loop_key(solver, options):
+    """The options that shape the captured step; the iteration count, the
+    initial damping and ``verbose`` are the call's own."""
+    return ("lm_device_loop", id(solver), options.use_identity,
+            options.early_stop_bad_steps, options.early_stop_relative)
+
+
+def _device_loop(problem, solver, options) -> _DeviceLoop:
+    """The device loop of (solver, the options that shape the step)
+    cached on ``problem``."""
+    key = _loop_key(solver, options)
+    loop = problem._cache.get(key)
+    if loop is None or loop.solver is not solver:
+        loop = _DeviceLoop(problem, solver, options)
+        problem._cache[key] = loop
+    return loop
+
+
+def cached_device_loop(problem, solver,
+                       options: LevenbergMarquardtOptions):
+    """The device loop a ``jit_loop`` run of (solver, options) on
+    ``problem`` reuses, or None: its ``capture`` (the CUDA graph pieces),
+    ``capture_seconds`` (the warm-up and the capture),
+    ``capture_launches`` (each kernel wrapper's
+    launches in one replay), ``pool_bytes`` (the memory the capture
+    reserved), ``replays`` (replays over the loop's life) and
+    ``replay_ms`` (the last run's device ms per replay, those after a stop
+    included)."""
+    return problem._cache.get(_loop_key(solver, options))
+
+
+def device_loops(problem) -> list:
+    """Every device loop cached on ``problem``."""
+    return [v for v in problem._cache.values() if isinstance(v, _DeviceLoop)]

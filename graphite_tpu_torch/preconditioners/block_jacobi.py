@@ -45,6 +45,10 @@ def compute_block_diagonal(problem, lin: Linearization
         for name, vm in problem.vertex_meta.items()
     }
     for fname, fm in problem.factor_meta.items():
+        if lin.jacobians[fname] is None:
+            raise ValueError(
+                "block-Jacobi preconditioner requires stored Jacobians; "
+                f"factor block '{fname}' is in dynamic mode")
         fa = problem.data.factors[fname]
         dL = lin.chi2_deriv[fname].to(acc)
         E = fm.ftype.residual_dim

@@ -10,7 +10,10 @@
   or identity preconditioner, a float32 graph, and a feasible
   ``plan_pcg_mf`` site (one vertex type, the folded J within
   ``J_BYTES_LIMIT``); otherwise ``run_pcg`` on ``hessian_matvec``, whose
-  row reductions take kernel K1 on CUDA.
+  row reductions take kernel K1 on CUDA (``run_pcg_fixed`` inside the
+  device-controlled LM iteration). A factor set without stored Jacobians
+  (``store_jacobians=False``) closes the K6 gate; ``hessian_matvec``
+  then recomputes its J from ``params``.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 
 from ..linearize import DIAG_MAX, DIAG_MIN, Linearization, hessian_matvec
 from ..ops.cuda.pcg_mf import fold_jacobians, plan_pcg_mf, solve_pcg_mf
-from ..ops.pcg_loop import run_pcg
+from ..ops.pcg_loop import pcg
 from ..preconditioners.block_jacobi import (
     BlockJacobiPreconditioner,
     BlockJacobiState,
@@ -79,13 +82,13 @@ class PCGSolver:
             return problem.flat_from_rows({name: x_rows}), ok
 
         def matvec(p):
-            return hessian_matvec(problem, lin, p) + damp_vec * p
+            return hessian_matvec(problem, lin, p, params) + damp_vec * p
 
         def precond(y):
             return self.preconditioner.apply(problem, lin, pstate, y)
 
-        x, _ = run_pcg(lin.b, matvec, precond, self.max_iter, self.tol,
-                       self.rejection_ratio)
+        x, _ = pcg(lin.b, matvec, precond, self.max_iter, self.tol,
+                   self.rejection_ratio)
         x = x.clone()
         x[problem.dim_h:] = 0.0
         return x, ok

@@ -8,7 +8,8 @@ PCG on S dx_p = b_S, then back-substitute the landmarks. Up to
 block-Jacobi-Schur, the whole PCG runs as one ``dense_pcg`` call (kernel K2
 on CUDA), as in the JAX package. Above ``dense_matvec_limit`` the PCG runs
 on the host loop with the block-sparse S matvec (``SchurOps.s_matvec``:
-kernel K5 on CUDA at BAL Venice scale).
+kernel K5 on CUDA at BAL Venice scale); inside the device-controlled
+LM iteration it is ``run_pcg_fixed``, with no host read.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from ..hessian import (
 )
 from ..linearize import Linearization
 from ..ops.cuda.pcg_dense import dense_pcg
-from ..ops.pcg_loop import run_pcg
+from ..ops.pcg_loop import pcg
 from ..preconditioners.block_jacobi_schur import (
     BlockJacobiSchurPreconditioner,
     dense_preconditioner_matrix,
@@ -71,8 +72,8 @@ class PCGSchurSolver:
 
         if ss.dim_p > self.dense_matvec_limit:
             ops.prepare_matvec()
-            dx_p, _ = run_pcg(b_s, ops.s_matvec, precond, self.max_iter,
-                              self.tol, self.rejection_ratio)
+            dx_p, _ = pcg(b_s, ops.s_matvec, precond, self.max_iter,
+                          self.tol, self.rejection_ratio)
         else:
             S = schur_to_dense(problem, ss, sv)
             if (ss.dim_p <= self.fused_pcg_limit
@@ -84,7 +85,7 @@ class PCGSchurSolver:
                                     max_iter=self.max_iter, tol=self.tol,
                                     rejection_ratio=self.rejection_ratio)
             else:
-                dx_p, _ = run_pcg(
+                dx_p, _ = pcg(
                     b_s, lambda p: (S @ p.to(S.dtype)).to(gdt), precond,
                     self.max_iter, self.tol, self.rejection_ratio)
         dx_p = dx_p.to(gdt)

@@ -18,7 +18,8 @@ the JAX package's budget for its 16 GB TPU, kept for that parity only.
 A failed factorization (``info != 0`` on a Cholesky branch, a singular
 matrix for ``splu``) or a non-finite solution gives ``ok = False`` and a
 zero delta, which the LM loop rejects. ``ok`` stays on the device, except
-on the host branch, which synchronises by nature.
+on the host branch, which synchronises by nature (``host_sparse_solve``:
+inside a captured LM iteration, its one host sync).
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from ..hessian import (
     ensure_csc_structure,
 )
 from ..linearize import Linearization
+from ..ops import device_loop
 from ..ops.nd_multifrontal import build_nd_plan, nd_factor, nd_ok, nd_solve
 from .dense_cholesky import cholesky_solve, full_delta
 
@@ -48,23 +50,36 @@ class SparseDirectState:
     hvals: dict  # undamped Hessian block values
 
 
-def host_sparse_solve(indptr: np.ndarray, indices: np.ndarray, dim: int,
-                      values: np.ndarray, b: torch.Tensor):
-    """x with A x = b for the CSC matrix A = (values, indices, indptr),
-    by SciPy's sparse LU in float64 on the host; ok is False (and x = 0)
-    when A is singular or x is not finite. Returns tensors in ``b``'s
-    dtype on ``b``'s device."""
+def _splu_solve(indptr: np.ndarray, indices: np.ndarray, dim: int,
+                values: np.ndarray, b: np.ndarray):
+    """(x, ok) with A x = b for the CSC matrix A = (values, indices,
+    indptr), by SciPy's sparse LU in float64; ok is False (and x = 0)
+    when A is singular or x is not finite."""
     A = sp.csc_matrix((values.astype(np.float64), indices, indptr),
                       shape=(dim, dim))
     try:
-        x = spla.splu(A).solve(b.detach().cpu().numpy().astype(np.float64))
+        x = spla.splu(A).solve(b.astype(np.float64))
         ok = bool(np.all(np.isfinite(x)))
     except RuntimeError:  # "Factor is exactly singular"
         x, ok = None, False
     if not ok:
         x = np.zeros(dim)
-    return (torch.as_tensor(x, device=b.device).to(b.dtype),
-            torch.tensor(ok, device=b.device))
+    return x, np.asarray(ok)
+
+
+def host_sparse_solve(indptr: np.ndarray, indices: np.ndarray, dim: int,
+                      values_fn, inputs, b: torch.Tensor):
+    """``_splu_solve`` of the CSC values ``values_fn(*arrays)`` builds on
+    the host from the device tensors ``inputs``, and ``b``: (x in ``b``'s
+    dtype, ok) on ``b``'s device. Goes through ``device_loop.host_call``,
+    so a captured LM iteration holds it as its one host sync."""
+    def fn(b_h, *arrays):
+        return _splu_solve(indptr, indices, dim, values_fn(*arrays), b_h)
+
+    x, ok = device_loop.host_call(
+        fn, [b, *inputs], [((dim,), torch.float64), ((), torch.bool)],
+        b.device)
+    return x.to(b.dtype), ok
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,6 +135,6 @@ class SparseDirectSolver:
 
         ensure_csc_structure(problem, hs)
         x, ok = host_sparse_solve(hs.csc_indptr, hs.csc_indices,
-                                  problem.dim_h,
-                                  csc_values(problem, hs, hv).cpu().numpy(), b)
+                                  problem.dim_h, lambda v: v,
+                                  [csc_values(problem, hs, hv)], b)
         return full_delta(problem, x), ok

@@ -80,12 +80,13 @@ def _schur_csc(problem, ss: SchurStructure) -> dict:
     return out
 
 
-def schur_csc_values(csc: dict, s_vals: dict) -> np.ndarray:
-    """S's (nnz,) float64 CSC values on the host. Each position has one
-    source entry, so this is an indexed copy."""
+def schur_csc_values(csc: dict, keys, *values: np.ndarray) -> np.ndarray:
+    """S's (nnz,) float64 CSC values on the host from its block values
+    (one host array per S key of ``keys``). Each position has one source
+    entry, so this is an indexed copy."""
     vals = np.zeros(csc["nnz"])
-    for key, v in s_vals.items():
-        v = v.detach().cpu().numpy().astype(np.float64).reshape(-1)
+    for key, v in zip(keys, values):
+        v = v.astype(np.float64).reshape(-1)
         vals[csc["dst"][key].reshape(-1)] = v
         dst_t = csc["dst_t"][key].reshape(-1)
         real = dst_t < csc["nnz"]
@@ -112,8 +113,10 @@ class SparseDirectSchurSolver:
                                       b_s)
         else:
             csc = _schur_csc(problem, ss)
+            keys = list(ops.sv.s_vals)
             dx_p, ok = host_sparse_solve(
                 csc["indptr"], csc["indices"], ss.dim_p,
-                schur_csc_values(csc, ops.sv.s_vals),
+                lambda *v: schur_csc_values(csc, keys, *v),
+                [ops.sv.s_vals[k] for k in keys],
                 b_s.to(problem.precision.graph_dtype))
         return schur_delta(ops, lin, dx_p, ok), ok

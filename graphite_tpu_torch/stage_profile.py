@@ -57,7 +57,7 @@ def _stage_targets():
         (pcg_schur, "compute_hessian_values", "hessian_values"),
         (pcg_schur, "apply_damping", "apply_damping"),
         (pcg_schur, "schur_values", "schur_values"),
-        (pcg_schur, "run_pcg", "run_pcg"),
+        (pcg_schur, "pcg", "run_pcg"),
         (pcg_schur, "dense_pcg", "dense_pcg"),
         (pcg_schur, "schur_to_dense", "schur_to_dense"),
         (SchurOps, "b_schur", "b_schur"),
@@ -70,7 +70,7 @@ def _stage_targets():
          "preconditioner_apply (in run_pcg)"),
         (pcg, "fold_jacobians", "fold_jacobians"),
         (pcg, "solve_pcg_mf", "solve_pcg_mf"),
-        (pcg, "run_pcg", "run_pcg"),
+        (pcg, "pcg", "run_pcg"),
         (pcg, "hessian_matvec", "hessian_matvec (in run_pcg)"),
         (BlockJacobiPreconditioner, "prepare", "preconditioner_prepare"),
         (BlockJacobiPreconditioner, "set_damping",
@@ -122,14 +122,24 @@ def _union_us(intervals):
     return total
 
 
+def profiler_activities(device) -> list:
+    """What ``torch.profiler`` records for a run on ``device``: the host's
+    activity, and the card's on CUDA."""
+    from torch.profiler import ProfilerActivity
+
+    acts = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    return acts
+
+
 def device_trace(run):
     """``run()`` under ``torch.profiler``: (busy share, wall ms, device ms
     by activity name); the share is None when the trace holds no device
     activity."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=profiler_activities("cuda")) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()

@@ -71,10 +71,10 @@ def vertex_type(name: str, dim: int, **kw) -> VertexType:
 class VertexSet:
     """Host-side batch of same-typed vertices (graph-construction phase).
 
-    NumPy bookkeeping: ``add_batch``, ``set_fixed``, ``set_eliminate``.
-    ``Graph.freeze`` turns it into static structure plus a device tensor.
-    The JAX package's per-vertex mutation (``add``, ``remove``,
-    ``replace``) is not ported yet.
+    NumPy bookkeeping: ``add`` / ``add_batch`` (the fast path for bulk
+    loads), ``remove`` (swap with the last vertex), ``replace``, ``get``,
+    ``clear``, ``set_fixed``, ``set_eliminate``. ``Graph.freeze`` turns it
+    into static structure plus a device tensor.
     """
 
     vtype: VertexType
@@ -87,6 +87,22 @@ class VertexSet:
     @property
     def count(self) -> int:
         return len(self.values)
+
+    def add(self, global_id: int, value) -> int:
+        """Add one vertex; returns its local index."""
+        if global_id in self.id_to_local:
+            raise KeyError(f"vertex id {global_id} already present")
+        value = np.asarray(value, dtype=np.float64).reshape(-1)
+        if value.shape[0] != self.vtype.ambient_dim:
+            raise ValueError(
+                f"vertex '{self.vtype.name}' expects {self.vtype.ambient_dim} "
+                f"parameters, got {value.shape[0]}")
+        local = len(self.values)
+        self.values.append(value)
+        self.global_ids.append(global_id)
+        self.id_to_local[global_id] = local
+        self.fixed.append(False)
+        return local
 
     def add_batch(self, global_ids, values) -> np.ndarray:
         """Bulk add (vectorized bookkeeping)."""
@@ -112,6 +128,35 @@ class VertexSet:
         )
         self.fixed.extend([False] * n)
         return np.arange(start, start + n)
+
+    def remove(self, global_id: int) -> None:
+        """Remove a vertex; the last one takes its local index."""
+        local = self.id_to_local.pop(global_id)
+        last = len(self.values) - 1
+        if local != last:
+            self.values[local] = self.values[last]
+            self.fixed[local] = self.fixed[last]
+            moved = self.global_ids[last]
+            self.global_ids[local] = moved
+            self.id_to_local[moved] = local
+        self.values.pop()
+        self.fixed.pop()
+        self.global_ids.pop()
+
+    def replace(self, global_id: int, value) -> None:
+        """Replace a vertex's parameters."""
+        local = self.id_to_local[global_id]
+        self.values[local] = np.asarray(value, dtype=np.float64).reshape(-1)
+
+    def get(self, global_id: int) -> np.ndarray:
+        return self.values[self.id_to_local[global_id]]
+
+    def clear(self) -> None:
+        """Drop every vertex."""
+        self.values.clear()
+        self.global_ids.clear()
+        self.id_to_local.clear()
+        self.fixed.clear()
 
     def set_fixed(self, global_id: int, fixed: bool = True) -> None:
         self.fixed[self.id_to_local[global_id]] = bool(fixed)

@@ -39,6 +39,14 @@ on a machine with only PyTorch (``--noconftest`` skips the JAX set-up in
   CUDA and on the CPU: the same accept pattern, chi2 within 1e-3, K6
   launched once per solve.
 - ``Graph.freeze()`` without a device builds on the card.
+- ``jit_loop`` captured as a CUDA graph: bitwise the card's host loop on a
+  small BAL (PCG-Schur with K2, dense Schur, the host ``splu`` branch
+  split around its one sync) and a small SE3 graph (K6, and the
+  multifrontal factorization); a remask reuses
+  the captured graph (one cached loop, the mask ``data_ptr``s unchanged)
+  and matches a fresh remaskable freeze bitwise; a kernel wrapper raises
+  when ``record_events`` is set during a capture; ``profile_dir`` writes
+  a trace holding the card's kernels, captured loop or not.
 """
 
 import dataclasses
@@ -62,6 +70,7 @@ from graphite_tpu_torch.optimizers import (
     LevenbergMarquardtOptions,
     levenberg_marquardt,
 )
+from graphite_tpu_torch.optimizers.lm import cached_device_loop, device_loops
 from graphite_tpu_torch.preconditioners import (
     BlockJacobiPreconditioner,
     IdentityPreconditioner,
@@ -69,7 +78,13 @@ from graphite_tpu_torch.preconditioners import (
 from graphite_tpu_torch.preconditioners.block_jacobi import (
     row_inverse_blocks,
 )
-from graphite_tpu_torch.solvers import PCGSchurSolver, PCGSolver
+from graphite_tpu_torch.solvers import (
+    DenseCholeskySchurSolver,
+    PCGSchurSolver,
+    PCGSolver,
+    SparseDirectSchurSolver,
+    SparseDirectSolver,
+)
 
 torch.set_num_threads(1)
 
@@ -629,3 +644,138 @@ def test_k1_at_nd_sites_matches_plain(cuda_device):
             _check_kernel([out], [again], [ref], [ref_cpu])
             checked += 1
     assert checked >= 2
+
+
+def _bitwise(a, b):
+    assert [h["accepted"] for h in a.history] == [
+        h["accepted"] for h in b.history]
+    assert [h["chi2"] for h in a.history] == [h["chi2"] for h in b.history]
+    assert (a.chi2, a.initial_chi2, a.mu) == (b.chi2, b.initial_chi2, b.mu)
+    for n, p in b.params.items():
+        assert torch.equal(a.params[n], p)
+
+
+def _small_bal(device, remaskable=False):
+    g, *_ = bal.build_graph(
+        synthetic.make_bal((12, 120, 700), seed=0, noise=0.5),
+        precision=gtt.FP32_FP32)
+    return g.freeze(device=device, remaskable=remaskable)
+
+
+def _small_se3(device):
+    g, *_ = g2o.build_graph(synthetic.make_sphere_se3(300, seed=0),
+                            precision=gtt.FP32_FP32)
+    return g.freeze(device=device)
+
+
+JIT_CASES = {
+    "bal-pcg-schur": (_small_bal, lambda: PCGSchurSolver(10, 1.0, 5.0), 8),
+    "bal-dense-schur": (_small_bal, DenseCholeskySchurSolver, 8),
+    "bal-splu": (_small_bal,
+                 lambda: SparseDirectSchurSolver(on_device_dim_p=0), 4),
+    "se3-k6": (_small_se3,
+               lambda: PCGSolver(50, 1e-10, 1e6, BlockJacobiPreconditioner()),
+               10),
+    "se3-multifrontal": (_small_se3,
+                         lambda: SparseDirectSolver(multifrontal=True), 4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(JIT_CASES))
+def test_jit_loop_captured_equals_host_loop(cuda_device, case):
+    make, make_solver, iters = JIT_CASES[case]
+    problem, solver = make(cuda_device), make_solver()
+    host = levenberg_marquardt(problem, solver,
+                               options=LevenbergMarquardtOptions(
+                                   iterations=iters))
+    opts = LevenbergMarquardtOptions(iterations=iters, jit_loop=True)
+    first = levenberg_marquardt(problem, solver, options=opts)
+    again = levenberg_marquardt(problem, solver, options=opts)
+    loop = cached_device_loop(problem, solver, opts)
+    assert loop.capture is not None
+    assert loop.capture.host_calls == (1 if case == "bal-splu" else 0)
+    _bitwise(first, host)
+    _bitwise(again, host)
+    if case == "se3-k6":
+        assert loop.capture_launches["pcg_mf.solve_pcg_mf"] == 1
+    if case == "bal-pcg-schur":
+        assert loop.capture_launches["pcg_dense.dense_pcg"] == 1
+
+
+def test_jit_loop_graph_takes_each_calls_options(cuda_device):
+    """One captured graph serves calls with other iteration counts and
+    initial damping, each bitwise its own host loop."""
+    problem, solver = _small_bal(cuda_device), PCGSchurSolver(10, 1.0, 5.0)
+    for iters, damping in ((4, 1e-4), (4, 1e-1), (7, 1e-4)):
+        opts = dict(iterations=iters, initial_damping=damping)
+        host = levenberg_marquardt(problem, solver,
+                                   options=LevenbergMarquardtOptions(**opts))
+        out = levenberg_marquardt(problem, solver,
+                                  options=LevenbergMarquardtOptions(
+                                      jit_loop=True, **opts))
+        _bitwise(out, host)
+        assert [h["mu"] for h in out.history] == [
+            h["mu"] for h in host.history]
+    (loop,) = device_loops(problem)
+    assert loop.replays == 15 and len(loop.replay_ms) == 7
+
+
+def test_remask_reuses_the_captured_graph(cuda_device):
+    solver = PCGSchurSolver(10, 1.0, 5.0)
+    opts = LevenbergMarquardtOptions(iterations=6, jit_loop=True)
+    problem = _small_bal(cuda_device, remaskable=True)
+    masks = [(t, t.data_ptr()) for t in
+             [va.active for va in problem.data.vertices.values()]
+             + [fa.slot_mask for fa in problem.data.factors.values()]]
+    full = levenberg_marquardt(problem, solver, options=opts)
+    loop = cached_device_loop(problem, solver, opts)
+    fname = next(iter(problem.factor_meta))
+    for h in range(20):
+        problem.set_factor_active(fname, h, 0x80)
+    problem.set_vertex_fixed("bal_camera", 1, True)
+    edited = levenberg_marquardt(problem, solver, options=opts)
+    assert device_loops(problem) == [loop]
+    for t, ptr in masks:
+        assert t.data_ptr() == ptr
+    fresh = _small_bal(cuda_device, remaskable=True)
+    for h in range(20):
+        fresh.set_factor_active(fname, h, 0x80)
+    fresh.set_vertex_fixed("bal_camera", 1, True)
+    _bitwise(edited, levenberg_marquardt(fresh, solver, options=opts))
+    assert torch.equal(edited.params["bal_camera"][1],
+                       problem.params0["bal_camera"][1])
+    for h in range(20):
+        problem.set_factor_active(fname, h, 0)
+    problem.set_vertex_fixed("bal_camera", 1, False)
+    _bitwise(levenberg_marquardt(problem, solver, options=opts), full)
+
+
+def test_record_events_raises_during_capture(cuda_device):
+    plan = segsum.plan_segments(np.array([0, 0, 1, 2]), 3, cuda_device)
+    vals = torch.ones(4, 2, device=cuda_device)
+    segsum.sorted_segment_sum(vals, plan)  # build and warm up
+    segsum.STATS.record_events = True
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with pytest.raises(RuntimeError, match="record_events"):
+            with torch.cuda.graph(graph):
+                segsum.sorted_segment_sum(vals, plan)
+    finally:
+        segsum.STATS.record_events = False
+        segsum.STATS.events.clear()
+
+
+@pytest.mark.parametrize("jit_loop", [False, True])
+def test_profile_dir_records_the_card(cuda_device, tmp_path, jit_loop):
+    import json
+    import os
+
+    levenberg_marquardt(
+        _small_bal(cuda_device), PCGSchurSolver(10, 1.0, 5.0),
+        options=LevenbergMarquardtOptions(iterations=3, jit_loop=jit_loop,
+                                          profile_dir=str(tmp_path)))
+    (name,) = os.listdir(tmp_path)
+    with open(tmp_path / name) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    assert any("segsum" in n for n in names), sorted(names)[:20]
