@@ -135,6 +135,44 @@ the kernels' launches per replay and the graph pool's memory:
     their start), ``examples.bal --synthetic ladybug --jit-loop --lm2``
     and ``examples.pose_graph --jit-loop``: chi2 lowered.
 
+The precision policies (the JAX package's six: FP64_FP64, FP64_FP32,
+FP64_BF16, FP32_FP32, FP32_BF16, FP32_FP16). A kernel site runs its
+kernel only where its values are float32 (K1 also in float64, counted
+apart as ``[f64]``); a float64 site takes the stepwise branch on K1's
+float64 instance. Card-vs-CPU criteria: FP32_* bitwise (accept pattern,
+chi2 per iteration, final parameters); FP64_FP64 the accept pattern and
+chi2 within 1e-9 (the card's float64 cos / sin are not correctly
+rounded, so not bitwise); FP64_FP32 and FP64_BF16 within 1e-3, or
+``compare_lockstep`` where the runs part (a last-bit difference of the
+float64 J can flip its rounding to float32 or bf16). Each prints ms per
+LM iteration, peak memory and every kernel's launches:
+
+20. ``k1-f64`` (after phase 6, on the Venice problem's plans): K1's
+    float64 instance vs its plain version at Ladybug-49's sorted sites
+    (seeded, the shapes of phase 2) and at Venice-1778's 5,001,946x3 ->
+    993,924 point rows (sorted) and 5,001,946x9 -> 1,779 camera rows
+    (permuted): bitwise equal to the CPU's plain version, two runs
+    bitwise identical, within 1e-12 of the card's plain version (its
+    ``index_add_`` adds in no fixed order); time, bound (bytes over 3.35
+    TB/s, adds over the 34 TFLOP/s float64 rate) and float64
+    ``index_add_`` time;
+21. ``precision-ladybug``: Ladybug-49 under each policy, 10 iterations on
+    the card and on the CPU, K2 launched where S is float32 (FP32_*,
+    FP64_FP32) and never elsewhere; then FP64_FP64, FP64_FP32 and
+    FP32_BF16 again with phase 9's forced branches: K3, K4 and K5
+    launched where the Schur values are float32, never under FP64_FP64;
+    then ``jit_loop`` under FP64_FP32 (forced branches: the casts at the
+    K2, K4 and K5 sites allocate in the capture) and FP64_FP64, each
+    bitwise the card's host loop, with capture seconds and pool memory;
+22. ``precision-sphere2500``: FP32_BF16 (K6 once per solve, on the float32
+    fold of the bf16 J), 30 iterations, and FP64_FP64 (the generic
+    branch: ``run_pcg`` on ``hessian_matvec``, K1 in float64), 10
+    iterations; card vs CPU, unit quaternions;
+23. ``precision-venice`` (after phase 8): Venice-1778 under FP32_BF16 at
+    full size, 10 iterations on the card (K1, K3, K4 and K5 launched)
+    and 2 on the CPU; ms per iteration and peak memory beside phase 7's
+    FP32_FP32 run, and the stored Jacobians' bytes.
+
 A captured path's launches in the kernels JSON line are its capture's
 count times its replays (``remask`` sums its three graphs: the remasked
 problem's, the fresh freeze's and LM2's; ``cli-jit`` counts each CLI's
@@ -200,6 +238,9 @@ FP32_OPS_PER_S = 67e12
 # the float64 rate of the tensor cores (the same data sheet), which
 # cuSOLVER's float64 Cholesky and cuBLAS's float64 products can use
 FP64_OPS_PER_S = 67e12
+# the float64 rate outside the tensor cores (the same data sheet): K1's
+# float64 adds
+FP64_VECTOR_OPS_PER_S = 34e12
 
 
 def nbytes(*tensors):
@@ -207,12 +248,13 @@ def nbytes(*tensors):
                if t is not None)
 
 
-def bound(moved_bytes, ops):
+def bound(moved_bytes, ops, ops_per_s=FP32_OPS_PER_S):
     """The least time the card could take for a call: (ms if only its
-    bytes moved, ms if only its float32 operations ran). Each input is
-    counted read once and each output written once."""
+    bytes moved, ms if only its operations ran at ``ops_per_s``, float32
+    by default). Each input is counted read once and each output written
+    once."""
     return dict(bytes_ms=1e3 * moved_bytes / HBM_BYTES_PER_S,
-                ops_ms=1e3 * ops / FP32_OPS_PER_S)
+                ops_ms=1e3 * ops / ops_per_s)
 
 
 def bound_fields(b):
@@ -379,9 +421,15 @@ def phase_k1(device):
 
 def k1_bound(vals, plan):
     """K1 reads the values, the segment offsets and (unsorted) the sort
-    permutation once, writes the sums once, and adds each value once."""
+    permutation once, writes the sums once, and adds each value once (in
+    float64 at the float64 rate)."""
+    import torch
+
+    rate = (FP64_VECTOR_OPS_PER_S if vals.dtype == torch.float64
+            else FP32_OPS_PER_S)
     return bound(nbytes(vals, plan.offsets_i32, plan.perm_i32)
-                 + 4 * plan.num_segments * vals.shape[1], vals.numel())
+                 + vals.element_size() * plan.num_segments * vals.shape[1],
+                 vals.numel(), rate)
 
 
 def input_order_ids(plan):
@@ -401,18 +449,20 @@ def k1_library(vals, seg, num_segments):
     import torch
 
     return lambda: torch.zeros(
-        (num_segments, vals.shape[1]), device=vals.device).index_add_(
-            0, seg, vals)
+        (num_segments, vals.shape[1]), dtype=vals.dtype,
+        device=vals.device).index_add_(0, seg, vals)
 
 
-def ladybug_problem(device):
+def ladybug_problem(device, policy="FP32_FP32"):
+    """Ladybug-49 (``make_bal("ladybug", seed=0)``) under the precision
+    policy named ``policy``, frozen on ``device``."""
     import torch
 
-    from graphite_tpu_torch import FP32_FP32
+    import graphite_tpu_torch as gtt
     from graphite_tpu_torch.io import bal, synthetic
 
     g, *_ = bal.build_graph(synthetic.make_bal("ladybug", seed=0),
-                            precision=FP32_FP32)
+                            precision=getattr(gtt, policy))
     return g.freeze(device=torch.device(device))
 
 
@@ -536,7 +586,8 @@ def all_stats():
         segsum_stream,
     )
 
-    return [segsum.STATS, segsum_stream.STATS, pcg_dense.STATS,
+    return [segsum.STATS, segsum_stream.STATS, segsum.STATS_F64,
+            segsum_stream.STATS_F64, pcg_dense.STATS,
             segsum_stream.PRODUCT_STATS, segsum_stream.PRODUCT_RTBL_STATS,
             segsum_stream.MATVEC_TBL_STATS, segmv.STREAM_STATS,
             segmv.WTBL_STATS, segmv.SYM_STATS, pcg_mf.STATS]
@@ -563,9 +614,10 @@ def count_launches(run, record_events=True):
     return out, launches, kernel_ms
 
 
-def compare_runs(tag, gpu, cpu):
+def compare_runs(tag, gpu, cpu, rtol=1e-3):
     """CUDA vs CPU LM trajectories over the CPU run's iterations: equal
-    accept patterns, chi2 within 1e-3 per iteration."""
+    accept patterns, chi2 within ``rtol`` per iteration; returns whether
+    they are bitwise equal."""
     n = len(cpu.history)
     acc_gpu = [h["accepted"] for h in gpu.history[:n]]
     acc_cpu = [h["accepted"] for h in cpu.history]
@@ -581,9 +633,10 @@ def compare_runs(tag, gpu, cpu):
           f"{chi_gpu == chi_cpu and gpu.initial_chi2 == cpu.initial_chi2}")
     check(len(gpu.history) >= n, f"{tag}: iteration counts differ")
     check(acc_gpu == acc_cpu, f"{tag}: accept patterns differ")
-    check(max(rel) <= 1e-3, f"{tag}: chi2 differs by {max(rel)} > 1e-3")
+    check(max(rel) <= rtol, f"{tag}: chi2 differs by {max(rel)} > {rtol}")
     check(abs(gpu.initial_chi2 - cpu.initial_chi2)
-          <= 1e-3 * abs(cpu.initial_chi2), f"{tag}: initial chi2 differs")
+          <= rtol * abs(cpu.initial_chi2), f"{tag}: initial chi2 differs")
+    return chi_gpu == chi_cpu and gpu.initial_chi2 == cpu.initial_chi2
 
 
 def check_solution(tag, problem, result):
@@ -634,17 +687,18 @@ def phase_slice(solver, iterations):
 POSES = 2500  # sphere2500's pose count
 
 
-def pose_problem(device, kind="se3"):
+def pose_problem(device, kind="se3", policy="FP32_FP32"):
     """The SE3 sphere2500 graph (``make_sphere_se3(2500, seed=0)``) or the
-    2500-pose SE2 circle, FP32_FP32, the first pose fixed."""
+    2500-pose SE2 circle, under the policy named ``policy`` (FP32_FP32 by
+    default), the first pose fixed."""
     import torch
 
-    from graphite_tpu_torch import FP32_FP32
+    import graphite_tpu_torch as gtt
     from graphite_tpu_torch.io import g2o, synthetic
 
     ds = (synthetic.make_sphere_se3(POSES, seed=0) if kind == "se3"
           else synthetic.make_pose_graph_2d(POSES, seed=0))
-    g, *_ = g2o.build_graph(ds, precision=FP32_FP32)
+    g, *_ = g2o.build_graph(ds, precision=getattr(gtt, policy))
     return g.freeze(device=torch.device(device))
 
 
@@ -903,11 +957,12 @@ def phase_venice_setup():
 
 
 def measure(tag, label, kernel, plain, cpu_plain, reps, plain_reps, work,
-            library=None, was=None):
+            library=None, was=None, tol=1e-5):
     """A kernel vs its plain version on the card (and on the CPU) at one
     shape, ``work`` its ``bound``, ``library`` (or None) the one PyTorch
     call computing the same function, ``was`` (or None) its time before
-    its redesign; returns its numbers."""
+    its redesign, ``tol`` the relative error allowed against the plain
+    version on the card; returns its numbers."""
     import torch
 
     def tup(x):
@@ -933,7 +988,7 @@ def measure(tag, label, kernel, plain, cpu_plain, reps, plain_reps, work,
           f"bound_ms={bound_fields(work)}")
     check(repeat, f"{tag} not bitwise repeatable at {label}")
     check(vs_cpu, f"{tag} differs from the CPU plain version at {label}")
-    check(err <= 1e-5, f"{tag} rel err {err} > 1e-5 at {label}")
+    check(err <= tol, f"{tag} rel err {err} > {tol} at {label}")
     return dict(err=abs_err, ms=ms, plain_ms=plain_ms, shape=label,
                 library_ms=lib_ms, **work)
 
@@ -1268,7 +1323,7 @@ def phase_venice_slice(problem, solver, iterations):
         check(launches[name] > 0, f"{name} never launched on the Venice path")
     check(launches["segmv.matvec_sym_stream"] == matvecs[0],
           "matvec_sym_stream must launch once per CG matvec")
-    return gpu, launches
+    return gpu, launches, peak
 
 
 def phase_venice_cpu(ds, params0, gpu, solver, iterations, direct_gpu):
@@ -2058,11 +2113,297 @@ def phase_jit_cli():
         check(res.chi2 < res.initial_chi2, f"{name}: chi2 not lowered")
     return launches
 
+# ---- the precision policies ---------------------------------------------
+
+POLICIES = ("FP64_FP64", "FP64_FP32", "FP64_BF16", "FP32_FP32", "FP32_BF16",
+            "FP32_FP16")
+
+
+# Venice-1778's K1 sites of phase 20, by (rows, width, permuted)
+VENICE_K1_F64 = ((5_001_946, 3, False), (5_001_946, 9, True))
+
+
+def phase_k1_f64(venice):
+    """K1's float64 instance vs its plain version at Ladybug-49's sorted
+    sites (seeded shapes of ``K1_SHAPES``) and at Venice-1778's point rows
+    (sorted) and camera rows (permuted), from the frozen problem's plans:
+    bitwise equal to the CPU's plain version, two runs bitwise identical,
+    within 1e-12 of the card's plain version (whose ``index_add_`` adds in
+    no fixed order)."""
+    import numpy as np
+    import torch
+
+    from graphite_tpu_torch.ops.cuda import segsum, segsum_stream
+
+    rng = np.random.default_rng(20)
+    sites = []
+    for k, ns, d, is_sorted, site in K1_SHAPES:
+        if not is_sorted:
+            continue
+        seg = np.sort(rng.integers(0, ns, k))
+        sites.append((f"ladybug {k}x{d}->{ns} group "
+                      f"{segsum.group_size(k, len(np.unique(seg)), d)} "
+                      f"{site}",
+                      segsum.plan_segments(seg, ns, DEVICE, width=d), d,
+                      "(segsum)" in site))
+    want = set(VENICE_K1_F64)
+    for label, plan, d in k1_sites(venice, "venice"):
+        key = (plan.rows, d, plan.perm is not None)
+        if key in want:
+            want.discard(key)
+            sites.append((label, plan, d, False))
+    check(not want, f"Venice K1 plans not found: {want}")
+    stats = {}
+    for label, plan, d, scatter in sites:
+        vals = torch.as_tensor(rng.standard_normal((plan.rows, d)),
+                               device=DEVICE)
+        cvals, cplan = vals.cpu(), on_cpu(plan)
+        wrapper = (segsum.sorted_segment_sum if scatter
+                   else segsum_stream.streaming_segment_sum)
+        name = ("segsum.sorted_segment_sum[f64]" if scatter
+                else "segsum_stream.streaming_segment_sum[f64]")
+        check(wrapper(vals, plan).dtype == torch.float64,
+              "K1 float64 returned another dtype")
+        stats.setdefault(name, []).append(measure(
+            "k1-f64", label, lambda: wrapper(vals, plan),
+            lambda: segsum.segment_sum_plain(vals, plan),
+            lambda: segsum.segment_sum_plain(cvals, cplan), 10, 3,
+            k1_bound(vals, plan),
+            k1_library(vals, input_order_ids(plan), plan.num_segments),
+            tol=1e-12))
+        del vals, cvals, cplan
+    return stats
+
+
+def median_ms(result):
+    """Median device ms of an LM run's iterations 1.. (the first builds
+    the host plans)."""
+    return statistics.median(h["device_ms"] for h in result.history[1:])
+
+
+def policy_check(tag, policy, gpu, cpu, cpu_problem=None, solver=None,
+                 states=None):
+    """The card-vs-CPU criterion of a policy: FP32_* bitwise (accept
+    pattern, chi2 per iteration, final parameters); FP64_FP64 the accept
+    pattern and chi2 within 1e-9; FP64_FP32 and FP64_BF16 (a float64 J
+    rounded to float32 or bf16: a last-bit difference of the card's
+    float64 cos / sin can flip that rounding) within 1e-3, or, where the
+    two runs part, the CPU's step from each of the card's ``states``
+    (``compare_lockstep``)."""
+    import torch
+
+    if policy.startswith("FP32"):
+        bitwise = compare_runs(tag, gpu, cpu)
+        check(bitwise, f"{tag}: not bitwise the CPU's run")
+        for name, p in cpu.params.items():
+            check(torch.equal(gpu.params[name].cpu(), p),
+                  f"{tag}: parameters {name} differ from the CPU's")
+        return
+    if policy == "FP64_FP64":
+        compare_runs(tag, gpu, cpu, rtol=1e-9)
+        return
+    n = len(cpu.history)
+    rel = max(abs(a["chi2"] - b["chi2"]) / abs(b["chi2"])
+              for a, b in zip(gpu.history, cpu.history))
+    same = ([h["accepted"] for h in gpu.history[:n]]
+            == [h["accepted"] for h in cpu.history])
+    if same and rel <= 1e-3:
+        compare_runs(tag, gpu, cpu)
+        return
+    print(f"[{tag}] the runs part (accept patterns equal={same}, max chi2 "
+          f"rel diff={rel:.3e}): the CPU's step from each card state")
+    compare_lockstep(tag, gpu, states, cpu_problem, solver)
+
+
+def policy_run(tag, policy, make_problem, solver, iterations, cpu_iters):
+    """One policy's LM run on the card (launches counted, peak memory)
+    and on the CPU, held to ``policy_check``; returns the card's run and
+    launches."""
+    import torch
+
+    # the states of the two policies that may part (``policy_check``)
+    recorded = (Recorded(solver) if policy in ("FP64_FP32", "FP64_BF16")
+                else None)
+    problem = make_problem(DEVICE, policy)
+    torch.cuda.reset_peak_memory_stats()
+    gpu, launches, kernel_ms = count_launches(
+        lambda: run_lm(problem, recorded or solver, iterations))
+    peak = torch.cuda.max_memory_allocated()
+    check_solution(tag, problem, gpu)
+    del problem
+    cpu_problem = make_problem("cpu", policy)
+    cpu = run_lm(cpu_problem, solver, cpu_iters)
+    policy_check(tag, policy, gpu, cpu, cpu_problem, solver,
+                 recorded and recorded.states[:cpu_iters])
+    print(f"[{tag}] ms per LM iteration (median of iterations 1..): "
+          f"device={median_ms(gpu):.3f} peak device memory="
+          f"{peak / 2**20:.1f} MiB")
+    print_launches(tag, launches, kernel_ms)
+    return gpu, launches
+
+
+def check_policy_kernels(tag, policy, launches, float32_kernels):
+    """K1 in the policy's graph dtype launched; ``float32_kernels`` (the
+    K2-K6 entries the float32 sites take) launched where the policy's
+    sites are float32 and never elsewhere."""
+    f64 = policy.startswith("FP64")
+    k1 = ("segsum_stream.streaming_segment_sum[f64]" if f64
+          else "segsum_stream.streaming_segment_sum")
+    check(launches[k1] > 0, f"{tag}: {k1} never launched")
+    if not f64:
+        check(launches["segsum_stream.streaming_segment_sum[f64]"] == 0,
+              f"{tag}: K1 float64 launched on a float32 graph")
+    for name in float32_kernels:
+        if float32_kernels[name]:
+            check(launches[name] > 0, f"{tag}: {name} never launched")
+        else:
+            check(launches[name] == 0, f"{tag}: {name} launched on a "
+                  "float64 site")
+
+
+def phase_precision_ladybug(iterations):
+    """Ladybug-49 under the six policies, then FP64_FP64, FP64_FP32 and
+    FP32_BF16 with phase 9's forced branches; card vs CPU."""
+    from graphite_tpu_torch import schur
+    from graphite_tpu_torch.solvers import PCGSchurSolver
+
+    out = {}
+    for policy in POLICIES:
+        tag = f"precision-ladybug {policy}"
+        _, launches = policy_run(
+            tag, policy, ladybug_problem, PCGSchurSolver(10, 1.0, 5.0),
+            iterations, iterations)
+        # S is float32 where inv_dtype is: FP32_*, FP64_FP32
+        check_policy_kernels(tag, policy, launches, {
+            "pcg_dense.dense_pcg": policy not in ("FP64_FP64",
+                                                  "FP64_BF16")})
+        out[tag] = launches
+    gates = schur.CHUNK_THRESHOLD, schur._smv_chunk_rows
+    schur.CHUNK_THRESHOLD, schur._smv_chunk_rows = 0, (lambda rb: 0)
+    try:
+        for policy in ("FP64_FP64", "FP64_FP32", "FP32_BF16"):
+            tag = f"precision-ladybug-forced {policy}"
+            _, launches = policy_run(
+                tag, policy, ladybug_problem,
+                PCGSchurSolver(10, 1.0, 5.0, dense_matvec_limit=0),
+                iterations, iterations)
+            f32 = policy != "FP64_FP64"
+            check_policy_kernels(tag, policy, launches, {
+                name: f32 for name in (
+                    "segsum_stream.streaming_segment_product_sum_rtbl",
+                    "segmv.block_matvec_wtbl",
+                    "segsum_stream.streaming_matvec_tbl",
+                    "segmv.matvec_sym_stream")})
+            out[tag] = launches
+        # jit_loop under FP64_FP32 with the forced branches: the casts in
+        # and out of K2, K4 and K5 allocate inside the capture
+        tag = "precision-ladybug-graph FP64_FP32 forced"
+        problem = ladybug_problem(DEVICE, "FP64_FP32")
+        solver = PCGSchurSolver(10, 1.0, 5.0, dense_matvec_limit=0)
+        host = run_lm(problem, solver, iterations)
+        _, _, out[tag] = run_graph(tag, problem, solver, iterations, host)
+        del problem
+    finally:
+        schur.CHUNK_THRESHOLD, schur._smv_chunk_rows = gates
+    # and FP64_FP64: run_pcg_fixed on float64 cuBLAS products, K1 float64
+    tag = "precision-ladybug-graph FP64_FP64"
+    problem = ladybug_problem(DEVICE, "FP64_FP64")
+    solver = PCGSchurSolver(10, 1.0, 5.0)
+    host = run_lm(problem, solver, iterations)
+    _, _, out[tag] = run_graph(tag, problem, solver, iterations, host)
+    return out
+
+
+def phase_precision_pose():
+    """sphere2500 under FP32_BF16 (K6 on the float32 fold of the bf16 J),
+    30 iterations, and FP64_FP64 (the generic branch: run_pcg on
+    hessian_matvec, K1 in float64), 10 iterations; card vs CPU, unit
+    quaternions."""
+    out = {}
+    for policy, iterations in (("FP32_BF16", 30), ("FP64_FP64", 10)):
+        tag = f"precision-sphere2500 {policy}"
+        gpu, launches = policy_run(
+            tag, policy, lambda dev, pol: pose_problem(dev, policy=pol),
+            pose_solver(), iterations, iterations)
+        check_quaternions(tag, gpu)
+        check_policy_kernels(tag, policy, launches, {
+            "pcg_mf.solve_pcg_mf": policy == "FP32_BF16"})
+        if policy == "FP32_BF16":
+            check(launches["pcg_mf.solve_pcg_mf"] == len(gpu.history),
+                  f"{tag}: K6 must launch once per solve")
+        out[tag] = launches
+    return out
+
+
+def phase_precision_venice(ds, solver, iterations, cpu_iters, fp32):
+    """Venice-1778 under FP32_BF16 at full size: ``iterations`` LM
+    iterations on the card, ``cpu_iters`` on the CPU; ms per iteration and
+    peak memory beside FP32_FP32's (``fp32``: phase 7's run and peak)."""
+    import torch
+
+    from graphite_tpu_torch import FP32_BF16
+    from graphite_tpu_torch.io import bal
+
+    tag = "precision-venice FP32_BF16"
+    t0 = time.perf_counter()
+    g, *_ = bal.build_graph(ds, precision=FP32_BF16)
+    problem = g.freeze(device=torch.device(DEVICE))
+    print(f"[{tag}] host set-up seconds={time.perf_counter() - t0:.1f}")
+    torch.cuda.reset_peak_memory_stats()
+    gpu, launches, kernel_ms = count_launches(
+        lambda: run_lm(problem, solver, iterations))
+    peak = torch.cuda.max_memory_allocated()
+    check_solution(tag, problem, gpu)
+    # the stored Jacobians: every slot's (F, E * d) block in bf16
+    j_bytes = FP32_BF16.solver_dtype.itemsize * sum(
+        fm.count * fm.ftype.residual_dim
+        * sum(vt.dim for vt in fm.ftype.vertex_types)
+        for fm in problem.factor_meta.values())
+    del problem
+    torch.cuda.empty_cache()
+    fp32_run, fp32_peak = fp32
+
+    def split(run):
+        hist = run.history[1:]
+        acc = [h["device_ms"] for h in hist if h["accepted"]]
+        rej = [h["device_ms"] for h in hist if not h["accepted"]]
+        return (f"accepted={statistics.median(acc) if acc else None} "
+                f"rejected={statistics.median(rej) if rej else None}")
+
+    for name, run in (("FP32_BF16", gpu), ("FP32_FP32, phase 7", fp32_run)):
+        print(f"[{tag}] {name}: cuda chi2={[h['chi2'] for h in run.history]}"
+              f" accepted={[h['accepted'] for h in run.history]} "
+              f"{split(run)}")
+    print(f"[{tag}] ms per LM iteration (median of iterations 1..): "
+          f"device={median_ms(gpu):.3f} (FP32_FP32, phase 7: "
+          f"{median_ms(fp32_run):.3f}); peak device memory "
+          f"max_memory_allocated={peak / 2**30:.3f} GiB (FP32_FP32: "
+          f"{fp32_peak / 2**30:.3f} GiB); stored J {j_bytes / 1e6:.1f} MB "
+          f"(FP32_FP32: {2 * j_bytes / 1e6:.1f} MB)")
+    print_launches(tag, launches, kernel_ms)
+    check_policy_kernels(tag, "FP32_BF16", launches, {
+        name: True for name in (
+            "segsum_stream.streaming_segment_product_sum_rtbl",
+            "segmv.block_matvec_wtbl", "segsum_stream.streaming_matvec_tbl",
+            "segmv.matvec_sym_stream")})
+    g, *_ = bal.build_graph(ds, precision=FP32_BF16)
+    cpu = run_lm(g.freeze(device="cpu"), solver, cpu_iters)
+    bitwise = compare_runs(tag, gpu, cpu)
+    print(f"[{tag}] {cpu_iters} CPU iterations bitwise the card's: "
+          f"{bitwise}")
+    return {tag: launches}
+
+
 # (kernel, source, {entry point: TPU kernel body it replaces})
 KERNELS = [
     ("K1", "graphite_tpu_torch/csrc/segsum.cu", {
         "segsum.sorted_segment_sum": "graphite_tpu/ops/pallas/segsum.py:70",
         "segsum_stream.streaming_segment_sum":
+            "graphite_tpu/ops/pallas/segsum_stream.py:147"}),
+    ("K1 float64", "graphite_tpu_torch/csrc/segsum.cu", {
+        "segsum.sorted_segment_sum[f64]":
+            "graphite_tpu/ops/pallas/segsum.py:70",
+        "segsum_stream.streaming_segment_sum[f64]":
             "graphite_tpu/ops/pallas/segsum_stream.py:147"}),
     ("K2", "graphite_tpu_torch/csrc/pcg_dense.cu", {
         "pcg_dense.dense_pcg": "graphite_tpu/ops/pallas/pcg_dense.py:35"}),
@@ -2096,7 +2437,7 @@ def kernels_json(measured, launches_by_path):
     out = []
     for kernel, source, entries in KERNELS:
         recs = [r for e in entries for r in measured.get(e, [])]
-        by_path = {path: sum(launches[e] for e in entries)
+        by_path = {path: sum(launches.get(e, 0) for e in entries)
                    for path, launches in launches_by_path.items()}
         work = dict(bytes_ms=sum(r["bytes_ms"] for r in recs),
                     ops_ms=sum(r["ops_ms"] for r in recs))
@@ -2112,7 +2453,7 @@ def kernels_json(measured, launches_by_path):
             library_ms=summed(recs, "library_ms"),
             entry_points=[dict(
                 name=e, replaces=r,
-                launches={p: launches[e]
+                launches={p: launches.get(e, 0)
                           for p, launches in launches_by_path.items()},
                 shapes=[m["shape"] for m in measured[e]],
                 ms_by_shape=[m["ms"] for m in measured[e]],
@@ -2162,9 +2503,10 @@ def main():
                             lin, hv, sv, ops)
     del lin, hv, sv, ops
     torch.cuda.empty_cache()
+    k1_f64 = timed("k1-f64", phase_k1_f64, problem)
     params0 = params_to_numpy(problem.params0)
-    gpu, venice_launches = timed("venice", phase_venice_slice, problem,
-                                 solver, 10)
+    gpu, venice_launches, venice_peak = timed(
+        "venice", phase_venice_slice, problem, solver, 10)
     venice_graph_launches = timed("jit-venice", phase_jit_venice, problem,
                                   solver, 10, gpu)
     torch.cuda.empty_cache()
@@ -2174,6 +2516,8 @@ def main():
     torch.cuda.empty_cache()
     timed("venice-cpu", phase_venice_cpu, ds, params0, gpu, solver, 2,
           direct_gpu)
+    precision_venice = timed("precision-venice", phase_precision_venice, ds,
+                             solver, 10, 2, (gpu, venice_peak))
     del ds
     timed("forced", phase_forced, 10)
     direct_ladybug_launches, ladybug_firsts = timed(
@@ -2186,13 +2530,17 @@ def main():
     ladybug_graph_launches = timed("jit-ladybug", phase_jit_ladybug, 10)
     remask_launches = timed("remask", phase_remask, 10)
     cli_jit_launches = timed("cli-jit", phase_jit_cli)
+    precision_ladybug = timed("precision-ladybug", phase_precision_ladybug,
+                              10)
+    precision_pose = timed("precision-sphere2500", phase_precision_pose)
 
     firsts = {**{f"ladybug {k}": v for k, v in ladybug_firsts.items()},
               **{f"ladybug full H {k}": v for k, v in full_h_firsts.items()},
               **{f"sphere2500 {k}": v for k, v in sphere_firsts.items()},
               "venice sparse-schur": venice_first}
     print(json.dumps({"direct_factorizations": firsts}))
-    measured = merge_measured(k1, k2, k6, pose_k1, venice_measured, nd_k1)
+    measured = merge_measured(k1, k2, k6, pose_k1, venice_measured, nd_k1,
+                              k1_f64)
     print(json.dumps({"kernels": kernels_json(
         measured, {"ladybug-49": ladybug_launches,
                    "sphere2500": pose_launches,
@@ -2207,7 +2555,8 @@ def main():
                    "venice-1778-graph": venice_graph_launches,
                    "sphere2500-graph": pose_graph_launches,
                    "remask-graph": remask_launches,
-                   "cli-jit": cli_jit_launches})}))
+                   "cli-jit": cli_jit_launches, **precision_ladybug,
+                   **precision_pose, **precision_venice})}))
     print(f"[done] total seconds={time.perf_counter() - t_start:.1f}")
 
     smi = subprocess.run(

@@ -34,6 +34,10 @@ differentiated automatically through the pose retraction:
     result = levenberg_marquardt(
         g.freeze(), PCGSolver(50, 1e-10, 1e6, BlockJacobiPreconditioner()))
 
+Every call takes any of the JAX package's six precision policies
+(``FP64_FP64``, ``FP64_FP32``, ``FP64_BF16``, ``FP32_FP32``, ``FP32_BF16``,
+``FP32_FP16``; ``Precision.from_names("fp32", "bf16")``).
+
 ``freeze()`` builds on the CUDA card unless asked for ``device="cpu"``.
 The Pallas TPU kernels become hand-written CUDA kernels
 (``graphite_tpu_torch/csrc``), built with nvcc at first use.
@@ -51,13 +55,22 @@ from .linearize import (
     linearize,
 )
 from .loss import CauchyLoss, DefaultLoss, HuberLoss, Loss
-from .precision import FP32_FP32, FP64_FP64, Precision
+from .precision import (
+    FP32_BF16,
+    FP32_FP16,
+    FP32_FP32,
+    FP64_BF16,
+    FP64_FP32,
+    FP64_FP64,
+    Precision,
+)
 from .vertices import VertexSet, VertexType, vertex_type
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "Precision", "FP32_FP32", "FP64_FP64",
+    "Precision", "FP64_FP64", "FP64_FP32", "FP64_BF16", "FP32_FP32",
+    "FP32_BF16", "FP32_FP16",
     "Loss", "DefaultLoss", "HuberLoss", "CauchyLoss",
     "VertexType", "VertexSet", "vertex_type",
     "FactorType", "FactorSet", "factor_type", "Differentiation",

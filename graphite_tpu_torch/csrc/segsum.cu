@@ -21,8 +21,17 @@
 // the same from run to run, and the plain version (segsum.py, lane_sum)
 // adds in the same order, so they equal it bitwise on the CPU.
 //
-// Bound: memory. The kernel reads about K*D*4 bytes of values (plus the
-// permutation) and writes NS*D*4 bytes; it does one add per value read.
+// Bound: memory. The kernel reads about K*D*sizeof(T) bytes of values
+// (plus the permutation) and writes NS*D*sizeof(T) bytes; it does one add
+// per value read.
+//
+// Both kernels are templates over the value type T: float (gt_segsum_f32)
+// and double (gt_segsum_f64, the float64 sites of the FP64 policies). The
+// plan, the lanes per segment, the threads and the halving tree are the
+// same for both; a double takes twice the registers and shared memory of
+// a float (at most 512 threads x 3 columns x 8 bytes = 12 KiB of tree).
+// Values are read one scalar at a time (no vector loads), so a row needs
+// only T's own alignment.
 //
 // G = 1 (short segments: landmarks, pose-graph rows): one thread owns one
 // (segment, column) and walks the segment's rows; neighbouring threads
@@ -49,10 +58,11 @@ constexpr int kMaxCols = 96;      // most columns a CTA sums
 constexpr int kMaxThreads = 512;  // most threads of a CTA (slots x ct)
 constexpr int kMinThreads = 256;  // short segments share a CTA up to this
 
-__global__ void segsum_rows_kernel(const float* __restrict__ vals,
+template <typename T>
+__global__ void segsum_rows_kernel(const T* __restrict__ vals,
                                    const int* __restrict__ perm,
                                    const int* __restrict__ offsets,
-                                   float* __restrict__ out,
+                                   T* __restrict__ out,
                                    int num_segments, int d) {
   const long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
@@ -61,7 +71,7 @@ __global__ void segsum_rows_kernel(const float* __restrict__ vals,
   const int c = static_cast<int>(t - static_cast<long long>(s) * d);
   const int r0 = offsets[s];
   const int r1 = offsets[s + 1];
-  float acc = 0.0f;
+  T acc = T(0);
   if (perm != nullptr) {
     for (int r = r0; r < r1; ++r) {
       acc += vals[static_cast<long long>(perm[r]) * d + c];
@@ -83,16 +93,19 @@ __device__ __forceinline__ int sorted_row(const int* __restrict__ perm,
 // L lanes and C columns per thread: G = Q * L lanes per segment, columns
 // c + u * ct (u < C) of the CTA's tile of tw columns. blockDim.x = spc * Q
 // * ct; the CTA sums segments blockIdx.x * spc + [0, spc), columns
-// blockIdx.y * tw + [0, tw). Dynamic shared memory: blockDim.x * C floats
-// (the lane tree).
-template <int L, int C>
-__global__ void segsum_lanes_kernel(const float* __restrict__ vals,
+// blockIdx.y * tw + [0, tw). Dynamic shared memory: blockDim.x * C values
+// of T (the lane tree).
+template <typename T, int L, int C>
+__global__ void segsum_lanes_kernel(const T* __restrict__ vals,
                                     const int* __restrict__ perm,
                                     const int* __restrict__ offsets,
-                                    float* __restrict__ out,
+                                    T* __restrict__ out,
                                     int num_segments, int d, int tw, int ct,
                                     int q_log2, int spc) {
-  extern __shared__ float tree[];
+  // one buffer of the widest type, viewed as T: a template cannot
+  // declare the same extern shared array with two types
+  extern __shared__ double tree_storage[];
+  T* tree = reinterpret_cast<T*>(tree_storage);
   const int Q = 1 << q_log2;
   const int G = Q * L;
   const int per_seg = Q * ct;
@@ -110,11 +123,11 @@ __global__ void segsum_lanes_kernel(const float* __restrict__ vals,
     has[u] = c + u * ct < tw && col[u] < d;
   }
 
-  float acc[L][C];
+  T acc[L][C];
 #pragma unroll
   for (int j = 0; j < L; ++j) {
 #pragma unroll
-    for (int u = 0; u < C; ++u) acc[j][u] = 0.0f;
+    for (int u = 0; u < C; ++u) acc[j][u] = T(0);
   }
   if (live) {
     const int r1 = offsets[s + 1];
@@ -134,7 +147,7 @@ __global__ void segsum_lanes_kernel(const float* __restrict__ vals,
 #pragma unroll
       for (int j = 0; j < L; ++j) {
         if (row[j] < 0) continue;
-        const float* v = vals + static_cast<long long>(row[j]) * d;
+        const T* v = vals + static_cast<long long>(row[j]) * d;
 #pragma unroll
         for (int u = 0; u < C; ++u) {
           if (has[u]) acc[j][u] = acc[j][u] + __ldg(v + col[u]);
@@ -156,7 +169,7 @@ __global__ void segsum_lanes_kernel(const float* __restrict__ vals,
     }
   }
   // levels h = Q/2, ..., 1: slot q += slot q+h, through shared memory
-  float* mine = tree + (sub * per_seg + c) * C;
+  T* mine = tree + (sub * per_seg + c) * C;
   for (int h = Q >> 1; h >= 1; h >>= 1) {
     if (q >= h && q < 2 * h) {
 #pragma unroll
@@ -179,63 +192,59 @@ __global__ void segsum_lanes_kernel(const float* __restrict__ vals,
   }
 }
 
+template <typename T>
 struct LanesLaunch {
   dim3 grid;
   int threads;
   cudaStream_t stream;
-  const float* vals;
+  const T* vals;
   const int* perm;
   const int* offsets;
-  float* out;
+  T* out;
   int num_segments, d, tw, ct, q_log2, spc;
 };
 
-template <int L, int C>
-cudaError_t launch_lanes(const LanesLaunch& a) {
-  segsum_lanes_kernel<L, C>
-      <<<a.grid, a.threads, a.threads * C * sizeof(float), a.stream>>>(
+template <typename T, int L, int C>
+cudaError_t launch_lanes(const LanesLaunch<T>& a) {
+  segsum_lanes_kernel<T, L, C>
+      <<<a.grid, a.threads, a.threads * C * sizeof(T), a.stream>>>(
           a.vals, a.perm, a.offsets, a.out, a.num_segments, a.d, a.tw, a.ct,
           a.q_log2, a.spc);
   return cudaGetLastError();
 }
 
-template <int C>
-cudaError_t launch_lanes_c(const LanesLaunch& a, int l_log2) {
+template <typename T, int C>
+cudaError_t launch_lanes_c(const LanesLaunch<T>& a, int l_log2) {
   switch (l_log2) {
-    case 0: return launch_lanes<1, C>(a);
-    case 1: return launch_lanes<2, C>(a);
-    case 2: return launch_lanes<4, C>(a);
-    case 3: return launch_lanes<8, C>(a);
-    case 4: return launch_lanes<16, C>(a);
+    case 0: return launch_lanes<T, 1, C>(a);
+    case 1: return launch_lanes<T, 2, C>(a);
+    case 2: return launch_lanes<T, 4, C>(a);
+    case 3: return launch_lanes<T, 8, C>(a);
+    case 4: return launch_lanes<T, 16, C>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
-}  // namespace
-
-// vals: (K, d) float32; perm: (K,) int32 or null; offsets: (num_segments+1,)
-// int32; out: (num_segments, d) float32; 2^group_log2 <= 256 lanes per
-// segment. Launches on `stream` and returns the cudaGetLastError() code (0
-// on success).
-extern "C" int gt_segsum_f32(const void* vals_, const void* perm_,
-                             const void* offsets_, void* out_,
-                             int num_segments, int d, int group_log2,
-                             void* stream_) {
+template <typename T>
+int segsum(const void* vals_, const void* perm_, const void* offsets_,
+           void* out_, int num_segments, int d, int group_log2,
+           void* stream_) {
   if (group_log2 < 0 || group_log2 > 8 || d < 0 || num_segments < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long total = static_cast<long long>(num_segments) * d;
   if (total == 0) return 0;
-  const auto* vals = static_cast<const float*>(vals_);
+  const auto* vals = static_cast<const T*>(vals_);
   const auto* perm = static_cast<const int*>(perm_);
   const auto* offsets = static_cast<const int*>(offsets_);
-  auto* out = static_cast<float*>(out_);
+  auto* out = static_cast<T*>(out_);
   const auto stream = static_cast<cudaStream_t>(stream_);
   if (group_log2 == 0) {
     const int threads = 256;
     const long long blocks = (total + threads - 1) / threads;
-    segsum_rows_kernel<<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
-        vals, perm, offsets, out, num_segments, d);
+    segsum_rows_kernel<T>
+        <<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
+            vals, perm, offsets, out, num_segments, d);
     return static_cast<int>(cudaGetLastError());
   }
   const int tiles = (d + kMaxCols - 1) / kMaxCols;
@@ -248,18 +257,41 @@ extern "C" int gt_segsum_f32(const void* vals_, const void* perm_,
   }
   const int per_seg = ct << q_log2;
   const int spc = per_seg >= kMinThreads ? 1 : kMinThreads / per_seg;
-  const LanesLaunch a{dim3((num_segments + spc - 1) / spc, tiles),
-                      spc * per_seg, stream, vals, perm, offsets, out,
-                      num_segments, d, tw, ct, q_log2, spc};
+  const LanesLaunch<T> a{dim3((num_segments + spc - 1) / spc, tiles),
+                         spc * per_seg, stream, vals, perm, offsets, out,
+                         num_segments, d, tw, ct, q_log2, spc};
   const int l_log2 = group_log2 - q_log2;  // L = G / Q lanes per thread
   cudaError_t err;
   switch (C) {
-    case 1: err = launch_lanes_c<1>(a, l_log2); break;
-    case 2: err = launch_lanes_c<2>(a, l_log2); break;
-    case 3: err = launch_lanes_c<3>(a, l_log2); break;
+    case 1: err = launch_lanes_c<T, 1>(a, l_log2); break;
+    case 2: err = launch_lanes_c<T, 2>(a, l_log2); break;
+    case 3: err = launch_lanes_c<T, 3>(a, l_log2); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+// vals: (K, d) float32; perm: (K,) int32 or null; offsets: (num_segments+1,)
+// int32; out: (num_segments, d) float32; 2^group_log2 <= 256 lanes per
+// segment. Launches on `stream` and returns the cudaGetLastError() code (0
+// on success).
+extern "C" int gt_segsum_f32(const void* vals, const void* perm,
+                             const void* offsets, void* out,
+                             int num_segments, int d, int group_log2,
+                             void* stream) {
+  return segsum<float>(vals, perm, offsets, out, num_segments, d, group_log2,
+                       stream);
+}
+
+// The same with vals and out float64.
+extern "C" int gt_segsum_f64(const void* vals, const void* perm,
+                             const void* offsets, void* out,
+                             int num_segments, int d, int group_log2,
+                             void* stream) {
+  return segsum<double>(vals, perm, offsets, out, num_segments, d,
+                        group_log2, stream);
 }
 
 extern "C" const char* gt_segsum_error_string(int err) {

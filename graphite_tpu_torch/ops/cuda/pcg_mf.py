@@ -14,8 +14,11 @@ block-Jacobi inverse blocks (or the identity) as preconditioner.
   vertex's slot points at the zero trash row n), the row CSR of the
   (factor, slot) incidences, and the Cholesky factors of the precision
   matrices (constant problem data: taken once in float64 on the host and
-  rounded, so the CPU and the card fold the same J').
-- ``fold_jacobians``: J' of every block, flat, in the kernel's layout.
+  rounded to P's dtype, at least float32, so the CPU and the card fold
+  the same J').
+- ``fold_jacobians``: J' of every block, flat, in the kernel's layout, in
+  at least float32: bf16 or fp16 J is upcast first, as the JAX package
+  folds (float64 J folds in float64, for the plain version's tests).
 - ``solve_pcg_mf_plain``: ``run_pcg`` with a matvec and a preconditioner
   that take every product and sum in K6's order (the row scatter as a
   padded CSR walk, no atomics); the CPU path and the kernel's oracle.
@@ -192,7 +195,8 @@ def _build_site(problem, vt_name: str, d: int, n: int) -> PcgMfSite:
                 P.detach().cpu().to(torch.float64).reshape(F, E, E))
             L = torch.where((info == 0)[:, None, None], L,
                             torch.full_like(L, float("nan")))
-            chol[fname] = L.reshape(F, E * E).to(P.dtype).to(dev)
+            chol[fname] = L.reshape(F, E * E).to(
+                torch.promote_types(P.dtype, torch.float32)).to(dev)
     inc_row = np.concatenate(inc_row)
     order = np.argsort(inc_row, kind="stable")
     order = order[inc_row[order] < n]  # fixed vertices scatter nowhere
@@ -214,19 +218,23 @@ def _build_site(problem, vt_name: str, d: int, n: int) -> PcgMfSite:
 
 def fold_jacobians(problem, lin, site: PcgMfSite) -> torch.Tensor:
     """J' = sqrt(max(dL, 0)) chol(P)^T J of every block, flat: block b
-    row-major (F, arity * E * d) from ``jbase``, slots side by side."""
+    row-major (F, arity * E * d) from ``jbase``, slots side by side. In
+    float32 for J stored in float32, bf16 or fp16 (float64 J in float64):
+    J, dL and the factors are upcast before the product, in the JAX
+    package's order (``graphite_tpu/ops/pallas/pcg_mf.py``: C^T J, then
+    times sqrt(dL))."""
     d = site.d
     parts = []
     for blk in site.blocks:
         J = lin.jacobians[blk.fname]
-        dl = sqrt_rn(lin.chi2_deriv[blk.fname].to(J[0].dtype).clamp_min(0.0))
+        dt = torch.promote_types(J[0].dtype, torch.float32)
+        dl = sqrt_rn(lin.chi2_deriv[blk.fname].to(dt).clamp_min(0.0))
         C = site.chol[blk.fname]
         slots = []
         for s in range(blk.arity):
-            Js = J[s]
+            Js = J[s].to(dt)
             if C is not None:
-                Js = flat_block_mm_tn(C.to(Js.dtype), Js, blk.E, blk.E, d,
-                                      acc_dtype=Js.dtype)
+                Js = flat_block_mm_tn(C, Js, blk.E, blk.E, d, acc_dtype=dt)
             slots.append(Js * dl[:, None])
         parts.append(torch.cat(slots, dim=1).reshape(-1))
     return torch.cat(parts)

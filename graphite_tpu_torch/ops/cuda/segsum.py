@@ -18,7 +18,9 @@ plain versions too (``index_add_`` adds rows in order on the CPU), so on
 the CPU they equal the kernels bitwise.
 
 A wrapper takes the plain version for a tensor on the CPU only; for a
-CUDA tensor it launches K1 (float32 only) or raises.
+CUDA tensor it launches K1 (float32 or float64; any other dtype raises).
+Each entry counts its float64 launches apart (``STATS_F64``: the FP64
+policies' instance of the kernel).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from . import build
 from .launches import LaunchStats, on_device, stream_ptr
 
 STATS = LaunchStats("segsum.sorted_segment_sum")
+STATS_F64 = LaunchStats("segsum.sorted_segment_sum[f64]")
 
 MAX_GROUP = 256  # most lanes per segment
 # K1 spreads a row's columns, up to 32 at a time, over the threads of a CTA
@@ -42,12 +45,11 @@ MAX_GROUP = 256  # most lanes per segment
 # (``python -m graphite_tpu_torch.kernel_sweep``)
 K1_THREADS = 512
 
-_SIGNATURES = {
-    # vals, perm (or null), offsets, out, num_segments, d, group_log2, stream
-    "gt_segsum_f32": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                      ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_void_p],
-}
+# vals, perm (or null), offsets, out, num_segments, d, group_log2, stream
+_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_ENTRY = {torch.float32: "gt_segsum_f32", torch.float64: "gt_segsum_f64"}
+_SIGNATURES = {entry: _ARGS for entry in _ENTRY.values()}
 
 
 def load_kernel() -> build.KernelLibrary:
@@ -200,9 +202,11 @@ def launch_segsum(values: torch.Tensor, plan: SegmentPlan,
     its second pass, under its own count) and ``name`` names the caller in
     errors. Raises on what K1 does not take."""
     name = stats.name if stats is not None else name
-    if values.dtype != torch.float32:
+    entry = _ENTRY.get(values.dtype)
+    if entry is None:
         raise NotImplementedError(
-            f"{name}: the CUDA kernel takes float32, got {values.dtype}")
+            f"{name}: the CUDA kernel takes float32 or float64, got "
+            f"{values.dtype}")
     if values.dim() != 2 or values.shape[0] != plan.rows:
         raise ValueError(
             f"{name}: values must be ({plan.rows}, D), got "
@@ -211,12 +215,12 @@ def launch_segsum(values: torch.Tensor, plan: SegmentPlan,
         raise ValueError(f"{name}: plan and values on different devices")
     values = values.contiguous()
     d = values.shape[1]
-    out = torch.empty((plan.num_segments, d), dtype=torch.float32,
+    out = torch.empty((plan.num_segments, d), dtype=values.dtype,
                       device=values.device)
     lib = load_kernel()
     with on_device(values.device):
         ev = None if stats is None else stats.start()
-        err = lib.lib.gt_segsum_f32(
+        err = getattr(lib.lib, entry)(
             values.data_ptr(),
             None if plan.perm_i32 is None else plan.perm_i32.data_ptr(),
             plan.offsets_i32.data_ptr(), out.data_ptr(), plan.num_segments,
@@ -228,10 +232,17 @@ def launch_segsum(values: torch.Tensor, plan: SegmentPlan,
     return out
 
 
+def stats_for(values: torch.Tensor, stats: LaunchStats,
+              stats_f64: LaunchStats) -> LaunchStats:
+    """The count a K1 entry adds a launch on ``values`` to: its float64
+    count for float64 values, else its own."""
+    return stats_f64 if values.dtype == torch.float64 else stats
+
+
 def sorted_segment_sum(values: torch.Tensor, plan: SegmentPlan) -> torch.Tensor:
     """(K, D) rows -> (num_segments, D) sums (the Schur product scatter)."""
     if values.device.type == "cpu":
         return segment_sum_plain(values, plan)
     if values.device.type != "cuda":
         raise NotImplementedError(f"no kernel for device {values.device}")
-    return launch_segsum(values, plan, STATS)
+    return launch_segsum(values, plan, stats_for(values, STATS, STATS_F64))

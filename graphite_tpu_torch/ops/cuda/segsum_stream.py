@@ -21,7 +21,8 @@ sites it served:
 
 CPU tensors take the plain versions (``streaming_segment_sum_plain``,
 ``segment_product_sum_plain``, ``segmv.segmv_plain``); CUDA tensors launch
-the kernel (float32 only) or raise.
+the kernel or raise: K1 takes float32 and float64 (its float64 launches
+counted in ``STATS_F64``), K3 and K4 float32 only.
 """
 
 from __future__ import annotations
@@ -36,11 +37,12 @@ import torch
 from ..blockfmt import flat_block_mm_nt
 from . import build, segmv, segsum
 from .launches import LaunchStats, on_device, stream_ptr
-from .segsum import SegmentPlan, launch_segsum
+from .segsum import SegmentPlan, launch_segsum, stats_for
 from .segsum import segment_sum_plain as streaming_segment_sum_plain
 
 __all__ = [
-    "STATS", "PRODUCT_STATS", "PRODUCT_RTBL_STATS", "MATVEC_TBL_STATS",
+    "STATS", "STATS_F64", "PRODUCT_STATS", "PRODUCT_RTBL_STATS",
+    "MATVEC_TBL_STATS",
     "ProductPlan", "plan_products", "product_lanes",
     "streaming_segment_sum", "streaming_segment_sum_plain",
     "streaming_segment_product_sum", "streaming_segment_product_sum_rtbl",
@@ -48,6 +50,7 @@ __all__ = [
 ]
 
 STATS = LaunchStats("segsum_stream.streaming_segment_sum")
+STATS_F64 = LaunchStats("segsum_stream.streaming_segment_sum[f64]")
 PRODUCT_STATS = LaunchStats("segsum_stream.streaming_segment_product_sum")
 PRODUCT_RTBL_STATS = LaunchStats(
     "segsum_stream.streaming_segment_product_sum_rtbl")
@@ -77,12 +80,12 @@ def load_product_kernel() -> build.KernelLibrary:
 def streaming_segment_sum(values: torch.Tensor,
                           plan: SegmentPlan) -> torch.Tensor:
     """(K, D) rows -> (num_segments, D) sums; CPU tensors take the plain
-    version, CUDA tensors launch K1."""
+    version, CUDA tensors launch K1 (float32 or float64)."""
     if values.device.type == "cpu":
         return streaming_segment_sum_plain(values, plan)
     if values.device.type != "cuda":
         raise NotImplementedError(f"no kernel for device {values.device}")
-    return launch_segsum(values, plan, STATS)
+    return launch_segsum(values, plan, stats_for(values, STATS, STATS_F64))
 
 
 def product_lanes(lengths: np.ndarray) -> np.ndarray:

@@ -5,8 +5,14 @@
 - ``inv_dtype``: small block inversions and diagonal accumulation; never a
   low-precision type (equals ``graph_dtype`` when ``solver_dtype`` is one).
 
-FP64_FP64 is what the CPU parity tests against the JAX package use;
-FP32_FP32 is the GPU main path.
+The six policies are the JAX package's: FP64_FP64, FP64_FP32, FP64_BF16,
+FP32_FP32, FP32_BF16 and FP32_FP16. Hessian and Schur values live in
+``inv_dtype``, so a bf16 or fp16 value never reaches a kernel: the
+kernels run where their site's dtype is float32 (and K1 also in float64;
+``schur`` gates each site on its dtype). The JAX package's
+``stream_dtype`` (bf16 gather transport) and ``matmul_precision`` are TPU
+levers and are not ported: every transport is in the site's own dtype and
+TF32 stays off.
 """
 
 from __future__ import annotations
@@ -66,8 +72,10 @@ class Precision:
 
     @staticmethod
     def from_names(graph: str, solver: str) -> "Precision":
-        """The policy named by two dtype names (``fp64 fp64`` or ``fp32
-        fp32``, or their ``float64`` / ``float32`` spellings)."""
+        """The policy named by two dtype names (``fp64``, ``fp32``,
+        ``bf16``, ``fp16`` or their ``float64`` / ``float32`` /
+        ``bfloat16`` / ``float16`` spellings); a low-precision graph dtype
+        raises ``ValueError``, as in the JAX package."""
         names = {"fp64": torch.float64, "float64": torch.float64,
                  "fp32": torch.float32, "float32": torch.float32,
                  "bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
@@ -76,13 +84,7 @@ class Precision:
             if name.lower() not in names:
                 raise ValueError(f"unknown precision '{name}'; expected one "
                                  f"of {sorted(names)}")
-        pair = (names[graph.lower()], names[solver.lower()])
-        for policy in (FP64_FP64, FP32_FP32):
-            if pair == (policy.graph_dtype, policy.solver_dtype):
-                return policy
-        raise NotImplementedError(
-            f"precision ({graph}, {solver}) is not ported: the port has "
-            "FP64_FP64 and FP32_FP32 (ROADMAP A14)")
+        return Precision(names[graph.lower()], names[solver.lower()])
 
     @property
     def acc_dtype(self) -> torch.dtype:
@@ -93,4 +95,8 @@ class Precision:
 
 
 FP64_FP64 = Precision(torch.float64, torch.float64)
+FP64_FP32 = Precision(torch.float64, torch.float32)
+FP64_BF16 = Precision(torch.float64, torch.bfloat16)
 FP32_FP32 = Precision(torch.float32, torch.float32)
+FP32_BF16 = Precision(torch.float32, torch.bfloat16)
+FP32_FP16 = Precision(torch.float32, torch.float16)

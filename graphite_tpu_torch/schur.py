@@ -20,11 +20,19 @@ the block-sparse S matvec (``prepare_matvec`` / ``s_matvec``). Sites with
 more blocks than ``_smv_chunk_rows`` take the block-matvec kernels (K4
 for b_schur and the back-substitution, K5 for S x); smaller ones form
 their rows and reduce them with K1. The gates are the JAX package's, so
-the port takes its branch at every size; they are module globals that
-tests lower to force the large-problem branches at toy size. The JAX
-package's other gates (``TABLE_ROWS_LIMIT``, ``slot_geom``, the window
-plans, ``STREAM_PART_ROWS``) bound TPU VMEM and HBM transients that the
-GPU kernels do not have, and are not ported.
+the port takes its branch at every size and dtype: a site opens its
+kernel only where its values are float32 (``kernel_dtype``, the dtype
+test of the JAX package's ``use_pallas``) and it is above its size gate.
+A float64 site (the Hessian and Schur values of FP64_FP64 and FP64_BF16)
+takes the stepwise branch, whose reductions run on K1 in float64. Where
+the values are float32 and the vectors float64 (FP64_FP32), a kernel site
+takes its vector in float32 (w = Hll^-1 b_l is in the values' dtype;
+S x and the back-substitution cast x in) and casts its result out to the
+graph dtype. The size gates are module globals that tests lower to force
+the large-problem branches at toy size. The JAX package's other gates
+(``TABLE_ROWS_LIMIT``, ``slot_geom``, the window plans,
+``STREAM_PART_ROWS``) bound TPU VMEM and HBM transients that the GPU
+kernels do not have, and are not ported.
 """
 
 from __future__ import annotations
@@ -75,6 +83,12 @@ def _chunk_threshold(problem) -> int:
     if problem.dim_h > 1_000_000:
         return min(CHUNK_THRESHOLD, 1 << 19)
     return CHUNK_THRESHOLD
+
+
+def kernel_dtype(dtype: torch.dtype) -> bool:
+    """Whether a K3, K4 or K5 site of values in ``dtype`` may take its
+    kernel: float32 only, as the JAX package's ``use_pallas``."""
+    return dtype == torch.float32
 
 
 def _smv_chunk_rows(row_bytes: int) -> int:
@@ -354,7 +368,8 @@ def schur_values(problem, ss: SchurStructure,
         key = pg["dst_key"]
         W = hpl_w[pg["left_key"]]
         R = hvals[pg["right_key"]].to(inv_dt)
-        if pg["dst"].shape[0] > _chunk_threshold(problem):
+        if (pg["dst"].shape[0] > _chunk_threshold(problem)
+                and kernel_dtype(inv_dt)):
             # K3 reads the W and Hpl rows by index: no gathered stream and
             # no (K, dpa*dpb) product buffer; its plan gives each S block
             # its own lanes
@@ -489,6 +504,7 @@ class SchurOps:
                 ck = ("bschur", key, pt, lt)
                 Hsub = take_rows(problem, ck + ("sub",), Hpl, sub)
                 if (sub.shape[0] > _smv_chunk_rows((dp * dl + dp + dl) * 4)
+                        and kernel_dtype(Hsub.dtype)
                         and self._nondecreasing(ck, lrow)):
                     # K4: y[prow_i] += Hpl_i w[lrow_i], w read by index
                     plan = matvec_plan(problem, ck, prow,
@@ -542,7 +558,8 @@ class SchurOps:
             dr, dc = key
             S = self.sv.s_vals[key]
             for rt, ct, sub, _, _, _ in self.s_sites(key):
-                if sub.shape[0] > _smv_chunk_rows((dr * dc + dr + dc + 3) * 4):
+                if (sub.shape[0] > _smv_chunk_rows((dr * dc + dr + dc + 3) * 4)
+                        and kernel_dtype(S.dtype)):
                     ck = ("smv", key, rt, ct)
                     self.sym_site(key, rt, ct)
                     prep[ck] = take_rows(self.problem, ck + ("ysub",), S,
@@ -614,6 +631,7 @@ class SchurOps:
                 x_pt = problem.rows_view(dx_p, pt)
                 # Hpl is landmark-major: lrow is destination-sorted
                 if (sub.shape[0] > _smv_chunk_rows((dp * dl + dp + dl) * 4)
+                        and kernel_dtype(Hsub.dtype)
                         and self._nondecreasing(ck, lrow)):
                     # K4: t[lrow_i] -= Hpl_i^T dx_p[prow_i], x read by index
                     plan = matvec_plan(problem, ck, lrow,

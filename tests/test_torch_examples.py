@@ -6,6 +6,8 @@
   with ``--jit-loop`` / ``--lm2`` (and ``--verbose``) the same as a
   direct ``levenberg_marquardt`` / ``levenberg_marquardt2`` call with
   those options;
+- ``--precision``: each of the six policies lowers chi2 (BAL and pose
+  graph CLIs);
 - the circle example: the free points land on radius 4.000000 (float64)
   and points 2 (deactivated factor) and 4 (fixed) keep their values;
 - a BAL ``save`` / ``load`` round trip.
@@ -92,8 +94,27 @@ def test_pose_graph_cli(solver, capsys):
 def test_cli_defaults_to_the_card():
     assert bal_cli.parse_args([]).device == "cuda"
     assert pose_cli.parse_args([]).device == "cuda"
-    with pytest.raises(NotImplementedError, match="A14"):
-        bal_cli.main(["--precision", "fp32", "bf16", "--device", "cpu"])
+
+
+POLICIES = [("fp64", "fp64"), ("fp64", "fp32"), ("fp64", "bf16"),
+            ("fp32", "fp32"), ("fp32", "bf16"), ("fp32", "fp16")]
+
+
+@pytest.mark.parametrize("cli", ["bal", "pose_graph"])
+@pytest.mark.parametrize("precision", POLICIES,
+                         ids=["-".join(p) for p in POLICIES])
+def test_cli_takes_every_policy(cli, precision, capsys):
+    if cli == "bal":
+        out = bal_cli.main(["--synthetic", "mini", "--iterations", "4",
+                            "--precision", *precision, "--device", "cpu"])
+    else:
+        out = pose_cli.main(["--poses", "100", "--iterations", "4",
+                             "--precision", *precision, "--device", "cpu"])
+    policy = gtt.Precision.from_names(*precision)
+    assert out.chi2 < out.initial_chi2
+    for p in out.params.values():
+        assert p.dtype == policy.graph_dtype
+        assert bool(torch.isfinite(p).all())
 
 
 @pytest.mark.parametrize("flags", [["--jit-loop"], ["--lm2"],

@@ -10,10 +10,11 @@ iterations.
   the JAX package its while-loop PCG, as it does on the CPU.
 - float64 with ``dense_matvec_limit=0`` in both packages: the PCG runs on
   the block-sparse S matvec. Once with the port's default gates (the
-  stepwise matvec) and once with its gates lowered so that the K3 triple
-  products, K4 b_schur / back-substitution and K5 S matvec plain versions
-  carry the whole solve: the same accept pattern and chi2 per iteration
-  to 1e-9.
+  stepwise matvec) and once with its size gates lowered, where the dtype
+  gate still keeps the float64 sites stepwise (K3, K4 and K5 take
+  float32 only; ``test_torch_precision.py`` runs their plain versions
+  under FP64_FP32): the same accept pattern and chi2 per iteration to
+  1e-9.
 """
 
 import pytest

@@ -7,7 +7,10 @@ package's ``test_schur_stream_paths.py`` forces its own.
 - float64, port forced vs the JAX package's plain path: S, b_schur,
   s_matvec, landmark_update and compose_delta to 1e-12 relative to each
   array's largest entry, on ``make_bal("mini")`` and the multi-type and
-  mixed-(3, 3)-group fixtures of ``test_schur_multitype.py``.
+  mixed-(3, 3)-group fixtures of ``test_schur_multitype.py``. The kernels
+  take float32 only, so with the size gates forced the float64 sites
+  still take the stepwise branch (the dtype gate, as the JAX package's
+  ``use_pallas``): no K3, K4 or K5 plan is built.
 - float32, port forced vs the JAX package's streaming Pallas path
   (interpret mode, forced the same way) on the same damped Hessian values:
   to 1e-5 relative.
@@ -70,9 +73,11 @@ def force_port(monkeypatch):
     monkeypatch.setattr(torch_schur, "_smv_chunk_rows", lambda rb: 0)
 
 
-def _port_side(pp, params, dx_p, x, hv=None, b=None):
-    """The port's Schur quantities (forced branches), from its own
-    linearization or from given damped H values and b."""
+def _port_side(pp, params, dx_p, x, hv=None, b=None, kernels=True):
+    """The port's Schur quantities (forced gates), from its own
+    linearization or from given damped H values and b; ``kernels``: the
+    values are float32, so every large-problem branch must be taken (else
+    none may be)."""
     ssp = torch_schur.build_schur_structure(pp)
     if hv is None:
         lp = torch_linearize(pp, params_from_numpy(params))
@@ -90,8 +95,14 @@ def _port_side(pp, params, dx_p, x, hv=None, b=None):
                y=ops.s_matvec(torch.as_tensor(x)).numpy(),
                lu={t: v.numpy() for t, v in lu.items()},
                delta=ops.compose_delta(torch.as_tensor(dx_p), lu).numpy())
-    # every large-problem branch was taken
     cache = pp._cache
+    if not kernels:
+        # the dtype gate keeps every float64 site stepwise
+        assert not ops._smv_prep and not cache.get("smv_sym_sites")
+        assert "matvec_plans" not in cache
+        assert "product_plans" not in cache
+        return ssp, sv, out
+    # every large-problem branch was taken
     assert ops._smv_prep and cache["smv_sym_sites"]
     assert {t[0] for t in cache["matvec_plans"]} == {"bschur", "lu"}
     assert len([t for t in cache["index32"] if t[0] == "prod_l"]) == len(
@@ -140,7 +151,7 @@ def test_forced_branches_match_jax_f64(force_port, fixture):
 
     ref = jax.tree_util.tree_map(np.asarray, pj.jit_with_consts(run)(
         pj.params0, jnp.asarray(dx_p), jnp.asarray(x)))
-    ssp, sv, out = _port_side(pp, params, dx_p, x)
+    ssp, sv, out = _port_side(pp, params, dx_p, x, kernels=False)
     assert ssp.s_keys == ssj.s_keys
     _compare(out, ref, 1e-12)
     _close(torch_schur_to_dense(pp, ssp, sv).numpy(), ref["S"])
