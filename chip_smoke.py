@@ -99,7 +99,7 @@ step) and peak memory:
     and K1 vs its plain version at the largest of each;
 13. ``direct-venice`` (run after phase 7, on its problem):
     SparseDirectSchurSolver() (dense S at dim_p 16,002 on the card), 10
-    iterations; phase 8 takes the CPU's steps from its first 2 states;
+    iterations; phase 8 takes the CPU's step from its first state;
 14. ``cli``: ``graphite_tpu_torch.examples.bal.main`` for its six solvers
     at ``--synthetic ladybug --iterations 3`` and
     ``examples.pose_graph.main`` for its three at ``--poses 500
@@ -170,8 +170,48 @@ LM iteration, peak memory and every kernel's launches:
     iterations; card vs CPU, unit quaternions;
 23. ``precision-venice`` (after phase 8): Venice-1778 under FP32_BF16 at
     full size, 10 iterations on the card (K1, K3, K4 and K5 launched)
-    and 2 on the CPU; ms per iteration and peak memory beside phase 7's
+    and 1 on the CPU; ms per iteration and peak memory beside phase 7's
     FP32_FP32 run, and the stored Jacobians' bytes.
+
+Gradient descent, Adam, covariance and the range-bearing example. Each
+phase prints its numbers beside the card's name and power limit
+(``nvidia-smi``):
+
+24. ``first-order-venice`` (after phase 16, on its problem): GD (lr 0.1)
+    and Adam (lr 0.3), FP32_FP32, 10 iterations each as replays of one
+    captured iteration; ms per replay, the same step uncaptured on the
+    card, capture seconds, graph pool and peak memory, K1's launches per
+    replay and its ms per (eager) step, and whether chi2 fell (GD has no
+    accept or reject: a rise is reported); then 2 iterations of their own
+    capture from the same start, equal to the first 2 of the 10;
+25. ``covariance-venice`` (after phase 24): ``joint_covariance``'s Schur
+    path at damping 1e-2 for 4 cameras and 4 points (48 columns), stage
+    by stage with CUDA events (Hessian values, ``schur_values`` (K3),
+    densify, the float64 factor, b_S (K4) per column, the 48-column solve,
+    back-substitution (K4) per column) and peak memory; each column's
+    normwise backward error ||H_d x_j - e_j|| / (max diag(H_d) ||x_j|| +
+    1), with H_d applied through ``hessian_matvec`` plus the damping
+    diagonal, at most ``COV_BACKWARD_BOUND``; relative asymmetry at most
+    ``COV_ASYMMETRY_BOUND``, a positive diagonal; the public call bitwise
+    the staged run, with K3 once and K4 twice per column;
+26. ``first-order-venice-cpu`` (after phase 8, on its CPU problem): the
+    CPU's first 2 GD and Adam iterations bitwise the card's (history and
+    parameters);
+27. ``first-order-ladybug``: GD and Adam at Ladybug-49, FP32_FP32, 30
+    iterations captured (twice: the second call only replays), bitwise the
+    CPU run; the same prints as phase 24;
+28. ``covariance-ladybug``: the Schur path (card vs CPU within 1e-9 of
+    the largest entry: float64 factors, not bitwise) and the dense path on
+    the full H (dim_h 23,769) at damping 1e-2, 4 cameras and 4 points;
+    Schur vs dense on the card within kappa(S) x 4e-5 (the float32
+    cancellation level of S, ROADMAP Queue C; kappa from the damped S's
+    float64 eigenvalues); times, peak memory, launches;
+29. ``range-bearing``: ``examples.range_bearing_slam.main`` at its default
+    size (100 poses, 40 landmarks, 25 iterations: dim_p 297, K2) and at
+    500 poses, 200 landmarks, 10 iterations (dim_p 1,497: a dense S with
+    ``run_pcg`` on ``tree_matvec``),
+    on the card and on the CPU: the same accept pattern, chi2 within
+    1e-3; launches.
 
 A captured path's launches in the kernels JSON line are its capture's
 count times its replays (``remask`` sums its three graphs: the remasked
@@ -1326,11 +1366,13 @@ def phase_venice_slice(problem, solver, iterations):
     return gpu, launches, peak
 
 
-def phase_venice_cpu(ds, params0, gpu, solver, iterations, direct_gpu):
+def phase_venice_cpu(ds, params0, gpu, solver, iterations, direct_gpu,
+                     direct_steps):
     """The CPU run starts from the card run's parameters (``params0``,
-    NumPy, handed over by ``interop``): PCG-Schur; then the sparse direct
-    Schur solver's (dense S) first steps from the card direct run's
-    states (``compare_lockstep``)."""
+    NumPy, handed over by ``interop``): PCG-Schur for ``iterations``; then
+    the sparse direct Schur solver's (dense S) first ``direct_steps``
+    steps from the card direct run's states (``compare_lockstep``).
+    Returns the CPU problem."""
     from graphite_tpu_torch import FP32_FP32
     from graphite_tpu_torch.interop import params_from_numpy
     from graphite_tpu_torch.io import bal
@@ -1341,8 +1383,9 @@ def phase_venice_cpu(ds, params0, gpu, solver, iterations, direct_gpu):
     cpu = run_lm(problem, solver, iterations, params_from_numpy(params0))
     compare_runs("venice-cpu", gpu, cpu)
     direct_run, states = direct_gpu
-    compare_lockstep("direct-venice-cpu", direct_run, states[:iterations],
+    compare_lockstep("direct-venice-cpu", direct_run, states[:direct_steps],
                      problem, SparseDirectSchurSolver())
+    return problem
 
 
 def phase_forced(iterations):
@@ -1949,9 +1992,7 @@ def phase_jit_venice(problem, solver, iterations, host):
               f"{key} not in the Venice graph")
     check(loop.capture_launches["segmv.matvec_sym_stream"]
           == solver.max_iter, "K5 must launch once per fixed CG step")
-    # free the graph and its state: phase 13 needs the memory
-    for key in [k for k, v in problem._cache.items() if v is loop]:
-        del problem._cache[key]
+    drop_loop(problem, loop)  # phase 13 needs the memory
     return launches
 
 
@@ -2394,6 +2435,477 @@ def phase_precision_venice(ds, solver, iterations, cpu_iters, fp32):
     return {tag: launches}
 
 
+# ---- first-order optimizers, covariance, the range-bearing example -------
+
+def card_label():
+    """The card's name and power limit, as ``nvidia-smi`` gives them
+    (queried once)."""
+    if not hasattr(card_label, "text"):
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60)
+        card_label.text = smi.stdout.strip().splitlines()[0]
+    return card_label.text
+
+
+# (optimizer, learning rate) of the first-order runs: the JAX package's
+# test rates (tests/test_gd_adam_ba.py)
+FIRST_ORDER = (("gd", 0.1), ("adam", 0.3))
+K1_ENTRIES = ("segsum.sorted_segment_sum",
+              "segsum_stream.streaming_segment_sum")
+
+
+def first_order(problem, name, lr, iterations):
+    """``gradient_descent`` or ``adam`` on ``problem`` from its start:
+    (final parameters, history, the cached loop, the call's seconds)."""
+    from graphite_tpu_torch.optimizers import (
+        AdamOptions,
+        GradientDescentOptions,
+        adam,
+        gradient_descent,
+    )
+
+    if name == "gd":
+        run = gradient_descent
+        opts = GradientDescentOptions(iterations=iterations,
+                                      learning_rate=lr)
+        key = ("gd", lr, iterations)
+    else:
+        run = adam
+        opts = AdamOptions(iterations=iterations, learning_rate=lr)
+        key = ("adam", lr, opts.beta1, opts.beta2, opts.epsilon, iterations)
+    t0 = time.perf_counter()
+    pf, hist = run(problem, options=opts)
+    seconds = time.perf_counter() - t0
+    return pf, hist, problem._cache.get(key), seconds
+
+
+def same_first_order(tag, gpu, cpu):
+    """The card's (params, hist) bitwise the CPU's."""
+    import torch
+
+    pf, hist = gpu
+    cpu_pf, cpu_hist = cpu
+    check(torch.equal(hist.cpu(), cpu_hist), f"{tag}: chi2 history differs "
+          f"from the CPU's: {hist.tolist()} vs {cpu_hist.tolist()}")
+    for n, p in cpu_pf.items():
+        check(torch.equal(pf[n].cpu(), p), f"{tag}: params {n} differ")
+
+
+def eager_step_ms(loop, steps):
+    """The same step uncaptured on the card, after one untimed step:
+    (device ms per step from CUDA events around ``steps`` steps, K1's
+    launches and kernel ms per step)."""
+    import torch
+
+    from graphite_tpu_torch.ops import device_loop
+
+    with device_loop.enabled():
+        loop.step()
+
+    def run():
+        with device_loop.enabled():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(steps):
+                loop.step()
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) / steps
+
+    ms, launches, kernel_ms = count_launches(run)
+    k1 = sum(launches[e] for e in K1_ENTRIES) / steps
+    k1_ms = sum(kernel_ms[e] for e in K1_ENTRIES) / steps
+    return ms, k1, k1_ms
+
+
+def print_first_order(tag, name, loop, hist, seconds, eager):
+    import torch
+
+    ms, k1, k1_ms = eager
+    h = hist.tolist()
+    per_replay = {k: v for k, v in loop.capture_launches.items()}
+    print(f"[{tag}] {name} ({card_label()}): iterations={len(h)} chi2 "
+          f"{h[0]!r} -> {h[-1]!r} fell={h[-1] < h[0]} rises="
+          f"{sum(b > a for a, b in zip(h, h[1:]))}")
+    print(f"[{tag}] {name} ({card_label()}): graph ms per replay="
+          f"{statistics.mean(loop.replay_ms):.4f} (per replay "
+          f"{[round(m, 4) for m in loop.replay_ms]}) uncaptured step on the "
+          f"card ms per iteration={ms:.4f} capture seconds="
+          f"{loop.capture_seconds:.3f} (first call {seconds:.3f} s) graph "
+          f"pool memory={loop.pool_bytes / 2**20:.1f} MiB "
+          f"max_memory_allocated="
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    print(f"[{tag}] {name} ({card_label()}): launches per replay="
+          f"{per_replay} K1 per replay="
+          f"{sum(per_replay.get(e, 0) for e in K1_ENTRIES)} K1 per eager "
+          f"step={k1:.1f} K1 ms per eager step={k1_ms:.4f}")
+
+
+def drop_loop(problem, loop):
+    """Free a cached loop (its graph and pool)."""
+    for key in [k for k, v in problem._cache.items() if v is loop]:
+        del problem._cache[key]
+
+
+def phase_first_order_ladybug(iterations):
+    """GD and Adam at Ladybug-49 (FP32_FP32) as replays of one captured
+    iteration, each bitwise the CPU run (history and final parameters)."""
+    import torch
+
+    total = {}
+    for name, lr in FIRST_ORDER:
+        problem = ladybug_problem(DEVICE)
+        torch.cuda.reset_peak_memory_stats()
+        pf, hist, loop, seconds = first_order(problem, name, lr, iterations)
+        check(loop is not None and loop.capture is not None,
+              f"{name}: no captured graph")
+        check(loop.capture.host_calls == 0, f"{name}: a host sync in the "
+              "graph")
+        check(sum(loop.capture_launches.get(e, 0) for e in K1_ENTRIES) > 0,
+              f"{name}: K1 not in the graph")
+        again, hist2, _, _ = first_order(problem, name, lr, iterations)
+        same_first_order(f"first-order-ladybug {name} (second call)",
+                         (again, hist2),
+                         ({n: p.cpu() for n, p in pf.items()}, hist.cpu()))
+        cpu = first_order(ladybug_problem("cpu"), name, lr, iterations)
+        same_first_order(f"first-order-ladybug {name}", (pf, hist), cpu[:2])
+        print(f"[first-order-ladybug] {name}: bitwise_equal_to_cpu=True "
+              f"(history and parameters, {iterations} iterations)")
+        print_first_order("first-order-ladybug", name, loop, hist, seconds,
+                          eager_step_ms(loop, iterations))
+        add_launches(total, graph_launches(loop))
+    return total
+
+
+def phase_first_order_venice(problem, iterations, cpu_iters):
+    """GD and Adam at Venice-1778 (FP32_FP32, full size): ``iterations``
+    replays; then ``cpu_iters`` replays of their own capture from the same
+    start, handed to the CPU check (``phase_first_order_venice_cpu``)."""
+    import torch
+
+    total, short = {}, {}
+    for name, lr in FIRST_ORDER:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        pf, hist, loop, seconds = first_order(problem, name, lr, iterations)
+        check(loop is not None and loop.capture is not None,
+              f"{name}: no captured graph")
+        check(loop.capture.host_calls == 0,
+              f"{name}: a host sync in the graph")
+        check(bool(torch.isfinite(hist).all()), f"{name}: chi2 not finite")
+        for p in pf.values():
+            check(bool(torch.isfinite(p).all()), f"{name}: bad parameters")
+        print_first_order("first-order-venice", name, loop, hist, seconds,
+                          eager_step_ms(loop, 3))
+        add_launches(total, graph_launches(loop))
+        drop_loop(problem, loop)
+        del pf
+        pf2, hist2, loop2, _ = first_order(problem, name, lr, cpu_iters)
+        check(torch.equal(hist2, hist[:cpu_iters]),
+              f"{name}: the {cpu_iters}-iteration run differs")
+        add_launches(total, graph_launches(loop2))
+        drop_loop(problem, loop2)
+        short[name] = ({n: p.cpu() for n, p in pf2.items()}, hist2.cpu())
+    return total, short
+
+
+def phase_first_order_venice_cpu(cpu_problem, short, cpu_iters):
+    """The CPU's first ``cpu_iters`` GD and Adam iterations at
+    Venice-1778 from the same start, bitwise the card's."""
+    for name, lr in FIRST_ORDER:
+        pf, hist, _, seconds = first_order(cpu_problem, name, lr, cpu_iters)
+        same_first_order(f"first-order-venice-cpu {name}", short[name],
+                         (pf, hist))
+        print(f"[first-order-venice-cpu] {name}: {cpu_iters} CPU iterations "
+              f"bitwise the card's (history {hist.tolist()} and parameters)"
+              f" in {seconds:.1f} s")
+
+
+# damping of the covariance phases, as tests/test_covariance.py's
+COV_DAMPING = 1e-2
+# the float32 Schur complement's cancellation error, relative to max|S|
+# (ROADMAP Queue C)
+S_CANCELLATION = 4e-5
+# the bound on the Schur path's normwise backward error at Venice-1778:
+# 25x the cancellation level of S, which bounds each entry's error of S
+# relative to max|S| <= max diag(H_d); the factor leaves room for a row
+# of such errors acting on x (Ladybug-49 on the CPU: 1.3e-6)
+COV_BACKWARD_BOUND = 1e-3
+# the bound on the covariance's relative asymmetry before its symmetric
+# part is taken (the tolerance ladder's float32 rung)
+COV_ASYMMETRY_BOUND = 1e-3
+
+
+def covariance_targets(problem):
+    """4 cameras and 4 points spread over the problem (48 columns)."""
+    import numpy as np
+
+    n_cam = problem.vertex_meta["bal_camera"].count
+    n_pt = problem.vertex_meta["bal_point"].count
+    cams = np.linspace(0, n_cam - 1, 4).astype(int)
+    pts = n_cam + np.linspace(0, n_pt - 1, 4).astype(int)
+    return ([("bal_camera", int(c)) for c in cams]
+            + [("bal_point", int(p)) for p in pts])
+
+
+def max_rel(a, b):
+    """max|a - b| / max|b|."""
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def phase_covariance_ladybug():
+    """Ladybug-49 covariance (FP32_FP32, damping 1e-2, 4 cameras and 4
+    points): the Schur path on the card against the CPU's within 1e-9,
+    the dense path on the full H (dim_h 23,769) on the card, and the two
+    within the tolerance from the float32 cancellation in S."""
+    import torch
+
+    from graphite_tpu_torch.covariance import joint_covariance
+    from graphite_tpu_torch.linearize import linearize
+
+    problem = ladybug_problem(DEVICE)
+    lin = linearize(problem, problem.params0)
+    targets = covariance_targets(problem)
+    out, times = {}, {}
+
+    def run(method):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = joint_covariance(problem, lin, targets, method=method,
+                               damping=COV_DAMPING)
+        end.record()
+        end.synchronize()
+        times[method] = start.elapsed_time(end)
+        return res
+
+    total = {}
+    for method in ("schur", "dense"):
+        run(method)  # host plans built
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out[method], launches, _ = count_launches(lambda: run(method),
+                                                  record_events=False)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[covariance-ladybug] {method} ({card_label()}): "
+              f"ms={times[method]:.3f} peak max_memory_allocated="
+              f"{peak / 2**30:.3f} GiB launches="
+              f"{ {k: v for k, v in launches.items() if v} }")
+        add_launches(total, launches)
+    cpu_problem = ladybug_problem("cpu")
+    cpu = joint_covariance(cpu_problem,
+                           linearize(cpu_problem, cpu_problem.params0),
+                           targets, method="schur", damping=COV_DAMPING)
+    schur, dense = out["schur"].cpu(), out["dense"].cpu()
+    vs_cpu = max_rel(schur, cpu)
+    # kappa(S) of the damped Schur complement: its eigenvalues in float64
+    from graphite_tpu_torch.covariance import schur_system
+    from graphite_tpu_torch.solvers.dense_cholesky_schur import (
+        schur_to_dense,
+    )
+
+    ops = schur_system(problem, lin, COV_DAMPING, False)
+    ev = torch.linalg.eigvalsh(schur_to_dense(problem, ops.ss,
+                                              ops.sv).double())
+    kappa = float(ev[-1] / ev[0])
+    tol = kappa * S_CANCELLATION
+    vs_dense = max_rel(schur, dense)
+    print(f"[covariance-ladybug] ({card_label()}) dim_h={problem.dim_h} "
+          f"dim_p={ops.ss.dim_p} columns={schur.shape[0]} schur card vs "
+          f"cpu max rel={vs_cpu:.3e} (bound 1e-9) bitwise="
+          f"{torch.equal(schur, cpu)}; schur vs dense on the card max rel="
+          f"{vs_dense:.3e} (bound kappa(S) x {S_CANCELLATION} = {tol:.3e}, "
+          f"kappa(S)={kappa:.1f})")
+    check(vs_cpu <= 1e-9, f"covariance: card and CPU differ by {vs_cpu}")
+    check(vs_dense <= tol, f"covariance: schur and dense differ by "
+          f"{vs_dense} > {tol}")
+    for name, c in (("schur", schur), ("dense", dense)):
+        check(bool(torch.isfinite(c).all())
+              and bool((torch.diagonal(c) > 0).all()),
+              f"covariance {name}: a non-positive or non-finite diagonal")
+    return total
+
+
+def phase_covariance_venice(problem):
+    """Venice-1778 covariance, the Schur path (damping 1e-2, 4 cameras and
+    4 points: 48 columns): the public ``joint_covariance`` (its first call
+    builds the host plans), with K3 once and K4 twice per column; then the
+    same stage by stage with CUDA events, bitwise the public result, each
+    full column x_j checked against the damped Hessian (``hessian_matvec``
+    plus the damping diagonal): the normwise backward error ||H_d x_j -
+    e_j|| / (max diag(H_d) ||x_j|| + 1) within ``COV_BACKWARD_BOUND``."""
+    import torch
+
+    from graphite_tpu_torch import covariance as cov
+    from graphite_tpu_torch.hessian import (
+        apply_damping,
+        build_hessian_structure,
+        compute_hessian_values,
+    )
+    from graphite_tpu_torch.linearize import (
+        DIAG_MAX,
+        DIAG_MIN,
+        hessian_matvec,
+        linearize,
+    )
+    from graphite_tpu_torch.schur import (
+        SchurOps,
+        build_schur_structure,
+        schur_values,
+    )
+    from graphite_tpu_torch.solvers.dense_cholesky_schur import (
+        schur_to_dense,
+    )
+
+    gdt = problem.precision.graph_dtype
+    targets = covariance_targets(problem)
+    cols, _ = cov._target_columns(problem, targets)
+    k = len(cols)
+    lin = linearize(problem, problem.params0)
+    stages = {}
+
+    def stage(name, fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        stages[name] = stages.get(name, 0.0) + start.elapsed_time(end)
+        return out
+
+    def public():
+        return cov.joint_covariance(problem, lin, targets, method="schur",
+                                    damping=COV_DAMPING)
+
+    t0 = time.perf_counter()
+    joint, launches, _ = count_launches(public, record_events=False)
+    first_s = time.perf_counter() - t0
+    check(launches["segsum_stream.streaming_segment_product_sum_rtbl"] == 1,
+          "covariance: K3 must launch once")
+    for key in ("segmv.block_matvec_wtbl",
+                "segsum_stream.streaming_matvec_tbl"):
+        check(launches[key] == k, f"covariance: {key} must launch once per "
+              f"column ({launches[key]} for {k})")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    again = stage("joint_covariance", public)
+    check(torch.equal(again, joint), "covariance: not bitwise repeatable")
+    peak = torch.cuda.max_memory_allocated()
+
+    hs = build_hessian_structure(problem)
+    ss = build_schur_structure(problem)
+    hv = stage("hessian values (K1) + damping", lambda: apply_damping(
+        problem, hs, compute_hessian_values(problem, hs, lin), lin.diag,
+        COV_DAMPING, False))
+    sv = stage("schur_values (K3)", lambda: schur_values(problem, ss, hv))
+    ops = SchurOps(problem, ss, hv, sv)
+    S = stage("densify S", lambda: schur_to_dense(problem, ss, sv))
+    n = S.shape[0]
+    L = stage("float64 factor", lambda: cov.cholesky64(S))
+    del S
+    bs = [stage("b_S (K4), all columns", lambda c=c: ops.b_schur(
+        cov.unit_column(problem.dim_x, int(c), gdt, problem.device)))
+        for c in cols]
+    Xp = stage("solve (48 right-hand sides)", lambda: torch.cholesky_solve(
+        torch.stack(bs, dim=1).to(L.dtype), L))
+    xs = [stage("back-substitution (K4) + compose, all columns",
+                lambda j=j, c=c: cov.schur_column(ops, int(c), Xp[:, j]))
+          for j, c in enumerate(cols)]
+    per_col = {s_: round(v / k, 4) for s_, v in stages.items()
+               if "all columns" in s_}
+    print(f"[covariance-venice] ({card_label()}) dim_p={n} dim_x="
+          f"{problem.dim_x} columns={k} first call {first_s:.2f} s (host "
+          f"plans) launches={ {k_: v for k_, v in launches.items() if v} }")
+    print(f"[covariance-venice] ({card_label()}) stage ms="
+          f"{ {s_: round(v, 4) for s_, v in stages.items()} } per column="
+          f"{per_col}; float64 factor bound="
+          f"{1e3 * n ** 3 / 3 / FP64_OPS_PER_S:.2f} ms (PERF.md: 49.46 ms "
+          f"for cholesky_ex + cholesky_solve at the same n); peak "
+          f"max_memory_allocated of joint_covariance={peak / 2**30:.3f} GiB")
+    check(bool(torch.isfinite(Xp).all()), "covariance: the factor failed")
+
+    # backward error of each column against the damped Hessian
+    damp = COV_DAMPING * lin.diag.clamp(DIAG_MIN, DIAG_MAX)
+    d_max = float((lin.diag + damp)[: problem.dim_h].max())
+    etas = []
+    for c, x in zip(cols, xs):
+        r = (hessian_matvec(problem, lin, x) + damp * x)[: problem.dim_h]
+        r = r.double()
+        r[int(c)] -= 1.0
+        etas.append(float(r.norm()) / (
+            d_max * float(x[: problem.dim_h].double().norm()) + 1.0))
+    print(f"[covariance-venice] ({card_label()}) backward error max="
+          f"{max(etas):.3e} median={statistics.median(etas):.3e} (bound "
+          f"{COV_BACKWARD_BOUND}, max diag(H_d)={d_max:.4g})")
+    check(max(etas) <= COV_BACKWARD_BOUND,
+          f"covariance: backward error {max(etas)} > {COV_BACKWARD_BOUND}")
+
+    # the selected entries as joint_covariance takes them
+    c_t = torch.as_tensor(cols, device=problem.device)
+    pose = torch.as_tensor(cols < n, device=problem.device)
+    raw = torch.stack([torch.where(
+        pose, Xp[:, j].index_select(0, c_t.clamp(max=n - 1)),
+        x.index_select(0, c_t).to(Xp.dtype)) for j, x in enumerate(xs)],
+        dim=1)
+    s = lin.scales.index_select(0, c_t).to(raw.dtype)
+    raw = raw * s[:, None] * s[None, :]
+    asym = max_rel(raw, raw.T)
+    staged = 0.5 * (raw + raw.T)
+    diag = torch.diagonal(joint)
+    print(f"[covariance-venice] ({card_label()}) staged run bitwise "
+          f"joint_covariance={torch.equal(joint, staged)} relative "
+          f"asymmetry={asym:.3e} (bound {COV_ASYMMETRY_BOUND}) diagonal "
+          f"min={float(diag.min()):.4g} max={float(diag.max()):.4g}")
+    check(torch.equal(joint, staged), "covariance: the public call differs "
+          "from the staged run")
+    check(asym <= COV_ASYMMETRY_BOUND, f"covariance: asymmetry {asym}")
+    check(bool((diag > 0).all()) and bool(torch.isfinite(joint).all()),
+          "covariance: a non-positive or non-finite diagonal")
+    return launches
+
+
+def phase_range_bearing():
+    """The range-bearing SLAM example at its default size (100 poses, 40
+    landmarks, 25 iterations: dim_p 297, K2) and at 500 poses, 200
+    landmarks, 10 iterations (dim_p 1,497: a dense S with ``run_pcg``), on
+    the card and on the CPU: the same accept pattern, chi2 within
+    1e-3."""
+    import contextlib
+    import io
+
+    from graphite_tpu_torch.examples import range_bearing_slam
+
+    total = {}
+    for size in ([], ["--poses", "500", "--landmarks", "200",
+                      "--iterations", "10"]):
+        tag = "range-bearing " + (" ".join(size) or "default")
+        with contextlib.redirect_stdout(io.StringIO()) as log:
+            t0 = time.perf_counter()
+            gpu, launches, _ = count_launches(
+                lambda: range_bearing_slam.main(size), record_events=False)
+            t_gpu = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cpu = range_bearing_slam.main(size + ["--device", "cpu"])
+            t_cpu = time.perf_counter() - t0
+        lines = log.getvalue().splitlines()
+        dev_ms = [h["device_ms"] for h in gpu.history[1:]]
+        print(f"[{tag}] {lines[0]}; card ({card_label()}) {t_gpu:.2f} s "
+              f"(ms per LM iteration, median of iterations 1..: "
+              f"{statistics.median(dev_ms):.3f}), CPU {t_cpu:.2f} s; "
+              f"launches={ {k: v for k, v in launches.items() if v} }")
+        compare_runs(tag, gpu, cpu)
+        check(gpu.chi2 < gpu.initial_chi2, f"{tag}: chi2 not lowered")
+        if not size:
+            check(launches["pcg_dense.dense_pcg"] > 0,
+                  "K2 never launched at the default size")
+        add_launches(total, launches)
+    return total
+
+
 # (kernel, source, {entry point: TPU kernel body it replaces})
 KERNELS = [
     ("K1", "graphite_tpu_torch/csrc/segsum.cu", {
@@ -2509,15 +3021,22 @@ def main():
         "venice", phase_venice_slice, problem, solver, 10)
     venice_graph_launches = timed("jit-venice", phase_jit_venice, problem,
                                   solver, 10, gpu)
+    first_order_venice, first_order_short = timed(
+        "first-order-venice", phase_first_order_venice, problem, 10, 2)
+    covariance_venice = timed("covariance-venice", phase_covariance_venice,
+                              problem)
     torch.cuda.empty_cache()
     direct_gpu, direct_venice_launches, venice_first = timed(
         "direct-venice", phase_direct_venice, problem, 10)
     del problem
     torch.cuda.empty_cache()
-    timed("venice-cpu", phase_venice_cpu, ds, params0, gpu, solver, 2,
-          direct_gpu)
+    cpu_problem = timed("venice-cpu", phase_venice_cpu, ds, params0, gpu,
+                        solver, 2, direct_gpu, 1)
+    timed("first-order-venice-cpu", phase_first_order_venice_cpu,
+          cpu_problem, first_order_short, 2)
+    del cpu_problem
     precision_venice = timed("precision-venice", phase_precision_venice, ds,
-                             solver, 10, 2, (gpu, venice_peak))
+                             solver, 10, 1, (gpu, venice_peak))
     del ds
     timed("forced", phase_forced, 10)
     direct_ladybug_launches, ladybug_firsts = timed(
@@ -2533,6 +3052,10 @@ def main():
     precision_ladybug = timed("precision-ladybug", phase_precision_ladybug,
                               10)
     precision_pose = timed("precision-sphere2500", phase_precision_pose)
+    first_order_ladybug = timed("first-order-ladybug",
+                                phase_first_order_ladybug, 30)
+    covariance_ladybug = timed("covariance-ladybug", phase_covariance_ladybug)
+    range_bearing = timed("range-bearing", phase_range_bearing)
 
     firsts = {**{f"ladybug {k}": v for k, v in ladybug_firsts.items()},
               **{f"ladybug full H {k}": v for k, v in full_h_firsts.items()},
@@ -2556,14 +3079,15 @@ def main():
                    "sphere2500-graph": pose_graph_launches,
                    "remask-graph": remask_launches,
                    "cli-jit": cli_jit_launches, **precision_ladybug,
-                   **precision_pose, **precision_venice})}))
+                   **precision_pose, **precision_venice,
+                   "first-order-ladybug-graph": first_order_ladybug,
+                   "first-order-venice-graph": first_order_venice,
+                   "covariance-ladybug": covariance_ladybug,
+                   "covariance-venice": covariance_venice,
+                   "range-bearing": range_bearing})}))
     print(f"[done] total seconds={time.perf_counter() - t_start:.1f}")
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
+    print(card_label())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -38,6 +38,27 @@ Every call takes any of the JAX package's six precision policies
 (``FP64_FP64``, ``FP64_FP32``, ``FP64_BF16``, ``FP32_FP32``, ``FP32_BF16``,
 ``FP32_FP16``; ``Precision.from_names("fp32", "bf16")``).
 
+Besides Levenberg-Marquardt (``levenberg_marquardt``,
+``levenberg_marquardt2``), ``optimizers`` has ``gradient_descent`` and
+``adam`` (each iteration captured once as a CUDA graph on the card and
+replayed); ``covariance`` recovers joint and marginal covariances through
+the dense or the Schur path; ``io.checkpoint`` saves and loads parameters
+as ``.npz`` files the JAX package reads too; the command-line examples
+are ``python -m graphite_tpu_torch.examples.bal``, ``.pose_graph``,
+``.circle`` and ``.range_bearing_slam``:
+
+    from graphite_tpu_torch.covariance import marginal_covariances
+    from graphite_tpu_torch.linearize import linearize
+    from graphite_tpu_torch.optimizers import (
+        GradientDescentOptions,
+        gradient_descent,
+    )
+
+    params, hist = gradient_descent(problem, options=GradientDescentOptions(
+        iterations=30, learning_rate=0.1))
+    sigma = marginal_covariances(problem, linearize(problem, params),
+                                 [("bal_camera", 0)], damping=1e-2)
+
 ``freeze()`` builds on the CUDA card unless asked for ``device="cpu"``.
 The Pallas TPU kernels become hand-written CUDA kernels
 (``graphite_tpu_torch/csrc``), built with nvcc at first use.

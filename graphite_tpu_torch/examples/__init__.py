@@ -1,3 +1,3 @@
 """Command-line entry points of the port: ``python -m
-graphite_tpu_torch.examples.bal`` and ``python -m
-graphite_tpu_torch.examples.pose_graph``."""
+graphite_tpu_torch.examples.bal``, ``.pose_graph``, ``.circle`` and
+``.range_bearing_slam``."""

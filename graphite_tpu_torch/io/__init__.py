@@ -1,3 +1,3 @@
-from . import bal, g2o, synthetic
+from . import bal, checkpoint, g2o, synthetic
 
-__all__ = ["bal", "g2o", "synthetic"]
+__all__ = ["bal", "checkpoint", "g2o", "synthetic"]

@@ -27,26 +27,35 @@ from . import device_loop
 
 
 def tree_sum(v: torch.Tensor) -> torch.Tensor:
-    """Sum of a vector in a fixed order, the same on every device: each
-    group of 32 consecutive entries (zero-padded) by a halving tree, as a
-    warp's shuffle-down reduction adds them, then the group sums the same
-    way, until one is left (at least two levels). Up to 1,024 entries this
-    is K2's ``block_sum`` order."""
+    """Sum of a vector (of each row of a matrix: over the last axis) in a
+    fixed order, the same on every device: each group of 32 consecutive
+    entries (zero-padded) by a halving tree, as a warp's shuffle-down
+    reduction adds them, then the group sums the same way, until one is
+    left (at least two levels). Up to 1,024 entries this is K2's
+    ``block_sum`` order."""
     levels = 0
-    while levels < 2 or v.shape[0] > 1:
-        w = v.new_zeros(-(-v.shape[0] // 32) * 32)
-        w[: v.shape[0]] = v
-        w = w.reshape(-1, 32)
+    while levels < 2 or v.shape[-1] > 1:
+        n = v.shape[-1]
+        w = v.new_zeros(v.shape[:-1] + (-(-n // 32) * 32,))
+        w[..., :n] = v
+        w = w.reshape(*v.shape[:-1], -1, 32)
         for o in (16, 8, 4, 2, 1):
-            w = w[:, :o] + w[:, o:2 * o]
-        v = w[:, 0]
+            w = w[..., :o] + w[..., o:2 * o]
+        v = w[..., 0]
         levels += 1
-    return v[0]
+    return v[..., 0]
 
 
 def tree_dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """u . v: the elementwise products summed by ``tree_sum``."""
     return tree_sum(u * v)
+
+
+def tree_matvec(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A x with each row's products summed by ``tree_sum``: the same bits
+    on every device (a BLAS matvec sums in an order of its own, which
+    differs between cuBLAS and the CPU's BLAS)."""
+    return tree_sum(A * x)
 
 
 def _halve32(v: torch.Tensor) -> torch.Tensor:

@@ -9,7 +9,9 @@ block-Jacobi-Schur, the whole PCG runs as one ``dense_pcg`` call (kernel K2
 on CUDA), as in the JAX package. Above ``dense_matvec_limit`` the PCG runs
 on the host loop with the block-sparse S matvec (``SchurOps.s_matvec``:
 kernel K5 on CUDA at BAL Venice scale); inside the device-controlled
-LM iteration it is ``run_pcg_fixed``, with no host read.
+LM iteration it is ``run_pcg_fixed``, with no host read. The other dense
+branch (above ``fused_pcg_limit``, another preconditioner, or a float64
+S) multiplies by S with ``tree_matvec``, in one order on every device.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from ..hessian import (
 )
 from ..linearize import Linearization
 from ..ops.cuda.pcg_dense import dense_pcg
-from ..ops.pcg_loop import pcg
+from ..ops.pcg_loop import pcg, tree_matvec
 from ..preconditioners.block_jacobi_schur import (
     BlockJacobiSchurPreconditioner,
     dense_preconditioner_matrix,
@@ -86,8 +88,8 @@ class PCGSchurSolver:
                                     rejection_ratio=self.rejection_ratio)
             else:
                 dx_p, _ = pcg(
-                    b_s, lambda p: (S @ p.to(S.dtype)).to(gdt), precond,
-                    self.max_iter, self.tol, self.rejection_ratio)
+                    b_s, lambda p: tree_matvec(S, p.to(S.dtype)).to(gdt),
+                    precond, self.max_iter, self.tol, self.rejection_ratio)
         dx_p = dx_p.to(gdt)
         dx_l_rows = ops.landmark_update(lin.b, dx_p)
         ok = torch.ones((), dtype=torch.bool, device=problem.device)

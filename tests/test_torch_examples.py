@@ -10,8 +10,21 @@
   graph CLIs);
 - the circle example: the free points land on radius 4.000000 (float64)
   and points 2 (deactivated factor) and 4 (fixed) keep their values;
-- a BAL ``save`` / ``load`` round trip.
+- a BAL ``save`` / ``load`` round trip;
+- the range-bearing SLAM example against the JAX package's
+  (``examples/range_bearing_slam.py``'s ``main``) at 30 poses, 12
+  landmarks, 12 iterations: as written (FP32_FP32), initial chi2 within
+  1e-5 and final chi2 within 1e-3; in float64 (both examples' FP32_FP32
+  swapped for FP64_FP64), the same accept pattern and chi2 per iteration
+  within 1e-9. (In float32 the last iterations sit at chi2's rounding floor,
+  where the JAX package's float32 sum of chi2 and the port's float64 sum
+  take different accept decisions.)
 """
+
+import os
+import runpy
+import sys
+import types
 
 import pytest
 import torch
@@ -22,6 +35,7 @@ import numpy as np
 from graphite_tpu_torch.examples import bal as bal_cli
 from graphite_tpu_torch.examples import circle as circle_cli
 from graphite_tpu_torch.examples import pose_graph as pose_cli
+from graphite_tpu_torch.examples import range_bearing_slam as rb_cli
 from graphite_tpu_torch.io import bal as bal_io
 from graphite_tpu_torch.io import g2o, synthetic
 from graphite_tpu_torch.optimizers import (
@@ -187,3 +201,62 @@ def test_bal_save_load_roundtrip(tmp_path):
                   "point_idx"):
         np.testing.assert_array_equal(getattr(back, field),
                                       getattr(ds, field))
+
+
+RB_ARGS = ["--poses", "30", "--landmarks", "12", "--iterations", "12"]
+
+
+def _jax_range_bearing(fp64):
+    """The JAX package's example ``main`` on ``RB_ARGS`` (in float64 when
+    ``fp64``)."""
+    import graphite_tpu as gt
+
+    path = os.path.join(os.path.dirname(__file__), "..", "examples",
+                        "range_bearing_slam.py")
+    main = runpy.run_path(path)["main"]
+    if fp64:  # a fresh module namespace: nothing to restore
+        main.__globals__["gt"] = types.SimpleNamespace(
+            **{**vars(gt), "FP32_FP32": gt.FP64_FP64})
+    old = sys.argv
+    sys.argv = [path] + RB_ARGS
+    try:
+        return main()
+    finally:
+        sys.argv = old
+
+
+@pytest.mark.parametrize("fp64", [False, True], ids=["fp32", "fp64"])
+def test_range_bearing_matches_jax(fp64, capsys, monkeypatch):
+    if fp64:
+        monkeypatch.setattr(rb_cli, "gtt", types.SimpleNamespace(
+            **{**vars(gtt), "FP32_FP32": gtt.FP64_FP64}))
+    out = rb_cli.main(RB_ARGS + ["--device", "cpu"])
+    assert out.params["se2_pose"].dtype == (
+        torch.float64 if fp64 else torch.float32)
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0] == ("30 poses, 12 landmarks, 77 range-bearing "
+                        "observations, 29 odometry edges")
+    assert lines[-3].startswith("optimized in ")
+    assert lines[-2].startswith("pose position RMSE: ")
+    assert lines[-1].startswith("landmark RMSE: ")
+    ref = _jax_range_bearing(fp64)
+    assert out.chi2 < 0.05 * out.initial_chi2
+    if fp64:
+        assert [h["accepted"] for h in out.history] == [
+            h["accepted"] for h in ref.history]
+        np.testing.assert_allclose([h["chi2"] for h in out.history],
+                                   [h["chi2"] for h in ref.history],
+                                   rtol=1e-9)
+    np.testing.assert_allclose(out.initial_chi2, ref.initial_chi2, rtol=1e-5)
+    np.testing.assert_allclose(out.chi2, ref.chi2, rtol=1e-3)
+
+
+def test_range_bearing_same_data_as_jax():
+    """``simulate`` is the JAX example's, so a seed gives the same data."""
+    path = os.path.join(os.path.dirname(__file__), "..", "examples",
+                        "range_bearing_slam.py")
+    ref = runpy.run_path(path)["simulate"](30, 12, seed=3)
+    out = rb_cli.simulate(30, 12, seed=3)
+    for a, b in zip(out, ref):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    assert rb_cli.parse_args([]).device == "cuda"

@@ -54,6 +54,12 @@ on a machine with only PyTorch (``--noconftest`` skips the JAX set-up in
   and matches a fresh remaskable freeze bitwise; a kernel wrapper raises
   when ``record_events`` is set during a capture; ``profile_dir`` writes
   a trace holding the card's kernels, captured loop or not.
+- Gradient descent and Adam on a small BAL, captured as a CUDA graph:
+  bitwise the CPU run (history and final parameters), K1 in the graph.
+- Covariance's Schur path on the card against the CPU within 1e-9 of the
+  largest entry (float64 factors: not bitwise); ``checkpoint.load``
+  lands on the card by default; the range-bearing example on the card
+  bitwise the CPU run (K2 on its 3x3 SE2 pose blocks, n = 87).
 """
 
 import dataclasses
@@ -163,6 +169,7 @@ def test_k1_matches_plain(cuda_device, k, ns, d, sorted_dst):
 
 @pytest.mark.parametrize("n,d,max_iter,tol", [
     (90, 9, 10, 1.0), (441, 9, 10, 1.0), (1024, 8, 10, 1e-12),
+    (297, 3, 30, 1e-8),
 ])
 def test_k2_matches_plain_bitwise(cuda_device, n, d, max_iter, tol):
     rng = np.random.default_rng(n)
@@ -852,3 +859,80 @@ def test_profile_dir_records_the_card(cuda_device, tmp_path, jit_loop):
         events = json.load(f)["traceEvents"]
     names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
     assert any("segsum" in n for n in names), sorted(names)[:20]
+
+
+@pytest.mark.parametrize("name", ["gd", "adam"])
+def test_first_order_captured_equals_cpu(cuda_device, name):
+    from graphite_tpu_torch.optimizers import (
+        AdamOptions,
+        GradientDescentOptions,
+        adam,
+        gradient_descent,
+    )
+
+    if name == "gd":
+        run = gradient_descent
+        opts = GradientDescentOptions(iterations=12, learning_rate=0.1)
+        key = ("gd", 0.1, 12)
+    else:
+        run = adam
+        opts = AdamOptions(iterations=12, learning_rate=0.3)
+        key = ("adam", 0.3, 0.9, 0.999, 1e-8, 12)
+    problem = _small_bal(cuda_device)
+    pf, hist = run(problem, options=opts)
+    again, hist2 = run(problem, options=opts)
+    loop = problem._cache[key]
+    assert loop.capture is not None and loop.replays == 24
+    assert loop.capture_launches.get("segsum_stream.streaming_segment_sum")
+    cpu_pf, cpu_hist = run(_small_bal("cpu"), options=opts)
+    assert torch.equal(hist.cpu(), cpu_hist)
+    assert torch.equal(hist2, hist)
+    for n, p in cpu_pf.items():
+        assert torch.equal(pf[n].cpu(), p)
+        assert torch.equal(again[n], pf[n])
+
+
+def test_covariance_schur_cuda_matches_cpu(cuda_device):
+    from graphite_tpu_torch.covariance import joint_covariance
+
+    targets = [("bal_camera", 0), ("bal_camera", 5), ("bal_point", 12),
+               ("bal_point", 70)]
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        problem = _small_bal(dev)
+        lin = linearize(problem, problem.params0)
+        out[str(dev)] = joint_covariance(problem, lin, targets,
+                                         method="schur", damping=1e-2)
+    gpu, cpu = out[str(cuda_device)].cpu(), out["cpu"]
+    assert gpu.dtype == torch.float64 and gpu.shape == (24, 24)
+    assert float((gpu - cpu).abs().max()) <= 1e-9 * float(cpu.abs().max())
+    assert bool((torch.diagonal(gpu) > 0).all())
+
+
+def test_checkpoint_load_defaults_to_the_card(cuda_device, tmp_path):
+    from graphite_tpu_torch.io import checkpoint
+
+    problem = _small_bal("cpu")
+    path = str(tmp_path / "ckpt.npz")
+    checkpoint.save(path, problem.params0, iteration=2)
+    params, extra = checkpoint.load(path)
+    for n, p in problem.params0.items():
+        assert params[n].device.type == "cuda"
+        assert torch.equal(params[n].cpu(), p)
+    assert int(extra["iteration"]) == 2
+
+
+def test_range_bearing_example_cuda_equals_cpu(cuda_device):
+    from graphite_tpu_torch.examples import range_bearing_slam
+
+    argv = ["--poses", "30", "--landmarks", "12", "--iterations", "12"]
+    pcg_dense.STATS.reset()
+    gpu = range_bearing_slam.main(argv)
+    assert pcg_dense.STATS.launches > 0
+    cpu = range_bearing_slam.main(argv + ["--device", "cpu"])
+    assert [h["accepted"] for h in gpu.history] == [
+        h["accepted"] for h in cpu.history]
+    assert [h["chi2"] for h in gpu.history] == [
+        h["chi2"] for h in cpu.history]
+    for n, p in cpu.params.items():
+        assert torch.equal(gpu.params[n].cpu(), p)

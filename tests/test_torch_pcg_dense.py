@@ -8,6 +8,10 @@
   summed per CTA, then the shared tree (``tree_sum_chunked(..., 32)``),
   is bitwise ``tree_sum`` at every cluster size, on inputs with -0.0 and
   with cancellation; and ``cluster_size``.
+- ``tree_matvec`` (the dense-S matvec of ``PCGSchurSolver`` above
+  ``fused_pcg_limit``): each row bitwise ``tree_sum`` of its products
+  (n = 297, 1,497: groups with a padded tail), within float32 rounding of
+  ``A @ x``.
 
 The kernel itself is tested on the card by ``test_torch_gpu.py``.
 """
@@ -26,6 +30,7 @@ from graphite_tpu_torch.ops.pcg_loop import (
     run_pcg,
     tree_dot,
     tree_sum,
+    tree_matvec,
     tree_sum_chunked,
 )
 from test_torch_pcg_mf import signed_zeros_and_cancellation
@@ -138,6 +143,20 @@ def test_group_split_sum_is_tree_sum(N, ctas):
     for w in (v, -v.abs(), torch.full((N,), -0.0)):
         got, ref = tree_sum_chunked(w, ctas, chunk=32), tree_sum(w)
         assert got.view(torch.int32) == ref.view(torch.int32)
+
+
+@pytest.mark.parametrize("n", [297, 1_497])
+def test_tree_matvec_rows_are_tree_sums(n):
+    rng = np.random.default_rng(n)
+    A = torch.as_tensor(rng.standard_normal((n, n)).astype(np.float32))
+    x = torch.as_tensor(rng.standard_normal(n).astype(np.float32))
+    y = tree_matvec(A, x)
+    assert y.shape == (n,) and y.dtype == torch.float32
+    for i in (0, 1, n // 2, n - 1):
+        assert y[i].view(torch.int32) == tree_sum(A[i] * x).view(torch.int32)
+    ref = A.double() @ x.double()
+    assert float((y.double() - ref).abs().max()) <= 1e-5 * float(
+        (A.double().abs() @ x.double().abs()).max())
 
 
 def test_cluster_size():
