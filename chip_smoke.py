@@ -59,8 +59,10 @@ own:
    on the card (the block-sparse branch): final chi2 below the initial
    one, finite parameters, K1, K3, K4 and K5 launched, the S matvec kernel
    once per CG matvec; ms per iteration, kernel times, peak memory;
-8. Venice-1778 on the CPU for 2 LM iterations: the accept pattern equal to
-   the card's and chi2 within 1e-3 per iteration;
+8. Venice-1778 on the CPU for 2 LM iterations, on the card problem's copy
+   (``Problem.to("cpu")``: the same tensors and host structures, nothing
+   frozen or built again): the accept pattern equal to the card's and
+   chi2 within 1e-3 per iteration;
 9. Ladybug-49 with the Venice branches forced (``dense_matvec_limit=0``,
    the Schur gates lowered), 10 iterations on the card and on the CPU:
    accept patterns equal, chi2 within 1e-3, K3, K4 and K5 launched, with
@@ -99,7 +101,7 @@ step) and peak memory:
     and K1 vs its plain version at the largest of each;
 13. ``direct-venice`` (run after phase 7, on its problem):
     SparseDirectSchurSolver() (dense S at dim_p 16,002 on the card), 10
-    iterations; phase 8 takes the CPU's step from its first state;
+    iterations; phase 8 takes the CPU's step from its first 2 states;
 14. ``cli``: ``graphite_tpu_torch.examples.bal.main`` for its six solvers
     at ``--synthetic ladybug --iterations 3`` and
     ``examples.pose_graph.main`` for its three at ``--poses 500
@@ -170,8 +172,10 @@ LM iteration, peak memory and every kernel's launches:
     iterations; card vs CPU, unit quaternions;
 23. ``precision-venice`` (after phase 8): Venice-1778 under FP32_BF16 at
     full size, 10 iterations on the card (K1, K3, K4 and K5 launched)
-    and 1 on the CPU; ms per iteration and peak memory beside phase 7's
-    FP32_FP32 run, and the stored Jacobians' bytes.
+    and 2 on the CPU (the card problem's copy); ms per iteration and peak
+    memory beside phase 7's FP32_FP32 run, and the stored Jacobians'
+    bytes. Its Hessian and Schur structures are phase 5's (topology only:
+    the block offsets and factor ids are checked equal), not built again.
 
 Gradient descent, Adam, covariance and the range-bearing example. Each
 phase prints its numbers beside the card's name and power limit
@@ -213,6 +217,38 @@ phase prints its numbers beside the card's name and power limit
     on the card and on the CPU: the same accept pattern, chi2 within
     1e-3; launches.
 
+Factor-parallel sharding (``graphite_tpu_torch.parallel``: each rank a
+slice of the factors, the cross-factor sums all-reduced in rank order, the
+Schur triple products split by destination range on K3's gathered-stream
+entry):
+
+S1. ``shard-venice-w1`` (after phase 7, on its problem): ``sharded_lm`` at
+    world size 1 over NCCL, 10 iterations: bitwise phase 7's host loop
+    (accept pattern, chi2, final parameters); then phase 7's run for 3
+    iterations from its parameters moved by one ulp, printed beside phase
+    7's chi2 (how far a rounding-level change takes float32 Venice
+    trajectories apart, the measure for S2's free-running chi2);
+S2. ``shard-venice-w2`` (after phase 26): two ranks in two spawned
+    processes on cuda:0 over gloo (NCCL refuses two ranks on one card),
+    Venice-1778 (5,001,946 observations: ``pad_factors_to=2`` adds none)
+    taken frozen, host structures included, from this process, 3
+    iterations, twice (the second run bitwise the first): the accept
+    pattern of phase 7's first 3 iterations; rank 0 takes the unsharded
+    step on the card from each state of the sharded run (the same accept
+    decision, chi2 within 1e-3: independent float32 runs part, see
+    PERF.md); the ranks' traces and parameters bitwise equal; K3's
+    gathered-stream entry once per rank per iteration, its rtbl entry
+    never, K1 at every rank-local reduction; rank 0's K3 at its own slice
+    bitwise its plain version on the CPU (within 1e-5 of the card's, whose
+    ``index_add_`` adds in no fixed order); ms per iteration, the
+    collectives' share (gloo moves them through the host), each rank's
+    device ms outside the collectives and its kernels' ms, each rank's
+    peak memory;
+S3. ``shard-ladybug-w2`` (in the same ranks): Ladybug-49 with the Venice
+    branches forced, 10 iterations on the card against the same ranks on
+    the CPU: bitwise equal trajectories and parameters, K3's gathered
+    entry launched.
+
 A captured path's launches in the kernels JSON line are its capture's
 count times its replays (``remask`` sums its three graphs: the remasked
 problem's, the fresh freeze's and LM2's; ``cli-jit`` counts each CLI's
@@ -240,6 +276,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 import warnings
 
 VENICE = "venice-big"  # make_bal size name of BAL Venice-1778
@@ -493,7 +530,7 @@ def k1_library(vals, seg, num_segments):
         device=vals.device).index_add_(0, seg, vals)
 
 
-def ladybug_problem(device, policy="FP32_FP32"):
+def ladybug_problem(device, policy="FP32_FP32", pad_factors_to=1):
     """Ladybug-49 (``make_bal("ladybug", seed=0)``) under the precision
     policy named ``policy``, frozen on ``device``."""
     import torch
@@ -503,7 +540,8 @@ def ladybug_problem(device, policy="FP32_FP32"):
 
     g, *_ = bal.build_graph(synthetic.make_bal("ladybug", seed=0),
                             precision=getattr(gtt, policy))
-    return g.freeze(device=torch.device(device))
+    return g.freeze(device=torch.device(device),
+                    pad_factors_to=pad_factors_to)
 
 
 def first_schur_system(problem, solver, mu):
@@ -945,21 +983,15 @@ def phase_venice_setup():
     )
     from graphite_tpu_torch.io import bal, synthetic
     from graphite_tpu_torch.linearize import linearize
+    from graphite_tpu_torch.perf import SectionTimer
     from graphite_tpu_torch.schur import (
         SchurOps,
         build_schur_structure,
         schur_values,
     )
 
-    secs = {}
-    t = time.perf_counter()
-
-    def lap(name):
-        nonlocal t
-        now = time.perf_counter()
-        secs[name] = round(now - t, 3)
-        t = now
-
+    timer = SectionTimer("venice")
+    lap = timer.lap
     ds = synthetic.make_bal(VENICE, seed=0)
     lap("make_bal")
     g, *_ = bal.build_graph(ds, precision=FP32_FP32)
@@ -989,6 +1021,7 @@ def phase_venice_setup():
           f"s_blocks={ss.s_sizes} "
           f"products={[(g['dims'], g['dst'].shape[0]) for g in ss.products]} "
           f"hpl_blocks={ {k: v.shape[0] for k, v in ss.hpl_pose.items()} }")
+    secs = {name: round(sec, 3) for name, sec in timer.laps}
     print(f"[venice] host set-up seconds {secs} "
           f"total={sum(secs.values()):.1f}")
     check(sizes == synthetic.BAL_SIZES[VENICE], f"Venice sizes {sizes}")
@@ -1366,26 +1399,20 @@ def phase_venice_slice(problem, solver, iterations):
     return gpu, launches, peak
 
 
-def phase_venice_cpu(ds, params0, gpu, solver, iterations, direct_gpu,
+def phase_venice_cpu(problem, gpu, solver, iterations, direct_gpu,
                      direct_steps):
-    """The CPU run starts from the card run's parameters (``params0``,
-    NumPy, handed over by ``interop``): PCG-Schur for ``iterations``; then
-    the sparse direct Schur solver's (dense S) first ``direct_steps``
-    steps from the card direct run's states (``compare_lockstep``).
-    Returns the CPU problem."""
-    from graphite_tpu_torch import FP32_FP32
-    from graphite_tpu_torch.interop import params_from_numpy
-    from graphite_tpu_torch.io import bal
+    """On ``problem``, the card problem's copy on the CPU (``Problem.to``:
+    the same tensors and host structures, no freeze or structure built
+    again): PCG-Schur for ``iterations``; then the sparse direct Schur
+    solver's (dense S) first ``direct_steps`` steps from the card direct
+    run's states (``compare_lockstep``)."""
     from graphite_tpu_torch.solvers import SparseDirectSchurSolver
 
-    g, *_ = bal.build_graph(ds, precision=FP32_FP32)
-    problem = g.freeze(device="cpu")
-    cpu = run_lm(problem, solver, iterations, params_from_numpy(params0))
+    cpu = run_lm(problem, solver, iterations)
     compare_runs("venice-cpu", gpu, cpu)
     direct_run, states = direct_gpu
     compare_lockstep("direct-venice-cpu", direct_run, states[:direct_steps],
                      problem, SparseDirectSchurSolver())
-    return problem
 
 
 def phase_forced(iterations):
@@ -1459,15 +1486,16 @@ def compare_lockstep(tag, gpu, states, cpu_problem, solver):
     t1 = time.perf_counter()
     counted = Recorded(solver)
     gdt = cpu_problem.precision.graph_dtype
+    dev = cpu_problem.device
     steps = []
     for (params, mu), h in zip(states, gpu.history):
-        params = {k: v.cpu() for k, v in params.items()}
-        chi2 = torch.tensor(h["chi2_before"], dtype=gdt)
+        params = {k: v.to(dev) for k, v in params.items()}
+        chi2 = torch.tensor(h["chi2_before"], dtype=gdt, device=dev)
         lin = linearize(cpu_problem, params)
         accept, _, new_chi2, _ = lm_step(
             cpu_problem, counted, lin, counted.prepare(cpu_problem, lin,
                                                        params),
-            params, mu.cpu(), chi2, False)
+            params, mu.to(dev), chi2, False)
         steps.append((accept, float(new_chi2 if accept else chi2)))
     n = len(steps)
     acc_gpu = [h["accepted"] for h in gpu.history[:n]]
@@ -1475,11 +1503,11 @@ def compare_lockstep(tag, gpu, states, cpu_problem, solver):
     acc_cpu = [a for a, _ in steps]
     chi_cpu = [c for _, c in steps]
     rel = [abs(a - b) / abs(b) for a, b in zip(chi_gpu, chi_cpu)]
-    print(f"[{tag}] cpu steps from the card's states: "
+    print(f"[{tag}] {dev.type} steps from the run's states: "
           f"{time.perf_counter() - t1:.1f} s, failed_solves="
           f"{counted.failed()}")
-    print(f"[{tag}] cuda chi2={chi_gpu} accepted={acc_gpu}")
-    print(f"[{tag}] cpu  chi2={chi_cpu} accepted={acc_cpu}")
+    print(f"[{tag}] run chi2={chi_gpu} accepted={acc_gpu}")
+    print(f"[{tag}] {dev.type} steps chi2={chi_cpu} accepted={acc_cpu}")
     print(f"[{tag}] max per-step chi2 rel diff={max(rel):.3e} "
           f"bitwise_equal_steps={chi_gpu == chi_cpu}")
     check(acc_gpu == acc_cpu, f"{tag}: accept decisions differ")
@@ -2376,10 +2404,15 @@ def phase_precision_pose():
     return out
 
 
-def phase_precision_venice(ds, solver, iterations, cpu_iters, fp32):
+def phase_precision_venice(ds, solver, iterations, cpu_iters, fp32,
+                           structures):
     """Venice-1778 under FP32_BF16 at full size: ``iterations`` LM
-    iterations on the card, ``cpu_iters`` on the CPU; ms per iteration and
-    peak memory beside FP32_FP32's (``fp32``: phase 7's run and peak)."""
+    iterations on the card, ``cpu_iters`` on the CPU (on the card
+    problem's copy, ``Problem.to``); ms per iteration and peak memory
+    beside FP32_FP32's (``fp32``: phase 7's run and peak). The Hessian and
+    Schur structures are topology only: ``structures``, phase 5's, are
+    reused, not built again."""
+    import numpy as np
     import torch
 
     from graphite_tpu_torch import FP32_BF16
@@ -2389,6 +2422,11 @@ def phase_precision_venice(ds, solver, iterations, cpu_iters, fp32):
     t0 = time.perf_counter()
     g, *_ = bal.build_graph(ds, precision=FP32_BF16)
     problem = g.freeze(device=torch.device(DEVICE))
+    src_offsets, src_ids = structures.pop("topology")
+    check(np.array_equal(problem.block_offsets, src_offsets)
+          and all(np.array_equal(problem.host.factor_ids[n], src_ids[n])
+                  for n in src_ids), f"{tag}: topology differs from phase 5")
+    problem._cache.update(structures)
     print(f"[{tag}] host set-up seconds={time.perf_counter() - t0:.1f}")
     torch.cuda.reset_peak_memory_stats()
     gpu, launches, kernel_ms = count_launches(
@@ -2400,6 +2438,7 @@ def phase_precision_venice(ds, solver, iterations, cpu_iters, fp32):
         fm.count * fm.ftype.residual_dim
         * sum(vt.dim for vt in fm.ftype.vertex_types)
         for fm in problem.factor_meta.values())
+    cpu_problem = problem.to("cpu")
     del problem
     torch.cuda.empty_cache()
     fp32_run, fp32_peak = fp32
@@ -2427,8 +2466,7 @@ def phase_precision_venice(ds, solver, iterations, cpu_iters, fp32):
             "segsum_stream.streaming_segment_product_sum_rtbl",
             "segmv.block_matvec_wtbl", "segsum_stream.streaming_matvec_tbl",
             "segmv.matvec_sym_stream")})
-    g, *_ = bal.build_graph(ds, precision=FP32_BF16)
-    cpu = run_lm(g.freeze(device="cpu"), solver, cpu_iters)
+    cpu = run_lm(cpu_problem, solver, cpu_iters)
     bitwise = compare_runs(tag, gpu, cpu)
     print(f"[{tag}] {cpu_iters} CPU iterations bitwise the card's: "
           f"{bitwise}")
@@ -2906,6 +2944,355 @@ def phase_range_bearing():
     return total
 
 
+# ---- factor-parallel sharding (graphite_tpu_torch/parallel) --------------
+
+def lm_options(iterations):
+    from graphite_tpu_torch.optimizers import LevenbergMarquardtOptions
+
+    return LevenbergMarquardtOptions(iterations=iterations)
+
+
+def same_params(a, b):
+    import torch
+
+    return a.keys() == b.keys() and all(
+        torch.equal(torch.as_tensor(a[k]).cpu(), torch.as_tensor(b[k]).cpu())
+        for k in a)
+
+
+def phase_shard_w1(problem, solver, iterations, host):
+    """S1: ``sharded_lm`` at world size 1 over NCCL on phase 7's problem
+    (``freeze(pad_factors_to=1)`` is that problem), bitwise phase 7's host
+    loop ``host``: accept pattern, chi2, final parameters."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from graphite_tpu_torch.parallel import make_mesh, sharded_lm
+
+    tag = "shard-venice-w1"
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rv",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_mesh(device=problem.device)
+            # the communicator is set up at the first collective
+            mesh.allreduce(problem.params0[next(iter(problem.params0))])
+            t0 = time.perf_counter()
+            (params, chi2, k, accepted, trace), launches, kernel_ms = (
+                count_launches(lambda: sharded_lm(
+                    problem, mesh, solver, lm_options(iterations),
+                    with_trace=True)))
+            seconds = time.perf_counter() - t0
+        finally:
+            dist.destroy_process_group()
+    trace = trace.tolist()
+    chi_host = [h["chi2"] for h in host.history]
+    acc_host = [h["accepted"] for h in host.history]
+    print(f"[{tag}] {mesh.backend} world={mesh.world} chi2="
+          f"{[t[0] for t in trace]} accepted={[bool(t[3]) for t in trace]} "
+          f"({seconds / iterations * 1e3:.3f} ms per iteration, host clock, "
+          f"its first linearization included; phase 7: "
+          f"{sum(h['time'] for h in host.history) / iterations * 1e3:.3f})")
+    print_launches(tag, launches, kernel_ms)
+    check(k == len(host.history) and [t[0] for t in trace] == chi_host,
+          f"{tag}: chi2 is not phase 7's bit for bit")
+    check([bool(t[3]) for t in trace] == acc_host,
+          f"{tag}: accept pattern differs from phase 7's")
+    check(same_params(params, host.params),
+          f"{tag}: final parameters differ from phase 7's")
+    print(f"[{tag}] bitwise phase 7's host loop: accept pattern, chi2 and "
+          f"final parameters")
+    order_witness(problem, solver, 3, host)
+    return launches
+
+
+def order_witness(problem, solver, iterations, host):
+    """Phase 7's unsharded run again from its parameters moved by one
+    float32 ulp (``nextafter`` up): how far a rounding-level change alone
+    takes free-running float32 Venice trajectories apart (the measure for
+    S2's free-running chi2 against phase 7). Printed, not checked."""
+    import torch
+
+    nudged = {n: torch.nextafter(v, torch.full_like(v, float("inf")))
+              for n, v in problem.params0.items()}
+    run = run_lm(problem, solver, iterations, params=nudged)
+    chi = [h["chi2"] for h in run.history]
+    chi_host = [h["chi2"] for h in host.history[:iterations]]
+    rel = [abs(a - b) / abs(b) for a, b in zip(chi, chi_host)]
+    print(f"[order-witness] unsharded from phase 7's parameters + 1 ulp: "
+          f"initial_chi2={run.initial_chi2!r} chi2={chi} accepted="
+          f"{[h['accepted'] for h in run.history]} (phase 7: {chi_host}); "
+          f"rel diff per iteration={[f'{x:.3e}' for x in rel]}")
+
+
+def collective_timer():
+    """Wraps ``torch.distributed.all_reduce`` (the one collective the
+    sharded path calls) with CUDA events on the current stream, or the
+    host clock for CPU tensors: ``ms()`` the total since the last
+    ``reset()``, ``calls`` and ``bytes``."""
+    import torch
+    import torch.distributed as dist
+
+    inner = dist.all_reduce
+
+    class Timer:
+        def __init__(self):
+            self.reset()
+
+        def reset(self):
+            self.events, self.host_s, self.calls, self.bytes = [], 0.0, 0, 0
+
+        def __call__(self, tensor, *args, **kwargs):
+            self.calls += 1
+            self.bytes += tensor.numel() * tensor.element_size()
+            if tensor.is_cuda:
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                out = inner(tensor, *args, **kwargs)
+                b.record()
+                self.events.append((a, b))
+                return out
+            t0 = time.perf_counter()
+            out = inner(tensor, *args, **kwargs)
+            self.host_s += time.perf_counter() - t0
+            return out
+
+        def ms(self):
+            torch.cuda.synchronize()
+            return (sum(a.elapsed_time(b) for a, b in self.events)
+                    + 1e3 * self.host_s)
+
+    timer = Timer()
+    dist.all_reduce = timer
+    return timer
+
+
+def shard_rank(mesh, venice, ladybug, iterations, initial_chi2):
+    """One rank of S2 and S3 (spawned by ``phase_shard_w2``, gloo on
+    cuda:0): Venice-1778 under ``sharded_lm`` twice (its launches counted
+    in the first run, the collectives timed in the second), rank 0 also
+    holding K3's gathered-stream entry at its own slice against its plain
+    version; then Ladybug-49 with the Venice branches forced, on the card
+    and on the CPU (both over the same gloo group)."""
+    import dataclasses
+
+    import torch
+
+    from graphite_tpu_torch import schur
+    from graphite_tpu_torch.ops.cuda import segsum_stream
+    from graphite_tpu_torch.parallel import sharded_lm
+    from graphite_tpu_torch.solvers import PCGSchurSolver
+
+    out = dict(rank=mesh.rank)
+    solver = Recorded(PCGSchurSolver(10, 1.0, 5.0))
+    timer = collective_timer()
+    slices = []
+    kernel = schur.streaming_segment_product_sum
+
+    def kept(*args):  # the rank's first K3 call: its own inputs
+        if not slices:
+            slices.append(args)
+        return kernel(*args)
+
+    torch.cuda.reset_peak_memory_stats()
+    schur.streaming_segment_product_sum = kept
+    try:
+        t0 = time.perf_counter()
+        (params, chi2, k, acc, trace), launches, kernel_ms = count_launches(
+            lambda: sharded_lm(venice, mesh, solver, lm_options(iterations),
+                               with_trace=True))
+        out["first_s"] = time.perf_counter() - t0
+    finally:
+        schur.streaming_segment_product_sum = kernel
+    out["kernel_ms"] = sum(kernel_ms.values())
+    timer.reset()
+    states = solver.states[:iterations]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    params2, _, _, _, trace2 = sharded_lm(venice, mesh, solver.solver,
+                                          lm_options(iterations),
+                                          with_trace=True)
+    end.record()
+    torch.cuda.synchronize()
+    out["second_ms"] = 1e3 * (time.perf_counter() - t0)
+    out["second_device_ms"] = start.elapsed_time(end)
+    out["collective_ms"] = timer.ms()
+    out["collective_calls"] = timer.calls
+    out["collective_mb"] = timer.bytes / 1e6
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["launches"] = launches
+    out["trace"] = trace.tolist()
+    out["params"] = {n: v.cpu().numpy() for n, v in params.items()}
+    out["repeat_bitwise"] = (trace.tolist() == trace2.tolist()
+                             and same_params(params, params2))
+    del params2
+    if mesh.rank == 0:
+        Wg, Rg, plan, m, kk, n = slices[0]
+        cplan = segsum_stream.plan_products(
+            plan.segments.seg.cpu().numpy(), plan.num_segments, "cpu")
+        cWg, cRg = Wg.cpu(), Rg.cpu()
+        label = (f"rank 0 of 2: {plan.rows}x({m},{kk},{n})->"
+                 f"{plan.num_segments}, segments by lanes "
+                 f"{product_lanes_label(plan)}, gathered streams")
+        card_plain = segsum_stream.segment_product_sum_plain(
+            Wg, Rg, plan, m, kk, n)
+        out["k3_vs_card_plain_bitwise"] = torch.equal(
+            segsum_stream.streaming_segment_product_sum(Wg, Rg, plan, m, kk,
+                                                        n), card_plain)
+        del card_plain
+        out["k3"] = measure(
+            "shard-k3", label,
+            lambda: segsum_stream.streaming_segment_product_sum(
+                Wg, Rg, plan, m, kk, n),
+            lambda: segsum_stream.segment_product_sum_plain(
+                Wg, Rg, plan, m, kk, n),
+            lambda: segsum_stream.segment_product_sum_plain(
+                cWg, cRg, cplan, m, kk, n), 5, 2,
+            bound(nbytes(Wg, Rg, plan.segments.offsets_i32)
+                  + 4 * plan.num_segments * m * n,
+                  2 * plan.rows * m * kk * n))
+        del cWg, cRg, Wg, Rg
+        slices.clear()
+        torch.cuda.empty_cache()
+        # the unsharded step from each state of the sharded run
+        chi_before = [initial_chi2] + [t[0] for t in out["trace"][:-1]]
+        run = types.SimpleNamespace(history=[
+            dict(chi2_before=c, chi2=t[0], accepted=bool(t[3]))
+            for c, t in zip(chi_before, out["trace"])])
+        compare_lockstep("shard-venice-w2 lockstep", run, states,
+                         venice.to(mesh.device), solver.solver)
+    del slices, states
+    torch.cuda.empty_cache()
+
+    # S3: Ladybug-49, the Venice branches forced, card vs CPU
+    gates = schur.CHUNK_THRESHOLD, schur._smv_chunk_rows
+    schur.CHUNK_THRESHOLD, schur._smv_chunk_rows = 0, (lambda rb: 0)
+    forced = PCGSchurSolver(10, 1.0, 5.0, dense_matvec_limit=0)
+    try:
+        runs = {}
+        for where, m in (("cuda", mesh),
+                         ("cpu", dataclasses.replace(
+                             mesh, device=torch.device("cpu")))):
+            (p, c, kl, a, tr), lau, _ = count_launches(
+                lambda m=m: sharded_lm(ladybug, m, forced, lm_options(10),
+                                       with_trace=True),
+                record_events=False)
+            runs[where] = dict(trace=tr.tolist(), launches=lau,
+                               params={n: v.cpu() for n, v in p.items()})
+    finally:
+        schur.CHUNK_THRESHOLD, schur._smv_chunk_rows = gates
+    out["ladybug"] = dict(
+        trace=runs["cuda"]["trace"], cpu_trace=runs["cpu"]["trace"],
+        launches=runs["cuda"]["launches"],
+        params_bitwise=same_params(runs["cuda"]["params"],
+                                   runs["cpu"]["params"]))
+    return out
+
+
+def phase_shard_w2(cpu_problem, host, iterations):
+    """S2 and S3 on two ranks in two processes on cuda:0 over gloo (NCCL
+    refuses two ranks on one card). The ranks take the frozen Venice
+    problem, its host structures included, from this process: no
+    ``make_bal``, freeze or structure is built again. Returns the ranks'
+    launches (summed) of both paths and rank 0's K3 record."""
+    import numpy as np
+
+    import torch
+
+    from graphite_tpu_torch.parallel import run_ranks
+
+    tag = "shard-venice-w2"
+    venice = cpu_problem.to("cpu")  # its host structures, no plans
+    for name, fm in venice.factor_meta.items():
+        check(fm.count % 2 == 0, f"{tag}: {name} has an odd factor count")
+    ladybug = ladybug_problem("cpu", pad_factors_to=2)
+    t0 = time.perf_counter()
+    ranks = run_ranks(shard_rank, 2, "gloo", venice, ladybug, iterations,
+                      host.initial_chi2, device=torch.device("cuda", 0))
+    seconds = time.perf_counter() - t0
+    print(f"[{tag}] 2 ranks (gloo on cuda:0; the ranks load the frozen "
+          f"problem from this process): {seconds:.1f} s")
+    r0, r1 = ranks
+    acc_host = [h["accepted"] for h in host.history[:iterations]]
+    chi_host = [h["chi2"] for h in host.history[:iterations]]
+    host_ms = sum(h["device_ms"] for h in host.history[:iterations])
+    for r in ranks:
+        chi = [t[0] for t in r["trace"]]
+        acc = [bool(t[3]) for t in r["trace"]]
+        rel = [abs(a - b) / abs(b) for a, b in zip(chi, chi_host)]
+        print(f"[{tag}] rank {r['rank']}: chi2={chi} accepted={acc} (phase "
+              f"7: {chi_host} {acc_host}); rel diff per iteration="
+              f"{[f'{x:.3e}' for x in rel]}; first "
+              f"run {r['first_s']:.1f} s with its plans; second run "
+              f"{r['second_ms'] / iterations:.3f} ms per iteration (host "
+              f"clock), collectives {r['collective_ms'] / iterations:.3f} "
+              f"ms per iteration ({r['collective_ms'] / r['second_ms']:.1%}"
+              f"; {r['collective_calls']} all_reduce calls, "
+              f"{r['collective_mb']:.1f} MB); peak device memory "
+              f"{r['peak_gib']:.3f} GiB; two runs bitwise equal "
+              f"{r['repeat_bitwise']}")
+        print(f"[{tag}] rank {r['rank']}: device (CUDA events on the "
+              f"rank's stream) second run "
+              f"{r['second_device_ms'] / iterations:.3f} ms per iteration, "
+              f"outside the collectives "
+              f"{(r['second_device_ms'] - r['collective_ms']) / iterations:.3f}"
+              f" (phase 7, the same {iterations} iterations unsharded: "
+              f"{host_ms / iterations:.3f}); the port's kernels "
+              f"{r['kernel_ms'] / iterations:.3f} ms per iteration (first "
+              f"run, both ranks sharing the card)")
+        check(acc == acc_host, f"{tag}: accept pattern differs from phase 7")
+        check(r["repeat_bitwise"], f"{tag}: two runs differ")
+        lau = r["launches"]
+        check(lau["segsum_stream.streaming_segment_product_sum"]
+              == iterations, f"{tag}: K3's gathered-stream entry must run "
+              f"once per rank per iteration")
+        check(lau["segsum_stream.streaming_segment_product_sum_rtbl"] == 0,
+              f"{tag}: the unsharded product stage ran")
+        check(lau["segsum_stream.streaming_segment_sum"] > 0,
+              f"{tag}: K1 never launched")
+    print(f"[{tag}] gloo moves each collective through the host: these are "
+          f"the transport's times, not the card's")
+    check(r0["trace"] == r1["trace"], f"{tag}: the ranks' traces differ")
+    check(all(np.array_equal(r0["params"][n], r1["params"][n])
+              for n in r0["params"]), f"{tag}: the ranks' parameters differ")
+    print(f"[{tag}] the two ranks' traces and parameters bitwise equal; "
+          f"K3 gathered vs its plain version on the card bitwise "
+          f"{r0['k3_vs_card_plain_bitwise']}")
+    launches = {n: r0["launches"][n] + r1["launches"][n]
+                for n in r0["launches"]}
+    print(f"[{tag}] launches (both ranks) "
+          f"{ {n: c for n, c in launches.items() if c} }")
+
+    tag = "shard-ladybug-w2"
+    for r in ranks:
+        lb = r["ladybug"]
+        chi, cchi = [t[0] for t in lb["trace"]], [t[0] for t in lb["cpu_trace"]]
+        acc = [bool(t[3]) for t in lb["trace"]]
+        cacc = [bool(t[3]) for t in lb["cpu_trace"]]
+        print(f"[{tag}] rank {r['rank']}: cuda chi2={chi} accepted={acc}; "
+              f"cpu chi2={cchi} accepted={cacc}; bitwise "
+              f"{chi == cchi and acc == cacc}, parameters bitwise "
+              f"{lb['params_bitwise']}")
+        check(acc == cacc and chi == cchi,
+              f"{tag}: card and CPU trajectories differ")
+        check(lb["params_bitwise"], f"{tag}: card and CPU parameters differ")
+        check(lb["launches"]["segsum_stream.streaming_segment_product_sum"]
+              > 0, f"{tag}: K3's gathered-stream entry never launched")
+        check(chi[-1] < chi[0], f"{tag}: chi2 not lowered")
+    check(r0["ladybug"]["trace"] == r1["ladybug"]["trace"],
+          f"{tag}: the ranks' traces differ")
+    lady = {n: r0["ladybug"]["launches"][n] + r1["ladybug"]["launches"][n]
+            for n in launches}
+    print(f"[{tag}] launches (both ranks, the card's run) "
+          f"{ {n: c for n, c in lady.items() if c} }")
+    return ({"shard-venice-w2": launches, "shard-ladybug-w2": lady},
+            {"segsum_stream.streaming_segment_product_sum": [r0["k3"]]})
+
+
 # (kernel, source, {entry point: TPU kernel body it replaces})
 KERNELS = [
     ("K1", "graphite_tpu_torch/csrc/segsum.cu", {
@@ -2991,7 +3378,6 @@ def main():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
 
-    from graphite_tpu_torch.interop import params_to_numpy
     from graphite_tpu_torch.solvers import PCGSchurSolver
 
     t_start = time.perf_counter()
@@ -3016,9 +3402,10 @@ def main():
     del lin, hv, sv, ops
     torch.cuda.empty_cache()
     k1_f64 = timed("k1-f64", phase_k1_f64, problem)
-    params0 = params_to_numpy(problem.params0)
     gpu, venice_launches, venice_peak = timed(
         "venice", phase_venice_slice, problem, solver, 10)
+    shard_w1_launches = timed("shard-venice-w1", phase_shard_w1, problem,
+                              solver, 10, gpu)
     venice_graph_launches = timed("jit-venice", phase_jit_venice, problem,
                                   solver, 10, gpu)
     first_order_venice, first_order_short = timed(
@@ -3028,16 +3415,21 @@ def main():
     torch.cuda.empty_cache()
     direct_gpu, direct_venice_launches, venice_first = timed(
         "direct-venice", phase_direct_venice, problem, 10)
+    cpu_problem = problem.to("cpu")
     del problem
     torch.cuda.empty_cache()
-    cpu_problem = timed("venice-cpu", phase_venice_cpu, ds, params0, gpu,
-                        solver, 2, direct_gpu, 1)
+    timed("venice-cpu", phase_venice_cpu, cpu_problem, gpu, solver, 2,
+          direct_gpu, 2)
     timed("first-order-venice-cpu", phase_first_order_venice_cpu,
           cpu_problem, first_order_short, 2)
+    shard_launches, shard_measured = timed(
+        "shard-w2", phase_shard_w2, cpu_problem, gpu, 3)
+    structures = dict(cpu_problem.to("cpu")._cache, topology=(
+        cpu_problem.block_offsets, dict(cpu_problem.host.factor_ids)))
     del cpu_problem
     precision_venice = timed("precision-venice", phase_precision_venice, ds,
-                             solver, 10, 1, (gpu, venice_peak))
-    del ds
+                             solver, 10, 2, (gpu, venice_peak), structures)
+    del ds, structures
     timed("forced", phase_forced, 10)
     direct_ladybug_launches, ladybug_firsts = timed(
         "direct-ladybug", phase_direct_ladybug, 10)
@@ -3063,12 +3455,14 @@ def main():
               "venice sparse-schur": venice_first}
     print(json.dumps({"direct_factorizations": firsts}))
     measured = merge_measured(k1, k2, k6, pose_k1, venice_measured, nd_k1,
-                              k1_f64)
+                              k1_f64, shard_measured)
     print(json.dumps({"kernels": kernels_json(
         measured, {"ladybug-49": ladybug_launches,
                    "sphere2500": pose_launches,
                    "sphere2500-generic": generic_launches,
                    "venice-1778": venice_launches,
+                   "shard-venice-w1": shard_w1_launches,
+                   **shard_launches,
                    "direct-ladybug": direct_ladybug_launches,
                    "direct-full-h": full_h_launches,
                    "direct-sphere2500": sphere_direct_launches,

@@ -64,6 +64,7 @@ The Pallas TPU kernels become hand-written CUDA kernels
 (``graphite_tpu_torch/csrc``), built with nvcc at first use.
 """
 
+from .covariance import joint_covariance, marginal_covariances
 from .factors import Differentiation, FactorSet, FactorType, factor_type
 from .graph import Graph, GraphData, Problem
 from .linearize import (
@@ -98,4 +99,5 @@ __all__ = [
     "Graph", "Problem", "GraphData",
     "Linearization", "linearize", "compute_chi2", "apply_update",
     "Jv", "JtPv", "hessian_matvec",
+    "joint_covariance", "marginal_covariances",
 ]

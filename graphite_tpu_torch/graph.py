@@ -19,10 +19,16 @@ plus tensors on an explicit device.
   flags can change after the freeze (``Problem.remask`` and its
   friends). Only the mask tensors change, in place: a captured CUDA
   graph that reads them stays valid, and no plan is rebuilt.
+- ``Problem.shard_replica`` binds a rank's slice of the factors to a
+  ``parallel.sharding.Mesh`` (one process per rank): the host structure
+  stays global, each per-factor host array is cut to the rank's rows by
+  ``shard_slice``, and every cross-factor reduction goes through
+  ``allreduce``.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import sys
 from typing import Dict, List, Optional, Tuple
@@ -195,6 +201,10 @@ class Problem:
         # host-built structure, plans and device index tensors, keyed by
         # the site that uses them (built on first use, then reused)
         self._cache: dict = {}
+        # set on a rank's replica (shard_replica): the parallel.sharding
+        # Mesh its cross-factor reductions and Schur product stage are
+        # split over
+        self.mesh = None
 
     # ---- device copies of host index arrays -------------------------------
     def index(self, key, np_array: np.ndarray) -> torch.Tensor:
@@ -250,6 +260,82 @@ class Problem:
     @property
     def dim_x(self) -> int:
         return self.dim_h + self.pad
+
+    # ---- factor-parallel sharding (parallel/sharding.py) -------------------
+    @property
+    def sharded(self) -> bool:
+        """Whether the factors are split over more than one rank."""
+        return self.mesh is not None and self.mesh.world > 1
+
+    def allreduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the ranks (in rank order); ``x`` itself
+        when the problem is not sharded."""
+        if self.mesh is None:
+            return x
+        return self.mesh.allreduce(x)
+
+    def shard_slice(self, arr, n_local: int):
+        """A global per-factor host array cut to this rank's contiguous
+        ``n_local`` rows (the whole array when not sharded)."""
+        if self.mesh is None or arr.shape[0] == n_local:
+            return arr
+        start = self.mesh.rank * n_local
+        return arr[start:start + n_local]
+
+    def shard_replica(self, data: GraphData, mesh) -> "Problem":
+        """A shallow copy bound to one rank's data (``shard_data``),
+        reducing over ``mesh``. The static metadata and the host structure
+        are shared; ``params0`` moves to the data's device. The rank's
+        plans are its own, except at world size 1 on this problem's
+        device, where the rank's slice is the whole problem and the plans
+        built so far are reused (a copy of the cache, so that caching the
+        replica on this problem makes no reference cycle)."""
+        device = mesh.device
+        p = copy.copy(self)
+        p.data = data
+        p.device = device
+        p.params0 = {n: v.to(device) for n, v in self.params0.items()}
+        p.mesh = mesh
+        if mesh.world == 1 and device == self.device:
+            p._cache = dict(self._cache)
+        else:
+            p._cache = self._host_structures()
+        return p
+
+    def to(self, device) -> "Problem":
+        """A copy of the problem on ``device``: its tensors moved, its host
+        arrays and host-built Hessian and Schur structures shared, its
+        device plans left to be rebuilt there on first use."""
+        device = torch.device(device)
+
+        def moved(tree):
+            if isinstance(tree, torch.Tensor):
+                return tree.to(device)
+            if isinstance(tree, dict):
+                return {k: moved(v) for k, v in tree.items()}
+            if isinstance(tree, tuple):
+                return tuple(moved(v) for v in tree)
+            if dataclasses.is_dataclass(tree):
+                return dataclasses.replace(tree, **{
+                    f.name: moved(getattr(tree, f.name))
+                    for f in dataclasses.fields(tree)})
+            return tree
+
+        p = copy.copy(self)
+        p.device = device
+        p.data = moved(self.data)
+        p.params0 = moved(self.params0)
+        p.host = dataclasses.replace(self.host)
+        p._cache = self._host_structures()
+        return p
+
+    def _host_structures(self) -> dict:
+        """The cache entries that hold only host-built topology (no device
+        tensor, no per-factor slice): safe to share with a copy on another
+        device or a rank's replica."""
+        return {k: self._cache[k] for k in ("hessian_structure",
+                                            "schur_structure")
+                if k in self._cache}
 
     @property
     def n_blocks(self) -> int:

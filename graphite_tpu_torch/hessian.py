@@ -190,7 +190,9 @@ def build_hessian_structure(problem) -> HessianStructure:
 def compute_hessian_values(problem, hs: HessianStructure,
                            lin: Linearization) -> HessianValues:
     """H = J^T dL P J into the grouped block storage (Jacobians already
-    scaled and masked)."""
+    scaled and masked). On a rank's replica the block list is the whole
+    problem's and the factor rows the rank's slice: each group is summed
+    over the ranks."""
     acc = problem.precision.acc_dtype
     inv_dt = problem.precision.inv_dtype
     values: HessianValues = {
@@ -216,7 +218,9 @@ def compute_hessian_values(problem, hs: HessianStructure,
         flat = (flat_block_mm_tn(J[cm.s], jt, ds, E, dt_, acc_dtype=acc)
                 * lin.chi2_deriv[cm.fname].to(acc)[:, None]).to(inv_dt)
         if cm.direct_idx is not None:
-            plan = segment_plan(problem, ("hess_d", ci), cm.direct_idx,
+            plan = segment_plan(problem, ("hess_d", ci),
+                                problem.shard_slice(cm.direct_idx,
+                                                    flat.shape[0]),
                                 hs.group_sizes[cm.direct_group] + 1,
                                 flat.shape[1])
             values[cm.direct_group] = values[cm.direct_group] + reduce_rows(
@@ -225,12 +229,14 @@ def compute_hessian_values(problem, hs: HessianStructure,
             # row-major (ds, dt) -> (dt, ds) transpose of each flat row
             flat_t = flat.reshape(-1, ds, dt_).transpose(1, 2).reshape(
                 -1, ds * dt_)
-            plan = segment_plan(problem, ("hess_t", ci), cm.trans_idx,
+            plan = segment_plan(problem, ("hess_t", ci),
+                                problem.shard_slice(cm.trans_idx,
+                                                    flat_t.shape[0]),
                                 hs.group_sizes[cm.trans_group] + 1,
                                 flat_t.shape[1])
             values[cm.trans_group] = values[cm.trans_group] + reduce_rows(
                 flat_t, plan)
-    return values
+    return {key: problem.allreduce(v) for key, v in values.items()}
 
 
 def _diag_rows_by_type(problem, hs: HessianStructure):

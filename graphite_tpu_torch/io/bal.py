@@ -84,9 +84,11 @@ def save(path: str, ds: BALDataset) -> None:
 
 def build_graph(ds: BALDataset, precision=None,
                 eliminate_points: bool = True, loss=None,
-                loss_param: Optional[float] = None):
+                loss_param: Optional[float] = None, factor=None):
     """Build a Graph for a BAL dataset; returns (graph, cameras, points,
-    factors).
+    factors). ``factor``: the reprojection factor type (default
+    ``models.bal.REPROJECTION``, analytic; ``REPROJECTION_AUTO`` is
+    differentiated automatically).
 
     Camera ids are [0, C) and point ids [C, C+P); ``eliminate_points``
     marks the points for Schur elimination. Observations are added in
@@ -103,7 +105,7 @@ def build_graph(ds: BALDataset, precision=None,
     if eliminate_points:
         pts.set_eliminate(True)
 
-    ftype = bal_model.REPROJECTION
+    ftype = factor if factor is not None else bal_model.REPROJECTION
     if loss is not None:
         ftype = dataclasses.replace(ftype, loss=loss)
     fs = g.add_factor_set(ftype)

@@ -13,6 +13,9 @@ matrix-free products (counterpart of ``graphite_tpu/linearize.py``).
   ``Linearization.jacobians`` is None and the products recompute its
   scaled J from ``params`` on every call, with the same operations as
   ``linearize`` (so the same bits as a stored J).
+- On a rank's replica (``parallel/sharding.py``) the factors are the
+  rank's slice: the scaling diagonal, b, chi2 and ``JtPv`` are summed over
+  the ranks (``problem.allreduce``) after the rank's own row reductions.
 
 ``Graph.scale_system(False)`` turns the column scaling off (scales 1).
 """
@@ -153,7 +156,8 @@ def _factor_row_reduce(problem, contrib, fname, s, vt_name):
     tag = ("rows", fname, s)
     plan = problem._cache.get("segment_plans", {}).get(tag)
     if plan is None:  # the destinations are gathered on the host once
-        ids = problem.host.factor_ids[fname][:, s]
+        ids = problem.shard_slice(problem.host.factor_ids[fname][:, s],
+                                  contrib.shape[0])
         plan = segment_plan(problem, tag,
                             problem.host.vertex_active_row[vt_name][ids],
                             problem.seg_rows[vt_name] + 1, contrib.shape[1])
@@ -199,7 +203,7 @@ def linearize(problem: Problem, params) -> Linearization:
                                       vt.name)
             prev = diag_rows.get(vt.name)
             diag_rows[vt.name] = rows if prev is None else prev + rows
-    diag_raw = problem.flat_from_rows(diag_rows)
+    diag_raw = problem.allreduce(problem.flat_from_rows(diag_rows))
 
     if problem.scale_jacobians:
         eps = float(np.finfo(np.float64).eps)
@@ -231,9 +235,10 @@ def linearize(problem: Problem, params) -> Linearization:
                                       vt.name)
             prev = b_rows.get(vt.name)
             b_rows[vt.name] = rows if prev is None else prev + rows
-    b = problem.flat_from_rows(b_rows)
+    b = problem.allreduce(problem.flat_from_rows(b_rows))
 
-    chi2 = sum(v.sum(dtype=torch.float64) for v in chi2_vec.values()).to(gdt)
+    chi2 = problem.allreduce(sum(v.sum(dtype=torch.float64)
+                                 for v in chi2_vec.values())).to(gdt)
     return Linearization(residuals=residuals, jacobians=jacobians,
                          chi2_vec=chi2_vec, chi2_deriv=chi2_deriv,
                          scales=scales, diag=diag, b=b, chi2=chi2)
@@ -285,7 +290,7 @@ def compute_chi2(problem: Problem, params) -> torch.Tensor:
         r = compute_residuals_block(problem, params, name)
         c, _ = compute_chi2_block(problem, name, r)
         total = total + c.sum(dtype=torch.float64)
-    return total.to(problem.precision.graph_dtype)
+    return problem.allreduce(total).to(problem.precision.graph_dtype)
 
 
 def Jv(problem: Problem, lin: Linearization, x: torch.Tensor,
@@ -331,7 +336,7 @@ def JtPv(problem: Problem, lin: Linearization,
                                       vt.name)
             prev = out_rows.get(vt.name)
             out_rows[vt.name] = rows if prev is None else prev + rows
-    return problem.flat_from_rows(out_rows)
+    return problem.allreduce(problem.flat_from_rows(out_rows))
 
 
 def hessian_matvec(problem: Problem, lin: Linearization,

@@ -211,3 +211,11 @@ REPROJECTION = factor_type(
     "bal_reprojection", 2, [CAMERA, POINT], reprojection_residual,
     obs_shape=(2,), jacobian_fn=reprojection_jacobian,
 )
+
+#: the same residual without a ``jacobian_fn``: linearize differentiates it
+#: (``Differentiation.AUTO``, forward mode through the retraction), the
+#: oracle the analytic blocks are held against
+REPROJECTION_AUTO = factor_type(
+    "bal_reprojection_auto", 2, [CAMERA, POINT], reprojection_residual,
+    obs_shape=(2,),
+)

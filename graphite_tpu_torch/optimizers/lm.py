@@ -524,7 +524,8 @@ def _device_loop(problem, solver, options) -> _DeviceLoop:
     cached on ``problem``."""
     key = _loop_key(solver, options)
     loop = problem._cache.get(key)
-    if loop is None or loop.solver is not solver:
+    if (loop is None or loop.solver is not solver
+            or loop.problem is not problem):
         loop = _DeviceLoop(problem, solver, options)
         problem._cache[key] = loop
     return loop

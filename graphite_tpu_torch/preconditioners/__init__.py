@@ -1,6 +1,9 @@
 from .block_jacobi import BlockJacobiPreconditioner
-from .block_jacobi_schur import BlockJacobiSchurPreconditioner
+from .block_jacobi_schur import (
+    BlockJacobiSchurPreconditioner,
+    IdentitySchurPreconditioner,
+)
 from .identity import IdentityPreconditioner
 
 __all__ = ["BlockJacobiPreconditioner", "BlockJacobiSchurPreconditioner",
-           "IdentityPreconditioner"]
+           "IdentityPreconditioner", "IdentitySchurPreconditioner"]

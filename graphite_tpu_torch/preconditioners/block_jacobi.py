@@ -36,7 +36,8 @@ class BlockJacobiState:
 
 def compute_block_diagonal(problem, lin: Linearization
                            ) -> Dict[str, torch.Tensor]:
-    """Per-vertex (V, d*d) diagonal Hessian blocks."""
+    """Per-vertex (V, d*d) diagonal Hessian blocks (summed over the ranks
+    on a rank's replica)."""
     inv_dt = problem.precision.inv_dtype
     acc = problem.precision.acc_dtype
     blocks = {
@@ -58,12 +59,14 @@ def compute_block_diagonal(problem, lin: Linearization
             blk = flat_block_mm_tn(Ji, PJ, vt.dim, E, vt.dim,
                                    acc_dtype=acc) * dL[:, None]
             plan = segment_plan(problem, ("bj_blocks", fname, s),
-                                problem.host.factor_ids[fname][:, s],
+                                problem.shard_slice(
+                                    problem.host.factor_ids[fname][:, s],
+                                    blk.shape[0]),
                                 problem.vertex_meta[vt.name].count,
                                 vt.dim * vt.dim)
             blocks[vt.name] = blocks[vt.name] + reduce_rows(blk.to(inv_dt),
                                                             plan)
-    return blocks
+    return {name: problem.allreduce(b) for name, b in blocks.items()}
 
 
 def row_inverse_blocks(problem, state: BlockJacobiState,

@@ -1,6 +1,7 @@
 """Block-Jacobi preconditioner on the Schur system (counterpart of
 ``graphite_tpu/preconditioners/block_jacobi_schur.py``): the inverted
-diagonal blocks of S per pose vertex type. Damping is already in S."""
+diagonal blocks of S per pose vertex type. Damping is already in S. Also
+the identity on the Schur system (``IdentitySchurPreconditioner``)."""
 
 from __future__ import annotations
 
@@ -56,6 +57,19 @@ class BlockJacobiSchurPreconditioner:
             z_rows[t] = flat_block_mv(inv, problem.rows_view(y, t), d, d,
                                       acc_dtype=inv.dtype)
         return problem.flat_from_rows(z_rows)[: ss.dim_p]
+
+
+@dataclasses.dataclass(frozen=True)
+class IdentitySchurPreconditioner:
+    """No preconditioning of the Schur system: ``PCGSchurSolver`` then
+    takes its dense ``tree_matvec`` branch or its block-sparse one (the
+    fused dense PCG, K2, preconditions with block-Jacobi-Schur only)."""
+
+    def prepare(self, problem, ss, sv):
+        return ()
+
+    def apply(self, problem, ss, state, y: torch.Tensor) -> torch.Tensor:
+        return y
 
 
 def dense_preconditioner_matrix(problem, ss, state: BlockJacobiSchurState,

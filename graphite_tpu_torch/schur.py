@@ -1,5 +1,5 @@
 """Schur complement S = Hpp - Hpl Hll^{-1} Hpl^T (counterpart of
-``graphite_tpu/schur.py``, single-device path).
+``graphite_tpu/schur.py``).
 
 Structure (host, once per topology): pose blocks are the Hessian block
 columns before ``elimination_block``, landmark blocks the trailing
@@ -14,6 +14,12 @@ At most ``_chunk_threshold`` products per group are formed row by row and
 reduced by the sorted-segment-sum kernel (K1, ``ops/cuda/segsum``); above
 it the fused triple-product kernel (K3) reads W and Hpl by index and
 writes only S, with a plan of its own (lanes per S block).
+
+On a rank's replica of a sharded problem (``problem.sharded``,
+``parallel/sharding.py``) the triple products are split by destination
+range (``sharded_partition``): each rank reduces its pairs from gathered
+streams with K3's gathered-stream entry and one gather places the ranks'
+disjoint ranges of S.
 
 ``SchurOps`` adds ``b_schur``, ``landmark_update``, ``compose_delta`` and
 the block-sparse S matvec (``prepare_matvec`` / ``s_matvec``). Sites with
@@ -60,6 +66,7 @@ from .ops.cuda.segmv import (
 from .ops.cuda.segsum import sorted_segment_sum
 from .ops.cuda.segsum_stream import (
     streaming_matvec_tbl,
+    streaming_segment_product_sum,
     streaming_segment_product_sum_rtbl,
 )
 from .ops.streamreduce import (
@@ -363,6 +370,9 @@ def schur_values(problem, ss: SchurStructure,
                                  src.to(inv_dt))
 
     hpl_w = hpl_w_values(problem, ss, hvals, hll_inv)
+    if problem.sharded:
+        _sharded_products(problem, ss, hvals, hpl_w, s_vals)
+        return SchurValues(hll_inv=hll_inv, s_vals=s_vals)
     for gi, pg in enumerate(ss.products):
         dpa, dl, dpb = pg["dims"]
         key = pg["dst_key"]
@@ -390,6 +400,102 @@ def schur_values(problem, ss: SchurStructure,
                              ss.s_sizes[key], dpa * dpb))
         s_vals[key] = s_vals[key] - acc
     return SchurValues(hll_inv=hll_inv, s_vals=s_vals)
+
+
+@dataclasses.dataclass
+class ShardedPartition:
+    """One product group split by destination over ``n`` ranks: rank r
+    takes pairs ``bounds[r]:bounds[r+1]`` (about K/n, cut at segment
+    boundaries, so no S block is split), whose destinations are the S
+    blocks ``seg0[r]:seg0[r] + ns[r]``: disjoint and in rank order.
+    ``plan`` is this rank's: its K3 plan (float32 values) or its K1 plan
+    (float64), over destinations counted from ``seg0[rank]``; None when
+    no pair falls to the rank."""
+
+    bounds: np.ndarray  # (n + 1,)
+    seg0: List[int]
+    ns: List[int]
+    left: torch.Tensor  # W row of each of this rank's pairs
+    right: torch.Tensor  # Hpl row (in its H group) of each
+    plan: object
+
+
+def sharded_partition(problem, gi: int, pg: dict, n: int,
+                      use_kernel: bool) -> ShardedPartition:
+    """The destination partition of product group ``gi`` over ``n`` ranks
+    and this rank's plan, built on the host once (cached on the rank's
+    replica). The cut points are the JAX package's
+    (``_plan_sharded_partition``)."""
+    cache = problem._cache.setdefault("sharded_partitions", {})
+    if (gi, n) in cache:
+        return cache[(gi, n)]
+    dst = pg["dst"]
+    K = dst.shape[0]
+    bounds = [0]
+    for r in range(1, n):
+        idx = int(np.searchsorted(dst, dst[min(r * (K // n), max(K - 1, 0))],
+                                  side="left")) if K else 0
+        bounds.append(max(idx, bounds[-1]))
+    bounds.append(K)
+    seg0, ns = [], []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        seg0.append(int(dst[lo]) if hi > lo else 0)
+        ns.append(int(dst[hi - 1]) - seg0[-1] + 1 if hi > lo else 0)
+    r = problem.mesh.rank
+    lo, hi = bounds[r], bounds[r + 1]
+    local = dst[lo:hi] - seg0[r]
+    dpa, _, dpb = pg["dims"]
+    tag = ("shard_prod", gi, n)
+    if hi == lo:  # no pair falls to this rank
+        plan = None
+    elif use_kernel:
+        plan = product_plan(problem, tag, local, ns[r])
+    else:
+        plan = segment_plan(problem, tag, local, ns[r], dpa * dpb)
+    left = problem.index(tag + ("l",), pg["left"][lo:hi])
+    right = problem.index(tag + ("r",), pg["right"][lo:hi])
+    cache[(gi, n)] = ShardedPartition(
+        bounds=np.asarray(bounds, dtype=np.int64), seg0=seg0, ns=ns,
+        left=left, right=right, plan=plan)
+    return cache[(gi, n)]
+
+
+def _sharded_products(problem, ss: SchurStructure, hvals: HessianValues,
+                      hpl_w, s_vals) -> None:
+    """The triple products on a rank's replica, split by destination
+    (``sharded_partition``): each rank reduces its own pairs, gathered
+    into streams, with K3 (float32; its plain version on the CPU) or K1
+    (float64), and one gather of the ranks' disjoint S ranges updates
+    every rank's S. Hll^-1, W and everything after S stay replicated."""
+    inv_dt = problem.precision.inv_dtype
+    mesh = problem.mesh
+    n = mesh.world
+    use_kernel = kernel_dtype(inv_dt)
+    for gi, pg in enumerate(ss.products):
+        dpa, dl, dpb = pg["dims"]
+        key = pg["dst_key"]
+        part = sharded_partition(problem, gi, pg, n, use_kernel)
+        W = hpl_w[pg["left_key"]]
+        R = hvals[pg["right_key"]].to(inv_dt)
+        padded = W.new_zeros((max(part.ns), dpa * dpb))
+        if part.plan is not None:
+            # one W row and one Hpl row per pair, gathered into streams
+            Wg = W.index_select(0, part.left)
+            Rg = R.index_select(0, part.right)
+            if use_kernel:  # K3's gathered-stream entry
+                local = streaming_segment_product_sum(Wg, Rg, part.plan,
+                                                      dpa, dl, dpb)
+            else:
+                local = sorted_segment_sum(
+                    flat_block_mm_nt(Wg, Rg, dpa, dl, dpb, acc_dtype=inv_dt),
+                    part.plan)
+            del Wg, Rg
+            padded[:local.shape[0]] = local
+        every = mesh.gather(padded)
+        for r in range(n):
+            if part.ns[r]:
+                s0 = part.seg0[r]
+                s_vals[key][s0:s0 + part.ns[r]] -= every[r, :part.ns[r]]
 
 
 def _partition_blocks_by_type(ss: SchurStructure, block_ids: np.ndarray):

@@ -65,7 +65,10 @@ class PCGSolver:
         ok = torch.ones((), dtype=torch.bool, device=problem.device)
 
         site = None
-        if gdt == torch.float32 and isinstance(
+        # K6 sums J^T J p over every factor inside one kernel: a rank that
+        # holds a slice of the factors takes run_pcg, whose JtPv is summed
+        # over the ranks
+        if gdt == torch.float32 and not problem.sharded and isinstance(
                 self.preconditioner,
                 (BlockJacobiPreconditioner, IdentityPreconditioner)):
             site = plan_pcg_mf(problem, lin)

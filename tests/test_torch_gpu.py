@@ -60,6 +60,11 @@ on a machine with only PyTorch (``--noconftest`` skips the JAX set-up in
   largest entry (float64 factors: not bitwise); ``checkpoint.load``
   lands on the card by default; the range-bearing example on the card
   bitwise the CPU run (K2 on its 3x3 SE2 pose blocks, n = 87).
+- Factor-parallel sharding: two gloo ranks on one card (the sharded
+  Schur stage on K3's gathered-stream entry, K4 and K5 forced) bitwise
+  two gloo ranks on the CPU, both ranks equal; one nccl rank bitwise the
+  unsharded host loop on the card, under the host loop and ``jit_loop``
+  (the collectives captured in the graph).
 """
 
 import dataclasses
@@ -936,3 +941,57 @@ def test_range_bearing_example_cuda_equals_cpu(cuda_device):
         h["chi2"] for h in cpu.history]
     for n, p in cpu.params.items():
         assert torch.equal(gpu.params[n].cpu(), p)
+
+
+# ---- factor-parallel sharding (graphite_tpu_torch.parallel) --------------
+
+def _ladybug_cpu(pad):
+    g, *_ = bal.build_graph(synthetic.make_bal("ladybug", seed=0),
+                            precision=gtt.FP32_FP32)
+    return g.freeze(device="cpu", pad_factors_to=pad)
+
+
+def test_sharded_world2_cuda_equals_cpu(cuda_device):
+    """Two gloo ranks on one card (the sharded Schur stage on K3's
+    gathered-stream entry; K4 and K5 forced) against two gloo ranks on the
+    CPU: bitwise the same trajectory and parameters, both ranks equal."""
+    import torch_sharding_helpers as helpers
+
+    from graphite_tpu_torch.parallel import run_ranks
+
+    problem = _ladybug_cpu(2)
+    card = run_ranks(helpers.forced_lm, 2, "gloo", problem, 10,
+                     device=torch.device("cuda", 0))
+    cpu = run_ranks(helpers.forced_lm, 2, "gloo", problem, 10, device="cpu")
+    for c, h in zip(card, cpu):
+        assert c["k3_gathered"] > 0 and h["k3_gathered"] == 0
+        assert np.array_equal(c["trace"], h["trace"])
+        assert c["trace"][-1, 0] < c["trace"][0, 0]
+        for name in c["params"]:
+            assert np.array_equal(c["params"][name], h["params"][name])
+            assert np.array_equal(c["params"][name],
+                                  card[0]["params"][name])
+
+
+def test_sharded_world1_nccl_bitwise_unsharded(cuda_device):
+    """One rank over nccl: bitwise the unsharded host loop on the card,
+    and its jit_loop run (collectives captured in the graph) bitwise the
+    host loop."""
+    import torch_sharding_helpers as helpers
+
+    from graphite_tpu_torch.parallel import run_ranks
+
+    problem = _ladybug_cpu(1)
+    (out,) = run_ranks(helpers.world1_card, 1, "nccl", problem, 10,
+                       device=torch.device("cuda", 0))
+    ref = levenberg_marquardt(problem.to(cuda_device),
+                              PCGSchurSolver(10, 1.0, 5.0),
+                              options=LevenbergMarquardtOptions(
+                                  iterations=10))
+    for run in (out["host"], out["graph"]):
+        assert run["iterations"] == ref.iterations
+        assert run["trace"][:, 0].tolist() == [h["chi2"]
+                                               for h in ref.history]
+        for name, v in ref.params.items():
+            assert np.array_equal(run["params"][name], v.cpu().numpy())
+

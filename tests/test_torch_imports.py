@@ -1,6 +1,9 @@
 """The PyTorch port stands alone: neither the package nor ``chip_smoke.py``
-imports JAX or the JAX package, importing the package loads neither and
-builds no kernel, and ``chip_smoke.py`` refuses to run without a card."""
+(nor the sharding tests' rank helpers) imports JAX or the JAX package,
+importing the package loads neither and builds no kernel, a spawned rank
+of ``parallel.run_ranks`` loads neither, and ``chip_smoke.py`` refuses to
+run without a card. The top level exports what the JAX package's does,
+the covariance functions included."""
 
 import os
 import re
@@ -17,7 +20,8 @@ FORBIDDEN = re.compile(
 
 
 def _sources():
-    return sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PACKAGE.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tests" / "torch_sharding_helpers.py"]
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(
@@ -58,3 +62,23 @@ def test_chip_smoke_refuses_without_cuda():
         text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_top_level_exports_covariance():
+    import graphite_tpu_torch as p
+    from graphite_tpu_torch import covariance, joint_covariance, \
+        marginal_covariances
+
+    assert joint_covariance is covariance.joint_covariance
+    assert marginal_covariances is covariance.marginal_covariances
+    assert {"joint_covariance", "marginal_covariances"} <= set(p.__all__)
+
+
+def test_spawned_rank_loads_no_jax():
+    import torch_sharding_helpers as helpers
+
+    from graphite_tpu_torch.parallel import run_ranks
+
+    assert run_ranks(helpers.loaded_jax_modules, 1, "gloo",
+                     device="cpu") == [[]]
+

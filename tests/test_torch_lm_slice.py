@@ -100,3 +100,48 @@ def test_lm_slice_block_sparse_matvec_matches_jax_f64(monkeypatch, forced):
     np.testing.assert_allclose([h["chi2"] for h in out.history],
                                [h["chi2"] for h in ref.history], rtol=1e-9)
     assert out.chi2 < out.initial_chi2
+
+
+@pytest.mark.parametrize("dense_matvec_limit", [8192, 0],
+                         ids=["dense-S", "block-sparse-S"])
+def test_lm_slice_identity_schur_preconditioner(monkeypatch,
+                                                dense_matvec_limit):
+    """IdentitySchurPreconditioner in both packages, float64: the same
+    accept pattern and chi2 per iteration to 1e-9, on the dense-S branch
+    (``tree_matvec``) and the block-sparse one. In float32 the port never
+    takes the fused dense PCG (K2): its gate asks for block-Jacobi-Schur."""
+    from graphite_tpu.preconditioners.block_jacobi_schur import (
+        IdentitySchurPreconditioner as JaxIdentitySchur,
+    )
+    from graphite_tpu_torch.preconditioners import (
+        IdentitySchurPreconditioner,
+    )
+    from graphite_tpu_torch.solvers import pcg_schur
+
+    ds_j = jax_synth.make_bal(SIZE, seed=0, noise=0.5)
+    gj, *_ = jax_build_graph(ds_j, precision=gt.FP64_FP64)
+    ref = jax_lm(gj.freeze(), JaxPCGSchur(
+        10, 1.0, 5.0, preconditioner=JaxIdentitySchur(),
+        dense_matvec_limit=dense_matvec_limit),
+        options=JaxOptions(iterations=ITERS))
+
+    def no_k2(*args, **kwargs):
+        raise AssertionError("dense_pcg (K2) taken without block-Jacobi-Schur")
+
+    monkeypatch.setattr(pcg_schur, "dense_pcg", no_k2)
+    outs = {}
+    for prec in (gtt.FP64_FP64, gtt.FP32_FP32):
+        gp, *_ = torch_bal_io.build_graph(
+            torch_synth.make_bal(SIZE, seed=0, noise=0.5), precision=prec)
+        outs[prec] = levenberg_marquardt(
+            gp.freeze(device="cpu"), PCGSchurSolver(
+                10, 1.0, 5.0, preconditioner=IdentitySchurPreconditioner(),
+                dense_matvec_limit=dense_matvec_limit),
+            options=LevenbergMarquardtOptions(iterations=ITERS))
+    out = outs[gtt.FP64_FP64]
+    assert ([h["accepted"] for h in out.history]
+            == [h["accepted"] for h in ref.history])
+    np.testing.assert_allclose([h["chi2"] for h in out.history],
+                               [h["chi2"] for h in ref.history], rtol=1e-9)
+    assert outs[gtt.FP32_FP32].chi2 < outs[gtt.FP32_FP32].initial_chi2
+
