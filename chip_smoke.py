@@ -8,7 +8,8 @@ own:
 
 1. build the CUDA kernels from the checkout, one nvcc per source, all
    started together: K1 ``csrc/segsum.cu``, K2 ``csrc/pcg_dense.cu``, K3
-   ``csrc/segprod.cu``, K4 / K5 ``csrc/segmv.cu``, K6 ``csrc/pcg_mf.cu``;
+   ``csrc/segprod.cu``, K4 / K5 ``csrc/segmv.cu``, K6 ``csrc/pcg_mf.cu``,
+   and the conditional graph nodes of ``jit_loop``, ``csrc/cond.cu``;
 2. K1 vs its plain PyTorch version on the card, at the BAL Ladybug-49
    reduction shapes (seeded random inputs; each label names the plan's
    lanes per segment, ``group``): relative error <= 1e-5, two runs
@@ -44,6 +45,18 @@ own:
 4d. sphere2500 with the K6 gate closed (``pcg_mf.J_BYTES_LIMIT = 0``),
    10 iterations on the card and on the CPU: ``run_pcg`` on
    ``hessian_matvec``, K1 launched, the same checks;
+4e. ``cond`` (run after phase 4c, on its problem): conditional regions
+   (``device_loop.cond``, one conditional graph node each, built from
+   ``csrc/cond.cu``: PyTorch's CUDA graphs expose none) against their
+   plain version, ``if pred: body()``: an inner region holding K1, K2 and
+   K6 (both cluster launches) nested in an outer one, replayed under each
+   pair of predicates: bitwise the eager launches where both are true,
+   untouched otherwise, each region's run count as expected; a replay
+   whose outer region is skipped costs under a tenth of one that runs it;
+   a loop (``device_loop.while_loop``, a "while" node) holding K1 runs
+   1,500 passes in one replay, K1 launched and the loop's run count
+   1,500, and no pass where its predicate starts false; the torch, CUDA
+   and driver versions;
 5. the BAL Venice-1778 problem (993,923 points, 5,001,946 observations,
    dim_p 16,002) frozen on the card, with its host set-up seconds;
 6. K1, K3 (by index, and from gathered streams), K4 and K5 vs their
@@ -109,19 +122,29 @@ step) and peak memory:
 
 Levenberg-Marquardt with ``jit_loop=True``: the iteration captured once
 as a CUDA graph and replayed with no host read between replays (they run
-under ``torch.cuda.set_sync_debug_mode("error")``). Each path runs it
-twice (the first call captures) and checks both runs bitwise equal to the
-card's host loop from the same start (accept pattern, chi2, mu and rho
-per iteration, final parameters); it prints the capture seconds, ms per
-iteration of the graph (CUDA events per replay) beside the host loop's,
-the kernels' launches per replay and the graph pool's memory:
+under ``torch.cuda.set_sync_debug_mode("error")``). The graph holds the
+JAX package's control flow as conditional regions: the step on the run
+flag (nothing runs after a stop), then the accepted branch (relinearize,
+refresh the solver) and the rejected one on the run flag and their side
+of the step's accept flag, then the bookkeeping on the run flag; the
+device-controlled PCG as one loop whose CG step runs while ``~done`` and
+the step count is below ``max_iter``. Each path runs
+it twice (the first call captures) and checks both runs bitwise equal to
+the card's host loop from the same start (accept pattern, chi2, mu and
+rho per iteration, final parameters) and each region's run count (over
+both runs: the iterations, the accepted and the rejected ones); it
+prints the capture seconds, ms per accepted, rejected
+and after-stop replay (CUDA events) beside the host loop's, the launches
+captured, the CG steps per iteration, the graph pool's memory and the
+peak memory:
 
 15. ``jit-ladybug``: Ladybug-49, PCGSchurSolver(10, 1.0, 5.0) (K1, and K2
     once per replay) and DenseCholeskySchurSolver, 10 iterations;
 16. ``jit-venice`` (after phase 7, on its problem, against its run): 10
-    iterations, K1, K3, K4 and K5 in the graph (K5 once per CG step: the
-    device-controlled PCG takes all 10); ms per accepted and per rejected
-    iteration beside the host loop's, peak memory;
+    iterations, K1, K3, K4 and K5 in the graph (K5 captured once, in the
+    CG step's loop body, launched once per CG step run); ms per
+    accepted and per rejected iteration beside the host loop's: the
+    median rejected replay at most half the median accepted one;
 17. ``jit-sphere2500`` (after phase 4c, against phase 4b's run): 30
     iterations, K6 once per replay;
 18. ``remask``: Ladybug-49 frozen with ``remaskable=True`` on the card, 10
@@ -131,7 +154,9 @@ the kernels' launches per replay and the graph pool's memory:
     tensors' ``data_ptr``s unchanged), bitwise a fresh remaskable freeze
     with the same edits, the 78 points and camera 1 bitwise at their start;
     the edits undone: bitwise the first run; ``levenberg_marquardt2`` (30
-    iterations) stops at the CPU's iteration with its accept pattern;
+    iterations) stops at the CPU's iteration with its accept pattern, and
+    each of its replays after the stop costs under 5% of its median
+    accepted replay;
 19. ``cli-jit``: ``examples.circle`` (float32: the free points within 1e-4
     of radius 4, as the JAX package's float32 run; points 2 and 4 at
     their start), ``examples.bal --synthetic ladybug --jit-loop --lm2``
@@ -224,7 +249,9 @@ entry):
 
 S1. ``shard-venice-w1`` (after phase 7, on its problem): ``sharded_lm`` at
     world size 1 over NCCL, 10 iterations: bitwise phase 7's host loop
-    (accept pattern, chi2, final parameters); then phase 7's run for 3
+    (accept pattern, chi2, final parameters), in the host loop and under
+    ``jit_loop`` (its replays and regions printed as phases 15-18 print
+    theirs); then phase 7's run for 3
     iterations from its parameters moved by one ulp, printed beside phase
     7's chi2 (how far a rounding-level change takes float32 Venice
     trajectories apart, the measure for S2's free-running chi2);
@@ -249,12 +276,12 @@ S3. ``shard-ladybug-w2`` (in the same ranks): Ladybug-49 with the Venice
     the CPU: bitwise equal trajectories and parameters, K3's gathered
     entry launched.
 
-A captured path's launches in the kernels JSON line are its capture's
-count times its replays (``remask`` sums its three graphs: the remasked
-problem's, the fresh freeze's and LM2's; ``cli-jit`` counts each CLI's
-capture once, since its loops are not reachable from the phase). Replays
-after a stop are not skipped; the phases print their count and device
-ms.
+A captured path's launches in the kernels JSON line are the launches
+its replays ran: those captured outside every region times the replays,
+those captured in a region times the runs of its body, read back from
+the region's device counter (``remask`` sums its three graphs: the
+remasked problem's, the fresh freeze's and LM2's; ``cli-jit`` counts each
+CLI's capture once, since its loops are not reachable from the phase).
 
 Prints the direct factorizations' JSON summary (``direct_factorizations``),
 the kernels' JSON summary and the card's name and power limit, and
@@ -378,6 +405,7 @@ def csr_from_blocks(blocks, brow, bcol, n_brows, n_bcols):
 
 def phase_build():
     from graphite_tpu_torch.ops.cuda import (
+        cond,
         pcg_dense,
         pcg_mf,
         segmv,
@@ -387,7 +415,7 @@ def phase_build():
 
     loaders = (segsum.load_kernel, pcg_dense.load_kernel,
                segsum_stream.load_product_kernel, segmv.load_kernel,
-               pcg_mf.load_kernel)
+               pcg_mf.load_kernel, cond.load_kernel)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
         libs = list(pool.map(lambda load: load(), loaders))
@@ -882,6 +910,128 @@ def phase_k6():
         records.append(dict(err=abs_err, ms=ms, plain_ms=plain_ms,
                             shape=label, library_ms=None, **work))
     return {"pcg_mf.solve_pcg_mf": records}
+
+
+def phase_cond(pose):
+    """Conditional regions (``device_loop.cond``: a conditional graph node
+    per region, ``csrc/cond.cu``) against their plain version, ``if
+    pred: body()``: an outer region and an inner one holding K1 (Ladybug's
+    31,843x9 sorted site, seeded), K2 (n = 441, a cluster launch) and K6
+    (sphere2500's first solve, a cluster launch), replayed under each pair
+    of predicates: bitwise the eager launches where both are true,
+    untouched otherwise, each region's run count read back; then a replay
+    whose outer region is skipped against one that runs it; then a loop
+    (``device_loop.while_loop``) of 1,500 passes, each launching K1,
+    against the same 1,500 adds run eagerly."""
+    import numpy as np
+    import torch
+
+    from graphite_tpu_torch.ops import device_loop
+    from graphite_tpu_torch.ops.cuda import pcg_dense, pcg_mf, segsum
+
+    dev = torch.device(DEVICE)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=driver_version",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    print(f"[cond] torch={torch.__version__} cuda={torch.version.cuda} "
+          f"driver={smi.stdout.strip()} conditional nodes: "
+          f"graphite_tpu_torch/csrc/cond.cu (torch.cuda.CUDAGraph has "
+          f"begin_capture_to_if_node: "
+          f"{hasattr(torch.cuda.CUDAGraph, 'begin_capture_to_if_node')})")
+    rng = np.random.default_rng(3)
+    seg = np.sort(rng.integers(0, 7_777, 31_843))
+    vals = torch.as_tensor(rng.standard_normal((31_843, 9)).astype(
+        np.float32), device=dev)
+    plan = segsum.plan_segments(seg, 7_777, dev, width=9)
+    n = 441
+    a = rng.standard_normal((n, n))
+    s_mat = a @ a.T + n * np.eye(n)
+    m_mat = np.zeros_like(s_mat)
+    for i in range(0, n, 9):
+        m_mat[i:i + 9, i:i + 9] = np.linalg.inv(s_mat[i:i + 9, i:i + 9])
+    k2_args = [torch.as_tensor(x.astype(np.float32), device=dev)
+               for x in (s_mat, m_mat, rng.standard_normal(n))]
+    k6_args, k6_kw = first_k6_inputs(pose, pose_solver("bj"), 1e-4)
+
+    def launch():
+        return (segsum.sorted_segment_sum(vals, plan),
+                pcg_dense.dense_pcg(*k2_args, max_iter=10, tol=1.0,
+                                    rejection_ratio=5.0)[0],
+                pcg_mf.solve_pcg_mf(*k6_args, **k6_kw)[0])
+
+    refs = launch()
+    outs = [torch.zeros_like(r) for r in refs]
+    p_out = torch.ones((), dtype=torch.bool, device=dev)
+    p_in = torch.ones((), dtype=torch.bool, device=dev)
+
+    def inner():
+        for o, r in zip(outs, launch()):
+            o.copy_(r)
+
+    cap = device_loop.Capture(dev)
+    cap.record(lambda: device_loop.cond(p_out, lambda: device_loop.cond(
+        p_in, inner, "kernels"), "outer"), 2)
+    for a_val, b_val in ((True, True), (True, False), (False, True)):
+        p_out.fill_(a_val)
+        p_in.fill_(b_val)
+        for o in outs:
+            o.zero_()
+        before = cap.region_runs()
+        cap.replay()
+        torch.cuda.synchronize()
+        after = cap.region_runs()
+        ran = a_val and b_val
+        same = [torch.equal(o, r) if ran else bool((o == 0).all())
+                for o, r in zip(outs, refs)]
+        runs = {k: after[k] - before.get(k, 0) for k in after}
+        print(f"[cond] outer={a_val} inner={b_val}: K1, K2, K6 "
+              f"{'bitwise their eager launches' if ran else 'untouched'}="
+              f"{same} region runs={runs}")
+        check(all(same), f"cond: a region's outputs are wrong at "
+              f"outer={a_val} inner={b_val}")
+        check(runs == {"outer": int(a_val), "kernels": int(ran)},
+              f"cond: region runs {runs} at outer={a_val} inner={b_val}")
+    p_in.fill_(True)
+    p_out.fill_(True)
+    taken = device_ms(cap.replay)
+    p_out.fill_(False)
+    skipped = device_ms(cap.replay)
+    print(f"[cond] replay ms: regions run {taken:.4f}, outer region skipped "
+          f"{skipped:.4f} ({card_label()})")
+    check(skipped < 0.1 * taken, "cond: a skipped region is not cheap")
+
+    # a loop, past any count of unrolled regions
+    acc = torch.zeros_like(refs[0])
+    k = torch.zeros((), dtype=torch.int64, device=dev)
+    limit = torch.full((), 1500, dtype=torch.int64, device=dev)
+
+    def body():
+        acc.add_(segsum.sorted_segment_sum(vals, plan))
+        k.add_(1)
+
+    loop = device_loop.Capture(dev)
+    loop.record(lambda: device_loop.while_loop(lambda: k < limit, body,
+                                               "count"), 1)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    loop.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end)
+    passes = int(k)
+    launched = loop.launches(1)["segsum.sorted_segment_sum"]
+    ref = torch.zeros_like(acc)
+    for _ in range(1500):  # the plain version: the same adds, eagerly
+        ref.add_(refs[0])
+    again = device_ms(loop.replay)  # k == limit: no pass
+    same = torch.equal(acc, ref)
+    print(f"[cond] loop: {passes} passes of K1 in one replay ({ms:.4f} ms; "
+          f"{again:.4f} with none), K1 launched {launched}, loop runs "
+          f"{loop.region_runs()}, the sum bitwise 1,500 eager adds={same}")
+    check(passes == 1500 and int(k) == 1500
+          and loop.region_runs() == {"count": 1500} and launched == 1500,
+          "cond: the loop did not run 1,500 passes")
+    check(same, "cond: the loop's sum of K1 differs from the eager adds")
 
 
 def check_quaternions(tag, result):
@@ -1905,26 +2055,74 @@ def same_bits(tag, a, b):
 
 
 def graph_launches(loop):
-    """A captured path's launches by entry point: the capture's count
-    (one replay) times the loop's replays."""
-    return {s.name: loop.capture_launches.get(s.name, 0) * loop.replays
-            for s in all_stats()}
+    """A captured path's launches by entry point over the loop's replays:
+    the top level's on every replay, a conditional region's on each run of
+    its body (the regions' run counts read back once)."""
+    return loop.capture.launches(loop.replays)
 
 
-def after_stop(loop, result):
-    """The replays of the last run after its stop, and their device ms
-    (each computes a whole iteration and changes nothing)."""
-    wasted = loop.replay_ms[result.iterations:]
-    return f"replays after the stop={len(wasted)} ({sum(wasted):.4f} ms)"
+def replay_split(loop, result):
+    """The last run's replay ms: (accepted, rejected, after the stop)."""
+    ms = loop.replay_ms
+    return ([m for m, h in zip(ms, result.history) if h["accepted"]],
+            [m for m, h in zip(ms, result.history) if not h["accepted"]],
+            ms[result.iterations:])
+
+
+def region_launches(capture):
+    """Each kernel wrapper's launches captured in each region (those of
+    the regions nested in it apart), summed by region name."""
+    out = {}
+    for region in capture.regions:
+        into = out.setdefault(region.name, {})
+        for name, n in region.launches.items():
+            if name != "cond.set_conditional":
+                into[name] = into.get(name, 0) + n
+    return out
+
+
+def median_or_none(values):
+    return round(statistics.median(values), 4) if values else None
+
+
+def print_replays(tag, loop, result, runs_iterations, runs_accepted):
+    """Accepted, rejected and after-stop replay ms of the last run, the
+    regions' run counts over the loop's life (checked against the runs'
+    ``runs_iterations`` iterations and ``runs_accepted`` accepted steps),
+    the CG steps per iteration, the graph pool and peak memory."""
+    import torch
+
+    acc, rej, after = replay_split(loop, result)
+    runs = loop.capture.region_runs()
+    cg = runs.get("cg_step")
+    per_it = None if cg is None else round(cg / max(runs_iterations, 1), 3)
+    print(f"[{tag}] replay ms ({card_label()}): accepted median="
+          f"{median_or_none(acc)} (n={len(acc)}) rejected median="
+          f"{median_or_none(rej)} (n={len(rej)}) after the stop "
+          f"{[round(m, 4) for m in after]}; region runs over the loop's "
+          f"life {runs}; CG steps per iteration={per_it} (of "
+          f"{getattr(loop.solver, 'max_iter', None)}); graph pool="
+          f"{loop.pool_bytes / 2**20:.1f} MiB max_memory_allocated="
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    check(runs.get("lm_iteration") == runs.get("lm_update")
+          == runs_iterations,
+          f"{tag}: the step and update regions ran {runs}, not "
+          f"{runs_iterations} times")
+    check(runs.get("lm_accept") == runs_accepted
+          and runs.get("lm_reject") == runs_iterations - runs_accepted,
+          f"{tag}: the accept / reject regions ran {runs}")
+    return acc, rej, after
 
 
 def run_graph(tag, problem, solver, iterations, host, lm=None):
     """``jit_loop`` on the card, twice (the first call captures, the
     second only replays), each bitwise equal to ``host`` (the card's host
     loop from the same start). Prints the capture seconds, ms per
-    iteration of the graph (per replay, CUDA events) and of the host loop,
-    launches per replay and the graph pool's memory. Returns (the second
-    run, the cached loop, launches of both runs)."""
+    iteration of the graph (per replay, CUDA events: accepted, rejected,
+    after the stop) and of the host loop, the launches captured, the
+    regions' run counts, the CG steps per iteration and the graph pool's
+    memory. Returns (the second run, the cached loop, launches of both
+    runs)."""
     import torch
 
     from graphite_tpu_torch.optimizers import (
@@ -1948,23 +2146,24 @@ def run_graph(tag, problem, solver, iterations, host, lm=None):
     same_bits(tag, out, host)
     host_ms = [h["device_ms"] for h in host.history[1:]]
     host_wall = [1e3 * h["time"] for h in host.history[1:]]
-    per_replay = {k: v for k, v in loop.capture_launches.items()}
     print(f"[{tag}] bitwise_equal_to_host_loop=True iterations={iterations} "
           f"accepted={[h['accepted'] for h in out.history]}")
     print(f"[{tag}] capture seconds={loop.capture_seconds:.3f} (first call "
           f"{t_first:.3f} s incl. warm-up, init and replays; second call "
           f"{t_second:.3f} s) graph pieces={len(loop.capture.pieces)} "
-          f"host syncs per replay={loop.capture.host_calls}")
+          f"host syncs per replay={loop.capture.host_calls} conditional "
+          f"regions={len(loop.capture.regions)}")
     print(f"[{tag}] ms per LM iteration: graph device="
-          f"{statistics.mean(loop.replay_ms[:out.iterations]):.4f} "
-          f"{after_stop(loop, out)} (per replay "
-          f"{[round(m, 4) for m in loop.replay_ms]}) host loop median "
+          f"{statistics.mean(loop.replay_ms[:out.iterations]):.4f} (per "
+          f"replay {[round(m, 4) for m in loop.replay_ms]}) host loop median "
           f"device={statistics.median(host_ms):.4f} "
           f"host wall={statistics.median(host_wall):.4f}")
-    print(f"[{tag}] launches per replay={per_replay} graph pool "
-          f"memory={loop.pool_bytes / 2**20:.1f} MiB "
-          f"max_memory_allocated={torch.cuda.max_memory_allocated() / 2**30:.3f}"
-          f" GiB")
+    print(f"[{tag}] launches captured (a replay runs at most these)="
+          f"{dict(loop.capture_launches)}; by region: top level "
+          f"{loop.capture.top_launches}, "
+          f"{region_launches(loop.capture)}")
+    print_replays(tag, loop, out, first.iterations + out.iterations,
+                  first.accepted_steps + out.accepted_steps)
     return out, loop, graph_launches(loop)
 
 
@@ -2001,25 +2200,28 @@ def phase_jit_venice(problem, solver, iterations, host):
     torch.cuda.reset_peak_memory_stats()
     out, loop, launches = run_graph("jit-venice", problem, solver,
                                     iterations, host)
-    acc = [m for m, h in zip(loop.replay_ms, out.history) if h["accepted"]]
-    rej = [m for m, h in zip(loop.replay_ms, out.history)
-           if not h["accepted"]]
+    acc, rej, _ = replay_split(loop, out)
     h_acc = [h["device_ms"] for h in host.history[1:] if h["accepted"]]
     h_rej = [h["device_ms"] for h in host.history[1:] if not h["accepted"]]
-
-    def med(v):
-        return round(statistics.median(v), 4) if v else None
-
     print(f"[jit-venice] ms per accepted / rejected iteration: graph "
-          f"{med(acc)} / {med(rej)}; host loop {med(h_acc)} / {med(h_rej)}")
+          f"{median_or_none(acc)} / {median_or_none(rej)}; host loop "
+          f"{median_or_none(h_acc)} / {median_or_none(h_rej)} "
+          f"({card_label()})")
+    check(acc and rej and statistics.median(rej)
+          <= 0.5 * statistics.median(acc),
+          "jit-venice: the median rejected replay is not at most half the "
+          "median accepted one")
     for key in ("segsum_stream.streaming_segment_sum",
                 "segsum_stream.streaming_segment_product_sum_rtbl",
                 "segsum_stream.streaming_matvec_tbl",
                 "segmv.block_matvec_wtbl", "segmv.matvec_sym_stream"):
         check(loop.capture_launches.get(key, 0) > 0,
               f"{key} not in the Venice graph")
-    check(loop.capture_launches["segmv.matvec_sym_stream"]
-          == solver.max_iter, "K5 must launch once per fixed CG step")
+    check(loop.capture_launches["segmv.matvec_sym_stream"] == 1,
+          "K5 must be captured once, in the CG step's loop body")
+    check(graph_launches(loop)["segmv.matvec_sym_stream"]
+          == loop.capture.region_runs()["cg_step"],
+          "K5 must launch once per CG step run")
     drop_loop(problem, loop)  # phase 13 needs the memory
     return launches
 
@@ -2115,6 +2317,9 @@ def phase_remask(iterations):
           f"remaskable freeze; undone: bitwise the first run; chi2 "
           f"{full.chi2!r} (all) / {edited.chi2!r} (edited); ms per "
           f"replay {statistics.mean(loops[0].replay_ms):.4f}")
+    print_replays("remask", loops[0], full,
+                  edited.iterations + 2 * full.iterations,
+                  edited.accepted_steps + 2 * full.accepted_steps)
 
     lm2_iters = 30
     lm2_opts = LevenbergMarquardtOptions(iterations=lm2_iters, jit_loop=True)
@@ -2130,8 +2335,12 @@ def phase_remask(iterations):
     print(f"[remask] LM2 stop iteration card={gpu.iterations} "
           f"cpu={cpu.iterations} (of {lm2_iters}) accepted card="
           f"{[h['accepted'] for h in gpu.history]}; ms per replay "
-          f"{statistics.mean(lm2_loop.replay_ms[:gpu.iterations]):.4f}, "
-          f"{after_stop(lm2_loop, gpu)}")
+          f"{statistics.mean(lm2_loop.replay_ms[:gpu.iterations]):.4f}")
+    acc, _, after = print_replays("remask LM2", lm2_loop, gpu,
+                                  gpu.iterations, gpu.accepted_steps)
+    check(after and max(after) < 0.05 * statistics.median(acc),
+          "remask: LM2's replays after the stop cost 5% of an accepted "
+          "replay or more")
     check(gpu.iterations == cpu.iterations,
           "LM2 stops at another iteration on the card")
     check([h["accepted"] for h in gpu.history]
@@ -3003,7 +3212,56 @@ def phase_shard_w1(problem, solver, iterations, host):
           f"{tag}: final parameters differ from phase 7's")
     print(f"[{tag}] bitwise phase 7's host loop: accept pattern, chi2 and "
           f"final parameters")
+    graph = shard_w1_graph(problem, solver, iterations, host)
     order_witness(problem, solver, 3, host)
+    return add_launches(launches, graph)
+
+
+def shard_w1_graph(problem, solver, iterations, host):
+    """S1 under ``jit_loop`` (world size 1 may capture: its one NCCL rank's
+    all-reduces lie inside the conditional regions): bitwise phase 7's host
+    loop; its replays printed as phases 15-18 print theirs. Returns the
+    graph's launches."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from graphite_tpu_torch.optimizers.lm import device_loops
+    from graphite_tpu_torch.parallel import make_mesh, sharded_lm
+    from graphite_tpu_torch.parallel.sharding import _replica
+
+    tag = "shard-venice-w1 jit_loop"
+    opts = dataclasses.replace(lm_options(iterations), jit_loop=True)
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rv",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_mesh(device=problem.device)
+            mesh.allreduce(problem.params0[next(iter(problem.params0))])
+            replica = _replica(problem, mesh)
+            params, chi2, k, accepted, trace = sharded_lm(
+                problem, mesh, solver, opts, with_trace=True)
+            (loop,) = device_loops(replica)
+            trace = trace.tolist()
+            check(k == len(host.history)
+                  and [t[0] for t in trace] == [h["chi2"]
+                                                for h in host.history]
+                  and same_params(params, host.params),
+                  f"{tag}: not bitwise phase 7's host loop")
+            result = types.SimpleNamespace(
+                iterations=k, history=[dict(accepted=bool(t[3]))
+                                       for t in trace[:k]])
+            print(f"[{tag}] bitwise phase 7's host loop; capture seconds="
+                  f"{loop.capture_seconds:.3f}")
+            print_replays(tag, loop, result, k, accepted)
+            launches = graph_launches(loop)
+            drop_loop(replica, loop)
+            del loop
+        finally:
+            dist.destroy_process_group()
     return launches
 
 
@@ -3391,6 +3649,7 @@ def main():
     k6 = timed("k6", phase_k6)
     pose_launches, pose, pose_host = timed("sphere2500", phase_pose, 30)
     pose_k1 = timed("sphere2500-k1", phase_k1_sites, pose, "sphere2500", 4)
+    timed("cond", phase_cond, pose)
     pose_graph_launches = timed("jit-sphere2500", phase_jit_pose, pose, 30,
                                 pose_host)
     del pose

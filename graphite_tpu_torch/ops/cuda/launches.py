@@ -8,10 +8,12 @@ bracketed by two CUDA events on the launch stream; ``total_ms`` reads them
 (after a synchronize).
 
 Inside a captured CUDA graph (the device-controlled LM iteration) a
-wrapper runs once, at capture time: its count is the launches of one
-replay, and a captured path's launches are that count times the replays
+wrapper runs once, at capture time: its count is the launches captured
 (``snapshot`` takes every wrapper's count, for the difference across a
-capture). Events cannot be recorded there: ``start`` raises when
+capture). A replay runs those outside the graph's conditional regions
+and those of each region it enters, so a captured path's launches are
+``device_loop.Capture.launches(replays)``: the first times the replays,
+each region's times the runs of its body. Events cannot be recorded there: ``start`` raises when
 ``record_events`` is set during a capture.
 """
 

@@ -135,13 +135,15 @@ def run_pcg(b: torch.Tensor, matvec: Callable, precond: Callable,
 def run_pcg_fixed(b: torch.Tensor, matvec: Callable, precond: Callable,
                   max_iter: int, tol: float, rejection_ratio: float
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``run_pcg`` with no host read: ``max_iter`` steps, each taken or
-    held by a device flag ``done``, set by ``run_pcg``'s own tests (rz ==
-    0, a rejected or NaN step, |rz| < tol). A taken step does
-    ``run_pcg``'s float operations in its order and a held value is
-    selected with ``torch.where``, so x and the step count (a 0-d int64
-    tensor) are bitwise ``run_pcg``'s; what a held step computes is
-    thrown away, NaN or not."""
+    """``run_pcg`` with no host read, as the JAX package's ``while_loop``:
+    one CG step run while ``~done & (k < max_iter)``
+    (``device_loop.while_loop``: on the card a "while" graph node, the
+    step captured once), the flag set by ``run_pcg``'s own tests (rz == 0,
+    a rejected or NaN step, |rz| < tol). A step does ``run_pcg``'s float
+    operations in its order and writes x, r, p, z, rz, rz_min, k and done
+    in place, the rejected step's values kept by ``torch.where``; so x and
+    the step count (a 0-d int64 tensor) are bitwise ``run_pcg``'s, and no
+    step runs after the exit."""
     dot = tree_dot
 
     def precondition(r):
@@ -149,16 +151,17 @@ def run_pcg_fixed(b: torch.Tensor, matvec: Callable, precond: Callable,
         return precond(r / torch.where(rnorm == 0, torch.ones_like(rnorm),
                                        rnorm))
 
+    # the state, written in place by the steps
     x = torch.zeros_like(b)
-    r = b
+    r = b.clone()
     z = precondition(r)
-    p = z
+    p = z.clone()
     rz = dot(r, z)
     rz_min = torch.full((), float("inf"), dtype=b.dtype, device=b.device)
     k = torch.zeros((), dtype=torch.int64, device=b.device)
     done = rz == 0
-    for _ in range(max_iter):
-        live = ~done
+
+    def step():
         v = matvec(p)
         alpha = rz / dot(p, v)
         x_new = x + alpha * p
@@ -167,16 +170,17 @@ def run_pcg_fixed(b: torch.Tensor, matvec: Callable, precond: Callable,
         rz_new = dot(r_new, z_new)
         reject = ((rz_new.abs() > rejection_ratio * rz_min)
                   | torch.isnan(rz_new))
-        rz_min = torch.where(live, torch.minimum(rz_min, rz_new.abs()),
-                             rz_min)
-        k = k + live.to(k.dtype)
-        take = live & ~reject
-        p = torch.where(take, z_new + (rz_new / rz) * p, p)
-        x = torch.where(take, x_new, x)
-        r = torch.where(take, r_new, r)
-        z = torch.where(take, z_new, z)
-        rz = torch.where(take, rz_new, rz)
-        done = done | reject | (take & ((rz.abs() < tol) | (rz == 0)))
+        p_new = z_new + (rz_new / rz) * p
+        rz_min.copy_(torch.minimum(rz_min, rz_new.abs()))
+        k.add_(1)
+        p.copy_(torch.where(reject, p, p_new))
+        x.copy_(torch.where(reject, x, x_new))
+        r.copy_(torch.where(reject, r, r_new))
+        z.copy_(torch.where(reject, z, z_new))
+        rz.copy_(torch.where(reject, rz, rz_new))
+        done.copy_(reject | (rz.abs() < tol) | (rz == 0))
+
+    device_loop.while_loop(lambda: ~done & (k < max_iter), step, "cg_step")
     return x, k
 
 

@@ -16,22 +16,28 @@ Two modes:
   entry also holds the iteration's device time from CUDA events.
 - ``jit_loop=True``: the device-controlled iteration (``_DeviceLoop``),
   the counterpart of the JAX package's ``lax.while_loop``. The LM state
-  lives in static tensors and one iteration updates it with no host read:
-  the accepted branch (relinearize, refresh the solver) is computed on
-  every iteration and selected with ``torch.where``, and every update is
-  gated by the ``run`` flag, so an iteration after a stop changes nothing.
-  On a CUDA problem the iteration is captured once as a CUDA graph
-  (``ops/device_loop.Capture``, after one eager warm-up that builds every
-  host plan), cached on the problem per (solver, the options that shape
-  the step: ``use_identity`` and the early stop), and replayed
-  ``iterations`` times with no read in between; after each replay the
-  iteration's row [chi2, mu, rho, accepted] is copied into a trace of the
-  run's length, and the history comes from that trace in one readback at
-  the end. The replays after a stop are not skipped (a graph has no
-  branch): each computes a full iteration and changes nothing. On a CPU
-  problem the same iteration runs uncaptured: the plain version of the
-  captured one. Remasking (``Problem.remask``) writes the masks in place,
-  so the cached graph stays valid.
+  lives in static tensors and one iteration updates it in place with no
+  host read. Its control flow is the JAX package's, as conditional
+  regions (``ops/device_loop.cond``, ``_DeviceLoop._step``): the step
+  runs only while the ``run`` flag holds (the ``while_loop``'s exit), and
+  after it the accepted branch (relinearize, refresh the solver) and the
+  rejected one (restore the parameters) each run only on their side of
+  the accept flag (``lax.cond``); inside the PCG solvers the CG step is
+  a loop (``device_loop.while_loop``) that runs until the solve is done.
+  On a CUDA problem the iteration is captured once as a CUDA graph, each
+  region as a conditional graph node (``ops/device_loop.Capture``, after
+  one eager warm-up that runs every region once and builds every host
+  plan), cached on the problem per (solver, the options that shape the
+  step: ``use_identity`` and the early stop), and replayed
+  ``iterations`` times with no read in between: a replay
+  after a stop runs nothing but the test of the flag. After each replay
+  the iteration's row [chi2, mu, rho, accepted] is copied into a trace of
+  the run's length, and the history comes from that trace in one readback
+  at the end. On a CPU problem the same iteration runs uncaptured, each
+  region as its plain ``if`` (a loop as its ``while``): the plain version
+  of the captured one.
+  Remasking (``Problem.remask``) writes the masks in place, so the cached
+  graph stays valid.
 """
 
 from __future__ import annotations
@@ -293,19 +299,6 @@ def _cloned(tree):
     return tree
 
 
-def _select_into(dst, cond, src) -> None:
-    """dst := where(cond, src, dst), tensor by tensor, in place."""
-    a, b = _leaves(dst), _leaves(src)
-    if len(a) != len(b):
-        raise RuntimeError("device loop: the state changed its structure")
-    for d, s in zip(a, b):
-        if d.shape != s.shape or d.dtype != s.dtype:
-            raise RuntimeError(
-                f"device loop: a state tensor changed from {d.dtype}"
-                f"{tuple(d.shape)} to {s.dtype}{tuple(s.shape)}")
-        torch.where(cond, s, d, out=d)
-
-
 def _copy_into(dst, src) -> None:
     """dst := src, tensor by tensor, in place."""
     for d, s in zip(_leaves(dst), _leaves(src), strict=True):
@@ -354,55 +347,71 @@ class _DeviceLoop:
         if dev.type == "cuda":
             self._capture()
 
-    def _candidate(self):
-        """Everything one iteration computes from the state, nothing
-        written: the step, its gain test and the accepted branch."""
-        problem, solver = self.problem, self.solver
-        accept, new_params, new_chi2, rho = try_step(
-            problem, solver, self.lin, self.sstate, self.params, self.mu,
-            self.chi2, self.step_options.use_identity)
-        lin2 = linearize(problem, new_params)
-        return dict(
-            accept=accept, new_params=new_params, new_chi2=new_chi2,
-            rho=rho, lin=lin2, sstate=solver.prepare(problem, lin2,
-                                                     new_params),
-            backup=backup_parameters(problem, new_params),
-            restored=restore_parameters(problem, new_params, self.backup))
-
     def _step(self) -> None:
-        """One iteration, in place, with no host read."""
-        gdt = self.problem.precision.graph_dtype
-        c = self._candidate()
-        run, accept = self.run_flag, c["accept"]
-        take = run & accept
-        mu = torch.where(accept,
-                         self.mu * _damping_factor(c["rho"]).to(gdt),
-                         self.mu * self.nu)
-        nu = torch.where(accept, 2.0, self.nu * 2.0)
-        chi2 = torch.where(accept, c["new_chi2"], self.chi2)
-        low = _low_progress(self.step_options, self.chi2, c["new_chi2"])
-        num_bad = torch.where(accept, torch.where(low, self.num_bad + 1, 0),
-                              self.num_bad)
-        still = _still_running(self.step_options, run, mu, c["rho"], num_bad)
+        """One iteration, in place, with no host read: the JAX package's
+        ``_lm_iteration`` as regions (``device_loop.cond``). The step
+        (solve, update, chi2, rho, accept) runs on the run flag, so that
+        nothing runs after a stop (the ``while_loop``'s exit); then the
+        accepted branch (relinearize, refresh the solver) on run and
+        accept, the rejected one (restore the parameters) on run and not
+        accept (``lax.cond``), and the bookkeeping on the run flag.
 
-        _select_into(self.params, run, {
-            n: torch.where(accept, c["new_params"][n], c["restored"][n])
-            for n in self.params})
-        _select_into(self.backup, take, c["backup"])
-        _select_into(self.lin, take, c["lin"])
-        _select_into(self.sstate, take, c["sstate"])
-        _select_into([self.mu, self.nu, self.chi2, self.rho, self.accepted,
-                      self.num_bad],
-                     run, [mu, nu, chi2, c["rho"], accept, num_bad])
-        self.num_accepted.add_(take.to(torch.int64))
-        # a row written after the stop lies past k: the history skips it
-        self.row.copy_(torch.stack([chi2, mu, c["rho"], accept.to(gdt)]))
-        self.k.add_(run.to(torch.int64))
-        self.run_flag.copy_(still)
+        The branches follow the step's region instead of nesting in it: a
+        nested body is captured on a stream of its own, and the caching
+        allocator reuses a block only on the stream that freed it, so the
+        accepted branch's temporaries (``linearize``, the Hessian) could
+        not reuse the step's (nested, Venice-1778's graph pool grew by
+        half: PERF.md)."""
+        problem, options = self.problem, self.step_options
+        gdt = problem.precision.graph_dtype
+        run, step = self.run_flag, {}
+
+        def try_it():
+            accept, new_params, new_chi2, rho = try_step(
+                problem, self.solver, self.lin, self.sstate, self.params,
+                self.mu, self.chi2, options.use_identity)
+            step.update(new_params=new_params, new_chi2=new_chi2,
+                        low=_low_progress(options, self.chi2, new_chi2))
+            self.accepted.copy_(accept)
+            self.rho.copy_(rho)
+
+        def on_accept():
+            new_params = step["new_params"]
+            lin = linearize(problem, new_params)
+            sstate = self.solver.prepare(problem, lin, new_params)
+            _copy_into(self.params, new_params)
+            _copy_into(self.backup, backup_parameters(problem, new_params))
+            _copy_into(self.lin, lin)
+            _copy_into(self.sstate, sstate)
+            self.mu.copy_(self.mu * _damping_factor(self.rho).to(gdt))
+            self.nu.fill_(2.0)
+            self.chi2.copy_(step["new_chi2"])
+            self.num_bad.copy_(torch.where(step["low"], self.num_bad + 1, 0))
+            self.num_accepted.add_(1)
+
+        def on_reject():
+            _copy_into(self.params, restore_parameters(
+                problem, step["new_params"], self.backup))
+            self.mu.copy_(self.mu * self.nu)
+            self.nu.copy_(self.nu * 2.0)
+
+        def update():
+            self.row.copy_(torch.stack([self.chi2, self.mu, self.rho,
+                                        self.accepted.to(gdt)]))
+            self.k.add_(1)
+            self.run_flag.copy_(_still_running(
+                options, self.run_flag, self.mu, self.rho, self.num_bad))
+
+        device_loop.cond(run, try_it, "lm_iteration")
+        device_loop.cond(run & self.accepted, on_accept, "lm_accept")
+        device_loop.cond(run & ~self.accepted, on_reject, "lm_reject")
+        device_loop.cond(run, update, "lm_update")
 
     def _capture(self) -> None:
-        """Warm up (one eager candidate on a side stream: every host plan
-        gets built), then capture one iteration."""
+        """Warm up (one eager iteration on a side stream, every region run:
+        every host plan gets built), then capture one iteration. The
+        warm-up writes the state; every run starts by resetting it
+        (``_start``)."""
         dev = self.problem.device
         # the Schur complement needs IEEE float32 products (pcg_schur.py)
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -410,13 +419,14 @@ class _DeviceLoop:
         t0 = time.perf_counter()
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side), device_loop.enabled():
-            self._candidate()
+        with torch.cuda.stream(side), device_loop.enabled(
+                warmup=True) as warm:
+            self._step()
         torch.cuda.current_stream(dev).wait_stream(side)
         reserved = torch.cuda.memory_reserved(dev)
         before = launch_stats.snapshot()
         cap = device_loop.Capture(dev)
-        cap.record(self._step)
+        cap.record(self._step, warm.regions)
         after = launch_stats.snapshot()
         self.capture_launches = {n: after[n] - before.get(n, 0)
                                  for n in after if after[n] - before.get(n, 0)}
@@ -534,13 +544,16 @@ def _device_loop(problem, solver, options) -> _DeviceLoop:
 def cached_device_loop(problem, solver,
                        options: LevenbergMarquardtOptions):
     """The device loop a ``jit_loop`` run of (solver, options) on
-    ``problem`` reuses, or None: its ``capture`` (the CUDA graph pieces),
-    ``capture_seconds`` (the warm-up and the capture),
-    ``capture_launches`` (each kernel wrapper's
-    launches in one replay), ``pool_bytes`` (the memory the capture
-    reserved), ``replays`` (replays over the loop's life) and
+    ``problem`` reuses, or None: its ``capture`` (the CUDA graph pieces;
+    ``capture.regions`` its conditional regions, ``capture.region_runs()``
+    how often each ran, ``capture.launches(replays)`` the launches the
+    replays ran), ``capture_seconds`` (the warm-up and the capture),
+    ``capture_launches`` (each kernel wrapper's launches captured: a replay
+    runs those outside the regions and those of the regions it enters),
+    ``pool_bytes`` (the memory the capture reserved, its regions' pools
+    included), ``replays`` (replays over the loop's life) and
     ``replay_ms`` (the last run's device ms per replay, those after a stop
-    included)."""
+    included: each runs only the test of the run flag)."""
     return problem._cache.get(_loop_key(solver, options))
 
 

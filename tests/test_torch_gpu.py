@@ -54,6 +54,16 @@ on a machine with only PyTorch (``--noconftest`` skips the JAX set-up in
   and matches a fresh remaskable freeze bitwise; a kernel wrapper raises
   when ``record_events`` is set during a capture; ``profile_dir`` writes
   a trace holding the card's kernels, captured loop or not.
+- Conditional regions (``device_loop.cond``, conditional graph nodes): a
+  region runs on replay exactly when its predicate is true, nested
+  regions too, and an inner region holding K1 and the cluster launches of
+  K2 and K6 gives their eager launches' bits; a loop (``while_loop``,
+  a "while" node) holding K1 runs 1,500 passes in one replay, and
+  PCG-Schur's ``run_pcg_fixed`` at ``max_iter`` 1,100 under ``jit_loop``
+  is one loop region, bitwise the host loop, with its CG steps;
+  Ladybug-49 under ``jit_loop`` at damping 1e-8 (rejected first steps)
+  bitwise the host loop, its accepted branch run on the accepted
+  iterations only.
 - Gradient descent and Adam on a small BAL, captured as a CUDA graph:
   bitwise the CPU run (history and final parameters), K1 in the graph.
 - Covariance's Schur path on the card against the CPU within 1e-9 of the
@@ -833,6 +843,172 @@ def test_remask_reuses_the_captured_graph(cuda_device):
         problem.set_factor_active(fname, h, 0)
     problem.set_vertex_fixed("bal_camera", 1, False)
     _bitwise(levenberg_marquardt(problem, solver, options=opts), full)
+
+
+def _captured(device, fn, regions):
+    """``fn()``, which opens ``regions`` regions, captured
+    (``device_loop.Capture``), as the LM's iteration is: returns the
+    capture."""
+    from graphite_tpu_torch.ops import device_loop
+
+    cap = device_loop.Capture(device)
+    cap.record(fn, regions)
+    return cap
+
+
+@pytest.mark.parametrize("value", [True, False])
+def test_cond_region_runs_on_its_predicate(cuda_device, value):
+    from graphite_tpu_torch.ops import device_loop
+
+    x = torch.zeros(4, device=cuda_device)
+    pred = torch.ones((), dtype=torch.bool, device=cuda_device)
+    cap = _captured(cuda_device, lambda: (x.add_(1), device_loop.cond(
+        pred, lambda: x.mul_(3), "mul")), 1)
+    pred.fill_(value)
+    for _ in range(2):
+        cap.replay()
+    torch.cuda.synchronize()
+    assert x.tolist() == [12.0 if value else 2.0] * 4
+    assert cap.region_runs() == {"mul": 2 if value else 0}
+
+
+@pytest.mark.parametrize("outer,inner", [(True, True), (True, False),
+                                         (False, True)])
+def test_cond_nested_region_holds_k1_k2_k6(cuda_device, outer, inner):
+    """K1, K2 (a cluster launch) and K6 (a cluster launch) in an inner
+    region, a nested one: bitwise their eager launches where both
+    predicates are true, untouched otherwise."""
+    from graphite_tpu_torch.ops import device_loop
+
+    rng = np.random.default_rng(5)
+    seg = np.sort(rng.integers(0, 50, 3000))
+    vals, = _on(cuda_device, rng.standard_normal((3000, 9)).astype(
+        np.float32))
+    plan = segsum.plan_segments(seg, 50, cuda_device, width=9)
+    n = 441
+    A = rng.standard_normal((n, n))
+    S = A @ A.T + n * np.eye(n)
+    M = np.zeros_like(S)
+    for i in range(0, n, 9):
+        M[i:i + 9, i:i + 9] = np.linalg.inv(S[i:i + 9, i:i + 9])
+    k2_args = _on(cuda_device, *[a.astype(np.float32) for a in (
+        S, M, rng.standard_normal(n))])
+    k2_kw = dict(max_iter=10, tol=1.0, rejection_ratio=5.0)
+    k6_args = _first_pose_solve(cuda_device, "se3", "bj")
+
+    def launch():
+        return (segsum.sorted_segment_sum(vals, plan),
+                pcg_dense.dense_pcg(*k2_args, **k2_kw)[0],
+                pcg_mf.solve_pcg_mf(*k6_args, **K6_KW)[0])
+
+    refs = launch()
+    outs = [torch.zeros_like(r) for r in refs]
+    p_out = torch.tensor(outer, device=cuda_device)
+    p_in = torch.tensor(inner, device=cuda_device)
+    count = torch.zeros((), device=cuda_device)
+
+    def inner_body():
+        for o, r in zip(outs, launch()):
+            o.copy_(r)
+
+    cap = _captured(cuda_device, lambda: device_loop.cond(
+        p_out, lambda: (count.add_(1), device_loop.cond(
+            p_in, inner_body, "kernels")), "outer"), 2)
+    cap.replay()
+    torch.cuda.synchronize()
+    assert float(count) == float(outer)
+    for o, r in zip(outs, refs):
+        if outer and inner:
+            assert torch.equal(o, r)
+        else:
+            assert bool((o == 0).all())
+    runs = cap.region_runs()
+    assert runs == {"outer": int(outer), "kernels": int(outer and inner)}
+    inside = cap.regions[1].launches
+    assert inside["segsum.sorted_segment_sum"] == 1
+    assert inside["pcg_dense.dense_pcg"] == 1
+    assert inside["pcg_mf.solve_pcg_mf"] == 1
+
+
+def test_while_loop_runs_past_a_thousand_passes(cuda_device):
+    """A loop (a "while" graph node) whose body holds K1 runs 1,500 times
+    in one replay, more than any fixed count of unrolled regions would
+    hold, and no time once its predicate starts false."""
+    from graphite_tpu_torch.ops import device_loop
+
+    plan = segsum.plan_segments(np.array([0, 0, 1, 2]), 3, cuda_device)
+    vals = torch.ones(4, 2, device=cuda_device)
+    segsum.sorted_segment_sum(vals, plan)  # build and warm up
+    acc = torch.zeros(3, 2, device=cuda_device)
+    k = torch.zeros((), dtype=torch.int64, device=cuda_device)
+    limit = torch.tensor(1500, device=cuda_device)
+
+    def body():
+        acc.add_(segsum.sorted_segment_sum(vals, plan))
+        k.add_(1)
+
+    cap = _captured(cuda_device, lambda: device_loop.while_loop(
+        lambda: k < limit, body, "count"), 1)
+    cap.replay()
+    torch.cuda.synchronize()
+    assert int(k) == 1500
+    assert acc[:, 0].tolist() == [3000.0, 1500.0, 1500.0]
+    assert cap.region_runs() == {"count": 1500}
+    assert cap.launches(1)["segsum.sorted_segment_sum"] == 1500
+    cap.replay()  # k == limit: the body does not run
+    torch.cuda.synchronize()
+    assert int(k) == 1500 and cap.region_runs() == {"count": 1500}
+
+
+def test_jit_loop_pcg_max_iter_above_a_thousand_bitwise_host_loop(
+        cuda_device, monkeypatch):
+    """PCG-Schur on its block-sparse S matvec (``run_pcg_fixed``) with
+    ``max_iter`` 1,100 under jit_loop: one loop region holds the CG step,
+    the replays run as many CG steps as the card's host loop, and the run
+    is bitwise the host loop's."""
+    problem = _small_bal(cuda_device)
+    solver = PCGSchurSolver(1100, 1e-6, 5.0, dense_matvec_limit=0)
+    matvecs = []
+    real = schur.SchurOps.s_matvec
+
+    def s_matvec(self, p):
+        matvecs.append(1)
+        return real(self, p)
+
+    monkeypatch.setattr(schur.SchurOps, "s_matvec", s_matvec)
+    opts = dict(iterations=6)
+    host = levenberg_marquardt(problem, solver,
+                               options=LevenbergMarquardtOptions(**opts))
+    host_steps = len(matvecs)
+    out = levenberg_marquardt(problem, solver, options=LevenbergMarquardtOptions(
+        jit_loop=True, **opts))
+    _bitwise(out, host)
+    loop = device_loops(problem)[0]
+    runs = loop.capture.region_runs()
+    assert [r.name for r in loop.capture.regions].count("cg_step") == 1
+    assert runs["cg_step"] == host_steps > 6
+
+
+def test_ladybug_jit_loop_with_rejects_bitwise_host_loop(cuda_device):
+    """Ladybug-49 under jit_loop at damping 1e-8, whose first steps are
+    rejected: bitwise the card's host loop, the accepted branch run on
+    the accepted iterations only."""
+    g, *_ = bal.build_graph(synthetic.make_bal("ladybug", seed=0),
+                            precision=gtt.FP32_FP32)
+    problem, solver = g.freeze(device=cuda_device), PCGSchurSolver(
+        10, 1.0, 5.0)
+    opts = dict(iterations=10, initial_damping=1e-8)
+    host = levenberg_marquardt(problem, solver,
+                               options=LevenbergMarquardtOptions(**opts))
+    out = levenberg_marquardt(problem, solver, options=LevenbergMarquardtOptions(
+        jit_loop=True, **opts))
+    pattern = [h["accepted"] for h in host.history]
+    assert not pattern[0] and True in pattern
+    _bitwise(out, host)
+    loop = device_loops(problem)[0]
+    assert loop.capture.region_runs() == {
+        "lm_iteration": 10, "lm_accept": sum(pattern),
+        "lm_reject": 10 - sum(pattern), "lm_update": 10}
 
 
 def test_record_events_raises_during_capture(cuda_device):
