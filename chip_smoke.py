@@ -9,7 +9,9 @@ own:
 1. build the CUDA kernels from the checkout, one nvcc per source, all
    started together: K1 ``csrc/segsum.cu``, K2 ``csrc/pcg_dense.cu``, K3
    ``csrc/segprod.cu``, K4 / K5 ``csrc/segmv.cu``, K6 ``csrc/pcg_mf.cu``,
-   and the conditional graph nodes of ``jit_loop``, ``csrc/cond.cu``;
+   and the conditional graph nodes of ``jit_loop``, ``csrc/cond.cu``; and
+   the host libraries (g++), ``native/structure.cpp`` and
+   ``native/bal_loader.cpp``;
 2. K1 vs its plain PyTorch version on the card, at the BAL Ladybug-49
    reduction shapes (seeded random inputs; each label names the plan's
    lanes per segment, ``group``): relative error <= 1e-5, two runs
@@ -57,8 +59,19 @@ own:
    1,500 passes in one replay, K1 launched and the loop's run count
    1,500, and no pass where its predicate starts false; the torch, CUDA
    and driver versions;
+4f. ``host-setup``: Ladybug-49 and sphere2500 set up (freeze, the Hessian
+   and Ladybug's Schur structure, one LM iteration, which builds the
+   plans) with the host library and with every ``hostops`` entry swapped
+   for its plain NumPy version, in turns (a native warm-up, then numpy,
+   native, native, numpy):
+   each section's seconds both ways, and every array and tensor of the
+   structures, plans and freeze's host arrays equal (values and dtype);
 5. the BAL Venice-1778 problem (993,923 points, 5,001,946 observations,
-   dim_p 16,002) frozen on the card, with its host set-up seconds;
+   dim_p 16,002) frozen on the card, its structures and one pass of the
+   solve's stages (every host plan), with the host library, then again
+   with the plain versions: each section's seconds both ways (and the
+   builders' laps), every array equal, the host CPU, ``os.cpu_count()``,
+   the library's threads and build seconds;
 6. K1, K3 (by index, and from gathered streams), K4 and K5 vs their
    plain versions on the card at Venice-1778's own shapes (indices and
    segment plans of the frozen problem, values of its first
@@ -298,6 +311,7 @@ bytes over the HBM rate and its float32 operations over the float32 peak
 """
 
 import concurrent.futures
+import contextlib
 import json
 import statistics
 import subprocess
@@ -404,6 +418,7 @@ def csr_from_blocks(blocks, brow, bcol, n_brows, n_bcols):
 
 
 def phase_build():
+    from graphite_tpu_torch.native import bal_loader, structure
     from graphite_tpu_torch.ops.cuda import (
         cond,
         pcg_dense,
@@ -415,7 +430,8 @@ def phase_build():
 
     loaders = (segsum.load_kernel, pcg_dense.load_kernel,
                segsum_stream.load_product_kernel, segmv.load_kernel,
-               pcg_mf.load_kernel, cond.load_kernel)
+               pcg_mf.load_kernel, cond.load_kernel, structure.library,
+               bal_loader.library)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
         libs = list(pool.map(lambda load: load(), loaders))
@@ -423,7 +439,7 @@ def phase_build():
     print(f"[build] seconds={total:.3f} " + " ".join(
         f"{lib.name}={lib.build_seconds:.3f}s" for lib in libs))
     for lib in libs:
-        for line in lib.log.splitlines():
+        for line in getattr(lib, "log", "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {lib.name}: {line.strip()}")
 
@@ -1120,49 +1136,187 @@ def phase_pose_generic(iterations):
     return launches
 
 
-def phase_venice_setup():
-    """BAL Venice-1778 frozen on the card, its structures and one pass of
-    the solve's stages (which builds every host plan)."""
+# ---- host set-up: the native host library against its plain versions ----
+
+SETUP_SECTIONS = ("freeze", "hessian_structure", "schur_structure",
+                  "first_pass_with_plans")
+
+
+@contextlib.contextmanager
+def plain_hostops():
+    """Every ``hostops`` entry swapped for its plain NumPy version while
+    the block runs: the structure builders and the plans then use NumPy
+    alone, as the port did before its host library."""
+    from graphite_tpu_torch import hostops
+
+    saved = {name: getattr(hostops, name) for name in hostops.PLAIN_VERSIONS}
+    try:
+        for name, fn in hostops.PLAIN_VERSIONS.items():
+            setattr(hostops, name, fn)
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(hostops, name, fn)
+
+
+def host_label():
+    """The host CPU's model name, ``os.cpu_count()``, the CPUs this process
+    may use (the host library's thread count) and the host libraries'
+    build seconds."""
+    import os
+    import platform
+
+    from graphite_tpu_torch import native
+    from graphite_tpu_torch.native import structure
+
+    lscpu = subprocess.run(["lscpu"], capture_output=True, text=True,
+                           timeout=60).stdout
+    model = [line.split(":", 1)[1].strip() for line in lscpu.splitlines()
+             if line.startswith("Model name:")]
+    model = f"{model[0] if model else 'unknown'} ({platform.machine()})"
+    builds = {name: round(lib.build_seconds, 3)
+              for name, lib in sorted(native._LOADED.items())}
+    return (f"cpu={model!r} os.cpu_count()={os.cpu_count()} "
+            f"threads={structure.default_threads()} "
+            f"host_library_build_seconds={builds}")
+
+
+def same_tree(tag, a, b, path=""):
+    """Raise unless ``a`` and ``b`` hold equal arrays and tensors (values,
+    dtype, shape), keys and scalars; returns the arrays compared."""
+    import dataclasses
+
+    import numpy as np
     import torch
 
+    where = f"{tag}: {path or '.'}"
+    if isinstance(a, torch.Tensor):
+        check(isinstance(b, torch.Tensor) and a.dtype == b.dtype
+              and a.shape == b.shape and torch.equal(a, b),
+              f"{where} tensors differ")
+        return 1
+    if isinstance(a, np.ndarray):
+        check(isinstance(b, np.ndarray) and a.dtype == b.dtype
+              and a.shape == b.shape and np.array_equal(a, b),
+              f"{where} arrays differ")
+        return 1
+    if isinstance(a, dict):
+        check(isinstance(b, dict) and set(a) == set(b),
+              f"{where} keys differ")
+        return sum(same_tree(tag, a[k], b[k], f"{path}.{k}") for k in a)
+    if isinstance(a, (list, tuple)):
+        check(type(a) is type(b) and len(a) == len(b),
+              f"{where} lengths differ")
+        return sum(same_tree(tag, x, y, f"{path}[{i}]")
+                   for i, (x, y) in enumerate(zip(a, b)))
+    if dataclasses.is_dataclass(a) and not isinstance(a, type):
+        check(type(a) is type(b), f"{where} types differ")
+        return sum(same_tree(tag, getattr(a, f.name), getattr(b, f.name),
+                             f"{path}.{f.name}")
+                   for f in dataclasses.fields(a))
+    check(type(a) is type(b) and a == b, f"{where} {a!r} != {b!r}")
+    return 0
+
+
+def setup_run(graph, size, schur):
+    """``setup_profile.timed_setup`` on the card: (problem, the first
+    pass's result, seconds by section, the builders' laps)."""
+    from graphite_tpu_torch.setup_profile import timed_setup
+
+    problem, out, secs = timed_setup(graph, size, schur, device=DEVICE)
+    laps = {name: [(label, round(sec, 4)) for label, sec in v]
+            for name, v in problem._cache["setup_laps"].items()}
+    return problem, out, secs, laps
+
+
+def setup_check(tag, graph, size, schur, order):
+    """The set-up of ``graph`` with the native host library and with the
+    plain versions (``plain_hostops``), in ``order`` ("native" /
+    "numpy" runs on the same host and card, e.g. numpy, native, native,
+    numpy; "warmup" is a native run left out of the times): every array
+    and tensor of each other run's structures, plans and host arrays
+    equal to the first native run's. Returns the first native run's
+    (problem, pass result) and {section: (native seconds, numpy
+    seconds)}, each the mean over its runs."""
+    import torch
+
+    runs = {"native": [], "numpy": [], "warmup": []}
+    first = None
+    for kind in order:
+        if kind == "numpy":
+            with plain_hostops():
+                problem, out, secs, laps = setup_run(graph, size, schur)
+        else:
+            problem, out, secs, laps = setup_run(graph, size, schur)
+        runs[kind].append(secs)
+        print(f"[{tag}] {kind} run: seconds "
+              f"{ {k: round(v, 4) for k, v in secs.items()} } laps {laps}")
+        if first is None and kind != "numpy":
+            first = (problem, out)
+            continue
+        if first is not None:
+            ref = first[0]
+            n = same_tree(tag, {k: v for k, v in ref._cache.items()
+                                if k != "setup_laps"},
+                          {k: v for k, v in problem._cache.items()
+                           if k != "setup_laps"}, "_cache")
+            n += same_tree(tag, (ref.host, ref.block_offsets,
+                                 ref.block_dims),
+                           (problem.host, problem.block_offsets,
+                            problem.block_dims), "host")
+            print(f"[{tag}] {kind} run: structures, plans and host arrays "
+                  f"equal to the first native run's ({n} arrays)")
+        del problem, out
+        torch.cuda.empty_cache()
+    check(first is not None and runs["numpy"], f"{tag}: no runs to compare")
+    table = {}
+    for section in SETUP_SECTIONS + ("total",):
+        if section not in runs["native"][0]:
+            continue
+        nat = statistics.mean(r[section] for r in runs["native"])
+        num = statistics.mean(r[section] for r in runs["numpy"])
+        table[section] = (round(nat, 4), round(num, 4))
+        print(f"[{tag}] {section}: numpy {num:.4f} s, native {nat:.4f} s, "
+              f"ratio {num / max(nat, 1e-9):.2f}")
+    print(f"[{tag}] host {host_label()} card {card_label()}")
+    return first[0], first[1], table
+
+
+def phase_host_setup():
+    """Ladybug-49 and sphere2500 set up with the native host library and
+    with its plain versions (a native warm-up, then numpy, native,
+    native, numpy), every array equal; the set-up runs to the first LM
+    iteration's plans."""
+    from graphite_tpu_torch.setup_profile import make_graph
+
+    tables = {}
+    for size, name in (("ladybug", "ladybug-49"),
+                       ("sphere2500", "sphere2500")):
+        g, schur = make_graph(size)
+        *_, tables[name] = setup_check(
+            f"setup-{size}", g, size, schur,
+            ("warmup", "numpy", "native", "native", "numpy"))
+    return tables
+
+
+def phase_venice_setup():
+    """BAL Venice-1778 frozen on the card, its structures and one pass of
+    the solve's stages (which builds every host plan), with the native
+    host library, then again with its plain versions: every array
+    equal."""
     from graphite_tpu_torch import FP32_FP32
-    from graphite_tpu_torch.hessian import (
-        apply_damping,
-        build_hessian_structure,
-        compute_hessian_values,
-    )
     from graphite_tpu_torch.io import bal, synthetic
-    from graphite_tpu_torch.linearize import linearize
     from graphite_tpu_torch.perf import SectionTimer
-    from graphite_tpu_torch.schur import (
-        SchurOps,
-        build_schur_structure,
-        schur_values,
-    )
 
     timer = SectionTimer("venice")
-    lap = timer.lap
     ds = synthetic.make_bal(VENICE, seed=0)
-    lap("make_bal")
+    timer.lap("make_bal")
     g, *_ = bal.build_graph(ds, precision=FP32_FP32)
-    lap("build_graph")
-    problem = g.freeze(device=torch.device(DEVICE))
-    lap("freeze")
-    hs = build_hessian_structure(problem)
-    lap("hessian_structure")
-    ss = build_schur_structure(problem)
-    lap("schur_structure")
-    lin = linearize(problem, problem.params0)
-    hv = apply_damping(problem, hs, compute_hessian_values(problem, hs, lin),
-                       lin.diag, 1e-4, False)
-    sv = schur_values(problem, ss, hv)
-    ops = SchurOps(problem, ss, hv, sv)
-    ops.b_schur(lin.b)
-    ops.prepare_matvec()
-    ops.s_matvec(torch.zeros(ss.dim_p, device=problem.device))
-    ops.landmark_update(lin.b, torch.zeros(ss.dim_p, device=problem.device))
-    torch.cuda.synchronize()
-    lap("first_pass_with_plans")
+    timer.lap("build_graph")
+    problem, (lin, hv, sv, ops), table = setup_check(
+        "setup-venice", g, VENICE, True, ("native", "numpy"))
+    del g
+    ss = problem._cache["schur_structure"]
 
     sizes = (ds.cameras.shape[0], ds.points.shape[0],
              ds.observations.shape[0])
@@ -1172,11 +1326,13 @@ def phase_venice_setup():
           f"products={[(g['dims'], g['dst'].shape[0]) for g in ss.products]} "
           f"hpl_blocks={ {k: v.shape[0] for k, v in ss.hpl_pose.items()} }")
     secs = {name: round(sec, 3) for name, sec in timer.laps}
+    secs.update({name: nat for name, (nat, _) in table.items()
+                 if name != "total"})
     print(f"[venice] host set-up seconds {secs} "
           f"total={sum(secs.values()):.1f}")
     check(sizes == synthetic.BAL_SIZES[VENICE], f"Venice sizes {sizes}")
     check(ss.dim_p == 9 * sizes[0], f"dim_p {ss.dim_p}")
-    return ds, problem, lin, hv, sv, ops
+    return ds, problem, lin, hv, sv, ops, table
 
 
 def measure(tag, label, kernel, plain, cpu_plain, reps, plain_reps, work,
@@ -3655,7 +3811,9 @@ def main():
     del pose
     generic_launches = timed("sphere2500-generic", phase_pose_generic, 10)
 
-    ds, problem, lin, hv, sv, ops = timed("venice-setup", phase_venice_setup)
+    host_setup = timed("host-setup", phase_host_setup)
+    ds, problem, lin, hv, sv, ops, host_setup["venice-1778"] = timed(
+        "venice-setup", phase_venice_setup)
     venice_measured = timed("venice-kernels", phase_venice_kernels, problem,
                             lin, hv, sv, ops)
     del lin, hv, sv, ops
@@ -3713,6 +3871,7 @@ def main():
               **{f"sphere2500 {k}": v for k, v in sphere_firsts.items()},
               "venice sparse-schur": venice_first}
     print(json.dumps({"direct_factorizations": firsts}))
+    print(json.dumps({"host_setup_seconds_native_numpy": host_setup}))
     measured = merge_measured(k1, k2, k6, pose_k1, venice_measured, nd_k1,
                               k1_f64, shard_measured)
     print(json.dumps({"kernels": kernels_json(

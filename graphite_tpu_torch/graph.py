@@ -3,7 +3,11 @@
 
 All sparsity discovery happens once per topology on the host in NumPy
 (``Graph.freeze``); the frozen ``Problem`` carries that static structure
-plus tensors on an explicit device.
+plus tensors on an explicit device. The freeze's section laps
+(``perf.SectionTimer``: pad, active_factors, vertex_active,
+assign_columns, trash_pad, device_arrays) go to
+``problem._cache["setup_laps"]["freeze"]``, beside the Hessian and Schur
+structure builders' laps.
 
 - Vertices are sorted by (eliminated, type, global id), so eliminated
   types occupy the trailing Hessian columns and every type's active
@@ -37,6 +41,7 @@ import numpy as np
 import torch
 
 from .factors import MAX_LEVEL, FactorSet, FactorType
+from .perf import SectionTimer
 from .precision import FP32_FP32, Precision
 from .vertices import VertexSet, VertexType
 
@@ -485,6 +490,7 @@ class Graph:
         device = torch.device(device)
         gdt = precision.graph_dtype
         sdt = precision.solver_dtype
+        timer = SectionTimer("freeze")
 
         for name, vs in self.vertex_sets.items():
             if vs.count == 0:
@@ -497,6 +503,7 @@ class Graph:
                       file=sys.stderr)
             else:
                 factor_sets[name] = fs
+        timer.lap("pad")
 
         # 1. active factors + local id resolution; padding factors copy
         # the first factor, disabled
@@ -518,6 +525,7 @@ class Graph:
                     self.vertex_sets[vt.name], gids[:, slot], name, slot)
             factor_ids_local[name] = local
             factor_levels[name] = levels
+        timer.lap("active_factors")
 
         # 2. factor, vertex and slot activity
         vertex_fixed = {name: vs.fixed_array()
@@ -529,6 +537,7 @@ class Graph:
         col_active = ({name: np.ones(vs.count, dtype=bool)
                        for name, vs in self.vertex_sets.items()}
                       if remaskable else vertex_active)
+        timer.lap("vertex_active")
 
         # 3. sort vertices by (eliminated, type, global id); assign columns
         # to the active ones by an exclusive scan of their dims
@@ -592,6 +601,7 @@ class Graph:
             vertex_block_id[name] = blk_id
             vertex_active_row[name] = act_row
         segment_order.sort(key=lambda n: seg_start[n])
+        timer.lap("assign_columns")
 
         # 4. trash pad: inactive vertices point past dim_h (flat) and at
         # the trash row seg_rows[name] (row view)
@@ -601,6 +611,7 @@ class Graph:
             off[off < 0] = dim_h
             ar = vertex_active_row[name]
             ar[ar < 0] = seg_rows[name]
+        timer.lap("trash_pad")
 
         # 5. device tensors
         def dev(a, dtype):
@@ -672,7 +683,7 @@ class Graph:
             factor_handles={name: fs.handle_array()
                             for name, fs in factor_sets.items()},
         )
-        return Problem(
+        problem = Problem(
             meta_v, meta_f, GraphData(vertices=vdata, factors=fdata), params0,
             device=device, dim_h=dim_h, pad=pad,
             block_offsets=block_offsets, block_vertex=block_vertex,
@@ -684,6 +695,10 @@ class Graph:
             row_vertex=row_vertex, opt_level=opt_level,
             remaskable=remaskable, scale_jacobians=self._scale_jacobians,
         )
+        timer.lap("device_arrays")
+        timer.done()
+        problem._cache["setup_laps"] = {"freeze": timer.laps}
+        return problem
 
 
 def _resolve_ids(vs: VertexSet, g: np.ndarray, fname: str,
@@ -692,9 +707,10 @@ def _resolve_ids(vs: VertexSet, g: np.ndarray, fname: str,
     vs_gids = np.asarray(vs.global_ids, dtype=np.int64)
     n_v = vs_gids.shape[0]
     base = int(vs_gids[0]) if n_v else 0
-    if n_v and np.array_equal(vs_gids,
-                              np.arange(base, base + n_v, dtype=np.int64)):
-        # contiguous ids (every loader adds vertices in order)
+    if n_v and int(vs_gids[-1]) == base + n_v - 1 and np.array_equal(
+            vs_gids, np.arange(base, base + n_v, dtype=np.int64)):
+        # contiguous ids (every loader adds vertices in order): a
+        # subtraction and a range check, no sort and no binary searches
         loc = g - base
         ok = (loc >= 0) & (loc < n_v)
     else:

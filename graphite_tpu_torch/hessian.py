@@ -1,7 +1,8 @@
 """Block-sparse Hessian (counterpart of ``graphite_tpu/hessian.py``).
 
 Structure discovery (``build_hessian_structure``) runs once per topology
-on the host, as a NumPy copy of the JAX package's: upper-triangular blocks
+on the host, as the JAX package's, its sorts and uniques on the host
+library through ``hostops``: upper-triangular blocks
 in CSC order (the diagonal block last in its column), grouped by
 (row_dim, col_dim) into flat ``(n_blocks + 1, dr*dc)`` value tensors whose
 last row is a trash block, plus per (factor type, slot pair) maps of
@@ -27,9 +28,11 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from . import hostops
 from .linearize import DIAG_MAX, DIAG_MIN, Linearization
 from .ops.blockfmt import flat_block_mm_nn, flat_block_mm_tn
 from .ops.streamreduce import reduce_rows, segment_plan
+from .perf import SectionTimer
 
 
 @dataclasses.dataclass
@@ -89,16 +92,52 @@ def _block_ids_for(problem, fname: str):
     return out
 
 
+def _unique_merge_inverse(all_codes, diag_source, n_cols):
+    """(sorted unique codes, concatenated inverse) over per-source code
+    arrays: each source is uniqued on its own (a self-pair source, whose
+    codes b*(n_cols+1) rise with the block id b, by the bounded rank of
+    b), the per-source uniques are merged, and each source's inverse is
+    remapped through its ranks in the merged array. The same arrays as one
+    ``np.unique(return_inverse=True)`` of the concatenation."""
+    if not all_codes:
+        z = np.zeros(0, dtype=np.int64)
+        return z, z
+    uniqs, invs = [], []
+    for codes_s, is_diag in zip(all_codes, diag_source):
+        if is_diag and n_cols < hostops.BOUNDED_UNIQUE_LIMIT:
+            ub, inv = hostops.unique_inverse(codes_s // (n_cols + 1),
+                                             bound=n_cols)
+            uniqs.append(ub * (n_cols + 1))
+        else:
+            ub, inv = hostops.unique_inverse(codes_s)
+            uniqs.append(ub)
+        invs.append(inv)
+    if len(uniqs) == 1:
+        return uniqs[0], invs[0]
+    merged = hostops.sorted_unique(np.concatenate(uniqs))
+    out = np.empty(sum(c.shape[0] for c in all_codes), dtype=np.int64)
+    off = 0
+    for u, inv in zip(uniqs, invs):
+        out[off:off + inv.shape[0]] = hostops.searchsorted(merged, u)[inv]
+        off += inv.shape[0]
+    return merged, out
+
+
 def build_hessian_structure(problem) -> HessianStructure:
+    """The problem's Hessian structure (built once, then cached); its
+    section laps (``perf.SectionTimer``) go to
+    ``problem._cache["setup_laps"]["hessian_structure"]``."""
     if "hessian_structure" in problem._cache:
         return problem._cache["hessian_structure"]
+    timer = SectionTimer("hessian_structure")
     block_dims = problem.block_dims
     n_cols = problem.n_blocks
 
     # 1. upper-triangular block codes c*n_cols + r from every slot pair;
     # sorted unique codes are CSC order with the diagonal block last
     pair_sources = []
-    all_codes = [np.zeros(0, dtype=np.int64)]
+    all_codes = []
+    diag_source = []  # s == t: codes b*(n_cols+1), ranked by b alone
     for fname, fm in problem.factor_meta.items():
         bids = _block_ids_for(problem, fname)
         n = fm.ftype.arity
@@ -109,10 +148,15 @@ def build_hessian_structure(problem) -> HessianStructure:
                 lo = np.minimum(bs, bt)[valid]
                 hi = np.maximum(bs, bt)[valid]
                 all_codes.append(hi * n_cols + lo)
+                diag_source.append(s == t)
                 pair_sources.append((fname, s, t, bs, bt, valid))
+    timer.lap("collect_codes")
 
-    codes, code_inverse = np.unique(np.concatenate(all_codes),
-                                    return_inverse=True)
+    # each source uniqued on its own, then a merge of the per-source
+    # uniques and a rank remap (one radix pass per source of n_obs codes,
+    # not one of all sources together)
+    codes, code_inverse = _unique_merge_inverse(all_codes, diag_source,
+                                                n_cols)
     block_rows = codes % n_cols
     block_cols = codes // n_cols
     nb = codes.shape[0]
@@ -121,19 +165,23 @@ def build_hessian_structure(problem) -> HessianStructure:
     dr_all = block_dims[block_rows] if nb else np.zeros(0, dtype=np.int64)
     dc_all = block_dims[block_cols] if nb else np.zeros(0, dtype=np.int64)
     dim_codes = dr_all * 100000 + dc_all
-    uniq_dims, group_of_block = np.unique(dim_codes, return_inverse=True)
+    max_dim = int(block_dims.max()) if block_dims.size else 1
+    uniq_dims, group_of_block = hostops.unique_inverse(
+        dim_codes, bound=max_dim * 100000 + max_dim + 1)
     group_keys = [(int(d // 100000), int(d % 100000)) for d in uniq_dims]
     counts = np.bincount(group_of_block, minlength=len(group_keys)).astype(
         np.int64)
     group_counts = {key: int(c) for key, c in zip(group_keys, counts)}
     index_in_group = np.empty(nb, dtype=np.int64)
-    perm = np.argsort(group_of_block, kind="stable")
+    perm = hostops.stable_argsort(group_of_block, len(group_keys))
     index_in_group[perm] = (
         np.arange(nb) - np.repeat(np.concatenate([[0], np.cumsum(counts)[:-1]]),
                                   counts))
+    timer.lap("unique_and_groups")
 
     # 3. contribution maps: direct (bs <= bt) and transposed (bs > bt, plus
-    # the self-block transpose when bs == bt and s < t)
+    # the self-block transpose when bs == bt and s < t); each source's
+    # segment of code_inverse is its blocks' positions, in order
     contribs: List[ContribMap] = []
     seg_start = 0
     for fname, s, t, bs, bt, valid in pair_sources:
@@ -168,11 +216,12 @@ def build_hessian_structure(problem) -> HessianStructure:
             trans_idx[sel] = idx_norm[m_t]
         contribs.append(
             ContribMap(fname, s, t, dkey, direct_idx, tkey, trans_idx))
+    timer.lap("contrib_maps")
 
     # 4. diagonal-block lookup per block column
     cols_j = np.arange(n_cols)
     diag_codes = cols_j * n_cols + cols_j
-    diag_pos_c = np.clip(np.searchsorted(codes, diag_codes), 0,
+    diag_pos_c = np.clip(hostops.searchsorted(codes, diag_codes), 0,
                          max(nb - 1, 0))
     diag_found = (nb > 0) & (codes[diag_pos_c] == diag_codes)
     diag_group = np.where(diag_found, group_of_block[diag_pos_c], -1)
@@ -183,6 +232,10 @@ def build_hessian_structure(problem) -> HessianStructure:
         group_keys=group_keys, group_of_block=group_of_block,
         index_in_group=index_in_group, group_sizes=group_counts,
         contribs=contribs, diag_group=diag_group, diag_idx=diag_idx)
+    timer.lap("diag_lookup")
+    timer.done()
+    problem._cache.setdefault("setup_laps", {})["hessian_structure"] = (
+        timer.laps)
     problem._cache["hessian_structure"] = hs
     return hs
 

@@ -1,7 +1,9 @@
-"""BAL dataset text format: parser and graph builder.
-
-NumPy copy of ``graphite_tpu/io/bal.py`` (its optional native parser is
-not carried over): ``load``, ``save`` and ``build_graph``. The format (https://grail.cs.washington.edu/projects/bal/):
+"""BAL dataset text format: parser and graph builder (counterpart of
+``graphite_tpu/io/bal.py``): ``load``, ``save`` and ``build_graph``.
+``load`` parses with the host library ``native/bal_loader.cpp`` and takes
+the NumPy parser where that one does not take the file (a compressed
+one, or one it cannot parse), as the JAX package does. The format
+(https://grail.cs.washington.edu/projects/bal/):
 
     num_cameras num_points num_observations
     cam_idx point_idx x y            (x num_observations)
@@ -18,6 +20,7 @@ import numpy as np
 
 from ..graph import Graph
 from ..models import bal as bal_model
+from ..native import bal_loader
 from ..precision import FP32_FP32
 
 
@@ -56,6 +59,15 @@ def _open(path: str):
 
 def load(path: str) -> BALDataset:
     """Parse a BAL problem file (optionally .gz / .bz2)."""
+    parsed = bal_loader.load(path)
+    if parsed is not None:
+        return BALDataset(*parsed)
+    return load_numpy(path)
+
+
+def load_numpy(path: str) -> BALDataset:
+    """The NumPy parser: ``load``'s plain version, and its branch for the
+    files the native parser does not take."""
     with _open(path) as f:
         header = f.readline().split()
         n_cam, n_pt, n_obs = int(header[0]), int(header[1]), int(header[2])

@@ -32,6 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ... import hostops
 from . import build
 from .launches import LaunchStats, on_device, stream_ptr
 
@@ -108,7 +109,9 @@ def group_size(rows: int, nonempty_segments: int,
 
 def host_plan(seg: np.ndarray, num_segments: int):
     """The host arrays of a plan: (destinations sorted, stable sort
-    permutation or None when already sorted, CSR offsets), all int64."""
+    permutation or None when already sorted, CSR offsets), all int64. The
+    permutation is a counting sort over the segments
+    (``hostops.stable_argsort``)."""
     seg = np.asarray(seg, dtype=np.int64).reshape(-1)
     if seg.size and (seg.min() < 0 or seg.max() >= num_segments):
         raise ValueError("segment id out of range [0, num_segments)")
@@ -118,7 +121,7 @@ def host_plan(seg: np.ndarray, num_segments: int):
         perm = None
         seg_sorted = seg
     else:
-        perm = np.argsort(seg, kind="stable")
+        perm = hostops.stable_argsort(seg, num_segments)
         seg_sorted = seg[perm]
     offsets = np.zeros(num_segments + 1, dtype=np.int64)
     np.cumsum(np.bincount(seg_sorted, minlength=num_segments),

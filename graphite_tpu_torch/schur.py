@@ -77,6 +77,7 @@ from .ops.streamreduce import (
     segment_plan,
     take_rows,
 )
+from .perf import SectionTimer
 
 # Triple-product groups with more pairs than this take K3. The JAX package
 # lowers the bound to 2^19 above dim_h = 1M (a TPU HBM limit); the port
@@ -145,15 +146,20 @@ def _cumcount(group_ids: np.ndarray, n_groups: int) -> np.ndarray:
     counts = np.bincount(group_ids, minlength=n_groups)
     starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
     out = np.empty(group_ids.shape[0], dtype=np.int64)
-    perm = np.argsort(group_ids, kind="stable")
+    perm = hostops.stable_argsort(group_ids, n_groups)
     out[perm] = np.arange(group_ids.shape[0]) - np.repeat(starts, counts)
     return out
 
 
 def build_schur_structure(problem) -> SchurStructure:
+    """The problem's Schur structure (built once, then cached); its
+    section laps (``perf.SectionTimer``) go to
+    ``problem._cache["setup_laps"]["schur_structure"]``."""
     if "schur_structure" in problem._cache:
         return problem._cache["schur_structure"]
+    timer = SectionTimer("schur_structure")
     hs = build_hessian_structure(problem)
+    timer.lap("hessian_structure")
     eb = problem.elimination_block
     nb_total = problem.n_blocks
     if eb >= nb_total:
@@ -174,9 +180,8 @@ def build_schur_structure(problem) -> SchurStructure:
     lm_j = np.arange(eb, nb_total)
     lm_dim_of = dims[lm_j].astype(np.int64)
     lm_dims = sorted(set(int(d) for d in np.unique(lm_dim_of)))
-    dim_rank = {d: i for i, d in enumerate(lm_dims)}
     lm_group_index = _cumcount(
-        np.asarray([dim_rank[int(d)] for d in lm_dim_of], dtype=np.int64),
+        np.searchsorted(np.asarray(lm_dims, dtype=np.int64), lm_dim_of),
         len(lm_dims))
     lm_h_idx: Dict[int, np.ndarray] = {}
     for d in lm_dims:
@@ -184,6 +189,7 @@ def build_schur_structure(problem) -> SchurStructure:
         if np.any(hs.diag_group[sel] < 0):
             raise ValueError("landmark without a diagonal block")
         lm_h_idx[d] = hs.diag_idx[sel].astype(np.int64)
+    timer.lap("lm_groups")
 
     # classify H blocks
     is_hpp = cols_h < eb
@@ -193,7 +199,7 @@ def build_schur_structure(problem) -> SchurStructure:
     hpl_h_idx, hpl_pose, hpl_lm = {}, {}, {}
     key_id_of = np.zeros(hpl_sel.shape[0], dtype=np.int64)
     idx_in_key = np.zeros(hpl_sel.shape[0], dtype=np.int64)
-    for code in np.unique(hpl_code):
+    for code in hostops.sorted_unique(hpl_code):
         key = (int(code // 100000), int(code % 100000))
         m = hpl_code == code
         sel = hpl_sel[m]
@@ -203,26 +209,49 @@ def build_schur_structure(problem) -> SchurStructure:
         hpl_pose[key] = rows_h[sel].astype(np.int64)
         hpl_lm[key] = (cols_h[sel] - eb).astype(np.int64)
         idx_in_key[m] = np.arange(sel.shape[0])
+    timer.lap("hpl_groups")
 
-    # per-landmark attach lists + pose-pair fill-in discovery
+    # per-landmark attach lists + pose-pair fill-in discovery. With one
+    # (dp, dl) group (uniform dims, as BAL) the fused plan gives the
+    # products already sorted by destination, with no pair list; above its
+    # gates, the pair fill writes the attach values directly; otherwise
+    # the pairs index the sorted attach list
     att_lm = cols_h[hpl_sel] - eb
     att_pose = rows_h[hpl_sel]
-    (att_order, ai, bi, pair_lm, pair_codes, pose_a,
-     pose_b) = hostops.attach_pairs(att_lm, att_pose, n_lm, n_pose)
-    att_key_s = key_id_of[att_order]
-    att_idx_s = idx_in_key[att_order]
-
-    # S sparsity: union of the Hpp coordinates and the fill-in pairs
+    single_pair_group = len(hpl_keys) == 1 and len(lm_dims) == 1
     hpp_sel = np.nonzero(is_hpp)[0]
     hpp_codes = cols_h[hpp_sel] * n_pose + rows_h[hpp_sel]
-    s_codes, s_inverse = np.unique(np.concatenate([hpp_codes, pair_codes]),
-                                   return_inverse=True)
-    hpp_pos = s_inverse[: hpp_codes.shape[0]]
-    pair_pos = s_inverse[hpp_codes.shape[0]:]
+    plan_sorted = None
+    if single_pair_group:
+        plan_sorted = hostops.schur_pair_plan(
+            att_lm, att_pose, n_lm, n_pose, idx_in_key, hpp_codes)
+    if plan_sorted is not None:
+        _, left_s, right_s, _, dst_s, s_codes, hpp_pos = plan_sorted
+    elif single_pair_group:
+        (_, left_v, right_v, pair_lm,
+         pair_codes) = hostops.attach_pairs_vals(
+            att_lm, att_pose, n_lm, n_pose, idx_in_key)
+    else:
+        (att_order, _, _, ai, bi, pair_lm, pair_codes, pose_a,
+         pose_b) = hostops.attach_pairs(att_lm, att_pose, n_lm, n_pose)
+        att_key_s = key_id_of[att_order]
+        att_idx_s = idx_in_key[att_order]
+    timer.lap("attach_pairs")
+
+    # S sparsity: union of the Hpp coordinates and the fill-in pairs (the
+    # fused plan gave it); one bounded rank gives every Hpp block's and
+    # every pair's destination
+    if plan_sorted is None:
+        s_codes, s_inverse = hostops.unique_inverse(
+            np.concatenate([hpp_codes, pair_codes]), bound=n_pose * n_pose)
+        hpp_pos = s_inverse[: hpp_codes.shape[0]]
+        pair_pos = s_inverse[hpp_codes.shape[0]:]
     s_rows_all = (s_codes % n_pose).astype(np.int64)
     s_cols_all = (s_codes // n_pose).astype(np.int64)
     s_dim_code = dims[s_rows_all] * 100000 + dims[s_cols_all]
-    uniq_sdims, s_group_of = np.unique(s_dim_code, return_inverse=True)
+    max_dim = int(dims.max()) if dims.size else 1
+    uniq_sdims, s_group_of = hostops.unique_inverse(
+        s_dim_code, bound=max_dim * 100000 + max_dim + 1)
     s_keys = [(int(c // 100000), int(c % 100000)) for c in uniq_sdims]
     s_index_in_group = _cumcount(s_group_of, len(s_keys))
     s_sizes = {key: int(c) for key, c in zip(
@@ -231,6 +260,7 @@ def build_schur_structure(problem) -> SchurStructure:
               for gi, key in enumerate(s_keys)}
     s_cols = {key: s_cols_all[s_group_of == gi]
               for gi, key in enumerate(s_keys)}
+    timer.lap("s_sparsity")
 
     # Hpp copy grouped by H group
     hpp_copy = []
@@ -241,44 +271,69 @@ def build_schur_structure(problem) -> SchurStructure:
         m = hpp_dims_code == code
         hpp_copy.append((key, hs.index_in_group[hpp_sel[m]].astype(np.int64),
                          hpp_s_idx[m].astype(np.int64)))
+    timer.lap("hpp_copy")
 
     # triple products grouped by (dpa, dl, dpb), sorted by destination
     products = []
-    dst_idx_all = s_index_in_group[pair_pos]
-    dst_group_all = s_group_of[pair_pos]
-    dl_all = lm_dim_of[pair_lm]
-    tri_code = (dims[pose_a] * 100000 + dl_all) * 100000 + dims[pose_b]
-    for code in np.unique(tri_code):
-        m = tri_code == code
-        dpa = int(code // (100000 * 100000))
-        dl = int((code // 100000) % 100000)
-        dpb = int(code % 100000)
-        lkeys = att_key_s[ai[m]]
-        rkeys = att_key_s[bi[m]]
-        dst_g = dst_group_all[m]
-        if not (np.all(lkeys == lkeys[0]) and np.all(rkeys == rkeys[0])
-                and np.all(dst_g == dst_g[0])):
-            raise ValueError("inconsistent Schur product group")
-        dst_key = s_keys[int(dst_g[0])]
-        dst = dst_idx_all[m].astype(np.int64)
-        order = np.argsort(dst, kind="stable")
+    if single_pair_group:
+        # one (dp, dl, dp) group: with one S group the in-group index is
+        # the S rank, and left / right came from the pair fill
+        dp, dl = hpl_keys[0]
+        dst_key = (dp, dp)
+        if plan_sorted is None:
+            dst = (pair_pos if len(s_keys) == 1
+                   else s_index_in_group[pair_pos])
+            dst_s, left_s, right_s, _ = hostops.sort_apply3(
+                dst, s_sizes[dst_key], left_v, right_v, pair_lm)
+        elif len(s_keys) > 1:
+            # the fused plan gives S ranks; the in-group index is monotone
+            # in them within the group, so the order holds
+            dst_s = s_index_in_group[dst_s]
         products.append(dict(
-            dims=(dpa, dl, dpb), left_key=hpl_keys[int(lkeys[0])],
-            right_key=hpl_keys[int(rkeys[0])], dst_key=dst_key,
-            left=att_idx_s[ai[m]][order].astype(np.int64),
-            right=att_idx_s[bi[m]][order].astype(np.int64),
-            dst=dst[order]))
+            dims=(dp, dl, dp), left_key=hpl_keys[0], right_key=hpl_keys[0],
+            dst_key=dst_key, left=left_s, right=right_s, dst=dst_s))
+    else:
+        dst_idx_all = s_index_in_group[pair_pos]
+        dst_group_all = s_group_of[pair_pos]
+        dl_all = lm_dim_of[pair_lm]
+        tri_code = (dims[pose_a] * 100000 + dl_all) * 100000 + dims[pose_b]
+        for code in hostops.sorted_unique(tri_code):
+            m = tri_code == code
+            dpa = int(code // (100000 * 100000))
+            dl = int((code // 100000) % 100000)
+            dpb = int(code % 100000)
+            lkeys = att_key_s[ai[m]]
+            rkeys = att_key_s[bi[m]]
+            dst_g = dst_group_all[m]
+            if not (np.all(lkeys == lkeys[0]) and np.all(rkeys == rkeys[0])
+                    and np.all(dst_g == dst_g[0])):
+                raise ValueError("inconsistent Schur product group")
+            dst_key = s_keys[int(dst_g[0])]
+            dst = dst_idx_all[m]
+            order = hostops.stable_argsort(dst, s_sizes[dst_key])
+            products.append(dict(
+                dims=(dpa, dl, dpb), left_key=hpl_keys[int(lkeys[0])],
+                right_key=hpl_keys[int(rkeys[0])], dst_key=dst_key,
+                left=att_idx_s[ai[m]][order], right=att_idx_s[bi[m]][order],
+                dst=dst[order]))
 
     # right operands are read from the (dp, dl) H group, whose rows may
     # also hold diagonal / Hpp blocks when dp == dl: compose the pair's
-    # Hpl-local index through hpl_h_idx
+    # Hpl-local index through hpl_h_idx (the identity where the group
+    # holds Hpl blocks only, as BAL's). The builder's arrays become int64
+    # here, once
     for pg in products:
-        pg["right"] = hpl_h_idx[pg["right_key"]][pg["right"]]
+        hidx = hpl_h_idx[pg["right_key"]]
+        if not np.array_equal(hidx, np.arange(hidx.shape[0])):
+            pg["right"] = hidx[pg["right"]]
+        for name in ("left", "right", "dst"):
+            pg[name] = pg[name].astype(np.int64, copy=False)
+    timer.lap("products")
 
     # S diagonal lookup
     diag_codes = np.arange(n_pose) * n_pose + np.arange(n_pose)
     ns_total = s_codes.shape[0]
-    pos_c = np.clip(np.searchsorted(s_codes, diag_codes), 0,
+    pos_c = np.clip(hostops.searchsorted(s_codes, diag_codes), 0,
                     max(ns_total - 1, 0))
     found = (ns_total > 0) & (s_codes[pos_c] == diag_codes)
     s_diag_key = np.where(found, s_group_of[pos_c], -1).astype(np.int64)
@@ -304,6 +359,10 @@ def build_schur_structure(problem) -> SchurStructure:
         s_cols=s_cols, hpp_copy=hpp_copy, products=products,
         s_diag_key=s_diag_key, s_diag_idx=s_diag_idx,
         block_type=block_type, block_row=block_row)
+    timer.lap("diag_and_block_maps")
+    timer.done()
+    problem._cache.setdefault("setup_laps", {})["schur_structure"] = (
+        timer.laps)
     problem._cache["schur_structure"] = ss
     return ss
 

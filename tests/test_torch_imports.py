@@ -82,3 +82,55 @@ def test_spawned_rank_loads_no_jax():
     assert run_ranks(helpers.loaded_jax_modules, 1, "gloo",
                      device="cpu") == [[]]
 
+
+
+def test_native_builds_from_its_own_sources():
+    """The host library is built from ``graphite_tpu_torch/native/*.cpp``
+    into ``build/graphite_tpu_torch/`` on first use (not at import), and
+    using it loads no JAX, no JAX package module and no file under
+    ``graphite_tpu/``."""
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "from graphite_tpu_torch import native\n"
+        "from graphite_tpu_torch.native import bal_loader, structure\n"
+        "assert not native._LOADED\n"
+        "assert structure.sort_unique(np.array([3, 1, 3])).tolist() "
+        "== [1, 3]\n"
+        "assert bal_loader.load('tests/fixtures/bal_head_real_format.txt')"
+        " is not None\n"
+        "for name, lib in sorted(native._LOADED.items()):\n"
+        "    print(name, lib.path)\n"
+        "print('SOURCES', native.NATIVE_DIR)\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert '/graphite_tpu/' not in maps\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'graphite_tpu')]\n"
+        "assert not bad, bad\n")
+    proc = _run(code, ROOT)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.split("\n")
+    built = dict(line.split(" ", 1) for line in lines[:2])
+    assert sorted(built) == ["bal_loader", "structure"]
+    build_dir = ROOT / "build" / "graphite_tpu_torch"
+    for name, path in built.items():
+        path = Path(path)
+        assert path.parent == build_dir and path.name.startswith(
+            f"lib{name}-"), path
+    assert lines[2] == f"SOURCES {PACKAGE / 'native'}"
+    for src in (PACKAGE / "native").glob("*.cpp"):
+        assert "graphite_tpu/" not in src.read_text(), src
+
+
+def test_native_build_failure_raises(tmp_path, monkeypatch):
+    """A source g++ refuses raises with g++'s output: no fallback."""
+    from graphite_tpu_torch import native
+
+    (tmp_path / "broken.cpp").write_text("int broken( {\n")
+    monkeypatch.setattr(native, "NATIVE_DIR", tmp_path)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed") as err:
+        native.load_library("broken")
+    assert "error" in str(err.value)
+    assert "broken" not in native._LOADED
+    assert not list((tmp_path / "build").glob("*.so"))
