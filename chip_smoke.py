@@ -9,7 +9,8 @@ own:
 1. build the CUDA kernels from the checkout, one nvcc per source, all
    started together: K1 ``csrc/segsum.cu``, K2 ``csrc/pcg_dense.cu``, K3
    ``csrc/segprod.cu``, K4 / K5 ``csrc/segmv.cu``, K6 ``csrc/pcg_mf.cu``,
-   and the conditional graph nodes of ``jit_loop``, ``csrc/cond.cu``; and
+   the conditional graph nodes of ``jit_loop``, ``csrc/cond.cu``, and K8,
+   the sharded path's all-reduce over CUDA IPC, ``csrc/allreduce.cu``; and
    the host libraries (g++), ``native/structure.cpp`` and
    ``native/bal_loader.cpp``;
 2. K1 vs its plain PyTorch version on the card, at the BAL Ladybug-49
@@ -269,8 +270,8 @@ S1. ``shard-venice-w1`` (after phase 7, on its problem): ``sharded_lm`` at
     7's chi2 (how far a rounding-level change takes float32 Venice
     trajectories apart, the measure for S2's free-running chi2);
 S2. ``shard-venice-w2`` (after phase 26): two ranks in two spawned
-    processes on cuda:0 over gloo (NCCL refuses two ranks on one card),
-    Venice-1778 (5,001,946 observations: ``pad_factors_to=2`` adds none)
+    processes on cuda:0 (a gloo group for the set-up; NCCL refuses two
+    ranks on one card), Venice-1778 (5,001,946 observations: ``pad_factors_to=2`` adds none)
     taken frozen, host structures included, from this process, 3
     iterations, twice (the second run bitwise the first): the accept
     pattern of phase 7's first 3 iterations; rank 0 takes the unsharded
@@ -281,13 +282,37 @@ S2. ``shard-venice-w2`` (after phase 26): two ranks in two spawned
     never, K1 at every rank-local reduction; rank 0's K3 at its own slice
     bitwise its plain version on the CPU (within 1e-5 of the card's, whose
     ``index_add_`` adds in no fixed order); ms per iteration, the
-    collectives' share (gloo moves them through the host), each rank's
-    device ms outside the collectives and its kernels' ms, each rank's
-    peak memory;
+    collectives' share, each rank's device ms outside the collectives and
+    its kernels' ms, each rank's peak memory. Every collective of S2-S5 on the card is a launch of K8 (the ranks'
+    arenas mapped through CUDA IPC), and a third run of S2 swaps in K8's
+    plain version (gloo) in the same ranks: bitwise the first; each
+    rank's ms per iteration and the collectives' share on K8 and on gloo;
+``k8`` (in the same ranks, after S2): K8 against its plain version at
+    the sizes of S2's collectives (each distinct shape, sum or gather), in
+    float32 and float64 (inputs with -0.0 entries): bitwise equal and
+    bitwise repeatable; K8's ms (CUDA events around 5 calls replayed from
+    one CUDA graph on both ranks), the plain version's, gloo's one call's
+    and the bound ((world + 3) x the bytes of x for a sum, 2 world + 2 for
+    a gather, at 3.35 TB/s); ``k8-w4``: 4 ranks on cuda:0 at small
+    shapes, every rank bitwise the plain version;
+S4. ``shard-venice-w2-graph`` (in the same ranks): Venice-1778 on 2 ranks
+    under ``jit_loop``, PCGSchurSolver(10, 1.0, 5.0), 10 iterations: each
+    rank's trace and parameters bitwise the same ranks' host loop, the
+    ranks bitwise equal, no host sync in the replays (sync-debug mode
+    "error"); replay ms accepted and rejected, K8's launches (top level
+    and region runs), capture seconds, graph pool, peak memory per rank;
 S3. ``shard-ladybug-w2`` (in the same ranks): Ladybug-49 with the Venice
     branches forced, 10 iterations on the card against the same ranks on
     the CPU: bitwise equal trajectories and parameters, K3's gathered
-    entry launched.
+    entry launched; under ``jit_loop`` too, card (K8) and CPU (the plain
+    version) bitwise each other and the host loops;
+S5. ``shard-sphere2500-w2-graph`` (in the same ranks): sphere2500 on 2
+    ranks under ``jit_loop``, PCGSolver(50, 1e-10, 1e6, block-Jacobi),
+    30 iterations (K6's gate closed: the generic CG on ``hessian_matvec``,
+    whose ``J^T J p`` is all-reduced in every CG step): bitwise the host
+    loop; K8's runs inside the CG "while" node equal to the CG steps run.
+    Two processes on one card are time-sliced, not concurrent: S2-S5's
+    times measure that, not scaling.
 
 A captured path's launches in the kernels JSON line are the launches
 its replays ran: those captured outside every region times the replays,
@@ -420,6 +445,7 @@ def csr_from_blocks(blocks, brow, bcol, n_brows, n_bcols):
 def phase_build():
     from graphite_tpu_torch.native import bal_loader, structure
     from graphite_tpu_torch.ops.cuda import (
+        allreduce,
         cond,
         pcg_dense,
         pcg_mf,
@@ -430,8 +456,8 @@ def phase_build():
 
     loaders = (segsum.load_kernel, pcg_dense.load_kernel,
                segsum_stream.load_product_kernel, segmv.load_kernel,
-               pcg_mf.load_kernel, cond.load_kernel, structure.library,
-               bal_loader.library)
+               pcg_mf.load_kernel, cond.load_kernel, allreduce.load_kernel,
+               structure.library, bal_loader.library)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
         libs = list(pool.map(lambda load: load(), loaders))
@@ -701,6 +727,7 @@ def run_lm(problem, solver, iterations, params=None):
 def all_stats():
     """The launch counts of every kernel entry point."""
     from graphite_tpu_torch.ops.cuda import (
+        allreduce,
         pcg_dense,
         pcg_mf,
         segmv,
@@ -712,7 +739,8 @@ def all_stats():
             segsum_stream.STATS_F64, pcg_dense.STATS,
             segsum_stream.PRODUCT_STATS, segsum_stream.PRODUCT_RTBL_STATS,
             segsum_stream.MATVEC_TBL_STATS, segmv.STREAM_STATS,
-            segmv.WTBL_STATS, segmv.SYM_STATS, pcg_mf.STATS]
+            segmv.WTBL_STATS, segmv.SYM_STATS, pcg_mf.STATS,
+            allreduce.STATS, allreduce.GATHER_STATS]
 
 
 def count_launches(run, record_events=True):
@@ -809,10 +837,11 @@ def phase_slice(solver, iterations):
 POSES = 2500  # sphere2500's pose count
 
 
-def pose_problem(device, kind="se3", policy="FP32_FP32"):
+def pose_problem(device, kind="se3", policy="FP32_FP32", pad_factors_to=1):
     """The SE3 sphere2500 graph (``make_sphere_se3(2500, seed=0)``) or the
     2500-pose SE2 circle, under the policy named ``policy`` (FP32_FP32 by
-    default), the first pose fixed."""
+    default), the first pose fixed, its factors padded to a multiple of
+    ``pad_factors_to``."""
     import torch
 
     import graphite_tpu_torch as gtt
@@ -821,7 +850,8 @@ def pose_problem(device, kind="se3", policy="FP32_FP32"):
     ds = (synthetic.make_sphere_se3(POSES, seed=0) if kind == "se3"
           else synthetic.make_pose_graph_2d(POSES, seed=0))
     g, *_ = g2o.build_graph(ds, precision=getattr(gtt, policy))
-    return g.freeze(device=torch.device(device))
+    return g.freeze(device=torch.device(device),
+                    pad_factors_to=pad_factors_to)
 
 
 def pose_solver(precond="bj"):
@@ -3339,9 +3369,9 @@ def phase_shard_w1(problem, solver, iterations, host):
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", init_method=f"file://{tmp}/rv",
                                 rank=0, world_size=1)
+        mesh = make_mesh(device=problem.device)
         try:
-            mesh = make_mesh(device=problem.device)
-            # the communicator is set up at the first collective
+            # K8's arena is made at the first collective
             mesh.allreduce(problem.params0[next(iter(problem.params0))])
             t0 = time.perf_counter()
             (params, chi2, k, accepted, trace), launches, kernel_ms = (
@@ -3350,6 +3380,7 @@ def phase_shard_w1(problem, solver, iterations, host):
                     with_trace=True)))
             seconds = time.perf_counter() - t0
         finally:
+            mesh.close()
             dist.destroy_process_group()
     trace = trace.tolist()
     chi_host = [h["chi2"] for h in host.history]
@@ -3394,9 +3425,8 @@ def shard_w1_graph(problem, solver, iterations, host):
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", init_method=f"file://{tmp}/rv",
                                 rank=0, world_size=1)
+        mesh = make_mesh(device=problem.device)
         try:
-            mesh = make_mesh(device=problem.device)
-            mesh.allreduce(problem.params0[next(iter(problem.params0))])
             replica = _replica(problem, mesh)
             params, chi2, k, accepted, trace = sharded_lm(
                 problem, mesh, solver, opts, with_trace=True)
@@ -3417,6 +3447,7 @@ def shard_w1_graph(problem, solver, iterations, host):
             drop_loop(replica, loop)
             del loop
         finally:
+            mesh.close()
             dist.destroy_process_group()
     return launches
 
@@ -3440,110 +3471,157 @@ def order_witness(problem, solver, iterations, host):
           f"rel diff per iteration={[f'{x:.3e}' for x in rel]}")
 
 
-def collective_timer():
-    """Wraps ``torch.distributed.all_reduce`` (the one collective the
-    sharded path calls) with CUDA events on the current stream, or the
-    host clock for CPU tensors: ``ms()`` the total since the last
-    ``reset()``, ``calls`` and ``bytes``."""
+def collective_timer(owner, attr, tensor_arg):
+    """Wraps the collective ``owner.<attr>`` (K8's ``Transport._call``, or
+    ``torch.distributed.all_reduce`` under the plain transport) with CUDA
+    events on the current stream: ``ms()`` the total since the last
+    ``reset()``, ``calls`` and ``bytes`` (of positional argument
+    ``tensor_arg``); ``restore()`` puts the collective back."""
     import torch
-    import torch.distributed as dist
 
-    inner = dist.all_reduce
+    inner = getattr(owner, attr)
 
     class Timer:
         def __init__(self):
             self.reset()
 
         def reset(self):
-            self.events, self.host_s, self.calls, self.bytes = [], 0.0, 0, 0
-
-        def __call__(self, tensor, *args, **kwargs):
-            self.calls += 1
-            self.bytes += tensor.numel() * tensor.element_size()
-            if tensor.is_cuda:
-                a = torch.cuda.Event(enable_timing=True)
-                b = torch.cuda.Event(enable_timing=True)
-                a.record()
-                out = inner(tensor, *args, **kwargs)
-                b.record()
-                self.events.append((a, b))
-                return out
-            t0 = time.perf_counter()
-            out = inner(tensor, *args, **kwargs)
-            self.host_s += time.perf_counter() - t0
-            return out
+            self.events, self.calls, self.bytes = [], 0, 0
 
         def ms(self):
             torch.cuda.synchronize()
-            return (sum(a.elapsed_time(b) for a, b in self.events)
-                    + 1e3 * self.host_s)
+            return sum(a.elapsed_time(b) for a, b in self.events)
+
+        def restore(self):
+            setattr(owner, attr, inner)
 
     timer = Timer()
-    dist.all_reduce = timer
+
+    def timed_call(*args, **kwargs):
+        tensor = args[tensor_arg]
+        timer.calls += 1
+        timer.bytes += tensor.numel() * tensor.element_size()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = inner(*args, **kwargs)
+        b.record()
+        timer.events.append((a, b))
+        return out
+
+    setattr(owner, attr, timed_call)
     return timer
 
 
-def shard_rank(mesh, venice, ladybug, iterations, initial_chi2):
-    """One rank of S2 and S3 (spawned by ``phase_shard_w2``, gloo on
-    cuda:0): Venice-1778 under ``sharded_lm`` twice (its launches counted
-    in the first run, the collectives timed in the second), rank 0 also
-    holding K3's gathered-stream entry at its own slice against its plain
-    version; then Ladybug-49 with the Venice branches forced, on the card
-    and on the CPU (both over the same gloo group)."""
-    import dataclasses
+@contextlib.contextmanager
+def plain_transport():
+    """Every ``Mesh`` collective on K8's plain version (the zeroed
+    buffer's ``all_reduce`` over the mesh's group, gloo here, and the rows
+    added in rank order), swapped in for an oracle run."""
+    from graphite_tpu_torch.ops.cuda import allreduce as k8
+    from graphite_tpu_torch.parallel.sharding import Mesh
 
+    kept = Mesh.allreduce, Mesh.gather
+    Mesh.allreduce = lambda self, x, tag="": k8.allreduce_plain(
+        x, self.rank, self.world, self.group)
+    Mesh.gather = lambda self, x, tag="": k8.gather_plain(
+        x, self.rank, self.world, self.group)
+    try:
+        yield
+    finally:
+        Mesh.allreduce, Mesh.gather = kept
+
+
+def timed_lm(mesh, problem, solver, iterations, timer):
+    """``sharded_lm``'s host loop, timed: (its outputs, host ms, device ms
+    of the rank's stream, the collectives' ms, calls and MB)."""
     import torch
 
+    from graphite_tpu_torch.parallel import sharded_lm
+
+    timer.reset()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    run = sharded_lm(problem, mesh, solver, lm_options(iterations),
+                     with_trace=True)
+    end.record()
+    torch.cuda.synchronize()
+    return run, dict(ms=1e3 * (time.perf_counter() - t0),
+                     device_ms=start.elapsed_time(end),
+                     collective_ms=timer.ms(), collective_calls=timer.calls,
+                     collective_mb=timer.bytes / 1e6)
+
+
+def same_run(a, b):
+    """Two ``sharded_lm`` outputs with trace bitwise equal."""
+    import torch
+
+    return torch.equal(a[4], b[4]) and same_params(a[0], b[0])
+
+
+def shard_venice_host(mesh, venice, iterations, initial_chi2):
+    """S2 on one rank (see ``phase_shard``); also the shapes of its
+    collectives, for K8's phase."""
+    import torch
+    import torch.distributed as dist
+
     from graphite_tpu_torch import schur
+    from graphite_tpu_torch.ops.cuda import allreduce as k8
     from graphite_tpu_torch.ops.cuda import segsum_stream
     from graphite_tpu_torch.parallel import sharded_lm
     from graphite_tpu_torch.solvers import PCGSchurSolver
 
     out = dict(rank=mesh.rank)
     solver = Recorded(PCGSchurSolver(10, 1.0, 5.0))
-    timer = collective_timer()
-    slices = []
-    kernel = schur.streaming_segment_product_sum
+    slices, calls = [], []
+    kernel, k8_call = schur.streaming_segment_product_sum, k8.Transport._call
 
     def kept(*args):  # the rank's first K3 call: its own inputs
         if not slices:
             slices.append(args)
         return kernel(*args)
 
+    def logged(self, x, gather, tag, stats):
+        calls.append((tuple(x.shape), gather, tag))
+        return k8_call(self, x, gather, tag, stats)
+
     torch.cuda.reset_peak_memory_stats()
     schur.streaming_segment_product_sum = kept
+    k8.Transport._call = logged
     try:
         t0 = time.perf_counter()
-        (params, chi2, k, acc, trace), launches, kernel_ms = count_launches(
+        first, launches, kernel_ms = count_launches(
             lambda: sharded_lm(venice, mesh, solver, lm_options(iterations),
                                with_trace=True))
         out["first_s"] = time.perf_counter() - t0
     finally:
         schur.streaming_segment_product_sum = kernel
+        k8.Transport._call = k8_call
+    out["calls"] = calls
     out["kernel_ms"] = sum(kernel_ms.values())
-    timer.reset()
     states = solver.states[:iterations]
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    params2, _, _, _, trace2 = sharded_lm(venice, mesh, solver.solver,
-                                          lm_options(iterations),
-                                          with_trace=True)
-    end.record()
-    torch.cuda.synchronize()
-    out["second_ms"] = 1e3 * (time.perf_counter() - t0)
-    out["second_device_ms"] = start.elapsed_time(end)
-    out["collective_ms"] = timer.ms()
-    out["collective_calls"] = timer.calls
-    out["collective_mb"] = timer.bytes / 1e6
+    timer = collective_timer(k8.Transport, "_call", 1)
+    try:
+        second, out["k8"] = timed_lm(mesh, venice, solver.solver, iterations,
+                                     timer)
+    finally:
+        timer.restore()
+    timer = collective_timer(dist, "all_reduce", 0)
+    try:
+        with plain_transport():
+            plain, out["gloo"] = timed_lm(mesh, venice, solver.solver,
+                                          iterations, timer)
+    finally:
+        timer.restore()
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     out["launches"] = launches
-    out["trace"] = trace.tolist()
-    out["params"] = {n: v.cpu().numpy() for n, v in params.items()}
-    out["repeat_bitwise"] = (trace.tolist() == trace2.tolist()
-                             and same_params(params, params2))
-    del params2
+    out["trace"] = first[4].tolist()
+    out["params"] = {n: v.cpu().numpy() for n, v in first[0].items()}
+    out["repeat_bitwise"] = same_run(first, second)
+    out["plain_bitwise"] = same_run(first, plain)
+    del second, plain
     if mesh.rank == 0:
         Wg, Rg, plan, m, kk, n = slices[0]
         cplan = segsum_stream.plan_products(
@@ -3579,40 +3657,320 @@ def shard_rank(mesh, venice, ladybug, iterations, initial_chi2):
             for c, t in zip(chi_before, out["trace"])])
         compare_lockstep("shard-venice-w2 lockstep", run, states,
                          venice.to(mesh.device), solver.solver)
-    del slices, states
+    del slices, states, first
     torch.cuda.empty_cache()
-
-    # S3: Ladybug-49, the Venice branches forced, card vs CPU
-    gates = schur.CHUNK_THRESHOLD, schur._smv_chunk_rows
-    schur.CHUNK_THRESHOLD, schur._smv_chunk_rows = 0, (lambda rb: 0)
-    forced = PCGSchurSolver(10, 1.0, 5.0, dense_matvec_limit=0)
-    try:
-        runs = {}
-        for where, m in (("cuda", mesh),
-                         ("cpu", dataclasses.replace(
-                             mesh, device=torch.device("cpu")))):
-            (p, c, kl, a, tr), lau, _ = count_launches(
-                lambda m=m: sharded_lm(ladybug, m, forced, lm_options(10),
-                                       with_trace=True),
-                record_events=False)
-            runs[where] = dict(trace=tr.tolist(), launches=lau,
-                               params={n: v.cpu() for n, v in p.items()})
-    finally:
-        schur.CHUNK_THRESHOLD, schur._smv_chunk_rows = gates
-    out["ladybug"] = dict(
-        trace=runs["cuda"]["trace"], cpu_trace=runs["cpu"]["trace"],
-        launches=runs["cuda"]["launches"],
-        params_bitwise=same_params(runs["cuda"]["params"],
-                                   runs["cpu"]["params"]))
+    # rank 0's extra work is done: K8's waits are for collectives only
+    dist.barrier()
     return out
 
 
-def phase_shard_w2(cpu_problem, host, iterations):
-    """S2 and S3 on two ranks in two processes on cuda:0 over gloo (NCCL
-    refuses two ranks on one card). The ranks take the frozen Venice
-    problem, its host structures included, from this process: no
-    ``make_bal``, freeze or structure is built again. Returns the ranks'
-    launches (summed) of both paths and rank 0's K3 record."""
+def k8_input(rank, shape, dtype, device):
+    """A rank's seeded input to K8: normal values, every 7th -0.0 (which
+    the plain version's zeroed buffer turns into +0.0)."""
+    import numpy as np
+
+    import torch
+
+    g = np.random.default_rng([7, rank])
+    v = g.standard_normal(int(np.prod(shape)))
+    v[::7] = -0.0
+    return torch.as_tensor(v, dtype=dtype).reshape(shape).to(device)
+
+
+def bits(t):
+    """A float tensor's bits, as integers."""
+    import torch
+
+    return t.view({torch.float32: torch.int32,
+                   torch.float64: torch.int64}[t.dtype])
+
+
+def graph_ms(fn, reps):
+    """Device ms of one ``fn()`` (a K8 call): ``reps`` calls captured in
+    one CUDA graph and replayed once, CUDA events around the replay, after
+    an eager call (every rank runs the same calls)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / reps
+    del graph
+    return ms
+
+
+def k8_cases(mesh, cases, reps, plain_reps, timing=True):
+    """K8 on this rank against its plain version (``allreduce_plain`` /
+    ``gather_plain``: gloo on the same CUDA tensors) for each (shape,
+    gather, dtype) of ``cases``: bitwise, and a second call bitwise the
+    first; with ``timing``, K8's ms (``graph_ms``), the plain version's,
+    gloo's one ``all_reduce`` / ``all_gather`` (``library_ms``) and the
+    bound: x read, the own half written, ``world`` halves read and the
+    output written (world + 3 copies of x for the sum, 2 world + 2 for
+    the gather), the adds of each row to +0 and of the rows."""
+    import torch
+    import torch.distributed as dist
+
+    from graphite_tpu_torch.ops.cuda import allreduce as k8
+
+    xs = [(shape, gather, k8_input(mesh.rank, shape, dtype, mesh.device))
+          for shape, gather, dtype in cases]
+    # every case once, the largest first: the arena takes its largest
+    # size before any capture
+    for _, gather, x in sorted(xs, key=lambda c: -c[2].numel()
+                               * c[2].element_size()):
+        (mesh.gather if gather else mesh.allreduce)(x, "k8 phase")
+    w = mesh.world
+    records = []
+    for shape, gather, x in xs:
+        def k8_call(x=x, gather=gather):
+            return (mesh.gather if gather else mesh.allreduce)(x, "k8 phase")
+
+        def plain(x=x, gather=gather):
+            return (k8.gather_plain if gather else k8.allreduce_plain)(
+                x, mesh.rank, w, mesh.group)
+
+        got, again, ref = k8_call(), k8_call(), plain()
+        torch.cuda.synchronize()
+        bitwise = torch.equal(bits(got), bits(ref))
+        repeat = torch.equal(bits(got), bits(again))
+        err = (float((got.double() - ref.double()).abs().max())
+               if got.numel() else 0.0)
+        del got, again, ref
+        label = (f"{tuple(shape)} {str(x.dtype).split('.')[-1]} "
+                 f"{'gather' if gather else 'sum'}, {w} ranks")
+        check(bitwise and repeat, f"k8 rank {mesh.rank}: {label}: bitwise "
+              f"vs the plain version {bitwise}, repeat {repeat}")
+        rec = dict(shape=label, gather=gather, err=err, bitwise=bitwise,
+                   repeat=repeat)
+        if timing:
+            if gather:
+                outs = [torch.empty_like(x) for _ in range(w)]
+
+                def library(x=x, outs=outs):
+                    dist.all_gather(outs, x)
+            else:
+                def library(x=x):
+                    dist.all_reduce(x.clone())
+
+            size = x.numel() * x.element_size()
+            rate = (FP64_VECTOR_OPS_PER_S if x.dtype == torch.float64
+                    else FP32_OPS_PER_S)
+            rec.update(
+                ms=graph_ms(k8_call, reps),
+                plain_ms=device_ms(plain, plain_reps),
+                library_ms=device_ms(library, plain_reps),
+                **bound(((2 * w + 2) if gather else (w + 3)) * size,
+                        (w if gather else 2 * w - 1) * x.numel(), rate))
+        records.append(rec)
+    mesh.check("the K8 phase")
+    return records
+
+
+def k8_phase(mesh, calls):
+    """K8 at the sizes of S2's collectives (each distinct shape, sum or
+    gather), in float32 and float64."""
+    import numpy as np
+
+    import torch
+
+    sizes = sorted({(shape, gather) for shape, gather, _ in calls},
+                   key=lambda c: (-int(np.prod(c[0])), c))
+    cases = [(shape, gather, dtype) for shape, gather in sizes
+             for dtype in (torch.float32, torch.float64)]
+    return k8_cases(mesh, cases, reps=5, plain_reps=2)
+
+
+# K8 at 4 ranks: small shapes (shape, gather, dtype)
+K8_W4_CASES = [((1,), False, "float64"), ((1000,), False, "float32"),
+               ((123457,), False, "float32"), ((123457,), False, "float64"),
+               ((3, 4097), True, "float32"), ((3, 4097), True, "float64")]
+
+
+def k8_w4_rank(mesh):
+    """One of 4 ranks on cuda:0: K8 bitwise its plain version at small
+    shapes, rank order beyond two."""
+    import torch
+
+    return k8_cases(mesh, [(s, g, getattr(torch, d))
+                           for s, g, d in K8_W4_CASES],
+                    reps=0, plain_reps=0, timing=False)
+
+
+def graph_record(tag, loop, trace, iterations):
+    """A rank's captured run, for the parent's print: replay ms accepted
+    and rejected (the last run), the regions' runs, K8's launches at the
+    top level and in the regions, capture seconds, pool, peak; checks the
+    step / branch regions' runs against the trace."""
+    import torch
+
+    accepted = [bool(t[3]) for t in trace[:iterations]]
+    ms = loop.replay_ms
+    runs = loop.capture.region_runs()
+    k8_names = ("allreduce.allreduce", "allreduce.gather")
+    top = sum(loop.capture.top_launches.get(n, 0) for n in k8_names)
+    launches = graph_launches(loop)
+    total = sum(launches.get(n, 0) for n in k8_names)
+    in_while = sum(int(r.runs) * sum(r.launches.get(n, 0) for n in k8_names)
+                   for r in loop.capture.regions if r.name == "cg_step")
+    check(runs.get("lm_iteration") == runs.get("lm_update") == iterations,
+          f"{tag}: the step and update regions ran {runs}")
+    check(runs.get("lm_accept") == sum(accepted)
+          and runs.get("lm_reject") == iterations - sum(accepted),
+          f"{tag}: the accept / reject regions ran {runs}")
+    check(loop.capture.host_calls == 0,
+          f"{tag}: the replays hold a host call")
+    return dict(
+        accepted_ms=[m for m, a in zip(ms, accepted) if a],
+        rejected_ms=[m for m, a in zip(ms, accepted) if not a],
+        runs=runs, k8_top=top * loop.replays, k8_regions=total - top *
+        loop.replays, k8_in_while=in_while, cg_steps=runs.get("cg_step"),
+        capture_s=loop.capture_seconds, pool_mib=loop.pool_bytes / 2**20,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        launches=launches)
+
+
+def shard_graph(tag, mesh, problem, solver, iterations):
+    """``sharded_lm`` on this rank, host loop then ``jit_loop`` from the
+    same start (every K8 call inside the captured iteration, its regions
+    and the CG loop's "while" node); the replays run under sync-debug mode
+    "error", so a host sync there raises. Returns both runs' traces and
+    parameters, the comparison and ``graph_record``; the loop is freed."""
+    import dataclasses
+
+    import torch
+
+    from graphite_tpu_torch.optimizers.lm import cached_device_loop
+    from graphite_tpu_torch.parallel import sharded_lm
+    from graphite_tpu_torch.parallel.sharding import _replica
+
+    t0 = time.perf_counter()
+    host = sharded_lm(problem, mesh, solver, lm_options(iterations),
+                      with_trace=True)
+    host_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    opts = dataclasses.replace(lm_options(iterations), jit_loop=True)
+    t0 = time.perf_counter()
+    graph = sharded_lm(problem, mesh, solver, opts, with_trace=True)
+    graph_s = time.perf_counter() - t0
+    replica = _replica(problem, mesh)
+    loop = cached_device_loop(replica, solver, opts)
+    check(loop is not None and loop.capture is not None,
+          f"{tag}: no captured graph")
+    rec = graph_record(tag, loop, graph[4].tolist(), graph[2])
+    drop_loop(replica, loop)
+    del loop
+    torch.cuda.empty_cache()
+    return dict(rec, trace=graph[4].tolist(), host_trace=host[4].tolist(),
+                params={n: v.cpu().numpy() for n, v in graph[0].items()},
+                bitwise_host=same_run(graph, host), host_s=host_s,
+                graph_s=graph_s, iterations=graph[2])
+
+
+def shard_ladybug_forced(mesh, ladybug):
+    """S3 on one rank: Ladybug-49 with the Venice branches forced, on the
+    card (K8) and on the CPU (the plain version) over the same group,
+    host loop and ``jit_loop``."""
+    import dataclasses
+
+    import torch
+
+    from graphite_tpu_torch import schur
+    from graphite_tpu_torch.parallel import sharded_lm
+    from graphite_tpu_torch.solvers import PCGSchurSolver
+
+    gates = schur.CHUNK_THRESHOLD, schur._smv_chunk_rows
+    schur.CHUNK_THRESHOLD, schur._smv_chunk_rows = 0, (lambda rb: 0)
+    forced = PCGSchurSolver(10, 1.0, 5.0, dense_matvec_limit=0)
+    runs = {}
+    try:
+        for where, m in (("cuda", mesh),
+                         ("cpu", dataclasses.replace(
+                             mesh, device=torch.device("cpu")))):
+            for jit in (False, True):
+                opts = dataclasses.replace(lm_options(10), jit_loop=jit)
+                (p, c, kl, a, tr), lau, _ = count_launches(
+                    lambda m=m, opts=opts: sharded_lm(
+                        ladybug, m, forced, opts, with_trace=True),
+                    record_events=False)
+                runs[where, jit] = dict(
+                    trace=tr.tolist(), launches=lau,
+                    params={n: v.cpu() for n, v in p.items()})
+    finally:
+        schur.CHUNK_THRESHOLD, schur._smv_chunk_rows = gates
+    card = runs["cuda", False]
+    return dict(
+        trace=card["trace"], cpu_trace=runs["cpu", False]["trace"],
+        graph_trace=runs["cuda", True]["trace"],
+        cpu_graph_trace=runs["cpu", True]["trace"],
+        launches=card["launches"],
+        params_bitwise=all(same_params(card["params"], r["params"])
+                           for r in runs.values()))
+
+
+def shard_rank(mesh, venice, ladybug, sphere, iterations, graph_iterations,
+               pose_iterations, initial_chi2):
+    """One rank of S2-S5 (spawned by ``phase_shard``; two ranks in two
+    processes on cuda:0, every collective a K8 launch): S2, K8's phase at
+    S2's sizes, S4, S3 and S5, in that order."""
+    from graphite_tpu_torch.preconditioners import BlockJacobiPreconditioner
+    from graphite_tpu_torch.solvers import PCGSchurSolver, PCGSolver
+
+    out = shard_venice_host(mesh, venice, iterations, initial_chi2)
+    out["k8_phase"] = k8_phase(mesh, out.pop("calls"))
+    out["s4"] = shard_graph("shard-venice-w2-graph", mesh, venice,
+                            PCGSchurSolver(10, 1.0, 5.0), graph_iterations)
+    out["ladybug"] = shard_ladybug_forced(mesh, ladybug)
+    out["s5"] = shard_graph(
+        "shard-sphere2500-w2-graph", mesh, sphere,
+        PCGSolver(50, 1e-10, 1e6, BlockJacobiPreconditioner()),
+        pose_iterations)
+    return out
+
+
+def print_k8(tag, records):
+    for r in records:
+        print(f"[{tag}] {r['shape']} ({card_label()}): bitwise_vs_plain="
+              f"{r['bitwise']} bitwise_repeat={r['repeat']} ms={r['ms']:.4f} "
+              f"plain_ms (gloo, zeroed buffer + rank-order adds)="
+              f"{r['plain_ms']:.4f} library_ms (gloo's one call)="
+              f"{r['library_ms']:.4f} bound_ms={bound_fields(r)}")
+
+
+def print_graph(tag, r, host_iterations_s):
+    print(f"[{tag}] ({card_label()}) bitwise_equal_to_host_loop="
+          f"{r['bitwise_host']} iterations={r['iterations']} accepted="
+          f"{[bool(t[3]) for t in r['trace'][:r['iterations']]]}; replay ms "
+          f"accepted median={median_or_none(r['accepted_ms'])} (n="
+          f"{len(r['accepted_ms'])}) rejected median="
+          f"{median_or_none(r['rejected_ms'])} (n={len(r['rejected_ms'])}); "
+          f"K8 launches top level {r['k8_top']} + region runs "
+          f"{r['k8_regions']} (in the CG \"while\" node {r['k8_in_while']}, "
+          f"CG steps run {r['cg_steps']}); capture seconds="
+          f"{r['capture_s']:.3f}; no host sync in the replays (sync-debug "
+          f"mode \"error\", no host call); graph pool="
+          f"{r['pool_mib']:.1f} MiB; peak "
+          f"{r['peak_gib']:.3f} GiB; host loop {host_iterations_s:.3f} s, "
+          f"jit_loop call {r['graph_s']:.3f} s (warm-up, capture and "
+          "replays); two processes time-sliced on one card: not scaling")
+
+
+def phase_shard(cpu_problem, host, iterations):
+    """S2-S5 on two ranks in two processes on cuda:0 (every collective a
+    K8 launch; NCCL refuses two ranks on one card), then K8 at four ranks.
+    The ranks take the frozen Venice problem, its host structures included,
+    from this process: no ``make_bal``, freeze or structure is built again.
+    Returns the ranks' launches (summed) of every path and the measured
+    records of K3 and K8."""
     import numpy as np
 
     import torch
@@ -3624,12 +3982,15 @@ def phase_shard_w2(cpu_problem, host, iterations):
     for name, fm in venice.factor_meta.items():
         check(fm.count % 2 == 0, f"{tag}: {name} has an odd factor count")
     ladybug = ladybug_problem("cpu", pad_factors_to=2)
+    sphere = pose_problem("cpu", pad_factors_to=2)
     t0 = time.perf_counter()
-    ranks = run_ranks(shard_rank, 2, "gloo", venice, ladybug, iterations,
-                      host.initial_chi2, device=torch.device("cuda", 0))
+    ranks = run_ranks(shard_rank, 2, "gloo", venice, ladybug, sphere,
+                      iterations, 10, 30, host.initial_chi2,
+                      device=torch.device("cuda", 0))
     seconds = time.perf_counter() - t0
-    print(f"[{tag}] 2 ranks (gloo on cuda:0; the ranks load the frozen "
-          f"problem from this process): {seconds:.1f} s")
+    print(f"[{tag}] 2 ranks (gloo for set-up, K8 for every collective, on "
+          f"cuda:0; the ranks load the frozen problem from this process): "
+          f"S2-S5 {seconds:.1f} s")
     r0, r1 = ranks
     acc_host = [h["accepted"] for h in host.history[:iterations]]
     chi_host = [h["chi2"] for h in host.history[:iterations]]
@@ -3640,26 +4001,27 @@ def phase_shard_w2(cpu_problem, host, iterations):
         rel = [abs(a - b) / abs(b) for a, b in zip(chi, chi_host)]
         print(f"[{tag}] rank {r['rank']}: chi2={chi} accepted={acc} (phase "
               f"7: {chi_host} {acc_host}); rel diff per iteration="
-              f"{[f'{x:.3e}' for x in rel]}; first "
-              f"run {r['first_s']:.1f} s with its plans; second run "
-              f"{r['second_ms'] / iterations:.3f} ms per iteration (host "
-              f"clock), collectives {r['collective_ms'] / iterations:.3f} "
-              f"ms per iteration ({r['collective_ms'] / r['second_ms']:.1%}"
-              f"; {r['collective_calls']} all_reduce calls, "
-              f"{r['collective_mb']:.1f} MB); peak device memory "
-              f"{r['peak_gib']:.3f} GiB; two runs bitwise equal "
-              f"{r['repeat_bitwise']}")
-        print(f"[{tag}] rank {r['rank']}: device (CUDA events on the "
-              f"rank's stream) second run "
-              f"{r['second_device_ms'] / iterations:.3f} ms per iteration, "
-              f"outside the collectives "
-              f"{(r['second_device_ms'] - r['collective_ms']) / iterations:.3f}"
-              f" (phase 7, the same {iterations} iterations unsharded: "
-              f"{host_ms / iterations:.3f}); the port's kernels "
-              f"{r['kernel_ms'] / iterations:.3f} ms per iteration (first "
-              f"run, both ranks sharing the card)")
+              f"{[f'{x:.3e}' for x in rel]}; first run {r['first_s']:.1f} s "
+              f"with its plans; peak device memory {r['peak_gib']:.3f} GiB; "
+              f"second run bitwise the first {r['repeat_bitwise']}; the "
+              f"plain transport's run bitwise the first {r['plain_bitwise']}")
+        for name, t in (("K8", r["k8"]), ("gloo (plain version)", r["gloo"])):
+            print(f"[{tag}] rank {r['rank']} on {name} ({card_label()}): "
+                  f"{t['ms'] / iterations:.3f} ms per iteration (host clock),"
+                  f" collectives {t['collective_ms'] / iterations:.3f} ms per "
+                  f"iteration ({t['collective_ms'] / t['ms']:.1%}; "
+                  f"{t['collective_calls']} calls, {t['collective_mb']:.1f} "
+                  f"MB); device (CUDA events on the rank's stream) "
+                  f"{t['device_ms'] / iterations:.3f} ms per iteration, "
+                  f"outside the collectives "
+                  f"{(t['device_ms'] - t['collective_ms']) / iterations:.3f} "
+                  f"(phase 7, unsharded: {host_ms / iterations:.3f}; before "
+                  f"K8, on gloo: 1685.8 ms per iteration, 1599.1 in the "
+                  f"collectives, PERF.md)")
         check(acc == acc_host, f"{tag}: accept pattern differs from phase 7")
         check(r["repeat_bitwise"], f"{tag}: two runs differ")
+        check(r["plain_bitwise"],
+              f"{tag}: K8's run differs from the plain transport's")
         lau = r["launches"]
         check(lau["segsum_stream.streaming_segment_product_sum"]
               == iterations, f"{tag}: K3's gathered-stream entry must run "
@@ -3668,8 +4030,10 @@ def phase_shard_w2(cpu_problem, host, iterations):
               f"{tag}: the unsharded product stage ran")
         check(lau["segsum_stream.streaming_segment_sum"] > 0,
               f"{tag}: K1 never launched")
-    print(f"[{tag}] gloo moves each collective through the host: these are "
-          f"the transport's times, not the card's")
+        check(lau["allreduce.allreduce"] > 0 and lau["allreduce.gather"] > 0,
+              f"{tag}: K8 never launched")
+    print(f"[{tag}] two processes share one card, time-sliced: K8's times "
+          f"measure that, not scaling")
     check(r0["trace"] == r1["trace"], f"{tag}: the ranks' traces differ")
     check(all(np.array_equal(r0["params"][n], r1["params"][n])
               for n in r0["params"]), f"{tag}: the ranks' parameters differ")
@@ -3681,6 +4045,33 @@ def phase_shard_w2(cpu_problem, host, iterations):
     print(f"[{tag}] launches (both ranks) "
           f"{ {n: c for n, c in launches.items() if c} }")
 
+    print_k8("k8", r0["k8_phase"])
+    print(f"[k8] rank 1: every case bitwise its plain version and repeatable "
+          f"({len(r1['k8_phase'])} cases)")
+
+    results = {}
+    for tag, key in (("shard-venice-w2-graph", "s4"),
+                     ("shard-sphere2500-w2-graph", "s5")):
+        for r in ranks:
+            print_graph(f"{tag} rank {r['rank']}", r[key], r[key]["host_s"])
+            check(r[key]["bitwise_host"],
+                  f"{tag}: rank {r['rank']}'s jit_loop run is not its host "
+                  "loop's bit for bit")
+            check(r[key]["k8_top"] + r[key]["k8_regions"] > 0,
+                  f"{tag}: K8 never ran in the graph")
+        check(r0[key]["trace"] == r1[key]["trace"]
+              and all(np.array_equal(r0[key]["params"][n],
+                                     r1[key]["params"][n])
+                      for n in r0[key]["params"]),
+              f"{tag}: the ranks differ")
+        results[tag] = {n: r0[key]["launches"].get(n, 0)
+                        + r1[key]["launches"].get(n, 0) for n in launches}
+    check(r0["s5"]["k8_in_while"] == r0["s5"]["cg_steps"] > 0,
+          "shard-sphere2500-w2-graph: K8 must run once in each CG step of "
+          "the \"while\" node")
+    check(r0["s4"]["trace"][:iterations] == r0["trace"],
+          "shard-venice-w2-graph: its first iterations are not S2's")
+
     tag = "shard-ladybug-w2"
     for r in ranks:
         lb = r["ladybug"]
@@ -3689,10 +4080,14 @@ def phase_shard_w2(cpu_problem, host, iterations):
         cacc = [bool(t[3]) for t in lb["cpu_trace"]]
         print(f"[{tag}] rank {r['rank']}: cuda chi2={chi} accepted={acc}; "
               f"cpu chi2={cchi} accepted={cacc}; bitwise "
-              f"{chi == cchi and acc == cacc}, parameters bitwise "
-              f"{lb['params_bitwise']}")
+              f"{chi == cchi and acc == cacc}; jit_loop card (K8) and CPU "
+              f"(the plain version) bitwise the host loops "
+              f"{lb['graph_trace'] == lb['cpu_graph_trace'] == lb['trace']}, "
+              f"parameters of all four bitwise {lb['params_bitwise']}")
         check(acc == cacc and chi == cchi,
               f"{tag}: card and CPU trajectories differ")
+        check(lb["graph_trace"] == lb["cpu_graph_trace"] == lb["trace"],
+              f"{tag}: the jit_loop runs differ")
         check(lb["params_bitwise"], f"{tag}: card and CPU parameters differ")
         check(lb["launches"]["segsum_stream.streaming_segment_product_sum"]
               > 0, f"{tag}: K3's gathered-stream entry never launched")
@@ -3701,10 +4096,22 @@ def phase_shard_w2(cpu_problem, host, iterations):
           f"{tag}: the ranks' traces differ")
     lady = {n: r0["ladybug"]["launches"][n] + r1["ladybug"]["launches"][n]
             for n in launches}
-    print(f"[{tag}] launches (both ranks, the card's run) "
+    print(f"[{tag}] launches (both ranks, the card's host loop) "
           f"{ {n: c for n, c in lady.items() if c} }")
-    return ({"shard-venice-w2": launches, "shard-ladybug-w2": lady},
-            {"segsum_stream.streaming_segment_product_sum": [r0["k3"]]})
+
+    t0 = time.perf_counter()
+    w4 = run_ranks(k8_w4_rank, 4, "gloo", device=torch.device("cuda", 0))
+    print(f"[k8-w4] 4 ranks on cuda:0, {len(w4[0])} cases "
+          f"{[r['shape'] for r in w4[0]]}: every rank bitwise the plain "
+          f"version and repeatable; {time.perf_counter() - t0:.1f} s")
+    k8_records = {"allreduce.allreduce": [], "allreduce.gather": []}
+    for r in r0["k8_phase"]:
+        k8_records["allreduce.gather" if r["gather"]
+                   else "allreduce.allreduce"].append(r)
+    return ({"shard-venice-w2": launches, "shard-ladybug-w2": lady,
+             **results},
+            {"segsum_stream.streaming_segment_product_sum": [r0["k3"]],
+             **k8_records})
 
 
 # (kernel, source, {entry point: TPU kernel body it replaces})
@@ -3734,6 +4141,13 @@ KERNELS = [
         "segmv.matvec_sym_stream": "graphite_tpu/ops/pallas/segmv.py:303"}),
     ("K6", "graphite_tpu_torch/csrc/pcg_mf.cu", {
         "pcg_mf.solve_pcg_mf": "graphite_tpu/ops/pallas/pcg_mf.py:121"}),
+    # no pl.pallas_call: the JAX package's collectives inside its sharded
+    # program (lax.psum of problem.allreduce, lax.all_gather of the S
+    # ranges)
+    ("K8", "graphite_tpu_torch/csrc/allreduce.cu", {
+        "allreduce.allreduce": "none (lax.psum, graphite_tpu/graph.py:333)",
+        "allreduce.gather":
+            "none (lax.all_gather, graphite_tpu/schur.py:698)"}),
 ]
 
 
@@ -3840,7 +4254,7 @@ def main():
     timed("first-order-venice-cpu", phase_first_order_venice_cpu,
           cpu_problem, first_order_short, 2)
     shard_launches, shard_measured = timed(
-        "shard-w2", phase_shard_w2, cpu_problem, gpu, 3)
+        "shard-w2", phase_shard, cpu_problem, gpu, 3)
     structures = dict(cpu_problem.to("cpu")._cache, topology=(
         cpu_problem.block_offsets, dict(cpu_problem.host.factor_ids)))
     del cpu_problem

@@ -272,12 +272,14 @@ class Problem:
         """Whether the factors are split over more than one rank."""
         return self.mesh is not None and self.mesh.world > 1
 
-    def allreduce(self, x: torch.Tensor) -> torch.Tensor:
+    def allreduce(self, x: torch.Tensor,
+                  tag: str = "allreduce") -> torch.Tensor:
         """The sum of ``x`` over the ranks (in rank order); ``x`` itself
-        when the problem is not sharded."""
+        when the problem is not sharded. ``tag`` names the site in the
+        collective's errors."""
         if self.mesh is None:
             return x
-        return self.mesh.allreduce(x)
+        return self.mesh.allreduce(x, tag)
 
     def shard_slice(self, arr, n_local: int):
         """A global per-factor host array cut to this rank's contiguous

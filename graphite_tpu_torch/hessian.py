@@ -289,7 +289,8 @@ def compute_hessian_values(problem, hs: HessianStructure,
                                 flat_t.shape[1])
             values[cm.trans_group] = values[cm.trans_group] + reduce_rows(
                 flat_t, plan)
-    return {key: problem.allreduce(v) for key, v in values.items()}
+    return {key: problem.allreduce(v, f"hessian {key}")
+            for key, v in values.items()}
 
 
 def _diag_rows_by_type(problem, hs: HessianStructure):

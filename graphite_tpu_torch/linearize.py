@@ -203,7 +203,8 @@ def linearize(problem: Problem, params) -> Linearization:
                                       vt.name)
             prev = diag_rows.get(vt.name)
             diag_rows[vt.name] = rows if prev is None else prev + rows
-    diag_raw = problem.allreduce(problem.flat_from_rows(diag_rows))
+    diag_raw = problem.allreduce(problem.flat_from_rows(diag_rows),
+                                 "linearize.diag")
 
     if problem.scale_jacobians:
         eps = float(np.finfo(np.float64).eps)
@@ -235,10 +236,11 @@ def linearize(problem: Problem, params) -> Linearization:
                                       vt.name)
             prev = b_rows.get(vt.name)
             b_rows[vt.name] = rows if prev is None else prev + rows
-    b = problem.allreduce(problem.flat_from_rows(b_rows))
+    b = problem.allreduce(problem.flat_from_rows(b_rows), "linearize.b")
 
     chi2 = problem.allreduce(sum(v.sum(dtype=torch.float64)
-                                 for v in chi2_vec.values())).to(gdt)
+                                 for v in chi2_vec.values()),
+                             "linearize.chi2").to(gdt)
     return Linearization(residuals=residuals, jacobians=jacobians,
                          chi2_vec=chi2_vec, chi2_deriv=chi2_deriv,
                          scales=scales, diag=diag, b=b, chi2=chi2)
@@ -290,7 +292,8 @@ def compute_chi2(problem: Problem, params) -> torch.Tensor:
         r = compute_residuals_block(problem, params, name)
         c, _ = compute_chi2_block(problem, name, r)
         total = total + c.sum(dtype=torch.float64)
-    return problem.allreduce(total).to(problem.precision.graph_dtype)
+    return problem.allreduce(total, "compute_chi2").to(
+        problem.precision.graph_dtype)
 
 
 def Jv(problem: Problem, lin: Linearization, x: torch.Tensor,
@@ -336,7 +339,7 @@ def JtPv(problem: Problem, lin: Linearization,
                                       vt.name)
             prev = out_rows.get(vt.name)
             out_rows[vt.name] = rows if prev is None else prev + rows
-    return problem.allreduce(problem.flat_from_rows(out_rows))
+    return problem.allreduce(problem.flat_from_rows(out_rows), "JtPv")
 
 
 def hessian_matvec(problem: Problem, lin: Linearization,

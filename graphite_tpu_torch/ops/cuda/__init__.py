@@ -10,7 +10,11 @@
 - ``segmv``: kernel K4, the gathered block matvec reduced over segments,
   and K5, the symmetric block-sparse S matvec (``csrc/segmv.cu``);
 - ``pcg_mf``: kernel K6, a whole matrix-free PCG solve of a pose graph
-  in one launch on one thread-block cluster (``csrc/pcg_mf.cu``).
+  in one launch on one thread-block cluster (``csrc/pcg_mf.cu``);
+- ``allreduce``: kernel K8, the sharded path's rank-order all-reduce and
+  gather over CUDA IPC (``csrc/allreduce.cu``);
+- ``cond``: the conditional graph nodes of the captured LM iteration
+  (``csrc/cond.cu``).
 
 Each wrapper has a plain PyTorch version beside it with the same
 signature, used for CPU tensors and as the kernel's oracle, and a

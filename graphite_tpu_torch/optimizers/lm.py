@@ -37,7 +37,10 @@ Two modes:
   region as its plain ``if`` (a loop as its ``while``): the plain version
   of the captured one.
   Remasking (``Problem.remask``) writes the masks in place, so the cached
-  graph stays valid.
+  graph stays valid. On a sharded replica (``parallel.sharded_lm``) every
+  rank builds, warms up, captures and replays the same iteration, so every
+  rank issues the same collectives (K8 launches on the card, inside the
+  graph and its regions) in the same order.
 """
 
 from __future__ import annotations
@@ -346,6 +349,17 @@ class _DeviceLoop:
         self.replay_ms = []  # the last run's device ms of each replay
         if dev.type == "cuda":
             self._capture()
+        # the collectives' arena the graph holds (a sharded replica's)
+        self.transport = self._transport_token()
+
+    def _transport_token(self):
+        mesh = self.problem.mesh
+        return None if mesh is None else mesh.transport_token()
+
+    def stale(self) -> bool:
+        """Whether the graph holds a collectives' arena that is gone (its
+        mesh closed, or the replica bound to another mesh since)."""
+        return self.transport is not self._transport_token()
 
     def _step(self) -> None:
         """One iteration, in place, with no host read: the JAX package's
@@ -491,6 +505,10 @@ class _DeviceLoop:
             self.chi2, self.initial_chi2, self.mu, self.k.to(gdt),
             self.num_accepted.to(gdt), self.run_flag.to(gdt)]).tolist()
         trace = trace.tolist()
+        if self.problem.mesh is not None:
+            # a sharded replica's collectives (K8) report a peer that never
+            # came in their error word: read once, after the replays
+            self.problem.mesh.check("the LM device loop's run")
         wall = time.perf_counter() - t0
         chi2, initial_chi2, mu, k, num_accepted, run = scalars
         k = int(k)
@@ -535,7 +553,7 @@ def _device_loop(problem, solver, options) -> _DeviceLoop:
     key = _loop_key(solver, options)
     loop = problem._cache.get(key)
     if (loop is None or loop.solver is not solver
-            or loop.problem is not problem):
+            or loop.problem is not problem or loop.stale()):
         loop = _DeviceLoop(problem, solver, options)
         problem._cache[key] = loop
     return loop

@@ -4,7 +4,9 @@ package and the module of ``fn``), joins them in one process group whose
 rendezvous is a file in a fresh temporary directory (no port to pick or
 collide on), calls ``fn(mesh, *args)`` on every rank and returns the
 results by rank. A rank that raises fails the whole call with its
-traceback; every process is ended before the call returns.
+traceback; every process is ended before the call returns. Each rank
+closes its mesh (``Mesh.close``: its K8 arena, collectively) before it
+leaves the process group, after a failure too.
 
 ``fn`` and ``args`` are pickled: ``fn`` must be importable by name (a
 module-level function), and results come back pickled too (move tensors
@@ -37,14 +39,24 @@ def _rank_main(rank, world, backend, init_method, device, fn, args_path,
             torch.cuda.set_device(torch.device(device))
         dist.init_process_group(backend, init_method=init_method, rank=rank,
                                 world_size=world)
+        mesh = None
         try:
             # pickled here: a put pickles in a feeder thread, which would
             # lose the error
             with open(args_path, "rb") as f:
                 args = pickle.load(f)
-            result = pickle.dumps(fn(make_mesh(device=device), *args))
-        finally:
+            mesh = make_mesh(device=device)
+            result = pickle.dumps(fn(mesh, *args))
+        except BaseException:
+            # posted before the close, which waits for the peers: the
+            # parent ends every rank after a failure
+            out.put((rank, False, traceback.format_exc()))
+            if mesh is not None:
+                mesh.close()
             dist.destroy_process_group()
+            return
+        mesh.close()  # the K8 arena, before the group it was exchanged on
+        dist.destroy_process_group()
         out.put((rank, True, result))
     except BaseException:  # reported to the parent, which raises
         out.put((rank, False, traceback.format_exc()))

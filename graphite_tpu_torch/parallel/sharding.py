@@ -19,14 +19,17 @@ Hessian and block-Jacobi blocks) is summed over the ranks:
   gather places the disjoint ranges; Hll^-1, W, b_S, the PCG on S and the
   back-substitution stay replicated.
 
-The collectives keep one fixed order, whatever the backend: ``allreduce``
-writes each rank's part into its own row of a zeroed ``(world, ...)``
-buffer, sums the buffer with one ``all_reduce`` (each element has one
-non-zero term, so the backend's order cannot change a bit) and adds the
-rows in rank order. Only ``all_reduce`` is used, which gloo also takes on
-CUDA tensors (several ranks on one card, where NCCL refuses) and NCCL on
-one card per rank. Every rank reads the same sums, so every rank takes the
-same LM decisions and holds bitwise the same parameters.
+The collectives add in one fixed order, the ranks' (``Mesh.allreduce``:
+row 0 + row 1 + ...), so every rank reads the same sums, takes the same LM
+decisions and holds bitwise the same parameters. On a CUDA mesh each one
+is a launch of kernel K8 (``ops/cuda/allreduce``: the ranks map each
+other's arenas through CUDA IPC), several ranks on one card or one rank
+per card alike; a CUDA graph holds it, so ``sharded_lm(jit_loop=True)``
+runs the whole LM loop on the device, as the JAX package runs it in one
+program, with no host read between iterations. On a CPU mesh each one is
+K8's plain version: one ``all_reduce`` of a zeroed ``(world, ...)``
+buffer, its rows added in rank order. There is no fallback from one to the
+other. ``Mesh.close()`` frees the arena (collectively).
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ import torch.distributed as dist
 
 from ..graph import FactorArrays, GraphData, VertexArrays
 from ..linearize import apply_update, compute_chi2, linearize
+from ..ops.cuda import allreduce as k8
 from ..optimizers.lm import levenberg_marquardt
 
 FACTOR_AXIS = "factors"
@@ -49,30 +53,56 @@ class Mesh:
     """One rank of an initialised process group: its rank, the world
     size, the backend, and the device its tensors live on. A process
     group has one axis, the factors', so the ``axis`` arguments below
-    are taken for the JAX package's signatures and name nothing."""
+    are taken for the JAX package's signatures and name nothing.
+
+    On a CUDA mesh the collectives are K8's (``transport``, made at the
+    first call: every rank makes it there); ``close()`` frees it."""
 
     rank: int
     world: int
     backend: str
     device: torch.device
     group: Optional[object] = None  # None: the default group
+    _transport: list = dataclasses.field(default_factory=list, init=False,
+                                         repr=False, compare=False)
 
-    def gather(self, x: torch.Tensor) -> torch.Tensor:
+    def transport(self) -> "k8.Transport":
+        """This rank's K8 arena (made at the first call on the card)."""
+        if not self._transport:
+            self._transport.append(k8.Transport(self.rank, self.world,
+                                                self.device, self.group))
+        return self._transport[0]
+
+    def gather(self, x: torch.Tensor, tag: str = "gather") -> torch.Tensor:
         """(world, *x.shape): every rank's ``x`` (the same shape on every
-        rank), each in its own row of a zeroed buffer summed by one
-        ``all_reduce``: a sum of one term per element, exact."""
-        buf = x.new_zeros((self.world,) + tuple(x.shape))
-        buf[self.rank] = x
-        dist.all_reduce(buf, group=self.group)
-        return buf
+        rank); ``tag`` names the call in K8's errors."""
+        if x.device.type == "cpu":
+            return k8.gather_plain(x, self.rank, self.world, self.group)
+        return self.transport().gather(x, tag)
 
-    def allreduce(self, x: torch.Tensor) -> torch.Tensor:
+    def allreduce(self, x: torch.Tensor,
+                  tag: str = "allreduce") -> torch.Tensor:
         """The sum of every rank's ``x``, added in rank order."""
-        rows = self.gather(x)
-        acc = rows[0]
-        for r in range(1, self.world):
-            acc = acc + rows[r]
-        return acc
+        if x.device.type == "cpu":
+            return k8.allreduce_plain(x, self.rank, self.world, self.group)
+        return self.transport().allreduce(x, tag)
+
+    def transport_token(self):
+        """The K8 arena a capture made now would hold (None: none yet, or
+        a CPU mesh); a graph captured with another is stale."""
+        return self._transport[0] if self._transport else None
+
+    def check(self, what: str) -> None:
+        """Raise if a K8 call of this rank timed out waiting for a peer
+        (read after a captured run; ``what`` names it)."""
+        if self._transport:
+            self._transport[0].check(what)
+
+    def close(self) -> None:
+        """Collective: free this rank's K8 arena, after every rank's last
+        collective (and the last replay of a graph that holds one)."""
+        if self._transport:
+            self._transport.pop().close()
 
 
 def make_mesh(n_devices: Optional[int] = None, axis: str = FACTOR_AXIS,
@@ -163,6 +193,7 @@ def _replica(problem, mesh: Mesh, data=None):
     if p is None:
         p = problem.shard_replica(shard_data(problem, mesh), mesh)
         problem._cache[key] = p
+    p.mesh = mesh  # the plans are the rank's; the collectives this mesh's
     return p
 
 
@@ -206,23 +237,21 @@ def sharded_lm_step_fn(problem, mesh: Mesh, solver, damping: float,
 
 def sharded_lm(problem, mesh: Mesh, solver, options, params=None,
                axis: str = FACTOR_AXIS, with_trace: bool = False):
-    """Levenberg-Marquardt on this rank's slice of ``problem``: the host
-    loop of ``levenberg_marquardt`` on the rank's replica (its plans built
-    on the first call and cached on ``problem``). Every rank reads the
-    same all-reduced chi2 and gain, so every rank takes the same
-    decisions.
+    """Levenberg-Marquardt on this rank's slice of ``problem``: the
+    counterpart of ``levenberg_marquardt(..., jit_loop=...)`` on the
+    rank's replica (its plans built on the first call and cached on
+    ``problem``). Every rank reads the same all-reduced chi2 and gain, so
+    every rank takes the same decisions. With ``options.jit_loop`` each
+    rank runs the device loop (``optimizers/lm._DeviceLoop``): on the card
+    one iteration captured as a CUDA graph, its collectives K8 launches
+    inside the graph and its conditional regions, and replayed with no
+    host read, as the JAX package runs the whole ``while_loop`` in one
+    program; every rank must make the same call.
 
     Returns (params, chi2, iterations, accepted_steps), plus the
     (options.iterations, 4) trace of [chi2, mu, rho, accepted] per
-    iteration (zero rows past the last) when ``with_trace``. ``jit_loop``
-    (the captured iteration) is refused above world size 1: a CUDA graph
-    cannot hold the gloo transport's host steps. ``axis`` is ignored (see
-    ``Mesh``)."""
-    if options.jit_loop and mesh.world > 1:
-        raise ValueError(
-            "sharded_lm: jit_loop=True is not supported with more than one "
-            f"rank (world size {mesh.world}); collectives are not captured "
-            "in the CUDA graph")
+    iteration (zero rows past the last) when ``with_trace``. ``axis`` is
+    ignored (see ``Mesh``)."""
     p = _replica(problem, mesh)
     params = _on(params if params is not None else problem.params0,
                  mesh.device)

@@ -66,7 +66,8 @@ def compute_block_diagonal(problem, lin: Linearization
                                 vt.dim * vt.dim)
             blocks[vt.name] = blocks[vt.name] + reduce_rows(blk.to(inv_dt),
                                                             plan)
-    return {name: problem.allreduce(b) for name, b in blocks.items()}
+    return {name: problem.allreduce(b, f"block_jacobi {name}")
+            for name, b in blocks.items()}
 
 
 def row_inverse_blocks(problem, state: BlockJacobiState,

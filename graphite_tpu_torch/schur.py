@@ -550,7 +550,7 @@ def _sharded_products(problem, ss: SchurStructure, hvals: HessianValues,
                     part.plan)
             del Wg, Rg
             padded[:local.shape[0]] = local
-        every = mesh.gather(padded)
+        every = mesh.gather(padded, f"schur products {gi}")
         for r in range(n):
             if part.ns[r]:
                 s0 = part.seg0[r]

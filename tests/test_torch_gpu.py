@@ -70,11 +70,20 @@ on a machine with only PyTorch (``--noconftest`` skips the JAX set-up in
   largest entry (float64 factors: not bitwise); ``checkpoint.load``
   lands on the card by default; the range-bearing example on the card
   bitwise the CPU run (K2 on its 3x3 SE2 pose blocks, n = 87).
-- Factor-parallel sharding: two gloo ranks on one card (the sharded
-  Schur stage on K3's gathered-stream entry, K4 and K5 forced) bitwise
-  two gloo ranks on the CPU, both ranks equal; one nccl rank bitwise the
-  unsharded host loop on the card, under the host loop and ``jit_loop``
-  (the collectives captured in the graph).
+- Factor-parallel sharding: two ranks on one card (the sharded
+  Schur stage on K3's gathered-stream entry, K4 and K5 forced; every
+  collective a K8 launch) bitwise two gloo ranks on the CPU (K8's plain
+  version), both ranks equal; one nccl rank bitwise the unsharded host
+  loop on the card, under the host loop and ``jit_loop`` (the collectives
+  captured in the graph); two ranks under ``jit_loop`` at mini
+  (PCG-Schur, and PCG with block-Jacobi, whose all-reduce sits in the CG
+  loop's "while" node) bitwise their host loop.
+- K8 (``csrc/allreduce.cu``) on two ranks of one card: its sum and
+  gather bitwise its plain version (gloo on the same CUDA tensors, inputs
+  with -0.0 entries; float32, float64, int64, an empty tensor), bitwise
+  repeatable, one launch counted per call, the device's epoch equal to
+  the eager calls since the arena last grew; a rank whose peer leaves out
+  a call raises within the wait's bound, naming the call.
 """
 
 import dataclasses
@@ -1128,9 +1137,10 @@ def _ladybug_cpu(pad):
 
 
 def test_sharded_world2_cuda_equals_cpu(cuda_device):
-    """Two gloo ranks on one card (the sharded Schur stage on K3's
-    gathered-stream entry; K4 and K5 forced) against two gloo ranks on the
-    CPU: bitwise the same trajectory and parameters, both ranks equal."""
+    """Two ranks on one card (every collective a K8 launch; the sharded
+    Schur stage on K3's gathered-stream entry; K4 and K5 forced) against
+    two gloo ranks on the CPU (K8's plain version): bitwise the same
+    trajectory and parameters, both ranks equal."""
     import torch_sharding_helpers as helpers
 
     from graphite_tpu_torch.parallel import run_ranks
@@ -1171,3 +1181,71 @@ def test_sharded_world1_nccl_bitwise_unsharded(cuda_device):
         for name, v in ref.params.items():
             assert np.array_equal(run["params"][name], v.cpu().numpy())
 
+
+
+def test_k8_matches_plain_bitwise(cuda_device):
+    """K8 on two ranks of cuda:0 against its plain version on the same
+    CUDA tensors."""
+    import torch_sharding_helpers as helpers
+
+    from graphite_tpu_torch.parallel import run_ranks
+
+    out = run_ranks(helpers.k8_vs_plain, 2, "gloo",
+                    device=torch.device("cuda", 0))
+    for r, o in enumerate(out):
+        for case in o["cases"]:
+            assert case["bitwise"] and case["repeat"], (r, case["shape"])
+        assert o["launches"] == 4 * len(helpers.K8_CASES)
+        assert o["epoch"] == o["eager_calls"] > 0
+    for a, b in zip(out[0]["cases"], out[1]["cases"]):
+        assert np.array_equal(a["sum"], b["sum"])
+        assert a["gather_shape"] == (2,) + tuple(a["shape"])
+
+
+def test_k8_times_out_and_raises(cuda_device):
+    """A peer that leaves out a call: the waiting rank's K8 gives up after
+    its bound (2 s here) and the wrapper raises, naming the call."""
+    import torch_sharding_helpers as helpers
+
+    from graphite_tpu_torch.parallel import run_ranks
+
+    waiting, skipping = run_ranks(helpers.k8_timeout, 2, "gloo", 1,
+                                  device=torch.device("cuda", 0))
+    assert skipping["error"] is None
+    assert "'left out by a peer'" in waiting["error"]
+    assert "for rank 1" in waiting["error"]
+    assert 2.0 <= waiting["seconds"] < 30.0
+
+
+def test_sharded_jit_loop_two_ranks_bitwise_host_loop(cuda_device):
+    """Two ranks on cuda:0 at mini under ``jit_loop``: every collective a
+    K8 launch inside the captured iteration (in the CG loop's "while" node
+    for PCGSolver), bitwise the same ranks' host loop, ranks equal; after
+    ``Mesh.close()`` the cached loop is captured again on the new arena,
+    with the same bits."""
+    import torch_sharding_helpers as helpers
+
+    from graphite_tpu_torch.parallel import run_ranks
+
+    g, *_ = bal.build_graph(synthetic.make_bal("mini", seed=0, noise=0.5),
+                            precision=gtt.FP32_FP32)
+    problem = g.freeze(device="cpu", pad_factors_to=2)
+    out = run_ranks(helpers.host_and_graph, 2, "gloo", problem, 10,
+                    device=torch.device("cuda", 0))
+    for o in out:
+        assert o["k8_in_graphs"] > 0
+        closed = o["after_close"]
+        assert closed["recaptured"]
+        assert np.array_equal(closed["first"]["trace"],
+                              o["mini"]["host"]["trace"])
+        assert np.array_equal(closed["again"]["trace"],
+                              o["mini"]["host"]["trace"])
+        for case in ("mini", "pcg-block-jacobi"):
+            host, graph = o[case]["host"], o[case]["graph"]
+            assert graph["iterations"] == host["iterations"] >= 3
+            assert np.array_equal(graph["trace"], host["trace"])
+            for name in host["params"]:
+                assert np.array_equal(graph["params"][name],
+                                      host["params"][name])
+                assert np.array_equal(graph["params"][name],
+                                      out[0][case]["graph"]["params"][name])

@@ -11,7 +11,12 @@ package's 8-device virtual CPU mesh, on the same frozen problems, with
 - the float64 S values of the sharded Schur stage (1e-12 / 1e-13);
 - the (10, 400, 3000) float32 destination-partitioned S at (2e-4, 1e-3),
   here through K3's gathered-stream entry (its plain version on the CPU);
-- LM on a larger problem for 5 iterations (chi2 1e-8).
+- LM on a larger problem for 5 iterations (chi2 1e-8);
+- ``jit_loop`` (the device loop on every rank) against the JAX package's
+  ``sharded_lm(..., with_trace=True)``: mini with PCGSchurSolver (chi2
+  and each trace row's chi2 1e-9), the larger problem (1e-8) and mini with
+  PCGSolver and block-Jacobi, whose collective sits inside the CG loop
+  (1e-9); the same iterations, accepted steps and accept flags.
 
 The step and the float32 partition are held against the JAX package's
 single-device results, as ``test_sharding.py`` holds its own sharded
@@ -22,7 +27,8 @@ the port has no ``stream_dtype`` (left out with the precision policies).
 The port's own invariants: world size 1 is bitwise the unsharded run;
 all ranks hold bitwise the same results; two runs are bitwise equal; each
 product group's partition gives no rank more than 2K/n pairs, in disjoint
-destination ranges in rank order; ``jit_loop`` is refused above one rank.
+destination ranges in rank order; ``jit_loop`` is bitwise the same ranks'
+host loop (trace and parameters).
 """
 
 import numpy as np
@@ -271,9 +277,51 @@ def test_two_runs_bitwise_equal(ranks):
     assert ranks[0]["lm"]["iterations"] == 10
 
 
-def test_jit_loop_refused_above_one_rank(ranks):
-    assert ranks[0]["jit_loop"] is not None
-    assert "jit_loop" in ranks[0]["jit_loop"]
+def _jax_lm_solver(case):
+    if case == "pcg-block-jacobi":
+        return PCGSolver(max_iter=30, tol=1e-12, rejection_ratio=1e6,
+                         preconditioner=BlockJacobiPreconditioner())
+    if case == "nonmini":
+        return PCGSchurSolver(max_iter=20, tol=1e-10, rejection_ratio=1e6)
+    return PCGSchurSolver(max_iter=10, tol=1.0, rejection_ratio=5.0)
+
+
+# case -> (problem, chi2 tolerance)
+JIT_CASES = {"mini": (MINI, 1e-9), "nonmini": (NONMINI, 1e-8),
+             "pcg-block-jacobi": (MINI, 1e-9)}
+
+
+@pytest.mark.parametrize("case", list(JIT_CASES))
+def test_sharded_jit_loop_matches_jax(mesh, ranks, case):
+    """``sharded_lm(jit_loop=True)`` on 8 ranks against the JAX package's
+    ``sharded_lm`` (the whole LM ``while_loop`` in one program on its
+    8-device mesh), trace row by row."""
+    size, rtol = JIT_CASES[case]
+    problem = _jax_problem(*size, gt.FP64_FP64)
+    params, chi2, iters, accepted, trace = sharded_lm(
+        problem, mesh, _jax_lm_solver(case),
+        LevenbergMarquardtOptions(
+            iterations=helpers.LM_ITERATIONS[case], initial_damping=1e-4),
+        with_trace=True)
+    out = ranks[0]["graph"][case]
+    _close(out["chi2"], float(chi2), rtol)
+    assert out["iterations"] == int(iters)
+    assert out["accepted"] == int(accepted)
+    trace = np.asarray(trace)
+    k = int(iters)
+    _close(out["trace"][:k, 0], trace[:k, 0], rtol)
+    assert out["trace"][:k, 3].tolist() == trace[:k, 3].tolist()
+
+
+@pytest.mark.parametrize("case", list(JIT_CASES))
+def test_sharded_jit_loop_bitwise_host_loop(ranks, case):
+    """The device loop on every rank takes the host loop's steps bit for
+    bit: the trace and the final parameters."""
+    host = {"mini": "lm", "nonmini": "nonmini",
+            "pcg-block-jacobi": "pcg-block-jacobi"}[case]
+    graph, loop = ranks[0]["graph"][case], ranks[0][host]
+    assert graph["iterations"] >= 3
+    _same(graph, loop)
 
 
 def test_world1_bitwise_unsharded():
