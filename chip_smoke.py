@@ -9,10 +9,11 @@ own:
 1. build the CUDA kernels from the checkout, one nvcc per source, all
    started together: K1 ``csrc/segsum.cu``, K2 ``csrc/pcg_dense.cu``, K3
    ``csrc/segprod.cu``, K4 / K5 ``csrc/segmv.cu``, K6 ``csrc/pcg_mf.cu``,
-   the conditional graph nodes of ``jit_loop``, ``csrc/cond.cu``, and K8,
-   the sharded path's all-reduce over CUDA IPC, ``csrc/allreduce.cu``; and
-   the host libraries (g++), ``native/structure.cpp`` and
-   ``native/bal_loader.cpp``;
+   the conditional graph nodes of ``jit_loop``, ``csrc/cond.cu``, K8,
+   the sharded path's all-reduce over CUDA IPC, ``csrc/allreduce.cu``, and
+   K7, the BAL reprojection factor's linearization and Hessian values,
+   ``csrc/bal.cu``; and the host libraries (g++),
+   ``native/structure.cpp`` and ``native/bal_loader.cpp``;
 2. K1 vs its plain PyTorch version on the card, at the BAL Ladybug-49
    reduction shapes (seeded random inputs; each label names the plan's
    lanes per segment, ``group``): relative error <= 1e-5, two runs
@@ -82,6 +83,12 @@ own:
    its segments by lanes; K3 also times its best library route, two
    calls (``torch.bmm`` on the gathered streams, then ``index_add_``),
    as a yardstick: no single PyTorch call computes its function;
+6k. ``k7``: K7's four entries (``bal_residual``, ``bal_linearize``,
+   ``bal_scale_b``, ``bal_hessian``) at Venice-1778's shapes (its first
+   linearization point, its scales): bitwise equal to the plain version
+   on the card and on the CPU, bitwise repeatable; each one's ms, its
+   plain version's ms and its bound (bytes over 3.35 TB/s, float32
+   operations over 67 TFLOP/s and the float64 cos / sin over 34);
 7. the Venice-1778 path: 10 LM iterations of PCGSchurSolver(10, 1.0, 5.0)
    on the card (the block-sparse branch): final chi2 below the initial
    one, finite parameters, K1, K3, K4 and K5 launched, the S matvec kernel
@@ -314,6 +321,16 @@ S5. ``shard-sphere2500-w2-graph`` (in the same ranks): sphere2500 on 2
     Two processes on one card are time-sliced, not concurrent: S2-S5's
     times measure that, not scaling.
 
+K7 (``csrc/bal.cu``) takes every BAL reprojection set of a float32 graph
+(``ops/cuda/bal.gate``): phases 4, 7, 9, 15, 16, 18, 21 and 23, 24, 25,
+S2-S4 check that it launched (in phase 16 the linearize and Hessian
+entries inside the accepted branch's region, the trial chi2 in the
+step's) and print its launches; phase 16 also counts the device kernels
+of Venice's first two iterations from the start (one rejected, one
+accepted) as the captured iteration's code run eagerly, each in a
+``torch.profiler`` trace of its own, with K7 and with its gate shut (the
+generic branch of earlier PRs).
+
 A captured path's launches in the kernels JSON line are the launches
 its replays ran: those captured outside every region times the replays,
 those captured in a region times the runs of its body, read back from
@@ -446,6 +463,7 @@ def phase_build():
     from graphite_tpu_torch.native import bal_loader, structure
     from graphite_tpu_torch.ops.cuda import (
         allreduce,
+        bal,
         cond,
         pcg_dense,
         pcg_mf,
@@ -457,7 +475,7 @@ def phase_build():
     loaders = (segsum.load_kernel, pcg_dense.load_kernel,
                segsum_stream.load_product_kernel, segmv.load_kernel,
                pcg_mf.load_kernel, cond.load_kernel, allreduce.load_kernel,
-               structure.library, bal_loader.library)
+               bal.load_kernel, structure.library, bal_loader.library)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
         libs = list(pool.map(lambda load: load(), loaders))
@@ -728,6 +746,7 @@ def all_stats():
     """The launch counts of every kernel entry point."""
     from graphite_tpu_torch.ops.cuda import (
         allreduce,
+        bal,
         pcg_dense,
         pcg_mf,
         segmv,
@@ -740,7 +759,22 @@ def all_stats():
             segsum_stream.PRODUCT_STATS, segsum_stream.PRODUCT_RTBL_STATS,
             segsum_stream.MATVEC_TBL_STATS, segmv.STREAM_STATS,
             segmv.WTBL_STATS, segmv.SYM_STATS, pcg_mf.STATS,
-            allreduce.STATS, allreduce.GATHER_STATS]
+            allreduce.STATS, allreduce.GATHER_STATS, bal.RESIDUAL_STATS,
+            bal.LINEARIZE_STATS, bal.SCALE_B_STATS, bal.HESSIAN_STATS]
+
+
+# K7's entry points (csrc/bal.cu)
+K7_ENTRIES = ("bal.bal_residual", "bal.bal_linearize", "bal.bal_scale_b",
+              "bal.bal_hessian")
+
+
+def check_k7(tag, launches, entries=K7_ENTRIES):
+    """Print K7's launches in ``launches`` and check that each of
+    ``entries`` launched."""
+    print(f"[{tag}] K7 launches "
+          f"{ {e: launches.get(e, 0) for e in K7_ENTRIES} }")
+    for e in entries:
+        check(launches.get(e, 0) > 0, f"{tag}: K7's {e} never launched")
 
 
 def count_launches(run, record_events=True):
@@ -825,6 +859,9 @@ def phase_slice(solver, iterations):
           f"host={statistics.median(host_ms):.3f} "
           f"all_device={[round(m, 3) for m in dev_ms]}")
     print_launches("slice", launches, kernel_ms)
+    check_k7("slice", launches)
+    check(launches["bal.bal_residual"] == len(gpu.history),
+          "K7's trial chi2 must launch once per LM iteration")
     for name in ("segsum.sorted_segment_sum",
                  "segsum_stream.streaming_segment_sum",
                  "pcg_dense.dense_pcg"):
@@ -1677,6 +1714,100 @@ def phase_venice_kernels(problem, lin, hv, sv, ops):
     return results
 
 
+# float32 operations per factor of K7's entries, as written in
+# csrc/bal.cu (the bound's operation side; the float64 cos / sin apart):
+# the residual and loss ~60, the Jacobian ~300 more with the masks and the
+# diagonal; the scaling, casts and b 72; the three Hessian row sets 4 per
+# entry (two products, a sum, the dL product) of 117
+K7_OPS = {"bal.bal_residual": 60, "bal.bal_linearize": 400,
+          "bal.bal_scale_b": 72, "bal.bal_hessian": 468}
+# float64 operations per factor: a sqrt and a cos / sin pair (~40 each in
+# CUDA's libdevice) per Rodrigues form, one form in the residual, two in
+# linearize (the residual's and the Jacobian's)
+K7_F64_OPS = {"bal.bal_residual": 120, "bal.bal_linearize": 240,
+              "bal.bal_scale_b": 0, "bal.bal_hessian": 0}
+
+
+def phase_k7(problem, lin):
+    """K7's four entries vs their plain versions at Venice-1778's shapes:
+    the first linearization point, its scales and loss; bitwise equal on
+    the card and on the CPU, bitwise repeatable."""
+    import torch
+
+    from graphite_tpu_torch.ops.cuda import bal
+
+    (name,) = problem.factor_meta
+    loss = bal.gate(problem, name)
+    check(loss is not None, "k7: Venice does not pass K7's gate")
+    fa = problem.data.factors[name]
+    F = fa.ids[0].shape[0]
+    fns = {"bal.bal_residual": (bal.bal_residual, bal.bal_residual_plain),
+           "bal.bal_linearize": (bal.bal_linearize, bal.bal_linearize_plain),
+           "bal.bal_scale_b": (bal.bal_scale_b, bal.bal_scale_b_plain),
+           "bal.bal_hessian": (bal.bal_hessian, bal.bal_hessian_plain)}
+
+    def inputs(dev):
+        """Each entry's arguments on ``dev``; the later entries take the
+        plain versions' outputs of the earlier ones."""
+        p = problem.params0
+        a = tuple(t.to(dev) for t in (p["bal_camera"], p["bal_point"],
+                                      *fa.ids, fa.obs))
+        fm, sm, lp = (t.to(dev) for t in (fa.factor_mask, fa.slot_mask,
+                                          fa.loss_params))
+        sc = tuple(problem.rows_view_padded(lin.scales, v).to(dev)
+                   for v in ("bal_camera", "bal_point"))
+        lin_args = (*a, sm, fm, lp, loss)
+        r, jc, jp, _, dL, _, _ = bal.bal_linearize_plain(*lin_args)
+        sb_args = (jc, jp, r, dL, *sc, *(t.to(dev) for t in fa.rows),
+                   problem.precision.solver_dtype)
+        js = bal.bal_scale_b_plain(*sb_args)
+        return {"bal.bal_residual": (*a, fm, lp, loss),
+                "bal.bal_linearize": lin_args, "bal.bal_scale_b": sb_args,
+                "bal.bal_hessian": (js[0], js[1], dL, torch.float32)}
+
+    def bits(t):
+        return t.contiguous().view(
+            {4: torch.int32, 2: torch.int16}[t.element_size()])
+
+    def tup(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    card, host = inputs(problem.device), inputs("cpu")
+    results = {}
+    for entry in K7_ENTRIES:
+        kernel, plain = fns[entry]
+        ins = card[entry]
+        out, again = tup(kernel(*ins)), tup(kernel(*ins))
+        ref, ref_cpu = tup(plain(*ins)), tup(plain(*host[entry]))
+        torch.cuda.synchronize()
+        vs_plain = all(torch.equal(bits(o), bits(r))
+                       for o, r in zip(out, ref))
+        repeat = all(torch.equal(bits(o), bits(a))
+                     for o, a in zip(out, again))
+        vs_cpu = all(torch.equal(bits(o.cpu()), bits(c))
+                     for o, c in zip(out, ref_cpu))
+        err = max(float((o.float() - r.float()).abs().max())
+                  for o, r in zip(out, ref))
+        work = bound(nbytes(*(t for t in ins if torch.is_tensor(t)), *out),
+                     K7_OPS[entry] * F)
+        work["ops_ms"] += 1e3 * K7_F64_OPS[entry] * F / FP64_VECTOR_OPS_PER_S
+        label = f"F={F} -> " + ", ".join(
+            "x".join(map(str, t.shape)) + " " + str(t.dtype)[6:] for t in out)
+        del out, again, ref, ref_cpu
+        ms = device_ms(lambda: kernel(*ins), 10)
+        plain_ms = device_ms(lambda: plain(*ins), 3)
+        print(f"[k7] {entry} {label}: bitwise_vs_plain={vs_plain} "
+              f"bitwise_repeat={repeat} bitwise_vs_cpu_plain={vs_cpu} "
+              f"max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={bound_fields(work)} ({card_label()})")
+        check(vs_plain, f"k7: {entry} differs from its plain version")
+        check(repeat, f"k7: {entry} not bitwise repeatable")
+        check(vs_cpu, f"k7: {entry} differs from the CPU plain version")
+        results[entry] = [dict(err=err, ms=ms, plain_ms=plain_ms,
+                               shape=label, library_ms=None, **work)]
+    return results
+
+
 def merge_measured(*parts):
     """Every phase's records of each entry point, in phase order."""
     out = {}
@@ -1722,6 +1853,7 @@ def phase_venice_slice(problem, solver, iterations):
     print(f"[venice] peak device memory max_memory_allocated="
           f"{peak / 2**30:.3f} GiB; CG matvecs={matvecs[0]}")
     print_launches("venice", launches, kernel_ms)
+    check_k7("venice", launches)
     k3 = (launches["segsum_stream.streaming_segment_product_sum_rtbl"]
           + launches["segsum_stream.streaming_segment_product_sum"])
     check(k3 > 0, "K3 never launched on the Venice path")
@@ -1770,6 +1902,7 @@ def phase_forced(iterations):
     check(len(gpu.history) == len(cpu.history), "iteration counts differ")
     check_solution("forced", problem, gpu)
     print_launches("forced", launches, kernel_ms)
+    check_k7("forced", launches)
     for name in ("segsum_stream.streaming_segment_product_sum_rtbl",
                  "segmv.block_matvec_wtbl",
                  "segsum_stream.streaming_matvec_tbl",
@@ -2375,6 +2508,7 @@ def phase_jit_ladybug(iterations):
         if name == "pcg-schur":
             check(loop.capture_launches.get("pcg_dense.dense_pcg") == 1,
                   "K2 must launch once per replay")
+        check_k7(f"jit-ladybug {name}", launches)
         add_launches(total, launches)
     return total
 
@@ -2397,6 +2531,16 @@ def phase_jit_venice(problem, solver, iterations, host):
           <= 0.5 * statistics.median(acc),
           "jit-venice: the median rejected replay is not at most half the "
           "median accepted one")
+    # a reject skips the relinearization: K7's linearize and Hessian
+    # entries sit in the accepted branch's region, the trial chi2 in the
+    # step's
+    regions = region_launches(loop.capture)
+    check_k7("jit-venice", launches)
+    for region, entries in (("lm_accept", K7_ENTRIES[1:]),
+                            ("lm_iteration", K7_ENTRIES[:1])):
+        check(all(regions[region].get(e) == 1 for e in entries),
+              f"jit-venice: K7's {entries} not once in {region}: "
+              f"{regions[region]}")
     for key in ("segsum_stream.streaming_segment_sum",
                 "segsum_stream.streaming_segment_product_sum_rtbl",
                 "segsum_stream.streaming_matvec_tbl",
@@ -2409,7 +2553,74 @@ def phase_jit_venice(problem, solver, iterations, host):
           == loop.capture.region_runs()["cg_step"],
           "K5 must launch once per CG step run")
     drop_loop(problem, loop)  # phase 13 needs the memory
+    replay_kernels(problem, solver)
     return launches
+
+
+def device_kernels(fn):
+    """The device kernels ``fn()`` runs (copies and sets left out), from
+    a ``torch.profiler`` trace, and ``fn``'s result; None kernels when the
+    trace holds no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()  # no earlier work in the trace
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = sum(not n.startswith(("Memcpy", "Memset")) for n in names)
+    return (kernels if names else None), out
+
+
+def count_step_kernels(problem, solver):
+    """The device kernels of Venice's first two LM iterations from the
+    start, as the captured iteration's code run eagerly (its regions as
+    host branches: a profiler trace of a replay misses kernels inside the
+    conditional nodes), each in a ``torch.profiler`` trace of its own:
+    [(accepted, kernels)]."""
+    from graphite_tpu_torch.ops import device_loop
+    from graphite_tpu_torch.optimizers import (
+        LevenbergMarquardtOptions,
+        levenberg_marquardt,
+    )
+    from graphite_tpu_torch.optimizers.lm import cached_device_loop
+
+    opts = LevenbergMarquardtOptions(iterations=2, jit_loop=True)
+    levenberg_marquardt(problem, solver, options=opts)
+    loop = cached_device_loop(problem, solver, opts)
+    loop._start(problem.params0, opts.initial_damping)
+    out = []
+    for _ in range(2):
+        with device_loop.enabled():
+            kernels, _ = device_kernels(loop._step)
+        out.append((bool(loop.accepted), kernels))
+    return out
+
+
+def replay_kernels(problem, solver):
+    """Venice's kernels per iteration with K7 and with its gate shut (the
+    generic branch); each graph is dropped after its count."""
+    from graphite_tpu_torch.optimizers import LevenbergMarquardtOptions
+    from graphite_tpu_torch.optimizers.lm import cached_device_loop
+    from graphite_tpu_torch.ops.cuda import bal
+
+    opts = LevenbergMarquardtOptions(iterations=2, jit_loop=True)
+    counts = {}
+    gate = bal.gate
+    for name, shut in (("with K7", False), ("K7's gate shut", True)):
+        if shut:
+            bal.gate = lambda problem, name: None
+        try:
+            counts[name] = count_step_kernels(problem, solver)
+            drop_loop(problem, cached_device_loop(problem, solver, opts))
+        finally:
+            bal.gate = gate
+    print(f"[jit-venice] device kernels of LM iterations 1 and 2 from the "
+          f"start (accepted, kernels), the captured iteration run eagerly, "
+          f"each in a torch.profiler trace of its own (None: the trace saw "
+          f"no device activity): {counts}")
 
 
 def phase_jit_pose(problem, iterations, host):
@@ -2418,6 +2629,9 @@ def phase_jit_pose(problem, iterations, host):
                                   iterations, host)
     check(loop.capture_launches.get("pcg_mf.solve_pcg_mf") == 1,
           "K6 must launch once per replay")
+    check_k7("jit-sphere2500", launches, entries=())  # no BAL factor
+    check(not any(launches.get(e, 0) for e in K7_ENTRIES),
+          "jit-sphere2500: K7 launched on a pose graph")
     return launches
 
 
@@ -2534,6 +2748,7 @@ def phase_remask(iterations):
     print(f"[remask] phase host seconds {time.perf_counter() - t0:.1f}")
     for loop in device_loops(problem):
         add_launches(launches, graph_launches(loop))
+    check_k7("remask", launches)
     return launches
 
 
@@ -2706,11 +2921,17 @@ def policy_run(tag, policy, make_problem, solver, iterations, cpu_iters):
     return gpu, launches
 
 
-def check_policy_kernels(tag, policy, launches, float32_kernels):
+def check_policy_kernels(tag, policy, launches, float32_kernels, bal=True):
     """K1 in the policy's graph dtype launched; ``float32_kernels`` (the
     K2-K6 entries the float32 sites take) launched where the policy's
-    sites are float32 and never elsewhere."""
+    sites are float32 and never elsewhere; on a BAL path (``bal``) K7
+    launched in a float32 graph and never in a float64 one."""
     f64 = policy.startswith("FP64")
+    if bal and f64:
+        check(all(launches[e] == 0 for e in K7_ENTRIES),
+              f"{tag}: K7 launched in a float64 graph")
+    elif bal:
+        check_k7(tag, launches)
     k1 = ("segsum_stream.streaming_segment_sum[f64]" if f64
           else "segsum_stream.streaming_segment_sum")
     check(launches[k1] > 0, f"{tag}: {k1} never launched")
@@ -2791,7 +3012,7 @@ def phase_precision_pose():
             pose_solver(), iterations, iterations)
         check_quaternions(tag, gpu)
         check_policy_kernels(tag, policy, launches, {
-            "pcg_mf.solve_pcg_mf": policy == "FP32_BF16"})
+            "pcg_mf.solve_pcg_mf": policy == "FP32_BF16"}, bal=False)
         if policy == "FP32_BF16":
             check(launches["pcg_mf.solve_pcg_mf"] == len(gpu.history),
                   f"{tag}: K6 must launch once per solve")
@@ -3033,6 +3254,8 @@ def phase_first_order_venice(problem, iterations, cpu_iters):
             check(bool(torch.isfinite(p).all()), f"{name}: bad parameters")
         print_first_order("first-order-venice", name, loop, hist, seconds,
                           eager_step_ms(loop, 3))
+        check_k7(f"first-order-venice {name}", graph_launches(loop),
+                 ("bal.bal_linearize", "bal.bal_scale_b"))
         add_launches(total, graph_launches(loop))
         drop_loop(problem, loop)
         del pf
@@ -3219,6 +3442,9 @@ def phase_covariance_venice(problem):
     first_s = time.perf_counter() - t0
     check(launches["segsum_stream.streaming_segment_product_sum_rtbl"] == 1,
           "covariance: K3 must launch once")
+    check_k7("covariance-venice", launches, ("bal.bal_hessian",))
+    check(launches["bal.bal_hessian"] == 1,
+          "covariance: K7's Hessian entry must launch once")
     for key in ("segmv.block_matvec_wtbl",
                 "segsum_stream.streaming_matvec_tbl"):
         check(launches[key] == k, f"covariance: {key} must launch once per "
@@ -3231,7 +3457,7 @@ def phase_covariance_venice(problem):
 
     hs = build_hessian_structure(problem)
     ss = build_schur_structure(problem)
-    hv = stage("hessian values (K1) + damping", lambda: apply_damping(
+    hv = stage("hessian values (K7, K1) + damping", lambda: apply_damping(
         problem, hs, compute_hessian_values(problem, hs, lin), lin.diag,
         COV_DAMPING, False))
     sv = stage("schur_values (K3)", lambda: schur_values(problem, ss, hv))
@@ -4032,6 +4258,7 @@ def phase_shard(cpu_problem, host, iterations):
               f"{tag}: K1 never launched")
         check(lau["allreduce.allreduce"] > 0 and lau["allreduce.gather"] > 0,
               f"{tag}: K8 never launched")
+        check_k7(f"{tag} rank {r['rank']}", lau)
     print(f"[{tag}] two processes share one card, time-sliced: K8's times "
           f"measure that, not scaling")
     check(r0["trace"] == r1["trace"], f"{tag}: the ranks' traces differ")
@@ -4059,6 +4286,8 @@ def phase_shard(cpu_problem, host, iterations):
                   "loop's bit for bit")
             check(r[key]["k8_top"] + r[key]["k8_regions"] > 0,
                   f"{tag}: K8 never ran in the graph")
+            if key == "s4":
+                check_k7(f"{tag} rank {r['rank']}", r[key]["launches"])
         check(r0[key]["trace"] == r1[key]["trace"]
               and all(np.array_equal(r0[key]["params"][n],
                                      r1[key]["params"][n])
@@ -4141,6 +4370,16 @@ KERNELS = [
         "segmv.matvec_sym_stream": "graphite_tpu/ops/pallas/segmv.py:303"}),
     ("K6", "graphite_tpu_torch/csrc/pcg_mf.cu", {
         "pcg_mf.solve_pcg_mf": "graphite_tpu/ops/pallas/pcg_mf.py:121"}),
+    # no pl.pallas_call: XLA's fusion of the JAX package's plain jnp code
+    # for the BAL residual and Jacobian, linearize and the Hessian values
+    ("K7", "graphite_tpu_torch/csrc/bal.cu", {
+        "bal.bal_residual": "none (XLA fusion: graphite_tpu/models/bal.py:37,"
+                            " graphite_tpu/linearize.py:259)",
+        "bal.bal_linearize": "none (XLA fusion: graphite_tpu/models/bal.py:82,"
+                             " graphite_tpu/linearize.py:280)",
+        "bal.bal_scale_b": "none (XLA fusion: graphite_tpu/linearize.py:280)",
+        "bal.bal_hessian":
+            "none (XLA fusion: graphite_tpu/hessian.py:410)"}),
     # no pl.pallas_call: the JAX package's collectives inside its sharded
     # program (lax.psum of problem.allreduce, lax.all_gather of the S
     # ranges)
@@ -4230,7 +4469,10 @@ def main():
         "venice-setup", phase_venice_setup)
     venice_measured = timed("venice-kernels", phase_venice_kernels, problem,
                             lin, hv, sv, ops)
-    del lin, hv, sv, ops
+    del hv, sv, ops
+    torch.cuda.empty_cache()
+    k7 = timed("k7", phase_k7, problem, lin)
+    del lin
     torch.cuda.empty_cache()
     k1_f64 = timed("k1-f64", phase_k1_f64, problem)
     gpu, venice_launches, venice_peak = timed(
@@ -4287,7 +4529,7 @@ def main():
     print(json.dumps({"direct_factorizations": firsts}))
     print(json.dumps({"host_setup_seconds_native_numpy": host_setup}))
     measured = merge_measured(k1, k2, k6, pose_k1, venice_measured, nd_k1,
-                              k1_f64, shard_measured)
+                              k1_f64, shard_measured, k7)
     print(json.dumps({"kernels": kernels_json(
         measured, {"ladybug-49": ladybug_launches,
                    "sphere2500": pose_launches,

@@ -1,0 +1,728 @@
+// K7: the BAL reprojection factor's linearization and Hessian values on
+// Hopper (sm_90a).
+//
+// Replaces no pl.pallas_call. It is the port's counterpart of what XLA
+// fuses for the JAX package out of plain jnp code: the reprojection
+// residual (graphite_tpu/models/bal.py, reprojection_residual), its
+// analytic Jacobian (reprojection_jacobian), the per-factor part of
+// linearize (graphite_tpu/linearize.py: chi2 and the robust loss, the
+// masked Jacobians, the Jacobi diagonal's rows, the column scaling, the
+// storage cast, b's rows) and of compute_hessian_values
+// (graphite_tpu/hessian.py: J_s^T dL J_t per slot pair). Eager PyTorch
+// runs the same chain as ~200 kernels, each reading and writing (F, ...)
+// tensors; here each factor's chain stays in registers. The per-vertex
+// sums of the rows written here stay on kernel K1 (segsum.cu), on the
+// same plans, so they are added in the same order as before.
+//
+// Four entries (ops/cuda/bal.py holds the wrappers and the plain PyTorch
+// version of each, which follows the generic code op by op):
+//   gt_bal_residual   camera[ids0], point[ids1], obs, factor_mask,
+//                     loss_params -> masked robust chi2 (F)
+//   gt_bal_linearize  the same and slot_mask -> r (F,2), the masked
+//                     unscaled J (F,18) and (F,6), chi2 (F), dL (F), the
+//                     Jacobi diagonal's rows (F,9) and (F,3)
+//   gt_bal_scale_b_*  J, r, dL, the padded scale rows at rows0 / rows1 ->
+//                     the stored J in the storage type S (float, bf16 or
+//                     fp16) and b's rows (F,9) and (F,3)
+//   gt_bal_hessian_*  the stored J (S), dL -> J_c^T dL J_c (F,81),
+//                     J_c^T dL J_p (F,27), J_p^T dL J_p (F,9), float32
+// The loss (default, Huber, Cauchy) is a template parameter; the gate
+// (bal.py, gate) sends every other factor set to the generic code.
+//
+// Bound: memory. Per factor the entries move about 35, 195, 268 and 568
+// bytes and do a few hundred float32 operations and two float64
+// cos / sin (linearize) or one (residual). The design is the simple one.
+// bal_residual and bal_linearize run one thread per factor, the camera
+// and point rows gathered straight from global memory and each thread's
+// output rows written whole (strided stores: a warp's store touches 32
+// rows). bal_scale_b and bal_hessian, whose work per output element is a
+// few operations on a few J entries, run one thread per output element,
+// so their stores (most of their bytes) are coalesced; a thread per
+// factor there wrote the (F, 81) rows at ~0.19 TB/s. Staging
+// bal_linearize's rows through shared memory is later work.
+//
+// The bits. Each entry equals its plain version on the card bitwise, so
+// every expression is the plain version's, rounded where it rounds:
+// - nvcc's -fmad=false (build.py): no multiply-add contraction; every
+//   product and sum is rounded on its own, as one PyTorch op each.
+// - Sums run left to right as Python writes them: a*b + c*d + e*f is
+//   (a*b + c*d) + e*f (_dot3, sum_in_order, flat_block_mm_tn's two
+//   residual rows, flat_block_mv_t). A product with dL comes after the
+//   sum it scales.
+// - Division follows PyTorch's CUDA semantics. tensor / tensor is the IEEE
+//   quotient (rvec / theta, -P / P.z, sin / th, the Taylor guards' exact
+//   ratios, Huber's p / sqrt, Cauchy's x / c^2). 1.0 / x is
+//   Tensor.__rtruediv__, reciprocal(x) * 1.0: the IEEE 1.0f / x. The model
+//   writes no tensor / Python scalar (PyTorch's CUDA op would multiply by
+//   the reciprocal), and Python constants such as 1/24 reach the op as
+//   float32: static_cast<float>(1.0 / 24.0).
+// - Comparisons with a Python scalar (th2 < 0.01, < 1e-24) compare with
+//   its float32 value.
+// - Transcendentals: sqrt_rn and _cos_sin take float64 and round
+//   (precision.py, models/bal.py): the float64 sqrt is IEEE, and cos / sin
+//   are CUDA's double functions, which PyTorch's CUDA cos / sin call.
+//   Huber uses sqrt_rn. Cauchy's float32 log1pf is the function PyTorch's
+//   CUDA log1p calls.
+// - torch.maximum, clamp_min and clamp are PyTorch's CUDA ops: a NaN
+//   operand is returned, else fmaxf / fminf.
+// - The residual's rotation is not the Jacobian's: rodrigues_rotate
+//   divides rvec by theta and forms X cth + (a x X) sth + a (a.X)(1 - cth);
+//   the Jacobian's v is c X + alpha (w x X) + beta (w.X) w. Each is
+//   computed in its own order, with its own branches: the residual's tiny
+//   branch (theta^2 < 1e-24), the Jacobian's Taylor (th^2 < 0.01) and tiny
+//   branches, and the guarded denominators (th2_g = 1 where unselected).
+// - torch.where is a select, but the slot mask is a multiply by 1.0 or 0.0
+//   (linearize.py), so a masked negative entry is -0.0, and so is the
+//   factor mask on chi2.
+// - The storage cast: fp16 clamped to +-65504 first (clamp_to_storage),
+//   then __float2half_rn; bf16 __float2bfloat16_rn. b and H read the
+//   rounded value, widened exactly to float32.
+// - Capture: the entries launch on the given stream, allocate nothing and
+//   never synchronise, so they run inside the captured LM iteration.
+// - Registers: bal_linearize keeps about 100 floats live per thread; nvcc
+//   gives it 48-56 registers and spills nothing (-Xptxas -v in the build
+//   log, which chip_smoke.py's [build] lines print).
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+
+enum Loss { kDefault = 0, kHuber = 1, kCauchy = 2 };
+
+// Python constants as float32, as PyTorch hands them to the op
+constexpr float kInv6 = static_cast<float>(1.0 / 6.0);
+constexpr float kInv24 = static_cast<float>(1.0 / 24.0);
+constexpr float kInv30 = static_cast<float>(1.0 / 30.0);
+constexpr float kInv120 = static_cast<float>(1.0 / 120.0);
+constexpr float kInv180 = static_cast<float>(1.0 / 180.0);
+constexpr float kInv720 = static_cast<float>(1.0 / 720.0);
+constexpr float kInv840 = static_cast<float>(1.0 / 840.0);
+constexpr float kInv6720 = static_cast<float>(1.0 / 6720.0);
+constexpr float kMinusThird = static_cast<float>(-1.0 / 3.0);
+constexpr float kMinusTwelfth = static_cast<float>(-1.0 / 12.0);
+constexpr float kTiny = static_cast<float>(1e-24);
+constexpr float kSmall = static_cast<float>(0.01);
+constexpr float kClampMin = static_cast<float>(1e-30);
+constexpr float kFp16Max = 65504.0f;
+
+__device__ __forceinline__ float sqrt_rn(float x) {
+  return static_cast<float>(sqrt(static_cast<double>(x)));
+}
+
+__device__ __forceinline__ float cos_rn(float x) {
+  return static_cast<float>(cos(static_cast<double>(x)));
+}
+
+__device__ __forceinline__ float sin_rn(float x) {
+  return static_cast<float>(sin(static_cast<double>(x)));
+}
+
+// torch.maximum on CUDA
+__device__ __forceinline__ float t_maximum(float a, float b) {
+  if (a != a) return a;
+  if (b != b) return b;
+  return fmaxf(a, b);
+}
+
+// Tensor.clamp_min(lo) on CUDA
+__device__ __forceinline__ float t_clamp_min(float v, float lo) {
+  return v != v ? v : fmaxf(v, lo);
+}
+
+// Tensor.__rtruediv__: reciprocal(x) * 1.0
+__device__ __forceinline__ float t_recip(float x) { return (1.0f / x) * 1.0f; }
+
+// The robust loss on the squared error x = r^T r (loss.py): its value and
+// its derivative dL.
+template <int LOSS>
+__device__ __forceinline__ void robust(float x, float p, float* value,
+                                       float* deriv) {
+  if (LOSS == kHuber) {
+    const float d2 = p * p;
+    const float safe = sqrt_rn(t_maximum(x, t_clamp_min(d2, kClampMin)));
+    *value = x <= d2 ? x : 2.0f * safe * p - d2;
+    *deriv = x <= d2 ? 1.0f : p / safe;
+  } else if (LOSS == kCauchy) {
+    const float c2 = p * p;
+    const float q = x / c2;
+    *value = c2 * log1pf(q);
+    *deriv = t_recip(1.0f + q);
+  } else {
+    *value = x;
+    *deriv = 1.0f;
+  }
+}
+
+// reprojection_residual (models/bal.py): rodrigues_rotate, then project,
+// minus the observation. cam: 9 floats; X: 3.
+__device__ __forceinline__ void residual(const float* cam, const float* X,
+                                         const float* obs, float* r) {
+  const float w0 = cam[0], w1 = cam[1], w2 = cam[2];
+  const float X0 = X[0], X1 = X[1], X2 = X[2];
+  const float theta2 = w0 * w0 + w1 * w1 + w2 * w2;
+  const bool tiny = theta2 < kTiny;
+  const float theta = sqrt_rn(tiny ? 1.0f : theta2);
+  const float a0 = w0 / theta, a1 = w1 / theta, a2 = w2 / theta;
+  const float cth = cos_rn(theta), sth = sin_rn(theta);
+  const float axx0 = a1 * X2 - a2 * X1;
+  const float axx1 = a2 * X0 - a0 * X2;
+  const float axx2 = a0 * X1 - a1 * X0;
+  const float adx = a0 * X0 + a1 * X1 + a2 * X2;
+  const float omc = 1.0f - cth;
+  float v0, v1, v2;
+  if (tiny) {
+    v0 = X0 + (w1 * X2 - w2 * X1);
+    v1 = X1 + (w2 * X0 - w0 * X2);
+    v2 = X2 + (w0 * X1 - w1 * X0);
+  } else {
+    v0 = X0 * cth + axx0 * sth + a0 * adx * omc;
+    v1 = X1 * cth + axx1 * sth + a1 * adx * omc;
+    v2 = X2 * cth + axx2 * sth + a2 * adx * omc;
+  }
+  const float P0 = v0 + cam[3], P1 = v1 + cam[4], P2 = v2 + cam[5];
+  const float px = -P0 / P2, py = -P1 / P2;
+  const float r2 = px * px + py * py;
+  const float k1 = cam[7], k2 = cam[8];
+  const float distortion = 1.0f + k1 * r2 + k2 * r2 * r2;
+  r[0] = cam[6] * distortion * px - obs[0];
+  r[1] = cam[6] * distortion * py - obs[1];
+}
+
+// reprojection_jacobian (models/bal.py): the (2, 9) and (2, 3) blocks,
+// row-major, unmasked.
+__device__ __forceinline__ void jacobian(const float* cam, const float* X,
+                                         float* Jc, float* Jp) {
+  const float w0 = cam[0], w1 = cam[1], w2 = cam[2];
+  const float f = cam[6], k1 = cam[7], k2 = cam[8];
+  const float X0 = X[0], X1 = X[1], X2 = X[2];
+
+  const float th2 = w0 * w0 + w1 * w1 + w2 * w2;
+  const bool small = th2 < kSmall;
+  const float th2_g = small ? 1.0f : th2;
+  const float th = sqrt_rn(th2_g);
+  const float cos_th = cos_rn(th), sin_th = sin_rn(th);
+  const float th4 = th2 * th2;
+  const float c = small ? 1.0f - th2 * 0.5f + th4 * kInv24
+                              - th4 * th2 * kInv720
+                        : cos_th;
+  const float alpha = small ? 1.0f - th2 * kInv6 + th4 * kInv120
+                            : sin_th / th;
+  const float beta = small ? 0.5f - th2 * kInv24 + th4 * kInv720
+                           : (1.0f - c) / th2_g;
+  const float gamma = small ? kMinusThird + th2 * kInv30 - th4 * kInv840
+                            : (c - alpha) / th2_g;
+  const float delta = small ? kMinusTwelfth + th2 * kInv180
+                                  - th4 * kInv6720
+                            : (alpha - 2.0f * beta) / th2_g;
+
+  const float wxX0 = w1 * X2 - w2 * X1;
+  const float wxX1 = w2 * X0 - w0 * X2;
+  const float wxX2 = w0 * X1 - w1 * X0;
+  const float wdX = w0 * X0 + w1 * X1 + w2 * X2;
+
+  const bool tiny = th2 < kTiny;
+  const float v0 = tiny ? X0 + wxX0 : c * X0 + alpha * wxX0 + beta * wdX * w0;
+  const float v1 = tiny ? X1 + wxX1 : c * X1 + alpha * wxX1 + beta * wdX * w1;
+  const float v2 = tiny ? X2 + wxX2 : c * X2 + alpha * wxX2 + beta * wdX * w2;
+
+  const float P0 = v0 + cam[3], P1 = v1 + cam[4], P2 = v2 + cam[5];
+  const float iz = t_recip(P2);
+  const float px = -P0 * iz;
+  const float py = -P1 * iz;
+  const float r2 = px * px + py * py;
+  const float dist = 1.0f + k1 * r2 + k2 * r2 * r2;
+
+  const float dd = 2.0f * (k1 + 2.0f * k2 * r2);
+  const float A00 = f * (dist + dd * px * px);
+  const float A01 = f * dd * px * py;
+  const float A11 = f * (dist + dd * py * py);
+  const float niz = -iz;
+  const float G00 = niz * A00;
+  const float G01 = niz * A01;
+  const float G02 = niz * (A00 * px + A01 * py);
+  const float G10 = niz * A01;
+  const float G11 = niz * A11;
+  const float G12 = niz * (A01 * px + A11 * py);
+
+  const float c0 = gamma * wxX0 - alpha * X0 + delta * wdX * w0;
+  const float c1 = gamma * wxX1 - alpha * X1 + delta * wdX * w1;
+  const float c2 = gamma * wxX2 - alpha * X2 + delta * wdX * w2;
+  const float ag = tiny ? 1.0f : alpha;
+  const float bg = tiny ? 0.0f : beta;
+  const float zg = tiny ? 0.0f : 1.0f;
+  const float nag = -ag;
+  const float D00 = bg * wdX + bg * w0 * X0 + zg * c0 * w0;
+  const float D01 = ag * X2 + bg * w0 * X1 + zg * c0 * w1;
+  const float D02 = nag * X1 + bg * w0 * X2 + zg * c0 * w2;
+  const float D10 = nag * X2 + bg * w1 * X0 + zg * c1 * w0;
+  const float D11 = bg * wdX + bg * w1 * X1 + zg * c1 * w1;
+  const float D12 = ag * X0 + bg * w1 * X2 + zg * c1 * w2;
+  const float D20 = ag * X1 + bg * w2 * X0 + zg * c2 * w0;
+  const float D21 = nag * X0 + bg * w2 * X1 + zg * c2 * w1;
+  const float D22 = bg * wdX + bg * w2 * X2 + zg * c2 * w2;
+
+  const float nal = -alpha;
+  const float R00 = c + beta * w0 * w0;
+  const float R01 = nal * w2 + beta * w0 * w1;
+  const float R02 = alpha * w1 + beta * w0 * w2;
+  const float R10 = alpha * w2 + beta * w1 * w0;
+  const float R11 = c + beta * w1 * w1;
+  const float R12 = nal * w0 + beta * w1 * w2;
+  const float R20 = nal * w1 + beta * w2 * w0;
+  const float R21 = alpha * w0 + beta * w2 * w1;
+  const float R22 = c + beta * w2 * w2;
+
+  Jc[0] = G00 * D00 + G01 * D10 + G02 * D20;
+  Jc[1] = G00 * D01 + G01 * D11 + G02 * D21;
+  Jc[2] = G00 * D02 + G01 * D12 + G02 * D22;
+  Jc[3] = G00;
+  Jc[4] = G01;
+  Jc[5] = G02;
+  Jc[6] = dist * px;
+  Jc[7] = f * r2 * px;
+  Jc[8] = f * r2 * r2 * px;
+  Jc[9] = G10 * D00 + G11 * D10 + G12 * D20;
+  Jc[10] = G10 * D01 + G11 * D11 + G12 * D21;
+  Jc[11] = G10 * D02 + G11 * D12 + G12 * D22;
+  Jc[12] = G10;
+  Jc[13] = G11;
+  Jc[14] = G12;
+  Jc[15] = dist * py;
+  Jc[16] = f * r2 * py;
+  Jc[17] = f * r2 * r2 * py;
+
+  Jp[0] = G00 * R00 + G01 * R10 + G02 * R20;
+  Jp[1] = G00 * R01 + G01 * R11 + G02 * R21;
+  Jp[2] = G00 * R02 + G01 * R12 + G02 * R22;
+  Jp[3] = G10 * R00 + G11 * R10 + G12 * R20;
+  Jp[4] = G10 * R01 + G11 * R11 + G12 * R21;
+  Jp[5] = G10 * R02 + G11 * R12 + G12 * R22;
+}
+
+__device__ __forceinline__ void load_rows(const float* __restrict__ cams,
+                                          const float* __restrict__ pts,
+                                          const long long* __restrict__ ids0,
+                                          const long long* __restrict__ ids1,
+                                          long long f, float* cam, float* X) {
+  const float* c = cams + ids0[f] * 9;
+  const float* p = pts + ids1[f] * 3;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) cam[i] = c[i];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) X[i] = p[i];
+}
+
+template <int LOSS>
+__global__ void __launch_bounds__(kThreads)
+    residual_kernel(const float* __restrict__ cams,
+                    const float* __restrict__ pts,
+                    const long long* __restrict__ ids0,
+                    const long long* __restrict__ ids1,
+                    const float* __restrict__ obs,
+                    const bool* __restrict__ fmask,
+                    const float* __restrict__ loss_params,
+                    float* __restrict__ chi2, long long F) {
+  const long long f = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  if (f >= F) return;
+  float cam[9], X[3], r[2];
+  load_rows(cams, pts, ids0, ids1, f, cam, X);
+  residual(cam, X, obs + 2 * f, r);
+  const float raw = r[0] * r[0] + r[1] * r[1];
+  float value, deriv;
+  robust<LOSS>(raw, loss_params[f], &value, &deriv);
+  chi2[f] = value * (fmask[f] ? 1.0f : 0.0f);
+}
+
+template <int LOSS>
+__global__ void __launch_bounds__(kThreads)
+    linearize_kernel(const float* __restrict__ cams,
+                     const float* __restrict__ pts,
+                     const long long* __restrict__ ids0,
+                     const long long* __restrict__ ids1,
+                     const float* __restrict__ obs,
+                     const bool* __restrict__ smask,
+                     const bool* __restrict__ fmask,
+                     const float* __restrict__ loss_params,
+                     float* __restrict__ r_out, float* __restrict__ jc_out,
+                     float* __restrict__ jp_out, float* __restrict__ chi2,
+                     float* __restrict__ dl_out, float* __restrict__ diag_c,
+                     float* __restrict__ diag_p, long long F) {
+  const long long f = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  if (f >= F) return;
+  float cam[9], X[3], r[2], Jc[18], Jp[6];
+  load_rows(cams, pts, ids0, ids1, f, cam, X);
+  residual(cam, X, obs + 2 * f, r);
+  jacobian(cam, X, Jc, Jp);
+  const float m0 = smask[2 * f] ? 1.0f : 0.0f;
+  const float m1 = smask[2 * f + 1] ? 1.0f : 0.0f;
+#pragma unroll
+  for (int i = 0; i < 18; ++i) Jc[i] = Jc[i] * m0;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) Jp[i] = Jp[i] * m1;
+  const float raw = r[0] * r[0] + r[1] * r[1];
+  float value, dL;
+  robust<LOSS>(raw, loss_params[f], &value, &dL);
+
+  r_out[2 * f] = r[0];
+  r_out[2 * f + 1] = r[1];
+#pragma unroll
+  for (int i = 0; i < 18; ++i) jc_out[18 * f + i] = Jc[i];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) jp_out[6 * f + i] = Jp[i];
+  chi2[f] = value * (fmask[f] ? 1.0f : 0.0f);
+  dl_out[f] = dL;
+#pragma unroll
+  for (int c = 0; c < 9; ++c) {
+    diag_c[9 * f + c] = (Jc[c] * Jc[c] + Jc[9 + c] * Jc[9 + c]) * dL;
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    diag_p[3 * f + c] = (Jp[c] * Jp[c] + Jp[3 + c] * Jp[3 + c]) * dL;
+  }
+}
+
+template <typename S>
+struct Storage;
+
+template <>
+struct Storage<float> {
+  static __device__ __forceinline__ float store(float x) { return x; }
+  static __device__ __forceinline__ float load(float x) { return x; }
+};
+
+template <>
+struct Storage<__nv_bfloat16> {
+  static __device__ __forceinline__ __nv_bfloat16 store(float x) {
+    return __float2bfloat16_rn(x);
+  }
+  static __device__ __forceinline__ float load(__nv_bfloat16 x) {
+    return __bfloat162float(x);
+  }
+};
+
+template <>
+struct Storage<__half> {
+  // clamp_to_storage: Tensor.clamp(-65504, 65504), then the cast
+  static __device__ __forceinline__ __half store(float x) {
+    const float c = x != x ? x : fminf(fmaxf(x, -kFp16Max), kFp16Max);
+    return __float2half_rn(c);
+  }
+  static __device__ __forceinline__ float load(__half x) {
+    return __half2float(x);
+  }
+};
+
+// bal_scale_b and bal_hessian: one thread per output element, over the
+// outputs laid end to end, so a warp writes neighbouring elements of one
+// output (or two, at a boundary) and reads its few factors' J rows through
+// L1; each element is computed with the same operations as in a thread per
+// factor.
+
+// One J entry scaled by its column's scale and cast to storage; sc: the
+// padded (n_rows + 1, d) scale rows, or null when the Jacobians are not
+// scaled (Graph.scale_system(False)).
+template <typename S, int D>
+__device__ __forceinline__ S scaled_entry(const float* __restrict__ J,
+                                          const float* __restrict__ sc,
+                                          const long long* __restrict__ rows,
+                                          long long f, int i) {
+  float x = J[2 * D * f + i];
+  if (sc != nullptr) x = x * sc[rows[f] * D + i % D];
+  return Storage<S>::store(x);
+}
+
+// Element t of b's rows of one slot (D columns): -(Js[0, c] r0 dL +
+// Js[1, c] r1 dL) from the stored (rounded) values.
+template <typename S, int D>
+__device__ __forceinline__ float b_entry(const float* __restrict__ J,
+                                         const float* __restrict__ sc,
+                                         const long long* __restrict__ rows,
+                                         const float* __restrict__ r,
+                                         const float* __restrict__ dl,
+                                         long long t) {
+  const long long f = t / D;
+  const int c = static_cast<int>(t - D * f);
+  const float dL = dl[f];
+  const float w0 = r[2 * f] * dL, w1 = r[2 * f + 1] * dL;
+  const float a0 = Storage<S>::load(scaled_entry<S, D>(J, sc, rows, f, c));
+  const float a1 = Storage<S>::load(scaled_entry<S, D>(J, sc, rows, f, D + c));
+  return -(a0 * w0 + a1 * w1);
+}
+
+// the stored J (18 F, then 6 F elements) and b's rows (9 F, then 3 F)
+template <typename S>
+__global__ void __launch_bounds__(kThreads)
+    scale_b_kernel(const float* __restrict__ jc, const float* __restrict__ jp,
+                   const float* __restrict__ r, const float* __restrict__ dl,
+                   const float* __restrict__ sc, const float* __restrict__ sp,
+                   const long long* __restrict__ rows0,
+                   const long long* __restrict__ rows1,
+                   S* __restrict__ jc_out, S* __restrict__ jp_out,
+                   float* __restrict__ b_c, float* __restrict__ b_p,
+                   long long F) {
+  long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (t < 18 * F) {
+    const long long f = t / 18;
+    jc_out[t] = scaled_entry<S, 9>(jc, sc, rows0, f,
+                                   static_cast<int>(t - 18 * f));
+    return;
+  }
+  t -= 18 * F;
+  if (t < 6 * F) {
+    const long long f = t / 6;
+    jp_out[t] = scaled_entry<S, 3>(jp, sp, rows1, f,
+                                   static_cast<int>(t - 6 * f));
+    return;
+  }
+  t -= 6 * F;
+  if (t < 9 * F) {
+    b_c[t] = b_entry<S, 9>(jc, sc, rows0, r, dl, t);
+    return;
+  }
+  t -= 9 * F;
+  if (t < 3 * F) b_p[t] = b_entry<S, 3>(jp, sp, rows1, r, dl, t);
+}
+
+// Element t of the row-major (DS, DT) rows of J_s^T dL J_t:
+// (Js[0, i] Jt[0, k] + Js[1, i] Jt[1, k]) dL.
+template <typename S, int DS, int DT>
+__device__ __forceinline__ float h_entry(const S* __restrict__ a,
+                                         const S* __restrict__ b,
+                                         const float* __restrict__ dl,
+                                         long long t) {
+  const long long f = t / (DS * DT);
+  const int e = static_cast<int>(t - DS * DT * f);
+  const int i = e / DT, k = e - i * DT;
+  const S* as = a + 2 * DS * f;
+  const S* bt = b + 2 * DT * f;
+  return (Storage<S>::load(as[i]) * Storage<S>::load(bt[k]) +
+          Storage<S>::load(as[DS + i]) * Storage<S>::load(bt[DT + k])) *
+         dl[f];
+}
+
+// the (camera, camera), (camera, point) and (point, point) rows: 81 F,
+// 27 F and 9 F elements
+template <typename S>
+__global__ void __launch_bounds__(kThreads)
+    hessian_kernel(const S* __restrict__ jc, const S* __restrict__ jp,
+                   const float* __restrict__ dl, float* __restrict__ hcc,
+                   float* __restrict__ hcp, float* __restrict__ hpp,
+                   long long F) {
+  long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (t < 81 * F) {
+    hcc[t] = h_entry<S, 9, 9>(jc, jc, dl, t);
+    return;
+  }
+  t -= 81 * F;
+  if (t < 27 * F) {
+    hcp[t] = h_entry<S, 9, 3>(jc, jp, dl, t);
+    return;
+  }
+  t -= 27 * F;
+  if (t < 9 * F) hpp[t] = h_entry<S, 3, 3>(jp, jp, dl, t);
+}
+
+unsigned blocks_for(long long n) {
+  return static_cast<unsigned>((n + kThreads - 1) / kThreads);
+}
+
+template <int LOSS>
+cudaError_t launch_residual(const void* cams, const void* pts,
+                            const void* ids0, const void* ids1,
+                            const void* obs, const void* fmask,
+                            const void* loss_params, void* chi2, long long F,
+                            cudaStream_t stream) {
+  residual_kernel<LOSS><<<blocks_for(F), kThreads, 0, stream>>>(
+      static_cast<const float*>(cams), static_cast<const float*>(pts),
+      static_cast<const long long*>(ids0),
+      static_cast<const long long*>(ids1), static_cast<const float*>(obs),
+      static_cast<const bool*>(fmask),
+      static_cast<const float*>(loss_params), static_cast<float*>(chi2), F);
+  return cudaGetLastError();
+}
+
+template <int LOSS>
+cudaError_t launch_linearize(const void* cams, const void* pts,
+                             const void* ids0, const void* ids1,
+                             const void* obs, const void* smask,
+                             const void* fmask, const void* loss_params,
+                             void* r, void* jc, void* jp, void* chi2,
+                             void* dl, void* diag_c, void* diag_p,
+                             long long F, cudaStream_t stream) {
+  linearize_kernel<LOSS><<<blocks_for(F), kThreads, 0, stream>>>(
+      static_cast<const float*>(cams), static_cast<const float*>(pts),
+      static_cast<const long long*>(ids0),
+      static_cast<const long long*>(ids1), static_cast<const float*>(obs),
+      static_cast<const bool*>(smask), static_cast<const bool*>(fmask),
+      static_cast<const float*>(loss_params), static_cast<float*>(r),
+      static_cast<float*>(jc), static_cast<float*>(jp),
+      static_cast<float*>(chi2), static_cast<float*>(dl),
+      static_cast<float*>(diag_c), static_cast<float*>(diag_p), F);
+  return cudaGetLastError();
+}
+
+template <typename S>
+int scale_b(const void* jc, const void* jp, const void* r, const void* dl,
+            const void* sc, const void* sp, const void* rows0,
+            const void* rows1, void* jc_out, void* jp_out, void* b_c,
+            void* b_p, long long F, void* stream) {
+  if (F < 0 || (sc == nullptr) != (sp == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (F == 0) return 0;
+  scale_b_kernel<S><<<blocks_for(36 * F), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(jc), static_cast<const float*>(jp),
+      static_cast<const float*>(r), static_cast<const float*>(dl),
+      static_cast<const float*>(sc), static_cast<const float*>(sp),
+      static_cast<const long long*>(rows0),
+      static_cast<const long long*>(rows1), static_cast<S*>(jc_out),
+      static_cast<S*>(jp_out), static_cast<float*>(b_c),
+      static_cast<float*>(b_p), F);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename S>
+int hessian(const void* jc, const void* jp, const void* dl, void* hcc,
+            void* hcp, void* hpp, long long F, void* stream) {
+  if (F < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (F == 0) return 0;
+  hessian_kernel<S><<<blocks_for(117 * F), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const S*>(jc), static_cast<const S*>(jp),
+      static_cast<const float*>(dl), static_cast<float*>(hcc),
+      static_cast<float*>(hcp), static_cast<float*>(hpp), F);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// cams (Nc, 9), pts (Np, 3), obs (F, 2), loss_params (F,): float32; ids0,
+// ids1 (F,) int64; fmask (F,) bool; chi2 (F,) float32 out. loss: 0
+// default, 1 Huber, 2 Cauchy. Launches on `stream` and returns the
+// cudaGetLastError() code (0 on success).
+extern "C" int gt_bal_residual(const void* cams, const void* pts,
+                               const void* ids0, const void* ids1,
+                               const void* obs, const void* fmask,
+                               const void* loss_params, void* chi2,
+                               long long F, int loss, void* stream) {
+  if (F < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (F == 0) return 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (loss) {
+    case kDefault:
+      err = launch_residual<kDefault>(cams, pts, ids0, ids1, obs, fmask,
+                                      loss_params, chi2, F, s);
+      break;
+    case kHuber:
+      err = launch_residual<kHuber>(cams, pts, ids0, ids1, obs, fmask,
+                                    loss_params, chi2, F, s);
+      break;
+    case kCauchy:
+      err = launch_residual<kCauchy>(cams, pts, ids0, ids1, obs, fmask,
+                                     loss_params, chi2, F, s);
+      break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// The same inputs and smask (F, 2) bool; out: r (F, 2), jc (F, 18), jp
+// (F, 6), chi2 (F,), dl (F,), diag_c (F, 9), diag_p (F, 3), all float32.
+extern "C" int gt_bal_linearize(const void* cams, const void* pts,
+                                const void* ids0, const void* ids1,
+                                const void* obs, const void* smask,
+                                const void* fmask, const void* loss_params,
+                                void* r, void* jc, void* jp, void* chi2,
+                                void* dl, void* diag_c, void* diag_p,
+                                long long F, int loss, void* stream) {
+  if (F < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (F == 0) return 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (loss) {
+    case kDefault:
+      err = launch_linearize<kDefault>(cams, pts, ids0, ids1, obs, smask,
+                                       fmask, loss_params, r, jc, jp, chi2,
+                                       dl, diag_c, diag_p, F, s);
+      break;
+    case kHuber:
+      err = launch_linearize<kHuber>(cams, pts, ids0, ids1, obs, smask,
+                                     fmask, loss_params, r, jc, jp, chi2, dl,
+                                     diag_c, diag_p, F, s);
+      break;
+    case kCauchy:
+      err = launch_linearize<kCauchy>(cams, pts, ids0, ids1, obs, smask,
+                                      fmask, loss_params, r, jc, jp, chi2,
+                                      dl, diag_c, diag_p, F, s);
+      break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// jc (F, 18), jp (F, 6), r (F, 2), dl (F,): float32; sc (n0 + 1, 9), sp
+// (n1 + 1, 3) float32 scale rows, both null for no scaling; rows0, rows1
+// (F,) int64. Out: jc_out, jp_out in the storage type, b_c (F, 9), b_p
+// (F, 3) float32.
+extern "C" int gt_bal_scale_b_f32(const void* jc, const void* jp,
+                                  const void* r, const void* dl,
+                                  const void* sc, const void* sp,
+                                  const void* rows0, const void* rows1,
+                                  void* jc_out, void* jp_out, void* b_c,
+                                  void* b_p, long long F, void* stream) {
+  return scale_b<float>(jc, jp, r, dl, sc, sp, rows0, rows1, jc_out, jp_out,
+                        b_c, b_p, F, stream);
+}
+
+extern "C" int gt_bal_scale_b_bf16(const void* jc, const void* jp,
+                                   const void* r, const void* dl,
+                                   const void* sc, const void* sp,
+                                   const void* rows0, const void* rows1,
+                                   void* jc_out, void* jp_out, void* b_c,
+                                   void* b_p, long long F, void* stream) {
+  return scale_b<__nv_bfloat16>(jc, jp, r, dl, sc, sp, rows0, rows1, jc_out,
+                                jp_out, b_c, b_p, F, stream);
+}
+
+extern "C" int gt_bal_scale_b_f16(const void* jc, const void* jp,
+                                  const void* r, const void* dl,
+                                  const void* sc, const void* sp,
+                                  const void* rows0, const void* rows1,
+                                  void* jc_out, void* jp_out, void* b_c,
+                                  void* b_p, long long F, void* stream) {
+  return scale_b<__half>(jc, jp, r, dl, sc, sp, rows0, rows1, jc_out, jp_out,
+                         b_c, b_p, F, stream);
+}
+
+// jc (F, 18), jp (F, 6) in the storage type, dl (F,) float32; out: hcc
+// (F, 81), hcp (F, 27), hpp (F, 9) float32.
+extern "C" int gt_bal_hessian_f32(const void* jc, const void* jp,
+                                  const void* dl, void* hcc, void* hcp,
+                                  void* hpp, long long F, void* stream) {
+  return hessian<float>(jc, jp, dl, hcc, hcp, hpp, F, stream);
+}
+
+extern "C" int gt_bal_hessian_bf16(const void* jc, const void* jp,
+                                   const void* dl, void* hcc, void* hcp,
+                                   void* hpp, long long F, void* stream) {
+  return hessian<__nv_bfloat16>(jc, jp, dl, hcc, hcp, hpp, F, stream);
+}
+
+extern "C" int gt_bal_hessian_f16(const void* jc, const void* jp,
+                                  const void* dl, void* hcc, void* hcp,
+                                  void* hpp, long long F, void* stream) {
+  return hessian<__half>(jc, jp, dl, hcc, hcp, hpp, F, stream);
+}
+
+extern "C" const char* gt_bal_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -31,6 +31,7 @@ import torch
 from . import hostops
 from .linearize import DIAG_MAX, DIAG_MIN, Linearization
 from .ops.blockfmt import flat_block_mm_nn, flat_block_mm_tn
+from .ops.cuda import bal as k7
 from .ops.streamreduce import reduce_rows, segment_plan
 from .perf import SectionTimer
 
@@ -253,6 +254,9 @@ def compute_hessian_values(problem, hs: HessianStructure,
                          dtype=inv_dt, device=problem.device)
         for key in hs.group_keys
     }
+    # a set that passes K7's gate has its three slot pairs' rows from one
+    # launch (ops/cuda/bal.py), each dropped after its last use
+    fused: Dict[Tuple[str, int, int], torch.Tensor] = {}
     for ci, cm in enumerate(hs.contribs):
         if cm.direct_idx is None and cm.trans_idx is None:
             continue
@@ -265,11 +269,19 @@ def compute_hessian_values(problem, hs: HessianStructure,
         E = fm.ftype.residual_dim
         ds = fm.ftype.vertex_types[cm.s].dim
         dt_ = fm.ftype.vertex_types[cm.t].dim
-        jt = J[cm.t].to(acc)
-        if fa.precision is not None:
-            jt = flat_block_mm_nn(fa.precision, jt, E, E, dt_, acc_dtype=acc)
-        flat = (flat_block_mm_tn(J[cm.s], jt, ds, E, dt_, acc_dtype=acc)
-                * lin.chi2_deriv[cm.fname].to(acc)[:, None]).to(inv_dt)
+        if k7.gate(problem, cm.fname) is not None:
+            if (cm.fname, cm.s, cm.t) not in fused:
+                fused.update(zip(
+                    ((cm.fname, s, t) for s, t in k7.PAIRS),
+                    k7.bal_hessian(*J, lin.chi2_deriv[cm.fname], inv_dt)))
+            flat = fused.pop((cm.fname, cm.s, cm.t))
+        else:
+            jt = J[cm.t].to(acc)
+            if fa.precision is not None:
+                jt = flat_block_mm_nn(fa.precision, jt, E, E, dt_,
+                                      acc_dtype=acc)
+            flat = (flat_block_mm_tn(J[cm.s], jt, ds, E, dt_, acc_dtype=acc)
+                    * lin.chi2_deriv[cm.fname].to(acc)[:, None]).to(inv_dt)
         if cm.direct_idx is not None:
             plan = segment_plan(problem, ("hess_d", ci),
                                 problem.shard_slice(cm.direct_idx,

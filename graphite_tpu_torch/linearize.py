@@ -36,6 +36,7 @@ from .ops.blockfmt import (
     flat_block_mv_t,
     sum_in_order,
 )
+from .ops.cuda import bal as k7
 from .ops.streamreduce import reduce_rows, segment_plan
 from .precision import clamp_to_storage, sqrt_rn
 
@@ -175,36 +176,45 @@ def compute_chi2_block(problem: Problem, name: str, r: torch.Tensor):
 
 
 def linearize(problem: Problem, params) -> Linearization:
+    """One linearization pass. A set that passes K7's gate
+    (``ops/cuda/bal.gate``) takes K7's two fused entries for its
+    per-factor rows; every set's rows are then summed per vertex row by
+    the same plans (K1), in the same order."""
     gdt = problem.precision.graph_dtype
     acc = problem.precision.acc_dtype
 
     residuals, jac_flat, chi2_vec, chi2_deriv = {}, {}, {}, {}
+    fused, diag_contribs = set(), {}
     for name in problem.factor_meta:
+        loss = k7.gate(problem, name)
+        if loss is not None:
+            fused.add(name)
+            (residuals[name], jc, jp, chi2_vec[name], chi2_deriv[name],
+             dc, dp) = k7.bal_linearize(*_gather_args(problem, params, name),
+                                        loss)
+            jac_flat[name] = (jc, jp)
+            diag_contribs[name] = (dc, dp)
+            continue
         r, jflat = _residuals_and_flat_jacobians(problem, params, name)
         residuals[name] = r.to(gdt)
         jac_flat[name] = jflat
         chi2_vec[name], chi2_deriv[name] = compute_chi2_block(
             problem, name, residuals[name])
-
-    # Jacobi scaling: diag of the unscaled J^T dL P J, per vertex type in
-    # row form
-    diag_rows: Dict[str, torch.Tensor] = {}
-    for name, fm in problem.factor_meta.items():
+        # Jacobi scaling: diag of the unscaled J^T dL P J
         fa = problem.data.factors[name]
-        dL = chi2_deriv[name].to(acc)
+        fm = problem.factor_meta[name]
         E = fm.ftype.residual_dim
+        dL = chi2_deriv[name].to(acc)
+        diag_contribs[name] = []
         for s, vt in enumerate(fm.ftype.vertex_types):
-            Ji = jac_flat[name][s].to(acc)
+            Ji = jflat[s].to(acc)
             PJ = _apply_precision(fa, Ji, E, vt.dim, acc).reshape(-1, E, vt.dim)
             Ji = Ji.reshape(-1, E, vt.dim)
-            contrib = sum_in_order(Ji[:, e] * PJ[:, e]
-                                   for e in range(E)) * dL[:, None]
-            rows = _factor_row_reduce(problem, contrib.to(gdt), name, s,
-                                      vt.name)
-            prev = diag_rows.get(vt.name)
-            diag_rows[vt.name] = rows if prev is None else prev + rows
-    diag_raw = problem.allreduce(problem.flat_from_rows(diag_rows),
+            diag_contribs[name].append(sum_in_order(
+                Ji[:, e] * PJ[:, e] for e in range(E)) * dL[:, None])
+    diag_raw = problem.allreduce(_reduce_contribs(problem, diag_contribs),
                                  "linearize.diag")
+    del diag_contribs
 
     if problem.scale_jacobians:
         eps = float(np.finfo(np.float64).eps)
@@ -213,30 +223,31 @@ def linearize(problem: Problem, params) -> Linearization:
     else:
         scales = torch.ones(problem.dim_x, dtype=gdt, device=problem.device)
 
-    # the scaled Jacobians, stored for every set not in dynamic mode
-    jacobians: Dict[str, Optional[Tuple[torch.Tensor, ...]]] = {}
-    for name, fm in problem.factor_meta.items():
-        jac_flat[name] = _scaled_jacobians(problem, name, jac_flat[name],
-                                           scales)
-        jacobians[name] = jac_flat[name] if fm.store_jacobians else None
-
-    diag = diag_raw * scales * scales
-
+    # the scaled Jacobians, stored for every set not in dynamic mode, and
     # b = -J^T dL P r
-    b_rows: Dict[str, torch.Tensor] = {}
+    jacobians: Dict[str, Optional[Tuple[torch.Tensor, ...]]] = {}
+    b_contribs = {}
     for name, fm in problem.factor_meta.items():
+        if name in fused:
+            *jac, b_c, b_p = _fused_scale_b(problem, name, jac_flat[name],
+                                            residuals[name], chi2_deriv[name],
+                                            scales)
+            jacobians[name] = tuple(jac)
+            b_contribs[name] = (b_c, b_p)
+            continue
+        jflat = _scaled_jacobians(problem, name, jac_flat[name], scales)
+        jacobians[name] = jflat if fm.store_jacobians else None
         fa = problem.data.factors[name]
         E = fm.ftype.residual_dim
         w = (_weighted_residual(fa, residuals[name], acc)
              * chi2_deriv[name][:, None]).to(acc)
-        for s, vt in enumerate(fm.ftype.vertex_types):
-            contrib = -flat_block_mv_t(jac_flat[name][s], w, E, vt.dim,
-                                       acc_dtype=acc)
-            rows = _factor_row_reduce(problem, contrib.to(gdt), name, s,
-                                      vt.name)
-            prev = b_rows.get(vt.name)
-            b_rows[vt.name] = rows if prev is None else prev + rows
-    b = problem.allreduce(problem.flat_from_rows(b_rows), "linearize.b")
+        b_contribs[name] = [
+            -flat_block_mv_t(jflat[s], w, E, vt.dim, acc_dtype=acc)
+            for s, vt in enumerate(fm.ftype.vertex_types)]
+    del jac_flat
+    diag = diag_raw * scales * scales
+    b = problem.allreduce(_reduce_contribs(problem, b_contribs),
+                          "linearize.b")
 
     chi2 = problem.allreduce(sum(v.sum(dtype=torch.float64)
                                  for v in chi2_vec.values()),
@@ -244,6 +255,39 @@ def linearize(problem: Problem, params) -> Linearization:
     return Linearization(residuals=residuals, jacobians=jacobians,
                          chi2_vec=chi2_vec, chi2_deriv=chi2_deriv,
                          scales=scales, diag=diag, b=b, chi2=chi2)
+
+
+def _reduce_contribs(problem: Problem, contribs) -> torch.Tensor:
+    """Per-set, per-slot (F, d) rows -> the flat (dim_x,) sum per vertex
+    row, the sets added in ``factor_meta`` order."""
+    gdt = problem.precision.graph_dtype
+    rows_by_type: Dict[str, torch.Tensor] = {}
+    for name, fm in problem.factor_meta.items():
+        for s, vt in enumerate(fm.ftype.vertex_types):
+            rows = _factor_row_reduce(problem, contribs[name][s].to(gdt),
+                                      name, s, vt.name)
+            prev = rows_by_type.get(vt.name)
+            rows_by_type[vt.name] = rows if prev is None else prev + rows
+    return problem.flat_from_rows(rows_by_type)
+
+
+def _gather_args(problem: Problem, params, name: str):
+    """K7's inputs of a set: the camera and point tables, the factors'
+    vertex ids, observations, slot and factor masks and loss parameters."""
+    fa = problem.data.factors[name]
+    ftype = problem.factor_meta[name].ftype
+    return (*(params[vt.name] for vt in ftype.vertex_types), *fa.ids,
+            fa.obs, fa.slot_mask, fa.factor_mask, fa.loss_params)
+
+
+def _fused_scale_b(problem: Problem, name: str, jflat, r, dL, scales):
+    """K7's second pass of a set: its stored Jacobians and b's rows."""
+    fa = problem.data.factors[name]
+    vts = problem.factor_meta[name].ftype.vertex_types
+    sc = (tuple(problem.rows_view_padded(scales, vt.name) for vt in vts)
+          if problem.scale_jacobians else (None,) * len(vts))
+    return k7.bal_scale_b(*jflat, r, dL, *sc, *fa.rows,
+                          problem.precision.solver_dtype)
 
 
 def _scaled_jacobians(problem: Problem, name: str, jflat, scales):
@@ -289,6 +333,13 @@ def compute_chi2(problem: Problem, params) -> torch.Tensor:
     on the summation order, which differs between CPU and GPU."""
     total = torch.zeros((), dtype=torch.float64, device=problem.device)
     for name in problem.factor_meta:
+        loss = k7.gate(problem, name)
+        if loss is not None:
+            cam, pt, ids0, ids1, obs, _, fmask, lp = _gather_args(
+                problem, params, name)
+            c = k7.bal_residual(cam, pt, ids0, ids1, obs, fmask, lp, loss)
+            total = total + c.sum(dtype=torch.float64)
+            continue
         r = compute_residuals_block(problem, params, name)
         c, _ = compute_chi2_block(problem, name, r)
         total = total + c.sum(dtype=torch.float64)

@@ -11,6 +11,8 @@
   and K5, the symmetric block-sparse S matvec (``csrc/segmv.cu``);
 - ``pcg_mf``: kernel K6, a whole matrix-free PCG solve of a pose graph
   in one launch on one thread-block cluster (``csrc/pcg_mf.cu``);
+- ``bal``: kernel K7, the BAL reprojection factor's per-factor
+  linearization and Hessian values (``csrc/bal.cu``);
 - ``allreduce``: kernel K8, the sharded path's rank-order all-reduce and
   gather over CUDA IPC (``csrc/allreduce.cu``);
 - ``cond``: the conditional graph nodes of the captured LM iteration

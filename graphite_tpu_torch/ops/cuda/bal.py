@@ -1,0 +1,293 @@
+"""The BAL reprojection factor's linearization and Hessian values: kernel
+K7 (``csrc/bal.cu``).
+
+No ``pl.pallas_call`` of the JAX package computes this: there it is plain
+``jnp`` code that XLA fuses (``graphite_tpu/models/bal.py``: the residual
+and its analytic Jacobian; ``graphite_tpu/linearize.py``: chi2, the
+diagonal, the scaling and ``b``; ``graphite_tpu/hessian.py``:
+``compute_hessian_values``). Eager PyTorch runs it as some 200 kernels a
+pass, so K7 fuses it per factor:
+
+- ``bal_residual``: the masked robust chi2 of each factor
+  (``compute_chi2``, the LM's trial chi2);
+- ``bal_linearize``: r, the masked unscaled J, chi2, dL and the Jacobi
+  diagonal's rows (``linearize``'s first pass);
+- ``bal_scale_b``: the stored J (scaled, in the storage dtype) and b's
+  rows (``linearize``'s second pass);
+- ``bal_hessian``: the (F, 81), (F, 27) and (F, 9) rows of
+  ``J_s^T dL J_t`` (``compute_hessian_values``).
+
+The per-vertex sums of the rows stay on K1, on the same plans, so they
+are added in the same order as on the generic branch.
+
+``gate`` decides, from shapes and dtypes alone, which factor sets take
+K7: the analytic ``models.bal.REPROJECTION`` with identity precision, a
+default, Huber or Cauchy loss, stored Jacobians and a float32 graph
+(FP32_FP32, FP32_BF16, FP32_FP16). Every other set keeps the generic
+code. Each entry's plain version (``*_plain``, the same signature) follows
+the generic code op by op, so the CPU path's bits are the generic
+branch's; a wrapper takes it for CPU tensors only, and on a CUDA tensor
+launches K7 or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from ...loss import CauchyLoss, DefaultLoss, HuberLoss, Loss
+from ...models.bal import (
+    CAMERA,
+    POINT,
+    reprojection_jacobian,
+    reprojection_residual,
+)
+from ...precision import clamp_to_storage
+from ..blockfmt import flat_block_mm_tn, flat_block_mv_t
+from . import build
+from .launches import LaunchStats, on_device, stream_ptr
+
+RESIDUAL_STATS = LaunchStats("bal.bal_residual")
+LINEARIZE_STATS = LaunchStats("bal.bal_linearize")
+SCALE_B_STATS = LaunchStats("bal.bal_scale_b")
+HESSIAN_STATS = LaunchStats("bal.bal_hessian")
+
+# the kernel's compile-time loss cases, by the loss's exact type
+LOSS_CODES = {Loss: 0, DefaultLoss: 0, HuberLoss: 1, CauchyLoss: 2}
+_STORAGE = {torch.float32: "f32", torch.bfloat16: "bf16",
+            torch.float16: "f16"}
+# (slot s, slot t) of each Hessian row set bal_hessian writes
+PAIRS = ((0, 0), (0, 1), (1, 1))
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    # cams, pts, ids0, ids1, obs, fmask, loss_params, chi2, F, loss, stream
+    "gt_bal_residual": [_P] * 8 + [_L, _I, _P],
+    # cams, pts, ids0, ids1, obs, smask, fmask, loss_params, r, jc, jp,
+    # chi2, dl, diag_c, diag_p, F, loss, stream
+    "gt_bal_linearize": [_P] * 15 + [_L, _I, _P],
+    **{f"gt_bal_scale_b_{s}": [_P] * 12 + [_L, _P]
+       for s in _STORAGE.values()},
+    **{f"gt_bal_hessian_{s}": [_P] * 6 + [_L, _P]
+       for s in _STORAGE.values()},
+}
+
+
+def load_kernel() -> build.KernelLibrary:
+    """Build K7 (at first use) and load it."""
+    return build.load_library("bal", _SIGNATURES)
+
+
+def gate(problem, name: str) -> Optional[Loss]:
+    """The loss of factor set ``name`` when it takes K7, else None (the
+    generic branch): K7 takes the analytic BAL reprojection factor with
+    identity precision, a default, Huber or Cauchy loss and stored
+    Jacobians, in a float32 graph with float32, bf16 or fp16 storage."""
+    fm = problem.factor_meta[name]
+    ft = fm.ftype
+    prec = problem.precision
+    if (ft.residual_fn is not reprojection_residual
+            or ft.jacobian_fn is not reprojection_jacobian
+            or ft.vertex_types != (CAMERA, POINT)
+            or type(ft.loss) not in LOSS_CODES
+            or problem.data.factors[name].precision is not None
+            or not fm.store_jacobians
+            or prec.graph_dtype != torch.float32
+            or prec.solver_dtype not in _STORAGE):
+        return None
+    return ft.loss
+
+
+def _launch(stats: LaunchStats, entry: str, device, *args) -> None:
+    lib = load_kernel()
+    with on_device(device):
+        ev = stats.start()
+        err = getattr(lib.lib, entry)(*args, stream_ptr(device))
+        lib.check(err, stats.name)
+        stats.done(ev)
+
+
+def _check(name: str, device, **tensors) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor on
+    ``device`` of the dtype its name asks (``f``: float32, ``i``: int64,
+    ``b``: bool; a storage tensor is checked by the caller)."""
+    want = {"f": torch.float32, "i": torch.int64, "b": torch.bool}
+    for key, t in tensors.items():
+        if t is None:
+            continue
+        dt = want.get(key.split("_")[0])
+        if t.device != device or not t.is_contiguous() or (
+                dt is not None and t.dtype != dt):
+            raise ValueError(
+                f"{name}: {key.split('_', 1)[1]} must be a contiguous "
+                f"{dt} tensor on {device}, got {t.dtype} on {t.device}")
+
+
+def _device_of(name: str, t: torch.Tensor):
+    if t.device.type != "cuda":
+        raise NotImplementedError(f"{name}: no kernel for device {t.device}")
+    return t.device
+
+
+# ---- bal_residual ---------------------------------------------------------
+
+def bal_residual_plain(cameras, points, ids0, ids1, obs, factor_mask,
+                       loss_params, loss: Loss) -> torch.Tensor:
+    """(F,) masked robust chi2: ``compute_chi2``'s per-factor terms."""
+    r = reprojection_residual(cameras.index_select(0, ids0),
+                              points.index_select(0, ids1), obs).reshape(-1, 2)
+    raw = r[:, 0] * r[:, 0] + r[:, 1] * r[:, 1]
+    return loss.value(raw, loss_params) * factor_mask.to(raw.dtype)
+
+
+def bal_residual(cameras, points, ids0, ids1, obs, factor_mask, loss_params,
+                 loss: Loss) -> torch.Tensor:
+    if cameras.device.type == "cpu":
+        return bal_residual_plain(cameras, points, ids0, ids1, obs,
+                                  factor_mask, loss_params, loss)
+    name = RESIDUAL_STATS.name
+    dev = _device_of(name, cameras)
+    F = ids0.shape[0]
+    _check(name, dev, f_cameras=cameras, f_points=points, i_ids0=ids0,
+           i_ids1=ids1, f_obs=obs, b_factor_mask=factor_mask,
+           f_loss_params=loss_params)
+    chi2 = torch.empty(F, dtype=torch.float32, device=dev)
+    _launch(RESIDUAL_STATS, "gt_bal_residual", dev, cameras.data_ptr(),
+            points.data_ptr(), ids0.data_ptr(), ids1.data_ptr(),
+            obs.data_ptr(), factor_mask.data_ptr(), loss_params.data_ptr(),
+            chi2.data_ptr(), F, LOSS_CODES[type(loss)])
+    return chi2
+
+
+# ---- bal_linearize --------------------------------------------------------
+
+def bal_linearize_plain(cameras, points, ids0, ids1, obs, slot_mask,
+                        factor_mask, loss_params, loss: Loss):
+    """(r (F, 2), masked unscaled J (F, 18) and (F, 6), chi2 (F,), dL
+    (F,), the diagonal's rows (F, 9) and (F, 3)): ``linearize``'s first
+    pass over one set."""
+    cam = cameras.index_select(0, ids0)
+    pt = points.index_select(0, ids1)
+    r = reprojection_residual(cam, pt, obs).reshape(-1, 2)
+    J = reprojection_jacobian(cam, pt, obs)
+    jflat = tuple(
+        (Ji.reshape(-1, 2, d) * slot_mask[:, s, None, None].to(Ji.dtype))
+        .reshape(-1, 2 * d) for s, (Ji, d) in enumerate(zip(J, (9, 3))))
+    raw = r[:, 0] * r[:, 0] + r[:, 1] * r[:, 1]
+    chi2 = loss.value(raw, loss_params) * factor_mask.to(raw.dtype)
+    dL = loss.derivative(raw, loss_params)
+    diag = []
+    for Ji, d in zip(jflat, (9, 3)):
+        Ji = Ji.reshape(-1, 2, d)
+        diag.append((Ji[:, 0] * Ji[:, 0] + Ji[:, 1] * Ji[:, 1])
+                    * dL[:, None])
+    return (r, *jflat, chi2, dL, *diag)
+
+
+def bal_linearize(cameras, points, ids0, ids1, obs, slot_mask, factor_mask,
+                  loss_params, loss: Loss):
+    if cameras.device.type == "cpu":
+        return bal_linearize_plain(cameras, points, ids0, ids1, obs,
+                                   slot_mask, factor_mask, loss_params, loss)
+    name = LINEARIZE_STATS.name
+    dev = _device_of(name, cameras)
+    F = ids0.shape[0]
+    _check(name, dev, f_cameras=cameras, f_points=points, i_ids0=ids0,
+           i_ids1=ids1, f_obs=obs, b_slot_mask=slot_mask,
+           b_factor_mask=factor_mask, f_loss_params=loss_params)
+    out = [torch.empty((F, w), dtype=torch.float32, device=dev)
+           for w in (2, 18, 6, 1, 1, 9, 3)]
+    _launch(LINEARIZE_STATS, "gt_bal_linearize", dev, cameras.data_ptr(),
+            points.data_ptr(), ids0.data_ptr(), ids1.data_ptr(),
+            obs.data_ptr(), slot_mask.data_ptr(), factor_mask.data_ptr(),
+            loss_params.data_ptr(), *(t.data_ptr() for t in out), F,
+            LOSS_CODES[type(loss)])
+    r, jc, jp, chi2, dL, dc, dp = out
+    return r, jc, jp, chi2.view(F), dL.view(F), dc, dp
+
+
+# ---- bal_scale_b ----------------------------------------------------------
+
+def bal_scale_b_plain(jc, jp, r, dL, scales_c: Optional[torch.Tensor],
+                      scales_p: Optional[torch.Tensor], rows0, rows1,
+                      storage: torch.dtype):
+    """(stored J (F, 18) and (F, 6) in ``storage``, b's rows (F, 9) and
+    (F, 3)): the J scaled by its columns' padded scale rows at ``rows0``
+    / ``rows1`` (None: not scaled), cast to storage, and ``-J^T dL r``
+    from the stored values."""
+    stored = []
+    for J, sc, rows in ((jc, scales_c, rows0), (jp, scales_p, rows1)):
+        if sc is not None:
+            J = J * sc.index_select(0, rows).repeat(1, 2).to(J.dtype)
+        stored.append(clamp_to_storage(J, storage))
+    w = (r * dL[:, None]).to(torch.float32)
+    b = [-flat_block_mv_t(Js, w, 2, d, acc_dtype=torch.float32)
+         for Js, d in zip(stored, (9, 3))]
+    return (*stored, *b)
+
+
+def bal_scale_b(jc, jp, r, dL, scales_c, scales_p, rows0, rows1,
+                storage: torch.dtype):
+    if jc.device.type == "cpu":
+        return bal_scale_b_plain(jc, jp, r, dL, scales_c, scales_p, rows0,
+                                 rows1, storage)
+    name = SCALE_B_STATS.name
+    dev = _device_of(name, jc)
+    F = jc.shape[0]
+    if storage not in _STORAGE:
+        raise NotImplementedError(f"{name}: no kernel for storage {storage}")
+    if (scales_c is None) != (scales_p is None):
+        raise ValueError(f"{name}: scale both slots or neither")
+    _check(name, dev, f_jc=jc, f_jp=jp, f_r=r, f_dL=dL, f_scales_c=scales_c,
+           f_scales_p=scales_p, i_rows0=rows0, i_rows1=rows1)
+    out = [torch.empty((F, w), dtype=storage, device=dev) for w in (18, 6)]
+    out += [torch.empty((F, w), dtype=torch.float32, device=dev)
+            for w in (9, 3)]
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    _launch(SCALE_B_STATS, f"gt_bal_scale_b_{_STORAGE[storage]}", dev,
+            jc.data_ptr(), jp.data_ptr(), r.data_ptr(), dL.data_ptr(),
+            ptr(scales_c), ptr(scales_p), rows0.data_ptr(), rows1.data_ptr(),
+            *(t.data_ptr() for t in out), F)
+    return tuple(out)
+
+
+# ---- bal_hessian ----------------------------------------------------------
+
+def bal_hessian_plain(jc, jp, dL, inv_dtype: torch.dtype
+                      ) -> Tuple[torch.Tensor, ...]:
+    """The rows of ``J_s^T dL J_t`` for the slot pairs ``PAIRS``, (F, 81),
+    (F, 27) and (F, 9) in ``inv_dtype``: ``compute_hessian_values``'s
+    per-factor products of one set."""
+    acc = torch.float32
+    J = (jc, jp)
+    dims = (9, 3)
+    return tuple(
+        (flat_block_mm_tn(J[s], J[t].to(acc), dims[s], 2, dims[t],
+                          acc_dtype=acc)
+         * dL.to(acc)[:, None]).to(inv_dtype) for s, t in PAIRS)
+
+
+def bal_hessian(jc, jp, dL, inv_dtype: torch.dtype
+                ) -> Tuple[torch.Tensor, ...]:
+    if jc.device.type == "cpu":
+        return bal_hessian_plain(jc, jp, dL, inv_dtype)
+    name = HESSIAN_STATS.name
+    dev = _device_of(name, jc)
+    F = jc.shape[0]
+    if jc.dtype not in _STORAGE or jp.dtype != jc.dtype:
+        raise NotImplementedError(
+            f"{name}: no kernel for J of {jc.dtype} / {jp.dtype}")
+    if inv_dtype != torch.float32:
+        raise NotImplementedError(f"{name}: no kernel for {inv_dtype} values")
+    _check(name, dev, s_jc=jc, s_jp=jp, f_dL=dL)
+    out = [torch.empty((F, w), dtype=torch.float32, device=dev)
+           for w in (81, 27, 9)]
+    _launch(HESSIAN_STATS, f"gt_bal_hessian_{_STORAGE[jc.dtype]}", dev,
+            jc.data_ptr(), jp.data_ptr(), dL.data_ptr(),
+            *(t.data_ptr() for t in out), F)
+    return tuple(out)

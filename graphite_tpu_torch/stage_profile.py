@@ -8,6 +8,8 @@ and runs Levenberg-Marquardt with PCGSchurSolver(10, 1.0, 5.0) twice:
 
 1. ``--iterations`` iterations under a stage timer. Each call of a stage
    (``linearize``, Hessian values, damping, ``schur_values``, ``b_schur``,
+   kernel K7's entries for the BAL factors with the K1 row reductions
+   beside them (in ``linearize`` and the Hessian values),
    the preconditioner, ``run_pcg`` / ``dense_pcg`` with the S matvecs and
    preconditioner applies inside it, ``landmark_update``, ``compute_chi2``;
    on the pose path the block-Jacobi blocks and inverses, the folding of
@@ -42,6 +44,9 @@ import torch
 
 def _stage_targets():
     """(owner, attribute, stage name) of every wrapped stage."""
+    import importlib
+
+    from .ops.cuda import bal as k7
     from .optimizers import lm
     from .preconditioners.block_jacobi_schur import (
         BlockJacobiSchurPreconditioner,
@@ -50,8 +55,18 @@ def _stage_targets():
     from .schur import SchurOps
     from .solvers import pcg, pcg_schur
 
+    # the package exports functions under these modules' names
+    linearize, hessian = (importlib.import_module(f"{__package__}.{m}")
+                          for m in ("linearize", "hessian"))
     return [
         (lm, "linearize", "linearize"),
+        (k7, "bal_linearize", "k7.bal_linearize (in linearize)"),
+        (k7, "bal_scale_b", "k7.bal_scale_b (in linearize)"),
+        (linearize, "_factor_row_reduce",
+         "k1 factor rows (in linearize)"),
+        (k7, "bal_residual", "k7.bal_residual (in compute_chi2)"),
+        (k7, "bal_hessian", "k7.bal_hessian (in hessian_values)"),
+        (hessian, "reduce_rows", "k1 hessian rows (in hessian_values)"),
         (lm, "compute_chi2", "compute_chi2"),
         (lm, "apply_update", "apply_update"),
         (pcg_schur, "compute_hessian_values", "hessian_values"),

@@ -78,6 +78,14 @@ on a machine with only PyTorch (``--noconftest`` skips the JAX set-up in
   captured in the graph); two ranks under ``jit_loop`` at mini
   (PCG-Schur, and PCG with block-Jacobi, whose all-reduce sits in the CG
   loop's "while" node) bitwise their host loop.
+- K7 (``csrc/bal.cu``): each of its four entries bitwise its plain
+  version on the card and on the CPU, and bitwise repeatable, on a small
+  BAL problem with cameras in each Rodrigues branch, a fixed camera and
+  disabled factors, under float32, bf16 and fp16 storage and the
+  default, Huber and Cauchy losses (Cauchy's chi2 within 1e-6 of the
+  CPU's: its float32 log1p is CUDA's on the card and the CPU library's on
+  the CPU); Ladybug-49's LM under FP32_FP32 and FP32_FP16 bitwise the
+  CPU run, with every K7 entry launched.
 - K8 (``csrc/allreduce.cu``) on two ranks of one card: its sum and
   gather bitwise its plain version (gloo on the same CUDA tensors, inputs
   with -0.0 entries; float32, float64, int64, an empty tensor), bitwise
@@ -96,6 +104,7 @@ import graphite_tpu_torch as gtt
 from graphite_tpu_torch import schur
 from graphite_tpu_torch.io import bal, g2o, synthetic
 from graphite_tpu_torch.linearize import linearize
+from graphite_tpu_torch.ops.cuda import bal as k7
 from graphite_tpu_torch.ops.cuda import (
     pcg_dense,
     pcg_mf,
@@ -1249,3 +1258,94 @@ def test_sharded_jit_loop_two_ranks_bitwise_host_loop(cuda_device):
                                       host["params"][name])
                 assert np.array_equal(graph["params"][name],
                                       out[0][case]["graph"]["params"][name])
+
+
+# camera rotations (angle-axis) forcing each Rodrigues branch: theta^2 = 0
+# and below 1e-24 (tiny), below 0.01 (the Jacobian's Taylor range) and
+# above it (exact)
+K7_ROTATIONS = [(0.0, 0.0, 0.0), (1e-13, -2e-13, 5e-14),
+                (0.02, -0.03, 0.01), (0.2, -0.15, 0.1), (0.5, 0.3, -0.4)]
+K7_LOSSES = {"default": (None, None), "huber": (gtt.HuberLoss(), 2.0),
+             "cauchy": (gtt.CauchyLoss(), 1.5)}
+
+
+def _k7_problem(device, loss):
+    ds = synthetic.make_bal((6, 60, 300), seed=3, noise=0.5)
+    ds.cameras[:len(K7_ROTATIONS), :3] = K7_ROTATIONS
+    fn, param = K7_LOSSES[loss]
+    g, cams, _, fs = bal.build_graph(ds, precision=gtt.FP32_FP32, loss=fn,
+                                     loss_param=param)
+    cams.set_fixed(5)
+    for h in range(10):
+        fs.set_active(h, 0x80)
+    return g.freeze(device=device)
+
+
+def _k7_calls(problem, storage, plain):
+    """Every K7 entry on ``problem``'s first linearization point: the
+    wrappers, or (``plain``) the plain versions."""
+    fa = problem.data.factors["bal_reprojection"]
+    p = problem.params0
+    loss = k7.gate(problem, "bal_reprojection")
+    args = (p["bal_camera"], p["bal_point"], *fa.ids, fa.obs)
+    rng = np.random.default_rng(5)
+    scales = [torch.as_tensor(rng.random((problem.seg_rows[n] + 1, d)),
+                              dtype=torch.float32, device=problem.device)
+              for n, d in (("bal_camera", 9), ("bal_point", 3))]
+    fns = [k7.bal_residual, k7.bal_linearize, k7.bal_scale_b, k7.bal_hessian]
+    if plain:
+        fns = [k7.bal_residual_plain, k7.bal_linearize_plain,
+               k7.bal_scale_b_plain, k7.bal_hessian_plain]
+    chi2 = fns[0](*args, fa.factor_mask, fa.loss_params, loss)
+    lin = fns[1](*args, fa.slot_mask, fa.factor_mask, fa.loss_params, loss)
+    r, jc, jp, _, dL, _, _ = lin
+    scaled = fns[2](jc, jp, r, dL, *scales, *fa.rows, storage)
+    unscaled = fns[2](jc, jp, r, dL, None, None, *fa.rows, storage)
+    hess = fns[3](*scaled[:2], dL, torch.float32)
+    return [chi2, *lin, *scaled, *unscaled, *hess]
+
+
+def _k7_bits(t):
+    ints = {4: torch.int32, 2: torch.int16}
+    return t.contiguous().view(ints[t.element_size()])
+
+
+@pytest.mark.parametrize("loss", sorted(K7_LOSSES))
+@pytest.mark.parametrize("storage", ["float32", "bfloat16", "float16"])
+def test_k7_matches_plain_bitwise(cuda_device, storage, loss):
+    storage = getattr(torch, storage)
+    problem = _k7_problem(cuda_device, loss)
+    cpu = _k7_problem("cpu", loss)
+    stats = (k7.RESIDUAL_STATS, k7.LINEARIZE_STATS, k7.SCALE_B_STATS,
+             k7.HESSIAN_STATS)
+    before = [s.launches for s in stats]
+    out = _k7_calls(problem, storage, plain=False)
+    again = _k7_calls(problem, storage, plain=False)
+    assert [s.launches - b for s, b in zip(stats, before)] == [2, 2, 4, 2]
+    ref = _k7_calls(problem, storage, plain=True)
+    ref_cpu = _k7_calls(cpu, storage, plain=True)
+    torch.cuda.synchronize()
+    # the chi2 of bal_residual and of bal_linearize (Cauchy: log1p)
+    chi2_at = (0, 4)
+    for i, (o, a, r, c) in enumerate(zip(out, again, ref, ref_cpu)):
+        assert o.dtype == r.dtype == c.dtype and o.shape == c.shape
+        assert torch.equal(_k7_bits(o), _k7_bits(a)), i
+        assert torch.equal(_k7_bits(o), _k7_bits(r)), i
+        if loss == "cauchy" and i in chi2_at:
+            torch.testing.assert_close(o.cpu(), c, rtol=1e-6, atol=0)
+        else:
+            assert torch.equal(_k7_bits(o.cpu()), _k7_bits(c)), i
+
+
+@pytest.mark.parametrize("policy", ["FP32_FP32", "FP32_FP16"])
+def test_ladybug_lm_under_k7_cuda_equals_cpu(cuda_device, policy):
+    cpu, gpu, launches = _ladybug_runs(cuda_device, getattr(gtt, policy))
+    assert ([(h["chi2"], h["accepted"]) for h in gpu.history]
+            == [(h["chi2"], h["accepted"]) for h in cpu.history])
+    for name, p in gpu.params.items():
+        assert torch.equal(p.cpu(), cpu.params[name])
+    for s in (k7.RESIDUAL_STATS, k7.LINEARIZE_STATS, k7.SCALE_B_STATS,
+              k7.HESSIAN_STATS):
+        assert launches[s.name] > 0, s.name
+    # one trial chi2 per iteration
+    assert launches[k7.RESIDUAL_STATS.name] == len(gpu.history)
