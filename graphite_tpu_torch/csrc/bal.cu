@@ -1,45 +1,83 @@
 // K7: the BAL reprojection factor's linearization and Hessian values on
 // Hopper (sm_90a).
 //
-// Replaces no pl.pallas_call. It is the port's counterpart of what XLA
-// fuses for the JAX package out of plain jnp code: the reprojection
+// Replaces no pl.pallas_call but one: it is the port's counterpart of what
+// XLA fuses for the JAX package out of plain jnp code: the reprojection
 // residual (graphite_tpu/models/bal.py, reprojection_residual), its
 // analytic Jacobian (reprojection_jacobian), the per-factor part of
 // linearize (graphite_tpu/linearize.py: chi2 and the robust loss, the
 // masked Jacobians, the Jacobi diagonal's rows, the column scaling, the
-// storage cast, b's rows) and of compute_hessian_values
-// (graphite_tpu/hessian.py: J_s^T dL J_t per slot pair). Eager PyTorch
-// runs the same chain as ~200 kernels, each reading and writing (F, ...)
+// storage cast, b's rows) and the products of compute_hessian_values
+// (graphite_tpu/hessian.py: J_s^T dL J_t per slot pair); and of the
+// Pallas streaming_segment_sum that sums those products into their
+// blocks there (graphite_tpu/ops/pallas/segsum_stream.py). Eager PyTorch
+// runs the chain as ~200 kernels, each reading and writing (F, ...)
 // tensors; here each factor's chain stays in registers. The per-vertex
-// sums of the rows written here stay on kernel K1 (segsum.cu), on the
-// same plans, so they are added in the same order as before.
+// sums of linearize's rows stay on kernel K1 (segsum.cu), on the same
+// plans, so they are added in the same order as before.
 //
 // Four entries (ops/cuda/bal.py holds the wrappers and the plain PyTorch
 // version of each, which follows the generic code op by op):
-//   gt_bal_residual   camera[ids0], point[ids1], obs, factor_mask,
-//                     loss_params -> masked robust chi2 (F)
-//   gt_bal_linearize  the same and slot_mask -> r (F,2), the masked
-//                     unscaled J (F,18) and (F,6), chi2 (F), dL (F), the
-//                     Jacobi diagonal's rows (F,9) and (F,3)
-//   gt_bal_scale_b_*  J, r, dL, the padded scale rows at rows0 / rows1 ->
-//                     the stored J in the storage type S (float, bf16 or
-//                     fp16) and b's rows (F,9) and (F,3)
-//   gt_bal_hessian_*  the stored J (S), dL -> J_c^T dL J_c (F,81),
-//                     J_c^T dL J_p (F,27), J_p^T dL J_p (F,9), float32
+//   gt_bal_residual      camera[ids0], point[ids1], obs, factor_mask,
+//                        loss_params -> masked robust chi2 (F)
+//   gt_bal_linearize     the same and slot_mask -> r (F,2), the masked
+//                        unscaled J (F,18) and (F,6), chi2 (F), dL (F), the
+//                        Jacobi diagonal's rows (F,9) and (F,3)
+//   gt_bal_scale_b_*     J, r, dL, the padded scale rows at rows0 / rows1 ->
+//                        the stored J in the storage type S (float, bf16 or
+//                        fp16) and b's rows (F,9) and (F,3)
+//   gt_bal_hessian_sum_* the stored J (S), dL, one Hessian site's K1 plan
+//                        (perm, offsets, lanes per segment) and its slot
+//                        pair -> the site's block group, float32: each
+//                        block the sum of its factors' J_s^T dL J_t
 // The loss (default, Huber, Cauchy) is a template parameter; the gate
 // (bal.py, gate) sends every other factor set to the generic code.
 //
-// Bound: memory. Per factor the entries move about 35, 195, 268 and 568
-// bytes and do a few hundred float32 operations and two float64
-// cos / sin (linearize) or one (residual). The design is the simple one.
-// bal_residual and bal_linearize run one thread per factor, the camera
-// and point rows gathered straight from global memory and each thread's
-// output rows written whole (strided stores: a warp's store touches 32
-// rows). bal_scale_b and bal_hessian, whose work per output element is a
-// few operations on a few J entries, run one thread per output element,
-// so their stores (most of their bytes) are coalesced; a thread per
-// factor there wrote the (F, 81) rows at ~0.19 TB/s. Staging
-// bal_linearize's rows through shared memory is later work.
+// Bound: memory. Per factor the entries move about 35, 195, 268 and, over
+// Venice's three Hessian sites, ~330 bytes (J and dL once a site, the
+// plan, the blocks once), and do a few hundred float32 operations and two
+// float64 cos / sin (linearize) or one (residual).
+//
+// bal_residual and bal_linearize run one thread per factor, the camera and
+// point rows gathered straight from global memory. bal_linearize writes
+// its 40 floats a factor (r 2, Jc 18, Jp 6, chi2 1, dL 1, diag_c 9, diag_p
+// 3) into a shared tile of its CTA's 128 factors (20 KB), one span per
+// output; after a __syncthreads() the CTA copies each span to its output,
+// whose rows [128 b, 128 b + 128) are one contiguous range, in float4
+// stores: a warp's store is 512 contiguous bytes, where a thread's own
+// rows made it touch 32 rows. bal_scale_b runs one thread per output
+// element, so its stores are coalesced.
+//
+// bal_hessian_sum: one launch per Hessian site (slot pair (s, t), and
+// whether the site's blocks are the transposed (t, s) ones) forms each
+// product where it is summed. The site's rows would be (F, 81), (F, 27) or
+// (F, 9) float32, 2.34 GB at Venice; none is written. It keeps K1's
+// summation order on the same plan (segsum.cu: lane l of a segment sums
+// its sorted rows l, l+G, ... from +0.0, then the halving tree), so a
+// block's bits are those of K1 over the product rows:
+// - G = 1 (the destination-sorted point sites, ~1-5 rows a block): K1's
+//   thread per (block, column), grouped: a CTA of (256 / D) D threads owns
+//   8 (256 / D) consecutive blocks, stages their rows' J_s, J_t and dL in
+//   shared memory once (three contiguous copies where the plan has no
+//   permutation; 16 KB a pass), and each thread keeps one column and sums
+//   it over 8 of the blocks, each over its staged rows in row order. A
+//   warp's store is 32 consecutive floats. (Float4 stores of 4 and 16
+//   neighbouring floats a thread were no faster.)
+// - G > 1 (the camera sites: ~2,800 rows a block through the
+//   permutation): K1's CTA, (slot q, column c) threads each holding L =
+//   G / Q lanes of C columns. Each round stages the next 4 / L of K1's
+//   rounds (at least 4 rows a thread) of gathered J rows and dL in shared
+//   memory, double-buffered: the next round's loads are in flight while
+//   this one is summed. Each thread forms its own entries (its C columns
+//   share J_t's column, read once a row) and adds each to its lane, round
+//   by round in K1's order; then K1's halving tree, in registers, then
+//   through shared memory.
+// First writer of a group: the sums are stored, every row of the group
+// (the plan covers the trash row too). This is the zero fill and the add
+// of the generic branch, bitwise: each lane starts from +0.0, and +0.0
+// plus anything is never -0.0, so no sum is -0.0 and 0.0 + sum == sum.
+// A later writer (a second factor set) adds: out = out + sum, as
+// values[g] + reduce_rows(...). No float atomics.
 //
 // The bits. Each entry equals its plain version on the card bitwise, so
 // every expression is the plain version's, rounded where it rounds:
@@ -78,10 +116,12 @@
 //   then __float2half_rn; bf16 __float2bfloat16_rn. b and H read the
 //   rounded value, widened exactly to float32.
 // - Capture: the entries launch on the given stream, allocate nothing and
-//   never synchronise, so they run inside the captured LM iteration.
+//   never synchronise, so they run inside the captured LM iteration and
+//   its conditional regions.
 // - Registers: bal_linearize keeps about 100 floats live per thread; nvcc
 //   gives it 48-56 registers and spills nothing (-Xptxas -v in the build
-//   log, which chip_smoke.py's [build] lines print).
+//   log, which chip_smoke.py's [build] lines print); its tile is shared
+//   memory, not registers.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -339,6 +379,22 @@ __global__ void __launch_bounds__(kThreads)
   chi2[f] = value * (fmask[f] ? 1.0f : 0.0f);
 }
 
+// The n floats of a shared span to dst, both 16-byte aligned, in float4
+// stores where four remain, by the CTA's threads.
+__device__ __forceinline__ void copy_span(const float* __restrict__ src,
+                                          float* __restrict__ dst, int n) {
+  const int n4 = n >> 2;
+  for (int x = threadIdx.x; x < n4; x += kThreads) {
+    reinterpret_cast<float4*>(dst)[x] =
+        reinterpret_cast<const float4*>(src)[x];
+  }
+  for (int x = 4 * n4 + threadIdx.x; x < n; x += kThreads) dst[x] = src[x];
+}
+
+// The floats a factor writes: r 2, Jc 18, Jp 6, chi2 1, dL 1, diag_c 9,
+// diag_p 3.
+constexpr int kLinFloats = 40;
+
 template <int LOSS>
 __global__ void __launch_bounds__(kThreads)
     linearize_kernel(const float* __restrict__ cams,
@@ -353,39 +409,61 @@ __global__ void __launch_bounds__(kThreads)
                      float* __restrict__ jp_out, float* __restrict__ chi2,
                      float* __restrict__ dl_out, float* __restrict__ diag_c,
                      float* __restrict__ diag_p, long long F) {
-  const long long f = static_cast<long long>(blockIdx.x) * kThreads +
-                      threadIdx.x;
-  if (f >= F) return;
-  float cam[9], X[3], r[2], Jc[18], Jp[6];
-  load_rows(cams, pts, ids0, ids1, f, cam, X);
-  residual(cam, X, obs + 2 * f, r);
-  jacobian(cam, X, Jc, Jp);
-  const float m0 = smask[2 * f] ? 1.0f : 0.0f;
-  const float m1 = smask[2 * f + 1] ? 1.0f : 0.0f;
+  // one span per output, each kThreads rows of its width
+  __shared__ __align__(16) float tile[kThreads * kLinFloats];
+  float* t_r = tile;
+  float* t_jc = t_r + 2 * kThreads;
+  float* t_jp = t_jc + 18 * kThreads;
+  float* t_chi2 = t_jp + 6 * kThreads;
+  float* t_dl = t_chi2 + kThreads;
+  float* t_dc = t_dl + kThreads;
+  float* t_dp = t_dc + 9 * kThreads;
+  const long long f0 = static_cast<long long>(blockIdx.x) * kThreads;
+  const int nf = static_cast<int>(F - f0 < kThreads ? F - f0 : kThreads);
+  const int i = threadIdx.x;
+  if (i < nf) {
+    const long long f = f0 + i;
+    float cam[9], X[3], r[2], Jc[18], Jp[6];
+    load_rows(cams, pts, ids0, ids1, f, cam, X);
+    residual(cam, X, obs + 2 * f, r);
+    jacobian(cam, X, Jc, Jp);
+    const float m0 = smask[2 * f] ? 1.0f : 0.0f;
+    const float m1 = smask[2 * f + 1] ? 1.0f : 0.0f;
 #pragma unroll
-  for (int i = 0; i < 18; ++i) Jc[i] = Jc[i] * m0;
+    for (int k = 0; k < 18; ++k) Jc[k] = Jc[k] * m0;
 #pragma unroll
-  for (int i = 0; i < 6; ++i) Jp[i] = Jp[i] * m1;
-  const float raw = r[0] * r[0] + r[1] * r[1];
-  float value, dL;
-  robust<LOSS>(raw, loss_params[f], &value, &dL);
+    for (int k = 0; k < 6; ++k) Jp[k] = Jp[k] * m1;
+    const float raw = r[0] * r[0] + r[1] * r[1];
+    float value, dL;
+    robust<LOSS>(raw, loss_params[f], &value, &dL);
 
-  r_out[2 * f] = r[0];
-  r_out[2 * f + 1] = r[1];
+    t_r[2 * i] = r[0];
+    t_r[2 * i + 1] = r[1];
 #pragma unroll
-  for (int i = 0; i < 18; ++i) jc_out[18 * f + i] = Jc[i];
+    for (int k = 0; k < 18; ++k) t_jc[18 * i + k] = Jc[k];
 #pragma unroll
-  for (int i = 0; i < 6; ++i) jp_out[6 * f + i] = Jp[i];
-  chi2[f] = value * (fmask[f] ? 1.0f : 0.0f);
-  dl_out[f] = dL;
+    for (int k = 0; k < 6; ++k) t_jp[6 * i + k] = Jp[k];
+    t_chi2[i] = value * (fmask[f] ? 1.0f : 0.0f);
+    t_dl[i] = dL;
 #pragma unroll
-  for (int c = 0; c < 9; ++c) {
-    diag_c[9 * f + c] = (Jc[c] * Jc[c] + Jc[9 + c] * Jc[9 + c]) * dL;
+    for (int c = 0; c < 9; ++c) {
+      t_dc[9 * i + c] = (Jc[c] * Jc[c] + Jc[9 + c] * Jc[9 + c]) * dL;
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      t_dp[3 * i + c] = (Jp[c] * Jp[c] + Jp[3 + c] * Jp[3 + c]) * dL;
+    }
   }
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    diag_p[3 * f + c] = (Jp[c] * Jp[c] + Jp[3 + c] * Jp[3 + c]) * dL;
-  }
+  __syncthreads();
+  // rows [f0, f0 + nf) of each output: f0 * width floats in, a multiple of
+  // 4 (f0 is one of 128), so every span starts 16-byte aligned
+  copy_span(t_r, r_out + 2 * f0, 2 * nf);
+  copy_span(t_jc, jc_out + 18 * f0, 18 * nf);
+  copy_span(t_jp, jp_out + 6 * f0, 6 * nf);
+  copy_span(t_chi2, chi2 + f0, nf);
+  copy_span(t_dl, dl_out + f0, nf);
+  copy_span(t_dc, diag_c + 9 * f0, 9 * nf);
+  copy_span(t_dp, diag_p + 3 * f0, 3 * nf);
 }
 
 template <typename S>
@@ -419,11 +497,10 @@ struct Storage<__half> {
   }
 };
 
-// bal_scale_b and bal_hessian: one thread per output element, over the
-// outputs laid end to end, so a warp writes neighbouring elements of one
-// output (or two, at a boundary) and reads its few factors' J rows through
-// L1; each element is computed with the same operations as in a thread per
-// factor.
+// bal_scale_b: one thread per output element, over the outputs laid end
+// to end, so a warp writes neighbouring elements of one output (or two, at
+// a boundary) and reads its few factors' J rows through L1; each element
+// is computed with the same operations as in a thread per factor.
 
 // One J entry scaled by its column's scale and cast to storage; sc: the
 // padded (n_rows + 1, d) scale rows, or null when the Jacobians are not
@@ -490,43 +567,442 @@ __global__ void __launch_bounds__(kThreads)
   if (t < 3 * F) b_p[t] = b_entry<S, 3>(jp, sp, rows1, r, dl, t);
 }
 
-// Element t of the row-major (DS, DT) rows of J_s^T dL J_t:
-// (Js[0, i] Jt[0, k] + Js[1, i] Jt[1, k]) dL.
-template <typename S, int DS, int DT>
-__device__ __forceinline__ float h_entry(const S* __restrict__ a,
-                                         const S* __restrict__ b,
-                                         const float* __restrict__ dl,
-                                         long long t) {
-  const long long f = t / (DS * DT);
-  const int e = static_cast<int>(t - DS * DT * f);
-  const int i = e / DT, k = e - i * DT;
-  const S* as = a + 2 * DS * f;
-  const S* bt = b + 2 * DT * f;
-  return (Storage<S>::load(as[i]) * Storage<S>::load(bt[k]) +
-          Storage<S>::load(as[DS + i]) * Storage<S>::load(bt[DT + k])) *
-         dl[f];
+// ---- bal_hessian_sum ------------------------------------------------------
+
+constexpr int kSumThreads = 256;    // most threads of a group-1 CTA
+constexpr int kSumSteps = 8;        // outputs a group-1 thread sums
+constexpr int kStageFloats = 4096;  // J / dL floats a group-1 pass stages
+constexpr int kLaneThreads = 512;   // most threads of a lane CTA (K1's)
+constexpr int kLaneMinThreads = 256;  // short segments share a CTA up to this
+constexpr int kLaneMaxSpc = kLaneMinThreads / 9 + 1;  // segments a CTA
+
+// One slot pair's products. A factor's block is (DS, DT) row-major, or its
+// transpose (DT, DS) when TRANS (a trans_idx site: element (k, i) of the
+// transposed row). SAME: s == t, so Jt is Js. A staged row holds Js (2 DS
+// floats), Jt (2 DT, unless SAME) and dL, widened from storage.
+template <typename S, int DS, int DT, bool SAME, bool TRANS>
+struct HPair {
+  static constexpr int D = DS * DT;
+  static constexpr int WS = 2 * DS;
+  static constexpr int WT = SAME ? 0 : 2 * DT;
+  static constexpr int W = WS + WT + 1;
+  // column c of an output block -> (i, k): J_s column i, J_t column k
+  static __device__ __forceinline__ void cols(int c, int* i, int* k) {
+    if (TRANS) {
+      *k = c / DS;
+      *i = c - *k * DS;
+    } else {
+      *i = c / DT;
+      *k = c - *i * DT;
+    }
+  }
+  // float w of the staged row of value row v
+  static __device__ __forceinline__ float load(const S* __restrict__ js,
+                                               const S* __restrict__ jt,
+                                               const float* __restrict__ dl,
+                                               long long v, int w) {
+    if (w < WS) return Storage<S>::load(js[v * WS + w]);
+    if (w < WS + WT) return Storage<S>::load(jt[v * (2 * DT) + (w - WS)]);
+    return dl[v];
+  }
+  // (Js[0, i] Jt[0, k] + Js[1, i] Jt[1, k]) dL, each operation rounded
+  static __device__ __forceinline__ float entry(const float* row, int i,
+                                                int k) {
+    const float* t = row + (SAME ? 0 : WS);
+    return (row[i] * t[k] + row[DS + i] * t[DT + k]) * row[W - 1];
+  }
+};
+
+// G = 1: K1's row kernel (segsum.cu, segsum_rows_kernel) with the rows
+// staged. A CTA of T = (256 / D) D threads owns SPC = (T / D) kSumSteps
+// consecutive segments; thread x keeps column x % D and sums the segments
+// x / D + j T / D (j < kSumSteps), each over its rows in row order, so a
+// warp's store is 32 consecutive floats. The rows of the CTA's segments
+// are staged kStageFloats / W at a time: J_s, J_t and dL in three arrays,
+// each a contiguous copy where the plan has no permutation.
+template <typename S, int DS, int DT, bool SAME, bool TRANS>
+struct RowsShape {
+  using P = HPair<S, DS, DT, SAME, TRANS>;
+  static constexpr int kSegsPerStep = kSumThreads / P::D;
+  static constexpr int kThreads = kSegsPerStep * P::D;
+  static constexpr int kSegs = kSegsPerStep * kSumSteps;
+  static constexpr int kRows = kStageFloats / P::W;
+};
+
+template <typename S, int DS, int DT, bool SAME, bool TRANS>
+__global__ void __launch_bounds__(kSumThreads)
+    hsum_rows_kernel(const S* __restrict__ js, const S* __restrict__ jt,
+                     const float* __restrict__ dl,
+                     const int* __restrict__ perm,
+                     const int* __restrict__ offsets,
+                     float* __restrict__ out, int num_segments,
+                     int accumulate) {
+  using P = HPair<S, DS, DT, SAME, TRANS>;
+  using R = RowsShape<S, DS, DT, SAME, TRANS>;
+  constexpr int WT = SAME ? P::WS : P::WT;  // J_t floats a row
+  __shared__ float s_js[R::kRows * P::WS];
+  __shared__ float s_jt[SAME ? 1 : R::kRows * P::WT];
+  __shared__ float s_dl[R::kRows];
+  __shared__ int soff[R::kSegs + 1];
+  const long long s0 = static_cast<long long>(blockIdx.x) * R::kSegs;
+  const int ns = static_cast<int>(
+      num_segments - s0 < R::kSegs ? num_segments - s0 : R::kSegs);
+  for (int x = threadIdx.x; x <= ns; x += R::kThreads) {
+    soff[x] = offsets[s0 + x];
+  }
+  __syncthreads();
+  const int sq = threadIdx.x / P::D;
+  const int c = threadIdx.x - sq * P::D;
+  int i, k;
+  P::cols(c, &i, &k);
+  const float* tj = SAME ? s_js : s_jt;
+  float acc[kSumSteps];
+#pragma unroll
+  for (int j = 0; j < kSumSteps; ++j) acc[j] = 0.0f;
+  const int r0 = soff[0], r1 = soff[ns];
+  for (int c0 = r0; c0 < r1; c0 += R::kRows) {
+    const int nr = r1 - c0 < R::kRows ? r1 - c0 : R::kRows;
+    if (perm == nullptr) {
+      const S* a = js + static_cast<long long>(c0) * P::WS;
+      for (int x = threadIdx.x; x < nr * P::WS; x += R::kThreads) {
+        s_js[x] = Storage<S>::load(a[x]);
+      }
+      if (!SAME) {
+        const S* b = jt + static_cast<long long>(c0) * P::WT;
+        for (int x = threadIdx.x; x < nr * P::WT; x += R::kThreads) {
+          s_jt[x] = Storage<S>::load(b[x]);
+        }
+      }
+      for (int x = threadIdx.x; x < nr; x += R::kThreads) {
+        s_dl[x] = dl[c0 + x];
+      }
+    } else {
+      for (int x = threadIdx.x; x < nr * P::WS; x += R::kThreads) {
+        const int rr = x / P::WS;
+        const long long v = __ldg(perm + c0 + rr);
+        s_js[x] = Storage<S>::load(js[v * P::WS + (x - rr * P::WS)]);
+      }
+      if (!SAME) {
+        for (int x = threadIdx.x; x < nr * P::WT; x += R::kThreads) {
+          const int rr = x / P::WT;
+          const long long v = __ldg(perm + c0 + rr);
+          s_jt[x] = Storage<S>::load(jt[v * P::WT + (x - rr * P::WT)]);
+        }
+      }
+      for (int x = threadIdx.x; x < nr; x += R::kThreads) {
+        s_dl[x] = dl[__ldg(perm + c0 + x)];
+      }
+    }
+    __syncthreads();
+    const int c1 = c0 + nr;
+#pragma unroll
+    for (int j = 0; j < kSumSteps; ++j) {
+      const int ls = sq + j * R::kSegsPerStep;
+      if (ls >= ns) continue;
+      const int a = soff[ls] > c0 ? soff[ls] : c0;
+      const int b = soff[ls + 1] < c1 ? soff[ls + 1] : c1;
+      for (int r = a - c0; r < b - c0; ++r) {
+        const float* sa = s_js + r * P::WS;
+        const float* sb = tj + r * WT;
+        acc[j] = acc[j] + (sa[i] * sb[k] + sa[DS + i] * sb[DT + k]) * s_dl[r];
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int j = 0; j < kSumSteps; ++j) {
+    const int ls = sq + j * R::kSegsPerStep;
+    if (ls >= ns) continue;
+    float* dst = out + (s0 + ls) * P::D + c;
+    *dst = accumulate ? *dst + acc[j] : acc[j];
+  }
 }
 
-// the (camera, camera), (camera, point) and (point, point) rows: 81 F,
-// 27 F and 9 F elements
+// K1's lane rounds staged at once by a CTA of L lanes a thread: 4 / L (4
+// rows a thread and round at least), so that a round's gather latency is
+// paid for several lane rounds.
+template <int L>
+__host__ __device__ constexpr int lane_rounds() {
+  return L >= 4 ? 1 : 4 / L;
+}
+
+// G > 1: K1's lane CTA (segsum.cu, segsum_lanes_kernel) with the value
+// rows formed from staged J rows. C columns per thread, CT threads per
+// slot, Q = 2^q_log2 slots, L lanes per thread: G = Q L. The CTA sums
+// segments blockIdx.x * spc + [0, spc); each round stages, per segment,
+// its next KR G sorted rows (KR = lane_rounds<L>(): KR of K1's rounds),
+// which the lanes take round by round. Dynamic shared memory: two stage
+// buffers of spc KR G W floats, then the lane tree (blockDim.x C).
+template <typename S, int DS, int DT, bool SAME, bool TRANS, int L>
+__global__ void __launch_bounds__(kLaneThreads)
+    hsum_lanes_kernel(const S* __restrict__ js, const S* __restrict__ jt,
+                      const float* __restrict__ dl,
+                      const int* __restrict__ perm,
+                      const int* __restrict__ offsets,
+                      float* __restrict__ out, int num_segments, int q_log2,
+                      int spc, int accumulate) {
+  using P = HPair<S, DS, DT, SAME, TRANS>;
+  constexpr int C = (P::D + 31) / 32;
+  constexpr int CT = (P::D + C - 1) / C;
+  constexpr int KR = lane_rounds<L>();
+  // a (DS, DT) block's columns c + u CT share J_t's column k when CT is a
+  // multiple of DT
+  constexpr bool kSharedK = !TRANS && CT % DT == 0;
+  // staged floats per thread and round: spc KR G W / (spc Q CT)
+  constexpr int NP = (KR * L * P::W + CT - 1) / CT;
+  extern __shared__ float lane_smem[];
+  __shared__ int soff[kLaneMaxSpc + 1];
+  const int Q = 1 << q_log2;
+  const int G = Q * L;
+  const int RG = KR * G;  // a segment's rows a round
+  const int per_seg = Q * CT;
+  const int nthreads = spc * per_seg;
+  const int n_stage = spc * RG * P::W;
+  float* tree = lane_smem + 2 * n_stage;
+  const int sub = threadIdx.x / per_seg;
+  const int t = threadIdx.x - sub * per_seg;
+  const int q = t / CT;
+  const int c = t - q * CT;
+  const long long s0 = static_cast<long long>(blockIdx.x) * spc;
+  const int ns = static_cast<int>(
+      num_segments - s0 < spc ? num_segments - s0 : spc);
+  for (int x = threadIdx.x; x <= ns; x += nthreads) soff[x] = offsets[s0 + x];
+  __syncthreads();
+  int rounds = 0;
+  for (int b = 0; b < ns; ++b) {
+    const int n = (soff[b + 1] - soff[b] + RG - 1) / RG;
+    rounds = n > rounds ? n : rounds;
+  }
+  const bool live = sub < ns;
+  int ii[C], kk[C];
+  bool has[C];
+#pragma unroll
+  for (int u = 0; u < C; ++u) {
+    has[u] = c + u * CT < P::D;
+    ii[u] = kk[u] = 0;
+    if (has[u]) P::cols(c + u * CT, &ii[u], &kk[u]);
+  }
+
+  // this thread's share of round rnd's staged floats: float x of the
+  // stage is float w of the row at sorted position soff[b] + rnd RG + j
+  // of segment b (x = (b RG + j) W + w)
+  float pre[NP];
+  auto fetch = [&](int rnd) {
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      const int x = threadIdx.x + p * nthreads;
+      pre[p] = 0.0f;
+      if (x < n_stage) {
+        const int slot = x / P::W;
+        const int b = slot / RG;
+        const int pos = soff[b] + rnd * RG + (slot - b * RG);
+        if (b < ns && pos < soff[b + 1]) {
+          const long long v = perm != nullptr ? __ldg(perm + pos) : pos;
+          pre[p] = P::load(js, jt, dl, v, x - slot * P::W);
+        }
+      }
+    }
+  };
+  auto put = [&](float* buf) {
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      const int x = threadIdx.x + p * nthreads;
+      if (x < n_stage) buf[x] = pre[p];
+    }
+  };
+
+  float acc[L][C];
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+#pragma unroll
+    for (int u = 0; u < C; ++u) acc[j][u] = 0.0f;
+  }
+  if (rounds > 0) {
+    fetch(0);
+    put(lane_smem);
+  }
+  __syncthreads();
+  for (int rnd = 0; rnd < rounds; ++rnd) {
+    const bool more = rnd + 1 < rounds;
+    if (more) fetch(rnd + 1);  // in flight while this round is summed
+    if (live) {
+      const float* cur = lane_smem + (rnd & 1) * n_stage + sub * RG * P::W;
+      const int first = soff[sub] + rnd * RG;
+      const int left = soff[sub + 1] - first;
+      // K1's round k of the KR: lane q + j Q takes its row k G + q + j Q
+#pragma unroll
+      for (int k = 0; k < KR; ++k) {
+#pragma unroll
+        for (int j = 0; j < L; ++j) {
+          const int jj = k * G + q + j * Q;
+          if (jj >= left) continue;
+          const float* row = cur + jj * P::W;
+          if constexpr (kSharedK) {
+            // one J_t column for the thread's C columns: its two values
+            // and dL read once
+            const float* tr = row + (SAME ? 0 : P::WS);
+            const float b0 = tr[kk[0]], b1 = tr[DT + kk[0]];
+            const float d = row[P::W - 1];
+#pragma unroll
+            for (int u = 0; u < C; ++u) {
+              if (has[u]) {
+                acc[j][u] = acc[j][u] +
+                            (row[ii[u]] * b0 + row[DS + ii[u]] * b1) * d;
+              }
+            }
+          } else {
+#pragma unroll
+            for (int u = 0; u < C; ++u) {
+              if (has[u]) {
+                acc[j][u] = acc[j][u] + P::entry(row, ii[u], kk[u]);
+              }
+            }
+          }
+        }
+      }
+    }
+    if (more) put(lane_smem + ((rnd + 1) & 1) * n_stage);
+    __syncthreads();
+  }
+
+  // K1's tree: levels h = G/2, ..., Q in registers (lane q + j Q += lane
+  // q + (j + h/Q) Q), then h = Q/2, ..., 1 through shared memory
+#pragma unroll
+  for (int h = L / 2; h >= 1; h >>= 1) {
+#pragma unroll
+    for (int j = 0; j < h; ++j) {
+#pragma unroll
+      for (int u = 0; u < C; ++u) acc[j][u] = acc[j][u] + acc[j + h][u];
+    }
+  }
+  float* mine = tree + (sub * per_seg + c) * C;
+  for (int h = Q >> 1; h >= 1; h >>= 1) {
+    if (q >= h && q < 2 * h) {
+#pragma unroll
+      for (int u = 0; u < C; ++u) mine[q * CT * C + u] = acc[0][u];
+    }
+    __syncthreads();
+    if (q < h) {
+#pragma unroll
+      for (int u = 0; u < C; ++u) {
+        acc[0][u] = acc[0][u] + mine[(q + h) * CT * C + u];
+      }
+    }
+    __syncthreads();
+  }
+  if (live && q == 0) {
+    float* dst = out + (s0 + sub) * P::D;
+#pragma unroll
+    for (int u = 0; u < C; ++u) {
+      if (!has[u]) continue;
+      const int col = c + u * CT;
+      dst[col] = accumulate ? dst[col] + acc[0][u] : acc[0][u];
+    }
+  }
+}
+
+struct HSumArgs {
+  const void* js;
+  const void* jt;
+  const void* dl;
+  const int* perm;
+  const int* offsets;
+  float* out;
+  int num_segments, group_log2, accumulate;
+  cudaStream_t stream;
+};
+
+template <typename S, int DS, int DT, bool SAME, bool TRANS, int L>
+cudaError_t launch_hsum_lanes(const HSumArgs& a, int q_log2, int spc) {
+  using P = HPair<S, DS, DT, SAME, TRANS>;
+  constexpr int C = (P::D + 31) / 32;
+  constexpr int CT = (P::D + C - 1) / C;
+  const int threads = spc * (CT << q_log2);
+  const size_t smem = sizeof(float) *
+      (2 * static_cast<size_t>(spc) * lane_rounds<L>() * (L << q_log2) *
+           P::W + threads * C);
+  auto kernel = hsum_lanes_kernel<S, DS, DT, SAME, TRANS, L>;
+  if (smem > 48 * 1024) {
+    // only a forced group of 256 lanes asks this much
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<static_cast<unsigned>((a.num_segments + spc - 1) / spc), threads,
+           smem, a.stream>>>(
+      static_cast<const S*>(a.js), static_cast<const S*>(a.jt),
+      static_cast<const float*>(a.dl), a.perm, a.offsets, a.out,
+      a.num_segments, q_log2, spc, a.accumulate);
+  return cudaGetLastError();
+}
+
+template <typename S, int DS, int DT, bool SAME, bool TRANS>
+cudaError_t launch_hsum(const HSumArgs& a) {
+  using P = HPair<S, DS, DT, SAME, TRANS>;
+  if (a.group_log2 == 0) {
+    using R = RowsShape<S, DS, DT, SAME, TRANS>;
+    hsum_rows_kernel<S, DS, DT, SAME, TRANS>
+        <<<static_cast<unsigned>((a.num_segments + R::kSegs - 1) / R::kSegs),
+           R::kThreads, 0, a.stream>>>(
+            static_cast<const S*>(a.js), static_cast<const S*>(a.jt),
+            static_cast<const float*>(a.dl), a.perm, a.offsets, a.out,
+            a.num_segments, a.accumulate);
+    return cudaGetLastError();
+  }
+  // K1's CTA shape (segsum.cu, segsum): the most slots that fit, at most G
+  constexpr int C = (P::D + 31) / 32;
+  constexpr int CT = (P::D + C - 1) / C;
+  int q_log2 = 0;
+  while (q_log2 < a.group_log2 && (CT << (q_log2 + 1)) <= kLaneThreads) {
+    ++q_log2;
+  }
+  const int per_seg = CT << q_log2;
+  const int spc = per_seg >= kLaneMinThreads ? 1 : kLaneMinThreads / per_seg;
+  switch (a.group_log2 - q_log2) {
+    case 0: return launch_hsum_lanes<S, DS, DT, SAME, TRANS, 1>(a, q_log2, spc);
+    case 1: return launch_hsum_lanes<S, DS, DT, SAME, TRANS, 2>(a, q_log2, spc);
+    case 2: return launch_hsum_lanes<S, DS, DT, SAME, TRANS, 4>(a, q_log2, spc);
+    case 3: return launch_hsum_lanes<S, DS, DT, SAME, TRANS, 8>(a, q_log2, spc);
+    case 4:
+      return launch_hsum_lanes<S, DS, DT, SAME, TRANS, 16>(a, q_log2, spc);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// pair: the index of (s, t) in (0, 0), (0, 1), (1, 1) (bal.py, PAIRS);
+// transposed: the site's blocks are (t, s) (only (0, 1) has such sites)
 template <typename S>
-__global__ void __launch_bounds__(kThreads)
-    hessian_kernel(const S* __restrict__ jc, const S* __restrict__ jp,
-                   const float* __restrict__ dl, float* __restrict__ hcc,
-                   float* __restrict__ hcp, float* __restrict__ hpp,
-                   long long F) {
-  long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (t < 81 * F) {
-    hcc[t] = h_entry<S, 9, 9>(jc, jc, dl, t);
-    return;
+int hessian_sum(const void* jc, const void* jp, const void* dl,
+                const void* perm, const void* offsets, void* out,
+                int num_segments, int pair, int transposed, int group_log2,
+                int accumulate, void* stream) {
+  if (num_segments < 0 || group_log2 < 0 || group_log2 > 8) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  t -= 81 * F;
-  if (t < 27 * F) {
-    hcp[t] = h_entry<S, 9, 3>(jc, jp, dl, t);
-    return;
+  if (num_segments == 0) return 0;
+  HSumArgs a{jc, jc, dl, static_cast<const int*>(perm),
+             static_cast<const int*>(offsets), static_cast<float*>(out),
+             num_segments, group_log2, accumulate,
+             static_cast<cudaStream_t>(stream)};
+  cudaError_t err;
+  switch (pair * 2 + (transposed ? 1 : 0)) {
+    case 0: err = launch_hsum<S, 9, 9, true, false>(a); break;
+    case 2:
+      a.jt = jp;
+      err = launch_hsum<S, 9, 3, false, false>(a);
+      break;
+    case 3:
+      a.jt = jp;
+      err = launch_hsum<S, 9, 3, false, true>(a);
+      break;
+    case 4:
+      a.js = a.jt = jp;
+      err = launch_hsum<S, 3, 3, true, false>(a);
+      break;
+    default: err = cudaErrorInvalidValue;
   }
-  t -= 27 * F;
-  if (t < 9 * F) hpp[t] = h_entry<S, 3, 3>(jp, jp, dl, t);
+  return static_cast<int>(err);
 }
 
 unsigned blocks_for(long long n) {
@@ -589,19 +1065,6 @@ int scale_b(const void* jc, const void* jp, const void* r, const void* dl,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename S>
-int hessian(const void* jc, const void* jp, const void* dl, void* hcc,
-            void* hcp, void* hpp, long long F, void* stream) {
-  if (F < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (F == 0) return 0;
-  hessian_kernel<S><<<blocks_for(117 * F), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const S*>(jc), static_cast<const S*>(jp),
-      static_cast<const float*>(dl), static_cast<float*>(hcc),
-      static_cast<float*>(hcp), static_cast<float*>(hpp), F);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // cams (Nc, 9), pts (Np, 3), obs (F, 2), loss_params (F,): float32; ids0,
@@ -636,7 +1099,8 @@ extern "C" int gt_bal_residual(const void* cams, const void* pts,
 }
 
 // The same inputs and smask (F, 2) bool; out: r (F, 2), jc (F, 18), jp
-// (F, 6), chi2 (F,), dl (F,), diag_c (F, 9), diag_p (F, 3), all float32.
+// (F, 6), chi2 (F,), dl (F,), diag_c (F, 9), diag_p (F, 3), all float32
+// and 16-byte aligned.
 extern "C" int gt_bal_linearize(const void* cams, const void* pts,
                                 const void* ids0, const void* ids1,
                                 const void* obs, const void* smask,
@@ -646,6 +1110,13 @@ extern "C" int gt_bal_linearize(const void* cams, const void* pts,
                                 long long F, int loss, void* stream) {
   if (F < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (F == 0) return 0;
+  // the tile goes out in float4 stores
+  const void* outs[] = {r, jc, jp, chi2, dl, diag_c, diag_p};
+  for (const void* p : outs) {
+    if (reinterpret_cast<unsigned long long>(p) & 15) {
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    }
+  }
   const auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (loss) {
@@ -703,24 +1174,42 @@ extern "C" int gt_bal_scale_b_f16(const void* jc, const void* jp,
                          b_c, b_p, F, stream);
 }
 
-// jc (F, 18), jp (F, 6) in the storage type, dl (F,) float32; out: hcc
-// (F, 81), hcp (F, 27), hpp (F, 9) float32.
-extern "C" int gt_bal_hessian_f32(const void* jc, const void* jp,
-                                  const void* dl, void* hcc, void* hcp,
-                                  void* hpp, long long F, void* stream) {
-  return hessian<float>(jc, jp, dl, hcc, hcp, hpp, F, stream);
+// jc (F, 18), jp (F, 6) in the storage type, dl (F,) float32; perm (K,)
+// int32 or null and offsets (num_segments + 1,) int32: the site's K1 plan
+// (K = F rows), 2^group_log2 lanes per segment; out (num_segments, D)
+// float32, D = 81, 27 (pair 1; its transpose when transposed) or 9. With
+// accumulate 0 the sums are stored, else added to out. Launches on
+// `stream` and returns the cudaGetLastError() code (0 on success).
+extern "C" int gt_bal_hessian_sum_f32(const void* jc, const void* jp,
+                                      const void* dl, const void* perm,
+                                      const void* offsets, void* out,
+                                      int num_segments, int pair,
+                                      int transposed, int group_log2,
+                                      int accumulate, void* stream) {
+  return hessian_sum<float>(jc, jp, dl, perm, offsets, out, num_segments,
+                            pair, transposed, group_log2, accumulate, stream);
 }
 
-extern "C" int gt_bal_hessian_bf16(const void* jc, const void* jp,
-                                   const void* dl, void* hcc, void* hcp,
-                                   void* hpp, long long F, void* stream) {
-  return hessian<__nv_bfloat16>(jc, jp, dl, hcc, hcp, hpp, F, stream);
+extern "C" int gt_bal_hessian_sum_bf16(const void* jc, const void* jp,
+                                       const void* dl, const void* perm,
+                                       const void* offsets, void* out,
+                                       int num_segments, int pair,
+                                       int transposed, int group_log2,
+                                       int accumulate, void* stream) {
+  return hessian_sum<__nv_bfloat16>(jc, jp, dl, perm, offsets, out,
+                                    num_segments, pair, transposed,
+                                    group_log2, accumulate, stream);
 }
 
-extern "C" int gt_bal_hessian_f16(const void* jc, const void* jp,
-                                  const void* dl, void* hcc, void* hcp,
-                                  void* hpp, long long F, void* stream) {
-  return hessian<__half>(jc, jp, dl, hcc, hcp, hpp, F, stream);
+extern "C" int gt_bal_hessian_sum_f16(const void* jc, const void* jp,
+                                      const void* dl, const void* perm,
+                                      const void* offsets, void* out,
+                                      int num_segments, int pair,
+                                      int transposed, int group_log2,
+                                      int accumulate, void* stream) {
+  return hessian_sum<__half>(jc, jp, dl, perm, offsets, out, num_segments,
+                             pair, transposed, group_log2, accumulate,
+                             stream);
 }
 
 extern "C" const char* gt_bal_error_string(int err) {

@@ -9,7 +9,9 @@ last row is a trash block, plus per (factor type, slot pair) maps of
 where each factor's ``J_s^T dL P J_t`` lands.
 
 ``compute_hessian_values`` forms the per-factor block products and reduces
-them into the groups with ``reduce_rows``; ``apply_damping`` returns a
+them into the groups with ``reduce_rows``, or, for a BAL set that passes
+kernel K7's gate, forms and sums them in one K7 launch per site;
+``apply_damping`` returns a
 copy with damped diagonal-block diagonals: ``d + mu`` or
 ``d + mu * clamp(d, 1e-6, 1e32)`` from the undamped scaled diagonal.
 
@@ -246,17 +248,24 @@ def compute_hessian_values(problem, hs: HessianStructure,
     """H = J^T dL P J into the grouped block storage (Jacobians already
     scaled and masked). On a rank's replica the block list is the whole
     problem's and the factor rows the rank's slice: each group is summed
-    over the ranks."""
+    over the ranks.
+
+    A set that passes K7's gate sums its products into each site's group
+    in one launch per site (``ops/cuda/bal.py``, ``bal_hessian_sum``): its
+    first writer stores the sums into an empty group (bitwise the zero
+    fill plus the sums: no sum is -0.0), a later one adds them. The other
+    sets form their product rows, reduce them with ``reduce_rows`` and add
+    them to the group, zeroed when they are its first writer."""
     acc = problem.precision.acc_dtype
     inv_dt = problem.precision.inv_dtype
-    values: HessianValues = {
-        key: torch.zeros((hs.group_sizes[key] + 1, key[0] * key[1]),
-                         dtype=inv_dt, device=problem.device)
-        for key in hs.group_keys
-    }
-    # a set that passes K7's gate has its three slot pairs' rows from one
-    # launch (ops/cuda/bal.py), each dropped after its last use
-    fused: Dict[Tuple[str, int, int], torch.Tensor] = {}
+    values: HessianValues = {}
+
+    def group(key, fill=torch.zeros):
+        if key not in values:
+            values[key] = fill((hs.group_sizes[key] + 1, key[0] * key[1]),
+                               dtype=inv_dt, device=problem.device)
+        return values[key]
+
     for ci, cm in enumerate(hs.contribs):
         if cm.direct_idx is None and cm.trans_idx is None:
             continue
@@ -270,25 +279,31 @@ def compute_hessian_values(problem, hs: HessianStructure,
         ds = fm.ftype.vertex_types[cm.s].dim
         dt_ = fm.ftype.vertex_types[cm.t].dim
         if k7.gate(problem, cm.fname) is not None:
-            if (cm.fname, cm.s, cm.t) not in fused:
-                fused.update(zip(
-                    ((cm.fname, s, t) for s, t in k7.PAIRS),
-                    k7.bal_hessian(*J, lin.chi2_deriv[cm.fname], inv_dt)))
-            flat = fused.pop((cm.fname, cm.s, cm.t))
-        else:
-            jt = J[cm.t].to(acc)
-            if fa.precision is not None:
-                jt = flat_block_mm_nn(fa.precision, jt, E, E, dt_,
-                                      acc_dtype=acc)
-            flat = (flat_block_mm_tn(J[cm.s], jt, ds, E, dt_, acc_dtype=acc)
-                    * lin.chi2_deriv[cm.fname].to(acc)[:, None]).to(inv_dt)
+            dL = lin.chi2_deriv[cm.fname]
+            for tag, key, idx, transposed in (
+                    (("hess_d", ci), cm.direct_group, cm.direct_idx, False),
+                    (("hess_t", ci), cm.trans_group, cm.trans_idx, True)):
+                if idx is None:
+                    continue
+                plan = segment_plan(problem, tag,
+                                    problem.shard_slice(idx, dL.shape[0]),
+                                    hs.group_sizes[key] + 1, ds * dt_)
+                first = key not in values
+                k7.bal_hessian_sum(*J, dL, plan, cm.s, cm.t, transposed,
+                                   group(key, torch.empty), not first)
+            continue
+        jt = J[cm.t].to(acc)
+        if fa.precision is not None:
+            jt = flat_block_mm_nn(fa.precision, jt, E, E, dt_, acc_dtype=acc)
+        flat = (flat_block_mm_tn(J[cm.s], jt, ds, E, dt_, acc_dtype=acc)
+                * lin.chi2_deriv[cm.fname].to(acc)[:, None]).to(inv_dt)
         if cm.direct_idx is not None:
             plan = segment_plan(problem, ("hess_d", ci),
                                 problem.shard_slice(cm.direct_idx,
                                                     flat.shape[0]),
                                 hs.group_sizes[cm.direct_group] + 1,
                                 flat.shape[1])
-            values[cm.direct_group] = values[cm.direct_group] + reduce_rows(
+            values[cm.direct_group] = group(cm.direct_group) + reduce_rows(
                 flat, plan)
         if cm.trans_idx is not None:
             # row-major (ds, dt) -> (dt, ds) transpose of each flat row
@@ -299,10 +314,10 @@ def compute_hessian_values(problem, hs: HessianStructure,
                                                     flat_t.shape[0]),
                                 hs.group_sizes[cm.trans_group] + 1,
                                 flat_t.shape[1])
-            values[cm.trans_group] = values[cm.trans_group] + reduce_rows(
+            values[cm.trans_group] = group(cm.trans_group) + reduce_rows(
                 flat_t, plan)
-    return {key: problem.allreduce(v, f"hessian {key}")
-            for key, v in values.items()}
+    return {key: problem.allreduce(group(key), f"hessian {key}")
+            for key in hs.group_keys}
 
 
 def _diag_rows_by_type(problem, hs: HessianStructure):

@@ -14,11 +14,15 @@ pass, so K7 fuses it per factor:
   diagonal's rows (``linearize``'s first pass);
 - ``bal_scale_b``: the stored J (scaled, in the storage dtype) and b's
   rows (``linearize``'s second pass);
-- ``bal_hessian``: the (F, 81), (F, 27) and (F, 9) rows of
-  ``J_s^T dL J_t`` (``compute_hessian_values``).
+- ``bal_hessian_sum``: one Hessian site of ``compute_hessian_values``:
+  each factor's ``J_s^T dL J_t`` for one slot pair, summed into its
+  block of the site's group on the site's K1 plan, in K1's order (the
+  counterpart of the JAX package's products and of its Pallas
+  ``streaming_segment_sum`` over them), stored into the group or added
+  to it.
 
-The per-vertex sums of the rows stay on K1, on the same plans, so they
-are added in the same order as on the generic branch.
+The per-vertex sums of linearize's rows stay on K1, on the same plans,
+so they are added in the same order as on the generic branch.
 
 ``gate`` decides, from shapes and dtypes alone, which factor sets take
 K7: the analytic ``models.bal.REPROJECTION`` with identity precision, a
@@ -33,7 +37,7 @@ launches K7 or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 
@@ -48,18 +52,20 @@ from ...precision import clamp_to_storage
 from ..blockfmt import flat_block_mm_tn, flat_block_mv_t
 from . import build
 from .launches import LaunchStats, on_device, stream_ptr
+from .segsum import SegmentPlan, segment_sum_ordered
 
 RESIDUAL_STATS = LaunchStats("bal.bal_residual")
 LINEARIZE_STATS = LaunchStats("bal.bal_linearize")
 SCALE_B_STATS = LaunchStats("bal.bal_scale_b")
-HESSIAN_STATS = LaunchStats("bal.bal_hessian")
+HESSIAN_SUM_STATS = LaunchStats("bal.bal_hessian_sum")
 
 # the kernel's compile-time loss cases, by the loss's exact type
 LOSS_CODES = {Loss: 0, DefaultLoss: 0, HuberLoss: 1, CauchyLoss: 2}
 _STORAGE = {torch.float32: "f32", torch.bfloat16: "bf16",
             torch.float16: "f16"}
-# (slot s, slot t) of each Hessian row set bal_hessian writes
+# (slot s, slot t) of each Hessian site bal_hessian_sum takes
 PAIRS = ((0, 0), (0, 1), (1, 1))
+_DIMS = (9, 3)  # the camera's and the point's columns
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -70,7 +76,9 @@ _SIGNATURES = {
     "gt_bal_linearize": [_P] * 15 + [_L, _I, _P],
     **{f"gt_bal_scale_b_{s}": [_P] * 12 + [_L, _P]
        for s in _STORAGE.values()},
-    **{f"gt_bal_hessian_{s}": [_P] * 6 + [_L, _P]
+    # jc, jp, dl, perm, offsets, out, num_segments, pair, transposed,
+    # group_log2, accumulate, stream
+    **{f"gt_bal_hessian_sum_{s}": [_P] * 6 + [_I] * 5 + [_P]
        for s in _STORAGE.values()},
 }
 
@@ -256,38 +264,61 @@ def bal_scale_b(jc, jp, r, dL, scales_c, scales_p, rows0, rows1,
     return tuple(out)
 
 
-# ---- bal_hessian ----------------------------------------------------------
+# ---- bal_hessian_sum ------------------------------------------------------
 
-def bal_hessian_plain(jc, jp, dL, inv_dtype: torch.dtype
-                      ) -> Tuple[torch.Tensor, ...]:
-    """The rows of ``J_s^T dL J_t`` for the slot pairs ``PAIRS``, (F, 81),
-    (F, 27) and (F, 9) in ``inv_dtype``: ``compute_hessian_values``'s
-    per-factor products of one set."""
+def hessian_rows_plain(jc, jp, dL, s: int, t: int,
+                       transposed: bool) -> torch.Tensor:
+    """(F, ds * dt) float32: each factor's ``J_s^T dL J_t``, row-major
+    (ds, dt), or its (dt, ds) transpose: ``compute_hessian_values``'s
+    per-factor products of one slot pair."""
     acc = torch.float32
     J = (jc, jp)
-    dims = (9, 3)
-    return tuple(
-        (flat_block_mm_tn(J[s], J[t].to(acc), dims[s], 2, dims[t],
-                          acc_dtype=acc)
-         * dL.to(acc)[:, None]).to(inv_dtype) for s, t in PAIRS)
+    ds, dt = _DIMS[s], _DIMS[t]
+    rows = (flat_block_mm_tn(J[s], J[t].to(acc), ds, 2, dt, acc_dtype=acc)
+            * dL.to(acc)[:, None])
+    if transposed:
+        rows = rows.reshape(-1, ds, dt).transpose(1, 2).reshape(-1, ds * dt)
+    return rows
 
 
-def bal_hessian(jc, jp, dL, inv_dtype: torch.dtype
-                ) -> Tuple[torch.Tensor, ...]:
+def bal_hessian_sum_plain(jc, jp, dL, plan: SegmentPlan, s: int, t: int,
+                          transposed: bool, out: torch.Tensor,
+                          accumulate: bool) -> torch.Tensor:
+    """``out`` (the site's (num_segments, D) group) with each factor's
+    product rows summed into its block on ``plan`` in K1's lane order
+    (``segsum.segment_sum_ordered``: the same bits on the card as on the
+    CPU): stored (``accumulate`` False) or added."""
+    sums = segment_sum_ordered(
+        hessian_rows_plain(jc, jp, dL, s, t, transposed).to(out.dtype), plan)
+    return out.add_(sums) if accumulate else out.copy_(sums)
+
+
+def bal_hessian_sum(jc, jp, dL, plan: SegmentPlan, s: int, t: int,
+                    transposed: bool, out: torch.Tensor,
+                    accumulate: bool) -> torch.Tensor:
     if jc.device.type == "cpu":
-        return bal_hessian_plain(jc, jp, dL, inv_dtype)
-    name = HESSIAN_STATS.name
+        return bal_hessian_sum_plain(jc, jp, dL, plan, s, t, transposed, out,
+                                     accumulate)
+    name = HESSIAN_SUM_STATS.name
     dev = _device_of(name, jc)
-    F = jc.shape[0]
     if jc.dtype not in _STORAGE or jp.dtype != jc.dtype:
         raise NotImplementedError(
             f"{name}: no kernel for J of {jc.dtype} / {jp.dtype}")
-    if inv_dtype != torch.float32:
-        raise NotImplementedError(f"{name}: no kernel for {inv_dtype} values")
-    _check(name, dev, s_jc=jc, s_jp=jp, f_dL=dL)
-    out = [torch.empty((F, w), dtype=torch.float32, device=dev)
-           for w in (81, 27, 9)]
-    _launch(HESSIAN_STATS, f"gt_bal_hessian_{_STORAGE[jc.dtype]}", dev,
-            jc.data_ptr(), jp.data_ptr(), dL.data_ptr(),
-            *(t.data_ptr() for t in out), F)
-    return tuple(out)
+    pair = PAIRS.index((s, t))
+    if transposed and s == t:
+        raise ValueError(f"{name}: slot pair {(s, t)} has no transposed site")
+    width = _DIMS[s] * _DIMS[t]
+    if (plan.rows != dL.shape[0] or out.shape != (plan.num_segments, width)
+            or plan.offsets_i32.device != dev):
+        raise ValueError(
+            f"{name}: a plan of {plan.rows} rows into {plan.num_segments} "
+            f"blocks of {width} on {plan.offsets_i32.device} does not fit "
+            f"{dL.shape[0]} factors and out {tuple(out.shape)} on {dev}")
+    _check(name, dev, s_jc=jc, s_jp=jp, f_dL=dL, f_out=out)
+    _launch(HESSIAN_SUM_STATS, f"gt_bal_hessian_sum_{_STORAGE[jc.dtype]}",
+            dev, jc.data_ptr(), jp.data_ptr(), dL.data_ptr(),
+            None if plan.perm_i32 is None else plan.perm_i32.data_ptr(),
+            plan.offsets_i32.data_ptr(), out.data_ptr(), plan.num_segments,
+            pair, int(transposed), plan.group.bit_length() - 1,
+            int(accumulate))
+    return out

@@ -197,6 +197,29 @@ def segment_sum_plain(values: torch.Tensor, plan: SegmentPlan) -> torch.Tensor:
     return lane_sum(v, plan)
 
 
+def segment_sum_ordered(values: torch.Tensor,
+                        plan: SegmentPlan) -> torch.Tensor:
+    """``segment_sum_plain``'s bits on any device. CUDA's ``index_add_``
+    adds a lane's rows in no fixed order, so here the rows go in steps: step
+    k adds each lane's k-th row (at most one a lane), as a gather, an add
+    and a scatter. On the CPU that is ``index_add_``'s order."""
+    v = values if plan.perm is None else values.index_select(0, plan.perm)
+    g = plan.group
+    pos = positions_in_segments(plan)
+    slot = plan.seg * g + pos % g
+    step = pos // g
+    order = torch.argsort(step, stable=True)
+    lanes = v.new_zeros((plan.num_segments * g, v.shape[1]))
+    start = 0
+    for n in torch.bincount(step, minlength=1).tolist():
+        rows = order[start:start + n]
+        start += n
+        idx = slot.index_select(0, rows)
+        lanes.index_copy_(0, idx, lanes.index_select(0, idx)
+                          + v.index_select(0, rows))
+    return halve_lanes(lanes.view(plan.num_segments, g, v.shape[1]))
+
+
 def launch_segsum(values: torch.Tensor, plan: SegmentPlan,
                   stats: Optional[LaunchStats],
                   name: Optional[str] = None) -> torch.Tensor:

@@ -9,7 +9,8 @@ and runs Levenberg-Marquardt with PCGSchurSolver(10, 1.0, 5.0) twice:
 1. ``--iterations`` iterations under a stage timer. Each call of a stage
    (``linearize``, Hessian values, damping, ``schur_values``, ``b_schur``,
    kernel K7's entries for the BAL factors with the K1 row reductions
-   beside them (in ``linearize`` and the Hessian values),
+   beside them (in ``linearize``, and in the Hessian values of the sets
+   K7 does not take: K7 sums its own),
    the preconditioner, ``run_pcg`` / ``dense_pcg`` with the S matvecs and
    preconditioner applies inside it, ``landmark_update``, ``compute_chi2``;
    on the pose path the block-Jacobi blocks and inverses, the folding of
@@ -65,7 +66,7 @@ def _stage_targets():
         (linearize, "_factor_row_reduce",
          "k1 factor rows (in linearize)"),
         (k7, "bal_residual", "k7.bal_residual (in compute_chi2)"),
-        (k7, "bal_hessian", "k7.bal_hessian (in hessian_values)"),
+        (k7, "bal_hessian_sum", "k7.bal_hessian_sum (in hessian_values)"),
         (hessian, "reduce_rows", "k1 hessian rows (in hessian_values)"),
         (lm, "compute_chi2", "compute_chi2"),
         (lm, "apply_update", "apply_update"),

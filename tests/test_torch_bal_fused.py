@@ -12,7 +12,8 @@ which follows the generic code op by op. Here:
   FP32_FP16 and the default, Huber and Cauchy losses: the K7 branch is
   bitwise the generic branch (the gate forced shut), signed zeros
   included, for every ``Linearization`` field, every Hessian group and
-  ``compute_chi2``, and it was taken (each entry called once).
+  ``compute_chi2``, and it was taken (each entry
+  called once, the Hessian sum once per site).
 - The K7 branch against the JAX package's ``linearize`` and
   ``compute_hessian_values`` at the tolerance ladder of
   ``tests/test_torch_precision.py`` for float32 graphs: residuals, b,
@@ -42,6 +43,7 @@ from graphite_tpu_torch.io import bal as torch_bal_io
 from graphite_tpu_torch.linearize import compute_chi2, linearize
 from graphite_tpu_torch.models import bal as bal_model
 from graphite_tpu_torch.ops.cuda import bal as k7
+from graphite_tpu_torch.ops.cuda import segsum
 
 torch.set_num_threads(1)
 
@@ -93,7 +95,7 @@ def _counted(monkeypatch):
     """Count the calls of each K7 entry."""
     calls = {}
     for entry in ("bal_residual", "bal_linearize", "bal_scale_b",
-                  "bal_hessian"):
+                  "bal_hessian_sum"):
         fn = getattr(k7, entry)
 
         def wrapped(*args, _fn=fn, _entry=entry):
@@ -127,8 +129,9 @@ def test_plain_branch_bitwise_generic(policy, loss, monkeypatch):
     with monkeypatch.context() as m:
         calls = _counted(m)
         lin, hv, chi2 = _run(problem)
+    # one Hessian sum per site: the slot pairs (0, 0), (0, 1) and (1, 1)
     assert calls == {"bal_residual": 1, "bal_linearize": 1,
-                     "bal_scale_b": 1, "bal_hessian": 1}
+                     "bal_scale_b": 1, "bal_hessian_sum": 3}
     with monkeypatch.context() as m:
         m.setattr(k7, "gate", lambda problem, name: None)
         calls = _counted(m)
@@ -279,7 +282,7 @@ def test_gate_sends_other_sets_to_the_generic_branch(case, monkeypatch):
         raise AssertionError("a K7 entry was called")
 
     for entry in ("bal_residual", "bal_linearize", "bal_scale_b",
-                  "bal_hessian"):
+                  "bal_hessian_sum"):
         monkeypatch.setattr(k7, entry, refuse)
     lin = linearize(problem, problem.params0)
     compute_chi2(problem, problem.params0)
@@ -298,7 +301,7 @@ def test_entries_take_the_plain_version_on_the_cpu(monkeypatch):
     loss = k7.gate(problem, "bal_reprojection")
     args = (p["bal_camera"], p["bal_point"], *fa.ids, fa.obs)
     stats = (k7.RESIDUAL_STATS, k7.LINEARIZE_STATS, k7.SCALE_B_STATS,
-             k7.HESSIAN_STATS)
+             k7.HESSIAN_SUM_STATS)
     before = [s.launches for s in stats]
     lin = k7.bal_linearize(*args, fa.slot_mask, fa.factor_mask,
                            fa.loss_params, loss)
@@ -318,24 +321,36 @@ def test_entries_take_the_plain_version_on_the_cpu(monkeypatch):
                                                  *fa.rows, torch.bfloat16)):
         _same(a, b)
     assert scaled[0].dtype == torch.bfloat16
-    for a, b in zip(k7.bal_hessian(*scaled[:2], dL, torch.float32),
-                    k7.bal_hessian_plain(*scaled[:2], dL, torch.float32)):
-        _same(a, b)
+    hs = torch_hessian.build_hessian_structure(problem)
+    for cm in hs.contribs:
+        key = cm.direct_group
+        plan = segsum.plan_segments(cm.direct_idx, hs.group_sizes[key] + 1,
+                                    "cpu", width=key[0] * key[1])
+        outs = [torch.full((plan.num_segments, key[0] * key[1]), 0.5)
+                for _ in range(2)]
+        k7.bal_hessian_sum(*scaled[:2], dL, plan, cm.s, cm.t, False,
+                           outs[0], True)
+        k7.bal_hessian_sum_plain(*scaled[:2], dL, plan, cm.s, cm.t, False,
+                                 outs[1], True)
+        _same(*outs)
     assert [s.launches for s in stats] == before
 
 
 def test_stage_profile_times_k7_beside_k1():
     """``stage_profile`` times K7's entries and the K1 row reductions
-    beside them (here their plain versions, on the CPU)."""
+    beside them (here their plain versions, on the CPU); the Hessian
+    values' sums are K7's own, one call per site."""
     from graphite_tpu_torch import stage_profile
 
     out = stage_profile.profile_lm((12, 120, 700), 2, 0, "cpu")
     for stage in ("k7.bal_linearize (in linearize)",
                   "k7.bal_scale_b (in linearize)",
                   "k7.bal_residual (in compute_chi2)",
-                  "k7.bal_hessian (in hessian_values)",
-                  "k1 factor rows (in linearize)",
-                  "k1 hessian rows (in hessian_values)"):
+                  "k7.bal_hessian_sum (in hessian_values)",
+                  "k1 factor rows (in linearize)"):
         assert out["stages"][stage]["calls"] >= 2, stage
+    assert (out["stages"]["k7.bal_hessian_sum (in hessian_values)"]["calls"]
+            == 3 * out["stages"]["hessian_values"]["calls"])
+    assert "k1 hessian rows (in hessian_values)" not in out["stages"]
     assert (out["stages"]["k7.bal_residual (in compute_chi2)"]["calls"]
             == out["stages"]["compute_chi2"]["calls"])

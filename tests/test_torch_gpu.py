@@ -79,13 +79,17 @@ on a machine with only PyTorch (``--noconftest`` skips the JAX set-up in
   (PCG-Schur, and PCG with block-Jacobi, whose all-reduce sits in the CG
   loop's "while" node) bitwise their host loop.
 - K7 (``csrc/bal.cu``): each of its four entries bitwise its plain
-  version on the card and on the CPU, and bitwise repeatable, on a small
-  BAL problem with cameras in each Rodrigues branch, a fixed camera and
+  version on the card and on the CPU, and bitwise repeatable, on small
+  BAL problems (F = 300: a tail CTA of 44 factors; F = 100, below one
+  CTA) with cameras in each Rodrigues branch, a fixed camera and
   disabled factors, under float32, bf16 and fp16 storage and the
   default, Huber and Cauchy losses (Cauchy's chi2 within 1e-6 of the
   CPU's: its float32 log1p is CUDA's on the card and the CPU library's on
-  the CPU); Ladybug-49's LM under FP32_FP32 and FP32_FP16 bitwise the
-  CPU run, with every K7 entry launched.
+  the CPU); the Hessian sum at every site (the camera-point one also
+  transposed) on the site's plan, on 32 and 256 lanes and on sorted
+  destinations at one lane, stored and then added to; Ladybug-49's LM
+  under FP32_FP32 and FP32_FP16 bitwise the CPU run, with every K7 entry
+  launched.
 - K8 (``csrc/allreduce.cu``) on two ranks of one card: its sum and
   gather bitwise its plain version (gloo on the same CUDA tensors, inputs
   with -0.0 entries; float32, float64, int64, an empty tensor), bitwise
@@ -1269,8 +1273,8 @@ K7_LOSSES = {"default": (None, None), "huber": (gtt.HuberLoss(), 2.0),
              "cauchy": (gtt.CauchyLoss(), 1.5)}
 
 
-def _k7_problem(device, loss):
-    ds = synthetic.make_bal((6, 60, 300), seed=3, noise=0.5)
+def _k7_problem(device, loss, size=(6, 60, 300)):
+    ds = synthetic.make_bal(size, seed=3, noise=0.5)
     ds.cameras[:len(K7_ROTATIONS), :3] = K7_ROTATIONS
     fn, param = K7_LOSSES[loss]
     g, cams, _, fs = bal.build_graph(ds, precision=gtt.FP32_FP32, loss=fn,
@@ -1279,6 +1283,42 @@ def _k7_problem(device, loss):
     for h in range(10):
         fs.set_active(h, 0x80)
     return g.freeze(device=device)
+
+
+# the lanes per segment of the Hessian sums' plans: the site's own, 32 and
+# 256 (the lane kernel, its largest staging asks for more than 48 KB of
+# shared memory), and 1 on the site's destinations sorted (no permutation)
+K7_SUM_GROUPS = (None, 32, 256, "sorted")
+
+
+def _k7_sums(problem, js, dL, fn):
+    """``fn`` (``bal_hessian_sum`` or its plain version) at every Hessian
+    site of ``problem`` (its camera-point site also as a transposed one),
+    on each plan of ``K7_SUM_GROUPS``: stored into an empty group, then
+    added to it once more (a second writer)."""
+    from graphite_tpu_torch.hessian import build_hessian_structure
+
+    hs = build_hessian_structure(problem)
+    out = []
+    for cm in hs.contribs:
+        key = cm.direct_group
+        for tr in ((False, True) if cm.s != cm.t else (False,)):
+            width = key[0] * key[1]
+            for group in K7_SUM_GROUPS:
+                idx = cm.direct_idx
+                if group == "sorted":
+                    idx, group = np.sort(idx), 1
+                plan = segsum.plan_segments(idx, hs.group_sizes[key] + 1,
+                                            problem.device, group=group,
+                                            width=width)
+                assert plan.perm is None or idx is cm.direct_idx
+                first = torch.empty((plan.num_segments, width),
+                                    device=problem.device)
+                fn(*js, dL, plan, cm.s, cm.t, tr, first, False)
+                twice = first.clone()
+                fn(*js, dL, plan, cm.s, cm.t, tr, twice, True)
+                out += [first, twice]
+    return out
 
 
 def _k7_calls(problem, storage, plain):
@@ -1292,17 +1332,18 @@ def _k7_calls(problem, storage, plain):
     scales = [torch.as_tensor(rng.random((problem.seg_rows[n] + 1, d)),
                               dtype=torch.float32, device=problem.device)
               for n, d in (("bal_camera", 9), ("bal_point", 3))]
-    fns = [k7.bal_residual, k7.bal_linearize, k7.bal_scale_b, k7.bal_hessian]
+    fns = [k7.bal_residual, k7.bal_linearize, k7.bal_scale_b,
+           k7.bal_hessian_sum]
     if plain:
         fns = [k7.bal_residual_plain, k7.bal_linearize_plain,
-               k7.bal_scale_b_plain, k7.bal_hessian_plain]
+               k7.bal_scale_b_plain, k7.bal_hessian_sum_plain]
     chi2 = fns[0](*args, fa.factor_mask, fa.loss_params, loss)
     lin = fns[1](*args, fa.slot_mask, fa.factor_mask, fa.loss_params, loss)
     r, jc, jp, _, dL, _, _ = lin
     scaled = fns[2](jc, jp, r, dL, *scales, *fa.rows, storage)
     unscaled = fns[2](jc, jp, r, dL, None, None, *fa.rows, storage)
-    hess = fns[3](*scaled[:2], dL, torch.float32)
-    return [chi2, *lin, *scaled, *unscaled, *hess]
+    sums = _k7_sums(problem, scaled[:2], dL, fns[3])
+    return [chi2, *lin, *scaled, *unscaled, *sums]
 
 
 def _k7_bits(t):
@@ -1310,23 +1351,29 @@ def _k7_bits(t):
     return t.contiguous().view(ints[t.element_size()])
 
 
+# F = 300 (two CTAs of 128 and a tail of 44) and F = 100 (one CTA, below
+# 128)
+@pytest.mark.parametrize("size", [(6, 60, 300), (6, 20, 100)])
 @pytest.mark.parametrize("loss", sorted(K7_LOSSES))
 @pytest.mark.parametrize("storage", ["float32", "bfloat16", "float16"])
-def test_k7_matches_plain_bitwise(cuda_device, storage, loss):
+def test_k7_matches_plain_bitwise(cuda_device, storage, loss, size):
     storage = getattr(torch, storage)
-    problem = _k7_problem(cuda_device, loss)
-    cpu = _k7_problem("cpu", loss)
+    problem = _k7_problem(cuda_device, loss, size)
+    cpu = _k7_problem("cpu", loss, size)
     stats = (k7.RESIDUAL_STATS, k7.LINEARIZE_STATS, k7.SCALE_B_STATS,
-             k7.HESSIAN_STATS)
+             k7.HESSIAN_SUM_STATS)
     before = [s.launches for s in stats]
     out = _k7_calls(problem, storage, plain=False)
     again = _k7_calls(problem, storage, plain=False)
-    assert [s.launches - b for s, b in zip(stats, before)] == [2, 2, 4, 2]
+    # the sums: 4 sites ((0, 0), (0, 1), its transpose, (1, 1)) x 4 plans
+    # x (store, add), per call
+    assert [s.launches - b for s, b in zip(stats, before)] == [2, 2, 4, 64]
     ref = _k7_calls(problem, storage, plain=True)
     ref_cpu = _k7_calls(cpu, storage, plain=True)
     torch.cuda.synchronize()
     # the chi2 of bal_residual and of bal_linearize (Cauchy: log1p)
     chi2_at = (0, 4)
+    assert len(out) == len(ref_cpu) == 1 + 7 + 4 + 4 + 32
     for i, (o, a, r, c) in enumerate(zip(out, again, ref, ref_cpu)):
         assert o.dtype == r.dtype == c.dtype and o.shape == c.shape
         assert torch.equal(_k7_bits(o), _k7_bits(a)), i
@@ -1345,7 +1392,7 @@ def test_ladybug_lm_under_k7_cuda_equals_cpu(cuda_device, policy):
     for name, p in gpu.params.items():
         assert torch.equal(p.cpu(), cpu.params[name])
     for s in (k7.RESIDUAL_STATS, k7.LINEARIZE_STATS, k7.SCALE_B_STATS,
-              k7.HESSIAN_STATS):
+              k7.HESSIAN_SUM_STATS):
         assert launches[s.name] > 0, s.name
     # one trial chi2 per iteration
     assert launches[k7.RESIDUAL_STATS.name] == len(gpu.history)
