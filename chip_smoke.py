@@ -12,7 +12,8 @@ own:
    the conditional graph nodes of ``jit_loop``, ``csrc/cond.cu``, K8,
    the sharded path's all-reduce over CUDA IPC, ``csrc/allreduce.cu``, and
    K7, the BAL reprojection factor's linearization and Hessian values,
-   ``csrc/bal.cu``; and the host libraries (g++),
+   ``csrc/bal.cu``, K9, the PCG's dot, ``csrc/dot.cu``; and the host
+   libraries (g++),
    ``native/structure.cpp`` and ``native/bal_loader.cpp``;
 2. K1 vs its plain PyTorch version on the card, at the BAL Ladybug-49
    reduction shapes (seeded random inputs; each label names the plan's
@@ -92,6 +93,14 @@ own:
    its bound (bytes over 3.35 TB/s, float32 operations over 67 TFLOP/s
    and the float64 cos / sin over 34); one eager
    ``compute_hessian_values`` launches three K7 sums and no K1;
+6l. ``k9``: K9, the PCG's dot (``csrc/dot.cu``), vs its plain version
+   ``tree_dot_plain`` at Venice's dim_p (float32 and float64) and
+   sphere2500's n d (float32), seeded inputs with -0.0 entries: bitwise
+   equal on the card, on the CPU and in a replayed CUDA graph, bitwise
+   repeatable, one launch a call; its device-only ms (calls replayed
+   from a graph), the plain version's and ``torch.dot``'s (the library
+   call: the same function in cuBLAS's order), its bound (both vectors
+   once at 3.35 TB/s) and the host us of a call;
 7. the Venice-1778 path: 10 LM iterations of PCGSchurSolver(10, 1.0, 5.0)
    on the card (the block-sparse branch): final chi2 below the initial
    one, finite parameters, K1, K3, K4 and K5 launched, the S matvec kernel
@@ -165,10 +174,16 @@ peak memory:
 15. ``jit-ladybug``: Ladybug-49, PCGSchurSolver(10, 1.0, 5.0) (K1, and K2
     once per replay) and DenseCholeskySchurSolver, 10 iterations;
 16. ``jit-venice`` (after phase 7, on its problem, against its run): 10
-    iterations, K1, K3, K4 and K5 in the graph (K5 captured once, in the
-    CG step's loop body, launched once per CG step run); ms per
+    iterations, K1, K3, K4, K5 and K9 in the graph (K5 captured once, in
+    the CG step's loop body, launched once per CG step run; K9 twice in
+    the step's region, three times in the CG step's body); ms per
     accepted and per rejected iteration beside the host loop's: the
-    median rejected replay at most half the median accepted one;
+    median rejected replay below the median accepted one by at least the
+    relinearization's kernels; then the device kernels of a rejected and
+    an accepted iteration run eagerly (``torch.profiler``), with K7 and
+    K9, with the plain dots in K9's place (as before K9: fewer kernels
+    with K9) and with K7's gate shut, the first two also as device ms by
+    kernel name, the first also by host op and input shapes;
 17. ``jit-sphere2500`` (after phase 4c, against phase 4b's run): 30
     iterations, K6 once per replay;
 18. ``remask``: Ladybug-49 frozen with ``remaskable=True`` on the card, 10
@@ -331,8 +346,8 @@ entries inside the accepted branch's region, the trial chi2 in the
 step's) and print its launches; phase 16 also counts the device kernels
 of Venice's first two iterations from the start (one rejected, one
 accepted) as the captured iteration's code run eagerly, each in a
-``torch.profiler`` trace of its own, with K7 and with its gate shut (the
-generic branch of earlier PRs).
+``torch.profiler`` trace of its own, with K7 and K9, with the plain dots
+and with K7's gate shut (the generic branch of earlier PRs).
 
 A captured path's launches in the kernels JSON line are the launches
 its replays ran: those captured outside every region times the replays,
@@ -468,6 +483,7 @@ def phase_build():
         allreduce,
         bal,
         cond,
+        dot,
         pcg_dense,
         pcg_mf,
         segmv,
@@ -478,7 +494,8 @@ def phase_build():
     loaders = (segsum.load_kernel, pcg_dense.load_kernel,
                segsum_stream.load_product_kernel, segmv.load_kernel,
                pcg_mf.load_kernel, cond.load_kernel, allreduce.load_kernel,
-               bal.load_kernel, structure.library, bal_loader.library)
+               bal.load_kernel, dot.load_kernel, structure.library,
+               bal_loader.library)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
         libs = list(pool.map(lambda load: load(), loaders))
@@ -749,6 +766,7 @@ def all_stats():
     from graphite_tpu_torch.ops.cuda import (
         allreduce,
         bal,
+        dot,
         pcg_dense,
         pcg_mf,
         segmv,
@@ -762,7 +780,8 @@ def all_stats():
             segsum_stream.MATVEC_TBL_STATS, segmv.STREAM_STATS,
             segmv.WTBL_STATS, segmv.SYM_STATS, pcg_mf.STATS,
             allreduce.STATS, allreduce.GATHER_STATS, bal.RESIDUAL_STATS,
-            bal.LINEARIZE_STATS, bal.SCALE_B_STATS, bal.HESSIAN_SUM_STATS]
+            bal.LINEARIZE_STATS, bal.SCALE_B_STATS, bal.HESSIAN_SUM_STATS,
+            dot.STATS, dot.STATS_F64]
 
 
 # K7's entry points (csrc/bal.cu)
@@ -1761,9 +1780,10 @@ K7_F64_OPS = {"bal.bal_residual": 120, "bal.bal_linearize": 240,
               "bal.bal_scale_b": 0}
 # each entry's time before its redesign (PERF.md, NVIDIA H100 80GB HBM3,
 # 700.00 W): bal_linearize one thread per factor writing its
-# own rows; the Hessian sites' product rows (bal_hessian: 2.7624 ms for
-# the three) plus K1's sum at the site
-K7_WAS_MS = {"bal.bal_linearize": "1.6638",
+# own rows; bal_scale_b one thread per output element; the Hessian sites'
+# product rows (bal_hessian: 2.7624 ms for the three) plus K1's sum at
+# the site
+K7_WAS_MS = {"bal.bal_linearize": "1.6638", "bal.bal_scale_b": "0.9924",
              "bal.bal_hessian_sum (9, 9)": "2.7624 (the three sites' rows) "
                                            "+ 0.7169 (K1)",
              "bal.bal_hessian_sum (9, 3)": "+ 0.9822 (K1)",
@@ -1927,6 +1947,78 @@ def phase_k7(problem, lin):
     check(launches[entry] == 3 and k1 == 0,
           "k7: Venice's Hessian values must be three K7 sums and no K1")
     return results
+
+
+def phase_k9(sizes):
+    """K9, the PCG's dot, vs its plain version ``tree_dot_plain`` at the
+    main paths' lengths ``sizes`` ((label, n, dtype): Venice's dim_p in
+    float32 and float64, sphere2500's n d in float32), on seeded inputs
+    with -0.0 entries: bitwise equal on the card, on the CPU and in a
+    replayed CUDA graph, bitwise repeatable, one launch a call. Timed
+    device-only (calls replayed from a CUDA graph: a call is a few us, less
+    than the host's launch work) against its bound (both vectors read once
+    at the HBM rate), the plain version's and the library call's,
+    ``torch.dot`` (the same function, summed in cuBLAS's order); the host
+    us of a call too."""
+    import numpy as np
+    import torch
+
+    from graphite_tpu_torch.kernel_sweep import graph_ms, host_us
+    from graphite_tpu_torch.ops.cuda import dot
+    from graphite_tpu_torch.ops.pcg_loop import tree_dot_plain
+
+    def bits(t):
+        return int(t.view({4: torch.int32, 8: torch.int64}[
+            t.element_size()]))
+
+    records = {}  # entry point -> one record per shape
+    for label, n, dtype in sizes:
+        rng = np.random.default_rng(n)
+        host = [torch.tensor(rng.standard_normal(n)
+                             * 10.0 ** rng.integers(-3, 4, n), dtype=dtype)
+                for _ in range(2)]
+        host[0][::7] = -0.0
+        u, v = (t.to(DEVICE) for t in host)
+        stats = dot.STATS_F64 if dtype == torch.float64 else dot.STATS
+        before = stats.launches
+        out, again = dot.tree_dot(u, v), dot.tree_dot(u, v)
+        launches = stats.launches - before
+        ref, ref_cpu = tree_dot_plain(u, v), tree_dot_plain(*host)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = dot.tree_dot(u, v)
+        graph.replay()
+        torch.cuda.synchronize()
+        ok = dict(vs_plain=bits(out) == bits(ref),
+                  repeat=bits(again) == bits(out),
+                  vs_cpu_plain=bits(out.cpu()) == bits(ref_cpu),
+                  in_graph=bits(captured) == bits(ref))
+        library = float(torch.dot(u, v))
+        err = abs(float(out) - float(ref))
+        ms = graph_ms(lambda: dot.tree_dot(u, v), 200)
+        plain_ms = graph_ms(lambda: tree_dot_plain(u, v), 50)
+        library_ms = graph_ms(lambda: torch.dot(u, v), 200)
+        host = dict(k9=host_us(lambda: dot.tree_dot(u, v)),
+                    plain=host_us(lambda: tree_dot_plain(u, v)))
+        f64 = dtype == torch.float64
+        work = bound(2 * n * u.element_size() + u.element_size(), 2 * n,
+                     FP64_VECTOR_OPS_PER_S if f64 else FP32_OPS_PER_S)
+        shape = f"{label} n={n} {str(dtype)[6:]}"
+        print(f"[k9] {shape}: bitwise {ok} launches a call="
+              f"{launches / 2:g} max_abs_err={err:.3e} (torch.dot differs "
+              f"by {abs(library - float(ref)):.3e}) device-only ms={ms:.5f} "
+              f"plain_ms={plain_ms:.5f} library_ms (torch.dot)="
+              f"{library_ms:.5f} bound_ms={bound_fields(work)} host us a "
+              f"call {host} ({card_label()})")
+        for what, good in ok.items():
+            check(good, f"k9: {shape} not bitwise ({what})")
+        check(launches == 2, f"k9: {shape} launched {launches} times in "
+              "two calls")
+        records.setdefault(stats.name, []).append(dict(
+            err=err, ms=ms, plain_ms=plain_ms, shape=shape,
+            library_ms=library_ms, **work))
+        del graph, captured
+    return records
 
 
 def merge_measured(*parts):
@@ -2678,10 +2770,22 @@ def phase_jit_venice(problem, solver, iterations, host, branch_ms):
         check(all(regions[region].get(e) == n for e, n in want.items()),
               f"jit-venice: {region} does not launch {want}: "
               f"{regions[region]}")
+    # K9: the solve's two set-up dots (b's norm and r.z) in the step's
+    # region, three (p.v, the norm of r_new, r_new.z_new) in the CG step's
+    # body
+    check(regions["lm_iteration"].get("dot.tree_dot") == 2
+          and regions["cg_step"].get("dot.tree_dot") == 3,
+          f"jit-venice: K9 is not launched twice in the step and three "
+          f"times in the CG step: {regions}")
+    runs = loop.capture.region_runs()
+    check(graph_launches(loop)["dot.tree_dot"]
+          == 2 * runs["lm_iteration"] + 3 * runs["cg_step"],
+          "jit-venice: K9's launches are not the regions' runs")
     for key in ("segsum_stream.streaming_segment_sum",
                 "segsum_stream.streaming_segment_product_sum_rtbl",
                 "segsum_stream.streaming_matvec_tbl",
-                "segmv.block_matvec_wtbl", "segmv.matvec_sym_stream"):
+                "segmv.block_matvec_wtbl", "segmv.matvec_sym_stream",
+                "dot.tree_dot"):
         check(loop.capture_launches.get(key, 0) > 0,
               f"{key} not in the Venice graph")
     check(loop.capture_launches["segmv.matvec_sym_stream"] == 1,
@@ -2694,21 +2798,52 @@ def phase_jit_venice(problem, solver, iterations, host, branch_ms):
     return launches
 
 
+def kernel_key(name):
+    """A device kernel's name, short: no "void ", argument list or
+    namespace prefixes, at most 120 characters."""
+    key = name[5:] if name.startswith("void ") else name
+    if key.endswith(")"):
+        depth = 0
+        for i in range(len(key) - 1, -1, -1):
+            depth += {")": 1, "(": -1}.get(key[i], 0)
+            if depth == 0:
+                key = key[:i]
+                break
+    for prefix in ("at::native::", "(anonymous namespace)::", "at::"):
+        key = key.replace(prefix, "")
+    return key.strip()[:120]
+
+
 def device_kernels(fn):
-    """The device kernels ``fn()`` runs (copies and sets left out), from
-    a ``torch.profiler`` trace, and ``fn``'s result; None kernels when the
-    trace holds no device activity."""
+    """The device kernels ``fn()`` runs (copies and sets left out), the
+    device (calls, ms) of every device activity by ``kernel_key`` (copies
+    and sets included) and by the host op that launched it with its input
+    shapes (the op's self device time), from a ``torch.profiler`` trace,
+    and ``fn``'s result; None kernels when the trace holds no device
+    activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()  # no earlier work in the trace
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         out = fn()
         torch.cuda.synchronize()
-    names = [ev.name for ev in prof.events()
-             if ev.device_type == torch.autograd.DeviceType.CUDA]
-    kernels = sum(not n.startswith(("Memcpy", "Memset")) for n in names)
-    return (kernels if names else None), out
+    events = [ev for ev in prof.events()
+              if ev.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = sum(not ev.name.startswith(("Memcpy", "Memset"))
+                  for ev in events)
+    by_name = {}
+    for ev in events:
+        calls, ms = by_name.get(kernel_key(ev.name), (0, 0.0))
+        by_name[kernel_key(ev.name)] = (
+            calls + 1, ms + ev.time_range.elapsed_us() / 1e3)
+    by_op = {f"{a.key} {a.input_shapes}": (a.count,
+                                            a.self_device_time_total / 1e3)
+             for a in prof.key_averages(group_by_input_shape=True)
+             if a.device_type == torch.autograd.DeviceType.CPU
+             and a.self_device_time_total > 0}
+    return (kernels if events else None), by_name, by_op, out
 
 
 def count_step_kernels(problem, solver):
@@ -2716,7 +2851,8 @@ def count_step_kernels(problem, solver):
     start, as the captured iteration's code run eagerly (its regions as
     host branches: a profiler trace of a replay misses kernels inside the
     conditional nodes), each in a ``torch.profiler`` trace of its own:
-    [(accepted, kernels)]."""
+    [(accepted, kernels, device (calls, ms) by kernel name, by host op
+    and input shapes)]."""
     from graphite_tpu_torch.ops import device_loop
     from graphite_tpu_torch.optimizers import (
         LevenbergMarquardtOptions,
@@ -2731,33 +2867,69 @@ def count_step_kernels(problem, solver):
     out = []
     for _ in range(2):
         with device_loop.enabled():
-            kernels, _ = device_kernels(loop._step)
-        out.append((bool(loop.accepted), kernels))
+            kernels, by_name, by_op, _ = device_kernels(loop._step)
+        out.append((bool(loop.accepted), kernels, by_name, by_op))
     return out
 
 
+def print_breakdown(tag, by_name, top=16, by="name"):
+    """One iteration's device ms by kernel name (or host op), largest
+    first: the ``top`` names and the rest summed."""
+    total = sum(ms for _, ms in by_name.values())
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    rest = rows[top:]
+    print(f"[jit-venice] {tag}: device ms {total:.4f} in "
+          f"{sum(c for c, _ in by_name.values())} activities; by {by} "
+          f"(calls, ms): " + "; ".join(
+              f"{name} ({calls}, {ms:.4f})" for name, (calls, ms) in rows[:top])
+          + f"; {len(rest)} other names "
+          f"({sum(c for _, (c, _) in rest)}, "
+          f"{sum(m for _, (_, m) in rest):.4f})")
+
+
 def replay_kernels(problem, solver):
-    """Venice's kernels per iteration with K7 and with its gate shut (the
-    generic branch); each graph is dropped after its count."""
+    """Venice's kernels per iteration with K7 and K9, with the plain dots
+    (``tree_dot_plain`` for K9, as before K9) and with K7's gate shut (the
+    generic branch); the first two also by kernel name, device ms of a
+    rejected and an accepted iteration. Each graph is dropped after its
+    count."""
     from graphite_tpu_torch.optimizers import LevenbergMarquardtOptions
     from graphite_tpu_torch.optimizers.lm import cached_device_loop
+    from graphite_tpu_torch.ops import pcg_loop
     from graphite_tpu_torch.ops.cuda import bal
 
     opts = LevenbergMarquardtOptions(iterations=2, jit_loop=True)
     counts = {}
-    gate = bal.gate
-    for name, shut in (("with K7", False), ("K7's gate shut", True)):
-        if shut:
+    gate, k9 = bal.gate, pcg_loop.tree_dot
+    for name in ("with K7 and K9", "the plain dots", "K7's gate shut"):
+        if name == "the plain dots":
+            pcg_loop.tree_dot = pcg_loop.tree_dot_plain
+        if name == "K7's gate shut":
             bal.gate = lambda problem, name: None
         try:
-            counts[name] = count_step_kernels(problem, solver)
+            runs = count_step_kernels(problem, solver)
             drop_loop(problem, cached_device_loop(problem, solver, opts))
         finally:
-            bal.gate = gate
+            bal.gate, pcg_loop.tree_dot = gate, k9
+        counts[name] = [run[:2] for run in runs]
+        if name == "K7's gate shut":
+            continue
+        for accepted, _, by_name, by_op in runs:
+            tag = (f"{name}, " + ("accepted" if accepted else "rejected")
+                   + f" iteration ({card_label()})")
+            print_breakdown(tag, by_name)
+            if name == "with K7 and K9":
+                print_breakdown(tag, by_op, top=24,
+                                by="host op and input shapes")
     print(f"[jit-venice] device kernels of LM iterations 1 and 2 from the "
           f"start (accepted, kernels), the captured iteration run eagerly, "
           f"each in a torch.profiler trace of its own (None: the trace saw "
           f"no device activity): {counts}")
+    with_k9 = counts["with K7 and K9"]
+    check(all(k is not None for _, k in with_k9)
+          and all(a <= b for (_, a), (_, b) in zip(
+              with_k9, counts["the plain dots"])),
+          f"jit-venice: K9 did not cut the kernels an iteration: {counts}")
 
 
 def phase_jit_pose(problem, iterations, host):
@@ -4526,6 +4698,11 @@ KERNELS = [
         "allreduce.allreduce": "none (lax.psum, graphite_tpu/graph.py:333)",
         "allreduce.gather":
             "none (lax.all_gather, graphite_tpu/schur.py:698)"}),
+    # no pl.pallas_call: XLA's reduction of the CG loop's jnp.dot
+    ("K9", "graphite_tpu_torch/csrc/dot.cu", {
+        "dot.tree_dot": "none (XLA's reduction of jnp.dot, "
+                        "graphite_tpu/ops/pcg_loop.py:27)",
+        "dot.tree_dot[f64]": "none (the same, float64)"}),
 ]
 
 
@@ -4600,6 +4777,7 @@ def main():
     timed("cond", phase_cond, pose)
     pose_graph_launches = timed("jit-sphere2500", phase_jit_pose, pose, 30,
                                 pose_host)
+    sphere_n = pose.dim_h
     del pose
     generic_launches = timed("sphere2500-generic", phase_pose_generic, 10)
 
@@ -4608,9 +4786,14 @@ def main():
         "venice-setup", phase_venice_setup)
     venice_measured = timed("venice-kernels", phase_venice_kernels, problem,
                             lin, hv, sv, ops)
+    venice_dim_p = ops.ss.dim_p
     del hv, sv, ops
     torch.cuda.empty_cache()
     k7 = timed("k7", phase_k7, problem, lin)
+    k9 = timed("k9", phase_k9, [
+        ("Venice dim_p", venice_dim_p, torch.float32),
+        ("Venice dim_p", venice_dim_p, torch.float64),
+        ("sphere2500 n d", sphere_n, torch.float32)])
     del lin
     torch.cuda.empty_cache()
     k1_f64 = timed("k1-f64", phase_k1_f64, problem)
@@ -4668,7 +4851,7 @@ def main():
     print(json.dumps({"direct_factorizations": firsts}))
     print(json.dumps({"host_setup_seconds_native_numpy": host_setup}))
     measured = merge_measured(k1, k2, k6, pose_k1, venice_measured, nd_k1,
-                              k1_f64, shard_measured, k7)
+                              k1_f64, shard_measured, k7, k9)
     print(json.dumps({"kernels": kernels_json(
         measured, {"ladybug-49": ladybug_launches,
                    "sphere2500": pose_launches,

@@ -45,8 +45,11 @@
 // output; after a __syncthreads() the CTA copies each span to its output,
 // whose rows [128 b, 128 b + 128) are one contiguous range, in float4
 // stores: a warp's store is 512 contiguous bytes, where a thread's own
-// rows made it touch 32 rows. bal_scale_b runs one thread per output
-// element, so its stores are coalesced.
+// rows made it touch 32 rows. bal_scale_b runs tiles of 128 factors both
+// ways: its CTA stages the tile's J, r and dL rows in shared memory with
+// 16-byte cp.async copies, each thread reads its factor's two row indices
+// and gathers its 12 scales once, forms the stored J and b's rows into a
+// shared output tile, and the CTA copies each span out in 16-byte stores.
 //
 // bal_hessian_sum: one launch per Hessian site (slot pair (s, t), and
 // whether the site's blocks are the transposed (t, s) ones) forms each
@@ -127,6 +130,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "staging.cuh"
 
 namespace {
 
@@ -379,14 +384,28 @@ __global__ void __launch_bounds__(kThreads)
   chi2[f] = value * (fmask[f] ? 1.0f : 0.0f);
 }
 
-// The n floats of a shared span to dst, both 16-byte aligned, in float4
-// stores where four remain, by the CTA's threads.
-__device__ __forceinline__ void copy_span(const float* __restrict__ src,
-                                          float* __restrict__ dst, int n) {
+// The n elements of a shared span to dst, both 16-byte aligned, in 16-byte
+// stores where whole ones remain, by the CTA's threads.
+template <typename T>
+__device__ __forceinline__ void copy_span(const T* __restrict__ src,
+                                          T* __restrict__ dst, int n) {
+  constexpr int kPer = 16 / sizeof(T);
+  const int nv = n / kPer;
+  for (int x = threadIdx.x; x < nv; x += kThreads) {
+    reinterpret_cast<uint4*>(dst)[x] = reinterpret_cast<const uint4*>(src)[x];
+  }
+  for (int x = kPer * nv + threadIdx.x; x < n; x += kThreads) dst[x] = src[x];
+}
+
+// The n floats of src (16-byte aligned) into the shared span dst, in
+// 16-byte cp.async copies where four remain (the caller commits and
+// waits), the rest by plain loads.
+__device__ __forceinline__ void stage_span(float* dst,
+                                           const float* __restrict__ src,
+                                           int n) {
   const int n4 = n >> 2;
   for (int x = threadIdx.x; x < n4; x += kThreads) {
-    reinterpret_cast<float4*>(dst)[x] =
-        reinterpret_cast<const float4*>(src)[x];
+    cp_async16(dst + 4 * x, src + 4 * x);
   }
   for (int x = 4 * n4 + threadIdx.x; x < n; x += kThreads) dst[x] = src[x];
 }
@@ -497,43 +516,38 @@ struct Storage<__half> {
   }
 };
 
-// bal_scale_b: one thread per output element, over the outputs laid end
-// to end, so a warp writes neighbouring elements of one output (or two, at
-// a boundary) and reads its few factors' J rows through L1; each element
-// is computed with the same operations as in a thread per factor.
-
-// One J entry scaled by its column's scale and cast to storage; sc: the
-// padded (n_rows + 1, d) scale rows, or null when the Jacobians are not
-// scaled (Graph.scale_system(False)).
+// bal_scale_b: a CTA owns a tile of kThreads consecutive factors. It
+// stages the tile's Jc, Jp, r and dL rows in shared memory, each one
+// contiguous range (16-byte cp.async copies), while each thread reads its
+// factor's rows0 / rows1 once and gathers the factor's camera (9) and point
+// (3) scale rows into registers. Thread i then forms factor i's stored J
+// (each entry scaled by its column's scale and cast to storage) into a
+// shared output tile and b's rows from the stored (rounded) values:
+// b[c] = -(Js[0, c] (r0 dL) + Js[1, c] (r1 dL)). The CTA copies each
+// output span out in 16-byte stores (a tile of bf16 Jc rows is 128 x 36
+// contiguous bytes). Each input is read once, with no 64-bit division.
 template <typename S, int D>
-__device__ __forceinline__ S scaled_entry(const float* __restrict__ J,
-                                          const float* __restrict__ sc,
-                                          const long long* __restrict__ rows,
-                                          long long f, int i) {
-  float x = J[2 * D * f + i];
-  if (sc != nullptr) x = x * sc[rows[f] * D + i % D];
-  return Storage<S>::store(x);
+__device__ __forceinline__ void scale_b_slot(const float* __restrict__ J,
+                                             const float* scale, bool scaled,
+                                             float w0, float w1,
+                                             S* __restrict__ out,
+                                             float* __restrict__ b) {
+#pragma unroll
+  for (int c = 0; c < D; ++c) {
+    float x0 = J[c], x1 = J[D + c];
+    if (scaled) {
+      x0 = x0 * scale[c];
+      x1 = x1 * scale[c];
+    }
+    const S a0 = Storage<S>::store(x0), a1 = Storage<S>::store(x1);
+    out[c] = a0;
+    out[D + c] = a1;
+    b[c] = -(Storage<S>::load(a0) * w0 + Storage<S>::load(a1) * w1);
+  }
 }
 
-// Element t of b's rows of one slot (D columns): -(Js[0, c] r0 dL +
-// Js[1, c] r1 dL) from the stored (rounded) values.
-template <typename S, int D>
-__device__ __forceinline__ float b_entry(const float* __restrict__ J,
-                                         const float* __restrict__ sc,
-                                         const long long* __restrict__ rows,
-                                         const float* __restrict__ r,
-                                         const float* __restrict__ dl,
-                                         long long t) {
-  const long long f = t / D;
-  const int c = static_cast<int>(t - D * f);
-  const float dL = dl[f];
-  const float w0 = r[2 * f] * dL, w1 = r[2 * f + 1] * dL;
-  const float a0 = Storage<S>::load(scaled_entry<S, D>(J, sc, rows, f, c));
-  const float a1 = Storage<S>::load(scaled_entry<S, D>(J, sc, rows, f, D + c));
-  return -(a0 * w0 + a1 * w1);
-}
-
-// the stored J (18 F, then 6 F elements) and b's rows (9 F, then 3 F)
+// sc, sp: the padded (n_rows + 1, d) scale rows of the two slots, or both
+// null when the Jacobians are not scaled (Graph.scale_system(False)).
 template <typename S>
 __global__ void __launch_bounds__(kThreads)
     scale_b_kernel(const float* __restrict__ jc, const float* __restrict__ jp,
@@ -544,27 +558,56 @@ __global__ void __launch_bounds__(kThreads)
                    S* __restrict__ jc_out, S* __restrict__ jp_out,
                    float* __restrict__ b_c, float* __restrict__ b_p,
                    long long F) {
-  long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (t < 18 * F) {
-    const long long f = t / 18;
-    jc_out[t] = scaled_entry<S, 9>(jc, sc, rows0, f,
-                                   static_cast<int>(t - 18 * f));
-    return;
+  // the staged inputs: Jc 18, Jp 6, r 2 and dL 1 floats a factor
+  __shared__ __align__(16) float t_in[kThreads * 27];
+  // the outputs: the stored Jc 18 and Jp 6 (S), b's rows 9 and 3 (float)
+  __shared__ __align__(16) unsigned char t_j[kThreads * 24 * sizeof(S)];
+  __shared__ __align__(16) float t_b[kThreads * 12];
+  float* t_jc = t_in;
+  float* t_jp = t_jc + 18 * kThreads;
+  float* t_r = t_jp + 6 * kThreads;
+  float* t_dl = t_r + 2 * kThreads;
+  S* o_jc = reinterpret_cast<S*>(t_j);
+  S* o_jp = o_jc + 18 * kThreads;
+  float* o_bc = t_b;
+  float* o_bp = t_b + 9 * kThreads;
+  const long long f0 = static_cast<long long>(blockIdx.x) * kThreads;
+  const int nf = static_cast<int>(F - f0 < kThreads ? F - f0 : kThreads);
+  // rows [f0, f0 + nf) of each input: f0 * width floats in, a multiple of
+  // 4, so every span starts 16-byte aligned
+  stage_span(t_jc, jc + 18 * f0, 18 * nf);
+  stage_span(t_jp, jp + 6 * f0, 6 * nf);
+  stage_span(t_r, r + 2 * f0, 2 * nf);
+  stage_span(t_dl, dl + f0, nf);
+  cp_async_commit();
+  const int i = threadIdx.x;
+  const bool scaled = sc != nullptr;
+  float scale[12];  // the camera's 9 column scales, then the point's 3
+  if (scaled && i < nf) {
+    const float* c = sc + rows0[f0 + i] * 9;
+    const float* p = sp + rows1[f0 + i] * 3;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) scale[k] = c[k];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) scale[9 + k] = p[k];
   }
-  t -= 18 * F;
-  if (t < 6 * F) {
-    const long long f = t / 6;
-    jp_out[t] = scaled_entry<S, 3>(jp, sp, rows1, f,
-                                   static_cast<int>(t - 6 * f));
-    return;
+  cp_async_wait<0>();
+  __syncthreads();
+  if (i < nf) {
+    const float dL = t_dl[i];
+    const float w0 = t_r[2 * i] * dL, w1 = t_r[2 * i + 1] * dL;
+    scale_b_slot<S, 9>(t_jc + 18 * i, scale, scaled, w0, w1, o_jc + 18 * i,
+                       o_bc + 9 * i);
+    scale_b_slot<S, 3>(t_jp + 6 * i, scale + 9, scaled, w0, w1,
+                       o_jp + 6 * i, o_bp + 3 * i);
   }
-  t -= 6 * F;
-  if (t < 9 * F) {
-    b_c[t] = b_entry<S, 9>(jc, sc, rows0, r, dl, t);
-    return;
-  }
-  t -= 9 * F;
-  if (t < 3 * F) b_p[t] = b_entry<S, 3>(jp, sp, rows1, r, dl, t);
+  __syncthreads();
+  // the output tiles' rows [f0, f0 + nf): 16-byte aligned as above (a
+  // bf16 or fp16 Jc tile starts at 36 f0 bytes, f0 a multiple of 128)
+  copy_span(o_jc, jc_out + 18 * f0, 18 * nf);
+  copy_span(o_jp, jp_out + 6 * f0, 6 * nf);
+  copy_span(o_bc, b_c + 9 * f0, 9 * nf);
+  copy_span(o_bp, b_p + 3 * f0, 3 * nf);
 }
 
 // ---- bal_hessian_sum ------------------------------------------------------
@@ -1053,7 +1096,14 @@ int scale_b(const void* jc, const void* jp, const void* r, const void* dl,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (F == 0) return 0;
-  scale_b_kernel<S><<<blocks_for(36 * F), kThreads, 0,
+  // the tiles are staged in and copied out in 16-byte pieces
+  const void* spans[] = {jc, jp, r, dl, jc_out, jp_out, b_c, b_p};
+  for (const void* p : spans) {
+    if (reinterpret_cast<unsigned long long>(p) & 15) {
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    }
+  }
+  scale_b_kernel<S><<<blocks_for(F), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(jc), static_cast<const float*>(jp),
       static_cast<const float*>(r), static_cast<const float*>(dl),
@@ -1143,7 +1193,7 @@ extern "C" int gt_bal_linearize(const void* cams, const void* pts,
 // jc (F, 18), jp (F, 6), r (F, 2), dl (F,): float32; sc (n0 + 1, 9), sp
 // (n1 + 1, 3) float32 scale rows, both null for no scaling; rows0, rows1
 // (F,) int64. Out: jc_out, jp_out in the storage type, b_c (F, 9), b_p
-// (F, 3) float32.
+// (F, 3) float32. jc, jp, r, dl and the outputs 16-byte aligned.
 extern "C" int gt_bal_scale_b_f32(const void* jc, const void* jp,
                                   const void* r, const void* dl,
                                   const void* sc, const void* sp,

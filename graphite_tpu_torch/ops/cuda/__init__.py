@@ -15,6 +15,8 @@
   linearization and Hessian values (``csrc/bal.cu``);
 - ``allreduce``: kernel K8, the sharded path's rank-order all-reduce and
   gather over CUDA IPC (``csrc/allreduce.cu``);
+- ``dot``: kernel K9, the PCG's inner product in ``pcg_loop.tree_sum``'s
+  order, one launch a dot (``csrc/dot.cu``);
 - ``cond``: the conditional graph nodes of the captured LM iteration
   (``csrc/cond.cu``).
 

@@ -25,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from ..pcg_loop import run_pcg
+from ..pcg_loop import run_pcg, tree_dot_plain
 from . import build
 from .launches import LaunchStats, on_device, stream_ptr
 
@@ -72,10 +72,11 @@ def dense_pcg_plain(S, M, b, *, max_iter: int, tol: float,
     """Plain PyTorch version of K2 (the CPU path and the kernel's oracle):
     ``run_pcg`` with v = p @ S and z = y @ M, every product, sum and dot
     taken in K2's order (``run_pcg``'s dots are summed in K2's
-    ``block_sum`` order), so the two agree bitwise on the same inputs."""
+    ``block_sum`` order), so the two agree bitwise on the same inputs. Its
+    dots are ``tree_dot_plain``, not K9, so it stays plain on the card."""
     x, k = run_pcg(b, lambda p: _row_vec_mat(p, S),
                    lambda y: _row_vec_mat(y, M), max_iter, tol,
-                   rejection_ratio)
+                   rejection_ratio, dot=tree_dot_plain)
     return x, torch.tensor(k, device=b.device)
 
 

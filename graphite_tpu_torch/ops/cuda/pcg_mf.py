@@ -21,7 +21,9 @@ block-Jacobi inverse blocks (or the identity) as preconditioner.
   folds (float64 J folds in float64, for the plain version's tests).
 - ``solve_pcg_mf_plain``: ``run_pcg`` with a matvec and a preconditioner
   that take every product and sum in K6's order (the row scatter as a
-  padded CSR walk, no atomics); the CPU path and the kernel's oracle.
+  padded CSR walk, no atomics) and the plain dots (``tree_dot_plain``, not
+  K9, so it stays plain on the card); the CPU path and the kernel's
+  oracle.
 - ``solve_pcg_mf``: the plain version for CPU tensors; on a CUDA tensor
   it launches K6 (float32) or raises. K6 runs the whole solve on one
   thread-block cluster of ``cluster_size(n * d)`` CTAs (at most 16;
@@ -44,7 +46,7 @@ import numpy as np
 import torch
 
 from ..blockfmt import flat_block_mm_tn
-from ..pcg_loop import run_pcg
+from ..pcg_loop import run_pcg, tree_dot_plain
 from ...precision import sqrt_rn
 from . import build
 from .launches import LaunchStats, on_device, stream_ptr
@@ -307,7 +309,7 @@ def solve_pcg_mf_plain(site: PcgMfSite, jf, b, damp, minv, *, max_iter: int,
     table = _incidence_table(site)
     x, k = run_pcg(b, lambda p: _matvec_plain(site, jf, damp, p, table),
                    _precondition_plain(minv, site.d), max_iter, tol,
-                   rejection_ratio)
+                   rejection_ratio, dot=tree_dot_plain)
     return x, torch.tensor(k, device=b.device)
 
 

@@ -13,17 +13,22 @@ ends on |rz_new| < tol and never starts an iteration while rz == 0.
 Every inner product is ``tree_dot``: float32 (the operands' dtype), as in
 the JAX package, summed in one fixed order, so a CPU run and a CUDA run
 take the same steps; that order is K2's (``ops/cuda/pcg_dense``), so every
-PCG branch of the solver rounds its dots alike.
+PCG branch of the solver rounds its dots alike. ``tree_dot`` is kernel K9's
+wrapper (``ops/cuda/dot``: one launch a dot on the card) and
+``tree_dot_plain`` its plain version; ``run_pcg`` and ``run_pcg_fixed``
+take another through ``dot=`` (K2's and K6's plain versions pass
+``tree_dot_plain``, so they stay plain on the card).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from ..precision import sqrt_rn
 from . import device_loop
+from .cuda.dot import tree_dot
 
 
 def tree_sum(v: torch.Tensor) -> torch.Tensor:
@@ -46,8 +51,9 @@ def tree_sum(v: torch.Tensor) -> torch.Tensor:
     return v[..., 0]
 
 
-def tree_dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """u . v: the elementwise products summed by ``tree_sum``."""
+def tree_dot_plain(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """u . v: the elementwise products summed by ``tree_sum`` (K9's plain
+    version)."""
     return tree_sum(u * v)
 
 
@@ -95,10 +101,11 @@ def tree_sum_chunked(v: torch.Tensor, ctas: int,
 
 
 def run_pcg(b: torch.Tensor, matvec: Callable, precond: Callable,
-            max_iter: int, tol: float, rejection_ratio: float
-            ) -> Tuple[torch.Tensor, int]:
-    """Solve ``A x = b``; returns (x, number of CG steps taken)."""
-    dot = tree_dot
+            max_iter: int, tol: float, rejection_ratio: float,
+            dot: Optional[Callable] = None) -> Tuple[torch.Tensor, int]:
+    """Solve ``A x = b``; returns (x, number of CG steps taken). ``dot``:
+    the inner product, ``tree_dot`` (K9) by default."""
+    dot = tree_dot if dot is None else dot
 
     def precondition(r):
         rnorm = sqrt_rn(dot(r, r))
@@ -133,7 +140,8 @@ def run_pcg(b: torch.Tensor, matvec: Callable, precond: Callable,
 
 
 def run_pcg_fixed(b: torch.Tensor, matvec: Callable, precond: Callable,
-                  max_iter: int, tol: float, rejection_ratio: float
+                  max_iter: int, tol: float, rejection_ratio: float,
+                  dot: Optional[Callable] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``run_pcg`` with no host read, as the JAX package's ``while_loop``:
     one CG step run while ``~done & (k < max_iter)``
@@ -142,9 +150,9 @@ def run_pcg_fixed(b: torch.Tensor, matvec: Callable, precond: Callable,
     a rejected or NaN step, |rz| < tol). A step does ``run_pcg``'s float
     operations in its order and writes x, r, p, z, rz, rz_min, k and done
     in place, the rejected step's values kept by ``torch.where``; so x and
-    the step count (a 0-d int64 tensor) are bitwise ``run_pcg``'s, and no
-    step runs after the exit."""
-    dot = tree_dot
+    the step count (a 0-d int64 tensor) are bitwise ``run_pcg``'s (with the
+    same ``dot``), and no step runs after the exit."""
+    dot = tree_dot if dot is None else dot
 
     def precondition(r):
         rnorm = sqrt_rn(dot(r, r))

@@ -90,6 +90,15 @@ on a machine with only PyTorch (``--noconftest`` skips the JAX set-up in
   destinations at one lane, stored and then added to; Ladybug-49's LM
   under FP32_FP32 and FP32_FP16 bitwise the CPU run, with every K7 entry
   launched.
+- K7's ``bal_scale_b`` at F = 1, a tile of 128 less and more one, and
+  1,000,003, under each storage type, scaled and unscaled: bitwise its
+  plain version on the card and on the CPU, and repeatable.
+- K9 (``csrc/dot.cu``), the PCG's dot: bitwise ``tree_dot_plain`` at n
+  from 1 to 10^6 (its one-CTA and multi-CTA forms), float32 and float64,
+  on finite inputs, all -0.0 products, +-inf and NaN; repeatable, and the
+  same bits in a replayed CUDA graph; other dtypes raise. Under
+  ``jit_loop`` the CG "while" node's body launches it three times, the
+  step's region twice.
 - K8 (``csrc/allreduce.cu``) on two ranks of one card: its sum and
   gather bitwise its plain version (gloo on the same CUDA tensors, inputs
   with -0.0 entries; float32, float64, int64, an empty tensor), bitwise
@@ -108,7 +117,9 @@ import graphite_tpu_torch as gtt
 from graphite_tpu_torch import schur
 from graphite_tpu_torch.io import bal, g2o, synthetic
 from graphite_tpu_torch.linearize import linearize
+from graphite_tpu_torch.ops import pcg_loop
 from graphite_tpu_torch.ops.cuda import bal as k7
+from graphite_tpu_torch.ops.cuda import dot as k9
 from graphite_tpu_torch.ops.cuda import (
     pcg_dense,
     pcg_mf,
@@ -1009,6 +1020,11 @@ def test_jit_loop_pcg_max_iter_above_a_thousand_bitwise_host_loop(
     runs = loop.capture.region_runs()
     assert [r.name for r in loop.capture.regions].count("cg_step") == 1
     assert runs["cg_step"] == host_steps > 6
+    # K9: the solve's two set-up dots in the step's region, three in the
+    # CG step's body
+    dots = {r.name: r.launches.get(k9.STATS.name, 0)
+            for r in loop.capture.regions}
+    assert dots["lm_iteration"] == 2 and dots["cg_step"] == 3
 
 
 def test_ladybug_jit_loop_with_rejects_bitwise_host_loop(cuda_device):
@@ -1384,6 +1400,48 @@ def test_k7_matches_plain_bitwise(cuda_device, storage, loss, size):
             assert torch.equal(_k7_bits(o.cpu()), _k7_bits(c)), i
 
 
+# bal_scale_b's tile of factors (csrc/bal.cu, kThreads): one factor, a
+# tile less and more one, and a million and three (a tail of 3)
+K7_TILE = 128
+
+
+@pytest.mark.parametrize("scaled", [True, False])
+@pytest.mark.parametrize("storage", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("F", [1, K7_TILE - 1, K7_TILE + 1, 1_000_003])
+def test_k7_scale_b_tiles_bitwise(cuda_device, F, storage, scaled):
+    """``bal_scale_b`` bitwise its plain version on the card and on the
+    CPU, and repeatable, on seeded rows: J over nine decades (fp16's clamp
+    at 65,504 taken), -0.0 entries, camera and point rows in any order."""
+    rng = np.random.default_rng(F)
+
+    def wide(*shape):
+        x = rng.standard_normal(shape) * 10.0 ** rng.integers(-3, 6, shape)
+        x.reshape(-1)[::11] = -0.0
+        return x.astype(np.float32)
+
+    rows = (rng.integers(0, 40, F), np.sort(rng.integers(0, 900, F)))
+    host = [torch.as_tensor(a) for a in (
+        wide(F, 18), wide(F, 6), wide(F, 2),
+        rng.random(F).astype(np.float32))]
+    scales = [torch.as_tensor(rng.random((n + 1, d)).astype(np.float32))
+              if scaled else None for n, d in ((40, 9), (900, 3))]
+    host += scales + [torch.as_tensor(r) for r in rows]
+    card = [None if t is None else t.to(cuda_device) for t in host]
+    storage = getattr(torch, storage)
+    before = k7.SCALE_B_STATS.launches
+    out = k7.bal_scale_b(*card, storage)
+    again = k7.bal_scale_b(*card, storage)
+    assert k7.SCALE_B_STATS.launches - before == 2
+    ref = k7.bal_scale_b_plain(*card, storage)
+    ref_cpu = k7.bal_scale_b_plain(*host, storage)
+    torch.cuda.synchronize()
+    for o, a, r, c in zip(out, again, ref, ref_cpu):
+        assert o.dtype == r.dtype == c.dtype and o.shape == c.shape
+        assert torch.equal(_k7_bits(o), _k7_bits(a))
+        assert torch.equal(_k7_bits(o), _k7_bits(r))
+        assert torch.equal(_k7_bits(o.cpu()), _k7_bits(c))
+
+
 @pytest.mark.parametrize("policy", ["FP32_FP32", "FP32_FP16"])
 def test_ladybug_lm_under_k7_cuda_equals_cpu(cuda_device, policy):
     cpu, gpu, launches = _ladybug_runs(cuda_device, getattr(gtt, policy))
@@ -1396,3 +1454,76 @@ def test_ladybug_lm_under_k7_cuda_equals_cpu(cuda_device, policy):
         assert launches[s.name] > 0, s.name
     # one trial chi2 per iteration
     assert launches[k7.RESIDUAL_STATS.name] == len(gpu.history)
+
+
+# K9 (csrc/dot.cu): one CTA up to 32,768 entries (three levels), the
+# multi-CTA form above (32,769; 40,000; a million: four and five levels)
+K9_SIZES = [1, 31, 32, 33, 1024, 1025, 16_002, 32_768, 32_769, 40_000,
+            1_000_000]
+K9_CASES = ("finite", "negative_zeros", "inf", "nan")
+
+
+def _k9_operands(n, dtype, case, device):
+    """Seeded u and v: finite (every 7th u a -0.0); all products -0.0 (a
+    full group of them sums to -0.0, a padded one to +0.0); a +inf and a
+    -inf product (a NaN sum); a NaN."""
+    rng = np.random.default_rng(n)
+    u = rng.standard_normal(n) * 10.0 ** rng.integers(-3, 4, n)
+    v = rng.standard_normal(n)
+    u[::7] = -0.0
+    if case == "negative_zeros":
+        u[:], v = -0.0, np.abs(v) + 1.0
+    elif case == "inf":
+        u[n // 3], u[(2 * n) // 3] = np.inf, -np.inf
+        v[n // 3], v[(2 * n) // 3] = 1.0, 1.0
+    elif case == "nan":
+        u[n // 2] = np.nan
+    return (torch.tensor(u, dtype=getattr(torch, dtype), device=device),
+            torch.tensor(v, dtype=getattr(torch, dtype), device=device))
+
+
+def _k9_bits(t):
+    return t.view({4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+@pytest.mark.parametrize("case", K9_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("n", K9_SIZES)
+def test_k9_matches_plain_bitwise(cuda_device, n, dtype, case):
+    """K9 bitwise ``tree_dot_plain`` on the card (and, on finite inputs,
+    on the CPU), one launch a call (float64 counted apart), the same bits on a second call and in
+    a captured graph replayed twice, then replayed on new inputs written
+    into the captured ones."""
+    u, v = _k9_operands(n, dtype, case, cuda_device)
+    stats = k9.STATS_F64 if dtype == "float64" else k9.STATS
+    before = stats.launches
+    out, again = k9.tree_dot(u, v), k9.tree_dot(u, v)
+    assert stats.launches - before == 2
+    ref = pcg_loop.tree_dot_plain(u, v)
+    assert out.shape == () and out.dtype == u.dtype
+    assert _k9_bits(out) == _k9_bits(ref) == _k9_bits(again)
+    if case in ("finite", "negative_zeros"):
+        cpu = pcg_loop.tree_dot_plain(u.cpu(), v.cpu())
+        assert _k9_bits(out.cpu()) == _k9_bits(cpu)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = k9.tree_dot(u, v)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _k9_bits(captured) == _k9_bits(ref)
+    v.mul_(-2.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _k9_bits(captured) == _k9_bits(pcg_loop.tree_dot_plain(u, v))
+
+
+def test_k9_raises_off_its_dtypes(cuda_device):
+    """No fallback: bf16, mixed dtypes and 2-D operands raise."""
+    x = torch.ones(64, device=cuda_device)
+    with pytest.raises(NotImplementedError):
+        k9.tree_dot(x.bfloat16(), x.bfloat16())
+    with pytest.raises(NotImplementedError):
+        k9.tree_dot(x, x.double())
+    with pytest.raises(ValueError):
+        k9.tree_dot(x.view(8, 8), x.view(8, 8))

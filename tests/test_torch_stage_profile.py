@@ -39,3 +39,16 @@ def test_stage_profile_pose_path():
                   "solve_pcg_mf", "compute_chi2"):
         assert out["stages"][stage]["calls"] >= 1, stage
     assert "run_pcg" not in out["stages"]
+
+
+def test_replay_profile_needs_a_card(capsys):
+    """``graphite_tpu_torch.replay_profile`` times the card only: without
+    one it exits 1 and prints no result; its accepted / rejected split
+    follows each iteration's accept flag."""
+    from graphite_tpu_torch import replay_profile
+
+    assert replay_profile.main(["--size", "mini"]) == 1
+    assert "replay_profile" not in capsys.readouterr().out
+    history = [{"accepted": a} for a in (True, False, True)]
+    assert replay_profile._split([1.0, 2.0, 3.0], history) == ([1.0, 3.0],
+                                                              [2.0])
