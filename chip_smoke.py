@@ -12,7 +12,8 @@ own:
    the conditional graph nodes of ``jit_loop``, ``csrc/cond.cu``, K8,
    the sharded path's all-reduce over CUDA IPC, ``csrc/allreduce.cu``, and
    K7, the BAL reprojection factor's linearization and Hessian values,
-   ``csrc/bal.cu``, K9, the PCG's dot, ``csrc/dot.cu``; and the host
+   ``csrc/bal.cu``, K9, the PCG's dot, ``csrc/dot.cu``, K10, the landmark
+   inverses and W = Hpl Hll^-1, ``csrc/schur_w.cu``; and the host
    libraries (g++),
    ``native/structure.cpp`` and ``native/bal_loader.cpp``;
 2. K1 vs its plain PyTorch version on the card, at the BAL Ladybug-49
@@ -98,9 +99,17 @@ own:
    sphere2500's n d (float32), seeded inputs with -0.0 entries: bitwise
    equal on the card, on the CPU and in a replayed CUDA graph, bitwise
    repeatable, one launch a call; its device-only ms (calls replayed
-   from a graph), the plain version's and ``torch.dot``'s (the library
-   call: the same function in cuBLAS's order), its bound (both vectors
-   once at 3.35 TB/s) and the host us of a call;
+   from a graph) beside its time before its cluster design (one CTA of
+   1,024 threads), the plain version's and ``torch.dot``'s (the library call: the
+   same function in cuBLAS's order), its bound (both vectors once at 3.35
+   TB/s) and the host us of a call;
+6m. ``k10``: K10 (``csrc/schur_w.cu``), the landmark inverses and W =
+   Hpl Hll^-1, vs its plain version (the ops ``schur_values`` ran before
+   K10) at Venice's first ``schur_values`` inputs (993,923 3x3 Hll
+   blocks, 4,995,188 (9, 3) Hpl blocks): bitwise equal on the card, on
+   the CPU and replayed from a CUDA graph, bitwise repeatable, one launch
+   a call; its ms, the plain version's (the replaced ops') and its bound
+   (Hpl, Hll read once, W, Hll^-1 written once at 3.35 TB/s);
 7. the Venice-1778 path: 10 LM iterations of PCGSchurSolver(10, 1.0, 5.0)
    on the card (the block-sparse branch): final chi2 below the initial
    one, finite parameters, K1, K3, K4 and K5 launched, the S matvec kernel
@@ -137,10 +146,12 @@ step) and peak memory:
     iterations each;
 11. ``direct-full-h``: Ladybug-49 without elimination (dim_h 23,769) with
     DenseCholeskySolver and SparseDirectSolver() (its dense branch on the
-    card; its host branch on the CPU), 3 iterations each;
+    card; its host branch on the CPU), 3 iterations each (the dense
+    solver's CPU steps from the first 2 states: ~20 s each);
 12. ``direct-sphere2500``: SparseDirectSolver() (dense H, dim_h 14,994)
     and SparseDirectSolver(multifrontal=True), 10 iterations each (the
-    CPU's steps with the same branch forced); unit quaternions; the
+    CPU's steps with the same branch forced; the dense branch's from the
+    first 4 states); unit quaternions; the
     multifrontal plan's host seconds; K1 launched at
     every extend-add and right-hand-side site of the multifrontal
     factorization (the tree's depth, fronts and widest front printed),
@@ -339,6 +350,12 @@ S5. ``shard-sphere2500-w2-graph`` (in the same ranks): sphere2500 on 2
     Two processes on one card are time-sliced, not concurrent: S2-S5's
     times measure that, not scaling.
 
+K10 (``csrc/schur_w.cu``) takes every float32 ``schur_values``: phases
+4, 7, 16 and S1-S4 check that it launched once per ``schur_values`` call
+(Ladybug's and Venice's one Hpl group), and phase 16's trace of the
+eager iterations by host op holds none of the (4995188, 9, 3) products
+it replaced.
+
 K7 (``csrc/bal.cu``) takes every BAL reprojection set of a float32 graph
 (``ops/cuda/bal.gate``): phases 4, 7, 9, 15, 16, 18, 21 and 23, 24, 25,
 S2-S4 check that it launched (in phase 16 the linearize and Hessian
@@ -486,6 +503,7 @@ def phase_build():
         dot,
         pcg_dense,
         pcg_mf,
+        schur_w,
         segmv,
         segsum,
         segsum_stream,
@@ -494,8 +512,8 @@ def phase_build():
     loaders = (segsum.load_kernel, pcg_dense.load_kernel,
                segsum_stream.load_product_kernel, segmv.load_kernel,
                pcg_mf.load_kernel, cond.load_kernel, allreduce.load_kernel,
-               bal.load_kernel, dot.load_kernel, structure.library,
-               bal_loader.library)
+               bal.load_kernel, dot.load_kernel, schur_w.load_kernel,
+               structure.library, bal_loader.library)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
         libs = list(pool.map(lambda load: load(), loaders))
@@ -769,6 +787,7 @@ def all_stats():
         dot,
         pcg_dense,
         pcg_mf,
+        schur_w,
         segmv,
         segsum,
         segsum_stream,
@@ -781,7 +800,7 @@ def all_stats():
             segmv.WTBL_STATS, segmv.SYM_STATS, pcg_mf.STATS,
             allreduce.STATS, allreduce.GATHER_STATS, bal.RESIDUAL_STATS,
             bal.LINEARIZE_STATS, bal.SCALE_B_STATS, bal.HESSIAN_SUM_STATS,
-            dot.STATS, dot.STATS_F64]
+            dot.STATS, dot.STATS_F64, schur_w.STATS]
 
 
 # K7's entry points (csrc/bal.cu)
@@ -796,6 +815,27 @@ def check_k7(tag, launches, entries=K7_ENTRIES):
           f"{ {e: launches.get(e, 0) for e in K7_ENTRIES} }")
     for e in entries:
         check(launches.get(e, 0) > 0, f"{tag}: K7's {e} never launched")
+
+
+K10 = "schur_w.schur_w"  # K10's entry point (csrc/schur_w.cu)
+K3_GATHERED = "segsum_stream.streaming_segment_product_sum"
+K3_RTBL = "segsum_stream.streaming_segment_product_sum_rtbl"
+
+
+def k3_calls(launches):
+    """K3's launches in ``launches``, gathered-stream and by index: one
+    per ``schur_values`` call on the Venice and sharded paths."""
+    return launches.get(K3_GATHERED, 0) + launches.get(K3_RTBL, 0)
+
+
+def check_k10(tag, launches, calls):
+    """Print K10's launches in ``launches`` and check one per
+    ``schur_values`` call, ``calls`` of them (the BAL paths have one Hpl
+    group)."""
+    n = launches.get(K10, 0)
+    print(f"[{tag}] K10 launches {n} ({calls} schur_values calls)")
+    check(calls > 0 and n == calls,
+          f"{tag}: K10 launched {n} times in {calls} schur_values calls")
 
 
 def count_launches(run, record_events=True):
@@ -889,6 +929,7 @@ def phase_slice(solver, iterations):
         check(launches[name] > 0, f"{name} never launched on the main path")
     check(launches["pcg_dense.dense_pcg"] == len(gpu.history),
           "dense_pcg must launch once per solve")
+    check_k10("slice", launches, len(gpu.history))  # one solve an iteration
     return launches
 
 
@@ -1603,7 +1644,7 @@ def phase_venice_kernels(problem, lin, hv, sv, ops):
     (pg,) = ss.products
     dpa, dl, dpb = pg["dims"]
     ns = ss.s_sizes[pg["dst_key"]]
-    W = schur.hpl_w_values(problem, ss, hv, sv.hll_inv)[pg["left_key"]]
+    W = schur.landmark_w(problem, ss, hv)[1][pg["left_key"]]
     R = hv[pg["right_key"]]
     plan = product_plan(problem, ("prod_k3", 0), pg["dst"], ns)
     li = problem.index32(("prod_l", 0), pg["left"])
@@ -2006,7 +2047,9 @@ def phase_k9(sizes):
         shape = f"{label} n={n} {str(dtype)[6:]}"
         print(f"[k9] {shape}: bitwise {ok} launches a call="
               f"{launches / 2:g} max_abs_err={err:.3e} (torch.dot differs "
-              f"by {abs(library - float(ref)):.3e}) device-only ms={ms:.5f} "
+              f"by {abs(library - float(ref)):.3e}) cluster of "
+              f"{dot.cluster_size(n)} CTAs device-only ms={ms:.5f} was_ms="
+              f"{K9_WAS_MS.get((n, str(dtype)[6:]))} (one CTA) "
               f"plain_ms={plain_ms:.5f} library_ms (torch.dot)="
               f"{library_ms:.5f} bound_ms={bound_fields(work)} host us a "
               f"call {host} ({card_label()})")
@@ -2019,6 +2062,86 @@ def phase_k9(sizes):
             library_ms=library_ms, **work))
         del graph, captured
     return records
+
+
+# K9's device-only ms before its cluster design (one CTA of 1,024 threads;
+# PERF.md's kernel table, NVIDIA H100 80GB HBM3, 700 W), by shape
+K9_WAS_MS = {(16_002, "float32"): "0.00489", (16_002, "float64"): "0.00796",
+             (14_994, "float32"): "0.00496"}
+
+
+def phase_k10(problem, ss, hv):
+    """K10 vs its plain version at Venice's first ``schur_values`` inputs
+    (the damped Hessian values at its first linearization point: the Hll
+    rows, the (9, 3) Hpl group, its plan): bitwise equal on the card, on
+    the CPU and replayed from a CUDA graph, bitwise repeatable, one launch
+    a call. Its ms beside the plain version's (the ops ``schur_values``
+    ran before K10) and its bound: Hpl and Hll read once, W and Hll^-1
+    written once, at 3.35 TB/s; float32 operations at 67 TFLOP/s."""
+    import torch
+
+    from graphite_tpu_torch import schur
+    from graphite_tpu_torch.ops.cuda import schur_w
+    from graphite_tpu_torch.ops.streamreduce import take_rows
+
+    (key,) = ss.hpl_keys
+    dp, dl = key
+    hll = take_rows(problem, ("lm_h_idx", dl), hv[(dl, dl)], ss.lm_h_idx[dl])
+    hpl = take_rows(problem, ("hpl_h", key), hv[key], ss.hpl_h_idx[key])
+    plan = schur._w_plan(problem, ss, key)
+    cpu_args = (hll.cpu(), hpl.cpu(), on_cpu(plan), dp, dl)
+
+    def kernel():
+        return schur_w.schur_w(hll, hpl, plan, dp, dl)
+
+    def plain():
+        inv = schur_w.hll_inverse_plain(hll, dl)
+        return inv, schur_w.hpl_w_plain(hpl, inv, plan, dp, dl)
+
+    def bits(t):
+        return t.view(torch.int32)
+
+    before = schur_w.STATS.launches
+    out, again = kernel(), kernel()
+    launches = schur_w.STATS.launches - before
+    ref = plain()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = kernel()
+    graph.replay()
+    torch.cuda.synchronize()
+    ok = dict(vs_plain=all(torch.equal(bits(o), bits(r))
+                           for o, r in zip(out, ref)),
+              repeat=all(torch.equal(bits(o), bits(a))
+                         for o, a in zip(out, again)),
+              in_graph=all(torch.equal(bits(c), bits(r))
+                           for c, r in zip(captured, ref)))
+    err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
+    del again, ref, captured, graph
+    cpu = schur_w.schur_w(*cpu_args)
+    ok["vs_cpu_plain"] = all(torch.equal(bits(o.cpu()), bits(c))
+                             for o, c in zip(out, cpu))
+    del cpu, cpu_args
+    L, K = hll.shape[0], hpl.shape[0]
+    # a 3x3 inverse: 9 cofactors of 3 operations, the determinant's 5, one
+    # division and 9 products; a W entry dl products and dl - 1 adds
+    ops = {1: 1, 2: 12, 3: 42}[dl] * L + dp * dl * (2 * dl - 1) * K
+    work = bound(nbytes(hll, hpl, *out), ops)
+    del out
+    torch.cuda.empty_cache()
+    ms = device_ms(kernel, 20)
+    plain_ms = device_ms(plain, 5)
+    shape = (f"{L} ({dl},{dl}) Hll + {K} ({dp},{dl}) Hpl -> Hll^-1, W, "
+             f"Venice schur_values")
+    print(f"[k10] {shape}: bitwise {ok} launches a call={launches / 2:g} "
+          f"max_abs_err={err:.3e} ms={ms:.4f} plain_ms (the replaced ops)="
+          f"{plain_ms:.4f} library_ms=None bound_ms={bound_fields(work)} "
+          f"bytes={nbytes(hll, hpl) * 2} ({card_label()})")
+    for what, good in ok.items():
+        check(good, f"k10: not bitwise ({what})")
+    check(launches == 2, f"k10: launched {launches} times in two calls")
+    return {K10: [dict(err=err, ms=ms, plain_ms=plain_ms, shape=shape,
+                       library_ms=None, **work)]}
 
 
 def merge_measured(*parts):
@@ -2067,6 +2190,7 @@ def phase_venice_slice(problem, solver, iterations):
           f"{peak / 2**30:.3f} GiB; CG matvecs={matvecs[0]}")
     print_launches("venice", launches, kernel_ms)
     check_k7("venice", launches)
+    check_k10("venice", launches, len(hist))  # one solve an iteration
     k3 = (launches["segsum_stream.streaming_segment_product_sum_rtbl"]
           + launches["segsum_stream.streaming_segment_product_sum"])
     check(k3 > 0, "K3 never launched on the Venice path")
@@ -2773,6 +2897,11 @@ def phase_jit_venice(problem, solver, iterations, host, branch_ms):
     # K9: the solve's two set-up dots (b's norm and r.z) in the step's
     # region, three (p.v, the norm of r_new, r_new.z_new) in the CG step's
     # body
+    check(regions["lm_iteration"].get(K10) == 1,
+          f"jit-venice: K10 is not captured once in the step's region: "
+          f"{regions}")
+    check_k10("jit-venice", launches,
+              loop.capture.region_runs()["lm_iteration"])
     check(regions["lm_iteration"].get("dot.tree_dot") == 2
           and regions["cg_step"].get("dot.tree_dot") == 3,
           f"jit-venice: K9 is not launched twice in the step and three "
@@ -2921,6 +3050,16 @@ def replay_kernels(problem, solver):
             if name == "with K7 and K9":
                 print_breakdown(tag, by_op, top=24,
                                 by="host op and input shapes")
+                # K10 took W's (4995188, 9, 3) products and adds and the
+                # Hll^-1 expansion
+                stale = [op for op in by_op
+                         if op.startswith(("aten::mul [[4995188, 9, ",
+                                           "aten::add [[4995188, 9, ",
+                                           "aten::repeat_interleave"))]
+                check(not stale and any(k.startswith("schur_w_kernel")
+                                        for k in by_name),
+                      f"jit-venice: the trace holds the ops K10 replaced "
+                      f"{stale} or no K10 kernel")
     print(f"[jit-venice] device kernels of LM iterations 1 and 2 from the "
           f"start (accepted, kernels), the captured iteration run eagerly, "
           f"each in a torch.profiler trace of its own (None: the trace saw "
@@ -3934,6 +4073,7 @@ def phase_shard_w1(problem, solver, iterations, host):
           f"{tag}: final parameters differ from phase 7's")
     print(f"[{tag}] bitwise phase 7's host loop: accept pattern, chi2 and "
           f"final parameters")
+    check_k10(tag, launches, k3_calls(launches))
     graph = shard_w1_graph(problem, solver, iterations, host)
     order_witness(problem, solver, 3, host)
     return add_launches(launches, graph)
@@ -3979,6 +4119,7 @@ def shard_w1_graph(problem, solver, iterations, host):
                   f"{loop.capture_seconds:.3f}")
             print_replays(tag, loop, result, k, accepted)
             launches = graph_launches(loop)
+            check_k10(tag, launches, k3_calls(launches))
             drop_loop(replica, loop)
             del loop
         finally:
@@ -4568,6 +4709,7 @@ def phase_shard(cpu_problem, host, iterations):
         check(lau["allreduce.allreduce"] > 0 and lau["allreduce.gather"] > 0,
               f"{tag}: K8 never launched")
         check_k7(f"{tag} rank {r['rank']}", lau)
+        check_k10(f"{tag} rank {r['rank']}", lau, iterations)
     print(f"[{tag}] two processes share one card, time-sliced: K8's times "
           f"measure that, not scaling")
     check(r0["trace"] == r1["trace"], f"{tag}: the ranks' traces differ")
@@ -4597,6 +4739,8 @@ def phase_shard(cpu_problem, host, iterations):
                   f"{tag}: K8 never ran in the graph")
             if key == "s4":
                 check_k7(f"{tag} rank {r['rank']}", r[key]["launches"])
+                check_k10(f"{tag} rank {r['rank']}", r[key]["launches"],
+                          k3_calls(r[key]["launches"]))
         check(r0[key]["trace"] == r1[key]["trace"]
               and all(np.array_equal(r0[key]["params"][n],
                                      r1[key]["params"][n])
@@ -4629,6 +4773,8 @@ def phase_shard(cpu_problem, host, iterations):
         check(lb["params_bitwise"], f"{tag}: card and CPU parameters differ")
         check(lb["launches"]["segsum_stream.streaming_segment_product_sum"]
               > 0, f"{tag}: K3's gathered-stream entry never launched")
+        check_k10(f"{tag} rank {r['rank']}", lb["launches"],
+                  k3_calls(lb["launches"]))
         check(chi[-1] < chi[0], f"{tag}: chi2 not lowered")
     check(r0["ladybug"]["trace"] == r1["ladybug"]["trace"],
           f"{tag}: the ranks' traces differ")
@@ -4703,6 +4849,10 @@ KERNELS = [
         "dot.tree_dot": "none (XLA's reduction of jnp.dot, "
                         "graphite_tpu/ops/pcg_loop.py:27)",
         "dot.tree_dot[f64]": "none (the same, float64)"}),
+    # no pl.pallas_call: XLA's fusion of the JAX package's plain jnp
+    # inverses and W = Hpl Hll^-1
+    ("K10", "graphite_tpu_torch/csrc/schur_w.cu", {
+        K10: "none (XLA fusion: graphite_tpu/schur.py:499-508, :543-599)"}),
 ]
 
 
@@ -4787,13 +4937,15 @@ def main():
     venice_measured = timed("venice-kernels", phase_venice_kernels, problem,
                             lin, hv, sv, ops)
     venice_dim_p = ops.ss.dim_p
-    del hv, sv, ops
+    del sv
     torch.cuda.empty_cache()
     k7 = timed("k7", phase_k7, problem, lin)
     k9 = timed("k9", phase_k9, [
         ("Venice dim_p", venice_dim_p, torch.float32),
         ("Venice dim_p", venice_dim_p, torch.float64),
         ("sphere2500 n d", sphere_n, torch.float32)])
+    k10 = timed("k10", phase_k10, problem, ops.ss, hv)
+    del hv, ops
     del lin
     torch.cuda.empty_cache()
     k1_f64 = timed("k1-f64", phase_k1_f64, problem)
@@ -4851,7 +5003,7 @@ def main():
     print(json.dumps({"direct_factorizations": firsts}))
     print(json.dumps({"host_setup_seconds_native_numpy": host_setup}))
     measured = merge_measured(k1, k2, k6, pose_k1, venice_measured, nd_k1,
-                              k1_f64, shard_measured, k7, k9)
+                              k1_f64, shard_measured, k7, k9, k10)
     print(json.dumps({"kernels": kernels_json(
         measured, {"ladybug-49": ladybug_launches,
                    "sphere2500": pose_launches,

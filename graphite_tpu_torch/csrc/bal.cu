@@ -384,32 +384,6 @@ __global__ void __launch_bounds__(kThreads)
   chi2[f] = value * (fmask[f] ? 1.0f : 0.0f);
 }
 
-// The n elements of a shared span to dst, both 16-byte aligned, in 16-byte
-// stores where whole ones remain, by the CTA's threads.
-template <typename T>
-__device__ __forceinline__ void copy_span(const T* __restrict__ src,
-                                          T* __restrict__ dst, int n) {
-  constexpr int kPer = 16 / sizeof(T);
-  const int nv = n / kPer;
-  for (int x = threadIdx.x; x < nv; x += kThreads) {
-    reinterpret_cast<uint4*>(dst)[x] = reinterpret_cast<const uint4*>(src)[x];
-  }
-  for (int x = kPer * nv + threadIdx.x; x < n; x += kThreads) dst[x] = src[x];
-}
-
-// The n floats of src (16-byte aligned) into the shared span dst, in
-// 16-byte cp.async copies where four remain (the caller commits and
-// waits), the rest by plain loads.
-__device__ __forceinline__ void stage_span(float* dst,
-                                           const float* __restrict__ src,
-                                           int n) {
-  const int n4 = n >> 2;
-  for (int x = threadIdx.x; x < n4; x += kThreads) {
-    cp_async16(dst + 4 * x, src + 4 * x);
-  }
-  for (int x = 4 * n4 + threadIdx.x; x < n; x += kThreads) dst[x] = src[x];
-}
-
 // The floats a factor writes: r 2, Jc 18, Jp 6, chi2 1, dL 1, diag_c 9,
 // diag_p 3.
 constexpr int kLinFloats = 40;
@@ -476,13 +450,13 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   // rows [f0, f0 + nf) of each output: f0 * width floats in, a multiple of
   // 4 (f0 is one of 128), so every span starts 16-byte aligned
-  copy_span(t_r, r_out + 2 * f0, 2 * nf);
-  copy_span(t_jc, jc_out + 18 * f0, 18 * nf);
-  copy_span(t_jp, jp_out + 6 * f0, 6 * nf);
-  copy_span(t_chi2, chi2 + f0, nf);
-  copy_span(t_dl, dl_out + f0, nf);
-  copy_span(t_dc, diag_c + 9 * f0, 9 * nf);
-  copy_span(t_dp, diag_p + 3 * f0, 3 * nf);
+  store_span<kThreads>(r_out + 2 * f0, t_r, 2 * nf);
+  store_span<kThreads>(jc_out + 18 * f0, t_jc, 18 * nf);
+  store_span<kThreads>(jp_out + 6 * f0, t_jp, 6 * nf);
+  store_span<kThreads>(chi2 + f0, t_chi2, nf);
+  store_span<kThreads>(dl_out + f0, t_dl, nf);
+  store_span<kThreads>(diag_c + 9 * f0, t_dc, 9 * nf);
+  store_span<kThreads>(diag_p + 3 * f0, t_dp, 3 * nf);
 }
 
 template <typename S>
@@ -575,10 +549,10 @@ __global__ void __launch_bounds__(kThreads)
   const int nf = static_cast<int>(F - f0 < kThreads ? F - f0 : kThreads);
   // rows [f0, f0 + nf) of each input: f0 * width floats in, a multiple of
   // 4, so every span starts 16-byte aligned
-  stage_span(t_jc, jc + 18 * f0, 18 * nf);
-  stage_span(t_jp, jp + 6 * f0, 6 * nf);
-  stage_span(t_r, r + 2 * f0, 2 * nf);
-  stage_span(t_dl, dl + f0, nf);
+  stage_span<kThreads>(t_jc, jc + 18 * f0, 18 * nf);
+  stage_span<kThreads>(t_jp, jp + 6 * f0, 6 * nf);
+  stage_span<kThreads>(t_r, r + 2 * f0, 2 * nf);
+  stage_span<kThreads>(t_dl, dl + f0, nf);
   cp_async_commit();
   const int i = threadIdx.x;
   const bool scaled = sc != nullptr;
@@ -604,10 +578,10 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   // the output tiles' rows [f0, f0 + nf): 16-byte aligned as above (a
   // bf16 or fp16 Jc tile starts at 36 f0 bytes, f0 a multiple of 128)
-  copy_span(o_jc, jc_out + 18 * f0, 18 * nf);
-  copy_span(o_jp, jp_out + 6 * f0, 6 * nf);
-  copy_span(o_bc, b_c + 9 * f0, 9 * nf);
-  copy_span(o_bp, b_p + 3 * f0, 3 * nf);
+  store_span<kThreads>(jc_out + 18 * f0, o_jc, 18 * nf);
+  store_span<kThreads>(jp_out + 6 * f0, o_jp, 6 * nf);
+  store_span<kThreads>(b_c + 9 * f0, o_bc, 9 * nf);
+  store_span<kThreads>(b_p + 3 * f0, o_bp, 3 * nf);
 }
 
 // ---- bal_hessian_sum ------------------------------------------------------

@@ -1,5 +1,5 @@
 // Launching one thread-block cluster, shared by the whole-PCG kernels K2
-// (pcg_dense.cu) and K6 (pcg_mf.cu).
+// (pcg_dense.cu) and K6 (pcg_mf.cu) and by K9's cluster form (dot.cu).
 //
 // Each runs a whole CG solve as one cluster of up to 16 CTAs that meet at
 // cluster barriers and exchange partial sums through distributed shared
@@ -105,6 +105,37 @@ __device__ __forceinline__ void st_async(const float* p, float v,
       "[%2];\n" ::"r"(cluster_addr(p, rank)),
       "r"(__float_as_uint(v)), "r"(cluster_addr(bar, rank))
       : "memory");
+}
+
+// The same for a double: 8 bytes counted on `bar`.
+__device__ __forceinline__ void st_async(const double* p, double v,
+                                         const unsigned long long* bar,
+                                         int rank) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b64 [%0], %1, "
+      "[%2];\n" ::"r"(cluster_addr(p, rank)),
+      "l"(__double_as_longlong(v)), "r"(cluster_addr(bar, rank))
+      : "memory");
+}
+
+// This CTA's rank in its cluster.
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// A cluster barrier in two halves, every thread of the cluster taking
+// both: arrive (relaxed: it orders no memory, so it costs no fence) and,
+// later, wait. After an mbarrier's init and fence_mbar_init, the wait
+// makes the mbarrier visible to the cluster, and the work between the
+// halves hides the barrier's latency.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
 // One thread: an mbarrier for one expected arrival (the mbar_expect of

@@ -26,19 +26,29 @@
 // steps o >= V are shuffles over o / V lanes and the last steps are adds in
 // registers, the same pairs in the same order.
 // - n <= 32,768 (three levels; Venice's dim_p 16,002 and sphere2500's n d
-//   14,994): one CTA of 1,024 threads. Its 32 warps take all the level-1
-//   groups at once (every load in flight together) and store the sums in
-//   shared memory; then a warp per 1,024-entry chunk sums level 2 and one
-//   warp level 3. Two barriers.
+//   14,994): one thread-block cluster of C CTAs (csrc/cluster.cuh; C a
+//   power of two up to 16, from the wrapper). CTA c takes whole 1,024-entry
+//   chunks [c per, (c + 1) per), per = ceil(chunks / C), a warp for each
+//   warp load (32 warps at most; beyond, they loop), sums their groups
+//   (level 1) and each
+//   chunk's 32 group sums (level 2) with shuffles, and stores each chunk
+//   sum into the leader CTA's shared memory with st.async, counted on the
+//   leader's mbarrier. The leader's first warp waits for the chunks' bytes
+//   and sums level 3 over them, padded with +0.0 to 32. The mbarrier's
+//   init reaches the cluster through one relaxed cluster barrier whose
+//   arrive comes before the loads and whose wait after them. So the
+//   vectors are pulled by C SMs at once, and a call costs its launch, one
+//   DRAM round trip, the warp sums and one exchange: no scratch, no ticket,
+//   no fence. Each chunk's sum is computed whole by one CTA, so the split
+//   is pcg_loop.tree_sum_chunked's, bitwise tree_sum for any C.
 // - larger n: each CTA takes rounds of V whole chunks (tree_sum's first two
 //   levels) and writes each chunk's sum to a scratch vector; the last CTA
 //   to finish (an integer ticket counted with atomicAdd after a fence) runs
 //   the rest of the tree over the chunk sums, in place, and resets the
 //   ticket, so the next launch (a replayed graph too) finds it at 0. This
-//   is pcg_loop.tree_sum_chunked's split, bitwise tree_sum for any number
-//   of CTAs. The ticket is one per device: two dots above 32,768 entries
-//   must not run at once on two streams of one device (the port takes its
-//   dots on one stream).
+//   is tree_sum_chunked's split too. The ticket is one per device: two dots
+//   above 32,768 entries must not run at once on two streams of one device
+//   (the port takes its dots on one stream).
 // No float atomics. The kernel allocates nothing (the wrapper gives the
 // output and the scratch), never synchronises with the host and launches
 // on the given stream, so it runs inside a captured CUDA graph and inside
@@ -46,9 +56,11 @@
 //
 // Bound: memory: u and v read once, 2 n 4 (or 8) bytes, and two operations
 // an entry. At n = 16,002 in float32 the bytes take 0.04 us at 3.35 TB/s;
-// a call costs its launch, one DRAM round trip and two barriers.
+// a call costs its launch and its latencies.
 
 #include <cuda_runtime.h>
+
+#include "cluster.cuh"
 
 namespace {
 
@@ -151,58 +163,84 @@ __device__ __forceinline__ T group_sum(T* p) {
   return p[0];
 }
 
-// IT: the warp loads (of 32 V entries) each warp takes a round. IT > 1 is
-// the one-CTA form: one round of IT V = 32 chunks, the whole vector. IT = 1
-// is the multi-CTA form: rounds of V chunks, their sums to `scratch`.
-template <typename T, int IT>
+// The cluster form (n_chunks <= 32): CTA `rank` of the cluster sums chunks
+// [rank per, min((rank + 1) per, n_chunks)), one warp load a warp (the
+// block has per 32 / V warps, at most 32: more loads loop), and stores
+// each chunk's sum into the leader's `level2` with st.async; the leader's
+// first warp sums level 3.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    tree_dot_cluster_kernel(Operands<T> a, int n_chunks, int per,
+                            T* __restrict__ out) {
+  constexpr int V = Vec<T>::N;
+  constexpr int kLanes = 32 / V;  // lanes of a group
+  __shared__ T level1[kGroup * kGroup];  // per <= 32 chunks of 32 groups
+  __shared__ T level2[kGroup];  // the chunk sums (the leader's)
+  __shared__ unsigned long long bar;
+  const int rank = static_cast<int>(cluster_rank());
+  if (rank == 0 && threadIdx.x == 0) {
+    mbar_init(&bar);
+    mbar_expect(&bar, static_cast<unsigned>(n_chunks * sizeof(T)));
+    fence_mbar_init();
+  }
+  cluster_arrive_relaxed();
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int c0 = rank * per;
+  const int nc = max(0, min(per, n_chunks - c0));  // this CTA's chunks
+  const int loads = nc * (kGroup / V);  // warp loads: 32 V entries each
+  const long long base = static_cast<long long>(c0) * kChunk;
+  for (int q = warp; q < loads; q += blockDim.x >> 5) {
+    T p[V];
+    load_products(a, base + static_cast<long long>(q) * 32 * V, p);
+    const T s = group_sum(p);
+    if (lane % kLanes == 0) level1[q * V + lane / kLanes] = s;
+  }
+  __syncthreads();
+  cluster_wait();  // the leader's mbarrier is initialized
+  if (warp < nc) {
+    const T s = warp_sum(level1[kGroup * warp + lane]);
+    if (lane == 0) st_async(&level2[c0 + warp], s, &bar, 0);
+  }
+  if (rank == 0 && warp == 0) {
+    mbar_wait(&bar, 0);
+    // level 3, where level 2 left more than one sum
+    const T s = n_chunks == 1
+                    ? level2[0]
+                    : warp_sum(lane < n_chunks ? level2[lane]
+                                               : static_cast<T>(0));
+    if (lane == 0) *out = s;
+  }
+}
+
+// The multi-CTA form (n_chunks > 32): rounds of V chunks, their sums to
+// `scratch`; the last CTA sums the rest of the tree.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
     tree_dot_kernel(Operands<T> a, long long n_chunks, T* __restrict__ scratch,
                     T* __restrict__ out) {
   constexpr int V = Vec<T>::N;
-  constexpr int kLanes = 32 / V;                    // lanes of a group
-  constexpr int kRoundGroups = IT * kWarps * V;     // level-1 groups a round
+  constexpr int kLanes = 32 / V;                  // lanes of a group
+  constexpr int kRoundGroups = kWarps * V;        // level-1 groups a round
   constexpr int kRoundChunks = kRoundGroups / kGroup;
-  constexpr bool kOneCta = IT > 1;
   __shared__ T level1[kRoundGroups];
-  __shared__ T level2[kGroup];
   __shared__ bool last;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const long long rounds = (n_chunks + kRoundChunks - 1) / kRoundChunks;
   for (long long rd = blockIdx.x; rd < rounds; rd += gridDim.x) {
     const long long base = rd * kRoundGroups * kGroup;
-#pragma unroll
-    for (int it = 0; it < IT; ++it) {
-      const int q = warp + kWarps * it;  // the round's q-th warp load
-      T p[V];
-      load_products(a, base + static_cast<long long>(q) * 32 * V, p);
-      const T s = group_sum(p);
-      if (lane % kLanes == 0) level1[q * V + lane / kLanes] = s;
-    }
+    T p[V];
+    load_products(a, base + static_cast<long long>(warp) * 32 * V, p);
+    const T s = group_sum(p);
+    if (lane % kLanes == 0) level1[warp * V + lane / kLanes] = s;
     __syncthreads();
     if (warp < kRoundChunks) {
-      const T s = warp_sum(level1[kGroup * warp + lane]);
+      const T s2 = warp_sum(level1[kGroup * warp + lane]);
       const long long chunk = rd * kRoundChunks + warp;
-      if (lane == 0 && chunk < n_chunks) {
-        if (kOneCta) {
-          level2[chunk] = s;
-        } else {
-          __stcg(scratch + chunk, s);
-        }
-      }
+      if (lane == 0 && chunk < n_chunks) __stcg(scratch + chunk, s2);
     }
     __syncthreads();
-  }
-  if (kOneCta) {
-    if (warp == 0) {
-      // level 3, where level 2 left more than one sum
-      const T s = n_chunks == 1
-                      ? level2[0]
-                      : warp_sum(lane < n_chunks ? level2[lane]
-                                                 : static_cast<T>(0));
-      if (lane == 0) *out = s;
-    }
-    return;
   }
   // this CTA's chunk sums are written: count it; the last CTA finishes
   __threadfence();
@@ -237,7 +275,8 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T>
 int tree_dot(const void* u, const void* v, long long n, long long su,
-             long long sv, void* out, void* scratch, void* stream) {
+             long long sv, void* out, void* scratch, int cluster,
+             void* stream) {
   if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
   constexpr int V = Vec<T>::N;
   Operands<T> a;
@@ -252,16 +291,22 @@ int tree_dot(const void* u, const void* v, long long n, long long su,
   const long long n_chunks = (n + kChunk - 1) / kChunk;
   const auto s = static_cast<cudaStream_t>(stream);
   if (n_chunks <= kGroup) {
-    tree_dot_kernel<T, kGroup / V><<<1, kThreads, 0, s>>>(
-        a, n_chunks, nullptr, static_cast<T*>(out));
-  } else {
-    if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    const long long rounds = (n_chunks + V - 1) / V;
-    const unsigned grid =
-        static_cast<unsigned>(rounds < kMaxCtas ? rounds : kMaxCtas);
-    tree_dot_kernel<T, 1><<<grid, kThreads, 0, s>>>(
-        a, n_chunks, static_cast<T*>(scratch), static_cast<T*>(out));
+    if (cluster < 1 || cluster > kMaxCluster) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const int per = static_cast<int>((n_chunks + cluster - 1) / cluster);
+    const int warps = per * (kGroup / V) < kWarps ? per * (kGroup / V)
+                                                  : kWarps;
+    return static_cast<int>(launch_cluster(
+        tree_dot_cluster_kernel<T>, cluster, 32 * warps, 0, s, a,
+        static_cast<int>(n_chunks), per, static_cast<T*>(out)));
   }
+  if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const long long rounds = (n_chunks + V - 1) / V;
+  const unsigned grid =
+      static_cast<unsigned>(rounds < kMaxCtas ? rounds : kMaxCtas);
+  tree_dot_kernel<T><<<grid, kThreads, 0, s>>>(
+      a, n_chunks, static_cast<T*>(scratch), static_cast<T*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -269,19 +314,19 @@ int tree_dot(const void* u, const void* v, long long n, long long su,
 
 // u, v: n float32 entries at element strides su, sv; out: one float32;
 // scratch: ceil(n / 1024) float32 where n > 32,768 (else unused, may be
-// null). Launches on `stream` and returns the cudaGetLastError() code (0
-// on success).
+// null); cluster: the CTAs of the cluster form (n <= 32,768; 1-16).
+// Launches on `stream` and returns the cudaError_t code (0 on success).
 extern "C" int gt_tree_dot_f32(const void* u, const void* v, long long n,
                                long long su, long long sv, void* out,
-                               void* scratch, void* stream) {
-  return tree_dot<float>(u, v, n, su, sv, out, scratch, stream);
+                               void* scratch, int cluster, void* stream) {
+  return tree_dot<float>(u, v, n, su, sv, out, scratch, cluster, stream);
 }
 
 // The same in float64.
 extern "C" int gt_tree_dot_f64(const void* u, const void* v, long long n,
                                long long su, long long sv, void* out,
-                               void* scratch, void* stream) {
-  return tree_dot<double>(u, v, n, su, sv, out, scratch, stream);
+                               void* scratch, int cluster, void* stream) {
+  return tree_dot<double>(u, v, n, su, sv, out, scratch, cluster, stream);
 }
 
 extern "C" const char* gt_dot_error_string(int err) {

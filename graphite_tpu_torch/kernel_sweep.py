@@ -40,7 +40,13 @@ On a CUDA card (it exits 1 without one), from seeded random inputs:
    steps, its slices streamed), each at every cluster size; K6
    also with J' staged in shared memory and read from global memory only;
    and each kernel's sync floor: its barriers and exchanges per solve
-   times their cost at the cluster size its wrapper picks.
+   times their cost at the cluster size its wrapper picks;
+8. K9 (the PCG's dot) at Venice-1778's dim_p (16,002, float32 and
+   float64) and sphere2500's n d (14,994) on a cluster of 1, 2, 4, 8 and
+   16 CTAs, beside ``torch.dot``;
+9. K10 (the landmark inverses and W = Hpl Hll^-1) at Venice-1778's
+   shape (993,923 3x3 Hll blocks, Poisson(5.03) (9, 3) Hpl blocks a
+   landmark: ~5.0 M) beside its plain version and its bytes bound.
 
 Device times are CUDA-event means over 20 calls captured in one CUDA
 graph and replayed, so no host time is in them. Prints one line per
@@ -58,9 +64,11 @@ import numpy as np
 import torch
 
 from .ops.cuda import (
+    dot,
     launches,
     pcg_dense,
     pcg_mf,
+    schur_w,
     segmv,
     segsum,
     segsum_stream,
@@ -442,6 +450,43 @@ def k2_clusters(rng, dev, costs):
         print(line, flush=True)
 
 
+def k9_clusters(rng, dev):
+    for label, n, dtype in (("Venice dim_p", 16_002, torch.float32),
+                            ("Venice dim_p", 16_002, torch.float64),
+                            ("sphere2500 n d", 14_994, torch.float32)):
+        u, v = (torch.as_tensor(rng.standard_normal(n), dtype=dtype,
+                                device=dev) for _ in range(2))
+        line = (f"[k9] {label} n={n} {str(dtype)[6:]}, cluster rule "
+                f"{dot.cluster_size(n)}:")
+        for c in CLUSTERS:
+            ms = graph_ms(lambda: dot._launch(u, v, c), reps=200)
+            line += f" c{c}={ms:.5f}"
+        ms = graph_ms(lambda: torch.dot(u, v), reps=200)
+        print(line + f" torch.dot={ms:.5f}", flush=True)
+
+
+def k10_venice(rng, dev):
+    L, dp, dl = 993_923, 9, 3
+    counts = rng.poisson(5.03, L)
+    a = torch.as_tensor(rng.standard_normal((L, dl, dl)),
+                        dtype=torch.float32, device=dev)
+    hll = (a @ a.transpose(1, 2)
+           + dl * torch.eye(dl, device=dev)).reshape(L, dl * dl)
+    plan = schur_w.plan_w(counts, dev)
+    hpl = torch.randn(plan.rows, dp * dl, device=dev)
+    ms = graph_ms(lambda: schur_w.schur_w(hll, hpl, plan, dp, dl))
+
+    def plain():
+        inv = schur_w.hll_inverse_plain(hll, dl)
+        return schur_w.hpl_w_plain(hpl, inv, plan, dp, dl)
+
+    plain_ms = graph_ms(plain, reps=5)
+    moved = 2 * 4 * (hll.numel() + hpl.numel())
+    print(f"[k10] L={L} K={plan.rows} ({dp},{dl}): ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bytes bound ms={1e3 * moved / 3.35e12:.4f}"
+          f" ({moved / ms / 1e6:.0f} GB/s)", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("kernel_sweep: no CUDA device available", file=sys.stderr)
@@ -464,6 +509,9 @@ def main():
     costs = sync_costs(dev)
     k6_clusters(dev, costs)
     k2_clusters(rng, dev, costs)
+    k9_clusters(rng, dev)
+    torch.cuda.empty_cache()
+    k10_venice(rng, dev)
     return 0
 
 

@@ -17,6 +17,8 @@
   gather over CUDA IPC (``csrc/allreduce.cu``);
 - ``dot``: kernel K9, the PCG's inner product in ``pcg_loop.tree_sum``'s
   order, one launch a dot (``csrc/dot.cu``);
+- ``schur_w``: kernel K10, the Schur complement's landmark inverses and
+  W = Hpl Hll^-1, one launch per Hpl group (``csrc/schur_w.cu``);
 - ``cond``: the conditional graph nodes of the captured LM iteration
   (``csrc/cond.cu``).
 

@@ -8,8 +8,10 @@ is a fill-in block of S (unioned with the Hpp sparsity), and each pair is
 one triple product ``dst -= W_left R_right^T`` with ``W = Hpl Hll^{-1}``;
 the products are grouped by (dp_a, dl, dp_b) and sorted by destination.
 
-Values (``schur_values``): Hll^{-1} per landmark dim, the Hpp copy
-(unique destinations, an indexed assignment), W, and the triple products.
+Values (``schur_values``): Hll^{-1} per landmark dim and W (``landmark_w``:
+K10, ``ops/cuda/schur_w``, one launch per Hpl group where the inverses
+are float32 and at most 3x3), the Hpp copy (unique destinations, an
+indexed assignment), and the triple products.
 At most ``_chunk_threshold`` products per group are formed row by row and
 reduced by the sorted-segment-sum kernel (K1, ``ops/cuda/segsum``); above
 it the fused triple-product kernel (K3) reads W and Hpl by index and
@@ -51,13 +53,12 @@ import torch
 
 from . import hostops
 from .hessian import HessianValues, build_hessian_structure
-from .ops.batched_linalg import spd_inverse_flat
 from .ops.blockfmt import (
-    flat_block_mm_nn,
     flat_block_mm_nt,
     flat_block_mv,
     flat_block_mv_t,
 )
+from .ops.cuda import schur_w
 from .ops.cuda.segmv import (
     block_matvec_wtbl,
     matvec_sym_stream,
@@ -373,51 +374,63 @@ class SchurValues:
     s_vals: Dict[Tuple[int, int], torch.Tensor]  # key -> (nS_g, dr*dc)
 
 
-def _hpl_w_counts(problem, ss: SchurStructure, key) -> torch.Tensor:
-    """Repeat counts that expand Hll^{-1} (one row per landmark) to the
-    Hpl blocks of ``key``. Valid only because the Hpl blocks are sorted by
-    landmark (CSC order), which is checked here."""
-    cache = problem._cache.setdefault("hpl_w_counts", {})
+def _w_plan(problem, ss: SchurStructure, key) -> schur_w.WPlan:
+    """Where each landmark's blocks are in Hpl group ``key`` (its repeat
+    counts and row offsets, built on the host once). Valid only because
+    the Hpl blocks are sorted by landmark (CSC order), which is checked
+    here."""
+    cache = problem._cache.setdefault("hpl_w_plans", {})
     if key not in cache:
         dl = key[1]
         gi = ss.lm_group_index[ss.hpl_lm[key]]
         if gi.size and np.any(np.diff(gi) < 0):
             raise ValueError("Hpl blocks are not sorted by landmark")
-        cache[key] = torch.as_tensor(
+        cache[key] = schur_w.plan_w(
             np.bincount(gi, minlength=ss.lm_h_idx[dl].shape[0]),
-            device=problem.device)
+            problem.device)
     return cache[key]
 
 
-def hpl_w_values(problem, ss: SchurStructure, hvals: HessianValues,
-                 hll_inv: Dict[int, torch.Tensor]
-                 ) -> Dict[Tuple[int, int], torch.Tensor]:
-    """W = Hpl Hll^{-1} once per Hpl block, per Hpl group. Hll^{-1} is
-    symmetric, so each triple product L M R^T is W_left R_right^T."""
+def landmark_w(problem, ss: SchurStructure, hvals: HessianValues
+               ) -> Tuple[Dict[int, torch.Tensor],
+                          Dict[Tuple[int, int], torch.Tensor]]:
+    """Hll^{-1} per landmark dim and W = Hpl Hll^{-1} once per Hpl block,
+    per Hpl group. Hll^{-1} is symmetric, so each triple product L M R^T
+    is W_left R_right^T. A landmark dim whose inverses are float32 and
+    at most 3x3 (``schur_w.gate``) takes K10, one launch per Hpl group of
+    the dim (the first stores the inverses); any other keeps the plain
+    versions, on the card as well."""
     inv_dt = problem.precision.inv_dtype
-    hpl_w = {}
-    for key in ss.hpl_keys:
-        dp, dl = key
-        hpl = take_rows(problem, ("hpl_h", key), hvals[key],
-                        ss.hpl_h_idx[key])
-        inv_exp = torch.repeat_interleave(
-            hll_inv[dl], _hpl_w_counts(problem, ss, key), dim=0,
-            output_size=hpl.shape[0])
-        hpl_w[key] = flat_block_mm_nn(hpl.to(inv_dt), inv_exp, dp, dl, dl,
-                                      acc_dtype=inv_dt)
-    return hpl_w
+    hll_inv, hpl_w = {}, {}
+    for d in ss.lm_dims:
+        hll = take_rows(problem, ("lm_h_idx", d), hvals[(d, d)],
+                        ss.lm_h_idx[d]).to(inv_dt)
+        keys = [key for key in ss.hpl_keys if key[1] == d]
+        k10 = schur_w.gate(inv_dt, d)
+        if not k10:
+            hll_inv[d] = schur_w.hll_inverse_plain(hll, d)
+        elif not keys:
+            hll_inv[d], _ = schur_w.schur_w(hll, None, None, 0, d)
+        for i, key in enumerate(keys):
+            hpl = take_rows(problem, ("hpl_h", key), hvals[key],
+                            ss.hpl_h_idx[key]).to(inv_dt)
+            plan = _w_plan(problem, ss, key)
+            if not k10:
+                hpl_w[key] = schur_w.hpl_w_plain(hpl, hll_inv[d], plan,
+                                                 key[0], d)
+                continue
+            inv, hpl_w[key] = schur_w.schur_w(hll, hpl, plan, key[0], d,
+                                              write_inverse=i == 0)
+            if i == 0:
+                hll_inv[d] = inv
+    return hll_inv, {key: hpl_w[key] for key in ss.hpl_keys}
 
 
 def schur_values(problem, ss: SchurStructure,
                  hvals: HessianValues) -> SchurValues:
     """S = Hpp - Hpl Hll^{-1} Hpl^T from damped H values."""
     inv_dt = problem.precision.inv_dtype
-
-    hll_inv = {}
-    for d in ss.lm_dims:
-        hll = take_rows(problem, ("lm_h_idx", d), hvals[(d, d)],
-                        ss.lm_h_idx[d])
-        hll_inv[d] = spd_inverse_flat(hll.to(inv_dt), d)
+    hll_inv, hpl_w = landmark_w(problem, ss, hvals)
 
     # S storage starts as a copy of Hpp (unique destinations)
     s_vals = {key: torch.zeros((ss.s_sizes[key], key[0] * key[1]),
@@ -428,7 +441,6 @@ def schur_values(problem, ss: SchurStructure,
         s_vals[hkey].index_copy_(0, problem.index(("hpp_s", hi), s_idx),
                                  src.to(inv_dt))
 
-    hpl_w = hpl_w_values(problem, ss, hvals, hll_inv)
     if problem.sharded:
         _sharded_products(problem, ss, hvals, hpl_w, s_vals)
         return SchurValues(hll_inv=hll_inv, s_vals=s_vals)

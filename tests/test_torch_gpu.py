@@ -94,11 +94,22 @@ on a machine with only PyTorch (``--noconftest`` skips the JAX set-up in
   1,000,003, under each storage type, scaled and unscaled: bitwise its
   plain version on the card and on the CPU, and repeatable.
 - K9 (``csrc/dot.cu``), the PCG's dot: bitwise ``tree_dot_plain`` at n
-  from 1 to 10^6 (its one-CTA and multi-CTA forms), float32 and float64,
-  on finite inputs, all -0.0 products, +-inf and NaN; repeatable, and the
-  same bits in a replayed CUDA graph; other dtypes raise. Under
-  ``jit_loop`` the CG "while" node's body launches it three times, the
-  step's region twice.
+  from 1 to 10^6 (its cluster and multi-CTA forms, the cluster form's
+  edges at 14,994, 16,002, 16,384 and 16,385 entries), float32 and
+  float64, on finite inputs, all -0.0 products, +-inf and NaN;
+  repeatable, and the same bits in a replayed CUDA graph; the cluster
+  form the same bits on 1, 2, 4, 8 and 16 CTAs; other dtypes raise.
+  Under ``jit_loop`` the CG "while" node's body launches it three times,
+  the step's region twice.
+- K10 (``csrc/schur_w.cu``), the landmark inverses and W = Hpl Hll^-1:
+  bitwise its plain version on the card and on the CPU at dl 1, 2 and 3
+  and dp 3, 6 and 9 (1,000 landmarks, some with no block, one with 700;
+  -0.0 entries), with the inverses stored, not stored and alone, bitwise
+  repeatable and in a replayed CUDA graph; off its dtypes, at dl 4 and
+  on a misaligned start it raises; a float32 ``schur_values`` launches
+  it once and gives the CPU's bits (K3's branch forced and not); a
+  float64 one launches none. At Ladybug-49 under FP32_BF16 it launches
+  once an iteration.
 - K8 (``csrc/allreduce.cu``) on two ranks of one card: its sum and
   gather bitwise its plain version (gloo on the same CUDA tensors, inputs
   with -0.0 entries; float32, float64, int64, an empty tensor), bitwise
@@ -120,6 +131,7 @@ from graphite_tpu_torch.linearize import linearize
 from graphite_tpu_torch.ops import pcg_loop
 from graphite_tpu_torch.ops.cuda import bal as k7
 from graphite_tpu_torch.ops.cuda import dot as k9
+from graphite_tpu_torch.ops.cuda import schur_w as k10
 from graphite_tpu_torch.ops.cuda import (
     pcg_dense,
     pcg_mf,
@@ -296,6 +308,7 @@ def test_ladybug_fp32_bf16_cuda_equals_cpu(cuda_device):
     for name, p in gpu.params.items():
         assert torch.equal(p.cpu(), cpu.params[name])
     assert launches["pcg_dense.dense_pcg"] == len(gpu.history)
+    assert launches[k10.STATS.name] == len(gpu.history)
     assert launches["segsum_stream.streaming_segment_sum"] > 0
     assert launches["segsum_stream.streaming_segment_sum[f64]"] == 0
     assert gpu.chi2 < gpu.initial_chi2
@@ -1456,10 +1469,12 @@ def test_ladybug_lm_under_k7_cuda_equals_cpu(cuda_device, policy):
     assert launches[k7.RESIDUAL_STATS.name] == len(gpu.history)
 
 
-# K9 (csrc/dot.cu): one CTA up to 32,768 entries (three levels), the
-# multi-CTA form above (32,769; 40,000; a million: four and five levels)
-K9_SIZES = [1, 31, 32, 33, 1024, 1025, 16_002, 32_768, 32_769, 40_000,
-            1_000_000]
+# K9 (csrc/dot.cu): one thread-block cluster up to 32,768 entries (three
+# levels; sphere2500's 14,994 and Venice's 16,002 entries, 16 chunks full
+# and one entry past), the multi-CTA form above (32,769; 40,000; a
+# million: four and five levels)
+K9_SIZES = [1, 31, 32, 33, 1024, 1025, 14_994, 16_002, 16_384, 16_385,
+            32_768, 32_769, 40_000, 1_000_000]
 K9_CASES = ("finite", "negative_zeros", "inf", "nan")
 
 
@@ -1527,3 +1542,148 @@ def test_k9_raises_off_its_dtypes(cuda_device):
         k9.tree_dot(x, x.double())
     with pytest.raises(ValueError):
         k9.tree_dot(x.view(8, 8), x.view(8, 8))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("n", [1025, 16_002, 32_768])
+def test_k9_same_bits_at_every_cluster_size(cuda_device, n, dtype):
+    """The cluster form on 1, 2, 4, 8 and 16 CTAs (a CTA taking up to 32,
+    16, 8, 4 or 2 chunks): bitwise ``tree_dot_plain`` at every size, on
+    inputs with -0.0 entries."""
+    u, v = _k9_operands(n, dtype, "finite", cuda_device)
+    ref = pcg_loop.tree_dot_plain(u, v)
+    for c in (1, 2, 4, 8, 16):
+        assert _k9_bits(k9._launch(u, v, c)) == _k9_bits(ref), c
+
+
+# K10 (csrc/schur_w.cu): 1,000 landmarks (four CTAs of 256, the last one
+# partial), 0 to 9 blocks each, every 17th none and one 700 (its CTA walks
+# three chunks of rows), so the spans start at every offset from a 16-byte
+# boundary; every 7th Hpl entry -0.0
+K10_DIMS = [(3, 1), (9, 1), (3, 2), (6, 2), (9, 2), (3, 3), (6, 3), (9, 3)]
+
+
+def _k10_inputs(dp, dl, L=1000):
+    rng = np.random.default_rng(100 * dp + dl)
+    a = rng.standard_normal((L, dl, dl))
+    hll = (a @ a.transpose(0, 2, 1) + dl * np.eye(dl)).reshape(L, dl * dl)
+    counts = rng.integers(0, 10, L)
+    counts[::17] = 0
+    counts[300] = 700
+    K = int(counts.sum())
+    hpl = rng.standard_normal((K, dp * dl)) * 10.0 ** rng.integers(
+        -3, 4, (K, 1))
+    hpl.reshape(-1)[::7] = -0.0
+    return (torch.tensor(hll, dtype=torch.float32),
+            torch.tensor(hpl, dtype=torch.float32), counts)
+
+
+def _k10_bits(t):
+    return t.view(torch.int32)
+
+
+@pytest.mark.parametrize("dp,dl", K10_DIMS)
+def test_k10_matches_plain_bitwise(cuda_device, dp, dl):
+    """K10 bitwise its plain version on the card and on the CPU, bitwise
+    repeatable, with the inverses stored or not and alone, one launch a
+    call; the same bits replayed from a CUDA graph, also on new inputs
+    written into the captured ones."""
+    chll, chpl, counts = _k10_inputs(dp, dl)
+    hll, hpl = chll.to(cuda_device), chpl.to(cuda_device)
+    plan = k10.plan_w(counts, cuda_device)
+    before = k10.STATS.launches
+    inv, w = k10.schur_w(hll, hpl, plan, dp, dl)
+    inv2, w2 = k10.schur_w(hll, hpl, plan, dp, dl)
+    none, w3 = k10.schur_w(hll, hpl, plan, dp, dl, write_inverse=False)
+    alone, no_w = k10.schur_w(hll, None, None, 0, dl)
+    assert k10.STATS.launches - before == 4
+    assert none is None and no_w is None
+    ref_inv = k10.hll_inverse_plain(hll, dl)
+    ref_w = k10.hpl_w_plain(hpl, ref_inv, plan, dp, dl)
+    cpu_inv, cpu_w = k10.schur_w(chll, chpl, k10.plan_w(counts, "cpu"), dp,
+                                 dl)
+    torch.cuda.synchronize()
+    for got in (inv, inv2, alone):
+        assert torch.equal(_k10_bits(got), _k10_bits(ref_inv))
+        assert torch.equal(_k10_bits(got.cpu()), _k10_bits(cpu_inv))
+    for got in (w, w2, w3):
+        assert torch.equal(_k10_bits(got), _k10_bits(ref_w))
+        assert torch.equal(_k10_bits(got.cpu()), _k10_bits(cpu_w))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_inv, g_w = k10.schur_w(hll, hpl, plan, dp, dl)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(_k10_bits(g_inv), _k10_bits(ref_inv))
+    assert torch.equal(_k10_bits(g_w), _k10_bits(ref_w))
+    hpl.mul_(-2.0)
+    hll.add_(1.0)
+    graph.replay()
+    ref_inv = k10.hll_inverse_plain(hll, dl)
+    ref_w = k10.hpl_w_plain(hpl, ref_inv, plan, dp, dl)
+    torch.cuda.synchronize()
+    assert torch.equal(_k10_bits(g_inv), _k10_bits(ref_inv))
+    assert torch.equal(_k10_bits(g_w), _k10_bits(ref_w))
+
+
+def test_k10_raises_off_its_dtypes(cuda_device):
+    """No fallback: float64 and bf16 blocks, dl 4 and a misaligned start
+    raise."""
+    chll, chpl, counts = _k10_inputs(9, 3)
+    hll, hpl = chll.to(cuda_device), chpl.to(cuda_device)
+    plan = k10.plan_w(counts, cuda_device)
+    with pytest.raises(NotImplementedError):
+        k10.schur_w(hll.double(), hpl.double(), plan, 9, 3)
+    with pytest.raises(NotImplementedError):
+        k10.schur_w(hll, hpl.bfloat16(), plan, 9, 3)
+    with pytest.raises(NotImplementedError):
+        k10.schur_w(torch.ones(8, 16, device=cuda_device), None, None, 0, 4)
+    odd = torch.empty(hll.numel() + 1, device=cuda_device)[1:].view_as(hll)
+    odd.copy_(hll)
+    with pytest.raises(ValueError, match="aligned"):
+        k10.schur_w(odd, hpl, plan, 9, 3)
+
+
+def _schur_values(device, precision):
+    """``schur_values`` of a small BAL problem's damped Hessian on
+    ``device``, with K10's launches."""
+    g, *_ = bal.build_graph(synthetic.make_bal((6, 60, 300), seed=3,
+                                               noise=0.5),
+                            precision=precision)
+    problem = g.freeze(device=device)
+    from graphite_tpu_torch import hessian
+
+    ss = schur.build_schur_structure(problem)
+    hs = hessian.build_hessian_structure(problem)
+    lin = linearize(problem, problem.params0)
+    hv = hessian.apply_damping(
+        problem, hs, hessian.compute_hessian_values(problem, hs, lin),
+        lin.diag, 1e-2, False)
+    before = k10.STATS.launches
+    sv = schur.schur_values(problem, ss, hv)
+    torch.cuda.synchronize()
+    return ss, sv, k10.STATS.launches - before
+
+
+@pytest.mark.parametrize("forced", [False, True])
+def test_k10_schur_values_cuda_equals_cpu(cuda_device, monkeypatch, forced):
+    """A float32 ``schur_values`` on the card launches K10 once (one Hpl
+    group) and gives the CPU's bits, with K3's branch forced or not."""
+    if forced:
+        monkeypatch.setattr(schur, "CHUNK_THRESHOLD", 0)
+    _, cpu, _ = _schur_values("cpu", gtt.FP32_FP32)
+    ss, gpu, launches = _schur_values(cuda_device, gtt.FP32_FP32)
+    assert launches == len(ss.hpl_keys) == 1
+    for d in cpu.hll_inv:
+        assert torch.equal(_k10_bits(gpu.hll_inv[d].cpu()),
+                           _k10_bits(cpu.hll_inv[d]))
+    for key in cpu.s_vals:
+        assert torch.equal(_k10_bits(gpu.s_vals[key].cpu()),
+                           _k10_bits(cpu.s_vals[key]))
+
+
+def test_k10_not_launched_under_fp64(cuda_device):
+    """FP64_FP64's float64 inverses keep the plain code: no K10 launch."""
+    _, sv, launches = _schur_values(cuda_device, gtt.FP64_FP64)
+    assert launches == 0
+    assert all(t.dtype == torch.float64 for t in sv.hll_inv.values())

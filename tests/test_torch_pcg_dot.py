@@ -12,6 +12,10 @@ version ``tree_dot_plain``.
   of the tree over the chunk sums: K9's multi-CTA split) bitwise
   ``tree_sum`` at the same n for 1, 7 and 264 CTAs, on inputs with -0.0,
   all -0.0 and cancellation.
+- The cluster form's split (K9 up to 32,768 entries: whole chunks per CTA
+  on ``cluster_size``'s CTAs, and on 8 and 16) bitwise ``tree_sum`` at its
+  edges (1, 1,024 and 1,025, 14,994, 16,002, 16,384 and 16,385, 32,768 and
+  32,769 entries) in float32 and float64.
 - ``run_pcg`` and ``run_pcg_fixed`` with ``dot=tree_dot_plain`` bitwise
   their default (``tree_dot``) on the CPU.
 - K2's and K6's plain versions (``dense_pcg_plain``,
@@ -80,6 +84,48 @@ def test_chunked_tree_sum_is_tree_sum(n, ctas):
     for w in (v, -v.abs(), torch.full((n,), -0.0)):
         got, ref = tree_sum_chunked(w, ctas), tree_sum(w)
         assert got.view(torch.int32) == ref.view(torch.int32)
+
+
+# K9's cluster form up to 32,768 entries (32 chunks), the multi-CTA form
+# above: one chunk, 16 and 32 chunks full and one entry past, Venice's
+# dim_p and sphere2500's n d
+CLUSTER_SIZES = [1, 1024, 1025, 14_994, 16_002, 16_384, 16_385, 32_768,
+                 32_769]
+
+
+@pytest.mark.parametrize("n", CLUSTER_SIZES)
+def test_cluster_split_is_tree_sum(n):
+    """The cluster form's split (whole chunks per CTA, ``cluster_size``'s
+    CTAs and the 8 and 16 that ``kernel_sweep`` compares) is bitwise
+    ``tree_sum`` in float32 and float64, on products with -0.0, all -0.0
+    and cancellation."""
+    v = signed_zeros_and_cancellation(n, seed=3)
+    chunks = -(-n // k9.CHUNK)
+    c = k9.cluster_size(n)
+    assert c & (c - 1) == 0 and 1 <= c <= k9.CLUSTER
+    # every chunk has a CTA, and a CTA takes at most two chunks: one warp
+    # load a thread in float32 (8 a chunk) and in float64 (16)
+    per = -(-chunks // c)
+    assert c * per >= chunks and (chunks > k9.CLUSTER_CHUNKS or per <= 2)
+    for dtype in (torch.float32, torch.float64):
+        for w in (v, -v.abs(), torch.full((n,), -0.0)):
+            w = w.to(dtype)
+            ref = tree_sum(w)
+            for ctas in sorted({c, 8, 16}):
+                got = tree_sum_chunked(w, ctas)
+                assert _bits(got) == _bits(ref), (dtype, ctas)
+            u = torch.ones(n, dtype=dtype)
+            assert _bits(tree_dot(w, u)) == _bits(ref)
+
+
+def _bits(t):
+    return t.view({4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+def test_cluster_size_rule():
+    assert [k9.cluster_size(n) for n in (1, 1024, 1025, 3000, 8192, 8193,
+                                         16_002, 32_768)] == [
+        1, 1, 2, 4, 8, 16, 16, 16]
 
 
 def _spd(n, seed, dtype):

@@ -122,11 +122,12 @@ FACTORS = {
 }
 
 
-def _generic_graphs(vertices, factors, seed, weighted=False):
+def _generic_graphs(vertices, factors, seed, weighted=False,
+                    precision="FP64_FP64"):
     """Build the same graph in both packages. ``vertices``: [(name, dim,
     count, id_base, eliminate)]; ``factors``: [(fname, residual dim,
     (vname_a, vname_b), count, obs dim)]. ``weighted`` gives every factor
-    a random SPD precision matrix."""
+    a random SPD precision matrix; ``precision`` names the policy."""
     rng = np.random.default_rng(seed)
     vals = {name: rng.normal(1.0 if not elim else 0.5, 0.3, (count, dim))
             for name, dim, count, _, elim in vertices}
@@ -144,7 +145,7 @@ def _generic_graphs(vertices, factors, seed, weighted=False):
             precisions[fname] = a @ a.transpose(0, 2, 1) + np.eye(edim)
     graphs = []
     for pkg, is_jax in ((gt, True), (gtt, False)):
-        g = pkg.Graph(precision=pkg.FP64_FP64)
+        g = pkg.Graph(precision=getattr(pkg, precision))
         vt, base = {}, {}
         for name, dim, count, id_base, elim in vertices:
             vt[name] = pkg.vertex_type(name, dim)
@@ -169,20 +170,22 @@ def _generic_graphs(vertices, factors, seed, weighted=False):
     return graphs
 
 
-def _multitype():
+def _multitype(precision="FP64_FP64"):
     return _generic_graphs(
         [("mt_pose4", 4, 3, 0, False), ("mt_pose2", 2, 2, 100, False),
          ("mt_lm3", 3, 6, 200, True), ("mt_lm1", 1, 4, 300, True)],
         [("f43", 2, ("mt_pose4", "mt_lm3"), 30, 2),
          ("f41", 1, ("mt_pose4", "mt_lm1"), 15, 1),
-         ("f23", 2, ("mt_pose2", "mt_lm3"), 20, 2)], seed=0)
+         ("f23", 2, ("mt_pose2", "mt_lm3"), 20, 2)], seed=0,
+        precision=precision)
 
 
-def _mixed_dims():
+def _mixed_dims(precision="FP64_FP64"):
     return _generic_graphs(
         [("mt_pose3", 3, 4, 0, False), ("mt_lm3b", 3, 7, 100, True)],
         [("f33", 2, ("mt_pose3", "mt_lm3b"), 40, 2),
-         ("f33pp", 2, ("mt_pose3", "mt_pose3"), 6, 2)], seed=4)
+         ("f33pp", 2, ("mt_pose3", "mt_pose3"), 6, 2)], seed=4,
+        precision=precision)
 
 
 def _weighted():
