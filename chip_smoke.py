@@ -76,7 +76,8 @@ own:
    with the plain versions: each section's seconds both ways (and the
    builders' laps), every array equal, the host CPU, ``os.cpu_count()``,
    the library's threads and build seconds;
-6. K1, K3 (by index, and from gathered streams), K4 and K5 vs their
+6. K1, K3 (by index, storing S = Hpp - the sums as ``schur_values``
+   calls it, and from gathered streams), K4 and K5 vs their
    plain versions on the card at Venice-1778's own shapes (indices and
    segment plans of the frozen problem, values of its first
    linearization, or seeded where the site has none or its values are
@@ -84,7 +85,11 @@ own:
    and bitwise equal to the plain version on the CPU. K3's label counts
    its segments by lanes; K3 also times its best library route, two
    calls (``torch.bmm`` on the gathered streams, then ``index_add_``),
-   as a yardstick: no single PyTorch call computes its function;
+   as a yardstick: no single PyTorch call computes its function. K3's
+   base store (``[k3-store]``): bitwise ``product_store_plain`` of K3's
+   own sums on the card, in place on S and replayed from a CUDA graph,
+   one launch a call; its ms beside K3 storing the sums alone and the
+   ops the store replaced (zero S, copy Hpp in, subtract);
 6k. ``k7``: K7's four entries (``bal_residual``, ``bal_linearize``,
    ``bal_scale_b``, and ``bal_hessian_sum`` at each of Venice's three
    Hessian sites on its real plan) at Venice-1778's shapes (its first
@@ -194,7 +199,10 @@ peak memory:
     an accepted iteration run eagerly (``torch.profiler``), with K7 and
     K9, with the plain dots in K9's place (as before K9: fewer kernels
     with K9) and with K7's gate shut, the first two also as device ms by
-    kernel name, the first also by host op and input shapes;
+    kernel name, the first also by host op and input shapes: no
+    subtraction or fill over an S group (K3 stores S = Hpp - the sums)
+    and, in the accepted iteration, no copy of an Hpl group or a stored
+    J (the accepted branch relinearizes into the loop's state);
 17. ``jit-sphere2500`` (after phase 4c, against phase 4b's run): 30
     iterations, K6 once per replay;
 18. ``remask``: Ladybug-49 frozen with ``remaskable=True`` on the card, 10
@@ -1640,7 +1648,8 @@ def phase_venice_kernels(problem, lin, hv, sv, ops):
     def spmv(csr, x):
         return lambda: torch.mv(csr, x.reshape(-1))
 
-    # K3: the Schur triple products, W and Hpl read by index
+    # K3: the Schur triple products, W and Hpl read by index, and S = Hpp
+    # - their sums written by K3's store, as schur_values calls it
     (pg,) = ss.products
     dpa, dl, dpb = pg["dims"]
     ns = ss.s_sizes[pg["dst_key"]]
@@ -1649,24 +1658,35 @@ def phase_venice_kernels(problem, lin, hv, sv, ops):
     plan = product_plan(problem, ("prod_k3", 0), pg["dst"], ns)
     li = problem.index32(("prod_l", 0), pg["left"])
     ri = problem.index32(("prod_r", 0), pg["right"])
-    cW, cR, cli, cri = cpu(W, R, li, ri)
+    base, bidx = schur.hpp_base(problem, ss, hv, pg["dst_key"])
+    cW, cR, cli, cri, cbase, cbidx = cpu(W, R, li, ri, base, bidx)
     cplan = segsum_stream.plan_products(pg["dst"], ns, "cpu")
     label = (f"{plan.rows}x({dpa},{dl},{dpb})->{ns}, segments by lanes "
              f"{product_lanes_label(plan)} schur_values")
-    # K3 reads W, Hpl and both index streams once, writes S once; each
-    # product is dpa*dl*dpb multiply-adds
-    work = bound(nbytes(W, R, li, ri, plan.segments.offsets_i32)
-                 + 4 * ns * dpa * dpb, 2 * plan.rows * dpa * dl * dpb)
+    n_hpp = int((bidx >= 0).sum())
+    # K3 reads W, Hpl, both index streams, the base index and the Hpp
+    # blocks it copies once, writes S once; each product is dpa*dl*dpb
+    # multiply-adds
+    work = bound(nbytes(W, R, li, ri, plan.segments.offsets_i32, bidx)
+                 + 4 * (n_hpp + ns) * dpa * dpb,
+                 2 * plan.rows * dpa * dl * dpb)
+
+    def k3_store():
+        return segsum_stream.streaming_segment_product_sum_rtbl(
+            W, R, plan, dpa, dl, dpb, li, ri, base=base, base_idx=bidx)
+
     add("segsum_stream.streaming_segment_product_sum_rtbl", measure(
-        "k3", label,
-        lambda: segsum_stream.streaming_segment_product_sum_rtbl(
-            W, R, plan, dpa, dl, dpb, li, ri),
-        lambda: segsum_stream.segment_product_sum_plain(
-            W, R, plan, dpa, dl, dpb, li, ri),
-        lambda: segsum_stream.segment_product_sum_plain(
-            cW, cR, cplan, dpa, dl, dpb, cli, cri), 5, 2, work,
-        was=WAS_MS["schur_values"]))
-    del cW, cR
+        "k3", label + ", S = Hpp - the sums stored", k3_store,
+        lambda: segsum_stream.product_store_plain(
+            segsum_stream.segment_product_sum_plain(
+                W, R, plan, dpa, dl, dpb, li, ri), base, bidx),
+        lambda: segsum_stream.product_store_plain(
+            segsum_stream.segment_product_sum_plain(
+                cW, cR, cplan, dpa, dl, dpb, cli, cri), cbase, cbidx),
+        5, 2, work, was=WAS_MS["schur_values"]))
+    del cW, cR, cbase, cbidx
+    k3_store_bits(k3_store, W, R, plan, (dpa, dl, dpb), li, ri, base, bidx,
+                  work)
     # the same products from gathered streams (no path calls this entry):
     # K3 reads both streams once, writes S once
     Wg, Rg = W.index_select(0, li.long()), R.index_select(0, ri.long())
@@ -1803,6 +1823,69 @@ def phase_venice_kernels(problem, lin, hv, sv, ops):
     del S, cS, csr
     torch.cuda.empty_cache()
     return results
+
+
+def k3_store_bits(k3_store, W, R, plan, dims, li, ri, base, bidx, work):
+    """K3's base store at Venice's first ``schur_values`` inputs: bitwise
+    its plain version (``product_store_plain``) of K3's own sums on the
+    card, in place on S (a later product group's form), and replayed
+    from a CUDA graph; one launch a call. Its ms beside K3 storing the
+    sums alone (3.4619 when K3 was redesigned) and the ops the store
+    replaced (zero S, copy Hpp in, subtract), all in this run."""
+    import torch
+
+    from graphite_tpu_torch.ops.cuda import segsum_stream
+
+    def k3_sums():
+        return segsum_stream.streaming_segment_product_sum_rtbl(
+            W, R, plan, *dims, li, ri)
+
+    def bits(t):
+        return t.view(torch.int32)
+
+    stats = segsum_stream.PRODUCT_RTBL_STATS
+    before = stats.launches
+    out = k3_store()
+    launches = stats.launches - before
+    sums = k3_sums()
+    ref = segsum_stream.product_store_plain(sums, base, bidx)
+    s = ref.clone()
+    in_place = segsum_stream.streaming_segment_product_sum_rtbl(
+        W, R, plan, *dims, li, ri, base=s)
+    ref_in_place = segsum_stream.product_store_plain(sums, ref.clone(), None)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = k3_store()
+    graph.replay()
+    torch.cuda.synchronize()
+    ok = dict(vs_plain=torch.equal(bits(out), bits(ref)),
+              in_place=(in_place.data_ptr() == s.data_ptr()
+                        and torch.equal(bits(in_place), bits(ref_in_place))),
+              in_graph=torch.equal(bits(captured), bits(ref)))
+    del out, s, in_place, ref_in_place, captured, graph
+    rows = torch.nonzero(bidx >= 0).reshape(-1)
+    h_rows = bidx.index_select(0, rows).long()
+
+    def replaced():  # schur_values' ops before the store moved into K3
+        z = torch.zeros_like(sums)
+        z.index_copy_(0, rows, base.index_select(0, h_rows))
+        return z - sums
+
+    check(torch.equal(bits(replaced()), bits(ref)),
+          "k3: the plain store is not the replaced ops' bits")
+    del ref
+    torch.cuda.empty_cache()
+    ms = device_ms(k3_store, 5)
+    sums_ms = device_ms(k3_sums, 5)
+    replaced_ms = device_ms(replaced, 5)
+    print(f"[k3-store] S = Hpp - sums in K3's store, Venice schur_values: "
+          f"bitwise {ok} launches a call={launches} ms={ms:.4f} K3 storing "
+          f"the sums alone ms={sums_ms:.4f} (at its redesign: 3.4619) the "
+          f"replaced ops (zero S, copy Hpp in, subtract) ms={replaced_ms:.4f} "
+          f"bound_ms={bound_fields(work)} ({card_label()})")
+    for what, good in ok.items():
+        check(good, f"k3: the base store is not bitwise ({what})")
+    check(launches == 1, f"k3: the base store launched {launches} times")
 
 
 # float32 operations per factor of K7's entries, as written in
@@ -3016,6 +3099,25 @@ def print_breakdown(tag, by_name, top=16, by="name"):
           f"{sum(m for _, (_, m) in rest):.4f})")
 
 
+def stale_shapes(problem):
+    """The shapes, as a trace prints them, of each S group (K3 stores S
+    = Hpp - the sums: no subtraction or fill there) and of each Hpl
+    group and stored J (the accepted branch relinearizes in place: no
+    copy of them)."""
+    from graphite_tpu_torch import hessian, schur
+
+    ss = schur.build_schur_structure(problem)
+    hs = hessian.build_hessian_structure(problem)
+    s_shapes = [f"[{ss.s_sizes[k]}, {k[0] * k[1]}]" for k in ss.s_keys]
+    copies = [f"[{hs.group_sizes[k] + 1}, {k[0] * k[1]}]"
+              for k in ss.hpl_keys]
+    for name, fm in problem.factor_meta.items():
+        F = problem.data.factors[name].ids[0].shape[0]
+        E = fm.ftype.residual_dim
+        copies += [f"[{F}, {E * vt.dim}]" for vt in fm.ftype.vertex_types]
+    return s_shapes, copies
+
+
 def replay_kernels(problem, solver):
     """Venice's kernels per iteration with K7 and K9, with the plain dots
     (``tree_dot_plain`` for K9, as before K9) and with K7's gate shut (the
@@ -3029,6 +3131,7 @@ def replay_kernels(problem, solver):
 
     opts = LevenbergMarquardtOptions(iterations=2, jit_loop=True)
     counts = {}
+    s_stale, copy_stale = stale_shapes(problem)
     gate, k9 = bal.gate, pcg_loop.tree_dot
     for name in ("with K7 and K9", "the plain dots", "K7's gate shut"):
         if name == "the plain dots":
@@ -3060,6 +3163,24 @@ def replay_kernels(problem, solver):
                                         for k in by_name),
                       f"jit-venice: the trace holds the ops K10 replaced "
                       f"{stale} or no K10 kernel")
+                # K3 stores S = Hpp - the sums: no subtraction or fill over
+                # S; the accepted branch relinearizes into the loop's
+                # state: no copy of the Hpl group or the stored J
+                stale = [op for op in by_op
+                         if op.startswith(("aten::sub", "aten::rsub",
+                                           "aten::fill_", "aten::zero_"))
+                         and any(sh in op for sh in s_stale)]
+                if accepted:
+                    stale += [op for op in by_op
+                              if op.startswith("aten::copy_")
+                              and any(sh in op for sh in copy_stale)]
+                print(f"[jit-venice] {tag}: ops over S {s_stale} or copies "
+                      f"of {copy_stale}: {stale}")
+                check(not stale, f"jit-venice: the trace holds the passes "
+                      f"K3's store and the in-place relinearization "
+                      f"removed: {stale}")
+    check(any(a for a, _ in counts["with K7 and K9"]),
+          f"jit-venice: no accepted iteration traced: {counts}")
     print(f"[jit-venice] device kernels of LM iterations 1 and 2 from the "
           f"start (accepted, kernels), the captured iteration run eagerly, "
           f"each in a torch.profiler trace of its own (None: the trace saw "

@@ -7,6 +7,22 @@
 // (m, n) blocks. A null li (ri) means the identity: the rows were gathered
 // beforehand, one per r.
 //
+// With a base, the store writes the Schur complement's update itself,
+//
+//   out[s] = base_row(s) - sum,
+//
+// The store's mode is read from bi first, then base:
+// - bi given: base_row(s) = base[bi[s]] where bi[s] >= 0 (the Schur
+//   complement's first product group: the Hpp block copied into S block
+//   s) and +0.0 where bi[s] = -1 or base is null (an S block with no Hpp
+//   block, or an S group with no Hpp group at all: 0.0f - sum, which keeps
+//   +0.0 where the sum is +0.0, as the zero-filled S minus the sums did);
+// - bi null, base given: base_row(s) = base[s] (a later group into the
+//   same S group, in place: base and out the same array). One thread
+//   reads each output element's base and then writes it, so in place is
+//   safe;
+// - both null: the sums themselves.
+//
 // Replaces two TPU kernels that compute this same function:
 // graphite_tpu/ops/pallas/segsum_stream.py _kernel_prod
 // (streaming_segment_product_sum; both operands pre-gathered streams) and
@@ -14,9 +30,9 @@
 // read from a rolling window of a packed table). On the TPU the per-row
 // product ran on the MXU through expansion one-hots and the reduction was a
 // windowed one-hot matmul with a host flush schedule, all to fit VMEM. Here
-// the Schur complement's S -= sum W_left R_right^T reads W and the Hessian's
-// Hpl rows straight from their tables by index, and no (K, m*n) product is
-// ever written to memory.
+// the Schur complement's S = Hpp - sum W_left R_right^T reads W and the
+// Hessian's Hpl rows straight from their tables by index, no (K, m*n)
+// product is ever written to memory, and S is written once, by the store.
 //
 // The order (K1's, with a group per segment): segment s is summed by g_s
 // lanes, g_s = K1's group rule on the segment's own length (a power of two
@@ -52,9 +68,11 @@
 //
 // Bound: at BAL Venice-1778, 17,048,613 rows into 1,580,797 segments of
 // (9, 9) blocks. The tables once and S once are 1.73 GB (0.52 ms at 3.35
-// TB/s); the rows gathered by index, each read once, are 3.7 GB (plus the
-// indices and 512 MB of S): ~1.3 ms, the floor of this design. 243
-// multiply-adds a row are 8.3 GFLOP (0.12 ms at float32's peak).
+// TB/s; the base adds the 1,779 Hpp blocks, 0.6 MB); the rows gathered by
+// index, each read once, are 3.7 GB (plus the indices and 512 MB of S):
+// ~1.3 ms, the floor of this design. 243 multiply-adds a row are 8.3
+// GFLOP (0.12 ms at float32's peak). The base store replaces a zero fill,
+// a copy and a subtraction over S (1.54 GB more, ~0.65 ms on the card).
 
 #include <cuda_runtime.h>
 
@@ -76,6 +94,8 @@ struct Prod {
   const int* order;    // (num_segments,) segments by (lanes, length), desc.
   const int* ctas;     // (n_cta, 3): first index into order, segments, log2 g
   float* out;          // (num_segments, m*n)
+  const float* base;   // base rows, or null (+0.0, or the sums: no bi)
+  const int* bi;       // (num_segments,) base row or -1; null: row s
 };
 
 // A CTA's slot table and its ring of row indices: idx[i % (kStages + 1)]
@@ -255,9 +275,21 @@ __device__ void segprod_cta(const Prod& p, int m_, int k_, int n_, int first,
   if (q == 0 && sl < count) {
     const int s = p.order[first + sl];
     float* o = p.out + (static_cast<long long>(s) * m + a) * n;
+    if (p.base == nullptr && p.bi == nullptr) {
 #pragma unroll
-    for (int b = 0; b < NI; ++b) {
-      if (b < n) o[b] = acc[0][b];
+      for (int b = 0; b < NI; ++b) {
+        if (b < n) o[b] = acc[0][b];
+      }
+    } else {
+      const int h = p.bi == nullptr ? s : p.bi[s];
+      const float* base =
+          (h < 0 || p.base == nullptr)
+              ? nullptr
+              : p.base + (static_cast<long long>(h) * m + a) * n;
+#pragma unroll
+      for (int b = 0; b < NI; ++b) {
+        if (b < n) o[b] = (base == nullptr ? 0.0f : base[b]) - acc[0][b];
+      }
     }
   }
 }
@@ -301,13 +333,18 @@ cudaError_t launch_segprod(const Prod& p, int m, int k, int n,
 // ri: (rows,) int32 or null; offsets: (num_segments+1,) int32 over the
 // destination-sorted rows; order (num_segments,) int32 and ctas (n_cta, 3)
 // int32 the host plan (segsum_stream.py, plan_products); out:
-// (num_segments, m*n) float32. m, k, n <= 16, with kStages rounds of 64
+// (num_segments, m*n) float32; base and bi as in the store's modes above:
+// bi (num_segments,) int32 base rows (-1: base +0.0) with base float32
+// rows of m*n or null (every base +0.0); bi null: base null (out = the
+// sums) or base row s (out's own, in place). m, k, n <= 16, with kStages
+// rounds of 64
 // rows of (m + n) * k floats in at most 227 KB of shared memory. Launches
 // on `stream` and returns the cudaGetLastError() code.
 extern "C" int gt_segprod_f32(const void* L, const void* li, const void* R,
                               const void* ri, const void* offsets,
                               const void* order, const void* ctas, int n_cta,
-                              void* out, int m, int k, int n, void* stream) {
+                              void* out, const void* base, const void* bi,
+                              int m, int k, int n, void* stream) {
   if (m < 1 || k < 1 || n < 1 || m > kMaxDim || k > kMaxDim ||
       n > kMaxDim || n_cta < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -321,7 +358,8 @@ extern "C" int gt_segprod_f32(const void* L, const void* li, const void* R,
                static_cast<const float*>(R), static_cast<const int*>(ri),
                static_cast<const int*>(offsets),
                static_cast<const int*>(order), static_cast<const int*>(ctas),
-               static_cast<float*>(out)};
+               static_cast<float*>(out), static_cast<const float*>(base),
+               static_cast<const int*>(bi)};
   const auto st = static_cast<cudaStream_t>(stream);
   const auto blocks = static_cast<unsigned>(n_cta);
   const cudaError_t err =

@@ -221,11 +221,14 @@ class Problem:
         return store[key]
 
     def index32(self, key, np_array: np.ndarray) -> torch.Tensor:
-        """Cached int32 device tensor of a static host index array: the
+        """Cached int32 device tensor of a static host index array (or of
+        a function that makes it, called on the first use only): the
         kernels' C interface takes int32 (``index_select`` and
         ``index_add_`` take it too)."""
         store = self._cache.setdefault("index32", {})
         if key not in store:
+            if callable(np_array):
+                np_array = np_array()
             a = np.asarray(np_array, dtype=np.int64)
             if a.size and (a.min() < -(1 << 31) or a.max() >= (1 << 31)):
                 raise ValueError(f"index {key} does not fit int32")
@@ -247,9 +250,10 @@ class Problem:
         return torch.cat([rows, rows.new_zeros(1, rows.shape[1])])
 
     def flat_from_rows(self, rows: Dict[str, torch.Tensor],
-                       dtype=None) -> torch.Tensor:
-        """Per-type (n_rows, dim) tensors -> flat (dim_x,) vector; missing
-        types and the pad contribute zeros."""
+                       dtype=None, out=None) -> torch.Tensor:
+        """Per-type (n_rows, dim) tensors -> flat (dim_x,) vector (written
+        into ``out`` when given); missing types and the pad contribute
+        zeros."""
         dtype = dtype or self.precision.graph_dtype
         parts = []
         for name in self.segment_order:
@@ -260,7 +264,7 @@ class Problem:
             else:
                 parts.append(r.reshape(n).to(dtype))
         parts.append(torch.zeros(self.pad, dtype=dtype, device=self.device))
-        return torch.cat(parts)
+        return torch.cat(parts, out=out)
 
     @property
     def dim_x(self) -> int:

@@ -34,6 +34,7 @@ from . import hostops
 from .linearize import DIAG_MAX, DIAG_MIN, Linearization
 from .ops.blockfmt import flat_block_mm_nn, flat_block_mm_tn
 from .ops.cuda import bal as k7
+from .ops.device_loop import copy_into
 from .ops.streamreduce import reduce_rows, segment_plan
 from .perf import SectionTimer
 
@@ -244,7 +245,9 @@ def build_hessian_structure(problem) -> HessianStructure:
 
 
 def compute_hessian_values(problem, hs: HessianStructure,
-                           lin: Linearization) -> HessianValues:
+                           lin: Linearization,
+                           out: Optional[HessianValues] = None
+                           ) -> HessianValues:
     """H = J^T dL P J into the grouped block storage (Jacobians already
     scaled and masked). On a rank's replica the block list is the whole
     problem's and the factor rows the rank's slice: each group is summed
@@ -255,15 +258,22 @@ def compute_hessian_values(problem, hs: HessianStructure,
     first writer stores the sums into an empty group (bitwise the zero
     fill plus the sums: no sum is -0.0), a later one adds them. The other
     sets form their product rows, reduce them with ``reduce_rows`` and add
-    them to the group, zeroed when they are its first writer."""
+    them to the group, zeroed when they are its first writer.
+
+    With ``out`` (values of the same structure, which this call does not
+    read) the groups are written into ``out``'s tensors and ``out`` is
+    returned: K7's first writer stores into ``out``'s group itself, any
+    other group is copied in. The same bits as new values."""
     acc = problem.precision.acc_dtype
     inv_dt = problem.precision.inv_dtype
     values: HessianValues = {}
 
     def group(key, fill=torch.zeros):
         if key not in values:
-            values[key] = fill((hs.group_sizes[key] + 1, key[0] * key[1]),
-                               dtype=inv_dt, device=problem.device)
+            values[key] = (out[key] if out is not None and fill is torch.empty
+                           else fill((hs.group_sizes[key] + 1,
+                                      key[0] * key[1]),
+                                     dtype=inv_dt, device=problem.device))
         return values[key]
 
     for ci, cm in enumerate(hs.contribs):
@@ -316,8 +326,12 @@ def compute_hessian_values(problem, hs: HessianStructure,
                                 flat_t.shape[1])
             values[cm.trans_group] = group(cm.trans_group) + reduce_rows(
                 flat_t, plan)
-    return {key: problem.allreduce(group(key), f"hessian {key}")
-            for key in hs.group_keys}
+    result = {key: problem.allreduce(group(key), f"hessian {key}")
+              for key in hs.group_keys}
+    if out is None:
+        return result
+    copy_into([out[key] for key in result], list(result.values()))
+    return out
 
 
 def _diag_rows_by_type(problem, hs: HessianStructure):

@@ -37,6 +37,7 @@ from .ops.blockfmt import (
     sum_in_order,
 )
 from .ops.cuda import bal as k7
+from .ops.device_loop import copy_into
 from .ops.streamreduce import reduce_rows, segment_plan
 from .precision import clamp_to_storage, sqrt_rn
 
@@ -175,11 +176,19 @@ def compute_chi2_block(problem: Problem, name: str, r: torch.Tensor):
     return chi2, loss.derivative(raw, fa.loss_params)
 
 
-def linearize(problem: Problem, params) -> Linearization:
+def linearize(problem: Problem, params,
+              out: Optional[Linearization] = None) -> Linearization:
     """One linearization pass. A set that passes K7's gate
     (``ops/cuda/bal.gate``) takes K7's two fused entries for its
     per-factor rows; every set's rows are then summed per vertex row by
-    the same plans (K1), in the same order."""
+    the same plans (K1), in the same order.
+
+    With ``out`` (a linearization of the same problem, which this pass
+    does not read) the pass writes into ``out``'s tensors and returns it:
+    K7 stores r, chi2, dL and the stored J into them, b, the diagonal and
+    the scales are formed in them; what else a set computes (a set off
+    K7's gate, the scalar chi2) is copied in. The same bits as a new
+    linearization."""
     gdt = problem.precision.graph_dtype
     acc = problem.precision.acc_dtype
 
@@ -189,9 +198,11 @@ def linearize(problem: Problem, params) -> Linearization:
         loss = k7.gate(problem, name)
         if loss is not None:
             fused.add(name)
+            into = None if out is None else (
+                out.residuals[name], out.chi2_vec[name], out.chi2_deriv[name])
             (residuals[name], jc, jp, chi2_vec[name], chi2_deriv[name],
              dc, dp) = k7.bal_linearize(*_gather_args(problem, params, name),
-                                        loss)
+                                        loss, into)
             jac_flat[name] = (jc, jp)
             diag_contribs[name] = (dc, dp)
             continue
@@ -219,7 +230,8 @@ def linearize(problem: Problem, params) -> Linearization:
     if problem.scale_jacobians:
         eps = float(np.finfo(np.float64).eps)
         scales = (1.0 / (eps + sqrt_rn(diag_raw))).to(gdt)
-        scales = torch.where(diag_raw > 0, scales, torch.ones_like(scales))
+        scales = torch.where(diag_raw > 0, scales, torch.ones_like(scales),
+                             out=None if out is None else out.scales)
     else:
         scales = torch.ones(problem.dim_x, dtype=gdt, device=problem.device)
 
@@ -229,9 +241,10 @@ def linearize(problem: Problem, params) -> Linearization:
     b_contribs = {}
     for name, fm in problem.factor_meta.items():
         if name in fused:
-            *jac, b_c, b_p = _fused_scale_b(problem, name, jac_flat[name],
-                                            residuals[name], chi2_deriv[name],
-                                            scales)
+            *jac, b_c, b_p = _fused_scale_b(
+                problem, name, jac_flat[name], residuals[name],
+                chi2_deriv[name], scales,
+                None if out is None else out.jacobians[name])
             jacobians[name] = tuple(jac)
             b_contribs[name] = (b_c, b_p)
             continue
@@ -245,21 +258,29 @@ def linearize(problem: Problem, params) -> Linearization:
             -flat_block_mv_t(jflat[s], w, E, vt.dim, acc_dtype=acc)
             for s, vt in enumerate(fm.ftype.vertex_types)]
     del jac_flat
-    diag = diag_raw * scales * scales
-    b = problem.allreduce(_reduce_contribs(problem, b_contribs),
-                          "linearize.b")
+    diag = torch.mul(diag_raw * scales, scales,
+                     out=None if out is None else out.diag)
+    b = problem.allreduce(
+        _reduce_contribs(problem, b_contribs,
+                         None if out is None else out.b), "linearize.b")
 
     chi2 = problem.allreduce(sum(v.sum(dtype=torch.float64)
                                  for v in chi2_vec.values()),
                              "linearize.chi2").to(gdt)
-    return Linearization(residuals=residuals, jacobians=jacobians,
-                         chi2_vec=chi2_vec, chi2_deriv=chi2_deriv,
-                         scales=scales, diag=diag, b=b, chi2=chi2)
+    lin = Linearization(residuals=residuals, jacobians=jacobians,
+                        chi2_vec=chi2_vec, chi2_deriv=chi2_deriv,
+                        scales=scales, diag=diag, b=b, chi2=chi2)
+    if out is None:
+        return lin
+    copy_into(out, lin)
+    return out
 
 
-def _reduce_contribs(problem: Problem, contribs) -> torch.Tensor:
+def _reduce_contribs(problem: Problem, contribs,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-set, per-slot (F, d) rows -> the flat (dim_x,) sum per vertex
-    row, the sets added in ``factor_meta`` order."""
+    row, the sets added in ``factor_meta`` order (into ``out`` when
+    given)."""
     gdt = problem.precision.graph_dtype
     rows_by_type: Dict[str, torch.Tensor] = {}
     for name, fm in problem.factor_meta.items():
@@ -268,7 +289,7 @@ def _reduce_contribs(problem: Problem, contribs) -> torch.Tensor:
                                       name, s, vt.name)
             prev = rows_by_type.get(vt.name)
             rows_by_type[vt.name] = rows if prev is None else prev + rows
-    return problem.flat_from_rows(rows_by_type)
+    return problem.flat_from_rows(rows_by_type, out=out)
 
 
 def _gather_args(problem: Problem, params, name: str):
@@ -280,14 +301,16 @@ def _gather_args(problem: Problem, params, name: str):
             fa.obs, fa.slot_mask, fa.factor_mask, fa.loss_params)
 
 
-def _fused_scale_b(problem: Problem, name: str, jflat, r, dL, scales):
-    """K7's second pass of a set: its stored Jacobians and b's rows."""
+def _fused_scale_b(problem: Problem, name: str, jflat, r, dL, scales,
+                   out=None):
+    """K7's second pass of a set: its stored Jacobians (into ``out``'s
+    when given) and b's rows."""
     fa = problem.data.factors[name]
     vts = problem.factor_meta[name].ftype.vertex_types
     sc = (tuple(problem.rows_view_padded(scales, vt.name) for vt in vts)
           if problem.scale_jacobians else (None,) * len(vts))
     return k7.bal_scale_b(*jflat, r, dL, *sc, *fa.rows,
-                          problem.precision.solver_dtype)
+                          problem.precision.solver_dtype, out)
 
 
 def _scaled_jacobians(problem: Problem, name: str, jflat, scales):

@@ -32,6 +32,12 @@ code. Each entry's plain version (``*_plain``, the same signature) follows
 the generic code op by op, so the CPU path's bits are the generic
 branch's; a wrapper takes it for CPU tensors only, and on a CUDA tensor
 launches K7 or raises.
+
+``bal_linearize`` and ``bal_scale_b`` take ``out``: the arrays of an
+existing linearization (r, chi2, dL; the stored J) that the kernel
+stores into instead of new ones (the LM device loop's accepted branch
+relinearizes in place); the plain versions copy into them
+(``device_loop.copy_into``).
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ from ...models.bal import (
 )
 from ...precision import clamp_to_storage
 from ..blockfmt import flat_block_mm_tn, flat_block_mv_t
+from ..device_loop import copy_into
 from . import build
 from .launches import LaunchStats, on_device, stream_ptr
 from .segsum import SegmentPlan, segment_sum_ordered
@@ -133,6 +140,21 @@ def _check(name: str, device, **tensors) -> None:
                 f"{dt} tensor on {device}, got {t.dtype} on {t.device}")
 
 
+def _outputs(name: str, out, shapes, dtypes, device):
+    """New outputs of ``shapes`` / ``dtypes``, or the given ``out``
+    tensors after checking that each is one (contiguous, on ``device``)."""
+    if out is None:
+        return [torch.empty(sh, dtype=dt, device=device)
+                for sh, dt in zip(shapes, dtypes)]
+    for t, sh, dt in zip(out, shapes, dtypes, strict=True):
+        if (t.shape != sh or t.dtype != dt or t.device != device
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"{name}: out must be a contiguous {dt} {tuple(sh)} tensor "
+                f"on {device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    return list(out)
+
+
 def _device_of(name: str, t: torch.Tensor):
     if t.device.type != "cuda":
         raise NotImplementedError(f"{name}: no kernel for device {t.device}")
@@ -195,25 +217,34 @@ def bal_linearize_plain(cameras, points, ids0, ids1, obs, slot_mask,
 
 
 def bal_linearize(cameras, points, ids0, ids1, obs, slot_mask, factor_mask,
-                  loss_params, loss: Loss):
+                  loss_params, loss: Loss, out=None):
+    """``bal_linearize_plain``'s arrays; ``out``: (r (F, 2), chi2 (F,),
+    dL (F,)) to store those three into."""
     if cameras.device.type == "cpu":
-        return bal_linearize_plain(cameras, points, ids0, ids1, obs,
-                                   slot_mask, factor_mask, loss_params, loss)
+        r, jc, jp, chi2, dL, dc, dp = bal_linearize_plain(
+            cameras, points, ids0, ids1, obs, slot_mask, factor_mask,
+            loss_params, loss)
+        if out is not None:
+            copy_into(out, (r, chi2, dL))
+            r, chi2, dL = out
+        return r, jc, jp, chi2, dL, dc, dp
     name = LINEARIZE_STATS.name
     dev = _device_of(name, cameras)
     F = ids0.shape[0]
     _check(name, dev, f_cameras=cameras, f_points=points, i_ids0=ids0,
            i_ids1=ids1, f_obs=obs, b_slot_mask=slot_mask,
            b_factor_mask=factor_mask, f_loss_params=loss_params)
-    out = [torch.empty((F, w), dtype=torch.float32, device=dev)
-           for w in (2, 18, 6, 1, 1, 9, 3)]
+    r, chi2, dL = _outputs(name, out, ((F, 2), (F,), (F,)),
+                           (torch.float32,) * 3, dev)
+    jc, jp, dc, dp = (torch.empty((F, w), dtype=torch.float32, device=dev)
+                      for w in (18, 6, 9, 3))
     _launch(LINEARIZE_STATS, "gt_bal_linearize", dev, cameras.data_ptr(),
             points.data_ptr(), ids0.data_ptr(), ids1.data_ptr(),
             obs.data_ptr(), slot_mask.data_ptr(), factor_mask.data_ptr(),
-            loss_params.data_ptr(), *(t.data_ptr() for t in out), F,
+            loss_params.data_ptr(),
+            *(t.data_ptr() for t in (r, jc, jp, chi2, dL, dc, dp)), F,
             LOSS_CODES[type(loss)])
-    r, jc, jp, chi2, dL, dc, dp = out
-    return r, jc, jp, chi2.view(F), dL.view(F), dc, dp
+    return r, jc, jp, chi2, dL, dc, dp
 
 
 # ---- bal_scale_b ----------------------------------------------------------
@@ -237,10 +268,16 @@ def bal_scale_b_plain(jc, jp, r, dL, scales_c: Optional[torch.Tensor],
 
 
 def bal_scale_b(jc, jp, r, dL, scales_c, scales_p, rows0, rows1,
-                storage: torch.dtype):
+                storage: torch.dtype, out=None):
+    """``bal_scale_b_plain``'s arrays; ``out``: the stored J ((F, 18),
+    (F, 6) in ``storage``) to store into."""
     if jc.device.type == "cpu":
-        return bal_scale_b_plain(jc, jp, r, dL, scales_c, scales_p, rows0,
-                                 rows1, storage)
+        *stored, bc, bp = bal_scale_b_plain(jc, jp, r, dL, scales_c,
+                                            scales_p, rows0, rows1, storage)
+        if out is not None:
+            copy_into(out, stored)
+            stored = out
+        return (*stored, bc, bp)
     name = SCALE_B_STATS.name
     dev = _device_of(name, jc)
     F = jc.shape[0]
@@ -250,7 +287,7 @@ def bal_scale_b(jc, jp, r, dL, scales_c, scales_p, rows0, rows1,
         raise ValueError(f"{name}: scale both slots or neither")
     _check(name, dev, f_jc=jc, f_jp=jp, f_r=r, f_dL=dL, f_scales_c=scales_c,
            f_scales_p=scales_p, i_rows0=rows0, i_rows1=rows1)
-    out = [torch.empty((F, w), dtype=storage, device=dev) for w in (18, 6)]
+    out = _outputs(name, out, ((F, 18), (F, 6)), (storage,) * 2, dev)
     out += [torch.empty((F, w), dtype=torch.float32, device=dev)
             for w in (9, 3)]
 

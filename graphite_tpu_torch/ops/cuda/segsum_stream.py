@@ -15,12 +15,16 @@ sites it served:
   L R^T products reduced over sorted segments, from gathered streams or
   straight from the tables by index (``schur_values`` above its gate),
   with a host plan of their own (``plan_products``: lanes per segment);
+  the second can store ``base - sums`` instead of the sums (``base``,
+  ``base_idx``: S = Hpp - the products, written once, in place for a
+  later group into the same S group);
 - ``streaming_matvec_tbl`` (K4, ``csrc/segmv.cu``, shared with
   ``segmv``): a destination-sorted block matvec with the x rows read by
   index (the landmark back-substitution above its gate).
 
 CPU tensors take the plain versions (``streaming_segment_sum_plain``,
-``segment_product_sum_plain``, ``segmv.segmv_plain``); CUDA tensors launch
+``segment_product_sum_plain`` and ``product_store_plain``,
+``segmv.segmv_plain``); CUDA tensors launch
 the kernel or raise: K1 takes float32 and float64 (its float64 launches
 counted in ``STATS_F64``), K3 and K4 float32 only.
 """
@@ -46,7 +50,8 @@ __all__ = [
     "ProductPlan", "plan_products", "product_lanes",
     "streaming_segment_sum", "streaming_segment_sum_plain",
     "streaming_segment_product_sum", "streaming_segment_product_sum_rtbl",
-    "segment_product_sum_plain", "streaming_matvec_tbl",
+    "segment_product_sum_plain", "product_store_plain",
+    "streaming_matvec_tbl",
 ]
 
 STATS = LaunchStats("segsum_stream.streaming_segment_sum")
@@ -67,8 +72,9 @@ PRODUCT_REGISTER_LANES = 4
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # L, li, R, ri, offsets, order, ctas, n_cta, out, m, k, n, stream
-    "gt_segprod_f32": [_P] * 7 + [_I, _P] + [_I] * 3 + [_P],
+    # L, li, R, ri, offsets, order, ctas, n_cta, out, base, base_idx, m,
+    # k, n, stream
+    "gt_segprod_f32": [_P] * 7 + [_I] + [_P] * 3 + [_I] * 3 + [_P],
 }
 
 
@@ -216,11 +222,53 @@ def segment_product_sum_plain(left: torch.Tensor, right: torch.Tensor,
     return out
 
 
+def product_store_plain(sums: torch.Tensor, base: Optional[torch.Tensor],
+                        base_idx: Optional[torch.Tensor]) -> torch.Tensor:
+    """Plain PyTorch version of K3's base store, ``base_row(s) - sums[s]``,
+    with ``schur_values``' own ops before the store moved into K3. With
+    ``base_idx``: a zero S, the base rows copied in (``index_copy_``: row
+    ``base_idx[s]`` of ``base`` to row s, none where it is -1 or ``base``
+    is None), minus the sums, into a new array. Without: ``base`` is the
+    (num_segments, D) S itself (a later product group into the same S
+    group), and the sums are subtracted from it in place."""
+    if base_idx is None:
+        return base.sub_(sums)
+    s = sums.new_zeros(sums.shape)
+    if base is not None:
+        rows = torch.nonzero(base_idx >= 0).reshape(-1)
+        s.index_copy_(0, rows, base.index_select(
+            0, base_idx.index_select(0, rows).long()))
+    return s - sums
+
+
+def _check_base(name, base, base_idx, num_segments, width, device):
+    """Raise unless the base store's tensors are what K3 takes."""
+    if base is not None and (
+            base.dtype != torch.float32 or base.device != device
+            or base.dim() != 2 or base.shape[1] != width
+            or not base.is_contiguous()
+            or (base_idx is None and base.shape[0] != num_segments)):
+        rows = "n" if base_idx is not None else num_segments
+        raise ValueError(
+            f"{name}: base must be a contiguous float32 ({rows}, {width}) "
+            f"tensor on {device}, got {base.dtype} {tuple(base.shape)} on "
+            f"{base.device}")
+    if base_idx is not None and (base_idx.dtype != torch.int32
+                                 or base_idx.shape != (num_segments,)
+                                 or base_idx.device != device):
+        raise ValueError(f"{name}: base index must be ({num_segments},) "
+                         f"int32 on {device}")
+
+
 def _product_sum(left, right, plan: ProductPlan, m, k, n, left_idx,
-                 right_idx, stats: LaunchStats) -> torch.Tensor:
+                 right_idx, stats: LaunchStats, base=None,
+                 base_idx=None) -> torch.Tensor:
     if left.device.type == "cpu":
-        return segment_product_sum_plain(left, right, plan, m, k, n,
+        sums = segment_product_sum_plain(left, right, plan, m, k, n,
                                          left_idx, right_idx)
+        if base is None and base_idx is None:
+            return sums
+        return product_store_plain(sums, base, base_idx)
     if left.device.type != "cuda":
         raise NotImplementedError(f"no kernel for device {left.device}")
     name = stats.name
@@ -245,9 +293,16 @@ def _product_sum(left, right, plan: ProductPlan, m, k, n, left_idx,
         raise ValueError(f"{name}: block side above {segmv.MAX_DIM}")
     if plan.ctas.device != left.device:
         raise ValueError(f"{name}: plan and values on different devices")
+    _check_base(name, base, base_idx, plan.num_segments, m * n, left.device)
     left, right = left.contiguous(), right.contiguous()
-    out = torch.empty((plan.num_segments, m * n), dtype=torch.float32,
-                      device=left.device)
+    if base is not None and base_idx is None:
+        out = base
+    else:
+        out = torch.empty((plan.num_segments, m * n), dtype=torch.float32,
+                          device=left.device)
+    # an empty base group is no base: every row +0.0 (the kernel's null base)
+    base_ptr = (None if base is None or base.numel() == 0
+                else base.data_ptr())
     lib = load_product_kernel()
     with on_device(left.device):
         stream = stream_ptr(left.device)
@@ -259,6 +314,7 @@ def _product_sum(left, right, plan: ProductPlan, m, k, n, left_idx,
             None if right_idx is None else right_idx.data_ptr(),
             plan.segments.offsets_i32.data_ptr(), plan.order.data_ptr(),
             plan.ctas.data_ptr(), plan.ctas.shape[0], out.data_ptr(),
+            base_ptr, None if base_idx is None else base_idx.data_ptr(),
             m, k, n, stream)
         lib.check(err, name)
         stats.done(ev)
@@ -275,19 +331,26 @@ def streaming_segment_product_sum(left: torch.Tensor, right: torch.Tensor,
                         PRODUCT_STATS)
 
 
-def streaming_segment_product_sum_rtbl(left: torch.Tensor,
-                                       right: torch.Tensor,
-                                       plan: ProductPlan, m: int, k: int,
-                                       n: int,
-                                       left_idx: Optional[torch.Tensor],
-                                       right_idx: torch.Tensor
-                                       ) -> torch.Tensor:
+def streaming_segment_product_sum_rtbl(
+        left: torch.Tensor, right: torch.Tensor, plan: ProductPlan, m: int,
+        k: int, n: int, left_idx: Optional[torch.Tensor],
+        right_idx: torch.Tensor, base: Optional[torch.Tensor] = None,
+        base_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The same sum with the right operand read from its table by
     ``right_idx`` (int32, one per pair), and the left one too when
     ``left_idx`` is given (the Schur triple products read W and Hpl this
-    way, so no gathered stream is ever written)."""
+    way, so no gathered stream is ever written).
+
+    With ``base_idx`` (int32, one per segment) the store writes
+    ``base_row(s) - sum`` into a new array instead: row ``base_idx[s]`` of
+    ``base``, or +0.0 where it is -1 or ``base`` is None or empty (stored
+    as ``0.0 - sum``). With ``base`` alone, a (num_segments, m*n) array,
+    it writes ``base[s] - sum`` into ``base`` itself (in place) and
+    returns it. Its plain version is ``segment_product_sum_plain`` then
+    ``product_store_plain``.
+    """
     return _product_sum(left, right, plan, m, k, n, left_idx, right_idx,
-                        PRODUCT_RTBL_STATS)
+                        PRODUCT_RTBL_STATS, base, base_idx)
 
 
 def streaming_matvec_tbl(left: torch.Tensor, x: torch.Tensor,

@@ -119,6 +119,30 @@ def while_loop(pred_fn: Callable[[], torch.Tensor], body: Callable[[], None],
             body()
 
 
+def leaves(tree) -> list:
+    """The tensors of a state tree (dataclasses, dicts, tuples, lists), in
+    a fixed order; other leaves (None, ints) are skipped."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [t for f in dataclasses.fields(tree)
+                for t in leaves(getattr(tree, f.name))]
+    if isinstance(tree, dict):
+        return [t for k in tree for t in leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in leaves(v)]
+    return []
+
+
+def copy_into(dst, src) -> None:
+    """dst := src, tensor by tensor, in place (a region body writes into
+    tensors made before it); a tensor of ``src`` that is ``dst``'s own,
+    written in place already, is left as it is."""
+    for d, s in zip(leaves(dst), leaves(src), strict=True):
+        if d is not s:
+            d.copy_(s)
+
+
 def _body_stream(device: torch.device, depth: int):
     """The stream a region's body at ``depth`` runs on (created at first
     use; a stream captures into one graph at a time, so nested regions need

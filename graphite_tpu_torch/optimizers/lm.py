@@ -22,7 +22,10 @@ Two modes:
   runs only while the ``run`` flag holds (the ``while_loop``'s exit), and
   after it the accepted branch (relinearize, refresh the solver) and the
   rejected one (restore the parameters) each run only on their side of
-  the accept flag (``lax.cond``); inside the PCG solvers the CG step is
+  the accept flag (``lax.cond``; the accepted branch relinearizes into
+  the loop's own tensors, ``linearize(out=)`` and ``prepare(out=)``: a
+  solver that can store its state in place does, another copies it in);
+  inside the PCG solvers the CG step is
   a loop (``device_loop.while_loop``) that runs until the solve is done.
   On a CUDA problem the iteration is captured once as a CUDA graph, each
   region as a conditional graph node (``ops/device_loop.Capture``, after
@@ -271,21 +274,6 @@ def levenberg_marquardt2(problem, solver, params=None,
 
 # ---- the device-controlled iteration (jit_loop) --------------------------
 
-def _leaves(tree) -> list:
-    """The tensors of a state tree (dataclasses, dicts, tuples, lists), in
-    a fixed order; other leaves (None, ints) are skipped."""
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
-        return [t for f in dataclasses.fields(tree)
-                for t in _leaves(getattr(tree, f.name))]
-    if isinstance(tree, dict):
-        return [t for k in tree for t in _leaves(tree[k])]
-    if isinstance(tree, (tuple, list)):
-        return [t for v in tree for t in _leaves(v)]
-    return []
-
-
 def _cloned(tree):
     """A copy of a state tree with every tensor cloned (the static buffers
     of the device loop own their memory)."""
@@ -300,12 +288,6 @@ def _cloned(tree):
     if isinstance(tree, (tuple, list)):
         return type(tree)(_cloned(v) for v in tree)
     return tree
-
-
-def _copy_into(dst, src) -> None:
-    """dst := src, tensor by tensor, in place."""
-    for d, s in zip(_leaves(dst), _leaves(src), strict=True):
-        d.copy_(s)
 
 
 class _DeviceLoop:
@@ -361,6 +343,15 @@ class _DeviceLoop:
         mesh closed, or the replica bound to another mesh since)."""
         return self.transport is not self._transport_token()
 
+    def _relinearize(self, params) -> None:
+        """The linearization and the solver state at ``params``, written
+        into the loop's own (``linearize`` and ``prepare`` with ``out``):
+        neither reads what it writes (``linearize`` reads ``params`` only,
+        ``prepare`` the new linearization)."""
+        problem = self.problem
+        linearize(problem, params, out=self.lin)
+        self.solver.prepare(problem, self.lin, params, out=self.sstate)
+
     def _step(self) -> None:
         """One iteration, in place, with no host read: the JAX package's
         ``_lm_iteration`` as regions (``device_loop.cond``). The step
@@ -390,13 +381,12 @@ class _DeviceLoop:
             self.rho.copy_(rho)
 
         def on_accept():
+            # try_step is done with the old linearization and state
             new_params = step["new_params"]
-            lin = linearize(problem, new_params)
-            sstate = self.solver.prepare(problem, lin, new_params)
-            _copy_into(self.params, new_params)
-            _copy_into(self.backup, backup_parameters(problem, new_params))
-            _copy_into(self.lin, lin)
-            _copy_into(self.sstate, sstate)
+            self._relinearize(new_params)
+            device_loop.copy_into(self.params, new_params)
+            device_loop.copy_into(self.backup,
+                                  backup_parameters(problem, new_params))
             self.mu.copy_(self.mu * _damping_factor(self.rho).to(gdt))
             self.nu.fill_(2.0)
             self.chi2.copy_(step["new_chi2"])
@@ -404,7 +394,7 @@ class _DeviceLoop:
             self.num_accepted.add_(1)
 
         def on_reject():
-            _copy_into(self.params, restore_parameters(
+            device_loop.copy_into(self.params, restore_parameters(
                 problem, step["new_params"], self.backup))
             self.mu.copy_(self.mu * self.nu)
             self.nu.copy_(self.nu * 2.0)
@@ -451,16 +441,15 @@ class _DeviceLoop:
     def _start(self, params, initial_damping: float) -> None:
         """Reset the state to the start of a run from ``params``."""
         problem = self.problem
-        _copy_into(self.params, {n: params[n] for n in self.params})
-        lin = linearize(problem, self.params)
-        _copy_into(self.lin, lin)
-        _copy_into(self.sstate, self.solver.prepare(problem, lin,
-                                                    self.params))
-        _copy_into(self.backup, backup_parameters(problem, self.params))
+        device_loop.copy_into(self.params,
+                              {n: params[n] for n in self.params})
+        self._relinearize(self.params)
+        device_loop.copy_into(self.backup,
+                              backup_parameters(problem, self.params))
         self.mu.fill_(initial_damping)
         self.nu.fill_(2.0)
-        self.chi2.copy_(lin.chi2)
-        self.initial_chi2.copy_(lin.chi2)
+        self.chi2.copy_(self.lin.chi2)
+        self.initial_chi2.copy_(self.lin.chi2)
         self.rho.fill_(1.0)
         self.accepted.fill_(False)
         self.run_flag.fill_(True)

@@ -13,9 +13,11 @@ K10, ``ops/cuda/schur_w``, one launch per Hpl group where the inverses
 are float32 and at most 3x3), the Hpp copy (unique destinations, an
 indexed assignment), and the triple products.
 At most ``_chunk_threshold`` products per group are formed row by row and
-reduced by the sorted-segment-sum kernel (K1, ``ops/cuda/segsum``); above
-it the fused triple-product kernel (K3) reads W and Hpl by index and
-writes only S, with a plan of its own (lanes per S block).
+reduced by the sorted-segment-sum kernel (K1, ``ops/cuda/segsum``) and
+subtracted from the Hpp copy; above it the fused triple-product kernel
+(K3) reads W and Hpl by index, with a plan of its own (lanes per S
+block), and writes S itself: the Hpp copy minus its sums, read from the
+Hessian values by a cached per-block row index (``hpp_base``).
 
 On a rank's replica of a sharded problem (``problem.sharded``,
 ``parallel/sharding.py``) the triple products are split by destination
@@ -46,7 +48,7 @@ kernels do not have, and are not ported.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -426,24 +428,59 @@ def landmark_w(problem, ss: SchurStructure, hvals: HessianValues
     return hll_inv, {key: hpl_w[key] for key in ss.hpl_keys}
 
 
+def _s_start(problem, ss: SchurStructure, hvals: HessianValues,
+             key) -> torch.Tensor:
+    """S group ``key`` as a copy of its Hpp blocks (unique destinations),
+    zero elsewhere: where the stepwise branch, a rank's gathered products
+    and an S group with no product group start."""
+    inv_dt = problem.precision.inv_dtype
+    s = torch.zeros((ss.s_sizes[key], key[0] * key[1]), dtype=inv_dt,
+                    device=problem.device)
+    for hi, (hkey, h_idx, s_idx) in enumerate(ss.hpp_copy):
+        if hkey == key:
+            src = hvals[hkey].index_select(0, problem.index(("hpp_h", hi),
+                                                            h_idx))
+            s.index_copy_(0, problem.index(("hpp_s", hi), s_idx),
+                          src.to(inv_dt))
+    return s
+
+
+def hpp_base(problem, ss: SchurStructure, hvals: HessianValues, key
+             ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """The base of S group ``key``'s first K3 store (S = Hpp - the
+    products, written once): its Hpp values group (None where it has
+    none) and, per S block, the row copied into it, -1 where none (int32,
+    built on the host once and cached)."""
+
+    def rows():
+        idx = np.full(ss.s_sizes[key], -1, dtype=np.int64)
+        for hkey, h_idx, s_idx in ss.hpp_copy:
+            if hkey == key:
+                idx[s_idx] = h_idx
+        return idx
+
+    base_idx = problem.index32(("s_base", key), rows)
+    if not any(hkey == key for hkey, _, _ in ss.hpp_copy):
+        return None, base_idx
+    return hvals[key].to(problem.precision.inv_dtype), base_idx
+
+
 def schur_values(problem, ss: SchurStructure,
                  hvals: HessianValues) -> SchurValues:
-    """S = Hpp - Hpl Hll^{-1} Hpl^T from damped H values."""
+    """S = Hpp - Hpl Hll^{-1} Hpl^T from damped H values. Where a
+    product group takes K3, K3 writes S itself: the first group into an S
+    group stores its Hpp copy minus the sums (``hpp_base``), a later one
+    subtracts in place. Elsewhere S starts as the Hpp copy (``_s_start``)
+    and each group's sums are subtracted from it."""
     inv_dt = problem.precision.inv_dtype
     hll_inv, hpl_w = landmark_w(problem, ss, hvals)
 
-    # S storage starts as a copy of Hpp (unique destinations)
-    s_vals = {key: torch.zeros((ss.s_sizes[key], key[0] * key[1]),
-                               dtype=inv_dt, device=problem.device)
-              for key in ss.s_keys}
-    for hi, (hkey, h_idx, s_idx) in enumerate(ss.hpp_copy):
-        src = hvals[hkey].index_select(0, problem.index(("hpp_h", hi), h_idx))
-        s_vals[hkey].index_copy_(0, problem.index(("hpp_s", hi), s_idx),
-                                 src.to(inv_dt))
-
     if problem.sharded:
+        s_vals = {key: _s_start(problem, ss, hvals, key)
+                  for key in ss.s_keys}
         _sharded_products(problem, ss, hvals, hpl_w, s_vals)
         return SchurValues(hll_inv=hll_inv, s_vals=s_vals)
+    s_vals = {}
     for gi, pg in enumerate(ss.products):
         dpa, dl, dpb = pg["dims"]
         key = pg["dst_key"]
@@ -453,12 +490,15 @@ def schur_values(problem, ss: SchurStructure,
                 and kernel_dtype(inv_dt)):
             # K3 reads the W and Hpl rows by index: no gathered stream and
             # no (K, dpa*dpb) product buffer; its plan gives each S block
-            # its own lanes
-            acc = streaming_segment_product_sum_rtbl(
+            # its own lanes, and its store writes S
+            base, base_idx = ((s_vals[key], None) if key in s_vals
+                              else hpp_base(problem, ss, hvals, key))
+            s_vals[key] = streaming_segment_product_sum_rtbl(
                 W, R, product_plan(problem, ("prod_k3", gi), pg["dst"],
                                    ss.s_sizes[key]), dpa, dl, dpb,
                 problem.index32(("prod_l", gi), pg["left"]),
-                problem.index32(("prod_r", gi), pg["right"]))
+                problem.index32(("prod_r", gi), pg["right"]),
+                base=base, base_idx=base_idx)
         else:
             left = W.index_select(0, problem.index(("prod_l", gi),
                                                    pg["left"]))
@@ -469,8 +509,14 @@ def schur_values(problem, ss: SchurStructure,
                                  acc_dtype=inv_dt),
                 segment_plan(problem, ("prod_dst", gi), pg["dst"],
                              ss.s_sizes[key], dpa * dpb))
-        s_vals[key] = s_vals[key] - acc
-    return SchurValues(hll_inv=hll_inv, s_vals=s_vals)
+            if key not in s_vals:
+                s_vals[key] = _s_start(problem, ss, hvals, key)
+            s_vals[key] = s_vals[key] - acc
+    for key in ss.s_keys:
+        if key not in s_vals:
+            s_vals[key] = _s_start(problem, ss, hvals, key)
+    return SchurValues(hll_inv=hll_inv,
+                       s_vals={key: s_vals[key] for key in ss.s_keys})
 
 
 @dataclasses.dataclass

@@ -28,6 +28,7 @@ from ..hessian import (
     dense_hessian_matrix,
 )
 from ..linearize import DIAG_MAX, DIAG_MIN, Linearization
+from .base import prepared
 
 
 def assemble_dense_hessian(problem, lin: Linearization) -> torch.Tensor:
@@ -87,8 +88,9 @@ class DenseCholeskyState:
 
 @dataclasses.dataclass(frozen=True)
 class DenseCholeskySolver:
-    def prepare(self, problem, lin: Linearization, params=None):
-        return DenseCholeskyState(H=assemble_dense_hessian(problem, lin))
+    def prepare(self, problem, lin: Linearization, params=None, out=None):
+        return prepared(
+            DenseCholeskyState(H=assemble_dense_hessian(problem, lin)), out)
 
     def solve(self, problem, lin: Linearization, state: DenseCholeskyState,
               damping, use_identity: bool, params=None):

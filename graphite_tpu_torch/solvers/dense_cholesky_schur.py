@@ -25,6 +25,7 @@ from ..hessian import (
 )
 from ..linearize import Linearization
 from ..schur import SchurOps, build_schur_structure, schur_values
+from .base import prepared
 from .dense_cholesky import cholesky_solve
 
 
@@ -105,8 +106,8 @@ def prepare_schur(problem, lin: Linearization) -> SchurSolverState:
 
 @dataclasses.dataclass(frozen=True)
 class DenseCholeskySchurSolver:
-    def prepare(self, problem, lin: Linearization, params=None):
-        return prepare_schur(problem, lin)
+    def prepare(self, problem, lin: Linearization, params=None, out=None):
+        return prepared(prepare_schur(problem, lin), out)
 
     def solve(self, problem, lin: Linearization, state: SchurSolverState,
               damping, use_identity: bool, params=None):

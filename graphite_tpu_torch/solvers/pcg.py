@@ -31,6 +31,7 @@ from ..preconditioners.block_jacobi import (
     row_inverse_blocks,
 )
 from ..preconditioners.identity import IdentityPreconditioner
+from .base import prepared
 
 
 @dataclasses.dataclass
@@ -46,9 +47,11 @@ class PCGSolver:
     preconditioner: object = dataclasses.field(
         default_factory=IdentityPreconditioner)
 
-    def prepare(self, problem, lin: Linearization, params=None) -> PCGState:
-        return PCGState(
-            precond_state=self.preconditioner.prepare(problem, lin, params))
+    def prepare(self, problem, lin: Linearization, params=None,
+                out=None) -> PCGState:
+        return prepared(PCGState(
+            precond_state=self.preconditioner.prepare(problem, lin, params)),
+            out)
 
     def solve(self, problem, lin: Linearization, state: PCGState, damping,
               use_identity: bool, params=None):

@@ -17,6 +17,7 @@ S) multiplies by S with ``tree_matvec``, in one order on every device.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -46,11 +47,16 @@ class PCGSchurSolver:
     dense_matvec_limit: int = 8192
     fused_pcg_limit: int = 1024
 
-    def prepare(self, problem, lin: Linearization, params=None):
+    def prepare(self, problem, lin: Linearization, params=None,
+                out: Optional[SchurSolverState] = None):
+        """The undamped Hessian values of ``lin``; with ``out`` (a state
+        of this solver on the same problem) written into ``out``'s groups
+        (``compute_hessian_values``), and ``out`` returned."""
         hs = build_hessian_structure(problem)
         build_schur_structure(problem)
-        return SchurSolverState(
-            hvals=compute_hessian_values(problem, hs, lin))
+        hvals = compute_hessian_values(
+            problem, hs, lin, None if out is None else out.hvals)
+        return SchurSolverState(hvals=hvals) if out is None else out
 
     def solve(self, problem, lin: Linearization, state: SchurSolverState,
               damping, use_identity: bool, params=None):

@@ -42,6 +42,7 @@ from ..hessian import (
 from ..linearize import Linearization
 from ..ops import device_loop
 from ..ops.nd_multifrontal import build_nd_plan, nd_factor, nd_ok, nd_solve
+from .base import prepared
 from .dense_cholesky import cholesky_solve, full_delta
 
 
@@ -106,10 +107,10 @@ class SparseDirectSolver:
         return (problem.dim_h > self.on_device_limit
                 and problem.device.type == "cuda")
 
-    def prepare(self, problem, lin: Linearization, params=None):
+    def prepare(self, problem, lin: Linearization, params=None, out=None):
         hs = build_hessian_structure(problem)
-        return SparseDirectState(
-            hvals=compute_hessian_values(problem, hs, lin))
+        return prepared(SparseDirectState(
+            hvals=compute_hessian_values(problem, hs, lin)), out)
 
     def solve(self, problem, lin: Linearization, state: SparseDirectState,
               damping, use_identity: bool, params=None):

@@ -20,6 +20,7 @@ import numpy as np
 
 from ..linearize import Linearization
 from ..schur import SchurStructure
+from .base import prepared
 from .dense_cholesky import cholesky_solve
 from .dense_cholesky_schur import (
     SchurSolverState,
@@ -100,8 +101,8 @@ class SparseDirectSchurSolver:
     # dense Cholesky; 0 forces the host branch.
     on_device_dim_p: int = 20_000
 
-    def prepare(self, problem, lin: Linearization, params=None):
-        return prepare_schur(problem, lin)
+    def prepare(self, problem, lin: Linearization, params=None, out=None):
+        return prepared(prepare_schur(problem, lin), out)
 
     def solve(self, problem, lin: Linearization, state: SchurSolverState,
               damping, use_identity: bool, params=None):

@@ -110,6 +110,15 @@ on a machine with only PyTorch (``--noconftest`` skips the JAX set-up in
   it once and gives the CPU's bits (K3's branch forced and not); a
   float64 one launches none. At Ladybug-49 under FP32_BF16 it launches
   once an iteration.
+- K3's base store (S = Hpp - the products, written by K3's store): on
+  the random and Venice-like sites, from an H group by a per-block row
+  index (with -1 rows and -0.0 entries) and in place on S, bitwise its
+  plain version (``product_store_plain`` of K3's own sums) on the card,
+  the CPU's plain version, and the same bits replayed from a CUDA graph,
+  one launch a call. Under ``jit_loop`` with K3's branch forced, the LM
+  bitwise the host loop, and the loop's state after a captured accepted
+  branch (relinearized in place) bitwise an eager ``linearize`` and
+  ``prepare`` at its parameters.
 - K8 (``csrc/allreduce.cu``) on two ranks of one card: its sum and
   gather bitwise its plain version (gloo on the same CUDA tensors, inputs
   with -0.0 entries; float32, float64, int64, an empty tensor), bitwise
@@ -393,6 +402,182 @@ def test_k3_matches_plain(cuda_device, m, k, n, site):
     with pytest.raises(NotImplementedError):
         segsum_stream.streaming_segment_product_sum_rtbl(
             L.double(), R.double(), plan, m, k, n, lt, rt)
+
+
+def _k3_bits(t):
+    return t.view(torch.int32)
+
+
+@pytest.mark.parametrize("in_place", [False, True])
+@pytest.mark.parametrize("site", ["random", "venice"])
+def test_k3_base_store_matches_plain_bitwise(cuda_device, site, in_place):
+    """K3 storing base - sums: bitwise ``product_store_plain`` of its own
+    sums on the card, bitwise the CPU's plain version, and the same bits
+    replayed from a CUDA graph; one launch a call."""
+    m, k, n = 9, 3, 9
+    rng = np.random.default_rng(17 + in_place)
+    seg, ns = _k3_site(rng, site)
+    rows, n_l, n_r, n_h = seg.size, 5_000, 4_000, ns + 100
+    ltab = rng.standard_normal((n_l, m * k)).astype(np.float32)
+    rtab = rng.standard_normal((n_r, n * k)).astype(np.float32)
+    li = rng.integers(0, n_l, rows).astype(np.int32)
+    ri = rng.integers(0, n_r, rows).astype(np.int32)
+    htab = rng.standard_normal((n_h, m * n)).astype(np.float32)
+    htab.reshape(-1)[::5] = -0.0
+    bidx = np.full(ns, -1, dtype=np.int32)
+    has = rng.random(ns) < 0.5
+    bidx[has] = rng.permutation(n_h)[:int(has.sum())]
+    runs = []
+    for device in (cuda_device, "cpu"):
+        runs.append((segsum_stream.plan_products(seg, ns, device),
+                     *_on(device, ltab, rtab, li, ri, htab, bidx)))
+
+    def store(plan, L, R, lt, rt, H, bi, out=None):
+        if in_place:  # a later product group: S itself is the base
+            return segsum_stream.streaming_segment_product_sum_rtbl(
+                L, R, plan, m, k, n, lt, rt, base=out)
+        return segsum_stream.streaming_segment_product_sum_rtbl(
+            L, R, plan, m, k, n, lt, rt, base=H, base_idx=bi)
+
+    def start(H):  # the S a later group finds
+        return H[:ns].clone()
+
+    plan, L, R, lt, rt, H, bi = runs[0]
+    before = segsum_stream.PRODUCT_RTBL_STATS.launches
+    s0 = start(H)
+    out = store(plan, L, R, lt, rt, H, bi, s0)
+    assert segsum_stream.PRODUCT_RTBL_STATS.launches - before == 1
+    if in_place:
+        assert out.data_ptr() == s0.data_ptr()
+    sums = segsum_stream.streaming_segment_product_sum_rtbl(
+        L, R, plan, m, k, n, lt, rt)
+    ref = (segsum_stream.product_store_plain(sums, start(H), None)
+           if in_place else
+           segsum_stream.product_store_plain(sums, H, bi))
+    again = store(plan, L, R, lt, rt, H, bi, start(H))
+    cplan, cL, cR, clt, crt, cH, cbi = runs[1]
+    cpu = store(cplan, cL, cR, clt, crt, cH, cbi, start(cH))
+    s1 = start(H)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = store(plan, L, R, lt, rt, H, bi, s1)
+    s1.copy_(start(H))
+    graph.replay()
+    torch.cuda.synchronize()
+    for got in (out, again, captured):
+        assert torch.equal(_k3_bits(got), _k3_bits(ref))
+    assert torch.equal(_k3_bits(out.cpu()), _k3_bits(cpu))
+
+
+@pytest.mark.parametrize("base", ["none", "empty"])
+def test_k3_base_store_with_no_hpp_group(cuda_device, base):
+    """An S group with no Hpp group: every base index -1 and no base
+    rows (None, or an empty group, whose data pointer is null). K3 stores
+    +0.0 - sum, bitwise a zero S minus its own sums and the CPU's."""
+    m, k, n = 4, 3, 2
+    rng = np.random.default_rng(23)
+    seg, ns = _k3_site(rng, "random")
+    rows, n_l, n_r = seg.size, 5_000, 4_000
+    ltab = rng.standard_normal((n_l, m * k)).astype(np.float32)
+    rtab = rng.standard_normal((n_r, n * k)).astype(np.float32)
+    li = rng.integers(0, n_l, rows).astype(np.int32)
+    ri = rng.integers(0, n_r, rows).astype(np.int32)
+    bidx = np.full(ns, -1, dtype=np.int32)
+    got = []
+    for device in (cuda_device, "cpu"):
+        plan = segsum_stream.plan_products(seg, ns, device)
+        L, R, lt, rt, bi = _on(device, ltab, rtab, li, ri, bidx)
+        rows_ = None if base == "none" else torch.empty(
+            (0, m * n), device=device)
+        out = segsum_stream.streaming_segment_product_sum_rtbl(
+            L, R, plan, m, k, n, lt, rt, base=rows_, base_idx=bi)
+        sums = segsum_stream.streaming_segment_product_sum_rtbl(
+            L, R, plan, m, k, n, lt, rt)
+        assert torch.equal(_k3_bits(out), _k3_bits(torch.zeros_like(sums)
+                                                   - sums))
+        got.append(out.cpu())
+    assert torch.equal(_k3_bits(got[0]), _k3_bits(got[1]))
+    assert bool(torch.signbit(got[0]).any())
+
+
+def _two_pose_types(kind):
+    """Float32 graphs of ``test_torch_schur.py``'s shapes, without JAX:
+    ``multitype`` (a dim-4 and a dim-2 pose joined only through shared
+    dim-3 landmarks, so its (4, 2) S group has product pairs
+    and no Hpp group; a second landmark type, two product groups into one
+    S group) and ``mixed_dims`` (pose-pose factors: Hpp blocks off the
+    diagonal; S blocks with no pair). Residuals bilinear in the two
+    vertices, Jacobians by autodiff."""
+    if kind == "multitype":
+        vertices = [("p4", 4, 3, 0, False), ("p2", 2, 2, 100, False),
+                    ("l3", 3, 6, 200, True), ("l1", 1, 4, 300, True)]
+        factors = [("f43", 2, ("p4", "l3"), 30), ("f41", 1, ("p4", "l1"), 15),
+                   ("f23", 2, ("p2", "l3"), 20)]
+    else:
+        vertices = [("p3", 3, 4, 0, False), ("l3", 3, 7, 100, True)]
+        factors = [("f33", 2, ("p3", "l3"), 40), ("f33pp", 2, ("p3", "p3"), 6)]
+    rng = np.random.default_rng(5)
+    g = gtt.Graph(precision=gtt.FP32_FP32)
+    vt, base = {}, {}
+    for name, dim, count, id_base, elim in vertices:
+        vt[name] = gtt.vertex_type(name, dim)
+        vs = g.add_vertex_set(vt[name])
+        vs.add_batch(id_base + np.arange(count),
+                     rng.normal(1.0 if not elim else 0.5, 0.3, (count, dim)))
+        if elim:
+            vs.set_eliminate(True)
+        base[name] = id_base
+    for fname, edim, (va, vb), count in factors:
+        da, db = vt[va].dim, vt[vb].dim
+
+        def res(a, b, o, edim=edim, da=da, db=db):
+            return torch.stack(
+                [a[..., i % da] * b[..., (i + 1) % db] + a[..., (i + 1) % da]
+                 - b[..., i % db] - o[..., i] for i in range(edim)], dim=-1)
+
+        ft = gtt.factor_type(fname, edim, [vt[va], vt[vb]], res,
+                             obs_shape=(edim,))
+        na = next(v[2] for v in vertices if v[0] == va)
+        nb = next(v[2] for v in vertices if v[0] == vb)
+        pairs = np.stack([base[va] + rng.integers(na, size=count),
+                          base[vb] + rng.integers(nb, size=count)], axis=1)
+        g.add_factor_set(ft).add_batch(pairs,
+                                       obs=rng.normal(0, 1, (count, edim)))
+    return g
+
+
+@pytest.mark.parametrize("kind", ["multitype", "mixed_dims"])
+def test_k3_schur_values_without_hpp_cuda_equals_cpu(cuda_device,
+                                                     monkeypatch, kind):
+    """``schur_values`` with K3's branch forced, on the card, from the
+    CPU's damped Hessian values: the CPU's bits in every S group, those
+    with no Hpp group (multitype's (4, 2)) and those with Hpp
+    blocks and a second product group included; one K3 launch a group."""
+    from graphite_tpu_torch import hessian
+
+    monkeypatch.setattr(schur, "CHUNK_THRESHOLD", 0)
+    cpu = _two_pose_types(kind).freeze(device="cpu")
+    ss = schur.build_schur_structure(cpu)
+    hs = hessian.build_hessian_structure(cpu)
+    lin = linearize(cpu, cpu.params0)
+    hv = hessian.apply_damping(
+        cpu, hs, hessian.compute_hessian_values(cpu, hs, lin), lin.diag,
+        1e-2, False)
+    gpu = cpu.to(cuda_device)
+    if kind == "multitype":
+        assert any(not any(h == key for h, _, _ in ss.hpp_copy)
+                   for key in {pg["dst_key"] for pg in ss.products})
+    before = segsum_stream.PRODUCT_RTBL_STATS.launches
+    got = schur.schur_values(gpu, ss, {k: v.to(cuda_device)
+                                       for k, v in hv.items()})
+    torch.cuda.synchronize()
+    assert (segsum_stream.PRODUCT_RTBL_STATS.launches - before
+            == len(ss.products))
+    ref = schur.schur_values(cpu, ss, hv)
+    assert list(got.s_vals) == list(ref.s_vals) == ss.s_keys
+    for key in ss.s_keys:
+        assert torch.equal(_k3_bits(got.s_vals[key].cpu()),
+                           _k3_bits(ref.s_vals[key]))
 
 
 @pytest.mark.parametrize("rows,ns,sorted_dst,transpose", [
@@ -841,6 +1026,47 @@ def test_jit_loop_captured_equals_host_loop(cuda_device, case):
         assert loop.capture_launches["pcg_mf.solve_pcg_mf"] == 1
     if case == "bal-pcg-schur":
         assert loop.capture_launches["pcg_dense.dense_pcg"] == 1
+
+
+def test_jit_loop_relinearizes_in_place_bitwise_eager(cuda_device,
+                                                     monkeypatch):
+    """With K3's branch forced (its base store in every ``schur_values``)
+    the captured LM is bitwise the host loop, and after a run that ends
+    on an accepted step the loop's linearization and Hessian values,
+    written in place by the captured accepted branch, are bitwise an
+    eager ``linearize`` and ``prepare`` at its parameters."""
+    monkeypatch.setattr(schur, "CHUNK_THRESHOLD", 0)
+    problem = _small_bal(cuda_device)
+    solver = PCGSchurSolver(10, 1.0, 5.0, dense_matvec_limit=0)
+    before = segsum_stream.PRODUCT_RTBL_STATS.launches
+    host = levenberg_marquardt(problem, solver,
+                               options=LevenbergMarquardtOptions(
+                                   iterations=6))
+    assert segsum_stream.PRODUCT_RTBL_STATS.launches > before
+    accepted = [h["accepted"] for h in host.history]
+    last = max(i for i, a in enumerate(accepted) if a) + 1
+    opts = LevenbergMarquardtOptions(iterations=last, jit_loop=True)
+    out = levenberg_marquardt(problem, solver, options=opts)
+    loop = cached_device_loop(problem, solver, opts)
+    assert loop.capture.region_runs()["lm_accept"] > 0
+    assert loop.capture_launches[
+        "segsum_stream.streaming_segment_product_sum_rtbl"] == 1
+    assert [h["accepted"] for h in out.history] == accepted[:last]
+    assert [h["chi2"] for h in out.history] == [
+        h["chi2"] for h in host.history[:last]]
+    lin = linearize(problem, loop.params)
+    hvals = solver.prepare(problem, lin, loop.params).hvals
+    torch.cuda.synchronize()
+    for a, b in ((loop.lin.b, lin.b), (loop.lin.diag, lin.diag),
+                 (loop.lin.scales, lin.scales), (loop.lin.chi2, lin.chi2)):
+        assert torch.equal(a, b)
+    for name, js in lin.jacobians.items():
+        for a, b in zip(loop.lin.jacobians[name], js, strict=True):
+            assert torch.equal(a, b)
+        assert torch.equal(loop.lin.residuals[name], lin.residuals[name])
+        assert torch.equal(loop.lin.chi2_deriv[name], lin.chi2_deriv[name])
+    for key, v in hvals.items():
+        assert torch.equal(loop.sstate.hvals[key], v)
 
 
 def test_jit_loop_graph_takes_each_calls_options(cuda_device):
