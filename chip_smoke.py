@@ -13,8 +13,9 @@ own:
    the sharded path's all-reduce over CUDA IPC, ``csrc/allreduce.cu``, and
    K7, the BAL reprojection factor's linearization and Hessian values,
    ``csrc/bal.cu``, K9, the PCG's dot, ``csrc/dot.cu``, K10, the landmark
-   inverses and W = Hpl Hll^-1, ``csrc/schur_w.cu``; and the host
-   libraries (g++),
+   inverses and W = Hpl Hll^-1, ``csrc/schur_w.cu``, K11, the SE3
+   pose-graph factors' linearization, chi2 and update, ``csrc/pose.cu``;
+   and the host libraries (g++),
    ``native/structure.cpp`` and ``native/bal_loader.cpp``;
 2. K1 vs its plain PyTorch version on the card, at the BAL Ladybug-49
    reduction shapes (seeded random inputs; each label names the plan's
@@ -42,15 +43,27 @@ own:
    with PCGSolver(50, 1e-10, 1e6, block-Jacobi) for 30 iterations on the
    card and on the CPU: accept patterns equal, chi2 within 1e-3 per
    iteration, final chi2 below the initial one, finite unit quaternions,
-   K6 launched once per solve and no ``run_pcg`` host loop; ms per
-   iteration, K6's time and launches, peak memory;
+   K6 launched once per solve and no ``run_pcg`` host loop, the card's
+   trajectory the CPU's bit for bit, K11's trial chi2 and update once an
+   iteration and its linearization at the start and once an accepted
+   step; ms per iteration, K6's and K11's times and launches, peak
+   memory;
 4c. K1 vs its plain version at every reduction site of that run (the
    factor rows of linearize, which JtPv shares, and the block-Jacobi
    blocks, per slot; seeded values): relative error <= 1e-5, two runs
    bitwise identical, bitwise equal to the CPU plain version;
+4g. ``k11`` (run after phase 4c, on its problem): K11's four entries
+   against their plain versions (the generic code: the jvp branch, the
+   chi2 block, the scaling and b, ``apply_update``) at sphere2500's
+   shapes (its first linearization point and scales; the update by a
+   seeded step): bitwise equal on the card, on the CPU and replayed from
+   a CUDA graph, bitwise repeatable, one launch a call; device-only ms
+   (20 calls replayed from a graph) beside the bound, the plain
+   version's, the host us a call and "library: none";
 4d. sphere2500 with the K6 gate closed (``pcg_mf.J_BYTES_LIMIT = 0``),
    10 iterations on the card and on the CPU: ``run_pcg`` on
-   ``hessian_matvec``, K1 launched, the same checks;
+   ``hessian_matvec``, K1 launched, the same checks (bitwise, K11's
+   launches);
 4e. ``cond`` (run after phase 4c, on its problem): conditional regions
    (``device_loop.cond``, one conditional graph node each, built from
    ``csrc/cond.cu``: PyTorch's CUDA graphs expose none) against their
@@ -204,7 +217,12 @@ peak memory:
     and, in the accepted iteration, no copy of an Hpl group or a stored
     J (the accepted branch relinearizes into the loop's state);
 17. ``jit-sphere2500`` (after phase 4c, against phase 4b's run): 30
-    iterations, K6 once per replay;
+    iterations, K6 once per replay, K11's trial chi2 and update captured
+    in the step's region and its linearization in the accepted branch's;
+    then its first two iterations from the start run eagerly under
+    ``torch.profiler``, with K11 and with K11's gates shut (the jvp branch
+    of earlier PRs), by kernel name and by host op and input shapes:
+    K11's kernels in the first trace only, fewer kernels with K11;
 18. ``remask``: Ladybug-49 frozen with ``remaskable=True`` on the card, 10
     iterations under jit_loop; then every observation of points 0-77
     disabled (``set_factor_active(..., 0x80)``) and camera 1 fixed
@@ -364,6 +382,12 @@ K10 (``csrc/schur_w.cu``) takes every float32 ``schur_values``: phases
 eager iterations by host op holds none of the (4995188, 9, 3) products
 it replaced.
 
+K11 (``csrc/pose.cu``) takes every SE3 pose-graph set and SE3 vertex
+update of a float32 graph (``ops/cuda/pose.gate``, ``update_gate``):
+phases 4b, 4d, 17, S5, ``cli-jit`` (``examples.pose_graph --jit-loop``)
+and the FP32_BF16 pose policy check that it launched, the FP64_FP64 pose
+policy that it did not.
+
 K7 (``csrc/bal.cu``) takes every BAL reprojection set of a float32 graph
 (``ops/cuda/bal.gate``): phases 4, 7, 9, 15, 16, 18, 21 and 23, 24, 25,
 S2-S4 check that it launched (in phase 16 the linearize and Hessian
@@ -511,6 +535,7 @@ def phase_build():
         dot,
         pcg_dense,
         pcg_mf,
+        pose,
         schur_w,
         segmv,
         segsum,
@@ -521,7 +546,7 @@ def phase_build():
                segsum_stream.load_product_kernel, segmv.load_kernel,
                pcg_mf.load_kernel, cond.load_kernel, allreduce.load_kernel,
                bal.load_kernel, dot.load_kernel, schur_w.load_kernel,
-               structure.library, bal_loader.library)
+               pose.load_kernel, structure.library, bal_loader.library)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
         libs = list(pool.map(lambda load: load(), loaders))
@@ -795,6 +820,7 @@ def all_stats():
         dot,
         pcg_dense,
         pcg_mf,
+        pose,
         schur_w,
         segmv,
         segsum,
@@ -808,7 +834,8 @@ def all_stats():
             segmv.WTBL_STATS, segmv.SYM_STATS, pcg_mf.STATS,
             allreduce.STATS, allreduce.GATHER_STATS, bal.RESIDUAL_STATS,
             bal.LINEARIZE_STATS, bal.SCALE_B_STATS, bal.HESSIAN_SUM_STATS,
-            dot.STATS, dot.STATS_F64, schur_w.STATS]
+            dot.STATS, dot.STATS_F64, schur_w.STATS, pose.RESIDUAL_STATS,
+            pose.LINEARIZE_STATS, pose.SCALE_B_STATS, pose.UPDATE_STATS]
 
 
 # K7's entry points (csrc/bal.cu)
@@ -1248,7 +1275,8 @@ def phase_pose(iterations):
     t1 = time.perf_counter()
     cpu = run_lm(pose_problem("cpu"), solver, iterations)
     print(f"[sphere2500] cpu run {time.perf_counter() - t1:.1f} s")
-    compare_runs("sphere2500", gpu, cpu)
+    check(compare_runs("sphere2500", gpu, cpu),
+          "sphere2500: the card's trajectory is not the CPU's bit for bit")
     check(len(gpu.history) == len(cpu.history), "iteration counts differ")
     check_solution("sphere2500", problem, gpu)
     check_quaternions("sphere2500", gpu)
@@ -1266,6 +1294,7 @@ def phase_pose(iterations):
     check(loops[0] == 0, "run_pcg ran on the K6 branch")
     check(launches["segsum_stream.streaming_segment_sum"] > 0,
           "K1 never launched on the pose path")
+    check_k11_counts("sphere2500", launches, gpu)
     return launches, problem, gpu
 
 
@@ -1284,7 +1313,9 @@ def phase_pose_generic(iterations):
         cpu = run_lm(pose_problem("cpu"), solver, iterations)
     finally:
         pcg_mf.J_BYTES_LIMIT = gate
-    compare_runs("sphere2500-generic", gpu, cpu)
+    check(compare_runs("sphere2500-generic", gpu, cpu),
+          "sphere2500-generic: the card's trajectory is not the CPU's bit "
+          "for bit")
     check(len(gpu.history) == len(cpu.history), "iteration counts differ")
     check_solution("sphere2500-generic", problem, gpu)
     dev_ms = [h["device_ms"] for h in gpu.history[1:]]
@@ -1295,6 +1326,7 @@ def phase_pose_generic(iterations):
     check(launches["pcg_mf.solve_pcg_mf"] == 0, "K6 launched, gate closed")
     check(launches["segsum_stream.streaming_segment_sum"] > 0,
           "K1 never launched on the generic pose branch")
+    check_k11_counts("sphere2500-generic", launches, gpu)
     return launches
 
 
@@ -2070,6 +2102,171 @@ def phase_k7(problem, lin):
           f"fused sums: the row entry 1, K1 3)")
     check(launches[entry] == 3 and k1 == 0,
           "k7: Venice's Hessian values must be three K7 sums and no K1")
+    return results
+
+
+# float32 and float64 operations per factor (per vertex for the update)
+# that K11's entries need (the bound's operation side), counted from
+# csrc/se3_dual.cuh and csrc/pose.cu for an se3_between factor (a prior
+# needs fewer), each value once however many threads compute it. A
+# float64 sqrt, sin, cos or atan2 counts ~40 operations (CUDA's libdevice).
+# - se3_residual: the residual (~240 float32 operations; sqrt twice,
+#   atan2, cos, sin), P r, chi2 and the loss (~90).
+# - se3_linearize: the primal once: both retractions at delta = 0 (~126
+#   and 6 functions each), the residual, P r and the loss (~580 and 17
+#   functions). The forward-mode tangent of each operation once per
+#   direction that reaches it: a slot's retraction along its own 6
+#   directions (~194 each), the first pose's inverse along the same 6
+#   (~60), the rest of the residual along all 12 (~295): ~6,230, and ~180
+#   float64 operations for the functions' tangents. P J and the diagonal
+#   (~500 a slot) and the masks (72). In all ~7,880 float32 and ~860
+#   float64 operations.
+# - se3_scale_b: P r, dL P r, the scaled J and b's rows (~280).
+# - se3_update: the scaled step, se3_exp, the composition and the
+#   normalization (~132 and 6 functions).
+K11_OPS = {"pose.se3_residual": 330, "pose.se3_linearize": 7880,
+           "pose.se3_scale_b": 280, "pose.se3_update": 132}
+K11_F64_OPS = {"pose.se3_residual": 5 * 40,
+               "pose.se3_linearize": 17 * 40 + 180,
+               "pose.se3_scale_b": 0, "pose.se3_update": 6 * 40}
+K11_ENTRIES = tuple(K11_OPS)
+
+
+def check_k11(tag, launches, entries=K11_ENTRIES, absent=False):
+    """Print K11's launches in ``launches`` and check that each of
+    ``entries`` launched (``absent``: that none of them did)."""
+    counts = {e: launches.get(e, 0) for e in K11_ENTRIES}
+    print(f"[{tag}] K11 launches {counts}")
+    for e in entries:
+        check((counts[e] == 0) if absent else (counts[e] > 0),
+              f"{tag}: K11's {e} " + ("launched" if absent
+                                     else "never launched"))
+
+
+def check_k11_counts(tag, launches, result):
+    """``check_k11``, and K11's launches in a host-loop LM run of one
+    factor set: a trial chi2 and an update an iteration, a linearization
+    (both passes) at the start and after each accepted step."""
+    check_k11(tag, launches)
+    n = len(result.history)
+    check(launches["pose.se3_residual"] == launches["pose.se3_update"] == n
+          and launches["pose.se3_linearize"] == launches["pose.se3_scale_b"]
+          == result.accepted_steps + 1,
+          f"{tag}: K11 launches {launches} in {n} iterations")
+
+
+def phase_k11(problem):
+    """K11's entries vs their plain versions at sphere2500's shapes (the
+    first linearization point of phase 4b's problem, its scales; the
+    update by a seeded step): bitwise equal on the card and on the CPU,
+    bitwise repeatable, and the same bits replayed from a CUDA graph.
+    Timed device-only (20 calls replayed from one graph: a call is a few
+    us, less than the host's launch work) against the bound, the plain
+    version's time (the generic code, the jvp branch for the
+    linearization) and its host us a call; no single PyTorch call
+    computes any entry (library: none)."""
+    import numpy as np
+    import torch
+
+    from graphite_tpu_torch.kernel_sweep import graph_ms, host_us
+    from graphite_tpu_torch.linearize import linearize
+    from graphite_tpu_torch.ops.cuda import pose
+
+    (name,) = problem.factor_meta
+    loss = pose.gate(problem, name)
+    check(loss is not None, "k11: sphere2500 does not pass K11's gate")
+    lin = linearize(problem, problem.params0)
+    fa = problem.data.factors[name]
+    va = problem.data.vertices["se3_pose"]
+    F, V = fa.ids[0].shape[0], va.active.shape[0]
+    step = np.random.default_rng(11).standard_normal(problem.dim_x)
+
+    def inputs(dev):
+        """Each entry's arguments on ``dev``; the second pass takes the
+        plain linearization's outputs."""
+        p = problem.params0["se3_pose"].to(dev)
+        ids = tuple(t.to(dev) for t in fa.ids)
+        obs, prec, fm, sm, lp = (t.to(dev) for t in (
+            fa.obs, fa.precision, fa.factor_mask, fa.slot_mask,
+            fa.loss_params))
+        lin_args = (p, ids, obs, prec, sm, fm, lp, loss)
+        r, J, _, dL, _ = pose.se3_linearize_plain(*lin_args)
+        sc = tuple(problem.rows_view_padded(lin.scales, "se3_pose").to(dev)
+                   for _ in ids)
+        dx = torch.as_tensor(step, dtype=torch.float32, device=dev)
+        return {"pose.se3_residual": (p, ids, obs, prec, fm, lp, loss),
+                "pose.se3_linearize": lin_args,
+                "pose.se3_scale_b": (J, r, dL, prec, sc,
+                                     tuple(t.to(dev) for t in fa.rows),
+                                     problem.precision.solver_dtype),
+                "pose.se3_update": (p, dx, lin.scales.to(dev),
+                                    problem.seg_start["se3_pose"],
+                                    problem.seg_rows["se3_pose"],
+                                    va.active_row.to(dev),
+                                    va.active.to(dev))}
+
+    def flat(x):
+        """The tensors of ``x``, nested tuples walked in order."""
+        if torch.is_tensor(x):
+            return [x]
+        if isinstance(x, (tuple, list)):
+            return [t for y in x for t in flat(y)]
+        return []
+
+    def bits(t):
+        return t.contiguous().view(
+            {4: torch.int32, 2: torch.int16}[t.element_size()])
+
+    def same(a, b):
+        return all(torch.equal(bits(x), bits(y))
+                   for x, y in zip(flat(a), flat(b), strict=True))
+
+    card, host = inputs(problem.device), inputs("cpu")
+    fns = {"pose.se3_residual": (pose.se3_residual, pose.se3_residual_plain),
+           "pose.se3_linearize": (pose.se3_linearize,
+                                  pose.se3_linearize_plain),
+           "pose.se3_scale_b": (pose.se3_scale_b, pose.se3_scale_b_plain),
+           "pose.se3_update": (pose.se3_update, pose.se3_update_plain)}
+    results = {}
+    for entry, (kernel, plain) in fns.items():
+        ins, cins = card[entry], host[entry]
+        stats = next(s for s in all_stats() if s.name == entry)
+        before = stats.launches
+        out, again = kernel(*ins), kernel(*ins)
+        launches = stats.launches - before
+        ref, ref_cpu = plain(*ins), plain(*cins)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = kernel(*ins)
+        graph.replay()
+        torch.cuda.synchronize()
+        ok = dict(vs_plain=same(out, ref), repeat=same(out, again),
+                  vs_cpu_plain=same([t.cpu() for t in flat(out)], ref_cpu),
+                  in_graph=same(captured, ref))
+        err = max(float((o.float() - r.float()).abs().max())
+                  for o, r in zip(flat(out), flat(ref)))
+        n = V if entry == "pose.se3_update" else F
+        work = bound(nbytes(*flat(ins), *flat(out)), K11_OPS[entry] * n)
+        work["ops_ms"] += (1e3 * K11_F64_OPS[entry] * n
+                           / FP64_VECTOR_OPS_PER_S)
+        label = (f"F={F} se3_between" if n == F else f"V={V} se3_pose") + \
+            " -> " + ", ".join("x".join(map(str, t.shape)) + " "
+                               + str(t.dtype)[6:] for t in flat(out))
+        del out, again, ref, ref_cpu, graph, captured
+        ms = graph_ms(lambda k=kernel, i=ins: k(*i), 20)
+        plain_ms = graph_ms(lambda p=plain, i=ins: p(*i), 3)
+        us = dict(k11=host_us(lambda k=kernel, i=ins: k(*i), 100, 3),
+                  plain=host_us(lambda p=plain, i=ins: p(*i), 5, 3))
+        print(f"[k11] {entry} {label}: bitwise {ok} launches a call="
+              f"{launches / 2:g} max_abs_err={err:.3e} device-only ms="
+              f"{ms:.5f} plain_ms={plain_ms:.5f} library: none bound_ms="
+              f"{bound_fields(work)} host us a call {us} ({card_label()})")
+        for what, good in ok.items():
+            check(good, f"k11: {entry} not bitwise ({what})")
+        check(launches == 2, f"k11: {entry} launched {launches} times in "
+              "two calls")
+        results[entry] = [dict(err=err, ms=ms, plain_ms=plain_ms,
+                               shape=label, library_ms=None, **work)]
     return results
 
 
@@ -3084,13 +3281,13 @@ def count_step_kernels(problem, solver):
     return out
 
 
-def print_breakdown(tag, by_name, top=16, by="name"):
+def print_breakdown(tag, by_name, top=16, by="name", phase="jit-venice"):
     """One iteration's device ms by kernel name (or host op), largest
     first: the ``top`` names and the rest summed."""
     total = sum(ms for _, ms in by_name.values())
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     rest = rows[top:]
-    print(f"[jit-venice] {tag}: device ms {total:.4f} in "
+    print(f"[{phase}] {tag}: device ms {total:.4f} in "
           f"{sum(c for c, _ in by_name.values())} activities; by {by} "
           f"(calls, ms): " + "; ".join(
               f"{name} ({calls}, {ms:.4f})" for name, (calls, ms) in rows[:top])
@@ -3193,14 +3390,58 @@ def replay_kernels(problem, solver):
 
 
 def phase_jit_pose(problem, iterations, host):
-    """sphere2500 under jit_loop vs phase 4b's host loop (K6)."""
-    _, loop, launches = run_graph("jit-sphere2500", problem, pose_solver(),
+    """sphere2500 under jit_loop vs phase 4b's host loop (K6, K11); then
+    the device kernels of its first two iterations from the start, the
+    captured iteration's code run eagerly under ``torch.profiler``, with
+    K11 and with K11's gates shut (the jvp branch and the generic update
+    of earlier PRs), by kernel name and by host op."""
+    from graphite_tpu_torch.ops.cuda import pose
+
+    solver = pose_solver()
+    _, loop, launches = run_graph("jit-sphere2500", problem, solver,
                                   iterations, host)
     check(loop.capture_launches.get("pcg_mf.solve_pcg_mf") == 1,
           "K6 must launch once per replay")
     check_k7("jit-sphere2500", launches, entries=())  # no BAL factor
     check(not any(launches.get(e, 0) for e in K7_ENTRIES),
           "jit-sphere2500: K7 launched on a pose graph")
+    check_k11("jit-sphere2500", launches)
+    check(all(loop.capture_launches.get(e) == 1 for e in K11_ENTRIES),
+          f"jit-sphere2500: K11's entries must be captured once each (the "
+          f"trial chi2 and update in the step, the linearization in the "
+          f"accepted branch): {loop.capture_launches}")
+
+    counts = {}
+    gates = pose.gate, pose.update_gate
+    for name in ("with K11", "K11's gates shut"):
+        if name != "with K11":
+            pose.gate = lambda problem, name: None
+            pose.update_gate = lambda problem, name: False
+        try:
+            runs = count_step_kernels(problem, solver)
+        finally:
+            pose.gate, pose.update_gate = gates
+        counts[name] = [run[:2] for run in runs]
+        accepted, _, by_name, by_op = runs[0]
+        tag = (f"{name}, " + ("accepted" if accepted else "rejected")
+               + f" iteration ({card_label()})")
+        print_breakdown(tag, by_name, phase="jit-sphere2500")
+        print_breakdown(tag, by_op, top=24, by="host op and input shapes",
+                        phase="jit-sphere2500")
+        k11_kernels = [k for k in by_name if k.startswith((
+            "linearize_kernel", "residual_kernel", "scale_b_kernel",
+            "update_kernel"))]
+        check(bool(k11_kernels) == (name == "with K11"),
+              f"jit-sphere2500: {name}: K11's kernels in the trace: "
+              f"{k11_kernels}")
+    print(f"[jit-sphere2500] device kernels of LM iterations 1 and 2 from "
+          f"the start (accepted, kernels), the captured iteration run "
+          f"eagerly, each in a torch.profiler trace of its own: {counts}")
+    check(all(a < b for (_, a), (_, b) in zip(
+        counts["with K11"], counts["K11's gates shut"])),
+          f"jit-sphere2500: K11 did not cut the kernels an iteration: "
+          f"{counts}")
+    drop_loop(problem, loop)
     return launches
 
 
@@ -3359,6 +3600,7 @@ def phase_jit_cli():
         print(f"[cli-jit] {name}: chi2 {res.initial_chi2!r} -> {res.chi2!r}"
               f" iterations={res.iterations}")
         check(res.chi2 < res.initial_chi2, f"{name}: chi2 not lowered")
+    check_k11("cli-jit", launches)
     return launches
 
 # ---- the precision policies ---------------------------------------------
@@ -3582,6 +3824,8 @@ def phase_precision_pose():
         check_quaternions(tag, gpu)
         check_policy_kernels(tag, policy, launches, {
             "pcg_mf.solve_pcg_mf": policy == "FP32_BF16"}, bal=False)
+        # K11 in a float32 graph (any storage), never in a float64 one
+        check_k11(tag, launches, absent=policy.startswith("FP64"))
         if policy == "FP32_BF16":
             check(launches["pcg_mf.solve_pcg_mf"] == len(gpu.history),
                   f"{tag}: K6 must launch once per solve")
@@ -4858,6 +5102,8 @@ def phase_shard(cpu_problem, host, iterations):
                   "loop's bit for bit")
             check(r[key]["k8_top"] + r[key]["k8_regions"] > 0,
                   f"{tag}: K8 never ran in the graph")
+            if key == "s5":
+                check_k11(f"{tag} rank {r['rank']}", r[key]["launches"])
             if key == "s4":
                 check_k7(f"{tag} rank {r['rank']}", r[key]["launches"])
                 check_k10(f"{tag} rank {r['rank']}", r[key]["launches"],
@@ -4974,6 +5220,19 @@ KERNELS = [
     # inverses and W = Hpl Hll^-1
     ("K10", "graphite_tpu_torch/csrc/schur_w.cu", {
         K10: "none (XLA fusion: graphite_tpu/schur.py:499-508, :543-599)"}),
+    # no pl.pallas_call: XLA's fusion of the JAX package's AUTO branch (a
+    # vmapped jax.jacfwd per factor type) over the SE3 pose-graph factors,
+    # the chi2, scaling and b around it, and apply_update's retraction
+    ("K11", "graphite_tpu_torch/csrc/pose.cu", {
+        "pose.se3_residual": "none (XLA fusion: graphite_tpu/models/"
+                             "pose_graph.py:63, :74, graphite_tpu/"
+                             "linearize.py:421)",
+        "pose.se3_linearize": "none (XLA fusion of jax.jacfwd: graphite_tpu/"
+                              "linearize.py:97-153, :280, graphite_tpu/"
+                              "models/lie.py:118-165)",
+        "pose.se3_scale_b": "none (XLA fusion: graphite_tpu/linearize.py:280)",
+        "pose.se3_update": "none (XLA fusion: graphite_tpu/linearize.py:602, "
+                           "graphite_tpu/models/lie.py:157)"}),
 ]
 
 
@@ -5045,6 +5304,7 @@ def main():
     k6 = timed("k6", phase_k6)
     pose_launches, pose, pose_host = timed("sphere2500", phase_pose, 30)
     pose_k1 = timed("sphere2500-k1", phase_k1_sites, pose, "sphere2500", 4)
+    k11 = timed("k11", phase_k11, pose)
     timed("cond", phase_cond, pose)
     pose_graph_launches = timed("jit-sphere2500", phase_jit_pose, pose, 30,
                                 pose_host)
@@ -5124,7 +5384,7 @@ def main():
     print(json.dumps({"direct_factorizations": firsts}))
     print(json.dumps({"host_setup_seconds_native_numpy": host_setup}))
     measured = merge_measured(k1, k2, k6, pose_k1, venice_measured, nd_k1,
-                              k1_f64, shard_measured, k7, k9, k10)
+                              k1_f64, shard_measured, k7, k9, k10, k11)
     print(json.dumps({"kernels": kernels_json(
         measured, {"ladybug-49": ladybug_launches,
                    "sphere2500": pose_launches,

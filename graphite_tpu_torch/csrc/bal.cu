@@ -131,13 +131,12 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "robust.cuh"
 #include "staging.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
-
-enum Loss { kDefault = 0, kHuber = 1, kCauchy = 2 };
 
 // Python constants as float32, as PyTorch hands them to the op
 constexpr float kInv6 = static_cast<float>(1.0 / 6.0);
@@ -152,12 +151,6 @@ constexpr float kMinusThird = static_cast<float>(-1.0 / 3.0);
 constexpr float kMinusTwelfth = static_cast<float>(-1.0 / 12.0);
 constexpr float kTiny = static_cast<float>(1e-24);
 constexpr float kSmall = static_cast<float>(0.01);
-constexpr float kClampMin = static_cast<float>(1e-30);
-constexpr float kFp16Max = 65504.0f;
-
-__device__ __forceinline__ float sqrt_rn(float x) {
-  return static_cast<float>(sqrt(static_cast<double>(x)));
-}
 
 __device__ __forceinline__ float cos_rn(float x) {
   return static_cast<float>(cos(static_cast<double>(x)));
@@ -165,42 +158,6 @@ __device__ __forceinline__ float cos_rn(float x) {
 
 __device__ __forceinline__ float sin_rn(float x) {
   return static_cast<float>(sin(static_cast<double>(x)));
-}
-
-// torch.maximum on CUDA
-__device__ __forceinline__ float t_maximum(float a, float b) {
-  if (a != a) return a;
-  if (b != b) return b;
-  return fmaxf(a, b);
-}
-
-// Tensor.clamp_min(lo) on CUDA
-__device__ __forceinline__ float t_clamp_min(float v, float lo) {
-  return v != v ? v : fmaxf(v, lo);
-}
-
-// Tensor.__rtruediv__: reciprocal(x) * 1.0
-__device__ __forceinline__ float t_recip(float x) { return (1.0f / x) * 1.0f; }
-
-// The robust loss on the squared error x = r^T r (loss.py): its value and
-// its derivative dL.
-template <int LOSS>
-__device__ __forceinline__ void robust(float x, float p, float* value,
-                                       float* deriv) {
-  if (LOSS == kHuber) {
-    const float d2 = p * p;
-    const float safe = sqrt_rn(t_maximum(x, t_clamp_min(d2, kClampMin)));
-    *value = x <= d2 ? x : 2.0f * safe * p - d2;
-    *deriv = x <= d2 ? 1.0f : p / safe;
-  } else if (LOSS == kCauchy) {
-    const float c2 = p * p;
-    const float q = x / c2;
-    *value = c2 * log1pf(q);
-    *deriv = t_recip(1.0f + q);
-  } else {
-    *value = x;
-    *deriv = 1.0f;
-  }
 }
 
 // reprojection_residual (models/bal.py): rodrigues_rotate, then project,
@@ -458,37 +415,6 @@ __global__ void __launch_bounds__(kThreads)
   store_span<kThreads>(diag_c + 9 * f0, t_dc, 9 * nf);
   store_span<kThreads>(diag_p + 3 * f0, t_dp, 3 * nf);
 }
-
-template <typename S>
-struct Storage;
-
-template <>
-struct Storage<float> {
-  static __device__ __forceinline__ float store(float x) { return x; }
-  static __device__ __forceinline__ float load(float x) { return x; }
-};
-
-template <>
-struct Storage<__nv_bfloat16> {
-  static __device__ __forceinline__ __nv_bfloat16 store(float x) {
-    return __float2bfloat16_rn(x);
-  }
-  static __device__ __forceinline__ float load(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-  }
-};
-
-template <>
-struct Storage<__half> {
-  // clamp_to_storage: Tensor.clamp(-65504, 65504), then the cast
-  static __device__ __forceinline__ __half store(float x) {
-    const float c = x != x ? x : fminf(fmaxf(x, -kFp16Max), kFp16Max);
-    return __float2half_rn(c);
-  }
-  static __device__ __forceinline__ float load(__half x) {
-    return __half2float(x);
-  }
-};
 
 // bal_scale_b: a CTA owns a tile of kThreads consecutive factors. It
 // stages the tile's Jc, Jp, r and dL rows in shared memory, each one

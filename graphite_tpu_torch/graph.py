@@ -76,6 +76,14 @@ def activity_masks(factor_ids: Dict[str, np.ndarray],
     return factor_mask, vertex_active, slot_mask
 
 
+def padded_rows(x: torch.Tensor, start: int, n_rows: int,
+                d: int) -> torch.Tensor:
+    """``x[start:start + n_rows * d]`` as (n_rows, d) rows plus one trailing
+    zero trash row (index n_rows)."""
+    rows = x[start:start + n_rows * d].reshape(n_rows, d)
+    return torch.cat([rows, rows.new_zeros(1, d)])
+
+
 @dataclasses.dataclass
 class VertexArrays:
     """Per-vertex-type device tensors."""
@@ -246,8 +254,8 @@ class Problem:
 
     def rows_view_padded(self, x: torch.Tensor, vname: str) -> torch.Tensor:
         """Row view plus one trailing zero trash row (index n_rows)."""
-        rows = self.rows_view(x, vname)
-        return torch.cat([rows, rows.new_zeros(1, rows.shape[1])])
+        return padded_rows(x, self.seg_start[vname], self.seg_rows[vname],
+                           self.vertex_meta[vname].vtype.dim)
 
     def flat_from_rows(self, rows: Dict[str, torch.Tensor],
                        dtype=None, out=None) -> torch.Tensor:

@@ -37,6 +37,7 @@ from .ops.blockfmt import (
     sum_in_order,
 )
 from .ops.cuda import bal as k7
+from .ops.cuda import pose as k11
 from .ops.device_loop import copy_into
 from .ops.streamreduce import reduce_rows, segment_plan
 from .precision import clamp_to_storage, sqrt_rn
@@ -128,28 +129,91 @@ def _residuals_and_flat_jacobians(problem: Problem, params, name: str):
         J = ftype.jacobian_fn(*args)
     else:
         r, J = _auto_residual_and_jacobians(ftype, gathered, _tail(fa))
-    E = ftype.residual_dim
-    jflat = tuple(
-        (Ji.reshape(-1, E, vt.dim)
-         * fa.slot_mask[:, s, None, None].to(Ji.dtype)).reshape(-1, E * vt.dim)
-        for s, (Ji, vt) in enumerate(zip(J, ftype.vertex_types)))
-    return r, jflat
+    return r, _mask_slots(J, fa.slot_mask, ftype.residual_dim, _dims(ftype))
 
 
-def _weighted_residual(fa: FactorArrays, r: torch.Tensor, acc) -> torch.Tensor:
-    """P @ r per factor; identity precision short-circuits to r."""
-    if fa.precision is None:
+def _dims(ftype):
+    return tuple(vt.dim for vt in ftype.vertex_types)
+
+
+# The per-factor arithmetic below takes tensors, not a problem: the generic
+# branch and the plain versions of K11's entries (``ops/cuda/pose.py``)
+# share it, so the two give the same bits by construction.
+
+def _mask_slots(J, slot_mask, E: int, dims):
+    """Per-slot (F, E, d) Jacobians -> flat (F, E*d), each times its
+    slot's mask."""
+    return tuple(
+        (Ji.reshape(-1, E, d) * slot_mask[:, s, None, None].to(Ji.dtype))
+        .reshape(-1, E * d) for s, (Ji, d) in enumerate(zip(J, dims)))
+
+
+def _weighted_residual(precision, r: torch.Tensor, acc) -> torch.Tensor:
+    """P @ r per factor; no precision (identity) short-circuits to r."""
+    if precision is None:
         return r
     E = r.shape[-1]
-    return flat_block_mv(fa.precision, r, E, E, acc_dtype=acc).to(r.dtype)
+    return flat_block_mv(precision, r, E, E, acc_dtype=acc).to(r.dtype)
 
 
-def _apply_precision(fa: FactorArrays, J_flat: torch.Tensor, E: int, d: int,
+def _apply_precision(precision, J_flat: torch.Tensor, E: int, d: int,
                      acc) -> torch.Tensor:
     """P @ J per factor on flat (F, E*d) blocks; identity short-circuits."""
-    if fa.precision is None:
+    if precision is None:
         return J_flat
-    return flat_block_mm_nn(fa.precision, J_flat, E, E, d, acc_dtype=acc)
+    return flat_block_mm_nn(precision, J_flat, E, E, d, acc_dtype=acc)
+
+
+def _chi2_terms(r, precision, factor_mask, loss_params, loss, acc):
+    """Per-factor robust chi2 (masked to active factors) and dL of the
+    residuals ``r``."""
+    pr = _weighted_residual(precision, r, acc)
+    raw = sum_in_order(r[:, e] * pr[:, e] for e in range(r.shape[1]))
+    chi2 = loss.value(raw, loss_params) * factor_mask.to(raw.dtype)
+    return chi2, loss.derivative(raw, loss_params)
+
+
+def _diag_rows(jflat, precision, dL, E: int, dims, acc):
+    """Each slot's (F, d) rows of the unscaled J^T dL P J's diagonal."""
+    dL = dL.to(acc)
+    out = []
+    for Ji, d in zip(jflat, dims):
+        Ji = Ji.to(acc)
+        PJ = _apply_precision(precision, Ji, E, d, acc).reshape(-1, E, d)
+        Ji = Ji.reshape(-1, E, d)
+        out.append(sum_in_order(Ji[:, e] * PJ[:, e] for e in range(E))
+                   * dL[:, None])
+    return tuple(out)
+
+
+def _store_jacobians(jflat, scale_rows, rows, E: int, storage):
+    """Each slot's flat J times its columns' scales, in ``storage``:
+    ``scale_rows`` holds each slot's padded (n_rows + 1, d) scale rows,
+    gathered at the slot's ``rows`` (None: not scaled). Column c of
+    residual row e sits at flat index e*d + c, so the per-column scales
+    tile E times."""
+    out = []
+    for s, Ji in enumerate(jflat):
+        if scale_rows is not None:
+            si = scale_rows[s].index_select(0, rows[s])
+            Ji = Ji * si.repeat(1, E).to(Ji.dtype)
+        out.append(clamp_to_storage(Ji, storage))
+    return tuple(out)
+
+
+def _b_rows(stored, r, dL, precision, E: int, dims, acc):
+    """Each slot's (F, d) rows of b = -J^T dL P r, from the stored J."""
+    w = (_weighted_residual(precision, r, acc) * dL[:, None]).to(acc)
+    return tuple(-flat_block_mv_t(Js, w, E, d, acc_dtype=acc)
+                 for Js, d in zip(stored, dims))
+
+
+def _retract_active(retract, params, rows, active_row, active):
+    """retract(params, delta) for active vertices, delta gathered from a
+    type's padded (n_rows + 1, d) rows of the scaled step at
+    ``active_row``; inactive vertices keep their parameters."""
+    delta = rows.index_select(0, active_row).to(params.dtype)
+    return torch.where(active[:, None], retract(params, delta), params)
 
 
 def _factor_row_reduce(problem, contrib, fname, s, vt_name):
@@ -169,42 +233,51 @@ def _factor_row_reduce(problem, contrib, fname, s, vt_name):
 def compute_chi2_block(problem: Problem, name: str, r: torch.Tensor):
     """Per-factor robust chi2 (masked to active factors) and dL."""
     fa = problem.data.factors[name]
-    loss = problem.factor_meta[name].ftype.loss
-    pr = _weighted_residual(fa, r, problem.precision.acc_dtype)
-    raw = sum_in_order(r[:, e] * pr[:, e] for e in range(r.shape[1]))
-    chi2 = loss.value(raw, fa.loss_params) * fa.factor_mask.to(raw.dtype)
-    return chi2, loss.derivative(raw, fa.loss_params)
+    return _chi2_terms(r, fa.precision, fa.factor_mask, fa.loss_params,
+                       problem.factor_meta[name].ftype.loss,
+                       problem.precision.acc_dtype)
 
 
 def linearize(problem: Problem, params,
               out: Optional[Linearization] = None) -> Linearization:
     """One linearization pass. A set that passes K7's gate
-    (``ops/cuda/bal.gate``) takes K7's two fused entries for its
-    per-factor rows; every set's rows are then summed per vertex row by
-    the same plans (K1), in the same order.
+    (``ops/cuda/bal.gate``: the BAL reprojection factor) or K11's
+    (``ops/cuda/pose.gate``: the SE(3) pose-graph factors) takes that
+    kernel's two fused entries for its per-factor rows; every set's rows
+    are then summed per vertex row by the same plans (K1), in the same
+    order.
 
     With ``out`` (a linearization of the same problem, which this pass
     does not read) the pass writes into ``out``'s tensors and returns it:
-    K7 stores r, chi2, dL and the stored J into them, b, the diagonal and
-    the scales are formed in them; what else a set computes (a set off
-    K7's gate, the scalar chi2) is copied in. The same bits as a new
-    linearization."""
+    K7 and K11 store r, chi2, dL and the stored J into them, b, the
+    diagonal and the scales are formed in them; what else a set computes
+    (a set off both gates, the scalar chi2) is copied in. The same bits
+    as a new linearization."""
     gdt = problem.precision.graph_dtype
     acc = problem.precision.acc_dtype
 
     residuals, jac_flat, chi2_vec, chi2_deriv = {}, {}, {}, {}
-    fused, diag_contribs = set(), {}
+    fused, diag_contribs = {}, {}
     for name in problem.factor_meta:
+        into = None if out is None else (
+            out.residuals[name], out.chi2_vec[name], out.chi2_deriv[name])
         loss = k7.gate(problem, name)
         if loss is not None:
-            fused.add(name)
-            into = None if out is None else (
-                out.residuals[name], out.chi2_vec[name], out.chi2_deriv[name])
+            fused[name] = k7
             (residuals[name], jc, jp, chi2_vec[name], chi2_deriv[name],
              dc, dp) = k7.bal_linearize(*_gather_args(problem, params, name),
                                         loss, into)
             jac_flat[name] = (jc, jp)
             diag_contribs[name] = (dc, dp)
+            continue
+        loss = k11.gate(problem, name)
+        if loss is not None:
+            fused[name] = k11
+            fa = problem.data.factors[name]
+            (residuals[name], jac_flat[name], chi2_vec[name],
+             chi2_deriv[name], diag_contribs[name]) = k11.se3_linearize(
+                *_pose_args(problem, params, name), fa.slot_mask,
+                fa.factor_mask, fa.loss_params, loss, into)
             continue
         r, jflat = _residuals_and_flat_jacobians(problem, params, name)
         residuals[name] = r.to(gdt)
@@ -212,17 +285,10 @@ def linearize(problem: Problem, params,
         chi2_vec[name], chi2_deriv[name] = compute_chi2_block(
             problem, name, residuals[name])
         # Jacobi scaling: diag of the unscaled J^T dL P J
-        fa = problem.data.factors[name]
-        fm = problem.factor_meta[name]
-        E = fm.ftype.residual_dim
-        dL = chi2_deriv[name].to(acc)
-        diag_contribs[name] = []
-        for s, vt in enumerate(fm.ftype.vertex_types):
-            Ji = jflat[s].to(acc)
-            PJ = _apply_precision(fa, Ji, E, vt.dim, acc).reshape(-1, E, vt.dim)
-            Ji = Ji.reshape(-1, E, vt.dim)
-            diag_contribs[name].append(sum_in_order(
-                Ji[:, e] * PJ[:, e] for e in range(E)) * dL[:, None])
+        ftype = problem.factor_meta[name].ftype
+        diag_contribs[name] = _diag_rows(
+            jflat, problem.data.factors[name].precision, chi2_deriv[name],
+            ftype.residual_dim, _dims(ftype), acc)
     diag_raw = problem.allreduce(_reduce_contribs(problem, diag_contribs),
                                  "linearize.diag")
     del diag_contribs
@@ -240,23 +306,19 @@ def linearize(problem: Problem, params,
     jacobians: Dict[str, Optional[Tuple[torch.Tensor, ...]]] = {}
     b_contribs = {}
     for name, fm in problem.factor_meta.items():
+        fa = problem.data.factors[name]
         if name in fused:
-            *jac, b_c, b_p = _fused_scale_b(
-                problem, name, jac_flat[name], residuals[name],
-                chi2_deriv[name], scales,
+            jacobians[name], b_contribs[name] = fused[name].scale_b(
+                jac_flat[name], residuals[name], chi2_deriv[name],
+                fa.precision, _scale_rows(problem, name, scales), fa.rows,
+                problem.precision.solver_dtype,
                 None if out is None else out.jacobians[name])
-            jacobians[name] = tuple(jac)
-            b_contribs[name] = (b_c, b_p)
             continue
         jflat = _scaled_jacobians(problem, name, jac_flat[name], scales)
         jacobians[name] = jflat if fm.store_jacobians else None
-        fa = problem.data.factors[name]
-        E = fm.ftype.residual_dim
-        w = (_weighted_residual(fa, residuals[name], acc)
-             * chi2_deriv[name][:, None]).to(acc)
-        b_contribs[name] = [
-            -flat_block_mv_t(jflat[s], w, E, vt.dim, acc_dtype=acc)
-            for s, vt in enumerate(fm.ftype.vertex_types)]
+        b_contribs[name] = _b_rows(jflat, residuals[name], chi2_deriv[name],
+                                   fa.precision, fm.ftype.residual_dim,
+                                   _dims(fm.ftype), acc)
     del jac_flat
     diag = torch.mul(diag_raw * scales, scales,
                      out=None if out is None else out.diag)
@@ -301,35 +363,31 @@ def _gather_args(problem: Problem, params, name: str):
             fa.obs, fa.slot_mask, fa.factor_mask, fa.loss_params)
 
 
-def _fused_scale_b(problem: Problem, name: str, jflat, r, dL, scales,
-                   out=None):
-    """K7's second pass of a set: its stored Jacobians (into ``out``'s
-    when given) and b's rows."""
+def _pose_args(problem: Problem, params, name: str):
+    """K11's inputs of a set: the pose table, the factors' vertex ids per
+    slot, the measurements and the precision."""
     fa = problem.data.factors[name]
-    vts = problem.factor_meta[name].ftype.vertex_types
-    sc = (tuple(problem.rows_view_padded(scales, vt.name) for vt in vts)
-          if problem.scale_jacobians else (None,) * len(vts))
-    return k7.bal_scale_b(*jflat, r, dL, *sc, *fa.rows,
-                          problem.precision.solver_dtype, out)
+    vt = problem.factor_meta[name].ftype.vertex_types[0]
+    return params[vt.name], fa.ids, fa.obs, fa.precision
+
+
+def _scale_rows(problem: Problem, name: str, scales):
+    """Each slot's padded (n_rows + 1, d) rows of the flat ``scales``, or
+    None when the problem does not scale its Jacobians."""
+    if not problem.scale_jacobians:
+        return None
+    return tuple(problem.rows_view_padded(scales, vt.name)
+                 for vt in problem.factor_meta[name].ftype.vertex_types)
 
 
 def _scaled_jacobians(problem: Problem, name: str, jflat, scales):
     """A set's masked flat Jacobians times their columns' scales, in the
-    storage dtype. Column c of residual row e sits at flat index e*d + c,
-    so the per-column scales tile E times."""
-    fa = problem.data.factors[name]
-    fm = problem.factor_meta[name]
-    E = fm.ftype.residual_dim
-    sdt = problem.precision.solver_dtype
-    out = []
-    for s, vt in enumerate(fm.ftype.vertex_types):
-        Ji = jflat[s]
-        if problem.scale_jacobians:
-            si = problem.rows_view_padded(scales, vt.name).index_select(
-                0, fa.rows[s])
-            Ji = Ji * si.repeat(1, E).to(Ji.dtype)
-        out.append(clamp_to_storage(Ji, sdt))
-    return tuple(out)
+    storage dtype."""
+    return _store_jacobians(
+        jflat, _scale_rows(problem, name, scales),
+        problem.data.factors[name].rows,
+        problem.factor_meta[name].ftype.residual_dim,
+        problem.precision.solver_dtype)
 
 
 def block_jacobians(problem: Problem, lin: Linearization, name: str,
@@ -361,6 +419,13 @@ def compute_chi2(problem: Problem, params) -> torch.Tensor:
             cam, pt, ids0, ids1, obs, _, fmask, lp = _gather_args(
                 problem, params, name)
             c = k7.bal_residual(cam, pt, ids0, ids1, obs, fmask, lp, loss)
+            total = total + c.sum(dtype=torch.float64)
+            continue
+        loss = k11.gate(problem, name)
+        if loss is not None:
+            fa = problem.data.factors[name]
+            c = k11.se3_residual(*_pose_args(problem, params, name),
+                                 fa.factor_mask, fa.loss_params, loss)
             total = total + c.sum(dtype=torch.float64)
             continue
         r = compute_residuals_block(problem, params, name)
@@ -403,7 +468,7 @@ def JtPv(problem: Problem, lin: Linearization,
     for name, fm in problem.factor_meta.items():
         fa = problem.data.factors[name]
         E = fm.ftype.residual_dim
-        w = (_weighted_residual(fa, v[name], acc)
+        w = (_weighted_residual(fa.precision, v[name], acc)
              * lin.chi2_deriv[name][:, None]).to(acc)
         J = block_jacobians(problem, lin, name, params)
         for s, vt in enumerate(fm.ftype.vertex_types):
@@ -424,16 +489,23 @@ def hessian_matvec(problem: Problem, lin: Linearization,
 
 def apply_update(problem: Problem, params, lin: Linearization,
                  delta_x: torch.Tensor):
-    """params' = retract(params, scales * delta_x) for active vertices."""
+    """params' = retract(params, scales * delta_x) for active vertices; an
+    SE(3) type in a float32 graph (``ops/cuda/pose.update_gate``) on K11's
+    ``se3_update``."""
     new_params = {}
-    scaled = delta_x * lin.scales
+    scaled = None
     for name, vm in problem.vertex_meta.items():
         va = problem.data.vertices[name]
-        rows = problem.rows_view_padded(scaled, name)
-        delta = rows.index_select(0, va.active_row).to(params[name].dtype)
-        updated = vm.vtype.retract(params[name], delta)
-        new_params[name] = torch.where(va.active[:, None], updated,
-                                       params[name])
+        if k11.update_gate(problem, name):
+            new_params[name] = k11.se3_update(
+                params[name], delta_x, lin.scales, problem.seg_start[name],
+                problem.seg_rows[name], va.active_row, va.active)
+            continue
+        if scaled is None:
+            scaled = delta_x * lin.scales
+        new_params[name] = _retract_active(
+            vm.vtype.retract, params[name],
+            problem.rows_view_padded(scaled, name), va.active_row, va.active)
     return new_params
 
 

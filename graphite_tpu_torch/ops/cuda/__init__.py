@@ -19,6 +19,8 @@
   order, one launch a dot (``csrc/dot.cu``);
 - ``schur_w``: kernel K10, the Schur complement's landmark inverses and
   W = Hpl Hll^-1, one launch per Hpl group (``csrc/schur_w.cu``);
+- ``pose``: kernel K11, the SE(3) pose-graph factors' linearization by
+  forward-mode dual numbers, chi2 and update (``csrc/pose.cu``);
 - ``cond``: the conditional graph nodes of the captured LM iteration
   (``csrc/cond.cu``).
 

@@ -58,7 +58,13 @@ from ...precision import clamp_to_storage
 from ..blockfmt import flat_block_mm_tn, flat_block_mv_t
 from ..device_loop import copy_into
 from . import build
-from .launches import LaunchStats, on_device, stream_ptr
+from .launches import (
+    LaunchStats,
+    check_tensors,
+    cuda_device,
+    launch,
+    outputs,
+)
 from .segsum import SegmentPlan, segment_sum_ordered
 
 RESIDUAL_STATS = LaunchStats("bal.bal_residual")
@@ -115,52 +121,6 @@ def gate(problem, name: str) -> Optional[Loss]:
     return ft.loss
 
 
-def _launch(stats: LaunchStats, entry: str, device, *args) -> None:
-    lib = load_kernel()
-    with on_device(device):
-        ev = stats.start()
-        err = getattr(lib.lib, entry)(*args, stream_ptr(device))
-        lib.check(err, stats.name)
-        stats.done(ev)
-
-
-def _check(name: str, device, **tensors) -> None:
-    """Raise unless every tensor is a contiguous CUDA tensor on
-    ``device`` of the dtype its name asks (``f``: float32, ``i``: int64,
-    ``b``: bool; a storage tensor is checked by the caller)."""
-    want = {"f": torch.float32, "i": torch.int64, "b": torch.bool}
-    for key, t in tensors.items():
-        if t is None:
-            continue
-        dt = want.get(key.split("_")[0])
-        if t.device != device or not t.is_contiguous() or (
-                dt is not None and t.dtype != dt):
-            raise ValueError(
-                f"{name}: {key.split('_', 1)[1]} must be a contiguous "
-                f"{dt} tensor on {device}, got {t.dtype} on {t.device}")
-
-
-def _outputs(name: str, out, shapes, dtypes, device):
-    """New outputs of ``shapes`` / ``dtypes``, or the given ``out``
-    tensors after checking that each is one (contiguous, on ``device``)."""
-    if out is None:
-        return [torch.empty(sh, dtype=dt, device=device)
-                for sh, dt in zip(shapes, dtypes)]
-    for t, sh, dt in zip(out, shapes, dtypes, strict=True):
-        if (t.shape != sh or t.dtype != dt or t.device != device
-                or not t.is_contiguous()):
-            raise ValueError(
-                f"{name}: out must be a contiguous {dt} {tuple(sh)} tensor "
-                f"on {device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    return list(out)
-
-
-def _device_of(name: str, t: torch.Tensor):
-    if t.device.type != "cuda":
-        raise NotImplementedError(f"{name}: no kernel for device {t.device}")
-    return t.device
-
-
 # ---- bal_residual ---------------------------------------------------------
 
 def bal_residual_plain(cameras, points, ids0, ids1, obs, factor_mask,
@@ -178,16 +138,17 @@ def bal_residual(cameras, points, ids0, ids1, obs, factor_mask, loss_params,
         return bal_residual_plain(cameras, points, ids0, ids1, obs,
                                   factor_mask, loss_params, loss)
     name = RESIDUAL_STATS.name
-    dev = _device_of(name, cameras)
+    dev = cuda_device(name, cameras)
     F = ids0.shape[0]
-    _check(name, dev, f_cameras=cameras, f_points=points, i_ids0=ids0,
-           i_ids1=ids1, f_obs=obs, b_factor_mask=factor_mask,
-           f_loss_params=loss_params)
+    check_tensors(name, dev, f_cameras=cameras, f_points=points,
+                  i_ids0=ids0, i_ids1=ids1, f_obs=obs,
+                  b_factor_mask=factor_mask, f_loss_params=loss_params)
     chi2 = torch.empty(F, dtype=torch.float32, device=dev)
-    _launch(RESIDUAL_STATS, "gt_bal_residual", dev, cameras.data_ptr(),
-            points.data_ptr(), ids0.data_ptr(), ids1.data_ptr(),
-            obs.data_ptr(), factor_mask.data_ptr(), loss_params.data_ptr(),
-            chi2.data_ptr(), F, LOSS_CODES[type(loss)])
+    launch(load_kernel, RESIDUAL_STATS, "gt_bal_residual", dev,
+           cameras.data_ptr(), points.data_ptr(), ids0.data_ptr(),
+           ids1.data_ptr(), obs.data_ptr(), factor_mask.data_ptr(),
+           loss_params.data_ptr(), chi2.data_ptr(), F,
+           LOSS_CODES[type(loss)])
     return chi2
 
 
@@ -229,21 +190,21 @@ def bal_linearize(cameras, points, ids0, ids1, obs, slot_mask, factor_mask,
             r, chi2, dL = out
         return r, jc, jp, chi2, dL, dc, dp
     name = LINEARIZE_STATS.name
-    dev = _device_of(name, cameras)
+    dev = cuda_device(name, cameras)
     F = ids0.shape[0]
-    _check(name, dev, f_cameras=cameras, f_points=points, i_ids0=ids0,
-           i_ids1=ids1, f_obs=obs, b_slot_mask=slot_mask,
-           b_factor_mask=factor_mask, f_loss_params=loss_params)
-    r, chi2, dL = _outputs(name, out, ((F, 2), (F,), (F,)),
-                           (torch.float32,) * 3, dev)
+    check_tensors(name, dev, f_cameras=cameras, f_points=points,
+                  i_ids0=ids0, i_ids1=ids1, f_obs=obs, b_slot_mask=slot_mask,
+                  b_factor_mask=factor_mask, f_loss_params=loss_params)
+    r, chi2, dL = outputs(name, out, ((F, 2), (F,), (F,)),
+                          (torch.float32,) * 3, dev)
     jc, jp, dc, dp = (torch.empty((F, w), dtype=torch.float32, device=dev)
                       for w in (18, 6, 9, 3))
-    _launch(LINEARIZE_STATS, "gt_bal_linearize", dev, cameras.data_ptr(),
-            points.data_ptr(), ids0.data_ptr(), ids1.data_ptr(),
-            obs.data_ptr(), slot_mask.data_ptr(), factor_mask.data_ptr(),
-            loss_params.data_ptr(),
-            *(t.data_ptr() for t in (r, jc, jp, chi2, dL, dc, dp)), F,
-            LOSS_CODES[type(loss)])
+    launch(load_kernel, LINEARIZE_STATS, "gt_bal_linearize", dev,
+           cameras.data_ptr(), points.data_ptr(), ids0.data_ptr(),
+           ids1.data_ptr(), obs.data_ptr(), slot_mask.data_ptr(),
+           factor_mask.data_ptr(), loss_params.data_ptr(),
+           *(t.data_ptr() for t in (r, jc, jp, chi2, dL, dc, dp)), F,
+           LOSS_CODES[type(loss)])
     return r, jc, jp, chi2, dL, dc, dp
 
 
@@ -279,26 +240,40 @@ def bal_scale_b(jc, jp, r, dL, scales_c, scales_p, rows0, rows1,
             stored = out
         return (*stored, bc, bp)
     name = SCALE_B_STATS.name
-    dev = _device_of(name, jc)
+    dev = cuda_device(name, jc)
     F = jc.shape[0]
     if storage not in _STORAGE:
         raise NotImplementedError(f"{name}: no kernel for storage {storage}")
     if (scales_c is None) != (scales_p is None):
         raise ValueError(f"{name}: scale both slots or neither")
-    _check(name, dev, f_jc=jc, f_jp=jp, f_r=r, f_dL=dL, f_scales_c=scales_c,
-           f_scales_p=scales_p, i_rows0=rows0, i_rows1=rows1)
-    out = _outputs(name, out, ((F, 18), (F, 6)), (storage,) * 2, dev)
+    check_tensors(name, dev, f_jc=jc, f_jp=jp, f_r=r, f_dL=dL,
+                  f_scales_c=scales_c, f_scales_p=scales_p, i_rows0=rows0,
+                  i_rows1=rows1)
+    out = outputs(name, out, ((F, 18), (F, 6)), (storage,) * 2, dev)
     out += [torch.empty((F, w), dtype=torch.float32, device=dev)
             for w in (9, 3)]
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    _launch(SCALE_B_STATS, f"gt_bal_scale_b_{_STORAGE[storage]}", dev,
-            jc.data_ptr(), jp.data_ptr(), r.data_ptr(), dL.data_ptr(),
-            ptr(scales_c), ptr(scales_p), rows0.data_ptr(), rows1.data_ptr(),
-            *(t.data_ptr() for t in out), F)
+    launch(load_kernel, SCALE_B_STATS, f"gt_bal_scale_b_{_STORAGE[storage]}",
+           dev, jc.data_ptr(), jp.data_ptr(), r.data_ptr(), dL.data_ptr(),
+           ptr(scales_c), ptr(scales_p), rows0.data_ptr(), rows1.data_ptr(),
+           *(t.data_ptr() for t in out), F)
     return tuple(out)
+
+
+def scale_b(jflat, r, dL, precision, scales, rows, storage: torch.dtype,
+            out=None):
+    """``bal_scale_b`` in the second-pass form ``linearize`` calls every
+    fused kernel by (K11's ``se3_scale_b``): each slot's J, scale rows
+    (``scales`` None: not scaled) and rows as tuples; returns (the stored
+    J, b's rows), a tuple each. K7's factors have no precision."""
+    if precision is not None:
+        raise ValueError(f"{SCALE_B_STATS.name}: K7 takes no precision")
+    jc, jp, b_c, b_p = bal_scale_b(*jflat, r, dL, *(scales or (None, None)),
+                                   *rows, storage, out)
+    return (jc, jp), (b_c, b_p)
 
 
 # ---- bal_hessian_sum ------------------------------------------------------
@@ -337,7 +312,7 @@ def bal_hessian_sum(jc, jp, dL, plan: SegmentPlan, s: int, t: int,
         return bal_hessian_sum_plain(jc, jp, dL, plan, s, t, transposed, out,
                                      accumulate)
     name = HESSIAN_SUM_STATS.name
-    dev = _device_of(name, jc)
+    dev = cuda_device(name, jc)
     if jc.dtype not in _STORAGE or jp.dtype != jc.dtype:
         raise NotImplementedError(
             f"{name}: no kernel for J of {jc.dtype} / {jp.dtype}")
@@ -351,11 +326,12 @@ def bal_hessian_sum(jc, jp, dL, plan: SegmentPlan, s: int, t: int,
             f"{name}: a plan of {plan.rows} rows into {plan.num_segments} "
             f"blocks of {width} on {plan.offsets_i32.device} does not fit "
             f"{dL.shape[0]} factors and out {tuple(out.shape)} on {dev}")
-    _check(name, dev, s_jc=jc, s_jp=jp, f_dL=dL, f_out=out)
-    _launch(HESSIAN_SUM_STATS, f"gt_bal_hessian_sum_{_STORAGE[jc.dtype]}",
-            dev, jc.data_ptr(), jp.data_ptr(), dL.data_ptr(),
-            None if plan.perm_i32 is None else plan.perm_i32.data_ptr(),
-            plan.offsets_i32.data_ptr(), out.data_ptr(), plan.num_segments,
-            pair, int(transposed), plan.group.bit_length() - 1,
-            int(accumulate))
+    check_tensors(name, dev, s_jc=jc, s_jp=jp, f_dL=dL, f_out=out)
+    launch(load_kernel, HESSIAN_SUM_STATS,
+           f"gt_bal_hessian_sum_{_STORAGE[jc.dtype]}", dev, jc.data_ptr(),
+           jp.data_ptr(), dL.data_ptr(),
+           None if plan.perm_i32 is None else plan.perm_i32.data_ptr(),
+           plan.offsets_i32.data_ptr(), out.data_ptr(), plan.num_segments,
+           pair, int(transposed), plan.group.bit_length() - 1,
+           int(accumulate))
     return out

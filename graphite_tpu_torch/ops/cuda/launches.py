@@ -1,5 +1,6 @@
 """Launch counts (and optional CUDA-event timings) of a kernel wrapper,
-and the stream a wrapper launches on.
+the stream a wrapper launches on, and the checks and launch of the
+wrappers of the per-factor kernels (K7, K11).
 
 Each wrapper owns one ``LaunchStats`` and adds one to it where it
 launches its kernel, and nowhere else, so a run can show that its main
@@ -92,3 +93,52 @@ class LaunchStats:
     def total_ms(self) -> float:
         torch.cuda.synchronize()
         return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+def launch(load, stats: LaunchStats, entry: str, device, *args) -> None:
+    """Call C entry point ``entry`` of the library ``load()`` returns on
+    ``device``'s current stream, raise on its error code, count it."""
+    lib = load()
+    with on_device(device):
+        ev = stats.start()
+        err = getattr(lib.lib, entry)(*args, stream_ptr(device))
+        lib.check(err, stats.name)
+        stats.done(ev)
+
+
+def check_tensors(name: str, device, **tensors) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor on
+    ``device`` of the dtype its name asks (``f``: float32, ``i``: int64,
+    ``b``: bool; a storage tensor is checked by the caller)."""
+    want = {"f": torch.float32, "i": torch.int64, "b": torch.bool}
+    for key, t in tensors.items():
+        if t is None:
+            continue
+        dt = want.get(key.split("_")[0])
+        if t.device != device or not t.is_contiguous() or (
+                dt is not None and t.dtype != dt):
+            raise ValueError(
+                f"{name}: {key.split('_', 1)[1]} must be a contiguous "
+                f"{dt} tensor on {device}, got {t.dtype} on {t.device}")
+
+
+def outputs(name: str, out, shapes, dtypes, device):
+    """New outputs of ``shapes`` / ``dtypes``, or the given ``out``
+    tensors after checking that each is one (contiguous, on ``device``)."""
+    if out is None:
+        return [torch.empty(sh, dtype=dt, device=device)
+                for sh, dt in zip(shapes, dtypes)]
+    for t, sh, dt in zip(out, shapes, dtypes, strict=True):
+        if (t.shape != sh or t.dtype != dt or t.device != device
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"{name}: out must be a contiguous {dt} {tuple(sh)} tensor "
+                f"on {device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    return list(out)
+
+
+def cuda_device(name: str, t: torch.Tensor):
+    """``t``'s device; raises unless it is a CUDA device."""
+    if t.device.type != "cuda":
+        raise NotImplementedError(f"{name}: no kernel for device {t.device}")
+    return t.device

@@ -55,7 +55,7 @@ def compute_block_diagonal(problem, lin: Linearization
         E = fm.ftype.residual_dim
         for s, vt in enumerate(fm.ftype.vertex_types):
             Ji = lin.jacobians[fname][s].to(acc)
-            PJ = _apply_precision(fa, Ji, E, vt.dim, acc)
+            PJ = _apply_precision(fa.precision, Ji, E, vt.dim, acc)
             blk = flat_block_mm_tn(Ji, PJ, vt.dim, E, vt.dim,
                                    acc_dtype=acc) * dL[:, None]
             plan = segment_plan(problem, ("bj_blocks", fname, s),

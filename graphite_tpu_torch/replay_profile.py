@@ -1,14 +1,20 @@
-"""Device ms of the port's BAL main path on the card, for comparing two
+"""Device ms of the port's main paths on the card, for comparing two
 checkouts in one call: the LM iteration under ``jit_loop`` (the median
 accepted and rejected replay, CUDA events), the host loop (the median
 device ms and host wall ms of an accepted and of a rejected iteration),
-the first-order optimizers' replays (gradient descent, Adam) and the peak
-memory, with the run's chi2 and accept pattern, so that two checkouts'
-trajectories can be compared bit for bit.
+the first-order optimizers' replays (gradient descent, Adam; BAL only)
+and the peak memory, with the run's chi2 and accept pattern, so that two
+checkouts' trajectories can be compared bit for bit; then the first
+``--eager`` iterations from the start as the captured iteration's code
+run eagerly, each under ``torch.profiler``, by layer: for each stage of
+``stage_profile`` (a ``record_function`` range around each call) its
+calls, host ms, the device ms and the kernels of what it launched, and
+the iteration's totals.
 
     python -m graphite_tpu_torch.replay_profile                    # Venice-1778
     python -m graphite_tpu_torch.replay_profile --checkout DIR     # DIR's package
     python -m graphite_tpu_torch.replay_profile --size ladybug --iterations 10
+    python -m graphite_tpu_torch.replay_profile --size sphere2500
 
 ``--checkout DIR`` runs this file in a fresh process that imports
 ``graphite_tpu_torch`` from the checkout DIR instead (e.g. an older commit
@@ -16,9 +22,12 @@ unpacked with ``git archive``), as ``setup_profile`` does, so two versions
 are timed by the same code on the same host and card; it uses only entry
 points both have. Run each side in turns (parent, change, change,
 parent). The problem is ``make_bal(size, seed=0)`` under FP32_FP32 with
-PCGSchurSolver(10, 1.0, 5.0); LM runs ``--iterations`` iterations from the
-start, the graph ``--repeats`` more calls after the capturing one. Prints
-one JSON line with the card's name and power limit. It needs a CUDA card.
+PCGSchurSolver(10, 1.0, 5.0), or for ``sphere2500`` the pose graph
+``make_sphere_se3(2500, seed=0)`` under FP32_FP32 with PCGSolver(50,
+1e-10, 1e6, block-Jacobi) (``stage_profile``'s); LM runs
+``--iterations`` iterations from the start, the graph ``--repeats`` more
+calls after the capturing one. Prints one JSON line with the card's name
+and power limit. It needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -51,11 +60,107 @@ def _split(ms, history):
             [m for m, h in zip(ms, history) if not h["accepted"]])
 
 
-def profile(size: str, iterations: int, repeats: int) -> dict:
+def _launches_by_range(prof, prefix: str):
+    """From a ``torch.profiler`` trace: for each host range whose name
+    starts with ``prefix`` (by name), its calls, host ms, and the device
+    ms and kernels (copies and sets left out of the count) of the device
+    activities launched inside it; and the same for the whole trace under
+    ``"total"``. A device activity belongs to every range open when its
+    launch call ran (nested ranges each count it); one whose launch call
+    the trace does not hold is counted under ``"unlinked"`` only."""
+    import torch
+
+    cpu, dev = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    events = prof.profiler.kineto_results.events()
+    ranges = [(e.name()[len(prefix):], e.start_ns(), e.end_ns())
+              for e in events
+              if e.device_type() == cpu and e.name().startswith(prefix)]
+    launch_at = {e.correlation_id(): e.start_ns() for e in events
+                 if e.device_type() == cpu
+                 and e.name().startswith(("cuda", "cu"))}
+    out = {"total": {"calls": 1, "host_ms": 0.0, "device_ms": 0.0,
+                     "kernels": 0},
+           "unlinked": {"calls": 0, "host_ms": 0.0, "device_ms": 0.0,
+                        "kernels": 0}}
+    for name, a, b in ranges:
+        row = out.setdefault(name, {"calls": 0, "host_ms": 0.0,
+                                    "device_ms": 0.0, "kernels": 0})
+        row["calls"] += 1
+        row["host_ms"] += (b - a) / 1e6
+    for e in events:
+        if e.device_type() != dev:
+            continue
+        t = launch_at.get(e.linked_correlation_id(),
+                          launch_at.get(e.correlation_id()))
+        kernel = not e.name().startswith(("Memcpy", "Memset"))
+        rows = ([out["unlinked"]] if t is None else [out["total"]] + [
+            out[n] for n, a, b in ranges if a <= t <= b])
+        for row in rows:
+            row["device_ms"] += e.duration_ns() / 1e6
+            row["kernels"] += kernel
+    return out
+
+
+def eager_layers(problem, solver, steps: int) -> list:
+    """The first ``steps`` LM iterations from the start as the captured
+    iteration's code run eagerly (its regions as host branches), each
+    under ``torch.profiler`` on its own: [{"accepted", "layers"}], the
+    layers from ``_launches_by_range`` over ``stage_profile``'s stages."""
+    import torch
+    from torch.profiler import ProfilerActivity, record_function
+
+    from graphite_tpu_torch.ops import device_loop
+    from graphite_tpu_torch.optimizers import (
+        LevenbergMarquardtOptions,
+        levenberg_marquardt,
+    )
+    from graphite_tpu_torch.optimizers.lm import cached_device_loop
+    from graphite_tpu_torch.stage_profile import _stage_targets
+
+    opts = LevenbergMarquardtOptions(iterations=steps, jit_loop=True)
+    levenberg_marquardt(problem, solver, options=opts)  # every host plan
+    loop = cached_device_loop(problem, solver, opts)
+    loop._start(problem.params0, opts.initial_damping)
+
+    def labelled(fn, name):
+        def run(*args, **kwargs):
+            with record_function("layer: " + name):
+                return fn(*args, **kwargs)
+        return run
+
+    saved, out = [], []
+    try:
+        for owner, attr, name in _stage_targets():
+            fn = owner.__dict__[attr]
+            saved.append((owner, attr, fn))
+            setattr(owner, attr, labelled(fn, name))
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[
+                    ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                with device_loop.enabled():
+                    loop._step()
+                torch.cuda.synchronize()
+                wall_ms = 1e3 * (time.perf_counter() - t0)
+            layers = _launches_by_range(prof, "layer: ")
+            layers["total"]["host_ms"] = wall_ms
+            out.append({"accepted": bool(loop.accepted), "layers": layers})
+    finally:
+        for owner, attr, fn in reversed(saved):
+            setattr(owner, attr, fn)
+    _drop(problem, loop)
+    return out
+
+
+POSE_SIZES = {"sphere2500": 2500}  # size name -> SE3 poses
+
+
+def profile(size: str, iterations: int, repeats: int, eager: int) -> dict:
     import torch
 
     from graphite_tpu_torch import FP32_FP32
-    from graphite_tpu_torch.io import bal, synthetic
+    from graphite_tpu_torch.io import bal, g2o, synthetic
     from graphite_tpu_torch.optimizers import (
         AdamOptions,
         GradientDescentOptions,
@@ -65,15 +170,23 @@ def profile(size: str, iterations: int, repeats: int) -> dict:
         levenberg_marquardt,
     )
     from graphite_tpu_torch.optimizers.lm import cached_device_loop
-    from graphite_tpu_torch.solvers import PCGSchurSolver
+    from graphite_tpu_torch.preconditioners import BlockJacobiPreconditioner
+    from graphite_tpu_torch.solvers import PCGSchurSolver, PCGSolver
 
     t0 = time.perf_counter()
-    g, *_ = bal.build_graph(synthetic.make_bal(size, seed=0),
-                            precision=FP32_FP32)
+    if size in POSE_SIZES:
+        g, *_ = g2o.build_graph(
+            synthetic.make_sphere_se3(POSE_SIZES[size], seed=0),
+            precision=FP32_FP32)
+        solver = PCGSolver(50, 1e-10, 1e6, BlockJacobiPreconditioner())
+    else:
+        g, *_ = bal.build_graph(synthetic.make_bal(size, seed=0),
+                                precision=FP32_FP32)
+        solver = PCGSchurSolver(max_iter=10, tol=1.0, rejection_ratio=5.0)
     problem = g.freeze(device=torch.device("cuda"))
     del g
-    solver = PCGSchurSolver(max_iter=10, tol=1.0, rejection_ratio=5.0)
-    out = {"setup_seconds": time.perf_counter() - t0}
+    out = {"torch": torch.__version__,
+           "setup_seconds": time.perf_counter() - t0}
 
     # the host loop, after a first call that builds every plan and kernel
     levenberg_marquardt(problem, solver,
@@ -117,6 +230,10 @@ def profile(size: str, iterations: int, repeats: int) -> dict:
         graph_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     _drop(problem, loop)
     del loop, graph_runs
+    if eager:
+        out["eager"] = eager_layers(problem, solver, eager)
+    if size in POSE_SIZES:
+        return out
 
     for name, run, options in (
             ("gd", gradient_descent,
@@ -149,12 +266,14 @@ def main(argv=None) -> int:
     ap.add_argument("--size", default="venice-big")
     ap.add_argument("--iterations", type=int, default=10)
     ap.add_argument("--repeats", type=int, default=3)
+    ap.add_argument("--eager", type=int, default=2,
+                    help="eager iterations profiled by layer")
     ap.add_argument("--checkout", default=None,
                     help="time the graphite_tpu_torch of this checkout")
     args = ap.parse_args(argv)
     if args.checkout is not None:
         rest = ["--size", args.size, "--iterations", str(args.iterations),
-                "--repeats", str(args.repeats)]
+                "--repeats", str(args.repeats), "--eager", str(args.eager)]
         code = ("import runpy, sys; sys.path.insert(0, sys.argv[1]); "
                 "sys.argv = [sys.argv[2]] + sys.argv[3:]; "
                 "runpy.run_path(sys.argv[0], run_name='__main__')")
@@ -171,7 +290,7 @@ def main(argv=None) -> int:
 
     where = os.path.dirname(os.path.dirname(os.path.abspath(
         graphite_tpu_torch.__file__)))
-    result = profile(args.size, args.iterations, args.repeats)
+    result = profile(args.size, args.iterations, args.repeats, args.eager)
     print(json.dumps({"replay_profile": {
         "checkout": where, "size": args.size, **result,
         "card": _card()}}), flush=True)

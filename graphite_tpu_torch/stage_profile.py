@@ -8,9 +8,10 @@ and runs Levenberg-Marquardt with PCGSchurSolver(10, 1.0, 5.0) twice:
 
 1. ``--iterations`` iterations under a stage timer. Each call of a stage
    (``linearize``, Hessian values, damping, ``schur_values``, ``b_schur``,
-   kernel K7's entries for the BAL factors with the K1 row reductions
-   beside them (in ``linearize``, and in the Hessian values of the sets
-   K7 does not take: K7 sums its own),
+   kernel K7's entries for the BAL factors and K11's for the SE3
+   pose-graph factors with the K1 row reductions beside them (in
+   ``linearize``, and in the Hessian values of the sets K7 does not take:
+   K7 sums its own), K11's update (in ``apply_update``),
    the preconditioner, ``run_pcg`` / ``dense_pcg`` with the S matvecs and
    preconditioner applies inside it, ``landmark_update``, ``compute_chi2``;
    on the pose path the block-Jacobi blocks and inverses, the folding of
@@ -48,6 +49,7 @@ def _stage_targets():
     import importlib
 
     from .ops.cuda import bal as k7
+    from .ops.cuda import pose as k11
     from .optimizers import lm
     from .preconditioners.block_jacobi_schur import (
         BlockJacobiSchurPreconditioner,
@@ -66,6 +68,10 @@ def _stage_targets():
         (linearize, "_factor_row_reduce",
          "k1 factor rows (in linearize)"),
         (k7, "bal_residual", "k7.bal_residual (in compute_chi2)"),
+        (k11, "se3_linearize", "k11.se3_linearize (in linearize)"),
+        (k11, "se3_scale_b", "k11.se3_scale_b (in linearize)"),
+        (k11, "se3_residual", "k11.se3_residual (in compute_chi2)"),
+        (k11, "se3_update", "k11.se3_update (in apply_update)"),
         (k7, "bal_hessian_sum", "k7.bal_hessian_sum (in hessian_values)"),
         (hessian, "reduce_rows", "k1 hessian rows (in hessian_values)"),
         (lm, "compute_chi2", "compute_chi2"),

@@ -119,6 +119,17 @@ on a machine with only PyTorch (``--noconftest`` skips the JAX set-up in
   bitwise the host loop, and the loop's state after a captured accepted
   branch (relinearized in place) bitwise an eager ``linearize`` and
   ``prepare`` at its parameters.
+- K11 (``csrc/pose.cu``), the SE(3) pose-graph factors' linearization,
+  chi2 and update: each of its four entries bitwise its plain version on
+  the card and on the CPU, and bitwise repeatable, on sphere2500 and on a
+  120-pose sphere with a prior set, a fixed first pose, disabled factors,
+  negative-w quaternions, near-identity errors and errors near and at pi
+  (``tests/torch_k11_cases.py``), under FP32_FP32, FP32_BF16 and
+  FP32_FP16 and the default, Huber and Cauchy losses (Cauchy's chi2
+  within 1e-6 of the CPU's log1p); the same bits replayed from a CUDA
+  graph and written into ``out``; the pose-graph LM on K11 bitwise the
+  CPU run, under the host loop and ``jit_loop``, with every entry
+  launched (the trial chi2 once an iteration).
 - K8 (``csrc/allreduce.cu``) on two ranks of one card: its sum and
   gather bitwise its plain version (gloo on the same CUDA tensors, inputs
   with -0.0 entries; float32, float64, int64, an empty tensor), bitwise
@@ -140,6 +151,7 @@ from graphite_tpu_torch.linearize import linearize
 from graphite_tpu_torch.ops import pcg_loop
 from graphite_tpu_torch.ops.cuda import bal as k7
 from graphite_tpu_torch.ops.cuda import dot as k9
+from graphite_tpu_torch.ops.cuda import pose as k11
 from graphite_tpu_torch.ops.cuda import schur_w as k10
 from graphite_tpu_torch.ops.cuda import (
     pcg_dense,
@@ -1913,3 +1925,187 @@ def test_k10_not_launched_under_fp64(cuda_device):
     _, sv, launches = _schur_values(cuda_device, gtt.FP64_FP64)
     assert launches == 0
     assert all(t.dtype == torch.float64 for t in sv.hll_inv.values())
+
+
+# K11 (csrc/pose.cu): the SE(3) pose-graph factors
+K11_LOSSES = ("default", "huber", "cauchy")
+
+
+def _k11_problem(device, size, loss, policy):
+    from torch_k11_cases import k11_problem
+
+    if size == "sphere2500":
+        return k11_problem(device, 2500, 10, loss, policy, special=False,
+                           prior=False)
+    return k11_problem(device, 120, 7, loss, policy)
+
+
+def _k11_inputs(problem):
+    """Seeded padded scale rows (a slot of each set), and a step and
+    scales for the update."""
+    rng = np.random.default_rng(5)
+    dev, n = problem.device, problem.seg_rows["se3_pose"]
+
+    def rand(*shape, scale=1.0):
+        return torch.as_tensor(scale * rng.standard_normal(shape),
+                               dtype=torch.float32, device=dev)
+
+    scales = {name: tuple(rand(n + 1, 6).abs() for _ in fa.ids)
+              for name, fa in problem.data.factors.items()}
+    return scales, rand(problem.dim_x, scale=0.1), rand(problem.dim_x).abs()
+
+
+def _k11_calls(problem, inputs, plain, out=None):
+    """Every K11 entry at ``problem``'s start: per factor set the trial
+    chi2, the linearization and the second pass (scaled by ``inputs``'
+    rows and not scaled), then the update of the poses by ``inputs``'
+    step: the wrappers (into ``out``'s arrays where given: the arrays of
+    an earlier call), or the plain versions. Returns ([(tag, tensor)],
+    the arrays written into: per set r, chi2 and dL, and the stored J)."""
+    fns = (k11.se3_residual, k11.se3_linearize, k11.se3_scale_b,
+           k11.se3_update)
+    if plain:
+        fns = (k11.se3_residual_plain, k11.se3_linearize_plain,
+               k11.se3_scale_b_plain, k11.se3_update_plain)
+    scales, dx, sc = inputs
+    poses = problem.params0["se3_pose"]
+    storage = problem.precision.solver_dtype
+    res, arrays = [], {}
+    for name in problem.factor_meta:
+        fa = problem.data.factors[name]
+        loss = k11.gate(problem, name)
+        assert loss is not None, name
+        prev = None if out is None else out[name]
+        args = (poses, fa.ids, fa.obs, fa.precision)
+        res.append(("chi2", fns[0](*args, fa.factor_mask, fa.loss_params,
+                                   loss)))
+        kw = {} if plain else {"out": prev and prev["lin"]}
+        r, J, chi2, dL, diag = fns[1](*args, fa.slot_mask, fa.factor_mask,
+                                      fa.loss_params, loss, **kw)
+        res += [("r", r), *(("J", j) for j in J), ("chi2", chi2),
+                ("dL", dL), *(("diag", d) for d in diag)]
+        arrays[name] = {"lin": (r, chi2, dL)}
+        for key, scaled in (("scaled", scales[name]), ("unscaled", None)):
+            kw = {} if plain else {"out": prev and prev[key]}
+            stored, b = fns[2](J, r, dL, fa.precision, scaled, fa.rows,
+                               storage, **kw)
+            res += [*(("stored", t) for t in stored),
+                    *(("b", t) for t in b)]
+            arrays[name][key] = stored
+    va = problem.data.vertices["se3_pose"]
+    res.append(("update", fns[3](poses, dx, sc,
+                                 problem.seg_start["se3_pose"],
+                                 problem.seg_rows["se3_pose"],
+                                 va.active_row, va.active)))
+    return res, arrays
+
+
+K11_STATS = (k11.RESIDUAL_STATS, k11.LINEARIZE_STATS, k11.SCALE_B_STATS,
+             k11.UPDATE_STATS)
+
+
+def _k11_same(out, ref, cpu=False, cauchy=False):
+    assert [t for t, _ in out] == [t for t, _ in ref]
+    for i, ((tag, o), (_, r)) in enumerate(zip(out, ref)):
+        o = o.cpu() if cpu else o
+        assert o.dtype == r.dtype and o.shape == r.shape, (i, tag)
+        if cpu and cauchy and tag == "chi2":
+            torch.testing.assert_close(o, r, rtol=1e-6, atol=0)
+        else:
+            assert torch.equal(_k7_bits(o), _k7_bits(r)), (i, tag)
+
+
+# the special cases under every policy and loss; sphere2500 under one
+K11_CASES = [("special120", policy, loss)
+             for policy in ("FP32_FP32", "FP32_BF16", "FP32_FP16")
+             for loss in K11_LOSSES] + [("sphere2500", "FP32_FP32", "default")]
+
+
+@pytest.mark.parametrize("size,policy,loss", K11_CASES)
+def test_k11_matches_plain_bitwise(cuda_device, size, policy, loss):
+    policy = getattr(gtt, policy)
+    problem = _k11_problem(cuda_device, size, loss, policy)
+    cpu = _k11_problem("cpu", size, loss, policy)
+    inputs = _k11_inputs(problem)
+    before = [s.launches for s in K11_STATS]
+    out, _ = _k11_calls(problem, inputs, plain=False)
+    again, _ = _k11_calls(problem, inputs, plain=False)
+    sets = len(problem.factor_meta)
+    # per call: a trial chi2, a linearization and two second passes a set,
+    # one update
+    assert ([s.launches - b for s, b in zip(K11_STATS, before)]
+            == [2 * sets, 2 * sets, 4 * sets, 2])
+    ref, _ = _k11_calls(problem, inputs, plain=True)
+    ref_cpu, _ = _k11_calls(cpu, _k11_on_cpu(inputs), plain=True)
+    torch.cuda.synchronize()
+    _k11_same(out, again)
+    _k11_same(out, ref)
+    _k11_same(out, ref_cpu, cpu=True, cauchy=loss == "cauchy")
+
+
+def _k11_on_cpu(inputs):
+    scales, dx, sc = inputs
+    return ({k: tuple(t.cpu() for t in v) for k, v in scales.items()},
+            dx.cpu(), sc.cpu())
+
+
+@pytest.mark.parametrize("policy", ["FP32_FP32", "FP32_BF16"])
+def test_k11_in_graph_and_into_out(cuda_device, policy):
+    """K11's entries captured in a CUDA graph, the linearization and the
+    second pass writing into an earlier call's arrays: the replay's bits
+    are the eager calls', in those arrays."""
+    problem = _k11_problem(cuda_device, "special120", "huber",
+                           getattr(gtt, policy))
+    inputs = _k11_inputs(problem)
+    first, arrays = _k11_calls(problem, inputs, plain=False)
+    eager = [(t, x.clone()) for t, x in first]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up, into the same arrays
+        _k11_calls(problem, inputs, plain=False, out=arrays)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured, written = _k11_calls(problem, inputs, plain=False,
+                                       out=arrays)
+    for name, a in arrays.items():
+        for key, ts in a.items():
+            assert all(x is y for x, y in zip(ts, written[name][key],
+                                              strict=True)), (name, key)
+            for t in ts:
+                t.fill_(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    _k11_same(captured, eager)
+
+
+@pytest.mark.parametrize("jit_loop", [False, True])
+def test_pose_lm_under_k11_cuda_equals_cpu(cuda_device, jit_loop):
+    """10 LM iterations of PCGSolver(50, 1e-10, 1e6, block-Jacobi) on the
+    120-pose sphere with its prior set (FP32_FP32): the card's trajectory
+    and parameters bitwise the CPU's, K11 launched (one trial chi2 an
+    iteration)."""
+    from graphite_tpu_torch.ops.cuda.launches import REGISTRY
+
+    runs = []
+    for dev in ("cpu", cuda_device):
+        problem = _k11_problem(dev, "special120", "default", gtt.FP32_FP32)
+        for s in REGISTRY:
+            s.reset()
+        opts = LevenbergMarquardtOptions(iterations=10,
+                                         jit_loop=jit_loop and dev != "cpu")
+        runs.append(levenberg_marquardt(
+            problem, PCGSolver(50, 1e-10, 1e6, BlockJacobiPreconditioner()),
+            options=opts))
+    cpu, gpu = runs
+    assert ([(h["chi2"], h["accepted"]) for h in gpu.history]
+            == [(h["chi2"], h["accepted"]) for h in cpu.history])
+    for name, p in gpu.params.items():
+        assert torch.equal(p.cpu(), cpu.params[name])
+    assert gpu.chi2 < gpu.initial_chi2
+    for s in K11_STATS:
+        assert s.launches > 0, s.name
+    if not jit_loop:  # a captured run counts its launches at capture
+        sets = 2
+        assert k11.RESIDUAL_STATS.launches == sets * len(gpu.history)
+        assert k11.UPDATE_STATS.launches == len(gpu.history)
