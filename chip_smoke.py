@@ -13,8 +13,10 @@ own:
    the sharded path's all-reduce over CUDA IPC, ``csrc/allreduce.cu``, and
    K7, the BAL reprojection factor's linearization and Hessian values,
    ``csrc/bal.cu``, K9, the PCG's dot, ``csrc/dot.cu``, K10, the landmark
-   inverses and W = Hpl Hll^-1, ``csrc/schur_w.cu``, K11, the SE3
-   pose-graph factors' linearization, chi2 and update, ``csrc/pose.cu``;
+   inverses and W = Hpl Hll^-1, and K13, w = Hll^-1 (t - sub),
+   ``csrc/schur_w.cu``, K11, the SE3 pose-graph factors' linearization,
+   chi2 and update, ``csrc/pose.cu``, K12, the CG step's vector work,
+   ``csrc/pcg_step.cu``;
    and the host libraries (g++),
    ``native/structure.cpp`` and ``native/bal_loader.cpp``;
 2. K1 vs its plain PyTorch version on the card, at the BAL Ladybug-49
@@ -128,18 +130,37 @@ own:
    the CPU and replayed from a CUDA graph, bitwise repeatable, one launch
    a call; its ms, the plain version's (the replaced ops') and its bound
    (Hpl, Hll read once, W, Hll^-1 written once at 3.35 TB/s);
+6n. ``k12``: K12 (``csrc/pcg_step.cu``), the CG step's vector work, at
+   the inputs of its first calls in Venice's first solve (recorded from
+   ``PCGSchurSolver.solve`` at the start point): ``bjs_apply`` (the
+   1,778 9x9 inverses, the residual normalised by its r.r), ``cg_advance``
+   and ``cg_commit`` (16,002 entries each), each vs its plain version
+   (the ops it replaced): bitwise equal on the card, on the CPU and
+   replayed from a CUDA graph, bitwise repeatable, one launch a call;
+   device-only ms (calls replayed from a graph: a call is a few us) beside
+   the plain version's, the library call's (``torch.bmm`` on (1778, 9, 9)
+   x (1778, 9, 1) for ``bjs_apply``; none for the others) and the bound;
+6o. ``k13``: K13 (``csrc/schur_w.cu``'s ``hll_solve``), w = Hll^-1 (t -
+   sub), at the same solve's two calls (b_S's, and the
+   back-substitution's with K4's sums subtracted): 993,923 3x3 inverses;
+   the same checks, its ms beside the plain version's (the replaced
+   ``flat_block_mv`` and subtraction), ``torch.bmm`` on (993923, 3, 3) x
+   (993923, 3, 1) and its bound; then the same two calls cast to float64
+   (the FP64_FP64 path's dtypes, K13's ``[f64]`` instance);
 7. the Venice-1778 path: 10 LM iterations of PCGSchurSolver(10, 1.0, 5.0)
    on the card (the block-sparse branch): final chi2 below the initial
    one, finite parameters, K1, K3, K4 and K5 launched, the S matvec kernel
-   once per CG matvec; ms per iteration, kernel times, peak memory;
+   once per CG matvec, K12's advance and commit once per CG step and its
+   ``bjs_apply`` once more per solve, K13 twice per solve; ms per
+   iteration, kernel times, peak memory;
 8. Venice-1778 on the CPU for 2 LM iterations, on the card problem's copy
    (``Problem.to("cpu")``: the same tensors and host structures, nothing
    frozen or built again): the accept pattern equal to the card's and
    chi2 within 1e-3 per iteration;
 9. Ladybug-49 with the Venice branches forced (``dense_matvec_limit=0``,
    the Schur gates lowered), 10 iterations on the card and on the CPU:
-   accept patterns equal, chi2 within 1e-3, K3, K4 and K5 launched, with
-   each kernel's launches and total ms.
+   accept patterns equal, chi2 within 1e-3, K3, K4 and K5 launched, K12
+   and K13 as in phase 7, with each kernel's launches and total ms.
 
 The direct solvers (cuSOLVER / LAPACK Cholesky through
 ``torch.linalg.cholesky_ex``, batched per tree level on the multifrontal
@@ -376,6 +397,18 @@ S5. ``shard-sphere2500-w2-graph`` (in the same ranks): sphere2500 on 2
     Two processes on one card are time-sliced, not concurrent: S2-S5's
     times measure that, not scaling.
 
+K12 (``csrc/pcg_step.cu``) takes every CG step of ``run_pcg`` and
+``run_pcg_fixed`` (K2's and K6's plain versions stay plain) and
+block-Jacobi-Schur's apply; K13 (``schur_w.hll_solve``) every landmark
+solve (float64 inverses counted apart, phases 20-23 check which ran):
+phases 7, 9, 16 and S1-S4 check that the
+advance and the commit launched once per CG step run, ``bjs_apply`` once
+more per solve and K13 twice per solve (b_S and the back-substitution),
+and phase 16's eager iterations make no dim_x vector inside a CG step
+(``torch.cat`` calls counted by their result's size) and fill no landmark
+segment (the trace's ops by input shape), and print their kernels beside
+the parent's (PR 20's final run: 790 rejected, 832 accepted).
+
 K10 (``csrc/schur_w.cu``) takes every float32 ``schur_values``: phases
 4, 7, 16 and S1-S4 check that it launched once per ``schur_values`` call
 (Ladybug's and Venice's one Hpl group), and phase 16's trace of the
@@ -535,6 +568,7 @@ def phase_build():
         dot,
         pcg_dense,
         pcg_mf,
+        pcg_step,
         pose,
         schur_w,
         segmv,
@@ -546,7 +580,8 @@ def phase_build():
                segsum_stream.load_product_kernel, segmv.load_kernel,
                pcg_mf.load_kernel, cond.load_kernel, allreduce.load_kernel,
                bal.load_kernel, dot.load_kernel, schur_w.load_kernel,
-               pose.load_kernel, structure.library, bal_loader.library)
+               pose.load_kernel, pcg_step.load_kernel, structure.library,
+               bal_loader.library)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
         libs = list(pool.map(lambda load: load(), loaders))
@@ -820,6 +855,7 @@ def all_stats():
         dot,
         pcg_dense,
         pcg_mf,
+        pcg_step,
         pose,
         schur_w,
         segmv,
@@ -835,7 +871,11 @@ def all_stats():
             allreduce.STATS, allreduce.GATHER_STATS, bal.RESIDUAL_STATS,
             bal.LINEARIZE_STATS, bal.SCALE_B_STATS, bal.HESSIAN_SUM_STATS,
             dot.STATS, dot.STATS_F64, schur_w.STATS, pose.RESIDUAL_STATS,
-            pose.LINEARIZE_STATS, pose.SCALE_B_STATS, pose.UPDATE_STATS]
+            pose.LINEARIZE_STATS, pose.SCALE_B_STATS, pose.UPDATE_STATS,
+            pcg_step.BJS_STATS, pcg_step.ADVANCE_STATS,
+            pcg_step.COMMIT_STATS, pcg_step.BJS_STATS_F64,
+            pcg_step.ADVANCE_STATS_F64, pcg_step.COMMIT_STATS_F64,
+            schur_w.HLL_SOLVE_STATS, schur_w.HLL_SOLVE_STATS_F64]
 
 
 # K7's entry points (csrc/bal.cu)
@@ -871,6 +911,55 @@ def check_k10(tag, launches, calls):
     print(f"[{tag}] K10 launches {n} ({calls} schur_values calls)")
     check(calls > 0 and n == calls,
           f"{tag}: K10 launched {n} times in {calls} schur_values calls")
+
+
+# K12's entry points (csrc/pcg_step.cu) and K13's (csrc/schur_w.cu)
+K12_BJS, K12_ADVANCE, K12_COMMIT = ("pcg_step.bjs_apply",
+                                    "pcg_step.cg_advance",
+                                    "pcg_step.cg_commit")
+K13 = "schur_w.hll_solve"
+
+
+def check_k12(tag, launches, solves, steps=None):
+    """Print K12's and K13's launches in ``launches`` and check them
+    against ``solves`` PCG-Schur solves (and ``steps`` CG steps, where
+    known): the advance and the commit once per step, ``bjs_apply`` once
+    more per solve (its set-up), K13 twice per solve (b_S and the
+    back-substitution: the BAL paths have one landmark type)."""
+    adv, com, bjs = (launches.get(e, 0)
+                     for e in (K12_ADVANCE, K12_COMMIT, K12_BJS))
+    k13 = launches.get(K13, 0)
+    print(f"[{tag}] K12 launches bjs_apply={bjs} cg_advance={adv} "
+          f"cg_commit={com} ({solves} solves, "
+          f"{'?' if steps is None else steps} CG steps); K13 launches "
+          f"{k13}")
+    check(solves > 0 and adv == com and bjs == adv + solves,
+          f"{tag}: K12 launched {bjs} / {adv} / {com} times in {solves} "
+          f"solves")
+    check(steps is None or adv == steps,
+          f"{tag}: K12's advance launched {adv} times in {steps} CG steps")
+    check(k13 == 2 * solves,
+          f"{tag}: K13 launched {k13} times in {solves} solves")
+
+
+@contextlib.contextmanager
+def counted_matvecs():
+    """Count ``SchurOps.s_matvec`` calls (one per CG step) while open:
+    yields a one-entry list."""
+    from graphite_tpu_torch.schur import SchurOps
+
+    count = [0]
+    real = SchurOps.s_matvec
+
+    def counted(self, x):
+        count[0] += 1
+        return real(self, x)
+
+    SchurOps.s_matvec = counted
+    try:
+        yield count
+    finally:
+        SchurOps.s_matvec = real
 
 
 def count_launches(run, record_events=True):
@@ -2424,6 +2513,272 @@ def phase_k10(problem, ss, hv):
                        library_ms=None, **work)]}
 
 
+def record_venice_solve(problem, lin, solver):
+    """Venice's first solve (``PCGSchurSolver.solve`` at the start point,
+    at the LM's initial damping) with K12's and K13's calls recorded:
+    each call's arguments cloned before it runs. Returns {entry: [the
+    arguments of its calls]} (the first three calls of each)."""
+    import torch
+
+    from graphite_tpu_torch.ops.cuda import pcg_step, schur_w
+    from graphite_tpu_torch.optimizers import LevenbergMarquardtOptions
+
+    def clone(a):
+        if torch.is_tensor(a):
+            return a.clone()
+        if isinstance(a, dict):
+            return {k: clone(v) for k, v in a.items()}
+        return a
+
+    calls, saved = {}, []
+    for module, name in ((pcg_step, "bjs_apply"), (pcg_step, "cg_advance"),
+                         (pcg_step, "cg_commit"), (schur_w, "hll_solve")):
+        real = getattr(module, name)
+
+        def wrapped(*args, _real=real, _name=name):
+            made = calls.setdefault(_name, [])
+            if len(made) < 3:
+                made.append(tuple(clone(a) for a in args))
+            return _real(*args)
+
+        saved.append((module, name, real))
+        setattr(module, name, wrapped)
+    try:
+        mu = torch.full((), LevenbergMarquardtOptions().initial_damping,
+                        dtype=problem.precision.graph_dtype,
+                        device=problem.device)
+        solver.solve(problem, lin, solver.prepare(problem, lin), mu, False)
+        torch.cuda.synchronize()
+    finally:
+        for module, name, real in saved:
+            setattr(module, name, real)
+    return calls
+
+
+def on_cpu_args(args):
+    """A call's arguments with every tensor (and dict of tensors) on the
+    CPU."""
+    import torch
+
+    out = []
+    for a in args:
+        if torch.is_tensor(a):
+            a = a.cpu()
+        elif isinstance(a, dict):
+            a = {k: v.cpu() for k, v in a.items()}
+        out.append(a)
+    return tuple(out)
+
+
+def nan_equal_bits(a, b):
+    """Bitwise equal, NaNs compared by place (their payload is the
+    device's)."""
+    import torch
+
+    a, b = a.cpu(), b.cpu()
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    nan = torch.isnan(a)
+    view = {4: torch.int32, 8: torch.int64}[a.element_size()]
+    return (torch.equal(nan, torch.isnan(b))
+            and torch.equal(a.view(view)[~nan], b.view(view)[~nan]))
+
+
+def phase_k12(calls):
+    """K12's three entries vs their plain versions at the inputs of their
+    first calls in Venice's first solve (``record_venice_solve``; the
+    commit's in-place state cloned for every run): bitwise equal on the
+    card, on the CPU and replayed from a CUDA graph, bitwise repeatable,
+    one launch a call. Device-only ms (calls replayed from a graph)
+    beside the plain version's and the library call's, ``torch.bmm`` of
+    the (1778, 9, 9) inverses and the normalised residual for
+    ``bjs_apply`` (the same product in cuBLAS's order; none computes the
+    other two), and the bound (bytes once at 3.35 TB/s, float32
+    operations at 67 TFLOP/s)."""
+    import torch
+
+    from graphite_tpu_torch.kernel_sweep import graph_ms, host_us
+    from graphite_tpu_torch.ops import pcg_loop
+    from graphite_tpu_torch.ops.cuda import pcg_step
+
+    bjs_args = calls["bjs_apply"][1]  # the first CG step's
+    r, rr, inv, segs = bjs_args
+    (name, _, n_rows, d), = segs.segments
+    adv = calls["cg_advance"][0]
+    com = calls["cg_commit"][0]
+    n = adv[0].shape[0]
+
+    def fresh(args):
+        return tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+
+    # the commit and the advance write into their arguments: each run on
+    # a fresh copy
+    entries = {
+        K12_BJS: (lambda a: pcg_step.bjs_apply(*a),
+                  lambda a: pcg_step.bjs_apply_plain(*a), bjs_args,
+                  lambda out, a: (out,)),
+        K12_ADVANCE: (lambda a: pcg_step.cg_advance(*a),
+                      lambda a: pcg_step.cg_advance_plain(*a), adv,
+                      lambda out, a: (a[6], a[7])),
+        K12_COMMIT: (lambda a: pcg_step.cg_commit(*a),
+                     lambda a: pcg_step.cg_commit_plain(*a), com,
+                     lambda out, a: (a[0], a[1], a[2], a[3], a[7], a[9],
+                                     a[10], a[11], a[12])),
+    }
+    stats = {K12_BJS: pcg_step.BJS_STATS, K12_ADVANCE: pcg_step.ADVANCE_STATS,
+             K12_COMMIT: pcg_step.COMMIT_STATS}
+    rejected = bool(((com[8].abs() > com[13] * com[9])
+                     | torch.isnan(com[8])).item())
+    e = r.element_size()
+    work = {
+        # r, rr and the inverses read, z written; a division a y entry,
+        # d products and d - 1 sums an output, one sqrt
+        K12_BJS: bound(nbytes(r, rr, *inv.values()) + n * e,
+                       n * (1 + 2 * d - 1) + 1),
+        # x, r, p, v read, x_new, r_new written; 4 operations an entry
+        K12_ADVANCE: bound(6 * n * e + 2 * e, 4 * n + 1),
+        # accepted: p, z_new, x_new, r_new read, p, x, r, z written, two
+        # operations an entry; rejected: the scalars only (rz, rz_new,
+        # rz_min, rz written, k, done, the ticket read and written)
+        K12_COMMIT: bound((0 if rejected else 8 * n * e) + 4 * e + 17,
+                          0 if rejected else 2 * n),
+    }
+    labels = {
+        K12_BJS: f"{n_rows} ({d},{d}) inverses, r ({r.shape[0]},) "
+                 f"normalised, Venice's first CG step",
+        K12_ADVANCE: f"({n},) x 4 -> x_new, r_new, Venice's first CG step",
+        K12_COMMIT: f"({n},) x 7, the first CG step "
+                    f"({'rejected' if rejected else 'accepted'})",
+    }
+    inv9 = inv[name].view(n_rows, d, d)
+    y9 = pcg_loop.normalize(r, rr).view(n_rows, d, 1)
+    library = {K12_BJS: lambda: torch.bmm(inv9, y9)}
+    records = {}
+    for entry, (kernel, plain, args, outs) in entries.items():
+        st = stats[entry]
+        before = st.launches
+        a1, a2, a3 = fresh(args), fresh(args), fresh(args)
+        o1 = outs(kernel(a1), a1)
+        o2 = outs(kernel(a2), a2)
+        launches = st.launches - before
+        o3 = outs(plain(a3), a3)
+        c = on_cpu_args(fresh(args))
+        o4 = outs(kernel(c), c)  # the wrapper's CPU path: the plain version
+        a5 = fresh(args)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            o5 = outs(kernel(a5), a5)
+        for t, s in zip(a5, args):
+            if torch.is_tensor(t):
+                t.copy_(s)
+        graph.replay()
+        torch.cuda.synchronize()
+        ok = dict(vs_plain=all(map(nan_equal_bits, o1, o3)),
+                  repeat=all(map(nan_equal_bits, o1, o2)),
+                  vs_cpu_plain=all(map(nan_equal_bits, o1, o4)),
+                  in_graph=all(map(nan_equal_bits, o5, o3)))
+        err = max(float((a.double() - b.double()).abs().nan_to_num().max())
+                  for a, b in zip(o1, o3) if a.is_floating_point())
+        del graph
+        timed_args = fresh(args)
+        ms = graph_ms(lambda: kernel(timed_args), 200)
+        plain_ms = graph_ms(lambda: plain(timed_args), 20)
+        lib = library.get(entry)
+        library_ms = None if lib is None else graph_ms(lib, 200)
+        host = host_us(lambda: kernel(timed_args))
+        print(f"[k12] {entry} {labels[entry]}: bitwise {ok} launches a "
+              f"call={launches / 2:g} max_abs_err={err:.3e} device-only "
+              f"ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms"
+              f"{' (torch.bmm)' if lib else ''}={library_ms} "
+              f"bound_ms={bound_fields(work[entry])} host us a call "
+              f"{host:.1f} ({card_label()})")
+        for what, good in ok.items():
+            check(good, f"k12: {entry} not bitwise ({what})")
+        check(launches == 2, f"k12: {entry} launched {launches} times in "
+              "two calls")
+        records[entry] = [dict(err=err, ms=ms, plain_ms=plain_ms,
+                               shape=labels[entry], library_ms=library_ms,
+                               **work[entry])]
+    return records
+
+
+def phase_k13(calls):
+    """K13 vs its plain version at both calls of Venice's first solve
+    (``record_venice_solve``: b_S's w = Hll^-1 b_l, and the
+    back-substitution's with K4's sums subtracted): bitwise equal on the
+    card, on the CPU and replayed from a CUDA graph, bitwise repeatable,
+    one launch a call; its ms beside the plain version's (the
+    ``flat_block_mv`` and subtraction it replaced), ``torch.bmm`` of the
+    inverses and the rows, and its bound. Then the same calls in float64
+    (inverses and rows cast: the FP64_FP64 path's dtypes at Venice's
+    shapes)."""
+    import torch
+
+    from graphite_tpu_torch.ops.cuda import schur_w
+
+    def f64(args):
+        return tuple(a.double() if torch.is_tensor(a)
+                     and a.is_floating_point() else a for a in args)
+
+    records = {K13: [], K13 + "[f64]": []}
+    for args, site in [(a, s) for a, s in zip(
+            calls["hll_solve"][:2], ("b_S", "back-substitution"))] + [
+            (f64(a), s + ", float64") for a, s in zip(
+                calls["hll_solve"][:2], ("b_S", "back-substitution"))]:
+        inv, gidx, t, sub = args
+        n, d = t.shape
+        stats = (schur_w.HLL_SOLVE_STATS_F64 if inv.dtype == torch.float64
+                 else schur_w.HLL_SOLVE_STATS)
+        before = stats.launches
+        out, again = schur_w.hll_solve(*args), schur_w.hll_solve(*args)
+        launches = stats.launches - before
+        ref = schur_w.hll_solve_plain(*args)
+        cpu = schur_w.hll_solve(*on_cpu_args(args))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = schur_w.hll_solve(*args)
+        graph.replay()
+        torch.cuda.synchronize()
+        ok = dict(vs_plain=nan_equal_bits(out, ref),
+                  repeat=nan_equal_bits(out, again),
+                  vs_cpu_plain=nan_equal_bits(out, cpu),
+                  in_graph=nan_equal_bits(captured, ref))
+        err = float((out - ref).abs().max())
+        del again, cpu, captured, graph
+        rows = inv[:n] if gidx is None else inv.index_select(0, gidx)
+        y = (t if sub is None else t - sub).to(inv.dtype)
+        a3, y3 = rows.view(n, d, d), y.reshape(n, d, 1)
+        # the inverse rows, t, sub and gidx read, w written; d products
+        # and d - 1 sums an output, d subtractions a row
+        work = bound(n * d * d * inv.element_size()
+                     + nbytes(gidx, t, sub, out),
+                     n * d * (2 * d - 1) + (0 if sub is None else n * d),
+                     FP64_VECTOR_OPS_PER_S if inv.dtype == torch.float64
+                     else FP32_OPS_PER_S)
+        ms = device_ms(lambda: schur_w.hll_solve(*args), 20)
+        plain_ms = device_ms(lambda: schur_w.hll_solve_plain(*args), 10)
+        library_ms = device_ms(lambda: torch.bmm(a3, y3), 20)
+        label = (f"{n} ({d},{d}) inverses x ({n},{d}) rows"
+                 + ("" if sub is None else " - sub")
+                 + (", identity rows" if gidx is None else ", gathered")
+                 + f", Venice {site}")
+        print(f"[k13] {label}: bitwise {ok} launches a call="
+              f"{launches / 2:g} max_abs_err={err:.3e} ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} library_ms (torch.bmm)="
+              f"{library_ms:.4f} bound_ms={bound_fields(work)} "
+              f"({card_label()})")
+        for what, good in ok.items():
+            check(good, f"k13: {site} not bitwise ({what})")
+        check(launches == 2, f"k13: launched {launches} times in two calls")
+        records[stats.name].append(dict(
+            err=err, ms=ms, plain_ms=plain_ms, shape=label,
+            library_ms=library_ms, **work))
+        del out, ref, rows, y, a3, y3, args, inv, t, sub
+    return records
+
+
 def merge_measured(*parts):
     """Every phase's records of each entry point, in phase order."""
     out = {}
@@ -2436,22 +2791,10 @@ def merge_measured(*parts):
 def phase_venice_slice(problem, solver, iterations):
     import torch
 
-    from graphite_tpu_torch.schur import SchurOps
-
-    matvecs = [0]
-    s_matvec = SchurOps.s_matvec
-
-    def counted(self, x):
-        matvecs[0] += 1
-        return s_matvec(self, x)
-
     torch.cuda.reset_peak_memory_stats()
-    SchurOps.s_matvec = counted
-    try:
+    with counted_matvecs() as matvecs:
         gpu, launches, kernel_ms = count_launches(
             lambda: run_lm(problem, solver, iterations))
-    finally:
-        SchurOps.s_matvec = s_matvec
     peak = torch.cuda.max_memory_allocated()
     check_solution("venice", problem, gpu)
     hist = gpu.history
@@ -2471,6 +2814,7 @@ def phase_venice_slice(problem, solver, iterations):
     print_launches("venice", launches, kernel_ms)
     check_k7("venice", launches)
     check_k10("venice", launches, len(hist))  # one solve an iteration
+    check_k12("venice", launches, len(hist), matvecs[0])
     k3 = (launches["segsum_stream.streaming_segment_product_sum_rtbl"]
           + launches["segsum_stream.streaming_segment_product_sum"])
     check(k3 > 0, "K3 never launched on the Venice path")
@@ -2518,8 +2862,9 @@ def phase_forced(iterations):
     schur.CHUNK_THRESHOLD, schur._smv_chunk_rows = 0, (lambda rb: 0)
     try:
         problem = ladybug_problem(DEVICE)
-        gpu, launches, kernel_ms = count_launches(
-            lambda: run_lm(problem, solver, iterations))
+        with counted_matvecs() as matvecs:
+            gpu, launches, kernel_ms = count_launches(
+                lambda: run_lm(problem, solver, iterations))
         cpu = run_lm(ladybug_problem("cpu"), solver, iterations)
     finally:
         schur.CHUNK_THRESHOLD, schur._smv_chunk_rows = gates
@@ -2533,6 +2878,7 @@ def phase_forced(iterations):
                  "segsum_stream.streaming_matvec_tbl",
                  "segmv.matvec_sym_stream"):
         check(launches[name] > 0, f"{name} never launched (forced)")
+    check_k12("forced", launches, len(gpu.history), matvecs[0])
 
 
 class Recorded:
@@ -3048,9 +3394,9 @@ def print_replays(tag, loop, result, runs_iterations, runs_accepted):
           f"{getattr(loop.solver, 'max_iter', None)}); graph pool="
           f"{loop.pool_bytes / 2**20:.1f} MiB max_memory_allocated="
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    check(runs.get("lm_iteration") == runs.get("lm_update")
-          == runs_iterations,
-          f"{tag}: the step and update regions ran {runs}, not "
+    check(runs.get("lm_run") == runs.get("lm_iteration")
+          == runs.get("lm_update") == runs_iterations,
+          f"{tag}: the iteration, step and update regions ran {runs}, not "
           f"{runs_iterations} times")
     check(runs.get("lm_accept") == runs_accepted
           and runs.get("lm_reject") == runs_iterations - runs_accepted,
@@ -3190,6 +3536,16 @@ def phase_jit_venice(problem, solver, iterations, host, branch_ms):
     check(graph_launches(loop)["dot.tree_dot"]
           == 2 * runs["lm_iteration"] + 3 * runs["cg_step"],
           "jit-venice: K9's launches are not the regions' runs")
+    # K12: bjs_apply once in the step's region (the solve's set-up), the
+    # advance, bjs_apply and commit once in the CG step's body; K13 twice
+    # in the step's region (b_S and the back-substitution)
+    check(regions["lm_iteration"].get(K12_BJS) == 1
+          and regions["lm_iteration"].get(K13) == 2
+          and all(regions["cg_step"].get(e) == 1
+                  for e in (K12_BJS, K12_ADVANCE, K12_COMMIT)),
+          f"jit-venice: K12 / K13 are not captured once in the CG step and "
+          f"once / twice in the step's region: {regions}")
+    check_k12("jit-venice", launches, runs["lm_iteration"], runs["cg_step"])
     for key in ("segsum_stream.streaming_segment_sum",
                 "segsum_stream.streaming_segment_product_sum_rtbl",
                 "segsum_stream.streaming_matvec_tbl",
@@ -3261,7 +3617,7 @@ def count_step_kernels(problem, solver):
     host branches: a profiler trace of a replay misses kernels inside the
     conditional nodes), each in a ``torch.profiler`` trace of its own:
     [(accepted, kernels, device (calls, ms) by kernel name, by host op
-    and input shapes)]."""
+    and input shapes, CG steps)]."""
     from graphite_tpu_torch.ops import device_loop
     from graphite_tpu_torch.optimizers import (
         LevenbergMarquardtOptions,
@@ -3275,10 +3631,49 @@ def count_step_kernels(problem, solver):
     loop._start(problem.params0, opts.initial_damping)
     out = []
     for _ in range(2):
-        with device_loop.enabled():
+        with (device_loop.enabled(), counted_matvecs() as steps,
+              dim_x_vectors(problem) as dim_x):
             kernels, by_name, by_op, _ = device_kernels(loop._step)
-        out.append((bool(loop.accepted), kernels, by_name, by_op))
+        out.append((bool(loop.accepted), kernels, by_name, by_op, steps[0],
+                    dim_x))
     return out
+
+
+@contextlib.contextmanager
+def dim_x_vectors(problem):
+    """Count the ``torch.cat`` calls that make a dim_x vector while open:
+    all of them and those inside a CG step (the body of
+    ``device_loop.while_loop``). Yields {"iteration": n, "cg_step": n}."""
+    import torch
+
+    from graphite_tpu_torch.ops import device_loop
+
+    count = {"iteration": 0, "cg_step": 0}
+    inside = [False]
+    real_cat, real_loop = torch.cat, device_loop.while_loop
+
+    def cat(*args, **kwargs):
+        out = real_cat(*args, **kwargs)
+        if out.dim() == 1 and out.shape[0] == problem.dim_x:
+            count["iteration"] += 1
+            count["cg_step"] += inside[0]
+        return out
+
+    def while_loop(pred_fn, body, name="loop"):
+        def counted():
+            inside[0] = True
+            try:
+                body()
+            finally:
+                inside[0] = False
+
+        return real_loop(pred_fn, counted, name)
+
+    torch.cat, device_loop.while_loop = cat, while_loop
+    try:
+        yield count
+    finally:
+        torch.cat, device_loop.while_loop = real_cat, real_loop
 
 
 def print_breakdown(tag, by_name, top=16, by="name", phase="jit-venice"):
@@ -3315,6 +3710,23 @@ def stale_shapes(problem):
     return s_shapes, copies
 
 
+# the device kernels of Venice's rejected and accepted eager iteration in
+# the parent's phase 16 (PR 20's final run, NVIDIA H100 80GB HBM3, 700 W)
+PARENT_KERNELS = {False: 790, True: 832}
+
+
+def landmark_fills(problem, by_op):
+    """The fills of a landmark segment (the zeros a dim_x vector built
+    from pose rows takes) in a trace's ops by host op and input shapes:
+    (calls, ms) by op."""
+    lm = [f"[{problem.seg_rows[t] * problem.vertex_meta[t].vtype.dim}]"
+          for t in problem.segment_order
+          if problem.seg_start[t] >= problem.elimination_col]
+    return {op: v for op, v in by_op.items()
+            if op.startswith(("aten::fill_", "aten::zero_"))
+            and any(sh in op for sh in lm)}
+
+
 def replay_kernels(problem, solver):
     """Venice's kernels per iteration with K7 and K9, with the plain dots
     (``tree_dot_plain`` for K9, as before K9) and with K7's gate shut (the
@@ -3343,7 +3755,7 @@ def replay_kernels(problem, solver):
         counts[name] = [run[:2] for run in runs]
         if name == "K7's gate shut":
             continue
-        for accepted, _, by_name, by_op in runs:
+        for accepted, _, by_name, by_op, steps, dim_x in runs:
             tag = (f"{name}, " + ("accepted" if accepted else "rejected")
                    + f" iteration ({card_label()})")
             print_breakdown(tag, by_name)
@@ -3376,12 +3788,29 @@ def replay_kernels(problem, solver):
                 check(not stale, f"jit-venice: the trace holds the passes "
                       f"K3's store and the in-place relinearization "
                       f"removed: {stale}")
+                # the CG step's vectors are pose-only (K12): no dim_x
+                # vector in a CG step (the parent concatenated two a step,
+                # filling the landmark segment of each); compose_delta
+                # and an accepted iteration's linearize make theirs
+                fills = landmark_fills(problem, by_op)
+                cats = [v for k, v in by_name.items() if k.startswith("Cat")]
+                print(f"[jit-venice] {tag}: {steps} CG steps; dim_x vectors "
+                      f"made by cat {dim_x}; concatenation kernels (calls, "
+                      f"ms) ({sum(c for c, _ in cats)}, "
+                      f"{sum(m for _, m in cats):.4f}) (the parent's rejected "
+                      f"iteration: 24, 0.2156 in 10 steps); fills of a "
+                      f"landmark segment {fills}")
+                check(steps > 0 and dim_x["cg_step"] == 0 and not fills,
+                      f"jit-venice: dim_x vectors built in the CG step: "
+                      f"{dim_x}, fills {fills}")
     check(any(a for a, _ in counts["with K7 and K9"]),
           f"jit-venice: no accepted iteration traced: {counts}")
     print(f"[jit-venice] device kernels of LM iterations 1 and 2 from the "
           f"start (accepted, kernels), the captured iteration run eagerly, "
           f"each in a torch.profiler trace of its own (None: the trace saw "
-          f"no device activity): {counts}")
+          f"no device activity): {counts}; the parent's with K7 and K9 "
+          f"(PR 20's final run): "
+          f"{[(a, PARENT_KERNELS[a]) for a, _ in counts['with K7 and K9']]}")
     with_k9 = counts["with K7 and K9"]
     check(all(k is not None for _, k in with_k9)
           and all(a <= b for (_, a), (_, b) in zip(
@@ -3422,7 +3851,7 @@ def phase_jit_pose(problem, iterations, host):
         finally:
             pose.gate, pose.update_gate = gates
         counts[name] = [run[:2] for run in runs]
-        accepted, _, by_name, by_op = runs[0]
+        accepted, _, by_name, by_op, _, _ = runs[0]
         tag = (f"{name}, " + ("accepted" if accepted else "rejected")
                + f" iteration ({card_label()})")
         print_breakdown(tag, by_name, phase="jit-sphere2500")
@@ -3736,13 +4165,23 @@ def check_policy_kernels(tag, policy, launches, float32_kernels, bal=True):
     """K1 in the policy's graph dtype launched; ``float32_kernels`` (the
     K2-K6 entries the float32 sites take) launched where the policy's
     sites are float32 and never elsewhere; on a BAL path (``bal``) K7
-    launched in a float32 graph and never in a float64 one."""
+    launched in a float32 graph and never in a float64 one, and K13 in
+    the inverses' dtype (float64 under FP64_FP64 and FP64_BF16) and never
+    in the other."""
     f64 = policy.startswith("FP64")
     if bal and f64:
         check(all(launches[e] == 0 for e in K7_ENTRIES),
               f"{tag}: K7 launched in a float64 graph")
     elif bal:
         check_k7(tag, launches)
+    if bal:
+        inv64 = policy in ("FP64_FP64", "FP64_BF16")
+        k13, other = (K13 + "[f64]", K13) if inv64 else (K13, K13 + "[f64]")
+        print(f"[{tag}] K13 launches {k13}={launches[k13]} "
+              f"{other}={launches[other]}")
+        check(launches[k13] > 0 and launches[other] == 0,
+              f"{tag}: K13 launched {launches[k13]} / {launches[other]} "
+              f"times in the inverses' dtype / the other")
     k1 = ("segsum_stream.streaming_segment_sum[f64]" if f64
           else "segsum_stream.streaming_segment_sum")
     check(launches[k1] > 0, f"{tag}: {k1} never launched")
@@ -4439,6 +4878,7 @@ def phase_shard_w1(problem, solver, iterations, host):
     print(f"[{tag}] bitwise phase 7's host loop: accept pattern, chi2 and "
           f"final parameters")
     check_k10(tag, launches, k3_calls(launches))
+    check_k12(tag, launches, k3_calls(launches))
     graph = shard_w1_graph(problem, solver, iterations, host)
     order_witness(problem, solver, 3, host)
     return add_launches(launches, graph)
@@ -4485,6 +4925,8 @@ def shard_w1_graph(problem, solver, iterations, host):
             print_replays(tag, loop, result, k, accepted)
             launches = graph_launches(loop)
             check_k10(tag, launches, k3_calls(launches))
+            check_k12(tag, launches, k3_calls(launches),
+                      loop.capture.region_runs()["cg_step"])
             drop_loop(replica, loop)
             del loop
         finally:
@@ -4863,8 +5305,9 @@ def graph_record(tag, loop, trace, iterations):
     total = sum(launches.get(n, 0) for n in k8_names)
     in_while = sum(int(r.runs) * sum(r.launches.get(n, 0) for n in k8_names)
                    for r in loop.capture.regions if r.name == "cg_step")
-    check(runs.get("lm_iteration") == runs.get("lm_update") == iterations,
-          f"{tag}: the step and update regions ran {runs}")
+    check(runs.get("lm_run") == runs.get("lm_iteration")
+          == runs.get("lm_update") == iterations,
+          f"{tag}: the iteration, step and update regions ran {runs}")
     check(runs.get("lm_accept") == sum(accepted)
           and runs.get("lm_reject") == iterations - sum(accepted),
           f"{tag}: the accept / reject regions ran {runs}")
@@ -5075,6 +5518,7 @@ def phase_shard(cpu_problem, host, iterations):
               f"{tag}: K8 never launched")
         check_k7(f"{tag} rank {r['rank']}", lau)
         check_k10(f"{tag} rank {r['rank']}", lau, iterations)
+        check_k12(f"{tag} rank {r['rank']}", lau, iterations)
     print(f"[{tag}] two processes share one card, time-sliced: K8's times "
           f"measure that, not scaling")
     check(r0["trace"] == r1["trace"], f"{tag}: the ranks' traces differ")
@@ -5107,6 +5551,8 @@ def phase_shard(cpu_problem, host, iterations):
             if key == "s4":
                 check_k7(f"{tag} rank {r['rank']}", r[key]["launches"])
                 check_k10(f"{tag} rank {r['rank']}", r[key]["launches"],
+                          k3_calls(r[key]["launches"]))
+                check_k12(f"{tag} rank {r['rank']}", r[key]["launches"],
                           k3_calls(r[key]["launches"]))
         check(r0[key]["trace"] == r1[key]["trace"]
               and all(np.array_equal(r0[key]["params"][n],
@@ -5141,6 +5587,8 @@ def phase_shard(cpu_problem, host, iterations):
         check(lb["launches"]["segsum_stream.streaming_segment_product_sum"]
               > 0, f"{tag}: K3's gathered-stream entry never launched")
         check_k10(f"{tag} rank {r['rank']}", lb["launches"],
+                  k3_calls(lb["launches"]))
+        check_k12(f"{tag} rank {r['rank']}", lb["launches"],
                   k3_calls(lb["launches"]))
         check(chi[-1] < chi[0], f"{tag}: chi2 not lowered")
     check(r0["ladybug"]["trace"] == r1["ladybug"]["trace"],
@@ -5220,6 +5668,21 @@ KERNELS = [
     # inverses and W = Hpl Hll^-1
     ("K10", "graphite_tpu_torch/csrc/schur_w.cu", {
         K10: "none (XLA fusion: graphite_tpu/schur.py:499-508, :543-599)"}),
+    # no pl.pallas_call: XLA's fusion of the JAX package's CG step (one
+    # lax.while_loop body) and its block-Jacobi-Schur einsum
+    ("K12", "graphite_tpu_torch/csrc/pcg_step.cu", {
+        K12_BJS: "none (XLA fusion: graphite_tpu/preconditioners/"
+                 "block_jacobi_schur.py:62-74, graphite_tpu/ops/"
+                 "pcg_loop.py:19-70)",
+        K12_ADVANCE: "none (XLA fusion: graphite_tpu/ops/pcg_loop.py:19-70)",
+        K12_COMMIT: "none (XLA fusion: graphite_tpu/ops/pcg_loop.py:19-70)",
+        K12_BJS + "[f64]": "none (the same, float64 vectors)",
+        K12_ADVANCE + "[f64]": "none (the same, float64)",
+        K12_COMMIT + "[f64]": "none (the same, float64)"}),
+    # no pl.pallas_call: XLA's fusion of the landmark solve's block mv
+    ("K13", "graphite_tpu_torch/csrc/schur_w.cu", {
+        K13: "none (XLA fusion: graphite_tpu/schur.py:1595)",
+        K13 + "[f64]": "none (the same, float64 inverses)"}),
     # no pl.pallas_call: XLA's fusion of the JAX package's AUTO branch (a
     # vmapped jax.jacfwd per factor type) over the SE3 pose-graph factors,
     # the chi2, scaling and b around it, and apply_update's retraction
@@ -5327,6 +5790,11 @@ def main():
         ("sphere2500 n d", sphere_n, torch.float32)])
     k10 = timed("k10", phase_k10, problem, ops.ss, hv)
     del hv, ops
+    solve_calls = timed("venice-solve", record_venice_solve, problem, lin,
+                        solver)
+    k12 = timed("k12", phase_k12, solve_calls)
+    k13 = timed("k13", phase_k13, solve_calls)
+    del solve_calls
     del lin
     torch.cuda.empty_cache()
     k1_f64 = timed("k1-f64", phase_k1_f64, problem)
@@ -5384,7 +5852,8 @@ def main():
     print(json.dumps({"direct_factorizations": firsts}))
     print(json.dumps({"host_setup_seconds_native_numpy": host_setup}))
     measured = merge_measured(k1, k2, k6, pose_k1, venice_measured, nd_k1,
-                              k1_f64, shard_measured, k7, k9, k10, k11)
+                              k1_f64, shard_measured, k7, k9, k10, k11,
+                              k12, k13)
     print(json.dumps({"kernels": kernels_json(
         measured, {"ladybug-49": ladybug_launches,
                    "sphere2500": pose_launches,

@@ -48,8 +48,25 @@
 // first writes the inverses (hll_inv null in the others), all compute
 // them.
 //
-// The kernel allocates nothing, never synchronises with the host and
-// launches on the given stream: it runs inside a captured CUDA graph and
+// K13, in the same library since it reads the inverses K10 writes:
+// w = Hll^-1 (t - sub) per landmark row, one launch a landmark type
+// (schur.SchurOps._hll_solve_rows: b_S's w = Hll^-1 b_l and the
+// back-substitution's dx_l = Hll^-1 (b_l - Hpl^T dx_p), the last product
+// set's subtraction fused). Replaces no pl.pallas_call: the JAX package's
+// flat_block_mv of the (gathered) inverses (graphite_tpu/schur.py:1595),
+// which XLA fuses; the port ran it as dl products and dl - 1 adds over
+// (L, dl) temporaries, and the subtraction, ~0.19 ms a Venice iteration.
+// Arithmetic as ops/blockfmt.flat_block_mv: t - sub in the vectors' dtype,
+// cast to the inverses' (float32 or float64, w's too), entry i =
+// ((a_i0 y_0 + a_i1 y_1) + a_i2 y_2), each product rounded on its own.
+// One thread an output entry in a grid-stride loop; the inverse row by
+// gidx (null: the identity, Venice's case); dl 1-3 unrolled, any other dl
+// in a loop.
+// Bound: bytes, the inverses (36 B a 3x3 row), t, sub and w read or
+// written once: 71.6 MB at Venice with sub, ~0.021 ms at 3.35 TB/s.
+//
+// The kernels allocate nothing, never synchronise with the host and
+// launch on the given stream: they run inside a captured CUDA graph and
 // its conditional nodes.
 
 #include <cuda_runtime.h>
@@ -206,7 +223,85 @@ cudaError_t launch(const float* hll, const float* hpl, const int* offsets,
   return cudaGetLastError();
 }
 
+constexpr int kSolveThreads = 256;
+constexpr long long kSolveCtas = 132 * 16;
+
+// D > 0: dl = D, unrolled; D = 0: dl from the argument
+template <typename T, typename A, int D>
+__global__ void __launch_bounds__(kSolveThreads)
+    hll_solve_kernel(const A* __restrict__ inv,
+                     const long long* __restrict__ gidx,
+                     const T* __restrict__ t, const T* __restrict__ sub,
+                     A* __restrict__ w, long long n, int dl) {
+  const int d = D > 0 ? D : dl;
+  const long long total = n * d;
+  for (long long e = blockIdx.x * static_cast<long long>(kSolveThreads) +
+                     threadIdx.x;
+       e < total; e += static_cast<long long>(gridDim.x) * kSolveThreads) {
+    const long long row = e / d;
+    const int i = static_cast<int>(e - row * d);
+    const long long g = gidx == nullptr ? row : gidx[row];
+    const A* a = inv + (g * d + i) * d;
+    A acc = static_cast<A>(0);
+#pragma unroll
+    for (int j = 0; j < d; ++j) {
+      const T y = sub == nullptr ? t[row * d + j]
+                                 : t[row * d + j] - sub[row * d + j];
+      const A term = a[j] * static_cast<A>(y);
+      acc = j == 0 ? term : acc + term;
+    }
+    w[e] = acc;
+  }
+}
+
+template <typename T, typename A>
+int hll_solve(const void* inv, const void* gidx, const void* t,
+              const void* sub, void* w, long long n, int dl, void* stream) {
+  if (n < 0 || dl < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  const long long ctas = (n * dl + kSolveThreads - 1) / kSolveThreads;
+  const unsigned grid =
+      static_cast<unsigned>(ctas < kSolveCtas ? ctas : kSolveCtas);
+  const auto a = static_cast<const A*>(inv);
+  const auto g = static_cast<const long long*>(gidx);
+  const auto tt = static_cast<const T*>(t);
+  const auto ss = static_cast<const T*>(sub);
+  const auto out = static_cast<A*>(w);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (dl == 1) {
+    hll_solve_kernel<T, A, 1><<<grid, kSolveThreads, 0, s>>>(a, g, tt, ss,
+                                                            out, n, dl);
+  } else if (dl == 2) {
+    hll_solve_kernel<T, A, 2><<<grid, kSolveThreads, 0, s>>>(a, g, tt, ss,
+                                                            out, n, dl);
+  } else if (dl == 3) {
+    hll_solve_kernel<T, A, 3><<<grid, kSolveThreads, 0, s>>>(a, g, tt, ss,
+                                                            out, n, dl);
+  } else {
+    hll_solve_kernel<T, A, 0><<<grid, kSolveThreads, 0, s>>>(a, g, tt, ss,
+                                                            out, n, dl);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// K13. inv: (>= L, dl dl) inverses in float32 or float64 (dtype A), row
+// gidx[i] (int64, or null: row i) for landmark row i; t, sub: (n, dl) in
+// float32 or float64 (dtype T), sub null for none; w: (n, dl) out, dtype
+// A. Suffix: T then A. Launches on `stream` and returns a cudaError_t code
+// (0 on success).
+#define GT_HLL_SOLVE(TS, AS, T, A)                                          \
+  extern "C" int gt_hll_solve_##TS##_##AS(                                  \
+      const void* inv, const void* gidx, const void* t, const void* sub,   \
+      void* w, long long n, int dl, void* stream) {                        \
+    return hll_solve<T, A>(inv, gidx, t, sub, w, n, dl, stream);           \
+  }
+GT_HLL_SOLVE(f32, f32, float, float)
+GT_HLL_SOLVE(f32, f64, float, double)
+GT_HLL_SOLVE(f64, f32, double, float)
+GT_HLL_SOLVE(f64, f64, double, double)
+#undef GT_HLL_SOLVE
 
 // hll: (L, dl dl) float32; hpl: (K, dp dl) float32 sorted by landmark,
 // landmark l's rows [offsets[l], offsets[l + 1]) (offsets: (L + 1,)

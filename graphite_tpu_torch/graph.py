@@ -114,6 +114,28 @@ class GraphData:
 
 
 @dataclasses.dataclass(frozen=True)
+class PoseSegments:
+    """The pose types' segments of a (dim_p,) vector, in segment order:
+    (type, start, rows, dim) each. Pose types come first in the row
+    layout, so the segments tile [0, dim_p)."""
+
+    segments: Tuple[Tuple[str, int, int, int], ...]
+    dim_p: int
+
+    def flat(self, rows: Dict[str, torch.Tensor], dtype,
+             device) -> torch.Tensor:
+        """Per-type (rows, dim) tensors -> the (dim_p,) vector in
+        ``dtype``; a missing type contributes zeros. One type's rows
+        already in ``dtype``: those rows reshaped, not copied."""
+        parts = []
+        for name, _, n, d in self.segments:
+            r = rows.get(name)
+            parts.append(torch.zeros(n * d, dtype=dtype, device=device)
+                         if r is None else r.reshape(n * d).to(dtype))
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+@dataclasses.dataclass(frozen=True)
 class VertexMeta:
     vtype: VertexType
     count: int
@@ -273,6 +295,38 @@ class Problem:
                 parts.append(r.reshape(n).to(dtype))
         parts.append(torch.zeros(self.pad, dtype=dtype, device=self.device))
         return torch.cat(parts, out=out)
+
+    def pose_segments(self, dim_p: int) -> PoseSegments:
+        """The segments of the pose types, those below column ``dim_p``
+        (``elimination_col``), cached."""
+        cache = self._cache.setdefault("pose_segments", {})
+        if dim_p not in cache:
+            segs, end = [], 0
+            for name in self.segment_order:
+                start, n = self.seg_start[name], self.seg_rows[name]
+                d = self.vertex_meta[name].vtype.dim
+                if start >= dim_p:
+                    break
+                if start != end or start + n * d > dim_p:
+                    raise ValueError(
+                        f"vertex type '{name}' does not tile the pose "
+                        f"columns [0, {dim_p})")
+                segs.append((name, start, n, d))
+                end = start + n * d
+            if end != dim_p:
+                raise ValueError(f"the pose types end at column {end}, not "
+                                 f"at {dim_p}")
+            cache[dim_p] = PoseSegments(tuple(segs), dim_p)
+        return cache[dim_p]
+
+    def pose_flat_from_rows(self, rows: Dict[str, torch.Tensor], dim_p: int,
+                            dtype=None) -> torch.Tensor:
+        """``flat_from_rows(rows, dtype)[:dim_p]`` without the landmark
+        segments: per pose type (n_rows, dim) tensors -> the (dim_p,)
+        vector (``PoseSegments.flat``: with one pose type already in
+        ``dtype``, its rows reshaped, no copy)."""
+        return self.pose_segments(dim_p).flat(
+            rows, dtype or self.precision.graph_dtype, self.device)
 
     @property
     def dim_x(self) -> int:

@@ -18,7 +18,11 @@
 - ``dot``: kernel K9, the PCG's inner product in ``pcg_loop.tree_sum``'s
   order, one launch a dot (``csrc/dot.cu``);
 - ``schur_w``: kernel K10, the Schur complement's landmark inverses and
-  W = Hpl Hll^-1, one launch per Hpl group (``csrc/schur_w.cu``);
+  W = Hpl Hll^-1, one launch per Hpl group, and K13, the landmark solve
+  w = Hll^-1 (t - sub) (``csrc/schur_w.cu``);
+- ``pcg_step``: kernel K12, the CG step's vector work (block-Jacobi-Schur
+  apply with the residual's normalisation, the x / r update, the step's
+  commit) in three launches (``csrc/pcg_step.cu``);
 - ``pose``: kernel K11, the SE(3) pose-graph factors' linearization by
   forward-mode dual numbers, chi2 and update (``csrc/pose.cu``);
 - ``cond``: the conditional graph nodes of the captured LM iteration

@@ -14,6 +14,15 @@ blocks with dl in 1..3 (``gate``) and raises on others. On CPU tensors it
 runs the plain versions; on CUDA tensors it launches K10 or raises. It allocates its outputs, launches on the
 current stream and reads nothing back, so it runs inside a captured CUDA
 graph. Launches count in ``STATS``.
+
+``hll_solve(hll_inv, gidx, t, sub)``, kernel K13 in the same library:
+w = Hll^-1 (t - sub) per landmark row (``SchurOps._hll_solve_rows``, for
+b_S and the back-substitution), the inverse row by ``gidx`` (None: the
+identity), ``sub`` None for none; its plain version ``hll_solve_plain``
+is the ``take_rows`` and ``flat_block_mv`` it replaced. It takes float32
+or float64 inverses and rows of any dl (no gate: every landmark solve
+on the card is K13); launches with float32 inverses count in
+``HLL_SOLVE_STATS``, with float64 ones in ``HLL_SOLVE_STATS_F64``.
 """
 
 from __future__ import annotations
@@ -26,16 +35,22 @@ import numpy as np
 import torch
 
 from ..batched_linalg import spd_inverse_flat
-from ..blockfmt import flat_block_mm_nn
+from ..blockfmt import flat_block_mm_nn, flat_block_mv
 from . import build
 from .launches import LaunchStats, on_device, stream_ptr
 
 STATS = LaunchStats("schur_w.schur_w")
+HLL_SOLVE_STATS = LaunchStats("schur_w.hll_solve")  # K13
+HLL_SOLVE_STATS_F64 = LaunchStats("schur_w.hll_solve[f64]")  # f64 inverses
+_SOLVE_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     # hll, hpl, offsets, hll_inv, w, dp, dl, L, stream
     "gt_schur_w_f32": [_P] * 5 + [_I, _I, _I, _P],
+    # inv, gidx, t, sub, w, n, dl, stream
+    **{f"gt_hll_solve_{t}_{a}": [_P] * 5 + [_L, _I, _P]
+       for t in _SOLVE_DTYPES.values() for a in _SOLVE_DTYPES.values()},
 }
 
 
@@ -91,6 +106,71 @@ def hpl_w_plain(hpl: torch.Tensor, hll_inv: torch.Tensor, plan: WPlan,
                                       output_size=hpl.shape[0])
     return flat_block_mm_nn(hpl, inv_exp, dp, dl, dl,
                             acc_dtype=hll_inv.dtype)
+
+
+def hll_solve_plain(hll_inv: torch.Tensor, gidx: Optional[torch.Tensor],
+                    t: torch.Tensor, sub: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """w = Hll^-1 (t - sub) per row: row ``gidx[i]`` of ``hll_inv`` ((L,
+    dl*dl); ``gidx`` None: row i) times row i of ``t`` (n, dl), less
+    ``sub`` (or not), by ``flat_block_mv`` in the inverses' dtype."""
+    d = t.shape[1]
+    inv = (hll_inv[:t.shape[0]] if gidx is None
+           else hll_inv.index_select(0, gidx))
+    y = t if sub is None else t - sub
+    return flat_block_mv(inv, y, d, d, acc_dtype=inv.dtype)
+
+
+def hll_solve(hll_inv: torch.Tensor, gidx: Optional[torch.Tensor],
+              t: torch.Tensor, sub: Optional[torch.Tensor] = None
+              ) -> torch.Tensor:
+    """``hll_solve_plain`` in one launch of K13 on the card: float32 or
+    float64 inverses, t and sub float32 or float64 (one dtype), any dl,
+    gidx int64; returns w (n, dl) in the inverses' dtype."""
+    n, d = t.shape
+    stats = (HLL_SOLVE_STATS_F64 if hll_inv.dtype == torch.float64
+             else HLL_SOLVE_STATS)
+    name = stats.name
+    if hll_inv.dtype not in _SOLVE_DTYPES or t.dtype not in _SOLVE_DTYPES:
+        raise NotImplementedError(
+            f"{name}: the kernel takes float32 / float64 inverses and rows, "
+            f"got {hll_inv.dtype} and {t.dtype}")
+    rows = n if gidx is None else hll_inv.shape[0]
+    if (hll_inv.dim() != 2 or hll_inv.shape[1] != d * d
+            or hll_inv.shape[0] < rows
+            or (gidx is not None and (gidx.shape != (n,)
+                                      or gidx.dtype != torch.int64))
+            or (sub is not None and (sub.shape != t.shape
+                                     or sub.dtype != t.dtype))):
+        raise ValueError(
+            f"{name}: inverses {tuple(hll_inv.shape)}, gidx "
+            f"{None if gidx is None else (gidx.dtype, tuple(gidx.shape))}, "
+            f"t {tuple(t.shape)}, sub "
+            f"{None if sub is None else (sub.dtype, tuple(sub.shape))} do "
+            f"not fit")
+    if t.device.type == "cpu":
+        return hll_solve_plain(hll_inv, gidx, t, sub)
+    if t.device.type != "cuda":
+        raise NotImplementedError(f"{name}: no kernel for device {t.device}")
+    for x in (hll_inv, gidx, t, sub):
+        if x is not None and (x.device != t.device
+                              or not x.is_contiguous()):
+            raise ValueError(f"{name}: every input contiguous on "
+                             f"{t.device}")
+    w = torch.empty((n, d), dtype=hll_inv.dtype, device=t.device)
+    if n == 0:
+        return w
+    lib = load_kernel()
+    with on_device(t.device):
+        ev = stats.start()
+        err = getattr(lib.lib, f"gt_hll_solve_{_SOLVE_DTYPES[t.dtype]}_"
+                               f"{_SOLVE_DTYPES[hll_inv.dtype]}")(
+            hll_inv.data_ptr(), None if gidx is None else gidx.data_ptr(),
+            t.data_ptr(), None if sub is None else sub.data_ptr(),
+            w.data_ptr(), n, d, stream_ptr(t.device))
+        lib.check(err, name)
+        stats.done(ev)
+    return w
 
 
 def schur_w(hll: torch.Tensor, hpl: Optional[torch.Tensor],

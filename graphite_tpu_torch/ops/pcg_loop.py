@@ -18,16 +18,28 @@ wrapper (``ops/cuda/dot``: one launch a dot on the card) and
 ``tree_dot_plain`` its plain version; ``run_pcg`` and ``run_pcg_fixed``
 take another through ``dot=`` (K2's and K6's plain versions pass
 ``tree_dot_plain``, so they stay plain on the card).
+
+A step's vector work is kernel K12 (``ops/cuda/pcg_step``): the x and r
+update (``cg_advance``) and the rejection test, p's update and the kept
+state written in place (``cg_commit``); with another ``dot`` the step
+takes their plain versions on every device. A ``SelfNormalizing``
+preconditioner (the Schur ones: block-Jacobi-Schur's apply is K12's
+``bjs_apply``) takes the residual and its r.r and normalises it itself.
+``run_pcg`` and ``run_pcg_fixed`` share the step and differ only in who
+drives the loop: the host, reading the exit flag once a step, or the
+device.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional, Tuple
 
 import torch
 
 from ..precision import sqrt_rn
 from . import device_loop
+from .cuda import pcg_step
 from .cuda.dot import tree_dot
 
 
@@ -100,42 +112,72 @@ def tree_sum_chunked(v: torch.Tensor, ctas: int,
     return v[0]
 
 
+def normalize(r: torch.Tensor, rr: torch.Tensor) -> torch.Tensor:
+    """r over its norm, ``rr`` = r.r: the correctly rounded square root
+    (``sqrt_rn``), or 1 where it is 0. The preconditioner's input."""
+    rnorm = sqrt_rn(rr)
+    return r / torch.where(rnorm == 0, torch.ones_like(rnorm), rnorm)
+
+
+@dataclasses.dataclass(frozen=True)
+class SelfNormalizing:
+    """A preconditioner that takes the residual before ``normalize``:
+    ``fn(r, rr)`` is M^-1 ``normalize(r, rr)`` (the Schur
+    preconditioners' ``apply``). A step passes any other preconditioner
+    ``normalize(r, rr)``."""
+
+    fn: Callable
+
+
+def _cg(b, matvec, precond, tol, rejection_ratio, dot):
+    """The CG state, in tensors the steps write in place, and its step:
+    (x, k, done, step). ``dot`` None: K9's dot and K12's advance and
+    commit (``ops/cuda/pcg_step``), their plain versions on the CPU;
+    another ``dot``: it and K12's plain versions, on every device."""
+    if dot is None:
+        dot, advance, commit = (tree_dot, pcg_step.cg_advance,
+                                pcg_step.cg_commit)
+    else:
+        advance, commit = pcg_step.cg_advance_plain, pcg_step.cg_commit_plain
+
+    def precondition(r):
+        rr = dot(r, r)
+        if isinstance(precond, SelfNormalizing):
+            return precond.fn(r, rr)
+        return precond(normalize(r, rr))
+
+    x = torch.zeros_like(b)
+    r = b.clone()
+    z = precondition(r)
+    p = z.clone()
+    rz = dot(r, z)
+    rz_min = torch.full((), float("inf"), dtype=b.dtype, device=b.device)
+    k = torch.zeros((), dtype=torch.int64, device=b.device)
+    done = rz == 0
+    ticket = torch.zeros((), dtype=torch.int32, device=b.device)
+    x_new, r_new = torch.empty_like(b), torch.empty_like(b)
+
+    def step():
+        v = matvec(p)
+        advance(x, r, p, v, rz, dot(p, v), x_new, r_new)
+        z_new = precondition(r_new)
+        commit(x, r, p, z, x_new, r_new, z_new, rz, dot(r_new, z_new),
+               rz_min, k, done, ticket, rejection_ratio, tol)
+
+    return x, k, done, step
+
+
 def run_pcg(b: torch.Tensor, matvec: Callable, precond: Callable,
             max_iter: int, tol: float, rejection_ratio: float,
             dot: Optional[Callable] = None) -> Tuple[torch.Tensor, int]:
     """Solve ``A x = b``; returns (x, number of CG steps taken). ``dot``:
-    the inner product, ``tree_dot`` (K9) by default."""
-    dot = tree_dot if dot is None else dot
-
-    def precondition(r):
-        rnorm = sqrt_rn(dot(r, r))
-        return precond(r / torch.where(rnorm == 0, torch.ones_like(rnorm),
-                                       rnorm))
-
-    x = torch.zeros_like(b)
-    r = b
-    z = precondition(r)
-    p = z
-    rz = dot(r, z)
-    rz_min = torch.full((), float("inf"), dtype=b.dtype, device=b.device)
+    the inner product, ``tree_dot`` (K9) by default. ``run_pcg_fixed``'s
+    steps, driven by the host: one read of the exit flag a step."""
+    x, _, done, step = _cg(b, matvec, precond, tol, rejection_ratio, dot)
     k = 0
-    while k < max_iter and bool(rz != 0):
-        v = matvec(p)
-        alpha = rz / dot(p, v)
-        x_new = x + alpha * p
-        r_new = r - alpha * v
-        z_new = precondition(r_new)
-        rz_new = dot(r_new, z_new)
-        reject = bool((rz_new.abs() > rejection_ratio * rz_min)
-                      | torch.isnan(rz_new))
-        rz_min = torch.minimum(rz_min, rz_new.abs())
+    while k < max_iter and not bool(done):
+        step()
         k += 1
-        if reject:
-            break
-        p = z_new + (rz_new / rz) * p
-        x, r, z, rz = x_new, r_new, z_new, rz_new
-        if bool(rz.abs() < tol):
-            break
     return x, k
 
 
@@ -149,45 +191,10 @@ def run_pcg_fixed(b: torch.Tensor, matvec: Callable, precond: Callable,
     step captured once), the flag set by ``run_pcg``'s own tests (rz == 0,
     a rejected or NaN step, |rz| < tol). A step does ``run_pcg``'s float
     operations in its order and writes x, r, p, z, rz, rz_min, k and done
-    in place, the rejected step's values kept by ``torch.where``; so x and
-    the step count (a 0-d int64 tensor) are bitwise ``run_pcg``'s (with the
-    same ``dot``), and no step runs after the exit."""
-    dot = tree_dot if dot is None else dot
-
-    def precondition(r):
-        rnorm = sqrt_rn(dot(r, r))
-        return precond(r / torch.where(rnorm == 0, torch.ones_like(rnorm),
-                                       rnorm))
-
-    # the state, written in place by the steps
-    x = torch.zeros_like(b)
-    r = b.clone()
-    z = precondition(r)
-    p = z.clone()
-    rz = dot(r, z)
-    rz_min = torch.full((), float("inf"), dtype=b.dtype, device=b.device)
-    k = torch.zeros((), dtype=torch.int64, device=b.device)
-    done = rz == 0
-
-    def step():
-        v = matvec(p)
-        alpha = rz / dot(p, v)
-        x_new = x + alpha * p
-        r_new = r - alpha * v
-        z_new = precondition(r_new)
-        rz_new = dot(r_new, z_new)
-        reject = ((rz_new.abs() > rejection_ratio * rz_min)
-                  | torch.isnan(rz_new))
-        p_new = z_new + (rz_new / rz) * p
-        rz_min.copy_(torch.minimum(rz_min, rz_new.abs()))
-        k.add_(1)
-        p.copy_(torch.where(reject, p, p_new))
-        x.copy_(torch.where(reject, x, x_new))
-        r.copy_(torch.where(reject, r, r_new))
-        z.copy_(torch.where(reject, z, z_new))
-        rz.copy_(torch.where(reject, rz, rz_new))
-        done.copy_(reject | (rz.abs() < tol) | (rz == 0))
-
+    in place (``pcg_step.cg_commit``), a rejected step's values kept; so x
+    and the step count (a 0-d int64 tensor) are bitwise ``run_pcg``'s
+    (with the same ``dot``), and no step runs after the exit."""
+    x, k, done, step = _cg(b, matvec, precond, tol, rejection_ratio, dot)
     device_loop.while_loop(lambda: ~done & (k < max_iter), step, "cg_step")
     return x, k
 

@@ -19,6 +19,8 @@ every size.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -71,15 +73,23 @@ def reduce_rows(values: torch.Tensor, plan: SegmentPlan) -> torch.Tensor:
     return segsum_stream.streaming_segment_sum(values, plan)
 
 
-def take_rows(problem, tag, arr: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
-    """``arr[idx]`` with identity (or prefix-identity) gathers elided:
-    Hessian value groups carry one trailing trash row, so ``arange(n)``
-    into an (n+1)-row group is a slice, not a gather."""
+def gather_index(problem, tag, arr: torch.Tensor,
+                 idx: np.ndarray) -> Optional[torch.Tensor]:
+    """The device index of ``arr[idx]``, or None where the gather is the
+    identity (or a prefix of it): Hessian value groups carry one trailing
+    trash row, so ``arange(n)`` into an (n+1)-row group is a slice."""
     idx = np.asarray(idx)
     ident = problem._cache.setdefault("identity_idx", {})
     if tag not in ident:
         ident[tag] = bool(arr.shape[0] >= idx.shape[0] and np.array_equal(
             idx, np.arange(idx.size, dtype=idx.dtype)))
-    if ident[tag]:
-        return arr[:idx.shape[0]]
-    return arr.index_select(0, problem.index(tag, idx))
+    return None if ident[tag] else problem.index(tag, idx)
+
+
+def take_rows(problem, tag, arr: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
+    """``arr[idx]`` with identity (or prefix-identity) gathers elided
+    (``gather_index``): a slice, not a gather."""
+    index = gather_index(problem, tag, arr, idx)
+    if index is None:
+        return arr[:np.asarray(idx).shape[0]]
+    return arr.index_select(0, index)

@@ -354,19 +354,23 @@ class _DeviceLoop:
 
     def _step(self) -> None:
         """One iteration, in place, with no host read: the JAX package's
-        ``_lm_iteration`` as regions (``device_loop.cond``). The step
-        (solve, update, chi2, rho, accept) runs on the run flag, so that
-        nothing runs after a stop (the ``while_loop``'s exit); then the
-        accepted branch (relinearize, refresh the solver) on run and
-        accept, the rejected one (restore the parameters) on run and not
-        accept (``lax.cond``), and the bookkeeping on the run flag.
+        ``_lm_iteration`` as regions (``device_loop.cond``). The whole
+        iteration is one region on the run flag (``"lm_run"``, the
+        ``while_loop``'s exit), so that a replay after a stop runs one
+        test and nothing else. Inside it, four regions at one depth: the
+        step (solve, update, chi2, rho, accept), then the accepted branch
+        (relinearize, refresh the solver) on accept, the rejected one
+        (restore the parameters) on not accept (``lax.cond``), and the
+        bookkeeping.
 
         The branches follow the step's region instead of nesting in it: a
         nested body is captured on a stream of its own, and the caching
         allocator reuses a block only on the stream that freed it, so the
         accepted branch's temporaries (``linearize``, the Hessian) could
         not reuse the step's (nested, Venice-1778's graph pool grew by
-        half: PERF.md)."""
+        half: PERF.md). For the same reason the step and the bookkeeping
+        are regions (on the run flag, true inside ``"lm_run"``) and not
+        the outer region's body itself."""
         problem, options = self.problem, self.step_options
         gdt = problem.precision.graph_dtype
         run, step = self.run_flag, {}
@@ -406,10 +410,13 @@ class _DeviceLoop:
             self.run_flag.copy_(_still_running(
                 options, self.run_flag, self.mu, self.rho, self.num_bad))
 
-        device_loop.cond(run, try_it, "lm_iteration")
-        device_loop.cond(run & self.accepted, on_accept, "lm_accept")
-        device_loop.cond(run & ~self.accepted, on_reject, "lm_reject")
-        device_loop.cond(run, update, "lm_update")
+        def iteration():
+            device_loop.cond(run, try_it, "lm_iteration")
+            device_loop.cond(self.accepted, on_accept, "lm_accept")
+            device_loop.cond(~self.accepted, on_reject, "lm_reject")
+            device_loop.cond(run, update, "lm_update")
+
+        device_loop.cond(run, iteration, "lm_run")
 
     def _capture(self) -> None:
         """Warm up (one eager iteration on a side stream, every region run:

@@ -1,7 +1,11 @@
 """Block-Jacobi preconditioner on the Schur system (counterpart of
 ``graphite_tpu/preconditioners/block_jacobi_schur.py``): the inverted
 diagonal blocks of S per pose vertex type. Damping is already in S. Also
-the identity on the Schur system (``IdentitySchurPreconditioner``)."""
+the identity on the Schur system (``IdentitySchurPreconditioner``). A
+Schur preconditioner's ``apply`` takes the CG residual and its r.r and
+returns M^-1 ``pcg_loop.normalize(y, rr)`` (``pcg_loop.SelfNormalizing``);
+block-Jacobi-Schur's is kernel K12's ``bjs_apply`` (``ops/cuda/pcg_step``).
+"""
 
 from __future__ import annotations
 
@@ -12,7 +16,8 @@ import numpy as np
 import torch
 
 from ..ops.batched_linalg import spd_inverse
-from ..ops.blockfmt import flat_block_mv
+from ..ops.cuda import pcg_step
+from ..ops.pcg_loop import normalize
 
 
 @dataclasses.dataclass
@@ -50,13 +55,12 @@ class BlockJacobiSchurPreconditioner:
         return BlockJacobiSchurState(inv_blocks=inv_blocks)
 
     def apply(self, problem, ss, state: BlockJacobiSchurState,
-              y: torch.Tensor) -> torch.Tensor:
-        z_rows = {}
-        for t, inv in state.inv_blocks.items():
-            d = problem.vertex_meta[t].vtype.dim
-            z_rows[t] = flat_block_mv(inv, problem.rows_view(y, t), d, d,
-                                      acc_dtype=inv.dtype)
-        return problem.flat_from_rows(z_rows)[: ss.dim_p]
+              y: torch.Tensor, rr: torch.Tensor) -> torch.Tensor:
+        """z = M^-1 ``pcg_loop.normalize(y, rr)`` on (dim_p,) vectors, rr =
+        y.y: kernel K12's ``bjs_apply`` on the card, one launch for every
+        pose type."""
+        return pcg_step.bjs_apply(y, rr, state.inv_blocks,
+                                  problem.pose_segments(ss.dim_p))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,8 +72,10 @@ class IdentitySchurPreconditioner:
     def prepare(self, problem, ss, sv):
         return ()
 
-    def apply(self, problem, ss, state, y: torch.Tensor) -> torch.Tensor:
-        return y
+    def apply(self, problem, ss, state, y: torch.Tensor,
+              rr: torch.Tensor) -> torch.Tensor:
+        """``pcg_loop.normalize(y, rr)``, rr = y.y."""
+        return normalize(y, rr)
 
 
 def dense_preconditioner_matrix(problem, ss, state: BlockJacobiSchurState,

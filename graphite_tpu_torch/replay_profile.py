@@ -15,6 +15,7 @@ the iteration's totals.
     python -m graphite_tpu_torch.replay_profile --checkout DIR     # DIR's package
     python -m graphite_tpu_torch.replay_profile --size ladybug --iterations 10
     python -m graphite_tpu_torch.replay_profile --size sphere2500
+    python -m graphite_tpu_torch.replay_profile --size ladybug --lm2 --iterations 30
 
 ``--checkout DIR`` runs this file in a fresh process that imports
 ``graphite_tpu_torch`` from the checkout DIR instead (e.g. an older commit
@@ -28,6 +29,13 @@ PCGSchurSolver(10, 1.0, 5.0), or for ``sphere2500`` the pose graph
 ``--iterations`` iterations from the start, the graph ``--repeats`` more
 calls after the capturing one. Prints one JSON line with the card's name
 and power limit. It needs a CUDA card.
+
+``--lm2`` times instead what ``chip_smoke.py``'s remask phase checks:
+``levenberg_marquardt2`` (the early stop) under ``jit_loop`` on the
+problem frozen remaskable, ``--repeats`` + 1 calls (the first captures),
+each call's stop iteration, median accepted replay ms, the replays after
+the stop and the largest of them over that median (the phase's limit is
+5%).
 """
 
 from __future__ import annotations
@@ -156,6 +164,40 @@ def eager_layers(problem, solver, steps: int) -> list:
 POSE_SIZES = {"sphere2500": 2500}  # size name -> SE3 poses
 
 
+def lm2_after_stop(size: str, iterations: int, repeats: int) -> dict:
+    """LM2's replays after its stop against its accepted ones (``--lm2``):
+    for each call, the stop iteration, the median accepted replay ms, the
+    after-stop replay ms and max(after) / median(accepted)."""
+    import torch
+
+    from graphite_tpu_torch import FP32_FP32
+    from graphite_tpu_torch.io import bal, synthetic
+    from graphite_tpu_torch.optimizers import (
+        LevenbergMarquardtOptions,
+        levenberg_marquardt2,
+    )
+    from graphite_tpu_torch.optimizers.lm import device_loops
+    from graphite_tpu_torch.solvers import PCGSchurSolver
+
+    g, *_ = bal.build_graph(synthetic.make_bal(size, seed=0),
+                            precision=FP32_FP32)
+    problem = g.freeze(device=torch.device("cuda"), remaskable=True)
+    solver = PCGSchurSolver(10, 1.0, 5.0)
+    opts = LevenbergMarquardtOptions(iterations=iterations, jit_loop=True)
+    calls = []
+    for _ in range(repeats + 1):
+        run = levenberg_marquardt2(problem, solver, options=opts)
+        ms = device_loops(problem)[-1].replay_ms
+        acc, _ = _split(ms[:run.iterations], run.history)
+        after = list(ms[run.iterations:])
+        calls.append(dict(
+            stop=run.iterations, accepted_ms_median=_median(acc),
+            after_stop_ms=after,
+            after_over_accepted=(max(after) / _median(acc)
+                                 if after and acc else None)))
+    return {"lm2": calls}
+
+
 def profile(size: str, iterations: int, repeats: int, eager: int) -> dict:
     import torch
 
@@ -270,10 +312,14 @@ def main(argv=None) -> int:
                     help="eager iterations profiled by layer")
     ap.add_argument("--checkout", default=None,
                     help="time the graphite_tpu_torch of this checkout")
+    ap.add_argument("--lm2", action="store_true",
+                    help="LM2's after-stop replays against its accepted "
+                         "ones (chip_smoke.py's remask check)")
     args = ap.parse_args(argv)
     if args.checkout is not None:
         rest = ["--size", args.size, "--iterations", str(args.iterations),
                 "--repeats", str(args.repeats), "--eager", str(args.eager)]
+        rest += ["--lm2"] if args.lm2 else []
         code = ("import runpy, sys; sys.path.insert(0, sys.argv[1]); "
                 "sys.argv = [sys.argv[2]] + sys.argv[3:]; "
                 "runpy.run_path(sys.argv[0], run_name='__main__')")
@@ -290,7 +336,9 @@ def main(argv=None) -> int:
 
     where = os.path.dirname(os.path.dirname(os.path.abspath(
         graphite_tpu_torch.__file__)))
-    result = profile(args.size, args.iterations, args.repeats, args.eager)
+    result = (lm2_after_stop(args.size, args.iterations, args.repeats)
+              if args.lm2 else
+              profile(args.size, args.iterations, args.repeats, args.eager))
     print(json.dumps({"replay_profile": {
         "checkout": where, "size": args.size, **result,
         "card": _card()}}), flush=True)

@@ -26,7 +26,12 @@ streams with K3's gathered-stream entry and one gather places the ranks'
 disjoint ranges of S.
 
 ``SchurOps`` adds ``b_schur``, ``landmark_update``, ``compose_delta`` and
-the block-sparse S matvec (``prepare_matvec`` / ``s_matvec``). Sites with
+the block-sparse S matvec (``prepare_matvec`` / ``s_matvec``). Their pose
+vectors are (dim_p,) and built without the landmark segments
+(``Graph.pose_flat_from_rows``); only ``compose_delta`` makes a dim_x
+vector. Both landmark solves (b_S's and the back-substitution's, which
+subtracts its last product set in the same pass) are K13
+(``schur_w.hll_solve``). Sites with
 more blocks than ``_smv_chunk_rows`` take the block-matvec kernels (K4
 for b_schur and the back-substitution, K5 for S x); smaller ones form
 their rows and reduce them with K1. The gates are the JAX package's, so
@@ -73,6 +78,7 @@ from .ops.cuda.segsum_stream import (
     streaming_segment_product_sum_rtbl,
 )
 from .ops.streamreduce import (
+    gather_index,
     map_chunk_rows,
     matvec_plan,
     product_plan,
@@ -698,19 +704,23 @@ class SchurOps:
         return self._cached("nondecreasing", tag, lambda: bool(
             a.size == 0 or np.all(np.diff(a) >= 0)))
 
-    def _hll_solve_rows(self, t_rows: Dict[str, torch.Tensor]
+    def _hll_solve_rows(self, t_rows: Dict[str, torch.Tensor],
+                        sub: Optional[Dict[str, torch.Tensor]] = None
                         ) -> Dict[str, torch.Tensor]:
-        """w = Hll^{-1} t per landmark type (rows in type-row order)."""
+        """w = Hll^{-1} (t - sub) per landmark type (rows in type-row
+        order; ``sub`` None or missing a type: w = Hll^{-1} t). One launch
+        of K13 (``schur_w.hll_solve``) a type."""
         out = {}
         for t, sel, rows in self._lm_partition():
             d = self.problem.vertex_meta[t].vtype.dim
             gidx = self._cached(
                 "hllsolve_gidx", t, lambda sel=sel, rows=rows:
                 self.ss.lm_group_index[sel[np.argsort(rows, kind="stable")]])
-            inv_flat = take_rows(self.problem, ("hllsolve_gidx", t),
-                                 self.sv.hll_inv[d], gidx)
-            out[t] = flat_block_mv(inv_flat, t_rows[t], d, d,
-                                   acc_dtype=inv_flat.dtype)
+            inv = self.sv.hll_inv[d]
+            index = gather_index(self.problem, ("hllsolve_gidx", t), inv,
+                                 gidx)
+            out[t] = schur_w.hll_solve(inv, index, t_rows[t],
+                                       None if sub is None else sub.get(t))
         return out
 
     def b_schur(self, b: torch.Tensor) -> torch.Tensor:
@@ -746,9 +756,9 @@ class SchurOps:
                         problem, ck, prow, problem.seg_rows[pt], dp))
                 prev = out_rows.get(pt)
                 out_rows[pt] = acc if prev is None else prev + acc
-        flat = problem.flat_from_rows({t: -v for t, v in out_rows.items()},
-                                      dtype=gdt)
-        return flat[: self.ss.dim_p] + b[: self.ss.dim_p].to(gdt)
+        flat = problem.pose_flat_from_rows(
+            {t: -v for t, v in out_rows.items()}, self.ss.dim_p, dtype=gdt)
+        return flat + b[: self.ss.dim_p].to(gdt)
 
     def sym_site(self, key, rt, ct):
         """(plan, cid, rxi) of the K5 site (key, rt, ct), built on the
@@ -836,15 +846,17 @@ class SchurOps:
                     y2 = flat_block_mv_t(St, xr, dr, dc, acc_dtype=gdt)
                     add_rows(ct, reduce_rows(y2, segment_plan(
                         problem, ckt, crow[off], problem.seg_rows[ct], dc)))
-        return problem.flat_from_rows(y_rows, dtype=gdt)[: self.ss.dim_p]
+        return problem.pose_flat_from_rows(y_rows, self.ss.dim_p, dtype=gdt)
 
     def landmark_update(self, b: torch.Tensor,
                         dx_p: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """dx_l = Hll^{-1} (b_l - Hpl^T dx_p), per landmark type rows."""
+        """dx_l = Hll^{-1} (b_l - Hpl^T dx_p), per landmark type rows: each
+        type's last product row set is subtracted inside the solve."""
         problem = self.problem
         gdt = self._gdt
         t_rows = {t: problem.rows_view(b, t).to(gdt)
                   for t, _, _ in self._lm_partition()}
+        last: Dict[str, torch.Tensor] = {}
         for key in self.ss.hpl_keys:
             dp, dl = key
             Hpl = self.hpl(key)
@@ -869,8 +881,10 @@ class SchurOps:
                     y = flat_block_mv_t(Hsub, x, dp, dl, acc_dtype=gdt)
                     acc = reduce_rows(y, segment_plan(
                         problem, ck, lrow, problem.seg_rows[lt], dl))
-                t_rows[lt] = t_rows[lt] - acc
-        return self._hll_solve_rows(t_rows)
+                if lt in last:
+                    t_rows[lt] = t_rows[lt] - last[lt]
+                last[lt] = acc
+        return self._hll_solve_rows(t_rows, last)
 
     def compose_delta(self, dx_p: torch.Tensor,
                       dx_l_rows: Dict[str, torch.Tensor]) -> torch.Tensor:

@@ -28,7 +28,7 @@ from ..hessian import (
 )
 from ..linearize import Linearization
 from ..ops.cuda.pcg_dense import dense_pcg
-from ..ops.pcg_loop import pcg, tree_matvec
+from ..ops.pcg_loop import SelfNormalizing, pcg, tree_matvec
 from ..preconditioners.block_jacobi_schur import (
     BlockJacobiSchurPreconditioner,
     dense_preconditioner_matrix,
@@ -73,10 +73,10 @@ class PCGSchurSolver:
         sv = schur_values(problem, ss, hv)
         ops = SchurOps(problem, ss, hv, sv)
         b_s = ops.b_schur(lin.b)
-        pstate = self.preconditioner.prepare(problem, ss, sv)
-
-        def precond(y):
-            return self.preconditioner.apply(problem, ss, pstate, y)
+        pre = self.preconditioner
+        pstate = pre.prepare(problem, ss, sv)
+        precond = SelfNormalizing(
+            lambda r, rr: pre.apply(problem, ss, pstate, r, rr))
 
         if ss.dim_p > self.dense_matvec_limit:
             ops.prepare_matvec()

@@ -130,6 +130,18 @@ on a machine with only PyTorch (``--noconftest`` skips the JAX set-up in
   graph and written into ``out``; the pose-graph LM on K11 bitwise the
   CPU run, under the host loop and ``jit_loop``, with every entry
   launched (the trial chi2 once an iteration).
+- K12 (``csrc/pcg_step.cu``), the CG step's vector work, and K13
+  (``csrc/schur_w.cu``'s ``hll_solve``, w = Hll^-1 (t - sub)): each entry
+  bitwise its plain version on the card and on the CPU (bjs_apply with and
+  without the normalisation, r = 0, a type without inverses, three dtype
+  pairs; the advance and commit on accepted, rejected, NaN, zero and tol
+  steps at 16,002 and 7 entries; K13 at dl 1-3, float32 and float64 rows,
+  identity and permuted inverse rows, with and without ``sub``), bitwise
+  repeatable, one launch a call, the same bits replayed from a CUDA graph;
+  off their dtypes they raise; ``run_pcg_fixed`` as a "while" node
+  bitwise ``run_pcg`` on the card and the CPU; the forced Ladybug's LM
+  card = CPU bitwise under the host loop and ``jit_loop``, K12 once per CG
+  step and K13 twice per iteration.
 - K8 (``csrc/allreduce.cu``) on two ranks of one card: its sum and
   gather bitwise its plain version (gloo on the same CUDA tensors, inputs
   with -0.0 entries; float32, float64, int64, an empty tensor), bitwise
@@ -139,6 +151,7 @@ on a machine with only PyTorch (``--noconftest`` skips the JAX set-up in
 """
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -1296,7 +1309,7 @@ def test_ladybug_jit_loop_with_rejects_bitwise_host_loop(cuda_device):
     _bitwise(out, host)
     loop = device_loops(problem)[0]
     assert loop.capture.region_runs() == {
-        "lm_iteration": 10, "lm_accept": sum(pattern),
+        "lm_run": 10, "lm_iteration": 10, "lm_accept": sum(pattern),
         "lm_reject": 10 - sum(pattern), "lm_update": 10}
 
 
@@ -2109,3 +2122,445 @@ def test_pose_lm_under_k11_cuda_equals_cpu(cuda_device, jit_loop):
         sets = 2
         assert k11.RESIDUAL_STATS.launches == sets * len(gpu.history)
         assert k11.UPDATE_STATS.launches == len(gpu.history)
+
+
+# K12 (csrc/pcg_step.cu): the CG step's vector work; K13
+# (csrc/schur_w.cu's hll_solve): w = Hll^-1 (t - sub)
+K12_PAIRS = [("float32", "float32"), ("float64", "float32"),
+             ("float64", "float64"), ("float32", "float64")]
+
+
+def _k12_bits(t):
+    return t.view({1: torch.uint8, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def _k12_same(a, b):
+    """Bitwise, NaNs compared by place (their payload is the device's)."""
+    a, b = a.cpu(), b.cpu()
+    nan = torch.isnan(a) if a.is_floating_point() else torch.zeros_like(
+        a, dtype=torch.bool)
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(nan, torch.isnan(b) if b.is_floating_point()
+                            else nan)
+            and torch.equal(_k12_bits(a)[~nan], _k12_bits(b)[~nan]))
+
+
+def _bjs_inputs(vec_dtype, inv_dtype, device):
+    """Two pose types (1,778 rows of 9 and 300 of 6, Venice's camera count
+    and a second type), seeded inverses with -0.0 entries, r and its r.r;
+    the layout the Schur path builds (``graph.PoseSegments``)."""
+    from graphite_tpu_torch.graph import PoseSegments
+
+    rng = np.random.default_rng(12)
+    segs = PoseSegments((("cams", 0, 1778, 9), ("rigs", 16_002, 300, 6)),
+                        16_002 + 1_800)
+    inv = {}
+    for name, _, n, d in segs.segments:
+        a = rng.standard_normal((n, d * d)) * 10.0 ** rng.integers(
+            -2, 3, (n, 1))
+        a[:, ::5] = -0.0
+        inv[name] = torch.tensor(a, dtype=getattr(torch, inv_dtype))
+    r = rng.standard_normal(segs.dim_p) * 10.0 ** rng.integers(
+        -3, 4, segs.dim_p)
+    r[::7] = -0.0
+    r = torch.tensor(r, dtype=getattr(torch, vec_dtype))
+    if device != "cpu":
+        inv = {k: v.to(device) for k, v in inv.items()}
+        r = r.to(device)
+    return r, inv, segs
+
+
+@pytest.mark.parametrize("vec,inv_dt", K12_PAIRS)
+def test_k12_bjs_apply_matches_plain_bitwise(cuda_device, vec, inv_dt):
+    """``bjs_apply`` bitwise its plain version on the card and on the CPU,
+    with r.r from K9, on r = 0 (norm 0), with a type's inverses missing
+    (its segment 0); bitwise repeatable, one launch a call (float64
+    vectors counted apart), the same bits in a replayed CUDA graph and on
+    new inputs written into the captured ones."""
+    from graphite_tpu_torch.ops.cuda import pcg_step
+
+    r, inv, segs = _bjs_inputs(vec, inv_dt, cuda_device)
+    cr, cinv, _ = _bjs_inputs(vec, inv_dt, "cpu")
+    stats = (pcg_step.BJS_STATS_F64 if vec == "float64"
+             else pcg_step.BJS_STATS)
+    for gr, hr in ((r, cr), (torch.zeros_like(r), torch.zeros_like(cr))):
+        rr = k9.tree_dot(gr, gr)
+        crr = pcg_loop.tree_dot(hr, hr)
+        before = stats.launches
+        out = pcg_step.bjs_apply(gr, rr, inv, segs)
+        again = pcg_step.bjs_apply(gr, rr, inv, segs)
+        assert stats.launches - before == 2
+        ref = pcg_step.bjs_apply_plain(gr, rr, inv, segs)
+        cpu = pcg_step.bjs_apply(hr, crr, cinv, segs)
+        assert _k12_same(out, ref) and _k12_same(again, out)
+        assert _k12_same(out, cpu)
+    part = {"rigs": inv["rigs"]}
+    rr = k9.tree_dot(r, r)
+    got = pcg_step.bjs_apply(r, rr, part, segs)
+    assert _k12_same(got, pcg_step.bjs_apply_plain(r, rr, part, segs))
+    assert bool((got[:16_002] == 0).all())
+    out = pcg_step.bjs_apply(r, rr, inv, segs)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = pcg_step.bjs_apply(r, k9.tree_dot(r, r), inv, segs)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _k12_same(captured, out)
+    r.mul_(-3.0)
+    inv["cams"].add_(1.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _k12_same(captured, pcg_step.bjs_apply_plain(
+        r, pcg_loop.tree_dot_plain(r, r), inv, segs))
+
+
+def _k12_state(n, dtype, device, seed=13):
+    """A CG state (x, r, p, z, rz, rz_min, k, done) and a step's inputs
+    (v, x_new, r_new, z_new), seeded, with -0.0 entries."""
+    rng = np.random.default_rng(seed)
+
+    def vec():
+        a = rng.standard_normal(n) * 10.0 ** rng.integers(-2, 3, n)
+        a[::9] = -0.0
+        return torch.tensor(a, dtype=dtype)
+
+    x, r, p, z, v = vec(), vec(), vec(), vec(), vec()
+    rz = pcg_loop.tree_dot_plain(r, z)
+    state = [x, r, p, z, rz, torch.tensor(abs(float(rz)) * 2.0,
+                                          dtype=dtype),
+             torch.tensor(3), torch.zeros((), dtype=torch.bool)]
+    return ([t.to(device) for t in state], v.to(device), vec().to(device),
+            vec().to(device), vec().to(device))
+
+
+# (rz_new scale against rz, ratio): an accepted step, a rejected one, a
+# NaN rz_new, an rz_new of 0 (the exit on rz == 0), a tol exit
+K12_COMMIT_CASES = {"accepted": (0.5, 5.0, 1e-30), "rejected": (20.0, 5.0,
+                                                                1e-30),
+                    "nan": (float("nan"), 5.0, 1e-30),
+                    "zero": (0.0, 5.0, 1e-30), "tol": (0.5, 5.0, 1e30)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("case", sorted(K12_COMMIT_CASES))
+def test_k12_advance_and_commit_match_plain_bitwise(cuda_device, case,
+                                                    dtype):
+    """``cg_advance`` and ``cg_commit`` bitwise their plain versions on
+    the card and on the CPU (every state tensor; a NaN's place), one launch
+    a call, and the same bits replayed from a CUDA graph (the commit
+    writes in place: the graph replays it on a fresh copy of the state),
+    n = 16,002 (Venice's dim_p, 63 CTAs counting on the commit's ticket,
+    back at 0 after each launch) and 7."""
+    from graphite_tpu_torch.ops.cuda import pcg_step
+
+    scale, ratio, tol = K12_COMMIT_CASES[case]
+    dt = getattr(torch, dtype)
+    for n in (7, 16_002):  # the graph below replays the 16,002 case
+        runs = []
+        for dev, advance, commit in (
+                (cuda_device, pcg_step.cg_advance, pcg_step.cg_commit),
+                (cuda_device, pcg_step.cg_advance_plain,
+                 pcg_step.cg_commit_plain),
+                ("cpu", pcg_step.cg_advance, pcg_step.cg_commit)):
+            state, v, _, _, z_new = _k12_state(n, dt, dev)
+            x, r, p, z, rz, rz_min, k, done = state
+            x_new, r_new = torch.empty_like(x), torch.empty_like(x)
+            pv = pcg_loop.tree_dot_plain(p, v)
+            advance(x, r, p, v, rz, pv, x_new, r_new)
+            rz_new = rz * scale
+            ticket = torch.zeros((), dtype=torch.int32, device=dev)
+            commit(x, r, p, z, x_new, r_new, z_new, rz, rz_new, rz_min, k,
+                   done, ticket, ratio, tol)
+            assert int(ticket) == 0
+            runs.append(state + [x_new, r_new])
+        for a, b in zip(runs[0], runs[1]):
+            assert _k12_same(a, b)
+        for a, b in zip(runs[0], runs[2]):
+            assert _k12_same(a, b)
+    want_done = case != "accepted"
+    assert bool(runs[0][7]) == want_done and int(runs[0][6]) == 4
+    # in a graph: replayed on the state copied back in
+    state, v, _, _, z_new = _k12_state(16_002, dt, cuda_device)
+    start = [t.clone() for t in state]
+    x, r, p, z, rz, rz_min, k, done = state
+    x_new, r_new = torch.empty_like(x), torch.empty_like(x)
+    pv = pcg_loop.tree_dot_plain(p, v)
+    rz_new = rz * scale
+    ticket = torch.zeros((), dtype=torch.int32, device=cuda_device)
+    before = (pcg_step.ADVANCE_STATS.launches, pcg_step.COMMIT_STATS.launches,
+              pcg_step.ADVANCE_STATS_F64.launches,
+              pcg_step.COMMIT_STATS_F64.launches)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        pcg_step.cg_advance(x, r, p, v, rz, pv, x_new, r_new)
+        pcg_step.cg_commit(x, r, p, z, x_new, r_new, z_new, rz, rz_new,
+                           rz_min, k, done, ticket, ratio, tol)
+    after = (pcg_step.ADVANCE_STATS.launches, pcg_step.COMMIT_STATS.launches,
+             pcg_step.ADVANCE_STATS_F64.launches,
+             pcg_step.COMMIT_STATS_F64.launches)
+    f64 = dtype == "float64"
+    assert [a - b for a, b in zip(after, before)] == (
+        [0, 0, 1, 1] if f64 else [1, 1, 0, 0])
+    for _ in range(2):
+        for t, s in zip(state, start):
+            t.copy_(s)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert int(ticket) == 0
+        for a, b in zip(state + [x_new, r_new], runs[0]):
+            assert _k12_same(a, b)
+
+
+def test_k12_commits_on_two_streams_at_once(cuda_device):
+    """Two CG solves' commits launched in turns on two streams, each with
+    its own ticket, 200 times: both states bitwise the same commits run
+    one after the other on the CPU's plain version (a ticket shared by
+    the two would let a CTA of one count toward the other's last CTA)."""
+    from graphite_tpu_torch.ops.cuda import pcg_step
+
+    n, rounds = 16_002, 200
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    runs = []
+    for dev in (cuda_device, "cpu"):
+        solves = []
+        for seed in (21, 22):
+            state, v, x_new, r_new, z_new = _k12_state(n, torch.float32,
+                                                       dev, seed)
+            rz_new = state[4] * 0.5
+            ticket = torch.zeros((), dtype=torch.int32, device=dev)
+            solves.append((state, x_new, r_new, z_new, rz_new, ticket))
+        torch.cuda.synchronize()
+        for _ in range(rounds):
+            for (state, x_new, r_new, z_new, rz_new, ticket), st in zip(
+                    solves, streams):
+                x, r, p, z, rz, rz_min, k, done = state
+                with torch.cuda.stream(st):
+                    pcg_step.cg_commit(x, r, p, z, x_new, r_new, z_new, rz,
+                                       rz_new, rz_min, k, done, ticket,
+                                       1e30, 1e-30)
+        torch.cuda.synchronize()
+        runs.append(solves)
+    for (a, *_, ta), (b, *_) in zip(*runs):
+        assert int(ta) == 0 and int(a[6]) == 3 + rounds
+        for u, w in zip(a, b):
+            assert _k12_same(u, w)
+
+
+def test_k12_raises_off_its_dtypes(cuda_device):
+    """No fallback: bf16 vectors, mixed dtypes, a non-contiguous vector,
+    inverses of two dtypes, too many pose types raise."""
+    from graphite_tpu_torch.graph import PoseSegments
+    from graphite_tpu_torch.ops.cuda import pcg_step
+
+    x = torch.ones(64, device=cuda_device)
+    s = torch.ones((), device=cuda_device)
+    with pytest.raises(NotImplementedError):
+        pcg_step.cg_advance(*(x.bfloat16(),) * 4, s.bfloat16(),
+                            s.bfloat16(), x.bfloat16(), x.bfloat16())
+    with pytest.raises(ValueError):
+        pcg_step.cg_advance(x, x, x, x.double(), s, s, x, x)
+    with pytest.raises(ValueError):
+        pcg_step.cg_advance(x, x, torch.ones(128, device=cuda_device)[::2],
+                            x, s, s, x, x)
+    k = torch.zeros((), dtype=torch.int32, device=cuda_device)
+    done = torch.zeros((), dtype=torch.bool, device=cuda_device)
+    with pytest.raises(ValueError):
+        pcg_step.cg_commit(*(x,) * 7, s, s, s, k, done,
+                           torch.zeros((), dtype=torch.int32,
+                                       device=cuda_device), 5.0, 1.0)
+    segs = PoseSegments((("a", 0, 8, 4), ("b", 32, 8, 4)), 64)
+    with pytest.raises(NotImplementedError):
+        pcg_step.bjs_apply(x, s, {
+            "a": torch.ones(8, 16, dtype=torch.float64, device=cuda_device),
+            "b": torch.ones(8, 16, device=cuda_device)}, segs)
+    many = PoseSegments(tuple((f"t{i}", i * 4, 4, 1) for i in range(16)), 64)
+    with pytest.raises(ValueError):
+        pcg_step.bjs_apply(x, s, {}, many)
+
+
+def test_k12_run_pcg_fixed_in_a_while_node_bitwise_run_pcg(cuda_device):
+    """``run_pcg_fixed`` captured as a "while" node (the CG step's body:
+    K9 three times, K12's advance, bjs_apply and commit once) bitwise
+    ``run_pcg`` run eagerly on the card and on the CPU: x and the step
+    count, the body's runs equal to the steps, on a two-type block-Jacobi
+    system (diagonal A, elementwise matvec)."""
+    from graphite_tpu_torch.ops import device_loop
+    from graphite_tpu_torch.ops.cuda import pcg_step
+    from graphite_tpu_torch.ops.pcg_loop import SelfNormalizing
+
+    def system(device):
+        r, inv, segs = _bjs_inputs("float32", "float32", device)
+        rng = np.random.default_rng(14)
+        a = torch.tensor(rng.uniform(1.0, 1e3, segs.dim_p),
+                         dtype=torch.float32, device=device)
+        inv = {k: v.abs() * 1e-3 for k, v in inv.items()}
+        precond = SelfNormalizing(
+            lambda y, rr: pcg_step.bjs_apply(y, rr, inv, segs))
+        return r, (lambda p: a * p), precond
+
+    args = (40, 1e-20, 1e6)
+    x_cpu, k_cpu = pcg_loop.run_pcg(*system("cpu")[:3], *args)
+    b, matvec, precond = system(cuda_device)
+    x_host, k_host = pcg_loop.run_pcg(b, matvec, precond, *args)
+    assert k_host == k_cpu > 5 and _k12_same(x_host, x_cpu)
+    x, k = pcg_loop.run_pcg_fixed(b, matvec, precond, *args)  # warm up
+    cap = device_loop.Capture(cuda_device)
+    x, k = cap.record(lambda: pcg_loop.run_pcg_fixed(b, matvec, precond,
+                                                     *args), 1)
+    cap.replay()
+    torch.cuda.synchronize()
+    assert int(k) == k_host and _k12_same(x, x_host)
+    assert cap.region_runs() == {"cg_step": k_host}
+    body = cap.regions[0].launches
+    assert (body["pcg_step.cg_advance"], body["pcg_step.cg_commit"],
+            body["pcg_step.bjs_apply"], body["dot.tree_dot"]) == (1, 1, 1, 3)
+
+
+@pytest.mark.parametrize("jit_loop", [False, True])
+def test_k12_k13_forced_ladybug_cuda_equals_cpu(cuda_device, monkeypatch,
+                                                 jit_loop):
+    """Ladybug-49 with the Venice branches forced (K3, K4, K5;
+    ``dense_matvec_limit=0``), FP32_FP32, 6 LM iterations: the card's
+    trajectory and parameters bitwise the CPU's, under the host loop and
+    ``jit_loop``; K12's advance and commit once per CG step and its
+    bjs_apply once more per solve, K13 twice per iteration (b_S and the
+    back-substitution)."""
+    from graphite_tpu_torch.ops.cuda import pcg_step
+    from graphite_tpu_torch.ops.cuda.launches import REGISTRY
+
+    monkeypatch.setattr(schur, "CHUNK_THRESHOLD", 0)
+    monkeypatch.setattr(schur, "_smv_chunk_rows", lambda rb: 0)
+    solver = PCGSchurSolver(10, 1.0, 5.0, dense_matvec_limit=0)
+    matvecs = []
+    real = schur.SchurOps.s_matvec
+
+    def s_matvec(self, p):
+        matvecs.append(1)
+        return real(self, p)
+
+    monkeypatch.setattr(schur.SchurOps, "s_matvec", s_matvec)
+    runs = []
+    for dev in ("cpu", cuda_device):
+        g, *_ = bal.build_graph(synthetic.make_bal("ladybug", seed=0),
+                                precision=gtt.FP32_FP32)
+        problem = g.freeze(device=dev)
+        for s in REGISTRY:
+            s.reset()
+        matvecs.clear()
+        runs.append(levenberg_marquardt(
+            problem, solver, options=LevenbergMarquardtOptions(
+                iterations=6, jit_loop=jit_loop and dev != "cpu")))
+        if dev == "cpu":
+            steps = len(matvecs)
+    cpu, gpu = runs
+    _bitwise(gpu, types.SimpleNamespace(
+        history=cpu.history, chi2=cpu.chi2, initial_chi2=cpu.initial_chi2,
+        mu=cpu.mu, params={n: p.to(cuda_device)
+                           for n, p in cpu.params.items()}))
+    if not jit_loop:
+        assert len(matvecs) == steps
+        assert pcg_step.ADVANCE_STATS.launches == steps
+        assert pcg_step.COMMIT_STATS.launches == steps
+        assert pcg_step.BJS_STATS.launches == steps + 6
+        assert k10.HLL_SOLVE_STATS.launches == 2 * 6
+    else:
+        loop = device_loops(problem)[0]
+        runs = loop.capture.region_runs()
+        done = loop.capture.launches(loop.replays)
+        assert runs["cg_step"] == steps
+        assert done["pcg_step.cg_advance"] == done[
+            "pcg_step.cg_commit"] == steps
+        assert done["pcg_step.bjs_apply"] == steps + runs["lm_iteration"]
+        assert done["schur_w.hll_solve"] == 2 * runs["lm_iteration"]
+
+
+# K13 at 1,000 landmark rows, inverses of 1,001 rows (the trailing trash
+# row), t with -0.0 entries
+@pytest.mark.parametrize("sub", [False, True])
+@pytest.mark.parametrize("permuted", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("dl", [1, 2, 3])
+def test_k13_matches_plain_bitwise(cuda_device, dl, dtype, permuted, sub):
+    """``hll_solve`` bitwise its plain version on the card and on the CPU,
+    bitwise repeatable, one launch a call, and the same bits replayed from
+    a CUDA graph and on new rows written into the captured ones."""
+    rng = np.random.default_rng(10 * dl + permuted)
+    L = 1000
+    inv = torch.tensor(rng.standard_normal((L + 1, dl * dl)),
+                       dtype=torch.float32)
+    t = rng.standard_normal((L, dl)) * 10.0 ** rng.integers(-3, 4, (L, 1))
+    t.reshape(-1)[::7] = -0.0
+    t = torch.tensor(t, dtype=getattr(torch, dtype))
+    s = (torch.tensor(rng.standard_normal((L, dl)), dtype=t.dtype) if sub
+         else None)
+    gidx = torch.as_tensor(rng.permutation(L)) if permuted else None
+    cpu = k10.hll_solve(inv, gidx, t, s)
+    dev = [None if a is None else a.to(cuda_device)
+           for a in (inv, gidx, t, s)]
+    before = k10.HLL_SOLVE_STATS.launches
+    out, again = k10.hll_solve(*dev), k10.hll_solve(*dev)
+    assert k10.HLL_SOLVE_STATS.launches - before == 2
+    ref = k10.hll_solve_plain(*dev)
+    assert out.dtype == torch.float32
+    assert _k12_same(out, ref) and _k12_same(again, out)
+    assert _k12_same(out, cpu)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = k10.hll_solve(*dev)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _k12_same(captured, ref)
+    dev[2].mul_(-2.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _k12_same(captured, k10.hll_solve_plain(*dev))
+
+
+@pytest.mark.parametrize("dl", [2, 3, 4, 6])
+@pytest.mark.parametrize("vec,inv_dt", K12_PAIRS)
+def test_k13_any_dtype_and_dim_match_plain_bitwise(cuda_device, vec,
+                                                   inv_dt, dl):
+    """``hll_solve`` on float64 inverses (FP64_FP64, FP64_BF16) and on
+    landmarks wider than 3 (K13's loop over dl): bitwise its plain version
+    on the card and on the CPU, w in the inverses' dtype, float64
+    inverses' launches counted apart, and the same bits in a graph."""
+    rng = np.random.default_rng(30 + dl)
+    L = 700
+    inv = torch.tensor(rng.standard_normal((L + 1, dl * dl)),
+                       dtype=getattr(torch, inv_dt))
+    t = rng.standard_normal((L, dl)) * 10.0 ** rng.integers(-3, 4, (L, 1))
+    t.reshape(-1)[::5] = -0.0
+    t = torch.tensor(t, dtype=getattr(torch, vec))
+    s = torch.tensor(rng.standard_normal((L, dl)), dtype=t.dtype)
+    gidx = torch.as_tensor(rng.permutation(L))
+    cpu = k10.hll_solve(inv, gidx, t, s)
+    dev = [a.to(cuda_device) for a in (inv, gidx, t, s)]
+    stats = (k10.HLL_SOLVE_STATS_F64 if inv_dt == "float64"
+             else k10.HLL_SOLVE_STATS)
+    before = stats.launches
+    out = k10.hll_solve(*dev)
+    assert stats.launches - before == 1 and out.dtype == inv.dtype
+    assert _k12_same(out, k10.hll_solve_plain(*dev))
+    assert _k12_same(out, cpu)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = k10.hll_solve(*dev)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _k12_same(captured, out)
+
+
+def test_k13_raises_off_its_dtypes(cuda_device):
+    """No fallback: float16 inverses, rows that do not fit the inverses,
+    bf16 rows, a non-contiguous t raise."""
+    inv = torch.ones(10, 9, device=cuda_device)
+    t = torch.ones(10, 3, device=cuda_device)
+    with pytest.raises(NotImplementedError):
+        k10.hll_solve(inv.half(), None, t)
+    with pytest.raises(ValueError):
+        k10.hll_solve(torch.ones(10, 16, device=cuda_device), None, t)
+    with pytest.raises(NotImplementedError):
+        k10.hll_solve(inv, None, t.bfloat16())
+    with pytest.raises(ValueError):
+        k10.hll_solve(inv, None, torch.ones(3, 10, device=cuda_device).T)
