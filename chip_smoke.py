@@ -104,7 +104,14 @@ own:
    base store (``[k3-store]``): bitwise ``product_store_plain`` of K3's
    own sums on the card, in place on S and replayed from a CUDA graph,
    one launch a call; its ms beside K3 storing the sums alone and the
-   ops the store replaced (zero S, copy Hpp in, subtract);
+   ops the store replaced (zero S, copy Hpp in, subtract). Then the
+   float64 instances (``[k3-f64]``, ``[k4-f64]``, ``[k5-f64]``: the
+   FP64_FP64 / FP64_BF16 Schur stage) on the same values in float64: K3
+   by index storing S, K4's b_S and back-substitution, K5 (its column
+   lanes capped to 128 to fit two tiles): within 1e-12 of the card's
+   plain version, bitwise repeatable and bitwise the CPU's plain version,
+   with the bound at the float64 rate (34 TFLOP/s) and, for K4 and K5, a
+   float64 cuSPARSE SpMV;
 6k. ``k7``: K7's four entries (``bal_residual``, ``bal_linearize``,
    ``bal_scale_b``, and ``bal_hessian_sum`` at each of Venice's three
    Hessian sites on its real plan) at Venice-1778's shapes (its first
@@ -129,7 +136,8 @@ own:
    blocks, 4,995,188 (9, 3) Hpl blocks): bitwise equal on the card, on
    the CPU and replayed from a CUDA graph, bitwise repeatable, one launch
    a call; its ms, the plain version's (the replaced ops') and its bound
-   (Hpl, Hll read once, W, Hll^-1 written once at 3.35 TB/s);
+   (Hpl, Hll read once, W, Hll^-1 written once at 3.35 TB/s); then the
+   same in float64 (``[k10-f64]``, K10's float64 instance);
 6n. ``k12``: K12 (``csrc/pcg_step.cu``), the CG step's vector work, at
    the inputs of its first calls in Venice's first solve (recorded from
    ``PCGSchurSolver.solve`` at the start point): ``bjs_apply`` (the
@@ -260,10 +268,11 @@ peak memory:
     and ``examples.pose_graph --jit-loop``: chi2 lowered.
 
 The precision policies (the JAX package's six: FP64_FP64, FP64_FP32,
-FP64_BF16, FP32_FP32, FP32_BF16, FP32_FP16). A kernel site runs its
-kernel only where its values are float32 (K1 also in float64, counted
-apart as ``[f64]``); a float64 site takes the stepwise branch on K1's
-float64 instance. Card-vs-CPU criteria: FP32_* bitwise (accept pattern,
+FP64_BF16, FP32_FP32, FP32_BF16, FP32_FP16). K1 and the Schur stage's
+kernels (K3, K4, K5, K10, K13) run in the dtype of their values,
+float32 or float64 (float64 launches counted apart as ``[f64]``); K2
+and K6 only where S or the graph is float32, K7 and K11 only in a
+float32 graph. Card-vs-CPU criteria: FP32_* bitwise (accept pattern,
 chi2 per iteration, final parameters); FP64_FP64 the accept pattern and
 chi2 within 1e-9 (the card's float64 cos / sin are not correctly
 rounded, so not bitwise); FP64_FP32 and FP64_BF16 within 1e-3, or
@@ -282,9 +291,11 @@ LM iteration, peak memory and every kernel's launches:
     ``index_add_`` time;
 21. ``precision-ladybug``: Ladybug-49 under each policy, 10 iterations on
     the card and on the CPU, K2 launched where S is float32 (FP32_*,
-    FP64_FP32) and never elsewhere; then FP64_FP64, FP64_FP32 and
-    FP32_BF16 again with phase 9's forced branches: K3, K4 and K5
-    launched where the Schur values are float32, never under FP64_FP64;
+    FP64_FP32) and never elsewhere; then FP64_FP64, FP64_BF16, FP64_FP32
+    and FP32_BF16 again with phase 9's forced branches: K3, K4 and K5
+    launched in the dtype of the Schur values (their ``[f64]``
+    instances under FP64_FP64) and never in the other; K10 and K13 in
+    the inverses' dtype on every BAL run;
     then ``jit_loop`` under FP64_FP32 (forced branches: the casts at the
     K2, K4 and K5 sites allocate in the capture) and FP64_FP64, each
     bitwise the card's host loop, with capture seconds and pool memory;
@@ -292,12 +303,18 @@ LM iteration, peak memory and every kernel's launches:
     fold of the bf16 J), 30 iterations, and FP64_FP64 (the generic
     branch: ``run_pcg`` on ``hessian_matvec``, K1 in float64), 10
     iterations; card vs CPU, unit quaternions;
-23. ``precision-venice`` (after phase 8): Venice-1778 under FP32_BF16 at
-    full size, 10 iterations on the card (K1, K3, K4 and K5 launched)
-    and 2 on the CPU (the card problem's copy); ms per iteration and peak
-    memory beside phase 7's FP32_FP32 run, and the stored Jacobians'
-    bytes. Its Hessian and Schur structures are phase 5's (topology only:
-    the block offsets and factor ids are checked equal), not built again.
+23. ``precision-venice`` (after phase 8): Venice-1778 at full size
+    under FP32_BF16 and FP64_FP64, 10 iterations each on the card (K1,
+    K3, K4, K5 and K10 launched in the Schur values' dtype: the ``[f64]``
+    instances under FP64_FP64, no float32 one) and 1 on the CPU (the
+    card problem's copy: FP32_BF16 within 1e-3, printed bitwise or not,
+    FP64_FP64 the accept pattern and chi2 within 1e-9); ms per accepted
+    and rejected iteration and peak memory beside phase 7's FP32_FP32
+    run, the Schur kernels' launches beside FP32_FP32's, and the stored
+    Jacobians' bytes; FP64_FP64 also under ``jit_loop``, its replays
+    bitwise the host loop. Its Hessian and Schur structures are phase
+    5's (topology only: the block offsets and factor ids are checked
+    equal), not built again.
 
 Gradient descent, Adam, covariance and the range-bearing example. Each
 phase prints its numbers beside the card's name and power limit
@@ -409,7 +426,8 @@ and phase 16's eager iterations make no dim_x vector inside a CG step
 segment (the trace's ops by input shape), and print their kernels beside
 the parent's (PR 20's final run: 790 rejected, 832 accepted).
 
-K10 (``csrc/schur_w.cu``) takes every float32 ``schur_values``: phases
+K10 (``csrc/schur_w.cu``) takes every ``schur_values`` of float32 or
+float64 inverses (``[f64]`` apart, phases 20-23 check which ran): phases
 4, 7, 16 and S1-S4 check that it launched once per ``schur_values`` call
 (Ladybug's and Venice's one Hpl group), and phase 16's trace of the
 eager iterations by host op holds none of the (4995188, 9, 3) products
@@ -524,11 +542,11 @@ def bound_fields(b):
 
 
 def csr_from_blocks(blocks, brow, bcol, n_brows, n_bcols):
-    """A float32 CSR matrix of (n_brows*m, n_bcols*k) scalars holding the
-    (m, k) blocks ``blocks`` at block rows / columns ``brow`` / ``bcol``
-    (int64 tensors on the blocks' device). Built once per site, outside
-    any timing: the library yardstick of K4 and K5 is one ``torch.mv`` on
-    it (cuSPARSE SpMV)."""
+    """A CSR matrix of (n_brows*m, n_bcols*k) scalars in the blocks'
+    dtype (float32 or float64) holding the (m, k) blocks ``blocks`` at
+    block rows / columns ``brow`` / ``bcol`` (int64 tensors on the blocks'
+    device). Built once per site, outside any timing: the library
+    yardstick of K4 and K5 is one ``torch.mv`` on it (cuSPARSE SpMV)."""
     import torch
 
     nb, m, k = blocks.shape
@@ -542,8 +560,8 @@ def csr_from_blocks(blocks, brow, bcol, n_brows, n_bcols):
     j = torch.arange(k, device=dev).view(1, 1, k)
     base = (m * k * start[brow] + q * k).view(nb, 1, 1)
     pos = (base + i * (count[brow] * k).view(nb, 1, 1) + j).reshape(-1)
-    values = torch.empty(nb * m * k, dtype=torch.float32, device=dev)
-    values[pos] = blocks.reshape(-1).float()
+    values = torch.empty(nb * m * k, dtype=blocks.dtype, device=dev)
+    values[pos] = blocks.reshape(-1)
     cols = torch.empty(nb * m * k, dtype=torch.int32, device=dev)
     cols[pos] = (bcol.view(nb, 1, 1) * k + j).expand(nb, m, k).reshape(
         -1).int()
@@ -875,7 +893,11 @@ def all_stats():
             pcg_step.BJS_STATS, pcg_step.ADVANCE_STATS,
             pcg_step.COMMIT_STATS, pcg_step.BJS_STATS_F64,
             pcg_step.ADVANCE_STATS_F64, pcg_step.COMMIT_STATS_F64,
-            schur_w.HLL_SOLVE_STATS, schur_w.HLL_SOLVE_STATS_F64]
+            schur_w.HLL_SOLVE_STATS, schur_w.HLL_SOLVE_STATS_F64,
+            segsum_stream.PRODUCT_STATS_F64,
+            segsum_stream.PRODUCT_RTBL_STATS_F64,
+            segsum_stream.MATVEC_TBL_STATS_F64, segmv.STREAM_STATS_F64,
+            segmv.WTBL_STATS_F64, segmv.SYM_STATS_F64, schur_w.STATS_F64]
 
 
 # K7's entry points (csrc/bal.cu)
@@ -895,6 +917,27 @@ def check_k7(tag, launches, entries=K7_ENTRIES):
 K10 = "schur_w.schur_w"  # K10's entry point (csrc/schur_w.cu)
 K3_GATHERED = "segsum_stream.streaming_segment_product_sum"
 K3_RTBL = "segsum_stream.streaming_segment_product_sum_rtbl"
+# the Schur stage's entries that open above the size gates (K3 by index,
+# K4's b_S and back-substitution, K5), each with a float64 instance
+SCHUR_KERNELS = (K3_RTBL, "segmv.block_matvec_wtbl",
+                 "segsum_stream.streaming_matvec_tbl",
+                 "segmv.matvec_sym_stream")
+
+
+def inv_f64(policy):
+    """Whether a policy's Hessian and Schur values (its ``inv_dtype``) are
+    float64: FP64_FP64 and FP64_BF16."""
+    return policy in ("FP64_FP64", "FP64_BF16")
+
+
+def schur_kernels(policy):
+    """{entry: launched} of ``SCHUR_KERNELS`` on a path whose Schur sites
+    are above their size gates: each in the dtype of the policy's values
+    (``[f64]`` entries under FP64_FP64 and FP64_BF16) and never in the
+    other."""
+    f64 = inv_f64(policy)
+    return {**{n + "[f64]": f64 for n in SCHUR_KERNELS},
+            **{n: not f64 for n in SCHUR_KERNELS}}
 
 
 def k3_calls(launches):
@@ -1805,7 +1848,29 @@ def phase_venice_kernels(problem, lin, hv, sv, ops):
             segsum_stream.segment_product_sum_plain(
                 cW, cR, cplan, dpa, dl, dpb, cli, cri), cbase, cbidx),
         5, 2, work, was=WAS_MS["schur_values"]))
-    del cW, cR, cbase, cbidx
+    # K3's float64 instance (the schur_values of FP64_FP64 and FP64_BF16)
+    # on the same values in float64: the same plan, the store from the
+    # float64 Hpp blocks; its multiply-adds at the float64 rate
+    W64, R64, base64 = W.double(), R.double(), base.double()
+    cW64, cR64, cbase64 = cW.double(), cR.double(), cbase.double()
+    del cW, cR, cbase
+    work64 = bound(nbytes(W64, R64, li, ri, plan.segments.offsets_i32, bidx)
+                   + 8 * (n_hpp + ns) * dpa * dpb,
+                   2 * plan.rows * dpa * dl * dpb, FP64_VECTOR_OPS_PER_S)
+    add(K3_RTBL + "[f64]", measure(
+        "k3-f64", label + ", S = Hpp - the sums stored, float64",
+        lambda: segsum_stream.streaming_segment_product_sum_rtbl(
+            W64, R64, plan, dpa, dl, dpb, li, ri, base=base64,
+            base_idx=bidx),
+        lambda: segsum_stream.product_store_plain(
+            segsum_stream.segment_product_sum_plain(
+                W64, R64, plan, dpa, dl, dpb, li, ri), base64, bidx),
+        lambda: segsum_stream.product_store_plain(
+            segsum_stream.segment_product_sum_plain(
+                cW64, cR64, cplan, dpa, dl, dpb, cli, cri), cbase64, cbidx),
+        5, 2, work64, tol=1e-12))
+    del W64, R64, base64, cW64, cR64, cbase64, cbidx
+    torch.cuda.empty_cache()
     k3_store_bits(k3_store, W, R, plan, (dpa, dl, dpb), li, ri, base, bidx,
                   work)
     # the same products from gathered streams (no path calls this entry):
@@ -1855,12 +1920,15 @@ def phase_venice_kernels(problem, lin, hv, sv, ops):
     rows_k4 = A.shape[0]
     blocks = A.view(rows_k4, dp, dl)
 
-    def k4_work(x, xi, mplan, out_rows, out_dim):
-        """K4 reads the blocks, x, its index and the plan once, writes the
-        sums once; each block is dp*dl multiply-adds."""
-        return bound(nbytes(A, x, xi, mplan.offsets_i32,
-                            mplan.perm_i32) + 4 * out_rows * out_dim,
-                     2 * rows_k4 * dp * dl)
+    def k4_work(x, xi, mplan, out_rows, out_dim, a=A):
+        """K4 reads the blocks ``a``, x, its index and the plan once,
+        writes the sums once (in a's dtype); each block is dp*dl
+        multiply-adds, at the float64 rate for float64 blocks."""
+        return bound(nbytes(a, x, xi, mplan.offsets_i32, mplan.perm_i32)
+                     + a.element_size() * out_rows * out_dim,
+                     2 * rows_k4 * dp * dl,
+                     FP64_VECTOR_OPS_PER_S if a.dtype == torch.float64
+                     else FP32_OPS_PER_S)
 
     csr = csr_from_blocks(blocks, dev(prow), dev(lrow), n_pt, n_lt)
     add("segmv.block_matvec_wtbl", measure(
@@ -1898,7 +1966,36 @@ def phase_venice_kernels(problem, lin, hv, sv, ops):
         lambda: segmv.segmv_plain(cA, cx, cpidx, cplan_l, dp, dl, True),
         10, 3, k4_work(x, pidx, plan_l, n_lt, dl), spmv(csr, x),
         WAS_MS["back-substitution"]))
-    del A, cA, w, cw, wg, cwg, blocks, csr
+    del wg, cwg, csr
+    # K4's float64 instance at b_S's and the back-substitution's shapes
+    # (tiles of k4_tile_blocks(dp, dl, 8) on a 2-block grid); the library
+    # yardstick a float64 cuSPARSE SpMV
+    A64, w64, x64 = A.double(), w.double(), x.double()
+    cA64, cw64, cx64 = cA.double(), cw.double(), cx.double()
+    del A, cA, w, cw, x, cx
+    blocks64 = A64.view(rows_k4, dp, dl)
+    csr = csr_from_blocks(blocks64, dev(prow), dev(lrow), n_pt, n_lt)
+    add("segmv.block_matvec_wtbl[f64]", measure(
+        "k4-f64", f"{rows_k4}x({dp},{dl})->{n_pt}, w[{n_lt}] by index, "
+        f"group {plan_b.group}, tiles of {segmv.k4_tile_blocks(dp, dl, 8)} "
+        f"b_schur, float64",
+        lambda: segmv.block_matvec_wtbl(A64, w64, plan_b, lid, dp, dl),
+        lambda: segmv.segmv_plain(A64, w64, lid, plan_b, dp, dl),
+        lambda: segmv.segmv_plain(cA64, cw64, clid, cplan_b, dp, dl), 10, 3,
+        k4_work(w64, lid, plan_b, n_pt, dp, A64), spmv(csr, w64),
+        tol=1e-12))
+    csr = csr_from_blocks(blocks64.transpose(1, 2), dev(lrow), dev(prow),
+                          n_lt, n_pt)
+    add("segsum_stream.streaming_matvec_tbl[f64]", measure(
+        "k4-f64", f"{rows_k4}x({dp},{dl})^T->{n_lt}, x[{n_pt}] by index, "
+        f"group {plan_l.group} back-substitution, float64",
+        lambda: segsum_stream.streaming_matvec_tbl(A64, x64, pidx, plan_l,
+                                                   dp, dl, transpose=True),
+        lambda: segmv.segmv_plain(A64, x64, pidx, plan_l, dp, dl, True),
+        lambda: segmv.segmv_plain(cA64, cx64, cpidx, cplan_l, dp, dl, True),
+        10, 3, k4_work(x64, pidx, plan_l, n_lt, dl, A64), spmv(csr, x64),
+        tol=1e-12))
+    del A64, cA64, w64, cw64, x64, cx64, blocks64, blocks, csr
 
     # K5: the PCG's S matvec
     skey = (dp, dp)
@@ -1941,7 +2038,38 @@ def phase_venice_kernels(problem, lin, hv, sv, ops):
         lambda: segmv.matvec_sym_plain(cS, cxc, cxr, ccid, crxi, cplan_s,
                                        dp, dp), 20, 5, work, spmv(csr, xc),
         WAS_MS["s_matvec"]))
-    del S, cS, csr
+    del csr
+    # K5's float64 instance on the same S in float64: its column plan's
+    # lanes capped so that two tiles fit shared memory (sym_group_cap)
+    S64, xc64, xr64 = S.double(), xc.double(), xr.double()
+    cS64, cxc64, cxr64 = cS.double(), cxc.double(), cxr.double()
+    del S, cS
+    splan64, cplan64 = (segmv.plan_matvec_sym(
+        rrow, crow, n_r, n_c, d, dp, k=dp, elem_bytes=8)
+        for d in (problem.device, "cpu"))
+    work64 = bound(
+        nbytes(S64, xc64, xr64, cid, rxi, splan64.rows.offsets_i32,
+               splan64.rows.perm_i32, splan64.cols.offsets_i32,
+               splan64.cols.perm_i32) + 8 * dp * (n_r + n_c),
+        2 * dp * dp * (S64.shape[0] + off.size), FP64_VECTOR_OPS_PER_S)
+    S3, offt = S64.view(-1, dp, dp), dev(off)
+    csr = csr_from_blocks(
+        torch.cat([S3, S3.index_select(0, offt).transpose(1, 2)]),
+        dev(np.concatenate([rrow, crow[off]])),
+        dev(np.concatenate([crow, rrow[off]])), n_r, n_c)
+    del S3, offt
+    add("segmv.matvec_sym_stream[f64]", measure(
+        "k5-f64", f"{S64.shape[0]}x({dp},{dp})->{n_r}, {off.size} "
+        f"off-diagonal, one read of S, groups {splan64.rows.group} (rows, "
+        f"K1) / {splan64.cols.group} (columns) s_matvec, float64",
+        lambda: segmv.matvec_sym_stream(S64, xc64, xr64, cid, rxi, splan64,
+                                        dp, dp),
+        lambda: segmv.matvec_sym_plain(S64, xc64, xr64, cid, rxi, splan64,
+                                       dp, dp),
+        lambda: segmv.matvec_sym_plain(cS64, cxc64, cxr64, ccid, crxi,
+                                       cplan64, dp, dp), 20, 5, work64,
+        spmv(csr, xc64), tol=1e-12))
+    del S64, cS64, csr
     torch.cuda.empty_cache()
     return results
 
@@ -2442,11 +2570,13 @@ K9_WAS_MS = {(16_002, "float32"): "0.00489", (16_002, "float64"): "0.00796",
 def phase_k10(problem, ss, hv):
     """K10 vs its plain version at Venice's first ``schur_values`` inputs
     (the damped Hessian values at its first linearization point: the Hll
-    rows, the (9, 3) Hpl group, its plan): bitwise equal on the card, on
-    the CPU and replayed from a CUDA graph, bitwise repeatable, one launch
-    a call. Its ms beside the plain version's (the ops ``schur_values``
-    ran before K10) and its bound: Hpl and Hll read once, W and Hll^-1
-    written once, at 3.35 TB/s; float32 operations at 67 TFLOP/s."""
+    rows, the (9, 3) Hpl group, its plan), in float32 and, as K10's
+    float64 instance (FP64_FP64, FP64_BF16), in float64: bitwise equal on
+    the card, on the CPU and replayed from a CUDA graph, bitwise
+    repeatable, one launch a call. Its ms beside the plain version's (the
+    ops ``schur_values`` ran before K10) and its bound: Hpl and Hll read
+    once, W and Hll^-1 written once, at 3.35 TB/s; the operations at 67
+    (float32) or 34 (float64) TFLOP/s."""
     import torch
 
     from graphite_tpu_torch import schur
@@ -2455,62 +2585,76 @@ def phase_k10(problem, ss, hv):
 
     (key,) = ss.hpl_keys
     dp, dl = key
-    hll = take_rows(problem, ("lm_h_idx", dl), hv[(dl, dl)], ss.lm_h_idx[dl])
-    hpl = take_rows(problem, ("hpl_h", key), hv[key], ss.hpl_h_idx[key])
+    hll32 = take_rows(problem, ("lm_h_idx", dl), hv[(dl, dl)],
+                      ss.lm_h_idx[dl])
+    hpl32 = take_rows(problem, ("hpl_h", key), hv[key], ss.hpl_h_idx[key])
     plan = schur._w_plan(problem, ss, key)
-    cpu_args = (hll.cpu(), hpl.cpu(), on_cpu(plan), dp, dl)
+    out_records = {}
+    for dtype, entry, stats, tag in (
+            (torch.float32, K10, schur_w.STATS, "k10"),
+            (torch.float64, K10 + "[f64]", schur_w.STATS_F64, "k10-f64")):
+        hll, hpl = hll32.to(dtype), hpl32.to(dtype)
+        cpu_args = (hll.cpu(), hpl.cpu(), on_cpu(plan), dp, dl)
 
-    def kernel():
-        return schur_w.schur_w(hll, hpl, plan, dp, dl)
+        def kernel():
+            return schur_w.schur_w(hll, hpl, plan, dp, dl)
 
-    def plain():
-        inv = schur_w.hll_inverse_plain(hll, dl)
-        return inv, schur_w.hpl_w_plain(hpl, inv, plan, dp, dl)
+        def plain():
+            inv = schur_w.hll_inverse_plain(hll, dl)
+            return inv, schur_w.hpl_w_plain(hpl, inv, plan, dp, dl)
 
-    def bits(t):
-        return t.view(torch.int32)
+        def bits(t):
+            return t.view(torch.int32 if t.element_size() == 4
+                          else torch.int64)
 
-    before = schur_w.STATS.launches
-    out, again = kernel(), kernel()
-    launches = schur_w.STATS.launches - before
-    ref = plain()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        captured = kernel()
-    graph.replay()
-    torch.cuda.synchronize()
-    ok = dict(vs_plain=all(torch.equal(bits(o), bits(r))
-                           for o, r in zip(out, ref)),
-              repeat=all(torch.equal(bits(o), bits(a))
-                         for o, a in zip(out, again)),
-              in_graph=all(torch.equal(bits(c), bits(r))
-                           for c, r in zip(captured, ref)))
-    err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
-    del again, ref, captured, graph
-    cpu = schur_w.schur_w(*cpu_args)
-    ok["vs_cpu_plain"] = all(torch.equal(bits(o.cpu()), bits(c))
-                             for o, c in zip(out, cpu))
-    del cpu, cpu_args
-    L, K = hll.shape[0], hpl.shape[0]
-    # a 3x3 inverse: 9 cofactors of 3 operations, the determinant's 5, one
-    # division and 9 products; a W entry dl products and dl - 1 adds
-    ops = {1: 1, 2: 12, 3: 42}[dl] * L + dp * dl * (2 * dl - 1) * K
-    work = bound(nbytes(hll, hpl, *out), ops)
-    del out
-    torch.cuda.empty_cache()
-    ms = device_ms(kernel, 20)
-    plain_ms = device_ms(plain, 5)
-    shape = (f"{L} ({dl},{dl}) Hll + {K} ({dp},{dl}) Hpl -> Hll^-1, W, "
-             f"Venice schur_values")
-    print(f"[k10] {shape}: bitwise {ok} launches a call={launches / 2:g} "
-          f"max_abs_err={err:.3e} ms={ms:.4f} plain_ms (the replaced ops)="
-          f"{plain_ms:.4f} library_ms=None bound_ms={bound_fields(work)} "
-          f"bytes={nbytes(hll, hpl) * 2} ({card_label()})")
-    for what, good in ok.items():
-        check(good, f"k10: not bitwise ({what})")
-    check(launches == 2, f"k10: launched {launches} times in two calls")
-    return {K10: [dict(err=err, ms=ms, plain_ms=plain_ms, shape=shape,
-                       library_ms=None, **work)]}
+        before = stats.launches
+        out, again = kernel(), kernel()
+        launches = stats.launches - before
+        ref = plain()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = kernel()
+        graph.replay()
+        torch.cuda.synchronize()
+        ok = dict(vs_plain=all(torch.equal(bits(o), bits(r))
+                               for o, r in zip(out, ref)),
+                  repeat=all(torch.equal(bits(o), bits(a))
+                             for o, a in zip(out, again)),
+                  in_graph=all(torch.equal(bits(c), bits(r))
+                               for c, r in zip(captured, ref)))
+        err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
+        del again, ref, captured, graph
+        cpu = schur_w.schur_w(*cpu_args)
+        ok["vs_cpu_plain"] = all(torch.equal(bits(o.cpu()), bits(c))
+                                 for o, c in zip(out, cpu))
+        del cpu, cpu_args
+        L, K = hll.shape[0], hpl.shape[0]
+        # a 3x3 inverse: 9 cofactors of 3 operations, the determinant's 5,
+        # one division and 9 products; a W entry dl products and dl - 1
+        # adds
+        ops = {1: 1, 2: 12, 3: 42}[dl] * L + dp * dl * (2 * dl - 1) * K
+        work = bound(nbytes(hll, hpl, *out), ops,
+                     FP64_VECTOR_OPS_PER_S if dtype == torch.float64
+                     else FP32_OPS_PER_S)
+        del out
+        torch.cuda.empty_cache()
+        ms = device_ms(kernel, 20)
+        plain_ms = device_ms(plain, 5)
+        shape = (f"{L} ({dl},{dl}) Hll + {K} ({dp},{dl}) Hpl -> Hll^-1, W, "
+                 f"Venice schur_values, {str(dtype).split('.')[-1]}")
+        print(f"[{tag}] {shape}: bitwise {ok} launches a call="
+              f"{launches / 2:g} max_abs_err={err:.3e} ms={ms:.4f} "
+              f"plain_ms (the replaced ops)={plain_ms:.4f} library_ms=None "
+              f"bound_ms={bound_fields(work)} bytes="
+              f"{nbytes(hll, hpl) * 2} ({card_label()})")
+        for what, good in ok.items():
+            check(good, f"{tag}: not bitwise ({what})")
+        check(launches == 2, f"{tag}: launched {launches} times in two "
+              "calls")
+        out_records[entry] = [dict(err=err, ms=ms, plain_ms=plain_ms,
+                                   shape=shape, library_ms=None, **work)]
+        del hll, hpl
+    return out_records
 
 
 def record_venice_solve(problem, lin, solver):
@@ -4161,13 +4305,13 @@ def policy_run(tag, policy, make_problem, solver, iterations, cpu_iters):
     return gpu, launches
 
 
-def check_policy_kernels(tag, policy, launches, float32_kernels, bal=True):
-    """K1 in the policy's graph dtype launched; ``float32_kernels`` (the
-    K2-K6 entries the float32 sites take) launched where the policy's
-    sites are float32 and never elsewhere; on a BAL path (``bal``) K7
-    launched in a float32 graph and never in a float64 one, and K13 in
-    the inverses' dtype (float64 under FP64_FP64 and FP64_BF16) and never
-    in the other."""
+def check_policy_kernels(tag, policy, launches, kernels, bal=True):
+    """K1 in the policy's graph dtype launched; each entry of ``kernels``
+    launched where it maps to True and never where it maps to False (the
+    K2-K6 entries by the dtype of their sites: ``schur_kernels`` for K3,
+    K4 and K5); on a BAL path (``bal``) K7 launched in a float32 graph and
+    never in a float64 one, and K10 and K13 in the inverses' dtype
+    (float64 under FP64_FP64 and FP64_BF16) and never in the other."""
     f64 = policy.startswith("FP64")
     if bal and f64:
         check(all(launches[e] == 0 for e in K7_ENTRIES),
@@ -4175,30 +4319,33 @@ def check_policy_kernels(tag, policy, launches, float32_kernels, bal=True):
     elif bal:
         check_k7(tag, launches)
     if bal:
-        inv64 = policy in ("FP64_FP64", "FP64_BF16")
-        k13, other = (K13 + "[f64]", K13) if inv64 else (K13, K13 + "[f64]")
-        print(f"[{tag}] K13 launches {k13}={launches[k13]} "
-              f"{other}={launches[other]}")
-        check(launches[k13] > 0 and launches[other] == 0,
-              f"{tag}: K13 launched {launches[k13]} / {launches[other]} "
-              f"times in the inverses' dtype / the other")
+        for kernel in (K10, K13):
+            mine, other = ((kernel + "[f64]", kernel) if inv_f64(policy)
+                           else (kernel, kernel + "[f64]"))
+            print(f"[{tag}] launches {mine}={launches[mine]} "
+                  f"{other}={launches[other]}")
+            check(launches[mine] > 0 and launches[other] == 0,
+                  f"{tag}: {kernel} launched {launches[mine]} / "
+                  f"{launches[other]} times in the inverses' dtype / the "
+                  f"other")
     k1 = ("segsum_stream.streaming_segment_sum[f64]" if f64
           else "segsum_stream.streaming_segment_sum")
     check(launches[k1] > 0, f"{tag}: {k1} never launched")
     if not f64:
         check(launches["segsum_stream.streaming_segment_sum[f64]"] == 0,
               f"{tag}: K1 float64 launched on a float32 graph")
-    for name in float32_kernels:
-        if float32_kernels[name]:
+    for name, launched in kernels.items():
+        if launched:
             check(launches[name] > 0, f"{tag}: {name} never launched")
         else:
-            check(launches[name] == 0, f"{tag}: {name} launched on a "
-                  "float64 site")
+            check(launches[name] == 0, f"{tag}: {name} launched on a site "
+                  "of another dtype")
 
 
 def phase_precision_ladybug(iterations):
-    """Ladybug-49 under the six policies, then FP64_FP64, FP64_FP32 and
-    FP32_BF16 with phase 9's forced branches; card vs CPU."""
+    """Ladybug-49 under the six policies, then FP64_FP64, FP64_BF16,
+    FP64_FP32 and FP32_BF16 with phase 9's forced branches; card vs
+    CPU."""
     from graphite_tpu_torch import schur
     from graphite_tpu_torch.solvers import PCGSchurSolver
 
@@ -4216,19 +4363,14 @@ def phase_precision_ladybug(iterations):
     gates = schur.CHUNK_THRESHOLD, schur._smv_chunk_rows
     schur.CHUNK_THRESHOLD, schur._smv_chunk_rows = 0, (lambda rb: 0)
     try:
-        for policy in ("FP64_FP64", "FP64_FP32", "FP32_BF16"):
+        for policy in ("FP64_FP64", "FP64_BF16", "FP64_FP32", "FP32_BF16"):
             tag = f"precision-ladybug-forced {policy}"
             _, launches = policy_run(
                 tag, policy, ladybug_problem,
                 PCGSchurSolver(10, 1.0, 5.0, dense_matvec_limit=0),
                 iterations, iterations)
-            f32 = policy != "FP64_FP64"
-            check_policy_kernels(tag, policy, launches, {
-                name: f32 for name in (
-                    "segsum_stream.streaming_segment_product_sum_rtbl",
-                    "segmv.block_matvec_wtbl",
-                    "segsum_stream.streaming_matvec_tbl",
-                    "segmv.matvec_sym_stream")})
+            check_policy_kernels(tag, policy, launches,
+                                 schur_kernels(policy))
             out[tag] = launches
         # jit_loop under FP64_FP32 with the forced branches: the casts in
         # and out of K2, K4 and K5 allocate inside the capture
@@ -4272,44 +4414,66 @@ def phase_precision_pose():
     return out
 
 
-def phase_precision_venice(ds, solver, iterations, cpu_iters, fp32,
-                           structures):
-    """Venice-1778 under FP32_BF16 at full size: ``iterations`` LM
-    iterations on the card, ``cpu_iters`` on the CPU (on the card
-    problem's copy, ``Problem.to``); ms per iteration and peak memory
-    beside FP32_FP32's (``fp32``: phase 7's run and peak). The Hessian and
-    Schur structures are topology only: ``structures``, phase 5's, are
-    reused, not built again."""
+# phase 23's Venice-1778 policies, each with the CPU iterations it is held
+# to (on the card problem's copy): two, so that FP64_FP64's first accepted
+# step (Venice rejects its first iteration) goes through the float64
+# Schur kernels on both sides
+VENICE_POLICIES = (("FP32_BF16", 2), ("FP64_FP64", 2))
+
+
+def phase_precision_venice(ds, solver, iterations, fp32, structures):
+    """Venice-1778 at full size under each of ``VENICE_POLICIES``
+    (``precision_venice_run``); returns the launches of each run."""
+    out = {}
+    for policy, cpu_iters in VENICE_POLICIES:
+        out.update(precision_venice_run(ds, solver, iterations, policy,
+                                        cpu_iters, fp32, structures))
+    return out
+
+
+def precision_venice_run(ds, solver, iterations, policy, cpu_iters, fp32,
+                         structures):
+    """Venice-1778 under ``policy`` at full size: ``iterations`` LM
+    iterations on the card, ms per accepted and rejected iteration apart,
+    peak memory and the Schur kernels' launches beside FP32_FP32's
+    (``fp32``: phase 7's run, peak and launches), and the stored
+    Jacobians' bytes; under FP64_FP64 the same iterations under
+    ``jit_loop`` bitwise the card's host loop; then ``cpu_iters`` on the
+    CPU (on the card problem's copy, ``Problem.to``): FP32_* bitwise the
+    card's, FP64_FP64 the accept pattern and chi2 within 1e-9 (the card's
+    float64 cos / sin are not correctly rounded). The Hessian and Schur
+    structures are topology only: ``structures``, phase 5's, are reused,
+    not built again."""
     import numpy as np
     import torch
 
-    from graphite_tpu_torch import FP32_BF16
+    import graphite_tpu_torch as gtt
     from graphite_tpu_torch.io import bal
 
-    tag = "precision-venice FP32_BF16"
+    prec = getattr(gtt, policy)
+    tag = f"precision-venice {policy}"
     t0 = time.perf_counter()
-    g, *_ = bal.build_graph(ds, precision=FP32_BF16)
+    g, *_ = bal.build_graph(ds, precision=prec)
     problem = g.freeze(device=torch.device(DEVICE))
-    src_offsets, src_ids = structures.pop("topology")
+    src_offsets, src_ids = structures["topology"]
     check(np.array_equal(problem.block_offsets, src_offsets)
           and all(np.array_equal(problem.host.factor_ids[n], src_ids[n])
                   for n in src_ids), f"{tag}: topology differs from phase 5")
-    problem._cache.update(structures)
+    problem._cache.update({k: v for k, v in structures.items()
+                           if k != "topology"})
     print(f"[{tag}] host set-up seconds={time.perf_counter() - t0:.1f}")
     torch.cuda.reset_peak_memory_stats()
     gpu, launches, kernel_ms = count_launches(
         lambda: run_lm(problem, solver, iterations))
     peak = torch.cuda.max_memory_allocated()
     check_solution(tag, problem, gpu)
-    # the stored Jacobians: every slot's (F, E * d) block in bf16
-    j_bytes = FP32_BF16.solver_dtype.itemsize * sum(
-        fm.count * fm.ftype.residual_dim
-        * sum(vt.dim for vt in fm.ftype.vertex_types)
-        for fm in problem.factor_meta.values())
-    cpu_problem = problem.to("cpu")
-    del problem
-    torch.cuda.empty_cache()
-    fp32_run, fp32_peak = fp32
+    # the stored Jacobians: every slot's (F, E * d) block in the storage
+    # dtype
+    j_elems = sum(fm.count * fm.ftype.residual_dim
+                  * sum(vt.dim for vt in fm.ftype.vertex_types)
+                  for fm in problem.factor_meta.values())
+    j_bytes = prec.solver_dtype.itemsize * j_elems
+    fp32_run, fp32_peak, fp32_launches = fp32
 
     def split(run):
         hist = run.history[1:]
@@ -4318,7 +4482,7 @@ def phase_precision_venice(ds, solver, iterations, cpu_iters, fp32,
         return (f"accepted={statistics.median(acc) if acc else None} "
                 f"rejected={statistics.median(rej) if rej else None}")
 
-    for name, run in (("FP32_BF16", gpu), ("FP32_FP32, phase 7", fp32_run)):
+    for name, run in ((policy, gpu), ("FP32_FP32, phase 7", fp32_run)):
         print(f"[{tag}] {name}: cuda chi2={[h['chi2'] for h in run.history]}"
               f" accepted={[h['accepted'] for h in run.history]} "
               f"{split(run)}")
@@ -4327,18 +4491,29 @@ def phase_precision_venice(ds, solver, iterations, cpu_iters, fp32,
           f"{median_ms(fp32_run):.3f}); peak device memory "
           f"max_memory_allocated={peak / 2**30:.3f} GiB (FP32_FP32: "
           f"{fp32_peak / 2**30:.3f} GiB); stored J {j_bytes / 1e6:.1f} MB "
-          f"(FP32_FP32: {2 * j_bytes / 1e6:.1f} MB)")
+          f"(FP32_FP32: {4 * j_elems / 1e6:.1f} MB) ({card_label()})")
+    mine = schur_kernels(policy)
+    shown = [n for n, on in mine.items() if on] + [
+        K10 + ("[f64]" if inv_f64(policy) else "")]
+    print(f"[{tag}] the Schur kernels' launches (FP32_FP32's, phase 7): "
+          + ", ".join(f"{n}={launches[n]} "
+                      f"({fp32_launches[n.replace('[f64]', '')]})"
+                      for n in shown))
     print_launches(tag, launches, kernel_ms)
-    check_policy_kernels(tag, "FP32_BF16", launches, {
-        name: True for name in (
-            "segsum_stream.streaming_segment_product_sum_rtbl",
-            "segmv.block_matvec_wtbl", "segsum_stream.streaming_matvec_tbl",
-            "segmv.matvec_sym_stream")})
+    check_policy_kernels(tag, policy, launches, mine)
+    out = {tag: launches}
+    if policy == "FP64_FP64":
+        _, _, out[tag + " graph"] = run_graph(f"{tag} graph", problem,
+                                              solver, iterations, gpu)
+    cpu_problem = problem.to("cpu")
+    del problem
+    torch.cuda.empty_cache()
     cpu = run_lm(cpu_problem, solver, cpu_iters)
-    bitwise = compare_runs(tag, gpu, cpu)
+    bitwise = compare_runs(tag, gpu, cpu,
+                           rtol=1e-9 if policy == "FP64_FP64" else 1e-3)
     print(f"[{tag}] {cpu_iters} CPU iterations bitwise the card's: "
           f"{bitwise}")
-    return {tag: launches}
+    return out
 
 
 # ---- first-order optimizers, covariance, the range-bearing example -------
@@ -5638,6 +5813,23 @@ KERNELS = [
         "segmv.block_matvec_stream": "graphite_tpu/ops/pallas/segmv.py:176"}),
     ("K5", "graphite_tpu_torch/csrc/segmv.cu", {
         "segmv.matvec_sym_stream": "graphite_tpu/ops/pallas/segmv.py:303"}),
+    # the float64 instances of K3, K4 and K5 (the FP64_FP64 and FP64_BF16
+    # Schur values): the same TPU kernels, which take float32 only
+    ("K3 float64", "graphite_tpu_torch/csrc/segprod.cu", {
+        "segsum_stream.streaming_segment_product_sum[f64]":
+            "graphite_tpu/ops/pallas/segsum_stream.py:327",
+        "segsum_stream.streaming_segment_product_sum_rtbl[f64]":
+            "graphite_tpu/ops/pallas/segsum_stream.py:489"}),
+    ("K4 float64", "graphite_tpu_torch/csrc/segmv.cu", {
+        "segsum_stream.streaming_matvec_tbl[f64]":
+            "graphite_tpu/ops/pallas/segsum_stream.py:639",
+        "segmv.block_matvec_wtbl[f64]":
+            "graphite_tpu/ops/pallas/segmv.py:425",
+        "segmv.block_matvec_stream[f64]":
+            "graphite_tpu/ops/pallas/segmv.py:176"}),
+    ("K5 float64", "graphite_tpu_torch/csrc/segmv.cu", {
+        "segmv.matvec_sym_stream[f64]":
+            "graphite_tpu/ops/pallas/segmv.py:303"}),
     ("K6", "graphite_tpu_torch/csrc/pcg_mf.cu", {
         "pcg_mf.solve_pcg_mf": "graphite_tpu/ops/pallas/pcg_mf.py:121"}),
     # no pl.pallas_call: XLA's fusion of the JAX package's plain jnp code
@@ -5668,6 +5860,8 @@ KERNELS = [
     # inverses and W = Hpl Hll^-1
     ("K10", "graphite_tpu_torch/csrc/schur_w.cu", {
         K10: "none (XLA fusion: graphite_tpu/schur.py:499-508, :543-599)"}),
+    ("K10 float64", "graphite_tpu_torch/csrc/schur_w.cu", {
+        K10 + "[f64]": "none (the same, float64)"}),
     # no pl.pallas_call: XLA's fusion of the JAX package's CG step (one
     # lax.while_loop body) and its block-Jacobi-Schur einsum
     ("K12", "graphite_tpu_torch/csrc/pcg_step.cu", {
@@ -5824,7 +6018,8 @@ def main():
         cpu_problem.block_offsets, dict(cpu_problem.host.factor_ids)))
     del cpu_problem
     precision_venice = timed("precision-venice", phase_precision_venice, ds,
-                             solver, 10, 2, (gpu, venice_peak), structures)
+                             solver, 10,
+                             (gpu, venice_peak, venice_launches), structures)
     del ds, structures
     timed("forced", phase_forced, 10)
     direct_ladybug_launches, ladybug_firsts = timed(

@@ -48,6 +48,13 @@
 // first writes the inverses (hll_inv null in the others), all compute
 // them.
 //
+// Float64 (gt_schur_w_f64, the FP64_FP64 and FP64_BF16 inverses): the
+// same template over T = double, the closed forms in float64 as the plain
+// version's float64 PyTorch ops round them (1.0 / x is an IEEE division
+// in double too). The bytes double (2.3 GB at Venice, ~0.69 ms); a chunk
+// is kChunkBytes of rows (151 (9, 3) rows in float64, 256 in float32)
+// and the 8-byte ends of a span move as 8-byte copies.
+//
 // K13, in the same library since it reads the inverses K10 writes:
 // w = Hll^-1 (t - sub) per landmark row, one launch a landmark type
 // (schur.SchurOps._hll_solve_rows: b_S's w = Hll^-1 b_l and the
@@ -77,35 +84,36 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kTileLm = 256;  // landmarks a CTA
-// shared floats for a chunk of Hpl rows (32 KB): kThreads rows up to 32
-// floats a row, fewer rows above
-constexpr int kChunkFloats = 8192;
+// shared bytes for a chunk of Hpl rows (32 KB): kThreads rows up to 32
+// floats (16 doubles) a row, fewer rows above
+constexpr int kChunkBytes = 32768;
 
 // spd_inverse_flat's closed forms (ops/batched_linalg.py), in place on a
-// row-major DL x DL block; 1 / x is exact division, as PyTorch's
-// reciprocal(x) * 1.0.
-template <int DL>
-__device__ __forceinline__ void invert(float* m) {
+// row-major DL x DL block of T (float or double); 1 / x is exact
+// division, as PyTorch's reciprocal(x) * 1.0.
+template <typename T, int DL>
+__device__ __forceinline__ void invert(T* m) {
+  constexpr T one = static_cast<T>(1);
   if constexpr (DL == 1) {
-    m[0] = 1.0f / m[0];
+    m[0] = one / m[0];
   } else if constexpr (DL == 2) {
-    const float a = m[0], b = m[1], c = m[2], e = m[3];
-    const float inv_det = 1.0f / (a * e - b * c);
+    const T a = m[0], b = m[1], c = m[2], e = m[3];
+    const T inv_det = one / (a * e - b * c);
     m[0] = e * inv_det;
     m[1] = (-b) * inv_det;
     m[2] = (-c) * inv_det;
     m[3] = a * inv_det;
   } else {
-    const float c00 = m[4] * m[8] - m[5] * m[7];
-    const float c01 = m[5] * m[6] - m[3] * m[8];
-    const float c02 = m[3] * m[7] - m[4] * m[6];
-    const float c10 = m[2] * m[7] - m[1] * m[8];
-    const float c11 = m[0] * m[8] - m[2] * m[6];
-    const float c12 = m[1] * m[6] - m[0] * m[7];
-    const float c20 = m[1] * m[5] - m[2] * m[4];
-    const float c21 = m[2] * m[3] - m[0] * m[5];
-    const float c22 = m[0] * m[4] - m[1] * m[3];
-    const float inv_det = 1.0f / ((m[0] * c00 + m[1] * c01) + m[2] * c02);
+    const T c00 = m[4] * m[8] - m[5] * m[7];
+    const T c01 = m[5] * m[6] - m[3] * m[8];
+    const T c02 = m[3] * m[7] - m[4] * m[6];
+    const T c10 = m[2] * m[7] - m[1] * m[8];
+    const T c11 = m[0] * m[8] - m[2] * m[6];
+    const T c12 = m[1] * m[6] - m[0] * m[7];
+    const T c20 = m[1] * m[5] - m[2] * m[4];
+    const T c21 = m[2] * m[3] - m[0] * m[5];
+    const T c22 = m[0] * m[4] - m[1] * m[3];
+    const T inv_det = one / ((m[0] * c00 + m[1] * c01) + m[2] * c02);
     m[0] = c00 * inv_det;
     m[1] = c10 * inv_det;
     m[2] = c20 * inv_det;
@@ -122,17 +130,17 @@ __device__ __forceinline__ void invert(float* m) {
 // l's Hpl rows [offsets[l], offsets[l + 1]), or null for no Hpl rows;
 // hll_inv: (L, DL DL) or null (not written); chunk: Hpl rows a chunk.
 // Dynamic shared memory: the inverse tile, the row chunk, the offsets.
-template <int DL>
+template <typename T, int DL>
 __global__ void __launch_bounds__(kThreads)
-    schur_w_kernel(const float* __restrict__ hll,
-                   const float* __restrict__ hpl,
-                   const int* __restrict__ offsets,
-                   float* __restrict__ hll_inv, float* __restrict__ w,
-                   int dp, int L, int chunk) {
+    schur_w_kernel(const T* __restrict__ hll, const T* __restrict__ hpl,
+                   const int* __restrict__ offsets, T* __restrict__ hll_inv,
+                   T* __restrict__ w, int dp, int L, int chunk) {
   constexpr int DD = DL * DL;
-  extern __shared__ __align__(16) float smem[];
-  float* t_inv = smem;                        // 4 + kTileLm DD floats
-  float* t_rows = smem + 4 + kTileLm * DD;    // 4 + chunk dp DL floats
+  // one buffer for both element types, viewed as T
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  T* const smem = reinterpret_cast<T*>(smem_bytes);
+  T* t_inv = smem;                        // 4 + kTileLm DD elements
+  T* t_rows = smem + 4 + kTileLm * DD;    // 4 + chunk dp DL elements
   const int width = dp * DL;
   int* t_off = reinterpret_cast<int*>(t_rows + 4 + chunk * width);
   const int l0 = blockIdx.x * kTileLm;
@@ -147,12 +155,12 @@ __global__ void __launch_bounds__(kThreads)
   }
   cp_async_wait<0>();
   __syncthreads();
-  float* inv = t_inv + mi;
+  T* inv = t_inv + mi;
   if (threadIdx.x < nl) {
-    float m[DD];
+    T m[DD];
 #pragma unroll
     for (int k = 0; k < DD; ++k) m[k] = inv[DD * threadIdx.x + k];
-    invert<DL>(m);
+    invert<T, DL>(m);
 #pragma unroll
     for (int k = 0; k < DD; ++k) inv[DD * threadIdx.x + k] = m[k];
   }
@@ -170,7 +178,7 @@ __global__ void __launch_bounds__(kThreads)
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
-    float* rows = t_rows + mr;
+    T* rows = t_rows + mr;
     if (threadIdx.x < nr) {
       const int r = c0 + threadIdx.x;
       // the landmark lo with t_off[lo] <= r < t_off[lo + 1]
@@ -183,15 +191,15 @@ __global__ void __launch_bounds__(kThreads)
           hi = mid;
         }
       }
-      const float* b = inv + DD * lo;
-      float* row = rows + width * threadIdx.x;
+      const T* b = inv + DD * lo;
+      T* row = rows + width * threadIdx.x;
       for (int i = 0; i < dp; ++i) {
-        float a[DL];
+        T a[DL];
 #pragma unroll
         for (int j = 0; j < DL; ++j) a[j] = row[DL * i + j];
 #pragma unroll
         for (int c = 0; c < DL; ++c) {
-          float s = a[0] * b[c];
+          T s = a[0] * b[c];
 #pragma unroll
           for (int j = 1; j < DL; ++j) s = s + a[j] * b[DL * j + c];
           row[DL * i + c] = s;
@@ -204,23 +212,61 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int DL>
-cudaError_t launch(const float* hll, const float* hpl, const int* offsets,
-                   float* hll_inv, float* w, int dp, int L, int chunk,
+template <typename T, int DL>
+cudaError_t launch(const T* hll, const T* hpl, const int* offsets,
+                   T* hll_inv, T* w, int dp, int L, int chunk,
                    cudaStream_t stream) {
   const size_t smem =
-      sizeof(float) * (8 + kTileLm * DL * DL + chunk * dp * DL) +
+      sizeof(T) * (8 + kTileLm * DL * DL + chunk * dp * DL) +
       sizeof(int) * (kTileLm + 1);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        schur_w_kernel<DL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        schur_w_kernel<T, DL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const unsigned grid = static_cast<unsigned>((L + kTileLm - 1) / kTileLm);
-  schur_w_kernel<DL><<<grid, kThreads, smem, stream>>>(
+  schur_w_kernel<T, DL><<<grid, kThreads, smem, stream>>>(
       hll, hpl, offsets, hll_inv, w, dp, L, chunk);
   return cudaGetLastError();
+}
+
+template <typename T>
+int schur_w(const void* hll, const void* hpl, const void* offsets,
+            void* hll_inv, void* w, int dp, int dl, int L, void* stream) {
+  const bool rows = offsets != nullptr;
+  if (L < 0 || dl < 1 || dl > 3 || rows != (hpl != nullptr) ||
+      rows != (w != nullptr) || (rows && dp < 1) ||
+      (!rows && hll_inv == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const void* ptrs[] = {hll, hpl, hll_inv, w};
+  for (const void* p : ptrs) {
+    if (reinterpret_cast<unsigned long long>(p) & 15) {
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    }
+  }
+  if (L == 0) return 0;
+  const int width = rows ? dp * dl : 1;
+  const int per_chunk = kChunkBytes / static_cast<int>(sizeof(T)) / width;
+  const int chunk = per_chunk < kThreads ? per_chunk : kThreads;
+  if (chunk < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto h = static_cast<const T*>(hll);
+  const auto p = static_cast<const T*>(hpl);
+  const auto o = static_cast<const int*>(offsets);
+  const auto inv = static_cast<T*>(hll_inv);
+  const auto out = static_cast<T*>(w);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int d = rows ? dp : 0;
+  cudaError_t err;
+  if (dl == 1) {
+    err = launch<T, 1>(h, p, o, inv, out, d, L, chunk, s);
+  } else if (dl == 2) {
+    err = launch<T, 2>(h, p, o, inv, out, d, L, chunk, s);
+  } else {
+    err = launch<T, 3>(h, p, o, inv, out, d, L, chunk, s);
+  }
+  return static_cast<int>(err);
 }
 
 constexpr int kSolveThreads = 256;
@@ -303,49 +349,24 @@ GT_HLL_SOLVE(f64, f32, double, float)
 GT_HLL_SOLVE(f64, f64, double, double)
 #undef GT_HLL_SOLVE
 
-// hll: (L, dl dl) float32; hpl: (K, dp dl) float32 sorted by landmark,
-// landmark l's rows [offsets[l], offsets[l + 1]) (offsets: (L + 1,)
-// int32, offsets[L] = K); hll_inv: (L, dl dl) out, or null to compute
-// the inverses without writing them; w: (K, dp dl) out. hpl, offsets and
+// hll: (L, dl dl) float32 (gt_schur_w_f32) or float64 (gt_schur_w_f64);
+// hpl: (K, dp dl) of hll's type, sorted by landmark, landmark l's rows
+// [offsets[l], offsets[l + 1]) (offsets: (L + 1,) int32, offsets[L] = K);
+// hll_inv: (L, dl dl) out, or null to compute the inverses without
+// writing them; w: (K, dp dl) out; both of hll's type. hpl, offsets and
 // w all null (with dp 0): the inverses only. Every pointer 16-byte
 // aligned. Launches on `stream` and returns a cudaError_t code (0 on
 // success).
 extern "C" int gt_schur_w_f32(const void* hll, const void* hpl,
                               const void* offsets, void* hll_inv, void* w,
                               int dp, int dl, int L, void* stream) {
-  const bool rows = offsets != nullptr;
-  if (L < 0 || dl < 1 || dl > 3 || rows != (hpl != nullptr) ||
-      rows != (w != nullptr) || (rows && dp < 1) ||
-      (!rows && hll_inv == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const void* ptrs[] = {hll, hpl, hll_inv, w};
-  for (const void* p : ptrs) {
-    if (reinterpret_cast<unsigned long long>(p) & 15) {
-      return static_cast<int>(cudaErrorMisalignedAddress);
-    }
-  }
-  if (L == 0) return 0;
-  const int width = rows ? dp * dl : 1;
-  const int chunk = kChunkFloats / width < kThreads ? kChunkFloats / width
-                                                    : kThreads;
-  if (chunk < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const auto h = static_cast<const float*>(hll);
-  const auto p = static_cast<const float*>(hpl);
-  const auto o = static_cast<const int*>(offsets);
-  const auto inv = static_cast<float*>(hll_inv);
-  const auto out = static_cast<float*>(w);
-  const auto s = static_cast<cudaStream_t>(stream);
-  const int d = rows ? dp : 0;
-  cudaError_t err;
-  if (dl == 1) {
-    err = launch<1>(h, p, o, inv, out, d, L, chunk, s);
-  } else if (dl == 2) {
-    err = launch<2>(h, p, o, inv, out, d, L, chunk, s);
-  } else {
-    err = launch<3>(h, p, o, inv, out, d, L, chunk, s);
-  }
-  return static_cast<int>(err);
+  return schur_w<float>(hll, hpl, offsets, hll_inv, w, dp, dl, L, stream);
+}
+
+extern "C" int gt_schur_w_f64(const void* hll, const void* hpl,
+                              const void* offsets, void* hll_inv, void* w,
+                              int dp, int dl, int L, void* stream) {
+  return schur_w<double>(hll, hpl, offsets, hll_inv, w, dp, dl, L, stream);
 }
 
 extern "C" const char* gt_schur_w_error_string(int err) {

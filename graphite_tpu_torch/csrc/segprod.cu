@@ -55,10 +55,11 @@
 // of its row of the output in registers: slot q holds lanes q, q+Q, ...,
 // q+(L-1)Q of its segment (Q = g_s / L slots per segment), as in K1. Round
 // i takes row i*Q + q of each slot's segment: the CTA stages those 64 rows
-// of L and R (gathered by li / ri) into shared memory with coalesced 4-byte
-// cp.async copies, consecutive threads on consecutive words of a row, two
-// rounds ahead, and the rounds' li / ri entries themselves three rounds
-// ahead, so that no copy waits on a load of its index (a wait a round on
+// of L and R (gathered by li / ri) into shared memory with coalesced
+// cp.async copies of one element each (4 bytes, 8 in float64),
+// consecutive threads on consecutive elements of a row, two rounds
+// ahead, and the rounds' li / ri entries themselves three rounds ahead,
+// so that no copy waits on a load of its index (a wait a round on
 // dependent index loads had made a first version of this design ~1.4x
 // slower); each row is read from device memory once, and each thread
 // computes its 9 (n) products from shared memory. Length-sorted CTAs keep
@@ -73,6 +74,16 @@
 // ~1.3 ms, the floor of this design. 243 multiply-adds a row are 8.3
 // GFLOP (0.12 ms at float32's peak). The base store replaces a zero fill,
 // a copy and a subtraction over S (1.54 GB more, ~0.65 ms on the card).
+//
+// Float64 (gt_segprod_f64, the FP64 policies' Schur values): the same
+// template over T = double, sums in float64 in the same order, so the
+// bytes above double (~1.04 ms for the tables and S; 8.3 GFLOP at the 34
+// TFLOP/s float64 rate, 0.25 ms, stays below them). The host plan is the
+// same for both: the lanes fix the order, and a 256-lane segment fills a
+// CTA's 64 slots only at 4 lanes a thread. What a double changes is the
+// CTA's resources: the staged rounds and the tree take twice the shared
+// memory (83 KB at (9, 3, 9): two CTAs an SM), the copies move 8 bytes,
+// and a thread's 4 x 9 accumulators take 72 registers.
 
 #include <cuda_runtime.h>
 
@@ -82,19 +93,20 @@ namespace {
 
 constexpr int kMaxDim = 16;  // largest m, k and n the kernel takes
 constexpr int kSlots = 64;   // rows staged per round
-constexpr int kStages = 3;   // rounds in shared memory: two ahead
+constexpr int kStages = 3;   // rounds in shared memory: two ahead (at most)
 constexpr int kRegLanesLog2 = 2;  // at most 4 lanes a thread in registers
 
+template <typename T>
 struct Prod {
-  const float* L;
+  const T* L;
   const int* li;       // (rows,) or null
-  const float* R;
+  const T* R;
   const int* ri;       // (rows,) or null
   const int* offsets;  // (num_segments + 1,) over the destination-sorted rows
   const int* order;    // (num_segments,) segments by (lanes, length), desc.
   const int* ctas;     // (n_cta, 3): first index into order, segments, log2 g
-  float* out;          // (num_segments, m*n)
-  const float* base;   // base rows, or null (+0.0, or the sums: no bi)
+  T* out;              // (num_segments, m*n)
+  const T* base;       // base rows, or null (+0.0, or the sums: no bi)
   const int* bi;       // (num_segments,) base row or -1; null: row s
 };
 
@@ -108,17 +120,19 @@ struct Slots {
 };
 
 // One CTA with L = 2^l_log2 lanes a thread. Threads: kSlots * m, thread
-// (slot, a) = (t / m, t % m). Dynamic shared memory: kStages rounds of
-// kSlots rows of (m + n) * k floats; the tree reuses it. Round i's copies
-// are one cp.async group, issued kStages - 1 rounds ahead: its rows, and
-// the row indices of round i + kStages (so no copy waits on an index).
-template <int LANES, int M, int K, int N>
-__device__ void segprod_cta(const Prod& p, int m_, int k_, int n_, int first,
-                            int count, int g_log2, float* smem,
+// (slot, a) = (t / m, t % m). Dynamic shared memory: S rounds of kSlots
+// rows of (m + n) * k elements; the tree reuses it. Round i's copies are
+// one cp.async group, issued S - 1 rounds ahead: its rows, and the row
+// indices of round i + S (so no copy waits on an index). S is kStages,
+// or 2 where kStages rounds of the block shape's rows do not fit (float64
+// at 9x9x9): the same sums, one round ahead.
+template <typename T, int S, int LANES, int M, int K, int N>
+__device__ void segprod_cta(const Prod<T>& p, int m_, int k_, int n_,
+                            int first, int count, int g_log2, T* smem,
                             Slots& slots) {
+  static_assert(S >= 2 && S <= kStages, "stages");
   constexpr int KI = K ? K : kMaxDim;  // unrolled loop bounds
   constexpr int NI = N ? N : kMaxDim;
-  constexpr int S = kStages;
   constexpr int l_log2 = LANES == 4 ? 2 : LANES == 2 ? 1 : 0;
   const int m = M ? M : m_;
   const int k = K ? K : k_;
@@ -171,29 +185,29 @@ __device__ void segprod_cta(const Prod& p, int m_, int k_, int n_, int first,
   };
   auto buffer = [&](int i) { return smem + (i % S) * kSlots * row_w; };
   // round i's rows into its buffer: consecutive threads on consecutive
-  // words of a row
+  // elements of a row
   auto stage = [&](int i) {
     const int(*idx)[kSlots] = slots.idx[i % (S + 1)];
-    float* buf = buffer(i);
+    T* buf = buffer(i);
     const int words = kSlots * row_w;
     for (int e = t; e < words; e += blockDim.x) {
       const int j = e / row_w;
       const int w = e - j * row_w;
       if (slots.r0[j] + (i << q_log2) < slots.r1[j]) {
-        const float* src =
+        const T* src =
             w < lw ? p.L + static_cast<long long>(idx[0][j]) * lw + w
                    : p.R + static_cast<long long>(idx[1][j]) * (row_w - lw) +
                          (w - lw);
-        cp_async4(buf + e, src);
+        cp_async_elem(buf + e, src);
       }
     }
   };
 
-  float acc[LANES][NI];
+  T acc[LANES][NI];
 #pragma unroll
   for (int j = 0; j < LANES; ++j) {
 #pragma unroll
-    for (int b = 0; b < NI; ++b) acc[j][b] = 0.0f;
+    for (int b = 0; b < NI; ++b) acc[j][b] = static_cast<T>(0);
   }
 
   // the indices of the first S rounds, then the first S - 1 groups
@@ -221,15 +235,17 @@ __device__ void segprod_cta(const Prod& p, int m_, int k_, int n_, int first,
       cp_async_commit();
       const int r = my_r0 + (i << q_log2);
       if (i < rounds && r < my_r1) {
-        const float* row = buffer(i) + slot * row_w;
-        float lv[KI];
+        const T* row = buffer(i) + slot * row_w;
+        T lv[KI];
 #pragma unroll
-        for (int c = 0; c < KI; ++c) lv[c] = c < k ? row[a * k + c] : 0.0f;
-        const float* rb = row + lw;
+        for (int c = 0; c < KI; ++c) {
+          lv[c] = c < k ? row[a * k + c] : static_cast<T>(0);
+        }
+        const T* rb = row + lw;
 #pragma unroll
         for (int b = 0; b < NI; ++b) {
           if (b < n) {
-            float v = lv[0] * rb[b * k];
+            T v = lv[0] * rb[b * k];
 #pragma unroll
             for (int c = 1; c < KI; ++c) {
               if (c < k) v = v + lv[c] * rb[b * k + c];
@@ -254,7 +270,7 @@ __device__ void segprod_cta(const Prod& p, int m_, int k_, int n_, int first,
   cp_async_wait<0>();
   __syncthreads();  // the buffers are free: the tree reuses them
   // levels h = Q/2, ..., 1: slot q += slot q+h, through shared memory
-  float* mine = smem + (slot * m + a) * n;
+  T* mine = smem + (slot * m + a) * n;
   for (int h = Q >> 1; h >= 1; h >>= 1) {
     if (q >= h && q < 2 * h) {
 #pragma unroll
@@ -264,7 +280,7 @@ __device__ void segprod_cta(const Prod& p, int m_, int k_, int n_, int first,
     }
     __syncthreads();
     if (q < h) {
-      const float* other = mine + h * m * n;
+      const T* other = mine + h * m * n;
 #pragma unroll
       for (int b = 0; b < NI; ++b) {
         if (b < n) acc[0][b] = acc[0][b] + other[b];
@@ -274,7 +290,7 @@ __device__ void segprod_cta(const Prod& p, int m_, int k_, int n_, int first,
   }
   if (q == 0 && sl < count) {
     const int s = p.order[first + sl];
-    float* o = p.out + (static_cast<long long>(s) * m + a) * n;
+    T* o = p.out + (static_cast<long long>(s) * m + a) * n;
     if (p.base == nullptr && p.bi == nullptr) {
 #pragma unroll
       for (int b = 0; b < NI; ++b) {
@@ -282,13 +298,15 @@ __device__ void segprod_cta(const Prod& p, int m_, int k_, int n_, int first,
       }
     } else {
       const int h = p.bi == nullptr ? s : p.bi[s];
-      const float* base =
+      const T* base =
           (h < 0 || p.base == nullptr)
               ? nullptr
               : p.base + (static_cast<long long>(h) * m + a) * n;
 #pragma unroll
       for (int b = 0; b < NI; ++b) {
-        if (b < n) o[b] = (base == nullptr ? 0.0f : base[b]) - acc[0][b];
+        if (b < n) {
+          o[b] = (base == nullptr ? static_cast<T>(0) : base[b]) - acc[0][b];
+        }
       }
     }
   }
@@ -296,77 +314,117 @@ __device__ void segprod_cta(const Prod& p, int m_, int k_, int n_, int first,
 
 // M, K, N fix the block shapes at compile time (0: at run time, up to
 // kMaxDim).
-template <int M, int K, int N>
+template <typename T, int S, int M, int K, int N>
 __global__ void __launch_bounds__(M ? kSlots * M : 1024)
-    segprod_kernel(Prod p, int m, int k, int n) {
-  extern __shared__ float smem[];
+    segprod_kernel(Prod<T> p, int m, int k, int n) {
+  // one buffer for both element types, viewed as T
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  T* const smem = reinterpret_cast<T*>(smem_bytes);
   __shared__ Slots slots;
   const int* cta = p.ctas + 3 * blockIdx.x;
   const int first = cta[0], count = cta[1], g_log2 = cta[2];
   switch (g_log2 < kRegLanesLog2 ? g_log2 : kRegLanesLog2) {
     case 0:
-      segprod_cta<1, M, K, N>(p, m, k, n, first, count, g_log2, smem, slots);
+      segprod_cta<T, S, 1, M, K, N>(p, m, k, n, first, count, g_log2, smem,
+                                    slots);
       break;
     case 1:
-      segprod_cta<2, M, K, N>(p, m, k, n, first, count, g_log2, smem, slots);
+      segprod_cta<T, S, 2, M, K, N>(p, m, k, n, first, count, g_log2, smem,
+                                    slots);
       break;
     default:
-      segprod_cta<4, M, K, N>(p, m, k, n, first, count, g_log2, smem, slots);
+      segprod_cta<T, S, 4, M, K, N>(p, m, k, n, first, count, g_log2, smem,
+                                    slots);
   }
 }
 
-template <int M, int K, int N>
-cudaError_t launch_segprod(const Prod& p, int m, int k, int n,
-                           unsigned blocks, size_t smem,
-                           cudaStream_t stream) {
+// Dynamic shared memory of S rounds of (m, k, n) rows of T, or of the
+// tree where that is larger.
+template <typename T>
+size_t segprod_smem(int S, int m, int k, int n) {
+  const size_t staged = static_cast<size_t>(S) * kSlots * (m + n) * k;
+  const size_t tree = static_cast<size_t>(kSlots) * m * n;
+  return (staged > tree ? staged : tree) * sizeof(T);
+}
+
+template <typename T, int S, int M, int K, int N>
+cudaError_t launch_segprod(const Prod<T>& p, int m, int k, int n,
+                           unsigned blocks, cudaStream_t stream) {
+  const size_t smem = segprod_smem<T>(S, m, k, n);
   cudaError_t err = cudaFuncSetAttribute(
-      segprod_kernel<M, K, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      segprod_kernel<T, S, M, K, N>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  segprod_kernel<M, K, N><<<blocks, kSlots * m, smem, stream>>>(p, m, k, n);
+  segprod_kernel<T, S, M, K, N><<<blocks, kSlots * m, smem, stream>>>(
+      p, m, k, n);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// L: (*, m*k) float32; li: (rows,) int32 or null; R: (*, n*k) float32;
-// ri: (rows,) int32 or null; offsets: (num_segments+1,) int32 over the
-// destination-sorted rows; order (num_segments,) int32 and ctas (n_cta, 3)
-// int32 the host plan (segsum_stream.py, plan_products); out:
-// (num_segments, m*n) float32; base and bi as in the store's modes above:
-// bi (num_segments,) int32 base rows (-1: base +0.0) with base float32
-// rows of m*n or null (every base +0.0); bi null: base null (out = the
-// sums) or base row s (out's own, in place). m, k, n <= 16, with kStages
-// rounds of 64
-// rows of (m + n) * k floats in at most 227 KB of shared memory. Launches
-// on `stream` and returns the cudaGetLastError() code.
-extern "C" int gt_segprod_f32(const void* L, const void* li, const void* R,
-                              const void* ri, const void* offsets,
-                              const void* order, const void* ctas, int n_cta,
-                              void* out, const void* base, const void* bi,
-                              int m, int k, int n, void* stream) {
+template <typename T>
+int segprod(const void* L, const void* li, const void* R, const void* ri,
+            const void* offsets, const void* order, const void* ctas,
+            int n_cta, void* out, const void* base, const void* bi, int m,
+            int k, int n, void* stream) {
   if (m < 1 || k < 1 || n < 1 || m > kMaxDim || k > kMaxDim ||
       n > kMaxDim || n_cta < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_cta == 0) return 0;
-  const size_t staged = static_cast<size_t>(kStages) * kSlots * (m + n) * k;
-  const size_t tree = static_cast<size_t>(kSlots) * m * n;
-  const size_t smem = (staged > tree ? staged : tree) * sizeof(float);
-  if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
-  const Prod p{static_cast<const float*>(L), static_cast<const int*>(li),
-               static_cast<const float*>(R), static_cast<const int*>(ri),
-               static_cast<const int*>(offsets),
-               static_cast<const int*>(order), static_cast<const int*>(ctas),
-               static_cast<float*>(out), static_cast<const float*>(base),
-               static_cast<const int*>(bi)};
+  // the opt-in limit of a CTA, less the kernel's static Slots
+  constexpr size_t kSmemMax = 232448 - sizeof(Slots);
+  const bool three = segprod_smem<T>(kStages, m, k, n) <= kSmemMax;
+  if (!three && segprod_smem<T>(2, m, k, n) > kSmemMax) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Prod<T> p{static_cast<const T*>(L), static_cast<const int*>(li),
+                  static_cast<const T*>(R), static_cast<const int*>(ri),
+                  static_cast<const int*>(offsets),
+                  static_cast<const int*>(order),
+                  static_cast<const int*>(ctas), static_cast<T*>(out),
+                  static_cast<const T*>(base), static_cast<const int*>(bi)};
   const auto st = static_cast<cudaStream_t>(stream);
   const auto blocks = static_cast<unsigned>(n_cta);
-  const cudaError_t err =
-      (m == 9 && k == 3 && n == 9)
-          ? launch_segprod<9, 3, 9>(p, m, k, n, blocks, smem, st)
-          : launch_segprod<0, 0, 0>(p, m, k, n, blocks, smem, st);
+  cudaError_t err;
+  if (m == 9 && k == 3 && n == 9) {
+    err = launch_segprod<T, kStages, 9, 3, 9>(p, m, k, n, blocks, st);
+  } else if (three) {
+    err = launch_segprod<T, kStages, 0, 0, 0>(p, m, k, n, blocks, st);
+  } else {
+    err = launch_segprod<T, 2, 0, 0, 0>(p, m, k, n, blocks, st);
+  }
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+// L: (*, m*k) float32 (gt_segprod_f32) or float64 (gt_segprod_f64); li:
+// (rows,) int32 or null; R: (*, n*k) of L's type; ri: (rows,) int32 or
+// null; offsets: (num_segments+1,) int32 over the destination-sorted rows;
+// order (num_segments,) int32 and ctas (n_cta, 3) int32 the host plan
+// (segsum_stream.py, plan_products: its CTAs for the element type); out:
+// (num_segments, m*n) of L's type; base and bi as in the store's modes
+// above: bi (num_segments,) int32 base rows (-1: base +0.0) with base
+// rows of m*n of L's type or null (every base +0.0); bi null: base null
+// (out = the sums) or base row s (out's own, in place). m, k, n <= 16,
+// with 3 (else 2) rounds of 64 rows of (m + n) * k elements in at most
+// 227 KB of shared memory. Launches on `stream` and returns the
+// cudaGetLastError() code.
+extern "C" int gt_segprod_f32(const void* L, const void* li, const void* R,
+                              const void* ri, const void* offsets,
+                              const void* order, const void* ctas, int n_cta,
+                              void* out, const void* base, const void* bi,
+                              int m, int k, int n, void* stream) {
+  return segprod<float>(L, li, R, ri, offsets, order, ctas, n_cta, out, base,
+                        bi, m, k, n, stream);
+}
+
+extern "C" int gt_segprod_f64(const void* L, const void* li, const void* R,
+                              const void* ri, const void* offsets,
+                              const void* order, const void* ctas, int n_cta,
+                              void* out, const void* base, const void* bi,
+                              int m, int k, int n, void* stream) {
+  return segprod<double>(L, li, R, ri, offsets, order, ctas, n_cta, out,
+                         base, bi, m, k, n, stream);
 }
 
 extern "C" const char* gt_segprod_error_string(int err) {

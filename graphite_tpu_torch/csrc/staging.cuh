@@ -1,5 +1,6 @@
 // Asynchronous copies from device memory into shared memory (cp.async),
-// shared by the kernels that stage their rows before computing on them:
+// 4, 8 or 16 bytes a copy, shared by the kernels that stage their rows
+// before computing on them:
 // K2 (pcg_dense.cu), K3 (segprod.cu), K4 and K5 (segmv.cu), K7 (bal.cu) and
 // K10 (schur_w.cu); and the copy of a staged span back out in 16-byte
 // stores (K7, K10).
@@ -22,6 +23,24 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
                : "memory");
 }
 
+// 8 bytes: any 8-byte-aligned source (float64 rows, gathered or of odd
+// width).
+__device__ __forceinline__ void cp_async8(double* dst, const double* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+// One element of a float32 or float64 row: cp_async4 or cp_async8.
+__device__ __forceinline__ void cp_async_elem(float* dst, const float* src) {
+  cp_async4(dst, src);
+}
+__device__ __forceinline__ void cp_async_elem(double* dst,
+                                              const double* src) {
+  cp_async8(dst, src);
+}
+
 // 16 bytes, both addresses 16-byte aligned; bypasses L1 (.cg).
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -39,29 +58,31 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Stages the n floats at src (4-byte aligned) into the shared span
-// dst + m (dst 16-byte aligned), m the offset of src in floats from a
-// 16-byte boundary, so that every 16-byte piece is aligned on both sides:
-// 16-byte cp.async copies between the first and the last boundary, 4-byte
-// ones before and after, by the CTA's kThreads threads. Returns m (0 where
-// src is 16-byte aligned). The caller commits and waits.
-template <int kThreads>
-__device__ __forceinline__ int stage_span(float* dst,
-                                          const float* __restrict__ src,
+// Stages the n elements (float or double) at src (aligned to its
+// element) into the shared span dst + m (dst 16-byte aligned), m the
+// offset of src in elements from a 16-byte boundary, so that every 16-byte
+// piece is aligned on both sides: 16-byte cp.async copies between the
+// first and the last boundary, one-element ones (cp_async_elem) before and
+// after, by the CTA's kThreads threads. Returns m (0 where src is 16-byte
+// aligned). The caller commits and waits.
+template <int kThreads, typename E>
+__device__ __forceinline__ int stage_span(E* dst, const E* __restrict__ src,
                                           int n) {
+  constexpr int kPer = 16 / sizeof(E);
   const int m = static_cast<int>(
-      (reinterpret_cast<unsigned long long>(src) >> 2) & 3);
-  const int head = min(n, (4 - m) & 3);
-  const int n4 = (n - head) >> 2;
-  float* d = dst + m;
-  for (int x = threadIdx.x; x < n4; x += kThreads) {
-    cp_async16(d + head + 4 * x, src + head + 4 * x);
+      (reinterpret_cast<unsigned long long>(src) / sizeof(E)) & (kPer - 1));
+  const int head = min(n, (kPer - m) & (kPer - 1));
+  const int nv = (n - head) / kPer;
+  E* d = dst + m;
+  for (int x = threadIdx.x; x < nv; x += kThreads) {
+    cp_async16(reinterpret_cast<float*>(d + head + kPer * x),
+               reinterpret_cast<const float*>(src + head + kPer * x));
   }
   for (int x = threadIdx.x; x < head; x += kThreads) {
-    cp_async4(d + x, src + x);
+    cp_async_elem(d + x, src + x);
   }
-  for (int x = head + 4 * n4 + threadIdx.x; x < n; x += kThreads) {
-    cp_async4(d + x, src + x);
+  for (int x = head + kPer * nv + threadIdx.x; x < n; x += kThreads) {
+    cp_async_elem(d + x, src + x);
   }
   return m;
 }

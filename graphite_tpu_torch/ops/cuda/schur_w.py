@@ -10,10 +10,11 @@ versions here, ``hll_inverse_plain`` and ``hpl_w_plain``, are the ops
 ``flat_block_mm_nn``.
 
 ``schur_w(hll, hpl, plan, dp, dl)`` returns (Hll^-1, W). It takes float32
-blocks with dl in 1..3 (``gate``) and raises on others. On CPU tensors it
-runs the plain versions; on CUDA tensors it launches K10 or raises. It allocates its outputs, launches on the
+or float64 blocks (one dtype) with dl in 1..3 (``gate``) and raises on
+others. On CPU tensors it runs the plain versions; on CUDA tensors it
+launches K10 or raises. It allocates its outputs, launches on the
 current stream and reads nothing back, so it runs inside a captured CUDA
-graph. Launches count in ``STATS``.
+graph. Launches count in ``STATS``, float64 ones in ``STATS_F64``.
 
 ``hll_solve(hll_inv, gidx, t, sub)``, kernel K13 in the same library:
 w = Hll^-1 (t - sub) per landmark row (``SchurOps._hll_solve_rows``, for
@@ -40,6 +41,7 @@ from . import build
 from .launches import LaunchStats, on_device, stream_ptr
 
 STATS = LaunchStats("schur_w.schur_w")
+STATS_F64 = LaunchStats("schur_w.schur_w[f64]")  # float64 blocks
 HLL_SOLVE_STATS = LaunchStats("schur_w.hll_solve")  # K13
 HLL_SOLVE_STATS_F64 = LaunchStats("schur_w.hll_solve[f64]")  # f64 inverses
 _SOLVE_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
@@ -47,7 +49,8 @@ _SOLVE_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     # hll, hpl, offsets, hll_inv, w, dp, dl, L, stream
-    "gt_schur_w_f32": [_P] * 5 + [_I, _I, _I, _P],
+    **{f"gt_schur_w_{d}": [_P] * 5 + [_I, _I, _I, _P]
+       for d in _SOLVE_DTYPES.values()},
     # inv, gidx, t, sub, w, n, dl, stream
     **{f"gt_hll_solve_{t}_{a}": [_P] * 5 + [_L, _I, _P]
        for t in _SOLVE_DTYPES.values() for a in _SOLVE_DTYPES.values()},
@@ -60,10 +63,10 @@ def load_kernel() -> build.KernelLibrary:
 
 
 def gate(inv_dtype: torch.dtype, dl: int) -> bool:
-    """Whether a landmark dim takes K10: float32 inverses (``inv_dtype``,
-    as ``schur.kernel_dtype``) of 1x1 to 3x3 blocks. Dtype and shape
-    only."""
-    return inv_dtype == torch.float32 and 1 <= dl <= 3
+    """Whether a landmark dim takes K10: float32 or float64 inverses
+    (``inv_dtype``, which is one of the two under every policy) of 1x1 to
+    3x3 blocks. Dtype and shape only."""
+    return inv_dtype in (torch.float32, torch.float64) and 1 <= dl <= 3
 
 
 @dataclasses.dataclass
@@ -183,15 +186,17 @@ def schur_w(hll: torch.Tensor, hpl: Optional[torch.Tensor],
     dim without Hpl blocks; W is None). ``write_inverse=False``: K10
     computes the inverses without storing them (another group of the same
     dl stored them) and the first result is None."""
-    name = STATS.name
+    stats = STATS_F64 if hll.dtype == torch.float64 else STATS
+    name = stats.name
     if (hpl is None) != (plan is None):
         raise ValueError(f"{name}: give hpl and its plan, or neither")
     tensors = (hll,) if hpl is None else (hll, hpl)
-    if not gate(hll.dtype, dl) or any(t.dtype != torch.float32
+    if not gate(hll.dtype, dl) or any(t.dtype != hll.dtype
                                       for t in tensors):
         raise NotImplementedError(
-            f"{name}: the kernel takes float32 blocks of dl 1..3, got "
-            f"dl={dl} and {[t.dtype for t in tensors]}")
+            f"{name}: the kernel takes float32 or float64 blocks (one "
+            f"dtype) of dl 1..3, got dl={dl} and "
+            f"{[t.dtype for t in tensors]}")
     L = hll.shape[0]
     if hll.shape != (L, dl * dl) or (hpl is not None and (
             hpl.shape != (plan.rows, dp * dl) or dp < 1
@@ -220,13 +225,13 @@ def schur_w(hll: torch.Tensor, hpl: Optional[torch.Tensor],
         return inv, w
     lib = load_kernel()
     with on_device(hll.device):
-        ev = STATS.start()
-        err = lib.lib.gt_schur_w_f32(
+        ev = stats.start()
+        err = getattr(lib.lib, f"gt_schur_w_{_SOLVE_DTYPES[hll.dtype]}")(
             hll.data_ptr(), hpl.data_ptr() if rows else None,
             plan.offsets.data_ptr() if rows else None,
             None if inv is None else inv.data_ptr(),
             w.data_ptr() if rows else None, dp if rows else 0, dl, L,
             stream_ptr(hll.device))
         lib.check(err, name)
-        STATS.done(ev)
+        stats.done(ev)
     return inv, w

@@ -23,7 +23,10 @@ launches, counted as one: its own pass over the stored blocks, then K1
 over the row products (``csrc/segmv.cu``).
 
 A wrapper takes the plain version for a tensor on the CPU only; for a
-CUDA tensor it launches the kernel (float32 only) or raises.
+CUDA tensor it launches the kernel (float32 or float64 values, x in the
+values' dtype) or raises. Each entry counts its float64 launches apart
+(``STREAM_STATS_F64``, ``WTBL_STATS_F64``, ``SYM_STATS_F64``: the FP64
+policies' instances, names ending ``[f64]``).
 """
 
 from __future__ import annotations
@@ -41,30 +44,38 @@ from .launches import LaunchStats, on_device, stream_ptr
 from .segsum import SegmentPlan, plan_segments
 
 STREAM_STATS = LaunchStats("segmv.block_matvec_stream")
+STREAM_STATS_F64 = LaunchStats("segmv.block_matvec_stream[f64]")
 WTBL_STATS = LaunchStats("segmv.block_matvec_wtbl")
+WTBL_STATS_F64 = LaunchStats("segmv.block_matvec_wtbl[f64]")
 SYM_STATS = LaunchStats("segmv.matvec_sym_stream")
+SYM_STATS_F64 = LaunchStats("segmv.matvec_sym_stream[f64]")
 
 MAX_DIM = 16  # largest block side the kernels take
 K4_THREADS = 256  # threads of a K4 CTA; a segment's group never spans two
-K4_PRODUCT_STRIDE = MAX_DIM + 1  # floats per product row in shared memory
+K4_PRODUCT_STRIDE = MAX_DIM + 1  # elements per product row in shared memory
 K4_STAGES = 2  # tiles in a K4 CTA's shared memory (csrc/segmv.cu, kK4Stages)
 # most blocks per K4 tile (``python -m graphite_tpu_torch.kernel_sweep``
 # times K4 at Venice-1778's sites by tile size)
 K4_MAX_TILE = 128
 # most shared memory of a K4 CTA: its tiles, their products and indices
-# (38.0 KB at 9x3 blocks in tiles of 128)
+# (38.0 KB at 9x3 blocks in tiles of 128 in float32; 55.1 KB in tiles of
+# 96 in float64)
 K4_TILE_BYTES = 56 * 1024
+# shared memory a CTA can use (K5's two tiles of G blocks a group must fit)
+SMEM_BYTES = 232_448
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 _SIGNATURES = {
     # A, xi, x, n_x, perm, offsets, out, num_segments, m, k, transpose,
     # group_log2, tile_blocks, stream
-    "gt_segmv_f32": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                     _P],
+    **{f"gt_segmv_{d}": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _I, _P] for d in _DTYPES.values()},
     # S, m, k, xc, n_xc, cid, xr, n_xr, rxi, perm, offsets, order, yc, ns,
     # group_log2, P, stream
-    "gt_segmv_sym_f32": [_P, _I, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P,
-                         _P, _I, _I, _P, _P],
+    **{f"gt_segmv_sym_{d}": [_P, _I, _I, _P, _I, _P, _P, _I, _P, _P, _P,
+                             _P, _P, _I, _I, _P, _P]
+       for d in _DTYPES.values()},
 }
 
 
@@ -96,24 +107,38 @@ def segmv_plain(left: torch.Tensor, x: torch.Tensor,
                                     plan)
 
 
-def k4_tile_blocks(m: int, k: int) -> int:
-    """Blocks per K4 tile: ``K4_MAX_TILE``, fewer when ``K4_STAGES`` tiles
-    of (m, k) blocks, their product rows and index rows would not fit
-    ``K4_TILE_BYTES``; a multiple of 4, so that an unpermuted tile starts
-    16-byte aligned."""
-    per_block = 4 * (K4_STAGES * m * k + K4_PRODUCT_STRIDE
-                     + 2 * K4_STAGES + 1)
-    return max(4, min(K4_MAX_TILE, K4_TILE_BYTES // per_block) & ~3)
+def k4_tile_blocks(m: int, k: int, elem_bytes: int = 4) -> int:
+    """Blocks per K4 tile of elements of ``elem_bytes`` (4: float32, 8:
+    float64): ``K4_MAX_TILE``, fewer when ``K4_STAGES`` tiles of (m, k)
+    blocks, their product rows and their int32 index rows would not fit
+    ``K4_TILE_BYTES``; a multiple of 16 / ``elem_bytes`` blocks (4 in
+    float32, 2 in float64), so that an unpermuted tile starts 16-byte
+    aligned."""
+    per_block = (elem_bytes * (K4_STAGES * m * k + K4_PRODUCT_STRIDE)
+                 + 4 * (2 * K4_STAGES + 1))
+    align = 16 // elem_bytes
+    return max(4, min(K4_MAX_TILE, K4_TILE_BYTES // per_block)
+               & ~(align - 1))
+
+
+def sym_group_cap(m: int, k: int, elem_bytes: int = 4) -> int:
+    """Most lanes a K5 column segment may take: K5's pass 1 stages two
+    tiles of G (m, k) blocks for a group of G = max(G, 32) threads, which
+    must fit ``SMEM_BYTES`` (256 at 9x9 in float32, 128 in float64)."""
+    g = segsum.MAX_GROUP
+    while g > 1 and 2 * max(g, 32) * m * k * elem_bytes > SMEM_BYTES:
+        g //= 2
+    return g
 
 
 def _check(name: str, left: torch.Tensor, x: torch.Tensor,
            xi: Optional[torch.Tensor], plan: SegmentPlan, m: int, k: int,
            transpose: bool):
     for what, t in (("left", left), ("x", x)):
-        if t.dtype != torch.float32:
+        if left.dtype not in _DTYPES or t.dtype != left.dtype:
             raise NotImplementedError(
-                f"{name}: the CUDA kernel takes float32, {what} is "
-                f"{t.dtype}")
+                f"{name}: the CUDA kernel takes float32 or float64 (one "
+                f"dtype), {what} is {t.dtype}")
         if t.device != left.device:
             raise ValueError(f"{name}: {what} is on {t.device}")
     if not (1 <= m <= MAX_DIM and 1 <= k <= MAX_DIM):
@@ -148,30 +173,34 @@ def launch_segmv(left: torch.Tensor, x: torch.Tensor,
     _check(stats.name, left, x, xi, plan, m, k, transpose)
     left, x = left.contiguous(), x.contiguous()
     out = torch.empty((plan.num_segments, k if transpose else m),
-                      dtype=torch.float32, device=left.device)
+                      dtype=left.dtype, device=left.device)
     lib = load_kernel()
     with on_device(left.device):
         stream = stream_ptr(left.device)
         ev = stats.start()
-        err = lib.lib.gt_segmv_f32(
+        err = getattr(lib.lib, f"gt_segmv_{_DTYPES[left.dtype]}")(
             left.data_ptr(), _ptr(xi), x.data_ptr(), x.shape[0],
             _ptr(plan.perm_i32), plan.offsets_i32.data_ptr(), out.data_ptr(),
             plan.num_segments, m, k, int(transpose),
-            plan.group.bit_length() - 1, k4_tile_blocks(m, k), stream)
+            plan.group.bit_length() - 1,
+            k4_tile_blocks(m, k, left.element_size()), stream)
         lib.check(err, stats.name)
         stats.done(ev)
     return out
 
 
 def block_matvec(left, x, xi, plan: SegmentPlan, m: int, k: int,
-                 transpose: bool, stats: LaunchStats) -> torch.Tensor:
+                 transpose: bool, stats: LaunchStats,
+                 stats_f64: LaunchStats) -> torch.Tensor:
     """K4 on any device: the plain version for CPU tensors, the kernel
-    (counted in ``stats``) for CUDA tensors."""
+    for CUDA tensors (counted in ``stats``, float64 values in
+    ``stats_f64``)."""
     if left.device.type == "cpu":
         return segmv_plain(left, x, xi, plan, m, k, transpose)
     if left.device.type != "cuda":
         raise NotImplementedError(f"no kernel for device {left.device}")
-    return launch_segmv(left, x, xi, plan, m, k, transpose, stats)
+    return launch_segmv(left, x, xi, plan, m, k, transpose,
+                        segsum.stats_for(left, stats, stats_f64))
 
 
 def block_matvec_stream(left: torch.Tensor, right: torch.Tensor,
@@ -181,7 +210,7 @@ def block_matvec_stream(left: torch.Tensor, right: torch.Tensor,
     beforehand: ``right`` holds one row per A row. Destinations in any
     order (the plan sorts them)."""
     return block_matvec(left, right, None, plan, m, k, transpose,
-                        STREAM_STATS)
+                        STREAM_STATS, STREAM_STATS_F64)
 
 
 def block_matvec_wtbl(left: torch.Tensor, w_rows: torch.Tensor,
@@ -189,7 +218,8 @@ def block_matvec_wtbl(left: torch.Tensor, w_rows: torch.Tensor,
                       k: int) -> torch.Tensor:
     """y[dst_i] += A_i w[lid_i] (``b_schur``: Hpl blocks into pose rows,
     w read from the landmark solve table by index); ``lid`` int32."""
-    return block_matvec(left, w_rows, lid, plan, m, k, False, WTBL_STATS)
+    return block_matvec(left, w_rows, lid, plan, m, k, False, WTBL_STATS,
+                        WTBL_STATS_F64)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -205,14 +235,23 @@ class SymPlan:
 
 
 def plan_matvec_sym(rid: np.ndarray, cid: np.ndarray, n_r: int, n_c: int,
-                    device, m: int, group: Optional[int] = None) -> SymPlan:
-    """Plan the K5 site of stored (m, k) blocks at (``rid``, ``cid``): the
-    row half is K1 over m-wide row products. ``group`` forces the lanes
-    per segment of both halves."""
+                    device, m: int, group: Optional[int] = None,
+                    k: Optional[int] = None,
+                    elem_bytes: int = 4) -> SymPlan:
+    """Plan the K5 site of stored (m, k) blocks (k = m by default) of
+    ``elem_bytes`` elements at (``rid``, ``cid``): the row half is K1 over
+    m-wide row products; the column half's lanes are at most
+    ``sym_group_cap``. ``group`` forces the lanes per segment of both
+    halves."""
     lengths = np.bincount(np.asarray(cid, dtype=np.int64), minlength=n_c)
     order = np.argsort(-lengths, kind="stable").astype(np.int32)
+    col_group = group
+    if col_group is None:
+        col_group = min(segsum.group_size(int(lengths.sum()),
+                                          int(np.count_nonzero(lengths))),
+                        sym_group_cap(m, m if k is None else k, elem_bytes))
     return SymPlan(rows=plan_segments(rid, n_r, device, group, m),
-                   cols=plan_segments(cid, n_c, device, group),
+                   cols=plan_segments(cid, n_c, device, col_group),
                    col_order=torch.as_tensor(order, device=device))
 
 
@@ -237,25 +276,26 @@ def matvec_sym_stream(left: torch.Tensor, xc: torch.Tensor, xr: torch.Tensor,
 
     On CUDA: pass 1 reads each stored block once, for y_c and for its row
     product P_b = A_b x_c[cid_b]; pass 2 is K1 summing P into y_r. One
-    launch counted in ``SYM_STATS``."""
+    launch counted in ``SYM_STATS`` (float64 values: ``SYM_STATS_F64``)."""
     if left.device.type == "cpu":
         return matvec_sym_plain(left, xc, xr, cid, rxi, plan, m, k)
     if left.device.type != "cuda":
         raise NotImplementedError(f"no kernel for device {left.device}")
-    name = SYM_STATS.name
+    stats = segsum.stats_for(left, SYM_STATS, SYM_STATS_F64)
+    name = stats.name
     _check(name, left, xc, cid, plan.rows, m, k, False)
     _check(name, left, xr, rxi, plan.cols, m, k, True)
     cp = plan.cols
     left, xc, xr = left.contiguous(), xc.contiguous(), xr.contiguous()
-    P = torch.empty((plan.rows.rows, m), dtype=torch.float32,
+    P = torch.empty((plan.rows.rows, m), dtype=left.dtype,
                     device=left.device)
-    yc = torch.empty((cp.num_segments, k), dtype=torch.float32,
+    yc = torch.empty((cp.num_segments, k), dtype=left.dtype,
                      device=left.device)
     lib = load_kernel()
     with on_device(left.device):
         stream = stream_ptr(left.device)
-        ev = SYM_STATS.start()
-        err = lib.lib.gt_segmv_sym_f32(
+        ev = stats.start()
+        err = getattr(lib.lib, f"gt_segmv_sym_{_DTYPES[left.dtype]}")(
             left.data_ptr(), m, k, xc.data_ptr(), xc.shape[0], cid.data_ptr(),
             xr.data_ptr(), xr.shape[0], rxi.data_ptr(), _ptr(cp.perm_i32),
             cp.offsets_i32.data_ptr(), plan.col_order.data_ptr(),
@@ -263,5 +303,5 @@ def matvec_sym_stream(left: torch.Tensor, xc: torch.Tensor, xr: torch.Tensor,
             P.data_ptr(), stream)
         lib.check(err, name)
         yr = segsum.launch_segsum(P, plan.rows, None, name)
-        SYM_STATS.done(ev)
+        stats.done(ev)
     return yr, yc

@@ -25,8 +25,10 @@ sites it served:
 CPU tensors take the plain versions (``streaming_segment_sum_plain``,
 ``segment_product_sum_plain`` and ``product_store_plain``,
 ``segmv.segmv_plain``); CUDA tensors launch
-the kernel or raise: K1 takes float32 and float64 (its float64 launches
-counted in ``STATS_F64``), K3 and K4 float32 only.
+the kernel or raise: K1, K3 and K4 take float32 and float64, each entry
+counting its float64 launches apart (``STATS_F64``, ``PRODUCT_STATS_F64``,
+``PRODUCT_RTBL_STATS_F64``, ``MATVEC_TBL_STATS_F64``: the FP64 policies'
+instances, names ending ``[f64]``).
 """
 
 from __future__ import annotations
@@ -45,8 +47,9 @@ from .segsum import SegmentPlan, launch_segsum, stats_for
 from .segsum import segment_sum_plain as streaming_segment_sum_plain
 
 __all__ = [
-    "STATS", "STATS_F64", "PRODUCT_STATS", "PRODUCT_RTBL_STATS",
-    "MATVEC_TBL_STATS",
+    "STATS", "STATS_F64", "PRODUCT_STATS", "PRODUCT_STATS_F64",
+    "PRODUCT_RTBL_STATS", "PRODUCT_RTBL_STATS_F64", "MATVEC_TBL_STATS",
+    "MATVEC_TBL_STATS_F64",
     "ProductPlan", "plan_products", "product_lanes",
     "streaming_segment_sum", "streaming_segment_sum_plain",
     "streaming_segment_product_sum", "streaming_segment_product_sum_rtbl",
@@ -57,25 +60,34 @@ __all__ = [
 STATS = LaunchStats("segsum_stream.streaming_segment_sum")
 STATS_F64 = LaunchStats("segsum_stream.streaming_segment_sum[f64]")
 PRODUCT_STATS = LaunchStats("segsum_stream.streaming_segment_product_sum")
+PRODUCT_STATS_F64 = LaunchStats(
+    "segsum_stream.streaming_segment_product_sum[f64]")
 PRODUCT_RTBL_STATS = LaunchStats(
     "segsum_stream.streaming_segment_product_sum_rtbl")
+PRODUCT_RTBL_STATS_F64 = LaunchStats(
+    "segsum_stream.streaming_segment_product_sum_rtbl[f64]")
 MATVEC_TBL_STATS = LaunchStats("segsum_stream.streaming_matvec_tbl")
+MATVEC_TBL_STATS_F64 = LaunchStats("segsum_stream.streaming_matvec_tbl[f64]")
 
 # rows per step of the plain triple product: bounds its (rows, m*n)
 # product transient (324 MB for 9x9 blocks in float32)
 PLAIN_CHUNK_ROWS = 1 << 20
 
 # K3's CTA (``csrc/segprod.cu``): rows staged per round, and the most
-# lanes of a segment a thread keeps in registers
+# lanes of a segment a thread keeps in registers. Both hold in float64:
+# a 256-lane segment fills a CTA's 64 slots only at 4 lanes a thread, and
+# a kernel's registers are those of its largest branch, so fewer lanes a
+# thread for shorter segments would save none.
 PRODUCT_SLOTS = 64
 PRODUCT_REGISTER_LANES = 4
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {
-    # L, li, R, ri, offsets, order, ctas, n_cta, out, base, base_idx, m,
-    # k, n, stream
-    "gt_segprod_f32": [_P] * 7 + [_I] + [_P] * 3 + [_I] * 3 + [_P],
-}
+# L, li, R, ri, offsets, order, ctas, n_cta, out, base, base_idx, m, k, n,
+# stream
+_PRODUCT_ENTRY = {torch.float32: "gt_segprod_f32",
+                  torch.float64: "gt_segprod_f64"}
+_SIGNATURES = {entry: [_P] * 7 + [_I] + [_P] * 3 + [_I] * 3 + [_P]
+               for entry in _PRODUCT_ENTRY.values()}
 
 
 def load_product_kernel() -> build.KernelLibrary:
@@ -117,7 +129,8 @@ class ProductPlan:
     so a bucket is one (n, g) block of the table. The kernel's work list:
     ``order`` (int32) the segments by (lanes, length), longest first, and
     ``ctas`` (int32, (n_cta, 3)) per CTA its first index into ``order``,
-    its number of segments and log2 of their lanes."""
+    its number of segments and log2 of their lanes (the same for the
+    float32 and the float64 instance)."""
 
     segments: SegmentPlan
     lanes: torch.Tensor
@@ -241,16 +254,17 @@ def product_store_plain(sums: torch.Tensor, base: Optional[torch.Tensor],
     return s - sums
 
 
-def _check_base(name, base, base_idx, num_segments, width, device):
-    """Raise unless the base store's tensors are what K3 takes."""
+def _check_base(name, base, base_idx, num_segments, width, dtype, device):
+    """Raise unless the base store's tensors are what K3 takes (a base in
+    the values' ``dtype``)."""
     if base is not None and (
-            base.dtype != torch.float32 or base.device != device
+            base.dtype != dtype or base.device != device
             or base.dim() != 2 or base.shape[1] != width
             or not base.is_contiguous()
             or (base_idx is None and base.shape[0] != num_segments)):
         rows = "n" if base_idx is not None else num_segments
         raise ValueError(
-            f"{name}: base must be a contiguous float32 ({rows}, {width}) "
+            f"{name}: base must be a contiguous {dtype} ({rows}, {width}) "
             f"tensor on {device}, got {base.dtype} {tuple(base.shape)} on "
             f"{base.device}")
     if base_idx is not None and (base_idx.dtype != torch.int32
@@ -261,8 +275,8 @@ def _check_base(name, base, base_idx, num_segments, width, device):
 
 
 def _product_sum(left, right, plan: ProductPlan, m, k, n, left_idx,
-                 right_idx, stats: LaunchStats, base=None,
-                 base_idx=None) -> torch.Tensor:
+                 right_idx, stats: LaunchStats, stats_f64: LaunchStats,
+                 base=None, base_idx=None) -> torch.Tensor:
     if left.device.type == "cpu":
         sums = segment_product_sum_plain(left, right, plan, m, k, n,
                                          left_idx, right_idx)
@@ -271,13 +285,15 @@ def _product_sum(left, right, plan: ProductPlan, m, k, n, left_idx,
         return product_store_plain(sums, base, base_idx)
     if left.device.type != "cuda":
         raise NotImplementedError(f"no kernel for device {left.device}")
+    stats = stats_for(left, stats, stats_f64)
     name = stats.name
+    entry = _PRODUCT_ENTRY.get(left.dtype)
     for what, t, width, idx in (("left", left, m * k, left_idx),
                                 ("right", right, n * k, right_idx)):
-        if t.dtype != torch.float32:
+        if entry is None or t.dtype != left.dtype:
             raise NotImplementedError(
-                f"{name}: the CUDA kernel takes float32, {what} is "
-                f"{t.dtype}")
+                f"{name}: the CUDA kernel takes float32 or float64 (one "
+                f"dtype), {what} is {t.dtype}")
         if t.device != left.device or t.dim() != 2 or t.shape[1] != width:
             raise ValueError(f"{name}: {what} must be (n, {width}) on "
                              f"{left.device}, got {tuple(t.shape)}")
@@ -293,12 +309,13 @@ def _product_sum(left, right, plan: ProductPlan, m, k, n, left_idx,
         raise ValueError(f"{name}: block side above {segmv.MAX_DIM}")
     if plan.ctas.device != left.device:
         raise ValueError(f"{name}: plan and values on different devices")
-    _check_base(name, base, base_idx, plan.num_segments, m * n, left.device)
+    _check_base(name, base, base_idx, plan.num_segments, m * n, left.dtype,
+                left.device)
     left, right = left.contiguous(), right.contiguous()
     if base is not None and base_idx is None:
         out = base
     else:
-        out = torch.empty((plan.num_segments, m * n), dtype=torch.float32,
+        out = torch.empty((plan.num_segments, m * n), dtype=left.dtype,
                           device=left.device)
     # an empty base group is no base: every row +0.0 (the kernel's null base)
     base_ptr = (None if base is None or base.numel() == 0
@@ -307,7 +324,7 @@ def _product_sum(left, right, plan: ProductPlan, m, k, n, left_idx,
     with on_device(left.device):
         stream = stream_ptr(left.device)
         ev = stats.start()
-        err = lib.lib.gt_segprod_f32(
+        err = getattr(lib.lib, entry)(
             left.data_ptr(),
             None if left_idx is None else left_idx.data_ptr(),
             right.data_ptr(),
@@ -328,7 +345,7 @@ def streaming_segment_product_sum(left: torch.Tensor, right: torch.Tensor,
     ``left`` (K, m*k) and ``right`` (K, n*k) hold one row per pair, in
     destination order. Returns (num_segments, m*n)."""
     return _product_sum(left, right, plan, m, k, n, None, None,
-                        PRODUCT_STATS)
+                        PRODUCT_STATS, PRODUCT_STATS_F64)
 
 
 def streaming_segment_product_sum_rtbl(
@@ -350,7 +367,8 @@ def streaming_segment_product_sum_rtbl(
     ``product_store_plain``.
     """
     return _product_sum(left, right, plan, m, k, n, left_idx, right_idx,
-                        PRODUCT_RTBL_STATS, base, base_idx)
+                        PRODUCT_RTBL_STATS, PRODUCT_RTBL_STATS_F64, base,
+                        base_idx)
 
 
 def streaming_matvec_tbl(left: torch.Tensor, x: torch.Tensor,
@@ -358,6 +376,6 @@ def streaming_matvec_tbl(left: torch.Tensor, x: torch.Tensor,
                          k: int, transpose: bool = False) -> torch.Tensor:
     """y[seg_i] += A_i x[idx_i] (or A_i^T x[idx_i] with ``transpose``):
     ``left`` (K, m*k) blocks, ``x`` the row table, ``idx`` int32 (an index
-    outside the table reads a zero row). K4 with its own launch count."""
+    outside the table reads a zero row). K4 with its own launch counts."""
     return segmv.block_matvec(left, x, idx, plan, m, k, transpose,
-                              MATVEC_TBL_STATS)
+                              MATVEC_TBL_STATS, MATVEC_TBL_STATS_F64)

@@ -16,19 +16,24 @@ the iteration's totals.
     python -m graphite_tpu_torch.replay_profile --size ladybug --iterations 10
     python -m graphite_tpu_torch.replay_profile --size sphere2500
     python -m graphite_tpu_torch.replay_profile --size ladybug --lm2 --iterations 30
+    python -m graphite_tpu_torch.replay_profile --precision fp64 fp64
 
 ``--checkout DIR`` runs this file in a fresh process that imports
 ``graphite_tpu_torch`` from the checkout DIR instead (e.g. an older commit
 unpacked with ``git archive``), as ``setup_profile`` does, so two versions
 are timed by the same code on the same host and card; it uses only entry
 points both have. Run each side in turns (parent, change, change,
-parent). The problem is ``make_bal(size, seed=0)`` under FP32_FP32 with
+parent). The problem is ``make_bal(size, seed=0)`` with
 PCGSchurSolver(10, 1.0, 5.0), or for ``sphere2500`` the pose graph
-``make_sphere_se3(2500, seed=0)`` under FP32_FP32 with PCGSolver(50,
-1e-10, 1e6, block-Jacobi) (``stage_profile``'s); LM runs
+``make_sphere_se3(2500, seed=0)`` with PCGSolver(50, 1e-10, 1e6,
+block-Jacobi) (``stage_profile``'s), under the precision policy
+``--precision GRAPH SOLVER`` (``Precision.from_names``; default fp32
+fp32, FP32_FP32; ``--precision fp64 fp64`` is FP64_FP64); LM runs
 ``--iterations`` iterations from the start, the graph ``--repeats`` more
-calls after the capturing one. Prints one JSON line with the card's name
-and power limit. It needs a CUDA card.
+calls after the capturing one (a capture that runs out of device memory
+is reported as ``graph_error`` and ends the profile).
+Prints one JSON line with the card's name and power limit. It needs a
+CUDA card.
 
 ``--lm2`` times instead what ``chip_smoke.py``'s remask phase checks:
 ``levenberg_marquardt2`` (the early stop) under ``jit_loop`` on the
@@ -164,13 +169,13 @@ def eager_layers(problem, solver, steps: int) -> list:
 POSE_SIZES = {"sphere2500": 2500}  # size name -> SE3 poses
 
 
-def lm2_after_stop(size: str, iterations: int, repeats: int) -> dict:
+def lm2_after_stop(size: str, iterations: int, repeats: int,
+                   precision) -> dict:
     """LM2's replays after its stop against its accepted ones (``--lm2``):
     for each call, the stop iteration, the median accepted replay ms, the
     after-stop replay ms and max(after) / median(accepted)."""
     import torch
 
-    from graphite_tpu_torch import FP32_FP32
     from graphite_tpu_torch.io import bal, synthetic
     from graphite_tpu_torch.optimizers import (
         LevenbergMarquardtOptions,
@@ -180,7 +185,7 @@ def lm2_after_stop(size: str, iterations: int, repeats: int) -> dict:
     from graphite_tpu_torch.solvers import PCGSchurSolver
 
     g, *_ = bal.build_graph(synthetic.make_bal(size, seed=0),
-                            precision=FP32_FP32)
+                            precision=precision)
     problem = g.freeze(device=torch.device("cuda"), remaskable=True)
     solver = PCGSchurSolver(10, 1.0, 5.0)
     opts = LevenbergMarquardtOptions(iterations=iterations, jit_loop=True)
@@ -198,10 +203,10 @@ def lm2_after_stop(size: str, iterations: int, repeats: int) -> dict:
     return {"lm2": calls}
 
 
-def profile(size: str, iterations: int, repeats: int, eager: int) -> dict:
+def profile(size: str, iterations: int, repeats: int, eager: int,
+            precision) -> dict:
     import torch
 
-    from graphite_tpu_torch import FP32_FP32
     from graphite_tpu_torch.io import bal, g2o, synthetic
     from graphite_tpu_torch.optimizers import (
         AdamOptions,
@@ -219,11 +224,11 @@ def profile(size: str, iterations: int, repeats: int, eager: int) -> dict:
     if size in POSE_SIZES:
         g, *_ = g2o.build_graph(
             synthetic.make_sphere_se3(POSE_SIZES[size], seed=0),
-            precision=FP32_FP32)
+            precision=precision)
         solver = PCGSolver(50, 1e-10, 1e6, BlockJacobiPreconditioner())
     else:
         g, *_ = bal.build_graph(synthetic.make_bal(size, seed=0),
-                                precision=FP32_FP32)
+                                precision=precision)
         solver = PCGSchurSolver(max_iter=10, tol=1.0, rejection_ratio=5.0)
     problem = g.freeze(device=torch.device("cuda"))
     del g
@@ -249,10 +254,16 @@ def profile(size: str, iterations: int, repeats: int, eager: int) -> dict:
         host_wall_ms_rejected=_median(wall_rej),
         host_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
 
-    # jit_loop: the first call captures, the next ones replay
+    # jit_loop: the first call captures, the next ones replay. A capture
+    # that runs out of device memory is reported (``graph_error``) and ends
+    # the profile: the eager iterations capture the same loop
     opts = LevenbergMarquardtOptions(iterations=iterations, jit_loop=True)
     torch.cuda.reset_peak_memory_stats()
-    graph_runs = [levenberg_marquardt(problem, solver, options=opts)]
+    try:
+        graph_runs = [levenberg_marquardt(problem, solver, options=opts)]
+    except torch.OutOfMemoryError as exc:
+        out["graph_error"] = str(exc).splitlines()[0]
+        return out
     loop = cached_device_loop(problem, solver, opts)
     acc, rej = [], []
     for _ in range(repeats):
@@ -315,10 +326,14 @@ def main(argv=None) -> int:
     ap.add_argument("--lm2", action="store_true",
                     help="LM2's after-stop replays against its accepted "
                          "ones (chip_smoke.py's remask check)")
+    ap.add_argument("--precision", nargs=2, default=["fp32", "fp32"],
+                    metavar=("GRAPH", "SOLVER"),
+                    help="the precision policy (default: fp32 fp32)")
     args = ap.parse_args(argv)
     if args.checkout is not None:
         rest = ["--size", args.size, "--iterations", str(args.iterations),
-                "--repeats", str(args.repeats), "--eager", str(args.eager)]
+                "--repeats", str(args.repeats), "--eager", str(args.eager),
+                "--precision", *args.precision]
         rest += ["--lm2"] if args.lm2 else []
         code = ("import runpy, sys; sys.path.insert(0, sys.argv[1]); "
                 "sys.argv = [sys.argv[2]] + sys.argv[3:]; "
@@ -334,13 +349,17 @@ def main(argv=None) -> int:
         return 1
     import graphite_tpu_torch
 
+    precision = graphite_tpu_torch.Precision.from_names(*args.precision)
     where = os.path.dirname(os.path.dirname(os.path.abspath(
         graphite_tpu_torch.__file__)))
-    result = (lm2_after_stop(args.size, args.iterations, args.repeats)
+    result = (lm2_after_stop(args.size, args.iterations, args.repeats,
+                             precision)
               if args.lm2 else
-              profile(args.size, args.iterations, args.repeats, args.eager))
+              profile(args.size, args.iterations, args.repeats, args.eager,
+                      precision))
     print(json.dumps({"replay_profile": {
-        "checkout": where, "size": args.size, **result,
+        "checkout": where, "size": args.size,
+        "precision": list(args.precision), **result,
         "card": _card()}}), flush=True)
     return 0
 

@@ -10,8 +10,8 @@ the products are grouped by (dp_a, dl, dp_b) and sorted by destination.
 
 Values (``schur_values``): Hll^{-1} per landmark dim and W (``landmark_w``:
 K10, ``ops/cuda/schur_w``, one launch per Hpl group where the inverses
-are float32 and at most 3x3), the Hpp copy (unique destinations, an
-indexed assignment), and the triple products.
+are at most 3x3), the Hpp copy (unique destinations, an indexed
+assignment), and the triple products.
 At most ``_chunk_threshold`` products per group are formed row by row and
 reduced by the sorted-segment-sum kernel (K1, ``ops/cuda/segsum``) and
 subtracted from the Hpp copy; above it the fused triple-product kernel
@@ -34,20 +34,22 @@ subtracts its last product set in the same pass) are K13
 (``schur_w.hll_solve``). Sites with
 more blocks than ``_smv_chunk_rows`` take the block-matvec kernels (K4
 for b_schur and the back-substitution, K5 for S x); smaller ones form
-their rows and reduce them with K1. The gates are the JAX package's, so
-the port takes its branch at every size and dtype: a site opens its
-kernel only where its values are float32 (``kernel_dtype``, the dtype
-test of the JAX package's ``use_pallas``) and it is above its size gate.
-A float64 site (the Hessian and Schur values of FP64_FP64 and FP64_BF16)
-takes the stepwise branch, whose reductions run on K1 in float64. Where
-the values are float32 and the vectors float64 (FP64_FP32), a kernel site
-takes its vector in float32 (w = Hll^-1 b_l is in the values' dtype;
-S x and the back-substitution cast x in) and casts its result out to the
-graph dtype. The size gates are module globals that tests lower to force
-the large-problem branches at toy size. The JAX package's other gates
-(``TABLE_ROWS_LIMIT``, ``slot_geom``, the window plans,
-``STREAM_PART_ROWS``) bound TPU VMEM and HBM transients that the GPU
-kernels do not have, and are not ported.
+their rows and reduce them with K1. The size gates are the JAX
+package's, so the port takes its branch at every size. Its dtype gate
+is not: the JAX package's ``use_pallas`` opens a kernel for float32
+values only, a limit of the TPU, which has no native float64. Here the
+values are float32 or float64 under every policy (``inv_dtype``), and
+K3, K4, K5 and K10 each have an instance for both (the float64 one
+counted apart as ``[f64]``), so a site takes its kernel above its size
+gate whatever the policy; the wrappers raise on any other dtype. Where the values are float32 and the vectors float64
+(FP64_FP32), a kernel site takes its vector in float32 (w = Hll^-1 b_l
+is in the values' dtype; S x and the back-substitution cast x in) and
+casts its result out to the graph dtype. The size gates are module
+globals that tests lower to force the large-problem branches at toy
+size. The JAX package's other gates (``TABLE_ROWS_LIMIT``,
+``slot_geom``, the window plans, ``STREAM_PART_ROWS``) bound TPU VMEM
+and HBM transients that the GPU kernels do not have, and are not
+ported.
 """
 
 from __future__ import annotations
@@ -100,12 +102,6 @@ def _chunk_threshold(problem) -> int:
     if problem.dim_h > 1_000_000:
         return min(CHUNK_THRESHOLD, 1 << 19)
     return CHUNK_THRESHOLD
-
-
-def kernel_dtype(dtype: torch.dtype) -> bool:
-    """Whether a K3, K4 or K5 site of values in ``dtype`` may take its
-    kernel: float32 only, as the JAX package's ``use_pallas``."""
-    return dtype == torch.float32
 
 
 def _smv_chunk_rows(row_bytes: int) -> int:
@@ -404,10 +400,10 @@ def landmark_w(problem, ss: SchurStructure, hvals: HessianValues
                           Dict[Tuple[int, int], torch.Tensor]]:
     """Hll^{-1} per landmark dim and W = Hpl Hll^{-1} once per Hpl block,
     per Hpl group. Hll^{-1} is symmetric, so each triple product L M R^T
-    is W_left R_right^T. A landmark dim whose inverses are float32 and
-    at most 3x3 (``schur_w.gate``) takes K10, one launch per Hpl group of
-    the dim (the first stores the inverses); any other keeps the plain
-    versions, on the card as well."""
+    is W_left R_right^T. A landmark dim whose inverses are float32 or
+    float64 and at most 3x3 (``schur_w.gate``) takes K10, one launch per
+    Hpl group of the dim (the first stores the inverses); any other keeps
+    the plain versions, on the card as well."""
     inv_dt = problem.precision.inv_dtype
     hll_inv, hpl_w = {}, {}
     for d in ss.lm_dims:
@@ -492,8 +488,7 @@ def schur_values(problem, ss: SchurStructure,
         key = pg["dst_key"]
         W = hpl_w[pg["left_key"]]
         R = hvals[pg["right_key"]].to(inv_dt)
-        if (pg["dst"].shape[0] > _chunk_threshold(problem)
-                and kernel_dtype(inv_dt)):
+        if pg["dst"].shape[0] > _chunk_threshold(problem):
             # K3 reads the W and Hpl rows by index: no gathered stream and
             # no (K, dpa*dpb) product buffer; its plan gives each S block
             # its own lanes, and its store writes S
@@ -531,9 +526,8 @@ class ShardedPartition:
     takes pairs ``bounds[r]:bounds[r+1]`` (about K/n, cut at segment
     boundaries, so no S block is split), whose destinations are the S
     blocks ``seg0[r]:seg0[r] + ns[r]``: disjoint and in rank order.
-    ``plan`` is this rank's: its K3 plan (float32 values) or its K1 plan
-    (float64), over destinations counted from ``seg0[rank]``; None when
-    no pair falls to the rank."""
+    ``plan`` is this rank's K3 plan, over destinations counted from
+    ``seg0[rank]``; None when no pair falls to the rank."""
 
     bounds: np.ndarray  # (n + 1,)
     seg0: List[int]
@@ -543,8 +537,8 @@ class ShardedPartition:
     plan: object
 
 
-def sharded_partition(problem, gi: int, pg: dict, n: int,
-                      use_kernel: bool) -> ShardedPartition:
+def sharded_partition(problem, gi: int, pg: dict,
+                      n: int) -> ShardedPartition:
     """The destination partition of product group ``gi`` over ``n`` ranks
     and this rank's plan, built on the host once (cached on the rank's
     replica). The cut points are the JAX package's
@@ -567,14 +561,9 @@ def sharded_partition(problem, gi: int, pg: dict, n: int,
     r = problem.mesh.rank
     lo, hi = bounds[r], bounds[r + 1]
     local = dst[lo:hi] - seg0[r]
-    dpa, _, dpb = pg["dims"]
     tag = ("shard_prod", gi, n)
-    if hi == lo:  # no pair falls to this rank
-        plan = None
-    elif use_kernel:
-        plan = product_plan(problem, tag, local, ns[r])
-    else:
-        plan = segment_plan(problem, tag, local, ns[r], dpa * dpb)
+    # None when no pair falls to this rank
+    plan = product_plan(problem, tag, local, ns[r]) if hi > lo else None
     left = problem.index(tag + ("l",), pg["left"][lo:hi])
     right = problem.index(tag + ("r",), pg["right"][lo:hi])
     cache[(gi, n)] = ShardedPartition(
@@ -587,17 +576,16 @@ def _sharded_products(problem, ss: SchurStructure, hvals: HessianValues,
                       hpl_w, s_vals) -> None:
     """The triple products on a rank's replica, split by destination
     (``sharded_partition``): each rank reduces its own pairs, gathered
-    into streams, with K3 (float32; its plain version on the CPU) or K1
-    (float64), and one gather of the ranks' disjoint S ranges updates
+    into streams, with K3's gathered-stream entry (its plain version on
+    the CPU), and one gather of the ranks' disjoint S ranges updates
     every rank's S. Hll^-1, W and everything after S stay replicated."""
     inv_dt = problem.precision.inv_dtype
     mesh = problem.mesh
     n = mesh.world
-    use_kernel = kernel_dtype(inv_dt)
     for gi, pg in enumerate(ss.products):
         dpa, dl, dpb = pg["dims"]
         key = pg["dst_key"]
-        part = sharded_partition(problem, gi, pg, n, use_kernel)
+        part = sharded_partition(problem, gi, pg, n)
         W = hpl_w[pg["left_key"]]
         R = hvals[pg["right_key"]].to(inv_dt)
         padded = W.new_zeros((max(part.ns), dpa * dpb))
@@ -605,13 +593,8 @@ def _sharded_products(problem, ss: SchurStructure, hvals: HessianValues,
             # one W row and one Hpl row per pair, gathered into streams
             Wg = W.index_select(0, part.left)
             Rg = R.index_select(0, part.right)
-            if use_kernel:  # K3's gathered-stream entry
-                local = streaming_segment_product_sum(Wg, Rg, part.plan,
-                                                      dpa, dl, dpb)
-            else:
-                local = sorted_segment_sum(
-                    flat_block_mm_nt(Wg, Rg, dpa, dl, dpb, acc_dtype=inv_dt),
-                    part.plan)
+            local = streaming_segment_product_sum(Wg, Rg, part.plan,
+                                                  dpa, dl, dpb)
             del Wg, Rg
             padded[:local.shape[0]] = local
         every = mesh.gather(padded, f"schur products {gi}")
@@ -737,7 +720,6 @@ class SchurOps:
                 ck = ("bschur", key, pt, lt)
                 Hsub = take_rows(problem, ck + ("sub",), Hpl, sub)
                 if (sub.shape[0] > _smv_chunk_rows((dp * dl + dp + dl) * 4)
-                        and kernel_dtype(Hsub.dtype)
                         and self._nondecreasing(ck, lrow)):
                     # K4: y[prow_i] += Hpl_i w[lrow_i], w read by index
                     plan = matvec_plan(problem, ck, prow,
@@ -775,7 +757,9 @@ class SchurOps:
             rxi[off] = rrow[off]
             ck = ("smv", key, rt, ct)
             return (plan_matvec_sym(rrow, crow, n_r, n_c, problem.device,
-                                    key[0]),
+                                    key[0], k=key[1],
+                                    elem_bytes=self.sv.s_vals[key]
+                                    .element_size()),
                     problem.index32(ck + ("cid",), crow),
                     problem.index32(ck + ("rxi",), rxi))
 
@@ -791,8 +775,7 @@ class SchurOps:
             dr, dc = key
             S = self.sv.s_vals[key]
             for rt, ct, sub, _, _, _ in self.s_sites(key):
-                if (sub.shape[0] > _smv_chunk_rows((dr * dc + dr + dc + 3) * 4)
-                        and kernel_dtype(S.dtype)):
+                if sub.shape[0] > _smv_chunk_rows((dr * dc + dr + dc + 3) * 4):
                     ck = ("smv", key, rt, ct)
                     self.sym_site(key, rt, ct)
                     prep[ck] = take_rows(self.problem, ck + ("ysub",), S,
@@ -866,7 +849,6 @@ class SchurOps:
                 x_pt = problem.rows_view(dx_p, pt)
                 # Hpl is landmark-major: lrow is destination-sorted
                 if (sub.shape[0] > _smv_chunk_rows((dp * dl + dp + dl) * 4)
-                        and kernel_dtype(Hsub.dtype)
                         and self._nondecreasing(ck, lrow)):
                     # K4: t[lrow_i] -= Hpl_i^T dx_p[prow_i], x read by index
                     plan = matvec_plan(problem, ck, lrow,

@@ -108,8 +108,17 @@ on a machine with only PyTorch (``--noconftest`` skips the JAX set-up in
   repeatable and in a replayed CUDA graph; off its dtypes, at dl 4 and
   on a misaligned start it raises; a float32 ``schur_values`` launches
   it once and gives the CPU's bits (K3's branch forced and not); a
-  float64 one launches none. At Ladybug-49 under FP32_BF16 it launches
-  once an iteration.
+  float64 one launches its float64 instance once, with the CPU's bits.
+  At Ladybug-49 under FP32_BF16 it launches once an iteration.
+- The float64 instances of K3 (both entries and the base store), K4
+  (its three entries, float64 tiles of 96 blocks on a 2-block grid), K5
+  (its column lanes capped to 128 at 9x9) and K10, at the shapes of
+  their float32 tests: bitwise the CPU's plain version (K10 also the
+  card's), repeatable, counted ``[f64]`` and never as float32; mixed
+  and bf16 dtypes raise. Ladybug-49 with the Venice branches forced
+  under FP64_FP64 and FP64_BF16: K3, K4, K5 and K10 launch their float64
+  instances only, ``jit_loop`` bitwise the host loop, and FP64_FP64 the
+  CPU's accept pattern and chi2 within 1e-9.
 - K3's base store (S = Hpp - the products, written by K3's store): on
   the random and Venice-like sites, from an H group by a per-block row
   index (with -1 rows and -0.0 entries) and in place on S, bitwise its
@@ -391,6 +400,9 @@ def _k3_site(rng, site):
     pytest.param(4, 3, 2, "random", id="4-3-2"),
     pytest.param(9, 9, 9, "random", id="9-9-9"),
     pytest.param(9, 3, 9, "venice", id="9-3-9-venice"),
+    # (m + n) * k = 300: three stages fit the opt-in limit only without
+    # the static slot table, so the launch takes two
+    pytest.param(15, 10, 15, "random", id="15-10-15-two-stages"),
 ])
 def test_k3_matches_plain(cuda_device, m, k, n, site):
     rng = np.random.default_rng(m * 100 + k * 10 + n)
@@ -426,7 +438,10 @@ def test_k3_matches_plain(cuda_device, m, k, n, site):
     assert torch.equal(stream, out)
     with pytest.raises(NotImplementedError):
         segsum_stream.streaming_segment_product_sum_rtbl(
-            L.double(), R.double(), plan, m, k, n, lt, rt)
+            L.bfloat16(), R.bfloat16(), plan, m, k, n, lt, rt)
+    with pytest.raises(NotImplementedError):  # one dtype
+        segsum_stream.streaming_segment_product_sum_rtbl(
+            L, R.double(), plan, m, k, n, lt, rt)
 
 
 def _k3_bits(t):
@@ -1878,13 +1893,15 @@ def test_k10_matches_plain_bitwise(cuda_device, dp, dl):
 
 
 def test_k10_raises_off_its_dtypes(cuda_device):
-    """No fallback: float64 and bf16 blocks, dl 4 and a misaligned start
-    raise."""
+    """No fallback: bf16 blocks, float32 and float64 mixed, dl 4 and a
+    misaligned start raise."""
     chll, chpl, counts = _k10_inputs(9, 3)
     hll, hpl = chll.to(cuda_device), chpl.to(cuda_device)
     plan = k10.plan_w(counts, cuda_device)
     with pytest.raises(NotImplementedError):
-        k10.schur_w(hll.double(), hpl.double(), plan, 9, 3)
+        k10.schur_w(hll.bfloat16(), hpl.bfloat16(), plan, 9, 3)
+    with pytest.raises(NotImplementedError):
+        k10.schur_w(hll, hpl.double(), plan, 9, 3)
     with pytest.raises(NotImplementedError):
         k10.schur_w(hll, hpl.bfloat16(), plan, 9, 3)
     with pytest.raises(NotImplementedError):
@@ -1897,7 +1914,7 @@ def test_k10_raises_off_its_dtypes(cuda_device):
 
 def _schur_values(device, precision):
     """``schur_values`` of a small BAL problem's damped Hessian on
-    ``device``, with K10's launches."""
+    ``device``, with K10's launches (in the inverses' dtype)."""
     g, *_ = bal.build_graph(synthetic.make_bal((6, 60, 300), seed=3,
                                                noise=0.5),
                             precision=precision)
@@ -1910,10 +1927,12 @@ def _schur_values(device, precision):
     hv = hessian.apply_damping(
         problem, hs, hessian.compute_hessian_values(problem, hs, lin),
         lin.diag, 1e-2, False)
-    before = k10.STATS.launches
+    stats = (k10.STATS_F64 if precision.inv_dtype == torch.float64
+             else k10.STATS)
+    before = stats.launches
     sv = schur.schur_values(problem, ss, hv)
     torch.cuda.synchronize()
-    return ss, sv, k10.STATS.launches - before
+    return ss, sv, stats.launches - before
 
 
 @pytest.mark.parametrize("forced", [False, True])
@@ -1933,11 +1952,297 @@ def test_k10_schur_values_cuda_equals_cpu(cuda_device, monkeypatch, forced):
                            _k10_bits(cpu.s_vals[key]))
 
 
-def test_k10_not_launched_under_fp64(cuda_device):
-    """FP64_FP64's float64 inverses keep the plain code: no K10 launch."""
-    _, sv, launches = _schur_values(cuda_device, gtt.FP64_FP64)
-    assert launches == 0
+def test_k10_f64_launched_under_fp64(cuda_device):
+    """FP64_FP64's float64 inverses launch K10's float64 instance (once:
+    one Hpl group), counted apart, and no float32 K10; within 1e-9 of the
+    CPU's (each side linearizes on its own, and the card's float64 cos /
+    sin are not correctly rounded)."""
+    before = k10.STATS.launches
+    ss, sv, launches = _schur_values(cuda_device, gtt.FP64_FP64)
+    assert launches == len(ss.hpl_keys) == 1
+    assert k10.STATS.launches == before
     assert all(t.dtype == torch.float64 for t in sv.hll_inv.values())
+    _, cpu, _ = _schur_values("cpu", gtt.FP64_FP64)
+    for got, ref in ((sv.hll_inv, cpu.hll_inv), (sv.s_vals, cpu.s_vals)):
+        for key in ref:
+            np.testing.assert_allclose(got[key].cpu().numpy(),
+                                       ref[key].numpy(), rtol=1e-9,
+                                       atol=1e-9 * float(ref[key].abs()
+                                                         .max()))
+
+
+# ---- the float64 instances of K3, K4, K5 and K10 (FP64_FP64, FP64_BF16) --
+
+def _f64_bits(t):
+    return t.view(torch.int64)
+
+
+def _check_f64(out, again, ref, ref_cpu):
+    """A float64 kernel's outputs: bitwise repeatable, bitwise its plain
+    version on the CPU, within 1e-12 of the card's plain version (whose
+    ``index_add_`` adds in no fixed order)."""
+    torch.cuda.synchronize()
+    for o, a, r, c in zip(out, again, ref, ref_cpu):
+        assert o.dtype == torch.float64
+        assert torch.equal(_f64_bits(o), _f64_bits(a))
+        assert torch.equal(_f64_bits(o.cpu()), _f64_bits(c))
+        assert float((o - r).abs().max() / r.abs().max()) <= 1e-12
+
+
+def _counts(*stats):
+    return [s.launches for s in stats]
+
+
+@pytest.mark.parametrize("m,k,n,site", [
+    pytest.param(9, 3, 9, "random", id="9-3-9"),
+    pytest.param(4, 3, 2, "random", id="4-3-2"),
+    pytest.param(9, 9, 9, "random", id="9-9-9"),
+    pytest.param(9, 3, 9, "venice", id="9-3-9-venice"),
+    # (m + n) * k = 150 in float64: two stages, as 15-10-15 in float32
+    pytest.param(15, 5, 15, "random", id="15-5-15-two-stages"),
+])
+def test_k3_f64_matches_plain(cuda_device, m, k, n, site):
+    """K3's float64 instance, both entries and the base store (from a
+    base index with -1 rows; at 9x9x9 a second group in place): bitwise
+    the CPU's plain version, repeatable, one ``[f64]`` launch a call and
+    no float32 one."""
+    rng = np.random.default_rng(m * 100 + k * 10 + n + 1)
+    seg, ns = _k3_site(rng, site)
+    rows, n_l, n_r, n_h = seg.size, 5_000, 4_000, ns + 50
+    ltab = rng.standard_normal((n_l, m * k)) * 10.0 ** rng.integers(
+        -3, 3, (n_l, 1))
+    rtab = rng.standard_normal((n_r, n * k))
+    li = rng.integers(0, n_l, rows).astype(np.int32)
+    ri = rng.integers(0, n_r, rows).astype(np.int32)
+    htab = rng.standard_normal((n_h, m * n))
+    htab.reshape(-1)[::5] = -0.0
+    bidx = np.where(rng.random(ns) < 0.5, -1,
+                    rng.integers(0, n_h, ns)).astype(np.int32)
+    runs = [(segsum_stream.plan_products(seg, ns, d),
+             *_on(d, ltab, rtab, li, ri, htab, bidx))
+            for d in (cuda_device, "cpu")]
+    plan, L, R, lt, rt, H, bi = runs[0]
+    if site == "venice":
+        assert {1, 2, 256} <= set(plan.lanes.tolist())
+    f64 = (segsum_stream.PRODUCT_RTBL_STATS_F64,
+           segsum_stream.PRODUCT_STATS_F64)
+    f32 = (segsum_stream.PRODUCT_RTBL_STATS, segsum_stream.PRODUCT_STATS)
+    before, before32 = _counts(*f64), _counts(*f32)
+
+    def tbl(plan, L, R, lt, rt, H, bi):
+        return segsum_stream.streaming_segment_product_sum_rtbl(
+            L, R, plan, m, k, n, lt, rt)
+
+    def stored(plan, L, R, lt, rt, H, bi):
+        s = segsum_stream.streaming_segment_product_sum_rtbl(
+            L, R, plan, m, k, n, lt, rt, base=H, base_idx=bi)
+        return segsum_stream.streaming_segment_product_sum_rtbl(
+            L, R, plan, m, k, n, lt, rt, base=s) if m == n == k else s
+
+    def plain(plan, L, R, lt, rt, H, bi):
+        sums = segsum_stream.segment_product_sum_plain(L, R, plan, m, k, n,
+                                                       lt, rt)
+        s = segsum_stream.product_store_plain(sums, H, bi)
+        if m == n == k:
+            s = segsum_stream.product_store_plain(
+                segsum_stream.segment_product_sum_plain(
+                    L, R, plan, m, k, n, lt, rt), s, None)
+        return sums, s
+
+    out = (tbl(*runs[0]), stored(*runs[0]))
+    _check_f64(out, (tbl(*runs[0]), stored(*runs[0])), plain(*runs[0]),
+               (tbl(*runs[1]), stored(*runs[1])))
+    stream = segsum_stream.streaming_segment_product_sum(
+        L.index_select(0, lt.long()), R.index_select(0, rt.long()), plan, m,
+        k, n)
+    torch.cuda.synchronize()
+    assert torch.equal(_f64_bits(stream), _f64_bits(out[0]))
+    calls = 4 + 2 * (m == n == k)
+    assert _counts(*f64) == [before[0] + calls, before[1] + 1]
+    assert _counts(*f32) == before32
+
+
+@pytest.mark.parametrize("rows,ns,sorted_dst,transpose", [
+    pytest.param(50_000, 40, False, False, id="40-False"),
+    pytest.param(50_000, 15_000, False, True, id="15000-True"),
+    pytest.param(500_000, 100_000, True, True, id="back-substitution"),
+    pytest.param(4_978_400, 1_778, False, False, id="b_schur"),
+    pytest.param(50_003, 40, True, False, id="unaligned-tiles"),
+    pytest.param(50_001, 40, True, True, id="odd-tiles-transposed"),
+])
+def test_k4_f64_matches_plain(cuda_device, rows, ns, sorted_dst, transpose):
+    """K4's float64 instance (its three entries, tiles of 96 on a 2-block
+    grid): bitwise the CPU's plain version, repeatable, the entries equal,
+    counted ``[f64]``."""
+    m, k = 9, 3
+    rng = np.random.default_rng(ns + transpose + 3)
+    n_x = 3_000
+    dst = rng.integers(0, ns, rows)
+    if sorted_dst:
+        dst = np.sort(dst)
+    left = rng.standard_normal((rows, m * k))
+    xd = m if transpose else k
+    x = rng.standard_normal((n_x, xd))
+    xi = rng.integers(0, n_x, rows)
+    xi[rng.random(rows) < 0.05] = n_x
+    xi = xi.astype(np.int32)
+    gpu, cpu = _on(cuda_device, left, x, xi), _on("cpu", left, x, xi)
+    plan = segsum.plan_segments(dst, ns, cuda_device)
+    plan_cpu = segsum.plan_segments(dst, ns, "cpu")
+    assert segmv.k4_tile_blocks(m, k, 8) == 96
+    stats = (segsum_stream.MATVEC_TBL_STATS_F64, segmv.STREAM_STATS_F64,
+             segmv.WTBL_STATS_F64)
+    before = _counts(*stats)
+
+    def tbl(A, X, I, p):
+        return segsum_stream.streaming_matvec_tbl(A, X, I, p, m, k,
+                                                  transpose)
+
+    out = tbl(*gpu, plan)
+    _check_f64([out], [tbl(*gpu, plan)],
+               [segmv.segmv_plain(*gpu, plan, m, k, transpose)],
+               [tbl(*cpu, plan_cpu)])
+    gathered = torch.cat([gpu[1], gpu[1].new_zeros(1, xd)]).index_select(
+        0, gpu[2])
+    stream = segmv.block_matvec_stream(gpu[0], gathered, plan, m, k,
+                                       transpose)
+    torch.cuda.synchronize()
+    assert torch.equal(_f64_bits(stream), _f64_bits(out))
+    if not transpose:
+        wtbl = segmv.block_matvec_wtbl(gpu[0], gpu[1], plan, gpu[2], m, k)
+        torch.cuda.synchronize()
+        assert torch.equal(_f64_bits(wtbl), _f64_bits(out))
+    assert _counts(*stats) == [before[0] + 2, before[1] + 1,
+                               before[2] + (not transpose)]
+    with pytest.raises(NotImplementedError):
+        tbl(gpu[0], gpu[1].float(), gpu[2], plan)
+    with pytest.raises(NotImplementedError):
+        tbl(gpu[0].bfloat16(), gpu[1].bfloat16(), gpu[2], plan)
+
+
+@pytest.mark.parametrize("n,m,group,sorted_cols", [
+    (70, 9, None, True),    # long columns: 128 lanes, 9x9 blocks
+    (20, 9, None, True),    # 3,000 blocks a column: 256 lanes capped to 128
+    (6_000, 9, None, True),  # ~10 blocks per column: 2 lanes
+    (500, 9, 1, True),      # one lane: 32 columns per CTA
+    (70, 6, None, True),    # a block shape the kernel takes at run time
+    (70, 9, None, False),   # a column plan with a permutation
+])
+def test_k5_f64_matches_plain(cuda_device, n, m, group, sorted_cols):
+    """K5's float64 instance (pass 2 K1's float64 instance, uncounted):
+    both halves bitwise the CPU's plain version, repeatable, one
+    ``[f64]`` launch a call; its column lanes capped to fit two tiles."""
+    k = m
+    rng = np.random.default_rng(n + m + 5)
+    rows, n_r, n_c = 60_000, n, n
+    rid = rng.integers(0, n_r, rows)
+    cid = rng.integers(0, n_c, rows)
+    if sorted_cols:
+        cid = np.sort(cid)
+    rxi = np.where(rng.random(rows) < 0.05, n_r, rid).astype(np.int32)
+    arrays = (rng.standard_normal((rows, m * k)),
+              rng.standard_normal((n_c, k)), rng.standard_normal((n_r, m)),
+              cid.astype(np.int32), rxi)
+    gpu, cpu = _on(cuda_device, *arrays), _on("cpu", *arrays)
+    plan, plan_cpu = (segmv.plan_matvec_sym(rid, cid, n_r, n_c, d, m, group,
+                                            k=k, elem_bytes=8)
+                      for d in (cuda_device, "cpu"))
+    if group is None:
+        assert plan.cols.group <= segmv.sym_group_cap(m, k, 8)
+    if n == 20:
+        assert plan.cols.group == 128
+    stats = (segmv.SYM_STATS_F64, segmv.SYM_STATS, segsum.STATS_F64,
+             segsum_stream.STATS_F64)
+    before = _counts(*stats)
+    out = segmv.matvec_sym_stream(*gpu, plan, m, k)
+    assert _counts(*stats) == [before[0] + 1] + before[1:]
+    _check_f64(out, segmv.matvec_sym_stream(*gpu, plan, m, k),
+               segmv.matvec_sym_plain(*gpu, plan, m, k),
+               segmv.matvec_sym_stream(*cpu, plan_cpu, m, k))
+    with pytest.raises(NotImplementedError):
+        segmv.matvec_sym_stream(gpu[0].float(), *gpu[1:], plan, m, k)
+
+
+@pytest.mark.parametrize("dp,dl", K10_DIMS)
+def test_k10_f64_matches_plain_bitwise(cuda_device, dp, dl):
+    """K10's float64 instance bitwise its plain version on the card and
+    on the CPU, repeatable, with the inverses stored or not and alone, one
+    ``[f64]`` launch a call; the same bits replayed from a CUDA graph."""
+    chll, chpl, counts = (t.double() if torch.is_tensor(t) else t
+                          for t in _k10_inputs(dp, dl))
+    hll, hpl = chll.to(cuda_device), chpl.to(cuda_device)
+    plan = k10.plan_w(counts, cuda_device)
+    before, before32 = k10.STATS_F64.launches, k10.STATS.launches
+    inv, w = k10.schur_w(hll, hpl, plan, dp, dl)
+    inv2, w2 = k10.schur_w(hll, hpl, plan, dp, dl)
+    none, w3 = k10.schur_w(hll, hpl, plan, dp, dl, write_inverse=False)
+    alone, _ = k10.schur_w(hll, None, None, 0, dl)
+    assert k10.STATS_F64.launches - before == 4
+    assert k10.STATS.launches == before32 and none is None
+    ref_inv = k10.hll_inverse_plain(hll, dl)
+    ref_w = k10.hpl_w_plain(hpl, ref_inv, plan, dp, dl)
+    cpu_inv, cpu_w = k10.schur_w(chll, chpl, k10.plan_w(counts, "cpu"), dp,
+                                 dl)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_inv, g_w = k10.schur_w(hll, hpl, plan, dp, dl)
+    graph.replay()
+    torch.cuda.synchronize()
+    for got in (inv, inv2, alone, g_inv):
+        assert got.dtype == torch.float64
+        assert torch.equal(_f64_bits(got), _f64_bits(ref_inv))
+        assert torch.equal(_f64_bits(got.cpu()), _f64_bits(cpu_inv))
+    for got in (w, w2, w3, g_w):
+        assert torch.equal(_f64_bits(got), _f64_bits(ref_w))
+        assert torch.equal(_f64_bits(got.cpu()), _f64_bits(cpu_w))
+
+
+F64_SCHUR = ("segsum_stream.streaming_segment_product_sum_rtbl",
+             "segmv.block_matvec_wtbl", "segsum_stream.streaming_matvec_tbl",
+             "segmv.matvec_sym_stream", "schur_w.schur_w")
+
+
+@pytest.mark.parametrize("policy", ["FP64_FP64", "FP64_BF16"])
+def test_forced_fp64_lm_on_f64_kernels(cuda_device, monkeypatch, policy):
+    """Ladybug-49 with the Venice branches forced under FP64_FP64 and
+    FP64_BF16, 6 LM iterations: K3, K4, K5 and K10 launch their float64
+    instances only (``[f64]``), K3 and K10 once an iteration, K5 once a
+    CG step; ``jit_loop`` bitwise the card's host loop; FP64_FP64 the
+    CPU's accept pattern and chi2 within 1e-9 (the card's float64 cos /
+    sin are not correctly rounded, so not bitwise)."""
+    from graphite_tpu_torch.ops.cuda.launches import REGISTRY, snapshot
+
+    monkeypatch.setattr(schur, "CHUNK_THRESHOLD", 0)
+    monkeypatch.setattr(schur, "_smv_chunk_rows", lambda rb: 0)
+    solver = PCGSchurSolver(10, 1.0, 5.0, dense_matvec_limit=0)
+    prec = getattr(gtt, policy)
+
+    def run(device, jit_loop=False):
+        g, *_ = bal.build_graph(synthetic.make_bal("ladybug", seed=0),
+                                precision=prec)
+        return levenberg_marquardt(
+            g.freeze(device=device), solver,
+            options=LevenbergMarquardtOptions(iterations=6,
+                                              jit_loop=jit_loop))
+
+    for s in REGISTRY:
+        s.reset()
+    gpu = run(cuda_device)
+    launches = snapshot()
+    for name in F64_SCHUR:
+        assert launches[name + "[f64]"] > 0, name
+        assert launches[name] == 0, name
+    assert launches[F64_SCHUR[0] + "[f64]"] == len(gpu.history)
+    assert launches["schur_w.schur_w[f64]"] == len(gpu.history)
+    assert gpu.chi2 < gpu.initial_chi2
+    _bitwise(run(cuda_device, jit_loop=True), gpu)
+    if policy == "FP64_FP64":
+        cpu = run("cpu")
+        assert ([h["accepted"] for h in gpu.history]
+                == [h["accepted"] for h in cpu.history])
+        np.testing.assert_allclose([h["chi2"] for h in gpu.history],
+                                   [h["chi2"] for h in cpu.history],
+                                   rtol=1e-9)
 
 
 # K11 (csrc/pose.cu): the SE(3) pose-graph factors

@@ -10,10 +10,10 @@ iterations.
   the JAX package its while-loop PCG, as it does on the CPU.
 - float64 with ``dense_matvec_limit=0`` in both packages: the PCG runs on
   the block-sparse S matvec. Once with the port's default gates (the
-  stepwise matvec) and once with its size gates lowered, where the dtype
-  gate still keeps the float64 sites stepwise (K3, K4 and K5 take
-  float32 only; ``test_torch_precision.py`` runs their plain versions
-  under FP64_FP32): the same accept pattern and chi2 per iteration to
+  stepwise matvec) and once with its size gates lowered, where the
+  float64 sites take the K3, K4, K5 branches (the plain versions of
+  their float64 instances on the CPU; ``test_torch_schur_f64.py`` checks
+  which wrappers run): the same accept pattern and chi2 per iteration to
   1e-9.
 """
 

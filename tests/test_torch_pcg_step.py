@@ -194,7 +194,6 @@ def _old_landmark_update(self, b, dx_p):
             x_pt = problem.rows_view(dx_p, pt)
             if (sub.shape[0] > torch_schur._smv_chunk_rows(
                     (dp * dl + dp + dl) * 4)
-                    and torch_schur.kernel_dtype(Hsub.dtype)
                     and self._nondecreasing(ck, lrow)):
                 plan = torch_schur.matvec_plan(problem, ck, lrow,
                                                problem.seg_rows[lt])

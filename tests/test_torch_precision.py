@@ -26,10 +26,11 @@
   for bf16 / fp16 storage its bounded degradation.
 - K6's fold under FP32_BF16 is float32 and equals a float32 fold of the
   upcast Jacobians in the JAX package's order.
-- With the Schur gates forced low, float64 sites take the stepwise branch
-  (no K3, K4 or K5 wrapper called) and float32 sites the K3, K4 and K5
-  plain versions, which get float32 values only: under FP64_FP32 the
-  vectors are cast in and the results out to float64.
+- With the Schur gates forced low, every site takes the K3, K4 and K5
+  plain versions, which get the values' dtype only: float32 sites
+  (under FP64_FP32 the vectors are cast in and the results out to
+  float64) within 1e-5 of the stepwise branch, float64 sites (FP64_FP64,
+  FP64_BF16: the kernels' float64 instances) within 1e-12.
 - ``jit_loop`` (uncaptured on the CPU) is bitwise the host loop.
 """
 
@@ -399,20 +400,14 @@ def test_forced_schur_gates_follow_the_dtype(monkeypatch, name):
     _, pp = _mini_bal(name)
     forced = _schur_pass(pp, calls, monkeypatch)
     cache = pp._cache
-    if policy.inv_dtype == torch.float32:
-        # every K3, K4 and K5 site took its kernel's branch, on float32
-        # values only (FP64_FP32: the vectors cast in)
-        assert {c[0] for c in calls} == set(KERNEL_WRAPPERS)
-        assert all(dts == {torch.float32} for _, dts in calls)
-        assert cache["smv_sym_sites"] and cache["product_plans"]
-        assert {t[0] for t in cache["matvec_plans"]} == {"bschur", "lu"}
-        tol = 1e-5
-    else:
-        # the dtype gate alone keeps the float64 sites stepwise
-        assert calls == []
-        assert "product_plans" not in cache and "matvec_plans" not in cache
-        assert not cache.get("smv_sym_sites")
-        tol = 0.0
+    # every K3, K4 and K5 site took its kernel's branch, on values of
+    # inv_dtype only (FP64_FP32: the vectors cast in to float32; float64
+    # values take the kernels' float64 instances)
+    assert {c[0] for c in calls} == set(KERNEL_WRAPPERS)
+    assert all(dts == {policy.inv_dtype} for _, dts in calls)
+    assert cache["smv_sym_sites"] and cache["product_plans"]
+    assert {t[0] for t in cache["matvec_plans"]} == {"bschur", "lu"}
+    tol = 1e-5 if policy.inv_dtype == torch.float32 else 1e-12
     for key, s in forced["s_vals"].items():
         assert s.dtype == policy.inv_dtype
         _close(s, stepwise["s_vals"][key], tol)

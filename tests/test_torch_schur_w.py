@@ -19,8 +19,11 @@ the wrapper takes its plain versions ``hll_inverse_plain`` and
   group, the first storing the inverses), and ``schur_values`` bitwise
   before and after on those and a BAL problem, with K3's branch forced
   and not.
-- The wrapper raises off its dtypes and dims and on a device other than
-  ``cpu`` or ``cuda`` (no fallback); the gate reads dtype and dim only.
+- FP64 problems take the wrapper too (its float64 instance), its plain
+  versions bitwise the code before K10.
+- The wrapper raises off its dtypes (float32 or float64, one dtype) and
+  dims and on a device other than ``cpu`` or ``cuda`` (no fallback); the
+  gate reads dtype and dim only.
 
 K10 itself is tested on the card by ``test_torch_gpu.py``.
 """
@@ -223,10 +226,15 @@ def test_schur_values_bitwise_before_and_after(fixture, forced,
 
 
 def test_float64_sites_keep_the_plain_code(monkeypatch):
-    """FP64 inverses never reach the wrapper (``gate``)."""
+    """FP64 inverses take the wrapper (``gate``: K10's float64 instance on
+    the card), once per Hpl group; on the CPU its plain versions are the
+    code before K10, bitwise."""
+    calls = []
+    orig = schur_w.schur_w
 
-    def k10_called(*args, **kw):
-        raise AssertionError("a float64 site called the K10 wrapper")
+    def k10_called(hll, *args, **kw):
+        calls.append(hll.dtype)
+        return orig(hll, *args, **kw)
 
     _, gp = _mixed_dims()
     pp = gp.freeze(device="cpu")
@@ -239,25 +247,35 @@ def test_float64_sites_keep_the_plain_code(monkeypatch):
     monkeypatch.setattr(schur_w, "schur_w", k10_called)
     hll_inv, hpl_w = torch_schur.landmark_w(pp, ss, hv)
     ref_inv, ref_w = _landmark_w_before(pp, ss, hv)
+    assert calls == [torch.float64] * len(ss.hpl_keys)
+    for d in ref_inv:
+        assert torch.equal(_bits(hll_inv[d]), _bits(ref_inv[d]))
     for key in ref_w:
         assert hpl_w[key].dtype == torch.float64
-        assert torch.equal(hpl_w[key], ref_w[key])
+        assert torch.equal(_bits(hpl_w[key]), _bits(ref_w[key]))
 
 
 def test_gate_reads_dtype_and_dim():
     assert schur_w.gate(torch.float32, 3) and schur_w.gate(torch.float32, 1)
-    assert not schur_w.gate(torch.float64, 3)
+    assert schur_w.gate(torch.float64, 3) and schur_w.gate(torch.float64, 1)
     assert not schur_w.gate(torch.float32, 4)
+    assert not schur_w.gate(torch.float64, 4)
     assert not schur_w.gate(torch.bfloat16, 2)
+    assert not schur_w.gate(torch.float16, 2)
 
 
 def test_wrapper_raises_off_its_dtypes_and_devices():
     hll, hpl, counts = map(torch.as_tensor, _inputs(9, 3, np.float32))
     plan = schur_w.plan_w(counts.numpy(), "cpu")
-    with pytest.raises(NotImplementedError, match="float32"):
-        schur_w.schur_w(hll.double(), hpl.double(), plan, 9, 3)
-    with pytest.raises(NotImplementedError, match="float32"):
+    # float64 blocks are taken (the float64 instance), one dtype only
+    inv64, w64 = schur_w.schur_w(hll.double(), hpl.double(), plan, 9, 3)
+    assert inv64.dtype == w64.dtype == torch.float64
+    with pytest.raises(NotImplementedError, match="float32 or float64"):
+        schur_w.schur_w(hll, hpl.double(), plan, 9, 3)
+    with pytest.raises(NotImplementedError, match="float32 or float64"):
         schur_w.schur_w(hll, hpl.bfloat16(), plan, 9, 3)
+    with pytest.raises(NotImplementedError, match="float32 or float64"):
+        schur_w.schur_w(hll.bfloat16(), hpl.bfloat16(), plan, 9, 3)
     with pytest.raises(NotImplementedError, match="dl 1..3"):
         schur_w.schur_w(hll[:, :4].reshape(-1, 16).contiguous(), None, None,
                         0, 4)
