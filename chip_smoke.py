@@ -119,7 +119,10 @@ own:
    on the card and on the CPU, bitwise repeatable; each one's ms, its
    time before its redesign where it had one, its plain version's ms and
    its bound (bytes over 3.35 TB/s, float32 operations over 67 TFLOP/s
-   and the float64 cos / sin over 34); one eager
+   and the float64 cos / sin over 34); then the float64 instances
+   (``[f64]``, FP64_FP64's float64 storage and sums) on the same point
+   cast to float64, bitwise their plain versions on the card and
+   repeatable, every operation over 34 TFLOP/s in the bound; one eager
    ``compute_hessian_values`` launches three K7 sums and no K1;
 6l. ``k9``: K9, the PCG's dot (``csrc/dot.cu``), vs its plain version
    ``tree_dot_plain`` at Venice's dim_p (float32 and float64) and
@@ -271,8 +274,9 @@ The precision policies (the JAX package's six: FP64_FP64, FP64_FP32,
 FP64_BF16, FP32_FP32, FP32_BF16, FP32_FP16). K1 and the Schur stage's
 kernels (K3, K4, K5, K10, K13) run in the dtype of their values,
 float32 or float64 (float64 launches counted apart as ``[f64]``); K2
-and K6 only where S or the graph is float32, K7 and K11 only in a
-float32 graph. Card-vs-CPU criteria: FP32_* bitwise (accept pattern,
+and K6 only where S or the graph is float32, K11 only in a float32
+graph, K7 in either: its float32 entries in a float32 graph, its
+float64 instances (``[f64]``) in a float64 one, never the other. Card-vs-CPU criteria: FP32_* bitwise (accept pattern,
 chi2 per iteration, final parameters); FP64_FP64 the accept pattern and
 chi2 within 1e-9 (the card's float64 cos / sin are not correctly
 rounded, so not bitwise); FP64_FP32 and FP64_BF16 within 1e-3, or
@@ -295,7 +299,8 @@ LM iteration, peak memory and every kernel's launches:
     and FP32_BF16 again with phase 9's forced branches: K3, K4 and K5
     launched in the dtype of the Schur values (their ``[f64]``
     instances under FP64_FP64) and never in the other; K10 and K13 in
-    the inverses' dtype on every BAL run;
+    the inverses' dtype and K7 in the graph's (``[f64]`` under the FP64
+    policies) on every BAL run;
     then ``jit_loop`` under FP64_FP32 (forced branches: the casts at the
     K2, K4 and K5 sites allocate in the capture) and FP64_FP64, each
     bitwise the card's host loop, with capture seconds and pool memory;
@@ -305,10 +310,12 @@ LM iteration, peak memory and every kernel's launches:
     iterations; card vs CPU, unit quaternions;
 23. ``precision-venice`` (after phase 8): Venice-1778 at full size
     under FP32_BF16 and FP64_FP64, 10 iterations each on the card (K1,
-    K3, K4, K5 and K10 launched in the Schur values' dtype: the ``[f64]``
-    instances under FP64_FP64, no float32 one) and 1 on the CPU (the
-    card problem's copy: FP32_BF16 within 1e-3, printed bitwise or not,
-    FP64_FP64 the accept pattern and chi2 within 1e-9); ms per accepted
+    K3, K4, K5 and K10 launched in the Schur values' dtype and K7 in the
+    graph's: the ``[f64]`` instances under FP64_FP64, no float32 one)
+    and 2 on the CPU (the card problem's copy: FP32_BF16 within 1e-3,
+    printed bitwise or not, FP64_FP64 the accept pattern (a rejection,
+    then a step accepted on K7's float64 instances on the card) and chi2
+    within 1e-9); ms per accepted
     and rejected iteration and peak memory beside phase 7's FP32_FP32
     run, the Schur kernels' launches beside FP32_FP32's, and the stored
     Jacobians' bytes; FP64_FP64 also under ``jit_loop``, its replays
@@ -440,8 +447,10 @@ and the FP32_BF16 pose policy check that it launched, the FP64_FP64 pose
 policy that it did not.
 
 K7 (``csrc/bal.cu``) takes every BAL reprojection set of a float32 graph
+and, in its float64 instances (``[f64]``), of a float64 graph
 (``ops/cuda/bal.gate``): phases 4, 7, 9, 15, 16, 18, 21 and 23, 24, 25,
-S2-S4 check that it launched (in phase 16 the linearize and Hessian
+S2-S4 check that it launched (21 and 23 the graph dtype's instance and
+never the other's) (in phase 16 the linearize and Hessian
 entries inside the accepted branch's region, the trial chi2 in the
 step's) and print its launches; phase 16 also counts the device kernels
 of Venice's first two iterations from the start (one rejected, one
@@ -897,19 +906,22 @@ def all_stats():
             segsum_stream.PRODUCT_STATS_F64,
             segsum_stream.PRODUCT_RTBL_STATS_F64,
             segsum_stream.MATVEC_TBL_STATS_F64, segmv.STREAM_STATS_F64,
-            segmv.WTBL_STATS_F64, segmv.SYM_STATS_F64, schur_w.STATS_F64]
+            segmv.WTBL_STATS_F64, segmv.SYM_STATS_F64, schur_w.STATS_F64,
+            bal.RESIDUAL_STATS_F64, bal.LINEARIZE_STATS_F64,
+            bal.SCALE_B_STATS_F64, bal.HESSIAN_SUM_STATS_F64]
 
 
-# K7's entry points (csrc/bal.cu)
+# K7's entry points (csrc/bal.cu), and their float64 graph's instances
 K7_ENTRIES = ("bal.bal_residual", "bal.bal_linearize", "bal.bal_scale_b",
               "bal.bal_hessian_sum")
+K7_ENTRIES_F64 = tuple(e + "[f64]" for e in K7_ENTRIES)
 
 
 def check_k7(tag, launches, entries=K7_ENTRIES):
-    """Print K7's launches in ``launches`` and check that each of
-    ``entries`` launched."""
+    """Print K7's launches in ``launches`` (the float64 instances' too)
+    and check that each of ``entries`` launched."""
     print(f"[{tag}] K7 launches "
-          f"{ {e: launches.get(e, 0) for e in K7_ENTRIES} }")
+          f"{ {e: launches.get(e, 0) for e in K7_ENTRIES + K7_ENTRIES_F64} }")
     for e in entries:
         check(launches.get(e, 0) > 0, f"{tag}: K7's {e} never launched")
 
@@ -2188,10 +2200,15 @@ def phase_k7(problem, lin):
     first linearization point, its scales and loss; the Hessian sum at
     each of Venice's three sites on its real plan, as the group's first
     writer; bitwise equal on the card and on the CPU, bitwise repeatable.
+    Then the float64 instances (``[f64]``, FP64_FP64: float64 storage and
+    sums) on the same point cast to float64, each bitwise its plain
+    version on the card (the card's float64 cos / sin are CUDA's, not the
+    CPU library's: the CPU is held to them by phase 23) and repeatable.
     Then the launches of one eager ``compute_hessian_values``: one K7 sum
     a site, no K1."""
     import torch
 
+    from graphite_tpu_torch import Precision
     from graphite_tpu_torch.hessian import (
         build_hessian_structure,
         compute_hessian_values,
@@ -2204,20 +2221,26 @@ def phase_k7(problem, lin):
     fa = problem.data.factors[name]
     F = fa.ids[0].shape[0]
 
-    def inputs(dev):
-        """Each entry's arguments on ``dev``; the later entries take the
-        plain versions' outputs of the earlier ones."""
+    def inputs(dev, dt=torch.float32):
+        """Each entry's arguments on ``dev``, the graph's values in ``dt``
+        (float64: FP64_FP64, float64 storage too); the later entries take
+        the plain versions' outputs of the earlier ones."""
+        def cast(t):
+            return t.to(dev, dt) if t.is_floating_point() else t.to(dev)
+
         p = problem.params0
-        a = tuple(t.to(dev) for t in (p["bal_camera"], p["bal_point"],
-                                      *fa.ids, fa.obs))
-        fm, sm, lp = (t.to(dev) for t in (fa.factor_mask, fa.slot_mask,
-                                          fa.loss_params))
-        sc = tuple(problem.rows_view_padded(lin.scales, v).to(dev)
+        a = tuple(cast(t) for t in (p["bal_camera"], p["bal_point"],
+                                    *fa.ids, fa.obs))
+        fm, sm, lp = (cast(t) for t in (fa.factor_mask, fa.slot_mask,
+                                        fa.loss_params))
+        sc = tuple(cast(problem.rows_view_padded(lin.scales, v))
                    for v in ("bal_camera", "bal_point"))
         lin_args = (*a, sm, fm, lp, loss)
         r, jc, jp, _, dL, _, _ = bal.bal_linearize_plain(*lin_args)
+        storage = (problem.precision.solver_dtype if dt == torch.float32
+                   else dt)
         sb_args = (jc, jp, r, dL, *sc, *(t.to(dev) for t in fa.rows),
-                   problem.precision.solver_dtype)
+                   storage)
         js = bal.bal_scale_b_plain(*sb_args)
         return {"bal.bal_residual": (*a, fm, lp, loss),
                 "bal.bal_linearize": lin_args, "bal.bal_scale_b": sb_args,
@@ -2225,32 +2248,37 @@ def phase_k7(problem, lin):
 
     def bits(t):
         return t.contiguous().view(
-            {4: torch.int32, 2: torch.int16}[t.element_size()])
+            {8: torch.int64, 4: torch.int32, 2: torch.int16}[
+                t.element_size()])
 
     def tup(x):
         return x if isinstance(x, tuple) else (x,)
 
     def run(entry, label, kernel, plain, cpu_plain, work, was=None):
-        """``kernel()`` vs ``plain()`` and ``cpu_plain()``: bitwise,
-        repeatable, timed; returns its record."""
+        """``kernel()`` vs ``plain()`` and ``cpu_plain()`` (None: not
+        held to the CPU): bitwise, repeatable, timed; returns its
+        record."""
         out, again = tup(kernel()), tup(kernel())
-        ref, ref_cpu = tup(plain()), tup(cpu_plain())
+        ref = tup(plain())
+        ref_cpu = None if cpu_plain is None else tup(cpu_plain())
         torch.cuda.synchronize()
         vs_plain = all(torch.equal(bits(o), bits(r))
                        for o, r in zip(out, ref))
         repeat = all(torch.equal(bits(o), bits(a))
                      for o, a in zip(out, again))
-        vs_cpu = all(torch.equal(bits(o.cpu()), bits(c))
-                     for o, c in zip(out, ref_cpu))
-        err = max(float((o.float() - r.float()).abs().max())
+        vs_cpu = ref_cpu is None or all(
+            torch.equal(bits(o.cpu()), bits(c)) for o, c in zip(out, ref_cpu))
+        err = max(float((o.double() - r.double()).abs().max())
                   for o, r in zip(out, ref))
         label += " -> " + ", ".join(
             "x".join(map(str, t.shape)) + " " + str(t.dtype)[6:] for t in out)
+        held = ref_cpu is not None
         del out, again, ref, ref_cpu
         ms = device_ms(kernel, 10)
         plain_ms = device_ms(plain, 3)
         print(f"[k7] {entry} {label}: bitwise_vs_plain={vs_plain} "
-              f"bitwise_repeat={repeat} bitwise_vs_cpu_plain={vs_cpu} "
+              f"bitwise_repeat={repeat} bitwise_vs_cpu_plain="
+              f"{vs_cpu if held else 'not held'} "
               f"max_abs_err={err:.3e} ms={ms:.4f} "
               + ("" if was is None else f"was_ms={was} ")
               + f"plain_ms={plain_ms:.4f} bound_ms={bound_fields(work)} "
@@ -2262,53 +2290,67 @@ def phase_k7(problem, lin):
         return dict(err=err, ms=ms, plain_ms=plain_ms, shape=label,
                     library_ms=None, **work)
 
-    card, host = inputs(problem.device), inputs("cpu")
     fns = {"bal.bal_residual": (bal.bal_residual, bal.bal_residual_plain),
            "bal.bal_linearize": (bal.bal_linearize, bal.bal_linearize_plain),
            "bal.bal_scale_b": (bal.bal_scale_b, bal.bal_scale_b_plain)}
+    sites = k7_sum_sites(problem)
     results = {}
-    for entry, (kernel, plain) in fns.items():
-        ins, cins = card[entry], host[entry]
-        outs = tup(plain(*ins))
-        work = bound(nbytes(*(t for t in ins if torch.is_tensor(t)), *outs),
-                     K7_OPS[entry] * F)
-        work["ops_ms"] += 1e3 * K7_F64_OPS[entry] * F / FP64_VECTOR_OPS_PER_S
-        del outs
-        results[entry] = [run(
-            entry, f"F={F} ({F % 128} factors in the tail CTA)",
-            lambda k=kernel, i=ins: k(*i), lambda p=plain, i=ins: p(*i),
-            lambda p=plain, i=cins: p(*i), work, K7_WAS_MS.get(entry))]
+    for dt, tag in ((torch.float32, ""), (torch.float64, "[f64]")):
+        f64 = dt == torch.float64
+        card = inputs(problem.device, dt)
+        host = None if f64 else inputs("cpu")
+        for entry, (kernel, plain) in fns.items():
+            ins = card[entry]
+            outs = tup(plain(*ins))
+            moved = nbytes(*(t for t in ins if torch.is_tensor(t)), *outs)
+            del outs
+            if f64:  # every operation in float64
+                work = bound(moved, (K7_OPS[entry] + K7_F64_OPS[entry]) * F,
+                             FP64_VECTOR_OPS_PER_S)
+            else:
+                work = bound(moved, K7_OPS[entry] * F)
+                work["ops_ms"] += (1e3 * K7_F64_OPS[entry] * F
+                                   / FP64_VECTOR_OPS_PER_S)
+            results[entry + tag] = [run(
+                entry + tag, f"F={F} ({F % 128} factors in the tail CTA)",
+                lambda k=kernel, i=ins: k(*i), lambda p=plain, i=ins: p(*i),
+                None if f64 else lambda p=plain, i=host[entry]: p(*i), work,
+                None if f64 else K7_WAS_MS.get(entry))]
 
-    # the Hessian sum at each site, into a new (empty) group each call
-    entry = "bal.bal_hessian_sum"
-    jc, jp, dL = card["sum"]
-    results[entry] = []
-    for label, (s, t), tr, key, plan in k7_sum_sites(problem):
-        width = key[0] * key[1]
+        # the Hessian sum at each site, into a new (empty) group each call
+        entry = "bal.bal_hessian_sum"
+        jc, jp, dL = card["sum"]
+        results[entry + tag] = []
+        for label, (s, t), tr, key, plan in sites:
+            width = key[0] * key[1]
 
-        def call(fn, ins, p, dev, _s=s, _t=t, _tr=tr, _w=width):
-            out = torch.empty((p.num_segments, _w), device=dev)
-            return fn(*ins, p, _s, _t, _tr, out, False)
+            def call(fn, ins, p, dev, _s=s, _t=t, _tr=tr, _w=width):
+                out = torch.empty((p.num_segments, _w), device=dev,
+                                  dtype=Precision(ins[2].dtype,
+                                                  ins[0].dtype).inv_dtype)
+                return fn(*ins, p, _s, _t, _tr, out, False)
 
-        used = (jc,) if (s, t) == (0, 0) else (jp,) if s == 1 else (jc, jp)
-        work = bound(
-            nbytes(*used, dL, plan.perm_i32, plan.offsets_i32)
-            + 4 * plan.num_segments * width, K7_SUM_OPS * width * plan.rows)
-        cplan = on_cpu(plan)
-        results[entry].append(run(
-            entry, f"{key} site, slots {(s, t)}, {plan.rows} rows -> "
-            f"{plan.num_segments} blocks, group {plan.group}"
-            + (", permuted" if plan.perm is not None else ", sorted")
-            + (", transposed" if tr else ""),
-            lambda p=plan: call(bal.bal_hessian_sum, card["sum"], p,
-                                problem.device),
-            lambda p=plan: call(bal.bal_hessian_sum_plain, card["sum"], p,
-                                problem.device),
-            lambda p=cplan: call(bal.bal_hessian_sum_plain, host["sum"], p,
-                                 "cpu"),
-            work, K7_WAS_MS.get(f"{entry} {label}")))
-    del card, host
-    torch.cuda.empty_cache()
+            used = ((jc,) if (s, t) == (0, 0) else (jp,) if s == 1
+                    else (jc, jp))
+            work = bound(
+                nbytes(*used, dL, plan.perm_i32, plan.offsets_i32)
+                + dL.element_size() * plan.num_segments * width,
+                K7_SUM_OPS * width * plan.rows,
+                FP64_VECTOR_OPS_PER_S if f64 else FP32_OPS_PER_S)
+            results[entry + tag].append(run(
+                entry + tag, f"{key} site, slots {(s, t)}, {plan.rows} rows "
+                f"-> {plan.num_segments} blocks, group {plan.group}"
+                + (", permuted" if plan.perm is not None else ", sorted")
+                + (", transposed" if tr else ""),
+                lambda p=plan: call(bal.bal_hessian_sum, card["sum"], p,
+                                    problem.device),
+                lambda p=plan: call(bal.bal_hessian_sum_plain, card["sum"],
+                                    p, problem.device),
+                None if f64 else lambda p=on_cpu(plan): call(
+                    bal.bal_hessian_sum_plain, host["sum"], p, "cpu"),
+                work, None if f64 else K7_WAS_MS.get(f"{entry} {label}")))
+        del card, host
+        torch.cuda.empty_cache()
 
     hs = build_hessian_structure(problem)
     _, launches, _ = count_launches(
@@ -4309,16 +4351,18 @@ def check_policy_kernels(tag, policy, launches, kernels, bal=True):
     """K1 in the policy's graph dtype launched; each entry of ``kernels``
     launched where it maps to True and never where it maps to False (the
     K2-K6 entries by the dtype of their sites: ``schur_kernels`` for K3,
-    K4 and K5); on a BAL path (``bal``) K7 launched in a float32 graph and
-    never in a float64 one, and K10 and K13 in the inverses' dtype
-    (float64 under FP64_FP64 and FP64_BF16) and never in the other."""
+    K4 and K5); on a BAL path (``bal``) each K7 entry launched in the
+    graph dtype's instance (``[f64]`` in a float64 graph) and never in
+    the other, and K10 and K13 in the inverses' dtype (float64 under
+    FP64_FP64 and FP64_BF16) and never in the other."""
     f64 = policy.startswith("FP64")
-    if bal and f64:
-        check(all(launches[e] == 0 for e in K7_ENTRIES),
-              f"{tag}: K7 launched in a float64 graph")
-    elif bal:
-        check_k7(tag, launches)
     if bal:
+        mine, other = ((K7_ENTRIES_F64, K7_ENTRIES) if f64
+                       else (K7_ENTRIES, K7_ENTRIES_F64))
+        check_k7(tag, launches, mine)
+        check(all(launches[e] == 0 for e in other),
+              f"{tag}: K7 launched in the other graph dtype's instance: "
+              f"{ {e: launches[e] for e in other} }")
         for kernel in (K10, K13):
             mine, other = ((kernel + "[f64]", kernel) if inv_f64(policy)
                            else (kernel, kernel + "[f64]"))
@@ -4485,7 +4529,8 @@ def precision_venice_run(ds, solver, iterations, policy, cpu_iters, fp32,
     for name, run in ((policy, gpu), ("FP32_FP32, phase 7", fp32_run)):
         print(f"[{tag}] {name}: cuda chi2={[h['chi2'] for h in run.history]}"
               f" accepted={[h['accepted'] for h in run.history]} "
-              f"{split(run)}")
+              f"{split(run)} device_ms by iteration="
+              f"{[round(h['device_ms'], 3) for h in run.history]}")
     print(f"[{tag}] ms per LM iteration (median of iterations 1..): "
           f"device={median_ms(gpu):.3f} (FP32_FP32, phase 7: "
           f"{median_ms(fp32_run):.3f}); peak device memory "
@@ -5843,6 +5888,16 @@ KERNELS = [
         "bal.bal_hessian_sum":
             "graphite_tpu/ops/pallas/segsum_stream.py:147 (the Hessian "
             "sums of graphite_tpu/hessian.py:515, :524) and XLA fusion "
+            "(graphite_tpu/hessian.py:410)"}),
+    # the float64 instances of K7 (the FP64_FP64, FP64_FP32 and FP64_BF16
+    # BAL path): the same fusions and the same Pallas kernel, float32 only
+    ("K7 float64", "graphite_tpu_torch/csrc/bal.cu", {
+        "bal.bal_residual[f64]": "none (the same, float64)",
+        "bal.bal_linearize[f64]": "none (the same, float64)",
+        "bal.bal_scale_b[f64]": "none (the same, float64)",
+        "bal.bal_hessian_sum[f64]":
+            "graphite_tpu/ops/pallas/segsum_stream.py:147 (the same sums, "
+            "float64 or float32 values) and XLA fusion "
             "(graphite_tpu/hessian.py:410)"}),
     # no pl.pallas_call: the JAX package's collectives inside its sharded
     # program (lax.psum of problem.allreduce, lax.all_gather of the S

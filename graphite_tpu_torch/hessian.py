@@ -254,7 +254,9 @@ def compute_hessian_values(problem, hs: HessianStructure,
     over the ranks.
 
     A set that passes K7's gate sums its products into each site's group
-    in one launch per site (``ops/cuda/bal.py``, ``bal_hessian_sum``): its
+    in one launch per site (``ops/cuda/bal.py``, ``bal_hessian_sum``; in
+    a float64 graph its float64 instance, the products formed in
+    ``acc_dtype`` and summed in the group's ``inv_dtype``, as here): its
     first writer stores the sums into an empty group (bitwise the zero
     fill plus the sums: no sum is -0.0), a later one adds them. The other
     sets form their product rows, reduce them with ``reduce_rows`` and add

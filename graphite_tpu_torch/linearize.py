@@ -241,7 +241,8 @@ def compute_chi2_block(problem: Problem, name: str, r: torch.Tensor):
 def linearize(problem: Problem, params,
               out: Optional[Linearization] = None) -> Linearization:
     """One linearization pass. A set that passes K7's gate
-    (``ops/cuda/bal.gate``: the BAL reprojection factor) or K11's
+    (``ops/cuda/bal.gate``: the BAL reprojection factor, in a float32 or
+    a float64 graph) or K11's
     (``ops/cuda/pose.gate``: the SE(3) pose-graph factors) takes that
     kernel's two fused entries for its per-factor rows; every set's rows
     are then summed per vertex row by the same plans (K1), in the same

@@ -26,12 +26,20 @@ so they are added in the same order as on the generic branch.
 
 ``gate`` decides, from shapes and dtypes alone, which factor sets take
 K7: the analytic ``models.bal.REPROJECTION`` with identity precision, a
-default, Huber or Cauchy loss, stored Jacobians and a float32 graph
-(FP32_FP32, FP32_BF16, FP32_FP16). Every other set keeps the generic
-code. Each entry's plain version (``*_plain``, the same signature) follows
-the generic code op by op, so the CPU path's bits are the generic
-branch's; a wrapper takes it for CPU tensors only, and on a CUDA tensor
-launches K7 or raises.
+default, Huber or Cauchy loss and stored Jacobians, in a float32 graph
+with float32, bf16 or fp16 storage (FP32_FP32, FP32_BF16, FP32_FP16) or
+a float64 graph with float64, float32, bf16 or fp16 storage (FP64_FP64,
+FP64_FP32, FP64_BF16). Every other set keeps the generic code. Each
+entry has an instance per graph dtype (csrc/bal.cu's element type T);
+a float64 graph's launches count under their own names, ending
+``[f64]`` (``*_STATS_F64``). Its values other than the stored J are in
+the graph dtype, b's rows and the Hessian products are formed in it
+(the policy's ``acc_dtype``), and the Hessian sums are stored in the
+group's dtype (``inv_dtype``). Each entry's plain version (``*_plain``,
+the same signature) follows the generic code op by op, so the CPU
+path's bits are the generic branch's; a wrapper takes it for CPU
+tensors only, and on a CUDA tensor launches K7 or raises (a dtype with
+no instance raises).
 
 ``bal_linearize`` and ``bal_scale_b`` take ``out``: the arrays of an
 existing linearization (r, chi2, dL; the stored J) that the kernel
@@ -54,7 +62,7 @@ from ...models.bal import (
     reprojection_jacobian,
     reprojection_residual,
 )
-from ...precision import clamp_to_storage
+from ...precision import Precision, clamp_to_storage
 from ..blockfmt import flat_block_mm_tn, flat_block_mv_t
 from ..device_loop import copy_into
 from . import build
@@ -71,29 +79,51 @@ RESIDUAL_STATS = LaunchStats("bal.bal_residual")
 LINEARIZE_STATS = LaunchStats("bal.bal_linearize")
 SCALE_B_STATS = LaunchStats("bal.bal_scale_b")
 HESSIAN_SUM_STATS = LaunchStats("bal.bal_hessian_sum")
+# the float64 graph's instances
+RESIDUAL_STATS_F64 = LaunchStats("bal.bal_residual[f64]")
+LINEARIZE_STATS_F64 = LaunchStats("bal.bal_linearize[f64]")
+SCALE_B_STATS_F64 = LaunchStats("bal.bal_scale_b[f64]")
+HESSIAN_SUM_STATS_F64 = LaunchStats("bal.bal_hessian_sum[f64]")
 
 # the kernel's compile-time loss cases, by the loss's exact type
 LOSS_CODES = {Loss: 0, DefaultLoss: 0, HuberLoss: 1, CauchyLoss: 2}
-_STORAGE = {torch.float32: "f32", torch.bfloat16: "bf16",
-            torch.float16: "f16"}
+_STORAGE = {torch.float64: "f64", torch.float32: "f32",
+            torch.bfloat16: "bf16", torch.float16: "f16"}
+# graph dtype -> (its C entries' suffix, the storage dtypes it has
+# instances for)
+_GRAPH = {
+    torch.float32: ("", (torch.float32, torch.bfloat16, torch.float16)),
+    torch.float64: ("_f64", (torch.float64, torch.float32, torch.bfloat16,
+                             torch.float16)),
+}
 # (slot s, slot t) of each Hessian site bal_hessian_sum takes
 PAIRS = ((0, 0), (0, 1), (1, 1))
 _DIMS = (9, 3)  # the camera's and the point's columns
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIGNATURES = {
-    # cams, pts, ids0, ids1, obs, fmask, loss_params, chi2, F, loss, stream
-    "gt_bal_residual": [_P] * 8 + [_L, _I, _P],
-    # cams, pts, ids0, ids1, obs, smask, fmask, loss_params, r, jc, jp,
-    # chi2, dl, diag_c, diag_p, F, loss, stream
-    "gt_bal_linearize": [_P] * 15 + [_L, _I, _P],
-    **{f"gt_bal_scale_b_{s}": [_P] * 12 + [_L, _P]
-       for s in _STORAGE.values()},
-    # jc, jp, dl, perm, offsets, out, num_segments, pair, transposed,
-    # group_log2, accumulate, stream
-    **{f"gt_bal_hessian_sum_{s}": [_P] * 6 + [_I] * 5 + [_P]
-       for s in _STORAGE.values()},
-}
+
+
+def _signatures():
+    sig = {}
+    for suffix, storages in _GRAPH.values():
+        sig.update({
+            # cams, pts, ids0, ids1, obs, fmask, loss_params, chi2, F,
+            # loss, stream
+            f"gt_bal_residual{suffix}": [_P] * 8 + [_L, _I, _P],
+            # cams, pts, ids0, ids1, obs, smask, fmask, loss_params, r, jc,
+            # jp, chi2, dl, diag_c, diag_p, F, loss, stream
+            f"gt_bal_linearize{suffix}": [_P] * 15 + [_L, _I, _P],
+            **{f"gt_bal_scale_b{suffix}_{_STORAGE[s]}": [_P] * 12 + [_L, _P]
+               for s in storages},
+            # jc, jp, dl, perm, offsets, out, num_segments, pair,
+            # transposed, group_log2, accumulate, stream
+            **{f"gt_bal_hessian_sum{suffix}_{_STORAGE[s]}":
+               [_P] * 6 + [_I] * 5 + [_P] for s in storages},
+        })
+    return sig
+
+
+_SIGNATURES = _signatures()
 
 
 def load_kernel() -> build.KernelLibrary:
@@ -105,7 +135,8 @@ def gate(problem, name: str) -> Optional[Loss]:
     """The loss of factor set ``name`` when it takes K7, else None (the
     generic branch): K7 takes the analytic BAL reprojection factor with
     identity precision, a default, Huber or Cauchy loss and stored
-    Jacobians, in a float32 graph with float32, bf16 or fp16 storage."""
+    Jacobians, in a float32 graph with float32, bf16 or fp16 storage or
+    a float64 graph with float64, float32, bf16 or fp16 storage."""
     fm = problem.factor_meta[name]
     ft = fm.ftype
     prec = problem.precision
@@ -115,10 +146,20 @@ def gate(problem, name: str) -> Optional[Loss]:
             or type(ft.loss) not in LOSS_CODES
             or problem.data.factors[name].precision is not None
             or not fm.store_jacobians
-            or prec.graph_dtype != torch.float32
-            or prec.solver_dtype not in _STORAGE):
+            or prec.graph_dtype not in _GRAPH
+            or prec.solver_dtype not in _GRAPH[prec.graph_dtype][1]):
         return None
     return ft.loss
+
+
+def _instance(stats, dtype: torch.dtype):
+    """(the ``LaunchStats`` of graph dtype ``dtype``'s instance, its C
+    entries' suffix): ``stats`` is the entry's (float32, float64) pair;
+    raises for a dtype with no instance."""
+    if dtype not in _GRAPH:
+        raise NotImplementedError(
+            f"{stats[0].name}: no kernel for a {dtype} graph")
+    return stats[dtype == torch.float64], _GRAPH[dtype][0]
 
 
 # ---- bal_residual ---------------------------------------------------------
@@ -137,14 +178,16 @@ def bal_residual(cameras, points, ids0, ids1, obs, factor_mask, loss_params,
     if cameras.device.type == "cpu":
         return bal_residual_plain(cameras, points, ids0, ids1, obs,
                                   factor_mask, loss_params, loss)
-    name = RESIDUAL_STATS.name
+    dt = cameras.dtype
+    stats, suffix = _instance((RESIDUAL_STATS, RESIDUAL_STATS_F64), dt)
+    name = stats.name
     dev = cuda_device(name, cameras)
     F = ids0.shape[0]
-    check_tensors(name, dev, f_cameras=cameras, f_points=points,
+    check_tensors(name, dev, dt, f_cameras=cameras, f_points=points,
                   i_ids0=ids0, i_ids1=ids1, f_obs=obs,
                   b_factor_mask=factor_mask, f_loss_params=loss_params)
-    chi2 = torch.empty(F, dtype=torch.float32, device=dev)
-    launch(load_kernel, RESIDUAL_STATS, "gt_bal_residual", dev,
+    chi2 = torch.empty(F, dtype=dt, device=dev)
+    launch(load_kernel, stats, f"gt_bal_residual{suffix}", dev,
            cameras.data_ptr(), points.data_ptr(), ids0.data_ptr(),
            ids1.data_ptr(), obs.data_ptr(), factor_mask.data_ptr(),
            loss_params.data_ptr(), chi2.data_ptr(), F,
@@ -189,17 +232,18 @@ def bal_linearize(cameras, points, ids0, ids1, obs, slot_mask, factor_mask,
             copy_into(out, (r, chi2, dL))
             r, chi2, dL = out
         return r, jc, jp, chi2, dL, dc, dp
-    name = LINEARIZE_STATS.name
+    dt = cameras.dtype
+    stats, suffix = _instance((LINEARIZE_STATS, LINEARIZE_STATS_F64), dt)
+    name = stats.name
     dev = cuda_device(name, cameras)
     F = ids0.shape[0]
-    check_tensors(name, dev, f_cameras=cameras, f_points=points,
+    check_tensors(name, dev, dt, f_cameras=cameras, f_points=points,
                   i_ids0=ids0, i_ids1=ids1, f_obs=obs, b_slot_mask=slot_mask,
                   b_factor_mask=factor_mask, f_loss_params=loss_params)
-    r, chi2, dL = outputs(name, out, ((F, 2), (F,), (F,)),
-                          (torch.float32,) * 3, dev)
-    jc, jp, dc, dp = (torch.empty((F, w), dtype=torch.float32, device=dev)
+    r, chi2, dL = outputs(name, out, ((F, 2), (F,), (F,)), (dt,) * 3, dev)
+    jc, jp, dc, dp = (torch.empty((F, w), dtype=dt, device=dev)
                       for w in (18, 6, 9, 3))
-    launch(load_kernel, LINEARIZE_STATS, "gt_bal_linearize", dev,
+    launch(load_kernel, stats, f"gt_bal_linearize{suffix}", dev,
            cameras.data_ptr(), points.data_ptr(), ids0.data_ptr(),
            ids1.data_ptr(), obs.data_ptr(), slot_mask.data_ptr(),
            factor_mask.data_ptr(), loss_params.data_ptr(),
@@ -214,16 +258,18 @@ def bal_scale_b_plain(jc, jp, r, dL, scales_c: Optional[torch.Tensor],
                       scales_p: Optional[torch.Tensor], rows0, rows1,
                       storage: torch.dtype):
     """(stored J (F, 18) and (F, 6) in ``storage``, b's rows (F, 9) and
-    (F, 3)): the J scaled by its columns' padded scale rows at ``rows0``
-    / ``rows1`` (None: not scaled), cast to storage, and ``-J^T dL r``
-    from the stored values."""
+    (F, 3) in the graph dtype): the J scaled by its columns' padded scale
+    rows at ``rows0`` / ``rows1`` (None: not scaled), cast to storage, and
+    ``-J^T dL r`` from the stored values, in the graph dtype (the
+    policy's ``acc_dtype``)."""
     stored = []
     for J, sc, rows in ((jc, scales_c, rows0), (jp, scales_p, rows1)):
         if sc is not None:
             J = J * sc.index_select(0, rows).repeat(1, 2).to(J.dtype)
         stored.append(clamp_to_storage(J, storage))
-    w = (r * dL[:, None]).to(torch.float32)
-    b = [-flat_block_mv_t(Js, w, 2, d, acc_dtype=torch.float32)
+    acc = r.dtype
+    w = (r * dL[:, None]).to(acc)
+    b = [-flat_block_mv_t(Js, w, 2, d, acc_dtype=acc)
          for Js, d in zip(stored, (9, 3))]
     return (*stored, *b)
 
@@ -239,24 +285,27 @@ def bal_scale_b(jc, jp, r, dL, scales_c, scales_p, rows0, rows1,
             copy_into(out, stored)
             stored = out
         return (*stored, bc, bp)
-    name = SCALE_B_STATS.name
+    dt = jc.dtype
+    stats, suffix = _instance((SCALE_B_STATS, SCALE_B_STATS_F64), dt)
+    name = stats.name
+    if storage not in _GRAPH[dt][1]:
+        raise NotImplementedError(
+            f"{name}: no kernel for storage {storage} in a {dt} graph")
     dev = cuda_device(name, jc)
     F = jc.shape[0]
-    if storage not in _STORAGE:
-        raise NotImplementedError(f"{name}: no kernel for storage {storage}")
     if (scales_c is None) != (scales_p is None):
         raise ValueError(f"{name}: scale both slots or neither")
-    check_tensors(name, dev, f_jc=jc, f_jp=jp, f_r=r, f_dL=dL,
+    check_tensors(name, dev, dt, f_jc=jc, f_jp=jp, f_r=r, f_dL=dL,
                   f_scales_c=scales_c, f_scales_p=scales_p, i_rows0=rows0,
                   i_rows1=rows1)
     out = outputs(name, out, ((F, 18), (F, 6)), (storage,) * 2, dev)
-    out += [torch.empty((F, w), dtype=torch.float32, device=dev)
-            for w in (9, 3)]
+    out += [torch.empty((F, w), dtype=dt, device=dev) for w in (9, 3)]
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    launch(load_kernel, SCALE_B_STATS, f"gt_bal_scale_b_{_STORAGE[storage]}",
+    launch(load_kernel, stats,
+           f"gt_bal_scale_b{suffix}_{_STORAGE[storage]}",
            dev, jc.data_ptr(), jp.data_ptr(), r.data_ptr(), dL.data_ptr(),
            ptr(scales_c), ptr(scales_p), rows0.data_ptr(), rows1.data_ptr(),
            *(t.data_ptr() for t in out), F)
@@ -280,10 +329,11 @@ def scale_b(jflat, r, dL, precision, scales, rows, storage: torch.dtype,
 
 def hessian_rows_plain(jc, jp, dL, s: int, t: int,
                        transposed: bool) -> torch.Tensor:
-    """(F, ds * dt) float32: each factor's ``J_s^T dL J_t``, row-major
-    (ds, dt), or its (dt, ds) transpose: ``compute_hessian_values``'s
-    per-factor products of one slot pair."""
-    acc = torch.float32
+    """(F, ds * dt) in dL's dtype (the graph's, the policy's
+    ``acc_dtype``): each factor's ``J_s^T dL J_t``, row-major (ds, dt),
+    or its (dt, ds) transpose: ``compute_hessian_values``'s per-factor
+    products of one slot pair."""
+    acc = dL.dtype
     J = (jc, jp)
     ds, dt = _DIMS[s], _DIMS[t]
     rows = (flat_block_mm_tn(J[s], J[t].to(acc), ds, 2, dt, acc_dtype=acc)
@@ -296,8 +346,9 @@ def hessian_rows_plain(jc, jp, dL, s: int, t: int,
 def bal_hessian_sum_plain(jc, jp, dL, plan: SegmentPlan, s: int, t: int,
                           transposed: bool, out: torch.Tensor,
                           accumulate: bool) -> torch.Tensor:
-    """``out`` (the site's (num_segments, D) group) with each factor's
-    product rows summed into its block on ``plan`` in K1's lane order
+    """``out`` (the site's (num_segments, D) group, in the Hessian
+    values' dtype) with each factor's product rows, rounded to that
+    dtype, summed into its block on ``plan`` in K1's lane order
     (``segsum.segment_sum_ordered``: the same bits on the card as on the
     CPU): stored (``accumulate`` False) or added."""
     sums = segment_sum_ordered(
@@ -311,11 +362,15 @@ def bal_hessian_sum(jc, jp, dL, plan: SegmentPlan, s: int, t: int,
     if jc.device.type == "cpu":
         return bal_hessian_sum_plain(jc, jp, dL, plan, s, t, transposed, out,
                                      accumulate)
-    name = HESSIAN_SUM_STATS.name
-    dev = cuda_device(name, jc)
-    if jc.dtype not in _STORAGE or jp.dtype != jc.dtype:
+    stats, suffix = _instance((HESSIAN_SUM_STATS, HESSIAN_SUM_STATS_F64),
+                              dL.dtype)
+    name = stats.name
+    if (jc.dtype not in _GRAPH[dL.dtype][1] or jp.dtype != jc.dtype
+            or out.dtype != Precision(dL.dtype, jc.dtype).inv_dtype):
         raise NotImplementedError(
-            f"{name}: no kernel for J of {jc.dtype} / {jp.dtype}")
+            f"{name}: no kernel for J of {jc.dtype} / {jp.dtype} into "
+            f"{out.dtype}")
+    dev = cuda_device(name, jc)
     pair = PAIRS.index((s, t))
     if transposed and s == t:
         raise ValueError(f"{name}: slot pair {(s, t)} has no transposed site")
@@ -326,9 +381,11 @@ def bal_hessian_sum(jc, jp, dL, plan: SegmentPlan, s: int, t: int,
             f"{name}: a plan of {plan.rows} rows into {plan.num_segments} "
             f"blocks of {width} on {plan.offsets_i32.device} does not fit "
             f"{dL.shape[0]} factors and out {tuple(out.shape)} on {dev}")
-    check_tensors(name, dev, s_jc=jc, s_jp=jp, f_dL=dL, f_out=out)
-    launch(load_kernel, HESSIAN_SUM_STATS,
-           f"gt_bal_hessian_sum_{_STORAGE[jc.dtype]}", dev, jc.data_ptr(),
+    check_tensors(name, dev, dL.dtype, s_jc=jc, s_jp=jp, f_dL=dL,
+                  s_out=out)
+    launch(load_kernel, stats,
+           f"gt_bal_hessian_sum{suffix}_{_STORAGE[jc.dtype]}", dev,
+           jc.data_ptr(),
            jp.data_ptr(), dL.data_ptr(),
            None if plan.perm_i32 is None else plan.perm_i32.data_ptr(),
            plan.offsets_i32.data_ptr(), out.data_ptr(), plan.num_segments,

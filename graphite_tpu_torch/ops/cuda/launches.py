@@ -106,11 +106,13 @@ def launch(load, stats: LaunchStats, entry: str, device, *args) -> None:
         stats.done(ev)
 
 
-def check_tensors(name: str, device, **tensors) -> None:
+def check_tensors(name: str, device, float_dtype=torch.float32,
+                  **tensors) -> None:
     """Raise unless every tensor is a contiguous CUDA tensor on
-    ``device`` of the dtype its name asks (``f``: float32, ``i``: int64,
-    ``b``: bool; a storage tensor is checked by the caller)."""
-    want = {"f": torch.float32, "i": torch.int64, "b": torch.bool}
+    ``device`` of the dtype its name asks (``f``: ``float_dtype``, the
+    graph dtype of the wrapper's instance, float32 unless given; ``i``:
+    int64; ``b``: bool; a storage tensor is checked by the caller)."""
+    want = {"f": float_dtype, "i": torch.int64, "b": torch.bool}
     for key, t in tensors.items():
         if t is None:
             continue

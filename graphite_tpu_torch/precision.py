@@ -7,10 +7,12 @@
 
 The six policies are the JAX package's: FP64_FP64, FP64_FP32, FP64_BF16,
 FP32_FP32, FP32_BF16 and FP32_FP16. Hessian and Schur values live in
-``inv_dtype``, so a bf16 or fp16 value never reaches a kernel: K1 and
-the Schur stage's kernels (K3, K4, K5, K10, K13) have float32 and
-float64 instances, and K2, K6, K7 and K11 take float32 only. The JAX
-package's
+``inv_dtype``, so a bf16 or fp16 value never reaches a kernel but as a
+stored Jacobian: K1 and the Schur stage's kernels (K3, K4, K5, K10,
+K13) have float32 and float64 instances; K7 (the BAL factor's
+linearize, chi2 and Hessian sums) has an instance per graph dtype, each
+taking the J stored in float32, bf16 or fp16, or float64 in a float64
+graph; K2, K6 and K11 take float32 only. The JAX package's
 ``stream_dtype`` (bf16 gather transport) and ``matmul_precision`` are TPU
 levers and are not ported: every transport is in the site's own dtype and
 TF32 stays off.

@@ -8,22 +8,24 @@ which follows the generic code op by op. Here:
 - On small BAL problems (6 cameras, 60 points, 300 observations) with one
   camera fixed (its slots masked), ten factors disabled, and cameras
   rotated into each Rodrigues branch (theta^2 = 0, below 1e-24, in the
-  Taylor range below 0.01, and above it), under FP32_FP32, FP32_BF16 and
-  FP32_FP16 and the default, Huber and Cauchy losses: the K7 branch is
-  bitwise the generic branch (the gate forced shut), signed zeros
-  included, for every ``Linearization`` field, every Hessian group and
-  ``compute_chi2``, and it was taken (each entry
-  called once, the Hessian sum once per site).
+  Taylor range below 0.01, and above it), under FP32_FP32, FP32_BF16,
+  FP32_FP16 and the float64 graphs' FP64_FP64, FP64_FP32 and FP64_BF16,
+  and the default, Huber and Cauchy losses: the K7 branch is bitwise the
+  generic branch (the gate forced shut), signed zeros included, for
+  every ``Linearization`` field, every Hessian group and
+  ``compute_chi2``, and it was taken (each entry called once, the
+  Hessian sum once per site).
 - The K7 branch against the JAX package's ``linearize`` and
   ``compute_hessian_values`` at the tolerance ladder of
-  ``tests/test_torch_precision.py`` for float32 graphs: residuals, b,
-  chi2, the scales and the diagonal within 1e-6 of the largest entry;
-  the stored Jacobians within one storage ulp beyond that; the Hessian
-  values from the JAX package's stored Jacobians and dL within 1e-6; dL
-  within 1e-5 (``DL_TOL`` says why).
-- The gate sends FP64 graphs, ``REPROJECTION_AUTO``, sets with a
-  precision matrix, dynamic sets and a loss of another type to the
-  generic branch: no K7 entry is called.
+  ``tests/test_torch_precision.py``: residuals, b, chi2, the scales and
+  the diagonal within 1e-6 (float32 graphs) or 1e-12 (float64) of the
+  largest entry; the stored Jacobians within one storage ulp beyond
+  that; the Hessian values from the JAX package's stored Jacobians and
+  dL within 1e-6, or 1e-12 where they are float64 (``inv_dtype``); dL
+  within 1e-5 in float32 (``DL_TOL`` says why) and 1e-12 in float64.
+- The gate sends ``REPROJECTION_AUTO`` (in a float32 and in a float64
+  graph), sets with a precision matrix, dynamic sets and a loss of
+  another type to the generic branch: no K7 entry is called.
 """
 
 import dataclasses
@@ -48,7 +50,8 @@ from graphite_tpu_torch.ops.cuda import segsum
 torch.set_num_threads(1)
 
 SIZE = (6, 60, 300)
-POLICIES = ["FP32_FP32", "FP32_BF16", "FP32_FP16"]
+POLICIES = ["FP32_FP32", "FP32_BF16", "FP32_FP16", "FP64_FP64", "FP64_FP32",
+            "FP64_BF16"]
 # loss name -> (JAX loss, port loss, parameter)
 LOSSES = {
     "default": (None, None, None),
@@ -177,24 +180,28 @@ def _storage_close(out, ref, dtype, tol):
     finfo = torch.finfo(dtype)
     e = np.floor(np.log2(np.maximum(np.maximum(np.abs(out), np.abs(ref)),
                                     finfo.tiny)))
-    ulp = np.exp2(e - {torch.float32: 23, torch.bfloat16: 7,
-                       torch.float16: 10}[dtype])
+    ulp = np.exp2(e - {torch.float64: 52, torch.float32: 23,
+                       torch.bfloat16: 7, torch.float16: 10}[dtype])
     assert np.all(np.abs(out - ref) <= tol * np.abs(ref).max() + ulp)
 
 
-TOL = 1e-6  # float32 graph dtype, relative to each array's largest entry
+# relative to each array's largest entry, by the graph dtype
+TOL = {torch.float32: 1e-6, torch.float64: 1e-12}
 # dL is a function of the squared error x = |r|^2 of each factor, so it
 # moves with the relative error of one residual, not of the largest: one
 # float32 residual of camera 4 (exact branch) is 1.8e-6 apart between the
 # packages (float32 trig there, float64 trig rounded here), and Cauchy's
-# dL = 1 / (1 + x / c^2) carries twice that relative change of x
-DL_TOL = 1e-5
+# dL = 1 / (1 + x / c^2) carries twice that relative change of x. In
+# float64 both packages take float64 trig: 1e-12, as every other array
+DL_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 
 
 @pytest.mark.parametrize("policy,loss", [
     ("FP32_FP32", "default"), ("FP32_FP32", "huber"),
     ("FP32_FP32", "cauchy"), ("FP32_BF16", "huber"),
-    ("FP32_FP16", "cauchy")])
+    ("FP32_FP16", "cauchy"), ("FP64_FP64", "default"),
+    ("FP64_FP64", "huber"), ("FP64_FP64", "cauchy"),
+    ("FP64_FP32", "huber"), ("FP64_BF16", "cauchy")])
 def test_fused_branch_matches_jax(policy, loss):
     jloss, _, param = LOSSES[loss]
     gj, camsj, _, fsj = jax_build_graph(
@@ -206,20 +213,22 @@ def test_fused_branch_matches_jax(policy, loss):
     pj = gj.freeze()
     pp = _port_problem(policy, loss)
     prec = getattr(gtt, policy)
+    tol = TOL[prec.graph_dtype]
     assert k7.gate(pp, "bal_reprojection") is not None
 
     lj = jax_linearize(pj, pj.params0)
     lp = linearize(pp, pp.params0)
     for f in lj.residuals:
-        _close(lp.residuals[f], lj.residuals[f], TOL)
-        _close(lp.chi2_deriv[f], lj.chi2_deriv[f], DL_TOL)
+        assert lp.residuals[f].dtype == prec.graph_dtype
+        _close(lp.residuals[f], lj.residuals[f], tol)
+        _close(lp.chi2_deriv[f], lj.chi2_deriv[f], DL_TOL[prec.graph_dtype])
     for field in ("b", "chi2", "scales", "diag"):
-        _close(getattr(lp, field), getattr(lj, field), TOL)
+        _close(getattr(lp, field), getattr(lj, field), tol)
     for f, js in lj.jacobians.items():
         for jt, jj in zip(lp.jacobians[f], js):
             assert jt.dtype == prec.solver_dtype
-            _storage_close(jt, jj, prec.solver_dtype, TOL)
-    _close(compute_chi2(pp, pp.params0), lj.chi2, TOL)
+            _storage_close(jt, jj, prec.solver_dtype, tol)
+    _close(compute_chi2(pp, pp.params0), lj.chi2, tol)
 
     # the Hessian values from the JAX package's stored Jacobians and dL
     lin = dataclasses.replace(
@@ -234,10 +243,11 @@ def test_fused_branch_matches_jax(policy, loss):
     hsp = torch_hessian.build_hessian_structure(pp)
     hj = jax_hessian.compute_hessian_values(pj, hsj, lj)
     hp = torch_hessian.compute_hessian_values(pp, hsp, lin)
+    htol = 1e-12 if prec.inv_dtype == torch.float64 else 1e-6
     assert hp.keys() == hj.keys()
     for key in hj:
         assert hp[key].dtype == prec.inv_dtype
-        _close(hp[key], hj[key], TOL)
+        _close(hp[key], hj[key], htol)
 
 
 class _OtherLoss(gtt.HuberLoss):
@@ -246,8 +256,9 @@ class _OtherLoss(gtt.HuberLoss):
 
 def _generic_problem(case):
     ds = _dataset()
-    if case == "fp64":
-        g, *_ = torch_bal_io.build_graph(ds, precision=gtt.FP64_FP64)
+    if case == "fp64_auto":
+        g, *_ = torch_bal_io.build_graph(ds, precision=gtt.FP64_FP64,
+                                         factor=bal_model.REPROJECTION_AUTO)
     elif case == "auto":
         g, *_ = torch_bal_io.build_graph(ds, factor=bal_model.REPROJECTION_AUTO)
     elif case == "other_loss":
@@ -271,7 +282,7 @@ def _generic_problem(case):
     return g.freeze(device="cpu")
 
 
-@pytest.mark.parametrize("case", ["fp64", "auto", "precision_matrix",
+@pytest.mark.parametrize("case", ["fp64_auto", "auto", "precision_matrix",
                                   "dynamic", "other_loss"])
 def test_gate_sends_other_sets_to_the_generic_branch(case, monkeypatch):
     problem = _generic_problem(case)

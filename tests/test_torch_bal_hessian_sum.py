@@ -23,7 +23,9 @@ add to zeros or to the group):
 
 Through ``compute_hessian_values`` the K7 branch is bitwise the generic
 branch (the gate forced shut) on the sorted, transposed and two-set
-graphs, launches one sum per site and no K1 reduction.
+graphs, launches one sum per site and no K1 reduction. The sum and
+``bal_scale_b`` raise, before they look for a card, for a pair of graph,
+storage and sum dtypes that has no instance.
 """
 
 import dataclasses
@@ -253,6 +255,42 @@ def test_entry_refuses_what_it_does_not_take():
     with pytest.raises(NotImplementedError, match="no kernel for device"):
         k7.bal_hessian_sum(jc.to("meta"), jp.to("meta"), dL.to("meta"),
                            plan, s, t, tr, out, False)
+
+
+# (graph dtype, storage dtype, the sums' dtype) with no K7 instance: a
+# float16 graph, float64 storage in a float32 graph, a float64 graph's
+# sums of float32 J into float64 (FP64_FP32's are float32) and of bf16 J
+# into float32 (FP64_BF16's are float64)
+NO_INSTANCE = [(torch.float16, torch.float16, torch.float16),
+               (torch.float32, torch.float64, torch.float64),
+               (torch.float64, torch.float32, torch.float64),
+               (torch.float64, torch.bfloat16, torch.float32)]
+
+
+@pytest.mark.parametrize("graph,storage,sums", NO_INSTANCE)
+def test_entries_refuse_dtypes_without_an_instance(graph, storage, sums):
+    """``bal_scale_b`` and ``bal_hessian_sum`` raise for a dtype pair with
+    no K7 instance before they look for a card."""
+    problem = _problem()
+    hs = torch_hessian.build_hessian_structure(problem)
+    _, s, t, tr, key, idx = _sites(problem, hs)[0]
+    plan = segsum.plan_segments(idx, hs.group_sizes[key] + 1, "meta")
+    F = problem.data.factors["bal_reprojection"].ids[0].shape[0]
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    jc, jp = meta((F, 18), storage), meta((F, 6), storage)
+    dL = meta((F,), graph)
+    out = meta((plan.num_segments, key[0] * key[1]), sums)
+    with pytest.raises(NotImplementedError, match="no kernel for"):
+        k7.bal_hessian_sum(jc, jp, dL, plan, s, t, tr, out, False)
+    if storage == sums:  # a graph dtype or storage with no scale_b instance
+        rows = meta((F,), torch.int64)
+        with pytest.raises(NotImplementedError, match="no kernel for"):
+            k7.bal_scale_b(meta((F, 18), graph), meta((F, 6), graph),
+                           meta((F, 2), graph), dL, None, None, rows, rows,
+                           storage)
 
 
 @pytest.mark.parametrize("group", [1, 4, 32, 256])

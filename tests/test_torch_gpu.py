@@ -93,6 +93,20 @@ on a machine with only PyTorch (``--noconftest`` skips the JAX set-up in
 - K7's ``bal_scale_b`` at F = 1, a tile of 128 less and more one, and
   1,000,003, under each storage type, scaled and unscaled: bitwise its
   plain version on the card and on the CPU, and repeatable.
+- K7's float64 instances (a float64 graph, counted ``[f64]``): each of
+  the four entries bitwise its plain version on the card and
+  repeatable, on the same problems and sites, under float64, float32,
+  bf16 and fp16 storage (the Hessian sums in float64, or in float32
+  under float32 storage, as ``inv_dtype``) and the three losses; within
+  1e-12 of the CPU's plain version where float64 (the card's float64
+  cos / sin are not the CPU library's), 1e-6 where float32, one ulp
+  where bf16 or fp16; no float32 K7 launch. ``bal_scale_b``'s float64
+  tile of 64 at F = 1, 63, 65 and 100,003: bitwise its plain version on
+  the card and the CPU. Ladybug-49 with the Venice branches forced under
+  FP64_FP64, FP64_FP32 and FP64_BF16: every K7 entry launches its
+  float64 instance only (the trial chi2 once an iteration), ``jit_loop``
+  bitwise the host loop, and FP64_FP64 the CPU's accept pattern and
+  chi2 within 1e-9.
 - K9 (``csrc/dot.cu``), the PCG's dot: bitwise ``tree_dot_plain`` at n
   from 1 to 10^6 (its cluster and multi-CTA forms, the cluster form's
   edges at 14,994, 16,002, 16,384 and 16,385 entries), float32 and
@@ -1568,11 +1582,11 @@ K7_LOSSES = {"default": (None, None), "huber": (gtt.HuberLoss(), 2.0),
              "cauchy": (gtt.CauchyLoss(), 1.5)}
 
 
-def _k7_problem(device, loss, size=(6, 60, 300)):
+def _k7_problem(device, loss, size=(6, 60, 300), precision=gtt.FP32_FP32):
     ds = synthetic.make_bal(size, seed=3, noise=0.5)
     ds.cameras[:len(K7_ROTATIONS), :3] = K7_ROTATIONS
     fn, param = K7_LOSSES[loss]
-    g, cams, _, fs = bal.build_graph(ds, precision=gtt.FP32_FP32, loss=fn,
+    g, cams, _, fs = bal.build_graph(ds, precision=precision, loss=fn,
                                      loss_param=param)
     cams.set_fixed(5)
     for h in range(10):
@@ -1607,8 +1621,9 @@ def _k7_sums(problem, js, dL, fn):
                                             problem.device, group=group,
                                             width=width)
                 assert plan.perm is None or idx is cm.direct_idx
-                first = torch.empty((plan.num_segments, width),
-                                    device=problem.device)
+                first = torch.empty(
+                    (plan.num_segments, width), device=problem.device,
+                    dtype=gtt.Precision(dL.dtype, js[0].dtype).inv_dtype)
                 fn(*js, dL, plan, cm.s, cm.t, tr, first, False)
                 twice = first.clone()
                 fn(*js, dL, plan, cm.s, cm.t, tr, twice, True)
@@ -1625,7 +1640,8 @@ def _k7_calls(problem, storage, plain):
     args = (p["bal_camera"], p["bal_point"], *fa.ids, fa.obs)
     rng = np.random.default_rng(5)
     scales = [torch.as_tensor(rng.random((problem.seg_rows[n] + 1, d)),
-                              dtype=torch.float32, device=problem.device)
+                              dtype=problem.precision.graph_dtype,
+                              device=problem.device)
               for n, d in (("bal_camera", 9), ("bal_point", 3))]
     fns = [k7.bal_residual, k7.bal_linearize, k7.bal_scale_b,
            k7.bal_hessian_sum]
@@ -1642,7 +1658,7 @@ def _k7_calls(problem, storage, plain):
 
 
 def _k7_bits(t):
-    ints = {4: torch.int32, 2: torch.int16}
+    ints = {8: torch.int64, 4: torch.int32, 2: torch.int16}
     return t.contiguous().view(ints[t.element_size()])
 
 
@@ -1719,6 +1735,142 @@ def test_k7_scale_b_tiles_bitwise(cuda_device, F, storage, scaled):
         assert torch.equal(_k7_bits(o), _k7_bits(a))
         assert torch.equal(_k7_bits(o), _k7_bits(r))
         assert torch.equal(_k7_bits(o.cpu()), _k7_bits(c))
+
+
+K7_STATS = (k7.RESIDUAL_STATS, k7.LINEARIZE_STATS, k7.SCALE_B_STATS,
+            k7.HESSIAN_SUM_STATS)
+K7_STATS_F64 = (k7.RESIDUAL_STATS_F64, k7.LINEARIZE_STATS_F64,
+                k7.SCALE_B_STATS_F64, k7.HESSIAN_SUM_STATS_F64)
+
+
+def _k7_near_cpu(card, cpu):
+    """A float64-graph K7 output on the card against the CPU's plain
+    version: the card's float64 cos / sin are CUDA's, not the CPU
+    library's, so within 1e-12 of the largest entry in float64, 1e-6 in
+    float32 (a float64 value rounded to float32 may round apart), and
+    one ulp in bf16 / fp16 (a stored J entry may round apart)."""
+    a, b = card.cpu().double(), cpu.double()
+    if card.dtype in (torch.bfloat16, torch.float16):
+        mant = {torch.bfloat16: 7, torch.float16: 10}[card.dtype]
+        ulp = torch.exp2(torch.floor(torch.log2(
+            torch.maximum(a.abs(), b.abs()).clamp_min(1e-30))) - mant)
+        assert bool(((a - b).abs() <= ulp).all())
+        return
+    tol = 1e-12 if card.dtype == torch.float64 else 1e-6
+    assert float((a - b).abs().max()) <= tol * max(float(b.abs().max()),
+                                                   1e-300)
+
+
+@pytest.mark.parametrize("size", [(6, 60, 300), (6, 20, 100)])
+@pytest.mark.parametrize("loss", sorted(K7_LOSSES))
+@pytest.mark.parametrize("storage",
+                         ["float64", "float32", "bfloat16", "float16"])
+def test_k7_f64_matches_plain_bitwise(cuda_device, storage, loss, size):
+    """K7's float64 instances on a float64 graph (the cameras in each
+    Rodrigues branch): every entry, and the Hessian sum at every site and
+    plan into float64 (or float32, FP64_FP32's inv_dtype) groups, bitwise
+    its plain version on the card, repeatable, counted ``[f64]`` only."""
+    storage = getattr(torch, storage)
+    prec = gtt.Precision(torch.float64, storage)
+    problem = _k7_problem(cuda_device, loss, size, prec)
+    cpu = _k7_problem("cpu", loss, size, prec)
+    assert k7.gate(problem, "bal_reprojection") is not None
+    before = [s.launches for s in K7_STATS + K7_STATS_F64]
+    out = _k7_calls(problem, storage, plain=False)
+    again = _k7_calls(problem, storage, plain=False)
+    assert [s.launches - b for s, b in zip(K7_STATS + K7_STATS_F64,
+                                           before)] == [0] * 4 + [2, 2, 4, 64]
+    ref = _k7_calls(problem, storage, plain=True)
+    ref_cpu = _k7_calls(cpu, storage, plain=True)
+    torch.cuda.synchronize()
+    assert len(out) == len(ref_cpu) == 1 + 7 + 4 + 4 + 32
+    sums = prec.inv_dtype
+    for i, (o, a, r, c) in enumerate(zip(out, again, ref, ref_cpu)):
+        assert o.dtype == r.dtype == c.dtype and o.shape == c.shape
+        assert o.dtype == (storage if i in (8, 9, 12, 13) else
+                           sums if i >= 16 else torch.float64), i
+        assert torch.equal(_k7_bits(o), _k7_bits(a)), i
+        assert torch.equal(_k7_bits(o), _k7_bits(r)), i
+        _k7_near_cpu(o, c)
+
+
+@pytest.mark.parametrize("scaled", [True, False])
+@pytest.mark.parametrize("storage",
+                         ["float64", "float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("F", [1, 63, 65, 100_003])
+def test_k7_f64_scale_b_tiles_bitwise(cuda_device, F, storage, scaled):
+    """The float64 ``bal_scale_b`` (tiles of 64 factors) bitwise its plain
+    version on the card and the CPU (no transcendental), and repeatable,
+    on seeded float64 rows over nine decades with -0.0 entries."""
+    rng = np.random.default_rng(F)
+
+    def wide(*shape):
+        x = rng.standard_normal(shape) * 10.0 ** rng.integers(-3, 6, shape)
+        x.reshape(-1)[::11] = -0.0
+        return x
+
+    rows = (rng.integers(0, 40, F), np.sort(rng.integers(0, 900, F)))
+    host = [torch.as_tensor(a) for a in (wide(F, 18), wide(F, 6),
+                                         wide(F, 2), rng.random(F))]
+    host += [torch.as_tensor(rng.random((n + 1, d))) if scaled else None
+             for n, d in ((40, 9), (900, 3))]
+    host += [torch.as_tensor(r) for r in rows]
+    card = [None if t is None else t.to(cuda_device) for t in host]
+    storage = getattr(torch, storage)
+    before = k7.SCALE_B_STATS_F64.launches
+    out = k7.bal_scale_b(*card, storage)
+    again = k7.bal_scale_b(*card, storage)
+    assert k7.SCALE_B_STATS_F64.launches - before == 2
+    ref = k7.bal_scale_b_plain(*card, storage)
+    ref_cpu = k7.bal_scale_b_plain(*host, storage)
+    torch.cuda.synchronize()
+    for o, a, r, c in zip(out, again, ref, ref_cpu):
+        assert o.dtype == r.dtype == c.dtype and o.shape == c.shape
+        assert torch.equal(_k7_bits(o), _k7_bits(a))
+        assert torch.equal(_k7_bits(o), _k7_bits(r))
+        assert torch.equal(_k7_bits(o.cpu()), _k7_bits(c))
+
+
+@pytest.mark.parametrize("policy", ["FP64_FP64", "FP64_FP32", "FP64_BF16"])
+def test_forced_fp64_lm_on_k7_f64(cuda_device, monkeypatch, policy):
+    """Ladybug-49 with the Venice branches forced under the float64
+    graphs' policies, 6 LM iterations: every K7 entry launches its float64
+    instance (``[f64]``) and no float32 one, the trial chi2 once an
+    iteration; ``jit_loop`` (the accepted branch relinearizing in place)
+    bitwise the host loop; FP64_FP64 the CPU's accept pattern and chi2
+    within 1e-9."""
+    from graphite_tpu_torch.ops.cuda.launches import REGISTRY, snapshot
+
+    monkeypatch.setattr(schur, "CHUNK_THRESHOLD", 0)
+    monkeypatch.setattr(schur, "_smv_chunk_rows", lambda rb: 0)
+    solver = PCGSchurSolver(10, 1.0, 5.0, dense_matvec_limit=0)
+    prec = getattr(gtt, policy)
+
+    def run(device, jit_loop=False):
+        g, *_ = bal.build_graph(synthetic.make_bal("ladybug", seed=0),
+                                precision=prec)
+        return levenberg_marquardt(
+            g.freeze(device=device), solver,
+            options=LevenbergMarquardtOptions(iterations=6,
+                                              jit_loop=jit_loop))
+
+    for s in REGISTRY:
+        s.reset()
+    gpu = run(cuda_device)
+    launches = snapshot()
+    for s, s64 in zip(K7_STATS, K7_STATS_F64):
+        assert launches[s64.name] > 0, s64.name
+        assert launches[s.name] == 0, s.name
+    assert launches[k7.RESIDUAL_STATS_F64.name] == len(gpu.history)
+    assert gpu.chi2 < gpu.initial_chi2
+    _bitwise(run(cuda_device, jit_loop=True), gpu)
+    if policy == "FP64_FP64":
+        cpu = run("cpu")
+        assert ([h["accepted"] for h in gpu.history]
+                == [h["accepted"] for h in cpu.history])
+        np.testing.assert_allclose([h["chi2"] for h in gpu.history],
+                                   [h["chi2"] for h in cpu.history],
+                                   rtol=1e-9)
 
 
 @pytest.mark.parametrize("policy", ["FP32_FP32", "FP32_FP16"])
