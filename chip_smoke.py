@@ -40,7 +40,13 @@ own:
    block-Jacobi and identity) and of the 2500-pose SE2 circle: bitwise
    equal to the plain version on the card and on the CPU, the same number
    of CG steps, two runs bitwise identical (each label names the
-   cluster's CTAs);
+   cluster's CTAs); its float64 instance the same way on sphere2500's
+   first FP64_FP64 solve (float64 J') and FP64_FP32 solve (float32 J'
+   and inverse blocks), block-Jacobi and identity, the CPU's plain
+   version held within 1e-12 (PyTorch's CPU float64 sqrt is an ulp off
+   on some inputs); each with its device-only ms (20 solves replayed
+   from a CUDA graph), bound and sync floor (its barriers and exchanges
+   at ``kernel_sweep``'s cost each);
 4b. the sphere2500 path: FP32_FP32, Levenberg-Marquardt (damping 1e-4)
    with PCGSolver(50, 1e-10, 1e6, block-Jacobi) for 30 iterations on the
    card and on the CPU: accept patterns equal, chi2 within 1e-3 per
@@ -61,7 +67,10 @@ own:
    seeded step): bitwise equal on the card, on the CPU and replayed from
    a CUDA graph, bitwise repeatable, one launch a call; device-only ms
    (20 calls replayed from a graph) beside the bound, the plain
-   version's, the host us a call and "library: none";
+   version's, the host us a call and "library: none"; then the four
+   float64 instances (``[f64]``) the same way on sphere2500 frozen under
+   FP64_FP64, the CPU's plain version held within 1e-12 of each array's
+   largest entry (CUDA's double sin, cos and atan2 are not the CPU's);
 4d. sphere2500 with the K6 gate closed (``pcg_mf.J_BYTES_LIMIT = 0``),
    10 iterations on the card and on the CPU: ``run_pcg`` on
    ``hessian_matvec``, K1 launched, the same checks (bitwise, K11's
@@ -199,9 +208,9 @@ step) and peak memory:
     card; its host branch on the CPU), 3 iterations each (the dense
     solver's CPU steps from the first 2 states: ~20 s each);
 12. ``direct-sphere2500``: SparseDirectSolver() (dense H, dim_h 14,994)
-    and SparseDirectSolver(multifrontal=True), 10 iterations each (the
-    CPU's steps with the same branch forced; the dense branch's from the
-    first 4 states); unit quaternions; the
+    and SparseDirectSolver(multifrontal=True), 6 iterations each (the
+    CPU's steps from each state with the same branch forced: the dense
+    branch's ~6 s a state); unit quaternions; the
     multifrontal plan's host seconds; K1 launched at
     every extend-add and right-hand-side site of the multifrontal
     factorization (the tree's depth, fronts and widest front printed),
@@ -305,15 +314,17 @@ LM iteration, peak memory and every kernel's launches:
     K2, K4 and K5 sites allocate in the capture) and FP64_FP64, each
     bitwise the card's host loop, with capture seconds and pool memory;
 22. ``precision-sphere2500``: FP32_BF16 (K6 once per solve, on the float32
-    fold of the bf16 J), 30 iterations, and FP64_FP64 (the generic
-    branch: ``run_pcg`` on ``hessian_matvec``, K1 in float64), 10
-    iterations; card vs CPU, unit quaternions;
+    fold of the bf16 J), 30 iterations, and FP64_FP64 (K6's and K11's
+    float64 instances, K6 once per solve, no float32 K6 or K11 launch),
+    10 iterations; card vs CPU (FP64_FP64: the accept pattern, chi2
+    within 1e-9), unit quaternions, ms per iteration and peak memory;
+    FP64_FP64 also under ``jit_loop``, its replays bitwise the host loop;
 23. ``precision-venice`` (after phase 8): Venice-1778 at full size
     under FP32_BF16 and FP64_FP64, 10 iterations each on the card (K1,
     K3, K4, K5 and K10 launched in the Schur values' dtype and K7 in the
     graph's: the ``[f64]`` instances under FP64_FP64, no float32 one)
-    and 2 on the CPU (the card problem's copy: FP32_BF16 within 1e-3,
-    printed bitwise or not, FP64_FP64 the accept pattern (a rejection,
+    and on the CPU (the card problem's copy: FP32_BF16 1 iteration within
+    1e-3, printed bitwise or not, FP64_FP64 2, the accept pattern (a rejection,
     then a step accepted on K7's float64 instances on the card) and chi2
     within 1e-9); ms per accepted
     and rejected iteration and peak memory beside phase 7's FP32_FP32
@@ -441,10 +452,11 @@ eager iterations by host op holds none of the (4995188, 9, 3) products
 it replaced.
 
 K11 (``csrc/pose.cu``) takes every SE3 pose-graph set and SE3 vertex
-update of a float32 graph (``ops/cuda/pose.gate``, ``update_gate``):
-phases 4b, 4d, 17, S5, ``cli-jit`` (``examples.pose_graph --jit-loop``)
-and the FP32_BF16 pose policy check that it launched, the FP64_FP64 pose
-policy that it did not.
+update (``ops/cuda/pose.gate``, ``update_gate``), in its float64
+instances (``[f64]``) those of a float64 graph: phases 4b, 4d, 17, S5,
+``cli-jit`` (``examples.pose_graph --jit-loop``) and the FP32_BF16 pose
+policy check that its float32 instance launched, the FP64_FP64 pose
+policy that its float64 one did and the float32 one did not.
 
 K7 (``csrc/bal.cu``) takes every BAL reprojection set of a float32 graph
 and, in its float64 instances (``[f64]``), of a float64 graph
@@ -908,7 +920,10 @@ def all_stats():
             segsum_stream.MATVEC_TBL_STATS_F64, segmv.STREAM_STATS_F64,
             segmv.WTBL_STATS_F64, segmv.SYM_STATS_F64, schur_w.STATS_F64,
             bal.RESIDUAL_STATS_F64, bal.LINEARIZE_STATS_F64,
-            bal.SCALE_B_STATS_F64, bal.HESSIAN_SUM_STATS_F64]
+            bal.SCALE_B_STATS_F64, bal.HESSIAN_SUM_STATS_F64,
+            pcg_mf.STATS_F64, pose.RESIDUAL_STATS_F64,
+            pose.LINEARIZE_STATS_F64, pose.SCALE_B_STATS_F64,
+            pose.UPDATE_STATS_F64]
 
 
 # K7's entry points (csrc/bal.cu), and their float64 graph's instances
@@ -1174,30 +1189,57 @@ def k6_bound(site, jf, b, damp, minv, steps):
     writes x once. Per CG step: J' p and J'^T v (a
     multiply-add per J' entry and incidence), damp * p, three dots, the
     norm's division, the block preconditioner and three vector updates;
-    the start preconditions once and takes two dots."""
+    the start preconditions once and takes two dots. The float64 instance
+    does them at the float64 rate."""
+    import torch
+
     N = site.n * site.d
     moved = nbytes(jf, site.rows, site.desc, site.csr_off, site.inc_j,
-                   site.inc_e, b, damp, minv) + 4 * N
+                   site.inc_e, b, damp, minv) + b.element_size() * N
     jp = sum(2 * blk.F * blk.arity * blk.E * site.d for blk in site.blocks)
     jtv = 2 * site.d * int(site.inc_e.sum()) + 3 * N
     pre = N + (2 * site.d * N if minv is not None else 0)
     step = jp + jtv + 3 * 2 * N + pre + 6 * N
-    return bound(moved, steps * step + pre + 2 * 2 * N)
+    return bound(moved, steps * step + pre + 2 * 2 * N,
+                 FP64_VECTOR_OPS_PER_S if b.dtype == torch.float64
+                 else FP32_OPS_PER_S)
+
+
+# K6's cases: (kind, preconditioner, policy); the float64 instance on
+# sphere2500's first FP64_FP64 solve (float64 J') and FP64_FP32 solve
+# (float32 J' and inverse blocks)
+K6_CASES = (("se3", "bj", "FP32_FP32"), ("se3", "identity", "FP32_FP32"),
+            ("se2", "bj", "FP32_FP32"), ("se3", "bj", "FP64_FP64"),
+            ("se3", "identity", "FP64_FP64"), ("se3", "bj", "FP64_FP32"),
+            ("se3", "identity", "FP64_FP32"))
 
 
 def phase_k6():
     """K6 vs its plain version on the first LM solve of sphere2500 (SE3,
-    block-Jacobi and identity) and of the 2500-pose SE2 circle."""
+    block-Jacobi and identity) and of the 2500-pose SE2 circle; its
+    float64 instance on sphere2500's first FP64_FP64 and FP64_FP32
+    solves. Beside each time: the device-only ms (20 solves replayed from
+    a CUDA graph), the bound and the sync floor (the solve's cluster
+    barriers and exchanges at ``kernel_sweep``'s measured cost each)."""
     import torch
 
+    from graphite_tpu_torch.kernel_sweep import (
+        graph_ms,
+        sync_costs,
+        sync_floor_ms,
+    )
     from graphite_tpu_torch.ops.cuda import pcg_mf
 
-    records = []
-    for kind, precond in (("se3", "bj"), ("se3", "identity"), ("se2", "bj")):
-        problem = pose_problem(DEVICE, kind)
+    costs = sync_costs(torch.device(DEVICE))
+    records, problems = {}, {}
+    for kind, precond, policy in K6_CASES:
+        if (kind, policy) not in problems:
+            problems.clear()
+            problems[kind, policy] = pose_problem(DEVICE, kind, policy)
         (site, jf, b, damp, minv), kw = first_k6_inputs(
-            problem, pose_solver(precond), 1e-4)
+            problems[kind, policy], pose_solver(precond), 1e-4)
         args = (site, jf, b, damp, minv)
+        f64 = b.dtype == torch.float64
         x, k = pcg_mf.solve_pcg_mf(*args, **kw)
         again, k2 = pcg_mf.solve_pcg_mf(*args, **kw)
         ref, k_ref = pcg_mf.solve_pcg_mf_plain(*args, **kw)
@@ -1208,32 +1250,48 @@ def phase_k6():
         k, k2, k_ref, k_cpu = int(k), int(k2), int(k_ref), int(k_cpu)
         err = rel_err(x, ref)
         abs_err = float((x - ref).abs().max())
+        cpu_err = rel_err(x.cpu(), x_cpu)
         ms = device_ms(lambda: pcg_mf.solve_pcg_mf(*args, **kw))
+        only_ms = graph_ms(lambda: pcg_mf.solve_pcg_mf(*args, **kw))
         plain_ms = device_ms(lambda: pcg_mf.solve_pcg_mf_plain(*args, **kw),
                              reps=3)
         work = k6_bound(site, jf, b, damp, minv, k)
-        label = (f"{kind} n={site.n} d={site.d} "
-                 f"F={[blk.F for blk in site.blocks]} {precond}, {k} CG "
-                 f"steps, cluster of {pcg_mf.cluster_size(site.n * site.d)}"
-                 f" CTAs")
+        rule = pcg_mf.cluster_size(site.n * site.d)
+        # per solve: the set-up and r.z barriers, one r.z barrier a step
+        # and the last; the first r.r exchange, then p.Hp and r.r each step
+        floor = sync_floor_ms(costs, pcg_mf.THREADS, rule, k + 3, 2 * k + 1)
+        label = (f"{kind} {policy} n={site.n} d={site.d} "
+                 f"F={[blk.F for blk in site.blocks]} {precond}, J' "
+                 f"{str(jf.dtype)[6:]}, inverses "
+                 f"{'none' if minv is None else str(minv.dtype)[6:]}, {k} "
+                 f"CG steps, cluster of {rule} CTAs")
+        was = "none (new)" if f64 else WAS_MS[f"k6 {kind} {precond}"]
         print(f"[k6] {label}: rel_err={err:.3e} max_abs_err={abs_err:.3e} "
               f"iterations={k} plain_iterations={k_ref} cpu_iterations="
               f"{k_cpu} bitwise_repeat={torch.equal(x, again)} "
               f"bitwise_vs_plain={torch.equal(x, ref)} "
               f"bitwise_vs_cpu_plain={torch.equal(x.cpu(), x_cpu)} "
-              f"ms={ms:.4f} was_ms={WAS_MS[f'k6 {kind} {precond}']} "
-              f"plain_ms={plain_ms:.4f} bound={bound_fields(work)}")
+              f"rel_err_vs_cpu_plain={cpu_err:.3e} "
+              f"ms={ms:.4f} device_only_ms={only_ms:.4f} was_ms={was} "
+              f"plain_ms={plain_ms:.4f} sync_floor_ms={floor:.4f} "
+              f"bound={bound_fields(work)} ({card_label()})")
         check(torch.equal(x, again) and k == k2,
               f"K6 not bitwise repeatable ({label})")
         check(k == k_ref == k_cpu > 0,
               f"K6 took {k} steps, plain {k_ref}, CPU {k_cpu} ({label})")
         check(torch.equal(x, ref), f"K6 differs from its plain version on "
               f"the card by {abs_err} ({label})")
-        check(torch.equal(x.cpu(), x_cpu),
-              f"K6 differs from its plain version on the CPU ({label})")
-        records.append(dict(err=abs_err, ms=ms, plain_ms=plain_ms,
-                            shape=label, library_ms=None, **work))
-    return {"pcg_mf.solve_pcg_mf": records}
+        # float64: PyTorch's CPU float64 sqrt is an ulp off on some inputs
+        # (its CUDA sqrt and the kernel's are IEEE), so the CPU's plain
+        # version is held within 1e-12, not bitwise
+        check(cpu_err <= 1e-12 if f64 else torch.equal(x.cpu(), x_cpu),
+              f"K6 differs from its plain version on the CPU by {cpu_err} "
+              f"({label})")
+        name = "pcg_mf.solve_pcg_mf" + ("[f64]" if f64 else "")
+        records.setdefault(name, []).append(dict(
+            err=abs_err, ms=ms, plain_ms=plain_ms, shape=label,
+            library_ms=None, **work))
+    return records
 
 
 def phase_cond(pose):
@@ -2389,28 +2447,28 @@ K11_F64_OPS = {"pose.se3_residual": 5 * 40,
                "pose.se3_linearize": 17 * 40 + 180,
                "pose.se3_scale_b": 0, "pose.se3_update": 6 * 40}
 K11_ENTRIES = tuple(K11_OPS)
+K11_ENTRIES_F64 = tuple(e + "[f64]" for e in K11_ENTRIES)
 
 
-def check_k11(tag, launches, entries=K11_ENTRIES, absent=False):
-    """Print K11's launches in ``launches`` and check that each of
-    ``entries`` launched (``absent``: that none of them did)."""
-    counts = {e: launches.get(e, 0) for e in K11_ENTRIES}
+def check_k11(tag, launches, entries=K11_ENTRIES):
+    """Print K11's launches in ``launches`` (the float64 instances' too)
+    and check that each of ``entries`` launched."""
+    counts = {e: launches.get(e, 0) for e in K11_ENTRIES + K11_ENTRIES_F64}
     print(f"[{tag}] K11 launches {counts}")
     for e in entries:
-        check((counts[e] == 0) if absent else (counts[e] > 0),
-              f"{tag}: K11's {e} " + ("launched" if absent
-                                     else "never launched"))
+        check(counts[e] > 0, f"{tag}: K11's {e} never launched")
 
 
-def check_k11_counts(tag, launches, result):
+def check_k11_counts(tag, launches, result, entries=K11_ENTRIES):
     """``check_k11``, and K11's launches in a host-loop LM run of one
     factor set: a trial chi2 and an update an iteration, a linearization
-    (both passes) at the start and after each accepted step."""
-    check_k11(tag, launches)
+    (both passes) at the start and after each accepted step (``entries``:
+    the graph dtype's instance)."""
+    check_k11(tag, launches, entries)
     n = len(result.history)
-    check(launches["pose.se3_residual"] == launches["pose.se3_update"] == n
-          and launches["pose.se3_linearize"] == launches["pose.se3_scale_b"]
-          == result.accepted_steps + 1,
+    residual, linearize, scale_b, update = (launches[e] for e in entries)
+    check(residual == update == n
+          and linearize == scale_b == result.accepted_steps + 1,
           f"{tag}: K11 launches {launches} in {n} iterations")
 
 
@@ -2419,11 +2477,23 @@ def phase_k11(problem):
     first linearization point of phase 4b's problem, its scales; the
     update by a seeded step): bitwise equal on the card and on the CPU,
     bitwise repeatable, and the same bits replayed from a CUDA graph.
-    Timed device-only (20 calls replayed from one graph: a call is a few
-    us, less than the host's launch work) against the bound, the plain
+    Then the float64 instances (``[f64]``) the same way on sphere2500
+    frozen under FP64_FP64, the CPU's plain version held within 1e-12
+    (CUDA's double sin, cos and atan2 are not the CPU's). Timed
+    device-only (20 calls replayed from one graph: a call is a few us,
+    less than the host's launch work) against the bound, the plain
     version's time (the generic code, the jvp branch for the
     linearization) and its host us a call; no single PyTorch call
     computes any entry (library: none)."""
+    results = k11_entries(problem, "")
+    problem64 = pose_problem(DEVICE, policy="FP64_FP64")
+    results.update(k11_entries(problem64, "[f64]"))
+    return results
+
+
+def k11_entries(problem, suffix):
+    """``phase_k11`` on one problem: the entries of its graph dtype's
+    instance (``suffix``: "" or "[f64]")."""
     import numpy as np
     import torch
 
@@ -2439,6 +2509,7 @@ def phase_k11(problem):
     va = problem.data.vertices["se3_pose"]
     F, V = fa.ids[0].shape[0], va.active.shape[0]
     step = np.random.default_rng(11).standard_normal(problem.dim_x)
+    f64 = problem.precision.graph_dtype == torch.float64
 
     def inputs(dev):
         """Each entry's arguments on ``dev``; the second pass takes the
@@ -2452,7 +2523,8 @@ def phase_k11(problem):
         r, J, _, dL, _ = pose.se3_linearize_plain(*lin_args)
         sc = tuple(problem.rows_view_padded(lin.scales, "se3_pose").to(dev)
                    for _ in ids)
-        dx = torch.as_tensor(step, dtype=torch.float32, device=dev)
+        dx = torch.as_tensor(step, dtype=problem.precision.graph_dtype,
+                             device=dev)
         return {"pose.se3_residual": (p, ids, obs, prec, fm, lp, loss),
                 "pose.se3_linearize": lin_args,
                 "pose.se3_scale_b": (J, r, dL, prec, sc,
@@ -2474,10 +2546,17 @@ def phase_k11(problem):
 
     def bits(t):
         return t.contiguous().view(
-            {4: torch.int32, 2: torch.int16}[t.element_size()])
+            {8: torch.int64, 4: torch.int32, 2: torch.int16}[
+                t.element_size()])
 
     def same(a, b):
         return all(torch.equal(bits(x), bits(y))
+                   for x, y in zip(flat(a), flat(b), strict=True))
+
+    def near(a, b, tol=1e-12):
+        """Each array within ``tol`` of its largest entry (and of 1)."""
+        return all(float((x.double() - y.double()).abs().max())
+                   <= tol * max(float(y.double().abs().max()), 1.0)
                    for x, y in zip(flat(a), flat(b), strict=True))
 
     card, host = inputs(problem.device), inputs("cpu")
@@ -2489,7 +2568,7 @@ def phase_k11(problem):
     results = {}
     for entry, (kernel, plain) in fns.items():
         ins, cins = card[entry], host[entry]
-        stats = next(s for s in all_stats() if s.name == entry)
+        stats = next(s for s in all_stats() if s.name == entry + suffix)
         before = stats.launches
         out, again = kernel(*ins), kernel(*ins)
         launches = stats.launches - before
@@ -2499,33 +2578,44 @@ def phase_k11(problem):
             captured = kernel(*ins)
         graph.replay()
         torch.cuda.synchronize()
+        out_cpu = [t.cpu() for t in flat(out)]
         ok = dict(vs_plain=same(out, ref), repeat=same(out, again),
-                  vs_cpu_plain=same([t.cpu() for t in flat(out)], ref_cpu),
+                  vs_cpu_plain=(near(out_cpu, ref_cpu) if f64
+                                else same(out_cpu, ref_cpu)),
                   in_graph=same(captured, ref))
-        err = max(float((o.float() - r.float()).abs().max())
+        err = max(float((o.double() - r.double()).abs().max())
                   for o, r in zip(flat(out), flat(ref)))
         n = V if entry == "pose.se3_update" else F
-        work = bound(nbytes(*flat(ins), *flat(out)), K11_OPS[entry] * n)
-        work["ops_ms"] += (1e3 * K11_F64_OPS[entry] * n
-                           / FP64_VECTOR_OPS_PER_S)
+        moved = nbytes(*flat(ins), *flat(out))
+        if f64:  # every operation at the float64 rate
+            work = bound(moved, (K11_OPS[entry] + K11_F64_OPS[entry]) * n,
+                         FP64_VECTOR_OPS_PER_S)
+        else:
+            work = bound(moved, K11_OPS[entry] * n)
+            work["ops_ms"] += (1e3 * K11_F64_OPS[entry] * n
+                               / FP64_VECTOR_OPS_PER_S)
         label = (f"F={F} se3_between" if n == F else f"V={V} se3_pose") + \
             " -> " + ", ".join("x".join(map(str, t.shape)) + " "
                                + str(t.dtype)[6:] for t in flat(out))
-        del out, again, ref, ref_cpu, graph, captured
+        del out, again, ref, ref_cpu, graph, captured, out_cpu
         ms = graph_ms(lambda k=kernel, i=ins: k(*i), 20)
         plain_ms = graph_ms(lambda p=plain, i=ins: p(*i), 3)
-        us = dict(k11=host_us(lambda k=kernel, i=ins: k(*i), 100, 3),
-                  plain=host_us(lambda p=plain, i=ins: p(*i), 5, 3))
-        print(f"[k11] {entry} {label}: bitwise {ok} launches a call="
-              f"{launches / 2:g} max_abs_err={err:.3e} device-only ms="
-              f"{ms:.5f} plain_ms={plain_ms:.5f} library: none bound_ms="
+        us = dict(k11=host_us(lambda k=kernel, i=ins: k(*i), 100, 3))
+        if not f64:  # the float64 plain version's is not measured
+            us["plain"] = host_us(lambda p=plain, i=ins: p(*i), 5, 3)
+        print(f"[k11] {entry}{suffix} {label}: bitwise {ok} launches a "
+              f"call={launches / 2:g} max_abs_err={err:.3e} device-only "
+              f"ms={ms:.5f} plain_ms={plain_ms:.5f} library: none bound_ms="
               f"{bound_fields(work)} host us a call {us} ({card_label()})")
         for what, good in ok.items():
-            check(good, f"k11: {entry} not bitwise ({what})")
-        check(launches == 2, f"k11: {entry} launched {launches} times in "
-              "two calls")
-        results[entry] = [dict(err=err, ms=ms, plain_ms=plain_ms,
-                               shape=label, library_ms=None, **work)]
+            check(good, f"k11: {entry}{suffix} not " + (
+                "within 1e-12" if f64 and what == "vs_cpu_plain"
+                else "bitwise") + f" ({what})")
+        check(launches == 2, f"k11: {entry}{suffix} launched {launches} "
+              "times in two calls")
+        results[entry + suffix] = [dict(err=err, ms=ms, plain_ms=plain_ms,
+                                        shape=label, library_ms=None,
+                                        **work)]
     return results
 
 
@@ -3770,16 +3860,22 @@ def device_kernels(fn):
     device (calls, ms) of every device activity by ``kernel_key`` (copies
     and sets included) and by the host op that launched it with its input
     shapes (the op's self device time), from a ``torch.profiler`` trace,
-    and ``fn``'s result; None kernels when the trace holds no device
-    activity."""
+    ``fn``'s result, and the launches the port's wrappers counted in
+    ``fn`` (each one a kernel that a whole trace holds); None kernels
+    when the trace holds no device activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from graphite_tpu_torch.ops.cuda import launches
+
     torch.cuda.synchronize()  # no earlier work in the trace
+    before = launches.snapshot()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         out = fn()
         torch.cuda.synchronize()
+    counted = sum(n - before.get(name, 0)
+                  for name, n in launches.snapshot().items())
     events = [ev for ev in prof.events()
               if ev.device_type == torch.autograd.DeviceType.CUDA]
     kernels = sum(not ev.name.startswith(("Memcpy", "Memset"))
@@ -3794,16 +3890,20 @@ def device_kernels(fn):
              for a in prof.key_averages(group_by_input_shape=True)
              if a.device_type == torch.autograd.DeviceType.CPU
              and a.self_device_time_total > 0}
-    return (kernels if events else None), by_name, by_op, out
+    return (kernels if events else None), by_name, by_op, out, counted
 
 
-def count_step_kernels(problem, solver):
+def count_step_kernels(problem, solver, attempts=3):
     """The device kernels of Venice's first two LM iterations from the
     start, as the captured iteration's code run eagerly (its regions as
     host branches: a profiler trace of a replay misses kernels inside the
     conditional nodes), each in a ``torch.profiler`` trace of its own:
     [(accepted, kernels, device (calls, ms) by kernel name, by host op
-    and input shapes, CG steps)]."""
+    and input shapes, CG steps)]. A trace that holds fewer device kernels
+    than the port's wrappers counted in its iteration lost activities in
+    the profiler: both iterations are traced again from the start, at
+    most ``attempts`` times, and the last traces go to the caller's
+    checks."""
     from graphite_tpu_torch.ops import device_loop
     from graphite_tpu_torch.optimizers import (
         LevenbergMarquardtOptions,
@@ -3814,14 +3914,23 @@ def count_step_kernels(problem, solver):
     opts = LevenbergMarquardtOptions(iterations=2, jit_loop=True)
     levenberg_marquardt(problem, solver, options=opts)
     loop = cached_device_loop(problem, solver, opts)
-    loop._start(problem.params0, opts.initial_damping)
-    out = []
-    for _ in range(2):
-        with (device_loop.enabled(), counted_matvecs() as steps,
-              dim_x_vectors(problem) as dim_x):
-            kernels, by_name, by_op, _ = device_kernels(loop._step)
-        out.append((bool(loop.accepted), kernels, by_name, by_op, steps[0],
-                    dim_x))
+    for attempt in range(1, attempts + 1):
+        loop._start(problem.params0, opts.initial_damping)
+        out, short = [], []
+        for _ in range(2):
+            with (device_loop.enabled(), counted_matvecs() as steps,
+                  dim_x_vectors(problem) as dim_x):
+                kernels, by_name, by_op, _, counted = device_kernels(
+                    loop._step)
+            out.append((bool(loop.accepted), kernels, by_name, by_op,
+                        steps[0], dim_x))
+            if kernels is None or kernels < counted:
+                short.append((kernels, counted))
+        if not short:
+            return out
+        print(f"[trace] attempt {attempt} of {attempts}: a trace holds "
+              f"fewer device kernels than the wrappers counted in its "
+              f"iteration (kernels, counted) {short}")
     return out
 
 
@@ -3956,8 +4065,9 @@ def replay_kernels(problem, solver):
                                            "aten::repeat_interleave"))]
                 check(not stale and any(k.startswith("schur_w_kernel")
                                         for k in by_name),
-                      f"jit-venice: the trace holds the ops K10 replaced "
-                      f"{stale} or no K10 kernel")
+                      f"jit-venice: {tag}: the trace holds the ops K10 "
+                      f"replaced {stale} or no K10 kernel (its kernels "
+                      f"{sorted(by_name)[:40]})")
                 # K3 stores S = Hpp - the sums: no subtraction or fill over
                 # S; the accepted branch relinearizes into the loop's
                 # state: no copy of the Hpl group or the stored J
@@ -4342,7 +4452,7 @@ def policy_run(tag, policy, make_problem, solver, iterations, cpu_iters):
                  recorded and recorded.states[:cpu_iters])
     print(f"[{tag}] ms per LM iteration (median of iterations 1..): "
           f"device={median_ms(gpu):.3f} peak device memory="
-          f"{peak / 2**20:.1f} MiB")
+          f"{peak / 2**20:.1f} MiB ({card_label()})")
     print_launches(tag, launches, kernel_ms)
     return gpu, launches
 
@@ -4437,32 +4547,58 @@ def phase_precision_ladybug(iterations):
 
 def phase_precision_pose():
     """sphere2500 under FP32_BF16 (K6 on the float32 fold of the bf16 J),
-    30 iterations, and FP64_FP64 (the generic branch: run_pcg on
-    hessian_matvec, K1 in float64), 10 iterations; card vs CPU, unit
-    quaternions."""
+    30 iterations, and FP64_FP64 (K11's and K6's float64 instances), 10
+    iterations; card vs CPU, unit quaternions; FP64_FP64 also under
+    ``jit_loop``, its replays bitwise the host loop."""
+    import torch
+
+    solver = pose_solver()
     out = {}
     for policy, iterations in (("FP32_BF16", 30), ("FP64_FP64", 10)):
         tag = f"precision-sphere2500 {policy}"
+        f64 = policy.startswith("FP64")
         gpu, launches = policy_run(
             tag, policy, lambda dev, pol: pose_problem(dev, policy=pol),
-            pose_solver(), iterations, iterations)
+            solver, iterations, iterations)
         check_quaternions(tag, gpu)
-        check_policy_kernels(tag, policy, launches, {
-            "pcg_mf.solve_pcg_mf": policy == "FP32_BF16"}, bal=False)
-        # K11 in a float32 graph (any storage), never in a float64 one
-        check_k11(tag, launches, absent=policy.startswith("FP64"))
-        if policy == "FP32_BF16":
-            check(launches["pcg_mf.solve_pcg_mf"] == len(gpu.history),
-                  f"{tag}: K6 must launch once per solve")
+        # K6 and K11 in the graph dtype's instance, never in the other's
+        mine, other = ("pcg_mf.solve_pcg_mf[f64]", "pcg_mf.solve_pcg_mf")
+        if not f64:
+            mine, other = other, mine
+        check_policy_kernels(tag, policy, launches, {mine: True,
+                                                     other: False},
+                             bal=False)
+        mine11, other11 = ((K11_ENTRIES_F64, K11_ENTRIES) if f64
+                           else (K11_ENTRIES, K11_ENTRIES_F64))
+        check_k11_counts(tag, launches, gpu, mine11)
+        check(not any(launches[e] for e in other11),
+              f"{tag}: K11 launched in the other graph dtype's instance")
+        check(launches[mine] == len(gpu.history),
+              f"{tag}: K6 must launch once per solve")
+        print(f"[{tag}] K6 launches {mine}={launches[mine]} "
+              f"{other}={launches[other]} in {len(gpu.history)} solves "
+              f"({card_label()})")
         out[tag] = launches
+    tag = "precision-sphere2500-graph FP64_FP64"
+    problem = pose_problem(DEVICE, policy="FP64_FP64")
+    host = run_lm(problem, solver, 10)
+    _, loop, out[tag] = run_graph(tag, problem, solver, 10, host)
+    check(loop.capture_launches.get("pcg_mf.solve_pcg_mf[f64]") == 1
+          and all(loop.capture_launches.get(e) == 1
+                  for e in K11_ENTRIES_F64),
+          f"{tag}: K6 and each K11 entry must be captured once "
+          f"({loop.capture_launches})")
+    drop_loop(problem, loop)
+    del problem
+    torch.cuda.empty_cache()
     return out
 
 
 # phase 23's Venice-1778 policies, each with the CPU iterations it is held
-# to (on the card problem's copy): two, so that FP64_FP64's first accepted
-# step (Venice rejects its first iteration) goes through the float64
-# Schur kernels on both sides
-VENICE_POLICIES = (("FP32_BF16", 2), ("FP64_FP64", 2))
+# to (on the card problem's copy, ~40 s an iteration): FP64_FP64 two, so
+# that its first accepted step (Venice rejects its first iteration) goes
+# through the float64 Schur kernels on both sides; FP32_BF16 one
+VENICE_POLICIES = (("FP32_BF16", 1), ("FP64_FP64", 2))
 
 
 def phase_precision_venice(ds, solver, iterations, fp32, structures):
@@ -5877,6 +6013,10 @@ KERNELS = [
             "graphite_tpu/ops/pallas/segmv.py:303"}),
     ("K6", "graphite_tpu_torch/csrc/pcg_mf.cu", {
         "pcg_mf.solve_pcg_mf": "graphite_tpu/ops/pallas/pcg_mf.py:121"}),
+    # the float64 instance of K6 (the FP64 policies' pose graphs): the
+    # same TPU kernel, which takes float32 only
+    ("K6 float64", "graphite_tpu_torch/csrc/pcg_mf.cu", {
+        "pcg_mf.solve_pcg_mf[f64]": "graphite_tpu/ops/pallas/pcg_mf.py:121"}),
     # no pl.pallas_call: XLA's fusion of the JAX package's plain jnp code
     # for the BAL residual and Jacobian, linearize and the Hessian values
     ("K7", "graphite_tpu_torch/csrc/bal.cu", {
@@ -5945,6 +6085,9 @@ KERNELS = [
         "pose.se3_scale_b": "none (XLA fusion: graphite_tpu/linearize.py:280)",
         "pose.se3_update": "none (XLA fusion: graphite_tpu/linearize.py:602, "
                            "graphite_tpu/models/lie.py:157)"}),
+    # the float64 instances of K11 (FP64_FP64, FP64_FP32, FP64_BF16)
+    ("K11 float64", "graphite_tpu_torch/csrc/pose.cu", {
+        e: "none (the same, float64)" for e in K11_ENTRIES_F64}),
 ]
 
 
@@ -6082,7 +6225,7 @@ def main():
     full_h_launches, full_h_firsts = timed("direct-full-h",
                                            phase_direct_full_h, 3)
     sphere_direct_launches, sphere_firsts, nd_k1 = timed(
-        "direct-sphere2500", phase_direct_sphere, 10)
+        "direct-sphere2500", phase_direct_sphere, 6)
     cli_launches = timed("cli", phase_cli)
     ladybug_graph_launches = timed("jit-ladybug", phase_jit_ladybug, 10)
     remask_launches = timed("remask", phase_remask, 10)

@@ -85,22 +85,26 @@ constexpr int kMaxChunks = 1024;  // finish_tree folds 32 x 32 chunk sums
 constexpr int kDesc = 6;          // jbase, vbase, rbase, F, E, arity
 constexpr int kVecs = 8;          // x, r (2), z (2), p (2), Hp
 
+// Kernel arguments. T: the vectors' and every sum's type (float, or
+// double in the float64 instance); JT: J''s (float, or double / float
+// there); MT: the inverse blocks' (likewise).
+template <class T, class JT, class MT>
 struct Args {
-  const float* jf;
+  const JT* jf;
   const int* rows;
   const int* desc;
   int nb;
   const int* csr_off;
   const int* inc_j;
   const int* inc_e;
-  const float* b;
-  const float* damp;
-  const float* minv;
-  float* work;
-  float* x_out;
+  const T* b;
+  const T* damp;
+  const MT* minv;
+  T* work;
+  T* x_out;
   int* iters_out;
   int n, d, max_iter;
-  float tol, ratio;
+  T tol, ratio;
   int stage_j;     // 0: J' is always read from global memory
   int smem_bytes;  // the launch's dynamic shared memory
 };
@@ -115,17 +119,18 @@ struct Share {
 // The CG vectors. Buffer b of this CTA's entries is own(b)[i - e0], in
 // shared memory where all eight fit (the same decision in every CTA), else
 // in the global buffer glob (b * N + i).
+template <class T>
 struct Vecs {
-  float* base;  // own(b) = base + b * stride
+  T* base;  // own(b) = base + b * stride
   int stride;
-  float* glob;  // null when the vectors are in shared memory
-  __device__ float* own(int b) const {
+  T* glob;  // null when the vectors are in shared memory
+  __device__ T* own(int b) const {
     return base + static_cast<long long>(b) * stride;
   }
   // Entry idx of buffer b, whichever CTA owns it (visible after the last
   // release/acquire cluster barrier); owner[chunk] is the chunk's CTA.
-  __device__ float at(const cg::cluster_group& cl, const Share& sh,
-                      const unsigned char* owner, int b, int idx) const {
+  __device__ T at(const cg::cluster_group& cl, const Share& sh,
+                  const unsigned char* owner, int b, int idx) const {
     if (glob != nullptr) {
       return __ldcg(glob + static_cast<long long>(b) * sh.N + idx);
     }
@@ -134,7 +139,19 @@ struct Vecs {
   }
 };
 
-__device__ __forceinline__ float warp_sum(float v) {
+// IEEE division and square root, correctly rounded in T (no fast math)
+__device__ __forceinline__ float div_rn(float a, float b) {
+  return __fdiv_rn(a, b);
+}
+__device__ __forceinline__ double div_rn(double a, double b) {
+  return __ddiv_rn(a, b);
+}
+__device__ __forceinline__ float sqrt_rn(float a) { return __fsqrt_rn(a); }
+__device__ __forceinline__ double sqrt_rn(double a) { return __dsqrt_rn(a); }
+
+// A shuffle of a double is two 32-bit shuffles (CUDA's own overloads).
+template <class T>
+__device__ __forceinline__ T warp_sum(T v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
   return v;
 }
@@ -142,47 +159,47 @@ __device__ __forceinline__ float warp_sum(float v) {
 // tree_sum's levels 3, 4 over the m chunk sums (m <= 1024); with one
 // chunk its sum is the total (tree_sum takes at least two levels). Every
 // warp computes it, so every thread gets the value with no barrier.
-__device__ float finish_tree(const float* part, int m) {
+template <class T>
+__device__ T finish_tree(const T* part, int m) {
   if (m == 1) return part[0];
   const int lane = threadIdx.x & 31;
   const int k = (m + 31) >> 5;
-  float held = 0.0f;  // lane g: the sum of chunk sums 32g .. 32g + 31
+  T held = 0;  // lane g: the sum of chunk sums 32g .. 32g + 31
   for (int g = 0; g < k; ++g) {
     const int i = (g << 5) + lane;
-    const float v =
-        __shfl_sync(0xffffffffu, warp_sum(i < m ? part[i] : 0.0f), 0);
+    const T v = __shfl_sync(0xffffffffu,
+                            warp_sum(i < m ? part[i] : static_cast<T>(0)), 0);
     if (lane == g) held = v;
   }
-  const float total = k == 1 ? held : warp_sum(held);
+  const T total = k == 1 ? held : warp_sum(held);
   return __shfl_sync(0xffffffffu, total, 0);
 }
 
 // The sum over i < N of val(i) in pcg_loop.tree_sum's order, the same
 // value in every thread of the cluster. `part` is this dot's nch slots (at
-// the same offset in every CTA's shared memory), `grp` 32 floats per own
+// the same offset in every CTA's shared memory), `grp` 32 entries per own
 // chunk. Entry i of an own chunk is taken by the thread that owns it in
 // the strided loops (i = e0 + threadIdx.x + 1024 m), so val may read what
 // that thread just wrote. With `bar`, the chunk sums travel as st.async
-// stores counted on each CTA's mbarrier, which expects `bytes` (its chunk
-// sums and any halo stored in the same phase; no fence); without, as plain
-// stores followed by a release/acquire cluster barrier, which also
-// publishes every earlier write of the cluster.
-template <class Val>
-__device__ float cluster_sum(const cg::cluster_group& cl, const Share& sh,
-                             Val val, float* part, float* grp,
-                             unsigned long long* bar, unsigned bytes,
-                             unsigned& parity) {
+// stores (sizeof(T) bytes each) counted on each CTA's mbarrier, which
+// expects `bytes` (its chunk sums and any halo stored in the same phase;
+// no fence); without, as plain stores followed by a release/acquire
+// cluster barrier, which also publishes every earlier write of the
+// cluster.
+template <class T, class Val>
+__device__ T cluster_sum(const cg::cluster_group& cl, const Share& sh,
+                         Val val, T* part, T* grp, unsigned long long* bar,
+                         unsigned bytes, unsigned& parity) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   for (int q = warp; q < (sh.nown << 5); q += kWarps) {
     const int i = sh.e0 + (q << 5) + lane;  // chunk q / 32, group q % 32
-    const float v = warp_sum(i < sh.N ? val(i) : 0.0f);
+    const T v = warp_sum(i < sh.N ? val(i) : static_cast<T>(0));
     if (lane == 0) grp[q] = v;
   }
   __syncthreads();
   for (int c = warp; c < sh.nown; c += kWarps) {
-    const float v =
-        __shfl_sync(0xffffffffu, warp_sum(grp[(c << 5) + lane]), 0);
+    const T v = __shfl_sync(0xffffffffu, warp_sum(grp[(c << 5) + lane]), 0);
     if (lane < sh.C) {
       if (bar != nullptr) {
         st_async(part + sh.ch0 + c, v, bar, lane);
@@ -202,19 +219,32 @@ __device__ float cluster_sum(const cg::cluster_group& cl, const Share& sh,
 }
 
 // A bump allocator over the CTA's dynamic shared memory: a piece is
-// placed only if it fits (16-byte aligned pieces).
+// placed only if it fits (16-byte aligned pieces, sized in bytes of their
+// own element type).
 struct Bump {
   unsigned char* base;
   size_t used, cap;
-  template <class T>
-  __device__ T* take(long long count) {
-    const size_t bytes = (static_cast<size_t>(count) * sizeof(T) + 15) & ~15;
+  template <class E>
+  __device__ E* take(long long count) {
+    const size_t bytes = (static_cast<size_t>(count) * sizeof(E) + 15) & ~15;
     if (used + bytes > cap) return nullptr;
-    T* p = reinterpret_cast<T*>(base + used);
+    E* p = reinterpret_cast<E*>(base + used);
     used += bytes;
     return p;
   }
 };
+
+// The bytes of the fixed head of a CTA's shared memory: the two mbarriers
+// (16), the three dots' chunk slots, the halo and the group sums (T), the
+// descriptors (int) and the chunk owners (a byte each), rounded up to 16.
+template <class T>
+__host__ __device__ inline size_t head_bytes(long long nch, long long per,
+                                             int d, int nb) {
+  return (16 + static_cast<size_t>(3 * nch + 2LL * d + 32 * per) * sizeof(T) +
+          static_cast<size_t>(nb) * kDesc * 4 + static_cast<size_t>(nch) +
+          15) &
+         ~static_cast<size_t>(15);
+}
 
 // The block and factor of the incidence whose J' slot block starts at
 // jslot (the blocks' J' ranges are consecutive).
@@ -227,7 +257,12 @@ __device__ __forceinline__ int2 factor_of(const int* desc, int nb, int d,
   return make_int2(bi, (jslot - ds[0]) / W);
 }
 
-__global__ void __launch_bounds__(kThreads, 1) pcg_mf_kernel(const Args a) {
+// Every product of J' or of an inverse block with a vector entry takes
+// the J' or block entry in T first (a float widened exactly to double),
+// as PyTorch promotes a float32 tensor times a float64 one.
+template <class T, class JT, class MT>
+__global__ void __launch_bounds__(kThreads, 1)
+    pcg_mf_kernel(const Args<T, JT, MT> a) {
   cg::cluster_group cl = cg::this_cluster();
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x;
@@ -250,29 +285,28 @@ __global__ void __launch_bounds__(kThreads, 1) pcg_mf_kernel(const Args a) {
   // mbarriers of the two fence-free exchanges, the three dots' chunk slots
   // (stored by every CTA), the halo of the rows this CTA shares with its
   // neighbours (stored by them), the own chunks' group sums, the
-  // descriptors, the vectors if they fit; then the staged pieces.
+  // descriptors, the vectors if they fit; then the staged pieces. Every
+  // size is in bytes of its own type, so the float64 instance places what
+  // fits of its 8-byte entries by the same rule.
   unsigned long long* bar_ph = reinterpret_cast<unsigned long long*>(smem);
   unsigned long long* bar_rr = bar_ph + 1;
-  float* part_ph = reinterpret_cast<float*>(smem + 16);
-  float* part_rr = part_ph + sh.nch;
-  float* part_rz = part_rr + sh.nch;
-  float* halo_lo = part_rz + sh.nch;  // entries [row0 d, e0) of r_new
-  float* halo_hi = halo_lo + d;       // entries [e1, row1 d)
-  float* grp = halo_hi + d;
+  T* part_ph = reinterpret_cast<T*>(smem + 16);
+  T* part_rr = part_ph + sh.nch;
+  T* part_rz = part_rr + sh.nch;
+  T* halo_lo = part_rz + sh.nch;  // entries [row0 d, e0) of r_new
+  T* halo_hi = halo_lo + d;       // entries [e1, row1 d)
+  T* grp = halo_hi + d;
   int* desc = reinterpret_cast<int*>(grp + 32 * sh.per);
   unsigned char* owner = reinterpret_cast<unsigned char*>(desc + nb * kDesc);
-  Bump bump{smem,
-            (16 + static_cast<size_t>(3 * sh.nch + 2 * d + 32 * sh.per +
-                                      nb * kDesc) * 4 + sh.nch + 15) &
-                ~static_cast<size_t>(15),
+  Bump bump{smem, head_bytes<T>(sh.nch, sh.per, d, nb),
             static_cast<size_t>(a.smem_bytes)};
-  Vecs vec;
-  float* vs = bump.take<float>(static_cast<long long>(kVecs) * own_cap);
+  Vecs<T> vec;
+  T* vs = bump.take<T>(static_cast<long long>(kVecs) * own_cap);
   vec.base = vs != nullptr ? vs : a.work + e0;
   vec.stride = vs != nullptr ? own_cap : N;
   vec.glob = vs != nullptr ? nullptr : a.work;
-  float* X = vec.own(0);
-  float* HP = vec.own(7);
+  T* X = vec.own(0);
+  T* HP = vec.own(7);
   for (int i = tid; i < nb * kDesc; i += kThreads) desc[i] = a.desc[i];
   for (int c = tid; c < sh.nch; c += kThreads) owner[c] = c / sh.per;
   if (tid == 0) {
@@ -304,13 +338,13 @@ __global__ void __launch_bounds__(kThreads, 1) pcg_mf_kernel(const Args a) {
   // J' per incidence (its factor's whole row)
   int* s_csr = bump.take<int>(nr + 1 + 2LL * ninc);
   int* s_fac = bump.take<int>((2LL + amax) * ninc);
-  float* pg = bump.take<float>(1LL * ninc * amax * d);
-  float* vt = bump.take<float>(1LL * ninc * emax);
-  float* s_minv =
+  T* pg = bump.take<T>(1LL * ninc * amax * d);
+  T* vt = bump.take<T>(1LL * ninc * emax);
+  MT* s_minv =
       a.minv == nullptr ? nullptr
-                        : bump.take<float>(static_cast<long long>(nr) * d * d);
-  float* s_j = a.stage_j ? bump.take<float>(1LL * ninc * wmax) : nullptr;
-  float* scratch = a.work + static_cast<long long>(kVecs) * N;
+                        : bump.take<MT>(static_cast<long long>(nr) * d * d);
+  JT* s_j = a.stage_j ? bump.take<JT>(1LL * ninc * wmax) : nullptr;
+  T* scratch = a.work + static_cast<long long>(kVecs) * N;
   if (pg == nullptr) pg = scratch + 1LL * t0 * amax * d;
   if (vt == nullptr) {
     vt = scratch + static_cast<long long>(a.csr_off[n]) * amax * d +
@@ -340,7 +374,7 @@ __global__ void __launch_bounds__(kThreads, 1) pcg_mf_kernel(const Args a) {
     }
   }
   if (s_minv != nullptr) {
-    const float* src = a.minv + static_cast<long long>(row0) * d * d;
+    const MT* src = a.minv + static_cast<long long>(row0) * d * d;
     for (long long q = tid; q < static_cast<long long>(nr) * d * d;
          q += kThreads) {
       s_minv[q] = src[q];
@@ -356,7 +390,7 @@ __global__ void __launch_bounds__(kThreads, 1) pcg_mf_kernel(const Args a) {
       if (k < W) s_j[q] = a.jf[ds[0] + static_cast<long long>(bf.y) * W + k];
     }
   }
-  const float* mv =
+  const MT* mv =
       a.minv == nullptr
           ? nullptr
           : (s_minv != nullptr ? s_minv
@@ -380,8 +414,9 @@ __global__ void __launch_bounds__(kThreads, 1) pcg_mf_kernel(const Args a) {
     return a.rows[ds[2] + s * ds[3] + f];
   };
 
+  const T zero = 0;
   for (int i = e0 + tid; i < e1; i += kThreads) {
-    X[i - e0] = 0.0f;
+    X[i - e0] = zero;
     vec.own(1)[i - e0] = a.b[i];
   }
   cl.sync();  // the mbarriers initialized in every CTA
@@ -389,73 +424,73 @@ __global__ void __launch_bounds__(kThreads, 1) pcg_mf_kernel(const Args a) {
   // z = M_row (r / s) on the own entries (the identity when mv is null):
   // y = r / s once per own entry (into y, then a CTA barrier), r's entries
   // outside [e0, e1) from the halo (or from b, at the start)
-  auto precondition = [&](const float* r, float* y, float* z, float s,
-                          bool start) {
+  auto precondition = [&](const T* r, T* y, T* z, T s, bool start) {
     if (mv == nullptr) {
       for (int i = e0 + tid; i < e1; i += kThreads) {
-        z[i - e0] = __fdiv_rn(r[i - e0], s);
+        z[i - e0] = div_rn(r[i - e0], s);
       }
       return;
     }
     for (int i = e0 + tid; i < e1; i += kThreads) {
-      y[i - e0] = __fdiv_rn(r[i - e0], s);
+      y[i - e0] = div_rn(r[i - e0], s);
     }
     __syncthreads();
     for (int i = e0 + tid; i < e1; i += kThreads) {
       const int row = i / d;
       const int c = i - row * d;
-      const float* m =
+      const MT* m =
           mv + static_cast<long long>(row - row0) * d * d + c * d;
-      float acc = 0.0f;
+      T acc = zero;
       for (int j = 0; j < d; ++j) {
         const int q = row * d + j;
-        const float yq =
+        const T yq =
             q >= e0 && q < e1
                 ? y[q - e0]
-                : __fdiv_rn(start    ? a.b[q]
-                            : q < e0 ? halo_lo[q - row0 * d]
-                                     : halo_hi[q - e1],
-                            s);
-        acc += m[j] * yq;
+                : div_rn(start    ? a.b[q]
+                         : q < e0 ? halo_lo[q - row0 * d]
+                                  : halo_hi[q - e1],
+                         s);
+        acc += static_cast<T>(m[j]) * yq;
       }
       z[i - e0] = acc;
     }
   };
 
   unsigned par_ph = 0, par_rr = 0, par_rz = 0;
-  const unsigned chunk_bytes = 4u * sh.nch;
-  const unsigned halo_bytes = chunk_bytes + 4u * (n_lo + n_hi);
+  constexpr unsigned kBytes = sizeof(T);
+  const unsigned chunk_bytes = kBytes * sh.nch;
+  const unsigned halo_bytes = chunk_bytes + kBytes * (n_lo + n_hi);
   int ri = 1, zi = 3;  // r: own[ri], r_new: own[3 - ri]; z: 3 / 4
   {
-    const float* b = a.b;
-    const float s0 = __fsqrt_rn(cluster_sum(
+    const T* b = a.b;
+    const T s0 = sqrt_rn(cluster_sum(
         cl, sh, [=](int i) { return b[i] * b[i]; }, part_rr, grp, bar_rr,
         chunk_bytes, par_rr));
-    precondition(vec.own(ri), HP, vec.own(zi), s0 == 0.0f ? 1.0f : s0,
-                 true);
+    precondition(vec.own(ri), HP, vec.own(zi),
+                 s0 == zero ? static_cast<T>(1) : s0, true);
   }
-  float* P0 = vec.own(5);
+  T* P0 = vec.own(5);
   for (int i = e0 + tid; i < e1; i += kThreads) {
     P0[i - e0] = vec.own(zi)[i - e0];
   }
-  float rz;
+  T rz;
   {
-    const float* r = vec.own(ri);
-    const float* z = vec.own(zi);
+    const T* r = vec.own(ri);
+    const T* z = vec.own(zi);
     // a release barrier: p reaches the first step's gathers
     rz = cluster_sum(
         cl, sh, [=](int i) { return r[i - e0] * z[i - e0]; }, part_rz, grp,
         nullptr, 0, par_rz);
   }
-  float rz_min = INFINITY;
-  float beta_prev = 0.0f;
+  T rz_min = INFINITY;
+  T beta_prev = zero;
   int k = 0;
   bool done = false;
-  while (k < a.max_iter && !done && rz != 0.0f) {
+  while (k < a.max_iter && !done && rz != zero) {
     // p of this step: p_0 = z_0; then z + beta p of the last step, formed
     // here from the owners' z and p (the same bits as the owner's update)
     const int pi = 5 + (k & 1);
-    float* p = vec.own(pi);
+    T* p = vec.own(pi);
     // 1. per own incidence (one thread each): gather p at its factor's
     // slot rows, then v = J'_f p, slots then columns in order
     for (int t = tid; t < ninc; t += kThreads) {
@@ -463,11 +498,11 @@ __global__ void __launch_bounds__(kThreads, 1) pcg_mf_kernel(const Args a) {
       inc_factor(t, bi, frow);
       const int E = ie[t];
       const int arity = desc[bi * kDesc + 5];
-      float* pr = pg + static_cast<long long>(t) * amax * d;
+      T* pr = pg + static_cast<long long>(t) * amax * d;
       for (int s = 0; s < arity; ++s) {
         const int row = slot_row(t, bi, frow, s);
         for (int j = 0; j < d; ++j) {
-          float val = 0.0f;  // the zero row of a fixed vertex
+          T val = zero;  // the zero row of a fixed vertex
           if (row < n) {
             const int idx = row * d + j;
             val = k == 0 ? vec.at(cl, sh, owner, 5, idx)
@@ -477,14 +512,14 @@ __global__ void __launch_bounds__(kThreads, 1) pcg_mf_kernel(const Args a) {
           pr[s * d + j] = val;
         }
       }
-      const float* jr = s_j != nullptr
-                            ? s_j + static_cast<long long>(t) * wmax
-                            : a.jf + frow;
+      const JT* jr = s_j != nullptr
+                         ? s_j + static_cast<long long>(t) * wmax
+                         : a.jf + frow;
       for (int e = 0; e < E; ++e) {
-        float acc = 0.0f;
+        T acc = zero;
         for (int s = 0; s < arity; ++s) {
           for (int j = 0; j < d; ++j) {
-            acc += jr[(s * E + e) * d + j] * pr[s * d + j];
+            acc += static_cast<T>(jr[(s * E + e) * d + j]) * pr[s * d + j];
           }
         }
         vt[static_cast<long long>(t) * emax + e] = acc;
@@ -495,11 +530,11 @@ __global__ void __launch_bounds__(kThreads, 1) pcg_mf_kernel(const Args a) {
     for (int i = e0 + tid; i < e1; i += kThreads) {
       const int row = i / d;
       const int c = i - row * d;
-      float acc = 0.0f;
+      T acc = zero;
       const int ta = co[row - row0] - t0, tb = co[row - row0 + 1] - t0;
       for (int t = ta; t < tb; ++t) {
         const int E = ie[t];
-        const float* jc;
+        const JT* jc;
         if (s_j != nullptr) {
           int bi, frow;
           inc_factor(t, bi, frow);
@@ -507,24 +542,24 @@ __global__ void __launch_bounds__(kThreads, 1) pcg_mf_kernel(const Args a) {
         } else {
           jc = a.jf + ij[t] + c;
         }
-        const float* vf = vt + static_cast<long long>(t) * emax;
-        float g = 0.0f;
-        for (int e = 0; e < E; ++e) g += jc[e * d] * vf[e];
+        const T* vf = vt + static_cast<long long>(t) * emax;
+        T g = zero;
+        for (int e = 0; e < E; ++e) g += static_cast<T>(jc[e * d]) * vf[e];
         acc += g;
       }
       HP[i - e0] = a.damp[i] * p[i - e0] + acc;
     }
-    const float alpha = __fdiv_rn(
+    const T alpha = div_rn(
         rz, cluster_sum(
                 cl, sh,
                 [=](int i) { return p[i - e0] * HP[i - e0]; }, part_ph, grp,
                 bar_ph, chunk_bytes, par_ph));
-    float* r = vec.own(ri);
-    float* rn = vec.own(3 - ri);
+    T* r = vec.own(ri);
+    T* rn = vec.own(3 - ri);
     const int lo_end = min(e1, (e0 / d + 1) * d);  // the first row's part
     const int hi_start = max(e0, (e1 / d) * d);    // the last row's part
     for (int i = e0 + tid; i < e1; i += kThreads) {
-      const float v = r[i - e0] - alpha * HP[i - e0];
+      const T v = r[i - e0] - alpha * HP[i - e0];
       rn[i - e0] = v;
       // a row shared with a neighbour: store this CTA's part in its halo
       if (e0 % d != 0 && i < lo_end) {
@@ -534,24 +569,26 @@ __global__ void __launch_bounds__(kThreads, 1) pcg_mf_kernel(const Args a) {
         st_async(halo_lo + (i - hi_start), v, bar_rr, sh.rank + 1);
       }
     }
-    const float rnorm = __fsqrt_rn(cluster_sum(
+    const T rnorm = sqrt_rn(cluster_sum(
         cl, sh, [=](int i) { return rn[i - e0] * rn[i - e0]; }, part_rr,
         grp, bar_rr, halo_bytes, par_rr));
-    float* zn = vec.own(7 - zi);
-    precondition(rn, HP, zn, rnorm == 0.0f ? 1.0f : rnorm, false);
+    T* zn = vec.own(7 - zi);
+    precondition(rn, HP, zn, rnorm == zero ? static_cast<T>(1) : rnorm,
+                 false);
     // a release barrier: z_new (and p) reach the next step's gathers
-    const float rz_new = cluster_sum(
+    const T rz_new = cluster_sum(
         cl, sh, [=](int i) { return rn[i - e0] * zn[i - e0]; }, part_rz,
         grp, nullptr, 0, par_rz);
 
-    const bool reject = fabsf(rz_new) > a.ratio * rz_min || isnan(rz_new);
-    const float aa = fabsf(rz_new);
-    rz_min = (isnan(aa) || isnan(rz_min)) ? NAN : fminf(rz_min, aa);
-    const float beta = __fdiv_rn(rz_new, rz);
-    const bool converged = fabsf(rz_new) < a.tol;
+    const bool reject = fabs(rz_new) > a.ratio * rz_min || isnan(rz_new);
+    const T aa = fabs(rz_new);
+    rz_min = (isnan(aa) || isnan(rz_min)) ? static_cast<T>(NAN)
+                                          : fmin(rz_min, aa);
+    const T beta = div_rn(rz_new, rz);
+    const bool converged = fabs(rz_new) < a.tol;
     ++k;
     if (!reject) {
-      float* pn = vec.own(11 - pi);
+      T* pn = vec.own(11 - pi);
       for (int i = e0 + tid; i < e1; i += kThreads) {
         X[i - e0] = X[i - e0] + alpha * p[i - e0];
         pn[i - e0] = zn[i - e0] + beta * p[i - e0];
@@ -599,28 +636,12 @@ __global__ void __launch_bounds__(1024, 1) cluster_exchanges_kernel(int reps) {
   cl.sync();
 }
 
-}  // namespace
-
-// jf: folded J' of every factor block, block b at desc[b][0], row-major
-// (F, arity*E*d); rows: per block and slot the (F,) vertex rows (n for a
-// fixed vertex), block b's slot s at desc[b][2] + s*F; desc: (nb, 6) int32
-// (jbase, vbase, rbase, F, E, arity); csr_off (n+1), inc_j / inc_e
-// (incidences): the J' offset of (f, s) and E, sorted by row then by
-// (block, slot, factor); b, damp, x: (n*d,); minv: (n, d*d) row-major or
-// null; work: 8*n*d + n_inc*(amax*d + emax) floats (amax, emax: the largest
-// arity and E of a block); iters: (1,) int32; cluster: the CTAs (1-16);
-// stage_j: 0 reads J' from global memory only. Launches on `stream` and
-// returns the CUDA error code (cudaErrorLaunchOutOfResources when one
-// cluster of that size does not fit on the card, or the chunk sums,
-// descriptors and halo exceed a CTA's shared memory).
-extern "C" int gt_pcg_mf_f32(const void* jf, const void* rows,
-                             const void* desc, int nb, const void* csr_off,
-                             const void* inc_j, const void* inc_e,
-                             const void* b, const void* damp,
-                             const void* minv, void* work, void* x,
-                             void* iters, int n, int d, int max_iter,
-                             float tol, float rejection_ratio, int cluster,
-                             int stage_j, void* stream) {
+template <class T, class JT, class MT>
+int solve(const void* jf, const void* rows, const void* desc, int nb,
+          const void* csr_off, const void* inc_j, const void* inc_e,
+          const void* b, const void* damp, const void* minv, void* work,
+          void* x, void* iters, int n, int d, int max_iter, T tol,
+          T rejection_ratio, int cluster, int stage_j, void* stream) {
   const long long N = static_cast<long long>(n) * d;
   if (nb < 1 || n < 1 || d < 1 || cluster < 1 || cluster > kMaxCluster ||
       N > static_cast<long long>(kMaxChunks) * kChunk) {
@@ -629,24 +650,22 @@ extern "C" int gt_pcg_mf_f32(const void* jf, const void* rows,
   const int smem = max_dynamic_smem();
   const long long nch = (N + kChunk - 1) / kChunk;
   const long long per = (nch + cluster - 1) / cluster;
-  if (16 + (3 * nch + 2LL * d + 32 * per + static_cast<long long>(nb) * kDesc) *
-                   4 >
-      smem) {
+  if (head_bytes<T>(nch, per, d, nb) > static_cast<size_t>(smem)) {
     return static_cast<int>(cudaErrorLaunchOutOfResources);
   }
-  Args a;
-  a.jf = static_cast<const float*>(jf);
+  Args<T, JT, MT> a;
+  a.jf = static_cast<const JT*>(jf);
   a.rows = static_cast<const int*>(rows);
   a.desc = static_cast<const int*>(desc);
   a.nb = nb;
   a.csr_off = static_cast<const int*>(csr_off);
   a.inc_j = static_cast<const int*>(inc_j);
   a.inc_e = static_cast<const int*>(inc_e);
-  a.b = static_cast<const float*>(b);
-  a.damp = static_cast<const float*>(damp);
-  a.minv = static_cast<const float*>(minv);
-  a.work = static_cast<float*>(work);
-  a.x_out = static_cast<float*>(x);
+  a.b = static_cast<const T*>(b);
+  a.damp = static_cast<const T*>(damp);
+  a.minv = static_cast<const MT*>(minv);
+  a.work = static_cast<T*>(work);
+  a.x_out = static_cast<T*>(x);
   a.iters_out = static_cast<int*>(iters);
   a.n = n;
   a.d = d;
@@ -655,10 +674,70 @@ extern "C" int gt_pcg_mf_f32(const void* jf, const void* rows,
   a.ratio = rejection_ratio;
   a.stage_j = stage_j;
   a.smem_bytes = smem;
-  return static_cast<int>(launch_cluster(pcg_mf_kernel, cluster, kThreads,
-                                         smem,
+  return static_cast<int>(launch_cluster(pcg_mf_kernel<T, JT, MT>, cluster,
+                                         kThreads, smem,
                                          static_cast<cudaStream_t>(stream),
                                          a));
+}
+
+}  // namespace
+
+// jf: folded J' of every factor block, block b at desc[b][0], row-major
+// (F, arity*E*d); rows: per block and slot the (F,) vertex rows (n for a
+// fixed vertex), block b's slot s at desc[b][2] + s*F; desc: (nb, 6) int32
+// (jbase, vbase, rbase, F, E, arity); csr_off (n+1), inc_j / inc_e
+// (incidences): the J' offset of (f, s) and E, sorted by row then by
+// (block, slot, factor); b, damp, x: (n*d,); minv: (n, d*d) row-major or
+// null; work: 8*n*d + n_inc*(amax*d + emax) entries of the vectors' type
+// (amax, emax: the largest arity and E of a block); iters: (1,) int32;
+// cluster: the CTAs (1-16); stage_j: 0 reads J' from global memory only.
+// Launches on `stream` and returns the CUDA error code
+// (cudaErrorLaunchOutOfResources when one cluster of that size does not
+// fit on the card, or the chunk sums, descriptors and halo exceed a CTA's
+// shared memory).
+//
+// gt_pcg_mf_f32: everything float32 (a float32 graph).
+extern "C" int gt_pcg_mf_f32(const void* jf, const void* rows,
+                             const void* desc, int nb, const void* csr_off,
+                             const void* inc_j, const void* inc_e,
+                             const void* b, const void* damp,
+                             const void* minv, void* work, void* x,
+                             void* iters, int n, int d, int max_iter,
+                             float tol, float rejection_ratio, int cluster,
+                             int stage_j, void* stream) {
+  return solve<float, float, float>(jf, rows, desc, nb, csr_off, inc_j,
+                                    inc_e, b, damp, minv, work, x, iters, n,
+                                    d, max_iter, tol, rejection_ratio,
+                                    cluster, stage_j, stream);
+}
+
+// gt_pcg_mf_f64: a float64 graph: b, damp, x, work, tol and the ratio in
+// float64, the whole solve in double; jf and minv as the three FP64
+// policies give them: both float64 (FP64_FP64), both float32 (jf_f32 and
+// minv_f32 1: FP64_FP32's float32 fold and inverse blocks), or a float32
+// fold with float64 inverse blocks (jf_f32 1, minv_f32 0: FP64_BF16);
+// float64 jf with float32 minv is refused (cudaErrorInvalidValue).
+extern "C" int gt_pcg_mf_f64(const void* jf, int jf_f32, const void* rows,
+                             const void* desc, int nb, const void* csr_off,
+                             const void* inc_j, const void* inc_e,
+                             const void* b, const void* damp,
+                             const void* minv, int minv_f32, void* work,
+                             void* x, void* iters, int n, int d,
+                             int max_iter, double tol,
+                             double rejection_ratio, int cluster,
+                             int stage_j, void* stream) {
+#define GT_PCG_MF_F64(JT, MT)                                              \
+  return solve<double, JT, MT>(jf, rows, desc, nb, csr_off, inc_j, inc_e, \
+                               b, damp, minv, work, x, iters, n, d,       \
+                               max_iter, tol, rejection_ratio, cluster,   \
+                               stage_j, stream)
+  if (jf_f32) {
+    if (minv_f32) GT_PCG_MF_F64(float, float);
+    GT_PCG_MF_F64(float, double);
+  }
+  if (minv_f32) return static_cast<int>(cudaErrorInvalidValue);
+  GT_PCG_MF_F64(double, double);
+#undef GT_PCG_MF_F64
 }
 
 // `reps` back-to-back cluster barriers (release / acquire, as K6's r.z

@@ -67,9 +67,12 @@ from ..blockfmt import flat_block_mm_tn, flat_block_mv_t
 from ..device_loop import copy_into
 from . import build
 from .launches import (
+    GRAPH_INSTANCES,
+    STORAGE_SUFFIX,
     LaunchStats,
     check_tensors,
     cuda_device,
+    instance,
     launch,
     outputs,
 )
@@ -87,15 +90,6 @@ HESSIAN_SUM_STATS_F64 = LaunchStats("bal.bal_hessian_sum[f64]")
 
 # the kernel's compile-time loss cases, by the loss's exact type
 LOSS_CODES = {Loss: 0, DefaultLoss: 0, HuberLoss: 1, CauchyLoss: 2}
-_STORAGE = {torch.float64: "f64", torch.float32: "f32",
-            torch.bfloat16: "bf16", torch.float16: "f16"}
-# graph dtype -> (its C entries' suffix, the storage dtypes it has
-# instances for)
-_GRAPH = {
-    torch.float32: ("", (torch.float32, torch.bfloat16, torch.float16)),
-    torch.float64: ("_f64", (torch.float64, torch.float32, torch.bfloat16,
-                             torch.float16)),
-}
 # (slot s, slot t) of each Hessian site bal_hessian_sum takes
 PAIRS = ((0, 0), (0, 1), (1, 1))
 _DIMS = (9, 3)  # the camera's and the point's columns
@@ -105,7 +99,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 def _signatures():
     sig = {}
-    for suffix, storages in _GRAPH.values():
+    for suffix, storages in GRAPH_INSTANCES.values():
         sig.update({
             # cams, pts, ids0, ids1, obs, fmask, loss_params, chi2, F,
             # loss, stream
@@ -113,11 +107,11 @@ def _signatures():
             # cams, pts, ids0, ids1, obs, smask, fmask, loss_params, r, jc,
             # jp, chi2, dl, diag_c, diag_p, F, loss, stream
             f"gt_bal_linearize{suffix}": [_P] * 15 + [_L, _I, _P],
-            **{f"gt_bal_scale_b{suffix}_{_STORAGE[s]}": [_P] * 12 + [_L, _P]
-               for s in storages},
+            **{f"gt_bal_scale_b{suffix}_{STORAGE_SUFFIX[s]}":
+               [_P] * 12 + [_L, _P] for s in storages},
             # jc, jp, dl, perm, offsets, out, num_segments, pair,
             # transposed, group_log2, accumulate, stream
-            **{f"gt_bal_hessian_sum{suffix}_{_STORAGE[s]}":
+            **{f"gt_bal_hessian_sum{suffix}_{STORAGE_SUFFIX[s]}":
                [_P] * 6 + [_I] * 5 + [_P] for s in storages},
         })
     return sig
@@ -146,20 +140,10 @@ def gate(problem, name: str) -> Optional[Loss]:
             or type(ft.loss) not in LOSS_CODES
             or problem.data.factors[name].precision is not None
             or not fm.store_jacobians
-            or prec.graph_dtype not in _GRAPH
-            or prec.solver_dtype not in _GRAPH[prec.graph_dtype][1]):
+            or prec.solver_dtype not in GRAPH_INSTANCES.get(
+                prec.graph_dtype, ("", ()))[1]):
         return None
     return ft.loss
-
-
-def _instance(stats, dtype: torch.dtype):
-    """(the ``LaunchStats`` of graph dtype ``dtype``'s instance, its C
-    entries' suffix): ``stats`` is the entry's (float32, float64) pair;
-    raises for a dtype with no instance."""
-    if dtype not in _GRAPH:
-        raise NotImplementedError(
-            f"{stats[0].name}: no kernel for a {dtype} graph")
-    return stats[dtype == torch.float64], _GRAPH[dtype][0]
 
 
 # ---- bal_residual ---------------------------------------------------------
@@ -179,7 +163,7 @@ def bal_residual(cameras, points, ids0, ids1, obs, factor_mask, loss_params,
         return bal_residual_plain(cameras, points, ids0, ids1, obs,
                                   factor_mask, loss_params, loss)
     dt = cameras.dtype
-    stats, suffix = _instance((RESIDUAL_STATS, RESIDUAL_STATS_F64), dt)
+    stats, suffix = instance((RESIDUAL_STATS, RESIDUAL_STATS_F64), dt)
     name = stats.name
     dev = cuda_device(name, cameras)
     F = ids0.shape[0]
@@ -233,7 +217,7 @@ def bal_linearize(cameras, points, ids0, ids1, obs, slot_mask, factor_mask,
             r, chi2, dL = out
         return r, jc, jp, chi2, dL, dc, dp
     dt = cameras.dtype
-    stats, suffix = _instance((LINEARIZE_STATS, LINEARIZE_STATS_F64), dt)
+    stats, suffix = instance((LINEARIZE_STATS, LINEARIZE_STATS_F64), dt)
     name = stats.name
     dev = cuda_device(name, cameras)
     F = ids0.shape[0]
@@ -286,9 +270,9 @@ def bal_scale_b(jc, jp, r, dL, scales_c, scales_p, rows0, rows1,
             stored = out
         return (*stored, bc, bp)
     dt = jc.dtype
-    stats, suffix = _instance((SCALE_B_STATS, SCALE_B_STATS_F64), dt)
+    stats, suffix = instance((SCALE_B_STATS, SCALE_B_STATS_F64), dt)
     name = stats.name
-    if storage not in _GRAPH[dt][1]:
+    if storage not in GRAPH_INSTANCES[dt][1]:
         raise NotImplementedError(
             f"{name}: no kernel for storage {storage} in a {dt} graph")
     dev = cuda_device(name, jc)
@@ -305,7 +289,7 @@ def bal_scale_b(jc, jp, r, dL, scales_c, scales_p, rows0, rows1,
         return None if t is None else t.data_ptr()
 
     launch(load_kernel, stats,
-           f"gt_bal_scale_b{suffix}_{_STORAGE[storage]}",
+           f"gt_bal_scale_b{suffix}_{STORAGE_SUFFIX[storage]}",
            dev, jc.data_ptr(), jp.data_ptr(), r.data_ptr(), dL.data_ptr(),
            ptr(scales_c), ptr(scales_p), rows0.data_ptr(), rows1.data_ptr(),
            *(t.data_ptr() for t in out), F)
@@ -362,10 +346,10 @@ def bal_hessian_sum(jc, jp, dL, plan: SegmentPlan, s: int, t: int,
     if jc.device.type == "cpu":
         return bal_hessian_sum_plain(jc, jp, dL, plan, s, t, transposed, out,
                                      accumulate)
-    stats, suffix = _instance((HESSIAN_SUM_STATS, HESSIAN_SUM_STATS_F64),
+    stats, suffix = instance((HESSIAN_SUM_STATS, HESSIAN_SUM_STATS_F64),
                               dL.dtype)
     name = stats.name
-    if (jc.dtype not in _GRAPH[dL.dtype][1] or jp.dtype != jc.dtype
+    if (jc.dtype not in GRAPH_INSTANCES[dL.dtype][1] or jp.dtype != jc.dtype
             or out.dtype != Precision(dL.dtype, jc.dtype).inv_dtype):
         raise NotImplementedError(
             f"{name}: no kernel for J of {jc.dtype} / {jp.dtype} into "
@@ -384,7 +368,7 @@ def bal_hessian_sum(jc, jp, dL, plan: SegmentPlan, s: int, t: int,
     check_tensors(name, dev, dL.dtype, s_jc=jc, s_jp=jp, f_dL=dL,
                   s_out=out)
     launch(load_kernel, stats,
-           f"gt_bal_hessian_sum{suffix}_{_STORAGE[jc.dtype]}", dev,
+           f"gt_bal_hessian_sum{suffix}_{STORAGE_SUFFIX[jc.dtype]}", dev,
            jc.data_ptr(),
            jp.data_ptr(), dL.data_ptr(),
            None if plan.perm_i32 is None else plan.perm_i32.data_ptr(),

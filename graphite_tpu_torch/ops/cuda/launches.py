@@ -1,6 +1,6 @@
 """Launch counts (and optional CUDA-event timings) of a kernel wrapper,
-the stream a wrapper launches on, and the checks and launch of the
-wrappers of the per-factor kernels (K7, K11).
+the stream a wrapper launches on, and the instance tables, checks and
+launch of the wrappers of the per-factor kernels (K7, K11).
 
 Each wrapper owns one ``LaunchStats`` and adds one to it where it
 launches its kernel, and nowhere else, so a run can show that its main
@@ -104,6 +104,28 @@ def launch(load, stats: LaunchStats, entry: str, device, *args) -> None:
         err = getattr(lib.lib, entry)(*args, stream_ptr(device))
         lib.check(err, stats.name)
         stats.done(ev)
+
+
+# The per-factor kernels' (K7, K11) instances: graph dtype -> (its C
+# entries' suffix, the storage dtypes of the stored J it has instances
+# for); and each storage dtype's suffix in the C entries' names.
+GRAPH_INSTANCES = {
+    torch.float32: ("", (torch.float32, torch.bfloat16, torch.float16)),
+    torch.float64: ("_f64", (torch.float64, torch.float32, torch.bfloat16,
+                             torch.float16)),
+}
+STORAGE_SUFFIX = {torch.float64: "f64", torch.float32: "f32",
+                  torch.bfloat16: "bf16", torch.float16: "f16"}
+
+
+def instance(stats, dtype: torch.dtype):
+    """(the ``LaunchStats`` of graph dtype ``dtype``'s instance, its C
+    entries' suffix): ``stats`` is the entry's (float32, float64) pair;
+    raises for a dtype with no instance."""
+    if dtype not in GRAPH_INSTANCES:
+        raise NotImplementedError(
+            f"{stats[0].name}: no kernel for a {dtype} graph")
+    return stats[dtype == torch.float64], GRAPH_INSTANCES[dtype][0]
 
 
 def check_tensors(name: str, device, float_dtype=torch.float32,

@@ -18,14 +18,20 @@ block-Jacobi inverse blocks (or the identity) as preconditioner.
   the same J').
 - ``fold_jacobians``: J' of every block, flat, in the kernel's layout, in
   at least float32: bf16 or fp16 J is upcast first, as the JAX package
-  folds (float64 J folds in float64, for the plain version's tests).
+  folds; float64 J (FP64_FP64) folds in float64.
 - ``solve_pcg_mf_plain``: ``run_pcg`` with a matvec and a preconditioner
   that take every product and sum in K6's order (the row scatter as a
   padded CSR walk, no atomics) and the plain dots (``tree_dot_plain``, not
   K9, so it stays plain on the card); the CPU path and the kernel's
   oracle.
 - ``solve_pcg_mf``: the plain version for CPU tensors; on a CUDA tensor
-  it launches K6 (float32) or raises. K6 runs the whole solve on one
+  it launches K6 or raises: the float32 instance on float32 vectors (a
+  float32 graph, every input float32), the float64 instance on float64
+  b and damp (a float64 graph: the whole solve in double; J' and the
+  inverse blocks float64 (FP64_FP64), float32 (FP64_FP32, whose
+  ``inv_dtype`` is float32) or float32 and float64 (FP64_BF16), each
+  widened to double in its products as PyTorch promotes them), counted as
+  ``pcg_mf.solve_pcg_mf[f64]``. K6 runs the whole solve on one
   thread-block cluster of ``cluster_size(n * d)`` CTAs (at most 16;
   ``cluster=`` forces another size, for tests and ``kernel_sweep``). A
   CTA owns whole 1,024-entry chunks of the vectors and computes J' p for
@@ -52,6 +58,7 @@ from . import build
 from .launches import LaunchStats, on_device, stream_ptr
 
 STATS = LaunchStats("pcg_mf.solve_pcg_mf")
+STATS_F64 = LaunchStats("pcg_mf.solve_pcg_mf[f64]")  # a float64 graph's
 
 # The JAX package's gate: the folded J must fit its TPU kernel's VMEM
 # budget, the row table its in-kernel gather limit
@@ -61,7 +68,9 @@ STATS = LaunchStats("pcg_mf.solve_pcg_mf")
 # and the shared memory of its chunk sums and block descriptors, which the
 # launch checks. The gate is kept so that the port takes the JAX package's
 # branch at every size, and tests lower it (ROADMAP Next: replace it with
-# K6's own feasibility).
+# K6's own feasibility). It counts the table at 4 bytes an entry, as the
+# JAX package reckons its VMEM, in both dtypes: a float64 problem passes
+# it exactly when its float32 twin does.
 J_BYTES_LIMIT = 6 << 20
 TABLE_ROWS_LIMIT = 4096
 TB = 512  # row-table padding
@@ -71,13 +80,19 @@ CHUNK = 1024  # vector entries of a dot chunk; a CTA owns whole chunks
 MAX_CLUSTER = 16
 THREADS = 512  # a CTA's threads (csrc/pcg_mf.cu kThreads)
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_double)
 _SIGNATURES = {
     # jf, rows, desc, nb, csr_off, inc_j, inc_e, b, damp, minv, work, x,
     # iters, n, d, max_iter, tol, rejection_ratio, cluster, stage_j,
     # stream
     "gt_pcg_mf_f32": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _F, _F, _I, _I, _P],
+    # jf, jf_f32, rows, desc, nb, csr_off, inc_j, inc_e, b, damp, minv,
+    # minv_f32, work, x, iters, n, d, max_iter, tol, rejection_ratio,
+    # cluster, stage_j, stream
+    "gt_pcg_mf_f64": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P,
+                      _P, _P, _I, _I, _I, _D, _D, _I, _I, _P],
     # cluster, threads, reps, stream: microbenchmarks (kernel_sweep)
     "gt_pcg_mf_cluster_barriers": [_I, _I, _I, _P],
     "gt_pcg_mf_cluster_exchanges": [_I, _I, _I, _P],
@@ -314,13 +329,23 @@ def solve_pcg_mf_plain(site: PcgMfSite, jf, b, damp, minv, *, max_iter: int,
 
 
 def work_floats(site: PcgMfSite) -> int:
-    """K6's global scratch: eight vectors of n * d (used where they do not
-    fit in shared memory), and per incidence its gathered p (largest arity
-    x d) and its J' p (largest E)."""
+    """K6's global scratch, in entries of the vectors' dtype (4-byte words
+    of the float32 instance, 8-byte of the float64 one): eight vectors of
+    n * d (used where they do not fit in shared memory), and per incidence
+    its gathered p (largest arity x d) and its J' p (largest E)."""
     amax = max(blk.arity for blk in site.blocks)
     emax = max(blk.E for blk in site.blocks)
     return (8 * site.n * site.d
             + int(site.inc_j.numel()) * (amax * site.d + emax))
+
+
+# the dtypes each instance takes: vectors -> {J': inverse blocks}, as the
+# policies give them (float64 J' comes with float64 blocks only)
+_INSTANCES = {
+    torch.float32: {torch.float32: (torch.float32,)},
+    torch.float64: {torch.float64: (torch.float64,),
+                    torch.float32: (torch.float32, torch.float64)},
+}
 
 
 def solve_pcg_mf(site: PcgMfSite, jf: torch.Tensor, b: torch.Tensor,
@@ -330,49 +355,69 @@ def solve_pcg_mf(site: PcgMfSite, jf: torch.Tensor, b: torch.Tensor,
     """Solve on the site's rows: ``jf`` from ``fold_jacobians``; ``b`` and
     ``damp`` (n * d,); ``minv`` (n, d * d) row-major inverse blocks or None
     (identity). Returns (x, iterations). ``cluster``: K6's CTAs (1-16),
-    ``cluster_size(n * d)`` by default; it changes no bits."""
+    ``cluster_size(n * d)`` by default; it changes no bits. On the card
+    the vectors' dtype picks the instance (see the module docstring); any
+    other dtype raises."""
     if b.device.type == "cpu":
         return solve_pcg_mf_plain(site, jf, b, damp, minv, max_iter=max_iter,
                                   tol=tol, rejection_ratio=rejection_ratio)
     if b.device.type != "cuda":
         raise NotImplementedError(f"no kernel for device {b.device}")
+    f64 = b.dtype == torch.float64
+    stats = STATS_F64 if f64 else STATS
+    if b.dtype not in _INSTANCES:
+        raise NotImplementedError(
+            f"{stats.name}: no kernel for {b.dtype} vectors")
+    j_dtypes = _INSTANCES[b.dtype]
     n, d = site.n, site.d
-    shapes = [("jf", jf, (site.n_j,)), ("b", b, (n * d,)),
-              ("damp", damp, (n * d,))]
+    shapes = [("jf", jf, (site.n_j,), tuple(j_dtypes)),
+              ("b", b, (n * d,), (b.dtype,)),
+              ("damp", damp, (n * d,), (b.dtype,))]
     if minv is not None:
-        shapes.append(("minv", minv, (n, d * d)))
-    for name, t, shape in shapes:
-        if t.dtype != torch.float32:
+        shapes.append(("minv", minv, (n, d * d),
+                       j_dtypes.get(jf.dtype, ())))
+    for name, t, shape, dtypes in shapes:
+        if t.dtype not in dtypes:
             raise NotImplementedError(
-                f"{STATS.name}: the CUDA kernel takes float32, {name} is "
-                f"{t.dtype}")
+                f"{stats.name}: {name} is {t.dtype}; the kernel takes "
+                f"{', '.join(map(str, dtypes))} with {b.dtype} vectors")
         if t.device != b.device or tuple(t.shape) != shape:
-            raise ValueError(f"{STATS.name}: {name} must be {shape} on "
+            raise ValueError(f"{stats.name}: {name} must be {shape} on "
                              f"{b.device}, got {tuple(t.shape)} on "
                              f"{t.device}")
     if site.rows.device != b.device:
-        raise ValueError(f"{STATS.name}: site and b on different devices")
+        raise ValueError(f"{stats.name}: site and b on different devices")
     cluster = cluster_size(n * d) if cluster is None else cluster
     if not 0 < cluster <= MAX_CLUSTER:
-        raise ValueError(f"{STATS.name}: cluster = {cluster} outside "
+        raise ValueError(f"{stats.name}: cluster = {cluster} outside "
                          f"(0, {MAX_CLUSTER}]")
     jf, b, damp = jf.contiguous(), b.contiguous(), damp.contiguous()
     minv = None if minv is None else minv.contiguous()
-    work = torch.empty(work_floats(site), dtype=torch.float32,
-                       device=b.device)
-    x = torch.empty(n * d, dtype=torch.float32, device=b.device)
+    work = torch.empty(work_floats(site), dtype=b.dtype, device=b.device)
+    x = torch.empty(n * d, dtype=b.dtype, device=b.device)
     iters = torch.empty(1, dtype=torch.int32, device=b.device)
+    minv_ptr = None if minv is None else minv.data_ptr()
+    structure = (site.rows.data_ptr(), site.desc.data_ptr(),
+                 len(site.blocks), site.csr_off.data_ptr(),
+                 site.inc_j.data_ptr(), site.inc_e.data_ptr(),
+                 b.data_ptr(), damp.data_ptr())
     lib = load_kernel()
     with on_device(b.device):
         stream = stream_ptr(b.device)
-        ev = STATS.start()
-        err = lib.lib.gt_pcg_mf_f32(
-            jf.data_ptr(), site.rows.data_ptr(), site.desc.data_ptr(),
-            len(site.blocks), site.csr_off.data_ptr(), site.inc_j.data_ptr(),
-            site.inc_e.data_ptr(), b.data_ptr(), damp.data_ptr(),
-            None if minv is None else minv.data_ptr(), work.data_ptr(),
-            x.data_ptr(), iters.data_ptr(), n, d, int(max_iter), float(tol),
-            float(rejection_ratio), cluster, 1, stream)
-        lib.check(err, STATS.name)
-        STATS.done(ev)
+        ev = stats.start()
+        if f64:
+            err = lib.lib.gt_pcg_mf_f64(
+                jf.data_ptr(), int(jf.dtype == torch.float32), *structure,
+                minv_ptr, int(minv is not None
+                              and minv.dtype == torch.float32),
+                work.data_ptr(), x.data_ptr(), iters.data_ptr(), n, d,
+                int(max_iter), float(tol), float(rejection_ratio), cluster,
+                1, stream)
+        else:
+            err = lib.lib.gt_pcg_mf_f32(
+                jf.data_ptr(), *structure, minv_ptr, work.data_ptr(),
+                x.data_ptr(), iters.data_ptr(), n, d, int(max_iter),
+                float(tol), float(rejection_ratio), cluster, 1, stream)
+        lib.check(err, stats.name)
+        stats.done(ev)
     return x, iters[0]

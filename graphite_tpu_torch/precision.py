@@ -10,9 +10,12 @@ FP32_FP32, FP32_BF16 and FP32_FP16. Hessian and Schur values live in
 ``inv_dtype``, so a bf16 or fp16 value never reaches a kernel but as a
 stored Jacobian: K1 and the Schur stage's kernels (K3, K4, K5, K10,
 K13) have float32 and float64 instances; K7 (the BAL factor's
-linearize, chi2 and Hessian sums) has an instance per graph dtype, each
+linearize, chi2 and Hessian sums) and K11 (the SE3 pose-graph factors'
+linearize, chi2 and update) have an instance per graph dtype, each
 taking the J stored in float32, bf16 or fp16, or float64 in a float64
-graph; K2, K6 and K11 take float32 only. The JAX package's
+graph; K6 (the matrix-free PCG) has one per vector dtype, the float64
+one reading a float64 (FP64_FP64) or float32 (FP64_FP32, FP64_BF16)
+fold; K2 takes float32 only. The JAX package's
 ``stream_dtype`` (bf16 gather transport) and ``matmul_precision`` are TPU
 levers and are not ported: every transport is in the site's own dtype and
 TF32 stays off.
@@ -49,7 +52,10 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     PyTorch's float32 CUDA sqrt is an ulp off on some inputs (division and
     multiplication are exact); the float64 square root of a float32 value,
     rounded to float32, is the correctly rounded float32 result, so CPU and
-    GPU agree."""
+    GPU agree. A float64 ``x`` takes ``torch.sqrt``, as the JAX package
+    does: IEEE on the card, but PyTorch's CPU float64 sqrt is an ulp off
+    on some inputs (~0.7% of random ones), so float64 runs on the two
+    devices may part by an ulp there."""
     if x.dtype == torch.float64:
         return torch.sqrt(x)
     return torch.sqrt(x.to(torch.float64)).to(x.dtype)

@@ -7,9 +7,11 @@
   application, divergence rejection with restore, running-minimum rz);
 - the whole solve in one ``solve_pcg_mf`` call (kernel K6 on CUDA, its
   plain version on the CPU) under the JAX package's gate: a block-Jacobi
-  or identity preconditioner, a float32 graph, and a feasible
-  ``plan_pcg_mf`` site (one vertex type, the folded J within
-  ``J_BYTES_LIMIT``); otherwise ``run_pcg`` on ``hessian_matvec``, whose
+  or identity preconditioner and a feasible ``plan_pcg_mf`` site (one
+  vertex type, the folded J within ``J_BYTES_LIMIT``), in a float32 or a
+  float64 graph (the JAX package takes its Pallas kernel in float32 only,
+  the TPU having no float64; K6 has a float64 instance); otherwise
+  ``run_pcg`` on ``hessian_matvec``, whose
   row reductions take kernel K1 on CUDA (``run_pcg_fixed`` inside the
   device-controlled LM iteration). A factor set without stored Jacobians
   (``store_jacobians=False``) closes the K6 gate; ``hessian_matvec``
@@ -70,8 +72,9 @@ class PCGSolver:
         site = None
         # K6 sums J^T J p over every factor inside one kernel: a rank that
         # holds a slice of the factors takes run_pcg, whose JtPv is summed
-        # over the ranks
-        if gdt == torch.float32 and not problem.sharded and isinstance(
+        # over the ranks. Every graph dtype (float32, float64) has an
+        # instance.
+        if not problem.sharded and isinstance(
                 self.preconditioner,
                 (BlockJacobiPreconditioner, IdentityPreconditioner)):
             site = plan_pcg_mf(problem, lin)

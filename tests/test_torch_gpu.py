@@ -39,7 +39,13 @@ on a machine with only PyTorch (``--noconftest`` skips the JAX set-up in
   a prior on the first pose (two factor blocks), and of a 4000-pose sphere
   (23,994 entries: more than 16 chunks of 1,024; also on one CTA): bitwise
   equal to the plain version on the card and on the CPU, bitwise
-  repeatable, the same number of CG steps.
+  repeatable, the same number of CG steps; float64 J' beside float32
+  vectors and fp16 vectors raise. Its float64 instance on sphere2500's
+  first solve under FP64_FP64, FP64_FP32 and FP64_BF16 (float64 or
+  float32 J' and inverse blocks): bitwise the plain version on the card,
+  repeatable, counted ``[f64]``, within 1e-12 of the CPU's plain version
+  (PyTorch's CPU float64 sqrt is an ulp off on some inputs); a bf16 J'
+  raises.
 - K6 and K2 on a cluster of 1, 2, 4, 8 and 16 CTAs (each size the card
   can launch): the same bits as the plain version at every size.
 - The pose-graph LM (SE3, PCGSolver(50, 1e-10, 1e6, block-Jacobi)) on
@@ -152,7 +158,14 @@ on a machine with only PyTorch (``--noconftest`` skips the JAX set-up in
   within 1e-6 of the CPU's log1p); the same bits replayed from a CUDA
   graph and written into ``out``; the pose-graph LM on K11 bitwise the
   CPU run, under the host loop and ``jit_loop``, with every entry
-  launched (the trial chi2 once an iteration).
+  launched (the trial chi2 once an iteration). Its float64 instances
+  (``[f64]``) on the same problems under FP64_FP64, FP64_FP32 and
+  FP64_BF16: bitwise the plain version on the card and repeatable,
+  within 1e-12 of the CPU's (CUDA's double sin, cos and atan2 are not
+  the CPU's), no float32 launch; a float16 pose table raises. The
+  FP64_FP64 pose LM on K11 and K6 ``[f64]`` only (K6 once a solve): the
+  CPU's accept pattern and chi2 within 1e-9, ``jit_loop`` bitwise the
+  host loop.
 - K12 (``csrc/pcg_step.cu``), the CG step's vector work, and K13
   (``csrc/schur_w.cu``'s ``hll_solve``, w = Hll^-1 (t - sub)): each entry
   bitwise its plain version on the card and on the CPU (bjs_apply with and
@@ -761,19 +774,20 @@ def _pose_dataset(kind, n):
 
 
 def _first_pose_solve(device, kind, precond, mu=1e-4, poses=2500,
-                      prior=False):
+                      prior=False, policy=gtt.FP32_FP32):
     """The inputs of K6 on the first LM solve of a pose graph (with a prior
-    on the first pose, left free: two factor blocks)."""
+    on the first pose, left free: two factor blocks) under ``policy``."""
     d = 6 if kind == "se3" else 3
     g, *_ = g2o.build_graph(
-        _pose_dataset(kind, poses), precision=gtt.FP32_FP32,
+        _pose_dataset(kind, poses), precision=policy,
         fix_first=not prior,
         prior_information=np.eye(d) * 1e6 if prior else None)
     problem = g.freeze(device=device)
     lin = linearize(problem, problem.params0)
     site = pcg_mf.plan_pcg_mf(problem, lin)
     assert site is not None
-    damping = torch.tensor(mu, device=problem.device)
+    damping = torch.tensor(mu, dtype=policy.graph_dtype,
+                           device=problem.device)
     minv = None
     if precond == "bj":
         pre = BlockJacobiPreconditioner()
@@ -831,9 +845,54 @@ def test_k6_matches_plain(cuda_device, kind, precond, poses, prior,
     assert int(k) == int(k2) == int(k_ref) == int(k_cpu) > 0
     assert torch.equal(x, again) and torch.equal(x, ref)
     assert torch.equal(x.cpu(), ref_cpu)
-    with pytest.raises(NotImplementedError):
-        pcg_mf.solve_pcg_mf(site, jf.double(), b.double(), damp.double(),
-                            None, **K6_KW)
+    # dtypes with no instance: float64 J' beside float32 vectors, fp16
+    # vectors
+    for bad in ((site, jf.double(), b, damp, None),
+                (site, jf, b.half(), damp.half(), None)):
+        with pytest.raises(NotImplementedError):
+            pcg_mf.solve_pcg_mf(*bad, **K6_KW)
+
+
+@pytest.mark.parametrize("policy,precond,prior", [
+    ("FP64_FP64", "bj", False), ("FP64_FP64", "identity", False),
+    ("FP64_FP32", "bj", False), ("FP64_FP32", "identity", False),
+    ("FP64_BF16", "bj", False), ("FP64_FP64", "bj", True)])
+def test_k6_f64_matches_plain(cuda_device, policy, precond, prior):
+    """K6's float64 instance on sphere2500's first solve under the FP64
+    policies (J' float64 under FP64_FP64, float32 under FP64_FP32 and
+    FP64_BF16; the inverse blocks float32 under FP64_FP32): bitwise its
+    plain version on the card, repeatable, the same CG steps as the plain
+    version on the card and on the CPU, counted under its ``[f64]`` name;
+    a bf16 J', and a float64 J' beside float32 inverse blocks (no policy
+    makes it), raise. Against the CPU's plain version within 1e-12 of the
+    largest entry, not bitwise: PyTorch's CPU float64 sqrt is an ulp off
+    on ~0.7% of inputs (its CUDA sqrt and the kernel's __dsqrt_rn are
+    IEEE), and one such ||r|| (FP64_BF16, CG step 41 of 50) moves the
+    rest of the solve by ~2e-15."""
+    args = _first_pose_solve(cuda_device, "se3", precond, prior=prior,
+                             policy=getattr(gtt, policy))
+    site, jf, b, damp, minv = args
+    assert b.dtype == torch.float64
+    assert jf.dtype == (torch.float64 if policy == "FP64_FP64"
+                        else torch.float32)
+    before = (pcg_mf.STATS.launches, pcg_mf.STATS_F64.launches)
+    x, k = pcg_mf.solve_pcg_mf(*args, **K6_KW)
+    again, k2 = pcg_mf.solve_pcg_mf(*args, **K6_KW)
+    assert (pcg_mf.STATS.launches - before[0],
+            pcg_mf.STATS_F64.launches - before[1]) == (0, 2)
+    (ref, k_ref), (ref_cpu, k_cpu) = _k6_plain_both(args)
+    torch.cuda.synchronize()
+    assert x.dtype == torch.float64
+    assert int(k) == int(k2) == int(k_ref) == int(k_cpu) > 0
+    assert torch.equal(x, again) and torch.equal(x, ref)
+    assert float((x.cpu() - ref_cpu).abs().max()) <= 1e-12 * float(
+        ref_cpu.abs().max())
+    bad = [(site, jf.bfloat16(), b, damp, minv)]
+    if minv is not None and policy == "FP64_FP64":  # no policy makes it
+        bad.append((site, jf, b, damp, minv.float()))
+    for args in bad:
+        with pytest.raises(NotImplementedError):
+            pcg_mf.solve_pcg_mf(*args, **K6_KW)
 
 
 def _cluster_or_skip(run, cluster):
@@ -2412,13 +2471,14 @@ def _k11_problem(device, size, loss, policy):
 
 def _k11_inputs(problem):
     """Seeded padded scale rows (a slot of each set), and a step and
-    scales for the update."""
+    scales for the update, in the graph dtype."""
     rng = np.random.default_rng(5)
     dev, n = problem.device, problem.seg_rows["se3_pose"]
 
     def rand(*shape, scale=1.0):
         return torch.as_tensor(scale * rng.standard_normal(shape),
-                               dtype=torch.float32, device=dev)
+                               dtype=problem.precision.graph_dtype,
+                               device=dev)
 
     scales = {name: tuple(rand(n + 1, 6).abs() for _ in fa.ids)
               for name, fa in problem.data.factors.items()}
@@ -2472,6 +2532,8 @@ def _k11_calls(problem, inputs, plain, out=None):
 
 K11_STATS = (k11.RESIDUAL_STATS, k11.LINEARIZE_STATS, k11.SCALE_B_STATS,
              k11.UPDATE_STATS)
+K11_STATS_F64 = (k11.RESIDUAL_STATS_F64, k11.LINEARIZE_STATS_F64,
+                 k11.SCALE_B_STATS_F64, k11.UPDATE_STATS_F64)
 
 
 def _k11_same(out, ref, cpu=False, cauchy=False):
@@ -2511,6 +2573,99 @@ def test_k11_matches_plain_bitwise(cuda_device, size, policy, loss):
     _k11_same(out, again)
     _k11_same(out, ref)
     _k11_same(out, ref_cpu, cpu=True, cauchy=loss == "cauchy")
+
+
+# the float64 instances: the special cases under the three FP64 policies
+# and every loss; sphere2500 under FP64_FP64
+K11_F64_CASES = [("special120", policy, loss)
+                 for policy in ("FP64_FP64", "FP64_FP32", "FP64_BF16")
+                 for loss in K11_LOSSES] + [
+    ("sphere2500", "FP64_FP64", "default")]
+
+
+def _k11_close_f64(out, ref):
+    """The card's float64 entries against the CPU's plain versions: the
+    card's double sin, cos and atan2 are not the CPU's, so within 1e-12
+    of each array's largest entry (and of 1) where float64, and one ulp of
+    the storage dtype where the stored J is float32 or bf16."""
+    assert [t for t, _ in out] == [t for t, _ in ref]
+    for i, ((tag, o), (_, r)) in enumerate(zip(out, ref)):
+        o = o.cpu()
+        assert o.dtype == r.dtype and o.shape == r.shape, (i, tag)
+        scale = max(float(r.double().abs().max()), 1.0)
+        tol = {torch.float64: 1e-12, torch.float32: 2.0 ** -23,
+               torch.bfloat16: 2.0 ** -7}[r.dtype]
+        assert float((o.double() - r.double()).abs().max()) <= tol * scale, (
+            i, tag)
+
+
+@pytest.mark.parametrize("size,policy,loss", K11_F64_CASES)
+def test_k11_f64_matches_plain_bitwise(cuda_device, size, policy, loss):
+    """K11's float64 instances (a float64 graph, counted ``[f64]``, no
+    float32 launch): each entry bitwise its plain version on the card and
+    repeatable, within 1e-12 of the CPU's plain version; a float16 pose
+    table raises."""
+    policy = getattr(gtt, policy)
+    problem = _k11_problem(cuda_device, size, loss, policy)
+    cpu = _k11_problem("cpu", size, loss, policy)
+    inputs = _k11_inputs(problem)
+    before = [s.launches for s in K11_STATS + K11_STATS_F64]
+    out, _ = _k11_calls(problem, inputs, plain=False)
+    again, _ = _k11_calls(problem, inputs, plain=False)
+    sets = len(problem.factor_meta)
+    assert ([s.launches - b for s, b in zip(K11_STATS + K11_STATS_F64,
+                                            before)]
+            == [0, 0, 0, 0, 2 * sets, 2 * sets, 4 * sets, 2])
+    ref, _ = _k11_calls(problem, inputs, plain=True)
+    ref_cpu, _ = _k11_calls(cpu, _k11_on_cpu(inputs), plain=True)
+    torch.cuda.synchronize()
+    _k11_same(out, again)
+    _k11_same(out, ref)
+    _k11_close_f64(out, ref_cpu)
+    _, dx, sc = inputs
+    va = problem.data.vertices["se3_pose"]
+    with pytest.raises(NotImplementedError):
+        k11.se3_update(problem.params0["se3_pose"].half(), dx.half(),
+                       sc.half(), problem.seg_start["se3_pose"],
+                       problem.seg_rows["se3_pose"], va.active_row,
+                       va.active)
+
+
+@pytest.mark.parametrize("jit_loop", [False, True])
+def test_pose_lm_fp64_on_k11_and_k6(cuda_device, jit_loop):
+    """10 LM iterations of PCGSolver(50, 1e-10, 1e6, block-Jacobi) on the
+    120-pose sphere with its prior set under FP64_FP64: every K11 entry
+    and K6 launch their float64 instances and no float32 one (K6 once a
+    solve, the trial chi2 once a set and iteration); the CPU's accept
+    pattern and chi2 within 1e-9 (the card's double transcendentals);
+    under ``jit_loop`` the replays bitwise the host loop."""
+    from graphite_tpu_torch.ops.cuda.launches import REGISTRY, snapshot
+
+    def run(dev, jit=False):
+        problem = _k11_problem(dev, "special120", "default", gtt.FP64_FP64)
+        return levenberg_marquardt(
+            problem, PCGSolver(50, 1e-10, 1e6, BlockJacobiPreconditioner()),
+            options=LevenbergMarquardtOptions(iterations=10, jit_loop=jit))
+
+    for s in REGISTRY:
+        s.reset()
+    gpu = run(cuda_device)
+    launches = snapshot()
+    for s, s64 in zip(K11_STATS + (pcg_mf.STATS,),
+                      K11_STATS_F64 + (pcg_mf.STATS_F64,)):
+        assert launches[s64.name] > 0 and launches[s.name] == 0, s.name
+    n = len(gpu.history)
+    assert launches[pcg_mf.STATS_F64.name] == n
+    assert launches[k11.RESIDUAL_STATS_F64.name] == 2 * n
+    assert gpu.chi2 < gpu.initial_chi2
+    if jit_loop:
+        _bitwise(run(cuda_device, jit=True), gpu)
+        return
+    cpu = run("cpu")
+    assert ([h["accepted"] for h in gpu.history]
+            == [h["accepted"] for h in cpu.history])
+    np.testing.assert_allclose([h["chi2"] for h in gpu.history],
+                               [h["chi2"] for h in cpu.history], rtol=1e-9)
 
 
 def _k11_on_cpu(inputs):

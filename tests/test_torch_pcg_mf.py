@@ -6,9 +6,14 @@ plan, on the CPU.
   Pallas ``solve_pcg_mf``, run in interpret mode as ``tests/test_pcg_mf.py``
   runs it, and through the plain version: x within rtol 2e-4, atol 2e-5
   (that test's own tolerance), block-Jacobi and identity, SE3 and SE2.
-- float64: the plain version against the port's generic branch
-  (``run_pcg`` on ``hessian_matvec``) to 1e-10, and ``PCGSolver`` takes
-  the plain version exactly when the gate admits the problem.
+- float64 (K6's float64 instance): the same inputs, in float64, through
+  the JAX package's generic CG (its ``PCGSolver``, which never takes the
+  Pallas kernel in float64) and the plain version, x within 1e-10; the
+  plain version against the port's generic branch (``run_pcg`` on
+  ``hessian_matvec``, the gate shut by ``J_BYTES_LIMIT = 0``) to 1e-10;
+  and ``PCGSolver`` takes the plain version exactly when the gate admits
+  the problem, in a float32 and in a float64 graph (FP64_FP64, and
+  FP64_FP32's float32 fold and inverse blocks).
 - ``plan_pcg_mf``'s gate agrees with the JAX package's: feasible on pose
   graphs, None on BAL (two vertex types), None with ``J_BYTES_LIMIT`` or
   ``TABLE_ROWS_LIMIT`` lowered; the fixed pose's slots point at the trash
@@ -37,6 +42,10 @@ from graphite_tpu.linearize import linearize as jax_linearize
 from graphite_tpu.preconditioners import (
     BlockJacobiPreconditioner as JaxBlockJacobi,
 )
+from graphite_tpu.preconditioners import (
+    IdentityPreconditioner as JaxIdentity,
+)
+from graphite_tpu.solvers import PCGSolver as JaxPCGSolver
 from graphite_tpu_torch.io import bal as tbal
 from graphite_tpu_torch.io import g2o as tg2o
 from graphite_tpu_torch.io import synthetic as tsyn
@@ -76,6 +85,17 @@ def _t(a):
     return torch.tensor(np.asarray(a))
 
 
+def _linearization_from_jax(lj):
+    """The port's ``Linearization`` holding the JAX package's arrays."""
+    return Linearization(
+        residuals={k: _t(v) for k, v in lj.residuals.items()},
+        jacobians={k: tuple(_t(a) for a in v)
+                   for k, v in lj.jacobians.items()},
+        chi2_vec={k: _t(v) for k, v in lj.chi2_vec.items()},
+        chi2_deriv={k: _t(v) for k, v in lj.chi2_deriv.items()},
+        scales=_t(lj.scales), diag=_t(lj.diag), b=_t(lj.b), chi2=_t(lj.chi2))
+
+
 @pytest.mark.parametrize("kind", sorted(DATASETS))
 @pytest.mark.parametrize("precond", ["bj", "identity"])
 def test_plain_matches_jax_kernel_f32(_interpret, kind, precond):
@@ -98,13 +118,7 @@ def test_plain_matches_jax_kernel_f32(_interpret, kind, precond):
                                          kw["rejection_ratio"]))
 
     pp = _problem(kind, gtt.FP32_FP32)
-    lin = Linearization(
-        residuals={k: _t(v) for k, v in lj.residuals.items()},
-        jacobians={k: tuple(_t(a) for a in v)
-                   for k, v in lj.jacobians.items()},
-        chi2_vec={k: _t(v) for k, v in lj.chi2_vec.items()},
-        chi2_deriv={k: _t(v) for k, v in lj.chi2_deriv.items()},
-        scales=_t(lj.scales), diag=_t(lj.diag), b=_t(lj.b), chi2=_t(lj.chi2))
+    lin = _linearization_from_jax(lj)
     site = pcg_mf.plan_pcg_mf(pp, lin)
     assert (site.vt_name, site.d, site.n) == (name, site_j["d"],
                                                site_j["n"])
@@ -127,14 +141,50 @@ def test_plain_matches_jax_kernel_f32(_interpret, kind, precond):
 
 @pytest.mark.parametrize("kind", sorted(DATASETS))
 @pytest.mark.parametrize("precond", ["bj", "identity"])
-def test_plain_matches_generic_branch_f64(kind, precond):
+def test_plain_matches_jax_generic_f64(kind, precond):
+    gj, *_ = jg2o.build_graph(DATASETS[kind](jsyn), precision=gt.FP64_FP64)
+    pj = gj.freeze()
+    lj = jax_linearize(pj, pj.params0)
+    pre_j = JaxBlockJacobi() if precond == "bj" else JaxIdentity()
+    solver_j = JaxPCGSolver(30, 1e-14, 1e8, pre_j)
+    mu = 1e-3
+    ref, _ = solver_j.solve(pj, lj, solver_j.prepare(pj, lj), mu, False)
+    ref = np.asarray(ref)
+
+    pp = _problem(kind, gtt.FP64_FP64)
+    lin = _linearization_from_jax(lj)
+    site = pcg_mf.plan_pcg_mf(pp, lin)
+    name = site.vt_name
+    inv_rows = None
+    if precond == "bj":
+        state = pre_j.set_damping(pj, lj, pre_j.prepare(pj, lj),
+                                  jnp.float64(mu), False)
+        inv_rows = _t(state.inv_blocks[name][pj.row_vertex[name]])
+    damp = _t(jnp.clip(lj.diag, 1e-6, 1e32) * mu)
+    x, k = pcg_mf.solve_pcg_mf_plain(
+        site, pcg_mf.fold_jacobians(pp, lin, site),
+        pp.rows_view(lin.b, name).reshape(-1),
+        pp.rows_view(damp, name).reshape(-1), inv_rows, max_iter=30,
+        tol=1e-14, rejection_ratio=1e8)
+    assert x.dtype == torch.float64 and int(k) > 0
+    assert (np.abs(x.numpy() - ref[:pp.dim_h]).max()
+            <= 1e-10 * np.abs(ref[:pp.dim_h]).max())
+
+
+@pytest.mark.parametrize("kind", sorted(DATASETS))
+@pytest.mark.parametrize("precond", ["bj", "identity"])
+def test_plain_matches_generic_branch_f64(monkeypatch, kind, precond):
     pp = _problem(kind, gtt.FP64_FP64)
     lin = linearize(pp, pp.params0)
     pre = (BlockJacobiPreconditioner() if precond == "bj"
            else IdentityPreconditioner())
     solver = PCGSolver(30, 1e-14, 1e8, pre)
     mu = torch.tensor(1e-3, dtype=torch.float64)
-    x_gen, _ = solver.solve(pp, lin, solver.prepare(pp, lin), mu, False)
+    # the generic branch: the gate shut (a float64 graph now takes K6)
+    with monkeypatch.context() as m:
+        m.setattr(pcg_mf, "J_BYTES_LIMIT", 0)
+        x_gen, _ = solver.solve(pp, lin, solver.prepare(pp, lin), mu, False)
+    assert pp._cache.pop("pcg_mf_site") is None
     site = pcg_mf.plan_pcg_mf(pp, lin)
     state = pre.set_damping(pp, lin, pre.prepare(pp, lin), mu, False)
     minv = (row_inverse_blocks(pp, state, site.vt_name) if precond == "bj"
@@ -151,10 +201,10 @@ def test_plain_matches_generic_branch_f64(kind, precond):
     assert bool((x_gen[pp.dim_h:] == 0).all())
 
 
-@pytest.mark.parametrize("precond", ["bj", "identity"])
-def test_solver_takes_the_mf_branch_in_f32(monkeypatch, precond):
-    """A float32 pose graph solves through ``solve_pcg_mf``; with the gate
-    closed it takes ``run_pcg`` and lands within float32 rounding."""
+def _solve_with_gate_open_and_shut(monkeypatch, precond, policy):
+    """``PCGSolver.solve`` on the SE3 graph under ``policy``, the gate
+    open then shut (``J_BYTES_LIMIT = 0``): (the two solutions, the
+    ``solve_pcg_mf`` calls, the dtypes of their J', b and inverses)."""
     pre = (BlockJacobiPreconditioner() if precond == "bj"
            else IdentityPreconditioner())
     solver = PCGSolver(20, 1e-12, 1e6, pre)
@@ -162,21 +212,51 @@ def test_solver_takes_the_mf_branch_in_f32(monkeypatch, precond):
     real = pcg_mf.solve_pcg_mf
     from graphite_tpu_torch.solvers import pcg as pcg_module
 
-    def counted(*args, **kwargs):
-        calls.append(1)
-        return real(*args, **kwargs)
+    def counted(site, jf, b, damp, minv, **kwargs):
+        calls.append((jf.dtype, b.dtype, None if minv is None
+                      else minv.dtype))
+        return real(site, jf, b, damp, minv, **kwargs)
 
     monkeypatch.setattr(pcg_module, "solve_pcg_mf", counted)
     out = []
     for limit in (pcg_mf.J_BYTES_LIMIT, 0):
         monkeypatch.setattr(pcg_mf, "J_BYTES_LIMIT", limit)
-        pp = _problem("se3", gtt.FP32_FP32)
+        pp = _problem("se3", policy)
         lin = linearize(pp, pp.params0)
         x, _ = solver.solve(pp, lin, solver.prepare(pp, lin), 1e-3, False)
         out.append(x)
+    return out, calls
+
+
+@pytest.mark.parametrize("precond", ["bj", "identity"])
+def test_solver_takes_the_mf_branch_in_f32(monkeypatch, precond):
+    """A float32 pose graph solves through ``solve_pcg_mf``; with the gate
+    closed it takes ``run_pcg`` and lands within float32 rounding."""
+    out, calls = _solve_with_gate_open_and_shut(monkeypatch, precond,
+                                                gtt.FP32_FP32)
     assert len(calls) == 1
     assert float((out[0] - out[1]).abs().max()
                  / out[1].abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("precond", ["bj", "identity"])
+@pytest.mark.parametrize("policy", ["FP64_FP64", "FP64_FP32"])
+def test_solver_takes_the_mf_branch_in_f64(monkeypatch, precond, policy):
+    """A float64 pose graph solves through ``solve_pcg_mf`` (float64 b;
+    J' and the inverse blocks float64 under FP64_FP64, float32 under
+    FP64_FP32) exactly when the gate admits it; with the gate closed it
+    takes ``run_pcg``, within 1e-10 (FP64_FP64: both in double, one
+    order of sums apart) or 1e-6 (FP64_FP32: the generic branch widens
+    the float32 J without folding it)."""
+    out, calls = _solve_with_gate_open_and_shut(monkeypatch, precond,
+                                                getattr(gtt, policy))
+    low = torch.float64 if policy == "FP64_FP64" else torch.float32
+    assert calls == [(low, torch.float64,
+                      low if precond == "bj" else None)]
+    assert out[0].dtype == out[1].dtype == torch.float64
+    tol = 1e-10 if policy == "FP64_FP64" else 1e-6
+    assert float((out[0] - out[1]).abs().max()
+                 / out[1].abs().max()) <= tol
 
 
 def _gate_pair(monkeypatch, attr, value):

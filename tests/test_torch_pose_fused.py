@@ -9,24 +9,29 @@ pose-graph factors' linearization, chi2 and update, on the CPU.
   diagonal's and b's rows, the stored J), on the 120-pose sphere with
   the special cases of ``tests/torch_k11_cases.py`` (a prior set, a
   fixed first pose, disabled factors, negative-w quaternions,
-  near-identity errors, errors near and at pi) under FP32_FP32,
-  FP32_BF16 and FP32_FP16 and the default, Huber and Cauchy losses, and
-  on sphere2500.
+  near-identity errors, errors near and at pi) under the six policies
+  (FP32_FP32, FP32_BF16, FP32_FP16, and the float64 instances' FP64_FP64,
+  FP64_FP32, FP64_BF16) and the default, Huber and Cauchy losses, and
+  on sphere2500 (FP32_FP32, FP64_FP64).
 - The kernel's arithmetic (``csrc/se3_dual.cuh``), built for the host
   with g++ (no multiply-add contraction, as nvcc's -fmad=false): each
   factor's residual, its jvp primal and every Jacobian column bitwise
   ``torch.func.jvp`` through the retraction, and the trial chi2's
   residual bitwise the model's, on those problems and on random poses,
-  identity rotations, w = 0 and tiny rotations.
+  identity rotations, w = 0 and tiny rotations. Its double build against
+  the float64 jvp branch: bitwise where the C library's sin, cos and
+  atan2 agree with PyTorch's (throughout on identity and tiny rotations,
+  most factors elsewhere), else within 16 ulps (``F64_HOST_ULPS``).
 - ``linearize(out=)`` writes the same bits as a new call into the same
   tensors.
 - Against the JAX package on FP32_FP32 (a fixed first pose, and a prior
   in its place): ``linearize`` and ``compute_chi2`` within 1e-5 of each
   array's largest entry (``test_torch_precision``'s SE3 tolerance), and
   10 LM iterations of PCGSolver(50, 1e-10, 1e6, block-Jacobi): the same
-  accept pattern, chi2 within 1e-3 per iteration.
-- The gates shut for FP64 graphs, SE(2), dynamic Jacobians and a factor
-  with its own ``jacobian_fn``.
+  accept pattern, chi2 within 1e-3 per iteration; on FP64_FP64 (the JAX
+  package in float64) within 1e-10, and chi2 within 1e-9.
+- The gates shut for SE(2), dynamic Jacobians and a factor with its own
+  ``jacobian_fn``; open for the float64 graphs.
 """
 
 import ctypes
@@ -79,7 +84,8 @@ from torch_k11_cases import LOSSES, k11_problem
 
 torch.set_num_threads(1)
 
-POLICIES = ["FP32_FP32", "FP32_BF16", "FP32_FP16"]
+POLICIES = ["FP32_FP32", "FP32_BF16", "FP32_FP16", "FP64_FP64", "FP64_FP32",
+            "FP64_BF16"]
 
 
 def _bits(t):
@@ -121,8 +127,9 @@ def _passes(problem):
 
 
 CASES = [("special120", loss, policy) for policy in POLICIES
-         for loss in sorted(LOSSES)] + [("sphere2500", "default",
-                                         "FP32_FP32")]
+         for loss in sorted(LOSSES)] + [
+    ("sphere2500", "default", "FP32_FP32"),
+    ("sphere2500", "default", "FP64_FP64")]
 
 
 @pytest.mark.parametrize("size,loss,policy", CASES)
@@ -155,7 +162,7 @@ def test_entries_bitwise_generic_pieces(size, loss, policy):
     (J . P J dL), the stored J and b's rows (-J^T dL P r)."""
     problem = _problem(size, loss, policy)
     params = problem.params0
-    acc = torch.float32
+    acc = problem.precision.acc_dtype  # the graph dtype
     rng = np.random.default_rng(9)
     for name, fm in problem.factor_meta.items():
         fa = problem.data.factors[name]
@@ -183,7 +190,7 @@ def test_entries_bitwise_generic_pieces(size, loss, policy):
                   * d_ref.to(acc)[:, None], f"{name} diag slot {s}")
         n = problem.seg_rows["se3_pose"]
         flat_scales = torch.as_tensor(rng.random(problem.dim_x),
-                                      dtype=torch.float32)
+                                      dtype=problem.precision.graph_dtype)
         padded = problem.rows_view_padded(flat_scales, "se3_pose")
         stored, b = k11.se3_scale_b(J, r, dL, fa.precision,
                                     (padded,) * len(J), fa.rows,
@@ -202,14 +209,14 @@ def test_entries_bitwise_generic_pieces(size, loss, policy):
 
 SHIM = r"""
 #include "se3_dual.cuh"
-extern "C" void jvp_rows(const float* xa, const float* xb, const float* z,
-                         long long F, int nslot, float* r, float* J,
-                         float* r_model) {
+template <class T>
+void rows(const T* xa, const T* xb, const T* z, long long F, int nslot,
+          T* r, T* J, T* r_model) {
   const int K = 6 * nslot;
   for (long long f = 0; f < F; ++f) {
-    const float* x[2] = {xa + 7 * f, xb + 7 * f};
+    const T* x[2] = {xa + 7 * f, xb + 7 * f};
     for (int k = 0; k < K; ++k) {
-      float rr[6], jt[6];
+      T rr[6], jt[6];
       if (nslot == 2) se3::residual_jvp<2>(x, z + 7 * f, k, rr, jt);
       else se3::residual_jvp<1>(x, z + 7 * f, k, rr, jt);
       for (int e = 0; e < 6; ++e) {
@@ -220,6 +227,16 @@ extern "C" void jvp_rows(const float* xa, const float* xb, const float* z,
     if (nslot == 2) se3::residual<2>(x, z + 7 * f, r_model + 6 * f);
     else se3::residual<1>(x, z + 7 * f, r_model + 6 * f);
   }
+}
+extern "C" void jvp_rows(const float* xa, const float* xb, const float* z,
+                         long long F, int nslot, float* r, float* J,
+                         float* r_model) {
+  rows(xa, xb, z, F, nslot, r, J, r_model);
+}
+extern "C" void jvp_rows_f64(const double* xa, const double* xb,
+                             const double* z, long long F, int nslot,
+                             double* r, double* J, double* r_model) {
+  rows(xa, xb, z, F, nslot, r, J, r_model);
 }
 """
 
@@ -236,21 +253,21 @@ def host_shim(tmp_path_factory):
                     str(lib), str(src)], check=True, capture_output=True)
     shim = ctypes.CDLL(str(lib))
     P = ctypes.c_void_p
-    shim.jvp_rows.argtypes = [P, P, P, ctypes.c_longlong, ctypes.c_int, P, P,
-                              P]
+    for fn in (shim.jvp_rows, shim.jvp_rows_f64):
+        fn.argtypes = [P, P, P, ctypes.c_longlong, ctypes.c_int, P, P, P]
     return shim
 
 
 def _host_rows(shim, poses, obs):
-    F, nslot = obs.shape[0], len(poses)
+    F, nslot, dt = obs.shape[0], len(poses), obs.dtype
     x = [p.contiguous() for p in poses]
     x = x + x[:1] if nslot == 1 else x
-    r = torch.empty(F, 6 * nslot, 6)
-    J = torch.empty(F, 6 * nslot, 6)
-    r_model = torch.empty(F, 6)
-    shim.jvp_rows(x[0].data_ptr(), x[1].data_ptr(), obs.contiguous()
-                  .data_ptr(), F, nslot, r.data_ptr(), J.data_ptr(),
-                  r_model.data_ptr())
+    r = torch.empty(F, 6 * nslot, 6, dtype=dt)
+    J = torch.empty(F, 6 * nslot, 6, dtype=dt)
+    r_model = torch.empty(F, 6, dtype=dt)
+    fn = shim.jvp_rows_f64 if dt == torch.float64 else shim.jvp_rows
+    fn(x[0].data_ptr(), x[1].data_ptr(), obs.contiguous().data_ptr(), F,
+       nslot, r.data_ptr(), J.data_ptr(), r_model.data_ptr())
     return r, J, r_model
 
 
@@ -310,6 +327,60 @@ def test_host_build_bitwise_jvp(host_shim, case):
         _check_host(host_shim, poses, obs)
 
 
+# The double build against the jvp branch in float64. The host build calls
+# the C library's sin, cos and atan2; PyTorch's CPU float64 ops call its
+# own vectorised versions, which differ from them by an ulp on ~0.2% (sin,
+# cos) and ~2.5% (atan2) of arguments. A factor whose transcendentals
+# agree is bitwise; one whose do not is held to F64_HOST_ULPS ulps of the
+# larger of 1 and its largest entry (the poses' scale: a residual at its
+# measurement is rounding noise of O(1) coordinates). Identity and tiny
+# rotations take no transcendental's tangent and are bitwise throughout.
+F64_HOST_ULPS = 16
+F64_HOST_BITWISE = ("identity", "tiny")
+
+
+def _check_host_f64(shim, poses, obs, bitwise):
+    ftype = pg.SE3_BETWEEN if len(poses) == 2 else pg.SE3_PRIOR
+    r, J, r_model = _host_rows(shim, poses, obs)
+    r_ref, j_ref = _auto_residual_and_jacobians(ftype, poses, (obs,))
+    got = torch.cat([r.flatten(1), r_model,
+                     *(J[:, 6 * s:6 * s + 6].transpose(1, 2).flatten(1)
+                       for s in range(len(poses)))], 1)
+    ref = torch.cat([r_ref.repeat(1, J.shape[1]),
+                     ftype.residual_fn(*poses, obs).reshape(-1, 6),
+                     *(j.flatten(1) for j in j_ref)], 1)
+    same = (_bits(got) == _bits(ref)).all(1)
+    scale = ref.abs().amax(1).clamp_min(1.0)
+    ulps = (got - ref).abs().amax(1) / (torch.finfo(torch.float64).eps
+                                        * scale)
+    assert float(ulps.max()) <= F64_HOST_ULPS, float(ulps.max())
+    if bitwise:
+        assert bool(same.all()), int((~same).sum())
+    return int(same.sum()), same.numel()
+
+
+@pytest.mark.parametrize("case", ["special120", "sphere2500", "random",
+                                  "identity", "w_zero", "tiny"])
+def test_host_build_f64_against_jvp(host_shim, case):
+    """The double instance of the header: each factor bitwise the float64
+    jvp branch where the C library's and PyTorch's transcendentals agree,
+    else within ``F64_HOST_ULPS``; most factors bitwise."""
+    counts = []
+    if case in ("special120", "sphere2500"):
+        problem = _problem(case, policy="FP64_FP64")
+        for name in problem.factor_meta:
+            counts.append(_check_host_f64(
+                host_shim, _gather_params(problem, problem.params0, name),
+                problem.data.factors[name].obs, False))
+    else:
+        for poses, obs in _random_sets(case):
+            counts.append(_check_host_f64(
+                host_shim, tuple(p.double() for p in poses), obs.double(),
+                case in F64_HOST_BITWISE))
+    same, total = map(sum, zip(*counts))
+    assert same >= 0.85 * total, (same, total)
+
+
 # ---- out= ----------------------------------------------------------------
 
 @pytest.mark.parametrize("policy", ["FP32_FP32", "FP32_FP16"])
@@ -342,50 +413,62 @@ def test_linearize_out_same_bits(policy):
 PRIOR = np.eye(6) * 1e4
 
 
-def _jax_pair(prior):
-    """The 120-pose sphere in both packages, FP32_FP32: the first pose
-    fixed, or (``prior``) a prior on it in its place."""
+def _jax_pair(prior, policy="FP32_FP32"):
+    """The 120-pose sphere in both packages under ``policy``: the first
+    pose fixed, or (``prior``) a prior on it in its place."""
     kw = {"prior_information": PRIOR} if prior else {}
     gj, *_ = jax_g2o.build_graph(
         jax_synth.make_sphere_se3(120, seed=0, loop_every=7),
-        precision=gt.FP32_FP32, **kw)
+        precision=getattr(gt, policy), **kw)
     gp, *_ = g2o.build_graph(
         synthetic.make_sphere_se3(120, seed=0, loop_every=7),
-        precision=gtt.FP32_FP32, **kw)
+        precision=getattr(gtt, policy), **kw)
     return gj.freeze(), gp.freeze(device="cpu")
 
 
-def _close(out, ref, tol=1e-5):
+def _close(out, ref, tol):
     out = out.double().numpy() if torch.is_tensor(out) else np.asarray(out)
     ref = np.asarray(ref, dtype=np.float64)
     assert out.shape == ref.shape
     assert np.abs(out - ref).max() <= tol * max(np.abs(ref).max(), 1e-300)
 
 
-@pytest.mark.parametrize("prior", [False, True])
-def test_linearize_and_chi2_match_jax(prior):
-    pj, pp = _jax_pair(prior)
+def _linearize_and_chi2_vs_jax(prior, policy, tol):
+    pj, pp = _jax_pair(prior, policy)
     assert all(k11.gate(pp, n) is not None for n in pp.factor_meta)
     lj = jax_linearize(pj, pj.params0)
     lp = linearize(pp, pp.params0)
     for f in lj.residuals:
-        _close(lp.residuals[f], lj.residuals[f])
+        _close(lp.residuals[f], lj.residuals[f], tol)
         for jt, jj in zip(lp.jacobians[f], lj.jacobians[f], strict=True):
-            _close(jt, jj)
+            _close(jt, jj, tol)
     for field in ("b", "chi2", "scales", "diag"):
-        _close(getattr(lp, field), getattr(lj, field))
+        _close(getattr(lp, field), getattr(lj, field), tol)
     # compute_chi2 at a moved point, the same numbers on both sides
     rng = np.random.default_rng(2)
-    poses = np.asarray(pj.params0["se3_pose"], dtype=np.float64)
+    poses = np.array(pj.params0["se3_pose"], dtype=np.float64)
     poses[:, :3] += 0.01 * rng.standard_normal((len(poses), 3))
-    moved = params_from_numpy({"se3_pose": poses}, dtype=torch.float32)
+    dt = pp.precision.graph_dtype
+    moved = params_from_numpy({"se3_pose": poses}, dtype=dt)
+    jdt = jnp.float64 if dt == torch.float64 else jnp.float32
     _close(compute_chi2(pp, moved), jax_compute_chi2(
-        pj, {"se3_pose": jnp.asarray(poses, dtype=jnp.float32)}))
+        pj, {"se3_pose": jnp.asarray(poses, dtype=jdt)}), tol)
 
 
 @pytest.mark.parametrize("prior", [False, True])
-def test_lm_matches_jax(prior):
-    pj, pp = _jax_pair(prior)
+def test_linearize_and_chi2_match_jax(prior):
+    _linearize_and_chi2_vs_jax(prior, "FP32_FP32", 1e-5)
+
+
+@pytest.mark.parametrize("prior", [False, True])
+def test_linearize_and_chi2_match_jax_f64(prior):
+    """FP64_FP64 (the JAX package in float64): within 1e-10 of each
+    array's largest entry."""
+    _linearize_and_chi2_vs_jax(prior, "FP64_FP64", 1e-10)
+
+
+def _lm_vs_jax(prior, policy, rtol):
+    pj, pp = _jax_pair(prior, policy)
     ref = jax_lm(pj, JaxPCGSolver(50, 1e-10, 1e6, JaxBlockJacobi()),
                  options=JaxOptions(iterations=10, initial_damping=1e-4))
     out = levenberg_marquardt(
@@ -396,7 +479,20 @@ def test_lm_matches_jax(prior):
             == [bool(h["accepted"]) for h in ref.history])
     np.testing.assert_allclose([h["chi2"] for h in out.history],
                                [float(h["chi2"]) for h in ref.history],
-                               rtol=1e-3)
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("prior", [False, True])
+def test_lm_matches_jax(prior):
+    _lm_vs_jax(prior, "FP32_FP32", 1e-3)
+
+
+@pytest.mark.parametrize("prior", [False, True])
+def test_lm_matches_jax_f64(prior):
+    """FP64_FP64: K11's and K6's plain versions against the JAX package's
+    jacfwd and generic float64 CG, the same accept pattern and chi2
+    within 1e-9 per iteration."""
+    _lm_vs_jax(prior, "FP64_FP64", 1e-9)
 
 
 # ---- the gates ------------------------------------------------------------
@@ -424,9 +520,14 @@ def _off_gate(case):
 @pytest.mark.parametrize("case", ["FP64_FP64", "FP64_FP32", "se2",
                                   "dynamic", "jacobian_fn"])
 def test_gate_shut_off_its_path(case):
+    """The gates shut for SE(2), dynamic Jacobians and a factor with its
+    own Jacobian (the update gate open for the last two, whose vertices
+    are SE3), and open for the float64 graphs of FP64_FP64 and
+    FP64_FP32 (K11's float64 instances)."""
     problem = _off_gate(case)
+    f64 = case.startswith("FP64")
     for name in problem.factor_meta:
-        assert k11.gate(problem, name) is None, name
+        assert (k11.gate(problem, name) is not None) == f64, name
     for name in problem.vertex_meta:
         assert k11.update_gate(problem, name) == (
-            case in ("dynamic", "jacobian_fn")), name
+            f64 or case in ("dynamic", "jacobian_fn")), name

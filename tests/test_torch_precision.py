@@ -25,7 +25,10 @@
   cost within the JAX test's tolerance of the port's FP64_FP64 cost, and
   for bf16 / fp16 storage its bounded degradation.
 - K6's fold under FP32_BF16 is float32 and equals a float32 fold of the
-  upcast Jacobians in the JAX package's order.
+  upcast Jacobians in the JAX package's order; under the FP64 policies
+  float64 (FP64_FP64) or float32 (FP64_FP32, FP64_BF16) beside float64
+  vectors. The pose-graph LM goes through K11's entries and one
+  ``solve_pcg_mf`` a solve under every policy.
 - With the Schur gates forced low, every site takes the K3, K4 and K5
   plain versions, which get the values' dtype only: float32 sites
   (under FP64_FP32 the vectors are cast in and the results out to
@@ -353,6 +356,69 @@ def test_fold_jacobians_is_float32_under_bf16():
             slots.append(Js * dl[:, None])
         parts.append(torch.cat(slots, dim=1).reshape(-1))
     assert torch.equal(out, torch.cat(parts))
+
+
+@pytest.mark.parametrize("name", ["FP64_FP64", "FP64_FP32", "FP64_BF16"])
+def test_fold_jacobians_under_fp64(name):
+    """K6's float64 instance reads J' as ``fold_jacobians`` gives it:
+    float64 under FP64_FP64, float32 under FP64_FP32 and FP64_BF16 (the
+    stored J upcast to float32, then C^T J and sqrt(dL) in float32, as the
+    JAX package folds), beside float64 b and damping."""
+    _, pp = _sphere(name)
+    lin = torch_linearize(pp, pp.params0)
+    site = pcg_mf.plan_pcg_mf(pp, lin)
+    assert site is not None
+    out = pcg_mf.fold_jacobians(pp, lin, site)
+    dt = torch.float64 if name == "FP64_FP64" else torch.float32
+    assert out.dtype == dt and lin.b.dtype == torch.float64
+    parts = []
+    for blk in site.blocks:
+        J = lin.jacobians[blk.fname]
+        assert J[0].dtype == getattr(gtt, name).solver_dtype
+        C = site.chol[blk.fname]
+        assert C is not None and C.dtype == dt
+        dl = torch.sqrt(lin.chi2_deriv[blk.fname].to(dt).clamp_min(0.0))
+        slots = [flat_block_mm_tn(C, J[s].to(dt), blk.E, blk.E, site.d,
+                                  acc_dtype=dt) * dl[:, None]
+                 for s in range(blk.arity)]
+        parts.append(torch.cat(slots, dim=1).reshape(-1))
+    assert torch.equal(out, torch.cat(parts))
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_pose_lm_takes_k11_and_k6(monkeypatch, name):
+    """The pose-graph LM (PCGSolver with block-Jacobi) goes through K11's
+    entries and one ``solve_pcg_mf`` a solve under every policy: the float64
+    instances' gates are open in a float64 graph (on the CPU each wrapper
+    runs its plain version)."""
+    from graphite_tpu_torch.ops.cuda import pose as k11
+    from graphite_tpu_torch.solvers import pcg as pcg_module
+
+    calls = {}
+
+    def counted(module, attr):
+        real = getattr(module, attr)
+
+        def wrapper(*args, **kwargs):
+            calls[attr] = calls.get(attr, 0) + 1
+            return real(*args, **kwargs)
+        monkeypatch.setattr(module, attr, wrapper)
+
+    # linearize's second pass calls every fused kernel's ``scale_b``
+    for attr in ("se3_residual", "se3_linearize", "scale_b", "se3_update"):
+        counted(k11, attr)
+    counted(pcg_module, "solve_pcg_mf")
+    _, pp = _sphere(name, poses=60)
+    out = levenberg_marquardt(
+        pp, PCGSolver(50, 1e-10, 1e6, BlockJacobiPreconditioner()),
+        options=LevenbergMarquardtOptions(iterations=4,
+                                          initial_damping=1e-4))
+    n = len(out.history)
+    assert calls == {"se3_residual": n, "se3_update": n,
+                     "se3_linearize": out.accepted_steps + 1,
+                     "scale_b": out.accepted_steps + 1,
+                     "solve_pcg_mf": n}, calls
+    assert float(out.chi2) < float(out.initial_chi2)
 
 
 KERNEL_WRAPPERS = ("streaming_segment_product_sum_rtbl", "block_matvec_wtbl",
