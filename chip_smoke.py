@@ -46,7 +46,10 @@ own:
    version held within 1e-12 (PyTorch's CPU float64 sqrt is an ulp off
    on some inputs); each with its device-only ms (20 solves replayed
    from a CUDA graph), bound and sync floor (its barriers and exchanges
-   at ``kernel_sweep``'s cost each);
+   at ``kernel_sweep``'s cost each), the time before its redesign
+   (``was_ms``: the float64 instance's, before its own design) and
+   the instance timed (which design; registers, local memory, resident
+   CTAs an SM and threads, as the card reports them);
 4b. the sphere2500 path: FP32_FP32, Levenberg-Marquardt (damping 1e-4)
    with PCGSolver(50, 1e-10, 1e6, block-Jacobi) for 30 iterations on the
    card and on the CPU: accept patterns equal, chi2 within 1e-3 per
@@ -120,7 +123,10 @@ own:
    lanes capped to 128 to fit two tiles): within 1e-12 of the card's
    plain version, bitwise repeatable and bitwise the CPU's plain version,
    with the bound at the float64 rate (34 TFLOP/s) and, for K4 and K5, a
-   float64 cuSPARSE SpMV;
+   float64 cuSPARSE SpMV. Each K3 line that times a kernel names the
+   instance it times (its design, registers, local memory, resident CTAs
+   an SM, threads and shared memory), K3's float64 one also its time
+   before its own design;
 6k. ``k7``: K7's four entries (``bal_residual``, ``bal_linearize``,
    ``bal_scale_b``, and ``bal_hessian_sum`` at each of Venice's three
    Hessian sites on its real plan) at Venice-1778's shapes (its first
@@ -628,6 +634,10 @@ def phase_build():
     print(f"[build] seconds={total:.3f} " + " ".join(
         f"{lib.name}={lib.build_seconds:.3f}s" for lib in libs))
     for lib in libs:
+        if hasattr(lib, "instances"):  # a CUDA library: ptxas by instance
+            for name, props in lib.instances():
+                print(f"[build] {lib.name}: {name}: {props}")
+            continue
         for line in getattr(lib, "log", "").splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {lib.name}: {line.strip()}")
@@ -666,6 +676,11 @@ WAS_MS = {
     "k2 ladybug": "0.3254",
     "k6 se3 bj": "5.2423", "k6 se3 identity": "4.5635",
     "k6 se2 bj": "2.2935",
+    # the float64 instances of K3 and K6 before their own designs: the
+    # float32 designs in double (NVIDIA H100 80GB HBM3, 700 W)
+    "schur_values float64": "5.8925",
+    "k6 se3 bj FP64_FP64": "1.7748", "k6 se3 identity FP64_FP64": "1.6711",
+    "k6 se3 bj FP64_FP32": "1.6477", "k6 se3 identity FP64_FP32": "1.5521",
 }
 
 
@@ -1257,15 +1272,22 @@ def phase_k6():
                              reps=3)
         work = k6_bound(site, jf, b, damp, minv, k)
         rule = pcg_mf.cluster_size(site.n * site.d)
+        design64 = f64 and pcg_mf.takes_design64(site)
+        inst = pcg_mf.instance(f64, jf.dtype,
+                               None if minv is None else minv.dtype,
+                               design64, site.d)
         # per solve: the set-up and r.z barriers, one r.z barrier a step
         # and the last; the first r.r exchange, then p.Hp and r.r each step
-        floor = sync_floor_ms(costs, pcg_mf.THREADS, rule, k + 3, 2 * k + 1)
+        floor = sync_floor_ms(costs, inst["threads"], rule, k + 3,
+                              2 * k + 1)
         label = (f"{kind} {policy} n={site.n} d={site.d} "
                  f"F={[blk.F for blk in site.blocks]} {precond}, J' "
                  f"{str(jf.dtype)[6:]}, inverses "
                  f"{'none' if minv is None else str(minv.dtype)[6:]}, {k} "
-                 f"CG steps, cluster of {rule} CTAs")
-        was = "none (new)" if f64 else WAS_MS[f"k6 {kind} {precond}"]
+                 f"CG steps, cluster of {rule} CTAs, the "
+                 f"{'float64' if design64 else 'float32'} design (instance "
+                 f"{inst})")
+        was = WAS_MS[f"k6 {kind} {precond}" + (f" {policy}" if f64 else "")]
         print(f"[k6] {label}: rel_err={err:.3e} max_abs_err={abs_err:.3e} "
               f"iterations={k} plain_iterations={k_ref} cpu_iterations="
               f"{k_cpu} bitwise_repeat={torch.equal(x, again)} "
@@ -1732,12 +1754,13 @@ def phase_venice_setup():
 
 
 def measure(tag, label, kernel, plain, cpu_plain, reps, plain_reps, work,
-            library=None, was=None, tol=1e-5):
+            library=None, was=None, tol=1e-5, instance=None):
     """A kernel vs its plain version on the card (and on the CPU) at one
     shape, ``work`` its ``bound``, ``library`` (or None) the one PyTorch
     call computing the same function, ``was`` (or None) its time before
     its redesign, ``tol`` the relative error allowed against the plain
-    version on the card; returns its numbers."""
+    version on the card, ``instance`` (or None) what the card reports of
+    the kernel instance timed; returns its numbers."""
     import torch
 
     def tup(x):
@@ -1760,7 +1783,8 @@ def measure(tag, label, kernel, plain, cpu_plain, reps, plain_reps, work,
           f"ms={ms:.4f} "
           + ("" if was is None else f"was_ms={was} ")
           + f"plain_ms={plain_ms:.4f} library_ms={lib_ms} "
-          f"bound_ms={bound_fields(work)}")
+          f"bound_ms={bound_fields(work)}"
+          + ("" if instance is None else f" instance={instance}"))
     check(repeat, f"{tag} not bitwise repeatable at {label}")
     check(vs_cpu, f"{tag} differs from the CPU plain version at {label}")
     check(err <= tol, f"{tag} rel err {err} > {tol} at {label}")
@@ -1917,7 +1941,9 @@ def phase_venice_kernels(problem, lin, hv, sv, ops):
         lambda: segsum_stream.product_store_plain(
             segsum_stream.segment_product_sum_plain(
                 cW, cR, cplan, dpa, dl, dpb, cli, cri), cbase, cbidx),
-        5, 2, work, was=WAS_MS["schur_values"]))
+        5, 2, work, was=WAS_MS["schur_values"],
+        instance=segsum_stream.product_instance(torch.float32, dpa, dl,
+                                                dpb)))
     # K3's float64 instance (the schur_values of FP64_FP64 and FP64_BF16)
     # on the same values in float64: the same plan, the store from the
     # float64 Hpp blocks; its multiply-adds at the float64 rate
@@ -1938,7 +1964,9 @@ def phase_venice_kernels(problem, lin, hv, sv, ops):
         lambda: segsum_stream.product_store_plain(
             segsum_stream.segment_product_sum_plain(
                 cW64, cR64, cplan, dpa, dl, dpb, cli, cri), cbase64, cbidx),
-        5, 2, work64, tol=1e-12))
+        5, 2, work64, was=WAS_MS["schur_values float64"], tol=1e-12,
+        instance=segsum_stream.product_instance(torch.float64, dpa, dl,
+                                                dpb)))
     del W64, R64, base64, cW64, cR64, cbase64, cbidx
     torch.cuda.empty_cache()
     k3_store_bits(k3_store, W, R, plan, (dpa, dl, dpb), li, ri, base, bidx,
@@ -1958,7 +1986,9 @@ def phase_venice_kernels(problem, lin, hv, sv, ops):
             Wg, Rg, plan, dpa, dl, dpb),
         lambda: segsum_stream.segment_product_sum_plain(
             cWg, cRg, cplan, dpa, dl, dpb), 5, 2, work,
-        was=WAS_MS["schur_values, gathered streams"]))
+        was=WAS_MS["schur_values, gathered streams"],
+        instance=segsum_stream.product_instance(torch.float32, dpa, dl,
+                                                dpb)))
     del cWg, cRg, cli, cri
     # no single PyTorch call computes K3's function; its best library
     # route is two calls on the gathered streams: the per-row products

@@ -292,7 +292,7 @@ def sync_costs(dev):
     by (kind, threads) and cluster size."""
     lib = pcg_mf.load_kernel()
     costs = {}
-    for threads in (pcg_mf.THREADS, pcg_dense.THREADS):
+    for threads in (pcg_mf.THREADS, pcg_mf.THREADS_F64, pcg_dense.THREADS):
         for kind, fn in (("barrier", lib.lib.gt_pcg_mf_cluster_barriers),
                          ("exchange", lib.lib.gt_pcg_mf_cluster_exchanges)):
             row = {}

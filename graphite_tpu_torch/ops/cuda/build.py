@@ -16,11 +16,12 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -43,6 +44,24 @@ class KernelLibrary:
     build_seconds: float  # 0.0 when an up-to-date library was reused
     log: str  # nvcc's output (register / shared-memory use per kernel)
 
+    def instances(self) -> List[Tuple[str, str]]:
+        """Each kernel instance of the build log with its ptxas lines:
+        (demangled name, "N registers, S bytes spill stores, L bytes spill
+        loads, ..."), in the log's order; empty for a library reused from
+        an earlier build."""
+        found, name = [], None
+        for line in self.log.splitlines():
+            entry = re.search(r"Compiling entry function '([^']+)'", line)
+            if entry:
+                name = entry.group(1)
+                found.append([name, []])
+            elif found and name and (
+                    "registers" in line or "spill" in line):
+                found[-1][1].append(line.split(":", 1)[-1].strip())
+        names = demangle([n for n, _ in found])
+        return [(names[i], "; ".join(parts))
+                for i, (_, parts) in enumerate(found)]
+
     def check(self, err: int, what: str) -> None:
         """Raise if a C entry point returned a CUDA error code."""
         if err != 0:
@@ -52,6 +71,24 @@ class KernelLibrary:
 
 
 _LOADED: Dict[str, KernelLibrary] = {}
+
+
+def demangle(names: Sequence[str]) -> List[str]:
+    """C++ symbol names demangled by the toolkit's ``cu++filt`` (else
+    ``c++filt``), or as they are where neither runs."""
+    if not names:
+        return []
+    for tool in (str(Path(nvcc_path()).with_name("cu++filt")), "c++filt"):
+        try:
+            proc = subprocess.run([tool], input="\n".join(names),
+                                  capture_output=True, text=True,
+                                  timeout=60)
+        except (OSError, subprocess.SubprocessError):
+            continue
+        out = proc.stdout.splitlines()
+        if proc.returncode == 0 and len(out) == len(names):
+            return out
+    return list(names)
 
 
 def nvcc_path() -> str:

@@ -36,7 +36,11 @@ block-Jacobi inverse blocks (or the identity) as preconditioner.
   ``cluster=`` forces another size, for tests and ``kernel_sweep``). A
   CTA owns whole 1,024-entry chunks of the vectors and computes J' p for
   its rows' incidences, so every sum keeps one order and the bits do not
-  depend on the cluster size (``csrc/pcg_mf.cu``).
+  depend on the cluster size (``csrc/pcg_mf.cu``). The float64 instance
+  has a design of its own (256 threads, J' p once a factor and CTA, J'
+  staged by slot block; ``pcg_mf64_kernel``) wherever its pieces fit in
+  a CTA's shared memory (``takes_design64``: sphere2500 does), else it
+  runs the float32 design in double; both give the same bits.
 
 Both return ``(x, iterations)``: x (n * d,) over the type's rows and the
 number of CG steps taken (a 0-d int tensor on the device).
@@ -79,6 +83,7 @@ CF = 2048  # factor chunk of the padded J
 CHUNK = 1024  # vector entries of a dot chunk; a CTA owns whole chunks
 MAX_CLUSTER = 16
 THREADS = 512  # a CTA's threads (csrc/pcg_mf.cu kThreads)
+THREADS_F64 = 256  # the float64 design's (kThreads64)
 
 _P, _I, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_double)
@@ -90,9 +95,14 @@ _SIGNATURES = {
                       _I, _I, _I, _F, _F, _I, _I, _P],
     # jf, jf_f32, rows, desc, nb, csr_off, inc_j, inc_e, b, damp, minv,
     # minv_f32, work, x, iters, n, d, max_iter, tol, rejection_ratio,
-    # cluster, stage_j, stream
+    # cluster, stage_j, nr_max, ninc_max, amax, emax, stream
     "gt_pcg_mf_f64": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P,
-                      _P, _P, _I, _I, _I, _D, _D, _I, _I, _P],
+                      _P, _P, _I, _I, _I, _D, _D, _I, _I, _I, _I, _I, _I,
+                      _P],
+    # f64, jf_f32, minv_f32, design64, d, out (4 ints)
+    "gt_pcg_mf_instance": [_I] * 5 + [_P],
+    # n, d, nb, cluster, nr_max, ninc_max, amax, emax
+    "gt_pcg_mf_design64": [_I] * 8,
     # cluster, threads, reps, stream: microbenchmarks (kernel_sweep)
     "gt_pcg_mf_cluster_barriers": [_I, _I, _I, _P],
     "gt_pcg_mf_cluster_exchanges": [_I, _I, _I, _P],
@@ -149,6 +159,7 @@ class PcgMfSite:
     inc_v: torch.Tensor  # (n_inc,) int32 v offset
     inc_e: torch.Tensor  # (n_inc,) int32 residual dim
     chol: Dict[str, Optional[torch.Tensor]]  # (F, E*E) lower factors
+    csr_host: np.ndarray  # (n + 1,) int64: csr_off on the host
 
 
 def plan_pcg_mf(problem, lin) -> Optional[PcgMfSite]:
@@ -230,7 +241,8 @@ def _build_site(problem, vt_name: str, d: int, n: int) -> PcgMfSite:
         csr_off=i32(csr_off),
         inc_j=i32(np.concatenate(inc_j)[order]),
         inc_v=i32(np.concatenate(inc_v)[order]),
-        inc_e=i32(np.concatenate(inc_e)[order]), chol=chol)
+        inc_e=i32(np.concatenate(inc_e)[order]), chol=chol,
+        csr_host=csr_off.astype(np.int64))
 
 
 def fold_jacobians(problem, lin, site: PcgMfSite) -> torch.Tensor:
@@ -339,6 +351,59 @@ def work_floats(site: PcgMfSite) -> int:
             + int(site.inc_j.numel()) * (amax * site.d + emax))
 
 
+def cta_shape(site: PcgMfSite, cluster: int) -> Tuple[int, int]:
+    """The most rows and incidences one of ``cluster`` CTAs owns, as the
+    kernel splits the chunks (a row across two CTAs' chunks is both's):
+    what the float64 design's shared memory is sized by."""
+    N = site.n * site.d
+    nch = -(-N // CHUNK)
+    per = -(-nch // cluster)
+    ch0 = np.minimum(np.arange(cluster) * per, nch)
+    e0 = np.minimum(ch0 * CHUNK, N)
+    e1 = np.minimum(e0 + np.minimum(per, nch - ch0) * CHUNK, N)
+    row0, row1 = e0 // site.d, -(-e1 // site.d)
+    return (int((row1 - row0).max()),
+            int((site.csr_host[row1] - site.csr_host[row0]).max()))
+
+
+def _f64_shape(site: PcgMfSite, cluster: int) -> Tuple[int, ...]:
+    """The float64 instance's shape arguments: ``cta_shape`` and the
+    largest arity and E."""
+    return (*cta_shape(site, cluster),
+            max(blk.arity for blk in site.blocks),
+            max(blk.E for blk in site.blocks))
+
+
+def takes_design64(site: PcgMfSite, cluster: Optional[int] = None) -> bool:
+    """Whether a float64 solve of ``site`` on ``cluster`` CTAs (the
+    wrapper's rule by default) runs the float64 design (its pieces fit in
+    a CTA's shared memory), not the float32 design in double."""
+    if cluster is None:
+        cluster = cluster_size(site.n * site.d)
+    return bool(load_kernel().lib.gt_pcg_mf_design64(
+        site.n, site.d, len(site.blocks), cluster,
+        *_f64_shape(site, cluster)))
+
+
+def instance(f64: bool, jf_dtype: torch.dtype = torch.float32,
+             minv_dtype: Optional[torch.dtype] = None,
+             design64: bool = True, d: int = 6) -> dict:
+    """The K6 instance a solve launches, as the card reports it:
+    ``registers`` and ``local_bytes`` (spills and stack) a thread,
+    ``ctas_per_sm`` resident at the launch's shared memory, ``threads``.
+    ``f64`` False: the float32 instance; else the float64 one of the J'
+    and inverse-block dtypes, its own design (``design64``) at vertex dim
+    ``d`` or the float32 design in double."""
+    lib = load_kernel()
+    out = (ctypes.c_int * 4)()
+    lib.check(lib.lib.gt_pcg_mf_instance(
+        int(f64), int(jf_dtype == torch.float32),
+        int(minv_dtype == torch.float32), int(design64), d,
+        ctypes.addressof(out)), "pcg_mf instance")
+    return dict(registers=out[0], local_bytes=out[1], ctas_per_sm=out[2],
+                threads=out[3])
+
+
 # the dtypes each instance takes: vectors -> {J': inverse blocks}, as the
 # policies give them (float64 J' comes with float64 blocks only)
 _INSTANCES = {
@@ -412,7 +477,7 @@ def solve_pcg_mf(site: PcgMfSite, jf: torch.Tensor, b: torch.Tensor,
                               and minv.dtype == torch.float32),
                 work.data_ptr(), x.data_ptr(), iters.data_ptr(), n, d,
                 int(max_iter), float(tol), float(rejection_ratio), cluster,
-                1, stream)
+                1, *_f64_shape(site, cluster), stream)
         else:
             err = lib.lib.gt_pcg_mf_f32(
                 jf.data_ptr(), *structure, minv_ptr, work.data_ptr(),

@@ -17,7 +17,9 @@ sites it served:
   with a host plan of their own (``plan_products``: lanes per segment);
   the second can store ``base - sums`` instead of the sums (``base``,
   ``base_idx``: S = Hpp - the products, written once, in place for a
-  later group into the same S group);
+  later group into the same S group); the float64 instance has a CTA
+  plan and a design of its own (``product_ctas_f64``: 2 lanes a thread,
+  256-lane segments over a cluster of two CTAs, 16-byte copies);
 - ``streaming_matvec_tbl`` (K4, ``csrc/segmv.cu``, shared with
   ``segmv``): a destination-sorted block matvec with the x rows read by
   index (the landmark back-substitution above its gate).
@@ -74,25 +76,51 @@ MATVEC_TBL_STATS_F64 = LaunchStats("segsum_stream.streaming_matvec_tbl[f64]")
 PLAIN_CHUNK_ROWS = 1 << 20
 
 # K3's CTA (``csrc/segprod.cu``): rows staged per round, and the most
-# lanes of a segment a thread keeps in registers. Both hold in float64:
-# a 256-lane segment fills a CTA's 64 slots only at 4 lanes a thread, and
+# lanes of a segment a thread keeps in registers: 4 in the float32 design
+# (a 256-lane segment fills a CTA's 64 slots only at 4 lanes a thread, and
 # a kernel's registers are those of its largest branch, so fewer lanes a
-# thread for shorter segments would save none.
+# thread for shorter segments would save none), 2 in the float64 one,
+# whose 256-lane segments span a cluster of ``PRODUCT_CLUSTER_F64`` CTAs
+# (``product_ctas_f64``).
 PRODUCT_SLOTS = 64
 PRODUCT_REGISTER_LANES = 4
+PRODUCT_REGISTER_LANES_F64 = 2
+PRODUCT_CLUSTER_F64 = 2
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # L, li, R, ri, offsets, order, ctas, n_cta, out, base, base_idx, m, k, n,
 # stream
 _PRODUCT_ENTRY = {torch.float32: "gt_segprod_f32",
                   torch.float64: "gt_segprod_f64"}
-_SIGNATURES = {entry: [_P] * 7 + [_I] + [_P] * 3 + [_I] * 3 + [_P]
-               for entry in _PRODUCT_ENTRY.values()}
+_SIGNATURES = {
+    "gt_segprod_f32": [_P] * 7 + [_I] + [_P] * 3 + [_I] * 3 + [_P],
+    # ... ctas, n_cta, ctas64, n_cta64, cluster64, out, ...
+    "gt_segprod_f64": [_P] * 7 + [_I, _P, _I, _I] + [_P] * 3 + [_I] * 3
+    + [_P],
+    # f64, m, k, n, out (6 ints)
+    "gt_segprod_instance": [_I] * 4 + [_P],
+}
 
 
 def load_product_kernel() -> build.KernelLibrary:
     """Build K3 (at first use) and load it."""
     return build.load_library("segprod", _SIGNATURES)
+
+
+def product_instance(dtype: torch.dtype, m: int, k: int, n: int) -> dict:
+    """The K3 instance a call on ``dtype`` (m, k, n) blocks launches, as
+    the card reports it: ``registers`` a thread, ``local_bytes`` a thread
+    (spills and stack), ``ctas_per_sm`` resident at its threads and shared
+    memory, ``threads``, ``smem`` (dynamic bytes) and ``design`` ("float64"
+    for the float64 design, else "float32")."""
+    lib = load_product_kernel()
+    out = (ctypes.c_int * 6)()
+    lib.check(lib.lib.gt_segprod_instance(
+        int(dtype == torch.float64), m, k, n, ctypes.addressof(out)),
+        "segprod instance")
+    return dict(registers=out[0], local_bytes=out[1], ctas_per_sm=out[2],
+                threads=out[3], smem=out[4],
+                design="float64" if out[5] else "float32")
 
 
 def streaming_segment_sum(values: torch.Tensor,
@@ -129,8 +157,11 @@ class ProductPlan:
     so a bucket is one (n, g) block of the table. The kernel's work list:
     ``order`` (int32) the segments by (lanes, length), longest first, and
     ``ctas`` (int32, (n_cta, 3)) per CTA its first index into ``order``,
-    its number of segments and log2 of their lanes (the same for the
-    float32 and the float64 instance)."""
+    its number of segments and log2 of their lanes (the float32 design's,
+    and the float64 instance's at the shapes its own design does not
+    take); ``ctas_f64`` (int32, (n_cta, 4)) the float64 design's, each row
+    with the CTA's part of a segment that spans a cluster, and
+    ``cluster_f64`` its CTAs a cluster (``product_ctas_f64``)."""
 
     segments: SegmentPlan
     lanes: torch.Tensor
@@ -139,6 +170,8 @@ class ProductPlan:
     buckets: Tuple[Tuple[int, int, torch.Tensor], ...]
     order: torch.Tensor
     ctas: torch.Tensor
+    ctas_f64: torch.Tensor
+    cluster_f64: int
 
     @property
     def rows(self) -> int:
@@ -168,6 +201,43 @@ def product_ctas(lanes: np.ndarray, order: np.ndarray) -> np.ndarray:
     return np.asarray(ctas, dtype=np.int32).reshape(-1, 3)
 
 
+def product_ctas_f64(lanes: np.ndarray,
+                     order: np.ndarray) -> Tuple[np.ndarray, int]:
+    """K3's float64 CTAs over ``order``: L = min(g,
+    ``PRODUCT_REGISTER_LANES_F64``) lanes a thread, Q = g / L slots a
+    segment, so a CTA takes ``PRODUCT_SLOTS`` / Q segments of one lane
+    count g up to 128 lanes, and a 256-lane segment (Q = 128) spans the
+    two CTAs of a cluster, parts 0 and 1. Rows (first index into
+    ``order``, segments, log2 g, part), and the CTAs a cluster (2 where a
+    segment spans, else 1). Spanning segments have the most lanes, so they
+    come first and fill whole clusters; empty CTAs (no segment) pad the
+    grid to whole clusters."""
+    ctas = []
+    cluster = 1
+    g_sorted = lanes[order]
+    start = 0
+    while start < order.size:
+        g = int(g_sorted[start])
+        end = start + int(np.count_nonzero(g_sorted[start:] == g))
+        q = g // min(g, PRODUCT_REGISTER_LANES_F64)
+        if q <= PRODUCT_SLOTS:
+            per_cta = PRODUCT_SLOTS // q
+            for c0 in range(start, end, per_cta):
+                ctas.append((c0, min(per_cta, end - c0), g.bit_length() - 1,
+                             0))
+        else:
+            span = q // PRODUCT_SLOTS
+            if span != PRODUCT_CLUSTER_F64 or len(ctas) % span:
+                raise ValueError(f"K3 float64: {g} lanes span {span} CTAs")
+            cluster = span
+            for c0 in range(start, end):
+                ctas.extend((c0, 1, g.bit_length() - 1, part)
+                            for part in range(span))
+        start = end
+    ctas.extend([(0, 0, 0, 0)] * (-len(ctas) % cluster))
+    return np.asarray(ctas, dtype=np.int32).reshape(-1, 4), cluster
+
+
 def plan_products(dst: np.ndarray, num_segments: int,
                   device) -> ProductPlan:
     """Plan the K3 site of rows with sorted destinations ``dst``."""
@@ -188,13 +258,15 @@ def plan_products(dst: np.ndarray, num_segments: int,
     def dev(a, dtype):
         return torch.as_tensor(a.astype(dtype), device=device)
 
+    ctas_f64, cluster_f64 = product_ctas_f64(lanes, order)
     return ProductPlan(
         segments=segsum.device_plan(seg_sorted, None, offsets, device,
                                     group=1),
         lanes=dev(lanes, np.int64), first_lane=dev(first_lane, np.int64),
         total_lanes=lane0, buckets=tuple(buckets),
         order=dev(order, np.int32),
-        ctas=dev(product_ctas(lanes, order), np.int32))
+        ctas=dev(product_ctas(lanes, order), np.int32),
+        ctas_f64=dev(ctas_f64, np.int32), cluster_f64=cluster_f64)
 
 
 def segment_product_sum_plain(left: torch.Tensor, right: torch.Tensor,
@@ -324,15 +396,19 @@ def _product_sum(left, right, plan: ProductPlan, m, k, n, left_idx,
     with on_device(left.device):
         stream = stream_ptr(left.device)
         ev = stats.start()
+        plans = [plan.ctas.data_ptr(), plan.ctas.shape[0]]
+        if left.dtype == torch.float64:  # and the float64 design's plan
+            plans += [plan.ctas_f64.data_ptr(), plan.ctas_f64.shape[0],
+                      plan.cluster_f64]
         err = getattr(lib.lib, entry)(
             left.data_ptr(),
             None if left_idx is None else left_idx.data_ptr(),
             right.data_ptr(),
             None if right_idx is None else right_idx.data_ptr(),
             plan.segments.offsets_i32.data_ptr(), plan.order.data_ptr(),
-            plan.ctas.data_ptr(), plan.ctas.shape[0], out.data_ptr(),
-            base_ptr, None if base_idx is None else base_idx.data_ptr(),
-            m, k, n, stream)
+            *plans, out.data_ptr(), base_ptr,
+            None if base_idx is None else base_idx.data_ptr(), m, k, n,
+            stream)
         lib.check(err, name)
         stats.done(ev)
     return out

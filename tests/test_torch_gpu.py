@@ -399,7 +399,8 @@ def test_ladybug_fp64_cuda_matches_cpu(cuda_device):
 
 
 def _on(device, *arrays):
-    return [torch.as_tensor(a, device=device) for a in arrays]
+    return [None if a is None else torch.as_tensor(a, device=device)
+            for a in arrays]
 
 
 def _check_kernel(out, again, ref, ref_cpu):
@@ -413,9 +414,14 @@ def _check_kernel(out, again, ref, ref_cpu):
 def _k3_site(rng, site):
     """Sorted destinations: random (1,800 segments of ~11 rows), or
     Venice-like: 2,000 segments of ~8 rows (one or two lanes) and 20 of
-    ~2,800 (256 lanes), in mixed order."""
-    if site == "random":
+    ~2,800 (256 lanes), in mixed order; "lone-256": one 256-lane segment
+    and 65 of 1-8 rows (the float64 design's cluster pair, then a grid
+    padded to whole clusters)."""
+    if site in ("random", "null-li"):
         return np.sort(rng.integers(0, 1_800, 20_000)), 1_800
+    if site == "lone-256":
+        lengths = np.concatenate([[2_600], rng.integers(1, 9, 65)])
+        return np.repeat(np.arange(lengths.size), lengths), lengths.size
     lengths = np.concatenate([rng.poisson(8, 2_000),
                               rng.integers(2_750, 2_850, 20)])
     lengths = lengths[rng.permutation(lengths.size)]
@@ -647,6 +653,28 @@ def test_k3_schur_values_without_hpp_cuda_equals_cpu(cuda_device,
                            _k3_bits(ref.s_vals[key]))
 
 
+def test_f64_designs_fit(cuda_device):
+    """The float64 designs as the card builds them: K3's (9, 3, 9)
+    instance with no local memory (no spills) and two CTAs an SM, the
+    float32 design's float64 instance only where the padded rows do not
+    fit; K6's three float64 instances with no local memory, on 256
+    threads."""
+    k3 = segsum_stream.product_instance(torch.float64, 9, 3, 9)
+    assert k3["design"] == "float64" and k3["local_bytes"] == 0
+    assert k3["ctas_per_sm"] >= 2 and k3["threads"] == 576
+    assert segsum_stream.product_instance(
+        torch.float64, 16, 7, 16)["design"] == "float32"
+    assert segsum_stream.product_instance(
+        torch.float32, 9, 3, 9)["design"] == "float32"
+    for jf, minv in ((torch.float64, torch.float64),
+                     (torch.float32, torch.float32),
+                     (torch.float32, torch.float64)):
+        for d in (6, 3):
+            k6 = pcg_mf.instance(True, jf, minv, True, d)
+            assert k6["local_bytes"] == 0, (jf, minv, d, k6)
+            assert k6["threads"] == pcg_mf.THREADS_F64
+
+
 @pytest.mark.parametrize("rows,ns,sorted_dst,transpose", [
     pytest.param(50_000, 40, False, False, id="40-False"),
     pytest.param(50_000, 40, False, True, id="40-True"),
@@ -853,11 +881,16 @@ def test_k6_matches_plain(cuda_device, kind, precond, poses, prior,
             pcg_mf.solve_pcg_mf(*bad, **K6_KW)
 
 
-@pytest.mark.parametrize("policy,precond,prior", [
-    ("FP64_FP64", "bj", False), ("FP64_FP64", "identity", False),
-    ("FP64_FP32", "bj", False), ("FP64_FP32", "identity", False),
-    ("FP64_BF16", "bj", False), ("FP64_FP64", "bj", True)])
-def test_k6_f64_matches_plain(cuda_device, policy, precond, prior):
+@pytest.mark.parametrize("policy,precond,prior,cluster", [
+    pytest.param(*case, None, id="-".join(map(str, case))) for case in (
+        ("FP64_FP64", "bj", False), ("FP64_FP64", "identity", False),
+        ("FP64_FP32", "bj", False), ("FP64_FP32", "identity", False),
+        ("FP64_BF16", "bj", False), ("FP64_FP64", "bj", True))] + [
+    # the float64 design on other cluster sizes: the same bits
+    pytest.param("FP64_FP64", precond, False, c,
+                 id=f"FP64_FP64-{precond}-False-cluster{c}")
+    for precond, c in (("bj", 1), ("bj", 8), ("identity", 16))])
+def test_k6_f64_matches_plain(cuda_device, policy, precond, prior, cluster):
     """K6's float64 instance on sphere2500's first solve under the FP64
     policies (J' float64 under FP64_FP64, float32 under FP64_FP32 and
     FP64_BF16; the inverse blocks float32 under FP64_FP32): bitwise its
@@ -876,8 +909,10 @@ def test_k6_f64_matches_plain(cuda_device, policy, precond, prior):
     assert jf.dtype == (torch.float64 if policy == "FP64_FP64"
                         else torch.float32)
     before = (pcg_mf.STATS.launches, pcg_mf.STATS_F64.launches)
-    x, k = pcg_mf.solve_pcg_mf(*args, **K6_KW)
-    again, k2 = pcg_mf.solve_pcg_mf(*args, **K6_KW)
+    x, k = _cluster_or_skip(
+        lambda: pcg_mf.solve_pcg_mf(*args, **K6_KW, cluster=cluster),
+        cluster)
+    again, k2 = pcg_mf.solve_pcg_mf(*args, **K6_KW, cluster=cluster)
     assert (pcg_mf.STATS.launches - before[0],
             pcg_mf.STATS_F64.launches - before[1]) == (0, 2)
     (ref, k_ref), (ref_cpu, k_cpu) = _k6_plain_both(args)
@@ -2211,6 +2246,14 @@ def _counts(*stats):
     pytest.param(9, 3, 9, "venice", id="9-3-9-venice"),
     # (m + n) * k = 150 in float64: two stages, as 15-10-15 in float32
     pytest.param(15, 5, 15, "random", id="15-5-15-two-stages"),
+    # the float64 design's edges: a lone 256-lane segment over a cluster
+    # pair and a padded grid; even row widths (every row 16-byte aligned
+    # alike); L gathered beforehand (no left index); (m + n) k = 224,
+    # whose padded rounds do not fit, on the float32 design in double
+    pytest.param(9, 3, 9, "lone-256", id="9-3-9-lone-256"),
+    pytest.param(2, 4, 2, "venice", id="2-4-2-even-widths"),
+    pytest.param(9, 3, 9, "null-li", id="9-3-9-null-li"),
+    pytest.param(16, 7, 16, "random", id="16-7-16-float32-design"),
 ])
 def test_k3_f64_matches_plain(cuda_device, m, k, n, site):
     """K3's float64 instance, both entries and the base store (from a
@@ -2225,6 +2268,8 @@ def test_k3_f64_matches_plain(cuda_device, m, k, n, site):
     rtab = rng.standard_normal((n_r, n * k))
     li = rng.integers(0, n_l, rows).astype(np.int32)
     ri = rng.integers(0, n_r, rows).astype(np.int32)
+    if site == "null-li":  # one L row per pair, read with no index
+        ltab, li = ltab[li], None
     htab = rng.standard_normal((n_h, m * n))
     htab.reshape(-1)[::5] = -0.0
     bidx = np.where(rng.random(ns) < 0.5, -1,
@@ -2264,8 +2309,8 @@ def test_k3_f64_matches_plain(cuda_device, m, k, n, site):
     _check_f64(out, (tbl(*runs[0]), stored(*runs[0])), plain(*runs[0]),
                (tbl(*runs[1]), stored(*runs[1])))
     stream = segsum_stream.streaming_segment_product_sum(
-        L.index_select(0, lt.long()), R.index_select(0, rt.long()), plan, m,
-        k, n)
+        L if lt is None else L.index_select(0, lt.long()),
+        R.index_select(0, rt.long()), plan, m, k, n)
     torch.cuda.synchronize()
     assert torch.equal(_f64_bits(stream), _f64_bits(out[0]))
     calls = 4 + 2 * (m == n == k)

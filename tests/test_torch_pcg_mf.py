@@ -343,3 +343,28 @@ def test_cluster_size():
     assert [pcg_mf.cluster_size(N) for N in (1, 1024, 1025, 7_497, 14_994,
                                              23_994, 524_160)] == [
         1, 1, 2, 8, 16, 16, 16]
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_cta_shape(cluster):
+    """The float64 design's shared memory is sized by the most rows and
+    incidences a CTA holds: counted entry by entry over each CTA's own
+    chunks (a row cut by a chunk boundary belongs to both CTAs)."""
+    g, *_ = tg2o.build_graph(tsyn.make_sphere_se3(700, seed=5),
+                             precision=gtt.FP64_FP64)
+    pp = g.freeze(device="cpu")
+    site = pcg_mf.plan_pcg_mf(pp, linearize(pp, pp.params0))
+    N, d = site.n * site.d, site.d
+    assert N > 3 * pcg_mf.CHUNK
+    off = site.csr_off.numpy()
+    nch = -(-N // pcg_mf.CHUNK)
+    per = -(-nch // cluster)
+    shapes = []
+    for rank in range(cluster):
+        entries = np.arange(rank * per * pcg_mf.CHUNK,
+                            min((rank + 1) * per * pcg_mf.CHUNK, N))
+        rows = np.unique(entries // d)
+        shapes.append((rows.size, int((off[rows + 1] - off[rows]).sum())))
+    assert pcg_mf.cta_shape(site, cluster) == (
+        max(r for r, _ in shapes), max(i for _, i in shapes))
+    assert np.array_equal(site.csr_host, off)

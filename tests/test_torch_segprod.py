@@ -223,3 +223,91 @@ def test_product_plan_work_list():
     assert [g for g, _, _ in plan.buckets] == sorted(set(lanes.tolist()),
                                                     reverse=True)
     assert plan.total_lanes == int(lanes.sum())
+
+
+# lengths with every lane count from 1 to 256; the float32 work list the
+# float32 design builds for them (first, segments, log2 lanes)
+_PLAN_LENGTHS = [3000, 40, 0, 9, 2100, 17, 5, 1, 70, 9, 16, 300, 8, 600,
+                 1200, 33]
+_PLAN_CTAS_F32 = [[0, 1, 8], [1, 1, 8], [2, 1, 8], [3, 1, 7], [4, 1, 6],
+                  [5, 1, 4], [6, 2, 3], [8, 1, 2], [9, 3, 1], [12, 4, 0]]
+
+
+def test_product_plan_float32_unchanged():
+    """The float64 plan comes beside the float32 one, which stays as it
+    was."""
+    lengths = np.array(_PLAN_LENGTHS)
+    plan = plan_products(np.repeat(np.arange(lengths.size), lengths),
+                         lengths.size, "cpu")
+    assert plan.ctas.numpy().tolist() == _PLAN_CTAS_F32
+    assert plan.ctas.dtype == torch.int32 and plan.ctas.shape[1] == 3
+
+
+def _f64_sites():
+    rng = np.random.default_rng(11)
+    dst, ns = _mixed_site(rng)
+    return {
+        "mixed": np.bincount(dst, minlength=ns),
+        "all-lanes": np.array(_PLAN_LENGTHS),
+        "short-only": rng.integers(0, 17, 700),
+        "one-256-odd-rest": np.concatenate([[2_500], rng.integers(1, 9, 65)]),
+        "128-lanes": np.array([1_000, 1_020, 700, 3]),
+    }
+
+
+@pytest.mark.parametrize("site", list(_f64_sites()))
+def test_product_plan_float64_work_list(site):
+    """The float64 design's CTAs: each segment is in one CTA, or in the
+    two CTAs of one cluster (parts 0 and 1) when it has 256 lanes; a
+    CTA's segments share their lane count, take at most 2 lanes a thread
+    and at most ``PRODUCT_SLOTS`` slots; the grid is whole clusters.
+    Walking the kernel's slots and rounds visits every row of a segment
+    once, each on the lane of ``product_lanes`` (row r -> (r - start) mod
+    g), lane by lane in row order."""
+    lengths = _f64_sites()[site]
+    ns = lengths.size
+    plan = plan_products(np.repeat(np.arange(ns), lengths), ns, "cpu")
+    lanes = plan.lanes.numpy()
+    order = plan.order.numpy()
+    offsets = plan.segments.offsets.numpy()
+    ctas = plan.ctas_f64.numpy()
+    cluster = plan.cluster_f64
+    slots = segsum_stream.PRODUCT_SLOTS
+    assert ctas.dtype == np.int32 and ctas.shape[1] == 4
+    assert cluster == (2 if (lanes == 256).any() else 1)
+    assert ctas.shape[0] % cluster == 0
+    seen = {}
+    visits = {}
+    for c, (first, count, g_log2, part) in enumerate(ctas.tolist()):
+        g = 1 << g_log2
+        L = min(g, segsum_stream.PRODUCT_REGISTER_LANES_F64)
+        Q = g // L
+        segs = order[first:first + count]
+        assert np.all(lanes[segs] == g)
+        if Q > slots:  # spanning: one segment, part = rank in its cluster
+            assert count == 1 and Q == cluster * slots
+            assert part == c % cluster
+        else:
+            assert part == 0 and count * Q <= slots
+        for sl, s in enumerate(segs.tolist()):
+            seen.setdefault(s, []).append((c, part))
+            for q in range(min(Q, slots)):
+                qg = part * slots + q
+                i = 0
+                while offsets[s] + qg + i * Q < offsets[s + 1]:
+                    r = offsets[s] + qg + i * Q
+                    lane = qg + Q * (i % L)
+                    assert lane == (r - offsets[s]) % g
+                    visits.setdefault(s, []).append((lane, r))
+                    i += 1
+    assert sorted(seen) == list(range(ns))
+    for s, where in seen.items():
+        span = max(1, lanes[s] // segsum_stream.PRODUCT_REGISTER_LANES_F64
+                   // slots)
+        assert [p for _, p in where] == list(range(span))
+        assert len({c // cluster for c, _ in where}) == 1
+        rows = sorted(r for _, r in visits.get(s, []))
+        assert rows == list(range(offsets[s], offsets[s + 1]))
+        for lane in {ln for ln, _ in visits.get(s, [])}:
+            mine = [r for ln, r in visits[s] if ln == lane]
+            assert mine == sorted(mine)
