@@ -137,8 +137,12 @@ own:
    and the float64 cos / sin over 34); then the float64 instances
    (``[f64]``, FP64_FP64's float64 storage and sums) on the same point
    cast to float64, bitwise their plain versions on the card and
-   repeatable, every operation over 34 TFLOP/s in the bound; one eager
-   ``compute_hessian_values`` launches three K7 sums and no K1;
+   repeatable, every operation over 34 TFLOP/s in the bound (the Hessian
+   sums' operations counted by need: 45 of Hpp's 81 entries, 6 of Hll's
+   9; their "was" the previous design's time in both dtypes); each
+   Hessian-sum kernel instance's registers and spills from the build
+   log (none may spill); one eager ``compute_hessian_values`` launches
+   three K7 sums and no K1;
 6l. ``k9``: K9, the PCG's dot (``csrc/dot.cu``), vs its plain version
    ``tree_dot_plain`` at Venice's dim_p (float32 and float64) and
    sphere2500's n d (float32), seeded inputs with -0.0 entries: bitwise
@@ -500,6 +504,7 @@ bytes over the HBM rate and its float32 operations over the float32 peak
 import concurrent.futures
 import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -2240,27 +2245,38 @@ def k3_store_bits(k3_store, W, R, plan, dims, li, ri, base, bidx, work):
 # float32 operations per factor of K7's entries, as written in
 # csrc/bal.cu (the bound's operation side; the float64 cos / sin apart):
 # the residual and loss ~60, the Jacobian ~300 more with the masks and the
-# diagonal; the scaling, casts and b 72. The Hessian sum: 5 per element of
-# a site's (F, D) products (two products, a sum, the dL product, the add
-# into its lane), counted per site (K7_SUM_OPS)
+# diagonal; the scaling, casts and b 72. The Hessian sum: 5 per distinct
+# entry of a factor's product (two products, a sum, the dL product, the
+# add into its lane; K7_SUM_OPS), counted per site by need: a symmetric
+# site's d (d + 1) / 2 entries (45 of Hpp's 81, 6 of Hll's 9), each
+# other site's d_s d_t (k7_sum_entries)
 K7_OPS = {"bal.bal_residual": 60, "bal.bal_linearize": 400,
           "bal.bal_scale_b": 72}
 K7_SUM_OPS = 5
+
+
+def k7_sum_entries(s, t):
+    d_s, d_t = (9, 3)[s], (9, 3)[t]
+    return d_s * (d_s + 1) // 2 if s == t else d_s * d_t
+
+
 # float64 operations per factor: a sqrt and a cos / sin pair (~40 each in
 # CUDA's libdevice) per Rodrigues form, one form in the residual, two in
 # linearize (the residual's and the Jacobian's)
 K7_F64_OPS = {"bal.bal_residual": 120, "bal.bal_linearize": 240,
               "bal.bal_scale_b": 0}
 # each entry's time before its redesign (PERF.md, NVIDIA H100 80GB HBM3,
-# 700.00 W): bal_linearize one thread per factor writing its
-# own rows; bal_scale_b one thread per output element; the Hessian sites'
-# product rows (bal_hessian: 2.7624 ms for the three) plus K1's sum at
-# the site
+# 700.00 W): bal_linearize one thread per factor writing its own rows;
+# bal_scale_b one thread per output element; the Hessian sums on their
+# second design (K1's lane CTA with each round's rows staged, a thread a
+# (block, column) at one lane; PERF.md's K7 rows, float32 and float64)
 K7_WAS_MS = {"bal.bal_linearize": "1.6638", "bal.bal_scale_b": "0.9924",
-             "bal.bal_hessian_sum (9, 9)": "2.7624 (the three sites' rows) "
-                                           "+ 0.7169 (K1)",
-             "bal.bal_hessian_sum (9, 3)": "+ 0.9822 (K1)",
-             "bal.bal_hessian_sum (3, 3)": "+ 0.1481 (K1)"}
+             "bal.bal_hessian_sum (9, 9)": "0.6633",
+             "bal.bal_hessian_sum (9, 3)": "0.5716",
+             "bal.bal_hessian_sum (3, 3)": "0.1171",
+             "bal.bal_hessian_sum[f64] (9, 9)": "0.9292",
+             "bal.bal_hessian_sum[f64] (9, 3)": "1.0751",
+             "bal.bal_hessian_sum[f64] (3, 3)": "0.2357"}
 
 
 def k7_sum_sites(problem):
@@ -2378,6 +2394,22 @@ def phase_k7(problem, lin):
         return dict(err=err, ms=ms, plain_ms=plain_ms, shape=label,
                     library_ms=None, **work)
 
+    # the Hessian sum's instances as ptxas built them: registers, spills
+    sums = set()
+    for kernel, props in bal.load_kernel().instances():
+        found = re.search(r"hsum_\w+<[^>]*>", kernel)
+        if found:
+            print(f"[k7] ptxas {found.group(0)}: {props}")
+            check(all(re.search(rf"(?<!\d)0 bytes spill {kind}", props)
+                      for kind in ("stores", "loads")),
+                  f"k7: {found.group(0)} spills registers: {props}")
+            # kWhole (MODE 0, "(int)0" as cu++filt prints it): the sums'
+            if re.search(r", (\(int\))?0>$", found.group(0)):
+                sums.add(found.group(0))
+    # each (graph, storage) instance at its four sites on both kernels
+    want = 8 * sum(len(s) for _, s in bal.GRAPH_INSTANCES.values())
+    check(len(sums) == want, f"k7: the build log shows {len(sums)} "
+          f"Hessian-sum kernel instances, not {want}: their spills unread")
     fns = {"bal.bal_residual": (bal.bal_residual, bal.bal_residual_plain),
            "bal.bal_linearize": (bal.bal_linearize, bal.bal_linearize_plain),
            "bal.bal_scale_b": (bal.bal_scale_b, bal.bal_scale_b_plain)}
@@ -2403,7 +2435,7 @@ def phase_k7(problem, lin):
                 entry + tag, f"F={F} ({F % 128} factors in the tail CTA)",
                 lambda k=kernel, i=ins: k(*i), lambda p=plain, i=ins: p(*i),
                 None if f64 else lambda p=plain, i=host[entry]: p(*i), work,
-                None if f64 else K7_WAS_MS.get(entry))]
+                K7_WAS_MS.get(entry + tag))]
 
         # the Hessian sum at each site, into a new (empty) group each call
         entry = "bal.bal_hessian_sum"
@@ -2423,7 +2455,7 @@ def phase_k7(problem, lin):
             work = bound(
                 nbytes(*used, dL, plan.perm_i32, plan.offsets_i32)
                 + dL.element_size() * plan.num_segments * width,
-                K7_SUM_OPS * width * plan.rows,
+                K7_SUM_OPS * k7_sum_entries(s, t) * plan.rows,
                 FP64_VECTOR_OPS_PER_S if f64 else FP32_OPS_PER_S)
             results[entry + tag].append(run(
                 entry + tag, f"{key} site, slots {(s, t)}, {plan.rows} rows "
@@ -2436,7 +2468,7 @@ def phase_k7(problem, lin):
                                     p, problem.device),
                 None if f64 else lambda p=on_cpu(plan): call(
                     bal.bal_hessian_sum_plain, host["sum"], p, "cpu"),
-                work, None if f64 else K7_WAS_MS.get(f"{entry} {label}")))
+                work, K7_WAS_MS.get(f"{entry}{tag} {label}")))
         del card, host
         torch.cuda.empty_cache()
 

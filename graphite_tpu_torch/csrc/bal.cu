@@ -68,25 +68,25 @@
 // block's bits are those of K1 over the product rows. Each product is
 // formed in T from J widened from S, rounded to O, and summed in O, as the
 // generic branch forms its rows in acc_dtype and casts them to inv_dtype.
-// Rows are staged widened to T; every staging area is sized in bytes, so a
-// double stage holds half the rows of a float one.
-// - G = 1 (the destination-sorted point sites, ~1-5 rows a block): K1's
-//   thread per (block, column), grouped: a CTA of (256 / D) D threads owns
-//   8 (256 / D) consecutive blocks, stages their rows' J_s, J_t and dL in
-//   shared memory once (three contiguous copies where the plan has no
-//   permutation; 16 KB a pass), and each thread keeps one column and sums
-//   it over 8 of the blocks, each over its staged rows in row order. A
-//   warp's store is 32 consecutive values. (Float4 stores of 4 and 16
-//   neighbouring floats a thread were no faster.)
-// - G > 1 (the camera sites: ~2,800 rows a block through the
-//   permutation): K1's CTA, (slot q, column c) threads each holding L =
-//   G / Q lanes of C columns. Each round stages the next 4 / L of K1's
-//   rounds (at least 4 rows a thread) of gathered J rows and dL in shared
-//   memory, double-buffered: the next round's loads are in flight while
-//   this one is summed. Each thread forms its own entries (its C columns
-//   share J_t's column, read once a row) and adds each to its lane, round
-//   by round in K1's order; then K1's halving tree, in registers, then
-//   through shared memory.
+// A symmetric site (s == t: Hpp, Hll) forms only its distinct entries, i
+// <= k (45 of 81, 6 of 9), and stores each to (i, k) and (k, i): the two
+// are the same products with their factors swapped, so the same bits at
+// every step (Block). Each lane's entries stay in one thread's registers.
+// - G = 1 (the destination-sorted point sites, ~1-5 rows a block): one
+//   thread a block. A CTA owns 128 consecutive blocks (fewer for 81-wide
+//   ones), stages their rows' J_s, J_t and dL in shared memory with
+//   cp.async (bf16 / fp16 J widened through registers instead; three
+//   contiguous copies where the plan has no permutation;
+//   32 KB a pass, one or two a CTA at Venice), and each thread
+//   sums its block's rows in row order; the blocks go out through a shared
+//   tile in 16-byte stores.
+// - G > 1 (the camera sites: ~2,800 rows a block through the permutation):
+//   lane l of a segment is one thread's for the whole segment. It reads its
+//   rows l, l + G, ... straight from device memory through the plan in
+//   vector loads (a float32 camera row in six), the next row in flight
+//   while one is summed, with no shared staging and no barrier a round;
+//   then K1's halving tree, by warp shuffles below 32 lanes (through shared
+//   memory above), and the blocks out through a shared tile.
 // First writer of a group: the sums are stored, every row of the group
 // (the plan covers the trash row too). This is the zero fill and the add
 // of the generic branch, bitwise: each lane starts from +0.0, and +0.0
@@ -147,6 +147,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "robust.cuh"
 #include "staging.cuh"
@@ -555,345 +557,526 @@ __global__ void __launch_bounds__(scale_tile<T>())
 
 // ---- bal_hessian_sum ------------------------------------------------------
 
-constexpr int kSumThreads = 256;    // most threads of a group-1 CTA
-constexpr int kSumSteps = 8;        // outputs a group-1 thread sums
-constexpr int kStageBytes = 16384;  // J / dL bytes a group-1 pass stages
-constexpr int kLaneThreads = 512;   // most threads of a lane CTA (K1's)
-constexpr int kLaneMinThreads = 256;  // short segments share a CTA up to this
-constexpr int kLaneMaxSpc = kLaneMinThreads / 9 + 1;  // segments a CTA
+constexpr int kLaneCta = 128;   // threads of a lane CTA below 256 lanes
+constexpr int kRowsCta = 128;   // most blocks (one thread each) of a rows CTA
+constexpr int kRowsStageBytes = 32768;  // J / dL bytes a rows pass stages
 
-// One slot pair's products. A factor's block is (DS, DT) row-major, or its
-// transpose (DT, DS) when TRANS (a trans_idx site: element (k, i) of the
-// transposed row). SAME: s == t, so Jt is Js. A staged row holds Js (2 DS
-// values), Jt (2 DT, unless SAME) and dL, widened from storage to T. An
-// entry is formed in T and rounded to the output type O.
-template <typename T, typename S, typename O, int DS, int DT, bool SAME,
-          bool TRANS>
-struct HPair {
+// What a launch computes: the sums (kWhole), or, for kernel_sweep's split
+// of a site's time, the same kernel with its loads alone (kLoadsOnly: each
+// row's values added up, no product) or its products alone
+// (kProductsOnly: values made from the row's position, nothing loaded).
+// Only the sweep's entry (gt_bal_hessian_sum_probe*) launches the last two.
+enum HSumMode { kWhole = 0, kLoadsOnly = 1, kProductsOnly = 2 };
+
+// One slot pair's block. A factor's product is (DS, DT) row-major, or its
+// transpose (DT, DS) when TRANS (a trans_idx site). SAME: s == t, so J_t
+// is J_s and the block is symmetric: entry (i, k) is (Js[0, i] Js[0, k] +
+// Js[1, i] Js[1, k]) dL and (k, i) the same two products with their
+// factors swapped, which IEEE multiplication rounds to the same bits; so
+// (k, i)'s lane sums and tree are the same operations on the same values
+// as (i, k)'s. Only i <= k is formed (E of the D entries: 45 of 81, 6 of
+// 9) and stored to both places.
+template <int DS, int DT, bool SAME, bool TRANS>
+struct Block {
   static constexpr int D = DS * DT;
-  static constexpr int WS = 2 * DS;
-  static constexpr int WT = SAME ? 0 : 2 * DT;
-  static constexpr int W = WS + WT + 1;
-  // column c of an output block -> (i, k): J_s column i, J_t column k
-  static __device__ __forceinline__ void cols(int c, int* i, int* k) {
-    if (TRANS) {
-      *k = c / DS;
-      *i = c - *k * DS;
-    } else {
-      *i = c / DT;
-      *k = c - *i * DT;
+  static constexpr int E = SAME ? DS * (DS + 1) / 2 : D;
+  // where entry (i, k) goes in the output block
+  static __host__ __device__ constexpr int at(int i, int k) {
+    return TRANS ? k * DS + i : i * DT + k;
+  }
+};
+
+template <typename S, typename T>
+__device__ __forceinline__ T widen(S x) {
+  return static_cast<T>(Storage<S>::load(x));
+}
+
+// Adds one row's entries to a lane's sums acc[0, E): entry (i, k), i <= k
+// when SAME, in row-major order, is (x[i] y[k] + x[DS + i] y[DT + k]) d in
+// T, rounded to O: J_s's two rows in x, J_t's in y (x itself when SAME).
+template <typename T, typename O, int DS, int DT, bool SAME>
+__device__ __forceinline__ void add_products(const T* x, const T* y, T d,
+                                             O* acc) {
+  int e = 0;
+#pragma unroll
+  for (int i = 0; i < DS; ++i) {
+#pragma unroll
+    for (int k = SAME ? i : 0; k < DT; ++k, ++e) {
+      acc[e] = acc[e] + static_cast<O>((x[i] * y[k] + x[DS + i] * y[DT + k]) *
+                                       d);
     }
   }
-  static __device__ __forceinline__ T widen(S x) {
-    return static_cast<T>(Storage<S>::load(x));
+}
+
+// The E sums of one block into its D places of a shared tile: (i, k), and
+// (k, i) too when SAME.
+template <typename O, int DS, int DT, bool SAME, bool TRANS>
+__device__ __forceinline__ void put_block(const O* acc, O* tile) {
+  using B = Block<DS, DT, SAME, TRANS>;
+  int e = 0;
+#pragma unroll
+  for (int i = 0; i < DS; ++i) {
+#pragma unroll
+    for (int k = SAME ? i : 0; k < DT; ++k, ++e) {
+      tile[B::at(i, k)] = acc[e];
+      if (SAME && k != i) tile[B::at(k, i)] = acc[e];
+    }
   }
-  // value w of the staged row of value row v
-  static __device__ __forceinline__ T load(const S* __restrict__ js,
-                                           const S* __restrict__ jt,
-                                           const T* __restrict__ dl,
-                                           long long v, int w) {
-    if (w < WS) return widen(js[v * WS + w]);
-    if (w < WS + WT) return widen(jt[v * (2 * DT) + (w - WS)]);
-    return dl[v];
+}
+
+template <typename S>
+__device__ S from_bits(unsigned short b);
+template <>
+__device__ __forceinline__ __half from_bits<__half>(unsigned short b) {
+  return __ushort_as_half(b);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_bits<__nv_bfloat16>(
+    unsigned short b) {
+  return __ushort_as_bfloat16(b);
+}
+
+// Row v of an (n, N) array of S, loaded into registers by one thread, from
+// an array that starts 16-byte aligned (run_hessian_sum checks it), in the
+// fewest loads the rows' alignment allows, so that a warp's gather of 32
+// scattered rows costs few load instructions: float64 rows (16 N bytes)
+// in 16-byte loads, float32 rows of 6 (24 bytes) in 8-byte ones, bf16 /
+// fp16 rows in 4-byte pairs, and a float32 row of 18 (72 bytes, 8-byte
+// aligned) in four 16-byte loads and one or two 8-byte ones from the
+// 16-byte boundary at or below it (RowLoad<float, 18>). get(i) is value i.
+template <typename S, int N>
+struct RowLoad;
+
+template <int N>
+struct RowLoad<double, N> {
+  double2 x[N / 2];
+  __device__ __forceinline__ void load(const double* __restrict__ a,
+                                       long long v) {
+    const double2* p = reinterpret_cast<const double2*>(a + v * N);
+#pragma unroll
+    for (int c = 0; c < N / 2; ++c) x[c] = __ldg(p + c);
   }
-  // (Js[0, i] Jt[0, k] + Js[1, i] Jt[1, k]) dL, each operation rounded,
-  // then rounded to O
-  static __device__ __forceinline__ O entry(const T* row, int i, int k) {
-    const T* t = row + (SAME ? 0 : WS);
-    return static_cast<O>((row[i] * t[k] + row[DS + i] * t[DT + k]) *
-                          row[W - 1]);
+  __device__ __forceinline__ double get(int i) const {
+    return (i & 1) ? x[i >> 1].y : x[i >> 1].x;
   }
 };
 
-// G = 1: K1's row kernel (segsum.cu, segsum_rows_kernel) with the rows
-// staged. A CTA of T = (256 / D) D threads owns SPC = (T / D) kSumSteps
-// consecutive segments; thread x keeps column x % D and sums the segments
-// x / D + j T / D (j < kSumSteps), each over its rows in row order, so a
-// warp's store is 32 consecutive values. The rows of the CTA's segments
-// are staged kStageBytes / (W sizeof(T)) at a time: J_s, J_t and dL in
-// three arrays, each a contiguous copy where the plan has no permutation.
+template <int N>
+struct RowLoad<float, N> {
+  float2 x[N / 2];
+  __device__ __forceinline__ void load(const float* __restrict__ a,
+                                       long long v) {
+    const float2* p = reinterpret_cast<const float2*>(a + v * N);
+#pragma unroll
+    for (int c = 0; c < N / 2; ++c) x[c] = __ldg(p + c);
+  }
+  __device__ __forceinline__ float get(int i) const {
+    return (i & 1) ? x[i >> 1].y : x[i >> 1].x;
+  }
+};
+
+// A row of 18 floats starts at 72 v bytes: 16-byte aligned for an even v,
+// 8 past a boundary for an odd one. The 4-byte words [0, 20) from that
+// boundary hold it at word 0 or 2: four 16-byte loads, the 8 bytes of
+// words 16-17, and those of words 18-19 for an odd v only, so nothing
+// outside the row's own 16-byte pieces is read.
+template <>
+struct RowLoad<float, 18> {
+  float4 q[4];
+  float2 t0, t1;
+  bool odd;
+  __device__ __forceinline__ void load(const float* __restrict__ a,
+                                       long long v) {
+    odd = (v & 1) != 0;
+    const float4* p = reinterpret_cast<const float4*>(a + 18 * v -
+                                                      (odd ? 2 : 0));
+#pragma unroll
+    for (int c = 0; c < 4; ++c) q[c] = __ldg(p + c);
+    const float2* t = reinterpret_cast<const float2*>(p + 4);
+    t0 = __ldg(t);
+    t1 = odd ? __ldg(t + 1) : make_float2(0.0f, 0.0f);
+  }
+  __device__ __forceinline__ float word(int j) const {
+    if (j >= 16) {
+      return j == 16 ? t0.x : j == 17 ? t0.y : j == 18 ? t1.x : t1.y;
+    }
+    const float4& c = q[j >> 2];
+    return (j & 3) == 0 ? c.x : (j & 3) == 1 ? c.y : (j & 3) == 2 ? c.z : c.w;
+  }
+  __device__ __forceinline__ float get(int i) const {
+    return odd ? word(i + 2) : word(i);
+  }
+};
+
+// bf16 / fp16 rows of an even N (2 N bytes, 4-byte aligned): N / 2 pairs
+template <typename S, int N>
+struct PairRow {
+  unsigned x[N / 2];
+  __device__ __forceinline__ void load(const S* __restrict__ a, long long v) {
+    const unsigned* p = reinterpret_cast<const unsigned*>(a + v * N);
+#pragma unroll
+    for (int c = 0; c < N / 2; ++c) x[c] = __ldg(p + c);
+  }
+  __device__ __forceinline__ S get(int i) const {
+    const unsigned w = x[i >> 1];
+    return from_bits<S>(static_cast<unsigned short>((i & 1) ? w >> 16
+                                                            : w & 0xffffu));
+  }
+};
+template <int N>
+struct RowLoad<__half, N> : PairRow<__half, N> {};
+template <int N>
+struct RowLoad<__nv_bfloat16, N> : PairRow<__nv_bfloat16, N> {};
+
+// One factor's row of a site in registers: J_s (2 DS values of S), J_t (2
+// DT, not loaded when SAME) and dL (T).
+template <typename T, typename S, int DS, int DT, bool SAME>
+struct SiteRow {
+  RowLoad<S, 2 * DS> a;
+  RowLoad<S, 2 * DT> b;
+  T d;
+  __device__ __forceinline__ void load(const S* __restrict__ js,
+                                       const S* __restrict__ jt,
+                                       const T* __restrict__ dl,
+                                       long long v) {
+    a.load(js, v);
+    if (!SAME) b.load(jt, v);
+    d = __ldg(dl + v);
+  }
+  // adds the row's entries (kWhole), or its values (kLoadsOnly), to acc
+  template <typename O, int MODE>
+  __device__ __forceinline__ void add(O* acc) const {
+    T x[2 * DS], y[SAME ? 1 : 2 * DT];
+#pragma unroll
+    for (int i = 0; i < 2 * DS; ++i) x[i] = widen<S, T>(a.get(i));
+    if (!SAME) {
+#pragma unroll
+      for (int i = 0; i < 2 * DT; ++i) y[i] = widen<S, T>(b.get(i));
+    }
+    if (MODE == kLoadsOnly) {
+      T sum = d;
+#pragma unroll
+      for (int i = 0; i < 2 * DS; ++i) sum = sum + x[i];
+      if (!SAME) {
+#pragma unroll
+        for (int i = 0; i < 2 * DT; ++i) sum = sum + y[i];
+      }
+      acc[0] = acc[0] + static_cast<O>(sum);
+      return;
+    }
+    add_products<T, O, DS, DT, SAME>(x, SAME ? x : y, d, acc);
+  }
+};
+
+// kProductsOnly's row: values made from the row's position p
+template <typename T, typename O, int DS, int DT, bool SAME>
+__device__ __forceinline__ void add_made_row(int p, O* acc) {
+  T x[2 * DS], y[2 * DT];
+#pragma unroll
+  for (int i = 0; i < 2 * DS; ++i) x[i] = static_cast<T>(p + i);
+#pragma unroll
+  for (int i = 0; i < 2 * DT; ++i) y[i] = static_cast<T>(p - i);
+  add_products<T, O, DS, DT, SAME>(x, SAME ? x : y, static_cast<T>(1), acc);
+}
+
+// G > 1 (the camera sites: ~2,800 rows a block through the permutation).
+// Each lane of a segment is one thread's for the whole segment: thread l of
+// segment s sums its sorted rows l, l + G, ... from +0.0, each read
+// straight from device memory through the plan (the next row's loads and
+// the row after's index in flight while a row is summed), into its E
+// distinct entries, held in registers: no shared staging, no barrier a
+// round. A CTA of max(G, 128) threads holds max(1, 128 / G) segments,
+// consecutive, so a warp holds whole segments or 32 lanes of one. Then
+// K1's halving tree, lane q += lane q + h for h = G/2, ..., 1: through
+// shared memory while h >= 32 (a barrier a level), then in the warp by
+// __shfl_down_sync. Lane 0 puts the block, mirrored when SAME, into a
+// shared tile, and the CTA stores its segments' blocks, one contiguous
+// range, value by value. Dynamic shared memory: the tile (segments x D
+// values of O), or for G >= 64 the tree's (threads / 2) E values if more.
 template <typename T, typename S, typename O, int DS, int DT, bool SAME,
-          bool TRANS>
+          bool TRANS, int MODE>
+__global__ void __launch_bounds__(256)
+    hsum_lanes_kernel(const S* __restrict__ js, const S* __restrict__ jt,
+                      const T* __restrict__ dl, const int* __restrict__ perm,
+                      const int* __restrict__ offsets, O* __restrict__ out,
+                      int num_segments, int g_log2, int accumulate) {
+  using B = Block<DS, DT, SAME, TRANS>;
+  using Row = SiteRow<T, S, DS, DT, SAME>;
+  extern __shared__ __align__(16) unsigned char lane_smem[];
+  O* shared = reinterpret_cast<O*>(lane_smem);
+  const int G = 1 << g_log2;
+  const int spc = blockDim.x >> g_log2;
+  const int sub = threadIdx.x >> g_log2;
+  const int l = threadIdx.x & (G - 1);
+  const long long s0 = static_cast<long long>(blockIdx.x) * spc;
+  const long long s = s0 + sub;
+  int pos = 0, end = 0;
+  if (s < num_segments) {
+    pos = offsets[s] + l;
+    end = offsets[s + 1];
+  }
+  O acc[B::E];
+#pragma unroll
+  for (int e = 0; e < B::E; ++e) acc[e] = static_cast<O>(0);
+  auto index = [&](int p) -> long long {
+    if (MODE == kProductsOnly || perm == nullptr) return p;
+    return __ldg(perm + p);
+  };
+  Row next;
+  if (MODE != kProductsOnly && pos < end) next.load(js, jt, dl, index(pos));
+  long long ahead = pos + G < end ? index(pos + G) : 0;
+  while (pos < end) {
+    const int p1 = pos + G;
+    if (MODE == kProductsOnly) {
+      add_made_row<T, O, DS, DT, SAME>(pos, acc);
+    } else {
+      const Row cur = next;
+      if (p1 < end) next.load(js, jt, dl, ahead);
+      if (p1 + G < end) ahead = index(p1 + G);
+      cur.template add<O, MODE>(acc);
+    }
+    pos = p1;
+  }
+
+  const int half = blockDim.x >> 1;
+  for (int h = G >> 1; h >= 32; h >>= 1) {
+    O* red = shared + sub * (G >> 1);
+    if (l >= h && l < 2 * h) {
+#pragma unroll
+      for (int e = 0; e < B::E; ++e) red[e * half + l - h] = acc[e];
+    }
+    __syncthreads();
+    if (l < h) {
+#pragma unroll
+      for (int e = 0; e < B::E; ++e) acc[e] = acc[e] + red[e * half + l];
+    }
+    __syncthreads();
+  }
+  for (int h = (G < 32 ? G : 32) >> 1; h >= 1; h >>= 1) {
+#pragma unroll
+    for (int e = 0; e < B::E; ++e) {
+      acc[e] = acc[e] + __shfl_down_sync(0xffffffffu, acc[e], h);
+    }
+  }
+  if (l == 0 && s < num_segments) {
+    put_block<O, DS, DT, SAME, TRANS>(acc, shared + sub * B::D);
+  }
+  __syncthreads();
+  const long long left = num_segments - s0;
+  const int n = static_cast<int>((left < spc ? left : spc) * B::D);
+  O* dst = out + s0 * B::D;
+  for (int x = threadIdx.x; x < n; x += blockDim.x) {
+    dst[x] = accumulate ? dst[x] + shared[x] : shared[x];
+  }
+}
+
+// The two bf16 / fp16 values of the word w, the lower first, widened
+// exactly to float.
+template <typename E>
+__device__ __forceinline__ float2 widen_pair(unsigned w) {
+  return make_float2(
+      Storage<E>::load(from_bits<E>(static_cast<unsigned short>(w & 0xffffu))),
+      Storage<E>::load(from_bits<E>(static_cast<unsigned short>(w >> 16))));
+}
+
+// stage_span for the n bf16 / fp16 values at src, widened exactly to V
+// (float or double) on their way through registers: each 16-byte piece
+// of src between its first and last 16-byte boundary (8 values) in four
+// 4-byte loads, value loads before and after. (One 16-byte load instead
+// held the float32 graph's fp16 Hll instance to 80 registers with a
+// spill, and was slower at Venice's Hpl.) The span starts at an offset m
+// (returned) that puts each piece's first value on a 16-byte boundary of
+// dst, so it goes out in 16-byte stores (two float4 or four double2); m <
+// 16 / sizeof(V), within the 16 bytes RowsShape leaves a span to spare.
+template <int kThreads, typename V, typename E>
+__device__ __forceinline__ int stage_span_widened(V* dst,
+                                                  const E* __restrict__ src,
+                                                  int n) {
+  constexpr int kPerV = 16 / sizeof(V);
+  const int a = static_cast<int>(
+      (reinterpret_cast<unsigned long long>(src) / sizeof(E)) & 7);
+  const int head = min(n, (8 - a) & 7);
+  const int nv = (n - head) / 8;
+  const int m = (kPerV - head % kPerV) % kPerV;
+  V* d = dst + m;
+  for (int x = threadIdx.x; x < nv; x += kThreads) {
+    const unsigned* wp = reinterpret_cast<const unsigned*>(src + head) + 4 * x;
+    const uint4 w = make_uint4(__ldg(wp), __ldg(wp + 1), __ldg(wp + 2),
+                               __ldg(wp + 3));
+    const float2 a0 = widen_pair<E>(w.x), a1 = widen_pair<E>(w.y),
+                 a2 = widen_pair<E>(w.z), a3 = widen_pair<E>(w.w);
+    V* o = d + head + 8 * x;
+    if constexpr (sizeof(V) == 4) {
+      reinterpret_cast<float4*>(o)[0] = make_float4(a0.x, a0.y, a1.x, a1.y);
+      reinterpret_cast<float4*>(o)[1] = make_float4(a2.x, a2.y, a3.x, a3.y);
+    } else {
+      double2* o2 = reinterpret_cast<double2*>(o);
+      o2[0] = make_double2(a0.x, a0.y);
+      o2[1] = make_double2(a1.x, a1.y);
+      o2[2] = make_double2(a2.x, a2.y);
+      o2[3] = make_double2(a3.x, a3.y);
+    }
+  }
+  for (int x = threadIdx.x; x < head; x += kThreads) {
+    d[x] = widen<E, V>(src[x]);
+  }
+  for (int x = head + 8 * nv + threadIdx.x; x < n; x += kThreads) {
+    d[x] = widen<E, V>(src[x]);
+  }
+  return m;
+}
+
+// Stages values [c0 W, (c0 + nr) W) of an (n, W) array of E (rows [c0,
+// c0 + nr) of the plan's sorted order, gathered through perm if any) into
+// the shared span dst of V; returns the offset in elements at which the
+// span starts. Float32 and float64 values go by cp.async (V is E), bf16 /
+// fp16 ones through registers, widened exactly to V; where the rows are
+// contiguous in 16-byte pieces (stage_span, stage_span_widened). The
+// caller commits and waits.
+template <int kThreads, typename V, typename E>
+__device__ __forceinline__ int stage_rows(V* dst, const E* __restrict__ src,
+                                          const int* __restrict__ perm,
+                                          int c0, int nr, int W) {
+  if (perm == nullptr) {
+    const E* rows = src + static_cast<long long>(c0) * W;
+    if constexpr (sizeof(E) >= 4) {
+      return stage_span<kThreads>(dst, rows, nr * W);
+    } else {
+      return stage_span_widened<kThreads>(dst, rows, nr * W);
+    }
+  }
+  for (int x = threadIdx.x; x < nr * W; x += kThreads) {
+    const int rr = x / W;
+    const E* a = src + static_cast<long long>(__ldg(perm + c0 + rr)) * W +
+                 (x - rr * W);
+    if constexpr (sizeof(E) >= 4) {
+      cp_async_elem(dst + x, a);
+    } else {
+      dst[x] = widen<E, V>(*a);
+    }
+  }
+  return 0;
+}
+
+// The rows kernel's shape: blocks a CTA (one thread each; the largest
+// power of two up to kRowsCta whose tile of D values of O fits the stage)
+// and rows a pass (J_s, J_t as V and dL in T, each span with 16 bytes to
+// spare for stage_rows' offset). V, the staged J's type: S where
+// cp.async copies it (float32, float64), else (bf16, fp16) S widened to
+// T, so that the loop over the staged rows is the float32 or float64
+// storage's own.
+template <typename T, typename S, typename O, int DS, int DT, bool SAME>
 struct RowsShape {
-  using P = HPair<T, S, O, DS, DT, SAME, TRANS>;
-  static constexpr int kSegsPerStep = kSumThreads / P::D;
-  static constexpr int kThreads = kSegsPerStep * P::D;
-  static constexpr int kSegs = kSegsPerStep * kSumSteps;
+  using V = std::conditional_t<(sizeof(S) >= 4), S, T>;
+  static constexpr int WS = 2 * DS;
+  static constexpr int WT = SAME ? 0 : 2 * DT;
+  static constexpr int kTileBytes = DS * DT * static_cast<int>(sizeof(O));
+  static constexpr int NB = kTileBytes * kRowsCta + 16 <= kRowsStageBytes
+                                ? kRowsCta
+                            : kTileBytes * kRowsCta / 2 + 16 <= kRowsStageBytes
+                                ? kRowsCta / 2
+                                : kRowsCta / 4;
   static constexpr int kRows =
-      kStageBytes / (P::W * static_cast<int>(sizeof(T)));
+      (kRowsStageBytes - 96) /
+      ((WS + WT) * static_cast<int>(sizeof(V)) + static_cast<int>(sizeof(T)));
+  static constexpr int kJsBytes = (kRows * WS * sizeof(V) + 16 + 15) / 16 * 16;
+  static constexpr int kJtBytes =
+      SAME ? 0 : (kRows * WT * sizeof(V) + 16 + 15) / 16 * 16;
 };
 
+// G = 1 (the destination-sorted point sites: ~1-5 rows a block). One
+// thread a block: a CTA of NB threads owns NB consecutive blocks and
+// stages their rows, one contiguous range where the plan has no
+// permutation, kRows at a time (16-byte cp.async copies, or bf16 / fp16
+// J widened on the way, stage_span_widened; one or two passes a CTA at
+// Venice), J_s, J_t and dL in three spans; thread j sums its block's
+// staged rows in row order into the block's E distinct entries in
+// registers. The blocks go out through a shared tile (the stage's
+// memory) in 16-byte stores (value by value when added).
 template <typename T, typename S, typename O, int DS, int DT, bool SAME,
-          bool TRANS>
-__global__ void __launch_bounds__(kSumThreads)
+          bool TRANS, int MODE>
+__global__ void __launch_bounds__(kRowsCta)
     hsum_rows_kernel(const S* __restrict__ js, const S* __restrict__ jt,
                      const T* __restrict__ dl, const int* __restrict__ perm,
                      const int* __restrict__ offsets, O* __restrict__ out,
                      int num_segments, int accumulate) {
-  using P = HPair<T, S, O, DS, DT, SAME, TRANS>;
-  using R = RowsShape<T, S, O, DS, DT, SAME, TRANS>;
-  constexpr int WT = SAME ? P::WS : P::WT;  // J_t values a row
-  __shared__ T s_js[R::kRows * P::WS];
-  __shared__ T s_jt[SAME ? 1 : R::kRows * P::WT];
-  __shared__ T s_dl[R::kRows];
-  __shared__ int soff[R::kSegs + 1];
-  const long long s0 = static_cast<long long>(blockIdx.x) * R::kSegs;
-  const int ns = static_cast<int>(
-      num_segments - s0 < R::kSegs ? num_segments - s0 : R::kSegs);
-  for (int x = threadIdx.x; x <= ns; x += R::kThreads) {
-    soff[x] = offsets[s0 + x];
-  }
+  using B = Block<DS, DT, SAME, TRANS>;
+  using R = RowsShape<T, S, O, DS, DT, SAME>;
+  constexpr int NB = R::NB;
+  __shared__ __align__(16) unsigned char stage[kRowsStageBytes];
+  __shared__ int soff[NB + 1];
+  using V = typename R::V;
+  V* s_js = reinterpret_cast<V*>(stage);
+  V* s_jt = reinterpret_cast<V*>(stage + R::kJsBytes);
+  T* s_dl = reinterpret_cast<T*>(stage + R::kJsBytes + R::kJtBytes);
+  const long long b0 = static_cast<long long>(blockIdx.x) * NB;
+  const int nb = static_cast<int>(num_segments - b0 < NB ? num_segments - b0
+                                                        : NB);
+  for (int x = threadIdx.x; x <= nb; x += NB) soff[x] = offsets[b0 + x];
   __syncthreads();
-  const int sq = threadIdx.x / P::D;
-  const int c = threadIdx.x - sq * P::D;
-  int i, k;
-  P::cols(c, &i, &k);
-  const T* tj = SAME ? s_js : s_jt;
-  O acc[kSumSteps];
+  const int j = threadIdx.x;
+  const int mine0 = j < nb ? soff[j] : 0, mine1 = j < nb ? soff[j + 1] : 0;
+  O acc[B::E];
 #pragma unroll
-  for (int j = 0; j < kSumSteps; ++j) acc[j] = static_cast<O>(0);
-  const int r0 = soff[0], r1 = soff[ns];
-  for (int c0 = r0; c0 < r1; c0 += R::kRows) {
+  for (int e = 0; e < B::E; ++e) acc[e] = static_cast<O>(0);
+  const int r1 = soff[nb];
+  for (int c0 = soff[0]; c0 < r1; c0 += R::kRows) {
     const int nr = r1 - c0 < R::kRows ? r1 - c0 : R::kRows;
-    if (perm == nullptr) {
-      const S* a = js + static_cast<long long>(c0) * P::WS;
-      for (int x = threadIdx.x; x < nr * P::WS; x += R::kThreads) {
-        s_js[x] = P::widen(a[x]);
+    int ms = 0, mt = 0, md = 0;
+    if (MODE != kProductsOnly) {
+      ms = stage_rows<NB>(s_js, js, perm, c0, nr, R::WS);
+      if (!SAME) mt = stage_rows<NB>(s_jt, jt, perm, c0, nr, R::WT);
+      md = stage_rows<NB>(s_dl, dl, perm, c0, nr, 1);
+      cp_async_commit();
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int a = mine0 > c0 ? mine0 : c0;
+    const int b = mine1 < c0 + nr ? mine1 : c0 + nr;
+    for (int r = a - c0; r < b - c0; ++r) {
+      if (MODE == kProductsOnly) {
+        add_made_row<T, O, DS, DT, SAME>(c0 + r, acc);
+        continue;
       }
+      T x[R::WS], y[SAME ? 1 : R::WT];
+      const V* ps = s_js + ms + r * R::WS;
+#pragma unroll
+      for (int i = 0; i < R::WS; ++i) x[i] = widen<V, T>(ps[i]);
       if (!SAME) {
-        const S* b = jt + static_cast<long long>(c0) * P::WT;
-        for (int x = threadIdx.x; x < nr * P::WT; x += R::kThreads) {
-          s_jt[x] = P::widen(b[x]);
-        }
-      }
-      for (int x = threadIdx.x; x < nr; x += R::kThreads) {
-        s_dl[x] = dl[c0 + x];
-      }
-    } else {
-      for (int x = threadIdx.x; x < nr * P::WS; x += R::kThreads) {
-        const int rr = x / P::WS;
-        const long long v = __ldg(perm + c0 + rr);
-        s_js[x] = P::widen(js[v * P::WS + (x - rr * P::WS)]);
-      }
-      if (!SAME) {
-        for (int x = threadIdx.x; x < nr * P::WT; x += R::kThreads) {
-          const int rr = x / P::WT;
-          const long long v = __ldg(perm + c0 + rr);
-          s_jt[x] = P::widen(jt[v * P::WT + (x - rr * P::WT)]);
-        }
-      }
-      for (int x = threadIdx.x; x < nr; x += R::kThreads) {
-        s_dl[x] = dl[__ldg(perm + c0 + x)];
-      }
-    }
-    __syncthreads();
-    const int c1 = c0 + nr;
+        const V* pt = s_jt + mt + r * R::WT;
 #pragma unroll
-    for (int j = 0; j < kSumSteps; ++j) {
-      const int ls = sq + j * R::kSegsPerStep;
-      if (ls >= ns) continue;
-      const int a = soff[ls] > c0 ? soff[ls] : c0;
-      const int b = soff[ls + 1] < c1 ? soff[ls + 1] : c1;
-      for (int r = a - c0; r < b - c0; ++r) {
-        const T* sa = s_js + r * P::WS;
-        const T* sb = tj + r * WT;
-        acc[j] = acc[j] + static_cast<O>((sa[i] * sb[k] +
-                                          sa[DS + i] * sb[DT + k]) *
-                                         s_dl[r]);
+        for (int i = 0; i < R::WT; ++i) y[i] = widen<V, T>(pt[i]);
       }
+      const T d = s_dl[md + r];
+      if (MODE == kLoadsOnly) {
+        T sum = d;
+#pragma unroll
+        for (int i = 0; i < R::WS; ++i) sum = sum + x[i];
+        if (!SAME) {
+#pragma unroll
+          for (int i = 0; i < R::WT; ++i) sum = sum + y[i];
+        }
+        acc[0] = acc[0] + static_cast<O>(sum);
+        continue;
+      }
+      add_products<T, O, DS, DT, SAME>(x, SAME ? x : y, d, acc);
     }
     __syncthreads();
   }
-#pragma unroll
-  for (int j = 0; j < kSumSteps; ++j) {
-    const int ls = sq + j * R::kSegsPerStep;
-    if (ls >= ns) continue;
-    O* dst = out + (s0 + ls) * P::D + c;
-    *dst = accumulate ? *dst + acc[j] : acc[j];
-  }
-}
-
-// K1's lane rounds staged at once by a CTA of L lanes a thread: 4 / L (4
-// rows a thread and round at least), so that a round's gather latency is
-// paid for several lane rounds.
-template <int L>
-__host__ __device__ constexpr int lane_rounds() {
-  return L >= 4 ? 1 : 4 / L;
-}
-
-// G > 1: K1's lane CTA (segsum.cu, segsum_lanes_kernel) with the value
-// rows formed from staged J rows. C columns per thread, CT threads per
-// slot, Q = 2^q_log2 slots, L lanes per thread: G = Q L. The CTA sums
-// segments blockIdx.x * spc + [0, spc); each round stages, per segment,
-// its next KR G sorted rows (KR = lane_rounds<L>(): KR of K1's rounds),
-// which the lanes take round by round. Dynamic shared memory: two stage
-// buffers of spc KR G W values of T, then the lane tree (blockDim.x C
-// values of O).
-template <typename T, typename S, typename O, int DS, int DT, bool SAME,
-          bool TRANS, int L>
-__global__ void __launch_bounds__(kLaneThreads)
-    hsum_lanes_kernel(const S* __restrict__ js, const S* __restrict__ jt,
-                      const T* __restrict__ dl, const int* __restrict__ perm,
-                      const int* __restrict__ offsets, O* __restrict__ out,
-                      int num_segments, int q_log2, int spc, int accumulate) {
-  using P = HPair<T, S, O, DS, DT, SAME, TRANS>;
-  constexpr int C = (P::D + 31) / 32;
-  constexpr int CT = (P::D + C - 1) / C;
-  constexpr int KR = lane_rounds<L>();
-  // a (DS, DT) block's columns c + u CT share J_t's column k when CT is a
-  // multiple of DT
-  constexpr bool kSharedK = !TRANS && CT % DT == 0;
-  // staged values per thread and round: spc KR G W / (spc Q CT)
-  constexpr int NP = (KR * L * P::W + CT - 1) / CT;
-  extern __shared__ __align__(16) unsigned char lane_smem[];
-  __shared__ int soff[kLaneMaxSpc + 1];
-  T* stage = reinterpret_cast<T*>(lane_smem);
-  const int Q = 1 << q_log2;
-  const int G = Q * L;
-  const int RG = KR * G;  // a segment's rows a round
-  const int per_seg = Q * CT;
-  const int nthreads = spc * per_seg;
-  const int n_stage = spc * RG * P::W;
-  O* tree = reinterpret_cast<O*>(stage + 2 * n_stage);
-  const int sub = threadIdx.x / per_seg;
-  const int t = threadIdx.x - sub * per_seg;
-  const int q = t / CT;
-  const int c = t - q * CT;
-  const long long s0 = static_cast<long long>(blockIdx.x) * spc;
-  const int ns = static_cast<int>(
-      num_segments - s0 < spc ? num_segments - s0 : spc);
-  for (int x = threadIdx.x; x <= ns; x += nthreads) soff[x] = offsets[s0 + x];
+  // the tile at the output's offset from a 16-byte boundary (store_span)
+  O* dst = out + b0 * B::D;
+  const int m = static_cast<int>(
+      (reinterpret_cast<unsigned long long>(dst) / sizeof(O)) &
+      (16 / sizeof(O) - 1));
+  O* tile = reinterpret_cast<O*>(stage) + m;
+  if (j < nb) put_block<O, DS, DT, SAME, TRANS>(acc, tile + j * B::D);
   __syncthreads();
-  int rounds = 0;
-  for (int b = 0; b < ns; ++b) {
-    const int n = (soff[b + 1] - soff[b] + RG - 1) / RG;
-    rounds = n > rounds ? n : rounds;
-  }
-  const bool live = sub < ns;
-  int ii[C], kk[C];
-  bool has[C];
-#pragma unroll
-  for (int u = 0; u < C; ++u) {
-    has[u] = c + u * CT < P::D;
-    ii[u] = kk[u] = 0;
-    if (has[u]) P::cols(c + u * CT, &ii[u], &kk[u]);
-  }
-
-  // this thread's share of round rnd's staged values: value x of the
-  // stage is value w of the row at sorted position soff[b] + rnd RG + j
-  // of segment b (x = (b RG + j) W + w)
-  T pre[NP];
-  auto fetch = [&](int rnd) {
-#pragma unroll
-    for (int p = 0; p < NP; ++p) {
-      const int x = threadIdx.x + p * nthreads;
-      pre[p] = static_cast<T>(0);
-      if (x < n_stage) {
-        const int slot = x / P::W;
-        const int b = slot / RG;
-        const int pos = soff[b] + rnd * RG + (slot - b * RG);
-        if (b < ns && pos < soff[b + 1]) {
-          const long long v = perm != nullptr ? __ldg(perm + pos) : pos;
-          pre[p] = P::load(js, jt, dl, v, x - slot * P::W);
-        }
-      }
+  if (accumulate) {
+    for (int x = threadIdx.x; x < nb * B::D; x += NB) {
+      dst[x] = dst[x] + tile[x];
     }
-  };
-  auto put = [&](T* buf) {
-#pragma unroll
-    for (int p = 0; p < NP; ++p) {
-      const int x = threadIdx.x + p * nthreads;
-      if (x < n_stage) buf[x] = pre[p];
-    }
-  };
-
-  O acc[L][C];
-#pragma unroll
-  for (int j = 0; j < L; ++j) {
-#pragma unroll
-    for (int u = 0; u < C; ++u) acc[j][u] = static_cast<O>(0);
-  }
-  if (rounds > 0) {
-    fetch(0);
-    put(stage);
-  }
-  __syncthreads();
-  for (int rnd = 0; rnd < rounds; ++rnd) {
-    const bool more = rnd + 1 < rounds;
-    if (more) fetch(rnd + 1);  // in flight while this round is summed
-    if (live) {
-      const T* cur = stage + (rnd & 1) * n_stage + sub * RG * P::W;
-      const int first = soff[sub] + rnd * RG;
-      const int left = soff[sub + 1] - first;
-      // K1's round k of the KR: lane q + j Q takes its row k G + q + j Q
-#pragma unroll
-      for (int k = 0; k < KR; ++k) {
-#pragma unroll
-        for (int j = 0; j < L; ++j) {
-          const int jj = k * G + q + j * Q;
-          if (jj >= left) continue;
-          const T* row = cur + jj * P::W;
-          if constexpr (kSharedK) {
-            // one J_t column for the thread's C columns: its two values
-            // and dL read once
-            const T* tr = row + (SAME ? 0 : P::WS);
-            const T b0 = tr[kk[0]], b1 = tr[DT + kk[0]];
-            const T d = row[P::W - 1];
-#pragma unroll
-            for (int u = 0; u < C; ++u) {
-              if (has[u]) {
-                acc[j][u] = acc[j][u] + static_cast<O>(
-                    (row[ii[u]] * b0 + row[DS + ii[u]] * b1) * d);
-              }
-            }
-          } else {
-#pragma unroll
-            for (int u = 0; u < C; ++u) {
-              if (has[u]) {
-                acc[j][u] = acc[j][u] + P::entry(row, ii[u], kk[u]);
-              }
-            }
-          }
-        }
-      }
-    }
-    if (more) put(stage + ((rnd + 1) & 1) * n_stage);
-    __syncthreads();
-  }
-
-  // K1's tree: levels h = G/2, ..., Q in registers (lane q + j Q += lane
-  // q + (j + h/Q) Q), then h = Q/2, ..., 1 through shared memory
-#pragma unroll
-  for (int h = L / 2; h >= 1; h >>= 1) {
-#pragma unroll
-    for (int j = 0; j < h; ++j) {
-#pragma unroll
-      for (int u = 0; u < C; ++u) acc[j][u] = acc[j][u] + acc[j + h][u];
-    }
-  }
-  O* mine = tree + (sub * per_seg + c) * C;
-  for (int h = Q >> 1; h >= 1; h >>= 1) {
-    if (q >= h && q < 2 * h) {
-#pragma unroll
-      for (int u = 0; u < C; ++u) mine[q * CT * C + u] = acc[0][u];
-    }
-    __syncthreads();
-    if (q < h) {
-#pragma unroll
-      for (int u = 0; u < C; ++u) {
-        acc[0][u] = acc[0][u] + mine[(q + h) * CT * C + u];
-      }
-    }
-    __syncthreads();
-  }
-  if (live && q == 0) {
-    O* dst = out + (s0 + sub) * P::D;
-#pragma unroll
-    for (int u = 0; u < C; ++u) {
-      if (!has[u]) continue;
-      const int col = c + u * CT;
-      dst[col] = accumulate ? dst[col] + acc[0][u] : acc[0][u];
-    }
+  } else {
+    store_span<NB>(dst, tile, nb * B::D);
   }
 }
 
@@ -909,73 +1092,45 @@ struct HSumArgs {
 };
 
 template <typename T, typename S, typename O, int DS, int DT, bool SAME,
-          bool TRANS, int L>
-cudaError_t launch_hsum_lanes(const HSumArgs& a, int q_log2, int spc) {
-  using P = HPair<T, S, O, DS, DT, SAME, TRANS>;
-  constexpr int C = (P::D + 31) / 32;
-  constexpr int CT = (P::D + C - 1) / C;
-  const int threads = spc * (CT << q_log2);
-  const size_t smem =
-      sizeof(T) * 2 * static_cast<size_t>(spc) * lane_rounds<L>() *
-          (L << q_log2) * P::W +
-      sizeof(O) * static_cast<size_t>(threads) * C;
-  auto kernel = hsum_lanes_kernel<T, S, O, DS, DT, SAME, TRANS, L>;
-  if (smem > 48 * 1024) {
-    // only a forced group of 256 lanes asks this much
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
+          bool TRANS, int MODE>
+cudaError_t launch_hsum_rows(const HSumArgs& a) {
+  constexpr int NB = RowsShape<T, S, O, DS, DT, SAME>::NB;
+  hsum_rows_kernel<T, S, O, DS, DT, SAME, TRANS, MODE>
+      <<<static_cast<unsigned>((a.num_segments + NB - 1) / NB), NB, 0,
+         a.stream>>>(static_cast<const S*>(a.js), static_cast<const S*>(a.jt),
+                     static_cast<const T*>(a.dl), a.perm, a.offsets,
+                     static_cast<O*>(a.out), a.num_segments, a.accumulate);
+  return cudaGetLastError();
+}
+
+template <typename T, typename S, typename O, int DS, int DT, bool SAME,
+          bool TRANS, int MODE>
+cudaError_t launch_hsum_lanes(const HSumArgs& a) {
+  using B = Block<DS, DT, SAME, TRANS>;
+  const int G = 1 << a.group_log2;
+  const int threads = G > kLaneCta ? G : kLaneCta;
+  const int spc = threads / G;
+  size_t smem = sizeof(O) * static_cast<size_t>(spc) * B::D;
+  if (G >= 64) {
+    const size_t tree = sizeof(O) * static_cast<size_t>(threads / 2) * B::E;
+    smem = tree > smem ? tree : smem;
   }
-  kernel<<<static_cast<unsigned>((a.num_segments + spc - 1) / spc), threads,
-           smem, a.stream>>>(
-      static_cast<const S*>(a.js), static_cast<const S*>(a.jt),
-      static_cast<const T*>(a.dl), a.perm, a.offsets,
-      static_cast<O*>(a.out), a.num_segments, q_log2, spc, a.accumulate);
+  hsum_lanes_kernel<T, S, O, DS, DT, SAME, TRANS, MODE>
+      <<<static_cast<unsigned>((a.num_segments + spc - 1) / spc), threads,
+         smem, a.stream>>>(
+          static_cast<const S*>(a.js), static_cast<const S*>(a.jt),
+          static_cast<const T*>(a.dl), a.perm, a.offsets,
+          static_cast<O*>(a.out), a.num_segments, a.group_log2, a.accumulate);
   return cudaGetLastError();
 }
 
 template <typename T, typename S, typename O, int DS, int DT, bool SAME,
           bool TRANS>
 cudaError_t launch_hsum(const HSumArgs& a) {
-  using P = HPair<T, S, O, DS, DT, SAME, TRANS>;
   if (a.group_log2 == 0) {
-    using R = RowsShape<T, S, O, DS, DT, SAME, TRANS>;
-    hsum_rows_kernel<T, S, O, DS, DT, SAME, TRANS>
-        <<<static_cast<unsigned>((a.num_segments + R::kSegs - 1) / R::kSegs),
-           R::kThreads, 0, a.stream>>>(
-            static_cast<const S*>(a.js), static_cast<const S*>(a.jt),
-            static_cast<const T*>(a.dl), a.perm, a.offsets,
-            static_cast<O*>(a.out), a.num_segments, a.accumulate);
-    return cudaGetLastError();
+    return launch_hsum_rows<T, S, O, DS, DT, SAME, TRANS, kWhole>(a);
   }
-  // K1's CTA shape (segsum.cu, segsum): the most slots that fit, at most G
-  constexpr int C = (P::D + 31) / 32;
-  constexpr int CT = (P::D + C - 1) / C;
-  int q_log2 = 0;
-  while (q_log2 < a.group_log2 && (CT << (q_log2 + 1)) <= kLaneThreads) {
-    ++q_log2;
-  }
-  const int per_seg = CT << q_log2;
-  const int spc = per_seg >= kLaneMinThreads ? 1 : kLaneMinThreads / per_seg;
-  switch (a.group_log2 - q_log2) {
-    case 0:
-      return launch_hsum_lanes<T, S, O, DS, DT, SAME, TRANS, 1>(a, q_log2,
-                                                                spc);
-    case 1:
-      return launch_hsum_lanes<T, S, O, DS, DT, SAME, TRANS, 2>(a, q_log2,
-                                                                spc);
-    case 2:
-      return launch_hsum_lanes<T, S, O, DS, DT, SAME, TRANS, 4>(a, q_log2,
-                                                                spc);
-    case 3:
-      return launch_hsum_lanes<T, S, O, DS, DT, SAME, TRANS, 8>(a, q_log2,
-                                                                spc);
-    case 4:
-      return launch_hsum_lanes<T, S, O, DS, DT, SAME, TRANS, 16>(a, q_log2,
-                                                                 spc);
-    default: return cudaErrorInvalidValue;
-  }
+  return launch_hsum_lanes<T, S, O, DS, DT, SAME, TRANS, kWhole>(a);
 }
 
 // pair: the index of (s, t) in (0, 0), (0, 1), (1, 1) (bal.py, PAIRS);
@@ -989,6 +1144,12 @@ int run_hessian_sum(const void* jc, const void* jp, const void* dl,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (num_segments == 0) return 0;
+  // the lanes kernel reads J's rows in vector loads (RowLoad); J as
+  // bal_scale_b stores it starts 16-byte aligned
+  if ((reinterpret_cast<unsigned long long>(jc) |
+       reinterpret_cast<unsigned long long>(jp)) & 15) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
   HSumArgs a{jc, jc, dl, static_cast<const int*>(perm),
              static_cast<const int*>(offsets), out, num_segments, group_log2,
              accumulate, static_cast<cudaStream_t>(stream)};
@@ -1010,6 +1171,52 @@ int run_hessian_sum(const void* jc, const void* jp, const void* dl,
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// kernel_sweep's split of Venice's three sites: the kernel a site takes
+// there (Hpp (0, 0) on lanes; Hpl (0, 1) and Hll (1, 1)
+// on one lane, not transposed), storage and sums in T, with its loads
+// alone (mode 1) or its products alone (mode 2).
+template <typename T, int MODE>
+cudaError_t launch_probe(HSumArgs& a, int pair, const void* jp) {
+  switch (pair) {
+    case 0:
+      if (a.group_log2 == 0) return cudaErrorInvalidValue;
+      return launch_hsum_lanes<T, T, T, 9, 9, true, false, MODE>(a);
+    case 1:
+      if (a.group_log2 != 0) return cudaErrorInvalidValue;
+      a.jt = jp;
+      return launch_hsum_rows<T, T, T, 9, 3, false, false, MODE>(a);
+    case 2:
+      if (a.group_log2 != 0) return cudaErrorInvalidValue;
+      a.js = a.jt = jp;
+      return launch_hsum_rows<T, T, T, 3, 3, true, false, MODE>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int run_probe(const void* jc, const void* jp, const void* dl,
+              const void* perm, const void* offsets, void* out,
+              int num_segments, int pair, int group_log2, int mode,
+              void* stream) {
+  if (num_segments <= 0 || group_log2 < 0 || group_log2 > 8) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if ((reinterpret_cast<unsigned long long>(jc) |
+       reinterpret_cast<unsigned long long>(jp)) & 15) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  HSumArgs a{jc, jc, dl, static_cast<const int*>(perm),
+             static_cast<const int*>(offsets), out, num_segments, group_log2,
+             0, static_cast<cudaStream_t>(stream)};
+  switch (mode) {
+    case kLoadsOnly:
+      return static_cast<int>(launch_probe<T, kLoadsOnly>(a, pair, jp));
+    case kProductsOnly:
+      return static_cast<int>(launch_probe<T, kProductsOnly>(a, pair, jp));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 unsigned blocks_for(long long n, int per_block) {
@@ -1188,6 +1395,21 @@ GT_BAL_HESSIAN_SUM(gt_bal_hessian_sum_f64_f32, double, float, float)
 GT_BAL_HESSIAN_SUM(gt_bal_hessian_sum_f64_bf16, double, __nv_bfloat16,
                    double)
 GT_BAL_HESSIAN_SUM(gt_bal_hessian_sum_f64_f16, double, __half, double)
+
+// kernel_sweep's split of a Venice site's time: the arguments of
+// gt_bal_hessian_sum (no transposed site, no accumulate; jc 16-byte
+// aligned), storage and sums in the graph's type, and mode 1 (the loads
+// alone) or 2 (the products alone). The output is not the sums.
+#define GT_BAL_HESSIAN_SUM_PROBE(NAME, T)                                   \
+  extern "C" int NAME(const void* jc, const void* jp, const void* dl,      \
+                      const void* perm, const void* offsets, void* out,    \
+                      int num_segments, int pair, int group_log2,          \
+                      int mode, void* stream) {                            \
+    return run_probe<T>(jc, jp, dl, perm, offsets, out, num_segments, pair, \
+                        group_log2, mode, stream);                         \
+  }
+GT_BAL_HESSIAN_SUM_PROBE(gt_bal_hessian_sum_probe, float)
+GT_BAL_HESSIAN_SUM_PROBE(gt_bal_hessian_sum_probe_f64, double)
 
 extern "C" const char* gt_bal_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

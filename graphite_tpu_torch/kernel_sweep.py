@@ -46,15 +46,30 @@ On a CUDA card (it exits 1 without one), from seeded random inputs:
    16 CTAs, beside ``torch.dot``;
 9. K10 (the landmark inverses and W = Hpl Hll^-1) at Venice-1778's
    shape (993,923 3x3 Hll blocks, Poisson(5.03) (9, 3) Hpl blocks a
-   landmark: ~5.0 M) beside its plain version and its bytes bound.
+   landmark: ~5.0 M) beside its plain version and its bytes bound;
+10. K7's Hessian sum at Venice-1778's three sites (5,001,946 factors of
+   random cameras and sorted points: Hpp, 1,779 camera blocks through the
+   sort permutation, the plan's 32 lanes; Hpl, one block a distinct
+   (point, camera) pair, and Hll, 993,924 point blocks, both sorted, one
+   lane), float32 and float64 (J, dL and the sums in the graph's type),
+   whole, with its loads alone and with its products alone (the kernel's
+   own loop either way: ``gt_bal_hessian_sum_probe``), beside its bytes
+   bound;
+11. the same sites' Hessian sum whole in each of K7's seven (graph,
+   storage) instances (J stored in float32, bf16 or fp16 on a float32
+   graph; float64, float32, bf16 or fp16 on a float64 one), through the
+   wrapper alone, beside its bytes bound.
 
 Device times are CUDA-event means over 20 calls captured in one CUDA
 graph and replayed, so no host time is in them. Prints one line per
-measurement, the card's name and power limit first.
+measurement, the card's name and power limit first. ``--sections 10 2``
+runs those sections alone.
 """
 
 from __future__ import annotations
 
+import argparse
+import functools
 import statistics
 import subprocess
 import sys
@@ -63,6 +78,7 @@ import time
 import numpy as np
 import torch
 
+from .ops.cuda import bal as k7
 from .ops.cuda import (
     dot,
     launches,
@@ -73,6 +89,7 @@ from .ops.cuda import (
     segsum,
     segsum_stream,
 )
+from .precision import Precision
 
 GROUPS = (1, 8, 16, 32, 64, 128, 256)
 # (rows, segments, width, destinations sorted, site)
@@ -287,9 +304,10 @@ def k4_venice(rng, dev):
 CLUSTERS = (1, 2, 4, 8, 16)
 
 
+@functools.cache
 def sync_costs(dev):
     """us per release/acquire cluster barrier and per fence-free exchange,
-    by (kind, threads) and cluster size."""
+    by (kind, threads) and cluster size (measured once a device)."""
     lib = pcg_mf.load_kernel()
     costs = {}
     for threads in (pcg_mf.THREADS, pcg_mf.THREADS_F64, pcg_dense.THREADS):
@@ -344,7 +362,8 @@ def k6_inputs(dev, kind, precond, mu=1e-4):
             problem.rows_view(damp, rows).reshape(-1).contiguous(), minv)
 
 
-def k6_clusters(dev, costs):
+def k6_clusters(dev):
+    costs = sync_costs(dev)
     lib = pcg_mf.load_kernel()
     kw = dict(max_iter=50, tol=1e-10, rejection_ratio=1e6)
     for kind, precond in (("se3", "bj"), ("se3", "identity"), ("se2", "bj")):
@@ -417,7 +436,8 @@ def ladybug_schur_system(dev, mu=1e-4):
     return S, M, b_s.to(S.dtype)
 
 
-def k2_clusters(rng, dev, costs):
+def k2_clusters(rng, dev):
+    costs = sync_costs(dev)
     n = 1024
     A = rng.standard_normal((n, n))
     S2 = A @ A.T + n * np.eye(n)
@@ -487,7 +507,109 @@ def k10_venice(rng, dev):
           f" ({moved / ms / 1e6:.0f} GB/s)", flush=True)
 
 
-def main():
+def k7_venice_sites(rng):
+    """(factors, sites) at Venice-1778: random cameras and sorted points;
+    each site (name, slot pair, segment of each factor, blocks with the
+    trash row)."""
+    F = VENICE_OBS
+    cam = rng.integers(0, VENICE_CAMERAS, F)
+    pt = np.sort(rng.integers(0, VENICE_POINTS, F))
+    order = np.lexsort((cam, pt))
+    cam, pt = cam[order], pt[order]
+    # Hpl's block of a factor: its (point, camera) pair's, in factor order
+    pair = pt.astype(np.int64) * VENICE_CAMERAS + cam
+    hpl = np.concatenate([[0], np.cumsum(pair[1:] != pair[:-1])])
+    return F, [("Hpp (9, 9)", (0, 0), cam, VENICE_CAMERAS + 1),
+               ("Hpl (9, 3)", (0, 1), hpl, int(hpl[-1]) + 2),
+               ("Hll (3, 3)", (1, 1), pt, VENICE_POINTS + 1)]
+
+
+def k7_sum_bytes(jc, jp, dL, s, t, plan, out):
+    """Bytes a Hessian sum must move: the J it reads, dL, the plan's
+    offsets and permutation, and the blocks it writes."""
+    used = (jc, jp) if s != t else ((jc,) if s == 0 else (jp,))
+    return (sum(x.numel() * x.element_size() for x in used)
+            + dL.numel() * dL.element_size()
+            + 4 * (plan.num_segments + 1)
+            + (4 * plan.rows if plan.perm is not None else 0)
+            + out.numel() * out.element_size())
+
+
+def k7_site_label(site, plan, F, n):
+    return (f"{site}: {F} rows -> {n} blocks, group {plan.group}, "
+            + ("permuted" if plan.perm is not None else "sorted"))
+
+
+def k7_sums_venice(rng, dev):
+    F, sites = k7_venice_sites(rng)
+    lib = k7.load_kernel()
+    for dt in (torch.float32, torch.float64):
+        suffix = "_f64" if dt == torch.float64 else ""
+        jc = torch.randn((F, 18), dtype=dt, device=dev)
+        jp = torch.randn((F, 6), dtype=dt, device=dev)
+        dL = torch.rand(F, dtype=dt, device=dev)
+        for site, (s, t), seg, n in sites:
+            width = (9, 3)[s] * (9, 3)[t]
+            plan = segsum.plan_segments(seg, n, dev, width=width)
+            out = torch.empty((n, width), dtype=dt, device=dev)
+
+            def probe(mode, entry=f"gt_bal_hessian_sum_probe{suffix}"):
+                perm = plan.perm_i32
+                lib.check(getattr(lib.lib, entry)(
+                    jc.data_ptr(), jp.data_ptr(), dL.data_ptr(),
+                    None if perm is None else perm.data_ptr(),
+                    plan.offsets_i32.data_ptr(), out.data_ptr(), n,
+                    k7.PAIRS.index((s, t)), plan.group.bit_length() - 1, mode,
+                    launches.stream_ptr(dev)), "bal_hessian_sum probe")
+
+            whole = graph_ms(lambda: k7.bal_hessian_sum(
+                jc, jp, dL, plan, s, t, False, out, False))
+            loads = graph_ms(lambda: probe(1))
+            products = graph_ms(lambda: probe(2))
+            moved = k7_sum_bytes(jc, jp, dL, s, t, plan, out)
+            print(f"[k7-sum] {k7_site_label(site, plan, F, n)} "
+                  f"{str(dt)[6:]}: ms={whole:.4f} loads_alone={loads:.4f} "
+                  f"products_alone={products:.4f} "
+                  f"bytes_bound_ms={1e3 * moved / 3.35e12:.4f}", flush=True)
+            del plan, out
+        del jc, jp, dL
+        torch.cuda.empty_cache()
+
+
+def k7_sums_instances(rng, dev):
+    """Section 11: the Hessian sum whole at Venice's sites in each
+    (graph, storage) instance, through the wrapper alone."""
+    F, sites = k7_venice_sites(rng)
+    for graph, (_, storages) in k7.GRAPH_INSTANCES.items():
+        dL = torch.rand(F, dtype=graph, device=dev)
+        for storage in storages:
+            sums = Precision(graph, storage).inv_dtype
+            jc = torch.randn((F, 18), dtype=graph, device=dev).to(storage)
+            jp = torch.randn((F, 6), dtype=graph, device=dev).to(storage)
+            for site, (s, t), seg, n in sites:
+                width = (9, 3)[s] * (9, 3)[t]
+                plan = segsum.plan_segments(seg, n, dev, width=width)
+                out = torch.empty((n, width), dtype=sums, device=dev)
+                ms = graph_ms(lambda: k7.bal_hessian_sum(
+                    jc, jp, dL, plan, s, t, False, out, False))
+                moved = k7_sum_bytes(jc, jp, dL, s, t, plan, out)
+                print(f"[k7-sum-instance] {k7_site_label(site, plan, F, n)} "
+                      f"graph={str(graph)[6:]} storage={str(storage)[6:]}: "
+                      f"ms={ms:.4f} "
+                      f"bytes_bound_ms={1e3 * moved / 3.35e12:.4f}",
+                      flush=True)
+                del plan, out
+            del jc, jp
+            torch.cuda.empty_cache()
+        del dL
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--sections", type=int, nargs="+",
+                    default=list(range(1, 12)),
+                    help="the sections to run (default: all)")
+    sections = set(ap.parse_args(argv).sections)
     if not torch.cuda.is_available():
         print("kernel_sweep: no CUDA device available", file=sys.stderr)
         return 1
@@ -498,20 +620,18 @@ def main():
           else torch.cuda.get_device_name(0), flush=True)
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
-    host_costs(rng, dev)
-    k1_groups(rng, dev)
-    k5_groups(rng, dev)
-    torch.cuda.empty_cache()
-    k3_venice(rng, dev)
-    torch.cuda.empty_cache()
-    k4_venice(rng, dev)
-    torch.cuda.empty_cache()
-    costs = sync_costs(dev)
-    k6_clusters(dev, costs)
-    k2_clusters(rng, dev, costs)
-    k9_clusters(rng, dev)
-    torch.cuda.empty_cache()
-    k10_venice(rng, dev)
+    steps = {1: lambda: host_costs(rng, dev), 2: lambda: k1_groups(rng, dev),
+             3: lambda: k5_groups(rng, dev), 4: lambda: k3_venice(rng, dev),
+             5: lambda: k4_venice(rng, dev), 6: lambda: sync_costs(dev),
+             7: lambda: (k6_clusters(dev), k2_clusters(rng, dev)),
+             8: lambda: k9_clusters(rng, dev),
+             9: lambda: k10_venice(rng, dev),
+             10: lambda: k7_sums_venice(rng, dev),
+             11: lambda: k7_sums_instances(rng, dev)}
+    for section, step in steps.items():
+        if section in sections:
+            step()
+            torch.cuda.empty_cache()
     return 0
 
 

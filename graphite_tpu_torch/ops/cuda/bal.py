@@ -113,6 +113,10 @@ def _signatures():
             # transposed, group_log2, accumulate, stream
             **{f"gt_bal_hessian_sum{suffix}_{STORAGE_SUFFIX[s]}":
                [_P] * 6 + [_I] * 5 + [_P] for s in storages},
+            # kernel_sweep's split of a Venice site's time: jc, jp, dl,
+            # perm, offsets, out, num_segments, pair, group_log2, mode,
+            # stream
+            f"gt_bal_hessian_sum_probe{suffix}": [_P] * 6 + [_I] * 4 + [_P],
         })
     return sig
 

@@ -42,13 +42,15 @@ class KernelLibrary:
     lib: ctypes.CDLL
     path: Path
     build_seconds: float  # 0.0 when an up-to-date library was reused
-    log: str  # nvcc's output (register / shared-memory use per kernel)
+    # nvcc's output (register / shared-memory use per kernel), kept beside
+    # the library and read back when it is reused
+    log: str
 
     def instances(self) -> List[Tuple[str, str]]:
         """Each kernel instance of the build log with its ptxas lines:
         (demangled name, "N registers, S bytes spill stores, L bytes spill
-        loads, ..."), in the log's order; empty for a library reused from
-        an earlier build."""
+        loads, ..."), in the log's order; empty where the library's build
+        log is missing."""
         found, name = [], None
         for line in self.log.splitlines():
             entry = re.search(r"Compiling entry function '([^']+)'", line)
@@ -118,8 +120,12 @@ def load_library(name: str,
         src.read_bytes() + headers
         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
+    log_file = out.with_suffix(".log")
     seconds, log = 0.0, ""
-    if not out.exists():
+    if out.exists():
+        if log_file.exists():
+            log = log_file.read_text()
+    else:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         t0 = time.perf_counter()
@@ -130,6 +136,9 @@ def load_library(name: str,
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src}:\n{log}")
+        tmp_log = log_file.with_name(f"{log_file.name}.{os.getpid()}.tmp")
+        tmp_log.write_text(log)
+        os.replace(tmp_log, log_file)
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     for fn_name, argtypes in signatures.items():

@@ -26,6 +26,15 @@ branch (the gate forced shut) on the sorted, transposed and two-set
 graphs, launches one sum per site and no K1 reduction. The sum and
 ``bal_scale_b`` raise, before they look for a card, for a pair of graph,
 storage and sum dtypes that has no instance.
+
+The kernel forms only the distinct entries (i <= k) of the symmetric
+sites (0, 0) and (1, 1) and stores each to (i, k) and (k, i). What that
+rests on is held here under all six policies (the FP64 ones too): the
+plain product rows of those sites are bitwise symmetric blocks (signed
+zeros compared as bit patterns; the fixed camera's rows are all zeros),
+and the upper triangle's columns summed by ``segment_sum_ordered`` and
+mirrored are bitwise the full ``bal_hessian_sum_plain``, stored and
+added, on plans of 1, 2, 32 and 256 lanes.
 """
 
 import dataclasses
@@ -47,6 +56,7 @@ torch.set_num_threads(1)
 
 SIZE = (6, 60, 300)
 POLICIES = ["FP32_FP32", "FP32_BF16", "FP32_FP16"]
+ALL_POLICIES = POLICIES + ["FP64_FP64", "FP64_FP32", "FP64_BF16"]
 LOSSES = {"default": (None, None), "huber": (gtt.HuberLoss(), 2.0),
           "cauchy": (gtt.CauchyLoss(), 1.5)}
 FIXED_CAMERA = 5
@@ -94,8 +104,8 @@ def _problem(policy="FP32_FP32", loss="default", order="cameras_first",
 
 
 def _bits(t):
-    return t.contiguous().view({4: torch.int32, 2: torch.int16}[
-        t.element_size()])
+    return t.contiguous().view({8: torch.int64, 4: torch.int32,
+                                2: torch.int16}[t.element_size()])
 
 
 def _same(a, b):
@@ -306,3 +316,68 @@ def test_ordered_segment_sum_is_k1s_plain_version(group):
     plan = segsum.plan_segments(seg, 41, "cpu", group=group)
     _same(segsum.segment_sum_ordered(vals, plan),
           segsum.segment_sum_plain(vals, plan))
+
+
+def _sum_inputs(policy, loss="default"):
+    """(problem, stored J (jc, jp), dL, Hessian structure) at the first
+    linearization point of ``_problem(policy, loss)``."""
+    problem = _problem(policy, loss)
+    lin = linearize(problem, problem.params0)
+    jc, jp = lin.jacobians["bal_reprojection"]
+    return (problem, (jc, jp), lin.chi2_deriv["bal_reprojection"],
+            torch_hessian.build_hessian_structure(problem))
+
+
+@pytest.mark.parametrize("loss", sorted(LOSSES))
+@pytest.mark.parametrize("policy", ALL_POLICIES)
+def test_symmetric_sites_rows_are_bitwise_symmetric(policy, loss):
+    """Each factor's (9, 9) and (3, 3) product of the symmetric sites is
+    a bitwise symmetric block in the graph dtype and in the sums' dtype:
+    entry (k, i) is (i, k)'s products with their factors swapped."""
+    problem, (jc, jp), dL, _ = _sum_inputs(policy, loss)
+    inv = problem.precision.inv_dtype
+    for s, d in ((0, 9), (1, 3)):
+        rows = k7.hessian_rows_plain(jc, jp, dL, s, s, False)
+        assert rows.dtype == problem.precision.graph_dtype
+        # the fixed camera's masked slot, and any zero column: exact zeros,
+        # -0.0 among them
+        assert bool(((rows == 0) & torch.signbit(rows)).any())
+        for r in (rows, rows.to(inv)):
+            blocks = r.reshape(-1, d, d)
+            _same(blocks, blocks.transpose(1, 2))
+
+
+@pytest.mark.parametrize("group", [1, 2, 32, 256])
+@pytest.mark.parametrize("policy", ALL_POLICIES)
+def test_upper_triangle_mirrored_is_the_plain_sum(policy, group):
+    """The symmetric sites' upper-triangle columns (i <= k) summed on a
+    plan of ``group`` lanes with ``segment_sum_ordered`` and stored to
+    both (i, k) and (k, i) are bitwise ``bal_hessian_sum_plain``'s blocks,
+    stored into a new group and added to one."""
+    problem, (jc, jp), dL, hs = _sum_inputs(policy)
+    inv = problem.precision.inv_dtype
+    rng = np.random.default_rng(group)
+    sites = [x for x in _sites(problem, hs) if x[1] == x[2]]
+    assert [(s, key) for _, s, _, _, key, _ in sites] == [
+        (0, (9, 9)), (1, (3, 3))]
+    for _, s, t, tr, key, idx in sites:
+        d = key[0]
+        plan = segsum.plan_segments(idx, hs.group_sizes[key] + 1, "cpu",
+                                    group=group, width=d * d)
+        assert plan.group == group
+        pairs = [(i, k) for i in range(d) for k in range(i, d)]
+        rows = k7.hessian_rows_plain(jc, jp, dL, s, t, tr).to(inv)
+        upper = segsum.segment_sum_ordered(
+            rows[:, [i * d + k for i, k in pairs]], plan)
+        mirrored = torch.empty((plan.num_segments, d * d), dtype=inv)
+        for e, (i, k) in enumerate(pairs):
+            mirrored[:, i * d + k] = upper[:, e]
+            mirrored[:, k * d + i] = upper[:, e]
+        stored = k7.bal_hessian_sum_plain(
+            jc, jp, dL, plan, s, t, tr, torch.empty_like(mirrored), False)
+        _same(stored, mirrored)
+        prev = torch.as_tensor(
+            rng.standard_normal(mirrored.shape)).to(inv)
+        added = k7.bal_hessian_sum_plain(jc, jp, dL, plan, s, t, tr,
+                                         prev.clone(), True)
+        _same(added, prev + mirrored)

@@ -113,6 +113,16 @@ on a machine with only PyTorch (``--noconftest`` skips the JAX set-up in
   float64 instance only (the trial chi2 once an iteration), ``jit_loop``
   bitwise the host loop, and FP64_FP64 the CPU's accept pattern and
   chi2 within 1e-9.
+- K7's Hessian sum in all seven instances (float32, bf16 and fp16 J in a
+  float32 graph; float64, float32, bf16 and fp16 J in a float64 graph) on
+  random plans of uneven segments (an empty one, some shorter than their
+  lanes, one of 100,003 rows beside ~3,000 short ones, and the last block,
+  the trash row's, of zero J rows), permuted and sorted, at every forced
+  lane count 1 ... 256, at each slot pair and the transposed one, stored
+  and added to: bitwise the plain version's composition on the CPU (its
+  product rows summed by K1's plain version, which ``segment_sum_ordered``
+  equals there bitwise), one launch a call; a J that does not start
+  16-byte aligned raises.
 - K9 (``csrc/dot.cu``), the PCG's dot: bitwise ``tree_dot_plain`` at n
   from 1 to 10^6 (its cluster and multi-CTA forms, the cluster form's
   edges at 14,994, 16,002, 16,384 and 16,385 entries), float32 and
@@ -1923,6 +1933,114 @@ def test_k7_f64_scale_b_tiles_bitwise(cuda_device, F, storage, scaled):
         assert torch.equal(_k7_bits(o), _k7_bits(a))
         assert torch.equal(_k7_bits(o), _k7_bits(r))
         assert torch.equal(_k7_bits(o.cpu()), _k7_bits(c))
+
+
+# K7's Hessian-sum instances: (graph dtype, storage dtype of the stored J)
+K7_SUM_INSTANCES = [("float32", "float32"), ("float32", "bfloat16"),
+                    ("float32", "float16"), ("float64", "float64"),
+                    ("float64", "float32"), ("float64", "bfloat16"),
+                    ("float64", "float16")]
+K7_LONG_SEGMENT = 100_003
+
+
+def _k7_random_segments(rng):
+    """(segment of each sorted row, number of segments): ~3,000 short
+    segments of 0-12 rows (every 97th empty), one of ``K7_LONG_SEGMENT``
+    rows among them, and a last one (the trash row's) of 7 rows."""
+    lengths = rng.integers(0, 13, 3_000)
+    lengths[::97] = 0
+    lengths = np.concatenate([lengths[:1_500], [K7_LONG_SEGMENT],
+                              lengths[1_500:], [7]])
+    return np.repeat(np.arange(lengths.size), lengths), lengths.size
+
+
+@pytest.mark.parametrize("graph,storage", K7_SUM_INSTANCES)
+def test_k7_sums_random_plans_bitwise(cuda_device, graph, storage):
+    """``bal_hessian_sum`` on random uneven plans (``_k7_random_segments``;
+    permuted, and sorted) at every forced lane count from 1 to 256, at the
+    (0, 0), (0, 1), transposed (0, 1) and (1, 1) sites, stored into an
+    empty group and added to a random one: bitwise the CPU's
+    ``hessian_rows_plain`` rows, rounded to the sums' dtype, summed by
+    ``segsum.segment_sum_plain`` (bitwise ``segment_sum_ordered``, the
+    plain version's sum, on the CPU), and added to the group."""
+    graph, storage = getattr(torch, graph), getattr(torch, storage)
+    sums = gtt.Precision(graph, storage).inv_dtype
+    stats = k7.HESSIAN_SUM_STATS_F64 if graph == torch.float64 else (
+        k7.HESSIAN_SUM_STATS)
+    rng = np.random.default_rng(26)
+    seg, n = _k7_random_segments(rng)
+    F = seg.size
+    order = rng.permutation(F)
+    trash = (seg[order] == n - 1, seg == n - 1)
+
+    def wide(w):
+        x = rng.standard_normal((F, w)) * 10.0 ** rng.integers(-2, 3, (F, w))
+        x.reshape(-1)[::13] = -0.0
+        return x
+
+    J = [torch.as_tensor(wide(w)).to(storage) for w in (18, 6)]
+    dL = torch.as_tensor(rng.random(F) * 2.0).to(graph)
+    dL[::17] = 0.0
+    for kind, seg_f, zero in (("permuted", seg[order], trash[0]),
+                              ("sorted", seg, trash[1])):
+        host = [j.clone() for j in J]
+        for j in host:  # the trash row's factors: masked, +-0.0 J
+            j[torch.as_tensor(zero)] *= -0.0
+        card = [t.to(cuda_device) for t in (*host, dL)]
+        for s, t, tr in ((0, 0, False), (0, 1, False), (0, 1, True),
+                         (1, 1, False)):
+            width = (9, 3)[s] * (9, 3)[t]
+            rows = k7.hessian_rows_plain(*host, dL, s, t, tr).to(sums)
+            for group in (1, 2, 4, 8, 16, 32, 64, 128, 256):
+                plans = [segsum.plan_segments(seg_f, n, dev, group=group)
+                         for dev in (cuda_device, "cpu")]
+                assert (plans[1].perm is None) == (kind == "sorted")
+                ref = segsum.segment_sum_plain(rows, plans[1])
+                prev = torch.as_tensor(
+                    rng.standard_normal((n, width))).to(sums)
+                before = stats.launches
+                stored = k7.bal_hessian_sum(
+                    *card, plans[0], s, t, tr,
+                    torch.empty((n, width), dtype=sums, device=cuda_device),
+                    False)
+                added = k7.bal_hessian_sum(*card, plans[0], s, t, tr,
+                                           prev.to(cuda_device, copy=True),
+                                           True)
+                assert stats.launches - before == 2
+                label = (kind, s, t, tr, group)
+                assert torch.equal(_k7_bits(stored.cpu()),
+                                   _k7_bits(ref)), label
+                assert torch.equal(_k7_bits(added.cpu()),
+                                   _k7_bits(prev + ref)), label
+
+
+@pytest.mark.parametrize("graph,storage", K7_SUM_INSTANCES)
+def test_k7_sums_raise_on_misaligned_j(cuda_device, graph, storage):
+    """``bal_hessian_sum`` on a J that does not start 16-byte aligned (a
+    view one value into its storage), at one lane and at 32, at each slot
+    pair: raises, in each instance (the camera sites' kernel reads J's
+    rows in vector loads; ``bal_scale_b`` stores J aligned)."""
+    graph, storage = getattr(torch, graph), getattr(torch, storage)
+    sums = gtt.Precision(graph, storage).inv_dtype
+    F, n = 64, 4
+    seg = np.repeat(np.arange(n), F // n)
+    dL = torch.rand(F, dtype=graph, device=cuda_device)
+    J = [torch.randn((F, w), dtype=graph, device=cuda_device).to(storage)
+         for w in (18, 6)]
+    odd = []
+    for j in J:
+        v = torch.empty(j.numel() + 1, dtype=storage,
+                        device=cuda_device)[1:].view_as(j)
+        odd.append(v.copy_(j))
+    for group in (1, 32):
+        plan = segsum.plan_segments(seg, n, cuda_device, group=group)
+        for s, t in ((0, 0), (0, 1), (1, 1)):
+            width = (9, 3)[s] * (9, 3)[t]
+            out = torch.empty((n, width), dtype=sums, device=cuda_device)
+            bad = odd[0] if s == 0 else odd[1]
+            args = (bad, J[1]) if s == 0 else (J[0], bad)
+            with pytest.raises(RuntimeError, match="misaligned"):
+                k7.bal_hessian_sum(*args, dL, plan, s, t, False, out, False)
 
 
 @pytest.mark.parametrize("policy", ["FP64_FP64", "FP64_FP32", "FP64_BF16"])

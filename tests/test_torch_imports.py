@@ -134,3 +134,46 @@ def test_native_build_failure_raises(tmp_path, monkeypatch):
     assert "error" in str(err.value)
     assert "broken" not in native._LOADED
     assert not list((tmp_path / "build").glob("*.so"))
+
+
+def test_cuda_build_log_kept_beside_library(tmp_path, monkeypatch):
+    """A CUDA library's build log (ptxas's lines by kernel instance) is
+    kept beside it and read back when the library is reused, so
+    ``instances()`` reads the same either way. nvcc is stood in for by a
+    script that builds the C source with the host compiler and prints
+    ptxas-style lines."""
+    from graphite_tpu_torch.ops.cuda import build
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "probe.cu").write_text(
+        "const char* gt_probe_error_string(int e) { return \"none\"; }\n"
+        "int gt_probe_run(void) { return 0; }\n")
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        "for a; do case $prev in -o) out=$a;; esac; prev=$a; src=$a; done\n"
+        "echo \"ptxas info    : Compiling entry function '_Z3runi' for "
+        "'sm_90a'\"\n"
+        "echo 'ptxas info    : Used 12 registers, 0 bytes spill stores, "
+        "0 bytes spill loads'\n"
+        "exec cc -shared -fPIC -x c -o \"$out\" \"$src\"\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(build, "CSRC_DIR", csrc)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "nvcc_path", lambda: str(nvcc))
+    monkeypatch.setattr(build, "demangle", lambda names: list(names))
+    monkeypatch.setattr(build, "_LOADED", {})
+    signatures = {"gt_probe_run": []}
+    first = build.load_library("probe", signatures)
+    build._LOADED.clear()
+    again = build.load_library("probe", signatures)
+    assert first.build_seconds > 0.0 and again.build_seconds == 0.0
+    assert again.path == first.path
+    assert first.path.with_suffix(".log").read_text() == first.log
+    assert again.log == first.log
+    assert first.instances() == again.instances() == [
+        ("_Z3runi", "Used 12 registers, 0 bytes spill stores, 0 bytes "
+                    "spill loads")]
+    assert again.lib.gt_probe_run() == 0
